@@ -1,0 +1,16 @@
+"""Inference facade (``paddle_tpu/inference.py``, serving subset)."""
+
+from __future__ import annotations
+
+
+def make_serving_engine(model, **kwargs):
+    """Continuous-batching serving front end for a
+    :class:`~paddle_tpu_torch.models.gpt.GPT`: builds a
+    :class:`~paddle_tpu_torch.serving.ServingEngine` over a paged KV
+    cache. ``submit()`` requests and drive ``step()`` (or
+    ``generate_many``); the engine keeps its fixed decode slots full and
+    reports tokens, TTFT, slot occupancy and page utilization through
+    its metrics registry. ``device`` defaults to CUDA (see
+    :class:`~paddle_tpu_torch.serving.ServingEngine`)."""
+    from paddle_tpu_torch.serving.engine import ServingEngine
+    return ServingEngine(model, **kwargs)

@@ -1,0 +1,32 @@
+"""Weights across from the reference: its GPT parameter tree -> this
+package's ``state_dict``.
+
+The port's module attribute names mirror the reference tree (``wte``,
+``blocks.{i}.attn.qkv_proj.weight``, ``blocks.{i}.ln1.scale``, ...) and
+its ``Linear`` keeps the ``(in, out)`` layout, so the conversion is a
+key flatten with no transposes.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+
+def gpt_state_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """Flatten a nested ``{name: {...: array}}`` tree (numpy arrays, or
+    anything ``np.asarray`` takes) into ``{"a.b.c": tensor}``. Empty
+    sub-trees (parameterless layers such as dropout) are dropped."""
+    out: Dict[str, torch.Tensor] = {}
+
+    def walk(prefix: str, node):
+        if isinstance(node, Mapping):
+            for key, sub in node.items():
+                walk(f"{prefix}.{key}" if prefix else str(key), sub)
+        else:
+            out[prefix] = torch.from_numpy(np.array(node, copy=True))
+
+    walk("", params)
+    return out

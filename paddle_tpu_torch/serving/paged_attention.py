@@ -1,0 +1,366 @@
+"""Ragged paged attention: the serving engine's hot path
+(``paddle_tpu/serving/decode_attention.py``).
+
+One fixed-shape call attends every slot's query token(s) over only that
+slot's live KV pages:
+
+``ragged_paged_decode_attention`` — one query token per slot:
+  q            (S, H, Dh)        one query token per decode slot
+  k/v pages    (P, ps, H, Dh)    fixed-size pages, token-major
+  block_tables (S, w) int32      page ids per slot (page 0 = null page)
+  lengths      (S,) int32        live tokens per slot (0 = inactive)
+
+``ragged_paged_prefill_attention`` — a chunk of C query tokens per slot
+at absolute positions ``chunk_starts[s] + c``, causal over everything the
+slot has cached (including the chunk's own prefix, which the caller has
+already written). Lanes at or past ``n_valid[s]`` emit exact zeros.
+
+Each has three implementations in this module: the hand-written Hopper
+kernel (``csrc/paged_attention.cu``, launched for CUDA tensors), the
+plain PyTorch version (the port of the reference's lax fallback, taken
+for CPU tensors and used as the kernel's yardstick on the card), and a
+dense per-row numpy reference. The public functions dispatch on the
+tensors' device: a CUDA tensor launches the kernel or raises, a CPU
+tensor runs the plain version; there is no fallback between the two.
+
+Scale: scores are scaled in fp32 after the dot, in the plain version
+and in the kernel alike (the reference's lax fallback; its Pallas
+wrapper scaled ``q`` in ``q.dtype`` instead).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+
+from paddle_tpu_torch.kernels import build, registry
+from paddle_tpu_torch.ops.attention import NEG_INF
+
+_SOURCE = "paddle_tpu_torch/csrc/paged_attention.cu"
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_HEAD_DIM = 256
+MAX_PAGE_SIZE = 256
+
+
+def _scale(q, scale):
+    return 1.0 / math.sqrt(q.shape[-1]) if scale is None else float(scale)
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch versions (ports of _paged_decode_lax / _paged_prefill_lax)
+# ---------------------------------------------------------------------------
+
+def paged_decode_plain(q, k_pages, v_pages, block_tables, lengths, *,
+                       scale: Optional[float] = None):
+    scale = _scale(q, scale)
+    s_slots, h, _dh = q.shape
+    mp = block_tables.shape[1]
+    ps = k_pages.shape[1]
+    bt = block_tables.long()
+    kg = k_pages[bt]                                   # (S, mp, ps, H, Dh)
+    vg = v_pages[bt]
+    scores = torch.einsum("shd,smthd->shmt", q.float(), kg.float()) * scale
+    scores = scores.reshape(s_slots, h, mp * ps)
+    tok = torch.arange(mp * ps, device=q.device)
+    valid = tok[None, None, :] < lengths.long()[:, None, None]
+    scores = scores.masked_fill(~valid, NEG_INF)
+    p = torch.softmax(scores, dim=-1)
+    # length-0 slots: every key masked -> emit 0, not a uniform mean of v
+    alive = scores.amax(dim=-1, keepdim=True) > NEG_INF / 2
+    p = torch.where(alive, p, torch.zeros_like(p)).reshape(s_slots, h, mp, ps)
+    out = torch.einsum("shmt,smthd->shd", p, vg.float())
+    return out.to(q.dtype)
+
+
+def paged_prefill_plain(q, k_pages, v_pages, block_tables, chunk_starts,
+                        n_valid, *, scale: Optional[float] = None):
+    scale = _scale(q, scale)
+    s_slots, c, h, _dh = q.shape
+    mp = block_tables.shape[1]
+    ps = k_pages.shape[1]
+    bt = block_tables.long()
+    kg = k_pages[bt]                                   # (S, mp, ps, H, Dh)
+    vg = v_pages[bt]
+    scores = torch.einsum("schd,smthd->shcmt", q.float(), kg.float()) * scale
+    scores = scores.reshape(s_slots, h, c, mp * ps)
+    tok = torch.arange(mp * ps, device=q.device)
+    lane = torch.arange(c, device=q.device)
+    pos = chunk_starts.long()[:, None] + lane                    # (S, C)
+    causal = tok[None, None, None, :] <= pos[:, None, :, None]
+    row_ok = (lane[None, :] < n_valid.long()[:, None])[:, None, :, None]
+    scores = scores.masked_fill(~(causal & row_ok), NEG_INF)
+    p = torch.softmax(scores, dim=-1)
+    # masked rows (padding lanes / inactive slots) emit exact zeros
+    alive = scores.amax(dim=-1, keepdim=True) > NEG_INF / 2
+    p = torch.where(alive, p, torch.zeros_like(p)).reshape(
+        s_slots, h, c, mp, ps)
+    out = torch.einsum("shcmt,smthd->schd", p, vg.float())
+    return out.to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# dense references: numpy, per slot and per row, independent of both
+# ---------------------------------------------------------------------------
+
+def _np(t):
+    return t.detach().float().cpu().numpy()
+
+
+def paged_decode_reference(q, k_pages, v_pages, block_tables, lengths, *,
+                           scale: Optional[float] = None):
+    scale = _scale(q, scale)
+    s_slots, h, dh = q.shape
+    mp, ps = block_tables.shape[1], k_pages.shape[1]
+    qn, kp, vp = _np(q), _np(k_pages), _np(v_pages)
+    bt = block_tables.cpu().numpy()
+    ln = lengths.cpu().numpy()
+    outs = np.zeros((s_slots, h, dh), np.float32)
+    for sl in range(s_slots):
+        n = int(ln[sl])
+        if n == 0:
+            continue
+        k = kp[bt[sl]].reshape(mp * ps, h, dh)[:n]
+        v = vp[bt[sl]].reshape(mp * ps, h, dh)[:n]
+        s = np.einsum("hd,thd->ht", qn[sl], k) * scale
+        s = s - s.max(-1, keepdims=True)
+        p = np.exp(s)
+        p = p / p.sum(-1, keepdims=True)
+        outs[sl] = np.einsum("ht,thd->hd", p, v)
+    return torch.from_numpy(outs).to(device=q.device, dtype=q.dtype)
+
+
+def paged_prefill_reference(q, k_pages, v_pages, block_tables, chunk_starts,
+                            n_valid, *, scale: Optional[float] = None):
+    scale = _scale(q, scale)
+    s_slots, c, h, dh = q.shape
+    mp, ps = block_tables.shape[1], k_pages.shape[1]
+    qn, kp, vp = _np(q), _np(k_pages), _np(v_pages)
+    bt = block_tables.cpu().numpy()
+    st = chunk_starts.cpu().numpy()
+    nv = n_valid.cpu().numpy()
+    outs = np.zeros((s_slots, c, h, dh), np.float32)
+    for sl in range(s_slots):
+        k = kp[bt[sl]].reshape(mp * ps, h, dh)
+        v = vp[bt[sl]].reshape(mp * ps, h, dh)
+        for r in range(int(nv[sl])):
+            limit = int(st[sl]) + r + 1          # causal horizon
+            s = np.einsum("hd,thd->ht", qn[sl, r], k[:limit]) * scale
+            s = s - s.max(-1, keepdims=True)
+            p = np.exp(s)
+            p = p / p.sum(-1, keepdims=True)
+            outs[sl, r] = np.einsum("ht,thd->hd", p, v[:limit])
+    return torch.from_numpy(outs).to(device=q.device, dtype=q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# CUDA wrappers (csrc/paged_attention.cu through ctypes)
+# ---------------------------------------------------------------------------
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    # q, k_pages, v_pages, block_tables, lengths, out,
+    # S, H, Dh, ps, w, P, dtype, scale, stream
+    "ptt_paged_decode": [_P] * 6 + [_I] * 7 + [ctypes.c_float, _P],
+    # q, k_pages, v_pages, block_tables, chunk_starts, n_valid, out,
+    # S, C, H, Dh, ps, w, P, dtype, scale, stream
+    "ptt_paged_prefill": [_P] * 7 + [_I] * 8 + [ctypes.c_float, _P],
+}
+
+
+def _kernel(name: str):
+    fn = getattr(build.load("paged_attention"), name)
+    fn.argtypes = _SIGNATURES[name]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_args(q, k_pages, v_pages, ints, q_ndim):
+    """Raise on anything the kernels do not take."""
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"the CUDA kernel needs CUDA tensors, got q on {dev}")
+    if q.ndim != q_ndim:
+        raise ValueError(f"q must be {q_ndim}-D, got shape {tuple(q.shape)}")
+    if q.dtype not in _DTYPE_CODES:
+        raise TypeError(f"q dtype {q.dtype} not supported "
+                        "(float32 or bfloat16)")
+    h, dh = q.shape[-2], q.shape[-1]
+    for name, t in (("k_pages", k_pages), ("v_pages", v_pages)):
+        if t.device != dev or t.dtype != q.dtype:
+            raise ValueError(f"{name} must be {q.dtype} on {dev}, got "
+                             f"{t.dtype} on {t.device}")
+        if t.ndim != 4 or t.shape[2] != h or t.shape[3] != dh:
+            raise ValueError(f"{name} must be (P, ps, {h}, {dh}), got "
+                             f"{tuple(t.shape)}")
+    if k_pages.shape != v_pages.shape:
+        raise ValueError("k_pages and v_pages differ in shape")
+    if not 1 <= dh <= MAX_HEAD_DIM or not 1 <= k_pages.shape[1] <= MAX_PAGE_SIZE:
+        raise ValueError(f"kernel takes Dh <= {MAX_HEAD_DIM} and page_size "
+                         f"<= {MAX_PAGE_SIZE}, got {dh} and {k_pages.shape[1]}")
+    s = q.shape[0]
+    for name, t, ndim in ints:
+        if t.device != dev or t.dtype != torch.int32:
+            raise ValueError(f"{name} must be int32 on {dev}, got "
+                             f"{t.dtype} on {t.device}")
+        if t.ndim != ndim or t.shape[0] != s or t.shape[-1] < 1:
+            raise ValueError(f"{name} must be {ndim}-D with {s} rows, got "
+                             f"{tuple(t.shape)}")
+    for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages),
+                    *((n, t) for n, t, _ in ints)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _raise_on(rc: int, what: str):
+    if rc != 0:
+        raise RuntimeError(f"{what} kernel launch failed: cudaError_t {rc}")
+
+
+def paged_decode_cuda(q, k_pages, v_pages, block_tables, lengths, *,
+                      scale: Optional[float] = None):
+    _check_args(q, k_pages, v_pages,
+                (("block_tables", block_tables, 2), ("lengths", lengths, 1)), 3)
+    s_slots, h, dh = q.shape
+    out = torch.empty_like(q)
+    fn = _kernel("ptt_paged_decode")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+                s_slots, h, dh, k_pages.shape[1], block_tables.shape[1],
+                k_pages.shape[0], _DTYPE_CODES[q.dtype], _scale(q, scale),
+                stream)
+    _raise_on(rc, "ragged paged decode")
+    DECODE.launches += 1
+    return out
+
+
+def paged_prefill_cuda(q, k_pages, v_pages, block_tables, chunk_starts,
+                       n_valid, *, scale: Optional[float] = None):
+    _check_args(q, k_pages, v_pages,
+                (("block_tables", block_tables, 2),
+                 ("chunk_starts", chunk_starts, 1),
+                 ("n_valid", n_valid, 1)), 4)
+    s_slots, c, h, dh = q.shape
+    out = torch.empty_like(q)
+    fn = _kernel("ptt_paged_prefill")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                block_tables.data_ptr(), chunk_starts.data_ptr(),
+                n_valid.data_ptr(), out.data_ptr(), s_slots, c, h, dh,
+                k_pages.shape[1], block_tables.shape[1], k_pages.shape[0],
+                _DTYPE_CODES[q.dtype], _scale(q, scale), stream)
+    _raise_on(rc, "ragged paged prefill")
+    PREFILL.launches += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# work of one call on its inputs (the roofline bound's numerator)
+# ---------------------------------------------------------------------------
+
+def _ids_bytes(n_pages_read: int, n_slots: int, n_scalars: int) -> int:
+    return 4 * n_pages_read + 4 * n_slots * n_scalars
+
+
+def decode_work(q, k_pages, v_pages, block_tables, lengths, **_kw):
+    """(bytes, flops) on these inputs: each live K/V element and live q
+    row read once, the live block-table ids and lengths read once, the
+    whole output written once; 4 flops per live (token, head, d)."""
+    s_slots, h, dh = q.shape
+    ps, w = k_pages.shape[1], block_tables.shape[1]
+    esz = k_pages.element_size()
+    n = np.clip(lengths.cpu().numpy().astype(np.int64), 0, w * ps)
+    tok = int(n.sum())
+    live_rows = int((n > 0).sum())
+    nbytes = (live_rows * h * dh * q.element_size()
+              + 2 * tok * h * dh * esz
+              + _ids_bytes(int((-(-n // ps)).sum()), s_slots, 1)
+              + q.numel() * q.element_size())
+    return nbytes, 4 * tok * h * dh
+
+
+def prefill_work(q, k_pages, v_pages, block_tables, chunk_starts, n_valid,
+                 **_kw):
+    """(bytes, flops) on these inputs: K/V read once up to each slot's
+    furthest horizon, live q rows read once, ids read once, the whole
+    output written once; 4 flops per (live row, attended token, head,
+    d)."""
+    s_slots, c, h, dh = q.shape
+    ps, w = k_pages.shape[1], block_tables.shape[1]
+    esz = k_pages.element_size()
+    st = chunk_starts.cpu().numpy().astype(np.int64)
+    nv = np.clip(n_valid.cpu().numpy().astype(np.int64), 0, c)
+    rows = int(nv.sum())
+    horizon = np.where(nv > 0, np.minimum(st + nv, w * ps), 0)
+    attended = 0
+    for s0, n0 in zip(st, nv):
+        r = np.arange(n0)
+        attended += int(np.minimum(s0 + r + 1, w * ps).sum())
+    nbytes = (rows * h * dh * q.element_size()
+              + 2 * int(horizon.sum()) * h * dh * esz
+              + _ids_bytes(int((-(-horizon // ps)).sum()), s_slots, 2)
+              + q.numel() * q.element_size())
+    return nbytes, 4 * attended * h * dh
+
+
+DECODE = registry.register(registry.KernelEntry(
+    name="ragged_paged_decode",
+    route="cuda",
+    source=_SOURCE,
+    replaces="paddle_tpu/serving/decode_attention.py:265",
+    cuda_fn=paged_decode_cuda,
+    plain_fn=paged_decode_plain,
+    reference_fn=paged_decode_reference,
+    # fp32: the reference kernel contract's tolerance; bf16: the output
+    # rounds to bf16, compared against the plain version run in fp32 on
+    # the same bf16 inputs
+    tolerance={torch.float32: (2e-5, 2e-5), torch.bfloat16: (1e-2, 1e-2)},
+    work=decode_work))
+
+PREFILL = registry.register(registry.KernelEntry(
+    name="ragged_paged_prefill",
+    route="cuda",
+    source=_SOURCE,
+    replaces="paddle_tpu/serving/decode_attention.py:443",
+    cuda_fn=paged_prefill_cuda,
+    plain_fn=paged_prefill_plain,
+    reference_fn=paged_prefill_reference,
+    tolerance={torch.float32: (2e-5, 2e-5), torch.bfloat16: (1e-2, 1e-2)},
+    work=prefill_work))
+
+
+# ---------------------------------------------------------------------------
+# public entry points: dispatch on the tensors' device
+# ---------------------------------------------------------------------------
+
+def _dispatch(entry: registry.KernelEntry, q, *args, scale):
+    if q.device.type == "cuda":
+        return entry.cuda_fn(q, *args, scale=scale)
+    if q.device.type == "cpu":
+        return entry.plain_fn(q, *args, scale=scale)
+    raise ValueError(f"{entry.name}: unsupported device {q.device}")
+
+
+def ragged_paged_decode_attention(q, k_pages, v_pages, block_tables,
+                                  lengths, *, scale: Optional[float] = None):
+    """One decode step of attention for every slot at once; returns
+    (S, H, Dh) in ``q.dtype``. CUDA tensors launch the Hopper kernel;
+    CPU tensors run the plain PyTorch version."""
+    return _dispatch(DECODE, q, k_pages, v_pages, block_tables, lengths,
+                     scale=scale)
+
+
+def ragged_paged_prefill_attention(q, k_pages, v_pages, block_tables,
+                                   chunk_starts, n_valid, *,
+                                   scale: Optional[float] = None):
+    """One batched chunked-prefill step of attention for every slot;
+    returns (S, C, H, Dh) in ``q.dtype``. CUDA tensors launch the Hopper
+    kernel; CPU tensors run the plain PyTorch version."""
+    return _dispatch(PREFILL, q, k_pages, v_pages, block_tables,
+                     chunk_starts, n_valid, scale=scale)

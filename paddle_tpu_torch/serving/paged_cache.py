@@ -1,0 +1,429 @@
+"""Paged KV cache: fixed-size pages, block tables, and prefix sharing
+(``paddle_tpu/serving/paged_cache.py``, fp page pools on one device).
+
+K/V live in fixed-size *pages* shared by all slots; a host-side
+allocator hands pages to slots as their sequences grow and reclaims them
+the step a sequence finishes, so device memory scales with **live
+tokens** (plus one page of rounding per slot).
+
+Device state (torch tensors on ``device``, written in place):
+  pages[layer] = (k_pages, v_pages), each (num_pages, page_size, H, Dh)
+
+Host state (plain numpy, mutated by the allocator):
+  block_tables (num_slots, max_pages_per_slot) int32 — page ids, row-
+    filled in sequence order; unused entries hold 0 (the null page)
+  lengths      (num_slots,) int32 — live tokens per slot
+
+Page 0 is the **null page**: never allocated, the write target for
+masked/inactive lanes inside the fixed-shape steps, and the harmless
+gather target for unused block-table entries.
+
+Prefix sharing: pages are **refcounted**, and prompt prefixes are
+published to a hash-chained index at *page* granularity once their
+content has been prefilled. A new request whose prompt matches a
+published chain maps those pages into its block table and skips
+prefilling them. Rules that keep it exact:
+
+- Only the *owner* (the slot that allocated a page) ever writes it; a
+  borrowed page is read-only for the borrower.
+- Matching is verified against the **stored tokens**, never the hash
+  alone — a hash collision can cost a copy, never correctness.
+- A borrowed *tail* page (partially filled) is replaced by a fresh
+  **copy-on-write** page at reservation time, with a pending device
+  copy (src -> dst) the engine performs before the slot's first write.
+- At most ``len(prompt) - 1`` tokens are ever shared, so every request
+  prefills at least one token — the one that produces its first output.
+- A page whose refcount drops to zero while still published parks in an
+  LRU **cached** pool: reusable by future matches, evicted (and
+  unpublished) only when the allocator runs dry.
+
+The int8 page pool (``quantize_kv``), the host spill tier and the
+tensor-parallel page placement are later slices of the port.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from collections import OrderedDict
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass
+class PagedCacheConfig:
+    num_layers: int
+    num_heads: int
+    head_dim: int
+    num_slots: int
+    page_size: int = 16
+    num_pages: int = 256
+    max_pages_per_slot: int = 16
+    dtype: torch.dtype = torch.float32
+    share_prefix: bool = True
+
+    def __post_init__(self):
+        if self.page_size < 1 or self.num_pages < 2:
+            raise ValueError("need page_size >= 1 and num_pages >= 2 "
+                             "(page 0 is the reserved null page)")
+        if self.max_pages_per_slot < 1:
+            raise ValueError("max_pages_per_slot must be >= 1")
+
+    @property
+    def max_tokens_per_slot(self) -> int:
+        return self.max_pages_per_slot * self.page_size
+
+    def pages_for(self, n_tokens: int) -> int:
+        return -(-n_tokens // self.page_size)
+
+
+class PageOverflowError(RuntimeError):
+    """No free pages (or slot capacity exceeded) for a reservation."""
+
+
+# The same root string as the reference, so that within one process the
+# port's prefix digests equal the reference's (python ``hash`` is salted
+# per interpreter: digests are in-process values only).
+_ROOT_KEY = hash("paddle_tpu.serving.prefix_root")
+
+
+def _chain(parent_key: int, chunk: np.ndarray) -> int:
+    return hash((parent_key, chunk.tobytes()))
+
+
+def _chain_walk(prompt, page_size: int, upto: int,
+                key: int = _ROOT_KEY, start_page: int = 0):
+    """Yield ``(page_index, chain_key, chunk)`` for each FULL page of
+    ``prompt[:upto]`` starting at ``start_page``, chaining from ``key``.
+    The one page-chain loop behind prefix matching, publication and
+    :func:`prompt_prefix_digests`."""
+    k = key
+    p = start_page
+    while (p + 1) * page_size <= upto:
+        chunk = np.asarray(prompt[p * page_size:(p + 1) * page_size],
+                           np.int32)
+        k = _chain(k, chunk)
+        yield p, k, chunk
+        p += 1
+
+
+def prompt_prefix_digests(prompt, page_size: int) -> List[int]:
+    """Hash-chain keys of ``prompt``'s page-aligned full prefix pages —
+    digest ``k`` covers tokens ``[0, (k+1)*page_size)``, capped at
+    ``len(prompt) - 1`` tokens. Exactly the keys
+    :meth:`PagedKVCache.publish_prefix` commits. In-process only."""
+    prompt = np.asarray(prompt, np.int32).reshape(-1)
+    limit = int(prompt.shape[0]) - 1
+    return [key for _p, key, _c in _chain_walk(prompt, page_size, limit)]
+
+
+class PagedKVCache:
+    """Device pages + host-side page allocator, block tables, and the
+    refcounted prefix-sharing index."""
+
+    def __init__(self, config: PagedCacheConfig, device="cpu"):
+        self.config = c = config
+        self.device = torch.device(device)
+        shape = (c.num_pages, c.page_size, c.num_heads, c.head_dim)
+        self.pages: List[Tuple[torch.Tensor, torch.Tensor]] = [
+            (torch.zeros(shape, dtype=c.dtype, device=self.device),
+             torch.zeros(shape, dtype=c.dtype, device=self.device))
+            for _ in range(c.num_layers)]
+        self.block_tables = np.zeros((c.num_slots, c.max_pages_per_slot),
+                                     np.int32)
+        self.lengths = np.zeros((c.num_slots,), np.int32)
+        # page 0 reserved: null page
+        self._free = list(range(c.num_pages - 1, 0, -1))
+        self._slot_pages: List[List[int]] = [[] for _ in range(c.num_slots)]
+        # -- sharing state --
+        self._ref = np.zeros((c.num_pages,), np.int32)   # mappers per page
+        self._owned: List[set] = [set() for _ in range(c.num_slots)]
+        self._cached: "OrderedDict[int, bool]" = OrderedDict()  # LRU, ref 0
+        self._full_index: Dict[int, int] = {}    # chain key -> page id
+        self._tail_index: Dict[int, int] = {}    # chain key -> tail page id
+        self._page_pub: Dict[int, Tuple[str, int]] = {}  # pid -> (kind, key)
+        self._page_tokens: Dict[int, np.ndarray] = {}    # published content
+        self._published_upto: List[int] = [0] * c.num_slots
+        # per-slot publish cursor: chain key covering the first
+        # _published_upto // page_size pages, so each publish_prefix call
+        # hashes only NEW pages
+        self._pub_chain: List[int] = [_ROOT_KEY] * c.num_slots
+        # slot -> (src, dst): device copy the engine owes before writing
+        self._pending_copy: Dict[int, Tuple[int, int]] = {}
+        # match memo keyed on (prompt identity, index generation): each
+        # queued prompt is matched once per index change, not once per
+        # admission pass; entries pin the array so its id stays unique
+        self._index_gen = 0
+        self._match_cache: "OrderedDict[Tuple[int, int], tuple]" = \
+            OrderedDict()
+        self._digests = frozenset()
+        self._digests_gen = -1
+        self.shared_tokens_total = 0     # prefill tokens skipped via sharing
+        self.cow_copies_total = 0
+
+    # -- allocator --------------------------------------------------------
+
+    @property
+    def free_pages(self) -> int:
+        """Pages immediately allocatable (free + evictable cached)."""
+        return len(self._free) + len(self._cached)
+
+    @property
+    def pages_in_use(self) -> int:
+        return int((self._ref[1:] > 0).sum())
+
+    def utilization(self) -> float:
+        """Live-token fraction of the allocatable page pool."""
+        cap = (self.config.num_pages - 1) * self.config.page_size
+        return float(self.lengths.sum()) / cap if cap else 0.0
+
+    def _alloc_page(self) -> int:
+        if self._free:
+            return self._free.pop()
+        if self._cached:     # evict the LRU published-but-idle page
+            pid, _ = self._cached.popitem(last=False)
+            self._unpublish(pid)
+            return pid
+        raise PageOverflowError("page pool exhausted")
+
+    def _acquire(self, pid: int):
+        """Take a reference on a published page (reviving it from the
+        cached pool if idle)."""
+        if pid in self._cached:
+            del self._cached[pid]
+        self._ref[pid] += 1
+
+    def _release(self, pid: int):
+        self._ref[pid] -= 1
+        if self._ref[pid] < 0:
+            raise AssertionError(f"page {pid} over-released")
+        if self._ref[pid] == 0:
+            if pid in self._page_pub:
+                self._cached[pid] = True     # reusable via the index
+            else:
+                self._free.append(pid)
+
+    def _unpublish(self, pid: int):
+        kind, key = self._page_pub.pop(pid)
+        index = self._full_index if kind == "full" else self._tail_index
+        if index.get(key) == pid:
+            del index[key]
+        self._page_tokens.pop(pid, None)
+        self._index_gen += 1
+
+    # -- prefix matching --------------------------------------------------
+
+    def _match_prefix(self, prompt: Optional[np.ndarray]):
+        """Longest published, content-verified prefix of ``prompt``:
+        ``(full_page_ids, (tail_src, n) or None, shared_tokens,
+        key_after_full)``; sharing is capped at ``len(prompt) - 1``."""
+        if prompt is None or not self.config.share_prefix:
+            return [], None, 0, _ROOT_KEY
+        mkey = (id(prompt), self._index_gen)
+        hit = self._match_cache.get(mkey)
+        if hit is not None and hit[0] is prompt:
+            return hit[1]
+        res = self._match_prefix_uncached(prompt)
+        self._match_cache[mkey] = (prompt, res)
+        while len(self._match_cache) > 512:
+            self._match_cache.popitem(last=False)
+        return res
+
+    def _match_prefix_uncached(self, prompt: np.ndarray):
+        ps = self.config.page_size
+        limit = int(prompt.shape[0]) - 1
+        key, k, full = _ROOT_KEY, 0, []
+        for p, key2, chunk in _chain_walk(prompt, ps, limit):
+            pid = self._full_index.get(key2)
+            if pid is None or not np.array_equal(
+                    self._page_tokens[pid], chunk):
+                break
+            full.append(pid)
+            key, k = key2, p + 1
+        shared = k * ps
+        tail_pid = self._tail_index.get(key)
+        if tail_pid is not None:
+            stored = self._page_tokens[tail_pid]
+            rem = np.asarray(prompt[shared:limit], np.int32)
+            n = 0
+            m = min(len(stored), len(rem))
+            while n < m and stored[n] == rem[n]:
+                n += 1
+            if n > 0:
+                return full, (tail_pid, n), shared + n, key
+        return full, None, shared, key
+
+    def can_reserve(self, n_tokens: int,
+                    prompt: Optional[np.ndarray] = None) -> bool:
+        need = self.config.pages_for(n_tokens)
+        if need > self.config.max_pages_per_slot:
+            return False
+        full, _tail, _shared, _key = self._match_prefix(prompt)
+        borrowed_cached = sum(1 for p in full if p in self._cached)
+        fresh = need - len(full)
+        # tail sharing is dropped by reserve() when pinning the CoW src
+        # would not fit, so feasibility only needs the full-page math
+        return fresh <= len(self._free) + len(self._cached) - borrowed_cached
+
+    def reserve(self, slot: int, n_tokens: int,
+                prompt: Optional[np.ndarray] = None) -> int:
+        """Pre-allocate every page ``slot`` will need for ``n_tokens``
+        total tokens (prompt + generation horizon). All-or-nothing, so
+        an admitted request can never run out of pages mid-decode. With
+        ``prompt`` given and sharing on, published prefix pages are
+        mapped instead of allocated; returns the number of prompt tokens
+        already covered (``lengths[slot]`` is set to it here)."""
+        if self._slot_pages[slot]:
+            raise PageOverflowError(f"slot {slot} already holds pages")
+        need = self.config.pages_for(n_tokens)
+        if need > self.config.max_pages_per_slot:
+            raise PageOverflowError(
+                f"{n_tokens} tokens needs {need} pages > max_pages_per_slot"
+                f"={self.config.max_pages_per_slot}")
+        full, tail, shared, chain_key = self._match_prefix(prompt)
+        borrowed_cached = sum(1 for p in full if p in self._cached)
+        fresh = need - len(full)
+        if (tail is not None
+                and fresh > len(self._free) + len(self._cached)
+                - borrowed_cached
+                - (1 if tail[0] in self._cached else 0)):
+            # pinning the CoW src would leave too few evictable pages:
+            # share the full pages only (the tail tokens get recomputed)
+            tail, shared = None, len(full) * self.config.page_size
+        if fresh > len(self._free) + len(self._cached) - borrowed_cached:
+            raise PageOverflowError(
+                f"{fresh} pages needed, {len(self._free)} free "
+                f"+ {len(self._cached)} cached")
+        mapped: List[int] = []
+        owned = set()
+        for pid in full:
+            self._acquire(pid)
+            mapped.append(pid)
+        if tail is not None:
+            # pin the CoW src BEFORE allocating fresh pages: _alloc_page
+            # evicts from the cached pool when free runs dry, and the idle
+            # published tail is exactly the kind of page it would recycle
+            self._acquire(tail[0])
+        for _ in range(fresh):
+            pid = self._alloc_page()
+            self._ref[pid] = 1
+            owned.add(pid)
+            mapped.append(pid)
+        if tail is not None:
+            src, _n = tail
+            # the borrower appends into this page: a fresh CoW page takes
+            # its place (already counted in ``fresh``) and a copy is owed
+            self._pending_copy[slot] = (src, mapped[len(full)])
+            self.cow_copies_total += 1
+        self._slot_pages[slot] = mapped
+        self._owned[slot] = owned
+        self._published_upto[slot] = shared
+        self._pub_chain[slot] = chain_key
+        self.block_tables[slot, :] = 0
+        self.block_tables[slot, :need] = mapped
+        self.lengths[slot] = shared
+        self.shared_tokens_total += shared
+        return shared
+
+    def pending_copy(self, slot: int) -> Optional[Tuple[int, int]]:
+        """(src, dst) device page copy the engine must perform before
+        the slot's first write (CoW of a borrowed tail page)."""
+        return self._pending_copy.get(slot)
+
+    def copy_done(self, slot: int):
+        src, _dst = self._pending_copy.pop(slot)
+        self._release(src)
+
+    def publish_prefix(self, slot: int, prompt: np.ndarray, upto: int):
+        """Publish the slot's OWN prompt pages whose content has been
+        prefilled through token ``upto``: full pages always; the partial
+        tail page once the whole prompt is in. First publisher wins."""
+        if not self.config.share_prefix:
+            return
+        ps = self.config.page_size
+        upto = min(int(upto), int(prompt.shape[0]))
+        if upto <= self._published_upto[slot]:
+            return
+        key = self._pub_chain[slot]
+        k = self._published_upto[slot] // ps
+        for p, key2, chunk in _chain_walk(prompt, ps, upto,
+                                          key=key, start_page=k):
+            pid = self._slot_pages[slot][p]
+            if (key2 not in self._full_index and pid in self._owned[slot]
+                    and pid not in self._page_pub):
+                self._full_index[key2] = pid
+                self._page_pub[pid] = ("full", key2)
+                self._page_tokens[pid] = chunk.copy()
+                self._index_gen += 1
+            key, k = key2, p + 1
+        self._pub_chain[slot] = key
+        if upto >= int(prompt.shape[0]) and upto % ps:
+            tail = np.asarray(prompt[k * ps:upto], np.int32)
+            pid = self._slot_pages[slot][k]
+            if (key not in self._tail_index and pid in self._owned[slot]
+                    and pid not in self._page_pub):
+                self._tail_index[key] = pid
+                self._page_pub[pid] = ("tail", key)
+                self._page_tokens[pid] = tail.copy()
+                self._index_gen += 1
+        self._published_upto[slot] = upto
+
+    def writable(self, slot: int, page_index: int) -> bool:
+        """True when the slot may write the page at this block-table
+        position (it allocated it — borrowed pages are read-only)."""
+        return self._slot_pages[slot][page_index] in self._owned[slot]
+
+    def free_slot(self, slot: int):
+        """Drop the slot's references; pages reach the free pool (or the
+        cached pool, when published) only at refcount zero."""
+        if slot in self._pending_copy:
+            self.copy_done(slot)     # never materialized; release the src
+        for pid in self._slot_pages[slot]:
+            self._release(pid)
+        self._slot_pages[slot] = []
+        self._owned[slot] = set()
+        self._published_upto[slot] = 0
+        self._pub_chain[slot] = _ROOT_KEY
+        self.block_tables[slot, :] = 0
+        self.lengths[slot] = 0
+
+    def slot_pages(self, slot: int) -> List[int]:
+        return list(self._slot_pages[slot])
+
+    def published_digests(self) -> frozenset:
+        """Full-page prefix digests resolvable through the index (live or
+        parked in the cached pool); memoized on the index generation."""
+        if self._digests_gen != self._index_gen:
+            self._digests = frozenset(self._full_index)
+            self._digests_gen = self._index_gen
+        return self._digests
+
+    def check_invariants(self):
+        """Allocator self-check (tests): per-page refcount equals the
+        number of mappings holding it, free/cached/live partition the
+        pool, the null page is never owned, published entries resolve."""
+        c = self.config
+        expect = np.zeros((c.num_pages,), np.int32)
+        for sp in self._slot_pages:
+            for p in sp:
+                expect[p] += 1
+        for (src, _dst) in self._pending_copy.values():
+            expect[src] += 1
+        assert expect[0] == 0, "null page mapped"
+        assert (expect == self._ref).all(), (
+            f"refcount drift: {np.nonzero(expect != self._ref)[0]}")
+        free_s, cached_s = set(self._free), set(self._cached)
+        assert len(free_s) == len(self._free), "page double-freed"
+        assert not (free_s & cached_s), "page both free and cached"
+        assert 0 not in free_s and 0 not in cached_s, "null page pooled"
+        live = {int(p) for p in np.nonzero(self._ref)[0]}
+        assert not (live & (free_s | cached_s)), "live page in a pool"
+        assert free_s | cached_s | live == set(range(1, c.num_pages)), \
+            "page leaked"
+        for pid, (kind, key) in self._page_pub.items():
+            index = self._full_index if kind == "full" else self._tail_index
+            assert index.get(key) == pid, "publication index drift"
+            assert pid in self._page_tokens, "published page lost tokens"
+        for owned, sp in zip(self._owned, self._slot_pages):
+            assert owned <= set(sp), "owned page not mapped"
