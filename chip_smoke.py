@@ -6,29 +6,49 @@
 Phases, in order; any failure exits non-zero:
 
 1. device  — require CUDA; print the card's name and power limit.
-2. build   — compile ``paddle_tpu_torch/csrc/*.cu`` with nvcc (sm_90a).
+2. build   — compile every ``paddle_tpu_torch/csrc/*.cu`` with nvcc
+   (sm_90a), one process per source, all started together.
 3. kernels — every registered kernel against its plain PyTorch version
-   (and the dense reference) on the card, at the serving shapes (S=16,
-   H=16, Dh=64, page 16, width 32, chunk 64), fp32 and bf16, with ragged
-   lengths (0 and non-multiples of the page), inactive prefill slots, and
-   NaN in every page no block table references. Timed with CUDA events
-   (median, L2 flushed before each launch), beside the roofline bound.
-4. serve   — the main path at full width: GPT (vocab 32768, hidden 1024,
-   12 layers, 16 heads, ffn 4096, max_position 512, random weights from a
-   seed) behind ``make_serving_engine(num_slots=16, page_size=16,
-   prefill_chunk=64, max_tokens_per_slot=352)``:
+   (and the dense reference) on the card, fp32 and bf16, timed with CUDA
+   events (median, L2 flushed before each launch) beside the roofline
+   bound and, where one PyTorch call computes the same function, that
+   call's time:
+   (a) ragged paged decode / prefill at the serving shapes (S=16, H=16,
+       Dh=64, page 16, width 32, chunk 64), with ragged lengths (0 and
+       non-multiples of the page), inactive prefill slots, and NaN in
+       every page no block table references;
+   (b) flash attention forward, dk/dv and dq at the training shape
+       (48, 12, 512, 64) with a key-padding bias from ragged valid
+       lengths (one of them 0: a fully masked batch row), causal at
+       (4, 16, 512, 64), and a ragged S=320 with a key bias.
+4. serve   — GPT (vocab 32768, hidden 1024, 12 layers, 16 heads, ffn
+   4096, max_position 512, random weights from a seed) behind
+   ``make_serving_engine(num_slots=16, page_size=16, prefill_chunk=64,
+   max_tokens_per_slot=352)``:
    (a) bf16 weights and pages, 48 requests (prompts of 16..256 tokens,
-       96 new tokens each), timed; every request must finish and every
-       kernel must have launched during the run;
+       96 new tokens each), timed; every request must finish and both
+       paged kernels must have launched during the run;
    (b) fp32, 8 requests x 32 new tokens, through the kernels and through
        the plain versions: greedy tokens must be identical, and the first
        tokens must match the dense ``GPT.forward`` recompute.
-5. output  — one ``{"kernels": [...]}`` line, the nvidia-smi line, and
+5. train   — BERT-base pretraining (vocab 30522, hidden 768, 12 layers,
+   12 heads, ffn 3072, max_position 512, post-LN, dropout 0), batch
+   48 x 512 with valid lengths 128..512, AdamW(1e-4), bf16 compute over
+   fp32 master weights, through ``Trainer.fit``: 3 warm-up steps, then 20
+   timed steps on a fixed seeded batch; the loss must be finite and fall,
+   and each flash kernel must launch exactly 12 times per step. Prints
+   tokens/s, ms/step, MFU, peak memory, and the device busy share and top
+   kernels over 3 profiled steps.
+6. parity  — fp32 BERT at full width with 2 layers, batch 8 x 512, 3
+   AdamW steps through the kernels and through the plain versions (TF32
+   off): losses and final parameters within 1e-4.
+7. output  — one ``{"kernels": [...]}`` line, the nvidia-smi line, and
    the final ``{"ok": true, "device": {...}}`` line.
 """
 
 from __future__ import annotations
 
+import itertools
 import json
 import subprocess
 import sys
@@ -138,6 +158,13 @@ def time_ms(fn, flush, reps):
     return float(np.median(times))
 
 
+def _bound(nbytes, flops, dtype):
+    """(least ms the card could take, "bytes" or "operations")."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
 def check_kernel(entry, make_inputs, device, flush):
     rows = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -161,21 +188,145 @@ def check_kernel(entry, make_inputs, device, flush):
             if not torch.allclose(got, dense, atol=atol, rtol=rtol):
                 raise AssertionError(f"{entry.name}: max |kernel - dense "
                                      f"reference| = {derr:.3e}")
-        nbytes, flops = entry.work(*args)
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+        bound_ms, bound_by = _bound(*entry.work(*args), dtype)
         rows[dtype] = {
             "max_abs_err": err,
             "ms": time_ms(lambda: entry.cuda_fn(*args), flush, 50),
             "plain_ms": time_ms(lambda: entry.plain_fn(*args), flush, 10),
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": nbytes, "flops": flops,
+            "bound_ms": bound_ms, "bound_by": bound_by,
         }
         log(f"  {entry.name} [{str(dtype)[6:]}] max_abs_err={err:.3e} "
             f"kernel={rows[dtype]['ms']:.4f} ms plain="
             f"{rows[dtype]['plain_ms']:.4f} ms bound="
             f"{rows[dtype]['bound_ms']:.4f} ms ({rows[dtype]['bound_by']})")
+    return rows
+
+
+# -- phase 3b: flash attention vs plain versions -------------------------------
+
+#: (name, (B, H, S, Dh), causal, key-padding lengths (None: no bias))
+FLASH_CASES = (
+    ("train", (48, 12, 512, 64), False, "ragged"),
+    ("causal", (4, 16, 512, 64), True, None),
+    ("s320", (8, 12, 320, 64), False, "ragged"),
+)
+
+
+def flash_inputs(shape, lengths, device, seed=5):
+    """q, k, v, do (fp32) and a key-padding bias: valid lengths drawn
+    from [S/4, S] with the first set to 0 (a fully masked batch row)."""
+    b, h, s, d = shape
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    q, k, v, do = (torch.randn(shape, generator=gen, device=device)
+                   for _ in range(4))
+    bias = None
+    if lengths == "ragged":
+        from paddle_tpu_torch.ops.attention import make_padding_bias
+        rng = np.random.default_rng(seed)
+        n = rng.integers(s // 4, s + 1, b)
+        n[0] = 0
+        valid = np.arange(s)[None, :] < n[:, None]
+        bias = make_padding_bias(torch.from_numpy(valid).to(device))
+    return q, k, v, bias, do
+
+
+def _err(got, want, tol, what):
+    atol, rtol = tol
+    got = got.float()
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{what}: non-finite output")
+    err = float((got - want.float()).abs().max())
+    if not torch.allclose(got, want.float(), atol=atol, rtol=rtol):
+        raise AssertionError(f"{what}: max |kernel - reference| = {err:.3e}"
+                             f" > atol {atol} / rtol {rtol}")
+    return err
+
+
+def _library_fwd(q, k, v, bias, causal):
+    """One PyTorch call for the same function (timing yardstick only)."""
+    import torch.nn.functional as F
+    mask = None if bias is None else (bias > -1e29)
+    return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                  is_causal=causal)
+
+
+def _library_bwd(q, k, v, bias, do, causal):
+    """SDPA's whole backward (dq, dk, dv) for the same inputs: one
+    library time for the K6a + K6b pair."""
+    import torch.nn.functional as F
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    mask = None if bias is None else (bias > -1e29)
+    out = F.scaled_dot_product_attention(*leaves, attn_mask=mask,
+                                         is_causal=causal)
+    return lambda: torch.autograd.grad(out, leaves, do, retain_graph=True)
+
+
+def check_flash(case, device, flush):
+    """K5, K6a and K6b on one case, fp32 and bf16: kernel vs the plain
+    version on the same inputs (run in fp32), the fp32 run also vs the
+    dense reference (composed attention and its autograd). Returns
+    {entry name: {dtype: row}}."""
+    from paddle_tpu_torch.ops import attention as FA
+    name, shape, causal, lengths = case
+    q0, k0, v0, bias, do0 = flash_inputs(shape, lengths, device)
+    kw = dict(causal=causal)
+    rows = {e.name: {} for e in (FA.FWD, FA.BWD_DKV, FA.BWD_DQ)}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, do = (t.to(dtype) for t in (q0, k0, v0, do0))
+        q32, k32, v32, do32 = (t.float() for t in (q, k, v, do))
+        out, lse = FA.FWD.cuda_fn(q, k, v, bias, **kw)
+        torch.cuda.synchronize()
+        p_out, p_lse = FA.FWD.plain_fn(q32, k32, v32, bias, **kw)
+        alive = p_lse > FA.NEG_INF / 2
+        if not torch.all(lse[~alive] <= FA.NEG_INF / 2) or \
+                not torch.all(out[~alive] == 0):
+            raise AssertionError(f"flash fwd [{name}]: a fully masked row "
+                                 "is not 0 with lse ~ NEG_INF")
+        errs = {FA.FWD.name: max(
+            _err(out, p_out, FA.FWD.tolerance[dtype], f"fwd[{name}] out"),
+            _err(lse[alive], p_lse[alive], FA.FWD.tolerance[torch.float32],
+                 f"fwd[{name}] lse"))}
+        delta = FA.flash_delta(do32, p_out)
+        args = (q, k, v, bias, do, p_lse, delta)
+        args32 = (q32, k32, v32, bias, do32, p_lse, delta)
+        dk, dv = FA.BWD_DKV.cuda_fn(*args, **kw)
+        dq = FA.BWD_DQ.cuda_fn(*args, **kw)
+        torch.cuda.synchronize()
+        p_dk, p_dv = FA.BWD_DKV.plain_fn(*args32, **kw)
+        p_dq = FA.BWD_DQ.plain_fn(*args32, **kw)
+        tol = FA.BWD_DQ.tolerance[dtype]
+        errs[FA.BWD_DKV.name] = max(_err(dk, p_dk, tol, f"dk[{name}]"),
+                                    _err(dv, p_dv, tol, f"dv[{name}]"))
+        errs[FA.BWD_DQ.name] = _err(dq, p_dq, tol, f"dq[{name}]")
+        if dtype == torch.float32:
+            r_out, _ = FA.FWD.reference_fn(q, k, v, bias, **kw)
+            _err(out, r_out, FA.FWD.tolerance[dtype], f"fwd[{name}] vs dense")
+            r_dk, r_dv = FA.BWD_DKV.reference_fn(*args, **kw)
+            r_dq = FA.BWD_DQ.reference_fn(*args, **kw)
+            for got, want, what in ((dk, r_dk, "dk"), (dv, r_dv, "dv"),
+                                    (dq, r_dq, "dq")):
+                _err(got, want, tol, f"{what}[{name}] vs dense")
+        del out, lse, dk, dv, dq, p_out, p_dk, p_dv, p_dq
+        lib_fwd = time_ms(_library_fwd(q, k, v, bias, causal), flush, 20)
+        lib_bwd = time_ms(_library_bwd(q, k, v, bias, do, causal), flush, 20)
+        for entry, a, a32, lib_ms in (
+                (FA.FWD, (q, k, v, bias), (q32, k32, v32, bias), lib_fwd),
+                (FA.BWD_DKV, args, args32, lib_bwd),
+                (FA.BWD_DQ, args, args32, lib_bwd)):
+            ms_bound, by = _bound(*entry.work(*a, **kw), dtype)
+            r = rows[entry.name][dtype] = {
+                "max_abs_err": errs[entry.name],
+                "ms": time_ms(lambda: entry.cuda_fn(*a, **kw), flush, 20),
+                "plain_ms": time_ms(lambda: entry.plain_fn(*a32, **kw),
+                                    flush, 5),
+                "bound_ms": ms_bound, "bound_by": by, "library_ms": lib_ms,
+            }
+            log(f"  {entry.name}[{name}] [{str(dtype)[6:]}] max_abs_err="
+                f"{r['max_abs_err']:.3e} kernel={r['ms']:.4f} ms plain="
+                f"{r['plain_ms']:.4f} ms library={r['library_ms']:.4f} ms "
+                f"bound={r['bound_ms']:.4f} ms ({r['bound_by']})")
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -252,48 +403,58 @@ def serve_bf16(device, kernels):
     return stats
 
 
-def profile_decode(eng, vocab, blocks=4):
-    """Where a decode block's time goes, after the measured run: 16 new
-    requests are prefilled, then ``blocks`` decode blocks of 16 live
-    slots run unprofiled (host clock, synchronised) and ``blocks`` more
+def profile_window(step, reps):
+    """Where the time of ``reps`` calls of ``step()`` goes: ``reps``
+    calls run unprofiled (host clock, synchronised), then ``reps`` more
     under ``torch.profiler``. The profiler's own overhead inflates its
     window's wall time, so the device's busy share is the profiled
-    window's device time over the unprofiled window's wall time (the
-    two windows differ only by 8 tokens per block of slot length).
-    Returns that share and device time by kernel (CUPTI)."""
+    window's device time over the unprofiled window's wall time. Returns
+    that share and device time by kernel (CUPTI)."""
     from torch.profiler import ProfilerActivity, profile
-    for p in make_prompts(16, vocab, seed=7):
-        eng.submit(p, 96)         # outlives both windows
-    while eng.scheduler.queue or any(
-            not eng.scheduler.slots[i].prefill_done
-            for i in eng.scheduler.active_slots()):
-        eng.step()
     torch.cuda.synchronize()
     t0 = time.monotonic()
-    for _ in range(blocks):
-        eng.step()
+    for _ in range(reps):
+        step()
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(blocks):
-            eng.step()
+        for _ in range(reps):
+            step()
         torch.cuda.synchronize()
     kernels = []
     for ev in prof.key_averages():
-        if not str(ev.device_type).endswith("CUDA"):
+        # user annotations (e.g. "Optimizer.step#AdamW.step") are ranges
+        # on the device timeline, not kernels: counting them counts the
+        # kernels inside them twice
+        if not str(ev.device_type).endswith("CUDA") or getattr(
+                ev, "is_user_annotation", False):
             continue
         us = getattr(ev, "self_device_time_total", 0.0)
         if us > 0:
             kernels.append((us, ev.key[:90], ev.count))
     kernels.sort(reverse=True)
     busy = sum(k[0] for k in kernels) / 1e6
-    return {"blocks": blocks, "tokens": blocks * eng.decode_block * 16,
-            "unprofiled_wall_s": wall, "device_busy_s": busy,
+    return {"unprofiled_wall_s": wall, "device_busy_s": busy,
             "device_busy_share": busy / wall,
             "kernel_launches": int(sum(k[2] for k in kernels)),
             "top_kernels": [{"name": n, "ms": us / 1e3, "count": c}
                             for us, n, c in kernels[:10]]}
+
+
+def profile_decode(eng, vocab, blocks=4):
+    """Where a decode block's time goes, after the measured run: 16 new
+    requests are prefilled, then :func:`profile_window` over ``blocks``
+    decode blocks of 16 live slots (the two windows differ only by 8
+    tokens per block of slot length)."""
+    for p in make_prompts(16, vocab, seed=7):
+        eng.submit(p, 96)         # outlives both windows
+    while eng.scheduler.queue or any(
+            not eng.scheduler.slots[i].prefill_done
+            for i in eng.scheduler.active_slots()):
+        eng.step()
+    return {"blocks": blocks, "tokens": blocks * eng.decode_block * 16,
+            **profile_window(eng.step, blocks)}
 
 
 def dense_greedy(model, prompt, n):
@@ -345,6 +506,178 @@ def serve_fp32_parity(device, kernels):
     torch.cuda.empty_cache()
 
 
+# -- phases 5 and 6: BERT-base pretraining ------------------------------------
+
+TRAIN_BATCH, TRAIN_SEQ = 48, 512
+WARMUP_STEPS, TIMED_STEPS, PROFILED_STEPS = 3, 20, 3
+
+
+def bert_batch(cfg, b, s, device, seed=0):
+    """Feeds as bench.py makes them, from numpy with a seed, except that
+    each sequence gets a valid length drawn from [s/4, s], so the
+    key-padding bias does real work."""
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(s // 4, s + 1, b)
+    feeds = dict(
+        input_ids=rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32),
+        token_type_ids=np.zeros((b, s), np.int32),
+        attention_mask=np.arange(s)[None, :] < lengths[:, None],
+        mlm_labels=rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32),
+        mlm_mask=(rng.random((b, s)) < 0.15).astype(np.float32),
+        nsp_labels=rng.integers(0, 2, b).astype(np.int32),
+    )
+    return {k: torch.from_numpy(v).to(device) for k, v in feeds.items()}
+
+
+def flash_entries():
+    from paddle_tpu_torch.ops import attention as FA
+    return (FA.FWD, FA.BWD_DKV, FA.BWD_DQ)
+
+
+def train_bf16(device):
+    """The training main path through the user's entry points."""
+    from paddle_tpu_torch.core.dtypes import get_policy
+    from paddle_tpu_torch.kernels import registry
+    from paddle_tpu_torch.models.bert import BertConfig, BertForPretraining
+    from paddle_tpu_torch.observability import MetricsRegistry
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.train import build_train_step, make_train_state
+    from paddle_tpu_torch.trainer import Trainer
+    cfg = BertConfig.base(dropout=0.0, attn_dropout=0.0)
+    model = BertForPretraining(cfg, device=device, seed=0)
+    opt = AdamW(model.parameters(), learning_rate=1e-4)
+    state = make_train_state(model, opt)
+    step = build_train_step(lambda m, **b: m.loss(**b), opt,
+                            policy=get_policy("bf16"))
+    batch = bert_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, device)
+    losses = []
+    reg = MetricsRegistry()
+    trainer = Trainer(step, state, log_every=10, log_fn=log, registry=reg,
+                      hooks=[lambda t, n, m: losses.append(m["loss"])])
+    t0 = time.monotonic()
+    trainer.fit(itertools.repeat(batch), steps_per_epoch=WARMUP_STEPS)
+    torch.cuda.synchronize()
+    warm_s = time.monotonic() - t0
+    torch.cuda.reset_peak_memory_stats()
+    registry.reset_launches()               # count only the timed run
+    t0 = time.monotonic()
+    trainer.fit(itertools.repeat(batch), steps_per_epoch=TIMED_STEPS)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = {e.name: e.launches for e in flash_entries()}
+    losses = [float(x) for x in losses]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    if not losses[-1] < min(losses[0], losses[WARMUP_STEPS]):
+        raise AssertionError(f"training loss did not fall: {losses}")
+    want = cfg.num_layers * TIMED_STEPS
+    if any(n != want for n in launches.values()):
+        raise AssertionError(f"flash kernels launched {launches} times, "
+                             f"expected {want} each (12 layers x steps)")
+    n_params = sum(p.numel() for p in model.parameters())
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops_per_token = 6 * n_params + 12 * cfg.num_layers * TRAIN_SEQ * \
+        cfg.hidden_size
+    tps = tokens * TIMED_STEPS / wall
+    stats = {
+        "steps": TIMED_STEPS, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+        "params": n_params, "wall_s": wall, "warmup_s": warm_s,
+        "ms_per_step": wall / TIMED_STEPS * 1e3, "tokens_per_s": tps,
+        "mfu_vs_989tflops": tps * flops_per_token / PEAK_FLOPS[torch.bfloat16],
+        "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "loss_first": losses[0], "loss_last": losses[-1],
+        "host_step_s_mean":
+            reg.histogram("train_step_seconds").summary()["mean"],
+        "launches": launches,
+    }
+    log("  bf16 train: " + json.dumps(stats))
+    it = itertools.repeat(batch)
+    prof = profile_window(lambda: step(state, **next(it)), PROFILED_STEPS)
+    log("  train profile: " + json.dumps({"steps": PROFILED_STEPS, **prof}))
+    del trainer, state, step, opt, model, batch
+    torch.cuda.empty_cache()
+    return stats
+
+
+def _held_params(name, got, want, steps, lr):
+    """Parameters within 1e-4, except the key third of each
+    ``qkv_proj.bias``: its gradient is zero in exact arithmetic (a
+    constant added to a row's scores cancels in the softmax), so Adam
+    normalises rounding noise into steps of about ``lr`` either way;
+    there only the drift is held, to at most 2 x steps x lr."""
+    if name.endswith("attn.qkv_proj.bias"):
+        d = got.shape[0] // 3
+        drift = float((got[d:2 * d] - want[d:2 * d]).abs().max())
+        if drift > 2 * steps * lr:
+            raise AssertionError(f"{name}: key-bias drift {drift:.3e}")
+        got, want = got.clone(), want.clone()
+        got[d:2 * d] = want[d:2 * d]
+    err = float((got - want).abs().max())
+    if not torch.allclose(got, want, atol=1e-4, rtol=1e-4):
+        raise AssertionError(f"fp32 parity: {name} differs by {err:.3e}")
+    return err
+
+
+def train_fp32_parity(device):
+    """BERT at full width, 2 layers, fp32: 3 AdamW steps through the
+    kernels and through the plain versions, TF32 off for matmuls and
+    cuDNN (stated explicitly)."""
+    from paddle_tpu_torch.kernels import registry
+    from paddle_tpu_torch.models.bert import BertConfig, BertForPretraining
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.train import build_train_step, make_train_state
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    steps, lr = 3, 1e-4
+    runs = {}
+    for impl in ("auto", "plain"):
+        cfg = BertConfig.base(num_layers=2, dropout=0.0, attn_dropout=0.0,
+                              attn_impl=impl)
+        model = BertForPretraining(cfg, device=device, seed=1)
+        state = make_train_state(model, AdamW(model.parameters(),
+                                              learning_rate=lr))
+        step = build_train_step(lambda m, **b: m.loss(**b), state["opt"])
+        batch = bert_batch(cfg, 8, TRAIN_SEQ, device, seed=3)
+        registry.reset_launches()
+        losses = [float(step(state, **batch)[1]["loss"])
+                  for _ in range(steps)]
+        launched = [e.launches for e in flash_entries()]
+        if launched != ([2 * steps] * 3 if impl == "auto" else [0] * 3):
+            raise AssertionError(f"fp32 {impl} run launched {launched}")
+        runs[impl] = (losses, {n: p.detach() for n, p in
+                               model.named_parameters()})
+    (k_losses, k_params), (p_losses, p_params) = runs["auto"], runs["plain"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(k_losses, p_losses))
+    if rel > 1e-4:
+        raise AssertionError(f"fp32 parity: losses {k_losses} vs {p_losses}")
+    err = max(_held_params(n, k_params[n], p_params[n], steps, lr)
+              for n in k_params)
+    log(f"  fp32 train parity: losses kernel {k_losses} plain {p_losses} "
+        f"(max rel {rel:.2e}); max |param diff| {err:.2e} over "
+        f"{len(k_params)} tensors")
+    del runs
+    torch.cuda.empty_cache()
+    return {"losses_kernel": k_losses, "losses_plain": p_losses,
+            "loss_rel_err": rel, "param_max_abs_err": err}
+
+
+def kernel_line(entry, rows, launches, case_rows=None):
+    """One entry of the ``kernels`` line: the bf16 row at the main
+    path's shape, with its fp32 row (and other cases) beside it."""
+    b16, f32 = rows[torch.bfloat16], rows[torch.float32]
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    line = {"name": entry.name, "route": entry.route,
+            "source": entry.source, "replaces": entry.replaces,
+            "launches": launches, **{k: b16.get(k) for k in keys},
+            "dtype": "bfloat16", "fp32": {k: f32.get(k) for k in keys}}
+    if case_rows:
+        line["cases"] = {c: {str(dt)[6:]: {k: r[k] for k in keys}
+                             for dt, r in by_dtype.items()}
+                         for c, by_dtype in case_rows.items()}
+    return line
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -353,43 +686,52 @@ def main() -> int:
     t_start = time.monotonic()
     device = torch.device("cuda", 0)
     smi = nvidia_smi_line()
-    log(f"[1/5] device: {torch.cuda.get_device_name(0)} | {smi} | torch "
+    log(f"[1/7] device: {torch.cuda.get_device_name(0)} | {smi} | torch "
         f"{torch.__version__} cuda {torch.version.cuda}")
 
     t0 = time.monotonic()
     secs = build.build_all()
-    log(f"[2/5] build: {json.dumps(secs)} in {time.monotonic() - t0:.1f} s")
+    log(f"[2/7] build: {json.dumps(secs)} in {time.monotonic() - t0:.1f} s")
     for stem, text in build.build_logs.items():
         print(f"--- nvcc {stem}.cu ---\n{text}", file=sys.stderr)
 
     registry.load_all()
-    kernels = [registry.get(n) for n in registry.names()]
     from paddle_tpu_torch.serving import paged_attention as PA
+    paged = [PA.DECODE, PA.PREFILL]
+    flash = list(flash_entries())
+    if sorted(e.name for e in paged + flash) != list(registry.names()):
+        raise AssertionError(f"unexpected registry: {registry.names()}")
     makers = {PA.DECODE.name: decode_inputs, PA.PREFILL.name: prefill_inputs}
-    log("[3/5] kernels vs plain versions")
+    log("[3/7] kernels vs plain versions")
     flush = L2Flush(device)
     rows = {e.name: check_kernel(e, makers[e.name], device, flush)
-            for e in kernels}
+            for e in paged}
+    flash_rows = {e.name: {} for e in flash}
+    for case in FLASH_CASES:
+        for name, by_dtype in check_flash(case, device, flush).items():
+            flash_rows[name][case[0]] = by_dtype
     del flush
+    log(f"  phase 3 done at {time.monotonic() - t_start:.1f} s")
 
-    log("[4/5] main path")
-    stats = serve_bf16(device, kernels)
-    serve_fp32_parity(device, kernels)
+    log("[4/7] serve: GPT continuous batching")
+    stats = serve_bf16(device, paged)
+    serve_fp32_parity(device, paged)
 
-    lines = []
-    for e in kernels:
-        b16, f32 = rows[e.name][torch.bfloat16], rows[e.name][torch.float32]
-        lines.append({
-            "name": e.name, "route": e.route, "source": e.source,
-            "replaces": e.replaces, "launches": stats["launches"][e.name],
-            "max_abs_err": b16["max_abs_err"],
-            "ms": b16["ms"], "plain_ms": b16["plain_ms"],
-            "bound_ms": b16["bound_ms"], "bound_by": b16["bound_by"],
-            "library_ms": None, "dtype": "bfloat16",
-            "fp32": {k: f32[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                         "bound_ms", "bound_by")},
-        })
-    log(f"[5/5] done in {time.monotonic() - t_start:.1f} s")
+    log("[5/7] train: BERT-base pretraining, bf16")
+    train = train_bf16(device)
+    log("[6/7] train parity: fp32, kernels vs plain versions")
+    train_fp32_parity(device)
+
+    lines = [kernel_line(e, rows[e.name], stats["launches"][e.name])
+             for e in paged]
+    lines += [kernel_line(e, flash_rows[e.name][FLASH_CASES[0][0]],
+                          train["launches"][e.name],
+                          {c: r for c, r in flash_rows[e.name].items()
+                           if c != FLASH_CASES[0][0]})
+              for e in flash]
+    log(f"[7/7] done in {time.monotonic() - t_start:.1f} s; library_ms of "
+        "the two backward rows is one call for the pair: SDPA's whole "
+        "backward (dq, dk, dv)")
     print(json.dumps({"kernels": lines}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -45,7 +45,8 @@ class KernelEntry:
 _REGISTRY: Dict[str, KernelEntry] = {}
 
 #: modules that register kernels when imported
-_HOME_MODULES = ("paddle_tpu_torch.serving.paged_attention",)
+_HOME_MODULES = ("paddle_tpu_torch.serving.paged_attention",
+                 "paddle_tpu_torch.ops.attention")
 
 
 def register(entry: KernelEntry) -> KernelEntry:

@@ -6,6 +6,7 @@ flatten and no transposes (:mod:`paddle_tpu_torch.models.convert`)."""
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 from torch import nn
@@ -24,6 +25,7 @@ class GPTConfig:
     ffn_size: int = 3072
     max_position: int = 1024
     dropout: float = 0.0
+    attn_impl: str = "auto"
 
     @classmethod
     def tiny(cls, **kw):
@@ -42,14 +44,15 @@ class GPTBlock(nn.Module):
         kw = dict(device=device, dtype=dtype)
         self.ln1 = LayerNorm(cfg.hidden_size, **kw)
         self.attn = MultiHeadAttention(cfg.hidden_size, cfg.num_heads,
-                                       causal=True, **kw)
+                                       dropout=cfg.dropout, causal=True,
+                                       attn_impl=cfg.attn_impl, **kw)
         self.ln2 = LayerNorm(cfg.hidden_size, **kw)
         self.mlp = FeedForward(cfg.hidden_size, cfg.ffn_size,
                                activation="gelu", dropout=cfg.dropout, **kw)
 
-    def forward(self, x):
-        x = x + self.attn(self.ln1(x))
-        return x + self.mlp(self.ln2(x))
+    def forward(self, x, generator: Optional[torch.Generator] = None):
+        x = x + self.attn(self.ln1(x), generator=generator)
+        return x + self.mlp(self.ln2(x), generator)
 
 
 class GPT(nn.Module):
@@ -85,20 +88,30 @@ class GPT(nn.Module):
     def device(self) -> torch.device:
         return self.wte.weight.device
 
-    def forward(self, ids):
+    def forward(self, ids, *, generator: Optional[torch.Generator] = None):
         pos = torch.arange(ids.shape[1], device=ids.device)[None, :]
-        x = self.drop(self.wte(ids) + self.wpe(pos))
+        x = self.drop(self.wte(ids) + self.wpe(pos), generator)
         for block in self.blocks:
-            x = block(x)
+            x = block(x, generator)
         x = self.ln_f(x)
         return torch.einsum("bsd,vd->bsv", x, self.wte.weight)
+
+    def loss(self, ids, *, generator: Optional[torch.Generator] = None):
+        """Next-token LM loss over ids (B, S): predict ``ids[:, 1:]``.
+        Returns ``(loss, {"ppl": exp(loss)})``; dropout follows the
+        module's training mode (``GPT`` starts in ``eval()``)."""
+        logits = self.forward(ids[:, :-1], generator=generator)
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        nll = -torch.gather(logp, -1, ids[:, 1:, None].long())[..., 0]
+        loss = nll.mean()
+        return loss, {"ppl": torch.exp(loss)}
 
     @classmethod
     def from_jax(cls, cfg: GPTConfig, params, *, device="cuda") -> "GPT":
         """Build the port model from a reference parameter tree given as
         nested dicts of numpy arrays (``jax.device_get(params)``)."""
-        from paddle_tpu_torch.models.convert import gpt_state_from_jax
-        state = gpt_state_from_jax(params)
+        from paddle_tpu_torch.models.convert import state_from_jax
+        state = state_from_jax(params)
         model = cls(cfg, device=device, dtype=state["wte.weight"].dtype)
         model.load_state_dict(state)
         return model

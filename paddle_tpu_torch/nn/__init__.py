@@ -1,5 +1,7 @@
-from paddle_tpu_torch.nn.layers import Dropout, Embedding, LayerNorm, Linear
-from paddle_tpu_torch.nn.transformer import FeedForward, MultiHeadAttention
+from paddle_tpu_torch.nn.layers import (Dropout, Embedding, LayerNorm, Linear,
+                                        dropout)
+from paddle_tpu_torch.nn.transformer import (FeedForward, MultiHeadAttention,
+                                             TransformerEncoderLayer)
 
 __all__ = ["Dropout", "Embedding", "FeedForward", "LayerNorm", "Linear",
-           "MultiHeadAttention"]
+           "MultiHeadAttention", "TransformerEncoderLayer", "dropout"]

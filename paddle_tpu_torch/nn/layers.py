@@ -82,13 +82,27 @@ class Embedding(nn.Module):
         return F.embedding(ids, self.weight)
 
 
+def dropout(x, rate: float = 0.5, *, training: bool = True,
+            generator: Optional[torch.Generator] = None):
+    """Upscale-in-train dropout (``ops/nn.py:229``): keep each element
+    with probability ``1 - rate`` and divide it by that, zero the rest.
+    The identity when not ``training`` or at rate 0. Draws come from
+    ``generator`` (the default generator of ``x``'s device when None)."""
+    if not training or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
 class Dropout(nn.Module):
-    """Inference-only port: the identity. Training (and its random
-    masks) arrives with the training slice."""
+    """:func:`dropout` in the module's training mode: the identity in
+    ``eval()`` or at rate 0."""
 
     def __init__(self, rate: float = 0.5):
         super().__init__()
         self.rate = rate
 
-    def forward(self, x):
-        return x
+    def forward(self, x, generator: Optional[torch.Generator] = None):
+        return dropout(x, self.rate, training=self.training,
+                       generator=generator)

@@ -1,31 +1,39 @@
 """Transformer building blocks (``paddle_tpu/nn/transformer.py``):
-self-attention with one fused ``qkv_proj`` ``(D, 3D)`` and the
-position-wise MLP. Heads are laid out ``(B, H, S, Dh)`` as in the
-reference."""
+self-attention with one fused ``qkv_proj`` ``(D, 3D)``, the position-wise
+MLP and the encoder layer. Heads are laid out ``(B, H, S, Dh)`` as in the
+reference. Dropout follows each module's training mode and draws from the
+``generator`` passed down the forward."""
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch import nn
 
-from paddle_tpu_torch.nn.layers import Dropout, Linear
+from paddle_tpu_torch.nn.layers import Dropout, LayerNorm, Linear
 from paddle_tpu_torch.ops import activation as ops_act
-from paddle_tpu_torch.ops.attention import scaled_dot_product_attention
+from paddle_tpu_torch.ops.attention import dot_product_attention
 
 
 class MultiHeadAttention(nn.Module):
-    """Fused-qkv self-attention. The serving engine owns the attention
-    itself (ragged paged kernels) and uses only :meth:`qkv_heads` and
-    :meth:`proj_out`; :meth:`forward` is the dense composed path."""
+    """Fused-qkv self-attention. :meth:`forward` goes through
+    :func:`~paddle_tpu_torch.ops.attention.dot_product_attention` with
+    ``attn_impl`` (flash attention unless attention dropout is active);
+    the serving engine owns the attention itself (ragged paged kernels)
+    and uses only :meth:`qkv_heads` and :meth:`proj_out`."""
 
-    def __init__(self, embed_dim: int, num_heads: int, bias: bool = True,
-                 causal: bool = False, *, device=None, dtype=None):
+    def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0,
+                 bias: bool = True, causal: bool = False,
+                 attn_impl: str = "auto", *, device=None, dtype=None):
         super().__init__()
         if embed_dim % num_heads:
             raise ValueError("num_heads must divide embed_dim")
         self.embed_dim, self.num_heads = embed_dim, num_heads
         self.head_dim = embed_dim // num_heads
+        self.dropout_rate = dropout
         self.causal = causal
+        self.attn_impl = attn_impl
         self.qkv_proj = Linear(embed_dim, 3 * embed_dim, bias=bias,
                                device=device, dtype=dtype)
         self.out_proj = Linear(embed_dim, embed_dim, bias=bias,
@@ -48,14 +56,20 @@ class MultiHeadAttention(nn.Module):
         """(B, H, S, Dh) attention output -> (B, S, D)."""
         return self.out_proj(self._merge_heads(heads))
 
-    def forward(self, x):
+    def forward(self, x, *, bias=None,
+                generator: Optional[torch.Generator] = None):
+        """x: (B, S, D); ``bias`` additive, broadcastable to
+        (B, H, S, S) (a key-padding bias is (B, 1, 1, S))."""
         q, k, v = self.qkv_heads(x)
-        out = scaled_dot_product_attention(q, k, v, causal=self.causal)
+        rate = self.dropout_rate if self.training else 0.0
+        out = dot_product_attention(q, k, v, bias=bias, causal=self.causal,
+                                    dropout_rate=rate, generator=generator,
+                                    impl=self.attn_impl)
         return self.proj_out(out)
 
 
 class FeedForward(nn.Module):
-    """``fc2(act(fc1(x)))``, GELU (tanh approximation) by default."""
+    """``fc2(drop(act(fc1(x))))``, GELU (tanh approximation) by default."""
 
     def __init__(self, embed_dim: int, ffn_dim: int, activation: str = "gelu",
                  dropout: float = 0.0, *, device=None, dtype=None):
@@ -65,5 +79,37 @@ class FeedForward(nn.Module):
         self.act = getattr(ops_act, activation)
         self.drop = Dropout(dropout)
 
-    def forward(self, x):
-        return self.fc2(self.drop(self.act(self.fc1(x))))
+    def forward(self, x, generator: Optional[torch.Generator] = None):
+        return self.fc2(self.drop(self.act(self.fc1(x)), generator))
+
+
+class TransformerEncoderLayer(nn.Module):
+    """Post-LN (BERT, the default) or pre-LN encoder block; parameters
+    ``attn``, ``ffn``, ``ln1``, ``ln2`` as in the reference tree."""
+
+    def __init__(self, embed_dim: int, num_heads: int, ffn_dim: int,
+                 dropout: float = 0.1, attn_dropout: Optional[float] = None,
+                 activation: str = "gelu", pre_ln: bool = False,
+                 attn_impl: str = "auto", *, device=None, dtype=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        self.attn = MultiHeadAttention(
+            embed_dim, num_heads,
+            dropout=attn_dropout if attn_dropout is not None else dropout,
+            attn_impl=attn_impl, **kw)
+        self.ffn = FeedForward(embed_dim, ffn_dim, activation, dropout, **kw)
+        self.ln1 = LayerNorm(embed_dim, **kw)
+        self.ln2 = LayerNorm(embed_dim, **kw)
+        self.drop = Dropout(dropout)
+        self.pre_ln = pre_ln
+
+    def forward(self, x, *, bias=None,
+                generator: Optional[torch.Generator] = None):
+        g = generator
+        if self.pre_ln:
+            h = self.attn(self.ln1(x), bias=bias, generator=g)
+            x = x + self.drop(h, g)
+            return x + self.drop(self.ffn(self.ln2(x), g), g)
+        h = self.attn(x, bias=bias, generator=g)
+        x = self.ln1(x + self.drop(h, g))
+        return self.ln2(x + self.drop(self.ffn(x, g), g))

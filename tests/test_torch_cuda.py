@@ -133,3 +133,114 @@ def test_out_of_range_page_ids_clamp_like_the_reference_gather(dev):
     torch.testing.assert_close(PA.paged_decode_cuda(*args, bad, full),
                                PA.paged_decode_cuda(*args, last, full),
                                atol=0, rtol=0)
+
+
+# -- flash attention (K5 forward, K6a dk/dv, K6b dq) -------------------------
+
+from paddle_tpu_torch.ops import attention as FA  # noqa: E402
+
+FLASH_CASES = [  # (B, H, Sq, Sk, causal, bias)
+    (2, 2, 1, 1, False, None),
+    (2, 3, 17, 17, True, None),
+    (1, 2, 17, 320, True, "key"),      # Sq < Sk: bottom-right diagonal
+    (2, 2, 320, 17, True, None),       # Sq > Sk: leading rows see no key
+    (3, 2, 320, 320, False, "key"),    # one batch row fully masked
+    (1, 2, 512, 512, True, "full"),
+    (2, 1, 64, 512, False, "full"),
+]
+
+
+def _flash_inputs(seed, b, h, sq, sk, d, bias_mode, dev):
+    rng = np.random.default_rng(seed)
+    q, do = (torch.from_numpy(rng.standard_normal((b, h, sq, d)).astype(
+        np.float32)).to(dev) for _ in range(2))
+    k, v = (torch.from_numpy(rng.standard_normal((b, h, sk, d)).astype(
+        np.float32)).to(dev) for _ in range(2))
+    bias = None
+    if bias_mode == "key":
+        lengths = rng.integers(1, sk + 1, b)
+        lengths[-1] = 0 if b > 2 else lengths[-1]
+        valid = torch.arange(sk)[None, :] < torch.from_numpy(lengths)[:, None]
+        bias = FA.make_padding_bias(valid).to(dev)
+    elif bias_mode == "full":
+        bias = torch.from_numpy(rng.standard_normal((1, h, sq, sk)).astype(
+            np.float32)).to(dev)
+    return q, k, v, bias, do
+
+
+def _close(got, want, tol, what):
+    atol, rtol = tol
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol, msg=lambda m: f"{what}: {m}")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("dh", [32, 64, 128])
+@pytest.mark.parametrize("case", FLASH_CASES,
+                         ids=lambda c: "x".join(map(str, c[:4])) +
+                         ("_causal" if c[4] else "") + f"_{c[5]}")
+def test_flash_kernels_match_plain_versions(dev, case, dh, dtype):
+    b, h, sq, sk, causal, bias_mode = case
+    q, k, v, bias, do = _flash_inputs(sq + sk + dh, b, h, sq, sk, dh,
+                                      bias_mode, dev)
+    kw = dict(causal=causal)
+    qc, kc, vc, doc = (t.to(dtype) for t in (q, k, v, do))
+    q32, k32, v32, do32 = (t.float() for t in (qc, kc, vc, doc))
+    out, lse = FA.FWD.cuda_fn(qc, kc, vc, bias, **kw)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and lse.dtype == torch.float32
+    ref_out, ref_lse = FA.flash_fwd_plain(q32, k32, v32, bias, **kw)
+    _close(out, ref_out, FA.FWD.tolerance[dtype], "out")
+    alive = ref_lse > FA.NEG_INF / 2
+    _close(lse[alive], ref_lse[alive], FA.FWD.tolerance[torch.float32], "lse")
+    assert torch.all(lse[~alive] <= FA.NEG_INF / 2)
+    assert torch.all(out.float()[~alive] == 0)
+    delta = FA.flash_delta(do32, ref_out)
+    args = (qc, kc, vc, bias, doc, ref_lse, delta)
+    args32 = (q32, k32, v32, bias, do32, ref_lse, delta)
+    dk, dv = FA.BWD_DKV.cuda_fn(*args, **kw)
+    dq = FA.BWD_DQ.cuda_fn(*args, **kw)
+    torch.cuda.synchronize()
+    pdq, pdk, pdv = FA._flash_bwd_parts(*args32, **kw)
+    tol = FA.BWD_DQ.tolerance[dtype]
+    for got, want, name in ((dq, pdq, "dq"), (dk, pdk, "dk"), (dv, pdv, "dv")):
+        assert got.dtype == dtype
+        _close(got, want, tol, name)
+
+
+def test_flash_autograd_through_kernels_matches_plain(dev):
+    q, k, v, bias, do = _flash_inputs(1, 2, 3, 96, 96, 64, "key", dev)
+    results = []
+    for plain in (False, True):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        before = (FA.FWD.launches, FA.BWD_DKV.launches, FA.BWD_DQ.launches)
+        out = FA.dot_product_attention(*leaves, bias=bias,
+                                       impl="plain" if plain else "auto")
+        out.backward(do)
+        torch.cuda.synchronize()
+        after = (FA.FWD.launches, FA.BWD_DKV.launches, FA.BWD_DQ.launches)
+        assert [a - b for a, b in zip(after, before)] == (
+            [0, 0, 0] if plain else [1, 1, 1])
+        results.append([out.detach()] + [t.grad for t in leaves])
+    for got, want in zip(*results):
+        torch.testing.assert_close(got, want, atol=5e-5, rtol=5e-5)
+
+
+def test_flash_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    q = torch.zeros((1, 2, 8, 64), device=dev)
+    with pytest.raises(ValueError, match="CUDA"):
+        FA.flash_fwd_cuda(q.cpu(), q.cpu(), q.cpu())
+    with pytest.raises(TypeError, match="not supported"):
+        FA.flash_fwd_cuda(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError, match="bfloat16|float32"):
+        FA.flash_fwd_cuda(q, q.bfloat16(), q)
+    q48 = torch.zeros((1, 2, 8, 48), device=dev)
+    with pytest.raises(ValueError, match="head dim"):
+        FA.flash_fwd_cuda(q48, q48, q48)
+    with pytest.raises(ValueError, match="contiguous"):
+        t = torch.zeros((1, 8, 2, 64), device=dev).transpose(1, 2)
+        FA.flash_fwd_cuda(t, t, t)
+    lse = torch.zeros((1, 2, 8), device=dev)
+    with pytest.raises(ValueError, match="lse"):
+        FA.flash_bwd_dq_cuda(q, q, q, None, q, lse.double(), lse)

@@ -53,6 +53,8 @@ def test_importing_the_port_loads_no_jax():
     code = ("import sys\n"
             "import paddle_tpu_torch.inference, paddle_tpu_torch.serving\n"
             "import paddle_tpu_torch.models, paddle_tpu_torch.kernels\n"
+            "import paddle_tpu_torch.train, paddle_tpu_torch.trainer\n"
+            "import paddle_tpu_torch.optimizer, paddle_tpu_torch.models.bert\n"
             "from paddle_tpu_torch.kernels import registry\n"
             "assert registry.load_all()\n"
             "bad = sorted(m for m in sys.modules\n"

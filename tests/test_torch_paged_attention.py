@@ -124,7 +124,9 @@ def test_stale_page_poison_is_never_attended(kind):
 
 def test_registry_entries_declare_the_replaced_tpu_kernels():
     names = registry.load_all()
-    assert names == ("ragged_paged_decode", "ragged_paged_prefill")
+    assert names == ("flash_attention_bwd_dkv", "flash_attention_bwd_dq",
+                     "flash_attention_fwd", "ragged_paged_decode",
+                     "ragged_paged_prefill")
     for name, line in (("ragged_paged_decode", 265),
                        ("ragged_paged_prefill", 443)):
         e = registry.get(name)
