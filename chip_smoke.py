@@ -16,7 +16,10 @@ Phases, in order; any failure exits non-zero:
    (a) ragged paged decode / prefill at the serving shapes (S=16, H=16,
        Dh=64, page 16, width 32, chunk 64), with ragged lengths (0 and
        non-multiples of the page), inactive prefill slots, and NaN in
-       every page no block table references;
+       every page no block table references; their int8 twins on the same
+       pages quantized by ``quantize_kv``, where the unreferenced pages
+       hold bytes 127 under NaN scale rows and each dead tail bytes 127
+       under a finite scale of 1e4;
    (b) flash attention forward, dk/dv and dq at the training shape
        (48, 12, 512, 64) with a key-padding bias from ragged valid
        lengths (one of them 0: a fully masked batch row), causal at
@@ -28,9 +31,24 @@ Phases, in order; any failure exits non-zero:
    (a) bf16 weights and pages, 48 requests (prompts of 16..256 tokens,
        96 new tokens each), timed; every request must finish and both
        paged kernels must have launched during the run;
+   (c) the same with ``cache_dtype=torch.int8``: every request finishes,
+       the int8 kernels launch; capacity bytes per token and token
+       agreement with (a) are reported (int8 is another result, not
+       gated);
+   (d) the same over int8 pools with self-draft speculation, spec_k=4:
+       the draft proposes through the int8 decode kernel, the target
+       verifies through the int8 prefill kernel; proposed, accepted and
+       tokens per round are reported (self-draft doubles the work per
+       token by design: this shows the path runs, not a speed-up);
    (b) fp32, 8 requests x 32 new tokens, through the kernels and through
        the plain versions: greedy tokens must be identical, and the first
-       tokens must match the dense ``GPT.forward`` recompute.
+       tokens must match the dense ``GPT.forward`` recompute;
+   (e) fp32 again: int8 pools through the kernels and through the plain
+       versions give identical tokens, and self-draft speculation over
+       int8 pools gives the non-speculative int8 tokens, each request up
+       to a near-tie of the int8 dense recompute (``NEAR_TIE``); a weak
+       draft (2 layers at full width, another seed) over fp pools gives
+       (b)'s tokens exactly, with accepted < proposed.
 5. train   — BERT-base pretraining (vocab 30522, hidden 768, 12 layers,
    12 heads, ffn 3072, max_position 512, post-LN, dropout 0), batch
    48 x 512 with valid lengths 128..512, AdamW(1e-4), bf16 compute over
@@ -48,6 +66,8 @@ Phases, in order; any failure exits non-zero:
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 import itertools
 import json
 import subprocess
@@ -100,33 +120,70 @@ def _poison_dead_tail(kp, vp, bt, horizon):
             vp[page, n % PS:] = 1e4
 
 
-def decode_inputs(seed, device):
+def _int8_pages(kp, vp, bt, horizon):
+    """(k_pages, v_pages, k_scales, v_scales): the live fp pages quantized
+    by ``quantize_kv``; every page no block table references holds bytes
+    127 under a NaN scale row (int8 cannot hold NaN), and each slot's
+    dead tail inside its last live page bytes 127 under a finite scale of
+    1e4: masked tokens must contribute exact zeros."""
+    from paddle_tpu_torch.serving.paged_cache import quantize_kv
+    live = 1 + S * W
+    out = []
+    for pages in (kp, vp):
+        q8, sc = (t.numpy() for t in quantize_kv(
+            torch.from_numpy(pages[:live]), (2, 3)))
+        dead = len(pages) - live
+        q8 = np.concatenate([q8, np.full((dead,) + q8.shape[1:], 127,
+                                         np.int8)])
+        sc = np.concatenate([sc, np.full((dead, PS), np.nan, np.float32)])
+        for s, n in enumerate(horizon):
+            n = int(n)
+            if 0 < n < W * PS and n % PS:
+                q8[bt[s, n // PS], n % PS:] = 127
+                sc[bt[s, n // PS], n % PS:] = 1e4
+        out.append((q8, sc))
+    (kq, ks), (vq, vs) = out
+    return kq, vq, ks, vs
+
+
+def decode_inputs(seed, device, quantized=False):
     rng = np.random.default_rng(seed)
     kp, vp, bt = _pages(rng, 1 + S * W + UNREFERENCED_PAGES)
     lengths = rng.integers(1, W * PS + 1, S).astype(np.int32)
     lengths[:4] = (0, 1, W * PS, 17)         # inactive, one token, full, ragged
-    _poison_dead_tail(kp, vp, bt, lengths)
+    if quantized:
+        pages = _int8_pages(kp, vp, bt, lengths)
+    else:
+        _poison_dead_tail(kp, vp, bt, lengths)
+        pages = (kp, vp)
     q = rng.standard_normal((S, H, DH)).astype(np.float32)
     return tuple(torch.from_numpy(a).to(device)
-                 for a in (q, kp, vp, bt, lengths))
+                 for a in (q, *pages, bt, lengths))
 
 
-def prefill_inputs(seed, device):
+def prefill_inputs(seed, device, quantized=False):
     rng = np.random.default_rng(seed)
     kp, vp, bt = _pages(rng, 1 + S * W + UNREFERENCED_PAGES)
     starts = rng.integers(0, W * PS - C + 1, S).astype(np.int32)
     n_valid = rng.integers(1, C + 1, S).astype(np.int32)
     n_valid[:3] = (0, C, 1)                  # inactive slot, full, one row
     starts[1] = W * PS - C                   # chunk ending at the last page
-    _poison_dead_tail(kp, vp, bt, np.where(n_valid > 0, starts + n_valid, 0))
+    horizon = np.where(n_valid > 0, starts + n_valid, 0)
+    if quantized:
+        pages = _int8_pages(kp, vp, bt, horizon)
+    else:
+        _poison_dead_tail(kp, vp, bt, horizon)
+        pages = (kp, vp)
     q = rng.standard_normal((S, C, H, DH)).astype(np.float32)
     return tuple(torch.from_numpy(a).to(device)
-                 for a in (q, kp, vp, bt, starts, n_valid))
+                 for a in (q, *pages, bt, starts, n_valid))
 
 
 def _cast(args, dtype):
-    """Float tensors to ``dtype``; int tensors (tables, lengths) as they are."""
-    return tuple(a.to(dtype) if a.is_floating_point() else a for a in args)
+    """q and fp pages (float tensors of 3 or more dims) to ``dtype``; int8
+    pages, their fp32 scale rows (P, ps) and int tensors as they are."""
+    return tuple(a.to(dtype) if a.is_floating_point() and a.ndim >= 3 else a
+                 for a in args)
 
 
 class L2Flush:
@@ -349,15 +406,24 @@ def make_prompts(n, vocab, seed=1234):
     return [rng.integers(0, vocab, int(k)).astype(np.int32) for k in lens]
 
 
-def serve_bf16(device, kernels):
+def serve(device, kernels, label, profile=False, self_draft=False,
+          **engine_kw):
+    """One timed serving run of the main path at full width, bf16 weights:
+    48 requests x 96 new tokens through ``make_serving_engine``. Every
+    request must finish and every kernel in ``kernels`` must launch in
+    the run; ``self_draft`` makes the model its own draft. Returns
+    (stats, generated token streams)."""
     from paddle_tpu_torch.inference import make_serving_engine
     from paddle_tpu_torch.kernels import registry
     from paddle_tpu_torch.models.gpt import GPT
     from paddle_tpu_torch.observability import MetricsRegistry
     cfg = model_config()
     model = GPT(cfg, device=device, dtype=torch.bfloat16, seed=0)
+    if self_draft:
+        engine_kw["draft_model"] = model
     reg = MetricsRegistry()
-    eng = make_serving_engine(model, registry=reg, device=device, **ENGINE_KW)
+    eng = make_serving_engine(model, registry=reg, device=device,
+                              **ENGINE_KW, **engine_kw)
     t0 = time.monotonic()
     eng.warmup()
     warm_s = time.monotonic() - t0
@@ -380,11 +446,12 @@ def serve_bf16(device, kernels):
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"kernel {name} never launched on the "
-                                 "main path")
+                                 f"main path ({label})")
     gen = 96 * len(prompts)
     dec_s = reg.histogram("serving_decode_step_seconds").summary()["sum"]
     pre_s = reg.histogram("serving_prefill_step_seconds").summary()["sum"]
     ttft = reg.histogram("serving_ttft_seconds")
+    c = eng.cache.config
     stats = {
         "requests": len(prompts), "prompt_tokens": int(sum(map(len, prompts))),
         "generated_tokens": gen, "wall_s": wall, "warmup_s": warm_s,
@@ -394,13 +461,36 @@ def serve_bf16(device, kernels):
         "end_to_end_tokens_per_s": gen / wall,
         "ttft_p50_s": ttft.quantile(0.5), "ttft_p99_s": ttft.quantile(0.99),
         "decode_steps": int(reg.counter("serving_steps_total").value()),
+        "cache_dtype": str(c.dtype)[6:],
+        "capacity_bytes_per_token":
+            eng.cache.capacity_bytes() / ((c.num_pages - 1) * c.page_size),
         "launches": launches,
     }
-    log("  bf16 serve: " + json.dumps(stats))
-    log("  decode profile: " + json.dumps(profile_decode(eng, cfg.vocab_size)))
+    if eng.speculative:
+        prop = reg.counter("serving_spec_proposed_total").value()
+        acc = reg.counter("serving_spec_accepted_total").value()
+        stats.update(spec_k=eng.spec_k, proposed=prop, accepted=acc,
+                     tokens_per_round=(gen - len(prompts))
+                     / stats["decode_steps"])
+    log(f"  {label}: " + json.dumps(stats))
+    if profile:
+        log(f"  {label} decode profile: "
+            + json.dumps(profile_decode(eng, cfg.vocab_size)))
+    outs = [done[r] for r in rids]
     del eng, model
     torch.cuda.empty_cache()
-    return stats
+    return stats, outs
+
+
+def agreement(got, want):
+    """How far two sets of token streams agree: identical requests, and
+    the mean share of each stream before its first difference."""
+    prefix = []
+    for a, b in zip(got, want):
+        diff = np.nonzero(a != b)[0]
+        prefix.append((diff[0] if len(diff) else len(a)) / len(a))
+    return {"identical_requests": int(sum(p == 1.0 for p in prefix)),
+            "of": len(prefix), "mean_agreeing_prefix": float(np.mean(prefix))}
 
 
 def profile_window(step, reps):
@@ -468,10 +558,80 @@ def dense_greedy(model, prompt, n):
     return np.asarray(out, np.int32)
 
 
-def serve_fp32_parity(device, kernels):
+#: an int8 greedy decision is a near-tie when the top-2 logit gap of its
+#: int8 dense recompute is below this share of the logits' standard
+#: deviation. Two int8 runs whose fp32 sums differ only in order can round
+#: a K/V element to neighbouring int8 values (one quantum, ~1/127 of the
+#: token's abs-max), which moves later logits by far more than fp32 noise
+#: does; such a flip may change a greedy token only where the decision was
+#: this close. The first such divergence on the card had a gap of 4.3e-4.
+NEAR_TIE = 1e-2
+
+
+def _dequantized(t):
+    """(1, H, T, Dh) K or V through quantize_kv and back, per token."""
+    from paddle_tpu_torch.serving.paged_cache import quantize_kv
+    q8, sc = quantize_kv(t.transpose(1, 2), (2, 3))
+    return (q8.float() * sc[..., None, None]).transpose(1, 2)
+
+
+@torch.no_grad()
+def dense_logits(model, ids, quantized):
+    """Last-position logits of a dense causal recompute of ``ids`` (1, T);
+    with ``quantized`` each layer's K and V are stored as an int8 pool
+    stores them (the plain int8 path's arithmetic up to summation
+    order)."""
+    t = ids.shape[1]
+    x = model.wte(ids) + model.wpe(torch.arange(t, device=ids.device)[None])
+    causal = torch.ones(t, t, dtype=torch.bool, device=ids.device).tril()
+    for block in model.blocks:
+        q, k, v = block.attn.qkv_heads(block.ln1(x))       # (1, H, T, Dh)
+        if quantized:
+            k, v = _dequantized(k), _dequantized(v)
+        s = (q @ k.transpose(-1, -2)) / float(q.shape[-1]) ** 0.5
+        p = torch.softmax(s.masked_fill(~causal, float("-inf")), dim=-1)
+        x = x + block.attn.proj_out(p @ v)
+        x = x + block.mlp(block.ln2(x))
+    return model.ln_f(x)[0, -1] @ model.wte.weight.T
+
+
+def _hold_tokens(model, prompts, got, want, what, quantized=False,
+                 allow_ties=False):
+    """Tokens identical; with ``allow_ties`` a request may first differ
+    only at a near-tie (after which its contexts differ and the rest is
+    not compared). A failure names the first differing position and the
+    top-2 logit gap of the dense recompute on ``want``'s context there.
+    Returns the near-ties met."""
+    ties = []
+    for i, (a, b) in enumerate(zip(got, want)):
+        if np.array_equal(a, b):
+            continue
+        j = int(np.nonzero(a != b)[0][0]) if len(a) == len(b) else \
+            min(len(a), len(b))
+        ids = np.concatenate([prompts[i], b[:j]]).astype(np.int64)
+        logits = dense_logits(model, torch.from_numpy(ids)[None].to(
+            model.device), quantized).float()
+        top = logits.topk(2).values
+        tie = {"request": i, "position": j,
+               "top2_gap": float(top[0] - top[1]),
+               "logit_std": float(logits.std())}
+        if not allow_ties or tie["top2_gap"] >= NEAR_TIE * tie["logit_std"]:
+            raise AssertionError(
+                f"{what}: request {i} first differs at generated position "
+                f"{j} ({a[j:j + 4]} vs {b[j:j + 4]}); top-2 logit gap there "
+                f"{tie['top2_gap']:.3e}, logit std {tie['logit_std']:.3e}")
+        ties.append(tie)
+    return ties
+
+
+def serve_fp32_parity(device):
+    """Phases 4b and 4e: fp32 greedy parity, kernels against plain
+    versions, int8 pools, and speculation against plain decoding."""
     from paddle_tpu_torch.inference import make_serving_engine
     from paddle_tpu_torch.kernels import registry
     from paddle_tpu_torch.models.gpt import GPT
+    from paddle_tpu_torch.observability import MetricsRegistry
+    from paddle_tpu_torch.serving import paged_attention as PA
     # fp32 parity leg: TF32 off for matmuls AND cuDNN, stated explicitly
     # (PyTorch's matmul default is already off; cuDNN's is on)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -479,31 +639,63 @@ def serve_fp32_parity(device, kernels):
     cfg = model_config()
     model = GPT(cfg, device=device, dtype=torch.float32, seed=0)
     prompts = make_prompts(8, cfg.vocab_size, seed=99)
-    outs = {}
-    for impl in ("kernel", "plain"):
+    fp, q8 = (PA.DECODE, PA.PREFILL), (PA.DECODE_INT8, PA.PREFILL_INT8)
+
+    def run(impl="kernel", launched=(), **kw):
         registry.reset_launches()
+        reg = MetricsRegistry()
         eng = make_serving_engine(model, device=device, attn_impl=impl,
-                                  **ENGINE_KW)
-        outs[impl] = eng.generate_many(prompts, max_new_tokens=32)
-        launched = {e.name: e.launches for e in kernels}
-        if impl == "kernel" and min(launched.values()) <= 0:
-            raise AssertionError(f"fp32 kernel run missed a kernel: {launched}")
-        if impl == "plain" and max(launched.values()) != 0:
-            raise AssertionError(f"plain run launched kernels: {launched}")
+                                  registry=reg, **ENGINE_KW, **kw)
+        outs = eng.generate_many(prompts, max_new_tokens=32)
+        counts = {e.name: e.launches for e in fp + q8}
+        want = {e.name for e in launched}
+        if any((n > 0) != (name in want) for name, n in counts.items()):
+            raise AssertionError(f"fp32 run {impl} {sorted(kw)} launched "
+                                 f"{counts}, expected only {sorted(want)}")
         del eng
-    for i, (a, b) in enumerate(zip(outs["kernel"], outs["plain"])):
-        if not np.array_equal(a, b):
-            raise AssertionError(f"fp32 request {i}: kernel tokens {a} != "
-                                 f"plain tokens {b}")
+        return outs, (reg.counter("serving_spec_proposed_total").value(),
+                      reg.counter("serving_spec_accepted_total").value())
+
+    kern, _ = run(launched=fp)
+    plain, _ = run("plain")
+    _hold_tokens(model, prompts, kern, plain, "4b fp32 kernel vs plain")
     for i in range(2):
         ref = dense_greedy(model, prompts[i], 4)
-        if not np.array_equal(outs["kernel"][i][:4], ref):
-            raise AssertionError(f"fp32 request {i}: engine {outs['kernel'][i][:4]}"
+        if not np.array_equal(kern[i][:4], ref):
+            raise AssertionError(f"fp32 request {i}: engine {kern[i][:4]}"
                                  f" != dense GPT.forward {ref}")
-    log("  fp32 parity: 8 requests x 32 tokens identical through kernels "
-        "and plain versions; first 4 tokens of 2 requests match dense forward")
-    del model
+    log("  4b fp32 parity: 8 requests x 32 tokens identical through kernels "
+        "and plain versions; first 4 tokens of 2 requests match dense "
+        "forward")
+    k8, _ = run(launched=q8, cache_dtype=torch.int8)
+    p8, _ = run("plain", cache_dtype=torch.int8)
+    ties = {"int8_kernel_vs_plain": _hold_tokens(
+        model, prompts, k8, p8, "4e int8 kernel vs plain", quantized=True,
+        allow_ties=True)}
+    s8, (prop8, acc8) = run(launched=q8, draft_model=model,
+                            cache_dtype=torch.int8)
+    ties["int8_self_draft_vs_int8"] = _hold_tokens(
+        model, prompts, s8, k8, "4e int8 self-draft vs int8", quantized=True,
+        allow_ties=True)
+    weak = GPT(dataclasses.replace(cfg, num_layers=2), device=device,
+               dtype=torch.float32, seed=1)
+    sw, (propw, accw) = run(launched=fp, draft_model=weak)
+    _hold_tokens(model, prompts, sw, kern, "4e weak draft vs 4b kernel")
+    if not accw < propw:
+        raise AssertionError(f"weak draft accepted {accw} of {propw}: the "
+                             "rollback path did not run")
+    stats = {"int8_vs_fp32_kernel": agreement(k8, kern),
+             "int8_near_ties": ties,
+             "int8_kernel_vs_plain": agreement(k8, p8),
+             "int8_self_draft_vs_int8": agreement(s8, k8),
+             "self_draft_int8": {"proposed": prop8, "accepted": acc8},
+             "weak_draft_fp32": {"proposed": propw, "accepted": accw}}
+    log("  4e fp32 parity: int8 kernels == int8 plain versions and int8 "
+        "self-draft == int8 decoding up to near-ties, weak-draft "
+        "speculation == 4b: " + json.dumps(stats))
+    del model, weak
     torch.cuda.empty_cache()
+    return stats
 
 
 # -- phases 5 and 6: BERT-base pretraining ------------------------------------
@@ -697,11 +889,17 @@ def main() -> int:
 
     registry.load_all()
     from paddle_tpu_torch.serving import paged_attention as PA
-    paged = [PA.DECODE, PA.PREFILL]
+    fp_paged = [PA.DECODE, PA.PREFILL]
+    int8_paged = [PA.DECODE_INT8, PA.PREFILL_INT8]
+    paged = fp_paged + int8_paged
     flash = list(flash_entries())
     if sorted(e.name for e in paged + flash) != list(registry.names()):
         raise AssertionError(f"unexpected registry: {registry.names()}")
-    makers = {PA.DECODE.name: decode_inputs, PA.PREFILL.name: prefill_inputs}
+    makers = {PA.DECODE.name: decode_inputs, PA.PREFILL.name: prefill_inputs,
+              PA.DECODE_INT8.name: functools.partial(decode_inputs,
+                                                     quantized=True),
+              PA.PREFILL_INT8.name: functools.partial(prefill_inputs,
+                                                      quantized=True)}
     log("[3/7] kernels vs plain versions")
     flush = L2Flush(device)
     rows = {e.name: check_kernel(e, makers[e.name], device, flush)
@@ -714,8 +912,20 @@ def main() -> int:
     log(f"  phase 3 done at {time.monotonic() - t_start:.1f} s")
 
     log("[4/7] serve: GPT continuous batching")
-    stats = serve_bf16(device, paged)
-    serve_fp32_parity(device, paged)
+    stats, bf16_outs = serve(device, fp_paged, "4a bf16 serve", profile=True)
+    q8_stats, q8_outs = serve(device, int8_paged, "4c int8 serve",
+                              profile=True, cache_dtype=torch.int8)
+    log("  4c int8 vs 4a bf16: " + json.dumps({
+        "capacity_bytes_per_token": [q8_stats["capacity_bytes_per_token"],
+                                     stats["capacity_bytes_per_token"]],
+        "token_agreement": agreement(q8_outs, bf16_outs)}))
+    spec_stats, spec_outs = serve(device, int8_paged,
+                                  "4d int8 self-draft speculative serve",
+                                  cache_dtype=torch.int8, self_draft=True,
+                                  spec_k=4)
+    log("  4d vs 4c token agreement (bf16, not gated): "
+        + json.dumps(agreement(spec_outs, q8_outs)))
+    serve_fp32_parity(device)
 
     log("[5/7] train: BERT-base pretraining, bf16")
     train = train_bf16(device)
@@ -723,7 +933,12 @@ def main() -> int:
     train_fp32_parity(device)
 
     lines = [kernel_line(e, rows[e.name], stats["launches"][e.name])
-             for e in paged]
+             for e in fp_paged]
+    # K2/K4: launches of the int8 serving run (4c), with the speculative
+    # run's (4d) beside them
+    lines += [dict(kernel_line(e, rows[e.name], q8_stats["launches"][e.name]),
+                   launches_speculative=spec_stats["launches"][e.name])
+              for e in int8_paged]
     lines += [kernel_line(e, flash_rows[e.name][FLASH_CASES[0][0]],
                           train["launches"][e.name],
                           {c: r for c, r in flash_rows[e.name].items()

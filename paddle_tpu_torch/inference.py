@@ -10,7 +10,10 @@ def make_serving_engine(model, **kwargs):
     cache. ``submit()`` requests and drive ``step()`` (or
     ``generate_many``); the engine keeps its fixed decode slots full and
     reports tokens, TTFT, slot occupancy and page utilization through
-    its metrics registry. ``device`` defaults to CUDA (see
+    its metrics registry. ``device`` defaults to CUDA;
+    ``cache_dtype=torch.int8`` serves over the int8 page pool, and
+    ``draft_model`` / ``spec_k`` / ``draft_cache_dtype`` turn on exact
+    speculative decoding (see
     :class:`~paddle_tpu_torch.serving.ServingEngine`)."""
     from paddle_tpu_torch.serving.engine import ServingEngine
     return ServingEngine(model, **kwargs)

@@ -15,15 +15,29 @@ The serving loop is two fixed-shape device steps:
 Block-table widths are pow2-bucketed over the live high-water mark, so
 attention work follows live tokens. Pages are written in place
 (``index_put_``), which stands in for the reference's buffer donation.
+``cache_dtype=torch.int8`` stores int8 pages with fp32 per-token-row
+scales (``paged_cache.quantize_kv``) and attends through the
+dequant-attend entry points.
 Prefill and decode interleave under a per-step prompt-token budget
 (``prefill_budget``); prefix sharing maps published prompt pages into a
 new slot and performs the one copy-on-write copy a borrowed tail page
 needs. Scheduling is SLO-aware by default (priority lanes, TTFT
 deadlines, bounded skipping, structured load shedding).
 
-Tensor parallelism, speculative decoding, slot migration, the
-disaggregated tiers, the host spill tier, tracing, step anatomy and the
-flight recorder are later slices of the port.
+Speculative decoding: pass ``draft_model`` (+ ``spec_k``) and each decode
+round becomes draft-then-verify. The draft proposes ``spec_k`` greedy
+tokens per slot on its own paged cache (the decode loop with
+``n_steps=spec_k``), the target verifies the chunk ``[pending, d_1 ..
+d_{k-1}]`` in one batched-prefill call that returns its greedy token
+after every position, and each slot keeps the longest agreeing draft
+prefix plus the target's own next token, so the output is exactly
+non-speculative greedy decoding; rollback is a host-side cursor rewind
+on both caches. Speculation turns prefix sharing off (the draft must
+prefill every prompt token).
+
+Tensor parallelism, slot migration, the disaggregated tiers, the host
+spill tier, tracing, step anatomy and the flight recorder are later
+slices of the port.
 """
 
 from __future__ import annotations
@@ -39,7 +53,7 @@ from paddle_tpu_torch.core.device import resolve_device
 from paddle_tpu_torch.observability import registry as obs
 from paddle_tpu_torch.serving import paged_attention as PA
 from paddle_tpu_torch.serving.paged_cache import (PagedCacheConfig,
-                                                  PagedKVCache)
+                                                  PagedKVCache, quantize_kv)
 from paddle_tpu_torch.serving.scheduler import (ContinuousBatchingScheduler,
                                                 LoadShedError, Reject,
                                                 SLOScheduler)
@@ -63,7 +77,12 @@ class ServingEngine:
     attention on the tensors' device — the Hopper kernels on CUDA, the
     plain versions on the CPU; ``"plain"`` runs the plain PyTorch
     versions on any device, the reference run the kernels are held
-    against on the card."""
+    against on the card. ``cache_dtype=torch.int8`` selects the int8
+    page pool and its dequant-attend entry points. ``draft_model`` (a
+    ``GPT`` on the same device with the target's vocabulary) turns on
+    speculative decoding with ``spec_k`` proposals per round over a draft
+    cache of ``draft_cache_dtype`` (default ``cache_dtype``, else the
+    draft's weight dtype)."""
 
     def __init__(self, model, *, num_slots: int = 8, page_size: int = 16,
                  num_pages: Optional[int] = None,
@@ -77,22 +96,47 @@ class ServingEngine:
                  max_queue_depth: Optional[int] = None,
                  starvation_skips: int = 64,
                  registry: Optional[obs.MetricsRegistry] = None,
-                 attn_impl: str = "kernel", device="cuda"):
+                 attn_impl: str = "kernel", device="cuda",
+                 draft_model=None, spec_k: int = 4,
+                 draft_cache_dtype: Optional[torch.dtype] = None):
         self.device = resolve_device(device)
-        if model.device != self.device:
-            raise ValueError(f"model lives on {model.device}, engine device "
-                             f"is {self.device}")
+        for what, m in (("model", model), ("draft_model", draft_model)):
+            if m is not None and m.device != self.device:
+                raise ValueError(f"{what} lives on {m.device}, engine "
+                                 f"device is {self.device}")
+        # (decode, prefill) attention by pool kind: False = fp, True = int8
         if attn_impl == "kernel":
-            self._decode_attn = PA.ragged_paged_decode_attention
-            self._prefill_attn = PA.ragged_paged_prefill_attention
+            self._attn = {
+                False: (PA.ragged_paged_decode_attention,
+                        PA.ragged_paged_prefill_attention),
+                True: (PA.ragged_paged_decode_int8_attention,
+                       PA.ragged_paged_prefill_int8_attention)}
         elif attn_impl == "plain":
-            self._decode_attn = PA.paged_decode_plain
-            self._prefill_attn = PA.paged_prefill_plain
+            self._attn = {
+                False: (PA.paged_decode_plain, PA.paged_prefill_plain),
+                True: (PA.paged_decode_int8_plain,
+                       PA.paged_prefill_int8_plain)}
         else:
             raise ValueError(f"attn_impl must be 'kernel' or 'plain', "
                              f"got {attn_impl!r}")
         cfg = model.cfg
         self.model = model
+        self.draft_model = draft_model
+        self.speculative = draft_model is not None
+        self.spec_k = int(spec_k)
+        if self.speculative:
+            if draft_model.cfg.vocab_size != cfg.vocab_size:
+                raise ValueError(
+                    "draft and target models must share a vocabulary "
+                    f"({draft_model.cfg.vocab_size} != {cfg.vocab_size})")
+            if self.spec_k < 2:
+                raise ValueError("spec_k must be >= 2 (spec_k=1 is plain "
+                                 "decoding: drop the draft)")
+            # the draft cache must hold every prompt token (the draft
+            # prefills alongside the target), so target-side prefix
+            # sharing, which skips shared tokens, would desynchronize the
+            # two caches
+            prefix_sharing = False
         self.prefill_chunk = int(prefill_chunk)
         self.decode_block = max(int(decode_block), 1)
         # prompt tokens per step() (default = one full batched call)
@@ -112,6 +156,19 @@ class ServingEngine:
             max_pages_per_slot=max_pages_per_slot,
             dtype=cache_dtype or model.wte.weight.dtype,
             share_prefix=prefix_sharing), device=self.device)
+        self.draft_cache = None
+        if self.speculative:
+            dcfg = draft_model.cfg
+            # the target's slot and page geometry: reservations run in
+            # lockstep, so target admission implies draft admission
+            self.draft_cache = PagedKVCache(PagedCacheConfig(
+                num_layers=dcfg.num_layers, num_heads=dcfg.num_heads,
+                head_dim=dcfg.hidden_size // dcfg.num_heads,
+                num_slots=num_slots, page_size=page_size, num_pages=num_pages,
+                max_pages_per_slot=max_pages_per_slot,
+                dtype=(draft_cache_dtype or cache_dtype
+                       or draft_model.wte.weight.dtype),
+                share_prefix=False), device=self.device)
         if scheduler_policy == "slo":
             self.scheduler = SLOScheduler(
                 num_slots, can_admit=self._can_admit, lanes=lanes,
@@ -219,7 +276,10 @@ class ServingEngine:
             self._reg.gauge("serving_page_utilization",
                             "live tokens / page-pool capacity").set(
                                 self.cache.utilization())
-            kept = self._decode_round(dslots)
+            if self.speculative:
+                kept = self._speculative_round(dslots)
+            else:
+                kept = self._decode_round(dslots)
             self._reg.counter("serving_tokens_total",
                               "decode tokens produced").inc(kept)
             self._reg.counter("serving_steps_total").inc()
@@ -240,9 +300,10 @@ class ServingEngine:
             self.cache.config.pages_for(
                 int(self.cache.lengths[i]) + n) for i in dslots))
         t0 = time.monotonic()
-        out = self._decode_loop(self._dev(self.cache.block_tables[:, :w]),
+        out = self._decode_loop(self.model, self.cache,
+                                self._dev(self.cache.block_tables[:, :w]),
                                 self._dev(self.cache.lengths),
-                                self._dev(tokens), self._dev(active))
+                                self._dev(tokens), self._dev(active), n)
         out = out.cpu().numpy()                   # (S, decode_block)
         t1 = time.monotonic()
         self._reg.histogram(
@@ -262,6 +323,88 @@ class ServingEngine:
             if not st.finished():
                 # the device advanced this slot the full block
                 self.cache.lengths[i] += n
+        return kept
+
+    def _speculative_round(self, dslots) -> int:
+        """One speculative round: the draft proposes ``spec_k`` greedy
+        tokens per slot on its own cache, the target verifies the chunk
+        ``[pending, d_1 .. d_{k-1}]`` in one batched-prefill call (greedy
+        token after every position), and each slot accepts the longest
+        draft prefix the target reproduced plus the target's own next
+        token, so every kept token is what non-speculative greedy
+        decoding gives, 1..spec_k per round. The chunk is assembled on
+        the device from the draft's output: no host copy between draft
+        and verify. Rollback is a cursor rewind: both caches advance by
+        the accepted inputs only; rejected K/V stay behind the slot
+        length (masked, overwritten next round) inside the slot's
+        reservation. Returns tokens kept."""
+        n = self.spec_k
+        s_tot = self.scheduler.num_slots
+        tokens = np.zeros((s_tot,), np.int64)
+        active = np.zeros((s_tot,), np.bool_)
+        nv = np.zeros((s_tot,), np.int32)
+        for i in dslots:
+            st = self.scheduler.slots[i]
+            tokens[i] = st.generated[-1]
+            active[i] = True
+            # never write past the slot's reservation: the chunk is
+            # capped at the remaining generation budget
+            nv[i] = min(n, st.request.max_new_tokens - len(st.generated))
+        w = self._pow2_width(max(
+            self.cache.config.pages_for(
+                int(self.cache.lengths[i]) + n) for i in dslots))
+        t0 = time.monotonic()
+        tokens_dev, nv_dev = self._dev(tokens), self._dev(nv)
+        props_dev = self._decode_loop(
+            self.draft_model, self.draft_cache,
+            self._dev(self.draft_cache.block_tables[:, :w]),
+            self._dev(self.draft_cache.lengths), tokens_dev,
+            self._dev(active), n, n_valid=nv_dev)           # (S, spec_k)
+        chunk = torch.cat([tokens_dev[:, None],
+                           props_dev[:, :n - 1].long()], dim=1)
+        ver = self._prefill_loop(self.model, self.cache,
+                                 self._dev(self.cache.block_tables[:, :w]),
+                                 self._dev(self.cache.lengths), chunk,
+                                 nv_dev, all_positions=True)  # (S, spec_k)
+        props = props_dev.cpu().numpy()
+        ver = ver.cpu().numpy()
+        t1 = time.monotonic()
+        self._reg.histogram(
+            "serving_decode_step_seconds",
+            "wall time per decode block (sync included)").observe(t1 - t0)
+        kept = 0
+        for i in dslots:
+            st = self.scheduler.slots[i]
+            req = st.request
+            c = int(nv[i])
+            # accept t_1, plus t_{j+1} for every draft token d_j the
+            # target reproduced: the greedy accept-prefix
+            a = 1
+            while a < c and props[i, a - 1] == ver[i, a - 1]:
+                a += 1
+            for j in range(a):
+                tok = int(ver[i, j])
+                st.generated.append(tok)
+                kept += 1
+                if req.eos_id is not None and tok == req.eos_id:
+                    break
+            if not st.finished():
+                # commit exactly the accepted inputs on both caches
+                self.cache.lengths[i] += a
+                self.draft_cache.lengths[i] += a
+            proposed, accepted = max(c - 1, 0), a - 1
+            self._reg.counter(
+                "serving_spec_proposed_total",
+                "draft tokens proposed for verification").inc(proposed)
+            self._reg.counter(
+                "serving_spec_accepted_total",
+                "draft tokens the target verified and kept").inc(accepted)
+            if proposed:
+                self._reg.histogram(
+                    "serving_spec_accept_rate",
+                    "accepted/proposed draft tokens per verify round",
+                    buckets=(0.125, 0.25, 0.375, 0.5, 0.625, 0.75,
+                             0.875, 1.0)).observe(accepted / proposed)
         return kept
 
     def generate_many(self, prompts: Sequence, max_new_tokens: int = 32,
@@ -285,6 +428,8 @@ class ServingEngine:
         out = {}
         for slot, st in self.scheduler.evict_finished().items():
             self.cache.free_slot(slot)
+            if self.speculative:
+                self.draft_cache.free_slot(slot)
             toks = np.asarray(st.generated, np.int32)
             self._results[st.request.rid] = toks
             out[st.request.rid] = toks
@@ -300,6 +445,11 @@ class ServingEngine:
         tokens, and record the queue-wait half of the TTFT split."""
         shared = self.cache.reserve(slot, req.total_tokens,
                                     prompt=req.prompt)
+        if self.speculative:
+            # lockstep: same geometry and alloc/free history as the
+            # target cache (sharing off), so this cannot overflow when the
+            # target reserve succeeded
+            self.draft_cache.reserve(slot, req.total_tokens)
         st = self.scheduler.slots[slot]
         st.prefilled = shared
         if shared:
@@ -348,6 +498,7 @@ class ServingEngine:
             starts = np.zeros((sb,), np.int32)
             nv = np.zeros((sb,), np.int32)
             bt_rows = np.zeros((sb, cfgc.max_pages_per_slot), np.int32)
+            dbt_rows = np.zeros_like(bt_rows)
             for j, i in enumerate(pslots):
                 st = self.scheduler.slots[i]
                 pc = self.cache.pending_copy(i)
@@ -370,13 +521,23 @@ class ServingEngine:
                 starts[j] = lo
                 nv[j] = n
                 bt_rows[j] = self.cache.block_tables[i]
+                if self.speculative:
+                    dbt_rows[j] = self.draft_cache.block_tables[i]
             w = self._pow2_width(max(
                 cfgc.pages_for(int(starts[j]) + int(nv[j]))
                 for j in range(len(pslots))))
             t0 = time.monotonic()
-            nxt = self._prefill_loop(self._dev(bt_rows[:, :w]),
-                                     self._dev(starts), self._dev(tokens),
-                                     self._dev(nv))
+            starts_dev, tokens_dev, nv_dev = (self._dev(a) for a in
+                                              (starts, tokens, nv))
+            nxt = self._prefill_loop(self.model, self.cache,
+                                     self._dev(bt_rows[:, :w]), starts_dev,
+                                     tokens_dev, nv_dev)
+            if self.speculative:
+                # the draft ingests the same chunks so its cache mirrors
+                # the target's committed prefix (its output is unused)
+                self._prefill_loop(self.draft_model, self.draft_cache,
+                                   self._dev(dbt_rows[:, :w]), starts_dev,
+                                   tokens_dev, nv_dev)
             nxt = nxt.cpu().numpy()
             now = time.monotonic()
             self._reg.histogram(
@@ -389,6 +550,8 @@ class ServingEngine:
                 n = int(nv[j])
                 st.prefilled += n
                 self.cache.lengths[i] += n
+                if self.speculative:
+                    self.draft_cache.lengths[i] += n
                 call_tokens += n
                 self.cache.publish_prefix(i, st.request.prompt,
                                           st.prefilled)
@@ -432,7 +595,10 @@ class ServingEngine:
 
     def warmup_plan(self):
         """The buckets :meth:`warmup` runs, in order: ``("decode",
-        width)``, ``("prefill", width, lanes)`` and ``("copy_page",)``."""
+        width)``, ``("prefill", width, lanes)`` and ``("copy_page",)``; a
+        speculative engine swaps the decode buckets for ``("draft",
+        width)`` and ``("verify", width)`` and adds the draft's
+        ``("draft_prefill", width, lanes)`` twins."""
         c = self.cache.config
         s_tot = self.scheduler.num_slots
         widths, w = [], 1
@@ -449,9 +615,15 @@ class ServingEngine:
         counts = sorted(set(counts))
         plan = []
         for w in widths:
-            plan.append(("decode", w))
+            if self.speculative:
+                plan.append(("draft", w))
+                plan.append(("verify", w))
+            else:
+                plan.append(("decode", w))
             for sb in counts:
                 plan.append(("prefill", w, sb))
+                if self.speculative:
+                    plan.append(("draft_prefill", w, sb))
         plan.append(("copy_page",))
         return plan
 
@@ -460,21 +632,35 @@ class ServingEngine:
         page (no live state is touched), so the kernel build and every
         bucket's first launch happen at start-up, not on a request."""
         s_tot = self.scheduler.num_slots
-        zeros = np.zeros((s_tot,), np.int32)
+        zeros = self._dev(np.zeros((s_tot,), np.int32))
+        tok0 = self._dev(np.zeros((s_tot,), np.int64))
+        off = self._dev(np.zeros((s_tot,), np.bool_))
         self.warmed_signatures = set()
         for sig in self.warmup_plan():
-            if sig[0] == "decode":
-                self._decode_loop(
-                    self._dev(np.zeros((s_tot, sig[1]), np.int32)),
-                    self._dev(zeros), self._dev(zeros.astype(np.int64)),
-                    self._dev(zeros.astype(np.bool_)))
-            elif sig[0] == "prefill":
-                w, sb = sig[1], sig[2]
-                zb = np.zeros((sb,), np.int32)
+            kind = sig[0]
+            if kind in ("decode", "draft", "verify"):
+                bt = self._dev(np.zeros((s_tot, sig[1]), np.int32))
+            if kind == "decode":
+                self._decode_loop(self.model, self.cache, bt, zeros, tok0,
+                                  off, self.decode_block)
+            elif kind == "draft":
+                self._decode_loop(self.draft_model, self.draft_cache, bt,
+                                  zeros, tok0, off, self.spec_k,
+                                  n_valid=zeros)
+            elif kind == "verify":
                 self._prefill_loop(
-                    self._dev(np.zeros((sb, w), np.int32)), self._dev(zb),
+                    self.model, self.cache, bt, zeros,
+                    self._dev(np.zeros((s_tot, self.spec_k), np.int64)),
+                    zeros, all_positions=True)
+            elif kind in ("prefill", "draft_prefill"):
+                w, sb = sig[1], sig[2]
+                zb = self._dev(np.zeros((sb,), np.int32))
+                model, cache = ((self.model, self.cache) if kind == "prefill"
+                                else (self.draft_model, self.draft_cache))
+                self._prefill_loop(
+                    model, cache, self._dev(np.zeros((sb, w), np.int32)), zb,
                     self._dev(np.zeros((sb, self.prefill_chunk), np.int64)),
-                    self._dev(zb))
+                    zb)
             else:
                 self._copy_page(0, 0)
             self.warmed_signatures.add(sig)
@@ -486,45 +672,70 @@ class ServingEngine:
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
+    @staticmethod
+    def _write_kv(layer, quantized, page_idx, off, k, v, axes):
+        """Land token K/V ``(..., H, Dh)`` in one layer's pages at
+        ``[page_idx, off]`` in place; an int8 pool stores
+        :func:`quantize_kv` rows (per token over ``axes``) and their
+        scales. Duplicate targets only ever hit the null page."""
+        if quantized:
+            kp, vp, ksc, vsc = layer
+            kq, k_s = quantize_kv(k, axes)
+            vq, v_s = quantize_kv(v, axes)
+            kp[page_idx, off] = kq
+            vp[page_idx, off] = vq
+            ksc[page_idx, off] = k_s
+            vsc[page_idx, off] = v_s
+        else:
+            kp, vp = layer
+            kp[page_idx, off] = k.to(kp.dtype)
+            vp[page_idx, off] = v.to(vp.dtype)
+
     @torch.no_grad()
-    def _decode_loop(self, block_tables, lengths, tokens, active):
-        """One block of ``decode_block`` greedy tokens per slot: each
-        iteration enters every slot's current token at position
-        ``lengths[s]``, writes its K/V into the slot's current page, and
-        attends ragged-paged over live pages only. Non-decoding lanes
-        (``active`` false: free slots and slots still mid-prefill, which
-        own live pages the block must not corrupt) write to the null
-        page; post-EOS/post-cap lanes produce discarded tokens (the host
-        keeps only in-budget, pre-EOS ones). Returns (S, decode_block)
-        int32 tokens on the device."""
-        model = self.model
+    def _decode_loop(self, model, cache, block_tables, lengths, tokens,
+                     active, n_steps: int, n_valid=None):
+        """The greedy token loop behind the decode block and the draft's
+        proposals: ``n_steps`` iterations, each entering every slot's
+        current token at position ``lengths[s]``, writing its K/V into
+        the slot's current page of ``cache`` (int8 pools store quantized
+        rows and scales), and attending ragged-paged over live pages
+        only. Non-decoding lanes (``active`` false: free slots and slots
+        still mid-prefill, which own live pages the block must not
+        corrupt) write to the null page, and so do iterations ``j >=
+        n_valid[s]`` when ``n_valid`` is given (a draft chunk capped below
+        ``n_steps`` must not write past the slot's reservation);
+        post-EOS/post-cap lanes produce discarded tokens (the host keeps
+        only in-budget, pre-EOS ones). Returns (S, n_steps) int32 tokens
+        on the device."""
         cfg = model.cfg
-        ps = self.cache.config.page_size
+        ps = cache.config.page_size
+        quantized = cache.config.quantized
+        decode_attn = self._attn[quantized][0]
         s_tot = tokens.shape[0]
         w = block_tables.shape[1]
         bt = block_tables.long()
         slot_ids = torch.arange(s_tot, device=self.device)
-        out = torch.empty((s_tot, self.decode_block), dtype=torch.int32,
+        out = torch.empty((s_tot, n_steps), dtype=torch.int32,
                           device=self.device)
-        for j in range(self.decode_block):
+        for j in range(n_steps):
             pos = lengths.clamp(max=cfg.max_position - 1).long()
             x = model.wte(tokens[:, None]) + model.wpe(pos[:, None])  # (S,1,D)
+            writable = active if n_valid is None else active & (j < n_valid)
             # masked lanes write the null page; the column clamps to w - 1
             page_idx = torch.where(
-                active, bt[slot_ids, (lengths // ps).clamp(max=w - 1).long()],
-                0)
+                writable,
+                bt[slot_ids, (lengths // ps).clamp(max=w - 1).long()], 0)
             off = (lengths % ps).long()
             attend_len = lengths + 1
             for i, block in enumerate(model.blocks):
                 q, k, v = block.attn.qkv_heads(block.ln1(x))  # (S,H,1,Dh)
-                kp, vp = self.cache.pages[i]
                 # in-place page writes stand in for the reference's
-                # donated page buffers; duplicate writes only ever hit
-                # the null page
-                kp[page_idx, off] = k[:, :, 0, :].to(kp.dtype)
-                vp[page_idx, off] = v[:, :, 0, :].to(vp.dtype)
-                att = self._decode_attn(q[:, :, 0, :].contiguous(), kp, vp,
-                                        block_tables, attend_len)  # (S,H,Dh)
+                # donated page buffers
+                layer = cache.pages[i]
+                self._write_kv(layer, quantized, page_idx, off,
+                               k[:, :, 0, :], v[:, :, 0, :], (1, 2))
+                att = decode_attn(q[:, :, 0, :].contiguous(), *layer,
+                                  block_tables, attend_len)   # (S,H,Dh)
                 x = x + block.attn.proj_out(att[:, :, None, :])
                 x = x + block.mlp(block.ln2(x))
             x = model.ln_f(x)
@@ -535,16 +746,22 @@ class ServingEngine:
         return out
 
     @torch.no_grad()
-    def _prefill_loop(self, block_tables, starts, tokens, n_valid):
-        """Batched chunk forward: ``tokens`` (S, C) enter at absolute
-        positions ``starts[s] .. starts[s] + C - 1`` (the first
-        ``n_valid[s]`` real, the rest padding written to the null page),
-        their K/V land in each slot's pages, and every live lane attends
+    def _prefill_loop(self, model, cache, block_tables, starts, tokens,
+                      n_valid, all_positions: bool = False):
+        """Batched chunk forward behind the prefill step, the draft's
+        prefill twin and the speculative verify: ``tokens`` (S, C) enter
+        at absolute positions ``starts[s] .. starts[s] + C - 1`` (the
+        first ``n_valid[s]`` real, the rest padding written to the null
+        page), their K/V land in each slot's pages of ``cache`` (int8
+        pools: quantized rows and scales), and every live lane attends
         causally over everything cached. Returns the greedy next token
-        after each slot's last valid position, (S,) int32 on device."""
-        model = self.model
+        after each slot's last valid position, (S,) int32 on device, or
+        with ``all_positions`` the greedy token after every chunk
+        position, (S, C) (the verifier's per-candidate target tokens)."""
         cfg = model.cfg
-        ps = self.cache.config.page_size
+        ps = cache.config.page_size
+        quantized = cache.config.quantized
+        prefill_attn = self._attn[quantized][1]
         s_tot, c = tokens.shape
         w = block_tables.shape[1]
         bt = block_tables.long()
@@ -559,15 +776,16 @@ class ServingEngine:
         off = positions % ps
         for i, block in enumerate(model.blocks):
             q, k, v = block.attn.qkv_heads(block.ln1(x))      # (S,H,C,Dh)
-            kp, vp = self.cache.pages[i]
-            kp[page_idx, off] = k.transpose(1, 2).to(kp.dtype)
-            vp[page_idx, off] = v.transpose(1, 2).to(vp.dtype)
-            att = self._prefill_attn(q.transpose(1, 2).contiguous(), kp, vp,
-                                     block_tables, starts,
-                                     n_valid)                 # (S,C,H,Dh)
+            layer = cache.pages[i]
+            self._write_kv(layer, quantized, page_idx, off,
+                           k.transpose(1, 2), v.transpose(1, 2), (2, 3))
+            att = prefill_attn(q.transpose(1, 2).contiguous(), *layer,
+                               block_tables, starts, n_valid)  # (S,C,H,Dh)
             x = x + block.attn.proj_out(att.transpose(1, 2))
             x = x + block.mlp(block.ln2(x))
         x = model.ln_f(x)
+        if all_positions:
+            return (x @ model.wte.weight.T).argmax(-1).to(torch.int32)
         last = x[torch.arange(s_tot, device=self.device),
                  (n_valid.long() - 1).clamp(min=0)]             # (S, D)
         return (last @ model.wte.weight.T).argmax(-1).to(torch.int32)
@@ -575,7 +793,8 @@ class ServingEngine:
     @torch.no_grad()
     def _copy_page(self, src: int, dst: int):
         """Device-side page copy (CoW of a borrowed shared tail page):
-        every layer's K and V page ``src`` duplicated into ``dst``."""
-        for kp, vp in self.cache.pages:
-            kp[dst] = kp[src]
-            vp[dst] = vp[src]
+        every layer's K and V page ``src`` duplicated into ``dst``, with
+        the scale rows of an int8 pool, which travel with their page."""
+        for layer in self.cache.pages:
+            for t in layer:
+                t[dst] = t[src]

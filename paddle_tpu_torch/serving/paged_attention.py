@@ -15,6 +15,14 @@ at absolute positions ``chunk_starts[s] + c``, causal over everything the
 slot has cached (including the chunk's own prefix, which the caller has
 already written). Lanes at or past ``n_valid[s]`` emit exact zeros.
 
+``ragged_paged_{decode,prefill}_int8_attention`` — the same over an int8
+page pool with fp32 per-token-row scales ``k_scales``/``v_scales``
+(P, ps) (``paged_cache.quantize_kv``'s layout): dequantization is fused,
+``score *= k_scale`` after the scaled dot and ``p *= v_scale`` before PV
+(the softmax denominator sees ``p`` before ``v_scale``), so no fp page is
+ever materialized. The int8 prefill is also the speculative verify
+step's attention.
+
 Each has three implementations in this module: the hand-written Hopper
 kernel (``csrc/paged_attention.cu``, launched for CUDA tensors), the
 plain PyTorch version (the port of the reference's lax fallback, taken
@@ -102,6 +110,92 @@ def paged_prefill_plain(q, k_pages, v_pages, block_tables, chunk_starts,
     return out.to(q.dtype)
 
 
+# ports of _paged_decode_int8_lax / _paged_prefill_int8_lax: the same order
+# of operations, (q.k) * scale, then * k_scale per token, then mask,
+# softmax and the alive zeroing, then p * v_scale before PV
+
+def paged_decode_int8_plain(q, k_pages, v_pages, k_scales, v_scales,
+                            block_tables, lengths, *,
+                            scale: Optional[float] = None):
+    scale = _scale(q, scale)
+    s_slots, h, _dh = q.shape
+    mp = block_tables.shape[1]
+    ps = k_pages.shape[1]
+    bt = block_tables.long()
+    kg = k_pages[bt]                                   # (S, mp, ps, H, Dh) i8
+    vg = v_pages[bt]
+    ksg = k_scales[bt]                                 # (S, mp, ps) f32
+    vsg = v_scales[bt]
+    scores = torch.einsum("shd,smthd->shmt", q.float(), kg.float()) * scale
+    scores = scores * ksg[:, None]                     # dequant fused post-dot
+    scores = scores.reshape(s_slots, h, mp * ps)
+    tok = torch.arange(mp * ps, device=q.device)
+    valid = tok[None, None, :] < lengths.long()[:, None, None]
+    scores = scores.masked_fill(~valid, NEG_INF)
+    p = torch.softmax(scores, dim=-1)
+    alive = scores.amax(dim=-1, keepdim=True) > NEG_INF / 2
+    p = torch.where(alive, p, torch.zeros_like(p)).reshape(s_slots, h, mp, ps)
+    p = p * vsg[:, None]                               # dequant fused pre-PV
+    out = torch.einsum("shmt,smthd->shd", p, vg.float())
+    return out.to(q.dtype)
+
+
+def paged_prefill_int8_plain(q, k_pages, v_pages, k_scales, v_scales,
+                             block_tables, chunk_starts, n_valid, *,
+                             scale: Optional[float] = None):
+    scale = _scale(q, scale)
+    s_slots, c, h, _dh = q.shape
+    mp = block_tables.shape[1]
+    ps = k_pages.shape[1]
+    bt = block_tables.long()
+    kg = k_pages[bt]                                   # (S, mp, ps, H, Dh) i8
+    vg = v_pages[bt]
+    ksg = k_scales[bt]                                 # (S, mp, ps) f32
+    vsg = v_scales[bt]
+    scores = torch.einsum("schd,smthd->shcmt", q.float(), kg.float()) * scale
+    scores = scores * ksg[:, None, None]               # dequant fused post-dot
+    scores = scores.reshape(s_slots, h, c, mp * ps)
+    tok = torch.arange(mp * ps, device=q.device)
+    lane = torch.arange(c, device=q.device)
+    pos = chunk_starts.long()[:, None] + lane                    # (S, C)
+    causal = tok[None, None, None, :] <= pos[:, None, :, None]
+    row_ok = (lane[None, :] < n_valid.long()[:, None])[:, None, :, None]
+    scores = scores.masked_fill(~(causal & row_ok), NEG_INF)
+    p = torch.softmax(scores, dim=-1)
+    alive = scores.amax(dim=-1, keepdim=True) > NEG_INF / 2
+    p = torch.where(alive, p, torch.zeros_like(p)).reshape(
+        s_slots, h, c, mp, ps)
+    p = p * vsg[:, None, None]                         # dequant fused pre-PV
+    out = torch.einsum("shcmt,smthd->schd", p, vg.float())
+    return out.to(q.dtype)
+
+
+def paged_prefill_attention(q, k_pages, v_pages, block_table_row, positions,
+                            *, scale: Optional[float] = None):
+    """Chunked-prefill attention for ONE slot (plain PyTorch; the
+    reference composes it in XLA, no TPU kernel). ``q`` (C, H, Dh) at
+    absolute ``positions`` (C,); keys/values come from the slot's pages
+    via ``block_table_row`` (max_pages,). Each query attends causally to
+    every cache position ``<= positions[c]``; padded queries give rows
+    the caller discards."""
+    scale = _scale(q, scale)
+    mp = block_table_row.shape[0]
+    ps = k_pages.shape[1]
+    h, dh = q.shape[1], q.shape[2]
+    bt = block_table_row.long()
+    k = k_pages[bt].reshape(mp * ps, h, dh)
+    v = v_pages[bt].reshape(mp * ps, h, dh)
+    scores = torch.einsum("chd,thd->hct", q.float(), k.float()) * scale
+    tok = torch.arange(mp * ps, device=q.device)
+    causal = tok[None, None, :] <= positions.long()[None, :, None]
+    scores = scores.masked_fill(~causal, NEG_INF)
+    p = torch.softmax(scores, dim=-1)
+    alive = scores.amax(dim=-1, keepdim=True) > NEG_INF / 2
+    p = torch.where(alive, p, torch.zeros_like(p))
+    out = torch.einsum("hct,thd->chd", p, v.float())
+    return out.to(q.dtype)
+
+
 # ---------------------------------------------------------------------------
 # dense references: numpy, per slot and per row, independent of both
 # ---------------------------------------------------------------------------
@@ -156,6 +250,30 @@ def paged_prefill_reference(q, k_pages, v_pages, block_tables, chunk_starts,
     return torch.from_numpy(outs).to(device=q.device, dtype=q.dtype)
 
 
+def _dequant_pages(k_pages, v_pages, k_scales, v_scales):
+    """Host-side dequantization for the dense references, independent of
+    the fused in-kernel path (port of ``_dequant_pages_np``)."""
+    kf = _np(k_pages) * _np(k_scales)[:, :, None, None]
+    vf = _np(v_pages) * _np(v_scales)[:, :, None, None]
+    return torch.from_numpy(kf), torch.from_numpy(vf)
+
+
+def paged_decode_int8_reference(q, k_pages, v_pages, k_scales, v_scales,
+                                block_tables, lengths, *,
+                                scale: Optional[float] = None):
+    kf, vf = _dequant_pages(k_pages, v_pages, k_scales, v_scales)
+    return paged_decode_reference(q, kf, vf, block_tables, lengths,
+                                  scale=scale)
+
+
+def paged_prefill_int8_reference(q, k_pages, v_pages, k_scales, v_scales,
+                                 block_tables, chunk_starts, n_valid, *,
+                                 scale: Optional[float] = None):
+    kf, vf = _dequant_pages(k_pages, v_pages, k_scales, v_scales)
+    return paged_prefill_reference(q, kf, vf, block_tables, chunk_starts,
+                                   n_valid, scale=scale)
+
+
 # ---------------------------------------------------------------------------
 # CUDA wrappers (csrc/paged_attention.cu through ctypes)
 # ---------------------------------------------------------------------------
@@ -168,6 +286,12 @@ _SIGNATURES = {
     # q, k_pages, v_pages, block_tables, chunk_starts, n_valid, out,
     # S, C, H, Dh, ps, w, P, dtype, scale, stream
     "ptt_paged_prefill": [_P] * 7 + [_I] * 8 + [ctypes.c_float, _P],
+    # q, k_pages, v_pages, k_scales, v_scales, block_tables, lengths, out,
+    # S, H, Dh, ps, w, P, dtype, scale, stream
+    "ptt_paged_decode_int8": [_P] * 8 + [_I] * 7 + [ctypes.c_float, _P],
+    # q, k_pages, v_pages, k_scales, v_scales, block_tables, chunk_starts,
+    # n_valid, out, S, C, H, Dh, ps, w, P, dtype, scale, stream
+    "ptt_paged_prefill_int8": [_P] * 9 + [_I] * 8 + [ctypes.c_float, _P],
 }
 
 
@@ -178,8 +302,9 @@ def _kernel(name: str):
     return fn
 
 
-def _check_args(q, k_pages, v_pages, ints, q_ndim):
-    """Raise on anything the kernels do not take."""
+def _check_args(q, k_pages, v_pages, ints, q_ndim, scales=None):
+    """Raise on anything the kernels do not take. ``scales`` (the int8
+    kernels): ``(k_scales, v_scales)``; the pages must then be int8."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got q on {dev}")
@@ -189,9 +314,10 @@ def _check_args(q, k_pages, v_pages, ints, q_ndim):
         raise TypeError(f"q dtype {q.dtype} not supported "
                         "(float32 or bfloat16)")
     h, dh = q.shape[-2], q.shape[-1]
+    page_dtype = q.dtype if scales is None else torch.int8
     for name, t in (("k_pages", k_pages), ("v_pages", v_pages)):
-        if t.device != dev or t.dtype != q.dtype:
-            raise ValueError(f"{name} must be {q.dtype} on {dev}, got "
+        if t.device != dev or t.dtype != page_dtype:
+            raise ValueError(f"{name} must be {page_dtype} on {dev}, got "
                              f"{t.dtype} on {t.device}")
         if t.ndim != 4 or t.shape[2] != h or t.shape[3] != dh:
             raise ValueError(f"{name} must be (P, ps, {h}, {dh}), got "
@@ -201,6 +327,17 @@ def _check_args(q, k_pages, v_pages, ints, q_ndim):
     if not 1 <= dh <= MAX_HEAD_DIM or not 1 <= k_pages.shape[1] <= MAX_PAGE_SIZE:
         raise ValueError(f"kernel takes Dh <= {MAX_HEAD_DIM} and page_size "
                          f"<= {MAX_PAGE_SIZE}, got {dh} and {k_pages.shape[1]}")
+    tensors = [("q", q), ("k_pages", k_pages), ("v_pages", v_pages)]
+    if scales is not None:
+        want = tuple(k_pages.shape[:2])
+        for name, t in zip(("k_scales", "v_scales"), scales):
+            if t.device != dev or t.dtype != torch.float32:
+                raise ValueError(f"{name} must be torch.float32 on {dev}, "
+                                 f"got {t.dtype} on {t.device}")
+            if tuple(t.shape) != want:
+                raise ValueError(f"{name} must be (P, ps) = {want}, got "
+                                 f"{tuple(t.shape)}")
+            tensors.append((name, t))
     s = q.shape[0]
     for name, t, ndim in ints:
         if t.device != dev or t.dtype != torch.int32:
@@ -209,8 +346,7 @@ def _check_args(q, k_pages, v_pages, ints, q_ndim):
         if t.ndim != ndim or t.shape[0] != s or t.shape[-1] < 1:
             raise ValueError(f"{name} must be {ndim}-D with {s} rows, got "
                              f"{tuple(t.shape)}")
-    for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages),
-                    *((n, t) for n, t, _ in ints)):
+    for name, t in (*tensors, *((n, t) for n, t, _ in ints)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
 
@@ -260,6 +396,51 @@ def paged_prefill_cuda(q, k_pages, v_pages, block_tables, chunk_starts,
     return out
 
 
+def paged_decode_int8_cuda(q, k_pages, v_pages, k_scales, v_scales,
+                           block_tables, lengths, *,
+                           scale: Optional[float] = None):
+    _check_args(q, k_pages, v_pages,
+                (("block_tables", block_tables, 2), ("lengths", lengths, 1)), 3,
+                scales=(k_scales, v_scales))
+    s_slots, h, dh = q.shape
+    out = torch.empty_like(q)
+    fn = _kernel("ptt_paged_decode_int8")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                k_scales.data_ptr(), v_scales.data_ptr(),
+                block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+                s_slots, h, dh, k_pages.shape[1], block_tables.shape[1],
+                k_pages.shape[0], _DTYPE_CODES[q.dtype], _scale(q, scale),
+                stream)
+    _raise_on(rc, "ragged paged int8 decode")
+    DECODE_INT8.launches += 1
+    return out
+
+
+def paged_prefill_int8_cuda(q, k_pages, v_pages, k_scales, v_scales,
+                            block_tables, chunk_starts, n_valid, *,
+                            scale: Optional[float] = None):
+    _check_args(q, k_pages, v_pages,
+                (("block_tables", block_tables, 2),
+                 ("chunk_starts", chunk_starts, 1),
+                 ("n_valid", n_valid, 1)), 4, scales=(k_scales, v_scales))
+    s_slots, c, h, dh = q.shape
+    out = torch.empty_like(q)
+    fn = _kernel("ptt_paged_prefill_int8")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                k_scales.data_ptr(), v_scales.data_ptr(),
+                block_tables.data_ptr(), chunk_starts.data_ptr(),
+                n_valid.data_ptr(), out.data_ptr(), s_slots, c, h, dh,
+                k_pages.shape[1], block_tables.shape[1], k_pages.shape[0],
+                _DTYPE_CODES[q.dtype], _scale(q, scale), stream)
+    _raise_on(rc, "ragged paged int8 prefill")
+    PREFILL_INT8.launches += 1
+    return out
+
+
 # ---------------------------------------------------------------------------
 # work of one call on its inputs (the roofline bound's numerator)
 # ---------------------------------------------------------------------------
@@ -268,32 +449,29 @@ def _ids_bytes(n_pages_read: int, n_slots: int, n_scalars: int) -> int:
     return 4 * n_pages_read + 4 * n_slots * n_scalars
 
 
-def decode_work(q, k_pages, v_pages, block_tables, lengths, **_kw):
-    """(bytes, flops) on these inputs: each live K/V element and live q
-    row read once, the live block-table ids and lengths read once, the
-    whole output written once; 4 flops per live (token, head, d)."""
+def _token_bytes(k_pages, scales) -> int:
+    """Bytes one cached token costs per K (or V) read: its H x Dh page
+    elements, plus its 4-byte scale in an int8 pool."""
+    h, dh = k_pages.shape[2], k_pages.shape[3]
+    return h * dh * k_pages.element_size() + (4 if scales else 0)
+
+
+def _decode_work(q, k_pages, block_tables, lengths, scales):
     s_slots, h, dh = q.shape
     ps, w = k_pages.shape[1], block_tables.shape[1]
-    esz = k_pages.element_size()
     n = np.clip(lengths.cpu().numpy().astype(np.int64), 0, w * ps)
     tok = int(n.sum())
     live_rows = int((n > 0).sum())
     nbytes = (live_rows * h * dh * q.element_size()
-              + 2 * tok * h * dh * esz
+              + 2 * tok * _token_bytes(k_pages, scales)
               + _ids_bytes(int((-(-n // ps)).sum()), s_slots, 1)
               + q.numel() * q.element_size())
     return nbytes, 4 * tok * h * dh
 
 
-def prefill_work(q, k_pages, v_pages, block_tables, chunk_starts, n_valid,
-                 **_kw):
-    """(bytes, flops) on these inputs: K/V read once up to each slot's
-    furthest horizon, live q rows read once, ids read once, the whole
-    output written once; 4 flops per (live row, attended token, head,
-    d)."""
+def _prefill_work(q, k_pages, block_tables, chunk_starts, n_valid, scales):
     s_slots, c, h, dh = q.shape
     ps, w = k_pages.shape[1], block_tables.shape[1]
-    esz = k_pages.element_size()
     st = chunk_starts.cpu().numpy().astype(np.int64)
     nv = np.clip(n_valid.cpu().numpy().astype(np.int64), 0, c)
     rows = int(nv.sum())
@@ -303,10 +481,42 @@ def prefill_work(q, k_pages, v_pages, block_tables, chunk_starts, n_valid,
         r = np.arange(n0)
         attended += int(np.minimum(s0 + r + 1, w * ps).sum())
     nbytes = (rows * h * dh * q.element_size()
-              + 2 * int(horizon.sum()) * h * dh * esz
+              + 2 * int(horizon.sum()) * _token_bytes(k_pages, scales)
               + _ids_bytes(int((-(-horizon // ps)).sum()), s_slots, 2)
               + q.numel() * q.element_size())
     return nbytes, 4 * attended * h * dh
+
+
+def decode_work(q, k_pages, v_pages, block_tables, lengths, **_kw):
+    """(bytes, flops) on these inputs: each live K/V element and live q
+    row read once, the live block-table ids and lengths read once, the
+    whole output written once; 4 flops per live (token, head, d)."""
+    return _decode_work(q, k_pages, block_tables, lengths, False)
+
+
+def prefill_work(q, k_pages, v_pages, block_tables, chunk_starts, n_valid,
+                 **_kw):
+    """(bytes, flops) on these inputs: K/V read once up to each slot's
+    furthest horizon, live q rows read once, ids read once, the whole
+    output written once; 4 flops per (live row, attended token, head,
+    d)."""
+    return _prefill_work(q, k_pages, block_tables, chunk_starts, n_valid,
+                         False)
+
+
+def decode_int8_work(q, k_pages, v_pages, k_scales, v_scales, block_tables,
+                     lengths, **_kw):
+    """As :func:`decode_work`, with 1-byte K/V elements plus each live
+    token's K and V scale (8 bytes a token)."""
+    return _decode_work(q, k_pages, block_tables, lengths, True)
+
+
+def prefill_int8_work(q, k_pages, v_pages, k_scales, v_scales, block_tables,
+                      chunk_starts, n_valid, **_kw):
+    """As :func:`prefill_work`, with 1-byte K/V elements plus each read
+    token's K and V scale."""
+    return _prefill_work(q, k_pages, block_tables, chunk_starts, n_valid,
+                         True)
 
 
 DECODE = registry.register(registry.KernelEntry(
@@ -333,6 +543,32 @@ PREFILL = registry.register(registry.KernelEntry(
     reference_fn=paged_prefill_reference,
     tolerance={torch.float32: (2e-5, 2e-5), torch.bfloat16: (1e-2, 1e-2)},
     work=prefill_work))
+
+# fp32: the reference's int8 kernel contract (decode_attention.py:1121 and
+# :1156); bf16 q as for the fp kernels
+_INT8_TOL = {torch.float32: (5e-5, 5e-5), torch.bfloat16: (1e-2, 1e-2)}
+
+DECODE_INT8 = registry.register(registry.KernelEntry(
+    name="ragged_paged_decode_int8",
+    route="cuda",
+    source=_SOURCE,
+    replaces="paddle_tpu/serving/decode_attention.py:356",
+    cuda_fn=paged_decode_int8_cuda,
+    plain_fn=paged_decode_int8_plain,
+    reference_fn=paged_decode_int8_reference,
+    tolerance=_INT8_TOL,
+    work=decode_int8_work))
+
+PREFILL_INT8 = registry.register(registry.KernelEntry(
+    name="ragged_paged_prefill_int8",
+    route="cuda",
+    source=_SOURCE,
+    replaces="paddle_tpu/serving/decode_attention.py:533",
+    cuda_fn=paged_prefill_int8_cuda,
+    plain_fn=paged_prefill_int8_plain,
+    reference_fn=paged_prefill_int8_reference,
+    tolerance=_INT8_TOL,
+    work=prefill_int8_work))
 
 
 # ---------------------------------------------------------------------------
@@ -364,3 +600,26 @@ def ragged_paged_prefill_attention(q, k_pages, v_pages, block_tables,
     kernel; CPU tensors run the plain PyTorch version."""
     return _dispatch(PREFILL, q, k_pages, v_pages, block_tables,
                      chunk_starts, n_valid, scale=scale)
+
+
+def ragged_paged_decode_int8_attention(q, k_pages, v_pages, k_scales,
+                                       v_scales, block_tables, lengths, *,
+                                       scale: Optional[float] = None):
+    """Dequant-attend decode over an int8 page pool with fp32
+    per-token-row scales (P, ps); returns (S, H, Dh) in ``q.dtype``. CUDA
+    tensors launch the Hopper kernel; CPU tensors run the plain
+    version."""
+    return _dispatch(DECODE_INT8, q, k_pages, v_pages, k_scales, v_scales,
+                     block_tables, lengths, scale=scale)
+
+
+def ragged_paged_prefill_int8_attention(q, k_pages, v_pages, k_scales,
+                                        v_scales, block_tables, chunk_starts,
+                                        n_valid, *,
+                                        scale: Optional[float] = None):
+    """Dequant-attend batched chunked prefill over an int8 page pool
+    (also the speculative verify step's attention); returns (S, C, H,
+    Dh) in ``q.dtype``. CUDA tensors launch the Hopper kernel; CPU
+    tensors run the plain version."""
+    return _dispatch(PREFILL_INT8, q, k_pages, v_pages, k_scales, v_scales,
+                     block_tables, chunk_starts, n_valid, scale=scale)

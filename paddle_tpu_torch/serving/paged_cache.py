@@ -8,6 +8,11 @@ tokens** (plus one page of rounding per slot).
 
 Device state (torch tensors on ``device``, written in place):
   pages[layer] = (k_pages, v_pages), each (num_pages, page_size, H, Dh)
+  int8 pools (``dtype=torch.int8``): pages[layer] = (k_pages, v_pages,
+    k_scales, v_scales) — int8 pages plus fp32 per-token-row scales
+    (num_pages, page_size) from :func:`quantize_kv`; a page's scale rows
+    live under the same page id, so the allocator, prefix index, CoW and
+    LRU need no change
 
 Host state (plain numpy, mutated by the allocator):
   block_tables (num_slots, max_pages_per_slot) int32 — page ids, row-
@@ -37,8 +42,8 @@ prefilling them. Rules that keep it exact:
   LRU **cached** pool: reusable by future matches, evicted (and
   unpublished) only when the allocator runs dry.
 
-The int8 page pool (``quantize_kv``), the host spill tier and the
-tensor-parallel page placement are later slices of the port.
+The host spill tier and the tensor-parallel page placement (and
+``quantize_kv``'s ``psum_axis``) are later slices of the port.
 """
 
 from __future__ import annotations
@@ -49,6 +54,8 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from paddle_tpu_torch.core.device import resolve_device
 
 
 @dataclasses.dataclass
@@ -74,12 +81,42 @@ class PagedCacheConfig:
     def max_tokens_per_slot(self) -> int:
         return self.max_pages_per_slot * self.page_size
 
+    @property
+    def quantized(self) -> bool:
+        """Int8 page storage with per-token-row fp32 scales."""
+        return self.dtype == torch.int8
+
     def pages_for(self, n_tokens: int) -> int:
         return -(-n_tokens // self.page_size)
 
 
 class PageOverflowError(RuntimeError):
     """No free pages (or slot capacity exceeded) for a reservation."""
+
+
+#: abs-max floor so an all-zero token row gets a harmless tiny scale
+#: instead of a division by zero (dequant of its zero int8 row is 0)
+KV_SCALE_FLOOR = 1e-8
+
+
+def quantize_kv(x: torch.Tensor, reduce_axes: Tuple[int, ...]):
+    """Symmetric per-token int8 quantization of a K/V slab.
+
+    ``x`` carries one K (or V) vector per token over its TRAILING
+    ``reduce_axes`` (decode writes ``(S, H, Dh)`` with axes ``(1, 2)``;
+    prefill writes ``(S, C, H, Dh)`` with axes ``(2, 3)``). Returns
+    ``(q int8, scale f32)`` with ``scale = max(|x|, floor) / 127`` per
+    token; dequantization is ``q * scale`` inside the attend kernels.
+    Per-token scales keep page writes append-stable: a new token never
+    requantizes rows already stored, so shared int8 pages stay
+    bit-stable under prefix sharing and CoW. ``torch.round`` rounds half
+    to even, as ``jnp.round`` does."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=reduce_axes)
+    scale = amax.clamp(min=KV_SCALE_FLOOR) / 127.0
+    exp = scale.reshape(scale.shape + (1,) * len(reduce_axes))
+    q = torch.round(xf / exp).clamp(-127, 127).to(torch.int8)
+    return q, scale
 
 
 # The same root string as the reference, so that within one process the
@@ -122,13 +159,22 @@ class PagedKVCache:
     """Device pages + host-side page allocator, block tables, and the
     refcounted prefix-sharing index."""
 
-    def __init__(self, config: PagedCacheConfig, device="cpu"):
+    def __init__(self, config: PagedCacheConfig, device="cuda"):
         self.config = c = config
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         shape = (c.num_pages, c.page_size, c.num_heads, c.head_dim)
-        self.pages: List[Tuple[torch.Tensor, torch.Tensor]] = [
-            (torch.zeros(shape, dtype=c.dtype, device=self.device),
-             torch.zeros(shape, dtype=c.dtype, device=self.device))
+        sshape = (c.num_pages, c.page_size)
+
+        def zeros(shp, dtype):
+            return torch.zeros(shp, dtype=dtype, device=self.device)
+
+        # one tuple per layer: (k, v) for fp pools, (k, v, k_scales,
+        # v_scales) for int8 pools, so every page write, copy and read
+        # walks one structure
+        self.pages: List[Tuple[torch.Tensor, ...]] = [
+            (zeros(shape, c.dtype), zeros(shape, c.dtype))
+            + ((zeros(sshape, torch.float32), zeros(sshape, torch.float32))
+               if c.quantized else ())
             for _ in range(c.num_layers)]
         self.block_tables = np.zeros((c.num_slots, c.max_pages_per_slot),
                                      np.int32)
@@ -177,6 +223,22 @@ class PagedKVCache:
         """Live-token fraction of the allocatable page pool."""
         cap = (self.config.num_pages - 1) * self.config.page_size
         return float(self.lengths.sum()) / cap if cap else 0.0
+
+    def bytes_per_page(self) -> int:
+        """Device bytes one page id commits across every layer's K and V
+        pools (plus the scale rows of an int8 pool)."""
+        total = sum(t.numel() * t.element_size()
+                    for layer in self.pages for t in layer)
+        return total // self.config.num_pages
+
+    def capacity_bytes(self) -> int:
+        """Device bytes of the allocatable pool (null page excluded)."""
+        return self.bytes_per_page() * (self.config.num_pages - 1)
+
+    def live_bytes(self) -> int:
+        """Device bytes committed to allocated pages right now (page
+        granularity: a reservation counts the moment it is made)."""
+        return self.bytes_per_page() * self.pages_in_use
 
     def _alloc_page(self) -> int:
         if self._free:

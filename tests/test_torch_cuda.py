@@ -8,7 +8,9 @@ package, so they run on the GPU machine as they are:
 Beyond ``chip_smoke.py`` (which checks the serving shapes), they cover
 the geometry the kernels promise: any head dim up to 256 (including
 ones that are not a multiple of 32), any page size up to 256, both
-element types, and the wrapper's refusals.
+element types, the int8 dequant-attend kernels over Dh 32/64/128 and
+pages of 8 and 16 with clamped page ids, the int8 and speculative
+engines at tiny size, and the wrappers' refusals.
 """
 
 import numpy as np
@@ -133,6 +135,147 @@ def test_out_of_range_page_ids_clamp_like_the_reference_gather(dev):
     torch.testing.assert_close(PA.paged_decode_cuda(*args, bad, full),
                                PA.paged_decode_cuda(*args, last, full),
                                atol=0, rtol=0)
+
+
+# -- int8 dequant-attend (K2 decode, K4 prefill) ------------------------------
+
+def _int8_inputs(seed, s, h, dh, ps, w, c, device):
+    """int8 pages from quantize_kv over seeded normals; the pages no block
+    table references carry bytes 127 and NaN scale rows."""
+    from paddle_tpu_torch.serving.paged_cache import quantize_kv
+    t = _inputs(seed, s, h, dh, ps, w, c, device)
+    n_pages = t["kp"].shape[0]
+    extra = 3
+    pages = []
+    for name in ("kp", "vp"):
+        q8, sc = quantize_kv(t[name], (2, 3))
+        q8 = torch.cat([q8, torch.full((extra,) + q8.shape[1:], 127,
+                                       dtype=torch.int8, device=device)])
+        sc = torch.cat([sc, torch.full((extra, ps), float("nan"),
+                                       device=device)])
+        pages.append((q8.contiguous(), sc.contiguous()))
+    (t["kq"], t["ks"]), (t["vq"], t["vs"]) = pages
+    t["n_live_pages"] = n_pages
+    return t
+
+
+INT8_GEOMETRIES = [(s, h, dh, ps, w, c) for dh in (32, 64, 128)
+                   for (s, h, ps, w, c) in ((3, 2, 16, 4, 16), (4, 3, 8, 5, 7))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("geom", INT8_GEOMETRIES,
+                         ids=lambda g: "x".join(map(str, g)))
+def test_int8_kernels_match_plain_versions(dev, geom, dtype):
+    s, h, dh, ps, w, c = geom
+    t = _int8_inputs(sum(geom), s, h, dh, ps, w, c, dev)
+    pages = (t["kq"], t["vq"], t["ks"], t["vs"])
+    cases = (
+        (PA.DECODE_INT8, (t["qd"].to(dtype), *pages, t["bt"], t["lengths"])),
+        (PA.PREFILL_INT8, (t["qp"].to(dtype), *pages, t["bt"], t["starts"],
+                           t["n_valid"])),
+    )
+    atol, rtol = PA.DECODE_INT8.tolerance[dtype]
+    for entry, args in cases:
+        before = entry.launches
+        got = entry.cuda_fn(*args)
+        torch.cuda.synchronize()
+        assert entry.launches == before + 1
+        assert got.dtype == dtype and got.shape == args[0].shape
+        assert torch.isfinite(got.float()).all()
+        ref = entry.plain_fn(args[0].float(), *args[1:])
+        torch.testing.assert_close(got.float(), ref, atol=atol, rtol=rtol)
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, entry.reference_fn(*args),
+                                       atol=atol, rtol=rtol)
+    dec = PA.DECODE_INT8.cuda_fn(*cases[0][1])
+    assert torch.all(dec[0] == 0)                     # lengths[0] == 0
+
+
+def test_int8_out_of_range_page_ids_clamp_with_their_scale_rows(dev):
+    t = _int8_inputs(1, 2, 2, 64, 16, 3, 4, dev)
+    kq, vq, ks, vs = t["kq"], t["vq"], t["ks"], t["vs"]
+    n_pages = kq.shape[0]
+    # the last page holds finite content and scales, so a clamped read of
+    # the page with another page's scale row would show
+    kq[-1] = 5
+    vq[-1] = -7
+    ks[-1] = 0.25
+    vs[-1] = 0.5
+    full = torch.full((2,), 3 * 16, dtype=torch.int32, device=dev)
+    bad, last = t["bt"].clone(), t["bt"].clone()
+    bad[:, -1] = n_pages + 7
+    last[:, -1] = n_pages - 1
+    pages = (kq, vq, ks, vs)
+    got = PA.paged_decode_int8_cuda(t["qd"], *pages, bad, full)
+    torch.testing.assert_close(
+        got, PA.paged_decode_int8_cuda(t["qd"], *pages, last, full),
+        atol=0, rtol=0)
+    torch.testing.assert_close(
+        got, PA.paged_decode_int8_plain(t["qd"], *pages, last, full),
+        **dict(zip(("atol", "rtol"), PA.DECODE_INT8.tolerance[torch.float32])))
+
+
+def test_int8_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    t = _int8_inputs(0, 2, 2, 64, 16, 3, 4, dev)
+    q, kq, vq, ks, vs = t["qd"], t["kq"], t["vq"], t["ks"], t["vs"]
+    rest = (t["bt"], t["lengths"])
+    with pytest.raises(ValueError, match="int8"):
+        PA.paged_decode_int8_cuda(q, kq.float(), vq.float(), ks, vs, *rest)
+    with pytest.raises(ValueError, match="int8"):
+        PA.paged_decode_int8_cuda(q, kq, vq.to(torch.uint8), ks, vs, *rest)
+    with pytest.raises(ValueError, match=r"\(P, ps\)"):
+        PA.paged_decode_int8_cuda(q, kq, vq, ks[:, :-1].contiguous(), vs,
+                                  *rest)
+    with pytest.raises(ValueError, match="float32"):
+        PA.paged_decode_int8_cuda(q, kq, vq, ks.double(), vs, *rest)
+    with pytest.raises(ValueError, match="float32"):
+        PA.paged_decode_int8_cuda(q, kq, vq, ks, vs.cpu(), *rest)
+    with pytest.raises(ValueError, match="contiguous"):
+        PA.paged_decode_int8_cuda(q, kq, vq, ks.t().contiguous().t(), vs,
+                                  *rest)
+    with pytest.raises(TypeError, match="not supported"):
+        PA.paged_decode_int8_cuda(q.half(), kq, vq, ks, vs, *rest)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        PA.paged_decode_int8_cuda(q.cpu(), kq.cpu(), vq.cpu(), ks.cpu(),
+                                  vs.cpu(), *(a.cpu() for a in rest))
+    with pytest.raises(ValueError, match="int8"):
+        PA.paged_prefill_int8_cuda(t["qp"], kq.bfloat16(), vq, ks, vs,
+                                   t["bt"], t["starts"], t["n_valid"])
+
+
+@pytest.mark.parametrize("mode", ["int8", "speculative", "int8_speculative"])
+def test_int8_and_speculative_engines_on_the_card_match_the_cpu(dev, mode):
+    from paddle_tpu_torch.inference import make_serving_engine
+    from paddle_tpu_torch.models.gpt import GPT, GPTConfig
+    cfg = GPTConfig.tiny(vocab_size=64, hidden_size=32, num_heads=2)
+    dcfg = GPTConfig.tiny(vocab_size=64, hidden_size=16, num_heads=2,
+                          num_layers=1)
+    cpu, dcpu = GPT(cfg, device="cpu", seed=5), GPT(dcfg, device="cpu", seed=6)
+    gpu, dgpu = GPT(cfg, device=dev, seed=5), GPT(dcfg, device=dev, seed=6)
+    gpu.load_state_dict(cpu.state_dict())
+    dgpu.load_state_dict(dcpu.state_dict())
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, 64, n).astype(np.int32) for n in (5, 17, 9)]
+    kw = dict(num_slots=2, page_size=4, prefill_chunk=8)
+    if "int8" in mode:
+        kw["cache_dtype"] = torch.int8
+    want = make_serving_engine(
+        cpu, device="cpu", draft_model=dcpu if "spec" in mode else None,
+        **kw).generate_many(prompts, 6)
+    registry_entries = (PA.DECODE_INT8, PA.PREFILL_INT8) if "int8" in mode \
+        else (PA.DECODE, PA.PREFILL)
+    for e in registry_entries:
+        e.launches = 0
+    eng = make_serving_engine(
+        gpu, device=dev, draft_model=dgpu if "spec" in mode else None, **kw)
+    got = eng.generate_many(prompts, 6)
+    assert all(e.launches > 0 for e in registry_entries)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    eng.cache.check_invariants()
+    assert eng.cache.pages_in_use == 0
 
 
 # -- flash attention (K5 forward, K6a dk/dv, K6b dq) -------------------------

@@ -126,14 +126,18 @@ def test_registry_entries_declare_the_replaced_tpu_kernels():
     names = registry.load_all()
     assert names == ("flash_attention_bwd_dkv", "flash_attention_bwd_dq",
                      "flash_attention_fwd", "ragged_paged_decode",
-                     "ragged_paged_prefill")
-    for name, line in (("ragged_paged_decode", 265),
-                       ("ragged_paged_prefill", 443)):
+                     "ragged_paged_decode_int8", "ragged_paged_prefill",
+                     "ragged_paged_prefill_int8")
+    for name, line, tol in (("ragged_paged_decode", 265, 2e-5),
+                            ("ragged_paged_prefill", 443, 2e-5),
+                            ("ragged_paged_decode_int8", 356, 5e-5),
+                            ("ragged_paged_prefill_int8", 533, 5e-5)):
         e = registry.get(name)
         assert e.route == "cuda"
         assert e.source == "paddle_tpu_torch/csrc/paged_attention.cu"
         assert e.replaces == f"paddle_tpu/serving/decode_attention.py:{line}"
-        assert e.tolerance[torch.float32] == (2e-5, 2e-5)
+        assert e.tolerance[torch.float32] == (tol, tol)
+        assert e.tolerance[torch.bfloat16] == (1e-2, 1e-2)
     registry.get("ragged_paged_decode").launches = 5
     registry.reset_launches()
     assert registry.get("ragged_paged_decode").launches == 0
@@ -173,6 +177,34 @@ def test_cuda_without_a_card_raises_and_never_falls_back():
     with pytest.raises(ValueError, match="unsupported device"):
         PA.ragged_paged_decode_attention(*meta)
     assert PA.DECODE.launches == before
+
+
+def test_paged_cache_defaults_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the no-card path is moot")
+    from paddle_tpu_torch.serving.paged_cache import (PagedCacheConfig,
+                                                      PagedKVCache)
+    cfg = PagedCacheConfig(num_layers=1, num_heads=2, head_dim=4, num_slots=2,
+                           num_pages=4, max_pages_per_slot=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PagedKVCache(cfg)
+    for dtype in (torch.float32, torch.int8):
+        cfg.dtype = dtype
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            PagedKVCache(cfg, device="cuda")
+        assert PagedKVCache(cfg, device="cpu").pages[0][0].device.type == "cpu"
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_single_slot_prefill_matches_the_reference(seed):
+    q, kp, vp, bt = _decode_setup(seed=seed)
+    rng = np.random.default_rng(seed + 10)
+    qc = rng.standard_normal((5, 2, 8)).astype(np.float32)
+    positions = np.asarray([3, 4, 5, 6, 7], np.int32) + 4 * seed
+    ref = np.asarray(DA.paged_prefill_attention(
+        *map(jnp.asarray, (qc, kp, vp, bt[1], positions))))
+    got = PA.paged_prefill_attention(*_torch((qc, kp, vp, bt[1], positions)))
+    np.testing.assert_allclose(got.numpy(), ref, **TOL)
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
