@@ -1,0 +1,102 @@
+#!/usr/bin/env python3
+"""Compare two checkouts of the repo on one NVIDIA GPU, in turns.
+
+    python3 chip_ab.py PARENT_DIR CHANGE_DIR [--phases train,serve]
+
+Runs phases of each checkout's own ``chip_smoke.py`` in the order parent,
+change, change, parent, one process per turn started inside that
+checkout, so that each builds and imports its own ``paddle_tpu_torch``:
+
+- ``train``: phase 5, BERT-base pretraining (``train_bf16``);
+- ``serve``: phases 4a and 4c, bf16 and int8 serving (``serve``).
+
+Host-bound phases move with the machine a run lands on, so two versions
+are compared only inside one such run. Prints one ``AB <label> {...}``
+line per turn, one line per metric with both checkouts' runs and the
+ratio of their means, and the card's nvidia-smi line. Exits non-zero
+without a card or when a turn fails.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+TRAIN_KEYS = ("ms_per_step", "tokens_per_s", "mfu_vs_989tflops")
+SERVE_KEYS = ("decode_tokens_per_s", "prefill_tokens_per_s",
+              "end_to_end_tokens_per_s", "ttft_p50_s")
+
+#: one turn, run with ``python3 -c`` inside a checkout
+CHILD = f"""
+import json, sys, torch
+import chip_smoke as cs
+from paddle_tpu_torch.kernels import build
+from paddle_tpu_torch.serving import paged_attention as PA
+build.build_all()
+dev = torch.device("cuda", 0)
+phases, out = sys.argv[1].split(","), {{}}
+if "serve" in phases:
+    for key, kernels, kw in (
+            ("4a", [PA.DECODE, PA.PREFILL], {{}}),
+            ("4c", [PA.DECODE_INT8, PA.PREFILL_INT8],
+             {{"cache_dtype": torch.int8}})):
+        stats, _ = cs.serve(dev, kernels, key, **kw)
+        out[key] = {{k: stats[k] for k in {SERVE_KEYS!r}}}
+if "train" in phases:
+    stats = cs.train_bf16(dev)
+    out["5"] = {{k: stats[k] for k in {TRAIN_KEYS!r}}}
+print("AB_RESULT " + json.dumps(out), flush=True)
+"""
+
+
+def run_turn(tree, phases, timeout):
+    """One turn in ``tree``: its output goes to stderr, its result back."""
+    proc = subprocess.run([sys.executable, "-c", CHILD, phases], cwd=tree,
+                          capture_output=True, text=True, timeout=timeout)
+    sys.stderr.write(proc.stdout + proc.stderr)
+    found = [line for line in proc.stdout.splitlines()
+             if line.startswith("AB_RESULT ")]
+    if proc.returncode != 0 or not found:
+        raise RuntimeError(f"turn in {tree} failed (exit {proc.returncode})")
+    return json.loads(found[-1][len("AB_RESULT "):])
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("parent")
+    ap.add_argument("change")
+    ap.add_argument("--phases", default="train,serve")
+    ap.add_argument("--timeout", type=float, default=900.0,
+                    help="seconds one turn may take")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("chip_ab: no CUDA device is available", file=sys.stderr)
+        return 2
+    turns = [("parent", args.parent), ("change", args.change),
+             ("change", args.change), ("parent", args.parent)]
+    results = []
+    for label, tree in turns:
+        res = run_turn(tree, args.phases, args.timeout)
+        print(f"AB {label} {json.dumps(res)}", flush=True)
+        results.append((label, res))
+    for phase in results[0][1]:
+        for key in results[0][1][phase]:
+            got = {lab: [r[phase][key] for lb, r in results if lb == lab]
+                   for lab in ("parent", "change")}
+            ratio = np.mean(got["change"]) / np.mean(got["parent"])
+            print(f"  {phase} {key}: parent {got['parent']} change "
+                  f"{got['change']} change/parent {ratio:.4f}", flush=True)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    print(smi.stdout.strip().splitlines()[0], flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -7,12 +7,18 @@ Phases, in order; any failure exits non-zero:
 
 1. device  — require CUDA; print the card's name and power limit.
 2. build   — compile every ``paddle_tpu_torch/csrc/*.cu`` with nvcc
-   (sm_90a), one process per source, all started together.
+   (sm_90a), one process per source, all started together; print the
+   ptxas line (registers, spills) of each of the 12 bf16 tensor-core
+   instances of K5 and K6a and, with ``cuobjdump``, its count of HGMMA
+   instructions (each must be found with a spill count and, where
+   counted, HGMMA > 0; the D = 64 instances must not spill).
 3. kernels — every registered kernel against its plain PyTorch version
    (and the dense reference) on the card, fp32 and bf16, timed with CUDA
-   events (median, L2 flushed before each launch) beside the roofline
-   bound and, where one PyTorch call computes the same function, that
-   call's time:
+   events (median, L2 flushed before each launch; ``ms`` as the host
+   issues the call, ``device_ms`` with the card spinning ~1 ms first so
+   the host's work stays out, and ``host_ms``, the host's time in the
+   call) beside the roofline bound and, where one PyTorch call computes
+   the same function, that call's time in both windows:
    (a) ragged paged decode / prefill at the serving shapes (S=16, H=16,
        Dh=64, page 16, width 32, chunk 64), with ragged lengths (0 and
        non-multiples of the page), inactive prefill slots, and NaN in
@@ -23,7 +29,8 @@ Phases, in order; any failure exits non-zero:
    (b) flash attention forward, dk/dv and dq at the training shape
        (48, 12, 512, 64) with a key-padding bias from ragged valid
        lengths (one of them 0: a fully masked batch row), causal at
-       (4, 16, 512, 64), and a ragged S=320 with a key bias.
+       (4, 16, 512, 64), and a ragged S=320 with a key bias; each row
+       with its achieved TFLOP/s and share of its bound.
 4. serve   — GPT (vocab 32768, hidden 1024, 12 layers, 16 heads, ffn
    4096, max_position 512, random weights from a seed) behind
    ``make_serving_engine(num_slots=16, page_size=16, prefill_chunk=64,
@@ -55,8 +62,8 @@ Phases, in order; any failure exits non-zero:
    fp32 master weights, through ``Trainer.fit``: 3 warm-up steps, then 20
    timed steps on a fixed seeded batch; the loss must be finite and fall,
    and each flash kernel must launch exactly 12 times per step. Prints
-   tokens/s, ms/step, MFU, peak memory, and the device busy share and top
-   kernels over 3 profiled steps.
+   tokens/s, ms/step, MFU, peak memory, and the device busy share, top
+   kernels and every flash kernel's device time over 3 profiled steps.
 6. parity  — fp32 BERT at full width with 2 layers, batch 8 x 512, 3
    AdamW steps through the kernels and through the plain versions (TF32
    off): losses and final parameters within 1e-4.
@@ -70,6 +77,9 @@ import dataclasses
 import functools
 import itertools
 import json
+import pathlib
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -198,21 +208,57 @@ class L2Flush:
         self.buf.fill_(1)
 
 
+#: device clock cycles (~1 ms) the card spins before a launch in the
+#: device-only window of :func:`time_ms`
+SPIN_CYCLES = 2_000_000
+
+
 def time_ms(fn, flush, reps):
+    """Medians over ``reps`` calls of ``fn()``, each after an L2 flush, of
+    two windows taken in turns and of the host's time in the call:
+
+    - ``ms``: CUDA events around the call as the host issues it, so host
+      work in the call (checks, tensor maps, the ctypes call, a library's
+      own host work) beyond the flush's device time shows up as idle
+      device time inside the window. The kernel table's times.
+    - ``device_ms``: the same with the card spinning ~1 ms
+      (``SPIN_CYCLES``) before the call, so that the host's work hides
+      under the spin: device time only.
+    - ``host_ms``: the host's time inside ``fn()`` in the second window,
+      where the card is still spinning and nothing waits on it."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    times = []
+    runs = {"ms": [], "device_ms": [], "host_ms": []}
     for _ in range(reps):
-        flush()
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        fn()
-        e1.record()
-        e1.synchronize()
-        times.append(e0.elapsed_time(e1))
-    return float(np.median(times))
+        for spin in (False, True):
+            flush()
+            if spin:
+                torch.cuda._sleep(SPIN_CYCLES)
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            t0 = time.perf_counter()
+            fn()
+            host = time.perf_counter() - t0
+            e1.record()
+            e1.synchronize()
+            runs["device_ms" if spin else "ms"].append(e0.elapsed_time(e1))
+            if spin:
+                runs["host_ms"].append(host * 1e3)
+    return {k: float(np.median(v)) for k, v in runs.items()}
+
+
+def _timed(fn, flush, reps, prefix=""):
+    """:func:`time_ms` with its keys prefixed (``plain_ms``,
+    ``plain_device_ms``, ...); the kernel's own keys unprefixed."""
+    return {prefix + k: v for k, v in time_ms(fn, flush, reps).items()}
+
+
+def _ms_text(r, prefix=""):
+    """'a ms (device b, host c)' of one timed call in a row."""
+    ms, dev, host = (r[prefix + k] for k in ("ms", "device_ms", "host_ms"))
+    return f"{ms:.4f} ms (device {dev:.4f}, host {host:.4f})"
 
 
 def _bound(nbytes, flops, dtype):
@@ -246,16 +292,15 @@ def check_kernel(entry, make_inputs, device, flush):
                 raise AssertionError(f"{entry.name}: max |kernel - dense "
                                      f"reference| = {derr:.3e}")
         bound_ms, bound_by = _bound(*entry.work(*args), dtype)
-        rows[dtype] = {
+        r = rows[dtype] = {
             "max_abs_err": err,
-            "ms": time_ms(lambda: entry.cuda_fn(*args), flush, 50),
-            "plain_ms": time_ms(lambda: entry.plain_fn(*args), flush, 10),
+            **_timed(lambda: entry.cuda_fn(*args), flush, 50),
+            **_timed(lambda: entry.plain_fn(*args), flush, 10, "plain_"),
             "bound_ms": bound_ms, "bound_by": bound_by,
         }
         log(f"  {entry.name} [{str(dtype)[6:]}] max_abs_err={err:.3e} "
-            f"kernel={rows[dtype]['ms']:.4f} ms plain="
-            f"{rows[dtype]['plain_ms']:.4f} ms bound="
-            f"{rows[dtype]['bound_ms']:.4f} ms ({rows[dtype]['bound_by']})")
+            f"kernel={_ms_text(r)} plain={_ms_text(r, 'plain_')} "
+            f"bound={bound_ms:.4f} ms ({bound_by})")
     return rows
 
 
@@ -365,26 +410,104 @@ def check_flash(case, device, flush):
                                     (dq, r_dq, "dq")):
                 _err(got, want, tol, f"{what}[{name}] vs dense")
         del out, lse, dk, dv, dq, p_out, p_dk, p_dv, p_dq
-        lib_fwd = time_ms(_library_fwd(q, k, v, bias, causal), flush, 20)
-        lib_bwd = time_ms(_library_bwd(q, k, v, bias, do, causal), flush, 20)
-        for entry, a, a32, lib_ms in (
+        lib_fwd = _timed(_library_fwd(q, k, v, bias, causal), flush, 20,
+                         "library_")
+        lib_bwd = _timed(_library_bwd(q, k, v, bias, do, causal), flush, 20,
+                         "library_")
+        for entry, a, a32, lib in (
                 (FA.FWD, (q, k, v, bias), (q32, k32, v32, bias), lib_fwd),
                 (FA.BWD_DKV, args, args32, lib_bwd),
                 (FA.BWD_DQ, args, args32, lib_bwd)):
-            ms_bound, by = _bound(*entry.work(*a, **kw), dtype)
+            nbytes, flops = entry.work(*a, **kw)
+            ms_bound, by = _bound(nbytes, flops, dtype)
             r = rows[entry.name][dtype] = {
                 "max_abs_err": errs[entry.name],
-                "ms": time_ms(lambda: entry.cuda_fn(*a, **kw), flush, 20),
-                "plain_ms": time_ms(lambda: entry.plain_fn(*a32, **kw),
-                                    flush, 5),
-                "bound_ms": ms_bound, "bound_by": by, "library_ms": lib_ms,
+                **_timed(lambda: entry.cuda_fn(*a, **kw), flush, 20),
+                **_timed(lambda: entry.plain_fn(*a32, **kw), flush, 5,
+                         "plain_"),
+                "bound_ms": ms_bound, "bound_by": by, **lib,
             }
+            r["tflops"] = flops / r["ms"] / 1e9
+            r["share_of_bound"] = ms_bound / r["ms"]
             log(f"  {entry.name}[{name}] [{str(dtype)[6:]}] max_abs_err="
-                f"{r['max_abs_err']:.3e} kernel={r['ms']:.4f} ms plain="
-                f"{r['plain_ms']:.4f} ms library={r['library_ms']:.4f} ms "
-                f"bound={r['bound_ms']:.4f} ms ({r['bound_by']})")
+                f"{r['max_abs_err']:.3e} kernel={_ms_text(r)} plain="
+                f"{_ms_text(r, 'plain_')} library={_ms_text(r, 'library_')}"
+                f" bound={ms_bound:.4f} ms ({by}) achieved="
+                f"{r['tflops']:.1f} TFLOP/s share_of_bound="
+                f"{r['share_of_bound']:.3f}")
         torch.cuda.empty_cache()
     return rows
+
+
+#: the bf16 tensor-core instances of K5 and K6a (csrc/flash_attention.cu),
+#: by mangled name: head dim, and whether the element loop checks a full
+#: bias and the causal mask
+TC_KERNELS = re.compile(r"(flash_fwd_tc_kernel|flash_bwd_dkv_tc_kernel)"
+                        r"ILi(\d+)ELb([01])EE")
+TC_EXPECTED = tuple(f"{k}<{d}, {c}>"
+                    for k in ("flash_bwd_dkv_tc_kernel", "flash_fwd_tc_kernel")
+                    for d in (32, 64, 128) for c in ("false", "true"))
+
+
+def _tc_name(m):
+    checks = "true" if m.group(3) == "1" else "false"
+    return f"{m.group(1)}<{m.group(2)}, {checks}>"
+
+
+def tensor_core_report(build):
+    """The ptxas line (registers, spills) of each bf16 K5 and K6a
+    instance from the build log, and, where ``cuobjdump`` is present, the
+    count of HGMMA (wgmma) instructions in each one's SASS. Fails unless
+    all of ``TC_EXPECTED`` have a ptxas line with a spill count, the D =
+    64 instances (the main path) spill nothing, and, with ``cuobjdump``,
+    each instance has HGMMA > 0: that shows the tensor cores are in
+    use."""
+    report = {key: {} for key in TC_EXPECTED}
+    lines = build.build_logs.get("flash_attention", "").splitlines()
+    for i, line in enumerate(lines):
+        m = TC_KERNELS.search(line)
+        if m is None or "Compiling entry function" not in line:
+            continue
+        props = [re.sub(r"^ptxas info\s*:\s*", "", x.strip())
+                 for x in lines[i + 1:i + 5] if "spill" in x or "Used" in x]
+        spills = re.search(r"(\d+) bytes spill stores", " ".join(props))
+        report.setdefault(_tc_name(m), {}).update(
+            ptxas=" | ".join(props),
+            spill_store_bytes=int(spills.group(1)) if spills else None)
+    exe = shutil.which("cuobjdump") or str(
+        pathlib.Path(build.nvcc()).parent / "cuobjdump")
+    counted = pathlib.Path(exe).is_file()
+    if counted:
+        sass = subprocess.run(
+            [exe, "-sass", str(build.library_path("flash_attention"))],
+            capture_output=True, text=True, timeout=300, check=True).stdout
+        func = None
+        for line in sass.splitlines():
+            if "Function :" in line:
+                m = TC_KERNELS.search(line)
+                func = _tc_name(m) if m else None
+                if func:
+                    report.setdefault(func, {})["hgmma"] = 0
+            elif func and "HGMMA" in line:
+                report[func]["hgmma"] += 1
+    for key, r in sorted(report.items()):
+        log(f"  {key}: {r.get('ptxas', 'no ptxas line')} | HGMMA "
+            f"{r.get('hgmma', 'not counted (no cuobjdump)')}")
+    if set(report) != set(TC_EXPECTED):
+        raise AssertionError(f"tensor-core instances {sorted(report)}, "
+                             f"expected {sorted(TC_EXPECTED)}")
+    for key, r in report.items():
+        if r.get("spill_store_bytes") is None:
+            raise AssertionError(f"{key}: no ptxas spill count in the build "
+                                 "log")
+        if key.split("<")[1].startswith("64,") and r["spill_store_bytes"]:
+            raise AssertionError(f"{key}: spills on the main path: "
+                                 f"{r['ptxas']}")
+        if counted and not r.get("hgmma"):
+            raise AssertionError(f"{key}: no HGMMA instruction in its SASS")
+    if not counted:
+        log(f"  no cuobjdump at {exe}: HGMMA not counted")
+    return report
 
 
 # -- phase 4: the main path ----------------------------------------------------
@@ -493,13 +616,14 @@ def agreement(got, want):
             "of": len(prefix), "mean_agreeing_prefix": float(np.mean(prefix))}
 
 
-def profile_window(step, reps):
+def profile_window(step, reps, keep=()):
     """Where the time of ``reps`` calls of ``step()`` goes: ``reps``
     calls run unprofiled (host clock, synchronised), then ``reps`` more
     under ``torch.profiler``. The profiler's own overhead inflates its
     window's wall time, so the device's busy share is the profiled
     window's device time over the unprofiled window's wall time. Returns
-    that share and device time by kernel (CUPTI)."""
+    that share and device time by kernel (CUPTI): the top ten, and every
+    kernel whose name contains one of ``keep``."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t0 = time.monotonic()
@@ -525,11 +649,16 @@ def profile_window(step, reps):
             kernels.append((us, ev.key[:90], ev.count))
     kernels.sort(reverse=True)
     busy = sum(k[0] for k in kernels) / 1e6
-    return {"unprofiled_wall_s": wall, "device_busy_s": busy,
-            "device_busy_share": busy / wall,
-            "kernel_launches": int(sum(k[2] for k in kernels)),
-            "top_kernels": [{"name": n, "ms": us / 1e3, "count": c}
-                            for us, n, c in kernels[:10]]}
+    out = {"unprofiled_wall_s": wall, "device_busy_s": busy,
+           "device_busy_share": busy / wall,
+           "kernel_launches": int(sum(k[2] for k in kernels)),
+           "top_kernels": [{"name": n, "ms": us / 1e3, "count": c}
+                           for us, n, c in kernels[:10]]}
+    if keep:
+        out["kept_kernels"] = [{"name": n, "ms": us / 1e3, "count": c}
+                               for us, n, c in kernels
+                               if any(x in n for x in keep)]
+    return out
 
 
 def profile_decode(eng, vocab, blocks=4):
@@ -784,7 +913,8 @@ def train_bf16(device):
     }
     log("  bf16 train: " + json.dumps(stats))
     it = itertools.repeat(batch)
-    prof = profile_window(lambda: step(state, **next(it)), PROFILED_STEPS)
+    prof = profile_window(lambda: step(state, **next(it)), PROFILED_STEPS,
+                          keep=("flash_",))
     log("  train profile: " + json.dumps({"steps": PROFILED_STEPS, **prof}))
     del trainer, state, step, opt, model, batch
     torch.cuda.empty_cache()
@@ -857,14 +987,15 @@ def kernel_line(entry, rows, launches, case_rows=None):
     """One entry of the ``kernels`` line: the bf16 row at the main
     path's shape, with its fp32 row (and other cases) beside it."""
     b16, f32 = rows[torch.bfloat16], rows[torch.float32]
-    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")
+    keys = ("max_abs_err", "ms", "device_ms", "host_ms", "plain_ms",
+            "plain_device_ms", "bound_ms", "bound_by", "library_ms",
+            "library_device_ms")
     line = {"name": entry.name, "route": entry.route,
             "source": entry.source, "replaces": entry.replaces,
             "launches": launches, **{k: b16.get(k) for k in keys},
             "dtype": "bfloat16", "fp32": {k: f32.get(k) for k in keys}}
     if case_rows:
-        line["cases"] = {c: {str(dt)[6:]: {k: r[k] for k in keys}
+        line["cases"] = {c: {str(dt)[6:]: {k: r.get(k) for k in keys}
                              for dt, r in by_dtype.items()}
                          for c, by_dtype in case_rows.items()}
     return line
@@ -886,6 +1017,7 @@ def main() -> int:
     log(f"[2/7] build: {json.dumps(secs)} in {time.monotonic() - t0:.1f} s")
     for stem, text in build.build_logs.items():
         print(f"--- nvcc {stem}.cu ---\n{text}", file=sys.stderr)
+    tensor_core_report(build)
 
     registry.load_all()
     from paddle_tpu_torch.serving import paged_attention as PA

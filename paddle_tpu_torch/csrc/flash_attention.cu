@@ -17,32 +17,41 @@
 //
 // What bounds them on an H100: at BERT-base shapes (S = 512, Dh = 64, bf16)
 // the forward is at the byte/operation balance (4 S Dh flops per 4 Dh
-// elements moved), the two backward kernels are operation-bound (8 and 6
-// S^2 Dh flops). On the tensor cores that is tens of microseconds per call.
+// elements moved; bound 0.045 ms at (48, 12, 512, 64)), the two backward
+// kernels are operation-bound (8 and 6 S^2 Dh flops; 0.078 and 0.059 ms).
 //
-// Design (simple and right first; no tensor cores). The TPU kernels run a
-// sequential grid axis that carries (m, l, acc) or (dk, dv) or dq in VMEM
-// scratch; here that axis is a loop inside one block, so no state crosses
-// blocks and no atomics are needed (gradients are bitwise reproducible).
-// A block of 256 threads (16 x 16) owns a 64-row tile: the forward and dq
-// one query tile (looping over key tiles), dk/dv one key tile (looping
-// over query tiles). Tiles are staged in shared memory as fp32 (16-byte
-// global loads; rows past the end read as zeros and are never loaded),
-// each thread computes a 4 x 4 micro-tile of the 64 x 64 score block with
-// scalar fp32 FMA, row reductions are 16-lane shuffles, and the score
-// block goes through shared memory into the second product. Causal tiles
-// wholly above the diagonal are skipped. K/V tiles have an odd row stride
-// and Q/dO tiles a stride of D + 4, so the score loop reads shared memory
-// without bank conflicts. fp32 stays fp32 throughout (no TF32), so the
-// fp32 path meets the reference contract's 2e-5.
-// What the simple design leaves on the table: the tensor cores (wgmma or
-// mma.sync for bf16), TMA/cp.async prefetch of the next tile behind this
-// tile's math, bf16 staging (it would double occupancy), and the
-// exp2-with-folded-scale trick.
+// Two designs, chosen by element type inside PTT_FLASH_CASES:
+// - bf16 K5 and K6a run on the tensor cores (section "Tensor-core
+//   instances" below): wgmma m64nNk16 with fp32 accumulators, SS for the
+//   products over D and RS (P or dS^T as the register A operand) for the
+//   products over keys or queries, tiles in shared memory as bf16 written
+//   by TMA into 2-stage rings tracked by mbarriers. P, P^T and dS^T are
+//   rounded to bf16 as operands; every sum stays fp32.
+// - fp32 (all three kernels) and bf16 K6b keep the scalar design (simple
+//   and right first): the TPU kernels' sequential grid axis, which carries
+//   (m, l, acc) or (dk, dv) or dq in VMEM scratch, is a loop inside one
+//   block, so no state crosses blocks and no atomics are needed. A block
+//   of 256 threads (16 x 16) owns a 64-row tile (the forward and dq one
+//   query tile looping over key tiles, dk/dv one key tile looping over
+//   query tiles) staged in shared memory as fp32; each thread computes a
+//   4 x 4 micro-tile of the 64 x 64 score block with scalar fp32 FMA, row
+//   reductions are 16-lane shuffles, and the score block goes through
+//   shared memory into the second product. K/V tiles have an odd row
+//   stride and Q/dO tiles a stride of D + 4 (no bank conflicts). fp32
+//   stays fp32 throughout (no TF32: the tensor cores have no full-fp32
+//   mode), so the fp32 path meets the reference contract's 2e-5.
+// Both skip causal tiles wholly above the diagonal, write every output
+// once (bitwise reproducible), and read rows past the end as zeros.
+// Left for later: K6b on the tensor cores (S = Q K^T so that dS is the A
+// fragment of dQ = dS K), and for K5/K6a a producer warp with setmaxnreg,
+// two consumer warpgroups in ping-pong, a persistent grid.
 
+#include <cuda.h>   // CUtensorMap and its enums (types only; no -lcuda)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -203,14 +212,16 @@ __device__ __forceinline__ void store_rows(T* __restrict__ g, int row0,
   }
 }
 
-// Number of key tiles a query tile starting at q0 must visit: all of them,
-// or with `causal` those not wholly above the diagonal of its last row.
-__device__ __forceinline__ int key_tiles(int q0, const Geometry& g) {
-  const int n = (g.Sk + kTile - 1) / kTile;
+// Number of key tiles of `keys` keys a 64-row query tile starting at q0
+// must visit: all of them, or with `causal` those not wholly above the
+// diagonal of its last row.
+__device__ __forceinline__ int key_tiles(int q0, const Geometry& g,
+                                         int keys = kTile) {
+  const int n = (g.Sk + keys - 1) / keys;
   if (!g.causal) return n;
   const int last = min(q0 + kTile - 1, g.Sq - 1) + (g.Sk - g.Sq);
   if (last < 0) return 0;
-  return min(n, last / kTile + 1);
+  return min(n, last / keys + 1);
 }
 
 __host__ __device__ constexpr int q_stride(int D) { return D + 4; }
@@ -458,6 +469,795 @@ __global__ void __launch_bounds__(kThreads)
   store_rows<T, D>(dq + qo * D, q0, g.Sq, acc);
 }
 
+// ===========================================================================
+// Tensor-core instances for bf16 (K5, K6a): wgmma fed by TMA
+// ===========================================================================
+// One consumer warpgroup (128 threads) per block owns 64 rows: query rows
+// in the forward, key rows in the dk/dv backward. Tiles live in shared
+// memory as bf16, written by TMA (cp.async.bulk.tensor, one elected
+// thread, completion on an mbarrier per stage) in a 2-stage ring, so tile
+// j+1 lands while tile j computes. A tile of R rows is stored as TMA
+// writes it with the swizzle of its row: D = 32 rows of 64 B (64B
+// swizzle), D = 64 rows of 128 B (128B swizzle), D = 128 two 64-column
+// halves of R rows of 128 B each (128B swizzle). The wgmma descriptors
+// below describe exactly that layout, K-major (D contiguous) when the
+// tile is the reduction-over-D operand and MN-major when it is the
+// reduction-over-rows operand (bf16 wgmma transposes B through the
+// descriptor). The tensor maps are 3-D (D, S, B*H), so rows past S in a
+// head read as zeros and never as the next head's rows.
+
+constexpr int kWgThreads = 128;     // one warpgroup
+constexpr int kWgRows = 64;         // wgmma M
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// Wait until the barrier's phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// Rows [row, row + box rows) x columns [col, col + box columns) of head
+// `bh` of a (B*H, S, D) tensor into shared memory at dst.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int col, int row,
+                                         int bh) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row),
+      "r"(bh)
+      : "memory");
+}
+
+// Shared-memory bytes of one stored row, and its descriptor layout type
+// (1 = 128B swizzle, 2 = 64B swizzle).
+template <int D>
+__host__ __device__ constexpr uint32_t row_bytes() {
+  return D == 32 ? 64 : 128;
+}
+template <int D>
+__host__ __device__ constexpr uint64_t layout_type() {
+  return D == 32 ? 2 : 1;
+}
+
+// A tile of `rows` rows: one TMA box per 64 columns.
+template <int D>
+__device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int row, int bh,
+                                         int rows) {
+#pragma unroll
+  for (int half = 0; half < (D + 63) / 64; ++half)
+    tma_load(dst + half * rows * 128, map, bar, half * 64, row, bh);
+}
+
+__device__ __forceinline__ uint64_t desc_field(uint32_t bytes) {
+  return (uint64_t)((bytes & 0x3FFFF) >> 4);
+}
+
+// wgmma descriptor of k-slice kk (16 columns of D) of a tile of `rows`
+// rows, K-major: 32 bytes along a swizzled row, the second 64-column half
+// at rows * 128 bytes; 8-row groups SBO = 8 rows apart; LBO unused (1).
+template <int D>
+__device__ __forceinline__ uint64_t kmajor_desc(uint32_t tile, int rows,
+                                                int kk) {
+  const uint32_t addr = tile + (kk / 4) * rows * 128 + (kk % 4) * 32;
+  return desc_field(addr) | (desc_field(16) << 16) |
+         (desc_field(8 * row_bytes<D>()) << 32) | (layout_type<D>() << 62);
+}
+
+// wgmma descriptor of rows [16 kk, 16 kk + 16) of a tile of `rows` rows,
+// MN-major (the rows are the reduction axis, D the output columns): 8-row
+// groups SBO = 8 rows apart, 64-column halves LBO = rows * 128 apart.
+template <int D>
+__device__ __forceinline__ uint64_t mnmajor_desc(uint32_t tile, int rows,
+                                                 int kk) {
+  const uint32_t addr = tile + kk * 16 * row_bytes<D>();
+  return desc_field(addr) | (desc_field(rows * 128) << 16) |
+         (desc_field(8 * row_bytes<D>()) << 32) | (layout_type<D>() << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Pin accumulator registers in place around an asynchronous wgmma, so
+// that the compiler moves none of them between issue and wait.
+template <int K>
+__device__ __forceinline__ void fence_regs(float (&d)[K]) {
+#pragma unroll
+  for (int e = 0; e < K; ++e) asm volatile("" : "+f"(d[e])::"memory");
+}
+
+// d (+)= A B^T, m64nNk16, bf16 operands in shared memory, both K-major;
+// scale_d = 0 overwrites d.
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a,
+                                         uint64_t b, int scale_d);
+// d += A B, m64nNk16, A a register fragment of packed bf16x2, B in
+// shared memory MN-major.
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4], uint64_t b);
+
+// The accumulator operands d[i .. i + 7] of an inline wgmma.
+#define PTT_ACC8(i)                                                    \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),          \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+template <>
+__device__ __forceinline__ void wgmma_ss<32>(float (&d)[16], uint64_t a,
+                                             uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : PTT_ACC8(0), PTT_ACC8(8)
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t a,
+                                             uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : PTT_ACC8(0), PTT_ACC8(8), PTT_ACC8(16), PTT_ACC8(24)
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t a,
+                                             uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : PTT_ACC8(0), PTT_ACC8(8), PTT_ACC8(16), PTT_ACC8(24),
+        PTT_ACC8(32), PTT_ACC8(40), PTT_ACC8(48), PTT_ACC8(56)
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<32>(float (&d)[16],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : PTT_ACC8(0), PTT_ACC8(8)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : PTT_ACC8(0), PTT_ACC8(8), PTT_ACC8(16), PTT_ACC8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : PTT_ACC8(0), PTT_ACC8(8), PTT_ACC8(16), PTT_ACC8(24),
+        PTT_ACC8(32), PTT_ACC8(40), PTT_ACC8(48), PTT_ACC8(56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+#undef PTT_ACC8
+
+// An m64nNk16 fp32 accumulator holds, in thread t of the warpgroup
+// (warp w, lane l), d[4 j + 2 i + c] = element (16 w + l / 4 + 8 i,
+// 8 j + 2 (l % 4) + c). For k-slice kk of a product whose reduction axis
+// is that accumulator's columns, the bf16 A fragment is the same
+// elements: a[r] = (d[8 kk + 2 r], d[8 kk + 2 r + 1]) packed.
+template <int N>
+__device__ __forceinline__ void to_a_fragments(const float (&d)[N / 2],
+                                               uint32_t (&a)[N / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const __nv_bfloat162 h =
+          __floats2bfloat162_rn(d[8 * kk + 2 * r], d[8 * kk + 2 * r + 1]);
+      a[kk][r] = *reinterpret_cast<const uint32_t*>(&h);
+    }
+}
+
+// 2^x on the special-function unit, denormal results flushed to zero
+// (exp2f adds a denormal fix-up around the same instruction); 2^0 = 1.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// The part of a score that depends only on the key: NEG_INF past Sk, else
+// a key-padding bias (query stride 0) or 0. A full bias is added per
+// element by the caller. Adding NEG_INF to a finite score gives NEG_INF in
+// fp32, as the reference's mask does.
+__device__ __forceinline__ float key_term(int key, int b, int h,
+                                          const Geometry& g) {
+  if (key >= g.Sk) return kNegInf;
+  if (g.bias != nullptr && g.sq == 0)
+    return g.bias[b * g.sb + h * g.sh + key * g.sk];
+  return 0.f;
+}
+
+__device__ __forceinline__ uint8_t* align_1024(uint8_t* p) {
+  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
+}
+
+// Write a 64 x D fp32 fragment (rows 16 w + l / 4 + 8 i) as bf16 into a
+// shared staging tile of row stride D + 8 (conflict-free for the quads).
+template <int D>
+__device__ __forceinline__ void stage_rows(__nv_bfloat16* s,
+                                           const float (&v)[D / 2]) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = 16 * w + (lane >> 2) + 8 * i;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(s + r * (D + 8) + 8 * j +
+                                         2 * (lane & 3)) =
+          __floats2bfloat162_rn(v[4 * j + 2 * i], v[4 * j + 2 * i + 1]);
+  }
+}
+
+// 16-byte stores of the staged rows [row0, row0 + 64) that are < n_rows.
+template <int D>
+__device__ __forceinline__ void store_staged(__nv_bfloat16* __restrict__ g,
+                                             int row0, int n_rows,
+                                             const __nv_bfloat16* s) {
+  for (int idx = threadIdx.x; idx < kWgRows * D / 8; idx += kWgThreads) {
+    const int r = idx / (D / 8), c = idx % (D / 8);
+    if (row0 + r < n_rows)
+      *reinterpret_cast<uint4*>(g + (int64_t)(row0 + r) * D + 8 * c) =
+          *reinterpret_cast<const uint4*>(s + r * (D + 8) + 8 * c);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K5, bf16: forward on the tensor cores. Replaces _flash_fwd /
+// _flash_fwd_kernel (paddle_tpu/ops/attention.py:239). Bound at
+// (48, 12, 512, 64) with a key bias: 0.045 ms, by bytes.
+// Per 64-row query tile: Q once by TMA; K and V tiles of N = 128 keys (64
+// for D = 128) by TMA into 2-stage rings with a barrier each; S = Q K^T
+// with wgmma SS (both K-major) into fp32 registers; scale, bias and masks
+// on the accumulator fragment; the online max with 4-lane shuffles (row
+// sums stay per thread until the end, the rescale factor being the
+// row's); P rounded to bf16 is the register A operand of O += P V (wgmma
+// RS, V MN-major). S of tile j and P V of tile j - 1 are issued together
+// (FlashAttention-3's intra-warpgroup overlap): the softmax of tile j
+// waits only for S and runs while P V is on the tensor cores, and O is
+// rescaled once P V lands. K of tile j + 1 and V of tile j load during
+// iteration j (V of tile j - 1 is still being read then). The
+// key-padding bias of the next tile is staged in shared memory beside its
+// load; a full bias is read per element through its strides, and it and
+// the causal mask are checked only in the kChecks instance, which a call
+// gets when it has either (the checks cost the main path much of its
+// speed even when they never fire).
+// Out goes through shared memory to 16-byte stores; lse = m + log(l) in
+// fp32. Left for later: a producer warp with setmaxnreg, two consumer
+// warpgroups in ping-pong, a persistent grid.
+// ---------------------------------------------------------------------------
+template <int D>
+__host__ __device__ constexpr int fwd_keys() {
+  return D <= 64 ? 128 : 64;
+}
+
+template <int D>
+constexpr size_t fwd_tc_smem() {
+  return 1024 + kWgRows * D * 2 + 4 * fwd_keys<D>() * D * 2 +
+         2 * fwd_keys<D>() * sizeof(float) + 5 * sizeof(uint64_t);
+}
+
+__device__ __forceinline__ void wgmma_wait_1() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+}
+
+template <int K>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[K][4]) {
+#pragma unroll
+  for (int e = 0; e < K; ++e)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) asm volatile("" : "+r"(a[e][r])::"memory");
+}
+
+// Softmax state of the two rows a thread holds, and one key tile's update
+// of it: s holds the raw scores q.k of the tile on entry and p on exit;
+// returns through alpha the factor that rescales the rows' O.
+template <int N, bool kChecks>
+__device__ __forceinline__ void online_softmax(float (&s)[N / 2],
+                                               const float* col_term, int k0,
+                                               const int (&row)[2],
+                                               const float* const* brow,
+                                               const Geometry& g,
+                                               float (&m)[2], float (&l)[2],
+                                               float (&alpha)[2]) {
+  const int lane = threadIdx.x & 31;
+  float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    const int c = 8 * j + 2 * (lane & 3);
+    const float2 ct = *reinterpret_cast<const float2*>(col_term + c);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        // the reference's masked_score order: scale, bias, masks
+        float x = s[4 * j + 2 * i + e] * g.scale + (e ? ct.y : ct.x);
+        if (kChecks) {
+          const int col = k0 + c + e;
+          if (brow[i] != nullptr && col < g.Sk) x += brow[i][col * g.sk];
+          if (g.causal && col > row[i] + (g.Sk - g.Sq)) x = kNegInf;
+        }
+        s[4 * j + 2 * i + e] = x;
+        mx[i] = fmaxf(mx[i], x);
+      }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float m_next = fmaxf(m[i], quad_max(mx[i]));
+    // a row with every key masked so far keeps m = NEG_INF: s - m = 0
+    // gives p = 1, and the row is zeroed at the end (alive = false)
+    alpha[i] = ex2((m[i] - m_next) * kLog2e);
+    m[i] = m_next;
+    l[i] *= alpha[i];
+  }
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float p = ex2((s[4 * j + 2 * i + e] - m[i]) * kLog2e);
+        l[i] += p;
+        s[4 * j + 2 * i + e] = p;
+      }
+}
+
+template <int D>
+__device__ __forceinline__ void rescale_rows(float (&o)[D / 2],
+                                             const float (&alpha)[2]) {
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      o[4 * j + 2 * i] *= alpha[i];
+      o[4 * j + 2 * i + 1] *= alpha[i];
+    }
+}
+
+template <int D, bool kChecks>
+__global__ void __launch_bounds__(kWgThreads)
+    flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap map_q,
+                        const __grid_constant__ CUtensorMap map_k,
+                        const __grid_constant__ CUtensorMap map_v,
+                        __nv_bfloat16* __restrict__ out,
+                        float* __restrict__ lse, Geometry g, int n_qt) {
+  constexpr int N = fwd_keys<D>();
+  constexpr uint32_t QB = kWgRows * D * 2, KB = N * D * 2;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  uint8_t* smem = align_1024(smem_raw);
+  const uint32_t sQ = smem_u32(smem), sK = sQ + QB, sV = sK + 2 * KB;
+  float* sCol = reinterpret_cast<float*>(smem + QB + 4 * KB);     // [2][N]
+  // barriers: K full [2], V full [2], Q
+  const uint32_t bar_k = smem_u32(sCol + 2 * N), bar_v = bar_k + 16,
+                 bar_q = bar_k + 32;
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+  const int bh = blockIdx.x / n_qt, b = bh / g.H, h = bh % g.H;
+  // a head's last query tiles first: under a causal mask they visit the
+  // most key tiles, so the longest blocks start in the first wave
+  const int q0 = (n_qt - 1 - blockIdx.x % n_qt) * kWgRows;
+  const int n_kt = key_tiles(q0, g, N);
+  auto load_k = [&](int kt) {
+    const uint32_t full = bar_k + 8 * (kt & 1);
+    mbar_expect_tx(full, KB);
+    tma_tile<D>(sK + (kt & 1) * KB, &map_k, full, kt * N, bh, N);
+  };
+  auto load_v = [&](int kt) {
+    const uint32_t full = bar_v + 8 * (kt & 1);
+    mbar_expect_tx(full, KB);
+    tma_tile<D>(sV + (kt & 1) * KB, &map_v, full, kt * N, bh, N);
+  };
+  auto stage_cols = [&](int kt) {
+    if (tid < N) sCol[(kt & 1) * N + tid] = key_term(kt * N + tid, b, h, g);
+  };
+
+  if (tid == 0) {
+    for (int i = 0; i < 5; ++i) mbar_init(bar_k + 8 * i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(bar_q, QB);
+    tma_tile<D>(sQ, &map_q, bar_q, q0, bh, kWgRows);
+    if (n_kt > 0) {
+      load_k(0);
+      load_v(0);
+    }
+    if (n_kt > 1) load_k(1);
+  }
+  if (n_kt > 0) stage_cols(0);
+  if (n_kt > 1) stage_cols(1);
+
+  int row[2];
+  const float* brow[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    row[i] = q0 + 16 * w + (lane >> 2) + 8 * i;
+    brow[i] = kChecks && g.bias != nullptr && g.sq != 0 && row[i] < g.Sq
+                  ? g.bias + b * g.sb + h * g.sh + row[i] * g.sq
+                  : nullptr;
+  }
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, alpha[2];
+  float o[D / 2], s[N / 2];
+  uint32_t pa[N / 16][4];
+#pragma unroll
+  for (int e = 0; e < D / 2; ++e) o[e] = 0.f;
+#pragma unroll
+  for (int e = 0; e < N / 2; ++e) s[e] = 0.f;
+  mbar_wait(bar_q, 0);
+  __syncthreads();   // the column terms of tiles 0 and 1 are staged
+
+  if (n_kt > 0) {
+    mbar_wait(bar_k, 0);
+    fence_regs(s);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<N>(s, kmajor_desc<D>(sQ, kWgRows, kk),
+                  kmajor_desc<D>(sK, N, kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+    online_softmax<N, kChecks>(s, sCol, 0, row, brow, g, m, l, alpha);
+    to_a_fragments<N>(s, pa);
+  }
+  for (int kt = 1; kt < n_kt; ++kt) {
+    const int st = kt & 1;
+    // every warp is done with S of tile kt - 1 (K stage st ^ 1, column
+    // terms buffer st ^ 1) and P V of tile kt - 2 (V stage st)
+    __syncthreads();
+    if (tid == 0) {
+      if (kt + 1 < n_kt) load_k(kt + 1);
+      load_v(kt);
+    }
+    if (kt + 1 < n_kt) stage_cols(kt + 1);
+    mbar_wait(bar_k + 8 * st, (kt >> 1) & 1);
+    mbar_wait(bar_v + 8 * (st ^ 1), ((kt - 1) >> 1) & 1);
+    fence_regs(s);
+    fence_regs(o);
+    fence_regs(pa);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<N>(s, kmajor_desc<D>(sQ, kWgRows, kk),
+                  kmajor_desc<D>(sK + st * KB, N, kk), kk > 0);
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < N / 16; ++kk)
+      wgmma_rs<D>(o, pa[kk], mnmajor_desc<D>(sV + (st ^ 1) * KB, N, kk));
+    wgmma_commit();
+    wgmma_wait_1();    // S of tile kt has landed; P V of kt - 1 runs on
+    fence_regs(s);
+    online_softmax<N, kChecks>(s, sCol + st * N, kt * N, row, brow, g, m, l,
+                               alpha);
+    wgmma_wait_all();
+    fence_regs(o);
+    fence_regs(pa);
+    rescale_rows<D>(o, alpha);
+    to_a_fragments<N>(s, pa);
+  }
+  if (n_kt > 0) {
+    const int last = n_kt - 1;
+    mbar_wait(bar_v + 8 * (last & 1), (last >> 1) & 1);
+    fence_regs(o);
+    fence_regs(pa);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < N / 16; ++kk)
+      wgmma_rs<D>(o, pa[kk], mnmajor_desc<D>(sV + (last & 1) * KB, N, kk));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(o);
+    fence_regs(pa);
+  }
+
+  // finish: rows whose every key is masked keep m ~ NEG_INF; they emit 0
+  // (not a uniform mean of v) and lse = m + log(l) ~ NEG_INF
+  __syncthreads();   // every wgmma read is done: the ring becomes staging
+  __nv_bfloat16* staged = reinterpret_cast<__nv_bfloat16*>(smem);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float li = quad_sum(l[i]);
+    const float denom = li == 0.f ? 1.f : li;
+    const bool alive = m[i] > kNegInf / 2;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        o[4 * j + 2 * i + e] = alive ? o[4 * j + 2 * i + e] / denom : 0.f;
+    if ((lane & 3) == 0 && row[i] < g.Sq)
+      lse[(int64_t)bh * g.Sq + row[i]] = m[i] + logf(denom);
+  }
+  stage_rows<D>(staged, o);
+  __syncthreads();
+  store_staged<D>(out + (int64_t)bh * g.Sq * D, q0, g.Sq, staged);
+}
+
+// ---------------------------------------------------------------------------
+// K6a, bf16: dk, dv on the tensor cores (the FlashAttention-3 form).
+// Replaces the dk/dv pallas_call of _flash_bwd (paddle_tpu/ops/
+// attention.py:478, call at :525). Bound at (48, 12, 512, 64): 0.078 ms,
+// by operations. A block owns 64 key rows (K and V loaded once by TMA)
+// and loops over query tiles (64 rows; 32 for D = 128, to keep the
+// accumulators in registers), Q and dO by TMA in a 2-stage ring, lse and
+// delta of the next tile staged in shared memory beside it. The products
+// are computed transposed, so that P^T and dS^T come out in the register
+// A-fragment layout of the second products:
+//   S^T = K Q^T, dP^T = V dO^T          wgmma SS, all K-major
+//   P^T = exp(S^T scale + bias - lse), dS^T = P^T (dP^T - delta) scale
+//   dV += P^T dO, dK += dS^T Q          wgmma RS, dO and Q MN-major
+// dK and dV stay in fp32 registers over all query tiles and are written
+// once per key tile through shared memory: no atomics, so results are
+// bitwise reproducible. As in K5, the element loop checks a full bias and
+// the causal mask only in the kChecks instance. Left for later: a
+// producer warp, two consumer warpgroups, and overlapping the two product
+// pairs across tiles.
+// ---------------------------------------------------------------------------
+template <int D>
+__host__ __device__ constexpr int bwd_queries() {
+  return D <= 64 ? 64 : 32;
+}
+
+template <int D>
+constexpr size_t dkv_tc_smem() {
+  return 1024 + 2 * kWgRows * D * 2 + 4 * bwd_queries<D>() * D * 2 +
+         4 * bwd_queries<D>() * sizeof(float) + 3 * sizeof(uint64_t);
+}
+
+template <int D, bool kChecks>
+__global__ void __launch_bounds__(kWgThreads)
+    flash_bwd_dkv_tc_kernel(const __grid_constant__ CUtensorMap map_q,
+                            const __grid_constant__ CUtensorMap map_k,
+                            const __grid_constant__ CUtensorMap map_v,
+                            const __grid_constant__ CUtensorMap map_do,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ delta,
+                            __nv_bfloat16* __restrict__ dk,
+                            __nv_bfloat16* __restrict__ dv, Geometry g,
+                            int n_kt) {
+  constexpr int NQ = bwd_queries<D>();
+  constexpr uint32_t KB = kWgRows * D * 2, QB = NQ * D * 2;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  uint8_t* smem = align_1024(smem_raw);
+  const uint32_t sK = smem_u32(smem), sV = sK + KB;
+  const uint32_t sQ = sV + KB, sDO = sQ + 2 * QB;   // stage s at + s * QB
+  float* sLse = reinterpret_cast<float*>(smem + 2 * KB + 4 * QB);  // [2][NQ]
+  float* sDelta = sLse + 2 * NQ;                                   // [2][NQ]
+  const uint32_t bar = smem_u32(sDelta + 2 * NQ);  // full[0], full[1], kv
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+  const int bh = blockIdx.x / n_kt, b = bh / g.H, h = bh % g.H;
+  const int k0 = (blockIdx.x % n_kt) * kWgRows;
+  const int64_t qo = (int64_t)bh * g.Sq;
+  const int n_qt = (g.Sq + NQ - 1) / NQ;
+  // skip query tiles whose every row sits above this key tile's diagonal
+  int qt0 = 0;
+  if (g.causal)
+    while (qt0 < n_qt && min(qt0 * NQ + NQ - 1, g.Sq - 1) + (g.Sk - g.Sq) < k0)
+      ++qt0;
+  const bool full_bias = kChecks && g.bias != nullptr && g.sq != 0;
+
+  // lse and delta of query tile qt into buffer `buf`; padded query rows
+  // get lse = NEG_INF, so their p is 0 as in the reference
+  auto stage_rows_fp32 = [&](int qt, int buf) {
+    const int r = tid & (NQ - 1), q = qt * NQ + r;
+    if (tid < NQ)
+      sLse[buf * NQ + r] = q < g.Sq ? lse[qo + q] : kNegInf;
+    else if (tid < 2 * NQ)
+      sDelta[buf * NQ + r] = q < g.Sq ? delta[qo + q] : 0.f;
+  };
+
+  if (tid == 0) {
+    for (int i = 0; i < 3; ++i) mbar_init(bar + 8 * i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(bar + 16, 2 * KB);
+    tma_tile<D>(sK, &map_k, bar + 16, k0, bh, kWgRows);
+    tma_tile<D>(sV, &map_v, bar + 16, k0, bh, kWgRows);
+    if (qt0 < n_qt) {
+      mbar_expect_tx(bar, 2 * QB);
+      tma_tile<D>(sQ, &map_q, bar, qt0 * NQ, bh, NQ);
+      tma_tile<D>(sDO, &map_do, bar, qt0 * NQ, bh, NQ);
+    }
+  }
+  if (qt0 < n_qt) stage_rows_fp32(qt0, 0);
+
+  int key[2];
+  float kterm[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    key[i] = k0 + 16 * w + (lane >> 2) + 8 * i;
+    kterm[i] = key_term(key[i], b, h, g);
+  }
+  float acc_k[D / 2], acc_v[D / 2], sT[NQ / 2], dpt[NQ / 2];
+#pragma unroll
+  for (int e = 0; e < D / 2; ++e) acc_k[e] = acc_v[e] = 0.f;
+#pragma unroll
+  for (int e = 0; e < NQ / 2; ++e) sT[e] = dpt[e] = 0.f;
+  mbar_wait(bar + 16, 0);
+
+  for (int qt = qt0, it = 0; qt < n_qt; ++qt, ++it) {
+    const int stg = it & 1, q0 = qt * NQ;
+    __syncthreads();   // stage stg ^ 1 (the previous tile) is no longer read
+    if (qt + 1 < n_qt) {
+      if (tid == 0) {
+        const uint32_t full = bar + 8 * (stg ^ 1);
+        mbar_expect_tx(full, 2 * QB);
+        tma_tile<D>(sQ + (stg ^ 1) * QB, &map_q, full, q0 + NQ, bh, NQ);
+        tma_tile<D>(sDO + (stg ^ 1) * QB, &map_do, full, q0 + NQ, bh, NQ);
+      }
+      stage_rows_fp32(qt + 1, stg ^ 1);
+    }
+    mbar_wait(bar + 8 * stg, (it >> 1) & 1);
+
+    const uint32_t q_tile = sQ + stg * QB, do_tile = sDO + stg * QB;
+    fence_regs(sT);
+    fence_regs(dpt);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<NQ>(sT, kmajor_desc<D>(sK, kWgRows, kk),
+                   kmajor_desc<D>(q_tile, NQ, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<NQ>(dpt, kmajor_desc<D>(sV, kWgRows, kk),
+                   kmajor_desc<D>(do_tile, NQ, kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sT);
+    fence_regs(dpt);
+
+    // p and ds, transposed: rows are keys, columns queries
+    const float* lse_t = sLse + stg * NQ;
+    const float* delta_t = sDelta + stg * NQ;
+#pragma unroll
+    for (int j = 0; j < NQ / 8; ++j) {
+      const int c = 8 * j + 2 * (lane & 3);
+      const float2 l2 = *reinterpret_cast<const float2*>(lse_t + c);
+      const float2 d2 = *reinterpret_cast<const float2*>(delta_t + c);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int idx = 4 * j + 2 * i + e, q = q0 + c + e;
+          const float lse_q = e ? l2.y : l2.x;
+          float x = sT[idx] * g.scale + kterm[i];
+          if (kChecks) {
+            if (full_bias && q < g.Sq && key[i] < g.Sk)
+              x += g.bias[b * g.sb + h * g.sh + q * g.sq + key[i] * g.sk];
+            if (g.causal && key[i] > q + (g.Sk - g.Sq)) x = kNegInf;
+          }
+          // fully masked query rows (lse ~ NEG_INF) and padded ones: 0
+          const float p =
+              lse_q > kNegInf / 2 ? ex2((x - lse_q) * kLog2e) : 0.f;
+          sT[idx] = p;
+          dpt[idx] = p * (dpt[idx] - (e ? d2.y : d2.x)) * g.scale;
+        }
+    }
+    uint32_t pa[NQ / 16][4], da[NQ / 16][4];
+    to_a_fragments<NQ>(sT, pa);
+    to_a_fragments<NQ>(dpt, da);
+    fence_regs(acc_k);
+    fence_regs(acc_v);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < NQ / 16; ++kk)
+      wgmma_rs<D>(acc_v, pa[kk], mnmajor_desc<D>(do_tile, NQ, kk));
+#pragma unroll
+    for (int kk = 0; kk < NQ / 16; ++kk)
+      wgmma_rs<D>(acc_k, da[kk], mnmajor_desc<D>(q_tile, NQ, kk));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc_k);
+    fence_regs(acc_v);
+  }
+
+  __syncthreads();   // every wgmma read is done: the tiles become staging
+  __nv_bfloat16* staged_k = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* staged_v = staged_k + kWgRows * (D + 8);
+  stage_rows<D>(staged_k, acc_k);
+  stage_rows<D>(staged_v, acc_v);
+  __syncthreads();
+  const int64_t ko = (int64_t)bh * g.Sk * D;
+  store_staged<D>(dk + ko, k0, g.Sk, staged_k);
+  store_staged<D>(dv + ko, k0, g.Sk, staged_v);
+}
+
 // ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
@@ -467,17 +1267,125 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
                               (int)bytes);
 }
 
+
+// cuTensorMapEncodeTiled is a driver API function; the library links only
+// the runtime, so it is looked up once through the runtime's versioned
+// entry-point query.
+static_assert(CUDART_VERSION >= 12050,
+              "cudaGetDriverEntryPointByVersion needs CUDA 12.5 or newer");
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static const EncodeTiledFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+    return e == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiledFn>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A (B*H, S, D) bf16 tensor as a 3-D tensor map (D, S, B*H) with boxes of
+// `rows` rows by min(D, 64) columns and the swizzle of the tile layout;
+// rows past S read as zeros.
+cudaError_t tensor_map(CUtensorMap* map, const void* base, int BH, int S,
+                       int D, int rows) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)BH};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)S * D * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)(D < 64 ? D : 64), (cuuint32_t)rows,
+                             1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      D == 32 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// One block per (head, 64-row tile), the tiles of a head adjacent in the
+// launch order so that they share its K/V (or Q/dO) through L2.
+inline bool grid_fits(int BH, int tiles) {
+  return (int64_t)BH * tiles <= 0x7fffffff;
+}
+
+template <int D>
+cudaError_t run_fwd_tc(const void* q, const void* k, const void* v,
+                       void* out, float* lse, int BH, const Geometry& g,
+                       cudaStream_t st) {
+  const int n_qt = (g.Sq + kWgRows - 1) / kWgRows;
+  if (!grid_fits(BH, n_qt)) return cudaErrorInvalidValue;
+  CUtensorMap mq, mk, mv;
+  cudaError_t e;
+  if ((e = tensor_map(&mq, q, BH, g.Sq, D, kWgRows)) != cudaSuccess ||
+      (e = tensor_map(&mk, k, BH, g.Sk, D, fwd_keys<D>())) != cudaSuccess ||
+      (e = tensor_map(&mv, v, BH, g.Sk, D, fwd_keys<D>())) != cudaSuccess)
+    return e;
+  // the element loop checks a full bias and the causal mask only when the
+  // call has either
+  auto kern = g.causal || (g.bias != nullptr && g.sq != 0)
+                  ? flash_fwd_tc_kernel<D, true>
+                  : flash_fwd_tc_kernel<D, false>;
+  constexpr size_t smem = fwd_tc_smem<D>();
+  if ((e = allow_smem(kern, smem)) != cudaSuccess) return e;
+  kern<<<BH * n_qt, kWgThreads, smem, st>>>(
+      mq, mk, mv, static_cast<__nv_bfloat16*>(out), lse, g, n_qt);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t run_dkv_tc(const void* q, const void* k, const void* v,
+                       const void* dout, const float* lse, const float* delta,
+                       void* dk, void* dv, int BH, const Geometry& g,
+                       cudaStream_t st) {
+  const int n_kt = (g.Sk + kWgRows - 1) / kWgRows;
+  if (!grid_fits(BH, n_kt)) return cudaErrorInvalidValue;
+  constexpr int NQ = bwd_queries<D>();
+  CUtensorMap mq, mk, mv, mdo;
+  cudaError_t e;
+  if ((e = tensor_map(&mq, q, BH, g.Sq, D, NQ)) != cudaSuccess ||
+      (e = tensor_map(&mk, k, BH, g.Sk, D, kWgRows)) != cudaSuccess ||
+      (e = tensor_map(&mv, v, BH, g.Sk, D, kWgRows)) != cudaSuccess ||
+      (e = tensor_map(&mdo, dout, BH, g.Sq, D, NQ)) != cudaSuccess)
+    return e;
+  auto kern = g.causal || (g.bias != nullptr && g.sq != 0)
+                  ? flash_bwd_dkv_tc_kernel<D, true>
+                  : flash_bwd_dkv_tc_kernel<D, false>;
+  if ((e = allow_smem(kern, dkv_tc_smem<D>())) != cudaSuccess) return e;
+  kern<<<BH * n_kt, kWgThreads, dkv_tc_smem<D>(), st>>>(
+      mq, mk, mv, mdo, lse, delta, static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), g, n_kt);
+  return cudaGetLastError();
+}
+
+// bf16 runs on the tensor cores; fp32 keeps the scalar kernels (the
+// tensor cores have no full-fp32 mode, and TF32 would break the fp32
+// contract of 2e-5).
 template <typename T, int D>
 cudaError_t run_fwd(const void* q, const void* k, const void* v, void* out,
                     float* lse, int BH, const Geometry& g, cudaStream_t st) {
-  auto kern = flash_fwd_kernel<T, D>;
-  cudaError_t e = allow_smem(kern, fwd_smem<D>());
-  if (e != cudaSuccess) return e;
-  const dim3 grid(BH, (g.Sq + kTile - 1) / kTile);
-  kern<<<grid, kThreads, fwd_smem<D>(), st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), lse, g);
-  return cudaGetLastError();
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    return run_fwd_tc<D>(q, k, v, out, lse, BH, g, st);
+  } else {
+    auto kern = flash_fwd_kernel<T, D>;
+    cudaError_t e = allow_smem(kern, fwd_smem<D>());
+    if (e != cudaSuccess) return e;
+    const dim3 grid(BH, (g.Sq + kTile - 1) / kTile);
+    kern<<<grid, kThreads, fwd_smem<D>(), st>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<T*>(out), lse, g);
+    return cudaGetLastError();
+  }
 }
 
 template <typename T, int D>
@@ -485,15 +1393,19 @@ cudaError_t run_dkv(const void* q, const void* k, const void* v,
                     const void* dout, const float* lse, const float* delta,
                     void* dk, void* dv, int BH, const Geometry& g,
                     cudaStream_t st) {
-  auto kern = flash_bwd_dkv_kernel<T, D>;
-  cudaError_t e = allow_smem(kern, bwd_smem<D>());
-  if (e != cudaSuccess) return e;
-  const dim3 grid(BH, (g.Sk + kTile - 1) / kTile);
-  kern<<<grid, kThreads, bwd_smem<D>(), st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-      static_cast<T*>(dk), static_cast<T*>(dv), g);
-  return cudaGetLastError();
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    return run_dkv_tc<D>(q, k, v, dout, lse, delta, dk, dv, BH, g, st);
+  } else {
+    auto kern = flash_bwd_dkv_kernel<T, D>;
+    cudaError_t e = allow_smem(kern, bwd_smem<D>());
+    if (e != cudaSuccess) return e;
+    const dim3 grid(BH, (g.Sk + kTile - 1) / kTile);
+    kern<<<grid, kThreads, bwd_smem<D>(), st>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
+        static_cast<T*>(dk), static_cast<T*>(dv), g);
+    return cudaGetLastError();
+  }
 }
 
 template <typename T, int D>

@@ -60,10 +60,15 @@ def build_all(stems: Optional[Sequence[str]] = None) -> Dict[str, float]:
     """Compile every stale source, one ``nvcc`` per source, all started
     together. Returns ``{stem: seconds}`` (0.0 for an up-to-date
     library). Raises ``RuntimeError`` with the compiler output on
-    failure."""
+    failure. ``build_logs`` gets each stem's compiler output, kept beside
+    its library so an up-to-date library still has it."""
     stems = list(stems or sources())
     todo = {s: library_path(s) for s in stems if not library_path(s).exists()}
     out = {s: 0.0 for s in stems}
+    for stem in set(stems) - set(todo):
+        saved = library_path(stem).with_suffix(".log")
+        if saved.is_file():
+            build_logs[stem] = saved.read_text()
     if not todo:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -85,6 +90,7 @@ def build_all(stems: Optional[Sequence[str]] = None) -> Dict[str, float]:
             failed.append(f"{stem}.cu (exit {proc.returncode}):\n{log}")
             tmp.unlink(missing_ok=True)
         else:
+            target.with_suffix(".log").write_text(log)
             os.replace(tmp, target)      # atomic against a concurrent build
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))

@@ -10,7 +10,9 @@ the geometry the kernels promise: any head dim up to 256 (including
 ones that are not a multiple of 32), any page size up to 256, both
 element types, the int8 dequant-attend kernels over Dh 32/64/128 and
 pages of 8 and 16 with clamped page ids, the int8 and speculative
-engines at tiny size, and the wrappers' refusals.
+engines at tiny size, the flash kernels over head dims 32/64/128 with
+lengths that are not multiples of their tiles (bf16 runs on the tensor
+cores) and their bitwise reproducibility, and the wrappers' refusals.
 """
 
 import numpy as np
@@ -290,6 +292,10 @@ FLASH_CASES = [  # (B, H, Sq, Sk, causal, bias)
     (3, 2, 320, 320, False, "key"),    # one batch row fully masked
     (1, 2, 512, 512, True, "full"),
     (2, 1, 64, 512, False, "full"),
+    # neither length a multiple of the tensor-core kernels' tiles (64
+    # query rows, 128 or 64 keys, 64 or 32 query rows in dk/dv)
+    (2, 2, 200, 129, True, "key"),
+    (1, 3, 129, 200, False, "full"),
 ]
 
 
@@ -350,6 +356,23 @@ def test_flash_kernels_match_plain_versions(dev, case, dh, dtype):
     for got, want, name in ((dq, pdq, "dq"), (dk, pdk, "dk"), (dv, pdv, "dv")):
         assert got.dtype == dtype
         _close(got, want, tol, name)
+
+
+@pytest.mark.parametrize("dh", [32, 64, 128])
+def test_bf16_flash_kernels_are_bitwise_reproducible(dev, dh):
+    """K5 and K6a write each output once (no atomics, no order that
+    depends on scheduling): two launches give identical bits."""
+    q, k, v, bias, do = _flash_inputs(dh, 2, 3, 200, 320, dh, "key", dev)
+    q, k, v, do = (t.bfloat16() for t in (q, k, v, do))
+    runs = []
+    for _ in range(2):
+        out, lse = FA.flash_fwd_cuda(q, k, v, bias)
+        delta = FA.flash_delta(do, out)
+        dk, dv = FA.flash_bwd_dkv_cuda(q, k, v, bias, do, lse, delta)
+        torch.cuda.synchronize()
+        runs.append((out, lse, dk, dv))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
 
 
 def test_flash_autograd_through_kernels_matches_plain(dev):
