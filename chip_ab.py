@@ -8,7 +8,14 @@ change, change, parent, one process per turn started inside that
 checkout, so that each builds and imports its own ``paddle_tpu_torch``:
 
 - ``train``: phase 5, BERT-base pretraining (``train_bf16``);
-- ``serve``: phases 4a and 4c, bf16 and int8 serving (``serve``).
+- ``serve``: phases 4a and 4c, bf16 and int8 serving (``serve``), and
+  4a's decode profile (the ``decode_profile`` of ``serve``'s stats): the
+  device's busy share, its device time and the paged decode kernels'
+  share of it over 4 decode blocks;
+- ``kernels``: the bf16 rows of K1 at the serving shape and at the long,
+  few-slot shape, and of K6b at the training shape, from phase 3
+  (``check_kernel``, ``check_long_decode``, ``check_flash``): each call's
+  ``ms``, ``device_ms`` and ``host_ms``.
 
 Host-bound phases move with the machine a run lands on, so two versions
 are compared only inside one such run. Prints one ``AB <label> {...}``
@@ -30,6 +37,7 @@ import torch
 TRAIN_KEYS = ("ms_per_step", "tokens_per_s", "mfu_vs_989tflops")
 SERVE_KEYS = ("decode_tokens_per_s", "prefill_tokens_per_s",
               "end_to_end_tokens_per_s", "ttft_p50_s")
+KERNEL_KEYS = ("ms", "device_ms", "host_ms")
 
 #: one turn, run with ``python3 -c`` inside a checkout
 CHILD = f"""
@@ -40,13 +48,30 @@ from paddle_tpu_torch.serving import paged_attention as PA
 build.build_all()
 dev = torch.device("cuda", 0)
 phases, out = sys.argv[1].split(","), {{}}
+if "kernels" in phases:
+    from paddle_tpu_torch.ops import attention as FA
+    flush = cs.L2Flush(dev)
+    rows = cs.check_kernel(PA.DECODE, cs.decode_inputs, dev, flush)
+    out["K1"] = {{k: rows[torch.bfloat16][k] for k in {KERNEL_KEYS!r}}}
+    rows = cs.check_long_decode(dev, flush)
+    out["K1_long"] = {{k: rows[torch.bfloat16][k] for k in {KERNEL_KEYS!r}}}
+    rows = cs.check_flash(cs.FLASH_CASES[0], dev, flush)[FA.BWD_DQ.name]
+    out["K6b"] = {{k: rows[torch.bfloat16][k] for k in {KERNEL_KEYS!r}}}
+    del flush
 if "serve" in phases:
     for key, kernels, kw in (
             ("4a", [PA.DECODE, PA.PREFILL], {{}}),
             ("4c", [PA.DECODE_INT8, PA.PREFILL_INT8],
              {{"cache_dtype": torch.int8}})):
-        stats, _ = cs.serve(dev, kernels, key, **kw)
+        stats, _ = cs.serve(dev, kernels, key, profile=key == "4a", **kw)
         out[key] = {{k: stats[k] for k in {SERVE_KEYS!r}}}
+        if key == "4a":
+            prof = stats["decode_profile"]
+    out["4a"].update(
+        decode_busy_share=prof["device_busy_share"],
+        decode_device_ms=prof["device_busy_s"] * 1e3,
+        decode_paged_kernel_ms=sum(k["ms"] for k in prof["top_kernels"]
+                                   if "paged_decode" in k["name"]))
 if "train" in phases:
     stats = cs.train_bf16(dev)
     out["5"] = {{k: stats[k] for k in {TRAIN_KEYS!r}}}

@@ -8,9 +8,9 @@ Phases, in order; any failure exits non-zero:
 1. device  — require CUDA; print the card's name and power limit.
 2. build   — compile every ``paddle_tpu_torch/csrc/*.cu`` with nvcc
    (sm_90a), one process per source, all started together; print the
-   ptxas line (registers, spills) of each of the 12 bf16 tensor-core
-   instances of K5 and K6a and, with ``cuobjdump``, its count of HGMMA
-   instructions (each must be found with a spill count and, where
+   ptxas line (registers, spills) of each of the 18 bf16 tensor-core
+   instances of K5, K6a and K6b and, with ``cuobjdump``, its count of
+   HGMMA instructions (each must be found with a spill count and, where
    counted, HGMMA > 0; the D = 64 instances must not spill).
 3. kernels — every registered kernel against its plain PyTorch version
    (and the dense reference) on the card, fp32 and bf16, timed with CUDA
@@ -25,12 +25,18 @@ Phases, in order; any failure exits non-zero:
        every page no block table references; their int8 twins on the same
        pages quantized by ``quantize_kv``, where the unreferenced pages
        hold bytes 127 under NaN scale rows and each dead tail bytes 127
-       under a finite scale of 1e4;
+       under a finite scale of 1e4; decode also at a long, few-slot shape
+       (2 slots of 4096 tokens, lengths at the edges of the kernel's split
+       of a slot's pages over the warps of its block). Every kernel
+       launched twice on the same inputs must give the same bits, and a
+       decode slot of length 0 exact zeros;
    (b) flash attention forward, dk/dv and dq at the training shape
        (48, 12, 512, 64) with a key-padding bias from ragged valid
        lengths (one of them 0: a fully masked batch row), causal at
        (4, 16, 512, 64), and a ragged S=320 with a key bias; each row
-       with its achieved TFLOP/s and share of its bound.
+       with its achieved TFLOP/s and share of its bound, repeat launches
+       bit-identical, and the K6a + K6b pair beside SDPA's whole
+       backward.
 4. serve   — GPT (vocab 32768, hidden 1024, 12 layers, 16 heads, ffn
    4096, max_position 512, random weights from a seed) behind
    ``make_serving_engine(num_slots=16, page_size=16, prefill_chunk=64,
@@ -109,13 +115,15 @@ def nvidia_smi_line() -> str:
 
 # -- phase 3: kernels vs plain versions --------------------------------------
 
-def _pages(rng, n_pages):
+def _pages(rng, n_slots=S, width=W):
+    live = 1 + n_slots * width
+    n_pages = live + UNREFERENCED_PAGES
     kp = rng.standard_normal((n_pages, PS, H, DH)).astype(np.float32)
     vp = rng.standard_normal((n_pages, PS, H, DH)).astype(np.float32)
-    live = 1 + S * W
     kp[live:] = np.nan                      # pages no block table holds
     vp[live:] = np.nan
-    bt = (1 + rng.permutation(S * W)).reshape(S, W).astype(np.int32)
+    bt = (1 + rng.permutation(n_slots * width)).reshape(
+        n_slots, width).astype(np.int32)
     return kp, vp, bt
 
 
@@ -124,7 +132,7 @@ def _poison_dead_tail(kp, vp, bt, horizon):
     masked tokens must contribute exact zeros."""
     for s, n in enumerate(horizon):
         n = int(n)
-        if 0 < n < W * PS and n % PS:
+        if 0 < n < bt.shape[1] * PS and n % PS:
             page = bt[s, n // PS]
             kp[page, n % PS:] = 1e4
             vp[page, n % PS:] = 1e4
@@ -158,7 +166,7 @@ def _int8_pages(kp, vp, bt, horizon):
 
 def decode_inputs(seed, device, quantized=False):
     rng = np.random.default_rng(seed)
-    kp, vp, bt = _pages(rng, 1 + S * W + UNREFERENCED_PAGES)
+    kp, vp, bt = _pages(rng)
     lengths = rng.integers(1, W * PS + 1, S).astype(np.int32)
     lengths[:4] = (0, 1, W * PS, 17)         # inactive, one token, full, ragged
     if quantized:
@@ -173,7 +181,7 @@ def decode_inputs(seed, device, quantized=False):
 
 def prefill_inputs(seed, device, quantized=False):
     rng = np.random.default_rng(seed)
-    kp, vp, bt = _pages(rng, 1 + S * W + UNREFERENCED_PAGES)
+    kp, vp, bt = _pages(rng)
     starts = rng.integers(0, W * PS - C + 1, S).astype(np.int32)
     n_valid = rng.integers(1, C + 1, S).astype(np.int32)
     n_valid[:3] = (0, C, 1)                  # inactive slot, full, one row
@@ -187,6 +195,28 @@ def prefill_inputs(seed, device, quantized=False):
     q = rng.standard_normal((S, C, H, DH)).astype(np.float32)
     return tuple(torch.from_numpy(a).to(device)
                  for a in (q, *pages, bt, starts, n_valid))
+
+
+#: a long, few-slot decode: S_LONG slots of W_LONG pages (4096 tokens
+#: each), where each of the 8 warps of the fp decode kernel's (K1) block
+#: for a (slot, head) folds 32 of the slot's pages
+S_LONG, W_LONG = 2, 256
+#: lengths of the two slots, at the edges of that partition (warp w takes
+#: pages w, w + 8, ...): every page, half, one token past a page edge,
+#: fewer pages than warps, one page per warp and one token more, an
+#: inactive slot and a single token. The first pair is the timed one.
+LONG_LENGTHS = ((W_LONG * PS, W_LONG * PS // 2), (97 * PS + 1, 17),
+                (8 * PS, 8 * PS + 1), (0, 1))
+
+
+def long_decode_inputs(seed, device, lengths):
+    rng = np.random.default_rng(seed)
+    kp, vp, bt = _pages(rng, S_LONG, W_LONG)
+    lengths = np.asarray(lengths, np.int32)
+    _poison_dead_tail(kp, vp, bt, lengths)
+    q = rng.standard_normal((S_LONG, H, DH)).astype(np.float32)
+    return tuple(torch.from_numpy(a).to(device)
+                 for a in (q, kp, vp, bt, lengths))
 
 
 def _cast(args, dtype):
@@ -268,12 +298,28 @@ def _bound(nbytes, flops, dtype):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def _repeat_and_zeros(entry, args, out, what):
+    """A second launch on the same inputs gives the same bits; a decode
+    kernel's slots of length 0 give exact zeros."""
+    again = entry.cuda_fn(*args)
+    torch.cuda.synchronize()
+    if not torch.equal(out, again):
+        raise AssertionError(f"{what}: two launches on the same inputs "
+                             "differ")
+    if args[0].ndim == 3:                   # decode: (S, H, Dh), lengths last
+        dead = args[-1] == 0
+        if not torch.all(out[dead] == 0):
+            raise AssertionError(f"{what}: a slot of length 0 is not exact "
+                                 "zeros")
+
+
 def check_kernel(entry, make_inputs, device, flush):
     rows = {}
     for dtype in (torch.float32, torch.bfloat16):
         args = _cast(make_inputs(11, device), dtype)
         out = entry.cuda_fn(*args)
         torch.cuda.synchronize()
+        _repeat_and_zeros(entry, args, out, f"{entry.name}[{dtype}]")
         # the yardstick: the plain version in fp32 on the same inputs
         ref = entry.plain_fn(*_cast(args, torch.float32))
         atol, rtol = entry.tolerance[dtype]
@@ -301,6 +347,45 @@ def check_kernel(entry, make_inputs, device, flush):
         log(f"  {entry.name} [{str(dtype)[6:]}] max_abs_err={err:.3e} "
             f"kernel={_ms_text(r)} plain={_ms_text(r, 'plain_')} "
             f"bound={bound_ms:.4f} ms ({bound_by})")
+    return rows
+
+
+def check_long_decode(device, flush):
+    """K1 at the long, few-slot shape: every pair of ``LONG_LENGTHS``
+    against the plain version (fp32 run) and, in fp32, the dense
+    reference, with a repeat launch and exact zeros for length 0; the
+    first pair timed. Returns {dtype: row} of the timed pair."""
+    from paddle_tpu_torch.serving import paged_attention as PA
+    entry = PA.DECODE
+    rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        atol, rtol = entry.tolerance[dtype]
+        errs = []
+        for i, lengths in enumerate(LONG_LENGTHS):
+            args = _cast(long_decode_inputs(13 + i, device, lengths), dtype)
+            what = f"{entry.name}[long {lengths}][{dtype}]"
+            out = entry.cuda_fn(*args)
+            torch.cuda.synchronize()
+            _repeat_and_zeros(entry, args, out, what)
+            got = out.float()
+            want = entry.plain_fn(*_cast(args, torch.float32))
+            errs.append(_err(got, want, (atol, rtol), what + " vs plain"))
+            if dtype == torch.float32:
+                _err(got, entry.reference_fn(*args), (atol, rtol),
+                     what + " vs dense")
+            if i == 0:
+                timed = args
+        bound_ms, bound_by = _bound(*entry.work(*timed), dtype)
+        r = rows[dtype] = {
+            "max_abs_err": max(errs),
+            **_timed(lambda: entry.cuda_fn(*timed), flush, 50),
+            **_timed(lambda: entry.plain_fn(*timed), flush, 10, "plain_"),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+        }
+        log(f"  {entry.name}[long S={S_LONG} x {W_LONG * PS} tokens] "
+            f"[{str(dtype)[6:]}] max_abs_err="
+            f"{r['max_abs_err']:.3e} kernel={_ms_text(r)} plain="
+            f"{_ms_text(r, 'plain_')} bound={bound_ms:.4f} ms ({bound_by})")
     return rows
 
 
@@ -394,7 +479,14 @@ def check_flash(case, device, flush):
         args32 = (q32, k32, v32, bias, do32, p_lse, delta)
         dk, dv = FA.BWD_DKV.cuda_fn(*args, **kw)
         dq = FA.BWD_DQ.cuda_fn(*args, **kw)
+        dk2, dv2 = FA.BWD_DKV.cuda_fn(*args, **kw)
+        dq2 = FA.BWD_DQ.cuda_fn(*args, **kw)
         torch.cuda.synchronize()
+        if not (torch.equal(dq, dq2) and torch.equal(dk, dk2)
+                and torch.equal(dv, dv2)):
+            raise AssertionError(f"flash bwd [{name}] [{dtype}]: two launches "
+                                 "on the same inputs differ")
+        del dk2, dv2, dq2
         p_dk, p_dv = FA.BWD_DKV.plain_fn(*args32, **kw)
         p_dq = FA.BWD_DQ.plain_fn(*args32, **kw)
         tol = FA.BWD_DQ.tolerance[dtype]
@@ -435,17 +527,24 @@ def check_flash(case, device, flush):
                 f" bound={ms_bound:.4f} ms ({by}) achieved="
                 f"{r['tflops']:.1f} TFLOP/s share_of_bound="
                 f"{r['share_of_bound']:.3f}")
+        pair = [rows[e.name][dtype] for e in (FA.BWD_DKV, FA.BWD_DQ)]
+        log(f"  backward pair[{name}] [{str(dtype)[6:]}]: K6a + K6b "
+            + " / ".join(f"{sum(r[k] for r in pair):.4f}"
+                         for k in ("ms", "device_ms", "host_ms"))
+            + " ms (ms / device / host) against SDPA's whole backward "
+            + _ms_text(pair[0], "library_"))
         torch.cuda.empty_cache()
     return rows
 
 
-#: the bf16 tensor-core instances of K5 and K6a (csrc/flash_attention.cu),
-#: by mangled name: head dim, and whether the element loop checks a full
-#: bias and the causal mask
-TC_KERNELS = re.compile(r"(flash_fwd_tc_kernel|flash_bwd_dkv_tc_kernel)"
-                        r"ILi(\d+)ELb([01])EE")
+#: the bf16 tensor-core instances of K5, K6a and K6b
+#: (csrc/flash_attention.cu), by mangled name: head dim, and whether the
+#: element loop checks a full bias and the causal mask
+TC_KERNELS = re.compile(r"(flash_fwd_tc_kernel|flash_bwd_dkv_tc_kernel|"
+                        r"flash_bwd_dq_tc_kernel)ILi(\d+)ELb([01])EE")
 TC_EXPECTED = tuple(f"{k}<{d}, {c}>"
-                    for k in ("flash_bwd_dkv_tc_kernel", "flash_fwd_tc_kernel")
+                    for k in ("flash_bwd_dkv_tc_kernel",
+                              "flash_bwd_dq_tc_kernel", "flash_fwd_tc_kernel")
                     for d in (32, 64, 128) for c in ("false", "true"))
 
 
@@ -455,7 +554,7 @@ def _tc_name(m):
 
 
 def tensor_core_report(build):
-    """The ptxas line (registers, spills) of each bf16 K5 and K6a
+    """The ptxas line (registers, spills) of each bf16 K5, K6a and K6b
     instance from the build log, and, where ``cuobjdump`` is present, the
     count of HGMMA (wgmma) instructions in each one's SASS. Fails unless
     all of ``TC_EXPECTED`` have a ptxas line with a spill count, the D =
@@ -534,8 +633,9 @@ def serve(device, kernels, label, profile=False, self_draft=False,
     """One timed serving run of the main path at full width, bf16 weights:
     48 requests x 96 new tokens through ``make_serving_engine``. Every
     request must finish and every kernel in ``kernels`` must launch in
-    the run; ``self_draft`` makes the model its own draft. Returns
-    (stats, generated token streams)."""
+    the run; ``self_draft`` makes the model its own draft; ``profile``
+    adds the decode profile (:func:`profile_decode`) to the stats as
+    ``decode_profile``. Returns (stats, generated token streams)."""
     from paddle_tpu_torch.inference import make_serving_engine
     from paddle_tpu_torch.kernels import registry
     from paddle_tpu_torch.models.gpt import GPT
@@ -597,8 +697,9 @@ def serve(device, kernels, label, profile=False, self_draft=False,
                      / stats["decode_steps"])
     log(f"  {label}: " + json.dumps(stats))
     if profile:
+        stats["decode_profile"] = profile_decode(eng, cfg.vocab_size)
         log(f"  {label} decode profile: "
-            + json.dumps(profile_decode(eng, cfg.vocab_size)))
+            + json.dumps(stats["decode_profile"]))
     outs = [done[r] for r in rids]
     del eng, model
     torch.cuda.empty_cache()
@@ -1036,6 +1137,7 @@ def main() -> int:
     flush = L2Flush(device)
     rows = {e.name: check_kernel(e, makers[e.name], device, flush)
             for e in paged}
+    long_rows = check_long_decode(device, flush)
     flash_rows = {e.name: {} for e in flash}
     for case in FLASH_CASES:
         for name, by_dtype in check_flash(case, device, flush).items():
@@ -1064,7 +1166,8 @@ def main() -> int:
     log("[6/7] train parity: fp32, kernels vs plain versions")
     train_fp32_parity(device)
 
-    lines = [kernel_line(e, rows[e.name], stats["launches"][e.name])
+    lines = [kernel_line(e, rows[e.name], stats["launches"][e.name],
+                         {"long": long_rows} if e is PA.DECODE else None)
              for e in fp_paged]
     # K2/K4: launches of the int8 serving run (4c), with the speculative
     # run's (4d) beside them

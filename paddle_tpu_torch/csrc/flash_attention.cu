@@ -21,14 +21,14 @@
 // kernels are operation-bound (8 and 6 S^2 Dh flops; 0.078 and 0.059 ms).
 //
 // Two designs, chosen by element type inside PTT_FLASH_CASES:
-// - bf16 K5 and K6a run on the tensor cores (section "Tensor-core
+// - bf16 K5, K6a and K6b run on the tensor cores (section "Tensor-core
 //   instances" below): wgmma m64nNk16 with fp32 accumulators, SS for the
-//   products over D and RS (P or dS^T as the register A operand) for the
-//   products over keys or queries, tiles in shared memory as bf16 written
-//   by TMA into 2-stage rings tracked by mbarriers. P, P^T and dS^T are
-//   rounded to bf16 as operands; every sum stays fp32.
-// - fp32 (all three kernels) and bf16 K6b keep the scalar design (simple
-//   and right first): the TPU kernels' sequential grid axis, which carries
+//   products over D and RS (P, P^T, dS^T or dS as the register A operand)
+//   for the products over keys or queries, tiles in shared memory as bf16
+//   written by TMA into rings tracked by mbarriers. P, P^T, dS^T and dS
+//   are rounded to bf16 as operands; every sum stays fp32.
+// - fp32 (all three kernels) keeps the scalar design (simple and right
+//   first): the TPU kernels' sequential grid axis, which carries
 //   (m, l, acc) or (dk, dv) or dq in VMEM scratch, is a loop inside one
 //   block, so no state crosses blocks and no atomics are needed. A block
 //   of 256 threads (16 x 16) owns a 64-row tile (the forward and dq one
@@ -42,9 +42,8 @@
 //   mode), so the fp32 path meets the reference contract's 2e-5.
 // Both skip causal tiles wholly above the diagonal, write every output
 // once (bitwise reproducible), and read rows past the end as zeros.
-// Left for later: K6b on the tensor cores (S = Q K^T so that dS is the A
-// fragment of dQ = dS K), and for K5/K6a a producer warp with setmaxnreg,
-// two consumer warpgroups in ping-pong, a persistent grid.
+// Left for later: a producer warp with setmaxnreg, two consumer
+// warpgroups in ping-pong, a persistent grid.
 
 #include <cuda.h>   // CUtensorMap and its enums (types only; no -lcuda)
 #include <cuda_bf16.h>
@@ -470,13 +469,14 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ===========================================================================
-// Tensor-core instances for bf16 (K5, K6a): wgmma fed by TMA
+// Tensor-core instances for bf16 (K5, K6a, K6b): wgmma fed by TMA
 // ===========================================================================
 // One consumer warpgroup (128 threads) per block owns 64 rows: query rows
-// in the forward, key rows in the dk/dv backward. Tiles live in shared
-// memory as bf16, written by TMA (cp.async.bulk.tensor, one elected
-// thread, completion on an mbarrier per stage) in a 2-stage ring, so tile
-// j+1 lands while tile j computes. A tile of R rows is stored as TMA
+// in the forward and the dq backward, key rows in the dk/dv backward.
+// Tiles live in shared memory as bf16, written by TMA (cp.async.bulk.tensor,
+// one elected thread, completion on an mbarrier per stage) in 2- or
+// 3-stage rings, so tile j+1 lands while tile j computes. A tile of R rows
+// is stored as TMA
 // writes it with the swizzle of its row: D = 32 rows of 64 B (64B
 // swizzle), D = 64 rows of 128 B (128B swizzle), D = 128 two 64-column
 // halves of R rows of 128 B each (128B swizzle). The wgmma descriptors
@@ -1259,6 +1259,202 @@ __global__ void __launch_bounds__(kWgThreads)
 }
 
 // ---------------------------------------------------------------------------
+// K6b, bf16: dq on the tensor cores. Replaces the dq pallas_call of
+// _flash_bwd (paddle_tpu/ops/attention.py:478, call at :556, body
+// _flash_bwd_dq_kernel :430). Bound at (48, 12, 512, 64): 0.059 ms, by
+// operations. A block owns 64 query rows (Q and dO loaded once by TMA; lse
+// and delta of a thread's two rows in registers) and loops over key tiles
+// of 64, K by TMA into a 3-stage ring and V into a 2-stage one, the key
+// terms of the next tile staged in shared memory beside them:
+//   S = Q K^T, dP = dO V^T          wgmma SS, all K-major
+//   P = exp(S scale + bias - lse), zero on padded and fully masked rows
+//   (lse <= NEG_INF / 2, _recompute_p); dS = P (dP - delta) scale
+//   dQ += dS K                      wgmma RS: dS packed to bf16 is the
+//                                   register A operand (as P is in K5), K
+//                                   the MN-major B operand (as V is in K5)
+// S and dP of tile j are issued together with dQ += dS K of tile j - 1,
+// and the element loop waits only for S and dP, so it runs while the
+// previous tile's dQ product is on the tensor cores. K of tile j - 1 is
+// still being read then, hence K's third stage: K and V of tile j + 1 load
+// during iteration j. dQ stays in fp32 registers over all key tiles and is
+// written once through shared memory: no atomics, so results are bitwise
+// reproducible. As in K5 and K6a, a full bias and the causal mask are
+// checked only in the kChecks instance.
+// ---------------------------------------------------------------------------
+constexpr int kDqKeys = 64;   // keys per tile
+
+template <int D>
+constexpr size_t dq_tc_smem() {
+  return 1024 + 2 * kWgRows * D * 2 + 5 * kDqKeys * D * 2 +
+         2 * kDqKeys * sizeof(float) + 6 * sizeof(uint64_t);
+}
+
+template <int D, bool kChecks>
+__global__ void __launch_bounds__(kWgThreads)
+    flash_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap map_q,
+                           const __grid_constant__ CUtensorMap map_k,
+                           const __grid_constant__ CUtensorMap map_v,
+                           const __grid_constant__ CUtensorMap map_do,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           __nv_bfloat16* __restrict__ dq, Geometry g,
+                           int n_qt) {
+  constexpr int N = kDqKeys;
+  constexpr uint32_t QB = kWgRows * D * 2, KB = N * D * 2;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  uint8_t* smem = align_1024(smem_raw);
+  const uint32_t sQ = smem_u32(smem), sDO = sQ + QB, sK = sDO + QB,
+                 sV = sK + 3 * KB;
+  float* sCol = reinterpret_cast<float*>(smem + 2 * QB + 5 * KB);  // [2][N]
+  // barriers: K full [3], V full [2], Q and dO
+  const uint32_t bar_k = smem_u32(sCol + 2 * N), bar_v = bar_k + 24,
+                 bar_q = bar_k + 40;
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+  const int bh = blockIdx.x / n_qt, b = bh / g.H, h = bh % g.H;
+  // a head's last query tiles first, as in K5
+  const int q0 = (n_qt - 1 - blockIdx.x % n_qt) * kWgRows;
+  const int n_kt = key_tiles(q0, g, N);
+  auto load_kv = [&](int kt) {
+    const uint32_t full_k = bar_k + 8 * (kt % 3), full_v = bar_v + 8 * (kt & 1);
+    mbar_expect_tx(full_k, KB);
+    tma_tile<D>(sK + (kt % 3) * KB, &map_k, full_k, kt * N, bh, N);
+    mbar_expect_tx(full_v, KB);
+    tma_tile<D>(sV + (kt & 1) * KB, &map_v, full_v, kt * N, bh, N);
+  };
+  auto stage_cols = [&](int kt) {
+    if (tid < N) sCol[(kt & 1) * N + tid] = key_term(kt * N + tid, b, h, g);
+  };
+
+  if (tid == 0) {
+    for (int i = 0; i < 6; ++i) mbar_init(bar_k + 8 * i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(bar_q, 2 * QB);
+    tma_tile<D>(sQ, &map_q, bar_q, q0, bh, kWgRows);
+    tma_tile<D>(sDO, &map_do, bar_q, q0, bh, kWgRows);
+    for (int kt = 0; kt < min(n_kt, 2); ++kt) load_kv(kt);
+  }
+  for (int kt = 0; kt < min(n_kt, 2); ++kt) stage_cols(kt);
+
+  int row[2];
+  const float* brow[2];
+  float lse_r[2], delta_r[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    row[i] = q0 + 16 * w + (lane >> 2) + 8 * i;
+    const bool in = row[i] < g.Sq;
+    brow[i] = kChecks && g.bias != nullptr && g.sq != 0 && in
+                  ? g.bias + b * g.sb + h * g.sh + row[i] * g.sq
+                  : nullptr;
+    // a padded row gets lse = NEG_INF, so its p is 0 as in the reference
+    lse_r[i] = in ? lse[(int64_t)bh * g.Sq + row[i]] : kNegInf;
+    delta_r[i] = in ? delta[(int64_t)bh * g.Sq + row[i]] : 0.f;
+  }
+  float acc[D / 2], s[N / 2], dp[N / 2];
+  uint32_t da[N / 16][4];
+#pragma unroll
+  for (int e = 0; e < D / 2; ++e) acc[e] = 0.f;
+#pragma unroll
+  for (int e = 0; e < N / 2; ++e) s[e] = dp[e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) da[kk][r] = 0u;
+  mbar_wait(bar_q, 0);
+  __syncthreads();   // the key terms of tiles 0 and 1 are staged
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int sk = kt % 3, sv = kt & 1;
+    if (kt > 0) {
+      // every warp is done with S and dP of tile kt - 1 (V stage and key
+      // terms buffer (kt + 1) & 1) and dQ of tile kt - 2 (K stage
+      // (kt + 1) % 3)
+      __syncthreads();
+      if (kt + 1 < n_kt) {
+        if (tid == 0) load_kv(kt + 1);
+        stage_cols(kt + 1);
+      }
+    }
+    mbar_wait(bar_k + 8 * sk, (kt / 3) & 1);
+    mbar_wait(bar_v + 8 * sv, (kt >> 1) & 1);
+    fence_regs(s);
+    fence_regs(dp);
+    fence_regs(acc);
+    fence_regs(da);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<N>(s, kmajor_desc<D>(sQ, kWgRows, kk),
+                  kmajor_desc<D>(sK + sk * KB, N, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<N>(dp, kmajor_desc<D>(sDO, kWgRows, kk),
+                  kmajor_desc<D>(sV + sv * KB, N, kk), kk > 0);
+    wgmma_commit();
+    if (kt > 0) {
+      const uint32_t k_prev = sK + ((kt + 2) % 3) * KB;   // K of tile kt - 1
+#pragma unroll
+      for (int kk = 0; kk < N / 16; ++kk)
+        wgmma_rs<D>(acc, da[kk], mnmajor_desc<D>(k_prev, N, kk));
+      wgmma_commit();
+      wgmma_wait_1();  // S and dP of tile kt have landed; dS K of kt - 1 runs
+    } else {
+      wgmma_wait_all();
+    }
+    fence_regs(s);
+    fence_regs(dp);
+
+    // p and ds: rows are queries, columns keys
+    const float* col_term = sCol + (kt & 1) * N;
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j) {
+      const int c = 8 * j + 2 * (lane & 3);
+      const float2 ct = *reinterpret_cast<const float2*>(col_term + c);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int idx = 4 * j + 2 * i + e;
+          // the reference's masked_score order: scale, bias, masks
+          float x = s[idx] * g.scale + (e ? ct.y : ct.x);
+          if (kChecks) {
+            const int col = kt * N + c + e;
+            if (brow[i] != nullptr && col < g.Sk) x += brow[i][col * g.sk];
+            if (g.causal && col > row[i] + (g.Sk - g.Sq)) x = kNegInf;
+          }
+          const float p =
+              lse_r[i] > kNegInf / 2 ? ex2((x - lse_r[i]) * kLog2e) : 0.f;
+          dp[idx] = p * (dp[idx] - delta_r[i]) * g.scale;
+        }
+    }
+    wgmma_wait_all();
+    fence_regs(acc);
+    fence_regs(da);
+    to_a_fragments<N>(dp, da);
+  }
+  if (n_kt > 0) {
+    const uint32_t k_last = sK + ((n_kt - 1) % 3) * KB;
+    fence_regs(acc);
+    fence_regs(da);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < N / 16; ++kk)
+      wgmma_rs<D>(acc, da[kk], mnmajor_desc<D>(k_last, N, kk));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc);
+  }
+
+  __syncthreads();   // every wgmma read is done: Q and dO become staging
+  __nv_bfloat16* staged = reinterpret_cast<__nv_bfloat16*>(smem);
+  stage_rows<D>(staged, acc);
+  __syncthreads();
+  store_staged<D>(dq + (int64_t)bh * g.Sq * D, q0, g.Sq, staged);
+}
+
+// ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
 template <typename K>
@@ -1408,19 +1604,45 @@ cudaError_t run_dkv(const void* q, const void* k, const void* v,
   }
 }
 
+template <int D>
+cudaError_t run_dq_tc(const void* q, const void* k, const void* v,
+                      const void* dout, const float* lse, const float* delta,
+                      void* dq, int BH, const Geometry& g, cudaStream_t st) {
+  const int n_qt = (g.Sq + kWgRows - 1) / kWgRows;
+  if (!grid_fits(BH, n_qt)) return cudaErrorInvalidValue;
+  CUtensorMap mq, mk, mv, mdo;
+  cudaError_t e;
+  if ((e = tensor_map(&mq, q, BH, g.Sq, D, kWgRows)) != cudaSuccess ||
+      (e = tensor_map(&mk, k, BH, g.Sk, D, kDqKeys)) != cudaSuccess ||
+      (e = tensor_map(&mv, v, BH, g.Sk, D, kDqKeys)) != cudaSuccess ||
+      (e = tensor_map(&mdo, dout, BH, g.Sq, D, kWgRows)) != cudaSuccess)
+    return e;
+  auto kern = g.causal || (g.bias != nullptr && g.sq != 0)
+                  ? flash_bwd_dq_tc_kernel<D, true>
+                  : flash_bwd_dq_tc_kernel<D, false>;
+  if ((e = allow_smem(kern, dq_tc_smem<D>())) != cudaSuccess) return e;
+  kern<<<BH * n_qt, kWgThreads, dq_tc_smem<D>(), st>>>(
+      mq, mk, mv, mdo, lse, delta, static_cast<__nv_bfloat16*>(dq), g, n_qt);
+  return cudaGetLastError();
+}
+
 template <typename T, int D>
 cudaError_t run_dq(const void* q, const void* k, const void* v,
                    const void* dout, const float* lse, const float* delta,
                    void* dq, int BH, const Geometry& g, cudaStream_t st) {
-  auto kern = flash_bwd_dq_kernel<T, D>;
-  cudaError_t e = allow_smem(kern, bwd_smem<D>());
-  if (e != cudaSuccess) return e;
-  const dim3 grid(BH, (g.Sq + kTile - 1) / kTile);
-  kern<<<grid, kThreads, bwd_smem<D>(), st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-      static_cast<T*>(dq), g);
-  return cudaGetLastError();
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    return run_dq_tc<D>(q, k, v, dout, lse, delta, dq, BH, g, st);
+  } else {
+    auto kern = flash_bwd_dq_kernel<T, D>;
+    cudaError_t e = allow_smem(kern, bwd_smem<D>());
+    if (e != cudaSuccess) return e;
+    const dim3 grid(BH, (g.Sq + kTile - 1) / kTile);
+    kern<<<grid, kThreads, bwd_smem<D>(), st>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
+        static_cast<T*>(dq), g);
+    return cudaGetLastError();
+  }
 }
 
 // D (head dim) and T (element type) are template parameters so that the

@@ -18,7 +18,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Optional, Sequence
+from typing import Callable, Dict, Optional, Sequence
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "paddle_tpu_torch"
@@ -105,3 +105,32 @@ def load(stem: str) -> ctypes.CDLL:
             build_all([stem])
             lib = _libs[stem] = ctypes.CDLL(str(library_path(stem)))
         return lib
+
+
+_bound: Dict[str, Callable] = {}
+
+
+def bind(stem: str, name: str, argtypes) -> Callable:
+    """The C function ``name`` of ``csrc/<stem>.cu`` with its ctypes
+    signature (``argtypes``, an ``int`` result), built, loaded and bound
+    on first use and kept, so a launch pays none of that again."""
+    fn = _bound.get(name)
+    if fn is None:
+        fn = getattr(load(stem), name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _bound[name] = fn
+    return fn
+
+
+def launch(fn: Callable, device, *args) -> int:
+    """Call a bound kernel entry with ``args`` and the raw handle of
+    ``device``'s current stream; returns its ``cudaError_t``. The entry
+    launches on the calling thread's current device, so a tensor on
+    another card switches to it for the call."""
+    import torch
+    idx = device.index
+    if idx == torch.cuda.current_device():
+        return fn(*args, torch._C._cuda_getCurrentRawStream(idx))
+    with torch.cuda.device(device):
+        return fn(*args, torch._C._cuda_getCurrentRawStream(idx))

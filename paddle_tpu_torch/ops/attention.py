@@ -219,13 +219,6 @@ _SIGNATURES = {
 }
 
 
-def _kernel(name: str):
-    fn = getattr(build.load("flash_attention"), name)
-    fn.argtypes = _SIGNATURES[name]
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def _check(q, k, v, bias, extra=(), fp32_extra=()):
     """Raise on anything the kernels do not take; returns the bias as an
     fp32 (B, H, Sq, Sk) broadcast view and its four element strides."""
@@ -287,9 +280,10 @@ def _geometry(q, k, bias_strides, causal, scale):
 
 
 def _launch(name, *ptrs_and_geometry, device):
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = _kernel(name)(*ptrs_and_geometry, stream)
+    """Launch ``name`` (bound once) on ``device``'s current stream; raise
+    on a refused launch."""
+    fn = build.bind("flash_attention", name, _SIGNATURES[name])
+    rc = build.launch(fn, device, *ptrs_and_geometry)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError_t {rc}")
 

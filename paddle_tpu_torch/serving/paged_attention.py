@@ -295,11 +295,13 @@ _SIGNATURES = {
 }
 
 
-def _kernel(name: str):
-    fn = getattr(build.load("paged_attention"), name)
-    fn.argtypes = _SIGNATURES[name]
-    fn.restype = ctypes.c_int
-    return fn
+def _launch(name: str, device, *args):
+    """Launch ``name`` (bound once) on ``device``'s current stream; raise
+    on a refused launch."""
+    fn = build.bind("paged_attention", name, _SIGNATURES[name])
+    rc = build.launch(fn, device, *args)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError_t {rc}")
 
 
 def _check_args(q, k_pages, v_pages, ints, q_ndim, scales=None):
@@ -351,26 +353,17 @@ def _check_args(q, k_pages, v_pages, ints, q_ndim, scales=None):
             raise ValueError(f"{name} must be contiguous")
 
 
-def _raise_on(rc: int, what: str):
-    if rc != 0:
-        raise RuntimeError(f"{what} kernel launch failed: cudaError_t {rc}")
-
-
 def paged_decode_cuda(q, k_pages, v_pages, block_tables, lengths, *,
                       scale: Optional[float] = None):
     _check_args(q, k_pages, v_pages,
                 (("block_tables", block_tables, 2), ("lengths", lengths, 1)), 3)
     s_slots, h, dh = q.shape
     out = torch.empty_like(q)
-    fn = _kernel("ptt_paged_decode")
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-                block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-                s_slots, h, dh, k_pages.shape[1], block_tables.shape[1],
-                k_pages.shape[0], _DTYPE_CODES[q.dtype], _scale(q, scale),
-                stream)
-    _raise_on(rc, "ragged paged decode")
+    _launch("ptt_paged_decode", q.device, q.data_ptr(), k_pages.data_ptr(),
+            v_pages.data_ptr(), block_tables.data_ptr(), lengths.data_ptr(),
+            out.data_ptr(), s_slots, h, dh, k_pages.shape[1],
+            block_tables.shape[1], k_pages.shape[0], _DTYPE_CODES[q.dtype],
+            _scale(q, scale))
     DECODE.launches += 1
     return out
 
@@ -383,15 +376,11 @@ def paged_prefill_cuda(q, k_pages, v_pages, block_tables, chunk_starts,
                  ("n_valid", n_valid, 1)), 4)
     s_slots, c, h, dh = q.shape
     out = torch.empty_like(q)
-    fn = _kernel("ptt_paged_prefill")
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-                block_tables.data_ptr(), chunk_starts.data_ptr(),
-                n_valid.data_ptr(), out.data_ptr(), s_slots, c, h, dh,
-                k_pages.shape[1], block_tables.shape[1], k_pages.shape[0],
-                _DTYPE_CODES[q.dtype], _scale(q, scale), stream)
-    _raise_on(rc, "ragged paged prefill")
+    _launch("ptt_paged_prefill", q.device, q.data_ptr(), k_pages.data_ptr(),
+            v_pages.data_ptr(), block_tables.data_ptr(),
+            chunk_starts.data_ptr(), n_valid.data_ptr(), out.data_ptr(),
+            s_slots, c, h, dh, k_pages.shape[1], block_tables.shape[1],
+            k_pages.shape[0], _DTYPE_CODES[q.dtype], _scale(q, scale))
     PREFILL.launches += 1
     return out
 
@@ -404,16 +393,12 @@ def paged_decode_int8_cuda(q, k_pages, v_pages, k_scales, v_scales,
                 scales=(k_scales, v_scales))
     s_slots, h, dh = q.shape
     out = torch.empty_like(q)
-    fn = _kernel("ptt_paged_decode_int8")
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-                k_scales.data_ptr(), v_scales.data_ptr(),
-                block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-                s_slots, h, dh, k_pages.shape[1], block_tables.shape[1],
-                k_pages.shape[0], _DTYPE_CODES[q.dtype], _scale(q, scale),
-                stream)
-    _raise_on(rc, "ragged paged int8 decode")
+    _launch("ptt_paged_decode_int8", q.device, q.data_ptr(),
+            k_pages.data_ptr(), v_pages.data_ptr(), k_scales.data_ptr(),
+            v_scales.data_ptr(), block_tables.data_ptr(), lengths.data_ptr(),
+            out.data_ptr(), s_slots, h, dh, k_pages.shape[1],
+            block_tables.shape[1], k_pages.shape[0], _DTYPE_CODES[q.dtype],
+            _scale(q, scale))
     DECODE_INT8.launches += 1
     return out
 
@@ -427,16 +412,12 @@ def paged_prefill_int8_cuda(q, k_pages, v_pages, k_scales, v_scales,
                  ("n_valid", n_valid, 1)), 4, scales=(k_scales, v_scales))
     s_slots, c, h, dh = q.shape
     out = torch.empty_like(q)
-    fn = _kernel("ptt_paged_prefill_int8")
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-                k_scales.data_ptr(), v_scales.data_ptr(),
-                block_tables.data_ptr(), chunk_starts.data_ptr(),
-                n_valid.data_ptr(), out.data_ptr(), s_slots, c, h, dh,
-                k_pages.shape[1], block_tables.shape[1], k_pages.shape[0],
-                _DTYPE_CODES[q.dtype], _scale(q, scale), stream)
-    _raise_on(rc, "ragged paged int8 prefill")
+    _launch("ptt_paged_prefill_int8", q.device, q.data_ptr(),
+            k_pages.data_ptr(), v_pages.data_ptr(), k_scales.data_ptr(),
+            v_scales.data_ptr(), block_tables.data_ptr(),
+            chunk_starts.data_ptr(), n_valid.data_ptr(), out.data_ptr(),
+            s_slots, c, h, dh, k_pages.shape[1], block_tables.shape[1],
+            k_pages.shape[0], _DTYPE_CODES[q.dtype], _scale(q, scale))
     PREFILL_INT8.launches += 1
     return out
 

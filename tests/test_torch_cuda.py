@@ -126,6 +126,33 @@ def test_engine_on_the_card_matches_the_cpu_engine(dev):
         np.testing.assert_array_equal(a, b)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("dh", [64, 48, 33, 256])
+def test_decode_few_long_slots_matches_plain_and_repeats_bitwise(dev, dh,
+                                                                dtype):
+    """Few slots and wide block tables: each warp of the fp decode
+    kernel's block folds many pages. Lengths sit at the edges of the
+    split of pages over the 8 warps; 16-byte and one-element loads (dh
+    33)."""
+    s, h, ps, w = 2, 2, 8, 64
+    t = _inputs(dh, s, h, dh, ps, w, 1, dev)
+    kp, vp = t["kp"].to(dtype), t["vp"].to(dtype)
+    q = t["qd"].to(dtype)
+    atol, rtol = PA.DECODE.tolerance[dtype]
+    for lengths in ((w * ps, w * ps // 2), (3 * ps + 1, 8 * ps),
+                    (0, 1), (ps * 7, w * ps - 1)):
+        lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        got = PA.paged_decode_cuda(q, kp, vp, t["bt"], lens)
+        again = PA.paged_decode_cuda(q, kp, vp, t["bt"], lens)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
+        assert torch.all(got[lens == 0] == 0)
+        ref = PA.paged_decode_plain(q.float(), kp.float(), vp.float(),
+                                    t["bt"], lens)
+        torch.testing.assert_close(got.float(), ref, atol=atol, rtol=rtol)
+
+
 def test_out_of_range_page_ids_clamp_like_the_reference_gather(dev):
     t = _inputs(1, 2, 2, 64, 16, 3, 4, dev)
     n_pages = t["kp"].shape[0]
@@ -360,7 +387,7 @@ def test_flash_kernels_match_plain_versions(dev, case, dh, dtype):
 
 @pytest.mark.parametrize("dh", [32, 64, 128])
 def test_bf16_flash_kernels_are_bitwise_reproducible(dev, dh):
-    """K5 and K6a write each output once (no atomics, no order that
+    """K5, K6a and K6b write each output once (no atomics, no order that
     depends on scheduling): two launches give identical bits."""
     q, k, v, bias, do = _flash_inputs(dh, 2, 3, 200, 320, dh, "key", dev)
     q, k, v, do = (t.bfloat16() for t in (q, k, v, do))
@@ -369,8 +396,9 @@ def test_bf16_flash_kernels_are_bitwise_reproducible(dev, dh):
         out, lse = FA.flash_fwd_cuda(q, k, v, bias)
         delta = FA.flash_delta(do, out)
         dk, dv = FA.flash_bwd_dkv_cuda(q, k, v, bias, do, lse, delta)
+        dq = FA.flash_bwd_dq_cuda(q, k, v, bias, do, lse, delta)
         torch.cuda.synchronize()
-        runs.append((out, lse, dk, dv))
+        runs.append((out, lse, dk, dv, dq))
     for a, b in zip(*runs):
         assert torch.equal(a, b)
 

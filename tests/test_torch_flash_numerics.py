@@ -1,16 +1,17 @@
 """The numerical contract of the bf16 tensor-core flash kernels, on the CPU.
 
-The bf16 instances of K5 (forward) and K6a (dk/dv) in
+The bf16 instances of K5 (forward), K6a (dk/dv) and K6b (dq) in
 ``paddle_tpu_torch/csrc/flash_attention.cu`` keep every product's
 accumulation in fp32 but feed the second products bf16 operands: ``P``
-before ``P V``, ``P^T`` before ``dV = P^T dO`` and ``dS^T`` before
-``dK = dS^T Q``. The forward also runs its online softmax over key tiles
-of 128 with ``exp2``. The CUDA kernels cannot run here, so this file
-emulates that rounding in fp32 torch and holds it against the JAX
-reference (``_lax_flash_fwd``, ``_lax_flash_block_bwd``, fp32 on the same
-bf16-representable inputs) within the tolerances the card check uses:
-``FWD.tolerance[bf16]`` for ``out``, ``BWD_DKV.tolerance[bf16]`` for
-``dk``/``dv`` and the fp32 tolerance for ``lse``.
+before ``P V``, ``P^T`` before ``dV = P^T dO``, ``dS^T`` before
+``dK = dS^T Q`` and ``dS`` before ``dQ = dS K``. The forward also runs
+its online softmax over key tiles of 128 with ``exp2``. The CUDA kernels
+cannot run here, so this file emulates that rounding in fp32 torch and
+holds it against the JAX reference (``_lax_flash_fwd``,
+``_lax_flash_block_bwd``, fp32 on the same bf16-representable inputs)
+within the tolerances the card check uses: ``FWD.tolerance[bf16]`` for
+``out``, ``BWD_DKV.tolerance[bf16]`` for ``dk``/``dv``,
+``BWD_DQ.tolerance[bf16]`` for ``dq`` and the fp32 tolerance for ``lse``.
 """
 
 import math
@@ -78,6 +79,31 @@ def emulate_dkv(q, k, v, bias, out, lse, do, scale):
     return _bf16(dk), _bf16(dv)
 
 
+def emulate_dq(q, k, v, bias, out, lse, do, scale):
+    """K6b's arithmetic: dS rounded to bf16 as the A operand of dQ = dS K,
+    fp32 accumulation over all key tiles; dq rounded to bf16."""
+    s = _scores(q, k, bias, scale)
+    p = torch.exp2((s - lse[..., None]) * LOG2E)
+    p = torch.where(lse[..., None] <= FA.NEG_INF / 2, torch.zeros_like(p), p)
+    delta = (do * out).sum(dim=-1)
+    dp = torch.einsum("bhqd,bhkd->bhqk", do, v)
+    ds = p * (dp - delta[..., None]) * scale
+    return _bf16(torch.einsum("bhqk,bhkd->bhqd", _bf16(ds), k))
+
+
+def _reference(q, k, v, bias, do, scale):
+    """The JAX reference's out, lse and (dq, dk, dv), as torch tensors."""
+    jnp_bias = None if bias is None else jnp.asarray(bias.numpy())
+    ref_out, ref_lse = jattn._lax_flash_fwd(
+        *(jnp.asarray(t.numpy()) for t in (q, k, v)), jnp_bias,
+        scale=scale, return_lse=True)
+    grads = jattn._lax_flash_block_bwd(
+        *(jnp.asarray(t.numpy()) for t in (q, k, v)), jnp_bias, ref_out,
+        ref_lse, jnp.asarray(do.numpy()), scale=scale, causal=False)
+    return tuple(torch.from_numpy(np.array(t))
+                 for t in (ref_out, ref_lse, *grads))
+
+
 def _inputs(seed, s, d, bias_mode):
     """(1, 2, s, d) q, k, v, do with bf16-representable values, and a key
     bias: None, ragged valid length, or length 0 (a fully masked row)."""
@@ -131,3 +157,18 @@ def test_bf16_operand_rounding_stays_within_the_card_tolerances(s, d,
                                atol=atol, rtol=rtol)
     torch.testing.assert_close(dv, torch.from_numpy(np.array(ref_dv)),
                                atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("bias_mode", [None, "key", "masked"])
+@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("s", [64, 200, 512])
+def test_dq_bf16_operand_rounding_stays_within_the_card_tolerance(s, d,
+                                                                  bias_mode):
+    q, k, v, bias, do = _inputs(s * 7 + d, s, d, bias_mode)
+    scale = 1.0 / math.sqrt(d)
+    ref_out, ref_lse, ref_dq, _, _ = _reference(q, k, v, bias, do, scale)
+    dq = emulate_dq(q, k, v, bias, ref_out, ref_lse, do, scale)
+    atol, rtol = FA.BWD_DQ.tolerance[torch.bfloat16]
+    torch.testing.assert_close(dq, ref_dq, atol=atol, rtol=rtol)
+    if bias_mode == "masked":                  # every row fully masked
+        assert torch.all(dq == 0)
