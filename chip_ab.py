@@ -8,14 +8,16 @@ change, change, parent, one process per turn started inside that
 checkout, so that each builds and imports its own ``paddle_tpu_torch``:
 
 - ``train``: phase 5, BERT-base pretraining (``train_bf16``);
-- ``serve``: phases 4a and 4c, bf16 and int8 serving (``serve``), and
-  4a's decode profile (the ``decode_profile`` of ``serve``'s stats): the
-  device's busy share, its device time and the paged decode kernels'
-  share of it over 4 decode blocks;
+- ``serve``: phases 4a, 4c and 4d, bf16, int8 and speculative int8
+  serving (``serve``), and 4a's and 4c's decode profiles (the
+  ``decode_profile`` of ``serve``'s stats): the device's busy share, its
+  device time and the paged decode kernel's (K1, K2) share of it over 4
+  decode blocks;
 - ``kernels``: the bf16 rows of K1 at the serving shape and at the long,
-  few-slot shape, and of K6b at the training shape, from phase 3
-  (``check_kernel``, ``check_long_decode``, ``check_flash``): each call's
-  ``ms``, ``device_ms`` and ``host_ms``.
+  few-slot shape, of K2 and K4 at the serving shape, of K4 at the
+  speculative verify chunk, and of K6b at the training shape, from
+  phase 3 (``check_kernel``, ``check_long_decode``, ``check_flash``):
+  each call's ``ms``, ``device_ms`` and ``host_ms``.
 
 Host-bound phases move with the machine a run lands on, so two versions
 are compared only inside one such run. Prints one ``AB <label> {...}``
@@ -41,13 +43,23 @@ KERNEL_KEYS = ("ms", "device_ms", "host_ms")
 
 #: one turn, run with ``python3 -c`` inside a checkout
 CHILD = f"""
-import json, sys, torch
+import functools, json, sys, torch
 import chip_smoke as cs
 from paddle_tpu_torch.kernels import build
 from paddle_tpu_torch.serving import paged_attention as PA
 build.build_all()
 dev = torch.device("cuda", 0)
 phases, out = sys.argv[1].split(","), {{}}
+
+
+# K4 at the verify chunk (4 rows), made from the serving-shape int8
+# prefill inputs that both trees' chip_smoke.py build alike
+def verify_inputs(seed, device):
+    q, *pages, starts, n_valid = cs.prefill_inputs(seed, device,
+                                                   quantized=True)
+    return (q[:, :4].contiguous(), *pages, starts, n_valid.clamp(max=4))
+
+
 if "kernels" in phases:
     from paddle_tpu_torch.ops import attention as FA
     flush = cs.L2Flush(dev)
@@ -55,6 +67,14 @@ if "kernels" in phases:
     out["K1"] = {{k: rows[torch.bfloat16][k] for k in {KERNEL_KEYS!r}}}
     rows = cs.check_long_decode(dev, flush)
     out["K1_long"] = {{k: rows[torch.bfloat16][k] for k in {KERNEL_KEYS!r}}}
+    for key, entry, make in (
+            ("K2", PA.DECODE_INT8,
+             functools.partial(cs.decode_inputs, quantized=True)),
+            ("K4", PA.PREFILL_INT8,
+             functools.partial(cs.prefill_inputs, quantized=True)),
+            ("K4_verify", PA.PREFILL_INT8, verify_inputs)):
+        rows = cs.check_kernel(entry, make, dev, flush)
+        out[key] = {{k: rows[torch.bfloat16][k] for k in {KERNEL_KEYS!r}}}
     rows = cs.check_flash(cs.FLASH_CASES[0], dev, flush)[FA.BWD_DQ.name]
     out["K6b"] = {{k: rows[torch.bfloat16][k] for k in {KERNEL_KEYS!r}}}
     del flush
@@ -62,16 +82,19 @@ if "serve" in phases:
     for key, kernels, kw in (
             ("4a", [PA.DECODE, PA.PREFILL], {{}}),
             ("4c", [PA.DECODE_INT8, PA.PREFILL_INT8],
-             {{"cache_dtype": torch.int8}})):
-        stats, _ = cs.serve(dev, kernels, key, profile=key == "4a", **kw)
+             {{"cache_dtype": torch.int8}}),
+            ("4d", [PA.DECODE_INT8, PA.PREFILL_INT8],
+             {{"cache_dtype": torch.int8, "self_draft": True, "spec_k": 4}})):
+        stats, _ = cs.serve(dev, kernels, key, profile=key != "4d", **kw)
         out[key] = {{k: stats[k] for k in {SERVE_KEYS!r}}}
-        if key == "4a":
-            prof = stats["decode_profile"]
-    out["4a"].update(
-        decode_busy_share=prof["device_busy_share"],
-        decode_device_ms=prof["device_busy_s"] * 1e3,
-        decode_paged_kernel_ms=sum(k["ms"] for k in prof["top_kernels"]
-                                   if "paged_decode" in k["name"]))
+        prof = stats.get("decode_profile")
+        if prof is None:
+            continue
+        out[key].update(
+            decode_busy_share=prof["device_busy_share"],
+            decode_device_ms=prof["device_busy_s"] * 1e3,
+            decode_paged_kernel_ms=sum(k["ms"] for k in prof["top_kernels"]
+                                       if "paged_decode" in k["name"]))
 if "train" in phases:
     stats = cs.train_bf16(dev)
     out["5"] = {{k: stats[k] for k in {TRAIN_KEYS!r}}}

@@ -8,10 +8,12 @@ Phases, in order; any failure exits non-zero:
 1. device  — require CUDA; print the card's name and power limit.
 2. build   — compile every ``paddle_tpu_torch/csrc/*.cu`` with nvcc
    (sm_90a), one process per source, all started together; print the
-   ptxas line (registers, spills) of each of the 18 bf16 tensor-core
-   instances of K5, K6a and K6b and, with ``cuobjdump``, its count of
-   HGMMA instructions (each must be found with a spill count and, where
-   counted, HGMMA > 0; the D = 64 instances must not spill).
+   ptxas line (registers, spills) of each tensor-core instance, the 18
+   bf16 instances of K5, K6a and K6b and the 8 of K4 (bf16 q over int8
+   pages, Dh up to 128) and, with ``cuobjdump``, its count of HGMMA
+   (wgmma, K5/K6) or HMMA (mma.sync, K4) instructions (each must be
+   found with a spill count and, where counted, a count > 0; the Dh = 64
+   instances must not spill).
 3. kernels — every registered kernel against its plain PyTorch version
    (and the dense reference) on the card, fp32 and bf16, timed with CUDA
    events (median, L2 flushed before each launch; ``ms`` as the host
@@ -25,11 +27,12 @@ Phases, in order; any failure exits non-zero:
        every page no block table references; their int8 twins on the same
        pages quantized by ``quantize_kv``, where the unreferenced pages
        hold bytes 127 under NaN scale rows and each dead tail bytes 127
-       under a finite scale of 1e4; decode also at a long, few-slot shape
-       (2 slots of 4096 tokens, lengths at the edges of the kernel's split
-       of a slot's pages over the warps of its block). Every kernel
-       launched twice on the same inputs must give the same bits, and a
-       decode slot of length 0 exact zeros;
+       under a finite scale of 1e4; the int8 prefill also at the
+       speculative verify shape (chunk = spec_k = 4); decode also at a
+       long, few-slot shape (2 slots of 4096 tokens, lengths at the edges
+       of the partition of a slot's pages over the 8 warps of its block).
+       Every kernel launched twice on the same inputs must give the same
+       bits, and a decode slot of length 0 exact zeros;
    (b) flash attention forward, dk/dv and dq at the training shape
        (48, 12, 512, 64) with a key-padding bias from ragged valid
        lengths (one of them 0: a fully masked batch row), causal at
@@ -50,7 +53,8 @@ Phases, in order; any failure exits non-zero:
        gated);
    (d) the same over int8 pools with self-draft speculation, spec_k=4:
        the draft proposes through the int8 decode kernel, the target
-       verifies through the int8 prefill kernel; proposed, accepted and
+       verifies through the int8 prefill kernel (its calls counted by
+       chunk: 4 for verify, 64 for prefill); proposed, accepted and
        tokens per round are reported (self-draft doubles the work per
        token by design: this shows the path runs, not a speed-up);
    (b) fp32, 8 requests x 32 new tokens, through the kernels and through
@@ -79,6 +83,7 @@ Phases, in order; any failure exits non-zero:
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
 import itertools
@@ -98,6 +103,7 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 
 S, H, DH, PS, W, C = 16, 16, 64, 16, 32, 64     # serving shapes
+SPEC_K = 4                                       # the verify chunk (4d)
 UNREFERENCED_PAGES = 64                          # NaN-poisoned, never read
 
 
@@ -179,20 +185,22 @@ def decode_inputs(seed, device, quantized=False):
                  for a in (q, *pages, bt, lengths))
 
 
-def prefill_inputs(seed, device, quantized=False):
+def prefill_inputs(seed, device, quantized=False, c=C):
+    """A chunk of ``c`` rows per slot (``C``: prefill; ``SPEC_K``: the
+    speculative verify call)."""
     rng = np.random.default_rng(seed)
     kp, vp, bt = _pages(rng)
-    starts = rng.integers(0, W * PS - C + 1, S).astype(np.int32)
-    n_valid = rng.integers(1, C + 1, S).astype(np.int32)
-    n_valid[:3] = (0, C, 1)                  # inactive slot, full, one row
-    starts[1] = W * PS - C                   # chunk ending at the last page
+    starts = rng.integers(0, W * PS - c + 1, S).astype(np.int32)
+    n_valid = rng.integers(1, c + 1, S).astype(np.int32)
+    n_valid[:3] = (0, c, 1)                  # inactive slot, full, one row
+    starts[1] = W * PS - c                   # chunk ending at the last page
     horizon = np.where(n_valid > 0, starts + n_valid, 0)
     if quantized:
         pages = _int8_pages(kp, vp, bt, horizon)
     else:
         _poison_dead_tail(kp, vp, bt, horizon)
         pages = (kp, vp)
-    q = rng.standard_normal((S, C, H, DH)).astype(np.float32)
+    q = rng.standard_normal((S, c, H, DH)).astype(np.float32)
     return tuple(torch.from_numpy(a).to(device)
                  for a in (q, *pages, bt, starts, n_valid))
 
@@ -546,6 +554,11 @@ TC_EXPECTED = tuple(f"{k}<{d}, {c}>"
                     for k in ("flash_bwd_dkv_tc_kernel",
                               "flash_bwd_dq_tc_kernel", "flash_fwd_tc_kernel")
                     for d in (32, 64, 128) for c in ("false", "true"))
+#: the tensor-core instances of K4 (csrc/paged_attention.cu): int8 pages,
+#: kQuant, NK = ceil(Dh / 16) k-steps of 16 (Dh = 64 is NK = 4)
+PAGED_TC_KERNELS = re.compile(r"(paged_prefill_tc_kernel)IaLb1ELi(\d+)EE")
+PAGED_TC_EXPECTED = tuple(f"paged_prefill_tc_kernel<int8, {nk}>"
+                          for nk in range(1, 9))
 
 
 def _tc_name(m):
@@ -553,60 +566,80 @@ def _tc_name(m):
     return f"{m.group(1)}<{m.group(2)}, {checks}>"
 
 
+def _paged_tc_name(m):
+    return f"{m.group(1)}<int8, {m.group(2)}>"
+
+
+#: per library: its instances' pattern and name, the names expected, the
+#: main path's (Dh = 64) instances, and the tensor-core instruction counted
+TC_LIBRARIES = (
+    ("flash_attention", TC_KERNELS, _tc_name, TC_EXPECTED,
+     lambda key: key.split("<")[1].startswith("64,"), "HGMMA"),
+    ("paged_attention", PAGED_TC_KERNELS, _paged_tc_name, PAGED_TC_EXPECTED,
+     lambda key: key.endswith(", 4>"), "HMMA"),
+)
+
+
 def tensor_core_report(build):
-    """The ptxas line (registers, spills) of each bf16 K5, K6a and K6b
-    instance from the build log, and, where ``cuobjdump`` is present, the
-    count of HGMMA (wgmma) instructions in each one's SASS. Fails unless
-    all of ``TC_EXPECTED`` have a ptxas line with a spill count, the D =
-    64 instances (the main path) spill nothing, and, with ``cuobjdump``,
-    each instance has HGMMA > 0: that shows the tensor cores are in
-    use."""
-    report = {key: {} for key in TC_EXPECTED}
-    lines = build.build_logs.get("flash_attention", "").splitlines()
-    for i, line in enumerate(lines):
-        m = TC_KERNELS.search(line)
-        if m is None or "Compiling entry function" not in line:
-            continue
-        props = [re.sub(r"^ptxas info\s*:\s*", "", x.strip())
-                 for x in lines[i + 1:i + 5] if "spill" in x or "Used" in x]
-        spills = re.search(r"(\d+) bytes spill stores", " ".join(props))
-        report.setdefault(_tc_name(m), {}).update(
-            ptxas=" | ".join(props),
-            spill_store_bytes=int(spills.group(1)) if spills else None)
+    """The ptxas line (registers, spills) of each tensor-core instance
+    (``TC_LIBRARIES``: bf16 K5, K6a, K6b and K4) from the build logs,
+    and, where ``cuobjdump`` is present, the count of its tensor-core
+    instructions (HGMMA for wgmma, HMMA for mma.sync) in its SASS. Fails
+    unless every expected instance has a ptxas line with a spill count,
+    the Dh = 64 instances (the main path) spill nothing, and, with
+    ``cuobjdump``, each instance has a count > 0: that shows the tensor
+    cores are in use."""
     exe = shutil.which("cuobjdump") or str(
         pathlib.Path(build.nvcc()).parent / "cuobjdump")
     counted = pathlib.Path(exe).is_file()
-    if counted:
-        sass = subprocess.run(
-            [exe, "-sass", str(build.library_path("flash_attention"))],
-            capture_output=True, text=True, timeout=300, check=True).stdout
-        func = None
-        for line in sass.splitlines():
-            if "Function :" in line:
-                m = TC_KERNELS.search(line)
-                func = _tc_name(m) if m else None
-                if func:
-                    report.setdefault(func, {})["hgmma"] = 0
-            elif func and "HGMMA" in line:
-                report[func]["hgmma"] += 1
-    for key, r in sorted(report.items()):
-        log(f"  {key}: {r.get('ptxas', 'no ptxas line')} | HGMMA "
-            f"{r.get('hgmma', 'not counted (no cuobjdump)')}")
-    if set(report) != set(TC_EXPECTED):
-        raise AssertionError(f"tensor-core instances {sorted(report)}, "
-                             f"expected {sorted(TC_EXPECTED)}")
-    for key, r in report.items():
-        if r.get("spill_store_bytes") is None:
-            raise AssertionError(f"{key}: no ptxas spill count in the build "
-                                 "log")
-        if key.split("<")[1].startswith("64,") and r["spill_store_bytes"]:
-            raise AssertionError(f"{key}: spills on the main path: "
-                                 f"{r['ptxas']}")
-        if counted and not r.get("hgmma"):
-            raise AssertionError(f"{key}: no HGMMA instruction in its SASS")
+    reports = {}
+    for stem, pattern, name, expected, main_path, instr in TC_LIBRARIES:
+        report = {key: {} for key in expected}
+        lines = build.build_logs.get(stem, "").splitlines()
+        for i, line in enumerate(lines):
+            m = pattern.search(line)
+            if m is None or "Compiling entry function" not in line:
+                continue
+            props = [re.sub(r"^ptxas info\s*:\s*", "", x.strip())
+                     for x in lines[i + 1:i + 5] if "spill" in x or "Used" in x]
+            spills = re.search(r"(\d+) bytes spill stores", " ".join(props))
+            report.setdefault(name(m), {}).update(
+                ptxas=" | ".join(props),
+                spill_store_bytes=int(spills.group(1)) if spills else None)
+        if counted:
+            sass = subprocess.run(
+                [exe, "-sass", str(build.library_path(stem))],
+                capture_output=True, text=True, timeout=300, check=True).stdout
+            func = None
+            for line in sass.splitlines():
+                if "Function :" in line:
+                    m = pattern.search(line)
+                    func = name(m) if m else None
+                    if func:
+                        report.setdefault(func, {})[instr] = 0
+                elif func and any(w.split(".")[0] == instr
+                                  for w in line.split()):
+                    report[func][instr] += 1
+        for key, r in sorted(report.items()):
+            log(f"  {key}: {r.get('ptxas', 'no ptxas line')} | {instr} "
+                f"{r.get(instr, 'not counted (no cuobjdump)')}")
+        if set(report) != set(expected):
+            raise AssertionError(f"tensor-core instances {sorted(report)}, "
+                                 f"expected {sorted(expected)}")
+        for key, r in report.items():
+            if r.get("spill_store_bytes") is None:
+                raise AssertionError(f"{key}: no ptxas spill count in the "
+                                     "build log")
+            if main_path(key) and r["spill_store_bytes"]:
+                raise AssertionError(f"{key}: spills on the main path: "
+                                     f"{r['ptxas']}")
+            if counted and not r.get(instr):
+                raise AssertionError(f"{key}: no {instr} instruction in its "
+                                     "SASS")
+        reports[stem] = report
     if not counted:
-        log(f"  no cuobjdump at {exe}: HGMMA not counted")
-    return report
+        log(f"  no cuobjdump at {exe}: tensor-core instructions not counted")
+    return reports
 
 
 # -- phase 4: the main path ----------------------------------------------------
@@ -635,11 +668,15 @@ def serve(device, kernels, label, profile=False, self_draft=False,
     request must finish and every kernel in ``kernels`` must launch in
     the run; ``self_draft`` makes the model its own draft; ``profile``
     adds the decode profile (:func:`profile_decode`) to the stats as
-    ``decode_profile``. Returns (stats, generated token streams)."""
+    ``decode_profile``. The int8 prefill kernel's calls (K4) are tallied
+    by chunk (``int8_prefill_calls_by_chunk``: 64 for prefill, spec_k
+    for the speculative verify). Returns (stats, generated token
+    streams)."""
     from paddle_tpu_torch.inference import make_serving_engine
     from paddle_tpu_torch.kernels import registry
     from paddle_tpu_torch.models.gpt import GPT
     from paddle_tpu_torch.observability import MetricsRegistry
+    from paddle_tpu_torch.serving import paged_attention as PA
     cfg = model_config()
     model = GPT(cfg, device=device, dtype=torch.bfloat16, seed=0)
     if self_draft:
@@ -651,15 +688,29 @@ def serve(device, kernels, label, profile=False, self_draft=False,
     eng.warmup()
     warm_s = time.monotonic() - t0
     prompts = make_prompts(48, cfg.vocab_size)
+    chunks = collections.Counter()
+    k4 = PA.PREFILL_INT8.cuda_fn
+
+    def k4_tally(q, *args, **kw):
+        chunks[q.shape[1]] += 1
+        return k4(q, *args, **kw)
+
     registry.reset_launches()               # count only the served run
-    t0 = time.monotonic()
-    rids = [eng.submit(p, 96) for p in prompts]
-    done = {}
-    while not eng.scheduler.idle():
-        done.update(eng.step())
-    torch.cuda.synchronize()
-    wall = time.monotonic() - t0
+    PA.PREFILL_INT8.cuda_fn = k4_tally
+    try:
+        t0 = time.monotonic()
+        rids = [eng.submit(p, 96) for p in prompts]
+        done = {}
+        while not eng.scheduler.idle():
+            done.update(eng.step())
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    finally:
+        PA.PREFILL_INT8.cuda_fn = k4
     launches = {e.name: e.launches for e in kernels}
+    if sum(chunks.values()) != PA.PREFILL_INT8.launches:
+        raise AssertionError(f"int8 prefill calls {dict(chunks)} against "
+                             f"{PA.PREFILL_INT8.launches} launches")
     for r in rids:
         toks = done.get(r)
         if toks is None or toks.shape != (96,):
@@ -689,6 +740,9 @@ def serve(device, kernels, label, profile=False, self_draft=False,
             eng.cache.capacity_bytes() / ((c.num_pages - 1) * c.page_size),
         "launches": launches,
     }
+    if chunks:
+        stats["int8_prefill_calls_by_chunk"] = {
+            str(c): n for c, n in sorted(chunks.items())}
     if eng.speculative:
         prop = reg.counter("serving_spec_proposed_total").value()
         acc = reg.counter("serving_spec_accepted_total").value()
@@ -1137,6 +1191,9 @@ def main() -> int:
     flush = L2Flush(device)
     rows = {e.name: check_kernel(e, makers[e.name], device, flush)
             for e in paged}
+    log(f"  {PA.PREFILL_INT8.name} at the verify chunk (C = {SPEC_K}):")
+    verify_rows = check_kernel(PA.PREFILL_INT8, functools.partial(
+        prefill_inputs, quantized=True, c=SPEC_K), device, flush)
     long_rows = check_long_decode(device, flush)
     flash_rows = {e.name: {} for e in flash}
     for case in FLASH_CASES:
@@ -1156,7 +1213,7 @@ def main() -> int:
     spec_stats, spec_outs = serve(device, int8_paged,
                                   "4d int8 self-draft speculative serve",
                                   cache_dtype=torch.int8, self_draft=True,
-                                  spec_k=4)
+                                  spec_k=SPEC_K)
     log("  4d vs 4c token agreement (bf16, not gated): "
         + json.dumps(agreement(spec_outs, q8_outs)))
     serve_fp32_parity(device)
@@ -1170,9 +1227,16 @@ def main() -> int:
                          {"long": long_rows} if e is PA.DECODE else None)
              for e in fp_paged]
     # K2/K4: launches of the int8 serving run (4c), with the speculative
-    # run's (4d) beside them
-    lines += [dict(kernel_line(e, rows[e.name], q8_stats["launches"][e.name]),
-                   launches_speculative=spec_stats["launches"][e.name])
+    # run's (4d) beside them; K4's verify calls (chunk spec_k) of 4d and
+    # its verify-shape row on their own
+    verify_calls = spec_stats["int8_prefill_calls_by_chunk"].get(str(SPEC_K),
+                                                                 0)
+    lines += [dict(kernel_line(e, rows[e.name], q8_stats["launches"][e.name],
+                               {"verify": verify_rows}
+                               if e is PA.PREFILL_INT8 else None),
+                   launches_speculative=spec_stats["launches"][e.name],
+                   **({"launches_verify": verify_calls}
+                      if e is PA.PREFILL_INT8 else {}))
               for e in int8_paged]
     lines += [kernel_line(e, flash_rows[e.name][FLASH_CASES[0][0]],
                           train["launches"][e.name],

@@ -12,12 +12,12 @@
 // accumulation, scores scaled in fp32 after the dot (as the reference's
 // lax fallback does), and exact zeros for dead rows.
 //
-// As in the reference, the int8 variants are not second kernels: the page
-// fold and both kernels are templates over the page element type and a
-// compile-time kQuant flag, so the grid, the ragged skip and the finish
-// cannot drift apart. With kQuant the pages are int8 and each token's fp32
-// scales (k_scales, v_scales, (P, ps), read through the same clamped page
-// id as the page) are fused into the fold: score = (q.k * scale) * k_scale
+// As in the reference, the int8 variants are not second kernels: each
+// design is a template over the page element type and a compile-time
+// kQuant flag, so the grid, the ragged skip and the finish cannot drift
+// apart. With kQuant the pages are int8 and each token's fp32 scales
+// (k_scales, v_scales, (P, ps), read through the same clamped page id as
+// the page) are fused into the fold: score = (q.k * scale) * k_scale
 // before the softmax, and p * v_scale before PV, after l has taken the
 // unscaled p. No dequantized page is ever written.
 //
@@ -29,29 +29,26 @@
 // (C = 64, Dh = 64) it still sits under that line.
 //
 // Designs.
-//   - decode over fp pages (K1): paged_decode_fp_kernel, built for HBM
-//     bandwidth (16-byte loads, a unit of page rows requested before any
-//     is used and the next unit's behind this one's math, eight warps
-//     per (slot, head)); see its section.
-//   - decode over int8 pages (K2, the next to move to that design) and
-//     prefill (K3, K4), simple and correct first: one warp folds one query
-//     row over a run of pages (fold_pages): each lane keeps ceil(Dh/32)
-//     elements of q and of the accumulator in registers, each token's
-//     score is a warp reduction, and a page's scores (in chunks of 32
-//     tokens) update the running (m, l, acc) once, as the TPU kernel's
-//     page fold does. int8 decode: one block per (slot, head) with 4 warps;
-//     warp w folds the pages w, w+4, ... of the slot and the four partial
-//     states merge in shared memory. Prefill: one block per (slot, head,
-//     tile of 4 query rows), one warp per row; row r < n_valid[s] is a
-//     decode with horizon chunk_starts[s] + r + 1; rows at or past n_valid
-//     write zeros. The page loop stops at ceil(lengths[s] / ps): dead pages
-//     are never read (the ragged skip).
-// What the simple design leaves on the table: each warp of a prefill tile
-// re-reads the same K/V rows from L2 (no shared-memory staging, no wgmma);
-// loads are 1-4 bytes per lane instead of 16; the next page is not
-// requested behind this page's math; and a score costs a 5-step shuffle
-// reduction per token. The int8 variants also lack dp4a for the int8 dot
-// and staging of pages or scale rows.
+//   - decode (K1 over fp pages, K2 over int8 pages): paged_decode_vec_kernel,
+//     built for HBM bandwidth (16-byte loads, a unit of page rows
+//     requested before any is used and the next unit's behind this one's
+//     math, eight warps per (slot, head)); see its section.
+//   - prefill over int8 pages with bf16 q and Dh <= 128 (K4, also the
+//     speculative verify step): paged_prefill_tc_kernel, which stages each
+//     live page once for a tile of up to 64 query rows and runs QK^T and
+//     PV on the tensor cores; see its section.
+//   - prefill over fp pages (K3), and K4 with fp32 q or Dh > 128: the
+//     simple scalar template, one warp per query row (fold_pages): each lane
+//     keeps ceil(Dh/32) elements of q and of the accumulator in registers,
+//     each token's score is a warp reduction, and a page's scores (in
+//     chunks of 32 tokens) update the running (m, l, acc) once, as the TPU
+//     kernel's page fold does. One block per (slot, head, tile of 4 query
+//     rows); row r < n_valid[s] is a decode with horizon
+//     chunk_starts[s] + r + 1; rows at or past n_valid write zeros. The
+//     page loop stops at ceil(lengths[s] / ps): dead pages are never read
+//     (the ragged skip). What it leaves on the table: each warp re-reads
+//     the same K/V rows from L2, loads are 1-4 bytes per lane, and a score
+//     costs a 5-step shuffle reduction per token.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -189,68 +186,6 @@ __device__ void fold_pages(const float (&q)[DPL], const KV* __restrict__ k_pages
   }
 }
 
-// q (S, H, Dh); pages (P, ps, H, Dh); scales (P, ps) with kQuant, else
-// null; block_tables (S, w); lengths (S,); out (S, H, Dh).
-// Grid (S, H), kThreads threads.
-template <typename T, typename KV, bool kQuant, int DPL>
-__global__ void __launch_bounds__(kThreads)
-    paged_decode_kernel(const T* __restrict__ q, const KV* __restrict__ k_pages,
-                        const KV* __restrict__ v_pages,
-                        const float* __restrict__ k_scales,
-                        const float* __restrict__ v_scales,
-                        const int32_t* __restrict__ block_tables,
-                        const int32_t* __restrict__ lengths, T* __restrict__ out,
-                        int H, int Dh, int ps, int w, int P, float scale) {
-  __shared__ float sm_m[kWarps];
-  __shared__ float sm_l[kWarps];
-  __shared__ float sm_acc[kWarps][kMaxHeadDim];
-  const int slot = blockIdx.x;
-  const int head = blockIdx.y;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int64_t row = ((int64_t)slot * H + head) * Dh;
-  const int n_tok = min(max(lengths[slot], 0), w * ps);
-  if (n_tok == 0) {  // inactive slot: exact zeros (block-uniform branch)
-    for (int d = threadIdx.x; d < Dh; d += kThreads) store_f(out + row + d, 0.f);
-    return;
-  }
-  float qr[DPL];
-  load_row<T, DPL>(q + row, Dh, qr);
-  RowState<DPL> st;
-  init_state(st);
-  fold_pages<KV, kQuant, DPL>(qr, k_pages, v_pages, k_scales, v_scales,
-                              block_tables + (int64_t)slot * w, n_tok, warp,
-                              kWarps, ps, H, Dh, P, head, scale, st);
-  if (lane == 0) {
-    sm_m[warp] = st.m;
-    sm_l[warp] = st.l;
-  }
-#pragma unroll
-  for (int i = 0; i < DPL; ++i) {
-    const int d = lane + 32 * i;
-    if (d < Dh) sm_acc[warp][d] = st.acc[i];
-  }
-  __syncthreads();
-  // merge the warps' partial states; a warp that folded no page holds
-  // m = NEG_INF, l = 0 and weighs exactly 0
-  float m = kNegInf;
-#pragma unroll
-  for (int k = 0; k < kWarps; ++k) m = fmaxf(m, sm_m[k]);
-  float wt[kWarps];
-  float l = 0.f;
-#pragma unroll
-  for (int k = 0; k < kWarps; ++k) {
-    wt[k] = expf(sm_m[k] - m);
-    l += sm_l[k] * wt[k];
-  }
-  for (int d = threadIdx.x; d < Dh; d += kThreads) {
-    float a = 0.f;
-#pragma unroll
-    for (int k = 0; k < kWarps; ++k) a += sm_acc[k][d] * wt[k];
-    store_f(out + row + d, a / l);
-  }
-}
-
 // q (S, C, H, Dh); pages (P, ps, H, Dh); scales (P, ps) with kQuant, else
 // null; block_tables (S, w); chunk_starts, n_valid (S,); out (S, C, H, Dh).
 // Grid (S, H, ceil(C / kWarps)), kThreads threads, one warp per row.
@@ -296,14 +231,17 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// K1, fp pages: ragged paged decode for HBM bandwidth. Replaces
-// _paged_decode_pallas (paddle_tpu/serving/decode_attention.py:265, body
-// _paged_decode_kernel, fold _online_softmax_page_fold :125). Decode does
-// ~2 flops per byte, so the only lever is bytes in flight: every lane
-// loads 16 bytes at a time, a warp holds several tokens' rows at once, a
-// unit's K rows and V rows are all requested before any is used, and the
-// next unit's rows are requested before this unit's math (two register
-// buffers).
+// K1 (fp pages) and K2 (int8 pages): ragged paged decode for HBM
+// bandwidth. Replaces _paged_decode_pallas (K1) and
+// _paged_decode_int8_pallas (K2) (paddle_tpu/serving/decode_attention.py
+// :265 and :356, body _paged_decode_kernel :185, fold
+// _online_softmax_page_fold :125). Decode does ~2 flops per byte, so the
+// only lever is bytes in flight: every lane loads 16 bytes at a time (8
+// bf16, 4 fp32 or 16 int8 elements), a warp holds several tokens' rows at
+// once, a unit's K rows and V rows (and, for int8, their scales) are all
+// requested before any is used, and the next unit's rows are requested
+// before this unit's math (two register buffers). The int8 pool moves half
+// the bf16 pool's bytes per token plus 8 bytes of scales.
 //
 // Warp layout: lane = grp * G + gl. The G lanes of a group hold one
 // token's row of Dh elements as vectors of V elements (16 bytes, or one
@@ -311,9 +249,10 @@ __global__ void __launch_bounds__(kThreads)
 // 16-byte aligned); lane gl holds vectors gl, gl + G, ... (NV of them).
 // The 32 / G groups of a warp hold 32 / G consecutive tokens, so a
 // token's score is a log2(G)-step shuffle within its group (3 steps for
-// bf16 at Dh = 64). A unit is STEPS such rows of one page (a whole page
-// of 16 tokens at the serving shape); the online softmax (m, l, acc)
-// updates once per unit, as the reference's fold does once per page.
+// bf16 at Dh = 64, 2 for int8). A unit is STEPS such rows of one page (a
+// whole page of 16 tokens at the serving shape, for both pools); the
+// online softmax (m, l, acc) updates once per unit, as the reference's
+// fold does once per page.
 //
 // Parallelism: one block of kDecWarps warps per (slot, head), one launch
 // per call. Warp w folds the units w, w + kDecWarps, ... of the slot's
@@ -325,12 +264,11 @@ __global__ void __launch_bounds__(kThreads)
 // them: its GPT holds 512 positions and the engine decodes every slot.
 //
 // Kept from the reference: pages at or past ceil(lengths[s] / ps) are
-// never read, tokens past the length are never loaded, page ids clamp
-// into [0, P), lengths == 0 gives exact zeros, and a state that folded
-// nothing (m = NEG_INF, l = 0) weighs exactly 0. The int8 pool (K2) keeps
-// paged_decode_kernel above; its kQuant instance of this design would
-// multiply a score by the token's k_scale and p by its v_scale after l,
-// as fold_pages does, with 16-element int8 vectors.
+// never read, tokens past the length are never loaded (nor their scales),
+// page ids clamp into [0, P), lengths == 0 gives exact zeros, and a state
+// that folded nothing (m = NEG_INF, l = 0) weighs exactly 0. Masked tokens
+// weigh an explicit 0, selected rather than multiplied, so a NaN scale row
+// of an unreferenced page can never reach the output.
 // ---------------------------------------------------------------------------
 constexpr int kDecWarps = 8;
 constexpr int kDecThreads = kDecWarps * 32;
@@ -349,6 +287,11 @@ __device__ __forceinline__ Raw<KV, V> load_raw(const KV* p) {
   }
 }
 
+// byte b (0..3) of x as a signed int8 value
+__device__ __forceinline__ float i8_at(uint32_t x, int b) {
+  return static_cast<float>(static_cast<int>(x << (24 - 8 * b)) >> 24);
+}
+
 // element e (a constant after unrolling) of a loaded vector as fp32, read
 // from its 32-bit words (a bf16 is the top half of an fp32)
 template <typename KV, int V>
@@ -356,37 +299,50 @@ __device__ __forceinline__ float raw_at(const Raw<KV, V>& r, int e) {
   if constexpr (V == 1) {
     return load_f(&r);
   } else {
-    static_assert(sizeof(KV) == 4 || sizeof(KV) == 2, "fp pages only");
     const int word = e * (int)sizeof(KV) / 4;
     const uint32_t x = word == 0 ? r.x : word == 1 ? r.y : word == 2 ? r.z : r.w;
     if constexpr (sizeof(KV) == 4) {
       return __uint_as_float(x);
-    } else {
+    } else if constexpr (sizeof(KV) == 2) {
       return __uint_as_float(e % 2 ? x & 0xffff0000u : x << 16);
+    } else {
+      static_assert(std::is_same<KV, int8_t>::value, "fp32, bf16 or int8 pages");
+      return i8_at(x, e % 4);
     }
   }
 }
 
-template <typename KV, int V, int NV, int STEPS>
+template <typename KV, bool kQuant, int V, int NV, int STEPS>
 struct UnitRows {
   Raw<KV, V> k[STEPS][NV];
   Raw<KV, V> v[STEPS][NV];
+  float ks[kQuant ? STEPS : 1];  // the tokens' k_scale / v_scale (kQuant)
+  float vs[kQuant ? STEPS : 1];
   int live;  // tokens of the unit below the slot's length (may be <= 0)
 };
 
-template <typename T, typename KV, int V, int G, int NV>
+template <typename T, typename KV, bool kQuant, int V, int G, int NV>
 __global__ void __launch_bounds__(kDecThreads)
-    paged_decode_fp_kernel(const T* __restrict__ q,
-                           const KV* __restrict__ k_pages,
-                           const KV* __restrict__ v_pages,
-                           const int32_t* __restrict__ block_tables,
-                           const int32_t* __restrict__ lengths,
-                           T* __restrict__ out, int H, int Dh, int ps,
-                           int w, int P, float scale) {
+    paged_decode_vec_kernel(const T* __restrict__ q,
+                            const KV* __restrict__ k_pages,
+                            const KV* __restrict__ v_pages,
+                            const float* __restrict__ k_scales,
+                            const float* __restrict__ v_scales,
+                            const int32_t* __restrict__ block_tables,
+                            const int32_t* __restrict__ lengths,
+                            T* __restrict__ out, int H, int Dh, int ps,
+                            int w, int P, float scale) {
   constexpr int TPW = 32 / G;                   // tokens a warp holds at once
   constexpr int REGS = NV * (V == 1 ? 1 : 4);   // registers per row per lane
-  constexpr int STEPS = REGS >= 16 ? 1 : 16 / REGS;
+  constexpr int STEPS_REGS = REGS >= 16 ? 1 : 16 / REGS;
+  // int8 rows take a quarter of an fp32 row's registers: cap the unit at
+  // 16 tokens (a page at the serving shape), so a unit is not mostly
+  // masked rows
+  constexpr int STEPS = kQuant && STEPS_REGS * TPW > 16
+                            ? (TPW >= 16 ? 1 : 16 / TPW)
+                            : STEPS_REGS;
   constexpr int CH = STEPS * TPW;               // tokens per unit
+  using Unit = UnitRows<KV, kQuant, V, NV, STEPS>;
   __shared__ float sm_m[kDecWarps];
   __shared__ float sm_l[kDecWarps];
   __shared__ float sm_acc[kDecWarps][kMaxHeadDim];
@@ -417,8 +373,8 @@ __global__ void __launch_bounds__(kDecThreads)
   float st_m = kNegInf, st_l = 0.f;
 
   auto page_of = [&](int u) { return min(max(bt_row[u / cpp], 0), P - 1); };
-  // request unit u's K and V rows (page id `page`) into `b`
-  auto request = [&](UnitRows<KV, V, NV, STEPS>& b, int u, int page) {
+  // request unit u's K and V rows (page id `page`) and scales into `b`
+  auto request = [&](Unit& b, int u, int page) {
     const int col = u / cpp, t0 = (u % cpp) * CH;
     b.live = min(CH, min(ps, n_tok - col * ps) - t0);
     const int64_t base = ((int64_t)page * ps + t0) * tok_stride + head * Dh;
@@ -444,9 +400,18 @@ __global__ void __launch_bounds__(kDecThreads)
         b.v[j][v] = ok ? load_raw<KV, V>(v_pages + off) : Raw<KV, V>{};
       }
     }
+    if constexpr (kQuant) {
+      const int64_t srow = (int64_t)page * ps + t0;
+#pragma unroll
+      for (int j = 0; j < STEPS; ++j) {
+        const int t = j * TPW + grp;
+        b.ks[j] = t < b.live ? k_scales[srow + t] : 0.f;
+        b.vs[j] = t < b.live ? v_scales[srow + t] : 0.f;
+      }
+    }
   };
   // one online-softmax update over the unit in `b`
-  auto fold = [&](const UnitRows<KV, V, NV, STEPS>& b) {
+  auto fold = [&](const Unit& b) {
     float s[STEPS];
     float mx = kNegInf;
 #pragma unroll
@@ -459,7 +424,9 @@ __global__ void __launch_bounds__(kDecThreads)
           dot = fmaf(qf[v][e], raw_at<KV, V>(b.k[j][v], e), dot);
 #pragma unroll
       for (int o = G / 2; o > 0; o >>= 1) dot += __shfl_xor_sync(kFull, dot, o);
-      s[j] = j * TPW + grp < b.live ? dot * scale : kNegInf;
+      float sc = dot * scale;
+      if constexpr (kQuant) sc *= b.ks[j];      // (q.k * scale) * k_scale
+      s[j] = j * TPW + grp < b.live ? sc : kNegInf;
       mx = fmaxf(mx, s[j]);
     }
 #pragma unroll
@@ -477,6 +444,10 @@ __global__ void __launch_bounds__(kDecThreads)
     for (int o = G; o < 32; o <<= 1) psum += __shfl_xor_sync(kFull, psum, o);
     st_l = st_l * alpha + psum;
     st_m = m_next;
+    if constexpr (kQuant) {
+#pragma unroll
+      for (int j = 0; j < STEPS; ++j) s[j] *= b.vs[j];  // after l: l never sees it
+    }
 #pragma unroll
     for (int v = 0; v < NV; ++v)
 #pragma unroll
@@ -493,7 +464,7 @@ __global__ void __launch_bounds__(kDecThreads)
   // in that order through two buffers
   const int u0 = warp, u_end = n_cols * cpp;
   const int n_units = u0 < u_end ? (u_end - u0 + kDecWarps - 1) / kDecWarps : 0;
-  UnitRows<KV, V, NV, STEPS> a, b;
+  Unit a, b;
   int id_b = 0;
   if (n_units > 0) request(a, u0, page_of(u0));
   if (n_units > 1) id_b = page_of(u0 + kDecWarps);
@@ -549,68 +520,550 @@ __global__ void __launch_bounds__(kDecThreads)
   }
 }
 
-template <typename T, int V, int G, int NV>
-cudaError_t run_decode_fp(const void* q, const void* kp, const void* vp,
-                          const void* bt, const void* len, void* out, int S,
-                          int H, int Dh, int ps, int w, int P, float scale,
-                          cudaStream_t stream) {
-  paged_decode_fp_kernel<T, T, V, G, NV><<<dim3(S, H), kDecThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kp),
-      static_cast<const T*>(vp), static_cast<const int32_t*>(bt),
-      static_cast<const int32_t*>(len), static_cast<T*>(out), H, Dh, ps, w, P,
-      scale);
+template <typename T, typename KV, bool kQuant, int V, int G, int NV>
+cudaError_t run_decode_vec(const void* q, const void* kp, const void* vp,
+                           const void* ks, const void* vs, const void* bt,
+                           const void* len, void* out, int S, int H, int Dh,
+                           int ps, int w, int P, float scale,
+                           cudaStream_t stream) {
+  paged_decode_vec_kernel<T, KV, kQuant, V, G, NV>
+      <<<dim3(S, H), kDecThreads, 0, stream>>>(
+          static_cast<const T*>(q), static_cast<const KV*>(kp),
+          static_cast<const KV*>(vp), static_cast<const float*>(ks),
+          static_cast<const float*>(vs), static_cast<const int32_t*>(bt),
+          static_cast<const int32_t*>(len), static_cast<T*>(out), H, Dh, ps,
+          w, P, scale);
   return cudaGetLastError();
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 // 16-byte vectors where every row of both pools is 16-byte aligned, G the
 // smallest power of two lanes that covers a row (two vectors per lane for
 // fp32 rows past 128 elements); otherwise one element per lane and vector.
-template <typename T>
-cudaError_t decode_fp(const void* q, const void* kp, const void* vp,
-                      const void* bt, const void* len, void* out, int S,
-                      int H, int Dh, int ps, int w, int P, float scale,
-                      cudaStream_t stream) {
-  constexpr int V = 16 / sizeof(T);
-  const bool vec = Dh % V == 0 && reinterpret_cast<uintptr_t>(kp) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(vp) % 16 == 0;
-#define PTT_DECODE_FP(V_, G_, NV_)                                          \
-  return run_decode_fp<T, V_, G_, NV_>(q, kp, vp, bt, len, out, S, H, Dh, \
-                                       ps, w, P, scale, stream)
+template <typename T, typename KV, bool kQuant>
+cudaError_t decode_vec(const void* q, const void* kp, const void* vp,
+                       const void* ks, const void* vs, const void* bt,
+                       const void* len, void* out, int S, int H, int Dh,
+                       int ps, int w, int P, float scale,
+                       cudaStream_t stream) {
+  constexpr int V = 16 / sizeof(KV);
+  constexpr int kMaxVecs = kMaxHeadDim / V;     // 64, 32 or 16 vectors a row
+  const bool vec = Dh % V == 0 && aligned16(kp) && aligned16(vp);
+#define PTT_DECODE(V_, G_, NV_)                                           \
+  return run_decode_vec<T, KV, kQuant, V_, G_, NV_>(                      \
+      q, kp, vp, ks, vs, bt, len, out, S, H, Dh, ps, w, P, scale, stream)
   if (vec) {
     const int nvec = Dh / V;
-    if (nvec <= 1) PTT_DECODE_FP(V, 1, 1);
-    if (nvec <= 2) PTT_DECODE_FP(V, 2, 1);
-    if (nvec <= 4) PTT_DECODE_FP(V, 4, 1);
-    if (nvec <= 8) PTT_DECODE_FP(V, 8, 1);
-    if (nvec <= 16) PTT_DECODE_FP(V, 16, 1);
-    if (nvec <= 32) PTT_DECODE_FP(V, 32, 1);
-    PTT_DECODE_FP(V, 32, 2);
+    if (nvec <= 1) PTT_DECODE(V, 1, 1);
+    if (nvec <= 2) PTT_DECODE(V, 2, 1);
+    if (nvec <= 4) PTT_DECODE(V, 4, 1);
+    if (nvec <= 8) PTT_DECODE(V, 8, 1);
+    if (nvec <= 16) PTT_DECODE(V, 16, 1);
+    if constexpr (kMaxVecs > 16) {
+      if (nvec <= 32) PTT_DECODE(V, 32, 1);
+    }
+    if constexpr (kMaxVecs > 32) PTT_DECODE(V, 32, 2);
+    return cudaErrorInvalidValue;
   }
   switch ((Dh + 31) / 32) {
-    case 1: PTT_DECODE_FP(1, 32, 1);
-    case 2: PTT_DECODE_FP(1, 32, 2);
-    case 3: PTT_DECODE_FP(1, 32, 3);
-    case 4: PTT_DECODE_FP(1, 32, 4);
-    case 5: PTT_DECODE_FP(1, 32, 5);
-    case 6: PTT_DECODE_FP(1, 32, 6);
-    case 7: PTT_DECODE_FP(1, 32, 7);
-    case 8: PTT_DECODE_FP(1, 32, 8);
+    case 1: PTT_DECODE(1, 32, 1);
+    case 2: PTT_DECODE(1, 32, 2);
+    case 3: PTT_DECODE(1, 32, 3);
+    case 4: PTT_DECODE(1, 32, 4);
+    case 5: PTT_DECODE(1, 32, 5);
+    case 6: PTT_DECODE(1, 32, 6);
+    case 7: PTT_DECODE(1, 32, 7);
+    case 8: PTT_DECODE(1, 32, 8);
   }
-#undef PTT_DECODE_FP
+#undef PTT_DECODE
   return cudaErrorInvalidValue;
 }
 
-template <typename T, typename KV, bool kQuant, int DPL>
-cudaError_t run_decode(const void* q, const void* kp, const void* vp,
-                       const float* ks, const float* vs, const void* bt,
-                       const void* len, void* out, int S, int H, int Dh, int ps,
-                       int w, int P, float scale, cudaStream_t stream) {
-  paged_decode_kernel<T, KV, kQuant, DPL><<<dim3(S, H), kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const KV*>(kp),
-      static_cast<const KV*>(vp), ks, vs, static_cast<const int32_t*>(bt),
-      static_cast<const int32_t*>(len), static_cast<T*>(out), H, Dh, ps, w, P,
-      scale);
+// ---------------------------------------------------------------------------
+// K4 (bf16 q over int8 pages, Dh <= 128): ragged paged prefill and
+// speculative verify on the tensor cores. Replaces
+// _paged_prefill_int8_pallas (paddle_tpu/serving/decode_attention.py:533,
+// through _paged_prefill_pallas :443, body _paged_prefill_kernel :396).
+//
+// What bounds it: bytes still (a chunk of C rows does 4 * C flops per K/V
+// element, under the card's ~295 flops a byte at C <= 64), so the design
+// is about reading every live page once per block, not once per query
+// row as the scalar template does, and about keeping that read in flight.
+//
+// One block of kPreWarps warps per (slot, head, tile of up to kRowTile
+// query rows). The block walks the slot's tokens up to its last live
+// row's causal horizon in key tiles of kKeyTile tokens. Each key tile's
+// int8 K and V rows and their scale rows come into shared memory once for
+// all of the block's rows, by 16-byte cp.async (zero-filled past the
+// horizon; element by element where a row is not a 16-byte multiple or a
+// pool is not 16-byte aligned), into a ring of two stages: the next tile
+// is in flight while this one is converted and used. The conversion (int8
+// to bf16, exact since |x| <= 127) runs once per block, not per warp: K
+// to a row-major bf16 tile, V to a transposed one, both with padded rows
+// so the fragment loads below meet no bank conflict.
+//
+// Products: mma.sync m16n8k16 bf16 with fp32 accumulation. A warp owns 16
+// query rows (its q fragments stay in registers for the whole walk): S =
+// Q K^T for its token slice, then in fp32 s = (acc * scale) * k_scale[t],
+// tokens past each row's horizon selected to NEG_INF before the max and
+// to p = 0 after it, l takes p, then p * v_scale[t] is rounded to bf16 and
+// the S accumulator registers become the A fragments of P V. wgmma would
+// need 64-row tiles, 94% padding for a 4-row verify call; at these shapes
+// the tensor cores are not what bounds the kernel.
+//
+// Small chunks: when the live rows fill fewer 16-row tiles than the block
+// has warps (a 4-row verify call, a prefill tail), the warps of one row
+// tile split each key tile's tokens between them (4 warps x 16 tokens for
+// one row tile, 2 x 32 for two), so every warp has work; their (m, l, acc)
+// states merge in shared memory in warp order at the end, so repeat
+// launches give the same bits. Key tiles past the row tile's last horizon
+// are skipped by its warps. Rows at or past n_valid, and inactive slots,
+// write exact zeros.
+//
+// The body is a template over the page type (KV) and kQuant, so that the
+// fp pages (K3) can become its bf16 instance without touching it.
+// ---------------------------------------------------------------------------
+constexpr int kPreWarps = 4;
+constexpr int kPreThreads = kPreWarps * 32;
+constexpr int kRowTile = 64;   // query rows per block
+constexpr int kKeyTile = 64;   // tokens per staged key tile
+constexpr int kStages = 2;     // key tiles in the ring
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           bool ok) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(gmem), "r"(ok ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
+                                          bool ok) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(gmem), "r"(ok ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// two fp32 values as a bf16 pair, `lo` in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// c += a b: one m16n8k16 bf16 product with fp32 accumulation
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// the 16 / sizeof(KV) page elements of a 16-byte chunk as bf16 pairs
+template <typename KV>
+__device__ __forceinline__ void chunk_to_bf16(
+    const uint4& raw, uint32_t (&out)[8 / sizeof(KV)]) {
+  if constexpr (std::is_same<KV, int8_t>::value) {
+    const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      out[2 * i] = pack_bf16(i8_at(w[i], 0), i8_at(w[i], 1));
+      out[2 * i + 1] = pack_bf16(i8_at(w[i], 2), i8_at(w[i], 3));
+    }
+  } else {
+    static_assert(std::is_same<KV, __nv_bfloat16>::value,
+                  "int8 or bf16 pages");
+    out[0] = raw.x;
+    out[1] = raw.y;
+    out[2] = raw.z;
+    out[3] = raw.w;
+  }
+}
+
+// Shared memory of one block, in bytes: the two raw stages (K rows, V
+// rows, k scales, v scales), then the bf16 K tile, the transposed bf16 V
+// tile and the tile's scales. The final merge reuses it from the start.
+template <typename KV, int NK>
+struct PrefillSmem {
+  static constexpr int DP = 16 * NK;                      // padded head dim
+  static constexpr int RS = DP * (int)sizeof(KV) + 16;    // raw row bytes
+  static constexpr int CPR = DP * (int)sizeof(KV) / 16;   // 16-byte chunks
+  static constexpr int E = 16 / (int)sizeof(KV);          // elements a chunk
+  static constexpr int KS = DP + 8;                       // bf16 K row stride
+  static constexpr int VS = kKeyTile + 8;                 // bf16 V^T row stride
+  static constexpr int STAGE = 2 * kKeyTile * RS + 2 * kKeyTile * 4;
+  static constexpr int KB = kStages * STAGE;
+  static constexpr int VT = KB + kKeyTile * KS * 2;
+  static constexpr int SC = VT + DP * VS * 2;
+  static constexpr int BYTES = SC + 2 * kKeyTile * 4;
+  static constexpr int MERGE = kPreWarps * 16 * (DP + 2) * 4;
+  static_assert(MERGE <= BYTES, "the merge scratch fits in the staging area");
+};
+
+// q, out (S, C, H, Dh) bf16; pages (P, ps, H, Dh); scales (P, ps) with
+// kQuant; block_tables (S, w); chunk_starts, n_valid (S,).
+// Grid (S, H, ceil(C / kRowTile)), kPreThreads threads,
+// PrefillSmem<KV, NK>::BYTES of dynamic shared memory. `vec`: 16-byte
+// staging (Dh == 16 * NK and both pools 16-byte aligned).
+template <typename KV, bool kQuant, int NK>
+__global__ void __launch_bounds__(kPreThreads)
+    paged_prefill_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                            const KV* __restrict__ k_pages,
+                            const KV* __restrict__ v_pages,
+                            const float* __restrict__ k_scales,
+                            const float* __restrict__ v_scales,
+                            const int32_t* __restrict__ block_tables,
+                            const int32_t* __restrict__ chunk_starts,
+                            const int32_t* __restrict__ n_valid,
+                            __nv_bfloat16* __restrict__ out, int C, int H,
+                            int Dh, int ps, int w, int P, float scale,
+                            int vec) {
+  using L = PrefillSmem<KV, NK>;
+  constexpr int DP = L::DP, RS = L::RS, CPR = L::CPR, E = L::E;
+  constexpr int KS = L::KS, VS = L::VS;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* kb = reinterpret_cast<__nv_bfloat16*>(smem + L::KB);
+  __nv_bfloat16* vt = reinterpret_cast<__nv_bfloat16*>(smem + L::VT);
+  float* ksc = reinterpret_cast<float*>(smem + L::SC);
+  float* vsc = ksc + kKeyTile;
+
+  const int slot = blockIdx.x, head = blockIdx.y;
+  const int r0 = blockIdx.z * kRowTile;          // the block's first row
+  const int rows = min(kRowTile, C - r0);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tg = lane & 3;        // mma group, thread in group
+  const int start = chunk_starts[slot];
+  const int cap = w * ps;
+  const int nl = min(max(n_valid[slot] - r0, 0), rows);   // live rows
+  // causal horizon of block row r (exclusive); 0 for a dead row
+  auto row_lim = [&](int r) {
+    return r < nl ? min(start + r0 + r + 1, cap) : 0;
+  };
+  const int n_hi = nl > 0 ? row_lim(nl - 1) : 0;  // the block's horizon
+  auto out_at = [&](int r, int d) {
+    return out + (((int64_t)slot * C + r0 + r) * H + head) * Dh + d;
+  };
+  if (n_hi <= 0) {  // inactive slot, or no live row: exact zeros
+    for (int i = threadIdx.x; i < rows * Dh; i += kPreThreads)
+      *out_at(i / Dh, i % Dh) = __float2bfloat16(0.f);
+    return;
+  }
+  const int32_t* bt_row = block_tables + (int64_t)slot * w;
+  const int64_t tok_stride = (int64_t)H * Dh;
+
+  // row tiles of 16 and the split of each key tile's tokens over the
+  // warps of a row tile
+  const int nrt = (nl + 15) / 16;
+  const int spl = nrt == 1 ? 4 : nrt == 2 ? 2 : 1;
+  const int rt = warp / spl, ph = warp % spl;
+  const bool active = rt < nrt;
+  const int slice = kKeyTile / spl;              // tokens a warp takes
+  const int ra = rt * 16 + g, rb = ra + 8;       // this lane's two rows
+  const int lim_a = row_lim(ra), lim_b = row_lim(rb);
+  const int lim_tile = active ? row_lim(min(rt * 16 + 15, nl - 1)) : 0;
+
+  // q fragments (A of S = Q K^T), rows ra / rb, zero past Dh and dead rows
+  uint32_t qa[NK][4];
+  {
+    auto qv = [&](int r, int d) {
+      return active && r < nl && d < Dh
+                 ? __bfloat162float(
+                       q[(((int64_t)slot * C + r0 + r) * H + head) * Dh + d])
+                 : 0.f;
+    };
+#pragma unroll
+    for (int kk = 0; kk < NK; ++kk) {
+      const int d = 16 * kk + 2 * tg;
+      qa[kk][0] = pack_bf16(qv(ra, d), qv(ra, d + 1));
+      qa[kk][1] = pack_bf16(qv(rb, d), qv(rb, d + 1));
+      qa[kk][2] = pack_bf16(qv(ra, d + 8), qv(ra, d + 9));
+      qa[kk][3] = pack_bf16(qv(rb, d + 8), qv(rb, d + 9));
+    }
+  }
+  float o[DP / 8][4];
+#pragma unroll
+  for (int nd = 0; nd < DP / 8; ++nd)
+    o[nd][0] = o[nd][1] = o[nd][2] = o[nd][3] = 0.f;
+  // running max and sum of the lane's two rows (l: this lane's part)
+  float m_a = kNegInf, m_b = kNegInf, l_a = 0.f, l_b = 0.f;
+
+  auto page_row = [&](int t) {   // token t's row in the pool, id clamped
+    const int64_t page = min(max(bt_row[t / ps], 0), P - 1);
+    return page * ps + t % ps;
+  };
+  // request key tile j into its stage
+  auto issue = [&](int j) {
+    unsigned char* sb = smem + (j % kStages) * L::STAGE;
+    const int t0 = j * kKeyTile;
+    // consecutive threads take the chunks of one row
+    for (int i = threadIdx.x; i < 2 * kKeyTile * CPR; i += kPreThreads) {
+      const int c = i % CPR, tt = (i / CPR) % kKeyTile;
+      const int kv = i / (CPR * kKeyTile);
+      const bool ok = t0 + tt < n_hi;
+      const KV* src = kv ? v_pages : k_pages;
+      if (ok) src += page_row(t0 + tt) * tok_stride + (int64_t)head * Dh;
+      unsigned char* dst = sb + (kv * kKeyTile + tt) * RS + 16 * c;
+      if (vec) {
+        cp_async16(dst, src + c * E, ok);
+      } else {
+        union {
+          uint4 u;
+          KV e[E];
+        } chunk;
+        chunk.u = make_uint4(0, 0, 0, 0);
+#pragma unroll
+        for (int x = 0; x < E; ++x)
+          if (ok && c * E + x < Dh) chunk.e[x] = src[c * E + x];
+        *reinterpret_cast<uint4*>(dst) = chunk.u;
+      }
+    }
+    if constexpr (kQuant) {
+      float* sdst = reinterpret_cast<float*>(sb + 2 * kKeyTile * RS);
+      for (int i = threadIdx.x; i < 2 * kKeyTile; i += kPreThreads) {
+        const int tt = i % kKeyTile;
+        const bool ok = t0 + tt < n_hi;
+        const float* src = i < kKeyTile ? k_scales : v_scales;
+        if (ok) src += page_row(t0 + tt);
+        cp_async4(sdst + i, src, ok);
+      }
+    }
+  };
+  // key tile j's stage to the bf16 tiles (K row-major, V transposed)
+  auto convert = [&](int j) {
+    const unsigned char* sb = smem + (j % kStages) * L::STAGE;
+    // consecutive threads take consecutive tokens: conflict-free stores
+    for (int i = threadIdx.x; i < 2 * kKeyTile * CPR; i += kPreThreads) {
+      const int tt = i % kKeyTile, c = (i / kKeyTile) % CPR;
+      const int kv = i / (kKeyTile * CPR);
+      const uint4 raw = *reinterpret_cast<const uint4*>(
+          sb + (kv * kKeyTile + tt) * RS + 16 * c);
+      uint32_t pr[E / 2];
+      chunk_to_bf16<KV>(raw, pr);
+      if (kv == 0) {
+        uint4* dst = reinterpret_cast<uint4*>(kb + tt * KS + c * E);
+#pragma unroll
+        for (int x = 0; x < E / 8; ++x)
+          dst[x] = make_uint4(pr[4 * x], pr[4 * x + 1], pr[4 * x + 2],
+                              pr[4 * x + 3]);
+      } else {
+        unsigned short* col =
+            reinterpret_cast<unsigned short*>(vt) + (c * E) * VS + tt;
+#pragma unroll
+        for (int x = 0; x < E / 2; ++x) {
+          col[(2 * x) * VS] = static_cast<unsigned short>(pr[x] & 0xffffu);
+          col[(2 * x + 1) * VS] = static_cast<unsigned short>(pr[x] >> 16);
+        }
+      }
+    }
+    if constexpr (kQuant) {
+      const float* ssrc =
+          reinterpret_cast<const float*>(sb + 2 * kKeyTile * RS);
+      for (int i = threadIdx.x; i < 2 * kKeyTile; i += kPreThreads)
+        ksc[i] = ssrc[i];          // ksc and vsc are adjacent
+    }
+  };
+  // this warp's slice of key tile j: one online-softmax update
+  auto compute = [&](int j) {
+    const int s0 = ph * slice;                   // slice's first tile token
+    const int t0 = j * kKeyTile + s0;
+    if (!active || t0 >= lim_tile) return;       // nothing visible here
+    const int ngl = min(slice / 16, (lim_tile - t0 + 15) / 16);
+    float s[4][2][4];
+    float mx_a = kNegInf, mx_b = kNegInf;
+#pragma unroll
+    for (int gi = 0; gi < 4; ++gi) {
+      if (gi >= ngl) continue;
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        float c[4] = {0.f, 0.f, 0.f, 0.f};
+        const __nv_bfloat16* krow =
+            kb + (s0 + 16 * gi + 8 * nt + g) * KS + 2 * tg;
+#pragma unroll
+        for (int kk = 0; kk < NK; ++kk)
+          mma_bf16(c, qa[kk],
+                   *reinterpret_cast<const uint32_t*>(krow + 16 * kk),
+                   *reinterpret_cast<const uint32_t*>(krow + 16 * kk + 8));
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int tt = s0 + 16 * gi + 8 * nt + 2 * tg + (e & 1);
+          float v = c[e] * scale;
+          if constexpr (kQuant) v *= ksc[tt];    // (q.k * scale) * k_scale
+          v = j * kKeyTile + tt < (e < 2 ? lim_a : lim_b) ? v : kNegInf;
+          s[gi][nt][e] = v;
+          if (e < 2) mx_a = fmaxf(mx_a, v);
+          else mx_b = fmaxf(mx_b, v);
+        }
+      }
+    }
+#pragma unroll
+    for (int x = 1; x < 4; x <<= 1) {
+      mx_a = fmaxf(mx_a, __shfl_xor_sync(kFull, mx_a, x));
+      mx_b = fmaxf(mx_b, __shfl_xor_sync(kFull, mx_b, x));
+    }
+    const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
+    const float al_a = expf(m_a - mn_a), al_b = expf(m_b - mn_b);
+    m_a = mn_a;
+    m_b = mn_b;
+    l_a *= al_a;
+    l_b *= al_b;
+#pragma unroll
+    for (int nd = 0; nd < DP / 8; ++nd) {
+      o[nd][0] *= al_a;
+      o[nd][1] *= al_a;
+      o[nd][2] *= al_b;
+      o[nd][3] *= al_b;
+    }
+#pragma unroll
+    for (int gi = 0; gi < 4; ++gi) {
+      if (gi >= ngl) continue;
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int tt = s0 + 16 * gi + 8 * nt + 2 * tg + (e & 1);
+          const bool ok = j * kKeyTile + tt < (e < 2 ? lim_a : lim_b);
+          // masked tokens weigh exactly 0 (even while m is still NEG_INF)
+          float p = ok ? expf(s[gi][nt][e] - (e < 2 ? mn_a : mn_b)) : 0.f;
+          if (e < 2) l_a += p;
+          else l_b += p;
+          if constexpr (kQuant) p *= vsc[tt];    // after l: l never sees it
+          s[gi][nt][e] = p;
+        }
+      // P's A fragment from the S accumulator layout, rounded to bf16
+      const uint32_t pa[4] = {pack_bf16(s[gi][0][0], s[gi][0][1]),
+                              pack_bf16(s[gi][0][2], s[gi][0][3]),
+                              pack_bf16(s[gi][1][0], s[gi][1][1]),
+                              pack_bf16(s[gi][1][2], s[gi][1][3])};
+      const __nv_bfloat16* vcol = vt + g * VS + s0 + 16 * gi + 2 * tg;
+#pragma unroll
+      for (int nd = 0; nd < DP / 8; ++nd)
+        mma_bf16(o[nd], pa,
+                 *reinterpret_cast<const uint32_t*>(vcol + 8 * nd * VS),
+                 *reinterpret_cast<const uint32_t*>(vcol + 8 * nd * VS + 8));
+    }
+  };
+
+  const int n_tiles = (n_hi + kKeyTile - 1) / kKeyTile;
+  for (int j = 0; j < kStages - 1; ++j) {
+    if (j < n_tiles) issue(j);
+    cp_async_commit();
+  }
+  for (int j = 0; j < n_tiles; ++j) {
+    if (j + kStages - 1 < n_tiles) issue(j + kStages - 1);
+    cp_async_commit();
+    cp_async_wait<kStages - 1>();
+    __syncthreads();   // tile j has landed; every warp is done with j - 1
+    convert(j);
+    __syncthreads();
+    compute(j);
+  }
+  __syncthreads();     // the merge below reuses the staging area
+
+  // the quad's four parts of l, summed in one fixed order
+#pragma unroll
+  for (int x = 1; x < 4; x <<= 1) {
+    l_a += __shfl_xor_sync(kFull, l_a, x);
+    l_b += __shfl_xor_sync(kFull, l_b, x);
+  }
+  float* mo = reinterpret_cast<float*>(smem);    // [warp][16][DP]
+  float* mm = mo + kPreWarps * 16 * DP;          // [warp][16]
+  float* ml = mm + kPreWarps * 16;
+  if (active) {
+#pragma unroll
+    for (int nd = 0; nd < DP / 8; ++nd) {
+      const int d = 8 * nd + 2 * tg;
+      mo[(warp * 16 + g) * DP + d] = o[nd][0];
+      mo[(warp * 16 + g) * DP + d + 1] = o[nd][1];
+      mo[(warp * 16 + g + 8) * DP + d] = o[nd][2];
+      mo[(warp * 16 + g + 8) * DP + d + 1] = o[nd][3];
+    }
+    if (tg == 0) {
+      mm[warp * 16 + g] = m_a;
+      mm[warp * 16 + g + 8] = m_b;
+      ml[warp * 16 + g] = l_a;
+      ml[warp * 16 + g + 8] = l_b;
+    }
+  }
+  __syncthreads();
+  // merge each row tile's warps in warp order; a warp whose slices held
+  // no visible token has m = NEG_INF, l = 0 and weighs exactly 0
+  for (int i = threadIdx.x; i < rows * Dh; i += kPreThreads) {
+    const int r = i / Dh, d = i % Dh;
+    float val = 0.f;
+    if (row_lim(r) > 0) {
+      const int w0 = (r / 16) * spl, rr = r % 16;
+      float m = kNegInf;
+      for (int p = 0; p < spl; ++p) m = fmaxf(m, mm[(w0 + p) * 16 + rr]);
+      float l = 0.f, acc = 0.f;
+      for (int p = 0; p < spl; ++p) {
+        const float wt = expf(mm[(w0 + p) * 16 + rr] - m);
+        l += ml[(w0 + p) * 16 + rr] * wt;
+        acc += mo[((w0 + p) * 16 + rr) * DP + d] * wt;
+      }
+      val = acc / l;
+    }
+    *out_at(r, d) = __float2bfloat16(val);
+  }
+}
+
+template <typename KV, bool kQuant, int NK>
+cudaError_t run_prefill_tc(const void* q, const void* kp, const void* vp,
+                           const void* ks, const void* vs, const void* bt,
+                           const void* st, const void* nv, void* out, int S,
+                           int C, int H, int Dh, int ps, int w, int P,
+                           float scale, cudaStream_t stream) {
+  constexpr int bytes = PrefillSmem<KV, NK>::BYTES;
+  auto kernel = paged_prefill_tc_kernel<KV, kQuant, NK>;
+  if (bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return err;
+  }
+  const int vec = Dh == 16 * NK && aligned16(kp) && aligned16(vp);
+  const dim3 grid(S, H, (C + kRowTile - 1) / kRowTile);
+  kernel<<<grid, kPreThreads, bytes, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const KV*>(kp),
+      static_cast<const KV*>(vp), static_cast<const float*>(ks),
+      static_cast<const float*>(vs), static_cast<const int32_t*>(bt),
+      static_cast<const int32_t*>(st), static_cast<const int32_t*>(nv),
+      static_cast<__nv_bfloat16*>(out), C, H, Dh, ps, w, P, scale, vec);
   return cudaGetLastError();
+}
+
+// NK = ceil(Dh / 16) k-steps of 16 (Dh <= 128)
+template <typename KV, bool kQuant>
+cudaError_t prefill_tc(const void* q, const void* kp, const void* vp,
+                       const void* ks, const void* vs, const void* bt,
+                       const void* st, const void* nv, void* out, int S, int C,
+                       int H, int Dh, int ps, int w, int P, float scale,
+                       cudaStream_t stream) {
+#define PTT_PREFILL_TC(NK_)                                                  \
+  return run_prefill_tc<KV, kQuant, NK_>(q, kp, vp, ks, vs, bt, st, nv, out, \
+                                         S, C, H, Dh, ps, w, P, scale, stream)
+  switch ((Dh + 15) / 16) {
+    case 1: PTT_PREFILL_TC(1);
+    case 2: PTT_PREFILL_TC(2);
+    case 3: PTT_PREFILL_TC(3);
+    case 4: PTT_PREFILL_TC(4);
+    case 5: PTT_PREFILL_TC(5);
+    case 6: PTT_PREFILL_TC(6);
+    case 7: PTT_PREFILL_TC(7);
+    case 8: PTT_PREFILL_TC(8);
+  }
+#undef PTT_PREFILL_TC
+  return cudaErrorInvalidValue;
 }
 
 template <typename T, typename KV, bool kQuant, int DPL>
@@ -628,42 +1081,31 @@ cudaError_t run_prefill(const void* q, const void* kp, const void* vp,
   return cudaGetLastError();
 }
 
-// DPL (head-dim elements per lane) is a template parameter so that q and
-// the accumulator stay in registers; Dh <= 256 gives DPL <= 8. Expanded
-// inside decode_t / prefill_t, whose template parameters T, KV and kQuant
-// it forwards.
-#define PTT_DPL_CASES(FN, ...)                              \
-  switch ((Dh + 31) / 32) {                                 \
-    case 1: return FN<T, KV, kQuant, 1>(__VA_ARGS__);       \
-    case 2: return FN<T, KV, kQuant, 2>(__VA_ARGS__);       \
-    case 3: return FN<T, KV, kQuant, 3>(__VA_ARGS__);       \
-    case 4: return FN<T, KV, kQuant, 4>(__VA_ARGS__);       \
-    case 5: return FN<T, KV, kQuant, 5>(__VA_ARGS__);       \
-    case 6: return FN<T, KV, kQuant, 6>(__VA_ARGS__);       \
-    case 7: return FN<T, KV, kQuant, 7>(__VA_ARGS__);       \
-    case 8: return FN<T, KV, kQuant, 8>(__VA_ARGS__);       \
-    default: return cudaErrorInvalidValue;                  \
-  }
-
-template <typename T, typename KV, bool kQuant>
-cudaError_t decode_t(const void* q, const void* kp, const void* vp,
-                     const void* ks, const void* vs, const void* bt,
-                     const void* len, void* out, int S, int H, int Dh, int ps,
-                     int w, int P, float scale, cudaStream_t stream) {
-  PTT_DPL_CASES(run_decode, q, kp, vp, static_cast<const float*>(ks),
-                static_cast<const float*>(vs), bt, len, out, S, H, Dh, ps, w,
-                P, scale, stream)
-}
-
+// The scalar prefill template. DPL (head-dim elements per lane) is a
+// template parameter so that q and the accumulator stay in registers;
+// Dh <= 256 gives DPL <= 8.
 template <typename T, typename KV, bool kQuant>
 cudaError_t prefill_t(const void* q, const void* kp, const void* vp,
                       const void* ks, const void* vs, const void* bt,
                       const void* st, const void* nv, void* out, int S, int C,
                       int H, int Dh, int ps, int w, int P, float scale,
                       cudaStream_t stream) {
-  PTT_DPL_CASES(run_prefill, q, kp, vp, static_cast<const float*>(ks),
-                static_cast<const float*>(vs), bt, st, nv, out, S, C, H, Dh,
-                ps, w, P, scale, stream)
+#define PTT_PREFILL(DPL_)                                                   \
+  return run_prefill<T, KV, kQuant, DPL_>(                                  \
+      q, kp, vp, static_cast<const float*>(ks), static_cast<const float*>(vs), \
+      bt, st, nv, out, S, C, H, Dh, ps, w, P, scale, stream)
+  switch ((Dh + 31) / 32) {
+    case 1: PTT_PREFILL(1);
+    case 2: PTT_PREFILL(2);
+    case 3: PTT_PREFILL(3);
+    case 4: PTT_PREFILL(4);
+    case 5: PTT_PREFILL(5);
+    case 6: PTT_PREFILL(6);
+    case 7: PTT_PREFILL(7);
+    case 8: PTT_PREFILL(8);
+  }
+#undef PTT_PREFILL
+  return cudaErrorInvalidValue;
 }
 
 bool bad_geometry(int H, int Dh, int ps, int w, int P) {
@@ -685,12 +1127,13 @@ extern "C" int ptt_paged_decode(const void* q, const void* k_pages,
   if (S < 0 || bad_geometry(H, Dh, ps, w, P)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return decode_fp<float>(q, k_pages, v_pages, block_tables, lengths, out,
-                            S, H, Dh, ps, w, P, scale, s);
+    return decode_vec<float, float, false>(q, k_pages, v_pages, nullptr,
+                                           nullptr, block_tables, lengths, out,
+                                           S, H, Dh, ps, w, P, scale, s);
   if (dtype == 1)
-    return decode_fp<__nv_bfloat16>(q, k_pages, v_pages, block_tables,
-                                    lengths, out, S, H, Dh, ps, w, P, scale,
-                                    s);
+    return decode_vec<__nv_bfloat16, __nv_bfloat16, false>(
+        q, k_pages, v_pages, nullptr, nullptr, block_tables, lengths, out, S,
+        H, Dh, ps, w, P, scale, s);
   return cudaErrorInvalidValue;
 }
 
@@ -728,16 +1171,19 @@ extern "C" int ptt_paged_decode_int8(const void* q, const void* k_pages,
   if (S < 0 || bad_geometry(H, Dh, ps, w, P)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return decode_t<float, int8_t, true>(q, k_pages, v_pages, k_scales,
-                                         v_scales, block_tables, lengths, out,
-                                         S, H, Dh, ps, w, P, scale, s);
+    return decode_vec<float, int8_t, true>(q, k_pages, v_pages, k_scales,
+                                           v_scales, block_tables, lengths,
+                                           out, S, H, Dh, ps, w, P, scale, s);
   if (dtype == 1)
-    return decode_t<__nv_bfloat16, int8_t, true>(
+    return decode_vec<__nv_bfloat16, int8_t, true>(
         q, k_pages, v_pages, k_scales, v_scales, block_tables, lengths, out, S,
         H, Dh, ps, w, P, scale, s);
   return cudaErrorInvalidValue;
 }
 
+// bf16 q takes the tensor-core kernel up to Dh = 128 and the scalar
+// template past it; fp32 q keeps the scalar template (its 5e-5 contract
+// does not survive bf16 operands).
 extern "C" int ptt_paged_prefill_int8(const void* q, const void* k_pages,
                                       const void* v_pages, const void* k_scales,
                                       const void* v_scales,
@@ -757,6 +1203,10 @@ extern "C" int ptt_paged_prefill_int8(const void* q, const void* k_pages,
                                           v_scales, block_tables, chunk_starts,
                                           n_valid, out, S, C, H, Dh, ps, w, P,
                                           scale, s);
+  if (dtype == 1 && Dh <= 128)
+    return prefill_tc<int8_t, true>(q, k_pages, v_pages, k_scales, v_scales,
+                                    block_tables, chunk_starts, n_valid, out,
+                                    S, C, H, Dh, ps, w, P, scale, s);
   if (dtype == 1)
     return prefill_t<__nv_bfloat16, int8_t, true>(
         q, k_pages, v_pages, k_scales, v_scales, block_tables, chunk_starts,

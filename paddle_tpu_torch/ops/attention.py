@@ -17,7 +17,12 @@ Layout (batch, heads, seq, head_dim) — "BHSD" — as in the reference.
   ``(B, 1, 1, Sk)`` is a constant (zero cotangent); a full ``(.., Sq,
   Sk)`` bias takes the composed recompute path in the backward so that a
   trainable bias gets its gradient.
-- :func:`dot_product_attention` is the entry point the layers call.
+- :func:`dot_product_attention` is the entry point the layers call. Its
+  "auto" never raises on a shape or dtype: a head dim up to 128 outside
+  :data:`HEAD_DIMS` is zero-padded to the kernels' next head dim
+  (:func:`padded_flash_attention`), and a larger head dim or another
+  dtype takes the composed path, as the reference's "auto" does off the
+  TPU.
 
 Scale: scores are scaled in fp32 after the dot everywhere (the
 reference's lax path; its Pallas wrapper scaled ``q`` in ``q.dtype``).
@@ -31,6 +36,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from paddle_tpu_torch.kernels import build, registry
 
@@ -491,21 +497,49 @@ def flash_attention(q, k, v, bias=None, causal=False,
                                  bool(plain))
 
 
+def kernel_head_dim(d: int) -> Optional[int]:
+    """The kernels' head dim that holds ``d``: the least of
+    :data:`HEAD_DIMS` at or above it, or None past the largest."""
+    return next((k for k in HEAD_DIMS if k >= d), None)
+
+
+def padded_flash_attention(q, k, v, bias=None, causal=False,
+                           scale: Optional[float] = None):
+    """:func:`flash_attention` at :func:`kernel_head_dim` of D: q, k and v
+    zero-padded along D, the softmax scale of the true D, the output
+    sliced back to D. Exact both ways: zero columns add nothing to q.k,
+    and the padded columns of the output get a zero cotangent, so dq, dk
+    and dv are zero there."""
+    d = q.shape[-1]
+    pad = (0, kernel_head_dim(d) - d)
+    out = flash_attention(*(F.pad(t, pad) for t in (q, k, v)), bias, causal,
+                          _scale(q, scale))
+    return out[..., :d]
+
+
 def dot_product_attention(q, k, v, *, bias=None, causal=False, scale=None,
                           dropout_rate: float = 0.0,
                           generator: Optional[torch.Generator] = None,
                           impl: str = "auto"):
     """Attention entry point used by the layers.
 
-    impl: "auto" (flash when ``dropout_rate == 0``, else the composed
-    path), "flash" (the kernels on CUDA, their plain versions on the
-    CPU), "plain" (the plain versions on any device; tests and parity
-    legs), "xla" (the composed path, the reference's name for it)."""
+    impl: "auto" (flash when ``dropout_rate == 0`` and the kernels take
+    the dtype (fp32, bf16) and head dim (up to 128: a head dim outside
+    :data:`HEAD_DIMS` is zero-padded to the next one), else the composed
+    path, decided from shape and dtype alone), "flash" (the kernels on
+    CUDA, their plain versions on the CPU; a head dim outside
+    :data:`HEAD_DIMS` raises on CUDA), "plain" (the plain versions on any
+    device; tests and parity legs), "xla" (the composed path, the
+    reference's name for it)."""
     if impl not in ("auto", "flash", "plain", "xla"):
         raise ValueError(f"unknown attention impl {impl!r}")
-    if impl == "xla" or dropout_rate > 0.0:
+    kernel_d = kernel_head_dim(q.shape[-1])
+    if impl == "xla" or dropout_rate > 0.0 or impl == "auto" and (
+            kernel_d is None or q.dtype not in _DTYPE_CODES):
         return scaled_dot_product_attention(
             q, k, v, bias=bias, causal=causal, scale=scale,
             dropout_rate=dropout_rate, generator=generator)
+    if impl == "auto" and kernel_d != q.shape[-1]:
+        return padded_flash_attention(q, k, v, bias, causal, scale)
     return flash_attention(q, k, v, bias, causal, scale,
                            plain=impl == "plain")

@@ -9,10 +9,14 @@ Beyond ``chip_smoke.py`` (which checks the serving shapes), they cover
 the geometry the kernels promise: any head dim up to 256 (including
 ones that are not a multiple of 32), any page size up to 256, both
 element types, the int8 dequant-attend kernels over Dh 32/64/128 and
-pages of 8 and 16 with clamped page ids, the int8 and speculative
-engines at tiny size, the flash kernels over head dims 32/64/128 with
-lengths that are not multiples of their tiles (bf16 runs on the tensor
-cores) and their bitwise reproducibility, and the wrappers' refusals.
+pages of 8 and 16 with clamped page ids, the redesigned int8 decode (K2)
+and tensor-core prefill (K4) at Dh 64/48/33/128, a 4-row verify chunk
+and a 64-row prefill chunk, on an aligned and a misaligned pool, the
+int8 and speculative engines at tiny size, tiny GPT and BERT with head
+dim 16 training through the flash kernels as on the CPU (fault F1), the
+flash kernels over head dims 32/64/128 with lengths that are not
+multiples of their tiles (bf16 runs on the tensor cores) and their
+bitwise reproducibility, and the wrappers' refusals.
 """
 
 import numpy as np
@@ -272,6 +276,135 @@ def test_int8_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="int8"):
         PA.paged_prefill_int8_cuda(t["qp"], kq.bfloat16(), vq, ks, vs,
                                    t["bt"], t["starts"], t["n_valid"])
+
+
+def _int8_cases(t, dtype):
+    """K2 and K4 (at the chunk of ``t``) on one set of int8 inputs."""
+    pages = (t["kq"], t["vq"], t["ks"], t["vs"])
+    return ((PA.DECODE_INT8, (t["qd"].to(dtype), *pages, t["bt"],
+                              t["lengths"])),
+            (PA.PREFILL_INT8, (t["qp"].to(dtype), *pages, t["bt"],
+                               t["starts"], t["n_valid"])))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("c", [4, 64], ids=["verify", "prefill"])
+@pytest.mark.parametrize("dh", [64, 48, 33, 128, 160])
+def test_int8_decode_and_prefill_designs_match_plain_and_repeat_bitwise(
+        dev, dh, c, dtype):
+    """K2 (16-byte int8 vectors, 8 warps, two buffers; one-element loads
+    at dh 33) and K4 (bf16: the tensor-core tile, its 4-row verify split
+    and its 64-row prefill; fp32, and bf16 at dh 160: the scalar
+    template) over ragged lengths and chunks, with NaN scale rows on
+    every unreferenced page: within the registry tolerance of the plain
+    versions, two launches bit-identical, dead rows and slots exact
+    zeros."""
+    s, h, ps, w = 5, 2, 16, 6
+    t = _int8_inputs(dh + c, s, h, dh, ps, w, c, dev)
+    t["lengths"][:4] = torch.tensor([0, 1, ps, w * ps], dtype=torch.int32)
+    t["n_valid"][:3] = torch.tensor([0, c, 1], dtype=torch.int32)
+    t["starts"][1] = w * ps - c                      # the chunk ends the slot
+    atol, rtol = PA.DECODE_INT8.tolerance[dtype]
+    for entry, args in _int8_cases(t, dtype):
+        got = entry.cuda_fn(*args)
+        again = entry.cuda_fn(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again), entry.name
+        assert torch.isfinite(got.float()).all(), entry.name
+        assert torch.all(got[0] == 0), entry.name    # length 0 / inactive
+        ref = entry.plain_fn(args[0].float(), *args[1:])
+        torch.testing.assert_close(got.float(), ref, atol=atol, rtol=rtol)
+    prefill = PA.PREFILL_INT8.cuda_fn(*_int8_cases(t, dtype)[1][1])
+    n_valid = t["n_valid"].cpu().numpy()
+    for sl in range(s):                              # rows past n_valid
+        assert torch.all(prefill[sl, int(n_valid[sl]):] == 0)
+
+
+def _misaligned(pages):
+    """The same pool starting one byte past a 16-byte boundary."""
+    buf = torch.empty(pages.numel() + 16, dtype=pages.dtype,
+                      device=pages.device)
+    base = (-buf.data_ptr()) % 16 + 1
+    view = buf[base:base + pages.numel()].view(pages.shape)
+    view.copy_(pages)
+    assert view.data_ptr() % 16 == 1 and view.is_contiguous()
+    return view
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_int8_kernels_on_a_misaligned_pool_take_one_element_loads(dev,
+                                                                 dtype):
+    """A pool that is not 16-byte aligned takes the one-element path of
+    K2 and K4 in the same kernels; K4's staged tile is the same either
+    way, so bf16 K4 gives the aligned pool's bits."""
+    t = _int8_inputs(3, 4, 2, 64, 16, 5, 64, dev)
+    cases = _int8_cases(t, dtype)
+    t["kq"], t["vq"] = _misaligned(t["kq"]), _misaligned(t["vq"])
+    atol, rtol = PA.DECODE_INT8.tolerance[dtype]
+    for (entry, args), (_, moved) in zip(cases, _int8_cases(t, dtype)):
+        got = entry.cuda_fn(*moved)
+        torch.cuda.synchronize()
+        ref = entry.plain_fn(args[0].float(), *args[1:])
+        torch.testing.assert_close(got.float(), ref, atol=atol, rtol=rtol)
+        if entry is PA.PREFILL_INT8 and dtype == torch.bfloat16:
+            assert torch.equal(got, entry.cuda_fn(*args))
+
+
+@pytest.mark.parametrize("model", ["gpt", "bert"])
+def test_tiny_models_with_head_dim_16_train_on_the_card_like_the_cpu(dev,
+                                                                     model):
+    """Fault F1: head dim 16 under attn_impl="auto" runs the flash kernels
+    on the card (padded to 32) and gives the CPU's loss and gradients;
+    the explicit kernel call at head dim 16 still refuses."""
+    from paddle_tpu_torch.models.bert import BertConfig, BertForPretraining
+    from paddle_tpu_torch.models.gpt import GPT, GPTConfig
+    rng = np.random.default_rng(0)
+    b, sl = 3, 24
+    if model == "gpt":
+        cfg = GPTConfig.tiny()
+        make = lambda d: GPT(cfg, device=d, seed=2)          # noqa: E731
+        feeds = dict(ids=rng.integers(0, cfg.vocab_size, (b, sl)))
+    else:
+        cfg = BertConfig.tiny(dropout=0.0, attn_dropout=0.0)
+        make = lambda d: BertForPretraining(cfg, device=d, seed=2)  # noqa
+        feeds = dict(
+            input_ids=rng.integers(0, cfg.vocab_size, (b, sl)),
+            token_type_ids=np.zeros((b, sl), np.int64),
+            attention_mask=np.arange(sl)[None, :] < np.array([sl, 7, 16])[
+                :, None],
+            mlm_labels=rng.integers(0, cfg.vocab_size, (b, sl)),
+            mlm_mask=(rng.random((b, sl)) < 0.3).astype(np.float32),
+            nsp_labels=rng.integers(0, 2, b))
+    assert cfg.hidden_size // cfg.num_heads == 16
+    results = []
+    for d in ("cpu", dev):
+        net = make(d)
+        if results:
+            net.load_state_dict(cpu_state)
+        else:
+            cpu_state = net.state_dict()
+        before = FA.FWD.launches, FA.BWD_DKV.launches, FA.BWD_DQ.launches
+        loss = net.loss(**{k: torch.from_numpy(np.asarray(v)).to(d)
+                           for k, v in feeds.items()})[0]
+        loss.backward()
+        after = FA.FWD.launches, FA.BWD_DKV.launches, FA.BWD_DQ.launches
+        if d == dev:
+            torch.cuda.synchronize()
+            assert all(a > b_ for a, b_ in zip(after, before))
+        results.append((loss.detach().cpu(),
+                        {n: p.grad.cpu() for n, p in net.named_parameters()
+                         if p.grad is not None}))
+    (l_cpu, g_cpu), (l_dev, g_dev) = results
+    torch.testing.assert_close(l_dev, l_cpu, atol=1e-5, rtol=1e-5)
+    assert g_dev.keys() == g_cpu.keys()
+    for n in g_cpu:
+        torch.testing.assert_close(g_dev[n], g_cpu[n], atol=1e-4, rtol=1e-4,
+                                   msg=lambda m, n=n: f"{n}: {m}")
+    q16 = torch.zeros((1, 2, 8, 16), device=dev)
+    with pytest.raises(ValueError, match="head dim"):
+        FA.flash_fwd_cuda(q16, q16, q16)
 
 
 @pytest.mark.parametrize("mode", ["int8", "speculative", "int8_speculative"])
