@@ -12,10 +12,14 @@ checkout, so that each builds and imports its own ``paddle_tpu_torch``:
   serving (``serve``), and 4a's and 4c's decode profiles (the
   ``decode_profile`` of ``serve``'s stats): the device's busy share, its
   device time and the paged decode kernel's (K1, K2) share of it over 4
-  decode blocks;
+  decode blocks; and 4a's prefill window (``prefill_window``): 16
+  requests with 4a's prompt lengths and one new token each, so that the
+  window holds only batched prefill calls, run 4 times unprofiled and 4
+  times under the profiler: prompt tokens/s, the device's busy share,
+  its device time and the fp prefill kernel's (K3) part of it;
 - ``kernels``: the bf16 rows of K1 at the serving shape and at the long,
-  few-slot shape, of K2 and K4 at the serving shape, of K4 at the
-  speculative verify chunk, and of K6b at the training shape, from
+  few-slot shape, of K2, K3 and K4 at the serving shape, of K3 and K4 at
+  the speculative verify chunk, and of K6b at the training shape, from
   phase 3 (``check_kernel``, ``check_long_decode``, ``check_flash``):
   each call's ``ms``, ``device_ms`` and ``host_ms``.
 
@@ -52,12 +56,45 @@ dev = torch.device("cuda", 0)
 phases, out = sys.argv[1].split(","), {{}}
 
 
-# K4 at the verify chunk (4 rows), made from the serving-shape int8
+# K3 and K4 at the verify chunk (4 rows), made from the serving-shape
 # prefill inputs that both trees' chip_smoke.py build alike
-def verify_inputs(seed, device):
+def verify_inputs(seed, device, quantized):
     q, *pages, starts, n_valid = cs.prefill_inputs(seed, device,
-                                                   quantized=True)
+                                                   quantized=quantized)
     return (q[:, :4].contiguous(), *pages, starts, n_valid.clamp(max=4))
+
+
+def prefill_window(device, reps=4):
+    import itertools
+    import numpy as np
+    from paddle_tpu_torch.inference import make_serving_engine
+    from paddle_tpu_torch.models.gpt import GPT
+    cfg = cs.model_config()
+    model = GPT(cfg, device=device, dtype=torch.bfloat16, seed=0)
+    eng = make_serving_engine(model, device=device, **cs.ENGINE_KW)
+    eng.warmup()
+    lens = [len(p) for p in cs.make_prompts(16, cfg.vocab_size, seed=7)]
+    calls = itertools.count()
+
+    def batch():        # new tokens every call: no prefix is shared
+        rng = np.random.default_rng(1000 + next(calls))
+        for n in lens:
+            eng.submit(rng.integers(0, cfg.vocab_size, n).astype(np.int32), 1)
+        while not eng.scheduler.idle():
+            eng.step()
+
+    prof = cs.profile_window(batch, reps, keep=("paged_prefill",))
+    k3_ms = sum(k["ms"] for k in prof["kept_kernels"])
+    wall_ms = prof["unprofiled_wall_s"] * 1e3
+    del eng, model
+    torch.cuda.empty_cache()
+    return {{"prefill_window_tokens_per_s": sum(lens) * reps / wall_ms * 1e3,
+            "prefill_window_busy_share": prof["device_busy_share"],
+            "prefill_window_device_ms": prof["device_busy_s"] * 1e3,
+            "prefill_window_k3_ms": k3_ms,
+            "prefill_window_k3_share_of_device": k3_ms / (
+                prof["device_busy_s"] * 1e3),
+            "prefill_window_k3_share_of_wall": k3_ms / wall_ms}}
 
 
 if "kernels" in phases:
@@ -70,9 +107,13 @@ if "kernels" in phases:
     for key, entry, make in (
             ("K2", PA.DECODE_INT8,
              functools.partial(cs.decode_inputs, quantized=True)),
+            ("K3", PA.PREFILL, cs.prefill_inputs),
+            ("K3_verify", PA.PREFILL,
+             functools.partial(verify_inputs, quantized=False)),
             ("K4", PA.PREFILL_INT8,
              functools.partial(cs.prefill_inputs, quantized=True)),
-            ("K4_verify", PA.PREFILL_INT8, verify_inputs)):
+            ("K4_verify", PA.PREFILL_INT8,
+             functools.partial(verify_inputs, quantized=True))):
         rows = cs.check_kernel(entry, make, dev, flush)
         out[key] = {{k: rows[torch.bfloat16][k] for k in {KERNEL_KEYS!r}}}
     rows = cs.check_flash(cs.FLASH_CASES[0], dev, flush)[FA.BWD_DQ.name]
@@ -87,6 +128,8 @@ if "serve" in phases:
              {{"cache_dtype": torch.int8, "self_draft": True, "spec_k": 4}})):
         stats, _ = cs.serve(dev, kernels, key, profile=key != "4d", **kw)
         out[key] = {{k: stats[k] for k in {SERVE_KEYS!r}}}
+        if key == "4a":
+            out[key].update(prefill_window(dev))
         prof = stats.get("decode_profile")
         if prof is None:
             continue

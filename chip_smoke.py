@@ -8,12 +8,13 @@ Phases, in order; any failure exits non-zero:
 1. device  — require CUDA; print the card's name and power limit.
 2. build   — compile every ``paddle_tpu_torch/csrc/*.cu`` with nvcc
    (sm_90a), one process per source, all started together; print the
-   ptxas line (registers, spills) of each tensor-core instance, the 18
-   bf16 instances of K5, K6a and K6b and the 8 of K4 (bf16 q over int8
-   pages, Dh up to 128) and, with ``cuobjdump``, its count of HGMMA
-   (wgmma, K5/K6) or HMMA (mma.sync, K4) instructions (each must be
-   found with a spill count and, where counted, a count > 0; the Dh = 64
-   instances must not spill).
+   ptxas line (registers, spills) of each of the 34 tensor-core
+   instances, the 18 bf16 instances of K5, K6a and K6b and the 16 paged
+   prefill instances (bf16 q over bf16 pages, K3, and over int8 pages,
+   K4, each for Dh up to 128) and, with ``cuobjdump``, its count of
+   HGMMA (wgmma, K5/K6) or HMMA (mma.sync, K3/K4) instructions (each
+   must be found with a spill count and, where counted, a count > 0; the
+   Dh = 64 instances must not spill).
 3. kernels — every registered kernel against its plain PyTorch version
    (and the dense reference) on the card, fp32 and bf16, timed with CUDA
    events (median, L2 flushed before each launch; ``ms`` as the host
@@ -27,8 +28,10 @@ Phases, in order; any failure exits non-zero:
        every page no block table references; their int8 twins on the same
        pages quantized by ``quantize_kv``, where the unreferenced pages
        hold bytes 127 under NaN scale rows and each dead tail bytes 127
-       under a finite scale of 1e4; the int8 prefill also at the
-       speculative verify shape (chunk = spec_k = 4); decode also at a
+       under a finite scale of 1e4; both prefills (K3 over bf16 or fp32
+       pages, K4 over int8 pages) also at the speculative verify shape
+       (chunk = spec_k = 4: the ``verify`` case of their entries in the
+       ``kernels`` line, with its own bound); decode also at a
        long, few-slot shape (2 slots of 4096 tokens, lengths at the edges
        of the partition of a slot's pages over the 8 warps of its block).
        Every kernel launched twice on the same inputs must give the same
@@ -554,11 +557,14 @@ TC_EXPECTED = tuple(f"{k}<{d}, {c}>"
                     for k in ("flash_bwd_dkv_tc_kernel",
                               "flash_bwd_dq_tc_kernel", "flash_fwd_tc_kernel")
                     for d in (32, 64, 128) for c in ("false", "true"))
-#: the tensor-core instances of K4 (csrc/paged_attention.cu): int8 pages,
-#: kQuant, NK = ceil(Dh / 16) k-steps of 16 (Dh = 64 is NK = 4)
-PAGED_TC_KERNELS = re.compile(r"(paged_prefill_tc_kernel)IaLb1ELi(\d+)EE")
-PAGED_TC_EXPECTED = tuple(f"paged_prefill_tc_kernel<int8, {nk}>"
-                          for nk in range(1, 9))
+#: the tensor-core instances of the paged prefill
+#: (csrc/paged_attention.cu): K3 over bf16 pages and K4 over int8 pages
+#: (kQuant), NK = ceil(Dh / 16) k-steps of 16 (Dh = 64 is NK = 4), and
+#: the warps per block (8 for K3, 4 for K4)
+PAGED_TC_KERNELS = re.compile(r"(paged_prefill_tc_kernel)I(a|\w*?bfloat16)"
+                              r"Lb[01]ELi(\d+)ELi\d+EE")
+PAGED_TC_EXPECTED = tuple(f"paged_prefill_tc_kernel<{kv}, {nk}>"
+                          for kv in ("bf16", "int8") for nk in range(1, 9))
 
 
 def _tc_name(m):
@@ -567,7 +573,8 @@ def _tc_name(m):
 
 
 def _paged_tc_name(m):
-    return f"{m.group(1)}<int8, {m.group(2)}>"
+    kv = "int8" if m.group(2) == "a" else "bf16"
+    return f"{m.group(1)}<{kv}, {m.group(3)}>"
 
 
 #: per library: its instances' pattern and name, the names expected, the
@@ -582,7 +589,7 @@ TC_LIBRARIES = (
 
 def tensor_core_report(build):
     """The ptxas line (registers, spills) of each tensor-core instance
-    (``TC_LIBRARIES``: bf16 K5, K6a, K6b and K4) from the build logs,
+    (``TC_LIBRARIES``: bf16 K5, K6a, K6b, K3 and K4) from the build logs,
     and, where ``cuobjdump`` is present, the count of its tensor-core
     instructions (HGMMA for wgmma, HMMA for mma.sync) in its SASS. Fails
     unless every expected instance has a ptxas line with a spill count,
@@ -1191,9 +1198,11 @@ def main() -> int:
     flush = L2Flush(device)
     rows = {e.name: check_kernel(e, makers[e.name], device, flush)
             for e in paged}
-    log(f"  {PA.PREFILL_INT8.name} at the verify chunk (C = {SPEC_K}):")
-    verify_rows = check_kernel(PA.PREFILL_INT8, functools.partial(
-        prefill_inputs, quantized=True, c=SPEC_K), device, flush)
+    verify_rows = {}
+    for e in (PA.PREFILL, PA.PREFILL_INT8):
+        log(f"  {e.name} at the verify chunk (C = {SPEC_K}):")
+        verify_rows[e.name] = check_kernel(
+            e, functools.partial(makers[e.name], c=SPEC_K), device, flush)
     long_rows = check_long_decode(device, flush)
     flash_rows = {e.name: {} for e in flash}
     for case in FLASH_CASES:
@@ -1224,7 +1233,8 @@ def main() -> int:
     train_fp32_parity(device)
 
     lines = [kernel_line(e, rows[e.name], stats["launches"][e.name],
-                         {"long": long_rows} if e is PA.DECODE else None)
+                         {"long": long_rows} if e is PA.DECODE
+                         else {"verify": verify_rows[e.name]})
              for e in fp_paged]
     # K2/K4: launches of the int8 serving run (4c), with the speculative
     # run's (4d) beside them; K4's verify calls (chunk spec_k) of 4d and
@@ -1232,7 +1242,7 @@ def main() -> int:
     verify_calls = spec_stats["int8_prefill_calls_by_chunk"].get(str(SPEC_K),
                                                                  0)
     lines += [dict(kernel_line(e, rows[e.name], q8_stats["launches"][e.name],
-                               {"verify": verify_rows}
+                               {"verify": verify_rows[e.name]}
                                if e is PA.PREFILL_INT8 else None),
                    launches_speculative=spec_stats["launches"][e.name],
                    **({"launches_verify": verify_calls}

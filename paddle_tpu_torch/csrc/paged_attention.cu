@@ -33,22 +33,25 @@
 //     built for HBM bandwidth (16-byte loads, a unit of page rows
 //     requested before any is used and the next unit's behind this one's
 //     math, eight warps per (slot, head)); see its section.
-//   - prefill over int8 pages with bf16 q and Dh <= 128 (K4, also the
-//     speculative verify step): paged_prefill_tc_kernel, which stages each
-//     live page once for a tile of up to 64 query rows and runs QK^T and
-//     PV on the tensor cores; see its section.
-//   - prefill over fp pages (K3), and K4 with fp32 q or Dh > 128: the
-//     simple scalar template, one warp per query row (fold_pages): each lane
-//     keeps ceil(Dh/32) elements of q and of the accumulator in registers,
-//     each token's score is a warp reduction, and a page's scores (in
-//     chunks of 32 tokens) update the running (m, l, acc) once, as the TPU
-//     kernel's page fold does. One block per (slot, head, tile of 4 query
-//     rows); row r < n_valid[s] is a decode with horizon
-//     chunk_starts[s] + r + 1; rows at or past n_valid write zeros. The
-//     page loop stops at ceil(lengths[s] / ps): dead pages are never read
-//     (the ragged skip). What it leaves on the table: each warp re-reads
-//     the same K/V rows from L2, loads are 1-4 bytes per lane, and a score
-//     costs a 5-step shuffle reduction per token.
+//   - prefill with bf16 q and Dh <= 128, over bf16 pages (K3) or int8
+//     pages (K4, also the speculative verify step): paged_prefill_tc_kernel,
+//     which stages each live key tile once for a tile of up to 64 query
+//     rows and runs QK^T and PV on the tensor cores; its bf16-page
+//     instance feeds the mma straight from the staged tile, its int8
+//     instance converts the tile to bf16 first; see its section.
+//   - prefill with fp32 q (K3 and K4; their fp32 contracts of 2e-5 and
+//     5e-5 do not survive bf16 operands), with Dh > 128, or with a block
+//     table wider than kMaxIdCols: the simple scalar template, one warp per
+//     query row (fold_pages): each lane keeps ceil(Dh/32) elements of q and
+//     of the accumulator in registers, each token's score is a warp
+//     reduction, and a page's scores (in chunks of 32 tokens) update the
+//     running (m, l, acc) once, as the TPU kernel's page fold does. One
+//     block per (slot, head, tile of 4 query rows); row r < n_valid[s] is a
+//     decode with horizon chunk_starts[s] + r + 1; rows at or past n_valid
+//     write zeros. The page loop stops at ceil(lengths[s] / ps): dead pages
+//     are never read (the ragged skip). Each warp re-reads the same K/V
+//     rows from L2 with 1-4 byte loads and pays a 5-step shuffle per
+//     token's score: it is the contract-exact path, not a fast one.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -583,54 +586,86 @@ cudaError_t decode_vec(const void* q, const void* kp, const void* vp,
 }
 
 // ---------------------------------------------------------------------------
-// K4 (bf16 q over int8 pages, Dh <= 128): ragged paged prefill and
-// speculative verify on the tensor cores. Replaces
-// _paged_prefill_int8_pallas (paddle_tpu/serving/decode_attention.py:533,
-// through _paged_prefill_pallas :443, body _paged_prefill_kernel :396).
+// K3 (bf16 pages) and K4 (int8 pages), bf16 q and Dh <= 128: ragged paged
+// prefill, and the speculative verify step, on the tensor cores. Replaces
+// _paged_prefill_pallas (K3) and _paged_prefill_int8_pallas (K4)
+// (paddle_tpu/serving/decode_attention.py:443 and :533, body
+// _paged_prefill_kernel :396).
 //
 // What bounds it: bytes still (a chunk of C rows does 4 * C flops per K/V
 // element, under the card's ~295 flops a byte at C <= 64), so the design
 // is about reading every live page once per block, not once per query
 // row as the scalar template does, and about keeping that read in flight.
+// At the serving shapes the block's serial walk over its key tiles is
+// what the kernel waits on, so each tile's work is kept short.
 //
-// One block of kPreWarps warps per (slot, head, tile of up to kRowTile
-// query rows). The block walks the slot's tokens up to its last live
-// row's causal horizon in key tiles of kKeyTile tokens. Each key tile's
-// int8 K and V rows and their scale rows come into shared memory once for
-// all of the block's rows, by 16-byte cp.async (zero-filled past the
-// horizon; element by element where a row is not a 16-byte multiple or a
-// pool is not 16-byte aligned), into a ring of two stages: the next tile
-// is in flight while this one is converted and used. The conversion (int8
-// to bf16, exact since |x| <= 127) runs once per block, not per warp: K
-// to a row-major bf16 tile, V to a transposed one, both with padded rows
-// so the fragment loads below meet no bank conflict.
+// One block of NW warps per (slot, head, tile of up to kRowTile query
+// rows). The block walks the slot's tokens up to its last live row's
+// causal horizon in key tiles of kKeyTile tokens. The block's page ids
+// (clamped into [0, P)) are read into shared memory once, at the start,
+// so no tile's copies wait behind a load of the block table. Each key
+// tile's K and V rows (and, for int8, their scale rows) come into shared
+// memory once for all of the block's rows, by 16-byte cp.async
+// (zero-filled past the horizon; element by element where a row is not a
+// 16-byte multiple or a pool is not 16-byte aligned), into a ring of
+// kStages stages: the next tile is in flight while this one is used, and
+// one barrier per tile both publishes the landed tile and frees the stage
+// the next copy overwrites. Raw rows are DP * sizeof(KV) + 16 bytes apart
+// (DP = 16 * NK, the head dim padded to the mma depth).
 //
 // Products: mma.sync m16n8k16 bf16 with fp32 accumulation. A warp owns 16
 // query rows (its q fragments stay in registers for the whole walk): S =
-// Q K^T for its token slice, then in fp32 s = (acc * scale) * k_scale[t],
-// tokens past each row's horizon selected to NEG_INF before the max and
-// to p = 0 after it, l takes p, then p * v_scale[t] is rounded to bf16 and
-// the S accumulator registers become the A fragments of P V. wgmma would
-// need 64-row tiles, 94% padding for a 4-row verify call; at these shapes
-// the tensor cores are not what bounds the kernel.
+// Q K^T for its token slice, then in fp32 s = acc * scale (times
+// k_scale[t] for int8), tokens past each row's horizon selected to
+// NEG_INF before the max and to p = 0 after it, l takes p, then p (times
+// v_scale[t] for int8) is rounded to bf16 and the S accumulator registers
+// become the A fragments of P V. wgmma would need 64-row tiles, 94%
+// padding for a 4-row verify call; at these shapes the tensor cores are
+// not what bounds the kernel.
+//
+// The B fragments, by page type:
+//   - bf16 pages (K3): the staged rows already are the mma's operand type,
+//     so the warps read fragments straight out of the ring: ldmatrix.x4 on
+//     the row-major K tile (token rows, head-dim columns: each 8x8 matrix
+//     gives a lane K[token g][d 2tg, 2tg+1], the B fragment of Q K^T) and
+//     ldmatrix.x4.trans on the row-major V tile (the transpose gives a lane
+//     V[tokens 2tg, 2tg+1][d g], the B fragment of P V). No conversion pass
+//     and no second barrier per tile; shared memory is the ring and the
+//     page ids alone (37 KB at Dh = 64). Bank conflicts: each ldmatrix
+//     phase reads one 8x8 matrix, 8 rows of 16 bytes at a stride of RS =
+//     32 * NK + 16 bytes, an odd number (2 * NK + 1) of 16-byte units, so
+//     the 8 rows fall in 8 distinct 16-byte bank groups of the 128-byte
+//     bank cycle: conflict-free.
+//   - int8 pages (K4): int8 has no ldmatrix transpose and mma wants token
+//     pairs of V in one register, so after each tile lands the block
+//     converts it once (int8 to bf16, exact since |x| <= 127) to a
+//     row-major bf16 K tile and a transposed bf16 V tile, rows padded by 16
+//     bytes, and the warps read fragments from those as 32-bit words.
 //
 // Small chunks: when the live rows fill fewer 16-row tiles than the block
 // has warps (a 4-row verify call, a prefill tail), the warps of one row
-// tile split each key tile's tokens between them (4 warps x 16 tokens for
-// one row tile, 2 x 32 for two), so every warp has work; their (m, l, acc)
-// states merge in shared memory in warp order at the end, so repeat
-// launches give the same bits. Key tiles past the row tile's last horizon
-// are skipped by its warps. Rows at or past n_valid, and inactive slots,
-// write exact zeros.
+// tile split each key tile's tokens between them (up to 4 warps x 16
+// tokens), so every warp has work; their (m, l, acc) states merge in
+// shared memory in warp order at the end, so repeat launches give the
+// same bits. Key tiles past the row tile's last horizon are skipped by
+// its warps. Rows at or past n_valid, and inactive slots, write exact
+// zeros.
 //
-// The body is a template over the page type (KV) and kQuant, so that the
-// fp pages (K3) can become its bf16 instance without touching it.
+// Warps per block: K4 keeps 4 (its instance gives the same bits as before
+// the bf16-page instance existed); K3 takes 8, measured against 4 at the
+// serving shape (S=16, H=16, Dh=64, page 16, width 32): 0.0435 against
+// 0.0569 ms at chunk 64, where pairs of warps halve each key tile's work,
+// and 0.0262 against 0.0324 ms at chunk 4, where the same 4 warps compute
+// but 8 share the tile's copies (NVIDIA H100 80GB HBM3, 700 W; chip_ab.py
+// --phases kernels, two turns each).
 // ---------------------------------------------------------------------------
-constexpr int kPreWarps = 4;
-constexpr int kPreThreads = kPreWarps * 32;
+constexpr int kInt8PreWarps = 4;
+constexpr int kFpPreWarps = 8;
 constexpr int kRowTile = 64;   // query rows per block
 constexpr int kKeyTile = 64;   // tokens per staged key tile
 constexpr int kStages = 2;     // key tiles in the ring
+// the widest block table whose page ids a block keeps in shared memory
+constexpr int kMaxIdCols = 8192;
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
                                            bool ok) {
@@ -655,6 +690,25 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
+// four 8x8 bf16 matrices from shared memory: lane l gives the address of
+// row l % 8 of matrix l / 8, register i gets this lane's part of matrix i
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], unsigned addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// the same, each matrix transposed on the way
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              unsigned addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
 // two fp32 values as a bf16 pair, `lo` in the low half
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -671,54 +725,52 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// the 16 / sizeof(KV) page elements of a 16-byte chunk as bf16 pairs
-template <typename KV>
-__device__ __forceinline__ void chunk_to_bf16(
-    const uint4& raw, uint32_t (&out)[8 / sizeof(KV)]) {
-  if constexpr (std::is_same<KV, int8_t>::value) {
-    const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+// the 16 int8 page elements of a 16-byte chunk as bf16 pairs
+__device__ __forceinline__ void int8_chunk_to_bf16(const uint4& raw,
+                                                   uint32_t (&out)[8]) {
+  const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      out[2 * i] = pack_bf16(i8_at(w[i], 0), i8_at(w[i], 1));
-      out[2 * i + 1] = pack_bf16(i8_at(w[i], 2), i8_at(w[i], 3));
-    }
-  } else {
-    static_assert(std::is_same<KV, __nv_bfloat16>::value,
-                  "int8 or bf16 pages");
-    out[0] = raw.x;
-    out[1] = raw.y;
-    out[2] = raw.z;
-    out[3] = raw.w;
+  for (int i = 0; i < 4; ++i) {
+    out[2 * i] = pack_bf16(i8_at(w[i], 0), i8_at(w[i], 1));
+    out[2 * i + 1] = pack_bf16(i8_at(w[i], 2), i8_at(w[i], 3));
   }
 }
 
-// Shared memory of one block, in bytes: the two raw stages (K rows, V
-// rows, k scales, v scales), then the bf16 K tile, the transposed bf16 V
-// tile and the tile's scales. The final merge reuses it from the start.
-template <typename KV, int NK>
+// Shared memory of one block, in bytes: the raw stages (K rows, V rows
+// and, for int8, k scales and v scales); for int8 then the bf16 K tile,
+// the transposed bf16 V tile and the tile's scales; then (from BYTES on)
+// the block's page ids, 4 bytes a block-table column. The final merge
+// reuses the area before BYTES from the start.
+template <typename KV, int NK, int NW>
 struct PrefillSmem {
+  static constexpr bool kQuant = std::is_same<KV, int8_t>::value;
   static constexpr int DP = 16 * NK;                      // padded head dim
   static constexpr int RS = DP * (int)sizeof(KV) + 16;    // raw row bytes
   static constexpr int CPR = DP * (int)sizeof(KV) / 16;   // 16-byte chunks
   static constexpr int E = 16 / (int)sizeof(KV);          // elements a chunk
   static constexpr int KS = DP + 8;                       // bf16 K row stride
   static constexpr int VS = kKeyTile + 8;                 // bf16 V^T row stride
-  static constexpr int STAGE = 2 * kKeyTile * RS + 2 * kKeyTile * 4;
+  static constexpr int SCALES = kQuant ? 2 * kKeyTile * 4 : 0;
+  static constexpr int STAGE = 2 * kKeyTile * RS + SCALES;
   static constexpr int KB = kStages * STAGE;
-  static constexpr int VT = KB + kKeyTile * KS * 2;
-  static constexpr int SC = VT + DP * VS * 2;
-  static constexpr int BYTES = SC + 2 * kKeyTile * 4;
-  static constexpr int MERGE = kPreWarps * 16 * (DP + 2) * 4;
+  static constexpr int VT = KB + (kQuant ? kKeyTile * KS * 2 : 0);
+  static constexpr int SC = VT + (kQuant ? DP * VS * 2 : 0);
+  static constexpr int BYTES = SC + SCALES;
+  static constexpr int MERGE = NW * 16 * (DP + 2) * 4;
   static_assert(MERGE <= BYTES, "the merge scratch fits in the staging area");
+  static_assert(RS % 16 == 0 && (kQuant || (RS / 16) % 2 == 1),
+                "raw rows 16-byte aligned and, where ldmatrix reads them, an "
+                "odd number of 16-byte units apart (conflict-free)");
 };
 
-// q, out (S, C, H, Dh) bf16; pages (P, ps, H, Dh); scales (P, ps) with
-// kQuant; block_tables (S, w); chunk_starts, n_valid (S,).
-// Grid (S, H, ceil(C / kRowTile)), kPreThreads threads,
-// PrefillSmem<KV, NK>::BYTES of dynamic shared memory. `vec`: 16-byte
-// staging (Dh == 16 * NK and both pools 16-byte aligned).
-template <typename KV, bool kQuant, int NK>
-__global__ void __launch_bounds__(kPreThreads)
+// q, out (S, C, H, Dh) bf16; pages (P, ps, H, Dh) of KV (bf16, or int8
+// with kQuant); scales (P, ps) with kQuant; block_tables (S, w);
+// chunk_starts, n_valid (S,). Grid (S, H, ceil(C / kRowTile)), NW * 32
+// threads, PrefillSmem<KV, NK, NW>::BYTES + 4 * w bytes (rounded up to
+// 16) of dynamic shared memory, w <= kMaxIdCols. `vec`: 16-byte staging
+// (Dh == 16 * NK and both pools 16-byte aligned).
+template <typename KV, bool kQuant, int NK, int NW>
+__global__ void __launch_bounds__(NW * 32)
     paged_prefill_tc_kernel(const __nv_bfloat16* __restrict__ q,
                             const KV* __restrict__ k_pages,
                             const KV* __restrict__ v_pages,
@@ -730,7 +782,9 @@ __global__ void __launch_bounds__(kPreThreads)
                             __nv_bfloat16* __restrict__ out, int C, int H,
                             int Dh, int ps, int w, int P, float scale,
                             int vec) {
-  using L = PrefillSmem<KV, NK>;
+  using L = PrefillSmem<KV, NK, NW>;
+  static_assert(L::kQuant == kQuant, "int8 pages are the quantized ones");
+  constexpr int NT = NW * 32;
   constexpr int DP = L::DP, RS = L::RS, CPR = L::CPR, E = L::E;
   constexpr int KS = L::KS, VS = L::VS;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -738,6 +792,7 @@ __global__ void __launch_bounds__(kPreThreads)
   __nv_bfloat16* vt = reinterpret_cast<__nv_bfloat16*>(smem + L::VT);
   float* ksc = reinterpret_cast<float*>(smem + L::SC);
   float* vsc = ksc + kKeyTile;
+  int32_t* ids = reinterpret_cast<int32_t*>(smem + L::BYTES);
 
   const int slot = blockIdx.x, head = blockIdx.y;
   const int r0 = blockIdx.z * kRowTile;          // the block's first row
@@ -756,17 +811,23 @@ __global__ void __launch_bounds__(kPreThreads)
     return out + (((int64_t)slot * C + r0 + r) * H + head) * Dh + d;
   };
   if (n_hi <= 0) {  // inactive slot, or no live row: exact zeros
-    for (int i = threadIdx.x; i < rows * Dh; i += kPreThreads)
+    for (int i = threadIdx.x; i < rows * Dh; i += NT)
       *out_at(i / Dh, i % Dh) = __float2bfloat16(0.f);
     return;
   }
-  const int32_t* bt_row = block_tables + (int64_t)slot * w;
+  {
+    const int32_t* bt_row = block_tables + (int64_t)slot * w;
+    for (int c = threadIdx.x; c < (n_hi + ps - 1) / ps; c += NT)
+      ids[c] = min(max(bt_row[c], 0), P - 1);
+  }
   const int64_t tok_stride = (int64_t)H * Dh;
 
   // row tiles of 16 and the split of each key tile's tokens over the
-  // warps of a row tile
+  // warps of a row tile: as many warps as the block has per row tile,
+  // up to 4 (16 tokens each, the depth of one P V step)
   const int nrt = (nl + 15) / 16;
-  const int spl = nrt == 1 ? 4 : nrt == 2 ? 2 : 1;
+  int spl = 1;
+  while (spl < 4 && 2 * spl * nrt <= NW) spl *= 2;
   const int rt = warp / spl, ph = warp % spl;
   const bool active = rt < nrt;
   const int slice = kKeyTile / spl;              // tokens a warp takes
@@ -798,17 +859,17 @@ __global__ void __launch_bounds__(kPreThreads)
     o[nd][0] = o[nd][1] = o[nd][2] = o[nd][3] = 0.f;
   // running max and sum of the lane's two rows (l: this lane's part)
   float m_a = kNegInf, m_b = kNegInf, l_a = 0.f, l_b = 0.f;
+  __syncthreads();   // the page ids are in
 
-  auto page_row = [&](int t) {   // token t's row in the pool, id clamped
-    const int64_t page = min(max(bt_row[t / ps], 0), P - 1);
-    return page * ps + t % ps;
+  auto page_row = [&](int t) {   // token t's row in the pool
+    return (int64_t)ids[t / ps] * ps + t % ps;
   };
   // request key tile j into its stage
   auto issue = [&](int j) {
     unsigned char* sb = smem + (j % kStages) * L::STAGE;
     const int t0 = j * kKeyTile;
     // consecutive threads take the chunks of one row
-    for (int i = threadIdx.x; i < 2 * kKeyTile * CPR; i += kPreThreads) {
+    for (int i = threadIdx.x; i < 2 * kKeyTile * CPR; i += NT) {
       const int c = i % CPR, tt = (i / CPR) % kKeyTile;
       const int kv = i / (CPR * kKeyTile);
       const bool ok = t0 + tt < n_hi;
@@ -831,7 +892,7 @@ __global__ void __launch_bounds__(kPreThreads)
     }
     if constexpr (kQuant) {
       float* sdst = reinterpret_cast<float*>(sb + 2 * kKeyTile * RS);
-      for (int i = threadIdx.x; i < 2 * kKeyTile; i += kPreThreads) {
+      for (int i = threadIdx.x; i < 2 * kKeyTile; i += NT) {
         const int tt = i % kKeyTile;
         const bool ok = t0 + tt < n_hi;
         const float* src = i < kKeyTile ? k_scales : v_scales;
@@ -840,39 +901,34 @@ __global__ void __launch_bounds__(kPreThreads)
       }
     }
   };
-  // key tile j's stage to the bf16 tiles (K row-major, V transposed)
+  // int8: key tile j's stage to the bf16 tiles (K row-major, V transposed)
   auto convert = [&](int j) {
     const unsigned char* sb = smem + (j % kStages) * L::STAGE;
     // consecutive threads take consecutive tokens: conflict-free stores
-    for (int i = threadIdx.x; i < 2 * kKeyTile * CPR; i += kPreThreads) {
+    for (int i = threadIdx.x; i < 2 * kKeyTile * CPR; i += NT) {
       const int tt = i % kKeyTile, c = (i / kKeyTile) % CPR;
       const int kv = i / (kKeyTile * CPR);
       const uint4 raw = *reinterpret_cast<const uint4*>(
           sb + (kv * kKeyTile + tt) * RS + 16 * c);
-      uint32_t pr[E / 2];
-      chunk_to_bf16<KV>(raw, pr);
+      uint32_t pr[8];
+      int8_chunk_to_bf16(raw, pr);
       if (kv == 0) {
         uint4* dst = reinterpret_cast<uint4*>(kb + tt * KS + c * E);
-#pragma unroll
-        for (int x = 0; x < E / 8; ++x)
-          dst[x] = make_uint4(pr[4 * x], pr[4 * x + 1], pr[4 * x + 2],
-                              pr[4 * x + 3]);
+        dst[0] = make_uint4(pr[0], pr[1], pr[2], pr[3]);
+        dst[1] = make_uint4(pr[4], pr[5], pr[6], pr[7]);
       } else {
         unsigned short* col =
             reinterpret_cast<unsigned short*>(vt) + (c * E) * VS + tt;
 #pragma unroll
-        for (int x = 0; x < E / 2; ++x) {
+        for (int x = 0; x < 8; ++x) {
           col[(2 * x) * VS] = static_cast<unsigned short>(pr[x] & 0xffffu);
           col[(2 * x + 1) * VS] = static_cast<unsigned short>(pr[x] >> 16);
         }
       }
     }
-    if constexpr (kQuant) {
-      const float* ssrc =
-          reinterpret_cast<const float*>(sb + 2 * kKeyTile * RS);
-      for (int i = threadIdx.x; i < 2 * kKeyTile; i += kPreThreads)
-        ksc[i] = ssrc[i];          // ksc and vsc are adjacent
-    }
+    const float* ssrc = reinterpret_cast<const float*>(sb + 2 * kKeyTile * RS);
+    for (int i = threadIdx.x; i < 2 * kKeyTile; i += NT)
+      ksc[i] = ssrc[i];          // ksc and vsc are adjacent
   };
   // this warp's slice of key tile j: one online-softmax update
   auto compute = [&](int j) {
@@ -880,32 +936,56 @@ __global__ void __launch_bounds__(kPreThreads)
     const int t0 = j * kKeyTile + s0;
     if (!active || t0 >= lim_tile) return;       // nothing visible here
     const int ngl = min(slice / 16, (lim_tile - t0 + 15) / 16);
+    // bf16 pages: this lane's ldmatrix row addresses in the staged tile
+    // (K: tokens + lane % 8 and + 8 for lanes 16-31, d + 8 for lanes 8-15
+    // and 24-31; V: tokens + lane % 8 and + 8 for lanes 8-15 and 24-31,
+    // d + 8 for lanes 16-31)
+    const unsigned sk = static_cast<unsigned>(__cvta_generic_to_shared(
+        smem + (j % kStages) * L::STAGE));
+    const unsigned k_addr =
+        sk + (s0 + (lane & 7) + ((lane >> 4) << 3)) * RS +
+        ((lane >> 3) & 1) * 16;
+    const unsigned v_addr =
+        sk + (kKeyTile + s0 + (lane & 7) + (((lane >> 3) & 1) << 3)) * RS +
+        (lane >> 4) * 16;
     float s[4][2][4];
     float mx_a = kNegInf, mx_b = kNegInf;
 #pragma unroll
     for (int gi = 0; gi < 4; ++gi) {
       if (gi >= ngl) continue;
+      float c[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+      if constexpr (kQuant) {
 #pragma unroll
-      for (int nt = 0; nt < 2; ++nt) {
-        float c[4] = {0.f, 0.f, 0.f, 0.f};
-        const __nv_bfloat16* krow =
-            kb + (s0 + 16 * gi + 8 * nt + g) * KS + 2 * tg;
+        for (int nt = 0; nt < 2; ++nt) {
+          const __nv_bfloat16* krow =
+              kb + (s0 + 16 * gi + 8 * nt + g) * KS + 2 * tg;
 #pragma unroll
-        for (int kk = 0; kk < NK; ++kk)
-          mma_bf16(c, qa[kk],
-                   *reinterpret_cast<const uint32_t*>(krow + 16 * kk),
-                   *reinterpret_cast<const uint32_t*>(krow + 16 * kk + 8));
+          for (int kk = 0; kk < NK; ++kk)
+            mma_bf16(c[nt], qa[kk],
+                     *reinterpret_cast<const uint32_t*>(krow + 16 * kk),
+                     *reinterpret_cast<const uint32_t*>(krow + 16 * kk + 8));
+        }
+      } else {
+#pragma unroll
+        for (int kk = 0; kk < NK; ++kk) {
+          uint32_t b[4];   // tokens 0-7 (d lo, hi), tokens 8-15 (d lo, hi)
+          ldsm_x4(b, k_addr + 16 * gi * RS + 32 * kk);
+          mma_bf16(c[0], qa[kk], b[0], b[1]);
+          mma_bf16(c[1], qa[kk], b[2], b[3]);
+        }
+      }
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int tt = s0 + 16 * gi + 8 * nt + 2 * tg + (e & 1);
-          float v = c[e] * scale;
+          float v = c[nt][e] * scale;
           if constexpr (kQuant) v *= ksc[tt];    // (q.k * scale) * k_scale
           v = j * kKeyTile + tt < (e < 2 ? lim_a : lim_b) ? v : kNegInf;
           s[gi][nt][e] = v;
           if (e < 2) mx_a = fmaxf(mx_a, v);
           else mx_b = fmaxf(mx_b, v);
         }
-      }
     }
 #pragma unroll
     for (int x = 1; x < 4; x <<= 1) {
@@ -946,12 +1026,22 @@ __global__ void __launch_bounds__(kPreThreads)
                               pack_bf16(s[gi][0][2], s[gi][0][3]),
                               pack_bf16(s[gi][1][0], s[gi][1][1]),
                               pack_bf16(s[gi][1][2], s[gi][1][3])};
-      const __nv_bfloat16* vcol = vt + g * VS + s0 + 16 * gi + 2 * tg;
+      if constexpr (kQuant) {
+        const __nv_bfloat16* vcol = vt + g * VS + s0 + 16 * gi + 2 * tg;
 #pragma unroll
-      for (int nd = 0; nd < DP / 8; ++nd)
-        mma_bf16(o[nd], pa,
-                 *reinterpret_cast<const uint32_t*>(vcol + 8 * nd * VS),
-                 *reinterpret_cast<const uint32_t*>(vcol + 8 * nd * VS + 8));
+        for (int nd = 0; nd < DP / 8; ++nd)
+          mma_bf16(o[nd], pa,
+                   *reinterpret_cast<const uint32_t*>(vcol + 8 * nd * VS),
+                   *reinterpret_cast<const uint32_t*>(vcol + 8 * nd * VS + 8));
+      } else {
+#pragma unroll
+        for (int nd = 0; nd < DP / 8; nd += 2) {
+          uint32_t b[4];   // d block nd (tokens lo, hi), d block nd + 1
+          ldsm_x4_trans(b, v_addr + 16 * gi * RS + 16 * nd);
+          mma_bf16(o[nd], pa, b[0], b[1]);
+          mma_bf16(o[nd + 1], pa, b[2], b[3]);
+        }
+      }
     }
   };
 
@@ -961,12 +1051,14 @@ __global__ void __launch_bounds__(kPreThreads)
     cp_async_commit();
   }
   for (int j = 0; j < n_tiles; ++j) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();   // tile j has landed; every warp is done with j - 1
     if (j + kStages - 1 < n_tiles) issue(j + kStages - 1);
     cp_async_commit();
-    cp_async_wait<kStages - 1>();
-    __syncthreads();   // tile j has landed; every warp is done with j - 1
-    convert(j);
-    __syncthreads();
+    if constexpr (kQuant) {
+      convert(j);
+      __syncthreads();
+    }
     compute(j);
   }
   __syncthreads();     // the merge below reuses the staging area
@@ -978,8 +1070,8 @@ __global__ void __launch_bounds__(kPreThreads)
     l_b += __shfl_xor_sync(kFull, l_b, x);
   }
   float* mo = reinterpret_cast<float*>(smem);    // [warp][16][DP]
-  float* mm = mo + kPreWarps * 16 * DP;          // [warp][16]
-  float* ml = mm + kPreWarps * 16;
+  float* mm = mo + NW * 16 * DP;                 // [warp][16]
+  float* ml = mm + NW * 16;
   if (active) {
 #pragma unroll
     for (int nd = 0; nd < DP / 8; ++nd) {
@@ -999,7 +1091,7 @@ __global__ void __launch_bounds__(kPreThreads)
   __syncthreads();
   // merge each row tile's warps in warp order; a warp whose slices held
   // no visible token has m = NEG_INF, l = 0 and weighs exactly 0
-  for (int i = threadIdx.x; i < rows * Dh; i += kPreThreads) {
+  for (int i = threadIdx.x; i < rows * Dh; i += NT) {
     const int r = i / Dh, d = i % Dh;
     float val = 0.f;
     if (row_lim(r) > 0) {
@@ -1018,14 +1110,14 @@ __global__ void __launch_bounds__(kPreThreads)
   }
 }
 
-template <typename KV, bool kQuant, int NK>
+template <typename KV, bool kQuant, int NK, int NW>
 cudaError_t run_prefill_tc(const void* q, const void* kp, const void* vp,
                            const void* ks, const void* vs, const void* bt,
                            const void* st, const void* nv, void* out, int S,
                            int C, int H, int Dh, int ps, int w, int P,
                            float scale, cudaStream_t stream) {
-  constexpr int bytes = PrefillSmem<KV, NK>::BYTES;
-  auto kernel = paged_prefill_tc_kernel<KV, kQuant, NK>;
+  const int bytes = PrefillSmem<KV, NK, NW>::BYTES + (4 * w + 15) / 16 * 16;
+  auto kernel = paged_prefill_tc_kernel<KV, kQuant, NK, NW>;
   if (bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -1033,7 +1125,7 @@ cudaError_t run_prefill_tc(const void* q, const void* kp, const void* vp,
   }
   const int vec = Dh == 16 * NK && aligned16(kp) && aligned16(vp);
   const dim3 grid(S, H, (C + kRowTile - 1) / kRowTile);
-  kernel<<<grid, kPreThreads, bytes, stream>>>(
+  kernel<<<grid, NW * 32, bytes, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const KV*>(kp),
       static_cast<const KV*>(vp), static_cast<const float*>(ks),
       static_cast<const float*>(vs), static_cast<const int32_t*>(bt),
@@ -1043,15 +1135,16 @@ cudaError_t run_prefill_tc(const void* q, const void* kp, const void* vp,
 }
 
 // NK = ceil(Dh / 16) k-steps of 16 (Dh <= 128)
-template <typename KV, bool kQuant>
+template <typename KV, bool kQuant, int NW>
 cudaError_t prefill_tc(const void* q, const void* kp, const void* vp,
                        const void* ks, const void* vs, const void* bt,
                        const void* st, const void* nv, void* out, int S, int C,
                        int H, int Dh, int ps, int w, int P, float scale,
                        cudaStream_t stream) {
-#define PTT_PREFILL_TC(NK_)                                                  \
-  return run_prefill_tc<KV, kQuant, NK_>(q, kp, vp, ks, vs, bt, st, nv, out, \
-                                         S, C, H, Dh, ps, w, P, scale, stream)
+#define PTT_PREFILL_TC(NK_)                                            \
+  return run_prefill_tc<KV, kQuant, NK_, NW>(q, kp, vp, ks, vs, bt, st, \
+                                             nv, out, S, C, H, Dh, ps,  \
+                                             w, P, scale, stream)
   switch ((Dh + 15) / 16) {
     case 1: PTT_PREFILL_TC(1);
     case 2: PTT_PREFILL_TC(2);
@@ -1064,6 +1157,12 @@ cudaError_t prefill_tc(const void* q, const void* kp, const void* vp,
   }
 #undef PTT_PREFILL_TC
   return cudaErrorInvalidValue;
+}
+
+// the tensor-core prefill takes bf16 q with Dh <= 128 and a block table
+// whose page ids fit its shared memory; everything else the scalar one
+bool tc_prefill(int dtype, int Dh, int w) {
+  return dtype == 1 && Dh <= 128 && w <= kMaxIdCols;
 }
 
 template <typename T, typename KV, bool kQuant, int DPL>
@@ -1117,7 +1216,10 @@ bool bad_geometry(int H, int Dh, int ps, int w, int P) {
 
 // dtype: 0 = float32, 1 = bfloat16 (of q and out; the fp kernels' pages
 // share it, the int8 kernels' pages are int8 with float32 scales (P, ps)).
-// Returns the cudaError_t of the launch (0 = success).
+// Returns the cudaError_t of the launch (0 = success). The prefill entry
+// points take the tensor-core kernel where tc_prefill says so (bf16 q,
+// Dh <= 128) and the scalar template otherwise: fp32 q keeps it because
+// the contracts of 2e-5 and 5e-5 do not survive bf16 operands.
 extern "C" int ptt_paged_decode(const void* q, const void* k_pages,
                                 const void* v_pages, const void* block_tables,
                                 const void* lengths, void* out, int S, int H,
@@ -1153,6 +1255,10 @@ extern "C" int ptt_paged_prefill(const void* q, const void* k_pages,
                                           nullptr, block_tables, chunk_starts,
                                           n_valid, out, S, C, H, Dh, ps, w, P,
                                           scale, s);
+  if (tc_prefill(dtype, Dh, w))
+    return prefill_tc<__nv_bfloat16, false, kFpPreWarps>(
+        q, k_pages, v_pages, nullptr, nullptr, block_tables, chunk_starts,
+        n_valid, out, S, C, H, Dh, ps, w, P, scale, s);
   if (dtype == 1)
     return prefill_t<__nv_bfloat16, __nv_bfloat16, false>(
         q, k_pages, v_pages, nullptr, nullptr, block_tables, chunk_starts,
@@ -1181,9 +1287,6 @@ extern "C" int ptt_paged_decode_int8(const void* q, const void* k_pages,
   return cudaErrorInvalidValue;
 }
 
-// bf16 q takes the tensor-core kernel up to Dh = 128 and the scalar
-// template past it; fp32 q keeps the scalar template (its 5e-5 contract
-// does not survive bf16 operands).
 extern "C" int ptt_paged_prefill_int8(const void* q, const void* k_pages,
                                       const void* v_pages, const void* k_scales,
                                       const void* v_scales,
@@ -1203,10 +1306,10 @@ extern "C" int ptt_paged_prefill_int8(const void* q, const void* k_pages,
                                           v_scales, block_tables, chunk_starts,
                                           n_valid, out, S, C, H, Dh, ps, w, P,
                                           scale, s);
-  if (dtype == 1 && Dh <= 128)
-    return prefill_tc<int8_t, true>(q, k_pages, v_pages, k_scales, v_scales,
-                                    block_tables, chunk_starts, n_valid, out,
-                                    S, C, H, Dh, ps, w, P, scale, s);
+  if (tc_prefill(dtype, Dh, w))
+    return prefill_tc<int8_t, true, kInt8PreWarps>(
+        q, k_pages, v_pages, k_scales, v_scales, block_tables, chunk_starts,
+        n_valid, out, S, C, H, Dh, ps, w, P, scale, s);
   if (dtype == 1)
     return prefill_t<__nv_bfloat16, int8_t, true>(
         q, k_pages, v_pages, k_scales, v_scales, block_tables, chunk_starts,

@@ -12,6 +12,8 @@ element types, the int8 dequant-attend kernels over Dh 32/64/128 and
 pages of 8 and 16 with clamped page ids, the redesigned int8 decode (K2)
 and tensor-core prefill (K4) at Dh 64/48/33/128, a 4-row verify chunk
 and a 64-row prefill chunk, on an aligned and a misaligned pool, the
+tensor-core fp prefill (K3) over the same head dims and chunks, on an
+aligned and a misaligned bf16 pool and past its page-id table, the
 int8 and speculative engines at tiny size, tiny GPT and BERT with head
 dim 16 training through the flash kernels as on the CPU (fault F1), the
 flash kernels over head dims 32/64/128 with lengths that are not
@@ -322,13 +324,14 @@ def test_int8_decode_and_prefill_designs_match_plain_and_repeat_bitwise(
 
 
 def _misaligned(pages):
-    """The same pool starting one byte past a 16-byte boundary."""
+    """The same pool starting one element past a 16-byte boundary."""
+    es = pages.element_size()
     buf = torch.empty(pages.numel() + 16, dtype=pages.dtype,
                       device=pages.device)
-    base = (-buf.data_ptr()) % 16 + 1
+    base = (-buf.data_ptr()) % 16 // es + 1
     view = buf[base:base + pages.numel()].view(pages.shape)
     view.copy_(pages)
-    assert view.data_ptr() % 16 == 1 and view.is_contiguous()
+    assert view.data_ptr() % 16 == es and view.is_contiguous()
     return view
 
 
@@ -350,6 +353,87 @@ def test_int8_kernels_on_a_misaligned_pool_take_one_element_loads(dev,
         torch.testing.assert_close(got.float(), ref, atol=atol, rtol=rtol)
         if entry is PA.PREFILL_INT8 and dtype == torch.bfloat16:
             assert torch.equal(got, entry.cuda_fn(*args))
+
+
+# -- fp prefill (K3): the tensor-core tile over bf16 pages -------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("c", [4, 64], ids=["verify", "prefill"])
+@pytest.mark.parametrize("dh", [64, 48, 33, 128, 160])
+def test_fp_prefill_designs_match_plain_and_repeat_bitwise(dev, dh, c,
+                                                          dtype):
+    """K3 (bf16 at dh <= 128: the tensor-core tile fed by ldmatrix from
+    the staged pages, its 4-row verify split and its 64-row prefill,
+    16-byte staging at dh 64/48/128 and one-element staging at dh 33;
+    fp32, and bf16 at dh 160: the scalar template) over ragged chunks,
+    with NaN in the one page no block table references: within the
+    registry tolerance of the plain version, two launches bit-identical,
+    dead rows and inactive slots exact zeros."""
+    s, h, ps, w = 5, 2, 16, 6
+    t = _inputs(dh + c, s, h, dh, ps, w, c, dev)
+    t["n_valid"][:3] = torch.tensor([0, c, 1], dtype=torch.int32)
+    t["starts"][1] = w * ps - c                      # the chunk ends the slot
+    t["kp"][0] = t["vp"][0] = float("nan")           # page 0: unreferenced
+    args = (t["qp"].to(dtype), t["kp"].to(dtype), t["vp"].to(dtype),
+            t["bt"], t["starts"], t["n_valid"])
+    got = PA.PREFILL.cuda_fn(*args)
+    again = PA.PREFILL.cuda_fn(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert torch.isfinite(got.float()).all()
+    n_valid = t["n_valid"].cpu().numpy()
+    for sl in range(s):                              # rows past n_valid
+        assert torch.all(got[sl, int(n_valid[sl]):] == 0)
+    ref = PA.PREFILL.plain_fn(*(a.float() if a.is_floating_point() else a
+                                for a in args))
+    atol, rtol = PA.PREFILL.tolerance[dtype]
+    torch.testing.assert_close(got.float(), ref, atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_fp_prefill_on_a_misaligned_pool_takes_one_element_loads(dev,
+                                                                 dtype):
+    """A bf16 pool that is not 16-byte aligned takes K3's one-element
+    staging in the same kernel; the staged tile is the same either way,
+    so bf16 K3 gives the aligned pool's bits. fp32 takes the scalar
+    template either way."""
+    t = _inputs(3, 4, 2, 64, 16, 5, 64, dev)
+    kp, vp = t["kp"].to(dtype), t["vp"].to(dtype)
+    rest = (t["bt"], t["starts"], t["n_valid"])
+    q = t["qp"].to(dtype)
+    got = PA.PREFILL.cuda_fn(q, _misaligned(kp), _misaligned(vp), *rest)
+    torch.cuda.synchronize()
+    ref = PA.PREFILL.plain_fn(q.float(), kp.float(), vp.float(), *rest)
+    atol, rtol = PA.PREFILL.tolerance[dtype]
+    torch.testing.assert_close(got.float(), ref, atol=atol, rtol=rtol)
+    if dtype == torch.bfloat16:
+        assert torch.equal(got, PA.PREFILL.cuda_fn(q, kp, vp, *rest))
+
+
+def test_prefill_past_the_page_id_table_takes_the_scalar_template(dev):
+    """The tensor-core prefill keeps a block's page ids in shared memory
+    for block tables up to 8192 columns (kMaxIdCols); a wider table takes
+    the scalar template, bf16 K3 and K4 alike, with the plain versions'
+    results."""
+    s, h, dh, ps, w, c = 2, 1, 64, 1, 8193, 4
+    t = _int8_inputs(7, s, h, dh, ps, w, c, dev)
+    t["n_valid"][:] = c
+    t["starts"][0] = w * ps - c                      # the table's last column
+    rest = (t["bt"], t["starts"], t["n_valid"])
+    q = t["qp"].bfloat16()
+    atol, rtol = PA.PREFILL.tolerance[torch.bfloat16]
+    for entry, pages in ((PA.PREFILL, (t["kp"].bfloat16(),
+                                       t["vp"].bfloat16())),
+                         (PA.PREFILL_INT8, (t["kq"], t["vq"], t["ks"],
+                                            t["vs"]))):
+        got = entry.cuda_fn(q, *pages, *rest)
+        torch.cuda.synchronize()
+        ref = entry.plain_fn(q.float(), *(p.float() if p.dtype ==
+                                          torch.bfloat16 else p
+                                          for p in pages), *rest)
+        torch.testing.assert_close(got.float(), ref, atol=atol, rtol=rtol)
 
 
 @pytest.mark.parametrize("model", ["gpt", "bert"])

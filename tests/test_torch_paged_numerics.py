@@ -9,20 +9,24 @@ warps' states in warp order. Over int8 pages each token's k_scale
 multiplies its score after the scale, and its v_scale multiplies p after
 l has taken it.
 
-``paged_prefill_tc_kernel`` (K4, bf16 q over int8 pages) runs one block
-per (slot, head, tile of 64 query rows); a warp owns 16 rows, and when
-the live rows fill fewer 16-row tiles than the block's 4 warps, the
-warps of a row tile split each 64-token key tile between them and merge
-in warp order. Its products take bf16 operands: q rounded to bf16, int8
-K and V converted exactly, p rounded to bf16 after v_scale.
+``paged_prefill_tc_kernel`` (bf16 q; K3 over bf16 pages, K4 over int8
+pages) runs one block per (slot, head, tile of 64 query rows); a warp
+owns 16 rows, and when the live rows fill fewer 16-row tiles than the
+block has warps (8 over bf16 pages, 4 over int8 pages), the warps of a
+row tile split each 64-token key tile between them (up to 4 warps of 16
+tokens) and merge in warp order. Its
+products take bf16 operands: q rounded to bf16, bf16 K and V as they
+are, int8 K and V converted exactly, p rounded to bf16 (after v_scale
+over int8 pages).
 
 The CUDA kernels cannot run here, so this file emulates those orders in
 fp32 torch and holds them against the JAX reference's lax fallbacks
-(``ragged_paged_{decode,decode_int8,prefill_int8}_attention(impl="lax")``):
-the decode folds at their kernel contracts (2e-5 fp, 5e-5 int8) on
-ragged lengths (0, one token, exactly one page, at a partition edge, one
-token past it, the full width), the bf16 prefill at the bf16 tolerance
-1e-2 with rows past n_valid, an inactive slot and chunk starts that are
+(``ragged_paged_{decode,decode_int8,prefill,prefill_int8}_attention(
+impl="lax")``): the decode folds at their kernel contracts (2e-5 fp,
+5e-5 int8) on ragged lengths (0, one token, exactly one page, at a
+partition edge, one token past it, the full width), the bf16 prefills
+at the bf16 tolerance 1e-2 with rows past n_valid, an inactive slot, a
+single row, a chunk ending at the last page and chunk starts that are
 not page multiples.
 """
 
@@ -41,8 +45,9 @@ INT8_TOL = dict(atol=5e-5, rtol=5e-5)
 BF16_TOL = dict(atol=1e-2, rtol=1e-2)
 #: warps per block of the decode kernel (kDecWarps)
 WARPS = 8
-#: the prefill kernel's warps, rows per warp, rows and tokens per tile
-PRE_WARPS, WARP_ROWS, ROW_TILE, KEY_TILE = 4, 16, 64, 64
+#: the prefill kernel's warps per block over int8 (kInt8PreWarps) and bf16
+#: (kFpPreWarps) pages, rows per warp, rows and tokens per tile
+INT8_PRE_WARPS, FP_PRE_WARPS, WARP_ROWS, ROW_TILE, KEY_TILE = 4, 8, 16, 64, 64
 
 
 def _merge(states):
@@ -113,20 +118,34 @@ def _bf16(t):
     return t.to(torch.bfloat16).float()
 
 
-def emulate_prefill_int8_bf16(q, kq, vq, ks, vs, bt, starts, n_valid,
-                              scale):
-    """K4's tiles, split and bf16 operands, in fp32 elsewhere; returns
+def _split(nrt, warps):
+    """Warps per 16-row tile when ``nrt`` row tiles are live: as many as
+    the block has per row tile, a power of two up to 4."""
+    spl = 1
+    while spl < 4 and 2 * spl * nrt <= warps:
+        spl *= 2
+    return spl
+
+
+def _emulate_prefill_bf16(q, kp, vp, bt, starts, n_valid, scale, warps,
+                          scales=None):
+    """The tensor-core prefill's tiles, split and bf16 operands, in fp32
+    elsewhere, over pages whose values bf16 holds exactly (bf16 pages, or
+    int8 pages with ``scales`` = their ``(k_scales, v_scales)``); returns
     (S, C, H, Dh) fp32 (the kernel rounds it to bf16)."""
     n_slots, c, n_heads, dh = q.shape
-    n_pages, ps = kq.shape[:2]
+    n_pages, ps = kp.shape[:2]
     cap = bt.shape[1] * ps
     qb = _bf16(q)
     out = torch.zeros_like(q)
     for s in range(n_slots):
         pages = bt[s].long().clamp(0, n_pages - 1)  # ids clamp
-        kt = kq[pages].reshape(cap, n_heads, dh).float()    # exact in bf16
-        vt = vq[pages].reshape(cap, n_heads, dh).float()
-        kst, vst = ks[pages].reshape(cap), vs[pages].reshape(cap)
+        kt = kp[pages].reshape(cap, n_heads, dh).float()
+        vt = vp[pages].reshape(cap, n_heads, dh).float()
+        if scales is None:
+            kst = vst = torch.ones(cap)
+        else:
+            kst, vst = (x[pages].reshape(cap) for x in scales)
         for r0 in range(0, c, ROW_TILE):
             nl = min(max(int(n_valid[s]) - r0, 0), ROW_TILE, c - r0)
             lims = [min(int(starts[s]) + r0 + r + 1, cap) for r in range(nl)]
@@ -134,7 +153,7 @@ def emulate_prefill_int8_bf16(q, kq, vq, ks, vs, bt, starts, n_valid,
                 continue                            # exact zeros
             n_hi = lims[-1]
             nrt = -(-nl // WARP_ROWS)
-            spl = {1: 4, 2: 2}.get(nrt, 1)          # warps per row tile
+            spl = _split(nrt, warps)                # warps per row tile
             part = KEY_TILE // spl                  # tokens a warp takes
             for rt in range(nrt):
                 rows = range(rt * WARP_ROWS, min(rt * WARP_ROWS + WARP_ROWS,
@@ -150,7 +169,9 @@ def emulate_prefill_int8_bf16(q, kq, vq, ks, vs, bt, starts, n_valid,
                             t1 = min(t0 + part, n_hi)   # zero-filled past
                             tok = torch.arange(t0, t1)
                             sc = (qb[s, r0 + rows.start:r0 + rows.stop, h]
-                                  @ kt[t0:t1, h].T) * scale * kst[t0:t1]
+                                  @ kt[t0:t1, h].T) * scale
+                            if scales is not None:  # (q.k * scale) * k_scale
+                                sc = sc * kst[t0:t1]
                             ok = tok[None, :] < lim[:, None]
                             sc = torch.where(ok, sc, torch.tensor(NEG_INF))
                             m_next = torch.maximum(m, sc.max(dim=1).values)
@@ -158,8 +179,9 @@ def emulate_prefill_int8_bf16(q, kq, vq, ks, vs, bt, starts, n_valid,
                             p = torch.where(ok, torch.exp(sc - m_next[:, None]),
                                             torch.tensor(0.0))
                             l = l * alpha + p.sum(dim=1)
-                            pb = _bf16(p * vst[t0:t1])
-                            acc = acc * alpha[:, None] + pb @ vt[t0:t1, h]
+                            if scales is not None:  # after l: l never sees it
+                                p = p * vst[t0:t1]
+                            acc = acc * alpha[:, None] + _bf16(p) @ vt[t0:t1, h]
                             m = m_next
                         states.append((m, l, acc))
                     m = torch.stack([st[0] for st in states]).amax(dim=0)
@@ -170,6 +192,20 @@ def emulate_prefill_int8_bf16(q, kq, vq, ks, vs, bt, starts, n_valid,
                         a = a + sa * wt[:, None]
                     out[s, r0 + rows.start:r0 + rows.stop, h] = a / l[:, None]
     return out
+
+
+def emulate_prefill_int8_bf16(q, kq, vq, ks, vs, bt, starts, n_valid,
+                              scale):
+    """K4: bf16 q over int8 pages (converted to bf16 exactly), the scales
+    fused as in K2."""
+    return _emulate_prefill_bf16(q, kq, vq, bt, starts, n_valid, scale,
+                                 INT8_PRE_WARPS, scales=(ks, vs))
+
+
+def emulate_prefill_bf16(q, kp, vp, bt, starts, n_valid, scale):
+    """K3: bf16 q over bf16 pages, no scales."""
+    return _emulate_prefill_bf16(q, _bf16(kp), _bf16(vp), bt, starts,
+                                 n_valid, scale, FP_PRE_WARPS)
 
 
 def _sample(seed, n_slots, h, dh, ps, w, lengths):
@@ -254,4 +290,31 @@ def test_int8_bf16_prefill_tiles_match_the_reference_lax_fallback(c, dh):
                                     scale=dh ** -0.5)
     assert torch.all(got[0] == 0)                    # inactive slot
     assert torch.all(got[1, c - 3:] == 0)            # rows past n_valid
+    np.testing.assert_allclose(_bf16(got).numpy(), ref, **BF16_TOL)
+
+
+@pytest.mark.parametrize("c,dh", [(4, 64), (64, 64), (80, 48)],
+                         ids=["verify", "prefill", "two-row-blocks"])
+def test_bf16_prefill_tiles_match_the_reference_lax_fallback(c, dh):
+    n_slots, h, ps, w = 5, 2, 16, 12
+    rng = np.random.default_rng(100 + c + dh)
+    # q and pages as the kernel sees them: bf16 values
+    q, kp, vp = (_bf16(torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32))).numpy() for shape in ((n_slots, c, h, dh),
+                                            (1 + n_slots * w, ps, h, dh),
+                                            (1 + n_slots * w, ps, h, dh)))
+    bt = (1 + rng.permutation(n_slots * w)).reshape(n_slots, w).astype(
+        np.int32)
+    # starts that are not page multiples; a chunk ending at the last page
+    starts = np.array([5, 3, w * ps - c, 17, 0], np.int32)
+    # an inactive slot, rows past n_valid, a full chunk, one row
+    n_valid = np.array([0, c - 3, c, 1, min(c, 20)], np.int32)
+    args = (q, kp, vp, bt, starts, n_valid)
+    ref = np.asarray(DA.ragged_paged_prefill_attention(
+        *map(jnp.asarray, args), impl="lax"))
+    got = emulate_prefill_bf16(*map(torch.from_numpy, args),
+                               scale=dh ** -0.5)
+    assert torch.all(got[0] == 0)                    # inactive slot
+    assert torch.all(got[1, c - 3:] == 0)            # rows past n_valid
+    assert torch.all(got[3, 1:] == 0)                # one live row
     np.testing.assert_allclose(_bf16(got).numpy(), ref, **BF16_TOL)
