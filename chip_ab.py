@@ -12,11 +12,15 @@ checkout, so that each builds and imports its own ``paddle_tpu_torch``:
   serving (``serve``), and 4a's and 4c's decode profiles (the
   ``decode_profile`` of ``serve``'s stats): the device's busy share, its
   device time and the paged decode kernel's (K1, K2) share of it over 4
-  decode blocks; and 4a's prefill window (``prefill_window``): 16
-  requests with 4a's prompt lengths and one new token each, so that the
-  window holds only batched prefill calls, run 4 times unprofiled and 4
-  times under the profiler: prompt tokens/s, the device's busy share,
-  its device time and the fp prefill kernel's (K3) part of it;
+  decode blocks, with its kernels and the host's launch calls (one per
+  eager kernel, one per graph replay); and 4a's prefill window
+  (``prefill_window``): 16 requests with 4a's prompt lengths and one new
+  token each, so that the window holds only batched prefill calls, run
+  4 times unprofiled and 4 times under the profiler: prompt tokens/s,
+  the device's busy share, its device time, the fp prefill kernel's
+  (K3) part of it, its kernels and the host's launch calls. A key one
+  tree does not report (the graphs' counts in a tree without graphs)
+  reads None and gets no ratio;
 - ``kernels``: the bf16 rows of K1 at the serving shape and at the long,
   few-slot shape, of K2, K3 and K4 at the serving shape, of K3 and K4 at
   the speculative verify chunk, and of K6b at the training shape, from
@@ -42,7 +46,9 @@ import torch
 
 TRAIN_KEYS = ("ms_per_step", "tokens_per_s", "mfu_vs_989tflops")
 SERVE_KEYS = ("decode_tokens_per_s", "prefill_tokens_per_s",
-              "end_to_end_tokens_per_s", "ttft_p50_s")
+              "end_to_end_tokens_per_s", "ttft_p50_s", "ttft_p99_s",
+              "warmup_s", "graphs", "captures_after_warmup",
+              "graph_pool_bytes")
 KERNEL_KEYS = ("ms", "device_ms", "host_ms")
 
 #: one turn, run with ``python3 -c`` inside a checkout
@@ -85,6 +91,7 @@ def prefill_window(device, reps=4):
 
     prof = cs.profile_window(batch, reps, keep=("paged_prefill",))
     k3_ms = sum(k["ms"] for k in prof["kept_kernels"])
+    calls = prof.get("launch_api_calls")
     wall_ms = prof["unprofiled_wall_s"] * 1e3
     del eng, model
     torch.cuda.empty_cache()
@@ -94,7 +101,10 @@ def prefill_window(device, reps=4):
             "prefill_window_k3_ms": k3_ms,
             "prefill_window_k3_share_of_device": k3_ms / (
                 prof["device_busy_s"] * 1e3),
-            "prefill_window_k3_share_of_wall": k3_ms / wall_ms}}
+            "prefill_window_k3_share_of_wall": k3_ms / wall_ms,
+            "prefill_window_kernels": prof["kernel_launches"],
+            "prefill_window_launch_calls":
+                None if calls is None else sum(calls.values())}}
 
 
 if "kernels" in phases:
@@ -127,17 +137,22 @@ if "serve" in phases:
             ("4d", [PA.DECODE_INT8, PA.PREFILL_INT8],
              {{"cache_dtype": torch.int8, "self_draft": True, "spec_k": 4}})):
         stats, _ = cs.serve(dev, kernels, key, profile=key != "4d", **kw)
-        out[key] = {{k: stats[k] for k in {SERVE_KEYS!r}}}
+        # keys a tree's chip_smoke.py does not report read None
+        out[key] = {{k: stats.get(k) for k in {SERVE_KEYS!r}}}
         if key == "4a":
             out[key].update(prefill_window(dev))
         prof = stats.get("decode_profile")
         if prof is None:
             continue
+        calls = prof.get("launch_api_calls")
         out[key].update(
             decode_busy_share=prof["device_busy_share"],
             decode_device_ms=prof["device_busy_s"] * 1e3,
             decode_paged_kernel_ms=sum(k["ms"] for k in prof["top_kernels"]
-                                       if "paged_decode" in k["name"]))
+                                       if "paged_decode" in k["name"]),
+            decode_kernels=prof["kernel_launches"],
+            decode_launch_calls=None if calls is None
+            else sum(calls.values()))
 if "train" in phases:
     stats = cs.train_bf16(dev)
     out["5"] = {{k: stats[k] for k in {TRAIN_KEYS!r}}}
@@ -179,9 +194,13 @@ def main() -> int:
         for key in results[0][1][phase]:
             got = {lab: [r[phase][key] for lb, r in results if lb == lab]
                    for lab in ("parent", "change")}
-            ratio = np.mean(got["change"]) / np.mean(got["parent"])
-            print(f"  {phase} {key}: parent {got['parent']} change "
-                  f"{got['change']} change/parent {ratio:.4f}", flush=True)
+            line = (f"  {phase} {key}: parent {got['parent']} change "
+                    f"{got['change']}")
+            vals = got["parent"] + got["change"]
+            if None not in vals and np.mean(got["parent"]):
+                ratio = np.mean(got["change"]) / np.mean(got["parent"])
+                line += f" change/parent {ratio:.4f}"
+            print(line, flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True)

@@ -46,7 +46,10 @@ Phases, in order; any failure exits non-zero:
 4. serve   — GPT (vocab 32768, hidden 1024, 12 layers, 16 heads, ffn
    4096, max_position 512, random weights from a seed) behind
    ``make_serving_engine(num_slots=16, page_size=16, prefill_chunk=64,
-   max_tokens_per_slot=352)``:
+   max_tokens_per_slot=352)``; ``warmup()`` captures one CUDA graph per
+   bucket signature (37; 73 with speculation) and each run prints the
+   count, its warmup seconds, the graph pool's bytes and the captures
+   after warmup, which must be 0:
    (a) bf16 weights and pages, 48 requests (prompts of 16..256 tokens,
        96 new tokens each), timed; every request must finish and both
        paged kernels must have launched during the run;
@@ -56,13 +59,17 @@ Phases, in order; any failure exits non-zero:
        gated);
    (d) the same over int8 pools with self-draft speculation, spec_k=4:
        the draft proposes through the int8 decode kernel, the target
-       verifies through the int8 prefill kernel (its calls counted by
-       chunk: 4 for verify, 64 for prefill); proposed, accepted and
+       verifies through the int8 prefill kernel (its launches counted by
+       chunk from the graphs' replays: 4 for verify, 64 for prefill and
+       the draft's prefill twin); proposed, accepted and
        tokens per round are reported (self-draft doubles the work per
        token by design: this shows the path runs, not a speed-up);
-   (b) fp32, 8 requests x 32 new tokens, through the kernels and through
-       the plain versions: greedy tokens must be identical, and the first
-       tokens must match the dense ``GPT.forward`` recompute;
+   (b) fp32, 8 requests x 32 new tokens, through the kernels in captured
+       graphs, through the kernels dispatched eagerly
+       (``cuda_graphs=False``) and through the plain versions: greedy
+       tokens must be identical, the two kernel runs must launch K1 and
+       K3 equally often, and the first tokens must match the dense
+       ``GPT.forward`` recompute;
    (e) fp32 again: int8 pools through the kernels and through the plain
        versions give identical tokens, and self-draft speculation over
        int8 pools gives the non-speculative int8 tokens, each request up
@@ -89,6 +96,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import functools
+import gc
 import itertools
 import json
 import pathlib
@@ -668,17 +676,33 @@ def make_prompts(n, vocab, seed=1234):
     return [rng.integers(0, vocab, int(k)).astype(np.int32) for k in lens]
 
 
+def launches_by_chunk(eng, since, entry):
+    """``entry``'s launches since the tally ``since`` by the chunk of its
+    calls, from the engine's launches per bucket signature (replays and
+    eager calls alike): ``spec_k`` for the speculative verify, the
+    prefill chunk for prefill and the draft's prefill twin."""
+    chunks = collections.Counter()
+    for sig, counts in eng.graphs.launches.items():
+        n = counts[entry.name] - since.get(sig, {}).get(entry.name, 0)
+        if n:
+            chunks[eng.spec_k if sig[0] == "verify"
+                   else eng.prefill_chunk] += n
+    return chunks
+
+
 def serve(device, kernels, label, profile=False, self_draft=False,
           **engine_kw):
     """One timed serving run of the main path at full width, bf16 weights:
-    48 requests x 96 new tokens through ``make_serving_engine``. Every
-    request must finish and every kernel in ``kernels`` must launch in
-    the run; ``self_draft`` makes the model its own draft; ``profile``
-    adds the decode profile (:func:`profile_decode`) to the stats as
-    ``decode_profile``. The int8 prefill kernel's calls (K4) are tallied
-    by chunk (``int8_prefill_calls_by_chunk``: 64 for prefill, spec_k
-    for the speculative verify). Returns (stats, generated token
-    streams)."""
+    48 requests x 96 new tokens through ``make_serving_engine``, after
+    ``warmup()`` has captured one CUDA graph per bucket signature. Every
+    request must finish, every kernel in ``kernels`` must launch in the
+    run and the run must capture no graph; ``self_draft`` makes the model
+    its own draft; ``profile`` adds the decode profile
+    (:func:`profile_decode`) to the stats as ``decode_profile``. The int8
+    prefill kernel's calls (K4) are tallied by chunk
+    (``int8_prefill_calls_by_chunk``: 64 for prefill, spec_k for the
+    speculative verify) from the engine's launches per signature. Returns
+    (stats, generated token streams)."""
     from paddle_tpu_torch.inference import make_serving_engine
     from paddle_tpu_torch.kernels import registry
     from paddle_tpu_torch.models.gpt import GPT
@@ -694,30 +718,26 @@ def serve(device, kernels, label, profile=False, self_draft=False,
     t0 = time.monotonic()
     eng.warmup()
     warm_s = time.monotonic() - t0
+    graphs = eng.graphs.builds
     prompts = make_prompts(48, cfg.vocab_size)
-    chunks = collections.Counter()
-    k4 = PA.PREFILL_INT8.cuda_fn
-
-    def k4_tally(q, *args, **kw):
-        chunks[q.shape[1]] += 1
-        return k4(q, *args, **kw)
-
     registry.reset_launches()               # count only the served run
-    PA.PREFILL_INT8.cuda_fn = k4_tally
-    try:
-        t0 = time.monotonic()
-        rids = [eng.submit(p, 96) for p in prompts]
-        done = {}
-        while not eng.scheduler.idle():
-            done.update(eng.step())
-        torch.cuda.synchronize()
-        wall = time.monotonic() - t0
-    finally:
-        PA.PREFILL_INT8.cuda_fn = k4
+    since = {sig: dict(c) for sig, c in eng.graphs.launches.items()}
+    t0 = time.monotonic()
+    rids = [eng.submit(p, 96) for p in prompts]
+    done = {}
+    while not eng.scheduler.idle():
+        done.update(eng.step())
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
     launches = {e.name: e.launches for e in kernels}
+    chunks = launches_by_chunk(eng, since, PA.PREFILL_INT8)
     if sum(chunks.values()) != PA.PREFILL_INT8.launches:
         raise AssertionError(f"int8 prefill calls {dict(chunks)} against "
                              f"{PA.PREFILL_INT8.launches} launches")
+    captured = eng.graphs.builds - graphs
+    if captured or eng.health()["recompiles"]:
+        raise AssertionError(f"{label}: {captured} graphs captured after "
+                             "warmup")
     for r in rids:
         toks = done.get(r)
         if toks is None or toks.shape != (96,):
@@ -736,6 +756,8 @@ def serve(device, kernels, label, profile=False, self_draft=False,
     stats = {
         "requests": len(prompts), "prompt_tokens": int(sum(map(len, prompts))),
         "generated_tokens": gen, "wall_s": wall, "warmup_s": warm_s,
+        "graphs": graphs, "captures_after_warmup": captured,
+        "graph_pool_bytes": eng.graphs.pool_bytes(),
         "decode_tokens_per_s": (gen - len(prompts)) / dec_s,
         "prefill_tokens_per_s":
             reg.counter("serving_prefill_tokens_total").value() / pre_s,
@@ -763,8 +785,15 @@ def serve(device, kernels, label, profile=False, self_draft=False,
             + json.dumps(stats["decode_profile"]))
     outs = [done[r] for r in rids]
     del eng, model
-    torch.cuda.empty_cache()
+    release()
     return stats, outs
+
+
+def release():
+    """Free what deleted engines held: an engine and its graphs refer to
+    each other, so only the cycle collector frees them."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def agreement(got, want):
@@ -778,14 +807,22 @@ def agreement(got, want):
             "of": len(prefix), "mean_agreeing_prefix": float(np.mean(prefix))}
 
 
+#: CUDA API calls that launch work (the runtime's ``cuda*`` and the
+#: low-level ``cu*`` entry points): one per eagerly dispatched kernel,
+#: one per CUDA graph replay
+LAUNCH_APIS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+               "cuLaunchKernelEx", "cudaGraphLaunch", "cuGraphLaunch")
+
+
 def profile_window(step, reps, keep=()):
     """Where the time of ``reps`` calls of ``step()`` goes: ``reps``
     calls run unprofiled (host clock, synchronised), then ``reps`` more
     under ``torch.profiler``. The profiler's own overhead inflates its
     window's wall time, so the device's busy share is the profiled
     window's device time over the unprofiled window's wall time. Returns
-    that share and device time by kernel (CUPTI): the top ten, and every
-    kernel whose name contains one of ``keep``."""
+    that share, device time by kernel (CUPTI): the top ten, and every
+    kernel whose name contains one of ``keep``, and the host's launch
+    calls by API (``LAUNCH_APIS``)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t0 = time.monotonic()
@@ -799,7 +836,10 @@ def profile_window(step, reps, keep=()):
             step()
         torch.cuda.synchronize()
     kernels = []
+    launch_calls = collections.Counter()
     for ev in prof.key_averages():
+        if ev.key in LAUNCH_APIS:
+            launch_calls[ev.key] += ev.count
         # user annotations (e.g. "Optimizer.step#AdamW.step") are ranges
         # on the device timeline, not kernels: counting them counts the
         # kernels inside them twice
@@ -814,6 +854,7 @@ def profile_window(step, reps, keep=()):
     out = {"unprofiled_wall_s": wall, "device_busy_s": busy,
            "device_busy_share": busy / wall,
            "kernel_launches": int(sum(k[2] for k in kernels)),
+           "launch_api_calls": dict(launch_calls),
            "top_kernels": [{"name": n, "ms": us / 1e3, "count": c}
                            for us, n, c in kernels[:10]]}
     if keep:
@@ -917,7 +958,9 @@ def _hold_tokens(model, prompts, got, want, what, quantized=False,
 
 def serve_fp32_parity(device):
     """Phases 4b and 4e: fp32 greedy parity, kernels against plain
-    versions, int8 pools, and speculation against plain decoding."""
+    versions, captured graphs against eager dispatch, int8 pools, and
+    speculation against plain decoding. Every engine is warmed up first
+    and must capture nothing while it serves."""
     from paddle_tpu_torch.inference import make_serving_engine
     from paddle_tpu_torch.kernels import registry
     from paddle_tpu_torch.models.gpt import GPT
@@ -933,22 +976,35 @@ def serve_fp32_parity(device):
     fp, q8 = (PA.DECODE, PA.PREFILL), (PA.DECODE_INT8, PA.PREFILL_INT8)
 
     def run(impl="kernel", launched=(), **kw):
-        registry.reset_launches()
         reg = MetricsRegistry()
         eng = make_serving_engine(model, device=device, attn_impl=impl,
                                   registry=reg, **ENGINE_KW, **kw)
+        eng.warmup()
+        registry.reset_launches()
         outs = eng.generate_many(prompts, max_new_tokens=32)
         counts = {e.name: e.launches for e in fp + q8}
         want = {e.name for e in launched}
         if any((n > 0) != (name in want) for name, n in counts.items()):
             raise AssertionError(f"fp32 run {impl} {sorted(kw)} launched "
                                  f"{counts}, expected only {sorted(want)}")
+        if eng.graphs.builds != len(eng.warmup_plan()):
+            raise AssertionError(f"fp32 run {impl} {sorted(kw)} captured "
+                                 "graphs after warmup")
         del eng
-        return outs, (reg.counter("serving_spec_proposed_total").value(),
-                      reg.counter("serving_spec_accepted_total").value())
+        release()
+        return outs, counts, (
+            reg.counter("serving_spec_proposed_total").value(),
+            reg.counter("serving_spec_accepted_total").value())
 
-    kern, _ = run(launched=fp)
-    plain, _ = run("plain")
+    kern, graphed, _ = run(launched=fp)
+    eager, eager_counts, _ = run(launched=fp, cuda_graphs=False)
+    _hold_tokens(model, prompts, kern, eager, "4b fp32 graphs vs eager")
+    if graphed != eager_counts:
+        raise AssertionError(f"4b launches through graphs {graphed} != "
+                             f"eager dispatch {eager_counts}")
+    log("  4b fp32 graphs vs eager dispatch: identical tokens, launches "
+        + json.dumps(graphed))
+    plain, _, _ = run("plain")
     _hold_tokens(model, prompts, kern, plain, "4b fp32 kernel vs plain")
     for i in range(2):
         ref = dense_greedy(model, prompts[i], 4)
@@ -958,19 +1014,19 @@ def serve_fp32_parity(device):
     log("  4b fp32 parity: 8 requests x 32 tokens identical through kernels "
         "and plain versions; first 4 tokens of 2 requests match dense "
         "forward")
-    k8, _ = run(launched=q8, cache_dtype=torch.int8)
-    p8, _ = run("plain", cache_dtype=torch.int8)
+    k8, _, _ = run(launched=q8, cache_dtype=torch.int8)
+    p8, _, _ = run("plain", cache_dtype=torch.int8)
     ties = {"int8_kernel_vs_plain": _hold_tokens(
         model, prompts, k8, p8, "4e int8 kernel vs plain", quantized=True,
         allow_ties=True)}
-    s8, (prop8, acc8) = run(launched=q8, draft_model=model,
-                            cache_dtype=torch.int8)
+    s8, _, (prop8, acc8) = run(launched=q8, draft_model=model,
+                               cache_dtype=torch.int8)
     ties["int8_self_draft_vs_int8"] = _hold_tokens(
         model, prompts, s8, k8, "4e int8 self-draft vs int8", quantized=True,
         allow_ties=True)
     weak = GPT(dataclasses.replace(cfg, num_layers=2), device=device,
                dtype=torch.float32, seed=1)
-    sw, (propw, accw) = run(launched=fp, draft_model=weak)
+    sw, _, (propw, accw) = run(launched=fp, draft_model=weak)
     _hold_tokens(model, prompts, sw, kern, "4e weak draft vs 4b kernel")
     if not accw < propw:
         raise AssertionError(f"weak draft accepted {accw} of {propw}: the "
@@ -985,7 +1041,7 @@ def serve_fp32_parity(device):
         "self-draft == int8 decoding up to near-ties, weak-draft "
         "speculation == 4b: " + json.dumps(stats))
     del model, weak
-    torch.cuda.empty_cache()
+    release()
     return stats
 
 

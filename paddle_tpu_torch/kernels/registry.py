@@ -75,6 +75,11 @@ def load_all() -> Tuple[str, ...]:
     return names()
 
 
+def launch_counts() -> Dict[str, int]:
+    """Every registered entry's launch count, by name."""
+    return {name: e.launches for name, e in _REGISTRY.items()}
+
+
 def reset_launches():
     """Set every entry's launch count to 0 (before a measured run)."""
     for entry in _REGISTRY.values():

@@ -8,8 +8,8 @@ The serving loop is two fixed-shape device steps:
   valid counts, causal paged attention through
   :func:`~paddle_tpu_torch.serving.paged_attention.ragged_paged_prefill_attention`;
 - a **decode step**: every slot advances a block of ``decode_block``
-  tokens per call (a Python loop on the device with one device-to-host
-  copy per block), attending over its own pages through
+  tokens per call (one device-to-host copy per block), attending over
+  its own pages through
   :func:`~paddle_tpu_torch.serving.paged_attention.ragged_paged_decode_attention`.
 
 Block-table widths are pow2-bucketed over the live high-water mark, so
@@ -35,13 +35,34 @@ non-speculative greedy decoding; rollback is a host-side cursor rewind
 on both caches. Speculation turns prefix sharing off (the draft must
 prefill every prompt token).
 
-Tensor parallelism, slot migration, the disaggregated tiers, the host
-spill tier, tracing, step anatomy and the flight recorder are later
+Every device call is one bucket signature (``("decode", w)``,
+``("prefill", w, lanes)``, ``("draft", w)``, ``("verify", w)``,
+``("draft_prefill", w, lanes)``, ``("copy_page",)``), and on the card
+each signature is one captured CUDA graph (:mod:`.graphs`), the
+counterpart of the reference's one compiled XLA program per bucket:
+:meth:`ServingEngine.warmup` captures every signature of
+:meth:`~ServingEngine.warmup_plan`, which covers
+:meth:`~ServingEngine.reachable_signatures`, so steady-state serving
+captures nothing (``health()["recompiles"]`` counts any capture after
+warmup). ``cuda_graphs=False`` dispatches eagerly instead; the CPU
+always does, counting its builds the same way.
+
+Observability, all host-side and outside every graph: ``tracer=`` for
+one root span per request with scheduler events and child spans per
+prefill chunk and decode block, ``ttft_budget_s=`` for an SLO burn-rate
+monitor over the TTFT histogram, ``request_stats(rid)``, ``health()``
+with the resource headroom, step anatomy (``anatomy``), the flight
+recorder (``flight``) and ``start_exposition()``.
+
+Tensor parallelism, slot migration (and its page read/write
+signatures), the disaggregated tiers and the host spill tier are later
 slices of the port.
 """
 
 from __future__ import annotations
 
+import functools
+import threading
 import time
 from collections import OrderedDict
 from typing import Dict, List, Optional, Sequence
@@ -49,9 +70,10 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from paddle_tpu_torch import observability as obs
 from paddle_tpu_torch.core.device import resolve_device
-from paddle_tpu_torch.observability import registry as obs
 from paddle_tpu_torch.serving import paged_attention as PA
+from paddle_tpu_torch.serving.graphs import StepGraphs
 from paddle_tpu_torch.serving.paged_cache import (PagedCacheConfig,
                                                   PagedKVCache, quantize_kv)
 from paddle_tpu_torch.serving.scheduler import (ContinuousBatchingScheduler,
@@ -82,7 +104,11 @@ class ServingEngine:
     ``GPT`` on the same device with the target's vocabulary) turns on
     speculative decoding with ``spec_k`` proposals per round over a draft
     cache of ``draft_cache_dtype`` (default ``cache_dtype``, else the
-    draft's weight dtype)."""
+    draft's weight dtype). ``cuda_graphs`` (default on) replays one
+    captured CUDA graph per bucket signature on the card; ``False``
+    dispatches every call eagerly (the graphs' parity leg). ``tracer``,
+    ``ttft_budget_s`` and ``slo_windows`` are the reference's
+    observability arguments."""
 
     def __init__(self, model, *, num_slots: int = 8, page_size: int = 16,
                  num_pages: Optional[int] = None,
@@ -96,9 +122,13 @@ class ServingEngine:
                  max_queue_depth: Optional[int] = None,
                  starvation_skips: int = 64,
                  registry: Optional[obs.MetricsRegistry] = None,
+                 tracer: Optional[obs.Tracer] = None,
+                 ttft_budget_s: Optional[float] = None,
+                 slo_windows=(60.0, 300.0),
                  attn_impl: str = "kernel", device="cuda",
                  draft_model=None, spec_k: int = 4,
-                 draft_cache_dtype: Optional[torch.dtype] = None):
+                 draft_cache_dtype: Optional[torch.dtype] = None,
+                 cuda_graphs: bool = True):
         self.device = resolve_device(device)
         for what, m in (("model", model), ("draft_model", draft_model)):
             if m is not None and m.device != self.device:
@@ -182,11 +212,45 @@ class ServingEngine:
                 f"scheduler_policy must be 'slo' or 'fifo', "
                 f"got {scheduler_policy!r}")
         self._reg = registry or obs.default()
+        self.recompile_detector = obs.RecompileDetector(
+            "serving_decode", warmup=1, registry=self._reg)
+        # request-lifecycle tracing: one root span per request, children
+        # per prefill chunk / decode block, scheduler verdicts as events;
+        # host-side only, so tracing cannot change what a graph runs
+        self.tracer = tracer or obs.tracing.default()
+        self._req_spans: Dict[int, object] = {}
+        self._phase_acc: Dict[int, Dict[str, float]] = {}
+        self.scheduler.event_cb = self._sched_event
+        self.ttft_budget_s = ttft_budget_s
+        self.slo_monitor = None
+        if ttft_budget_s is not None:
+            self.slo_monitor = obs.BurnRateMonitor(
+                "serving_ttft_seconds", ttft_budget_s,
+                windows=slo_windows, registry=self._reg,
+                tracer=self.tracer)
+        self.anatomy = obs.StepAnatomy(registry=self._reg,
+                                       tracer=self.tracer)
+        self.flight = obs.FlightRecorder(
+            "engine", anatomy=self.anatomy, registry=self._reg,
+            tracer=self.tracer)
+        self._anat_steps = 0
         # finished-request store for result(); pop-on-read + bounded
         self._results: "OrderedDict[int, np.ndarray]" = OrderedDict()
         self._rejects: "OrderedDict[int, Reject]" = OrderedDict()
+        self._stats: "OrderedDict[int, Dict[str, float]]" = OrderedDict()
         self._results_cap = max(64, 16 * num_slots)
+        # one captured graph per bucket signature on the card (eager
+        # calls on the CPU or with cuda_graphs=False), built by warmup()
+        # or on a signature's first use
+        self.graphs = StepGraphs(self.device, self._bucket_spec,
+                                 enabled=cuda_graphs)
         self.warmed_signatures: set = set()
+        # health(): a monitor may poll from its own thread while step()
+        # mutates the books, so step() publishes a snapshot at safe
+        # points and health() reads only that, under a lock
+        self._health_lock = threading.Lock()
+        self._health_snap: Dict[str, object] = {}
+        self._refresh_health()
 
     # -- request surface --------------------------------------------------
 
@@ -216,13 +280,42 @@ class ServingEngine:
             self._reg.counter("serving_rejected_total",
                               "requests load-shed instead of queued").inc(
                                   reason=e.reject.reason)
+            if self.tracer.enabled:
+                # shed at submit: a zero-length request span whose
+                # attributes carry the structured verdict
+                self.tracer.record_span(
+                    "serving.request", duration_s=0.0, status="shed",
+                    lane=lane, shed_reason=e.reject.reason,
+                    queue_depth=e.reject.queue_depth,
+                    est_ttft_s=round(e.reject.est_ttft_s, 6))
             raise
         self._reg.counter("serving_requests_total",
                           "requests submitted to the engine").inc()
         self._reg.counter("serving_prompt_tokens_total",
                           "prompt tokens submitted").inc(total -
                                                          max_new_tokens)
+        self._phase_acc[rid] = {"prefill_s": 0.0, "decode_s": 0.0,
+                                "prefill_chunks": 0.0,
+                                "decode_blocks": 0.0,
+                                "shared_tokens": 0.0,
+                                "spec_proposed": 0.0,
+                                "spec_accepted": 0.0}
+        if self.tracer.enabled:
+            root = self.tracer.start_span(
+                "serving.request", rid=rid, lane=lane,
+                prompt_tokens=total - max_new_tokens,
+                max_new_tokens=max_new_tokens)
+            root.add_event("submitted",
+                           queue_depth=self.scheduler.queue_depth())
+            self._req_spans[rid] = root
+        self._refresh_health()
         return rid
+
+    def _sched_event(self, rid: int, name: str, **attrs):
+        """Scheduler decision -> event on the request's trace span."""
+        root = self._req_spans.get(rid)
+        if root is not None:
+            root.add_event(name, **attrs)
 
     def result(self, rid: int) -> Optional[np.ndarray]:
         """Generated tokens for a finished request (None while running
@@ -234,6 +327,103 @@ class ServingEngine:
         deadline expired before admission); pop-on-read."""
         return self._rejects.pop(rid, None)
 
+    def request_stats(self, rid: int) -> Optional[Dict[str, float]]:
+        """Per-request latency record of a finished request: the wall
+        split (``ttft_s``, ``queue_wait_s``, ``prefill_s``), the time
+        inside the device calls (``prefill_compute_s``, ``decode_s``),
+        ``prefill_chunks`` / ``decode_blocks``, ``shared_tokens``,
+        ``spec_proposed`` / ``spec_accepted``, ``tokens`` and
+        ``trace_id`` (0 with tracing off); pop-on-read, bounded."""
+        return self._stats.pop(rid, None)
+
+    def _refresh_health(self):
+        """Recompute the health snapshot from the live scheduler and
+        cache books; called from the engine's own thread at consistent
+        points (construction, submit, end of step)."""
+        h: Dict[str, object] = {
+            "slot_occupancy": self.scheduler.occupancy(),
+            "queue_depth": self.scheduler.queue_depth(),
+            "page_utilization": self.cache.utilization(),
+            "free_slots": len(self.scheduler.free_slots()),
+            "recompiles": self.recompile_detector.recompiles,
+            "requests_in_flight": len(self.scheduler.active_slots()),
+            "steps": int(self._reg.counter(
+                "serving_steps_total").value()),
+            # one card, no tensor parallelism, the colocated tier
+            "tp": 1,
+            "mesh_devices": 1,
+            "tp_probe": False,
+            "tier": "colocated",
+            "prefix_gen": int(self.cache.prefix_gen),
+        }
+        if self.slo_monitor is not None:
+            h["slo"] = self.slo_monitor.status()
+        h["headroom"] = self._headroom()
+        with self._health_lock:
+            self._health_snap = h
+
+    def _headroom(self) -> Dict[str, float]:
+        """Spare capacity per resource in [0, 1], published as
+        ``serving_headroom`` gauges. Flops stay unpriced (utilization
+        0.0, the reference's value without its cost gauges) and spill
+        stays 1.0 (no host spill tier)."""
+        util = self.cache.utilization()
+        free = len(self.scheduler.free_slots())
+        cap_b = self.cache.capacity_bytes()
+        live_b = self.cache.live_bytes()
+        tokens = self._reg.counter("serving_tokens_total").value()
+        saved = self._reg.counter(
+            "serving_prefix_shared_tokens_total").value()
+        head = {
+            "flops_utilization": 0.0,
+            "flops": 1.0,
+            "pages": round(max(1.0 - util, 0.0), 6),
+            "slots": round(free / self.scheduler.num_slots, 6),
+            "hbm": round(max(1.0 - (live_b / cap_b if cap_b else 0.0),
+                             0.0), 6),
+            "hbm_live_bytes": int(live_b),
+            "hbm_capacity_bytes": int(cap_b),
+            "flops_per_busy_s": 0.0,
+            "prefix_saved_per_token": round(
+                saved / tokens if tokens else 0.0, 6),
+            "spill": 1.0,
+            "spill_pages": 0,
+            "spill_bytes": 0,
+        }
+        g = self._reg.gauge(
+            "serving_headroom",
+            "spare capacity per resource (1 = idle, 0 = saturated)")
+        for res in ("flops", "pages", "slots", "hbm", "spill"):
+            g.set(head[res], resource=res)
+        self._reg.gauge(
+            "serving_prefix_saved_per_token",
+            "prefill tokens skipped via prefix sharing per served token"
+        ).set(head["prefix_saved_per_token"])
+        return head
+
+    def health(self) -> Dict[str, object]:
+        """Structured live health (the ``/healthz`` payload): slot
+        occupancy, queue depth, page utilization, free slots, recompile
+        count (graph captures after warmup), headroom, and the SLO
+        monitor's state when one is configured. Safe to call from any
+        thread while ``step()`` runs: it returns the last published
+        snapshot."""
+        with self._health_lock:
+            return dict(self._health_snap)
+
+    def start_exposition(self, port: int = 0, host: str = "127.0.0.1"):
+        """Start a background
+        :class:`~paddle_tpu_torch.observability.ExpositionServer` over
+        the engine's registry and tracer, with the engine as the
+        ``serving`` health provider and its flight recorder's bundles
+        under ``/debug/postmortem``. Port 0 binds an ephemeral port
+        (``server.port``); the caller stops it."""
+        srv = obs.ExpositionServer(registry=self._reg, tracer=self.tracer,
+                                   port=port, host=host)
+        srv.add_health("serving", self.health)
+        srv.add_postmortem("serving", self.flight.bundles)
+        return srv.start()
+
     # -- engine loop ------------------------------------------------------
 
     def step(self) -> Dict[int, np.ndarray]:
@@ -243,6 +433,9 @@ class ServingEngine:
         block, evict finished sequences. Returns ``{rid: generated
         tokens}`` for requests that finished now."""
         finished: Dict[int, np.ndarray] = {}
+        self._anat_steps += 1
+        self.anatomy.begin_step(self._anat_steps)
+        step_tokens = 0
         if isinstance(self.scheduler, SLOScheduler):
             for req in self.scheduler.shed_expired():
                 rej = Reject("deadline_expired", req.lane,
@@ -254,6 +447,12 @@ class ServingEngine:
                 self._reg.counter("serving_rejected_total",
                                   "requests load-shed instead of queued"
                                   ).inc(reason=rej.reason)
+                self._phase_acc.pop(req.rid, None)
+                root = self._req_spans.pop(req.rid, None)
+                if root is not None:
+                    root.add_event("shed", reason=rej.reason,
+                                   deadline_s=req.ttft_deadline_s)
+                    root.finish(status="shed")
         budget = self.prefill_budget
         prefilled_any = False
         while True:  # admissions can cascade as early-EOS slots free up
@@ -280,10 +479,25 @@ class ServingEngine:
                 kept = self._speculative_round(dslots)
             else:
                 kept = self._decode_round(dslots)
+            step_tokens += kept
             self._reg.counter("serving_tokens_total",
                               "decode tokens produced").inc(kept)
             self._reg.counter("serving_steps_total").inc()
+            self.recompile_detector.check()
             finished.update(self._evict())
+
+        if self.slo_monitor is not None:
+            self.slo_monitor.check()
+        if prefilled_any or dslots:
+            self.anatomy.end_step(tokens=step_tokens)
+        else:
+            # an idle tick is not a serving step: recording it would
+            # count queue-empty waiting as host gap
+            self.anatomy.cancel_step()
+        self._refresh_health()
+        with self._health_lock:
+            snap = self._health_snap
+        self.flight.note(snap)
         return finished
 
     def _decode_round(self, dslots) -> int:
@@ -291,38 +505,52 @@ class ServingEngine:
         tokens through the decode step; returns tokens kept."""
         n = self.decode_block
         s_tot = self.scheduler.num_slots
-        tokens = np.zeros((s_tot,), np.int64)
-        active = np.zeros((s_tot,), np.bool_)
+        tokens = np.zeros((s_tot,), np.int32)
+        active = np.zeros((s_tot,), np.int32)
         for i in dslots:
             tokens[i] = self.scheduler.slots[i].generated[-1]
-            active[i] = True
+            active[i] = 1
         w = self._pow2_width(max(
             self.cache.config.pages_for(
                 int(self.cache.lengths[i]) + n) for i in dslots))
         t0 = time.monotonic()
-        out = self._decode_loop(self.model, self.cache,
-                                self._dev(self.cache.block_tables[:, :w]),
-                                self._dev(self.cache.lengths),
-                                self._dev(tokens), self._dev(active), n)
+        out = self.graphs.run(("decode", w), dict(
+            block_tables=self.cache.block_tables[:, :w],
+            lengths=self.cache.lengths, tokens=tokens, active=active))
         out = out.cpu().numpy()                   # (S, decode_block)
         t1 = time.monotonic()
         self._reg.histogram(
             "serving_decode_step_seconds",
             "wall time per decode block (sync included)").observe(t1 - t0)
+        self.anatomy.add_phase("decode", t0, t1)
+        tr_on = self.tracer.enabled
         kept = 0
         for i in dslots:
             st = self.scheduler.slots[i]
             req = st.request
             budget_i = req.max_new_tokens - len(st.generated)
+            kept_i = 0
             for j in range(min(n, budget_i)):
                 tok = int(out[i, j])
                 st.generated.append(tok)
-                kept += 1
+                kept_i += 1
                 if req.eos_id is not None and tok == req.eos_id:
                     break
+            kept += kept_i
             if not st.finished():
                 # the device advanced this slot the full block
                 self.cache.lengths[i] += n
+            acc = self._phase_acc.get(req.rid)
+            if acc is not None:
+                acc["decode_s"] += t1 - t0
+                acc["decode_blocks"] += 1
+            if tr_on:
+                # lanes run in the same batched call, so the spans share
+                # the interval: a parallel track per request
+                self.tracer.record_span(
+                    "serving.decode_block", start=t0, end=t1,
+                    parent=self._req_spans.get(req.rid),
+                    slot=i, tokens=kept_i)
         return kept
 
     def _speculative_round(self, dslots) -> int:
@@ -340,13 +568,13 @@ class ServingEngine:
         reservation. Returns tokens kept."""
         n = self.spec_k
         s_tot = self.scheduler.num_slots
-        tokens = np.zeros((s_tot,), np.int64)
-        active = np.zeros((s_tot,), np.bool_)
+        tokens = np.zeros((s_tot,), np.int32)
+        active = np.zeros((s_tot,), np.int32)
         nv = np.zeros((s_tot,), np.int32)
         for i in dslots:
             st = self.scheduler.slots[i]
             tokens[i] = st.generated[-1]
-            active[i] = True
+            active[i] = 1
             # never write past the slot's reservation: the chunk is
             # capped at the remaining generation budget
             nv[i] = min(n, st.request.max_new_tokens - len(st.generated))
@@ -354,24 +582,26 @@ class ServingEngine:
             self.cache.config.pages_for(
                 int(self.cache.lengths[i]) + n) for i in dslots))
         t0 = time.monotonic()
-        tokens_dev, nv_dev = self._dev(tokens), self._dev(nv)
-        props_dev = self._decode_loop(
-            self.draft_model, self.draft_cache,
-            self._dev(self.draft_cache.block_tables[:, :w]),
-            self._dev(self.draft_cache.lengths), tokens_dev,
-            self._dev(active), n, n_valid=nv_dev)           # (S, spec_k)
-        chunk = torch.cat([tokens_dev[:, None],
-                           props_dev[:, :n - 1].long()], dim=1)
-        ver = self._prefill_loop(self.model, self.cache,
-                                 self._dev(self.cache.block_tables[:, :w]),
-                                 self._dev(self.cache.lengths), chunk,
-                                 nv_dev, all_positions=True)  # (S, spec_k)
+        props_dev = self.graphs.run(("draft", w), dict(
+            block_tables=self.draft_cache.block_tables[:, :w],
+            lengths=self.draft_cache.lengths, tokens=tokens,
+            active=active, n_valid=nv))                     # (S, spec_k)
+        ver = self.graphs.run(("verify", w), dict(
+            block_tables=self.cache.block_tables[:, :w],
+            lengths=self.cache.lengths, tokens=tokens, n_valid=nv),
+            {"props": props_dev})                          # (S, spec_k)
         props = props_dev.cpu().numpy()
+        # the proposals arrive when the draft call has finished: the
+        # clock read between the two copies splits the round
+        t_mid = time.monotonic()
         ver = ver.cpu().numpy()
         t1 = time.monotonic()
         self._reg.histogram(
             "serving_decode_step_seconds",
             "wall time per decode block (sync included)").observe(t1 - t0)
+        self.anatomy.add_phase("draft", t0, t_mid)
+        self.anatomy.add_phase("verify", t_mid, t1)
+        tr_on = self.tracer.enabled
         kept = 0
         for i in dslots:
             st = self.scheduler.slots[i]
@@ -382,12 +612,14 @@ class ServingEngine:
             a = 1
             while a < c and props[i, a - 1] == ver[i, a - 1]:
                 a += 1
+            kept_i = 0
             for j in range(a):
                 tok = int(ver[i, j])
                 st.generated.append(tok)
-                kept += 1
+                kept_i += 1
                 if req.eos_id is not None and tok == req.eos_id:
                     break
+            kept += kept_i
             if not st.finished():
                 # commit exactly the accepted inputs on both caches
                 self.cache.lengths[i] += a
@@ -405,6 +637,17 @@ class ServingEngine:
                     "accepted/proposed draft tokens per verify round",
                     buckets=(0.125, 0.25, 0.375, 0.5, 0.625, 0.75,
                              0.875, 1.0)).observe(accepted / proposed)
+            acc = self._phase_acc.get(req.rid)
+            if acc is not None:
+                acc["decode_s"] += t1 - t0
+                acc["decode_blocks"] += 1
+                acc["spec_proposed"] += proposed
+                acc["spec_accepted"] += accepted
+            if tr_on:
+                self.tracer.record_span(
+                    "serving.verify_block", start=t0, end=t1,
+                    parent=self._req_spans.get(req.rid), slot=i,
+                    tokens=kept_i, proposed=proposed, accepted=accepted)
         return kept
 
     def generate_many(self, prompts: Sequence, max_new_tokens: int = 32,
@@ -431,10 +674,38 @@ class ServingEngine:
             if self.speculative:
                 self.draft_cache.free_slot(slot)
             toks = np.asarray(st.generated, np.int32)
-            self._results[st.request.rid] = toks
-            out[st.request.rid] = toks
+            req = st.request
+            self._results[req.rid] = toks
+            acc = self._phase_acc.pop(req.rid, None) or {}
+            root = self._req_spans.pop(req.rid, None)
+            # the wall split from the lifecycle stamps, and the compute
+            # split whose numbers are the request's trace spans
+            self._stats[req.rid] = {
+                "ttft_s": st.first_token_at - req.submitted_at,
+                "queue_wait_s": st.admitted_at - req.submitted_at,
+                "prefill_s": st.first_token_at - st.admitted_at,
+                "prefill_compute_s": acc.get("prefill_s", 0.0),
+                "decode_s": acc.get("decode_s", 0.0),
+                "prefill_chunks": acc.get("prefill_chunks", 0.0),
+                "decode_blocks": acc.get("decode_blocks", 0.0),
+                "shared_tokens": acc.get("shared_tokens", 0.0),
+                "spec_proposed": acc.get("spec_proposed", 0.0),
+                "spec_accepted": acc.get("spec_accepted", 0.0),
+                "tokens": float(len(st.generated)),
+                "trace_id": float(root.trace_id) if root is not None
+                else 0.0,
+            }
+            if root is not None:
+                root.add_event("finished", tokens=len(st.generated))
+                root.set_attrs(
+                    tokens=len(st.generated),
+                    shared_tokens=int(acc.get("shared_tokens", 0)))
+                root.finish()
+            out[req.rid] = toks
         while len(self._results) > self._results_cap:
             self._results.popitem(last=False)   # oldest unconsumed
+        while len(self._stats) > self._results_cap:
+            self._stats.popitem(last=False)
         return out
 
     # -- prefill ----------------------------------------------------------
@@ -460,6 +731,15 @@ class ServingEngine:
             "serving_queue_wait_seconds", "submit -> slot admission wait",
             buckets=_LATENCY_BUCKETS).observe(
                 max(st.admitted_at - req.submitted_at, 0.0))
+        acc = self._phase_acc.get(req.rid)
+        if acc is not None:
+            acc["shared_tokens"] = float(shared)
+        root = self._req_spans.get(req.rid)
+        if root is not None:
+            root.add_event("admitted", slot=slot, queue_wait_s=round(
+                max(st.admitted_at - req.submitted_at, 0.0), 6))
+            if shared:
+                root.add_event("prefix_shared", tokens=shared)
 
     def _prefill_round(self, budget: int,
                        allow_liveness: bool = True) -> int:
@@ -494,7 +774,7 @@ class ServingEngine:
             # compact batch, pow2-bucketed over the slots actually
             # prefilling; padding lanes are inert (n_valid 0, null page)
             sb = self._pow2_count(len(pslots))
-            tokens = np.zeros((sb, c), np.int64)
+            tokens = np.zeros((sb, c), np.int32)
             starts = np.zeros((sb,), np.int32)
             nv = np.zeros((sb,), np.int32)
             bt_rows = np.zeros((sb, cfgc.max_pages_per_slot), np.int32)
@@ -505,11 +785,16 @@ class ServingEngine:
                 if pc is not None:
                     # copy-on-write of a borrowed tail page, owed before
                     # this slot's first write lands in it
-                    self._copy_page(*pc)
+                    self.graphs.run(("copy_page",),
+                                    {"src": pc[0], "dst": pc[1]})
                     self.cache.copy_done(i)
                     self._reg.counter(
                         "serving_prefix_cow_total",
                         "copy-on-write page copies for shared tails").inc()
+                    root = self._req_spans.get(st.request.rid)
+                    if root is not None:
+                        root.add_event("cow_copy", src_page=int(pc[0]),
+                                       dst_page=int(pc[1]))
                 prompt = st.request.prompt
                 lo = st.prefilled
                 # borrower write isolation: the page this chunk starts
@@ -527,26 +812,27 @@ class ServingEngine:
                 cfgc.pages_for(int(starts[j]) + int(nv[j]))
                 for j in range(len(pslots))))
             t0 = time.monotonic()
-            starts_dev, tokens_dev, nv_dev = (self._dev(a) for a in
-                                              (starts, tokens, nv))
-            nxt = self._prefill_loop(self.model, self.cache,
-                                     self._dev(bt_rows[:, :w]), starts_dev,
-                                     tokens_dev, nv_dev)
+            nxt = self.graphs.run(("prefill", w, sb), dict(
+                block_tables=bt_rows[:, :w], starts=starts, tokens=tokens,
+                n_valid=nv))
             if self.speculative:
                 # the draft ingests the same chunks so its cache mirrors
                 # the target's committed prefix (its output is unused)
-                self._prefill_loop(self.draft_model, self.draft_cache,
-                                   self._dev(dbt_rows[:, :w]), starts_dev,
-                                   tokens_dev, nv_dev)
+                self.graphs.run(("draft_prefill", w, sb), dict(
+                    block_tables=dbt_rows[:, :w], starts=starts,
+                    tokens=tokens, n_valid=nv))
             nxt = nxt.cpu().numpy()
             now = time.monotonic()
             self._reg.histogram(
                 "serving_prefill_step_seconds",
                 "wall time per batched prefill call (sync included)"
             ).observe(now - t0)
+            self.anatomy.add_phase("prefill", t0, now)
             call_tokens = 0
+            tr_on = self.tracer.enabled
             for j, i in enumerate(pslots):
                 st = self.scheduler.slots[i]
+                rid = st.request.rid
                 n = int(nv[j])
                 st.prefilled += n
                 self.cache.lengths[i] += n
@@ -555,6 +841,15 @@ class ServingEngine:
                 call_tokens += n
                 self.cache.publish_prefix(i, st.request.prompt,
                                           st.prefilled)
+                acc = self._phase_acc.get(rid)
+                if acc is not None:
+                    acc["prefill_s"] += now - t0
+                    acc["prefill_chunks"] += 1
+                if tr_on:
+                    self.tracer.record_span(
+                        "serving.prefill_chunk", start=t0, end=now,
+                        parent=self._req_spans.get(rid), slot=i,
+                        tokens=n, start_pos=st.prefilled - n)
                 if st.prefill_done:
                     st.generated.append(int(nxt[j]))
                     st.first_token_at = now
@@ -571,6 +866,10 @@ class ServingEngine:
                             now - st.admitted_at)
                     self._reg.counter("serving_tokens_total").inc()
                     self.scheduler.note_ttft(ttft)
+                    root = self._req_spans.get(rid)
+                    if root is not None:
+                        root.add_event("first_token",
+                                       ttft_s=round(ttft, 6))
             consumed += call_tokens
             self._reg.counter(
                 "serving_prefill_tokens_total",
@@ -594,11 +893,16 @@ class ServingEngine:
         return min(s, self.scheduler.num_slots)
 
     def warmup_plan(self):
-        """The buckets :meth:`warmup` runs, in order: ``("decode",
-        width)``, ``("prefill", width, lanes)`` and ``("copy_page",)``; a
-        speculative engine swaps the decode buckets for ``("draft",
-        width)`` and ``("verify", width)`` and adds the draft's
-        ``("draft_prefill", width, lanes)`` twins."""
+        """The signatures :meth:`warmup` builds, in build order:
+        ``("decode", width)``, ``("prefill", width, lanes)`` and
+        ``("copy_page",)``; a speculative engine swaps the decode
+        buckets for ``("draft", width)`` and ``("verify", width)`` and
+        adds the draft's ``("draft_prefill", width, lanes)`` twins.
+        Derived from the warmup-side doubling loops; it covers
+        :meth:`reachable_signatures`, which makes zero captures after
+        warmup a property of the plan. The reference's migration page
+        IO signatures (``("page_read",)``, ``("page_write",)``) come
+        with slot migration, which the port does not have yet."""
         c = self.cache.config
         s_tot = self.scheduler.num_slots
         widths, w = [], 1
@@ -627,50 +931,77 @@ class ServingEngine:
         plan.append(("copy_page",))
         return plan
 
+    def reachable_signatures(self):
+        """Every signature the steady-state ``step()`` loop can request,
+        enumerated from the step-side bucketing functions
+        (``_pow2_width`` over every possible live page count,
+        ``_pow2_count`` over every in-prefill slot count): the other
+        half of the coverage proof. A speculative engine's decode phase
+        requests draft and verify buckets instead of decode buckets,
+        plus the draft-prefill twins."""
+        c = self.cache.config
+        widths = {self._pow2_width(n)
+                  for n in range(1, c.max_pages_per_slot + 1)}
+        counts = {self._pow2_count(n)
+                  for n in range(1, self.scheduler.num_slots + 1)}
+        if self.speculative:
+            sigs = {("draft", w) for w in widths}
+            sigs |= {("verify", w) for w in widths}
+            sigs |= {("draft_prefill", w, sb)
+                     for w in widths for sb in counts}
+        else:
+            sigs = {("decode", w) for w in widths}
+        sigs |= {("prefill", w, sb) for w in widths for sb in counts}
+        sigs.add(("copy_page",))
+        return sigs
+
     def warmup(self):
-        """Run every decode and prefill bucket once against the null
-        page (no live state is touched), so the kernel build and every
-        bucket's first launch happen at start-up, not on a request."""
-        s_tot = self.scheduler.num_slots
-        zeros = self._dev(np.zeros((s_tot,), np.int32))
-        tok0 = self._dev(np.zeros((s_tot,), np.int64))
-        off = self._dev(np.zeros((s_tot,), np.bool_))
+        """Build every signature of :meth:`warmup_plan` up front, each
+        against the null page (no live state is touched): on the card
+        one eager call and one CUDA graph capture per signature, so the
+        kernel build, every capture and every first launch happen at
+        start-up and steady-state serving captures nothing. Records the
+        built set in :attr:`warmed_signatures`."""
         self.warmed_signatures = set()
         for sig in self.warmup_plan():
-            kind = sig[0]
-            if kind in ("decode", "draft", "verify"):
-                bt = self._dev(np.zeros((s_tot, sig[1]), np.int32))
-            if kind == "decode":
-                self._decode_loop(self.model, self.cache, bt, zeros, tok0,
-                                  off, self.decode_block)
-            elif kind == "draft":
-                self._decode_loop(self.draft_model, self.draft_cache, bt,
-                                  zeros, tok0, off, self.spec_k,
-                                  n_valid=zeros)
-            elif kind == "verify":
-                self._prefill_loop(
-                    self.model, self.cache, bt, zeros,
-                    self._dev(np.zeros((s_tot, self.spec_k), np.int64)),
-                    zeros, all_positions=True)
-            elif kind in ("prefill", "draft_prefill"):
-                w, sb = sig[1], sig[2]
-                zb = self._dev(np.zeros((sb,), np.int32))
-                model, cache = ((self.model, self.cache) if kind == "prefill"
-                                else (self.draft_model, self.draft_cache))
-                self._prefill_loop(
-                    model, cache, self._dev(np.zeros((sb, w), np.int32)), zb,
-                    self._dev(np.zeros((sb, self.prefill_chunk), np.int64)),
-                    zb)
-            else:
-                self._copy_page(0, 0)
+            self.graphs.build(sig)
             self.warmed_signatures.add(sig)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
     # -- device steps -----------------------------------------------------
 
-    def _dev(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+    def _bucket_spec(self, sig):
+        """(int32 input layout, step function) of one signature: the
+        function reads only those inputs, the weights and the pages."""
+        kind = sig[0]
+        s_tot = self.scheduler.num_slots
+        if kind in ("prefill", "draft_prefill"):
+            w, sb = sig[1], sig[2]
+            layout = (("block_tables", (sb, w)), ("starts", (sb,)),
+                      ("tokens", (sb, self.prefill_chunk)),
+                      ("n_valid", (sb,)))
+            model, cache = ((self.model, self.cache) if kind == "prefill"
+                            else (self.draft_model, self.draft_cache))
+            return layout, functools.partial(self._prefill_loop, model,
+                                             cache)
+        if kind == "copy_page":
+            return (("src", (1,)), ("dst", (1,))), self._copy_page
+        w = sig[1]
+        layout = (("block_tables", (s_tot, w)), ("lengths", (s_tot,)),
+                  ("tokens", (s_tot,)))
+        if kind == "decode":
+            return layout + (("active", (s_tot,)),), functools.partial(
+                self._decode_loop, self.model, self.cache,
+                n_steps=self.decode_block)
+        if kind == "draft":
+            return layout + (("active", (s_tot,)), ("n_valid", (s_tot,))), \
+                functools.partial(self._decode_loop, self.draft_model,
+                                  self.draft_cache, n_steps=self.spec_k)
+        if kind == "verify":
+            return layout + (("props", (s_tot, self.spec_k)),
+                             ("n_valid", (s_tot,))), self._verify
+        raise ValueError(f"unknown bucket signature {sig!r}")
 
     @staticmethod
     def _write_kv(layer, quantized, page_idx, off, k, v, axes):
@@ -699,15 +1030,17 @@ class ServingEngine:
         current token at position ``lengths[s]``, writing its K/V into
         the slot's current page of ``cache`` (int8 pools store quantized
         rows and scales), and attending ragged-paged over live pages
-        only. Non-decoding lanes (``active`` false: free slots and slots
+        only. Non-decoding lanes (``active`` 0: free slots and slots
         still mid-prefill, which own live pages the block must not
         corrupt) write to the null page, and so do iterations ``j >=
         n_valid[s]`` when ``n_valid`` is given (a draft chunk capped below
         ``n_steps`` must not write past the slot's reservation);
         post-EOS/post-cap lanes produce discarded tokens (the host keeps
-        only in-budget, pre-EOS ones). Returns (S, n_steps) int32 tokens
-        on the device."""
+        only in-budget, pre-EOS ones). Inputs are int32. Returns
+        (S, n_steps) int32 tokens on the device."""
         cfg = model.cfg
+        tokens = tokens.long()
+        active = active != 0
         ps = cache.config.page_size
         quantized = cache.config.quantized
         decode_attn = self._attn[quantized][0]
@@ -757,8 +1090,10 @@ class ServingEngine:
         causally over everything cached. Returns the greedy next token
         after each slot's last valid position, (S,) int32 on device, or
         with ``all_positions`` the greedy token after every chunk
-        position, (S, C) (the verifier's per-candidate target tokens)."""
+        position, (S, C) (the verifier's per-candidate target tokens).
+        Inputs are int32."""
         cfg = model.cfg
+        tokens = tokens.long()
         ps = cache.config.page_size
         quantized = cache.config.quantized
         prefill_attn = self._attn[quantized][1]
@@ -790,11 +1125,24 @@ class ServingEngine:
                  (n_valid.long() - 1).clamp(min=0)]             # (S, D)
         return (last @ model.wte.weight.T).argmax(-1).to(torch.int32)
 
+    def _verify(self, block_tables, lengths, tokens, props, n_valid):
+        """The speculative verify call: the chunk ``[pending, d_1 ..
+        d_{k-1}]`` assembled on the device from the draft's proposals
+        ``props`` (S, spec_k), through the target's batched prefill at
+        every position. Returns (S, spec_k) int32 target tokens."""
+        chunk = torch.cat([tokens[:, None], props[:, :self.spec_k - 1]],
+                          dim=1)
+        return self._prefill_loop(self.model, self.cache, block_tables,
+                                  lengths, chunk, n_valid,
+                                  all_positions=True)
+
     @torch.no_grad()
-    def _copy_page(self, src: int, dst: int):
+    def _copy_page(self, src, dst):
         """Device-side page copy (CoW of a borrowed shared tail page):
         every layer's K and V page ``src`` duplicated into ``dst``, with
-        the scale rows of an int8 pool, which travel with their page."""
+        the scale rows of an int8 pool, which travel with their page.
+        The bucket passes the page ids as (1,) device tensors, so one
+        captured copy serves every pair."""
         for layer in self.cache.pages:
             for t in layer:
                 t[dst] = t[src]

@@ -453,6 +453,15 @@ class PagedKVCache:
     def slot_pages(self, slot: int) -> List[int]:
         return list(self._slot_pages[slot])
 
+    @property
+    def prefix_gen(self) -> int:
+        """Monotonic publication generation: bumps whenever the prefix
+        index changes (a page published, or a published page evicted),
+        so a reader of ``health()`` can tell that a prefix it saw
+        advertised may be gone. The reference adds its host spill
+        tier's generation, a tier the port does not have yet."""
+        return self._index_gen
+
     def published_digests(self) -> frozenset:
         """Full-page prefix digests resolvable through the index (live or
         parked in the cached pool); memoized on the index generation."""

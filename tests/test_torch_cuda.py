@@ -14,7 +14,9 @@ and tensor-core prefill (K4) at Dh 64/48/33/128, a 4-row verify chunk
 and a 64-row prefill chunk, on an aligned and a misaligned pool, the
 tensor-core fp prefill (K3) over the same head dims and chunks, on an
 aligned and a misaligned bf16 pool and past its page-id table, the
-int8 and speculative engines at tiny size, tiny GPT and BERT with head
+int8 and speculative engines at tiny size, the engine's captured CUDA
+graphs against eager dispatch (tokens, launch counts, no capture after
+warmup) and a capture that fails and must raise, tiny GPT and BERT with head
 dim 16 training through the flash kernels as on the CPU (fault F1), the
 flash kernels over head dims 32/64/128 with lengths that are not
 multiples of their tiles (bf16 runs on the tensor cores) and their
@@ -655,3 +657,91 @@ def test_flash_wrappers_refuse_what_the_kernels_do_not_take(dev):
     lse = torch.zeros((1, 2, 8), device=dev)
     with pytest.raises(ValueError, match="lse"):
         FA.flash_bwd_dq_cuda(q, q, q, None, q, lse.double(), lse)
+
+
+# -- the engine's captured CUDA graphs ---------------------------------------
+
+def _graph_engines(dev, mode):
+    from paddle_tpu_torch.inference import make_serving_engine
+    from paddle_tpu_torch.models.gpt import GPT, GPTConfig
+    cfg = GPTConfig.tiny(vocab_size=64, hidden_size=32, num_heads=2)
+    dcfg = GPTConfig.tiny(vocab_size=64, hidden_size=16, num_heads=2,
+                          num_layers=1)
+    model = GPT(cfg, device=dev, seed=5)
+    kw = dict(num_slots=3, page_size=4, prefill_chunk=8,
+              max_tokens_per_slot=36)
+    if mode == "int8_speculative":
+        kw.update(cache_dtype=torch.int8,
+                  draft_model=GPT(dcfg, device=dev, seed=6), spec_k=3)
+    return lambda **extra: make_serving_engine(model, device=dev, **kw,
+                                               **extra)
+
+
+@pytest.mark.parametrize("mode", ["fp32", "int8_speculative"])
+def test_graphed_engine_matches_eager_dispatch(dev, mode):
+    """Captured graphs give eager dispatch's tokens with the same kernel
+    launches, capture nothing after warmup, and keep their tally of
+    launches per signature equal to the registry's counts."""
+    from paddle_tpu_torch.kernels import registry
+    make = _graph_engines(dev, mode)
+    rng = np.random.default_rng(0)
+    shared = rng.integers(1, 64, 9)
+    prompts = [np.concatenate([shared, rng.integers(1, 64, n)]).astype(
+        np.int32) for n in (5, 17, 2, 11)]
+    runs = {}
+    for graphed in (False, True):
+        eng = make(cuda_graphs=graphed)
+        eng.warmup()
+        assert eng.graphs.graphed == graphed
+        assert eng.graphs.builds == len(eng.warmup_plan())
+        registry.reset_launches()
+        tally = {s: dict(c) for s, c in eng.graphs.launches.items()}
+        # twice: the second pass maps the first's published prefix pages
+        outs = [eng.generate_many(prompts, 6) for _ in range(2)]
+        torch.cuda.synchronize()
+        counts = registry.launch_counts()
+        assert eng.graphs.builds == len(eng.warmup_plan())
+        assert eng.health()["recompiles"] == 0
+        for name, n in counts.items():
+            assert n == sum(c[name] - tally.get(s, {}).get(name, 0)
+                            for s, c in eng.graphs.launches.items())
+        if graphed:
+            assert eng.graphs.pool_bytes() > 0
+        eng.cache.check_invariants()
+        runs[graphed] = outs, counts
+    (eager, eager_counts), (graphs, graph_counts) = runs[False], runs[True]
+    assert graph_counts == eager_counts
+    paged = (PA.DECODE_INT8, PA.PREFILL_INT8) if "int8" in mode \
+        else (PA.DECODE, PA.PREFILL)
+    assert all(graph_counts[e.name] > 0 for e in paged)
+    for a, b in zip(sum(graphs, []), sum(eager, [])):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_a_failed_capture_raises_instead_of_dispatching_eagerly(dev):
+    """A step that cannot be captured (it reads a value back to the
+    host) fails its build with an error, every later build of the engine
+    is refused, and serving raises: nothing falls back to eager
+    dispatch."""
+    make = _graph_engines(dev, "fp32")
+    eng = make()
+    spec = eng._bucket_spec
+
+    def unsafe(sig):
+        layout, fn = spec(sig)
+
+        def step(**inputs):
+            int(inputs["lengths"].sum())       # a sync: not capturable
+            return fn(**inputs)
+        return layout, step
+
+    eng.graphs._spec = unsafe
+    with pytest.raises(RuntimeError):
+        eng.graphs.build(("decode", 1))
+    assert ("decode", 1) not in eng.graphs.signatures()
+    eng.graphs._spec = spec
+    with pytest.raises(RuntimeError, match="earlier graph capture failed"):
+        eng.graphs.build(("prefill", 1, 1))
+    with pytest.raises(RuntimeError, match="earlier graph capture failed"):
+        eng.generate_many([np.arange(1, 6, dtype=np.int32)], 2)
+    assert eng.graphs.builds == 1 and not eng.graphs.signatures()
