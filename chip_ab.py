@@ -18,9 +18,12 @@ checkout, so that each builds and imports its own ``paddle_tpu_torch``:
   token each, so that the window holds only batched prefill calls, run
   4 times unprofiled and 4 times under the profiler: prompt tokens/s,
   the device's busy share, its device time, the fp prefill kernel's
-  (K3) part of it, its kernels and the host's launch calls. A key one
-  tree does not report (the graphs' counts in a tree without graphs)
-  reads None and gets no ratio;
+  (K3) part of it, its kernels and the host's launch calls; then 4g's
+  bf16 slot migration (snapshot and restore ms per slot and GB/s) and
+  4h's disaggregated tiers (decode tokens/s, TTFT, handoff latency and
+  bytes). A key one tree does not report (the graphs' counts in a tree
+  without graphs, the migration and tier numbers in a tree without
+  them) reads None and gets no ratio;
 - ``kernels``: the bf16 rows of K1 at the serving shape and at the long,
   few-slot shape, of K2, K3 and K4 at the serving shape, of K3 and K4 at
   the speculative verify chunk, and of K6b at the training shape, from
@@ -50,6 +53,10 @@ SERVE_KEYS = ("decode_tokens_per_s", "prefill_tokens_per_s",
               "warmup_s", "graphs", "captures_after_warmup",
               "graph_pool_bytes")
 KERNEL_KEYS = ("ms", "device_ms", "host_ms")
+MIGRATION_KEYS = ("snapshot_ms_per_slot", "restore_ms_per_slot",
+                  "snapshot_gb_per_s", "restore_gb_per_s")
+DISAGG_KEYS = ("decode_tokens_per_s", "ttft_p50_s", "ttft_p99_s",
+               "handoff_p50_s", "handoff_p99_s", "handoff_bytes")
 
 #: one turn, run with ``python3 -c`` inside a checkout
 CHILD = f"""
@@ -136,11 +143,13 @@ if "serve" in phases:
              {{"cache_dtype": torch.int8}}),
             ("4d", [PA.DECODE_INT8, PA.PREFILL_INT8],
              {{"cache_dtype": torch.int8, "self_draft": True, "spec_k": 4}})):
-        stats, _ = cs.serve(dev, kernels, key, profile=key != "4d", **kw)
+        stats, outs = cs.serve(dev, kernels, key, profile=key != "4d",
+                               **kw)
         # keys a tree's chip_smoke.py does not report read None
         out[key] = {{k: stats.get(k) for k in {SERVE_KEYS!r}}}
         if key == "4a":
             out[key].update(prefill_window(dev))
+            colocated = outs
         prof = stats.get("decode_profile")
         if prof is None:
             continue
@@ -153,6 +162,11 @@ if "serve" in phases:
             decode_kernels=prof["kernel_launches"],
             decode_launch_calls=None if calls is None
             else sum(calls.values()))
+    mig, dis = (getattr(cs, f, None) for f in ("migration_run", "disagg_run"))
+    stats = {{}} if mig is None else mig(dev, "4g bf16 migration")
+    out["4g"] = {{k: stats.get(k) for k in {MIGRATION_KEYS!r}}}
+    stats = {{}} if dis is None else dis(dev, colocated)
+    out["4h"] = {{k: stats.get(k) for k in {DISAGG_KEYS!r}}}
 if "train" in phases:
     stats = cs.train_bf16(dev)
     out["5"] = {{k: stats[k] for k in {TRAIN_KEYS!r}}}

@@ -75,7 +75,33 @@ Phases, in order; any failure exits non-zero:
        int8 pools gives the non-speculative int8 tokens, each request up
        to a near-tie of the int8 dense recompute (``NEAR_TIE``); a weak
        draft (2 layers at full width, another seed) over fp pools gives
-       (b)'s tokens exactly, with accepted < proposed.
+       (b)'s tokens exactly, with accepted < proposed;
+   (f) ``GPT.generate(use_cache=True)`` (eager) and ``generate_bucketed``
+       (one captured decode graph per bucket) on (a)'s GPT, bf16, 16
+       prompts of 128 tokens, 128 new tokens: tokens/s, prefill ms, ms
+       per decode step, K5 launches (12 per prefill), the bucket's builds
+       and the captures of a second prompt length in it (must be 0);
+   (g) slot migration, bf16 and int8 pools: 16 of (a)'s requests on
+       engine A, after 2 decode blocks every live slot snapshotted,
+       released and restored on a warmed engine B, which finishes them:
+       restored pages re-read to their manifest digests, tokens agree
+       with an unmigrated run up to a near-tie, no capture after warmup;
+       snapshot and restore ms per slot and the page IO split by stage
+       (device read, device to host, sha256, host to device, device
+       write) with its GB/s;
+   (h) disaggregated: a prefill-tier and a decode-tier engine serve (a)'s
+       48 requests through ``poll_handoffs``/``restore_slot``: decode
+       tokens/s, TTFT and handoff latency p50/p99, bytes handed over,
+       each tier's signatures; tokens agree with (a) up to a near-tie, no
+       capture after warmup;
+   (i) host spill and prefix exchange: (a)'s engine with 160 pages and a
+       512-page host pool over waves sharing a 128-token prefix: pages and
+       bytes spilled and restored, restore GB/s, the prefix's 8 pages
+       exported to and imported by a fresh engine;
+   (j) fp32, 2 layers at full width, exact tokens: ``generate`` cached ==
+       uncached == bucketed == the serving engine; migrated ==
+       unmigrated; disaggregated == colocated; spill on == off; imported
+       prefix == fresh prefill.
 5. train   — BERT-base pretraining (vocab 30522, hidden 768, 12 layers,
    12 heads, ffn 3072, max_position 512, post-LN, dropout 0), batch
    48 x 512 with valid lengths 128..512, AdamW(1e-4), bf16 compute over
@@ -99,6 +125,7 @@ import functools
 import gc
 import itertools
 import json
+import math
 import pathlib
 import re
 import shutil
@@ -900,6 +927,13 @@ def dense_greedy(model, prompt, n):
 NEAR_TIE = 1e-2
 
 
+def _bf16_quantum(x: float) -> float:
+    """The spacing of bf16 values around ``x`` (8 significant bits): two
+    logits of a bf16 model that close are adjacent bf16 values, ordered
+    by the rounding of their last operation."""
+    return 2.0 ** (math.floor(math.log2(abs(x))) - 7) if x else 0.0
+
+
 def _dequantized(t):
     """(1, H, T, Dh) K or V through quantize_kv and back, per token."""
     from paddle_tpu_torch.serving.paged_cache import quantize_kv
@@ -931,9 +965,12 @@ def _hold_tokens(model, prompts, got, want, what, quantized=False,
                  allow_ties=False):
     """Tokens identical; with ``allow_ties`` a request may first differ
     only at a near-tie (after which its contexts differ and the rest is
-    not compared). A failure names the first differing position and the
-    top-2 logit gap of the dense recompute on ``want``'s context there.
-    Returns the near-ties met."""
+    not compared): a top-2 gap of the dense recompute under ``NEAR_TIE``
+    of the logits' standard deviation or, for a bf16 model, of at most
+    one bf16 step at the top logit (``_bf16_quantum``: the two are
+    adjacent bf16 values). A failure names the first differing position
+    and the top-2 logit gap of the dense recompute on ``want``'s context
+    there. Returns the near-ties met."""
     ties = []
     for i, (a, b) in enumerate(zip(got, want)):
         if np.array_equal(a, b):
@@ -947,7 +984,11 @@ def _hold_tokens(model, prompts, got, want, what, quantized=False,
         tie = {"request": i, "position": j,
                "top2_gap": float(top[0] - top[1]),
                "logit_std": float(logits.std())}
-        if not allow_ties or tie["top2_gap"] >= NEAR_TIE * tie["logit_std"]:
+        step = 0.0
+        if model.wte.weight.dtype == torch.bfloat16:
+            step = tie["bf16_step"] = _bf16_quantum(float(top[0]))
+        if not allow_ties or (tie["top2_gap"] >= NEAR_TIE * tie["logit_std"]
+                              and tie["top2_gap"] > step):
             raise AssertionError(
                 f"{what}: request {i} first differs at generated position "
                 f"{j} ({a[j:j + 4]} vs {b[j:j + 4]}); top-2 logit gap there "
@@ -1043,6 +1084,530 @@ def serve_fp32_parity(device):
     del model, weak
     release()
     return stats
+
+
+# -- phases 4f-4i: cached dense decoding and KV mobility ----------------------
+
+GEN_BATCH, GEN_PROMPT, GEN_NEW = 16, 128, 128
+MIGRATE_REQUESTS, MIGRATE_NEW = 16, 64
+#: the spill cell: 4a's engine with the page pool cut to 160 pages, so a
+#: wave of 16 requests over 256-token prompts evicts the published pages
+#: of an earlier wave sharing a 128-token prefix; the host pool holds 512
+#: pages, more than the filler wave spills after them
+SPILL_PAGES, HOST_SPILL_PAGES, SPILL_PREFIX = 161, 512, 128
+
+
+def _events_ms(fn):
+    """Device time of ``fn()`` between two CUDA events, synchronised."""
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    fn()
+    e1.record()
+    e1.synchronize()
+    return e0.elapsed_time(e1)
+
+
+def generate_run(device):
+    """4f: ``GPT.generate(use_cache=True)`` dispatched eagerly and
+    ``GPT.generate_bucketed`` through its captured decode graph, on 4a's
+    GPT in bf16: 16 prompts of 128 tokens, 128 new tokens each. The
+    prefill of both attends through K5 (12 launches per prefill); the
+    decode steps attend over the whole static cache (composed). Reports
+    tokens/s, the prefill's ms (events, median of 3), ms per decode step
+    (the rest of the call over its 127 steps), the buckets' builds and
+    the captures of a second prompt length in the same bucket (must be
+    0); tokens must be in the vocabulary, and the two paths' agreement is
+    reported (bf16; the fp32 leg gates equality)."""
+    from paddle_tpu_torch.kernels import registry
+    from paddle_tpu_torch.models.gpt import GPT
+    from paddle_tpu_torch.observability import capture_count
+    from paddle_tpu_torch.ops import attention as FA
+    cfg = model_config()
+    model = GPT(cfg, device=device, dtype=torch.bfloat16, seed=0)
+    rng = np.random.default_rng(4321)
+    host = rng.integers(0, cfg.vocab_size,
+                        (GEN_BATCH, GEN_PROMPT)).astype(np.int32)
+    prompt = torch.from_numpy(host).to(device)
+    model.generate(prompt[:, :16], 2, use_cache=True)   # first launches
+    cache = model.init_cache(GEN_BATCH, GEN_PROMPT + GEN_NEW)
+    prefill_ms = float(np.median([_events_ms(
+        lambda: model.prefill(prompt, cache)) for _ in range(3)]))
+    del cache
+    registry.reset_launches()
+    t0 = time.monotonic()
+    cached = model.generate(prompt, GEN_NEW, use_cache=True)
+    torch.cuda.synchronize()
+    cached_s = time.monotonic() - t0
+    k5_cached = FA.FWD.launches
+    caps = capture_count()
+    t0 = time.monotonic()
+    model.generate_bucketed(host, GEN_NEW)
+    torch.cuda.synchronize()
+    first_s = time.monotonic() - t0
+    builds = capture_count() - caps
+    t0 = time.monotonic()
+    bucketed = model.generate_bucketed(host, GEN_NEW)
+    torch.cuda.synchronize()
+    bucketed_s = time.monotonic() - t0
+    caps = capture_count()
+    model.generate_bucketed(host[:, :100], GEN_NEW)     # same (128, 128)
+    second = capture_count() - caps
+    k5 = FA.FWD.launches
+    if k5_cached != cfg.num_layers or k5 != 4 * cfg.num_layers:
+        raise AssertionError(f"4f: K5 launched {k5_cached} times in one "
+                             f"cached generate and {k5} in all, expected "
+                             f"{cfg.num_layers} per prefill")
+    if builds != 1 or second != 0:
+        raise AssertionError(f"4f: {builds} builds for the first bucketed "
+                             f"call, {second} for a second prompt length "
+                             "in the same bucket")
+    for name, ids in (("cached", cached), ("bucketed", bucketed)):
+        ids = ids.cpu().numpy()
+        if ids.shape != (GEN_BATCH, GEN_PROMPT + GEN_NEW) or not (
+                (ids >= 0) & (ids < cfg.vocab_size)).all():
+            raise AssertionError(f"4f: {name} ids {ids.shape} out of range")
+        if not np.array_equal(ids[:, :GEN_PROMPT], host):
+            raise AssertionError(f"4f: {name} lost the prompt")
+    gen = GEN_BATCH * GEN_NEW
+    stats = {
+        "batch": GEN_BATCH, "prompt": GEN_PROMPT, "new": GEN_NEW,
+        "cached_tokens_per_s": gen / cached_s,
+        "bucketed_tokens_per_s": gen / bucketed_s,
+        "prefill_ms": prefill_ms,
+        "cached_ms_per_decode_step":
+            (cached_s * 1e3 - prefill_ms) / (GEN_NEW - 1),
+        "bucketed_ms_per_decode_step":
+            (bucketed_s * 1e3 - prefill_ms) / (GEN_NEW - 1),
+        "bucketed_first_call_s": first_s, "bucket_builds": builds,
+        "captures_second_length": second, "k5_launches": k5,
+        "k5_launches_per_prefill": k5_cached,
+        "cached_vs_bucketed": agreement(
+            list(bucketed.cpu().numpy()[:, GEN_PROMPT:]),
+            list(cached.cpu().numpy()[:, GEN_PROMPT:])),
+    }
+    log("  4f generate: " + json.dumps(stats))
+    del model
+    release()
+    return stats
+
+
+def _engine(model, device, **kw):
+    from paddle_tpu_torch.inference import make_serving_engine
+    from paddle_tpu_torch.observability import MetricsRegistry
+    eng = make_serving_engine(model, registry=MetricsRegistry(),
+                              device=device, **{**ENGINE_KW, **kw})
+    eng.warmup()
+    return eng
+
+
+def _no_captures(label, *engines):
+    for eng in engines:
+        if eng.graphs.builds != len(eng.warmup_plan()) or \
+                eng.health()["recompiles"]:
+            raise AssertionError(
+                f"{label}: {eng.tier} engine captured "
+                f"{eng.graphs.builds - len(eng.warmup_plan())} graphs "
+                "after warmup")
+
+
+def _slot_of(eng, rid):
+    return next(i for i in eng.scheduler.active_slots()
+                if eng.scheduler.slots[i].request.rid == rid)
+
+
+def _to_mid_decode(eng, prompts, new, blocks=2):
+    """Submit ``prompts`` and step until every request has decoded
+    ``blocks`` blocks (none finished). Returns the rids."""
+    rids = [eng.submit(p, new) for p in prompts]
+    while True:
+        eng.step()
+        sts = [eng.scheduler.slots[i] for i in eng.scheduler.active_slots()]
+        if len(sts) == len(rids) and all(
+                s.prefill_done and eng._phase_acc[s.request.rid][
+                    "decode_blocks"] >= blocks for s in sts):
+            break
+    if any(s.finished() for s in sts):
+        raise AssertionError("a request finished before the migration")
+    return rids
+
+
+def _check_restored(eng, restored, label):
+    """Every restored page, read back through ``("page_read",)``, hashes
+    to its manifest entry."""
+    pages = 0
+    for rid, snap in restored:
+        slot = _slot_of(eng, rid)
+        n = len(snap["shards"])
+        got = [eng._shard_digest(eng._shard(p)) for p in
+               eng._read_pages(eng.cache.block_tables[slot, :n])]
+        if got != [r["sha256"] for r in snap["manifest"]]:
+            raise AssertionError(f"{label}: a restored page of request "
+                                 f"{rid} does not hash to its manifest")
+        pages += n
+    return pages
+
+
+def page_io_profile(eng, pids):
+    """The page IO of pages ``pids`` split by stage, each timed on its
+    own: device read (``("page_read",)`` replays, events), device to host
+    (copies of the static output into pinned memory, events), sha256 (host
+    clock), host to device (pinned copies of each page's own bytes,
+    events) and device write (``("page_write",)`` replays of those bytes
+    into the same pages, events). Returns ms per page and GB/s per
+    stage."""
+    from paddle_tpu_torch.serving.engine import _bits, _host_array
+    n = len(pids)
+    out = None
+
+    def reads():
+        nonlocal out
+        for pid in pids:
+            out = eng.graphs.run(("page_read",), {"src": int(pid)})
+
+    read_ms = _events_ms(reads)
+    outs = tuple(_bits(t) for t in (out if isinstance(out, tuple)
+                                    else (out,)))
+    nbytes = sum(t.numel() * t.element_size() for t in outs)
+    hosts = [tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                   for t in outs) for _ in pids]
+    d2h_ms = _events_ms(lambda: [h.copy_(t, non_blocking=True)
+                                 for hs in hosts for h, t in zip(hs, outs)])
+    payloads = eng._read_pages(pids)
+    t0 = time.perf_counter()
+    for p in payloads:
+        eng._shard_digest(eng._shard(p))
+    hash_ms = (time.perf_counter() - t0) * 1e3
+    for hs, p in zip(hosts, payloads):
+        for h, a in zip(hs, p):
+            _host_array(h)[...] = a
+    devs = [tuple(torch.empty_like(t) for t in outs) for _ in pids]
+    h2d_ms = _events_ms(lambda: [d.copy_(h, non_blocking=True)
+                                 for ds, hs in zip(devs, hosts)
+                                 for d, h in zip(ds, hs)])
+    dtype = eng.cache.config.dtype
+
+    def writes():
+        for pid, ds in zip(pids, devs):
+            feeds = dict(zip(("kv", "sc"), ds))
+            feeds["kv"] = feeds["kv"].view(dtype)
+            eng.graphs.run(("page_write",), {"dst": int(pid)}, feeds)
+
+    write_ms = _events_ms(writes)
+    stages = (("read", read_ms), ("d2h", d2h_ms), ("hash", hash_ms),
+              ("h2d", h2d_ms), ("write", write_ms))
+    return {"pages": n, "page_bytes": nbytes,
+            "ms_per_page": {k: ms / n for k, ms in stages},
+            "gb_per_s": {k: nbytes * n / (ms * 1e6) for k, ms in stages}}
+
+
+def migration_run(device, label, **engine_kw):
+    """4g: 16 requests of 4a's prompt mix (64 new tokens) on engine A;
+    after every request has decoded 2 blocks, every live slot is
+    snapshotted and released on A and restored on a warmed engine B,
+    which finishes them. Gates: each restored page re-read through
+    ``("page_read",)`` hashes to its manifest entry; tokens agree with an
+    unmigrated run (on B, before) by 4e's ``NEAR_TIE`` rule; A and B
+    capture nothing after warmup. Reports snapshot and restore ms per slot
+    and the page-IO split of the longest slot's pages
+    (:func:`page_io_profile`)."""
+    from paddle_tpu_torch.models.gpt import GPT
+    cfg = model_config()
+    model = GPT(cfg, device=device, dtype=torch.bfloat16, seed=0)
+    prompts = make_prompts(MIGRATE_REQUESTS, cfg.vocab_size)
+    a = _engine(model, device, **engine_kw)
+    b = _engine(model, device, **engine_kw)
+    want = b.generate_many(prompts, MIGRATE_NEW)
+    rids = _to_mid_decode(a, prompts, MIGRATE_NEW)
+    snap_s, restore_s, restored, moved = [], [], [], {}
+    for rid in rids:
+        slot = _slot_of(a, rid)
+        t0 = time.monotonic()
+        snap = a.snapshot_slot(slot)
+        snap_s.append(time.monotonic() - t0)
+        a.release_slot(slot)
+        t0 = time.monotonic()
+        new = b.restore_slot(snap)
+        restore_s.append(time.monotonic() - t0)
+        restored.append((new, snap))
+        moved[rid] = new
+    pages = _check_restored(b, restored, label)
+    longest = max(restored, key=lambda r: len(r[1]["shards"]))
+    io = page_io_profile(b, b.cache.block_tables[
+        _slot_of(b, longest[0]), :len(longest[1]["shards"])])
+    done = {}
+    while not b.scheduler.idle():
+        done.update(b.step())
+    got = [done[moved[r]] for r in rids]
+    quantized = b.quantized
+    ties = _hold_tokens(model, prompts, got, want, label,
+                        quantized=quantized, allow_ties=True)
+    _no_captures(label, a, b)
+    shard_bytes = sum(r["bytes"] for _, s in restored for r in s["manifest"])
+    stats = {"requests": len(rids), "pages": pages,
+             "bytes": shard_bytes,
+             "snapshot_ms_per_slot": float(np.mean(snap_s)) * 1e3,
+             "restore_ms_per_slot": float(np.mean(restore_s)) * 1e3,
+             "snapshot_gb_per_s": shard_bytes / sum(snap_s) / 1e9,
+             "restore_gb_per_s": shard_bytes / sum(restore_s) / 1e9,
+             "page_io": io, "near_ties": ties,
+             "agreement": agreement(got, want),
+             "captures_after_warmup": 0}
+    log(f"  {label}: " + json.dumps(stats))
+    del a, b, model
+    release()
+    return stats
+
+
+def _disagg_drive(pre, dec, prompts, new):
+    """The two-tier serving loop: step the prefill engine when no handoff
+    waits, restore waiting handoffs on the decode engine while it has a
+    free slot and the pages (a refused restore decodes in place on the
+    prefill engine), step the decode engine. Returns (tokens per prompt,
+    decode-side request stats, bytes handed over, fallbacks)."""
+    from collections import deque
+
+    from paddle_tpu_torch.serving import SlotMigrationError
+    owner = {("p", pre.submit(p, new)): i for i, p in enumerate(prompts)}
+    pending, out, stats = deque(), {}, []
+    nbytes = fallbacks = 0
+    while owner:
+        if not pending:
+            for rid, toks in pre.step().items():
+                out[owner.pop(("p", rid))] = toks
+            pending.extend(pre.poll_handoffs())
+        while pending and dec.scheduler.free_slots():
+            rid, snap = pending.popleft()
+            i = owner.pop(("p", rid))
+            nbytes += sum(r["bytes"] for r in snap["manifest"])
+            try:
+                owner[("d", dec.restore_slot(snap))] = i
+            except SlotMigrationError:
+                snap["decode_in_place"] = True
+                owner[("p", pre.restore_slot(snap))] = i
+                fallbacks += 1
+        for rid, toks in dec.step().items():
+            out[owner.pop(("d", rid))] = toks
+            stats.append(dec.request_stats(rid))
+    return [out[i] for i in range(len(prompts))], stats, nbytes, fallbacks
+
+
+def disagg_run(device, colocated_outs):
+    """4h: a prefill-tier and a decode-tier engine at 4a's configuration on
+    one card serve 4a's 48 requests (96 new tokens) through
+    :func:`_disagg_drive`. Reports decode tokens/s (the decode engine's
+    decode tokens over its decode-block seconds), TTFT p50/p99 (first
+    tokens come from the prefill engine), handoff latency p50/p99
+    (``decode_start_s - handoff_s``, the wait for a decode slot
+    included), bytes handed over and each tier's signature count. Gates:
+    tokens agree with 4a's colocated run by the ``NEAR_TIE`` rule, and
+    neither engine captures after warmup."""
+    from paddle_tpu_torch.models.gpt import GPT
+    cfg = model_config()
+    model = GPT(cfg, device=device, dtype=torch.bfloat16, seed=0)
+    prompts = make_prompts(48, cfg.vocab_size)
+    pre = _engine(model, device, tier="prefill")
+    dec = _engine(model, device, tier="decode")
+    t0 = time.monotonic()
+    outs, rstats, nbytes, fallbacks = _disagg_drive(pre, dec, prompts, 96)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    ties = _hold_tokens(model, prompts, outs, colocated_outs,
+                        "4h disaggregated vs 4a colocated", allow_ties=True)
+    _no_captures("4h", pre, dec)
+    reg_d, reg_p = dec._reg, pre._reg
+    handoff = np.asarray([s["decode_start_s"] - s["handoff_s"]
+                          for s in rstats])
+    ttft = reg_p.histogram("serving_ttft_seconds")
+    stats = {
+        "requests": len(prompts), "wall_s": wall, "fallbacks": fallbacks,
+        "decode_tokens_per_s":
+            reg_d.counter("serving_tokens_total").value()
+            / reg_d.histogram("serving_decode_step_seconds").summary()["sum"],
+        "ttft_p50_s": ttft.quantile(0.5), "ttft_p99_s": ttft.quantile(0.99),
+        "handoff_p50_s": float(np.quantile(handoff, 0.5)),
+        "handoff_p99_s": float(np.quantile(handoff, 0.99)),
+        "handoff_bytes": nbytes,
+        "signatures": {"prefill": len(pre.warmup_plan()),
+                       "decode": len(dec.warmup_plan())},
+        "captures_after_warmup": 0, "near_ties": ties,
+        "agreement": agreement(outs, colocated_outs)}
+    log("  4h disaggregated: " + json.dumps(stats))
+    del pre, dec, model
+    release()
+    return stats
+
+
+def prefix_waves(vocab, seed=5, n=16, prefix_len=SPILL_PREFIX, unique=32,
+                 filler_len=256):
+    """Two waves of ``n`` prompts sharing one ``prefix_len``-token prefix
+    (each with ``unique`` tokens of its own) and, between them, a wave of
+    ``n`` unrelated ``filler_len``-token prompts."""
+    rng = np.random.default_rng(seed)
+    prefix = rng.integers(0, vocab, prefix_len).astype(np.int32)
+
+    def wave():
+        return [np.concatenate([prefix, rng.integers(0, vocab, unique)
+                                .astype(np.int32)]) for _ in range(n)]
+
+    first = wave()
+    filler = [rng.integers(0, vocab, filler_len).astype(np.int32)
+              for _ in range(n)]
+    return first, filler, wave()
+
+
+def spill_exchange_run(device):
+    """4i: 4a's engine with the page pool cut to 160 pages and a host pool
+    of 512 pages serves a wave sharing a 128-token prefix, a filler wave
+    that evicts the published pages (they spill), and a second wave on the
+    prefix (they are restored); then the first engine exports the
+    prefix's 8 pages and a fresh engine imports them and serves the
+    second wave's first 4 prompts on them. Reports pages and bytes
+    spilled and restored, restore GB/s (the admission restores, host
+    clock), exported and imported pages with their ms; gates: pages
+    spilled and restored, the import installs all 8 and the importer's
+    prefill skips them, no capture after warmup."""
+    from paddle_tpu_torch.models.gpt import GPT
+    from paddle_tpu_torch.serving import prompt_prefix_digests
+    cfg = model_config()
+    model = GPT(cfg, device=device, dtype=torch.bfloat16, seed=0)
+    first, filler, second = prefix_waves(cfg.vocab_size)
+    eng = _engine(model, device, num_pages=SPILL_PAGES,
+                  host_spill_pages=HOST_SPILL_PAGES)
+    restores = []
+    restore = eng._restore_spilled
+
+    def timed_restore(prompt, rid):
+        t0 = time.monotonic()
+        n = restore(prompt, rid)
+        if n:
+            restores.append(time.monotonic() - t0)
+        return n
+
+    eng._restore_spilled = timed_restore
+    eng.generate_many(first, 32)
+    eng.generate_many(filler, 32)
+    outs = eng.generate_many(second, 32)
+    pool = eng.cache.spill_pool
+    if not (pool.spilled_total and pool.restored_total):
+        raise AssertionError(f"4i: spilled {pool.spilled_total}, restored "
+                             f"{pool.restored_total} pages")
+    digests = prompt_prefix_digests(second[0], eng.cache.config.page_size)[
+        :SPILL_PREFIX // eng.cache.config.page_size]
+    t0 = time.monotonic()
+    bundle = eng.export_prefix_pages(digests)
+    export_s = time.monotonic() - t0
+    other = _engine(model, device)
+    t0 = time.monotonic()
+    imported = other.import_prefix_pages(bundle)
+    import_s = time.monotonic() - t0
+    got = other.generate_many(second[:4], 32)
+    shared = other._reg.counter("serving_prefix_shared_tokens_total").value()
+    if imported != len(digests) or shared < 4 * SPILL_PREFIX:
+        raise AssertionError(f"4i: imported {imported} of {len(digests)} "
+                             f"pages, {shared} prompt tokens shared")
+    _no_captures("4i", eng, other)
+    stats = {"spilled_pages": pool.spilled_total,
+             "spilled_bytes": pool.spilled_bytes_total,
+             "restored_pages": pool.restored_total,
+             "restored_bytes": pool.restored_bytes_total,
+             "restore_gb_per_s": pool.restored_bytes_total
+             / sum(restores) / 1e9,
+             "exported_pages": len(bundle["pages"]),
+             "exported_bytes": bundle["bytes"],
+             "export_ms": export_s * 1e3, "imported_pages": imported,
+             "import_ms": import_s * 1e3, "shared_tokens": shared,
+             "imported_vs_local": agreement(got, outs[:4]),
+             "captures_after_warmup": 0}
+    log("  4i spill and exchange: " + json.dumps(stats))
+    del eng, other, model
+    release()
+    return stats
+
+
+def mobility_fp32_parity(device):
+    """4j: fp32 (TF32 off), full width, 2 layers, 8 of 4b's requests x 32
+    new tokens; every gate is exact token equality. ``generate`` cached ==
+    uncached == ``generate_bucketed`` == the serving engine's greedy
+    tokens; migrated mid-decode == unmigrated (restored pages hash to
+    their manifest); disaggregated == colocated; spill on == spill off
+    over prefix waves; a prompt served on imported prefix pages == the
+    same prompt prefilled fresh. No engine captures after warmup."""
+    from paddle_tpu_torch.models.gpt import GPT
+    from paddle_tpu_torch.serving import prompt_prefix_digests
+    cfg = dataclasses.replace(model_config(), num_layers=2)
+    model = GPT(cfg, device=device, dtype=torch.float32, seed=0)
+    prompts = make_prompts(8, cfg.vocab_size, seed=99)
+    eng = _engine(model, device)
+    base = eng.generate_many(prompts, 32)
+    del eng
+    gen = {}
+    for name, fn in (
+            ("cached", lambda p: model.generate(
+                torch.from_numpy(p[None]).to(device), 32, use_cache=True)),
+            ("uncached", lambda p: model.generate(
+                torch.from_numpy(p[None]).to(device), 32)),
+            ("bucketed", lambda p: model.generate_bucketed(p[None], 32))):
+        gen[name] = [fn(p)[0, len(p):].cpu().numpy() for p in prompts]
+        _hold_tokens(model, prompts, gen[name], base,
+                     f"4j fp32 generate {name} vs the serving engine")
+    a, b = _engine(model, device), _engine(model, device)
+    rids = _to_mid_decode(a, prompts, 32)
+    restored = []
+    for rid in rids:
+        slot = _slot_of(a, rid)
+        snap = a.snapshot_slot(slot)
+        a.release_slot(slot)
+        restored.append((b.restore_slot(snap), snap))
+    _check_restored(b, restored, "4j fp32 migration")
+    done = {}
+    while not b.scheduler.idle():
+        done.update(b.step())
+    _hold_tokens(model, prompts, [done[r] for r, _ in restored], base,
+                 "4j fp32 migrated vs unmigrated")
+    _no_captures("4j migration", a, b)
+    pre = _engine(model, device, tier="prefill")
+    dec = _engine(model, device, tier="decode")
+    outs, _, _, _ = _disagg_drive(pre, dec, prompts, 32)
+    _hold_tokens(model, prompts, outs, base,
+                 "4j fp32 disaggregated vs colocated")
+    _no_captures("4j disaggregated", pre, dec)
+    del a, b, pre, dec
+    release()
+    waves = prefix_waves(cfg.vocab_size, seed=6)
+    runs = {}
+    for spill in (0, HOST_SPILL_PAGES):
+        eng = _engine(model, device, num_pages=SPILL_PAGES,
+                      host_spill_pages=spill)
+        runs[spill] = [eng.generate_many(w, 16) for w in waves]
+        _no_captures("4j spill", eng)
+    pool = eng.cache.spill_pool
+    if not (pool.spilled_total and pool.restored_total):
+        raise AssertionError("4j: the spill schedule spilled "
+                             f"{pool.spilled_total}, restored "
+                             f"{pool.restored_total} pages")
+    for w, on, off in zip(waves, runs[HOST_SPILL_PAGES], runs[0]):
+        _hold_tokens(model, w, on, off, "4j fp32 spill on vs off")
+    first, _, second = waves
+    src = _engine(model, device)
+    src.generate_many(first[:1], 16)
+    bundle = src.export_prefix_pages(prompt_prefix_digests(
+        first[0], src.cache.config.page_size)[:SPILL_PREFIX // 16])
+    dst, fresh = _engine(model, device), _engine(model, device)
+    if dst.import_prefix_pages(bundle) != SPILL_PREFIX // 16:
+        raise AssertionError("4j: the import installed too few pages")
+    imported = dst.generate_many(second[:4], 16)
+    _hold_tokens(model, second[:4], imported,
+                 fresh.generate_many(second[:4], 16),
+                 "4j fp32 imported prefix vs fresh prefill")
+    _no_captures("4j exchange", src, dst, fresh)
+    log("  4j fp32 parity: generate cached == uncached == bucketed == the "
+        "serving engine; migrated == unmigrated; disaggregated == "
+        "colocated; spill on (spilled "
+        f"{pool.spilled_total}, restored {pool.restored_total} pages) == "
+        "off; imported prefix == fresh prefill (exact tokens)")
+    del src, dst, fresh, eng, model
+    release()
 
 
 # -- phases 5 and 6: BERT-base pretraining ------------------------------------
@@ -1282,6 +1847,15 @@ def main() -> int:
     log("  4d vs 4c token agreement (bf16, not gated): "
         + json.dumps(agreement(spec_outs, q8_outs)))
     serve_fp32_parity(device)
+    log(f"  phases 4a-4e done at {time.monotonic() - t_start:.1f} s")
+    t_mobility = time.monotonic()
+    gen_stats = generate_run(device)
+    migration_run(device, "4g bf16 migration")
+    migration_run(device, "4g int8 migration", cache_dtype=torch.int8)
+    disagg_run(device, bf16_outs)
+    spill_exchange_run(device)
+    mobility_fp32_parity(device)
+    log(f"  phases 4f-4j took {time.monotonic() - t_mobility:.1f} s")
 
     log("[5/7] train: BERT-base pretraining, bf16")
     train = train_bf16(device)
@@ -1309,6 +1883,9 @@ def main() -> int:
                           {c: r for c, r in flash_rows[e.name].items()
                            if c != FLASH_CASES[0][0]})
               for e in flash]
+    # K5 also runs in 4f's prefills (GPT.generate, generate_bucketed)
+    k5_line, = [ln for ln in lines if ln["name"] == flash[0].name]
+    k5_line["launches_generate"] = gen_stats["k5_launches"]
     log(f"[7/7] done in {time.monotonic() - t_start:.1f} s; library_ms of "
         "the two backward rows is one call for the pair: SDPA's whole "
         "backward (dq, dk, dv)")

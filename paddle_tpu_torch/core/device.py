@@ -8,6 +8,9 @@ and a missing card is an error, never a silent CPU run.
 
 from __future__ import annotations
 
+import contextlib
+import gc
+
 import torch
 
 
@@ -26,3 +29,20 @@ def resolve_device(device="cuda") -> torch.device:
     if dev.type == "cpu":
         return dev
     raise ValueError(f"unsupported device {dev} (expected cuda or cpu)")
+
+
+@contextlib.contextmanager
+def graph_capture(graph, pool=None):
+    """``torch.cuda.graph(graph, pool=pool)`` with the cycle collector
+    paused for the capture. An engine and its step graphs refer to each
+    other, so a dropped engine lives until the collector finds it; if
+    that happens inside another capture, its graphs and memory are freed
+    there, which the capture does not allow: it fails."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.graph(graph, pool=pool):
+            yield
+    finally:
+        if enabled:
+            gc.enable()

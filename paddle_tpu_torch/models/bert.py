@@ -19,6 +19,7 @@ import torch
 from torch import nn
 
 from paddle_tpu_torch.core.device import resolve_device
+from paddle_tpu_torch.nn import initializer as I
 from paddle_tpu_torch.nn.layers import Dropout, Embedding, LayerNorm, Linear
 from paddle_tpu_torch.nn.transformer import TransformerEncoderLayer
 from paddle_tpu_torch.ops import activation as ops_act
@@ -118,8 +119,7 @@ class BertPretrainingHeads(nn.Module):
         self.nsp = Linear(cfg.hidden_size, 2, **kw)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
-        with torch.no_grad():
-            self.decoder_bias.zero_()
+        I.zeros(self.decoder_bias)
 
     def forward(self, sequence_output, pooled_output, word_table):
         h = ops_act.gelu(self.transform(sequence_output))

@@ -4,12 +4,13 @@ that weights carry across from ``paddle_tpu`` as a plain key flatten
 
 from __future__ import annotations
 
-import math
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from paddle_tpu_torch.nn import initializer as I
 
 
 class Linear(nn.Module):
@@ -28,11 +29,9 @@ class Linear(nn.Module):
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         """Xavier-uniform weight, zero bias (the reference's defaults)."""
-        limit = math.sqrt(6.0 / (self.in_features + self.out_features))
-        with torch.no_grad():
-            self.weight.uniform_(-limit, limit, generator=generator)
-            if self.bias is not None:
-                self.bias.zero_()
+        I.xavier_uniform()(self.weight, generator)
+        if self.bias is not None:
+            I.zeros(self.bias)
 
     def forward(self, x):
         out = torch.matmul(x, self.weight)
@@ -55,9 +54,8 @@ class LayerNorm(nn.Module):
                                              dtype=dtype))
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
-        with torch.no_grad():
-            self.scale.fill_(1.0)
-            self.bias.zero_()
+        I.ones(self.scale)
+        I.zeros(self.bias)
 
     def forward(self, x):
         return F.layer_norm(x, self.scale.shape, self.scale, self.bias,
@@ -75,8 +73,7 @@ class Embedding(nn.Module):
                                                device=device, dtype=dtype))
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
-        with torch.no_grad():
-            self.weight.normal_(0.0, self.init_std, generator=generator)
+        I.normal(0.0, self.init_std)(self.weight, generator)
 
     def forward(self, ids):
         return F.embedding(ids, self.weight)

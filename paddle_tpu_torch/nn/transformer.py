@@ -19,9 +19,11 @@ from paddle_tpu_torch.ops.attention import dot_product_attention
 class MultiHeadAttention(nn.Module):
     """Fused-qkv self-attention. :meth:`forward` goes through
     :func:`~paddle_tpu_torch.ops.attention.dot_product_attention` with
-    ``attn_impl`` (flash attention unless attention dropout is active);
-    the serving engine owns the attention itself (ragged paged kernels)
-    and uses only :meth:`qkv_heads` and :meth:`proj_out`."""
+    ``attn_impl`` (flash attention unless attention dropout is active),
+    and with ``cache=`` it is one KV-cached decode step (the dense
+    ``GPT.generate`` path); the serving engine owns the attention itself
+    (ragged paged kernels) and uses only :meth:`qkv_heads` and
+    :meth:`proj_out`."""
 
     def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0,
                  bias: bool = True, causal: bool = False,
@@ -57,14 +59,40 @@ class MultiHeadAttention(nn.Module):
         return self.out_proj(self._merge_heads(heads))
 
     def forward(self, x, *, bias=None,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                cache=None, cache_pos=None, return_kv: bool = False):
         """x: (B, S, D); ``bias`` additive, broadcastable to
-        (B, H, S, S) (a key-padding bias is (B, 1, 1, S))."""
+        (B, H, S, S) (a key-padding bias is (B, 1, 1, S)).
+
+        Incremental decoding: ``cache=(k_cache, v_cache)``, each
+        (B, H, Smax, Dh), and ``cache_pos`` the write position (a 0-dim
+        integer tensor on the cache's device, so a captured graph can
+        replay it) make this one decode step of a single token: its k/v
+        are written into the caches in place at ``cache_pos`` and the
+        query attends over the whole cache through the composed path,
+        positions past ``cache_pos`` masked by a ``-1e30`` bias; returns
+        ``(out, (k_cache, v_cache))``. ``return_kv=True`` also returns
+        this call's (k, v) heads: the prefill that seeds the cache."""
         q, k, v = self.qkv_heads(x)
+        if cache is not None:
+            ck, cv = cache
+            at = cache_pos.reshape(1)
+            ck.index_copy_(2, at, k.to(ck.dtype))
+            cv.index_copy_(2, at, v.to(cv.dtype))
+            smax = ck.shape[2]
+            mask = torch.arange(smax, device=ck.device) <= cache_pos
+            step_bias = torch.where(mask, 0.0, -1e30).to(q.dtype)
+            if bias is not None:
+                step_bias = step_bias + bias
+            out = dot_product_attention(q, ck, cv, bias=step_bias,
+                                        causal=False, impl="xla")
+            return self.proj_out(out.to(q.dtype)), (ck, cv)
         rate = self.dropout_rate if self.training else 0.0
         out = dot_product_attention(q, k, v, bias=bias, causal=self.causal,
                                     dropout_rate=rate, generator=generator,
                                     impl=self.attn_impl)
+        if return_kv:
+            return self.proj_out(out), (k, v)
         return self.proj_out(out)
 
 

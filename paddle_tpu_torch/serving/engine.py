@@ -37,7 +37,8 @@ prefill every prompt token).
 
 Every device call is one bucket signature (``("decode", w)``,
 ``("prefill", w, lanes)``, ``("draft", w)``, ``("verify", w)``,
-``("draft_prefill", w, lanes)``, ``("copy_page",)``), and on the card
+``("draft_prefill", w, lanes)``, ``("copy_page",)``, ``("page_read",)``,
+``("page_write",)``), and on the card
 each signature is one captured CUDA graph (:mod:`.graphs`), the
 counterpart of the reference's one compiled XLA program per bucket:
 :meth:`ServingEngine.warmup` captures every signature of
@@ -54,14 +55,32 @@ monitor over the TTFT histogram, ``request_stats(rid)``, ``health()``
 with the resource headroom, step anatomy (``anatomy``), the flight
 recorder (``flight``) and ``start_exposition()``.
 
-Tensor parallelism, slot migration (and its page read/write
-signatures), the disaggregated tiers and the host spill tier are later
-slices of the port.
+KV mobility, all through the two page-IO signatures (one page id a
+device scalar, the page laid out ``(2, L, page_size, H, Dh)`` plus the
+scale rows ``(2, L, page_size)`` of an int8 pool):
+
+- slot migration: :meth:`ServingEngine.snapshot_slot` carries an
+  in-flight request with one sha256-digested shard per live page (the
+  reference's transfer format, :data:`MIGRATION_FORMAT`; a bf16 page
+  travels as the uint16 view of its bits, numpy having no bf16), and
+  :meth:`~ServingEngine.restore_slot` verifies every shard before any
+  page lands; ``snapshot_every_blocks`` keeps micro-snapshots;
+- disaggregated tiers: ``tier="prefill"`` parks prefill-done slots for
+  :meth:`~ServingEngine.poll_handoffs`, ``tier="decode"`` takes only
+  restored slots;
+- the host spill tier (``host_spill_pages``): evicted published pages
+  park in host memory and come back on a prefix hit;
+- prefix-page exchange: :meth:`~ServingEngine.export_prefix_pages` and
+  :meth:`~ServingEngine.import_prefix_pages` (:data:`PREFIX_BUNDLE_FORMAT`,
+  the whole chain proven from the root).
+
+Tensor parallelism is a later slice of the port.
 """
 
 from __future__ import annotations
 
 import functools
+import hashlib
 import threading
 import time
 from collections import OrderedDict
@@ -74,17 +93,64 @@ from paddle_tpu_torch import observability as obs
 from paddle_tpu_torch.core.device import resolve_device
 from paddle_tpu_torch.serving import paged_attention as PA
 from paddle_tpu_torch.serving.graphs import StepGraphs
-from paddle_tpu_torch.serving.paged_cache import (PagedCacheConfig,
-                                                  PagedKVCache, quantize_kv)
+from paddle_tpu_torch.serving.paged_cache import (_ROOT_KEY, _chain,
+                                                  PagedCacheConfig,
+                                                  PagedKVCache,
+                                                  payload_digest,
+                                                  quantize_kv)
 from paddle_tpu_torch.serving.scheduler import (ContinuousBatchingScheduler,
                                                 LoadShedError, Reject,
-                                                SLOScheduler)
+                                                Request, SLOScheduler,
+                                                SlotState)
 
 # TTFT/queue-wait histograms need sub-second resolution around
 # interactive SLO budgets (the reference's buckets)
 _LATENCY_BUCKETS = (0.001, 0.005, 0.01, 0.025, 0.05, 0.1, 0.2, 0.35,
                     0.5, 0.75, 1.0, 1.5, 2.0, 3.0, 4.0, 5.0, 7.5, 10.0,
                     15.0, 30.0, 60.0)
+
+#: the reference's transfer formats, so snapshots and bundles cross
+#: between the two packages
+MIGRATION_FORMAT = "paddle_tpu.serving.slot-migration-v1"
+PREFIX_BUNDLE_FORMAT = "paddle_tpu.serving.prefix-pages-v1"
+
+#: the numpy dtype a page's K/V travels as, by pool dtype: numpy has no
+#: bf16, so bf16 pages travel as the uint16 view of their bits (the same
+#: bytes, hence the reference's digests); never converted as values
+_HOST_DTYPES = {torch.float32: np.dtype(np.float32),
+                torch.float16: np.dtype(np.float16),
+                torch.bfloat16: np.dtype(np.uint16),
+                torch.int8: np.dtype(np.int8)}
+
+
+def _dtype_name(dtype: torch.dtype) -> str:
+    """The geometry's dtype string, as the reference writes
+    ``str(jnp.dtype(...))``: "float32", "bfloat16", "int8"."""
+    return str(dtype).rsplit(".", 1)[-1]
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """A page tensor as the dtype it travels in: bf16 as its int16 bits."""
+    return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+
+
+def _host_array(h: torch.Tensor) -> np.ndarray:
+    """A host tensor of :func:`_bits` as numpy (int16 bits as uint16)."""
+    a = h.numpy()
+    return a.view(np.uint16) if a.dtype == np.int16 else a
+
+
+def _host_tensor(a) -> torch.Tensor:
+    """A copy of the host array ``a`` as a tensor (uint16 bits as int16):
+    the inverse of :func:`_host_array`."""
+    a = np.array(a)
+    return torch.from_numpy(a.view(np.int16) if a.dtype == np.uint16 else a)
+
+
+class SlotMigrationError(RuntimeError):
+    """A slot snapshot (or prefix bundle) cannot be restored: corrupt
+    shard (sha256 mismatch), incompatible cache geometry, inconsistent
+    state, or no free slot or pages on this engine."""
 
 
 class ServingEngine:
@@ -108,7 +174,10 @@ class ServingEngine:
     captured CUDA graph per bucket signature on the card; ``False``
     dispatches every call eagerly (the graphs' parity leg). ``tracer``,
     ``ttft_budget_s`` and ``slo_windows`` are the reference's
-    observability arguments."""
+    observability arguments. ``tier`` ("colocated", "prefill" or
+    "decode"), ``snapshot_every_blocks`` and ``host_spill_pages`` are the
+    reference's disaggregation, micro-snapshot and host spill
+    arguments."""
 
     def __init__(self, model, *, num_slots: int = 8, page_size: int = 16,
                  num_pages: Optional[int] = None,
@@ -128,8 +197,24 @@ class ServingEngine:
                  attn_impl: str = "kernel", device="cuda",
                  draft_model=None, spec_k: int = 4,
                  draft_cache_dtype: Optional[torch.dtype] = None,
-                 cuda_graphs: bool = True):
+                 cuda_graphs: bool = True,
+                 snapshot_every_blocks: Optional[int] = None,
+                 tier: str = "colocated", host_spill_pages: int = 0):
         self.device = resolve_device(device)
+        # disaggregation: a "prefill" engine runs only the batched
+        # prefill and parks prefill-done slots for poll_handoffs; a
+        # "decode" engine takes only restored slots and runs only decode
+        if tier not in ("colocated", "prefill", "decode"):
+            raise ValueError(
+                f"tier must be 'colocated', 'prefill' or 'decode', "
+                f"got {tier!r}")
+        if tier != "colocated" and draft_model is not None:
+            raise ValueError(
+                "speculative decoding does not compose with a "
+                "disaggregated tier (draft caches do not migrate)")
+        self.tier = tier
+        # handoff-fallback slots a prefill-tier engine decodes itself
+        self._decode_in_place: set = set()
         for what, m in (("model", model), ("draft_model", draft_model)):
             if m is not None and m.device != self.device:
                 raise ValueError(f"{what} lives on {m.device}, engine "
@@ -185,7 +270,9 @@ class ServingEngine:
             num_slots=num_slots, page_size=page_size, num_pages=num_pages,
             max_pages_per_slot=max_pages_per_slot,
             dtype=cache_dtype or model.wte.weight.dtype,
-            share_prefix=prefix_sharing), device=self.device)
+            share_prefix=prefix_sharing), device=self.device,
+            host_spill_pages=host_spill_pages)
+        self.quantized = self.cache.config.quantized
         self.draft_cache = None
         if self.speculative:
             dcfg = draft_model.cfg
@@ -245,6 +332,28 @@ class ServingEngine:
         self.graphs = StepGraphs(self.device, self._bucket_spec,
                                  enabled=cuda_graphs)
         self.warmed_signatures: set = set()
+        # pinned staging buffers of the page IO, by (turn, shapes)
+        self._ring: Dict[tuple, tuple] = {}
+        # the spill tier reads an evicted page through the warmed
+        # ("page_read",) signature: spill traffic builds nothing
+        self.cache.attach_spill_io(self._spill_read)
+        # micro-snapshots: every K decode blocks an in-flight slot's
+        # snapshot lands in an outbox (poll_micro_snapshots)
+        if snapshot_every_blocks is not None:
+            if self.speculative:
+                raise ValueError(
+                    "micro-snapshots need slot migration, which "
+                    "speculative engines do not support")
+            if snapshot_every_blocks < 1:
+                raise ValueError("snapshot_every_blocks must be >= 1")
+        self.snapshot_every_blocks = snapshot_every_blocks
+        self._micro_snaps: Dict[int, Dict] = {}
+        self._last_snap_blocks: Dict[int, int] = {}
+        # trace ids adopted from restored snapshots, kept for
+        # request_stats even with tracing off
+        self._ext_trace: Dict[int, int] = {}
+        self.migrated_in_total = 0
+        self.migrated_out_total = 0
         # health(): a monitor may poll from its own thread while step()
         # mutates the books, so step() publishes a snapshot at safe
         # points and health() reads only that, under a lock
@@ -263,7 +372,13 @@ class ServingEngine:
         """Enqueue a request; returns its rid. ``lane`` and
         ``ttft_deadline_s`` feed the SLO scheduler. Raises
         :class:`~paddle_tpu_torch.serving.scheduler.LoadShedError` (with
-        a structured ``Reject``) when the scheduler sheds the request."""
+        a structured ``Reject``) when the scheduler sheds the request,
+        and ``ValueError`` on a decode-tier engine, which takes only
+        restored slots."""
+        if self.tier == "decode":
+            raise ValueError(
+                "decode-tier engines accept only restored slots "
+                "(restore_slot), not fresh prompts")
         total = len(np.asarray(prompt).reshape(-1)) + max_new_tokens
         limit = min(self.cache.config.max_tokens_per_slot,
                     self.model.cfg.max_position)
@@ -332,8 +447,11 @@ class ServingEngine:
         split (``ttft_s``, ``queue_wait_s``, ``prefill_s``), the time
         inside the device calls (``prefill_compute_s``, ``decode_s``),
         ``prefill_chunks`` / ``decode_blocks``, ``shared_tokens``,
-        ``spec_proposed`` / ``spec_accepted``, ``tokens`` and
-        ``trace_id`` (0 with tracing off); pop-on-read, bounded."""
+        ``spec_proposed`` / ``spec_accepted``, ``tokens``, the handoff
+        stamps ``prefill_done_s`` / ``handoff_s`` / ``decode_start_s``
+        (monotonic; 0.0 on a request that crossed no tier) and
+        ``trace_id`` (0 with tracing off and none adopted); pop-on-read,
+        bounded."""
         return self._stats.pop(rid, None)
 
     def _refresh_health(self):
@@ -349,11 +467,11 @@ class ServingEngine:
             "requests_in_flight": len(self.scheduler.active_slots()),
             "steps": int(self._reg.counter(
                 "serving_steps_total").value()),
-            # one card, no tensor parallelism, the colocated tier
+            # one card, no tensor parallelism
             "tp": 1,
             "mesh_devices": 1,
             "tp_probe": False,
-            "tier": "colocated",
+            "tier": self.tier,
             "prefix_gen": int(self.cache.prefix_gen),
         }
         if self.slo_monitor is not None:
@@ -365,8 +483,8 @@ class ServingEngine:
     def _headroom(self) -> Dict[str, float]:
         """Spare capacity per resource in [0, 1], published as
         ``serving_headroom`` gauges. Flops stay unpriced (utilization
-        0.0, the reference's value without its cost gauges) and spill
-        stays 1.0 (no host spill tier)."""
+        0.0, the reference's value without its cost gauges); spill is 1.0
+        without a host spill tier, else the host pool's spare share."""
         util = self.cache.utilization()
         free = len(self.scheduler.free_slots())
         cap_b = self.cache.capacity_bytes()
@@ -386,15 +504,28 @@ class ServingEngine:
             "flops_per_busy_s": 0.0,
             "prefix_saved_per_token": round(
                 saved / tokens if tokens else 0.0, 6),
-            "spill": 1.0,
-            "spill_pages": 0,
-            "spill_bytes": 0,
         }
+        pool = self.cache.spill_pool
+        if pool is None:
+            head.update(spill=1.0, spill_pages=0, spill_bytes=0)
+        else:
+            head.update(spill=round(max(1.0 - len(pool) / pool.capacity,
+                                        0.0), 6),
+                        spill_pages=len(pool),
+                        spill_bytes=int(pool.spilled_bytes()))
         g = self._reg.gauge(
             "serving_headroom",
             "spare capacity per resource (1 = idle, 0 = saturated)")
         for res in ("flops", "pages", "slots", "hbm", "spill"):
             g.set(head[res], resource=res)
+        self._reg.gauge(
+            "serving_spill_pages",
+            "published KV pages resident in the host spill pool"
+        ).set(head["spill_pages"])
+        self._reg.gauge(
+            "serving_spill_bytes",
+            "bytes of KV (incl. int8 scale rows) in the host spill pool"
+        ).set(head["spill_bytes"])
         self._reg.gauge(
             "serving_prefix_saved_per_token",
             "prefill tokens skipped via prefix sharing per served token"
@@ -468,6 +599,10 @@ class ServingEngine:
                 break
 
         dslots = self.scheduler.decode_slots()
+        if self.tier == "prefill":
+            # prefill-done slots park for poll_handoffs; only handoff-
+            # fallback slots flagged decode-in-place decode here
+            dslots = [i for i in dslots if i in self._decode_in_place]
         if dslots:
             self._reg.gauge("serving_slot_occupancy",
                             "fraction of decode slots live").set(
@@ -485,6 +620,8 @@ class ServingEngine:
             self._reg.counter("serving_steps_total").inc()
             self.recompile_detector.check()
             finished.update(self._evict())
+            if self.snapshot_every_blocks is not None:
+                self._take_micro_snapshots()
 
         if self.slo_monitor is not None:
             self.slo_monitor.check()
@@ -671,6 +808,7 @@ class ServingEngine:
         out = {}
         for slot, st in self.scheduler.evict_finished().items():
             self.cache.free_slot(slot)
+            self._decode_in_place.discard(slot)
             if self.speculative:
                 self.draft_cache.free_slot(slot)
             toks = np.asarray(st.generated, np.int32)
@@ -692,9 +830,15 @@ class ServingEngine:
                 "spec_proposed": acc.get("spec_proposed", 0.0),
                 "spec_accepted": acc.get("spec_accepted", 0.0),
                 "tokens": float(len(st.generated)),
+                "prefill_done_s": acc.get("prefill_done_s", 0.0),
+                "handoff_s": acc.get("handoff_s", 0.0),
+                "decode_start_s": acc.get("decode_start_s", 0.0),
                 "trace_id": float(root.trace_id) if root is not None
-                else 0.0,
+                else float(self._ext_trace.get(req.rid, 0)),
             }
+            self._ext_trace.pop(req.rid, None)
+            self._micro_snaps.pop(req.rid, None)
+            self._last_snap_blocks.pop(req.rid, None)
             if root is not None:
                 root.add_event("finished", tokens=len(st.generated))
                 root.set_attrs(
@@ -711,9 +855,11 @@ class ServingEngine:
     # -- prefill ----------------------------------------------------------
 
     def _on_admit(self, slot: int, req):
-        """Admission callback: reserve pages (mapping any published
-        shared prefix), seed the slot's prefill cursor past the shared
-        tokens, and record the queue-wait half of the TTFT split."""
+        """Admission callback: restore host-spilled pages of the prompt's
+        chain, reserve pages (mapping any published shared prefix), seed
+        the slot's prefill cursor past the shared tokens, and record the
+        queue-wait half of the TTFT split."""
+        self._restore_spilled(req.prompt, req.rid)
         shared = self.cache.reserve(slot, req.total_tokens,
                                     prompt=req.prompt)
         if self.speculative:
@@ -853,6 +999,8 @@ class ServingEngine:
                 if st.prefill_done:
                     st.generated.append(int(nxt[j]))
                     st.first_token_at = now
+                    if acc is not None:
+                        acc["prefill_done_s"] = now
                     ttft = now - st.request.submitted_at
                     self._reg.histogram(
                         "serving_ttft_seconds",
@@ -895,14 +1043,14 @@ class ServingEngine:
     def warmup_plan(self):
         """The signatures :meth:`warmup` builds, in build order:
         ``("decode", width)``, ``("prefill", width, lanes)`` and
-        ``("copy_page",)``; a speculative engine swaps the decode
+        ``("copy_page",)``, then the page IO ``("page_read",)`` and
+        ``("page_write",)`` (a page id is a device scalar: one signature
+        each covers every page); a speculative engine swaps the decode
         buckets for ``("draft", width)`` and ``("verify", width)`` and
         adds the draft's ``("draft_prefill", width, lanes)`` twins.
-        Derived from the warmup-side doubling loops; it covers
-        :meth:`reachable_signatures`, which makes zero captures after
-        warmup a property of the plan. The reference's migration page
-        IO signatures (``("page_read",)``, ``("page_write",)``) come
-        with slot migration, which the port does not have yet."""
+        Derived from the warmup-side doubling loops and filtered by tier
+        (:meth:`_tier_sig`); it covers :meth:`reachable_signatures`,
+        which makes zero captures after warmup a property of the plan."""
         c = self.cache.config
         s_tot = self.scheduler.num_slots
         widths, w = [], 1
@@ -929,7 +1077,20 @@ class ServingEngine:
                 if self.speculative:
                     plan.append(("draft_prefill", w, sb))
         plan.append(("copy_page",))
-        return plan
+        plan.append(("page_read",))
+        plan.append(("page_write",))
+        return [sig for sig in plan if self._tier_sig(sig)]
+
+    def _tier_sig(self, sig) -> bool:
+        """Tier filter over signatures: a prefill engine builds no decode
+        bucket, a decode engine no prefill bucket. Page IO and the CoW
+        copy stay on both: a handoff reads pages on the prefill side and
+        writes them on the decode side."""
+        if self.tier == "prefill" and sig[0] == "decode":
+            return False
+        if self.tier == "decode" and sig[0] == "prefill":
+            return False
+        return True
 
     def reachable_signatures(self):
         """Every signature the steady-state ``step()`` loop can request,
@@ -952,8 +1113,8 @@ class ServingEngine:
         else:
             sigs = {("decode", w) for w in widths}
         sigs |= {("prefill", w, sb) for w in widths for sb in counts}
-        sigs.add(("copy_page",))
-        return sigs
+        sigs |= {("copy_page",), ("page_read",), ("page_write",)}
+        return {sig for sig in sigs if self._tier_sig(sig)}
 
     def warmup(self):
         """Build every signature of :meth:`warmup_plan` up front, each
@@ -968,6 +1129,528 @@ class ServingEngine:
             self.warmed_signatures.add(sig)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    # -- KV mobility: page IO, migration, handoff, spill, exchange --------
+
+    def _staging(self, k: int, specs) -> tuple:
+        """Pinned host buffers of ``specs`` (``(shape, dtype)`` of a
+        page's K/V bits and scale rows), two sets per layout used in turn
+        by ``k``, with the event of the copy that last used the set,
+        waited on here before the set is reused."""
+        key = (k % 2,) + tuple(specs)
+        ent = self._ring.get(key)
+        if ent is None:
+            ent = self._ring[key] = (
+                tuple(torch.empty(shape, dtype=dt, pin_memory=True)
+                      for shape, dt in specs), torch.cuda.Event())
+        ent[1].synchronize()
+        return ent
+
+    def _read_pages(self, pids) -> List[tuple]:
+        """Host copies of pages ``pids``: one ``("page_read",)`` call per
+        page, its static output copied at once into a pinned staging
+        buffer (stream order keeps the copy ahead of the next call's
+        overwrite); while the card copies one page the host copies the
+        previous one out of its buffer, after that copy's event. Returns
+        per page ``(kv,)`` or ``(kv, scales)`` numpy arrays of their
+        own."""
+        out, prev = [], None
+        for k, pid in enumerate(pids):
+            res = self.graphs.run(("page_read",), {"src": int(pid)})
+            dev = tuple(_bits(t) for t in
+                        (res if isinstance(res, tuple) else (res,)))
+            if self.device.type != "cuda":
+                out.append(tuple(_host_array(t.clone()) for t in dev))
+                continue
+            bufs, ev = self._staging(
+                k, tuple((tuple(t.shape), t.dtype) for t in dev))
+            for b, t in zip(bufs, dev):
+                b.copy_(t, non_blocking=True)
+            ev.record()
+            if prev is not None:
+                prev[1].synchronize()
+                out.append(tuple(_host_array(b).copy() for b in prev[0]))
+            prev = (bufs, ev)
+        if prev is not None:
+            prev[1].synchronize()
+            out.append(tuple(_host_array(b).copy() for b in prev[0]))
+        return out
+
+    def _write_pages(self, items):
+        """Write ``(pid, payload)`` host pages (``(kv,)`` or ``(kv,
+        scales)``, as :meth:`_read_pages` returns them) through one
+        ``("page_write",)`` call each. On the card the host copies a page
+        into a pinned staging buffer (after that buffer's last copy),
+        from which it goes to the call's static input asynchronously, so
+        the host prepares one page while the card writes the previous
+        one. Bits move as they are: nothing converts values."""
+        c = self.cache.config
+        shape = (2, c.num_layers, c.page_size, c.num_heads, c.head_dim)
+        bits = torch.int16 if c.dtype == torch.bfloat16 else c.dtype
+        for k, (pid, arrays) in enumerate(items):
+            if self.device.type == "cuda":
+                specs = ((shape, bits), (shape[:3], torch.float32))
+                bufs, ev = self._staging(k, specs[:len(arrays)])
+                for b, a in zip(bufs, arrays):
+                    _host_array(b)[...] = a
+            else:
+                bufs = tuple(_host_tensor(a) for a in arrays)
+            feeds = dict(zip(("kv", "sc"), bufs))
+            feeds["kv"] = feeds["kv"].view(c.dtype)
+            self.graphs.run(("page_write",), {"dst": int(pid)}, feeds)
+            if self.device.type == "cuda":
+                ev.record()
+
+    def _geometry(self) -> Dict[str, object]:
+        c = self.cache.config
+        return {"num_layers": c.num_layers, "num_heads": c.num_heads,
+                "head_dim": c.head_dim, "page_size": c.page_size,
+                "dtype": _dtype_name(c.dtype), "tp": 1}
+
+    def _shard(self, payload):
+        """A page's host arrays as a transfer shard: the K/V array, or
+        ``(kv, scales)`` on an int8 pool."""
+        return (payload[0], payload[1]) if self.quantized else payload[0]
+
+    def _payload(self, shard) -> tuple:
+        """The inverse of :meth:`_shard`."""
+        return tuple(shard) if self.quantized else (shard,)
+
+    def _shard_record(self, index: int, shard) -> Dict[str, object]:
+        return {"index": index, "tp_shard": 0,
+                "sha256": self._shard_digest(shard),
+                "bytes": self._shard_bytes(shard)}
+
+    def _shard_digest(self, shard) -> str:
+        """sha256 of one shard's raw bytes; an int8 shard hashes its K/V
+        and its scale rows as one digest."""
+        h = hashlib.sha256()
+        for a in (shard if self.quantized else (shard,)):
+            h.update(np.ascontiguousarray(a))     # the raw bytes, no copy
+        return h.hexdigest()
+
+    def _shard_bytes(self, shard) -> int:
+        if self.quantized:
+            return int(shard[0].nbytes + shard[1].nbytes)
+        return int(shard.nbytes)
+
+    def _check_shard(self, shard, what: str):
+        """A shard's arrays must have this pool's page layout and host
+        dtype (bf16 pages as uint16 bits): nothing converts values."""
+        c = self.cache.config
+        kv, sc = (self._payload(shard) + (None,))[:2]
+        want = (2, c.num_layers, c.page_size, c.num_heads, c.head_dim)
+        kv = np.asarray(kv)
+        if kv.shape != want or kv.dtype != _HOST_DTYPES[c.dtype]:
+            raise SlotMigrationError(
+                f"{what}: K/V {kv.dtype}{list(kv.shape)} != "
+                f"{_HOST_DTYPES[c.dtype]}{list(want)}")
+        if sc is not None:
+            sc = np.asarray(sc)
+            if sc.shape != want[:3] or sc.dtype != np.float32:
+                raise SlotMigrationError(
+                    f"{what}: scale rows {sc.dtype}{list(sc.shape)} != "
+                    f"float32{list(want[:3])}")
+
+    def _spill_read(self, pid: int):
+        """The cache's spill reader: one page to host through the warmed
+        ``("page_read",)`` signature (scale rows travel with an int8
+        page)."""
+        return self._read_pages([pid])[0]
+
+    def _restore_spilled(self, prompt, rid: int) -> int:
+        """Before reserving pages for ``prompt``, bring host-spilled pages
+        of its published chain back to the card so ``reserve`` maps them
+        as ordinary shared-prefix hits: each payload's sha256 is checked
+        (a mismatch drops the page and stops the chain walk: a re-prefill,
+        never a corrupt hit), every host-to-device copy starts, then each
+        page is adopted and written through ``("page_write",)``. Returns
+        pages restored."""
+        pool = self.cache.spill_pool
+        if pool is None:
+            return 0
+        entries = []
+        for ent in self.cache.spill_restore_plan(prompt):
+            if payload_digest(ent.payload) != ent.sha256:
+                pool.pop(ent.key)
+                self._reg.counter(
+                    "serving_spill_corrupt_total",
+                    "host-spilled pages refused on restore "
+                    "(sha256 mismatch)").inc()
+                break
+            entries.append(ent)
+        if not entries:
+            return 0
+        self._write_pages([(self.cache.adopt_published_page(e.key, e.tokens),
+                            e.payload) for e in entries])
+        nbytes = sum(e.nbytes for e in entries)
+        pool.note_restored(len(entries), nbytes)
+        self._reg.counter(
+            "serving_spill_restored_pages_total",
+            "host-spilled pages restored to the card on a prefix hit"
+        ).inc(len(entries))
+        self._reg.counter(
+            "serving_spill_restored_bytes_total",
+            "bytes restored from the host spill pool").inc(nbytes)
+        root = self._req_spans.get(rid)
+        if root is not None:
+            root.add_event("spill_restored", pages=len(entries),
+                           bytes=nbytes)
+        return len(entries)
+
+    def snapshot_slot(self, slot: int) -> Dict[str, object]:
+        """Portable snapshot of one in-flight request: its request and
+        slot bookkeeping plus its live KV pages, one sha256-digested shard
+        per page (an int8 shard carries the page's scale rows under the
+        same hash). Mutates nothing: pair with :meth:`release_slot` to
+        drain the slot. A pending copy-on-write tail reads through to its
+        source page, so the snapshot carries the logical content."""
+        if self.speculative:
+            raise SlotMigrationError(
+                "speculative engines do not migrate slots (the draft "
+                "cache state is not carried in a snapshot)")
+        st = self.scheduler.slots[slot]
+        if st is None:
+            raise SlotMigrationError(f"slot {slot} is empty")
+        req = st.request
+        cfgc = self.cache.config
+        length = int(self.cache.lengths[slot])
+        n_live = cfgc.pages_for(length) if length else 0
+        pids = [int(p) for p in self.cache.block_tables[slot, :n_live]]
+        pc = self.cache.pending_copy(slot)
+        if pc is not None:
+            src, dst = pc
+            pids = [src if p == dst else p for p in pids]
+        shards = [self._shard(payload) for payload in self._read_pages(pids)]
+        manifest = [self._shard_record(k, shard)
+                    for k, shard in enumerate(shards)]
+        root = self._req_spans.get(req.rid)
+        trace_id = (root.trace_id if root is not None
+                    else self._ext_trace.get(req.rid, 0))
+        acc = self._phase_acc.get(req.rid) or {}
+        return {
+            "format": MIGRATION_FORMAT,
+            "geometry": self._geometry(),
+            "request": {"prompt": np.asarray(req.prompt, np.int32),
+                        "max_new_tokens": req.max_new_tokens,
+                        "eos_id": req.eos_id, "lane": req.lane,
+                        "ttft_deadline_s": req.ttft_deadline_s,
+                        "submitted_at": req.submitted_at},
+            "state": {"generated": list(st.generated),
+                      "prefilled": int(st.prefilled),
+                      "length": length,
+                      "admitted_at": st.admitted_at,
+                      "first_token_at": st.first_token_at,
+                      "phase_acc": dict(acc)},
+            "trace_id": int(trace_id),
+            "shards": shards,
+            "manifest": manifest,
+        }
+
+    def _take_micro_snapshots(self):
+        """Refresh the micro-snapshot outbox: a decoding slot that crossed
+        another ``snapshot_every_blocks`` decode blocks gets a fresh
+        snapshot keyed by rid (newest wins)."""
+        k = self.snapshot_every_blocks
+        for i in self.scheduler.decode_slots():
+            rid = self.scheduler.slots[i].request.rid
+            acc = self._phase_acc.get(rid)
+            blocks = int(acc["decode_blocks"]) if acc else 0
+            if blocks and blocks % k == 0 \
+                    and self._last_snap_blocks.get(rid) != blocks:
+                self._micro_snaps[rid] = self.snapshot_slot(i)
+                self._last_snap_blocks[rid] = blocks
+
+    def poll_micro_snapshots(self) -> Dict[int, Dict]:
+        """Drain the micro-snapshot outbox (``{rid: snapshot}``, newest
+        per request)."""
+        out, self._micro_snaps = self._micro_snaps, {}
+        return out
+
+    def poll_handoffs(self) -> List:
+        """Drain the prefill tier's handoff outbox: every parked
+        prefill-done slot (first token emitted, not finished, not
+        decoding in place) is snapshotted, stamped ``handoff_s`` and
+        released, freeing its slot. Returns ``[(rid, snapshot), ...]``
+        for a decode-tier engine's :meth:`restore_slot`; empty on other
+        tiers."""
+        if self.tier != "prefill":
+            return []
+        out = []
+        now = time.monotonic()
+        for slot in list(self.scheduler.active_slots()):
+            st = self.scheduler.slots[slot]
+            if not st.prefill_done or st.finished() \
+                    or slot in self._decode_in_place:
+                continue
+            rid = st.request.rid
+            snap = self.snapshot_slot(slot)
+            snap["state"]["phase_acc"]["handoff_s"] = now
+            self.release_slot(slot)
+            out.append((rid, snap))
+        self._refresh_health()
+        return out
+
+    def cancel_queued(self) -> List[Request]:
+        """Pop every queued (not yet admitted) request and close its
+        bookkeeping: the open root span finishes ``requeued``. Returns the
+        requests in queue order."""
+        out: List[Request] = []
+        sched = self.scheduler
+        while sched.queue:
+            r = sched.queue.popleft()
+            self._phase_acc.pop(r.rid, None)
+            root = self._req_spans.pop(r.rid, None)
+            if root is not None:
+                root.add_event("requeued")
+                root.finish(status="requeued")
+            out.append(r)
+        self._refresh_health()
+        return out
+
+    def release_slot(self, slot: int):
+        """Drop a migrated-out slot without recording a result: free its
+        pages, close its span ``migrated``; returns the popped
+        :class:`~paddle_tpu_torch.serving.scheduler.SlotState`."""
+        st = self.scheduler.slots[slot]
+        if st is None:
+            raise SlotMigrationError(f"slot {slot} is empty")
+        self.scheduler.slots[slot] = None
+        self.cache.free_slot(slot)
+        self._decode_in_place.discard(slot)
+        if self.speculative:
+            self.draft_cache.free_slot(slot)
+        rid = st.request.rid
+        self._phase_acc.pop(rid, None)
+        self._ext_trace.pop(rid, None)
+        self._micro_snaps.pop(rid, None)
+        self._last_snap_blocks.pop(rid, None)
+        root = self._req_spans.pop(rid, None)
+        if root is not None:
+            root.add_event("migrated_out", slot=slot,
+                           tokens=len(st.generated))
+            root.finish(status="migrated")
+        self.migrated_out_total += 1
+        self._reg.counter("serving_migrated_out_total",
+                          "in-flight requests migrated away").inc()
+        self._refresh_health()
+        return st
+
+    def restore_slot(self, snap: Dict[str, object], *,
+                     parent_span=None) -> int:
+        """Restore a :meth:`snapshot_slot` snapshot (the port's or the
+        reference's) into a free slot and resume it where it left off.
+        Before any page lands: the geometry, then every shard's sha256
+        (and layout), then the shard count against the carried length.
+        Pages are reserved all-or-nothing with no shared mapping (the
+        slot writes every page), so greedy outputs equal an unmigrated
+        run. Returns the request's new local rid; its span adopts the
+        snapshot's ``trace_id`` (under ``parent_span`` when given)."""
+        if self.speculative:
+            raise SlotMigrationError(
+                "speculative engines do not migrate slots (the draft "
+                "cache state is not carried in a snapshot)")
+        if snap.get("format") != MIGRATION_FORMAT:
+            raise SlotMigrationError(
+                f"unknown snapshot format {snap.get('format')!r}")
+        cfgc = self.cache.config
+        geo, mine = snap["geometry"], self._geometry()
+        if geo != mine:
+            raise SlotMigrationError(
+                f"cache geometry mismatch: snapshot {geo} != engine {mine}")
+        shards, manifest = snap["shards"], snap["manifest"]
+        if len(shards) != len(manifest):
+            raise SlotMigrationError(
+                f"{len(shards)} shards != {len(manifest)} manifest entries")
+        for shard, rec in zip(shards, manifest):
+            digest = self._shard_digest(shard)
+            if digest != rec["sha256"]:
+                raise SlotMigrationError(
+                    f"shard {rec['index']} sha256 mismatch "
+                    f"({digest[:12]}... != {rec['sha256'][:12]}...): "
+                    "refusing to restore a corrupt page")
+            self._check_shard(shard, f"shard {rec['index']}")
+        free = self.scheduler.free_slots()
+        if not free:
+            raise SlotMigrationError("no free slot to restore into")
+        rq, stt = snap["request"], snap["state"]
+        prompt = np.asarray(rq["prompt"], np.int32).reshape(-1)
+        total = int(prompt.shape[0]) + int(rq["max_new_tokens"])
+        # an excess shard would index past the reserved block-table
+        # entries (0) and overwrite the null page every slot gathers from
+        length = int(stt["length"])
+        n_live = cfgc.pages_for(length) if length > 0 else 0
+        if length < 0 or length > total or len(shards) != n_live:
+            raise SlotMigrationError(
+                f"{len(shards)} shards for {length} live tokens of a "
+                f"{total}-token reservation: snapshot state inconsistent, "
+                "refusing to restore")
+        if self.tier == "decode" and \
+                int(stt["prefilled"]) < int(prompt.shape[0]):
+            raise SlotMigrationError(
+                "decode-tier engines restore only prefill-complete "
+                f"slots ({int(stt['prefilled'])} of "
+                f"{int(prompt.shape[0])} prompt tokens prefilled)")
+        if not self.cache.can_reserve(total):
+            raise SlotMigrationError(
+                f"no page capacity for {total} tokens")
+        slot = free[0]
+        # no prompt: never map shared pages, the restore writes them all
+        self.cache.reserve(slot, total)
+        self._write_pages(zip(self.cache.block_tables[slot, :n_live],
+                              map(self._payload, shards)))
+        self.cache.lengths[slot] = length
+        rid = next(self.scheduler._ids)     # a fresh local rid
+        req = Request(rid, prompt, int(rq["max_new_tokens"]),
+                      rq["eos_id"], submitted_at=rq["submitted_at"],
+                      lane=rq["lane"],
+                      ttft_deadline_s=rq["ttft_deadline_s"])
+        st = SlotState(req, generated=list(stt["generated"]),
+                       prefilled=int(stt["prefilled"]),
+                       admitted_at=stt["admitted_at"],
+                       first_token_at=stt["first_token_at"])
+        self.scheduler.slots[slot] = st
+        if snap.get("decode_in_place") and self.tier == "prefill":
+            # handoff fallback: no decode-tier capacity, so this prefill
+            # engine decodes the slot itself (its decode buckets are not
+            # warmed: the one exception to the tier's build-free steady
+            # state)
+            self._decode_in_place.add(slot)
+        acc = {"prefill_s": 0.0, "decode_s": 0.0, "prefill_chunks": 0.0,
+               "decode_blocks": 0.0, "shared_tokens": 0.0}
+        acc.update(stt.get("phase_acc") or {})
+        if acc.get("handoff_s") and not acc.get("decode_start_s"):
+            acc["decode_start_s"] = time.monotonic()
+        self._phase_acc[rid] = acc
+        trace_id = int(snap.get("trace_id") or 0)
+        if trace_id:
+            self._ext_trace[rid] = trace_id
+        if self.tracer.enabled:
+            root = self.tracer.start_span(
+                "serving.request", parent=parent_span,
+                trace_id=trace_id or None, rid=rid, lane=req.lane,
+                migrated=True, prompt_tokens=int(prompt.shape[0]),
+                max_new_tokens=req.max_new_tokens)
+            root.add_event("migrated_in", slot=slot,
+                           tokens=len(st.generated), kv_tokens=length)
+            self._req_spans[rid] = root
+        self.migrated_in_total += 1
+        self._reg.counter("serving_migrated_in_total",
+                          "in-flight requests migrated in").inc()
+        self._refresh_health()
+        return rid
+
+    def export_prefix_pages(self, digests) -> Optional[Dict[str, object]]:
+        """Package the leading run of ``digests`` this engine holds (on
+        the card or host-spilled) as a bundle a peer can
+        :meth:`import_prefix_pages`: per page its chain key, tokens and
+        one sha256 shard (the migration layout). Stops at the first
+        digest no longer held; a rotted spilled copy is dropped there and
+        never leaves. Returns None when nothing is exportable."""
+        if not self.cache.config.share_prefix:
+            return None
+        hits = []
+        for key in digests:
+            key = int(key)
+            hit = self.cache.lookup_prefix_page(key)
+            if hit is None:
+                break
+            if hit[0] == "host" and \
+                    payload_digest(hit[1].payload) != hit[1].sha256:
+                self.cache.spill_pool.pop(hit[1].key)
+                self._reg.counter(
+                    "serving_spill_corrupt_total",
+                    "host-spilled pages refused on restore "
+                    "(sha256 mismatch)").inc()
+                break
+            hits.append((key, hit))
+        if not hits:
+            return None
+        read = iter(self._read_pages([h[1] for _, h in hits
+                                      if h[0] == "device"]))
+        pages, total_bytes = [], 0
+        for key, hit in hits:
+            if hit[0] == "device":
+                tokens, payload = hit[2], next(read)
+            else:
+                tokens, payload = hit[1].tokens, hit[1].payload
+            shard = self._shard(payload)
+            rec = self._shard_record(len(pages), shard)
+            total_bytes += rec["bytes"]
+            pages.append({"key": key,
+                          "tokens": np.asarray(tokens, np.int32),
+                          "shards": [shard], "manifest": [rec]})
+        self._reg.counter(
+            "serving_prefix_exported_pages_total",
+            "published prefix pages exported to peers").inc(len(pages))
+        return {"format": PREFIX_BUNDLE_FORMAT, "geometry": self._geometry(),
+                "pages": pages, "bytes": int(total_bytes)}
+
+    def import_prefix_pages(self, bundle) -> int:
+        """Install a peer's :meth:`export_prefix_pages` bundle into the
+        published-prefix index, so the next admission maps the pages as
+        shared-prefix hits. Verified before any page lands: format,
+        geometry, the whole publication chain from the root (each key
+        must equal ``chain(parent, tokens)``) and every shard's sha256.
+        Pages land all-or-nothing into idle free pages, never by
+        eviction, through ``("page_write",)``. Returns pages installed (0
+        when all were already held)."""
+        if bundle is None or not self.cache.config.share_prefix:
+            return 0
+        if bundle.get("format") != PREFIX_BUNDLE_FORMAT:
+            raise SlotMigrationError(
+                f"unknown prefix bundle format {bundle.get('format')!r}")
+        cfgc = self.cache.config
+        mine = self._geometry()
+        if bundle.get("geometry") != mine:
+            raise SlotMigrationError(
+                f"cache geometry mismatch: bundle "
+                f"{bundle.get('geometry')} != engine {mine}")
+        pages = bundle.get("pages") or []
+        prev = _ROOT_KEY
+        for page in pages:
+            tokens = np.asarray(page["tokens"], np.int32).reshape(-1)
+            if tokens.shape[0] != cfgc.page_size:
+                raise SlotMigrationError(
+                    f"prefix page carries {tokens.shape[0]} tokens "
+                    f"(page_size {cfgc.page_size}): refusing")
+            key = int(page["key"])
+            if _chain(prev, tokens) != key:
+                raise SlotMigrationError(
+                    "prefix bundle breaks the publication hash chain: "
+                    "refusing to install unprovable pages")
+            prev = key
+            shards, manifest = page["shards"], page["manifest"]
+            if len(shards) != 1 or len(manifest) != 1:
+                raise SlotMigrationError(
+                    f"{len(shards)} shards for a 1-shard page: refusing")
+            digest = self._shard_digest(shards[0])
+            if digest != manifest[0]["sha256"]:
+                raise SlotMigrationError(
+                    f"prefix shard sha256 mismatch ({digest[:12]}... != "
+                    f"{manifest[0]['sha256'][:12]}...): refusing to "
+                    "install a corrupt page")
+            self._check_shard(shards[0], f"prefix page {key}")
+        held = self.cache.advertised_digests()
+        install = [p for p in pages if int(p["key"]) not in held]
+        if not install:
+            return 0
+        if len(install) > self.cache.idle_free_pages:
+            raise SlotMigrationError(
+                f"no idle page capacity for {len(install)} fetched "
+                "prefix pages")
+        self._write_pages([(self.cache.adopt_published_page(
+            int(p["key"]), p["tokens"]), self._payload(p["shards"][0]))
+            for p in install])
+        nbytes = sum(int(p["manifest"][0]["bytes"]) for p in install)
+        self._reg.counter(
+            "serving_prefix_fetched_pages_total",
+            "prefix pages installed from peers").inc(len(install))
+        self._reg.counter(
+            "serving_prefix_fetched_bytes_total",
+            "bytes of prefix pages installed from peers").inc(nbytes)
+        self._refresh_health()
+        return len(install)
 
     # -- device steps -----------------------------------------------------
 
@@ -987,6 +1670,17 @@ class ServingEngine:
                                              cache)
         if kind == "copy_page":
             return (("src", (1,)), ("dst", (1,))), self._copy_page
+        if kind == "page_read":
+            return (("src", (1,)),), self._read_page
+        if kind == "page_write":
+            c = self.cache.config
+            layout = (("dst", (1,)),
+                      ("kv", (2, c.num_layers, c.page_size, c.num_heads,
+                              c.head_dim), c.dtype))
+            if self.quantized:
+                layout += (("sc", (2, c.num_layers, c.page_size),
+                            torch.float32),)
+            return layout, self._write_page
         w = sig[1]
         layout = (("block_tables", (s_tot, w)), ("lengths", (s_tot,)),
                   ("tokens", (s_tot,)))
@@ -1146,3 +1840,32 @@ class ServingEngine:
         for layer in self.cache.pages:
             for t in layer:
                 t[dst] = t[src]
+
+    @torch.no_grad()
+    def _read_page(self, src):
+        """One page of every layer, stacked ``(2, L, page_size, H, Dh)``
+        (K then V): the migration shard's unit; an int8 pool also returns
+        the page's scale rows ``(2, L, page_size)``. ``src`` is a (1,)
+        device tensor: one captured read serves every page."""
+        idx = src.long()
+        pages = self.cache.pages
+
+        def stack(j0):
+            return torch.stack([torch.cat([layer[j].index_select(0, idx)
+                                           for layer in pages])
+                                for j in (j0, j0 + 1)])
+
+        return (stack(0), stack(2)) if self.quantized else stack(0)
+
+    @torch.no_grad()
+    def _write_page(self, dst, kv, sc=None):
+        """Install one page in the :meth:`_read_page` layout into page
+        ``dst`` (a (1,) device tensor) of every layer, with its scale
+        rows on an int8 pool."""
+        idx = dst.long()
+        for i, layer in enumerate(self.cache.pages):
+            layer[0].index_copy_(0, idx, kv[0, i:i + 1])
+            layer[1].index_copy_(0, idx, kv[1, i:i + 1])
+            if sc is not None:
+                layer[2].index_copy_(0, idx, sc[0, i:i + 1])
+                layer[3].index_copy_(0, idx, sc[1, i:i + 1])

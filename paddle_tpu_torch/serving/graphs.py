@@ -5,16 +5,20 @@ prefill bucket is one compiled XLA program
 
 One ``torch.cuda.CUDAGraph`` per bucket signature (``("decode", w)``,
 ``("prefill", w, lanes)``, ``("draft", w)``, ``("verify", w)``,
-``("draft_prefill", w, lanes)``, ``("copy_page",)``). A bucket owns:
+``("draft_prefill", w, lanes)``, ``("copy_page",)``, ``("page_read",)``,
+``("page_write",)``). A bucket owns:
 
-- its static inputs: one int32 device buffer holding every input its
-  step reads (block-table slice, lengths, tokens, active / n_valid,
+- its static inputs: one int32 device buffer holding every int32 input
+  its step reads (block-table slice, lengths, tokens, active / n_valid,
   starts, page ids), as views. Before each call the host fills a pinned
   twin and copies it in with one asynchronous copy; an input that lives
-  on the device (the draft's proposals feeding the verify call) is
-  copied in on the device;
-- its static output, allocated outside the graph pool, which the
-  captured step's last operation writes. Every graph shares one pool,
+  on the device (the draft's proposals feeding the verify call, a page
+  written by ``("page_write",)``) is copied in on the device. An input
+  of another dtype (a page's K/V) is a static device tensor of its own,
+  fed only that way;
+- its static output (one tensor or a tuple), allocated outside the graph
+  pool, which the captured step's last operations write. Every graph
+  shares one pool,
   so the pool costs the largest graph, not the sum: one graph's
   intermediates may reuse another's, and whatever one call hands to
   the next lives outside the pool;
@@ -45,11 +49,13 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from paddle_tpu_torch.core.device import graph_capture
 from paddle_tpu_torch.kernels import registry
 from paddle_tpu_torch.observability import recompile
 
-#: one step input: (name, shape); every input is int32
-Layout = Sequence[Tuple[str, Tuple[int, ...]]]
+#: one step input: (name, shape), int32 in the bucket's shared buffer,
+#: or (name, shape, dtype), a static device tensor fed from the device
+Layout = Sequence[tuple]
 #: signature -> (input layout, step function of those inputs by name)
 Spec = Callable[[tuple], Tuple[Layout, Callable]]
 
@@ -64,6 +70,8 @@ class _Bucket:
 
     def __init__(self, layout: Layout, fn: Callable, device):
         self.fn = fn
+        typed = [e for e in layout if len(e) == 3]
+        layout = [e for e in layout if len(e) == 2]
         n = sum(int(np.prod(shape)) for _, shape in layout)
         if device.type == "cuda":
             self.host_t = torch.zeros(n, dtype=torch.int32, pin_memory=True)
@@ -80,7 +88,9 @@ class _Bucket:
             self.views[name] = self.buf[at:at + k].view(shape)
             self.host_views[name] = self.host[at:at + k].reshape(shape)
             at += k
-        self.out: Optional[torch.Tensor] = None
+        for name, shape, dtype in typed:
+            self.views[name] = torch.zeros(shape, dtype=dtype, device=device)
+        self.out = None
         self.graph = None
         self.launches: Dict[str, int] = {}   # kernel launches per replay
         self.copied = None                   # event after the input copy
@@ -91,7 +101,7 @@ class StepGraphs:
 
     ``spec(sig)`` gives a signature's input layout and its step function,
     which reads only those inputs (by name), the weights and the pages,
-    and returns one tensor or None. ``enabled`` (with a CUDA ``device``)
+    and returns one tensor, a tuple of tensors, or None. ``enabled`` (with a CUDA ``device``)
     captures graphs; otherwise every call dispatches eagerly."""
 
     def __init__(self, device: torch.device, spec: Spec,
@@ -152,15 +162,20 @@ class StepGraphs:
         with torch.cuda.stream(self._side):
             y = self._eager(sig, b)          # real launches: counted
         cur.wait_stream(self._side)
-        if y is not None:
+        if isinstance(y, tuple):
+            b.out = tuple(torch.empty_like(t) for t in y)
+        elif y is not None:
             b.out = torch.empty_like(y)      # outside the graph pool
         del y
         graph = torch.cuda.CUDAGraph()
         before = registry.launch_counts()
         try:
-            with torch.cuda.graph(graph, pool=self.pool):
+            with graph_capture(graph, pool=self.pool):
                 y = b.fn(**b.views)
-                if b.out is not None:
+                if isinstance(b.out, tuple):
+                    for o, t in zip(b.out, y):
+                        o.copy_(t)
+                elif b.out is not None:
                     b.out.copy_(y)
                 del y
         except Exception as e:
@@ -179,9 +194,10 @@ class StepGraphs:
             device_feeds: Optional[Dict[str, torch.Tensor]] = None):
         """One call of ``sig`` (built on first use) on ``feeds`` (host
         arrays by input name; inputs left out are 0) and
-        ``device_feeds`` (device tensors by input name). Returns the
+        ``device_feeds`` (device tensors, or pinned host tensors the
+        caller keeps until the call's copies are done, by input name). Returns the
         step's output: on the card with graphs, the bucket's static
-        output tensor, overwritten by its next call."""
+        output tensor (or tuple), overwritten by its next call."""
         b = self._buckets.get(sig)
         if b is None:
             b = self.build(sig)
@@ -197,7 +213,8 @@ class StepGraphs:
                 b.copied = torch.cuda.Event()
             b.copied.record()
         for name, t in (device_feeds or {}).items():
-            b.views[name].copy_(t)
+            # a pinned host feed copies asynchronously, in stream order
+            b.views[name].copy_(t, non_blocking=True)
         self.calls[sig] += 1
         if b.graph is None:
             return self._eager(sig, b)

@@ -42,15 +42,24 @@ prefilling them. Rules that keep it exact:
   LRU **cached** pool: reusable by future matches, evicted (and
   unpublished) only when the allocator runs dry.
 
-The host spill tier and the tensor-parallel page placement (and
-``quantize_kv``'s ``psum_axis``) are later slices of the port.
+Host spill tier (``host_spill_pages > 0``): an evicted published full
+page is first read to host memory through the engine's page reader
+(:meth:`PagedKVCache.attach_spill_io`) and parked, sha256-stamped, in a
+:class:`HostPagePool` keyed by its chain key; the engine restores it on
+the next prefix hit and a peer can import it
+(:meth:`PagedKVCache.lookup_prefix_page`).
+
+The tensor-parallel page placement (and ``quantize_kv``'s
+``psum_axis``) are later slices of the port.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import threading
 from collections import OrderedDict
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -155,11 +164,121 @@ def prompt_prefix_digests(prompt, page_size: int) -> List[int]:
     return [key for _p, key, _c in _chain_walk(prompt, page_size, limit)]
 
 
+def payload_digest(payload: Tuple[np.ndarray, ...]) -> str:
+    """sha256 over a spilled page's host arrays: the int8 KV and its fp32
+    scale rows hash as one digest (a scale-only corruption is refused
+    exactly like a KV corruption)."""
+    h = hashlib.sha256()
+    for a in payload:
+        h.update(np.ascontiguousarray(a))        # the raw bytes, no copy
+    return h.hexdigest()
+
+
+@dataclasses.dataclass
+class SpilledPage:
+    """One published full page parked in host memory: its chain key, the
+    stored token content (matches stay content-checked), the host copies
+    of the page's device arrays (``(kv,)`` fp, ``(kv, scales)`` int8; a
+    bf16 page's K/V as the uint16 view of its bits), and the sha256
+    stamped at spill time that restore and export re-verify."""
+
+    key: int
+    tokens: np.ndarray
+    payload: Tuple[np.ndarray, ...]
+    sha256: str
+    nbytes: int
+
+
+class HostPagePool:
+    """Host-memory LRU tier for spilled KV pages.
+
+    When the device cached pool would evict (and destroy) a published
+    page, its bytes land here instead, keyed by its prefix-chain digest;
+    the next prefix hit restores it, and a peer's import can take it from
+    here without touching the card. Bounded in pages: past ``capacity``
+    the LRU entry is dropped. ``gen`` bumps on every mutation, so
+    :attr:`PagedKVCache.prefix_gen` changes whenever the advertised set
+    can. One lock guards the entries: a monitor thread may read
+    ``keys()``/``len()`` while the step thread mutates them."""
+
+    def __init__(self, capacity: int):
+        if capacity < 1:
+            raise ValueError("HostPagePool needs capacity >= 1")
+        self.capacity = int(capacity)
+        self._lock = threading.Lock()
+        self._entries: "OrderedDict[int, SpilledPage]" = OrderedDict()
+        self.gen = 0
+        self.spilled_total = 0
+        self.restored_total = 0
+        self.dropped_total = 0
+        self.spilled_bytes_total = 0
+        self.restored_bytes_total = 0
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._entries)
+
+    def keys(self) -> frozenset:
+        with self._lock:
+            return frozenset(self._entries)
+
+    def entries(self) -> List[SpilledPage]:
+        with self._lock:
+            return list(self._entries.values())
+
+    def spilled_bytes(self) -> int:
+        """Host bytes resident right now."""
+        with self._lock:
+            return sum(e.nbytes for e in self._entries.values())
+
+    def put(self, entry: SpilledPage):
+        """Admit one spilled page as the most recently used; entries past
+        capacity are dropped from the LRU end and counted."""
+        with self._lock:
+            self._entries[entry.key] = entry
+            self._entries.move_to_end(entry.key)
+            self.gen += 1
+            self.spilled_total += 1
+            self.spilled_bytes_total += entry.nbytes
+            while len(self._entries) > self.capacity:
+                self._entries.popitem(last=False)
+                self.dropped_total += 1
+                self.gen += 1
+
+    def get(self, key: int) -> Optional[SpilledPage]:
+        """Peek (and LRU-touch) without removing."""
+        with self._lock:
+            ent = self._entries.get(key)
+            if ent is not None:
+                self._entries.move_to_end(key)
+            return ent
+
+    def pop(self, key: int) -> Optional[SpilledPage]:
+        with self._lock:
+            ent = self._entries.pop(key, None)
+            if ent is not None:
+                self.gen += 1
+            return ent
+
+    def discard(self, key: int):
+        """Drop an entry that became device-resident again (restore, an
+        import, or a fresh local publication of the same chain): the pool
+        holds cold pages only, never a device duplicate."""
+        self.pop(key)
+
+    def note_restored(self, pages: int, nbytes: int):
+        with self._lock:
+            self.restored_total += pages
+            self.restored_bytes_total += nbytes
+
+
 class PagedKVCache:
     """Device pages + host-side page allocator, block tables, and the
-    refcounted prefix-sharing index."""
+    refcounted prefix-sharing index; ``host_spill_pages > 0`` adds the
+    host spill tier (:class:`HostPagePool`)."""
 
-    def __init__(self, config: PagedCacheConfig, device="cuda"):
+    def __init__(self, config: PagedCacheConfig, device="cuda",
+                 host_spill_pages: int = 0):
         self.config = c = config
         self.device = resolve_device(device)
         shape = (c.num_pages, c.page_size, c.num_heads, c.head_dim)
@@ -207,6 +326,15 @@ class PagedKVCache:
         self._digests_gen = -1
         self.shared_tokens_total = 0     # prefill tokens skipped via sharing
         self.cow_copies_total = 0
+        # host spill tier, off at 0 pages: _alloc_page parks an evicted
+        # published page in the pool instead of destroying it, through the
+        # engine's page reader (attach_spill_io)
+        self.spill_pool: Optional[HostPagePool] = (
+            HostPagePool(host_spill_pages) if host_spill_pages > 0
+            else None)
+        self._spill_reader: Optional[Callable] = None
+        self._adv_digests = frozenset()
+        self._adv_gen = -1
 
     # -- allocator --------------------------------------------------------
 
@@ -245,9 +373,32 @@ class PagedKVCache:
             return self._free.pop()
         if self._cached:     # evict the LRU published-but-idle page
             pid, _ = self._cached.popitem(last=False)
+            self._spill_page(pid)
             self._unpublish(pid)
             return pid
         raise PageOverflowError("page pool exhausted")
+
+    def attach_spill_io(self, reader: Callable):
+        """Install the engine's page reader (``pid -> tuple of host
+        arrays``). Spilling stays off until both a pool and a reader
+        exist, so a bare cache (unit tests, draft caches) does no IO."""
+        self._spill_reader = reader
+
+    def _spill_page(self, pid: int):
+        """Park an evicted published full page in the host pool (K/V and
+        scale rows together, sha256-stamped) before ``_unpublish`` drops
+        it. Tail pages are not spilled: at most ``page_size - 1`` tokens
+        of recompute, and no prefix digest names them."""
+        if self.spill_pool is None or self._spill_reader is None:
+            return
+        pub = self._page_pub.get(pid)
+        if pub is None or pub[0] != "full":
+            return
+        payload = tuple(np.asarray(a) for a in self._spill_reader(pid))
+        self.spill_pool.put(SpilledPage(
+            key=pub[1], tokens=self._page_tokens[pid].copy(),
+            payload=payload, sha256=payload_digest(payload),
+            nbytes=sum(int(a.nbytes) for a in payload)))
 
     def _acquire(self, pid: int):
         """Take a reference on a published page (reviving it from the
@@ -418,6 +569,10 @@ class PagedKVCache:
                 self._page_pub[pid] = ("full", key2)
                 self._page_tokens[pid] = chunk.copy()
                 self._index_gen += 1
+                if self.spill_pool is not None:
+                    # a fresh local prefill re-committed this chain key:
+                    # the cold host copy is redundant
+                    self.spill_pool.discard(key2)
             key, k = key2, p + 1
         self._pub_chain[slot] = key
         if upto >= int(prompt.shape[0]) and upto % ps:
@@ -455,12 +610,13 @@ class PagedKVCache:
 
     @property
     def prefix_gen(self) -> int:
-        """Monotonic publication generation: bumps whenever the prefix
-        index changes (a page published, or a published page evicted),
-        so a reader of ``health()`` can tell that a prefix it saw
-        advertised may be gone. The reference adds its host spill
-        tier's generation, a tier the port does not have yet."""
-        return self._index_gen
+        """Monotonic generation over both publication tiers: bumps when
+        the device index changes (publish, unpublish, adopt) and when the
+        host spill pool changes (spill, restore, drop), so a reader of
+        ``health()`` can tell that a prefix it saw advertised may be
+        gone."""
+        return self._index_gen + (self.spill_pool.gen
+                                  if self.spill_pool is not None else 0)
 
     def published_digests(self) -> frozenset:
         """Full-page prefix digests resolvable through the index (live or
@@ -469,6 +625,83 @@ class PagedKVCache:
             self._digests = frozenset(self._full_index)
             self._digests_gen = self._index_gen
         return self._digests
+
+    # -- host spill tier --------------------------------------------------
+
+    @property
+    def idle_free_pages(self) -> int:
+        """Pages allocatable without evicting a published cached page:
+        the budget spill restores and imports spend."""
+        return len(self._free)
+
+    def advertised_digests(self) -> frozenset:
+        """Device-published digests plus host-spilled ones (a spilled
+        page is still servable: restored on a local hit, exported to a
+        peer); memoized on :attr:`prefix_gen`."""
+        if self.spill_pool is None:
+            return self.published_digests()
+        g = self.prefix_gen
+        if self._adv_gen != g:
+            self._adv_digests = (self.published_digests()
+                                 | self.spill_pool.keys())
+            self._adv_gen = g
+        return self._adv_digests
+
+    def spill_restore_plan(self, prompt) -> List[SpilledPage]:
+        """The spilled full pages that would extend ``prompt``'s
+        device-resident published chain, in chain order and
+        content-verified like every match; stops at the first page held
+        by neither tier, and at :attr:`idle_free_pages` (a restore never
+        evicts)."""
+        if (self.spill_pool is None or len(self.spill_pool) == 0
+                or prompt is None or not self.config.share_prefix):
+            return []
+        ps = self.config.page_size
+        limit = int(np.asarray(prompt).reshape(-1).shape[0]) - 1
+        plan: List[SpilledPage] = []
+        for _p, key, chunk in _chain_walk(prompt, ps, limit):
+            pid = self._full_index.get(key)
+            if pid is not None:
+                if np.array_equal(self._page_tokens[pid], chunk):
+                    continue
+                break
+            ent = self.spill_pool.get(key)
+            if ent is None or not np.array_equal(ent.tokens, chunk):
+                break
+            plan.append(ent)
+            if len(plan) >= len(self._free):
+                break
+        return plan
+
+    def adopt_published_page(self, key: int, tokens) -> int:
+        """Publish a page written from outside (a spill restore or an
+        import): allocate it, commit it to the full-page index parked in
+        the cached pool (refcount 0, so the next match borrows it like a
+        local page), and drop any host copy of the key. Returns the page
+        id; the caller owes the device write before its next cache
+        operation."""
+        pid = self._alloc_page()
+        self._full_index[key] = pid
+        self._page_pub[pid] = ("full", key)
+        self._page_tokens[pid] = np.asarray(tokens, np.int32).copy()
+        self._cached[pid] = True
+        self._index_gen += 1
+        if self.spill_pool is not None:
+            self.spill_pool.discard(key)
+        return pid
+
+    def lookup_prefix_page(self, key: int):
+        """Resolve one advertised digest for export: ``("device", pid,
+        tokens)`` when resident, ``("host", SpilledPage)`` when spilled,
+        None when this cache no longer holds it."""
+        pid = self._full_index.get(key)
+        if pid is not None:
+            return ("device", pid, self._page_tokens[pid])
+        if self.spill_pool is not None:
+            ent = self.spill_pool.get(key)
+            if ent is not None:
+                return ("host", ent)
+        return None
 
     def check_invariants(self):
         """Allocator self-check (tests): per-page refcount equals the
@@ -498,3 +731,12 @@ class PagedKVCache:
             assert pid in self._page_tokens, "published page lost tokens"
         for owned, sp in zip(self._owned, self._slot_pages):
             assert owned <= set(sp), "owned page not mapped"
+        if self.spill_pool is not None:
+            spilled = self.spill_pool.keys()
+            assert len(self.spill_pool) <= self.spill_pool.capacity, \
+                "host spill pool over capacity"
+            assert not (spilled & set(self._full_index)), \
+                "page both device-published and host-spilled"
+            for ent in self.spill_pool.entries():
+                assert payload_digest(ent.payload) == ent.sha256, \
+                    "spilled page payload corrupted in host pool"

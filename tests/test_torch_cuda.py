@@ -16,7 +16,11 @@ tensor-core fp prefill (K3) over the same head dims and chunks, on an
 aligned and a misaligned bf16 pool and past its page-id table, the
 int8 and speculative engines at tiny size, the engine's captured CUDA
 graphs against eager dispatch (tokens, launch counts, no capture after
-warmup) and a capture that fails and must raise, tiny GPT and BERT with head
+warmup) and a capture that fails and must raise, the page-IO graphs
+(read, write, read back the same bytes over fp32, bf16 and int8 pools;
+pages read back to back never alias the static output), slot migration
+between graphed engines mid-decode, ``generate_bucketed``'s one captured
+decode graph per bucket against ``generate``, tiny GPT and BERT with head
 dim 16 training through the flash kernels as on the CPU (fault F1), the
 flash kernels over head dims 32/64/128 with lengths that are not
 multiples of their tiles (bf16 runs on the tensor cores) and their
@@ -745,3 +749,107 @@ def test_a_failed_capture_raises_instead_of_dispatching_eagerly(dev):
     with pytest.raises(RuntimeError, match="earlier graph capture failed"):
         eng.generate_many([np.arange(1, 6, dtype=np.int32)], 2)
     assert eng.graphs.builds == 1 and not eng.graphs.signatures()
+
+
+# -- page IO, migration and cached dense decoding on the card ---------------
+
+def _served_engine(dev, cache_dtype):
+    from paddle_tpu_torch.inference import make_serving_engine
+    from paddle_tpu_torch.models.gpt import GPT, GPTConfig
+    # the kernels take pages of q's dtype: a bf16 pool serves a bf16 model
+    model = GPT(GPTConfig.tiny(vocab_size=64, hidden_size=32, num_heads=2),
+                device=dev, seed=5,
+                dtype=cache_dtype if cache_dtype == torch.bfloat16
+                else torch.float32)
+    eng = make_serving_engine(model, device=dev, num_slots=3, page_size=4,
+                              prefill_chunk=8, max_tokens_per_slot=36,
+                              cache_dtype=cache_dtype)
+    eng.warmup()
+    assert eng.graphs.graphed
+    return eng
+
+
+@pytest.mark.parametrize("cache_dtype", [None, torch.bfloat16, torch.int8],
+                         ids=["fp32", "bf16", "int8"])
+def test_page_io_graphs_round_trip_and_never_alias(dev, cache_dtype):
+    """read -> write -> read gives the same bytes through the captured
+    page-IO graphs, and pages read back to back (one static output, one
+    pinned copy each) keep their own bytes."""
+    import hashlib
+    eng = _served_engine(dev, cache_dtype)
+    rng = np.random.default_rng(1)
+    for p in [rng.integers(1, 64, n).astype(np.int32) for n in (13, 9)]:
+        eng.submit(p, 12)
+    eng.step()
+    eng.step()
+    live = [int(p) for i in eng.scheduler.active_slots()
+            for p in eng.cache.slot_pages(i)]
+    pair = eng._read_pages(live[:2])
+    alone = [eng._read_pages([p])[0] for p in live[:2]]
+
+    def digest(payload):
+        h = hashlib.sha256()
+        for a in payload:
+            h.update(a.tobytes())
+        return h.hexdigest()
+
+    assert digest(pair[0]) != digest(pair[1])
+    assert [digest(x) for x in pair] == [digest(x) for x in alone]
+    free = eng.cache._free[-1]
+    eng._write_pages([(free, pair[0])])
+    (back,) = eng._read_pages([free])
+    assert digest(back) == digest(pair[0])
+    if cache_dtype is torch.bfloat16:
+        assert back[0].dtype == np.uint16
+    builds = eng.graphs.builds
+    while not eng.scheduler.idle():
+        eng.step()
+    assert eng.graphs.builds == builds and eng.health()["recompiles"] == 0
+
+
+@pytest.mark.parametrize("cache_dtype", [None, torch.int8],
+                         ids=["fp32", "int8"])
+def test_graphed_migration_mid_decode_keeps_the_tokens(dev, cache_dtype):
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(1, 64, n).astype(np.int32) for n in (13, 9, 5)]
+    want = _served_engine(dev, cache_dtype).generate_many(prompts, 20)
+    a, b = _served_engine(dev, cache_dtype), _served_engine(dev, cache_dtype)
+    rids = [a.submit(p, 20) for p in prompts]
+    for _ in range(2):                   # prefilled, one or two blocks in
+        assert not a.step()
+    assert len(a.scheduler.active_slots()) == len(prompts)
+    moved = {}
+    for slot in list(a.scheduler.active_slots()):
+        snap = a.snapshot_slot(slot)
+        rid = a.scheduler.slots[slot].request.rid
+        a.release_slot(slot)
+        moved[rid] = b.restore_slot(snap)
+    got = {}
+    while not (a.scheduler.idle() and b.scheduler.idle()):
+        got.update({("a", r): t for r, t in a.step().items()})
+        got.update({("b", r): t for r, t in b.step().items()})
+    for i, rid in enumerate(rids):
+        out = got[("b", moved[rid])] if rid in moved else got[("a", rid)]
+        np.testing.assert_array_equal(out, want[i])
+    for eng in (a, b):
+        assert eng.graphs.builds == len(eng.warmup_plan())
+        assert eng.health()["recompiles"] == 0
+
+
+def test_bucketed_generate_replays_one_graph_per_bucket(dev):
+    from paddle_tpu_torch.models.gpt import GPT, GPTConfig
+    from paddle_tpu_torch.observability import capture_count
+    model = GPT(GPTConfig.tiny(vocab_size=64, hidden_size=32, num_heads=2,
+                               max_position=64), device=dev, seed=3)
+    rng = np.random.default_rng(3)
+    for s0 in (9, 12, 16):
+        prompt = rng.integers(1, 64, (2, s0)).astype(np.int32)
+        before = capture_count()
+        got = model.generate_bucketed(prompt, max_new_tokens=7)
+        assert capture_count() - before == (1 if s0 == 9 else 0)
+        want = model.generate(torch.from_numpy(prompt).to(dev),
+                              max_new_tokens=7, use_cache=True)
+        assert got.device == want.device
+        np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+    slow = model.generate(torch.from_numpy(prompt).to(dev), max_new_tokens=7)
+    np.testing.assert_array_equal(slow.cpu().numpy(), want.cpu().numpy())

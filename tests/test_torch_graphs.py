@@ -1,7 +1,7 @@
 """The engine's warmup plan and its step builds on the CPU, held against
 the JAX engine: the port's ``warmup_plan()`` and ``reachable_signatures()``
-equal the JAX engine's without its page-IO signatures (slot migration,
-not ported yet), for plain and speculative engines at two geometries
+equal the JAX engine's, page-IO signatures (``("page_read",)``,
+``("page_write",)``) included, for plain and speculative engines at two geometries
 (3 and 5 slots, odd page counts per slot); the plan covers the reachable
 set; after ``warmup()`` serving builds nothing (the counterpart of zero
 recompiles, which on the card is zero CUDA graph captures); an engine
@@ -32,7 +32,6 @@ DRAFT_DIMS = dict(vocab_size=64, hidden_size=8, num_layers=1, num_heads=2,
 #: last bucket is the capacity, not a power of two)
 GEOMETRIES = [dict(num_slots=3, page_size=4, max_tokens_per_slot=36),
               dict(num_slots=5, page_size=4, max_tokens_per_slot=20)]
-PAGE_IO = ("page_read", "page_write")
 
 
 @pytest.fixture(scope="module")
@@ -75,10 +74,10 @@ def test_plan_and_reachable_set_equal_the_reference_without_page_io(
         jmodel, params, attn_impl="lax", spec_k=3, prefill_chunk=8,
         registry=jax_obs.MetricsRegistry(), **geom, **jkw)
     eng = _engine(models, spec, **geom)
-    assert eng.warmup_plan() == [s for s in ref.warmup_plan()
-                                 if s[0] not in PAGE_IO]
-    assert eng.reachable_signatures() == {
-        s for s in ref.reachable_signatures() if s[0] not in PAGE_IO}
+    # the name predates the page IO: the plan now equals the reference's
+    # with ("page_read",) and ("page_write",)
+    assert eng.warmup_plan() == ref.warmup_plan()
+    assert eng.reachable_signatures() == ref.reachable_signatures()
     assert eng.reachable_signatures() <= set(eng.warmup_plan())
     assert len(eng.warmup_plan()) == len(set(eng.warmup_plan()))
 

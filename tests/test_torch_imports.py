@@ -1,7 +1,7 @@
 """Import guard for the port: no file under ``paddle_tpu_torch/``, and
-neither ``chip_smoke.py`` nor ``chip_ab.py``, imports ``jax`` or anything
-of ``paddle_tpu`` (only the tests import both). Also pins the packaging
-of the port."""
+neither ``chip_smoke.py`` nor ``chip_ab.py``, imports ``jax``,
+``ml_dtypes`` or anything of ``paddle_tpu`` (only the tests import
+both). Also pins the packaging of the port."""
 
 import ast
 import pathlib
@@ -11,7 +11,7 @@ import sys
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-FORBIDDEN = {"jax", "jaxlib", "paddle_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "paddle_tpu", "ml_dtypes"}
 FILES = sorted((ROOT / "paddle_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "chip_ab.py"]
 
