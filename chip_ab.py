@@ -21,9 +21,11 @@ checkout, so that each builds and imports its own ``paddle_tpu_torch``:
   (K3) part of it, its kernels and the host's launch calls; then 4g's
   bf16 slot migration (snapshot and restore ms per slot and GB/s) and
   4h's disaggregated tiers (decode tokens/s, TTFT, handoff latency and
-  bytes). A key one tree does not report (the graphs' counts in a tree
-  without graphs, the migration and tier numbers in a tree without
-  them) reads None and gets no ratio;
+  bytes), 4k's fleet (the 4-replica aggregate tokens/s) and 4l's network
+  tier (transport overhead in ms per token, streamed TTFT p99). A key
+  one tree does not report (the graphs' counts in a tree without graphs,
+  the migration, tier and fleet numbers in a tree without them) reads
+  None and gets no ratio;
 - ``kernels``: the bf16 rows of K1 at the serving shape and at the long,
   few-slot shape, of K2, K3 and K4 at the serving shape, of K3 and K4 at
   the speculative verify chunk, and of K6b at the training shape, from
@@ -57,6 +59,8 @@ MIGRATION_KEYS = ("snapshot_ms_per_slot", "restore_ms_per_slot",
                   "snapshot_gb_per_s", "restore_gb_per_s")
 DISAGG_KEYS = ("decode_tokens_per_s", "ttft_p50_s", "ttft_p99_s",
                "handoff_p50_s", "handoff_p99_s", "handoff_bytes")
+FLEET_KEYS = ("aggregate_tokens_per_s",)
+NET_KEYS = ("transport_overhead_ms_per_token", "stream_ttft_p99_s")
 
 #: one turn, run with ``python3 -c`` inside a checkout
 CHILD = f"""
@@ -167,6 +171,11 @@ if "serve" in phases:
     out["4g"] = {{k: stats.get(k) for k in {MIGRATION_KEYS!r}}}
     stats = {{}} if dis is None else dis(dev, colocated)
     out["4h"] = {{k: stats.get(k) for k in {DISAGG_KEYS!r}}}
+    fl, nt = (getattr(cs, f, None) for f in ("fleet_run", "net_run"))
+    stats = {{}} if fl is None else fl(dev)
+    out["4k"] = {{k: stats.get(k) for k in {FLEET_KEYS!r}}}
+    stats = {{}} if nt is None else nt(dev)
+    out["4l"] = {{k: stats.get(k) for k in {NET_KEYS!r}}}
 if "train" in phases:
     stats = cs.train_bf16(dev)
     out["5"] = {{k: stats[k] for k in {TRAIN_KEYS!r}}}

@@ -101,7 +101,29 @@ Phases, in order; any failure exits non-zero:
    (j) fp32, 2 layers at full width, exact tokens: ``generate`` cached ==
        uncached == bucketed == the serving engine; migrated ==
        unmigrated; disaggregated == colocated; spill on == off; imported
-       prefix == fresh prefill.
+       prefix == fresh prefill; a fleet-routed run == one engine; drained
+       == undrained; redriven after a crash == failure-free; a request
+       through ``NetReplica`` == one through ``LocalReplica``;
+   (k) fleet: four ``LocalReplica``s of (a)'s GPT, bf16, each engine as
+       the reference's router bench configures a replica on its chip
+       (8 slots, page 16, chunk 64, 256 tokens a slot), 48 requests of
+       16..192 prompt tokens, 64 new: 1/2/4 replicas (tokens/s, TTFT),
+       affinity against round robin over a 66-token system prompt, a
+       mid-decode drain (ms per migrated slot), a crash and a flaky
+       transport (ejects, redrives, sheds by reason), the replicas on
+       their own threads while the autoscaler warms a fifth on the main
+       thread, and two int8-pool replicas; every request finishes or is
+       shed with a registered reason, no replica captures after warmup,
+       disturbed tokens agree with undisturbed ones up to a near-tie, K1
+       and K3 (K2 and K4 in the int8 leg) launch, flops headroom < 1;
+   (l) network: replica servers as subprocesses on the card beside an
+       in-process replica, same weights (sha256): 16 requests through
+       the local replica, a server, and a ``FrontDoor`` streaming to 16
+       clients; ``kill -9`` of a second server mid-decode (ejected,
+       redriven) and SIGTERM to the first (exit 84 after its work);
+       tokens agree up to a near-tie, each stream >= 2 partials, the
+       netlog validates; codec, RPCs, transport ms per token, stream
+       TTFT.
 5. train   — BERT-base pretraining (vocab 30522, hidden 768, 12 layers,
    12 heads, ffn 3072, max_position 512, post-LN, dropout 0), batch
    48 x 512 with valid lengths 128..512, AdamW(1e-4), bf16 compute over
@@ -120,12 +142,14 @@ Phases, in order; any failure exits non-zero:
 from __future__ import annotations
 
 import collections
+import copy
 import dataclasses
 import functools
 import gc
 import itertools
 import json
 import math
+import os
 import pathlib
 import re
 import shutil
@@ -819,6 +843,7 @@ def serve(device, kernels, label, profile=False, self_draft=False,
 def release():
     """Free what deleted engines held: an engine and its graphs refer to
     each other, so only the cycle collector frees them."""
+    _FP32_TWINS.clear()
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -961,16 +986,42 @@ def dense_logits(model, ids, quantized):
     return model.ln_f(x)[0, -1] @ model.wte.weight.T
 
 
+_FP32_TWINS = {}
+#: the ``bf16_noise`` tie bound in sigmas of a top-2 gap's difference
+#: between two bf16 runs (first met on the card: 2.9 sigma, PR 10)
+BF16_TIE_SIGMAS = 4
+
+
+def _bf16_noise(model, ids):
+    """RMS over the vocabulary of a bf16 model's last-position logits
+    minus those of its fp32 copy on the same context (``ids`` (1, T)):
+    how far bf16 rounding moves a logit there."""
+    twin = _FP32_TWINS.get(id(model))
+    if twin is None:
+        twin = _FP32_TWINS[id(model)] = (copy.deepcopy(model).float(),
+                                         model)
+    d = dense_logits(model, ids, False).float() - dense_logits(
+        twin[0], ids, False)
+    return float(d.pow(2).mean().sqrt())
+
+
 def _hold_tokens(model, prompts, got, want, what, quantized=False,
-                 allow_ties=False):
+                 allow_ties=False, bf16_noise=False):
     """Tokens identical; with ``allow_ties`` a request may first differ
     only at a near-tie (after which its contexts differ and the rest is
     not compared): a top-2 gap of the dense recompute under ``NEAR_TIE``
     of the logits' standard deviation or, for a bf16 model, of at most
     one bf16 step at the top logit (``_bf16_quantum``: the two are
-    adjacent bf16 values). A failure names the first differing position
-    and the top-2 logit gap of the dense recompute on ``want``'s context
-    there. Returns the near-ties met."""
+    adjacent bf16 values). With ``bf16_noise`` (bf16 runs whose requests
+    were prefilled in other batches: another GEMM shape rounds the K/V
+    otherwise, which moves later logits by more than one step), it is
+    also a tie where the two runs' tokens are the recompute's top two and
+    their gap is at most 4 sigma of how two bf16 evaluations' top-2 gaps
+    differ: ``BF16_TIE_SIGMAS`` x 2 x the rms bf16 rounding noise of a
+    logit there (:func:`_bf16_noise`; a logit's noise sigma, twice over
+    for two runs and two logits). A failure names the first differing
+    position and the top-2 logit gap of the dense recompute on ``want``'s
+    context there. Returns the near-ties met."""
     ties = []
     for i, (a, b) in enumerate(zip(got, want)):
         if np.array_equal(a, b):
@@ -980,19 +1031,27 @@ def _hold_tokens(model, prompts, got, want, what, quantized=False,
         ids = np.concatenate([prompts[i], b[:j]]).astype(np.int64)
         logits = dense_logits(model, torch.from_numpy(ids)[None].to(
             model.device), quantized).float()
-        top = logits.topk(2).values
+        top, top_ids = logits.topk(2)
         tie = {"request": i, "position": j,
                "top2_gap": float(top[0] - top[1]),
                "logit_std": float(logits.std())}
         step = 0.0
         if model.wte.weight.dtype == torch.bfloat16:
             step = tie["bf16_step"] = _bf16_quantum(float(top[0]))
+            pair = {int(a[j]), int(b[j])} if j < min(len(a), len(b)) \
+                else set()
+            if bf16_noise and allow_ties and pair == set(top_ids.tolist()):
+                tie["bf16_noise_rms"] = _bf16_noise(
+                    model, torch.from_numpy(ids)[None].to(model.device))
+                step = max(step, BF16_TIE_SIGMAS * 2 * tie["bf16_noise_rms"])
         if not allow_ties or (tie["top2_gap"] >= NEAR_TIE * tie["logit_std"]
                               and tie["top2_gap"] > step):
             raise AssertionError(
                 f"{what}: request {i} first differs at generated position "
                 f"{j} ({a[j:j + 4]} vs {b[j:j + 4]}); top-2 logit gap there "
-                f"{tie['top2_gap']:.3e}, logit std {tie['logit_std']:.3e}")
+                f"{tie['top2_gap']:.3e}, logit std {tie['logit_std']:.3e}"
+                + (f", bf16 noise rms {tie['bf16_noise_rms']:.3e}"
+                   if "bf16_noise_rms" in tie else ""))
         ties.append(tie)
     return ties
 
@@ -1610,6 +1669,702 @@ def mobility_fp32_parity(device):
     release()
 
 
+# -- phases 4k-4l: the serving fleet ------------------------------------------
+
+#: a replica as the reference's router bench configures one on its chip
+#: (bench.py:868-876): 8 slots, pages of 16, chunk 64, 64 new tokens
+#: after prompts of up to 192
+FLEET_KW = dict(num_slots=8, page_size=16, prefill_chunk=64,
+                max_tokens_per_slot=256, decode_block=8)
+FLEET_REQUESTS, FLEET_NEW = 48, 64
+FLEET_LENS = (16, 32, 64, 128, 192)
+FLEET_SYSTEM = 4 * 16 + 2                       # 4 pages and 2 tokens
+NET_REQUESTS = 16
+
+
+def fleet_prompts(rng, vocab, n=FLEET_REQUESTS):
+    """``n`` fresh prompts with the bench's length mix."""
+    return [rng.integers(1, vocab, int(k)).astype(np.int32)
+            for k in rng.choice(FLEET_LENS, n)]
+
+
+def _fleet_replica(model, device, name, warm=True, **kw):
+    """A ``LocalReplica`` over a fresh engine of ``model``, warmed
+    unless ``warm`` is false."""
+    from paddle_tpu_torch.observability import MetricsRegistry, Tracer
+    from paddle_tpu_torch.serving import fleet
+    from paddle_tpu_torch.serving.engine import ServingEngine
+    eng = ServingEngine(model, device=device, registry=MetricsRegistry(),
+                        tracer=Tracer(enabled=False), ttft_budget_s=1.0,
+                        **{**FLEET_KW, **kw})
+    rep = fleet.LocalReplica(eng, name=name)
+    return rep.warmup() if warm else rep
+
+
+def _fleet_no_captures(label, reps):
+    """Each replica's engine built exactly its warmup plan. (Its
+    ``health()["recompiles"]`` is the process-wide build count, as the
+    reference's detector counts the process's compiles: another
+    replica's warmup shows there.)"""
+    for rep in reps:
+        eng = rep.engine
+        extra = eng.graphs.builds - len(eng.warmup_plan())
+        if extra:
+            raise AssertionError(f"{label}: {rep.name} captured {extra} "
+                                 "graphs after warmup")
+
+
+def _reset_replica(rep):
+    """Drop what an ejected replica's engine still holds (its requests
+    were redriven elsewhere), so the engine serves again."""
+    eng = rep.engine
+    eng.cancel_queued()
+    for slot in list(eng.scheduler.active_slots()):
+        eng.release_slot(slot)
+    eng._results.clear()
+    eng._stats.clear()
+    rep.draining = False
+
+
+def _burst(router, prompts, new=FLEET_NEW):
+    """Submit everything, step to idle; returns (tokens per prompt,
+    wall seconds, TTFTs)."""
+    for rep in router.replicas:
+        rep.busy_s = 0.0
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    frids = [router.submit(p, new) for p in prompts]
+    done = router.run_until_idle(max_steps=1_000_000)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    outs = [done.get(f) for f in frids]
+    if any(o is None or len(o) != new for o in outs):
+        raise AssertionError("a fleet burst lost a request")
+    ttft = [router.request_stats(f)["ttft_s"] for f in frids]
+    return outs, wall, ttft
+
+
+def _redrive_points(tracer):
+    """Fleet rid -> tokens observed at its last cold redrive, from the
+    router's spans."""
+    spans = sorted(tracer.spans(), key=lambda s: s.start)
+    tid = {s.attrs["fleet_rid"]: s.trace_id for s in spans
+           if s.name == "router.route"}
+    last = {s.trace_id: int(s.attrs["tokens_observed"]) for s in spans
+            if s.name == "router.redrive" and s.attrs.get("mode") == "cold"}
+    return {f: last[t] for f, t in tid.items() if t in last}
+
+
+def _hold_redriven(model, eng, prompts, got, want, points, label):
+    """``_hold_tokens`` for a fleet run with cold redrives (``points``:
+    request index -> tokens observed when it was resubmitted). A cold
+    redrive resubmits ``prompt + observed``, whose K/V the peer's prefill
+    recomputes: in bf16 their bits differ from the decode's, so past the
+    redrive a greedy decision can part from the undisturbed run's where
+    the two runs' logits are a few bf16 steps apart. So a redriven
+    request's first ``k`` tokens are held to the undisturbed run, and
+    the rest to ``eng``'s failure-free greedy continuation of the same
+    resubmitted prompt (what the redrive runs), each by the near-tie
+    rule; the others to the undisturbed run. Returns the near-ties."""
+    plain = [i for i in range(len(got)) if i not in points]
+    ties = _hold_tokens(model, [prompts[i] for i in plain],
+                        [got[i] for i in plain], [want[i] for i in plain],
+                        label, allow_ties=True, bf16_noise=True)
+    for i, k in sorted(points.items()):
+        ties += _hold_tokens(model, [prompts[i]], [got[i][:k]],
+                             [want[i][:k]], f"{label} (observed prefix)",
+                             allow_ties=True, bf16_noise=True)
+        ctx = np.concatenate([prompts[i], got[i][:k]]).astype(np.int32)
+        cont = eng.generate_many([ctx], len(got[i]) - k)[0]
+        ties += _hold_tokens(model, [ctx], [got[i][k:]], [cont],
+                             f"{label} (continuation of a cold redrive)",
+                             allow_ties=True, bf16_noise=True)
+    return ties
+
+
+def _q(xs, q):
+    return float(np.quantile(np.asarray(xs), q))
+
+
+def _harvest(router, frids, timeout_s=300.0):
+    """Results of threaded replicas: each request's tokens from its
+    replica's result store (the replicas step on their own threads)."""
+    out, deadline = {}, time.monotonic() + timeout_s
+    while len(out) < len(frids):
+        for f in frids:
+            if f not in out:
+                rep, lrid = router._where[f]
+                toks = rep.result(lrid)
+                if toks is not None:
+                    out[f] = (toks, rep.request_stats(lrid), rep.name)
+        for rep in router.replicas:
+            if rep.failed:
+                raise AssertionError(f"4k threaded: {rep.name} failed: "
+                                     f"{rep.last_error}")
+        if time.monotonic() > deadline:
+            raise AssertionError(f"4k threaded: {len(out)} of {len(frids)}"
+                                 " requests finished in time")
+        time.sleep(0.002)
+    return [out[f] for f in frids]
+
+
+def fleet_run(device):
+    """4k: four ``LocalReplica``s over one bf16 GPT at full width on one
+    card, all warmed before any leg, behind a ``FleetRouter`` driven on
+    the host's thread (the reference router bench's legs,
+    ``bench.py:855-1190``, at its chip settings): (i) 1, 2 and 4
+    replicas under affinity routing on fresh prompts; (ii) 48 requests
+    sharing a 66-token system prompt under affinity and round robin;
+    (iii) ``drain_replica`` of a replica holding mid-decode slots; (iv)
+    a crash (``crash_on_step=6``) and a flaky transport
+    (``submit_failures=2``) under a ``FaultPolicy``; (v) the replicas on
+    their own threads (``start()``) while the autoscaler spawns a fifth
+    and warms it on this thread; (vi) two int8-pool replicas. Gates:
+    every request finishes or is shed with a registered reason; no
+    replica captures after warmup; drained, redriven and threaded tokens
+    equal the undisturbed runs' up to a bf16 near-tie; K1 and K3 launch
+    in (i)-(v), K2 and K4 in (vi); a replica that served has flops
+    headroom below 1. Returns the stats (``launches`` by kernel)."""
+    from paddle_tpu_torch.kernels import registry
+    from paddle_tpu_torch.models.gpt import GPT
+    from paddle_tpu_torch.observability import MetricsRegistry, Tracer
+    from paddle_tpu_torch.serving import REJECT_REASONS
+    from paddle_tpu_torch.serving import fleet
+    from paddle_tpu_torch.serving import paged_attention as PA
+    cfg = model_config()
+    model = GPT(cfg, device=device, dtype=torch.bfloat16, seed=0)
+    rng = np.random.default_rng(0)
+    lens = rng.choice(FLEET_LENS, FLEET_REQUESTS)
+
+    def fresh():
+        return [rng.integers(1, cfg.vocab_size, int(k)).astype(np.int32)
+                for k in lens]
+
+    t0 = time.monotonic()
+    reps = [_fleet_replica(model, device, f"replica{i}") for i in range(4)]
+    warm_s = time.monotonic() - t0
+    stats = {"replicas": 4, "warmup_s_4_replicas": warm_s,
+             "signatures": len(reps[0].engine.warmup_plan())}
+    registry.reset_launches()
+
+    # (i) scaling
+    scaling, runs = {}, {}
+    for n in (1, 2, 4):
+        prompts = fresh()
+        router = fleet.FleetRouter(reps[:n], registry=MetricsRegistry(),
+                                   seed=n)
+        outs, wall, ttft = _burst(router, prompts)
+        runs[n] = (prompts, outs)
+        tokens = FLEET_REQUESTS * FLEET_NEW
+        scaling[str(n)] = {
+            "tokens_per_s": tokens / wall,
+            "critical_path_tokens_per_s":
+                tokens / max(r.busy_s for r in reps[:n]),
+            "ttft_p50_s": _q(ttft, 0.5), "ttft_p99_s": _q(ttft, 0.99)}
+    stats["scaling"] = scaling
+    stats["aggregate_tokens_per_s"] = scaling["4"]["tokens_per_s"]
+    log("  4k (i) scaling: " + json.dumps(scaling))
+
+    # (ii) affinity against round robin over a shared system prompt
+    affinity = {}
+    for policy in ("affinity", "round_robin"):
+        sysp = rng.integers(1, cfg.vocab_size, FLEET_SYSTEM).astype(np.int32)
+
+        def shared():
+            return np.concatenate([sysp, rng.integers(
+                1, cfg.vocab_size, FLEET_LENS[0]).astype(np.int32)])
+
+        def saved():
+            return sum(r.engine._reg.counter(
+                "serving_prefix_shared_tokens_total").value()
+                for r in reps[:2])
+
+        before = saved()
+        router = fleet.FleetRouter(reps[:2], policy=policy,
+                                   registry=MetricsRegistry(), seed=9)
+        router.submit(shared(), 8)
+        router.run_until_idle(max_steps=1_000_000)
+        for _ in range(FLEET_REQUESTS):
+            router.submit(shared(), 8)
+        router.run_until_idle(max_steps=1_000_000)
+        affinity[policy] = {
+            "routed_affinity_total": router.routed_affinity_total,
+            "routed_balance_total": router.routed_balance_total,
+            "prefix_tokens_shared": int(saved() - before)}
+    if affinity["affinity"]["routed_affinity_total"] < FLEET_REQUESTS:
+        raise AssertionError(f"4k affinity: {affinity}")
+    stats["affinity"] = affinity
+    log("  4k (ii) affinity vs round robin: " + json.dumps(affinity))
+
+    # (iii) drain: live migration of a replica's mid-decode slots
+    prompts = fresh()[:FLEET_KW["num_slots"]]
+    ref, _, _ = _burst(fleet.FleetRouter(reps[:2],
+                                         registry=MetricsRegistry(),
+                                         seed=13), prompts)
+    router = fleet.FleetRouter(reps[:2], registry=MetricsRegistry(),
+                               seed=13)
+    frids = [router.submit(p, FLEET_NEW) for p in prompts]
+    eng1, done = reps[1].engine, {}
+    for _ in range(1000):
+        done.update(router.step())
+        if any(0 < len(eng1.scheduler.slots[i].generated) < FLEET_NEW
+               for i in eng1.scheduler.decode_slots()):
+            break
+    else:
+        raise AssertionError("4k drain: no mid-decode window")
+    t0 = time.monotonic()
+    migrated = router.drain_replica(reps[1], remove=False)
+    drain_s = time.monotonic() - t0
+    done.update(router.run_until_idle(max_steps=1_000_000))
+    reps[1].draining = False
+    if not migrated:
+        raise AssertionError("4k drain migrated no slot")
+    ties = _hold_tokens(model, prompts, [done[f] for f in frids], ref,
+                        "4k drained vs undrained", allow_ties=True)
+    stats["drain"] = {"migrations": migrated,
+                      "ms_per_migrated_slot": drain_s / migrated * 1e3,
+                      "near_ties": ties}
+    log("  4k (iii) drain: " + json.dumps(stats["drain"]))
+
+    # (iv) chaos: a crash and a flaky transport
+    prompts = fresh()
+    ref, _, _ = _burst(fleet.FleetRouter(reps, registry=MetricsRegistry(),
+                                         seed=17), prompts)
+    crash = fleet.ChaosReplica(reps[1], crash_on_step=6)
+    flaky = fleet.ChaosReplica(reps[2], submit_failures=2)
+    policy = fleet.FaultPolicy(max_consecutive_failures=6,
+                               probe_timeout_s=120.0, breaker_threshold=2,
+                               breaker_cooldown_s=0.2, max_redrives=4)
+    reg, tracer = MetricsRegistry(), Tracer()
+    router = fleet.FleetRouter([reps[0], crash, flaky, reps[3]],
+                               registry=reg, tracer=tracer, seed=17,
+                               faults=policy)
+    tiny = [rng.integers(1, cfg.vocab_size, FLEET_LENS[0]).astype(np.int32)
+            for _ in range(64)]
+    pre = []
+    for p in tiny:
+        pre.append(router.submit(p, 4))
+        if (flaky.name, "closed", "open") in router.breaker_transitions:
+            break
+    frids = [router.submit(p, FLEET_NEW) for p in prompts]
+    done = router.run_until_idle(max_steps=1_000_000)
+    time.sleep(policy.breaker_cooldown_s + 0.05)
+    probes = [router.submit(p, 4) for p in tiny[:2]]
+    done.update(router.run_until_idle(max_steps=1_000_000))
+    sheds = collections.Counter()
+    for f in pre + frids + probes:
+        if f in done:
+            continue
+        rej = router.reject_reason(f)
+        if rej is None or rej.reason not in REJECT_REASONS:
+            raise AssertionError(f"4k chaos: request {f} lost ({rej})")
+        sheds[rej.reason] += 1
+    kept = [i for i, f in enumerate(frids) if f in done]
+    at = _redrive_points(tracer)
+    points = {j: at[frids[i]] for j, i in enumerate(kept)
+              if frids[i] in at}
+    ties = _hold_redriven(model, reps[0].engine,
+                          [prompts[i] for i in kept],
+                          [done[frids[i]] for i in kept],
+                          [ref[i] for i in kept], points,
+                          "4k redriven vs clean")
+    if router.ejected_total != 1 or not router.redrives_total:
+        raise AssertionError(f"4k chaos: {router.ejected_total} ejected, "
+                             f"{router.redrives_total} redriven")
+    stats["chaos"] = {
+        "ejected": router.ejected_total, "redrives": router.redrives_total,
+        "redrives_by_mode": {m: reg.counter("fleet_redrive_total").value(
+            mode=m) for m in ("cold", "warm", "observed")},
+        "sheds_by_reason": dict(sheds), "finished": len(kept),
+        "cold_redriven_requests": len(points),
+        "agreement_with_clean": agreement(
+            [done[frids[i]] for i in kept], [ref[i] for i in kept]),
+        "breaker_transitions": [f"{n}:{a}->{b}" for n, a, b
+                                in router.breaker_transitions],
+        "near_ties": ties}
+    log("  4k (iv) chaos: " + json.dumps(stats["chaos"]))
+    _reset_replica(reps[1])
+    _fleet_no_captures("4k (i)-(iv)", reps)
+
+    # (v) threaded replicas while the autoscaler warms a fifth
+    spawned = []
+
+    def spawn(i):
+        spawned.append(_fleet_replica(model, device, f"auto{i}",
+                                      warm=False))
+        return spawned[-1]
+    scaler = fleet.FleetAutoscaler(spawn, min_replicas=5, max_replicas=5,
+                                   registry=MetricsRegistry())
+    router = fleet.FleetRouter(reps, policy="p2c", seed=21,
+                               registry=MetricsRegistry(),
+                               autoscaler=scaler)
+    # the first wave is 4k (i)'s 4-replica prompts and 16 of its
+    # 2-replica ones, the second 16 more of those: tokens are known
+    (p4, want4), (p2, want2) = runs[4], runs[2]
+    prompts, want = p4 + p2[:32], want4 + want2[:32]
+    for rep in reps:
+        rep.start()
+    try:
+        frids = [router.submit(p, FLEET_NEW) for p in prompts[:64]]
+        steps = sum(r.steps for r in reps)
+        t0 = time.monotonic()
+        action = scaler.tick()        # spawn + warmup on this thread
+        spawn_s = time.monotonic() - t0
+        steps = sum(r.steps for r in reps) - steps
+        if action != "replace" or len(router.replicas) != 5:
+            raise AssertionError(f"4k threaded: autoscaler {action}, "
+                                 f"{len(router.replicas)} replicas")
+        if not steps:
+            raise AssertionError("4k threaded: no replica stepped while "
+                                 "the fifth captured its graphs")
+        spawned[0].start()
+        frids += [router.submit(p, FLEET_NEW) for p in prompts[64:]]
+        got = _harvest(router, frids)
+    finally:
+        for rep in reps + spawned:
+            rep.stop()
+    ties = _hold_tokens(model, prompts, [g[0] for g in got], want,
+                        "4k threaded vs synchronous", allow_ties=True,
+                        bf16_noise=True)
+    served = collections.Counter(g[2] for g in got)
+    if not served[spawned[0].name]:
+        raise AssertionError("4k threaded: the spawned replica served "
+                             "nothing")
+    _fleet_no_captures("4k threaded", reps + spawned)
+    stats["threaded"] = {
+        "requests": len(got), "spawn_warmup_s": spawn_s,
+        "replica_steps_during_spawn": steps,
+        "served_by": dict(served),
+        "ttft_p99_s": _q([g[1]["ttft_s"] for g in got], 0.99),
+        "near_ties": ties}
+    log("  4k (v) threaded + autoscaled: " + json.dumps(stats["threaded"]))
+    launches = {e.name: e.launches for e in (PA.DECODE, PA.PREFILL)}
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"4k: fp kernels launched {launches}")
+    heads = [r.health()["headroom"]["flops"] for r in reps + spawned]
+    if not max(heads) < 1.0:
+        raise AssertionError(f"4k: flops headroom {heads}")
+    stats["flops_headroom"] = heads
+    del reps, spawned, router, scaler
+    release()
+
+    # (vi) int8 pools
+    registry.reset_launches()
+    q8 = [_fleet_replica(model, device, f"int8_{i}", cache_dtype=torch.int8)
+          for i in range(2)]
+    outs, wall, ttft = _burst(fleet.FleetRouter(
+        q8, registry=MetricsRegistry(), seed=23), fresh())
+    _fleet_no_captures("4k int8", q8)
+    for name, n in ((e.name, e.launches) for e in (PA.DECODE_INT8,
+                                                   PA.PREFILL_INT8)):
+        if n <= 0:
+            raise AssertionError(f"4k int8: {name} never launched")
+        launches[name] = n
+    stats["int8"] = {"tokens_per_s": FLEET_REQUESTS * FLEET_NEW / wall,
+                     "ttft_p99_s": _q(ttft, 0.99)}
+    stats["launches"] = launches
+    log("  4k (vi) int8: " + json.dumps(stats["int8"]))
+    log("  4k launches: " + json.dumps(launches))
+    del q8, model
+    release()
+    return stats
+
+
+def _net_config():
+    """4a's GPT as ``--config`` JSON for ``GPTConfig.tiny``."""
+    cfg = model_config()
+    return dict(vocab_size=cfg.vocab_size, hidden_size=cfg.hidden_size,
+                num_layers=cfg.num_layers, num_heads=cfg.num_heads,
+                ffn_size=cfg.ffn_size, max_position=cfg.max_position,
+                dtype="bfloat16")
+
+
+def _spawn_servers(names, device):
+    """Spawn one replica server per name on ``device``, all at once
+    (each process builds its model and warms its engine there)."""
+    import threading
+
+    from paddle_tpu_torch.serving.fleet import net
+    out, errors = {}, []
+
+    def one(name):
+        try:
+            out[name] = net.spawn_replica_server(
+                config=_net_config(), engine=FLEET_KW, seed=0, name=name,
+                device=str(device), startup_timeout_s=300.0)
+        except Exception as e:          # re-raised below, on this thread
+            errors.append(e)
+    threads = [threading.Thread(target=one, args=(n,)) for n in names]
+    for t in threads:
+        t.start()
+    return threads, out, errors
+
+
+def _stop(procs):
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def net_run(device):
+    """4l: replica servers as real processes on the card
+    (``spawn_replica_server``, 4k's replica configuration and seed)
+    beside one in-process ``LocalReplica``. The same 16 requests (64 new
+    tokens) through the local replica alone, through one server alone,
+    and streamed by a ``FrontDoor`` over the two to 16
+    ``FrontDoorClient``s; then a second server ``kill -9``'d mid-decode
+    and redriven, and SIGTERM to the first with work in flight. Gates:
+    the servers hold the in-process model's weights (sha256); every run's
+    tokens equal the local run's up to a bf16 near-tie; each stream
+    delivers at least 2 partials; the netlog validates; the killed
+    server is ejected and its requests redriven; the drained server
+    exits with ``EXIT_DRAINED``. Reports the codec, RPC counts, the
+    transport's overhead in ms per token and the streams' TTFT."""
+    import signal
+    import threading
+
+    from paddle_tpu_torch.models.gpt import GPT
+    from paddle_tpu_torch.observability import MetricsRegistry, Tracer
+    from paddle_tpu_torch.kernels import registry
+    from paddle_tpu_torch.resilience.preempt import EXIT_DRAINED
+    from paddle_tpu_torch.resilience.retry import RetryPolicy
+    from paddle_tpu_torch.serving import fleet
+    from paddle_tpu_torch.serving.fleet import net
+    from paddle_tpu_torch.serving.fleet.net.replica_server import \
+        weights_digest
+    t_spawn = time.monotonic()
+    threads, servers, errors = _spawn_servers(("net_a", "net_b"), device)
+    cfg = model_config()
+    model = GPT(cfg, device=device, dtype=torch.bfloat16, seed=0)
+    local = _fleet_replica(model, device, "local")
+    digest = weights_digest(model)
+    registry.reset_launches()
+    for t in threads:
+        t.join()
+    procs = [servers[n][0] for n in servers]
+    try:
+        if errors:
+            raise errors[0]
+        spawn_s = time.monotonic() - t_spawn
+        net_a = net.NetReplica(servers["net_a"][1], name="net_a",
+                               call_timeout_s=300.0)
+        # the killed server's redials give up fast
+        net_b = net.NetReplica(servers["net_b"][1], name="net_b",
+                               call_timeout_s=300.0, retry=RetryPolicy(
+                                   max_attempts=2, base_delay_s=0.02,
+                                   max_delay_s=0.1, deadline_s=2.0))
+        if {net_a.remote_weights, net_b.remote_weights} != {digest}:
+            raise AssertionError("4l: a server's weights differ from the "
+                                 "in-process model's")
+        prompts = fleet_prompts(np.random.default_rng(3), cfg.vocab_size,
+                                NET_REQUESTS)
+        tokens = NET_REQUESTS * FLEET_NEW
+        want, local_s, _ = _burst(fleet.FleetRouter(
+            [local], registry=MetricsRegistry()), prompts)
+        calls0 = net_a.calls_total
+        got, net_s, _ = _burst(fleet.FleetRouter(
+            [net_a], registry=MetricsRegistry()), prompts)
+        ties = _hold_tokens(model, prompts, got, want, "4l server vs local",
+                            allow_ties=True, bf16_noise=True)
+        rpcs = net_a.calls_total - calls0
+        # streamed through the front door over the server and the local
+        netlog = pathlib.Path("build") / "chip_smoke_4l.netlog.jsonl"
+        netlog.parent.mkdir(exist_ok=True)
+        netlog.unlink(missing_ok=True)
+        door = net.FrontDoor(fleet.FleetRouter(
+            [net_a, local], registry=MetricsRegistry(), seed=5),
+            netlog_path=str(netlog)).start()
+        streams = [None] * NET_REQUESTS
+
+        def client(i):
+            cli = net.FrontDoorClient(door.address)
+            try:
+                streams[i] = cli.generate(prompts[i], FLEET_NEW,
+                                          tag=f"s{i}", timeout_s=300.0)
+            finally:
+                cli.close()
+        t0 = time.monotonic()
+        workers = [threading.Thread(target=client, args=(i,))
+                   for i in range(NET_REQUESTS)]
+        for w in workers:
+            w.start()
+        for w in workers:
+            w.join()
+        stream_s = time.monotonic() - t0
+        door.close()
+        if any(s is None or s["reject"] is not None for s in streams):
+            raise AssertionError("4l: a stream was lost or rejected")
+        if min(s["partials"] for s in streams) < 2:
+            raise AssertionError("4l: a stream arrived in one piece")
+        ties += _hold_tokens(model, prompts,
+                             [np.asarray(s["tokens"], np.int32)
+                              for s in streams], want,
+                             "4l streamed vs local", allow_ties=True,
+                             bf16_noise=True)
+        summary = net.validate_netlog_file(str(netlog),
+                                           require_requests=NET_REQUESTS)
+        # kill -9 of the second server mid-decode
+        policy = fleet.FaultPolicy(max_consecutive_failures=3,
+                                   probe_timeout_s=120.0,
+                                   breaker_threshold=2,
+                                   breaker_cooldown_s=0.2, max_redrives=3)
+        tracer = Tracer()
+        router = fleet.FleetRouter([net_b, local], seed=11, faults=policy,
+                                   registry=MetricsRegistry(),
+                                   tracer=tracer)
+        sub = prompts[:8]
+        frids = [router.submit(p, FLEET_NEW) for p in sub]
+        victims = [f for f in frids if router._where[f][0] is net_b]
+        if not victims:
+            raise AssertionError("4l: nothing routed to the second server")
+        done = {}
+        for _ in range(1000):
+            done.update(router.step())
+            if any(router.progress(f) for f in victims if f not in done):
+                break
+        proc_b = servers["net_b"][0]
+        os.kill(proc_b.pid, signal.SIGKILL)
+        proc_b.wait(timeout=60)
+        done.update(router.run_until_idle(max_steps=1_000_000))
+        if any(f not in done for f in frids) or not router.ejected_total:
+            raise AssertionError("4l kill -9: requests lost or no eject")
+        at = _redrive_points(tracer)
+        ties += _hold_redriven(model, local.engine, sub,
+                               [done[f] for f in frids], want[:8],
+                               {i: at[f] for i, f in enumerate(frids)
+                                if f in at}, "4l redriven vs local")
+        # SIGTERM with work in flight: drain, then exit EXIT_DRAINED
+        proc_a = servers["net_a"][0]
+        rids = [net_a.submit(p, FLEET_NEW) for p in prompts[:2]]
+        proc_a.send_signal(signal.SIGTERM)
+        deadline, drained = time.monotonic() + 120, {}
+        while not net_a.draining and time.monotonic() < deadline:
+            net_a.health()
+        while len(drained) < len(rids) and time.monotonic() < deadline:
+            drained.update(net_a.step())
+        net_a.close()
+        net_b.close()
+        rc = proc_a.wait(timeout=120)
+        if rc != EXIT_DRAINED or len(drained) != len(rids):
+            raise AssertionError(f"4l SIGTERM: exit {rc}, "
+                                 f"{len(drained)} of {len(rids)} finished")
+        _fleet_no_captures("4l", [local])
+        launches = registry.launch_counts()
+    finally:
+        _stop(procs)
+    ttft = [s["ttft_s"] for s in streams]
+    stats = {
+        "servers_spawn_s": spawn_s, "codec": net_a.codec,
+        "rpc_calls_total": rpcs, "local_tokens_per_s": tokens / local_s,
+        "net_tokens_per_s": tokens / net_s,
+        "transport_overhead_ms_per_token": (net_s - local_s) / tokens * 1e3,
+        "stream_tokens_per_s": tokens / stream_s,
+        "stream_ttft_p50_s": _q(ttft, 0.5),
+        "stream_ttft_p99_s": _q(ttft, 0.99),
+        "partials_min": min(s["partials"] for s in streams),
+        "netlog": summary, "ejected": router.ejected_total,
+        "redrives": router.redrives_total, "sigterm_exit": rc,
+        "local_launches": {k: v for k, v in launches.items() if v},
+        "near_ties": ties}
+    log("  4l network: " + json.dumps(stats))
+    del local, model
+    release()
+    return stats
+
+
+def _to_mid_decode_fleet(router, rep, new=32):
+    """Step the fleet until ``rep`` holds a request mid-decode; returns
+    what finished meanwhile."""
+    eng, done = rep.engine, {}
+    for _ in range(1000):
+        done.update(router.step())
+        if any(0 < len(eng.scheduler.slots[i].generated) < new
+               for i in eng.scheduler.decode_slots()):
+            return done
+    raise AssertionError(f"{rep.name} never held a request mid-decode")
+
+
+def fleet_fp32_parity(device):
+    """4j's fleet legs (fp32, TF32 off, 2 layers at full width, exact
+    tokens): a 2-replica fleet under affinity routing == one engine;
+    ``drain_replica`` mid-decode == undrained; a crashed replica's
+    requests redriven == failure-free; a request through ``NetReplica``
+    (an in-thread ``ReplicaServer``) == one through ``LocalReplica``."""
+    import threading
+
+    from paddle_tpu_torch.models.gpt import GPT
+    from paddle_tpu_torch.observability import MetricsRegistry
+    from paddle_tpu_torch.serving import fleet
+    from paddle_tpu_torch.serving.fleet import net
+    cfg = dataclasses.replace(model_config(), num_layers=2)
+    model = GPT(cfg, device=device, dtype=torch.float32, seed=0)
+    prompts = make_prompts(8, cfg.vocab_size, seed=99)
+    base = _engine(model, device).generate_many(prompts, 32)
+    release()
+
+    def pair():
+        return [fleet.LocalReplica(_engine(model, device), name=f"r{i}")
+                for i in range(2)]
+
+    reps = pair()
+    router = fleet.FleetRouter(reps, registry=MetricsRegistry(), seed=3)
+    frids = [router.submit(p, 32) for p in prompts]
+    done = router.run_until_idle(max_steps=100_000)
+    _hold_tokens(model, prompts, [done[f] for f in frids], base,
+                 "4j fp32 fleet vs one engine")
+    frids = [router.submit(p, 32) for p in prompts]
+    done = _to_mid_decode_fleet(router, reps[1])
+    if not router.drain_replica(reps[1]):
+        raise AssertionError("4j: the drain migrated nothing")
+    done.update(router.run_until_idle(max_steps=100_000))
+    _hold_tokens(model, prompts, [done[f] for f in frids], base,
+                 "4j fp32 drained vs undrained")
+    _fleet_no_captures("4j fleet", reps)
+    del reps, router
+    release()
+    reps = pair()
+    chaos = fleet.ChaosReplica(reps[1])
+    router = fleet.FleetRouter([reps[0], chaos], registry=MetricsRegistry(),
+                               seed=3, faults=fleet.FaultPolicy(
+                                   max_consecutive_failures=1,
+                                   probe_timeout_s=120.0))
+    frids = [router.submit(p, 32) for p in prompts]
+    done = _to_mid_decode_fleet(router, reps[1])
+    chaos.dead = True
+    done.update(router.run_until_idle(max_steps=100_000))
+    if router.ejected_total != 1 or not router.redrives_total:
+        raise AssertionError("4j: the crash was not ejected and redriven")
+    _hold_tokens(model, prompts, [done[f] for f in frids], base,
+                 "4j fp32 redriven vs failure-free")
+    srv = net.ReplicaServer(reps[0].engine, name="inthread")
+    stop = threading.Event()
+
+    def serve():
+        while not stop.is_set():
+            srv.serve_step(0.01)
+    loop = threading.Thread(target=serve)
+    loop.start()
+    try:
+        rep = net.NetReplica(srv.address, name="inthread")
+        rids = [rep.submit(p, 32) for p in prompts]
+        out = {}
+        while len(out) < len(rids):
+            out.update(rep.step())
+        rep.close()
+    finally:
+        stop.set()
+        loop.join()
+        srv.close()
+    _hold_tokens(model, prompts, [out[r] for r in rids], base,
+                 "4j fp32 NetReplica vs LocalReplica")
+    log("  4j fp32 fleet: routed == one engine; drained == undrained; "
+        "redriven == failure-free; NetReplica == LocalReplica (exact "
+        "tokens)")
+    del reps, router, srv, model
+    release()
+
+
 # -- phases 5 and 6: BERT-base pretraining ------------------------------------
 
 TRAIN_BATCH, TRAIN_SEQ = 48, 512
@@ -1855,7 +2610,14 @@ def main() -> int:
     disagg_run(device, bf16_outs)
     spill_exchange_run(device)
     mobility_fp32_parity(device)
+    fleet_fp32_parity(device)
     log(f"  phases 4f-4j took {time.monotonic() - t_mobility:.1f} s")
+    t0 = time.monotonic()
+    fleet_stats = fleet_run(device)
+    log(f"  phase 4k took {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    net_run(device)
+    log(f"  phase 4l took {time.monotonic() - t0:.1f} s")
 
     log("[5/7] train: BERT-base pretraining, bf16")
     train = train_bf16(device)
@@ -1883,6 +2645,10 @@ def main() -> int:
                           {c: r for c, r in flash_rows[e.name].items()
                            if c != FLASH_CASES[0][0]})
               for e in flash]
+    # K1-K4 also run in 4k's fleet (K2/K4 in its int8 leg)
+    for ln in lines:
+        if ln["name"] in fleet_stats["launches"]:
+            ln["launches_fleet"] = fleet_stats["launches"][ln["name"]]
     # K5 also runs in 4f's prefills (GPT.generate, generate_bucketed)
     k5_line, = [ln for ln in lines if ln["name"] == flash[0].name]
     k5_line["launches_generate"] = gen_stats["k5_launches"]

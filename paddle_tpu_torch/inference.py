@@ -1,4 +1,5 @@
-"""Inference facade (``paddle_tpu/inference.py``, serving subset)."""
+"""Inference facade (``paddle_tpu/inference.py``, serving subset): one
+engine, or a fleet of them behind a router."""
 
 from __future__ import annotations
 
@@ -20,3 +21,40 @@ def make_serving_engine(model, **kwargs):
     :class:`~paddle_tpu_torch.serving.ServingEngine`)."""
     from paddle_tpu_torch.serving.engine import ServingEngine
     return ServingEngine(model, **kwargs)
+
+
+def make_serving_fleet(model, *, num_replicas: int = 2,
+                       policy: str = "affinity", registry=None,
+                       tracer=None, warmup: bool = True, autoscaler=None,
+                       seed: int = 0, faults=None, postmortem_dir=None,
+                       shed_spike_threshold: int = 4, **engine_kwargs):
+    """``num_replicas`` serving engines over one
+    :class:`~paddle_tpu_torch.models.gpt.GPT` (the weights are shared and
+    read-only) behind a
+    :class:`~paddle_tpu_torch.serving.fleet.FleetRouter`: prefix-affinity
+    routing with power-of-two-choices fallback, router-minted trace ids,
+    fault tolerance (``faults=``, a ``FaultPolicy``) and, with
+    ``autoscaler=``, burn-rate scaling with live migration on drain. Each
+    engine gets its own metrics registry and the shared ``tracer``;
+    ``engine_kwargs`` go to every
+    :class:`~paddle_tpu_torch.serving.ServingEngine`. Returns the router,
+    its replicas warmed (every signature captured on the card) unless
+    ``warmup=False``."""
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.serving import fleet
+    from paddle_tpu_torch.serving.engine import ServingEngine
+    registry = registry or obs.default()
+    tracer = tracer or obs.tracing.default()
+    reps = []
+    for i in range(num_replicas):
+        eng = ServingEngine(model, registry=obs.MetricsRegistry(),
+                            tracer=tracer, **engine_kwargs)
+        rep = fleet.LocalReplica(eng, name=f"replica{i}")
+        if warmup:
+            rep.warmup()
+        reps.append(rep)
+    return fleet.FleetRouter(reps, policy=policy, registry=registry,
+                             tracer=tracer, seed=seed,
+                             autoscaler=autoscaler, faults=faults,
+                             postmortem_dir=postmortem_dir,
+                             shed_spike_threshold=shed_spike_threshold)

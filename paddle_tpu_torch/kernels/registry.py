@@ -10,8 +10,10 @@ the lint are not ported.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import importlib
+import threading
 from typing import Callable, Dict, Tuple
 
 import torch
@@ -27,7 +29,8 @@ class KernelEntry:
     per-row reference independent of both. ``work(*args, **kw)``
     returns ``(bytes, flops)`` the call needs on these inputs (live
     tokens only), the numerator of its roofline bound. ``launches`` is
-    bumped by the wrapper once per kernel launch, nowhere else."""
+    bumped by the wrapper once per kernel launch
+    (:meth:`note_launch`), nowhere else."""
 
     name: str
     route: str
@@ -40,6 +43,26 @@ class KernelEntry:
     tolerance: Dict[torch.dtype, Tuple[float, float]]
     work: Callable[..., Tuple[int, int]]
     launches: int = 0
+
+    def note_launch(self, n: int = 1):
+        """Count ``n`` launches (negative: take back counts of a graph
+        capture, which launches nothing): process-wide in ``launches``,
+        and in the calling thread's tally
+        (:func:`thread_launch_counts`)."""
+        with _count_lock:
+            self.launches += n
+        _thread_tally()[self.name] += n
+
+
+_count_lock = threading.Lock()
+_local = threading.local()
+
+
+def _thread_tally() -> "collections.Counter[str]":
+    tally = getattr(_local, "tally", None)
+    if tally is None:
+        tally = _local.tally = collections.Counter()
+    return tally
 
 
 _REGISTRY: Dict[str, KernelEntry] = {}
@@ -80,7 +103,15 @@ def launch_counts() -> Dict[str, int]:
     return {name: e.launches for name, e in _REGISTRY.items()}
 
 
+def thread_launch_counts() -> Dict[str, int]:
+    """Launches counted by the calling thread since it started, by name:
+    the difference of two reads is what this thread launched in between,
+    whatever other threads launched meanwhile."""
+    return dict(_thread_tally())
+
+
 def reset_launches():
     """Set every entry's launch count to 0 (before a measured run)."""
-    for entry in _REGISTRY.values():
-        entry.launches = 0
+    with _count_lock:
+        for entry in _REGISTRY.values():
+            entry.launches = 0

@@ -23,6 +23,8 @@ after a device fault still works: the rings outlive the device state.
 
 from __future__ import annotations
 
+import json
+import os
 import threading
 import time
 from collections import deque
@@ -136,6 +138,14 @@ class FlightRecorder:
 
 
 # -- schema validation ----------------------------------------------------
+
+def write_bundle(bundle: Dict[str, Any], path: str) -> str:
+    """Write one bundle as a self-contained JSON artifact."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "w", encoding="utf-8") as f:
+        json.dump(bundle, f, sort_keys=True, default=str)
+    return path
+
 
 def validate_postmortem_bundle(bundle: Dict[str, Any]) -> None:
     """Assert the postmortem bundle schema; raises ValueError with a

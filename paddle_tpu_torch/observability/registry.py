@@ -65,6 +65,18 @@ class _Metric:
         with self._lock:
             return list(self._series)
 
+    def remove_matching(self, **labels) -> int:
+        """Drop every series whose label set includes all the given pairs
+        (``remove_matching(replica="r1")``): a scrape no longer exports
+        them, so an ejected replica's gauges disappear instead of
+        freezing. Returns the series removed."""
+        want = set(_label_key(labels))
+        with self._lock:
+            gone = [k for k in self._series if want <= set(k)]
+            for k in gone:
+                del self._series[k]
+            return len(gone)
+
 
 class _BoundChild:
     """A (metric, cell) pair: pre-resolved series handle."""

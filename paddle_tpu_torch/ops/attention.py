@@ -308,7 +308,7 @@ def flash_fwd_cuda(q, k, v, bias=None, *, causal=False,
     _launch("ptt_flash_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
             _ptr(bias_v), out.data_ptr(), lse.data_ptr(),
             *_geometry(q, k, strides, causal, scale), device=q.device)
-    FWD.launches += 1
+    FWD.note_launch()
     return out, lse
 
 
@@ -328,7 +328,7 @@ def flash_bwd_dkv_cuda(q, k, v, bias, do, lse, delta, *, causal=False,
             _ptr(bias_v), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
             dk.data_ptr(), dv.data_ptr(),
             *_geometry(q, k, strides, causal, scale), device=q.device)
-    BWD_DKV.launches += 1
+    BWD_DKV.note_launch()
     return dk, dv
 
 
@@ -341,7 +341,7 @@ def flash_bwd_dq_cuda(q, k, v, bias, do, lse, delta, *, causal=False,
             _ptr(bias_v), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
             dq.data_ptr(), *_geometry(q, k, strides, causal, scale),
             device=q.device)
-    BWD_DQ.launches += 1
+    BWD_DQ.note_launch()
     return dq
 
 

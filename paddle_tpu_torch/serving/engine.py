@@ -79,6 +79,7 @@ Tensor parallelism is a later slice of the port.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import hashlib
 import threading
@@ -145,6 +146,53 @@ def _host_tensor(a) -> torch.Tensor:
     the inverse of :func:`_host_array`."""
     a = np.array(a)
     return torch.from_numpy(a.view(np.int16) if a.dtype == np.uint16 else a)
+
+
+@dataclasses.dataclass(frozen=True)
+class BucketCost:
+    """Analytic price of one bucket signature (:func:`bucket_cost`)."""
+
+    total_flops: float
+    peak_hbm_bytes: int
+
+
+def bucket_cost(sig: tuple, cfg, draft_cfg, *, num_slots: int,
+                page_size: int, chunk: int, spec_k: int,
+                hbm_bytes: int) -> BucketCost:
+    """Flops of one call of ``sig`` counted from the model configs and
+    the signature's shape, with 2 flops per multiply-add:
+
+    - each token through a model's layers: ``L * 2 * (4 H^2 + 2 H F)``
+      (q, k, v and the output projection; the two FFN matmuls);
+    - attention of ``q`` queries over the gathered width's ``w *
+      page_size`` tokens: ``L * 4 * H * q * w * page_size`` (``Q K^T``
+      and ``P V``);
+    - each row through the tied LM head: ``2 * H * V``.
+
+    ``("decode", w)`` and ``("draft", w)`` are priced per step of their
+    block (``num_slots`` tokens, one head row each), as the reference's
+    cost model prices a loop body once; ``("prefill", w, lanes)`` and
+    ``("draft_prefill", w, lanes)`` run ``lanes * chunk`` tokens with one
+    head row per lane; ``("verify", w)`` runs ``num_slots * spec_k``
+    tokens with a head row each. Page IO and the page copy do no
+    arithmetic: 0 flops. ``peak_hbm_bytes`` is ``hbm_bytes``, the page
+    pools' bytes plus the weights' bytes, for every signature."""
+    phase = sig[0]
+    model = draft_cfg if phase in ("draft", "draft_prefill") else cfg
+    if phase in ("decode", "draft"):
+        tokens, rows = num_slots, num_slots
+    elif phase in ("prefill", "draft_prefill"):
+        tokens, rows = sig[2] * chunk, sig[2]
+    elif phase == "verify":
+        tokens = rows = num_slots * spec_k
+    else:
+        return BucketCost(0.0, int(hbm_bytes))
+    h, f, n = model.hidden_size, model.ffn_size, model.num_layers
+    ctx = sig[1] * page_size
+    flops = (tokens * n * 2 * (4 * h * h + 2 * h * f)
+             + n * 4 * h * tokens * ctx
+             + rows * 2 * h * model.vocab_size)
+    return BucketCost(float(flops), int(hbm_bytes))
 
 
 class SlotMigrationError(RuntimeError):
@@ -354,6 +402,12 @@ class ServingEngine:
         self._ext_trace: Dict[int, int] = {}
         self.migrated_in_total = 0
         self.migrated_out_total = 0
+        # flops headroom: priced buckets retired per busy second against
+        # the best per-call rate seen (warmup prices the buckets)
+        self.bucket_costs: Dict[tuple, BucketCost] = {}
+        self._busy_s = 0.0
+        self._flops_done = 0.0
+        self._flops_rate_peak = 0.0
         # health(): a monitor may poll from its own thread while step()
         # mutates the books, so step() publishes a snapshot at safe
         # points and health() reads only that, under a lock
@@ -368,9 +422,14 @@ class ServingEngine:
 
     def submit(self, prompt, max_new_tokens: int = 32,
                eos_id: Optional[int] = None, *, lane: str = "default",
-               ttft_deadline_s: Optional[float] = None) -> int:
+               ttft_deadline_s: Optional[float] = None,
+               trace_id: Optional[int] = None) -> int:
         """Enqueue a request; returns its rid. ``lane`` and
-        ``ttft_deadline_s`` feed the SLO scheduler. Raises
+        ``ttft_deadline_s`` feed the SLO scheduler. ``trace_id`` adopts
+        an externally minted trace id (the fleet router's) for the
+        request's root span instead of starting a fresh trace, and is
+        carried through ``request_stats`` and ``snapshot_slot`` even with
+        tracing off. Raises
         :class:`~paddle_tpu_torch.serving.scheduler.LoadShedError` (with
         a structured ``Reject``) when the scheduler sheds the request,
         and ``ValueError`` on a decode-tier engine, which takes only
@@ -415,9 +474,11 @@ class ServingEngine:
                                 "shared_tokens": 0.0,
                                 "spec_proposed": 0.0,
                                 "spec_accepted": 0.0}
+        if trace_id is not None:
+            self._ext_trace[rid] = int(trace_id)
         if self.tracer.enabled:
             root = self.tracer.start_span(
-                "serving.request", rid=rid, lane=lane,
+                "serving.request", trace_id=trace_id, rid=rid, lane=lane,
                 prompt_tokens=total - max_new_tokens,
                 max_new_tokens=max_new_tokens)
             root.add_event("submitted",
@@ -482,10 +543,16 @@ class ServingEngine:
 
     def _headroom(self) -> Dict[str, float]:
         """Spare capacity per resource in [0, 1], published as
-        ``serving_headroom`` gauges. Flops stay unpriced (utilization
-        0.0, the reference's value without its cost gauges); spill is 1.0
-        without a host spill tier, else the host pool's spare share."""
+        ``serving_headroom`` gauges. Flops utilization is the priced
+        flops retired per busy second against the best per-call rate
+        seen (0.0 until ``warmup(cost_gauges=True)`` priced the buckets
+        and a step ran); spill is 1.0 without a host spill tier, else
+        the host pool's spare share."""
         util = self.cache.utilization()
+        flops_util = 0.0
+        if self._busy_s > 0 and self._flops_rate_peak > 0:
+            flops_util = min((self._flops_done / self._busy_s)
+                             / self._flops_rate_peak, 1.0)
         free = len(self.scheduler.free_slots())
         cap_b = self.cache.capacity_bytes()
         live_b = self.cache.live_bytes()
@@ -493,15 +560,16 @@ class ServingEngine:
         saved = self._reg.counter(
             "serving_prefix_shared_tokens_total").value()
         head = {
-            "flops_utilization": 0.0,
-            "flops": 1.0,
+            "flops_utilization": round(flops_util, 6),
+            "flops": round(1.0 - flops_util, 6),
             "pages": round(max(1.0 - util, 0.0), 6),
             "slots": round(free / self.scheduler.num_slots, 6),
             "hbm": round(max(1.0 - (live_b / cap_b if cap_b else 0.0),
                              0.0), 6),
             "hbm_live_bytes": int(live_b),
             "hbm_capacity_bytes": int(cap_b),
-            "flops_per_busy_s": 0.0,
+            "flops_per_busy_s": (self._flops_done / self._busy_s
+                                 if self._busy_s > 0 else 0.0),
             "prefix_saved_per_token": round(
                 saved / tokens if tokens else 0.0, 6),
         }
@@ -527,10 +595,26 @@ class ServingEngine:
             "bytes of KV (incl. int8 scale rows) in the host spill pool"
         ).set(head["spill_bytes"])
         self._reg.gauge(
+            "serving_flops_utilization",
+            "retired priced flops per busy second / best observed rate"
+        ).set(flops_util)
+        self._reg.gauge(
             "serving_prefix_saved_per_token",
             "prefill tokens skipped via prefix sharing per served token"
         ).set(head["prefix_saved_per_token"])
         return head
+
+    def _note_busy(self, sigs, dur: float):
+        """Headroom accounting for one device call: busy seconds plus
+        the priced flops of the bucket(s) it retired."""
+        self._busy_s += dur
+        flops = sum(self.bucket_costs[sig].total_flops for sig in sigs
+                    if sig in self.bucket_costs)
+        if flops > 0:
+            self._flops_done += flops
+            if dur > 0:
+                self._flops_rate_peak = max(self._flops_rate_peak,
+                                            flops / dur)
 
     def health(self) -> Dict[str, object]:
         """Structured live health (the ``/healthz`` payload): slot
@@ -579,6 +663,7 @@ class ServingEngine:
                                   "requests load-shed instead of queued"
                                   ).inc(reason=rej.reason)
                 self._phase_acc.pop(req.rid, None)
+                self._ext_trace.pop(req.rid, None)
                 root = self._req_spans.pop(req.rid, None)
                 if root is not None:
                     root.add_event("shed", reason=rej.reason,
@@ -660,6 +745,7 @@ class ServingEngine:
             "serving_decode_step_seconds",
             "wall time per decode block (sync included)").observe(t1 - t0)
         self.anatomy.add_phase("decode", t0, t1)
+        self._note_busy((("decode", w),), t1 - t0)
         tr_on = self.tracer.enabled
         kept = 0
         for i in dslots:
@@ -738,6 +824,7 @@ class ServingEngine:
             "wall time per decode block (sync included)").observe(t1 - t0)
         self.anatomy.add_phase("draft", t0, t_mid)
         self.anatomy.add_phase("verify", t_mid, t1)
+        self._note_busy((("draft", w), ("verify", w)), t1 - t0)
         tr_on = self.tracer.enabled
         kept = 0
         for i in dslots:
@@ -974,6 +1061,9 @@ class ServingEngine:
                 "wall time per batched prefill call (sync included)"
             ).observe(now - t0)
             self.anatomy.add_phase("prefill", t0, now)
+            self._note_busy((("prefill", w, sb),)
+                            + ((("draft_prefill", w, sb),)
+                               if self.speculative else ()), now - t0)
             call_tokens = 0
             tr_on = self.tracer.enabled
             for j, i in enumerate(pslots):
@@ -1116,19 +1206,57 @@ class ServingEngine:
         sigs |= {("copy_page",), ("page_read",), ("page_write",)}
         return {sig for sig in sigs if self._tier_sig(sig)}
 
-    def warmup(self):
+    def warmup(self, cost_gauges: bool = True):
         """Build every signature of :meth:`warmup_plan` up front, each
         against the null page (no live state is touched): on the card
         one eager call and one CUDA graph capture per signature, so the
         kernel build, every capture and every first launch happen at
         start-up and steady-state serving captures nothing. Records the
-        built set in :attr:`warmed_signatures`."""
+        built set in :attr:`warmed_signatures`.
+
+        ``cost_gauges`` also prices every signature (:func:`bucket_cost`)
+        into :attr:`bucket_costs`, which the flops headroom reads, and
+        publishes ``serving_bucket_cost_flops`` /
+        ``serving_bucket_cost_peak_hbm_bytes`` gauges (labels: phase,
+        width, lanes)."""
         self.warmed_signatures = set()
+        self.bucket_costs = {}
         for sig in self.warmup_plan():
+            if cost_gauges:
+                self._bucket_cost_gauges(sig)
             self.graphs.build(sig)
             self.warmed_signatures.add(sig)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    def _bucket_cost_gauges(self, sig):
+        """Price one warmup signature into :attr:`bucket_costs` and its
+        two gauges."""
+        c = self.cache.config
+        hbm = self.cache.capacity_bytes() + sum(
+            t.numel() * t.element_size() for t in self.model.parameters())
+        if self.speculative:
+            hbm += self.draft_cache.capacity_bytes() + sum(
+                t.numel() * t.element_size()
+                for t in self.draft_model.parameters())
+        cost = bucket_cost(
+            sig, self.model.cfg,
+            self.draft_model.cfg if self.speculative else None,
+            num_slots=self.scheduler.num_slots, page_size=c.page_size,
+            chunk=self.prefill_chunk, spec_k=self.spec_k, hbm_bytes=hbm)
+        self.bucket_costs[sig] = cost
+        labels = dict(phase=sig[0],
+                      width=str(sig[1] if len(sig) > 1 else 0),
+                      lanes=str(sig[2] if len(sig) > 2
+                                else self.scheduler.num_slots))
+        self._reg.gauge(
+            "serving_bucket_cost_flops",
+            "analytic flops per bucket signature").set(
+                cost.total_flops, **labels)
+        self._reg.gauge(
+            "serving_bucket_cost_peak_hbm_bytes",
+            "page pools' plus weights' bytes per bucket signature").set(
+                cost.peak_hbm_bytes, **labels)
 
     # -- KV mobility: page IO, migration, handoff, spill, exchange --------
 
@@ -1400,6 +1528,7 @@ class ServingEngine:
         while sched.queue:
             r = sched.queue.popleft()
             self._phase_acc.pop(r.rid, None)
+            self._ext_trace.pop(r.rid, None)
             root = self._req_spans.pop(r.rid, None)
             if root is not None:
                 root.add_event("requeued")

@@ -148,9 +148,10 @@ class StepGraphs:
         return b
 
     def _eager(self, sig, b: _Bucket):
-        before = registry.launch_counts()
+        before = registry.thread_launch_counts()
         out = b.fn(**b.views)
-        self.launches[sig].update(_delta(registry.launch_counts(), before))
+        self.launches[sig].update(
+            _delta(registry.thread_launch_counts(), before))
         return out
 
     def _capture(self, sig, b: _Bucket):
@@ -168,7 +169,7 @@ class StepGraphs:
             b.out = torch.empty_like(y)      # outside the graph pool
         del y
         graph = torch.cuda.CUDAGraph()
-        before = registry.launch_counts()
+        before = registry.thread_launch_counts()
         try:
             with graph_capture(graph, pool=self.pool):
                 y = b.fn(**b.views)
@@ -182,10 +183,11 @@ class StepGraphs:
             self._failed = e
             raise
         finally:
-            # a capture launches nothing: take its counts back
-            b.launches = _delta(registry.launch_counts(), before)
+            # a capture launches nothing: take its counts back (this
+            # thread's: other threads may launch meanwhile)
+            b.launches = _delta(registry.thread_launch_counts(), before)
             for name, n in b.launches.items():
-                registry.get(name).launches -= n
+                registry.get(name).note_launch(-n)
         b.graph = graph
 
     # -- call ---------------------------------------------------------------
@@ -220,7 +222,7 @@ class StepGraphs:
             return self._eager(sig, b)
         b.graph.replay()
         for name, n in b.launches.items():
-            registry.get(name).launches += n
+            registry.get(name).note_launch(n)
         self.launches[sig].update(b.launches)
         return b.out
 

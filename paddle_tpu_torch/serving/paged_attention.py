@@ -364,7 +364,7 @@ def paged_decode_cuda(q, k_pages, v_pages, block_tables, lengths, *,
             out.data_ptr(), s_slots, h, dh, k_pages.shape[1],
             block_tables.shape[1], k_pages.shape[0], _DTYPE_CODES[q.dtype],
             _scale(q, scale))
-    DECODE.launches += 1
+    DECODE.note_launch()
     return out
 
 
@@ -381,7 +381,7 @@ def paged_prefill_cuda(q, k_pages, v_pages, block_tables, chunk_starts,
             chunk_starts.data_ptr(), n_valid.data_ptr(), out.data_ptr(),
             s_slots, c, h, dh, k_pages.shape[1], block_tables.shape[1],
             k_pages.shape[0], _DTYPE_CODES[q.dtype], _scale(q, scale))
-    PREFILL.launches += 1
+    PREFILL.note_launch()
     return out
 
 
@@ -399,7 +399,7 @@ def paged_decode_int8_cuda(q, k_pages, v_pages, k_scales, v_scales,
             out.data_ptr(), s_slots, h, dh, k_pages.shape[1],
             block_tables.shape[1], k_pages.shape[0], _DTYPE_CODES[q.dtype],
             _scale(q, scale))
-    DECODE_INT8.launches += 1
+    DECODE_INT8.note_launch()
     return out
 
 
@@ -418,7 +418,7 @@ def paged_prefill_int8_cuda(q, k_pages, v_pages, k_scales, v_scales,
             chunk_starts.data_ptr(), n_valid.data_ptr(), out.data_ptr(),
             s_slots, c, h, dh, k_pages.shape[1], block_tables.shape[1],
             k_pages.shape[0], _DTYPE_CODES[q.dtype], _scale(q, scale))
-    PREFILL_INT8.launches += 1
+    PREFILL_INT8.note_launch()
     return out
 
 

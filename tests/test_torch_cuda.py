@@ -853,3 +853,163 @@ def test_bucketed_generate_replays_one_graph_per_bucket(dev):
         np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
     slow = model.generate(torch.from_numpy(prompt).to(dev), max_new_tokens=7)
     np.testing.assert_array_equal(slow.cpu().numpy(), want.cpu().numpy())
+
+
+# -- the serving fleet on the card --------------------------------------------
+
+def _fleet_model(dev, dtype=torch.float32, seed=5):
+    from paddle_tpu_torch.models.gpt import GPT, GPTConfig
+    return GPT(GPTConfig.tiny(vocab_size=64, hidden_size=64, num_heads=4,
+                              max_position=128), device=dev, seed=seed,
+               dtype=dtype)
+
+
+FLEET_GEOM = dict(num_slots=3, page_size=4, prefill_chunk=8,
+                  max_tokens_per_slot=64, decode_block=4)
+
+
+def _fleet_replica(model, dev, name):
+    from paddle_tpu_torch.inference import make_serving_engine
+    from paddle_tpu_torch.observability import MetricsRegistry
+    from paddle_tpu_torch.serving import fleet
+    return fleet.LocalReplica(make_serving_engine(
+        model, device=dev, registry=MetricsRegistry(), **FLEET_GEOM),
+        name=name)
+
+
+def _fleet_prompts(n, seed=0):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(1, 64, int(k)).astype(np.int32)
+            for k in rng.integers(3, 24, n)]
+
+
+def test_threaded_replicas_serve_while_another_replica_captures(dev):
+    """Fault F4: three replicas step on their own threads while a fourth
+    captures its whole warmup plan on this thread. Every request
+    finishes with the tokens of a run without the concurrent capture,
+    replicas stepped during the capture, and no replica built anything
+    after its warmup; the fourth then serves the same tokens."""
+    import time
+    model = _fleet_model(dev)
+    reps = [_fleet_replica(model, dev, f"t{i}").warmup() for i in range(3)]
+    prompts = _fleet_prompts(60)
+    want = reps[0].engine.generate_many(prompts, 32)
+    for rep in reps:
+        rep.start()
+    try:
+        rids = [(rep, rep.submit(p, 32))
+                for rep, p in zip(reps * len(prompts), prompts)]
+        steps = sum(r.steps for r in reps)
+        fourth = _fleet_replica(model, dev, "t3").warmup()
+        steps = sum(r.steps for r in reps) - steps
+        got, deadline = {}, time.monotonic() + 120
+        while len(got) < len(rids) and time.monotonic() < deadline:
+            for i, (rep, rid) in enumerate(rids):
+                if i not in got:
+                    toks = rep.result(rid)
+                    if toks is not None:
+                        got[i] = toks
+            assert not any(r.failed for r in reps), \
+                [r.last_error for r in reps]
+            time.sleep(0.001)
+    finally:
+        for rep in reps:
+            rep.stop()
+    assert steps > 0, "no replica stepped during the capture"
+    assert len(got) == len(rids)
+    for i, w in enumerate(want):
+        np.testing.assert_array_equal(got[i], w)
+    for rep in reps + [fourth]:
+        assert rep.engine.graphs.builds == len(rep.engine.warmup_plan())
+    for a, b in zip(fourth.engine.generate_many(prompts[:6], 32), want):
+        np.testing.assert_array_equal(a, b)
+    assert fourth.engine.graphs.builds == len(fourth.engine.warmup_plan())
+
+
+def test_a_spawned_replica_server_holds_the_in_process_weights(dev):
+    """A replica server spawned on the card with the same config and
+    seed builds the in-process model's weights (sha256 over every
+    parameter) and serves its tokens."""
+    from paddle_tpu_torch.models.gpt import GPT, GPTConfig
+    from paddle_tpu_torch.serving.fleet import net
+    from paddle_tpu_torch.serving.fleet.net.replica_server import \
+        weights_digest
+    config = dict(vocab_size=64, hidden_size=64, num_heads=4,
+                  max_position=128, dtype="bfloat16")
+    proc, addr = net.spawn_replica_server(
+        config=config, engine=FLEET_GEOM, seed=11, name="card",
+        warmup=False, device="cuda")
+    try:
+        rep = net.NetReplica(addr, name="card")
+        model = GPT(GPTConfig.tiny(**{k: v for k, v in config.items()
+                                      if k != "dtype"}),
+                    device=dev, dtype=torch.bfloat16, seed=11)
+        assert rep.remote_weights == weights_digest(model)
+        local = _fleet_replica(model, dev, "local")
+        prompts = _fleet_prompts(4, seed=3)
+        want = local.engine.generate_many(prompts, 8)
+        rids = [rep.submit(p, 8) for p in prompts]
+        done = {}
+        while len(done) < len(rids):
+            done.update(rep.step())
+        for r, w in zip(rids, want):
+            np.testing.assert_array_equal(done[r], w)
+        assert rep.shutdown_server()
+        proc.wait(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def _near_tie(model, prompt, got, want):
+    """First difference of two bf16 token streams is a near-tie of the
+    dense recompute on ``want``'s context: a top-2 gap of at most one
+    bf16 step at the top logit, or under 1e-2 of the logits' std."""
+    import math
+    j = int(np.nonzero(got != want)[0][0])
+    ids = torch.from_numpy(np.concatenate([prompt, want[:j]]).astype(
+        np.int64))[None].to(model.device)
+    with torch.no_grad():
+        logits = model(ids)[0, -1].float()
+    top = logits.topk(2).values
+    gap = float(top[0] - top[1])
+    step = 2.0 ** (math.floor(math.log2(abs(float(top[0])))) - 7)
+    return gap <= step or gap < 1e-2 * float(logits.std())
+
+
+def test_a_drained_bf16_replica_keeps_its_tokens_up_to_a_near_tie(dev):
+    """A 2-replica bf16 fleet drains one replica mid-decode: its slots
+    restore on the other and every request finishes with the undrained
+    run's tokens, or first differs at a near-tie."""
+    from paddle_tpu_torch.observability import MetricsRegistry
+    from paddle_tpu_torch.serving import fleet
+    model = _fleet_model(dev, dtype=torch.bfloat16)
+    prompts = _fleet_prompts(3, seed=9)      # the peer has room for all
+
+    def fleet2():
+        reps = [_fleet_replica(model, dev, f"r{i}").warmup()
+                for i in range(2)]
+        return fleet.FleetRouter(reps, registry=MetricsRegistry(),
+                                 seed=1), reps
+
+    router, _ = fleet2()
+    frids = [router.submit(p, 24) for p in prompts]
+    done = router.run_until_idle(max_steps=10_000)
+    want = [done[f] for f in frids]
+    router, reps = fleet2()
+    frids = [router.submit(p, 24) for p in prompts]
+    done, eng = {}, reps[1].engine
+    for _ in range(1000):
+        done.update(router.step())
+        if any(0 < len(eng.scheduler.slots[i].generated) < 24
+               for i in eng.scheduler.decode_slots()):
+            break
+    migrated = router.drain_replica(reps[1])
+    assert migrated > 0 and router.migrations_total == migrated
+    done.update(router.run_until_idle(max_steps=10_000))
+    for f, p, w in zip(frids, prompts, want):
+        if not np.array_equal(done[f], w):
+            assert _near_tie(model, p, done[f], w)
+    for rep in reps:
+        assert rep.engine.graphs.builds == len(rep.engine.warmup_plan())

@@ -8,7 +8,11 @@ equal), and the anatomy records' step ids, tokens and phases; the port's
 anatomy records and flight-recorder bundles pass both packages'
 validators. The burn-rate monitor gives the reference's burn and alert
 sequence on the same observations, and the exposition server answers
-``/metrics`` and ``/healthz`` on an ephemeral port."""
+``/metrics`` and ``/healthz`` on an ephemeral port. A router-minted
+``submit(trace_id=)`` reaches the root span, ``request_stats`` (tracing
+off too) and ``snapshot_slot`` as in the reference; ``warmup()`` prices
+every signature of the plan, and the flops headroom falls below 1 once a
+priced bucket ran, on both packages."""
 
 import collections
 import json
@@ -117,7 +121,7 @@ def test_engine_observability_matches_the_reference(target, spec):
         model, device="cpu", spec_k=3, ttft_budget_s=4.0, tracer=ptr,
         registry=preg, draft_model=model if spec else None, **KW)
     ref.warmup(cost_gauges=False)
-    eng.warmup()
+    eng.warmup(cost_gauges=False)
     assert set(eng.health()) == set(ref.health())
     prompts = _prompts()
     jrids, jhealth = _serve(ref, prompts, shed=True)
@@ -199,3 +203,65 @@ def test_exposition_serves_metrics_and_health(target):
             assert json.loads(r.read())["count"] == 3
     finally:
         srv.stop()
+
+
+@pytest.mark.parametrize("tracing", [True, False], ids=["traced", "untraced"])
+def test_submit_adopts_an_external_trace_id_like_the_reference(target,
+                                                               tracing):
+    jmodel, params, model = target
+    jtr = jax_obs.tracing.Tracer(enabled=tracing)
+    ptr = obs.Tracer(enabled=tracing)
+    ref = jax_serving.ServingEngine(
+        jmodel, params, attn_impl="lax", tracer=jtr,
+        registry=jax_obs.MetricsRegistry(), **KW)
+    eng = make_serving_engine(model, device="cpu", tracer=ptr,
+                              registry=obs.MetricsRegistry(), **KW)
+    prompts = _prompts()
+    stats, snaps = [], []
+    for e in (ref, eng):
+        rids = [e.submit(p, 6, trace_id=1000 + i)
+                for i, p in enumerate(prompts[:2])]
+        rids.append(e.submit(prompts[2], 6))       # no external id
+        e.step()
+        slot = next(i for i in e.scheduler.active_slots()
+                    if e.scheduler.slots[i].request.rid == rids[0])
+        snaps.append(int(e.snapshot_slot(slot)["trace_id"]))
+        while not e.scheduler.idle():
+            e.step()
+        stats.append([e.request_stats(r)["trace_id"] for r in rids])
+    assert snaps == [1000, 1000]
+    assert stats[0][:2] == stats[1][:2] == [1000.0, 1001.0]
+    # an unadopted request: a fresh trace when traced, 0 when not
+    assert (stats[1][2] > 0) == (stats[0][2] > 0) == tracing
+    if tracing:
+        roots = {s.attrs["rid"]: s.trace_id for s in ptr.spans()
+                 if s.name == "serving.request"}
+        assert roots[0] == 1000 and roots[1] == 1001
+
+
+def test_warmup_prices_every_signature_and_the_flops_headroom_moves(target):
+    jmodel, params, model = target
+    ref = jax_serving.ServingEngine(
+        jmodel, params, attn_impl="lax",
+        registry=jax_obs.MetricsRegistry(), **KW)
+    preg = obs.MetricsRegistry()
+    eng = make_serving_engine(model, device="cpu", registry=preg, **KW)
+    for e in (ref, eng):
+        e.warmup()
+        assert e.health()["headroom"]["flops"] == 1.0
+    assert set(eng.bucket_costs) == set(eng.warmup_plan())
+    # the reference prices the compute signatures; the port also prices
+    # page IO and the page copy, at 0 flops
+    io = {("copy_page",), ("page_read",), ("page_write",)}
+    assert set(ref.bucket_costs) == set(eng.bucket_costs) - io
+    assert all(eng.bucket_costs[s].total_flops == 0 for s in io)
+    flops = preg.gauge("serving_bucket_cost_flops")
+    assert flops.value(phase="decode", width="1", lanes="3") == \
+        eng.bucket_costs[("decode", 1)].total_flops > 0
+    for e in (ref, eng):
+        e.submit(_prompts()[0], 6)
+        e.step()
+        head = e.health()["headroom"]
+        assert head["flops"] < 1.0
+        assert head["flops"] == pytest.approx(1 - head["flops_utilization"])
+        assert head["flops_per_busy_s"] > 0
