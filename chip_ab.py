@@ -7,7 +7,11 @@ Runs phases of each checkout's own ``chip_smoke.py`` in the order parent,
 change, change, parent, one process per turn started inside that
 checkout, so that each builds and imports its own ``paddle_tpu_torch``:
 
-- ``train``: phase 5, BERT-base pretraining (``train_bf16``);
+- ``train``: phase 5, BERT-base pretraining (``train_bf16``): ms per
+  step, tokens/s, MFU, and (a tree without them reads None) the busy
+  share, peak memory, the AdamW's kernels and device ms per step, the
+  captures after the first graphed step, the snapshot's blocking host
+  copy, ms per step of the window with a save in it, and restore s;
 - ``serve``: phases 4a, 4c and 4d, bf16, int8 and speculative int8
   serving (``serve``), and 4a's and 4c's decode profiles (the
   ``decode_profile`` of ``serve``'s stats): the device's busy share, its
@@ -49,7 +53,11 @@ import sys
 import numpy as np
 import torch
 
-TRAIN_KEYS = ("ms_per_step", "tokens_per_s", "mfu_vs_989tflops")
+TRAIN_KEYS = ("ms_per_step", "tokens_per_s", "mfu_vs_989tflops",
+              "busy_share", "peak_memory_gib", "adamw_kernels_per_step",
+              "adamw_device_ms", "captures_after_first_graphed_step",
+              "snapshot_blocking_s_mean", "save_window_ms_per_step",
+              "restore_s")
 SERVE_KEYS = ("decode_tokens_per_s", "prefill_tokens_per_s",
               "end_to_end_tokens_per_s", "ttft_p50_s", "ttft_p99_s",
               "warmup_s", "graphs", "captures_after_warmup",
@@ -178,7 +186,7 @@ if "serve" in phases:
     out["4l"] = {{k: stats.get(k) for k in {NET_KEYS!r}}}
 if "train" in phases:
     stats = cs.train_bf16(dev)
-    out["5"] = {{k: stats[k] for k in {TRAIN_KEYS!r}}}
+    out["5"] = {{k: stats.get(k) for k in {TRAIN_KEYS!r}}}
 print("AB_RESULT " + json.dumps(out), flush=True)
 """
 

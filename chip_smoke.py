@@ -126,15 +126,36 @@ Phases, in order; any failure exits non-zero:
        TTFT.
 5. train   — BERT-base pretraining (vocab 30522, hidden 768, 12 layers,
    12 heads, ffn 3072, max_position 512, post-LN, dropout 0), batch
-   48 x 512 with valid lengths 128..512, AdamW(1e-4), bf16 compute over
-   fp32 master weights, through ``Trainer.fit``: 3 warm-up steps, then 20
-   timed steps on a fixed seeded batch; the loss must be finite and fall,
-   and each flash kernel must launch exactly 12 times per step. Prints
-   tokens/s, ms/step, MFU, peak memory, and the device busy share, top
-   kernels and every flash kernel's device time over 3 profiled steps.
-6. parity  — fp32 BERT at full width with 2 layers, batch 8 x 512, 3
-   AdamW steps through the kernels and through the plain versions (TF32
-   off): losses and final parameters within 1e-4.
+   48 x 512 with valid lengths 128..512, the multi-tensor AdamW(1e-4),
+   bf16 compute over fp32 master weights, through ``build_train_step``
+   (one captured CUDA graph: step 1 eager, step 2 captured, then replays)
+   and ``Trainer.fit(checkpoint_dir=..., run_log=...)`` with telemetry:
+   3 warm-up steps (a forced save at the end), then 20 timed steps on a
+   fixed seeded batch; the loss must be finite and fall, each flash
+   kernel must launch exactly 12 times per step (counted per replay), no
+   capture may follow the first graphed step, and the run log must pass
+   its validator. Then 80 steps with a save issued at their 2nd step
+   (the host copy on the loop, the write behind it; whether the write
+   ended inside the window is reported), and
+   ``Trainer.restore()`` of the newest snapshot, which must give the
+   state back bit for bit. Prints tokens/s, ms/step, MFU, peak memory,
+   snapshot save/restore seconds, the window's ms/step, and the device
+   busy share (within the profiled window), top kernels and every flash kernel's device time over 3
+   profiled steps; the AdamW alone (multi-tensor and the plain
+   per-parameter rule) on copies of the parameters: kernels and device ms
+   per step beside its bound (28 bytes a parameter); then two legs from
+   fresh weights: ``remat=True`` against the step without it (losses
+   equal, peak memory of each), and ``amp.scaled_train_step`` (bf16)
+   whose 4th step is forced to overflow by an infinite scale and must be
+   skipped on the device (parameters, slots and steps unchanged, the
+   scale backed off).
+6. parity  — fp32 BERT at full width with 2 layers, batch 8 x 512, TF32
+   off: 3 AdamW steps through the kernels and through the plain versions
+   (losses and final parameters within 1e-4); the captured step against
+   eager dispatch after 3 steps, bit for bit; the multi-tensor AdamW
+   against the plain rule within 1e-6; a run checkpointed at step 2,
+   restored into a fresh model and continued to step 4 against an
+   unbroken run, bit for bit.
 7. output  — one ``{"kernels": [...]}`` line, the nvidia-smi line, and
    the final ``{"ok": true, "device": {...}}`` line.
 """
@@ -866,15 +887,34 @@ LAUNCH_APIS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                "cuLaunchKernelEx", "cudaGraphLaunch", "cuGraphLaunch")
 
 
+def _union_s(intervals) -> float:
+    """Seconds covered by the union of ``(start_us, end_us)``
+    intervals."""
+    total, cur = 0.0, None
+    for a, b in sorted(intervals):
+        if cur is None or a > cur[1]:
+            if cur is not None:
+                total += cur[1] - cur[0]
+            cur = [a, b]
+        else:
+            cur[1] = max(cur[1], b)
+    if cur is not None:
+        total += cur[1] - cur[0]
+    return total / 1e6
+
+
 def profile_window(step, reps, keep=()):
     """Where the time of ``reps`` calls of ``step()`` goes: ``reps``
     calls run unprofiled (host clock, synchronised), then ``reps`` more
-    under ``torch.profiler``. The profiler's own overhead inflates its
-    window's wall time, so the device's busy share is the profiled
-    window's device time over the unprofiled window's wall time. Returns
-    that share, device time by kernel (CUPTI): the top ten, and every
-    kernel whose name contains one of ``keep``, and the host's launch
-    calls by API (``LAUNCH_APIS``)."""
+    under ``torch.profiler``. The device's busy share is read within the
+    profiled window alone: the union of its device intervals (kernels
+    and copies; overlapping ones count once) over the window's span, from
+    its first host or device event to its last, so it is at most 1. The
+    profiler's overhead on the host lengthens that span where the host
+    holds the device back, so the share is a lower bound there. Returns
+    that share, the summed device time by kernel (CUPTI): the top ten,
+    and every kernel whose name contains one of ``keep``, and the host's
+    launch calls by API (``LAUNCH_APIS``)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t0 = time.monotonic()
@@ -903,8 +943,17 @@ def profile_window(step, reps, keep=()):
             kernels.append((us, ev.key[:90], ev.count))
     kernels.sort(reverse=True)
     busy = sum(k[0] for k in kernels) / 1e6
+    spans, device = [], []
+    for ev in prof.events():
+        spans.append((ev.time_range.start, ev.time_range.end))
+        if str(ev.device_type).endswith("CUDA") and not getattr(
+                ev, "is_user_annotation", False):
+            device.append(spans[-1])
+    span = (max(b for _, b in spans) - min(a for a, _ in spans)) / 1e6
+    union = _union_s(device)
     out = {"unprofiled_wall_s": wall, "device_busy_s": busy,
-           "device_busy_share": busy / wall,
+           "profiled_span_s": span, "device_union_s": union,
+           "device_busy_share": union / span,
            "kernel_launches": int(sum(k[2] for k in kernels)),
            "launch_api_calls": dict(launch_calls),
            "top_kernels": [{"name": n, "ms": us / 1e3, "count": c}
@@ -2393,37 +2442,158 @@ def flash_entries():
     return (FA.FWD, FA.BWD_DKV, FA.BWD_DQ)
 
 
+TRAIN_DIR = pathlib.Path(__file__).resolve().parent / "build" / "chip_smoke"
+#: phase 5's steps with a background save in them: long enough to hold
+#: the save's whole write (4.2-4.9 s to commit on one H100 80GB HBM3,
+#: 700 W, at ~88 ms a step)
+SAVE_WINDOW = 80
+
+
+def _train_dir():
+    """A fresh directory for phase 5's checkpoints and run log."""
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    TRAIN_DIR.mkdir(parents=True)
+    return TRAIN_DIR
+
+
+def _bert_base(device, seed=0):
+    from paddle_tpu_torch.models.bert import BertConfig, BertForPretraining
+    from paddle_tpu_torch.optimizer import AdamW
+    cfg = BertConfig.base(dropout=0.0, attn_dropout=0.0)
+    model = BertForPretraining(cfg, device=device, seed=seed)
+    return cfg, model, AdamW(model.parameters(), learning_rate=1e-4)
+
+
+def _bert_loss(m, **b):
+    return m.loss(**b)
+
+
+def _hist_sum(name):
+    """(count, sum) of a histogram of the process's default registry,
+    where the snapshot engine records."""
+    from paddle_tpu_torch import observability
+    s = observability.default().histogram(name).summary()
+    return s["count"], s["sum"]
+
+
+def adamw_profile(params, reps=3):
+    """The optimizer alone, eagerly, on copies of the parameters and their
+    gradients: the multi-tensor AdamW and the plain per-parameter rule,
+    each's kernels per step and device ms (``profile_window``) beside the
+    bound: p, g, m and v read and p, m and v written once, 28 bytes per
+    parameter, over the card's memory rate."""
+    from paddle_tpu_torch.optimizer import AdamW
+    copies = [p.detach().clone().requires_grad_() for p in params]
+    for c, p in zip(copies, params):
+        c.grad = p.grad.detach().clone()
+    n = sum(p.numel() for p in params)
+    out = {"params": n, "bound_ms": 28 * n / HBM_BYTES_PER_S * 1e3,
+           "bound_by": "bytes"}
+    for name, foreach in (("multi_tensor", True), ("plain", False)):
+        opt = AdamW(copies, learning_rate=1e-4, foreach=foreach)
+        opt.step()                               # slots and lr warm
+        prof = profile_window(opt.step, reps)
+        out[name] = {"kernels_per_step": prof["kernel_launches"] / reps,
+                     "device_ms": prof["device_busy_s"] * 1e3 / reps,
+                     "wall_ms": prof["unprofiled_wall_s"] * 1e3 / reps}
+        del opt
+    del copies
+    torch.cuda.empty_cache()
+    return out
+
+
 def train_bf16(device):
-    """The training main path through the user's entry points."""
+    """The training main path through the user's entry points:
+    ``build_train_step`` (the multi-tensor AdamW, one captured graph) ->
+    ``Trainer.fit(checkpoint_dir=..., run_log=...)`` with telemetry ->
+    ``Trainer.restore()``."""
     from paddle_tpu_torch.core.dtypes import get_policy
     from paddle_tpu_torch.kernels import registry
-    from paddle_tpu_torch.models.bert import BertConfig, BertForPretraining
-    from paddle_tpu_torch.observability import MetricsRegistry
-    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.observability import (MetricsRegistry, recompile,
+                                                runlog)
     from paddle_tpu_torch.train import build_train_step, make_train_state
-    from paddle_tpu_torch.trainer import Trainer
-    cfg = BertConfig.base(dropout=0.0, attn_dropout=0.0)
-    model = BertForPretraining(cfg, device=device, seed=0)
-    opt = AdamW(model.parameters(), learning_rate=1e-4)
+    from paddle_tpu_torch.trainer import Trainer, state_tree
+    out_dir = _train_dir()
+    cfg, model, opt = _bert_base(device)
     state = make_train_state(model, opt)
-    step = build_train_step(lambda m, **b: m.loss(**b), opt,
-                            policy=get_policy("bf16"))
+    step = build_train_step(_bert_loss, opt, policy=get_policy("bf16"))
     batch = bert_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, device)
-    losses = []
+    losses, marks = [], {}
+
+    def hook(t, n, m):
+        losses.append(m["loss"])
+        if n == marks.get("sync_at"):
+            torch.cuda.synchronize()
+            marks["t_end"] = time.monotonic()
+            if "save_at" in marks:           # the window's save, done
+                marks["committed_in_window"] = _hist_sum(
+                    "resilience_snapshot_seconds")[0] > marks["saved"][0]
+                t.manager.wait()
+                marks["saved_after"] = _hist_sum(
+                    "resilience_snapshot_seconds")
+        if n == marks.get("save_at"):
+            marks["saved"] = _hist_sum("resilience_snapshot_seconds")
+            t.manager.save(t.step_count, state_tree(t.state), force=True)
+
     reg = MetricsRegistry()
-    trainer = Trainer(step, state, log_every=10, log_fn=log, registry=reg,
-                      hooks=[lambda t, n, m: losses.append(m["loss"])])
+    run_log = str(out_dir / "train.jsonl")
+    ckpt = str(out_dir / "ckpt")
+    trainer = Trainer(step, state, checkpoint_dir=ckpt,
+                      checkpoint_every=1000, keep_checkpoints=2,
+                      run_log=run_log, log_every=10, log_fn=log,
+                      registry=reg, hooks=[hook])
+    # step 1 eager, step 2 captured, step 3 replayed; a forced save at 3.
+    # The run's peak memory includes the capture (the graph pool).
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
     trainer.fit(itertools.repeat(batch), steps_per_epoch=WARMUP_STEPS)
     torch.cuda.synchronize()
     warm_s = time.monotonic() - t0
-    torch.cuda.reset_peak_memory_stats()
+    captures = recompile.capture_count()
     registry.reset_launches()               # count only the timed run
+    marks["sync_at"] = TIMED_STEPS
+    reg = trainer.registry = MetricsRegistry()
     t0 = time.monotonic()
     trainer.fit(itertools.repeat(batch), steps_per_epoch=TIMED_STEPS)
-    torch.cuda.synchronize()
-    wall = time.monotonic() - t0
+    wall = marks["t_end"] - t0
+    peak = torch.cuda.max_memory_allocated()
     launches = {e.name: e.launches for e in flash_entries()}
+    saves, save_sum = _hist_sum("resilience_snapshot_seconds")
+    blocks, block_sum = _hist_sum("resilience_snapshot_blocking_seconds")
+    # a window with a save issued at its 2nd step through the Trainer's
+    # manager: the host copy blocks the loop, the write runs behind it
+    marks.update(sync_at=SAVE_WINDOW, save_at=2)
+    window_reg = MetricsRegistry()
+    trainer.registry = window_reg
+    t0 = time.monotonic()
+    trainer.fit(itertools.repeat(batch), steps_per_epoch=SAVE_WINDOW)
+    window_wall = marks["t_end"] - t0
+    n_after, sum_after = marks["saved_after"]
+    n_before, sum_before = marks["saved"]
+    if n_after != n_before + 1:
+        raise AssertionError(f"expected the window's save, got "
+                             f"{n_after - n_before} saves")
+    if recompile.capture_count() != captures:
+        raise AssertionError("the train step captured after its first "
+                             "graphed step")
+    tree_bytes = sum(t.numel() * t.element_size() for t in _leaves(
+        state_tree(state)))
+    before = [t.detach().clone() for t in _leaves(state_tree(state))]
+    restorer = Trainer(step, state, checkpoint_dir=ckpt, log_fn=log,
+                       telemetry=False)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    restored_step = restorer.restore()
+    torch.cuda.synchronize()
+    restore_s = time.monotonic() - t0
+    if restored_step != WARMUP_STEPS + TIMED_STEPS + SAVE_WINDOW or not all(
+            torch.equal(a, b) for a, b in zip(
+                before, _leaves(state_tree(state)))):
+        raise AssertionError(f"restore of step {restored_step} did not "
+                             "give back the saved state bit for bit")
+    del before
+    records = runlog.validate_run_log(run_log, require_steps=WARMUP_STEPS
+                                      + TIMED_STEPS + SAVE_WINDOW)
     losses = [float(x) for x in losses]
     if not all(np.isfinite(losses)):
         raise AssertionError(f"non-finite training loss: {losses}")
@@ -2438,25 +2608,135 @@ def train_bf16(device):
     flops_per_token = 6 * n_params + 12 * cfg.num_layers * TRAIN_SEQ * \
         cfg.hidden_size
     tps = tokens * TIMED_STEPS / wall
+    window_steps = window_reg.histogram("train_step_seconds").summary()
     stats = {
         "steps": TIMED_STEPS, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
         "params": n_params, "wall_s": wall, "warmup_s": warm_s,
         "ms_per_step": wall / TIMED_STEPS * 1e3, "tokens_per_s": tps,
         "mfu_vs_989tflops": tps * flops_per_token / PEAK_FLOPS[torch.bfloat16],
-        "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "peak_memory_gib": peak / 2**30,
         "loss_first": losses[0], "loss_last": losses[-1],
         "host_step_s_mean":
             reg.histogram("train_step_seconds").summary()["mean"],
+        "captures_after_first_graphed_step":
+            recompile.capture_count() - captures,
+        "graph_builds": step.builds,
         "launches": launches,
+        "checkpoint_bytes": tree_bytes,
+        "snapshot_save_s_mean": save_sum / max(saves, 1),
+        "snapshot_blocking_s_mean": block_sum / max(blocks, 1),
+        "snapshot_background_save_s": sum_after - sum_before,
+        "save_window_ms_per_step": window_wall / SAVE_WINDOW * 1e3,
+        # the background write ended before the window's clock stopped
+        "save_committed_in_window": marks["committed_in_window"],
+        "save_window_host_step_s_max": window_steps["max"],
+        "restore_s": restore_s,
+        "run_log_step_records": records,
     }
     log("  bf16 train: " + json.dumps(stats))
     it = itertools.repeat(batch)
+    # the flash kernels, and the deterministic embedding backward's sort,
+    # gather and segment reduction
     prof = profile_window(lambda: step(state, **next(it)), PROFILED_STEPS,
-                          keep=("flash_",))
+                          keep=("flash_", "segment_reduce", "radixSort",
+                                "index_select", "searchsorted"))
     log("  train profile: " + json.dumps({"steps": PROFILED_STEPS, **prof}))
-    del trainer, state, step, opt, model, batch
+    stats["busy_share"] = prof["device_busy_share"]
+    stats["kernels_per_step"] = prof["kernel_launches"] / PROFILED_STEPS
+    stats["optimizer"] = adamw_profile(list(model.parameters()))
+    stats["adamw_kernels_per_step"] = \
+        stats["optimizer"]["multi_tensor"]["kernels_per_step"]
+    stats["adamw_device_ms"] = stats["optimizer"]["multi_tensor"][
+        "device_ms"]
+    log("  AdamW alone: " + json.dumps(stats["optimizer"]))
+    trainer.manager.close()
+    del trainer, restorer, state, step, opt, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    stats["remat"] = remat_leg(device, batch)
+    stats["amp"] = amp_leg(device, batch)
+    del batch
     torch.cuda.empty_cache()
     return stats
+
+
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
+
+
+def remat_leg(device, batch, steps=3):
+    """Phase 5's step with and without ``remat=True`` (each graphed, from
+    the same weights): losses equal, peak memory of each."""
+    from paddle_tpu_torch.core.dtypes import get_policy
+    from paddle_tpu_torch.train import build_train_step, make_train_state
+    out = {}
+    for remat in (False, True):
+        _, model, opt = _bert_base(device)
+        state = make_train_state(model, opt)
+        step = build_train_step(_bert_loss, opt, policy=get_policy("bf16"),
+                                remat=remat)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses = [float(step(state, **batch)[1]["loss"])
+                  for _ in range(steps)]
+        out["remat" if remat else "plain"] = {
+            "losses": losses,
+            "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30}
+        del state, step, opt, model
+        gc.collect()
+        torch.cuda.empty_cache()
+    if out["remat"]["losses"] != out["plain"]["losses"]:
+        raise AssertionError(f"remat changed the losses: {out}")
+    log("  remat leg: " + json.dumps(out))
+    return out
+
+
+def amp_leg(device, batch):
+    """``scaled_train_step`` on the default bf16 policy, graphed: 3 steps,
+    then one with the scale set to infinity in place, which overflows and
+    must be skipped on the device (parameters, slots and both step counts
+    unchanged, the scale backed off and clipped to ``max_scale``), then
+    one more that trains. (A scale of 2**127 does not overflow: the loss
+    is scaled, but the gradients of BERT-base's bf16 step stay below
+    float32's range at that scale on the card.) The flash kernels run 12
+    times per step, counted per replay."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.kernels import registry
+    cfg, model, opt = _bert_base(device)
+    state = amp.make_amp_state(model, opt)
+    step = amp.scaled_train_step(_bert_loss, opt)
+    registry.reset_launches()
+    first = [step(state, **batch)[1] for _ in range(3)]
+    state["loss_scale"]["scale"].fill_(float("inf"))
+    tensors = opt.params() + opt.state_tensors()
+    before = [t.clone() for t in tensors]
+    _, skipped = step(state, **batch)
+    unchanged = all(torch.equal(a, b) for a, b in zip(tensors, before))
+    del before
+    _, after = step(state, **batch)
+    launches = [e.launches for e in flash_entries()]
+    out = {"finite": [bool(m["grads_finite"]) for m in first]
+           + [bool(skipped["grads_finite"]), bool(after["grads_finite"])],
+           "loss_scale_after_overflow": float(skipped["loss_scale"]),
+           "unchanged_by_the_skipped_step": unchanged,
+           "step": int(state["step"]), "opt_step": opt.num_steps,
+           "launches": launches, "builds": step.builds,
+           "losses": [float(m["loss"]) for m in first + [after]]}
+    log("  amp leg: " + json.dumps(out))
+    if out["finite"] != [True, True, True, False, True] or not unchanged \
+            or out["step"] != 4 or out["opt_step"] != 4 \
+            or out["loss_scale_after_overflow"] != 2.0 ** 24 \
+            or launches != [cfg.num_layers * 5] * 3 \
+            or step.builds != (device.type == "cuda"):
+        raise AssertionError(f"amp leg: {out}")
+    del state, step, opt, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def _held_params(name, got, want, steps, lr):
@@ -2519,6 +2799,69 @@ def train_fp32_parity(device):
     torch.cuda.empty_cache()
     return {"losses_kernel": k_losses, "losses_plain": p_losses,
             "loss_rel_err": rel, "param_max_abs_err": err}
+
+
+def train_fp32_exact(device, steps=3):
+    """fp32 BERT at full width, 2 layers, TF32 off (set by
+    :func:`train_fp32_parity`): the captured step against eager dispatch
+    after ``steps`` steps, bit for bit; the multi-tensor AdamW against the
+    plain per-parameter rule, within 1e-6; and a run checkpointed at step
+    2 through ``Trainer``, restored into a fresh model (another seed) and
+    continued to step 4, against an unbroken run of 4 steps, bit for
+    bit."""
+    from paddle_tpu_torch.models.bert import BertConfig, BertForPretraining
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.train import build_train_step, make_train_state
+    from paddle_tpu_torch.trainer import Trainer
+    cfg = BertConfig.base(num_layers=2, dropout=0.0, attn_dropout=0.0)
+    batch = bert_batch(cfg, 8, TRAIN_SEQ, device, seed=3)
+
+    def parts(seed=1, graphs=True, foreach=True):
+        model = BertForPretraining(cfg, device=device, seed=seed)
+        opt = AdamW(model.parameters(), learning_rate=1e-4, foreach=foreach)
+        state = make_train_state(model, opt)
+        return state, build_train_step(_bert_loss, opt, cuda_graphs=graphs)
+
+    def run(**kw):
+        state, step = parts(**kw)
+        for _ in range(steps):
+            step(state, **batch)
+        return {n: p.detach().clone()
+                for n, p in state["model"].named_parameters()}
+
+    graphed, eager = run(graphs=True), run(graphs=False)
+    plain = run(graphs=False, foreach=False)
+    if not all(torch.equal(graphed[n], eager[n]) for n in eager):
+        bad = max(float((graphed[n] - eager[n]).abs().max()) for n in eager)
+        raise AssertionError(f"graphed != eager, max |diff| {bad:.3e}")
+    rule_err = max(float((eager[n] - plain[n]).abs().max()) for n in eager)
+    if rule_err > 1e-6:
+        raise AssertionError(f"multi-tensor AdamW vs the plain rule: "
+                             f"{rule_err:.3e}")
+    quiet = dict(telemetry=False, log_fn=lambda m: None, checkpoint_every=2)
+    root = _train_dir()
+    unbroken, step = parts()
+    Trainer(step, unbroken, checkpoint_dir=str(root / "a"), **quiet).fit(
+        itertools.repeat(batch), steps_per_epoch=4)
+    first, step = parts()
+    Trainer(step, first, checkpoint_dir=str(root / "b"), **quiet).fit(
+        itertools.repeat(batch), steps_per_epoch=2)
+    resumed, step = parts(seed=7)
+    tr = Trainer(step, resumed, checkpoint_dir=str(root / "b"), **quiet)
+    if tr.restore() != 2:
+        raise AssertionError("resume did not find step 2")
+    tr.fit(itertools.repeat(batch), steps_per_epoch=2)
+    a = dict(unbroken["model"].named_parameters())
+    b = dict(resumed["model"].named_parameters())
+    if int(resumed["step"]) != 4 or not all(torch.equal(a[n], b[n])
+                                            for n in a):
+        raise AssertionError("resumed run != unbroken run")
+    out = {"graphed_equals_eager": True, "adamw_rule_max_abs_err": rule_err,
+           "resume_equals_unbroken": True, "tensors": len(a)}
+    log("  fp32 exact: " + json.dumps(out))
+    del unbroken, first, resumed, tr, step, graphed, eager, plain
+    torch.cuda.empty_cache()
+    return out
 
 
 def kernel_line(entry, rows, launches, case_rows=None):
@@ -2621,8 +2964,10 @@ def main() -> int:
 
     log("[5/7] train: BERT-base pretraining, bf16")
     train = train_bf16(device)
-    log("[6/7] train parity: fp32, kernels vs plain versions")
+    log("[6/7] train parity: fp32, kernels vs plain versions, graphs vs "
+        "eager, resume")
     train_fp32_parity(device)
+    train_fp32_exact(device)
 
     lines = [kernel_line(e, rows[e.name], stats["launches"][e.name],
                          {"long": long_rows} if e is PA.DECODE

@@ -10,8 +10,11 @@ from __future__ import annotations
 
 import contextlib
 import gc
+from typing import Callable, Dict
 
 import torch
+
+from paddle_tpu_torch.kernels import registry
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -60,3 +63,36 @@ def graph_capture(graph, pool=None):
     finally:
         if enabled:
             gc.enable()
+
+
+def counted_capture(graph, fn: Callable, *, pool=None,
+                    process_wide: bool = False):
+    """Capture ``fn()`` into ``graph`` (:func:`graph_capture`) and return
+    ``(fn's result, launches)``: the kernel launches one replay makes, by
+    registry entry.
+
+    The kernel wrappers count launches in Python, which a replay never
+    runs, so the counts the capture itself made are taken back (also when
+    it fails); the caller adds ``launches`` on each replay
+    (:func:`note_replay`), and registry counts stay the kernels the card
+    ran. The capture reads the calling thread's counts, as other threads
+    may launch meanwhile, or with ``process_wide`` every thread's (a
+    backward launches its kernels from autograd's device threads; no
+    other thread may launch during such a capture)."""
+    counts = (registry.launch_counts if process_wide
+              else registry.thread_launch_counts)
+    before = counts()
+    try:
+        with graph_capture(graph, pool=pool):
+            out = fn()
+    finally:
+        launches = registry.count_delta(counts(), before)
+        for name, n in launches.items():
+            registry.get(name).note_launch(-n)
+    return out, launches
+
+
+def note_replay(launches: Dict[str, int]):
+    """Count one replay of a graph that :func:`counted_capture` made."""
+    for name, n in launches.items():
+        registry.get(name).note_launch(n)

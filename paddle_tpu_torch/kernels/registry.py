@@ -110,6 +110,14 @@ def thread_launch_counts() -> Dict[str, int]:
     return dict(_thread_tally())
 
 
+def count_delta(after: Dict[str, int],
+                before: Dict[str, int]) -> Dict[str, int]:
+    """The launches between two reads of :func:`launch_counts` or
+    :func:`thread_launch_counts`, by name (names that moved only)."""
+    return {n: c - before.get(n, 0) for n, c in after.items()
+            if c != before.get(n, 0)}
+
+
 def reset_launches():
     """Set every entry's launch count to 0 (before a measured run)."""
     with _count_lock:

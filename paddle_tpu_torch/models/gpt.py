@@ -16,13 +16,14 @@ bucket.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 from torch import nn
 
-from paddle_tpu_torch.core.device import graph_capture, resolve_device
+from paddle_tpu_torch.core.device import (counted_capture, note_replay,
+                                          resolve_device)
 from paddle_tpu_torch.observability import recompile
 from paddle_tpu_torch.nn.layers import Dropout, Embedding, LayerNorm
 from paddle_tpu_torch.nn.transformer import FeedForward, MultiHeadAttention
@@ -280,6 +281,7 @@ class _DecodeBucket:
         self.col = torch.zeros((1,), dtype=torch.long, device=dev)
         self.gen = torch.zeros((b, nb), dtype=torch.int32, device=dev)
         self.graph: Optional["torch.cuda.CUDAGraph"] = None
+        self.launches: Dict[str, int] = {}   # kernel launches per replay
         recompile.note_capture()
         if dev.type == "cuda":
             side = torch.cuda.Stream(dev)
@@ -288,8 +290,7 @@ class _DecodeBucket:
                 self._step()                 # warm-up before the capture
             torch.cuda.current_stream(dev).wait_stream(side)
             graph = torch.cuda.CUDAGraph()
-            with graph_capture(graph):
-                self._step()
+            _, self.launches = counted_capture(graph, self._step)
             self.graph = graph
         else:
             self._step()
@@ -322,6 +323,7 @@ class _DecodeBucket:
         for _ in range(self.nb - 1):
             if self.graph is not None:
                 self.graph.replay()
+                note_replay(self.launches)
             else:
                 self._step()
         return self.gen.cpu().numpy()

@@ -1,9 +1,11 @@
 """Runtime telemetry (``paddle_tpu/observability``): metrics, traces,
-exposition, SLO burn rates, step anatomy and the flight recorder, all
-host-side Python over one metrics registry."""
+exposition, SLO burn rates, step anatomy, the flight recorder, the JSONL
+run log and step telemetry, all host-side Python over one metrics
+registry."""
 
-from paddle_tpu_torch.observability import (anatomy, exposition, flight,
-                                            slo, tracing)
+from paddle_tpu_torch.observability import (aggregate, anatomy, exposition,
+                                            flight, runlog, slo, telemetry,
+                                            tracing)
 from paddle_tpu_torch.observability.anatomy import (StepAnatomy,
                                                     validate_anatomy_record,
                                                     validate_anatomy_records)
@@ -17,14 +19,21 @@ from paddle_tpu_torch.observability.registry import (Counter, Gauge,
                                                      Histogram,
                                                      MetricsRegistry,
                                                      default)
+from paddle_tpu_torch.observability.runlog import (RunLogWriter,
+                                                   read_run_log,
+                                                   validate_record,
+                                                   validate_run_log)
 from paddle_tpu_torch.observability.slo import BurnRateMonitor
+from paddle_tpu_torch.observability.telemetry import StepTelemetry
 from paddle_tpu_torch.observability.tracing import (Span, Tracer,
                                                     chrome_trace_valid)
 
 __all__ = ["BurnRateMonitor", "Counter", "ExpositionServer",
            "FlightRecorder", "Gauge", "Histogram", "MetricsRegistry",
-           "POSTMORTEM_SCHEMA", "RecompileDetector", "Span", "StepAnatomy",
-           "Tracer", "anatomy", "capture_count", "chrome_trace_valid",
-           "default", "exposition", "flight", "slo", "tracing",
-           "validate_anatomy_record", "validate_anatomy_records",
-           "validate_postmortem_bundle"]
+           "POSTMORTEM_SCHEMA", "RecompileDetector", "RunLogWriter", "Span",
+           "StepAnatomy", "StepTelemetry", "Tracer", "aggregate", "anatomy",
+           "capture_count", "chrome_trace_valid", "default", "exposition",
+           "flight", "read_run_log", "runlog", "slo", "telemetry",
+           "tracing", "validate_anatomy_record", "validate_anatomy_records",
+           "validate_postmortem_bundle", "validate_record",
+           "validate_run_log"]

@@ -22,10 +22,10 @@ One ``torch.cuda.CUDAGraph`` per bucket signature (``("decode", w)``,
   so the pool costs the largest graph, not the sum: one graph's
   intermediates may reuse another's, and whatever one call hands to
   the next lives outside the pool;
-- the kernel launches one replay makes, by registry entry. The kernel
-  wrappers count launches in Python, which a replay never runs, so the
-  counts the capture itself made are taken back and every replay adds
-  the graph's counts: registry counts are the kernels the card ran.
+- the kernel launches one replay makes, by registry entry
+  (:func:`paddle_tpu_torch.core.device.counted_capture`, over the
+  capturing thread's counts): every replay adds them, so registry counts
+  are the kernels the card ran.
 
 Building a bucket (its signature's first use, or warmup) runs its step
 once eagerly with the bucket's zero inputs, which write only the null
@@ -49,7 +49,7 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from paddle_tpu_torch.core.device import graph_capture
+from paddle_tpu_torch.core.device import counted_capture, note_replay
 from paddle_tpu_torch.kernels import registry
 from paddle_tpu_torch.observability import recompile
 
@@ -58,11 +58,6 @@ from paddle_tpu_torch.observability import recompile
 Layout = Sequence[tuple]
 #: signature -> (input layout, step function of those inputs by name)
 Spec = Callable[[tuple], Tuple[Layout, Callable]]
-
-
-def _delta(after: Dict[str, int], before: Dict[str, int]) -> Dict[str, int]:
-    return {n: c - before.get(n, 0) for n, c in after.items()
-            if c != before.get(n, 0)}
 
 
 class _Bucket:
@@ -151,7 +146,7 @@ class StepGraphs:
         before = registry.thread_launch_counts()
         out = b.fn(**b.views)
         self.launches[sig].update(
-            _delta(registry.thread_launch_counts(), before))
+            registry.count_delta(registry.thread_launch_counts(), before))
         return out
 
     def _capture(self, sig, b: _Bucket):
@@ -168,26 +163,20 @@ class StepGraphs:
         elif y is not None:
             b.out = torch.empty_like(y)      # outside the graph pool
         del y
+        def body():
+            y = b.fn(**b.views)
+            if isinstance(b.out, tuple):
+                for o, t in zip(b.out, y):
+                    o.copy_(t)
+            elif b.out is not None:
+                b.out.copy_(y)
+
         graph = torch.cuda.CUDAGraph()
-        before = registry.thread_launch_counts()
         try:
-            with graph_capture(graph, pool=self.pool):
-                y = b.fn(**b.views)
-                if isinstance(b.out, tuple):
-                    for o, t in zip(b.out, y):
-                        o.copy_(t)
-                elif b.out is not None:
-                    b.out.copy_(y)
-                del y
+            _, b.launches = counted_capture(graph, body, pool=self.pool)
         except Exception as e:
             self._failed = e
             raise
-        finally:
-            # a capture launches nothing: take its counts back (this
-            # thread's: other threads may launch meanwhile)
-            b.launches = _delta(registry.thread_launch_counts(), before)
-            for name, n in b.launches.items():
-                registry.get(name).note_launch(-n)
         b.graph = graph
 
     # -- call ---------------------------------------------------------------
@@ -221,8 +210,7 @@ class StepGraphs:
         if b.graph is None:
             return self._eager(sig, b)
         b.graph.replay()
-        for name, n in b.launches.items():
-            registry.get(name).note_launch(n)
+        note_replay(b.launches)
         self.launches[sig].update(b.launches)
         return b.out
 

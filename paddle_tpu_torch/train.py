@@ -1,14 +1,23 @@
 """Train-step builder (``paddle_tpu/train.py``): forward, backward,
-gradient accumulation, mixed-precision casts and the optimizer as one
-call.
+gradient accumulation, mixed-precision casts, rematerialisation and the
+optimizer as one call, captured once per batch signature as a CUDA graph
+on the card.
 
 The step keeps the reference's shape, ``step(state, **batch) -> (state,
 metrics)``, but PyTorch is eager and stateful: the step updates the
 model's parameters and the optimizer's slots **in place** and returns the
-same ``state`` dict with its ``step`` count advanced (the reference
-returns a new state and donates the old one). Metrics are 0-d tensors on
-the model's device, so a step does not wait for the device; read them
-with ``float()`` when needed.
+same ``state`` dict, its ``step`` (an int32 0-d tensor on the model's
+device, as the reference's) advanced in place (the reference returns a
+new state and donates the old one). Metrics are 0-d tensors on the
+model's device, so a step does not wait for the device; read them with
+``float()`` when needed.
+
+``cuda_graphs=True`` (the default) is the port's counterpart of ``jit``:
+on the card, the whole step (forward, backward through the flash kernels,
+clipping, the optimizer) is captured once per batch signature (every
+feed's name, shape, dtype and device) and replayed from then on
+(:class:`TrainStepGraphs`). On the CPU, and with ``cuda_graphs=False``,
+every call runs eagerly.
 """
 
 from __future__ import annotations
@@ -19,13 +28,17 @@ import torch
 from torch import nn
 
 from paddle_tpu_torch.core import dtypes
+from paddle_tpu_torch.core.device import counted_capture, note_replay
+from paddle_tpu_torch.observability import recompile
 
 
 def make_train_state(model: nn.Module, optimizer) -> Dict[str, Any]:
     """``{"model", "opt", "step"}``. The model holds the parameters
     (already initialised from its seed); ``opt`` is the optimizer over
-    them."""
-    return {"model": model, "opt": optimizer, "step": 0}
+    them; ``step`` an int32 0-d tensor on the model's device."""
+    device = next(model.parameters()).device
+    return {"model": model, "opt": optimizer,
+            "step": torch.zeros((), dtype=torch.int32, device=device)}
 
 
 class _LossModule(nn.Module):
@@ -55,6 +68,22 @@ def _policy_call(fn: Callable, model: nn.Module,
                                       args=(), kwargs=batch)
 
 
+def _remat_call(fn: Callable, model: nn.Module,
+                policy: Optional[dtypes.Policy], batch: Mapping):
+    """:func:`_policy_call` under ``torch.utils.checkpoint`` (non-
+    reentrant): its activations are recomputed in the backward. The feeds
+    go in as the checkpoint's arguments, so it saves and restores the RNG
+    state of their device and dropout draws the same masks twice."""
+    from torch.utils import checkpoint
+
+    keys = list(batch)
+
+    def run(*values):
+        return _policy_call(fn, model, policy, dict(zip(keys, values)))
+
+    return checkpoint.checkpoint(run, *batch.values(), use_reentrant=False)
+
+
 def _split(batch: Mapping, n: int):
     """Cut every feed tensor into ``n`` micro-batches along its first
     axis (which must divide)."""
@@ -66,6 +95,173 @@ def _split(batch: Mapping, n: int):
             for parts in zip(*(v.chunk(n) for v in batch.values()))]
 
 
+def _signature(batch: Mapping) -> tuple:
+    return tuple(sorted(
+        (k, tuple(v.shape), v.dtype, v.device)
+        if isinstance(v, torch.Tensor) else (k, repr(v))
+        for k, v in batch.items()))
+
+
+def _layout(state: Mapping) -> tuple:
+    """Every tensor a train step reads from its state, as (object id, data
+    pointer, dtype, shape): the model's parameters and buffers, the
+    optimizer's parameters and state tensors, and the state's own tensors
+    (its step, the loss scale's)."""
+    tensors = []
+    for v in state.values():
+        if isinstance(v, nn.Module):
+            tensors += list(v.parameters()) + list(v.buffers())
+        elif hasattr(v, "state_tensors"):
+            tensors += list(v.params()) + list(v.state_tensors())
+        elif isinstance(v, torch.Tensor):
+            tensors.append(v)
+        elif isinstance(v, Mapping):
+            tensors += [t for t in v.values() if isinstance(t, torch.Tensor)]
+    return tuple((id(t), t.data_ptr(), t.dtype, tuple(t.shape))
+                 for t in tensors)
+
+
+class _Captured:
+    """One batch signature's graph, static feeds and static metrics."""
+
+    def __init__(self, graph, feeds, metrics, launches):
+        self.graph = graph
+        self.feeds = feeds
+        self.metrics = metrics
+        #: kernel launches one replay makes, by registry entry
+        self.launches = launches
+
+    def replay(self, batch: Mapping) -> Dict[str, torch.Tensor]:
+        for k, v in batch.items():
+            if isinstance(v, torch.Tensor):
+                self.feeds[k].copy_(v, non_blocking=True)
+        self.graph.replay()
+        note_replay(self.launches)
+        # the static metrics are overwritten by the next replay
+        return {k: v.clone() for k, v in self.metrics.items()}
+
+
+class TrainStepGraphs:
+    """An eager train step ``step(state, batch) -> (state, metrics)``
+    served through one captured CUDA graph per batch signature.
+
+    A graph reads and writes the tensors it was captured on, so the step
+    must keep its state on the device and write it in place (the
+    parameters, the optimizer's slots and step, ``state["step"]``). The
+    port's optimizers do, once the state's dtypes have settled: following
+    the reference's promotion, a lower-precision parameter or slot may
+    become float32 in the first steps (bf16 parameters under Momentum: the
+    parameter at step 1, the velocity at step 2), and then it is a new
+    tensor. So a signature's calls run eagerly, as real steps, on a side
+    stream (PyTorch's warm-up before a capture), until one leaves the
+    state's tensors as it found them (:func:`_layout`: the same objects,
+    storage, dtypes and shapes); the next call copies the feeds into
+    static buffers, captures the step into a graph
+    (:func:`~paddle_tpu_torch.core.device.counted_capture`:
+    "thread_local" mode, cycle collector paused, the kernel launches of
+    one replay) and replays it; every later call copies the feeds in and
+    replays. So the trajectory is the eager one. A step that still
+    changes the state after ``MAX_WARM`` eager calls, or changes it while
+    it is captured, raises. All graphs share one memory pool. Each capture
+    counts as one build, process-wide
+    (:func:`~paddle_tpu_torch.observability.recompile.note_capture`); its
+    launch counts are process-wide (the backward launches from autograd's
+    threads), so a capture must not overlap another thread's kernel
+    launches. A capture that fails raises, and so does every later build:
+    nothing falls back to eager dispatch (after a failed capture PyTorch
+    may leave its allocator and the default CUDA generator in capture
+    mode, so the process should not train on).
+
+    Every replay checks that the state's tensors are still those the
+    graphs were captured on, and raises if not: a call with another
+    state, or a restore that replaced a tensor (a restore writes into the
+    state's tensors, :meth:`Trainer.restore
+    <paddle_tpu_torch.trainer.Trainer.restore>`). With ``enabled=False``,
+    or for a state on the CPU, every call runs eagerly."""
+
+    #: eager calls of one signature that may change the state's tensors
+    MAX_WARM = 4
+
+    def __init__(self, step: Callable, enabled: bool = True):
+        self.step = step
+        self.enabled = enabled
+        self.pool = None
+        self.builds = 0
+        self._graphs: Dict[tuple, _Captured] = {}
+        self._warm_calls: Dict[tuple, int] = {}
+        self._settled = set()
+        self._side = None
+        self._failed: Optional[BaseException] = None
+        self._layout = None
+
+    def __call__(self, state, **batch):
+        device = state["step"].device
+        if not (self.enabled and device.type == "cuda"):
+            return self.step(state, batch)
+        sig = _signature(batch)
+        cap = self._graphs.get(sig)
+        if cap is None:
+            if sig not in self._settled:
+                return self._warm(device, sig, state, batch)
+            cap = self._graphs[sig] = self._capture(state, batch)
+        else:
+            self._check(state)
+        return state, cap.replay(batch)
+
+    def _check(self, state):
+        if _layout(state) != self._layout:
+            raise ValueError("the train state's tensors are not those the "
+                             "step was captured on (another state, or a "
+                             "tensor replaced); build a new step for them")
+
+    def _warm(self, device, sig, state, batch):
+        n = self._warm_calls[sig] = self._warm_calls.get(sig, 0) + 1
+        before = _layout(state)
+        cur = torch.cuda.current_stream(device)
+        if self._side is None:
+            self._side = torch.cuda.Stream(device)
+        self._side.wait_stream(cur)
+        with torch.cuda.stream(self._side):
+            out = self.step(state, batch)
+        cur.wait_stream(self._side)
+        if _layout(state) == before:
+            self._settled.add(sig)
+        elif n >= self.MAX_WARM:
+            raise RuntimeError(f"the train step replaced state tensors in "
+                               f"each of {n} eager calls; it cannot be "
+                               "captured")
+        return out
+
+    def _capture(self, state, batch) -> _Captured:
+        if self._failed is not None:
+            raise RuntimeError("cannot capture the train step: an earlier "
+                               "capture failed") from self._failed
+        device = state["step"].device
+        feeds = {k: v.to(device, copy=True) if isinstance(v, torch.Tensor)
+                 else v for k, v in batch.items()}
+        if self.pool is None:
+            self.pool = torch.cuda.graph_pool_handle()
+        recompile.note_capture()
+        self.builds += 1
+        if self._layout is not None:
+            self._check(state)
+        before = _layout(state)
+        graph = torch.cuda.CUDAGraph()
+        try:
+            (_, metrics), launches = counted_capture(
+                graph, lambda: self.step(state, feeds), pool=self.pool,
+                process_wide=True)
+            if _layout(state) != before:
+                raise RuntimeError("the train step replaced state tensors "
+                                   "while it was captured: the graph would "
+                                   "read stale ones")
+        except Exception as e:
+            self._failed = e
+            raise
+        self._layout = before
+        return _Captured(graph, feeds, metrics, launches)
+
+
 def build_train_step(
     loss_fn: Callable,
     optimizer,
@@ -73,6 +269,8 @@ def build_train_step(
     policy: Optional[dtypes.Policy] = None,
     trainable_mask: Optional[Mapping[str, bool]] = None,
     grad_accum_steps: int = 1,
+    remat: bool = False,
+    cuda_graphs: bool = True,
 ) -> Callable:
     """Build ``step(state, **batch) -> (state, metrics)``.
 
@@ -83,17 +281,22 @@ def build_train_step(
     to bools: False leaves that parameter untouched by the optimizer.
     ``grad_accum_steps > 1`` splits the batch into micro-batches and
     averages their gradients (sum, then divide, as the reference does);
-    the loss and aux metrics are the micro-batches' means."""
+    the loss and aux metrics are the micro-batches' means. ``remat``
+    recomputes the loss function's activations in the backward
+    (``torch.utils.checkpoint``, non-reentrant): the same losses and
+    gradients for less memory. ``cuda_graphs`` captures the step on the
+    card (:class:`TrainStepGraphs`)."""
     if grad_accum_steps < 1:
         raise ValueError("grad_accum_steps must be >= 1")
+    call = _remat_call if remat else _policy_call
 
     def forward_backward(model, batch):
-        out = _policy_call(loss_fn, model, policy, batch)
+        out = call(loss_fn, model, policy, batch)
         loss, aux = out if isinstance(out, tuple) else (out, {})
         loss.backward()
         return loss.detach(), {k: v.detach() for k, v in aux.items()}
 
-    def step(state, **batch):
+    def step(state, batch):
         model, opt = state["model"], state["opt"]
         opt.zero_grad(set_to_none=True)
         if grad_accum_steps > 1:
@@ -112,10 +315,10 @@ def build_train_step(
                 if not trainable_mask.get(name, True):
                     p.grad = None
         opt.step()
-        state["step"] += 1
+        state["step"].add_(1)
         return state, {"loss": loss, **aux}
 
-    return step
+    return TrainStepGraphs(step, enabled=cuda_graphs)
 
 
 def build_eval_step(model_fn: Callable,

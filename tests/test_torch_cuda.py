@@ -24,7 +24,11 @@ decode graph per bucket against ``generate``, tiny GPT and BERT with head
 dim 16 training through the flash kernels as on the CPU (fault F1), the
 flash kernels over head dims 32/64/128 with lengths that are not
 multiples of their tiles (bf16 runs on the tensor cores) and their
-bitwise reproducibility, and the wrappers' refusals.
+bitwise reproducibility, the wrappers' refusals, and the train step
+through one captured graph: bitwise equal to eager on tiny GPT and BERT
+with the flash launches counted per replay, a failed capture that
+raises, fresh dropout masks per replay, an AMP overflow skipped inside
+the graph, and remat under graphs.
 """
 
 import numpy as np
@@ -1013,3 +1017,258 @@ def test_a_drained_bf16_replica_keeps_its_tokens_up_to_a_near_tie(dev):
             assert _near_tie(model, p, done[f], w)
     for rep in reps:
         assert rep.engine.graphs.builds == len(rep.engine.warmup_plan())
+
+
+# -- the train step through captured CUDA graphs -----------------------------
+
+def _tiny_train(dev, model, cuda_graphs, remat=False, rule="adamw",
+                dtype=torch.float32):
+    """A tiny GPT or BERT (head dim 16: padded flash), fp32 by default,
+    computing in fp32, with AdamW (or Momentum, Adagrad) and its feeds on
+    the card."""
+    from paddle_tpu_torch.core.dtypes import get_policy
+    from paddle_tpu_torch.models.bert import BertConfig, BertForPretraining
+    from paddle_tpu_torch.models.gpt import GPT, GPTConfig
+    from paddle_tpu_torch.optimizer import Adagrad, AdamW, Momentum
+    from paddle_tpu_torch.train import build_train_step, make_train_state
+    rng = np.random.default_rng(3)
+    b, sl = 4, 24
+    if model == "gpt":
+        net = GPT(GPTConfig.tiny(), device=dev, seed=4)
+        feeds = dict(ids=rng.integers(0, 128, (b, sl)))
+    else:
+        net = BertForPretraining(BertConfig.tiny(dropout=0.0,
+                                                 attn_dropout=0.0),
+                                 device=dev, seed=4)
+        feeds = dict(
+            input_ids=rng.integers(0, 128, (b, sl)),
+            token_type_ids=np.zeros((b, sl), np.int64),
+            attention_mask=np.arange(sl)[None, :] < np.array(
+                [sl, 7, 16, 1])[:, None],
+            mlm_labels=rng.integers(0, 128, (b, sl)),
+            mlm_mask=(rng.random((b, sl)) < 0.3).astype(np.float32),
+            nsp_labels=rng.integers(0, 2, b))
+    net.to(dtype)
+    rules = {"adamw": lambda p: AdamW(p, 1e-3),
+             "momentum": lambda p: Momentum(p, 1e-2),
+             "adagrad": lambda p: Adagrad(p, 1e-2)}
+    state = make_train_state(net, rules[rule](net.parameters()))
+    step = build_train_step(lambda m, **f: m.loss(**f), state["opt"],
+                            policy=get_policy("full"), remat=remat,
+                            cuda_graphs=cuda_graphs)
+    feeds = {k: torch.from_numpy(np.asarray(v)).to(dev)
+             for k, v in feeds.items()}
+    return state, step, feeds
+
+
+def _flash_counts():
+    return [FA.FWD.launches, FA.BWD_DKV.launches, FA.BWD_DQ.launches]
+
+
+@pytest.mark.parametrize("model", ["gpt", "bert"])
+def test_graphed_train_step_equals_eager_bitwise(dev, model):
+    """fp32: 5 steps through one captured graph (step 1 eager, step 2
+    captures, then replays) against 5 eager steps from the same weights:
+    losses and parameters bit-identical; one build, no capture after it;
+    the flash kernels counted per replay as eager counts them (2 layers x
+    1 launch each per step)."""
+    from paddle_tpu_torch.observability import recompile
+    runs = {}
+    for graphs in (False, True):
+        state, step, feeds = _tiny_train(dev, model, graphs)
+        before = _flash_counts()
+        losses = []
+        for i in range(5):
+            _, m = step(state, **feeds)
+            losses.append(m["loss"])
+            if i == 1:
+                captures = recompile.capture_count()
+        torch.cuda.synchronize()
+        assert recompile.capture_count() == captures
+        counts = [a - b for a, b in zip(_flash_counts(), before)]
+        runs[graphs] = ([float(x) for x in losses], counts,
+                        [p.detach().clone()
+                         for p in state["model"].parameters()],
+                        int(state["step"]), state["opt"].num_steps)
+        if graphs:
+            assert step.builds == 1
+    (l0, c0, p0, s0, o0), (l1, c1, p1, s1, o1) = runs[False], runs[True]
+    assert l0 == l1 and len(set(l0)) == 5
+    assert c0 == c1 == [10, 10, 10]
+    assert s0 == s1 == o0 == o1 == 5
+    for a, b in zip(p0, p1):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("rule", ["momentum", "adagrad"])
+def test_graphed_train_step_over_bf16_parameters_equals_eager(dev, rule):
+    """bf16 parameters: the reference's promotion makes each parameter
+    float32 at step 1 and its slot float32 at step 2, so those steps
+    replace state tensors and run eagerly; step 3 leaves the state as it
+    found it, step 4 captures and later steps replay. 7 steps against 7
+    eager ones from the same weights: losses, parameters and slots bit
+    for bit, dtypes included; one build."""
+    runs = {}
+    for graphs in (False, True):
+        state, step, feeds = _tiny_train(dev, "gpt", graphs, rule=rule,
+                                         dtype=torch.bfloat16)
+        losses = [float(step(state, **feeds)[1]["loss"]) for _ in range(7)]
+        opt = state["opt"]
+        runs[graphs] = (losses, [t.detach().clone() for t in
+                                 opt.params() + opt.state_tensors()])
+        if graphs:
+            assert step.builds == 1 and step._warm_calls == {
+                next(iter(step._graphs)): 3}
+    (l0, t0), (l1, t1) = runs[False], runs[True]
+    assert l0 == l1 and len(set(l0)) == 7
+    assert all(t.dtype != torch.bfloat16 for t in t1)
+    for a, b in zip(t0, t1):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def test_a_replay_on_replaced_state_tensors_raises(dev):
+    """A graph reads the tensors it was captured on: after a parameter's
+    storage is replaced, the next call raises instead of replaying on
+    the old one."""
+    state, step, feeds = _tiny_train(dev, "gpt", True)
+    for _ in range(3):
+        step(state, **feeds)
+    p = next(state["model"].parameters())
+    p.data = p.data.clone()
+    with pytest.raises(ValueError, match="captured on"):
+        step(state, **feeds)
+
+
+_FAILED_CAPTURE = """
+import torch
+from paddle_tpu_torch.optimizer import SGD
+from paddle_tpu_torch.train import build_train_step, make_train_state
+dev = torch.device("cuda", 0)
+net = torch.nn.Linear(4, 2).to(dev)
+
+
+def loss_fn(m, x):
+    loss = m(x).square().mean()
+    float(loss.detach())                    # a sync: not capturable
+    return loss
+
+
+state = make_train_state(net, SGD(net.parameters(), 0.1))
+step = build_train_step(loss_fn, state["opt"])
+x = torch.ones(3, 4, device=dev)
+step(state, x=x)                            # eager warm-up
+try:
+    step(state, x=x)
+    raise SystemExit("the capture did not fail")
+except RuntimeError as e:
+    print("capture failed:", type(e).__name__)
+try:
+    step(state, x=x + 1)
+    raise SystemExit("a build after a failed capture did not raise")
+except RuntimeError as e:
+    assert "earlier capture failed" in str(e), e
+assert step.builds == 1
+print("OK")
+"""
+
+
+def test_a_failed_train_capture_raises(dev):
+    """A loss that reads a value back to the host cannot be captured:
+    the second call (the capture) raises, and so does every later call;
+    nothing falls back to eager dispatch. In its own process: a failed
+    capture can leave PyTorch's allocator and the default CUDA generator
+    in capture mode for the rest of the process."""
+    _isolated(_FAILED_CAPTURE)
+
+
+_DROPOUT_REPLAYS = """
+import torch
+from paddle_tpu_torch.nn.layers import Dropout
+from paddle_tpu_torch.optimizer import SGD
+from paddle_tpu_torch.train import build_train_step, make_train_state
+dev = torch.device("cuda", 0)
+
+
+class Net(torch.nn.Module):
+    def __init__(self):
+        super().__init__()
+        self.w = torch.nn.Parameter(torch.ones(1 << 20, device=dev))
+        self.drop = Dropout(0.1)
+
+
+net = Net()
+state = make_train_state(net, SGD(net.parameters(), 0.0))
+step = build_train_step(lambda m, x: (m.drop(m.w) * x).sum(), state["opt"])
+x = torch.ones(1 << 20, device=dev)
+masks = []
+for _ in range(4):
+    step(state, x=x)
+    masks.append(net.w.grad != 0)
+rates = [float(m.float().mean()) for m in masks]
+assert all(abs(r - 0.9) < 0.005 for r in rates), rates
+assert all(not torch.equal(a, b) for a, b in zip(masks, masks[1:]))
+assert step.builds == 1
+print("OK", rates)
+"""
+
+
+def test_dropout_under_replays_draws_fresh_masks(dev):
+    """Dropout 0.1 inside the captured step: each replay draws a new mask
+    (the default CUDA generator advances per replay) at the keep rate. In
+    its own process, so that no failed capture of another test has left
+    the default generator in capture mode."""
+    _isolated(_DROPOUT_REPLAYS)
+
+
+def _isolated(code):
+    import subprocess
+    import sys
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0 and "OK" in proc.stdout, \
+        proc.stdout + proc.stderr
+
+
+def test_amp_overflow_is_skipped_inside_the_graph(dev):
+    """scaled_train_step captured (bf16 policy, the flash kernels): a
+    replay whose scale is set to infinity in place overflows and is
+    skipped on the device: parameters, slots and both step counts
+    unchanged, the scale backed off (clipped to max_scale); the next
+    replay trains. (2**127 does not overflow this step's bf16 gradients
+    on the card.)"""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models.bert import BertConfig, BertForPretraining
+    from paddle_tpu_torch.optimizer import AdamW
+    net = BertForPretraining(BertConfig.tiny(dropout=0.0, attn_dropout=0.0),
+                             device=dev, seed=4)
+    _, _, feeds = _tiny_train(dev, "bert", False)
+    opt = AdamW(net.parameters(), 1e-3)
+    state = amp.make_amp_state(net, opt)
+    step = amp.scaled_train_step(lambda m, **f: m.loss(**f), opt)
+    for _ in range(2):
+        step(state, **feeds)
+    state["loss_scale"]["scale"].fill_(float("inf"))
+    before = [t.clone() for t in opt.params() + opt.state_tensors()]
+    _, m = step(state, **feeds)
+    assert not bool(m["grads_finite"]) and float(m["loss_scale"]) == 2.0 ** 24
+    after = opt.params() + opt.state_tensors()
+    assert all(torch.equal(a, b) for a, b in zip(after, before))
+    assert int(state["step"]) == opt.num_steps == 2
+    _, m = step(state, **feeds)
+    assert bool(m["grads_finite"]) and int(state["step"]) == 3
+    assert step.builds == 1
+
+
+def test_remat_under_graphs_equals_the_graphed_step(dev):
+    """remat=True captured: the same losses and parameters as the
+    captured step without remat, bit for bit."""
+    runs = []
+    for remat in (False, True):
+        state, step, feeds = _tiny_train(dev, "bert", True, remat=remat)
+        losses = [float(step(state, **feeds)[1]["loss"]) for _ in range(4)]
+        runs.append((losses, [p.detach().clone()
+                              for p in state["model"].parameters()]))
+        assert step.builds == 1
+    assert runs[0][0] == runs[1][0]
+    for a, b in zip(runs[0][1], runs[1][1]):
+        assert torch.equal(a, b)

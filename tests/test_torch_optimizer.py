@@ -34,6 +34,10 @@ def _warmup_poly(mod):
         warmup_steps=2, start_lr=0.0, end_lr=0.05)
 
 
+def _jax_step(js):
+    return js["step"] if "step" in js else js["inner"]["step"]
+
+
 def _run(make_jax, make_torch, seed=0):
     rng = np.random.default_rng(seed)
     params0 = _tree(rng)
@@ -49,10 +53,83 @@ def _run(make_jax, make_torch, seed=0):
         for k, p in tp.items():
             p.grad = torch.from_numpy(g[k].copy())
         to.step()
-    assert to.num_steps == int(js["step"]) == STEPS
-    for k in SHAPES:
-        np.testing.assert_allclose(tp[k].detach().numpy(), np.asarray(jp[k]),
+    assert to.num_steps == int(_jax_step(js)) == STEPS
+    want = jo.view(jp, js) if hasattr(jo, "view") else jp
+    got = to.view() if hasattr(to, "view") else list(tp.values())
+    for k, t in zip(SHAPES, got):
+        np.testing.assert_allclose(t.detach().numpy(), np.asarray(want[k]),
                                    err_msg=k, **TOL)
+
+
+class _JaxAveraged:
+    """SGD steps, then an averager (EMA, ModelAverage) over the params;
+    the result is the averager's ``apply``."""
+
+    def __init__(self, avg):
+        self.sgd, self.avg = jopt.SGD(0.1), avg
+
+    def init(self, p):
+        return {"opt": self.sgd.init(p), "avg": self.avg.init(p),
+                "step": jnp.zeros((), jnp.int32)}
+
+    def update(self, g, s, p):
+        p, o = self.sgd.update(g, s["opt"], p)
+        return p, {"opt": o, "avg": self.avg.update(s["avg"], p),
+                   "step": o["step"]}
+
+    def view(self, p, s):
+        return self.avg.apply(s["avg"])
+
+
+class _TorchAveraged:
+    def __init__(self, params, make_avg):
+        self.sgd = opt.SGD(params, 0.1)
+        self.avg = make_avg(params)
+
+    @property
+    def num_steps(self):
+        return self.sgd.num_steps
+
+    def step(self):
+        self.sgd.step()
+        self.avg.update()
+
+    def view(self):
+        return self.avg.apply()
+
+
+class _JaxDGC:
+    """DGC's sparsified gradients into SGD."""
+
+    def __init__(self, **kw):
+        self.dgc, self.inner = jopt.compression.DGC(**kw), jopt.SGD(0.1)
+
+    def init(self, p):
+        return {"dgc": self.dgc.init(p), "opt": self.inner.init(p),
+                "step": jnp.zeros((), jnp.int32)}
+
+    def update(self, g, s, p):
+        g, d = self.dgc.transform(g, s["dgc"])
+        p, o = self.inner.update(g, s["opt"], p)
+        return p, {"dgc": d, "opt": o, "step": o["step"]}
+
+
+class _TorchDGC:
+    def __init__(self, params, **kw):
+        self.params = params
+        self.dgc, self.inner = opt.DGC(**kw), opt.SGD(params, 0.1)
+        self.state = self.dgc.init(params)
+
+    @property
+    def num_steps(self):
+        return self.inner.num_steps
+
+    def step(self):
+        outs, self.state = self.dgc.transform([p.grad for p in self.params],
+                                              self.state)
+        for p, g in zip(self.params, outs):
+            p.grad = g
+        self.inner.step()
 
 
 CASES = {
@@ -82,6 +159,45 @@ CASES = {
     "clip_by_norm_value": (
         lambda: jopt.SGD(0.1, grad_clip=jopt.GradientClipByNorm(1.0)),
         lambda p: opt.SGD(p, 0.1, grad_clip=opt.GradientClipByNorm(1.0))),
+    "lars": (lambda: jopt.LarsMomentum(0.1, lars_weight_decay=0.01),
+             lambda p: opt.LarsMomentum(p, 0.1, lars_weight_decay=0.01)),
+    "adagrad": (lambda: jopt.Adagrad(0.1, initial_accumulator_value=0.1),
+                lambda p: opt.Adagrad(p, 0.1, initial_accumulator_value=0.1)),
+    "adamax": (lambda: jopt.Adamax(1e-2), lambda p: opt.Adamax(p, 1e-2)),
+    "decayed_adagrad": (lambda: jopt.DecayedAdagrad(0.05),
+                        lambda p: opt.DecayedAdagrad(p, 0.05)),
+    "adadelta": (lambda: jopt.Adadelta(1.0, rho=0.9),
+                 lambda p: opt.Adadelta(p, 1.0, rho=0.9)),
+    "rmsprop": (lambda: jopt.RMSProp(1e-2), lambda p: opt.RMSProp(p, 1e-2)),
+    "rmsprop_centered": (
+        lambda: jopt.RMSProp(1e-2, momentum=0.5, centered=True),
+        lambda p: opt.RMSProp(p, 1e-2, momentum=0.5, centered=True)),
+    "ftrl": (lambda: jopt.Ftrl(0.1, l1=0.01, l2=0.01),
+             lambda p: opt.Ftrl(p, 0.1, l1=0.01, l2=0.01)),
+    "ftrl_lr_power": (lambda: jopt.Ftrl(0.1, l1=0.01, lr_power=-1.0),
+                      lambda p: opt.Ftrl(p, 0.1, l1=0.01, lr_power=-1.0)),
+    "lamb": (lambda: jopt.Lamb(1e-2, lamb_weight_decay=0.05),
+             lambda p: opt.Lamb(p, 1e-2, lamb_weight_decay=0.05)),
+    "dpsgd_sigma0": (
+        lambda: jopt.Dpsgd(0.1, clip=0.5, sigma=0.0),
+        lambda p: opt.Dpsgd(p, 0.1, clip=0.5, sigma=0.0)),
+    "adam_lazy_named": (
+        lambda: jopt.Adam(1e-2, lazy_mode=True, name="a"),
+        lambda p: opt.Adam(p, 1e-2, lazy_mode=True, name="a")),
+    "lookahead": (
+        lambda: jopt.LookaheadOptimizer(jopt.Adam(1e-2), alpha=0.5, k=2),
+        lambda p: opt.LookaheadOptimizer(opt.Adam(p, 1e-2), alpha=0.5, k=2)),
+    "ema": (lambda: _JaxAveraged(jopt.ExponentialMovingAverage(0.9)),
+            lambda p: _TorchAveraged(
+                p, lambda q: opt.ExponentialMovingAverage(q, 0.9))),
+    "model_average": (lambda: _JaxAveraged(jopt.ModelAverage()),
+                      lambda p: _TorchAveraged(p, opt.ModelAverage)),
+    "dgc": (lambda: _JaxDGC(sparsity=0.5),
+            lambda p: _TorchDGC(p, sparsity=0.5)),
+    "dgc_rampup": (lambda: _JaxDGC(momentum=0.8, sparsity=0.9,
+                                   rampup_steps=3),
+                   lambda p: _TorchDGC(p, momentum=0.8, sparsity=0.9,
+                                       rampup_steps=3)),
 }
 
 
@@ -133,3 +249,225 @@ def test_frozen_parameters_are_untouched_by_adamw():
     a.grad = torch.ones(3)
     o.step()
     assert torch.all(b == 1.0) and not torch.all(a == 1.0)
+
+
+# -- bf16 parameters: slot and parameter dtypes as the reference's ------------
+
+BF16_STEPS = 50
+
+
+def _bf16_run(make_jax, make_torch, mask=None, seed=0):
+    """``BF16_STEPS`` random steps on bf16 parameters (gradients rounded
+    to bf16, handed to both packages in the parameter's current dtype, as
+    gradients arrive). Returns the JAX (params, slots) and the port's
+    (params, optimizer)."""
+    rng = np.random.default_rng(seed)
+    p0 = {"w": rng.standard_normal((16, 16)).astype(np.float32),
+          "b": rng.standard_normal(256).astype(np.float32)}
+    grads = [{k: rng.standard_normal(v.shape).astype(np.float32)
+              for k, v in p0.items()} for _ in range(BF16_STEPS)]
+    jo = make_jax()
+    jp = {k: jnp.asarray(v, jnp.bfloat16) for k, v in p0.items()}
+    js = jo.init(jp)
+    tp = {k: torch.nn.Parameter(torch.from_numpy(v).to(torch.bfloat16))
+          for k, v in p0.items()}
+    to = make_torch(list(tp.values()))
+    for g in grads:
+        jp, js = jo.update({k: jnp.asarray(v, jnp.bfloat16).astype(
+            jp[k].dtype) for k, v in g.items()}, js, jp)
+        for k, p in tp.items():
+            p.grad = torch.from_numpy(g[k]).to(torch.bfloat16).to(p.dtype)
+        to.step()
+    return jp, js, tp, to
+
+
+def _as_f32(x):
+    return np.asarray(x).astype(np.float32)
+
+
+@pytest.mark.parametrize("name", ["adam", "lamb"])
+def test_f6_bf16_params_keep_fp32_slots_bitwise(name):
+    """F6: Adam and Lamb compute m and v from float32 gradients, so their
+    slots are float32 for bf16 parameters; 50 steps leave slots and
+    parameters bit-identical to the reference's."""
+    makers = {"adam": (lambda: jopt.Adam(1e-2), lambda p: opt.Adam(p, 1e-2)),
+              "lamb": (lambda: jopt.Lamb(1e-2), lambda p: opt.Lamb(p, 1e-2))}
+    jp, js, tp, to = _bf16_run(*makers[name])
+    for k, p in tp.items():
+        assert p.dtype == torch.bfloat16 and jp[k].dtype == jnp.bfloat16
+        np.testing.assert_array_equal(p.detach().float().numpy(),
+                                      _as_f32(jp[k]), err_msg=k)
+        for s in ("m", "v"):
+            slot = to.state[p][s]
+            assert slot.dtype == torch.float32
+            assert js["slots"][s][k].dtype == jnp.float32
+            np.testing.assert_array_equal(slot.numpy(),
+                                          np.asarray(js["slots"][s][k]))
+
+
+def test_f7_adamw_promotes_decayed_bf16_params_to_fp32():
+    """F7, the choice: as in the reference, AdamW's decay ``lr * wd * p``
+    is float32 (``lr`` is a float32 array), so a decayed bf16 parameter
+    becomes float32 at its first step, in place (the same Parameter
+    object and state entry); a parameter the mask spares stays bf16.
+    Slots are bitwise the reference's. Parameters: dtypes equal, values
+    within 1e-6 relative: PyTorch's CPU sqrt is not IEEE-exact (it differs
+    from numpy's in the last bit for ~0.7% of inputs; the card's is
+    exact), and float32 parameters show that bit where bf16 ones round it
+    away (test_f6_bf16_params_keep_fp32_slots_bitwise)."""
+    def mask_j(t):
+        return {k: k == "w" for k in t}
+
+    jp, js, tp, to = _bf16_run(
+        lambda: jopt.AdamW(1e-2, weight_decay=0.01, decay_mask_fn=mask_j),
+        lambda p: opt.AdamW(p, 1e-2, weight_decay=0.01,
+                            decay_mask_fn=lambda q: q.ndim > 1))
+    assert tp["w"].dtype == torch.float32 and jp["w"].dtype == jnp.float32
+    assert tp["b"].dtype == torch.bfloat16 and jp["b"].dtype == jnp.bfloat16
+    assert to.state[tp["w"]]["m"].dtype == torch.float32
+    for k, p in tp.items():
+        np.testing.assert_allclose(p.detach().float().numpy(),
+                                   _as_f32(jp[k]), rtol=1e-6, atol=0,
+                                   err_msg=k)
+        for s in ("m", "v"):
+            np.testing.assert_array_equal(to.state[p][s].numpy(),
+                                          np.asarray(js["slots"][s][k]))
+
+
+def test_f7_promotion_keeps_the_parameter_object_and_state():
+    p = torch.nn.Parameter(torch.ones(4, 4, dtype=torch.bfloat16))
+    o = opt.AdamW([p], 0.1, weight_decay=0.5)
+    slots = o.state[p]
+    p.grad = torch.ones(4, 4, dtype=torch.bfloat16)
+    o.step()
+    assert p.dtype == torch.float32 and o.state[p] is slots
+    assert o.params()[0] is p
+
+
+def test_sgd_and_momentum_promote_bf16_like_the_reference():
+    """SGD's and Momentum's ``p - lr * upd`` is float32 in the reference
+    (``lr`` is a float32 array): the bf16 parameter becomes float32 at its
+    first step, and Momentum's velocity, bf16 for the first step, float32
+    from the second. SGD's values match within 1e-6. Momentum's are held
+    to their dtypes only: the reference rounds the Python constant
+    ``momentum`` to bf16 before it scales the bf16 velocity (a weak-typed
+    scalar takes the array's dtype), PyTorch applies it in float32, so the
+    second step differs by that rounding."""
+    for name, make_j, make_t in [
+            ("sgd", lambda: jopt.SGD(0.1), lambda p: opt.SGD(p, 0.1)),
+            ("momentum", lambda: jopt.Momentum(0.1),
+             lambda p: opt.Momentum(p, 0.1))]:
+        jp, js, tp, to = _bf16_run(make_j, make_t)
+        for k, p in tp.items():
+            assert p.dtype == torch.float32 and jp[k].dtype == jnp.float32
+            if name == "sgd":
+                np.testing.assert_allclose(p.detach().numpy(),
+                                           _as_f32(jp[k]), rtol=1e-6,
+                                           atol=1e-7, err_msg=k)
+            for s, slot in to.state[p].items():
+                assert slot.dtype == torch.float32
+                assert js["slots"][s][k].dtype == jnp.float32
+
+
+# -- the multi-tensor path against the plain rule -----------------------------
+
+MULTI = {
+    "sgd": lambda p, **kw: opt.SGD(p, 0.1, **kw),
+    "momentum": lambda p, **kw: opt.Momentum(p, 0.1, **kw),
+    "nesterov": lambda p, **kw: opt.Momentum(p, 0.05, use_nesterov=True,
+                                             **kw),
+    "adam_schedule": lambda p, **kw: opt.Adam(p, _warmup_poly(sched), **kw),
+    "adamw_mask": lambda p, **kw: opt.AdamW(
+        p, 1e-2, weight_decay=0.1, decay_mask_fn=lambda t: t.ndim > 1, **kw),
+}
+
+
+@pytest.mark.parametrize("name", list(MULTI), ids=list(MULTI))
+def test_multi_tensor_rule_equals_the_plain_rule_bitwise(name):
+    """``foreach=True`` (one ``torch._foreach_*`` chain over the float32
+    parameters) against ``foreach=False`` (the per-parameter rule), with a
+    frozen parameter and a bf16 one (which takes the plain rule in both):
+    8 steps, every parameter and slot bit-identical."""
+    rng = np.random.default_rng(7)
+    shapes = [(5, 3), (3,), (2, 2, 2), (7,)]
+    p0 = [rng.standard_normal(s).astype(np.float32) for s in shapes]
+    runs = []
+    for foreach in (False, True):
+        ps = [torch.nn.Parameter(torch.from_numpy(a.copy())) for a in p0]
+        ps[3].data = ps[3].data.to(torch.bfloat16)
+        o = MULTI[name](ps, foreach=foreach)
+        for i in range(8):
+            g = np.random.default_rng(100 + i)
+            for j, p in enumerate(ps):
+                p.grad = None if j == 2 else torch.from_numpy(
+                    g.standard_normal(shapes[j]).astype(np.float32)).to(
+                        p.dtype)
+            o.step()
+        runs.append((ps, o))
+    (pa, oa), (pb, ob) = runs
+    assert ob.num_steps == oa.num_steps == 8
+    for a, b in zip(pa, pb):
+        assert a.dtype == b.dtype
+        assert torch.equal(a, b)
+        for s in oa.SLOTS:
+            assert torch.equal(oa.state[a][s], ob.state[b][s])
+    assert torch.equal(pa[2], torch.from_numpy(p0[2]))
+
+
+def test_step_count_and_lr_live_on_the_parameters_device():
+    p = torch.nn.Parameter(torch.ones(3))
+    o = opt.Adam([p], _warmup_poly(sched))
+    assert o.state_step.dtype == torch.int32 and o.state_step.ndim == 0
+    lr = o.lr_at(torch.tensor(3, dtype=torch.int32))
+    assert isinstance(lr, torch.Tensor) and lr.dtype == torch.float32
+    np.testing.assert_allclose(float(lr), _warmup_poly(jsched)(jnp.int32(3)),
+                               rtol=1e-6)
+    p.grad = torch.ones(3)
+    o.step()
+    assert o.num_steps == 1 and int(o.state_step) == 1
+
+
+@pytest.mark.parametrize("name", list(SCHEDULES), ids=list(SCHEDULES))
+def test_schedule_on_a_device_step_tensor(name):
+    """A 0-d int32 step tensor (the optimizer's) gives a float32 0-d
+    tensor, equal to the Python-number path's value."""
+    ours, ref = SCHEDULES[name](sched), SCHEDULES[name](jsched)
+    for step in range(0, 12):
+        got = ours(torch.tensor(step, dtype=torch.int32))
+        assert isinstance(got, torch.Tensor) and got.dtype == torch.float32
+        assert float(got) == ours(step)
+        np.testing.assert_allclose(float(got), float(ref(jnp.int32(step))),
+                                   rtol=1e-6, atol=1e-9, err_msg=str(step))
+
+
+def test_dpsgd_noise_repeats_per_seed_and_has_its_std():
+    """sigma > 0: the same seed gives the same trajectory; another seed
+    another one; the noise of one step has std sigma * clip / batch."""
+    def run(seed):
+        p = torch.nn.Parameter(torch.zeros(200_000))
+        o = opt.Dpsgd([p], 1.0, clip=1.0, batch_size=4, sigma=2.0, seed=seed)
+        p.grad = torch.zeros(200_000)
+        o.step()
+        return p.detach().clone()
+    a, b, c = run(3), run(3), run(4)
+    assert torch.equal(a, b) and not torch.equal(a, c)
+    assert float(a.std()) == pytest.approx(2.0 * 1.0 / 4, rel=0.02)
+
+
+def test_aliases_name_the_same_classes():
+    for alias in ("SGD", "Momentum", "Adagrad", "Adam", "Adamax",
+                  "Adadelta", "RMSProp", "Ftrl", "Lamb", "DecayedAdagrad",
+                  "LarsMomentum"):
+        assert getattr(opt, alias + "Optimizer") is getattr(opt, alias)
+        assert hasattr(jopt, alias + "Optimizer")
+
+
+def test_recompute_matches_the_plain_function():
+    lin = torch.nn.Linear(4, 4)
+    x = torch.randn(3, 4, generator=torch.Generator().manual_seed(0))
+    f = lambda t: torch.tanh(lin(t)).sum()   # noqa: E731
+    f(x).backward()
+    want = lin.weight.grad.clone()
+    lin.weight.grad = None
+    opt.recompute(f)(x).backward()
+    assert torch.equal(lin.weight.grad, want)

@@ -237,3 +237,34 @@ def test_dropout_keep_rate_and_scale():
     drop.eval()
     assert drop(x) is x
     assert layers.dropout(x, 0.0) is x
+
+
+@pytest.mark.parametrize("rows", [2, 64], ids=["masked", "segments"])
+def test_embedding_gradient_is_the_plain_sum_in_a_fixed_order(rows):
+    """The port's embedding backward (a small table: one masked float32
+    reduction per row; a larger one: ids sorted stably, rows reduced in
+    float32 segment by segment) gives F.embedding's gradient within fp32
+    rounding, bf16 gradients for a bf16 table, and the same bits on every
+    call, with ids that repeat many times (one id over half the batch, as
+    BERT's token types) and ids never seen."""
+    rng = np.random.default_rng(0)
+    ids = torch.from_numpy(rng.integers(0, rows - rows // 4, (6, 40)))
+    ids[:3] = 1
+    g = torch.from_numpy(rng.standard_normal((6, 40, 16)).astype(np.float32))
+    w = torch.nn.Parameter(torch.from_numpy(
+        rng.standard_normal((rows, 16)).astype(np.float32)))
+    grads = []
+    for _ in range(2):
+        w.grad = None
+        layers.embedding(ids, w).backward(g)
+        grads.append(w.grad.clone())
+    assert torch.equal(grads[0], grads[1])
+    w.grad = None
+    torch.nn.functional.embedding(ids, w).backward(g)
+    torch.testing.assert_close(grads[0], w.grad, atol=1e-5, rtol=1e-6)
+    assert torch.all(grads[0][rows - rows // 4:] == 0)
+    wb = torch.nn.Parameter(w.detach().to(torch.bfloat16))
+    layers.embedding(ids, wb).backward(g.to(torch.bfloat16))
+    assert wb.grad.dtype == torch.bfloat16
+    torch.testing.assert_close(wb.grad.float(), grads[0], atol=0.1,
+                               rtol=2e-2)
