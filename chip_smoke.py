@@ -35,7 +35,13 @@ Phases, in order; any failure exits non-zero:
        long, few-slot shape (2 slots of 4096 tokens, lengths at the edges
        of the partition of a slot's pages over the 8 warps of its block).
        Every kernel launched twice on the same inputs must give the same
-       bits, and a decode slot of length 0 exact zeros;
+       bits, and a decode slot of length 0 exact zeros; each timed row
+       runs the launch configuration the committed tuning cache
+       (``paddle_tpu_torch/kernels/tune.json``) chooses, and every
+       configuration K1-K4's contracts declare (one each: the warps a
+       block the kernels fix) is held to the plain version on the same
+       poisoned inputs, fp32 and bf16, bitwise on a repeat and zeros for
+       length 0;
    (b) flash attention forward, dk/dv and dq at the training shape
        (48, 12, 512, 64) with a key-padding bias from ragged valid
        lengths (one of them 0: a fully masked batch row), causal at
@@ -43,6 +49,14 @@ Phases, in order; any failure exits non-zero:
        with its achieved TFLOP/s and share of its bound, repeat launches
        bit-identical, and the K6a + K6b pair beside SDPA's whole
        backward.
+3c. kernel layer — the parity battery (``kernels.harness``) of every
+   registered entry on the card under every configuration its contract
+   declares, fp32 and bf16; the autotuner's measurement at the cells'
+   shapes (``kernels.autotune.CELLS``) into a temporary cache, each key's
+   choice beside the prior's device time (the configuration the kernels
+   run today; each declares one candidate per tunable); the committed
+   cache's entries for this card as fresh or stale (stale fails); the
+   registry lint (an error fails).
 4. serve   — GPT (vocab 32768, hidden 1024, 12 layers, 16 heads, ffn
    4096, max_position 512, random weights from a seed) behind
    ``make_serving_engine(num_slots=16, page_size=16, prefill_chunk=64,
@@ -110,16 +124,20 @@ Phases, in order; any failure exits non-zero:
        16..192 prompt tokens, 64 new: 1/2/4 replicas (tokens/s, TTFT),
        affinity against round robin over a 66-token system prompt, a
        mid-decode drain (ms per migrated slot), a crash and a flaky
-       transport (ejects, redrives, sheds by reason), the replicas on
-       their own threads while the autoscaler warms a fifth on the main
-       thread, and two int8-pool replicas; every request finishes or is
+       transport (ejects, redrives, sheds by reason), four fresh replicas
+       on their own threads while the autoscaler warms a fifth on the
+       main thread, all built and run under the lock sanitizer (no
+       double-acquire, every observed edge in the committed
+       ``lock_order.json``; its edges and counts printed), and two
+       int8-pool replicas; every request finishes or is
        shed with a registered reason, no replica captures after warmup,
        disturbed tokens agree with undisturbed ones up to a near-tie, K1
        and K3 (K2 and K4 in the int8 leg) launch, flops headroom < 1;
    (l) network: replica servers as subprocesses on the card beside an
        in-process replica, same weights (sha256): 16 requests through
-       the local replica, a server, and a ``FrontDoor`` streaming to 16
-       clients; ``kill -9`` of a second server mid-decode (ejected,
+       the local replica, a server (its router from
+       ``inference.make_net_serving_fleet``), and a ``FrontDoor``
+       streaming to 16 clients; ``kill -9`` of a second server mid-decode (ejected,
        redriven) and SIGTERM to the first (exit 84 after its work);
        tokens agree up to a near-tie, each stream >= 2 partials, the
        netlog validates; codec, RPCs, transport ms per token, stream
@@ -156,8 +174,10 @@ Phases, in order; any failure exits non-zero:
    against the plain rule within 1e-6; a run checkpointed at step 2,
    restored into a fresh model and continued to step 4 against an
    unbroken run, bit for bit.
-7. output  — one ``{"kernels": [...]}`` line, the nvidia-smi line, and
-   the final ``{"ok": true, "device": {...}}`` line.
+7. output  — one ``{"kernels": [...]}`` line (each kernel with its
+   tunables' candidates and the configuration the committed cache chose
+   at each shape, ``blocks``), the nvidia-smi line, and the final
+   ``{"ok": true, "device": {...}}`` line.
 """
 
 from __future__ import annotations
@@ -389,10 +409,11 @@ def _bound(nbytes, flops, dtype):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def _repeat_and_zeros(entry, args, out, what):
-    """A second launch on the same inputs gives the same bits; a decode
-    kernel's slots of length 0 give exact zeros."""
-    again = entry.cuda_fn(*args)
+def _repeat_and_zeros(entry, args, out, what, blocks=None):
+    """A second launch on the same inputs (and launch configuration)
+    gives the same bits; a decode kernel's slots of length 0 give exact
+    zeros."""
+    again = entry.cuda_fn(*args, blocks=blocks)
     torch.cuda.synchronize()
     if not torch.equal(out, again):
         raise AssertionError(f"{what}: two launches on the same inputs "
@@ -402,6 +423,24 @@ def _repeat_and_zeros(entry, args, out, what):
         if not torch.all(out[dead] == 0):
             raise AssertionError(f"{what}: a slot of length 0 is not exact "
                                  "zeros")
+
+
+def check_candidates(entry, args, ref, what):
+    """Every configuration ``entry``'s contract declares on ``args``
+    (the phase's inputs: lengths 0, dead tails, NaN-poisoned pages): each
+    held to the plain version's ``ref`` at the entry's tolerance, finite,
+    bitwise on a repeat launch, exact zeros for a decode slot of length
+    0. Returns {configuration: max_abs_err}."""
+    from paddle_tpu_torch.kernels.registry import blocks_text
+    tol = entry.tolerance[args[0].dtype]
+    errs = {}
+    for blocks in entry.contract.grid(args):
+        text = blocks_text(blocks)
+        out = entry.cuda_fn(*args, blocks=blocks)
+        torch.cuda.synchronize()
+        _repeat_and_zeros(entry, args, out, f"{what}[{text}]", blocks)
+        errs[text] = _err(out, ref, tol, f"{what}[{text}] vs plain")
+    return errs
 
 
 def check_kernel(entry, make_inputs, device, flush):
@@ -428,16 +467,22 @@ def check_kernel(entry, make_inputs, device, flush):
             if not torch.allclose(got, dense, atol=atol, rtol=rtol):
                 raise AssertionError(f"{entry.name}: max |kernel - dense "
                                      f"reference| = {derr:.3e}")
+        cands = check_candidates(entry, args, ref,
+                                 f"{entry.name}[{dtype}]")
         bound_ms, bound_by = _bound(*entry.work(*args), dtype)
         r = rows[dtype] = {
             "max_abs_err": err,
             **_timed(lambda: entry.cuda_fn(*args), flush, 50),
             **_timed(lambda: entry.plain_fn(*args), flush, 10, "plain_"),
             "bound_ms": bound_ms, "bound_by": bound_by,
+            "blocks": entry.blocks_for(args),
+            "candidates_max_abs_err": max(cands.values()),
         }
         log(f"  {entry.name} [{str(dtype)[6:]}] max_abs_err={err:.3e} "
             f"kernel={_ms_text(r)} plain={_ms_text(r, 'plain_')} "
-            f"bound={bound_ms:.4f} ms ({bound_by})")
+            f"bound={bound_ms:.4f} ms ({bound_by}); blocks "
+            f"{json.dumps(r['blocks'], sort_keys=True)}; {len(cands)} "
+            f"configurations within tolerance (max {max(cands.values()):.3e})")
     return rows
 
 
@@ -461,6 +506,7 @@ def check_long_decode(device, flush):
             got = out.float()
             want = entry.plain_fn(*_cast(args, torch.float32))
             errs.append(_err(got, want, (atol, rtol), what + " vs plain"))
+            errs += check_candidates(entry, args, want, what).values()
             if dtype == torch.float32:
                 _err(got, entry.reference_fn(*args), (atol, rtol),
                      what + " vs dense")
@@ -472,6 +518,7 @@ def check_long_decode(device, flush):
             **_timed(lambda: entry.cuda_fn(*timed), flush, 50),
             **_timed(lambda: entry.plain_fn(*timed), flush, 10, "plain_"),
             "bound_ms": bound_ms, "bound_by": bound_by,
+            "blocks": entry.blocks_for(timed),
         }
         log(f"  {entry.name}[long S={S_LONG} x {W_LONG * PS} tokens] "
             f"[{str(dtype)[6:]}] max_abs_err="
@@ -609,6 +656,7 @@ def check_flash(case, device, flush):
                 **_timed(lambda: entry.plain_fn(*a32, **kw), flush, 5,
                          "plain_"),
                 "bound_ms": ms_bound, "bound_by": by, **lib,
+                "blocks": entry.blocks_for(a),
             }
             r["tflops"] = flops / r["ms"] / 1e9
             r["share_of_bound"] = ms_bound / r["ms"]
@@ -727,6 +775,62 @@ def tensor_core_report(build):
     if not counted:
         log(f"  no cuobjdump at {exe}: tensor-core instructions not counted")
     return reports
+
+
+# -- phase 3c: the kernel layer -------------------------------------------------
+
+def kernel_layer(device):
+    """3c: the parity battery (``kernels.harness.parity_check``) of every
+    registered entry on the card under every configuration its contract
+    declares, fp32 and bf16; ``KernelTuner.measure`` at the cells' shapes
+    (``autotune.CELLS``: phase 3's serving shapes, the verify chunk, the
+    2 x 4096 decode, phase 5's flash shape) into a cache in a temporary
+    directory, never the committed one, each key's choice printed beside
+    the prior's (the configuration the kernels run today) device time; the committed cache's entries for this
+    device kind as fresh or stale (a stale one fails); and the registry
+    lint, which must give no error."""
+    import tempfile
+    from paddle_tpu_torch.kernels import autotune, harness, lint, registry
+    t0 = time.monotonic()
+    parity = {}
+    for name in registry.names():
+        errs = harness.parity_check(name, 0, device=device)
+        legs = [k for k in errs if k.startswith("cuda")]
+        parity[name] = {"kernel_legs": len(legs),
+                        "max_abs_err": max(errs[k] for k in legs),
+                        "plain": errs["plain"]}
+    log("  parity: " + json.dumps(parity))
+    tuner = autotune.KernelTuner(None)
+    tuned = autotune.measure_cells(tuner, device, log=log)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "tune.json")
+        tuner.save(path)
+        if autotune.KernelTuner(path).entries != tuner.entries:
+            raise AssertionError("3c: the measured cache does not round-trip")
+    kind = autotune.device_kind(device)
+    committed = autotune.KernelTuner(autotune.DEFAULT_CACHE_PATH)
+    state = committed.report(kind)
+    log(f"  committed tune.json for {kind}: {len(state['fresh'])} fresh, "
+        f"{len(state['stale'])} stale")
+    if state["stale"]:
+        raise AssertionError(f"3c: stale committed entries {state['stale']}")
+    agree = {r["key"]: committed.entries.get(r["key"], {}).get("blocks")
+             == r["blocks"] for r in tuned}
+    report = lint.lint_registry(registry_metrics=False)
+    log("  " + report.render_text().replace("\n", "\n  "))
+    if not report.ok():
+        raise AssertionError("3c: the kernel-registry lint has errors")
+    seconds = time.monotonic() - t0
+    log(f"  phase 3c took {seconds:.1f} s")
+    return {"parity": parity, "seconds": seconds,
+            "committed": {"fresh": len(state["fresh"]),
+                          "stale": len(state["stale"]),
+                          "agrees_with_this_run": agree},
+            "tuned": {r["key"]: {"blocks": r["blocks"],
+                                 "best_ms": r["best_ms"],
+                                 "prior": r["prior"],
+                                 "prior_ms": r["prior_ms"]}
+                      for r in tuned}}
 
 
 # -- phase 4: the main path ----------------------------------------------------
@@ -1866,9 +1970,13 @@ def fleet_run(device):
     sharing a 66-token system prompt under affinity and round robin;
     (iii) ``drain_replica`` of a replica holding mid-decode slots; (iv)
     a crash (``crash_on_step=6``) and a flaky transport
-    (``submit_failures=2``) under a ``FaultPolicy``; (v) the replicas on
-    their own threads (``start()``) while the autoscaler spawns a fifth
-    and warms it on this thread; (vi) two int8-pool replicas. Gates:
+    (``submit_failures=2``) under a ``FaultPolicy``; (v) four fresh
+    replicas, built and warmed under the lock sanitizer
+    (``analysis.concurrency.sanitize``), on their own threads
+    (``start()``) while the autoscaler spawns a fifth and warms it on this
+    thread: no double-acquire, and every acquisition edge the sanitizer
+    observed lies in the committed ``lock_order.json``; (vi) two int8-pool
+    replicas. Gates:
     every request finishes or is shed with a registered reason; no
     replica captures after warmup; drained, redriven and threaded tokens
     equal the undisturbed runs' up to a bf16 near-tie; K1 and K3 launch
@@ -2035,43 +2143,63 @@ def fleet_run(device):
     _reset_replica(reps[1])
     _fleet_no_captures("4k (i)-(iv)", reps)
 
-    # (v) threaded replicas while the autoscaler warms a fifth
+    # (v) threaded replicas while the autoscaler warms a fifth, every lock
+    # of the leg made under the sanitizer
+    from paddle_tpu_torch.analysis import concurrency
+    names = [r.name for r in reps]
+    del reps
+    release()
     spawned = []
 
     def spawn(i):
         spawned.append(_fleet_replica(model, device, f"auto{i}",
                                       warm=False))
         return spawned[-1]
-    scaler = fleet.FleetAutoscaler(spawn, min_replicas=5, max_replicas=5,
-                                   registry=MetricsRegistry())
-    router = fleet.FleetRouter(reps, policy="p2c", seed=21,
-                               registry=MetricsRegistry(),
-                               autoscaler=scaler)
     # the first wave is 4k (i)'s 4-replica prompts and 16 of its
     # 2-replica ones, the second 16 more of those: tokens are known
     (p4, want4), (p2, want2) = runs[4], runs[2]
     prompts, want = p4 + p2[:32], want4 + want2[:32]
-    for rep in reps:
-        rep.start()
-    try:
-        frids = [router.submit(p, FLEET_NEW) for p in prompts[:64]]
-        steps = sum(r.steps for r in reps)
-        t0 = time.monotonic()
-        action = scaler.tick()        # spawn + warmup on this thread
-        spawn_s = time.monotonic() - t0
-        steps = sum(r.steps for r in reps) - steps
-        if action != "replace" or len(router.replicas) != 5:
-            raise AssertionError(f"4k threaded: autoscaler {action}, "
-                                 f"{len(router.replicas)} replicas")
-        if not steps:
-            raise AssertionError("4k threaded: no replica stepped while "
-                                 "the fifth captured its graphs")
-        spawned[0].start()
-        frids += [router.submit(p, FLEET_NEW) for p in prompts[64:]]
-        got = _harvest(router, frids)
-    finally:
-        for rep in reps + spawned:
-            rep.stop()
+    with concurrency.sanitize(register_metrics=False) as mon:
+        reps = [_fleet_replica(model, device, n) for n in names]
+        scaler = fleet.FleetAutoscaler(spawn, min_replicas=5,
+                                       max_replicas=5,
+                                       registry=MetricsRegistry())
+        router = fleet.FleetRouter(reps, policy="p2c", seed=21,
+                                   registry=MetricsRegistry(),
+                                   autoscaler=scaler)
+        for rep in reps:
+            rep.start()
+        try:
+            frids = [router.submit(p, FLEET_NEW) for p in prompts[:64]]
+            steps = sum(r.steps for r in reps)
+            t0 = time.monotonic()
+            action = scaler.tick()        # spawn + warmup on this thread
+            spawn_s = time.monotonic() - t0
+            steps = sum(r.steps for r in reps) - steps
+            if action != "replace" or len(router.replicas) != 5:
+                raise AssertionError(f"4k threaded: autoscaler {action}, "
+                                     f"{len(router.replicas)} replicas")
+            if not steps:
+                raise AssertionError("4k threaded: no replica stepped "
+                                     "while the fifth captured its graphs")
+            spawned[0].start()
+            frids += [router.submit(p, FLEET_NEW) for p in prompts[64:]]
+            got = _harvest(router, frids)
+        finally:
+            for rep in reps + spawned:
+                rep.stop()
+    violations = mon.check(concurrency.load_lock_order(
+        concurrency.LOCK_ORDER_PATH))
+    sanitized = {"locks_created": mon.locks_created,
+                 "acquisitions": mon.acquisitions,
+                 "edges": {f"{a} -> {b}": n
+                           for (a, b), n in sorted(mon.edges.items())},
+                 "hold_while_blocking": len(mon.blocked),
+                 "double_acquires": len(mon.double_acquires),
+                 "violations": [f.message for f in violations]}
+    log("  4k (v) sanitizer: " + json.dumps(sanitized))
+    if violations or mon.double_acquires:
+        raise AssertionError(f"4k threaded: sanitizer {sanitized}")
     ties = _hold_tokens(model, prompts, [g[0] for g in got], want,
                         "4k threaded vs synchronous", allow_ties=True,
                         bf16_noise=True)
@@ -2085,7 +2213,7 @@ def fleet_run(device):
         "replica_steps_during_spawn": steps,
         "served_by": dict(served),
         "ttft_p99_s": _q([g[1]["ttft_s"] for g in got], 0.99),
-        "near_ties": ties}
+        "near_ties": ties, "sanitizer": sanitized}
     log("  4k (v) threaded + autoscaled: " + json.dumps(stats["threaded"]))
     launches = {e.name: e.launches for e in (PA.DECODE, PA.PREFILL)}
     if min(launches.values()) <= 0:
@@ -2168,11 +2296,14 @@ def net_run(device):
     tokens equal the local run's up to a bf16 near-tie; each stream
     delivers at least 2 partials; the netlog validates; the killed
     server is ejected and its requests redriven; the drained server
-    exits with ``EXIT_DRAINED``. Reports the codec, RPC counts, the
-    transport's overhead in ms per token and the streams' TTFT."""
+    exits with ``EXIT_DRAINED``. The server-alone router is
+    ``inference.make_net_serving_fleet`` over the first server's address.
+    Reports the codec, RPC counts, the transport's overhead in ms per
+    token and the streams' TTFT."""
     import signal
     import threading
 
+    from paddle_tpu_torch.inference import make_net_serving_fleet
     from paddle_tpu_torch.models.gpt import GPT
     from paddle_tpu_torch.observability import MetricsRegistry, Tracer
     from paddle_tpu_torch.kernels import registry
@@ -2196,8 +2327,10 @@ def net_run(device):
         if errors:
             raise errors[0]
         spawn_s = time.monotonic() - t_spawn
-        net_a = net.NetReplica(servers["net_a"][1], name="net_a",
-                               call_timeout_s=300.0)
+        net_router = make_net_serving_fleet([servers["net_a"][1]],
+                                            registry=MetricsRegistry(),
+                                            call_timeout_s=300.0)
+        net_a, = net_router.replicas
         # the killed server's redials give up fast
         net_b = net.NetReplica(servers["net_b"][1], name="net_b",
                                call_timeout_s=300.0, retry=RetryPolicy(
@@ -2212,8 +2345,7 @@ def net_run(device):
         want, local_s, _ = _burst(fleet.FleetRouter(
             [local], registry=MetricsRegistry()), prompts)
         calls0 = net_a.calls_total
-        got, net_s, _ = _burst(fleet.FleetRouter(
-            [net_a], registry=MetricsRegistry()), prompts)
+        got, net_s, _ = _burst(net_router, prompts)
         ties = _hold_tokens(model, prompts, got, want, "4l server vs local",
                             allow_ties=True, bf16_noise=True)
         rpcs = net_a.calls_total - calls0
@@ -2864,17 +2996,31 @@ def train_fp32_exact(device, steps=3):
     return out
 
 
+def tunable_args(entry):
+    """Meta tensors of ``entry``'s first cell shape in bf16 (what its
+    candidates read: dtypes and head dim)."""
+    from paddle_tpu_torch.kernels import autotune
+    kind, geom = next((k, g) for n, _, k, g in autotune.CELLS
+                      if n == entry.name)
+    return autotune.cell_inputs(kind, geom, "meta")[0]
+
+
 def kernel_line(entry, rows, launches, case_rows=None):
     """One entry of the ``kernels`` line: the bf16 row at the main
-    path's shape, with its fp32 row (and other cases) beside it."""
+    path's shape, with its fp32 row (and other cases) beside it, the
+    tunables' candidates, and the launch configuration (``blocks``) the
+    committed tuning cache chose at each shape."""
     b16, f32 = rows[torch.bfloat16], rows[torch.float32]
     keys = ("max_abs_err", "ms", "device_ms", "host_ms", "plain_ms",
             "plain_device_ms", "bound_ms", "bound_by", "library_ms",
-            "library_device_ms")
+            "library_device_ms", "blocks")
     line = {"name": entry.name, "route": entry.route,
             "source": entry.source, "replaces": entry.replaces,
             "launches": launches, **{k: b16.get(k) for k in keys},
-            "dtype": "bfloat16", "fp32": {k: f32.get(k) for k in keys}}
+            "dtype": "bfloat16", "fp32": {k: f32.get(k) for k in keys},
+            "tunables": {k: list(v) for k, v in
+                         entry.contract.candidates(tunable_args(entry))
+                         .items()}}
     if case_rows:
         line["cases"] = {c: {str(dt)[6:]: {k: r.get(k) for k in keys}
                              for dt, r in by_dtype.items()}
@@ -2929,6 +3075,8 @@ def main() -> int:
             flash_rows[name][case[0]] = by_dtype
     del flush
     log(f"  phase 3 done at {time.monotonic() - t_start:.1f} s")
+    log("[3c/7] kernel layer: parity battery, tuner, committed cache, lint")
+    layer = kernel_layer(device)
 
     log("[4/7] serve: GPT continuous batching")
     stats, bf16_outs = serve(device, fp_paged, "4a bf16 serve", profile=True)
@@ -3000,6 +3148,7 @@ def main() -> int:
     log(f"[7/7] done in {time.monotonic() - t_start:.1f} s; library_ms of "
         "the two backward rows is one call for the pair: SDPA's whole "
         "backward (dq, dk, dv)")
+    log("  kernel layer: " + json.dumps(layer))
     print(json.dumps({"kernels": lines}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,6 @@
 """Inference facade (``paddle_tpu/inference.py``, serving subset): one
-engine, or a fleet of them behind a router."""
+engine, a fleet of them behind a router, or a router over replica server
+processes."""
 
 from __future__ import annotations
 
@@ -56,5 +57,38 @@ def make_serving_fleet(model, *, num_replicas: int = 2,
     return fleet.FleetRouter(reps, policy=policy, registry=registry,
                              tracer=tracer, seed=seed,
                              autoscaler=autoscaler, faults=faults,
+                             postmortem_dir=postmortem_dir,
+                             shed_spike_threshold=shed_spike_threshold)
+
+
+def make_net_serving_fleet(addresses, *, policy: str = "affinity",
+                           registry=None, tracer=None, seed: int = 0,
+                           faults=None, postmortem_dir=None,
+                           call_timeout_s: float = 60.0,
+                           shed_spike_threshold: int = 4):
+    """Process-isolated serving front end, the network sibling of
+    :func:`make_serving_fleet`. Each address in ``addresses`` points at
+    a replica server process (spawn them with
+    ``python -m paddle_tpu_torch.serving.fleet.net.replica_server`` or
+    :func:`paddle_tpu_torch.serving.fleet.net.spawn_replica_server`);
+    this connects a :class:`~paddle_tpu_torch.serving.fleet.net.NetReplica`
+    to each and fronts them with the same
+    :class:`~paddle_tpu_torch.serving.fleet.FleetRouter` the in-process
+    fleet uses: the same routing, breakers, exactly-once redrive and
+    migration, since the router sees only the ``ReplicaHandle`` contract.
+    A dead process shows up as transport errors that trip its breaker and
+    eject it; wrap the router in a
+    :class:`~paddle_tpu_torch.serving.fleet.net.FrontDoor` to stream
+    tokens to clients. Returns the router."""
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.serving import fleet
+    from paddle_tpu_torch.serving.fleet import net
+    registry = registry or obs.default()
+    tracer = tracer or obs.tracing.default()
+    reps = [net.NetReplica(addr, call_timeout_s=call_timeout_s,
+                           registry=registry)
+            for addr in addresses]
+    return fleet.FleetRouter(reps, policy=policy, registry=registry,
+                             tracer=tracer, seed=seed, faults=faults,
                              postmortem_dir=postmortem_dir,
                              shed_spike_threshold=shed_spike_threshold)

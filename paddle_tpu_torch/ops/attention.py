@@ -26,6 +26,12 @@ Layout (batch, heads, seq, head_dim) — "BHSD" — as in the reference.
 
 Scale: scores are scaled in fp32 after the dot everywhere (the
 reference's lax path; its Pallas wrapper scaled ``q`` in ``q.dtype``).
+
+Tiles: the reference tunes ``block_q``/``block_k``; here the wgmma
+design fixes them by dtype and head dim, so each entry's contract
+declares one-candidate sets (``_fwd_tiles``, ``_dkv_tiles``,
+``_dq_tiles``), which the autotuner resolves and the registry lint
+checks like any other.
 """
 
 from __future__ import annotations
@@ -299,9 +305,12 @@ def _ptr(t):
 
 
 def flash_fwd_cuda(q, k, v, bias=None, *, causal=False,
-                   scale: Optional[float] = None):
-    """K5: returns ``(out, lse)`` like :func:`flash_fwd_plain`."""
+                   scale: Optional[float] = None, blocks=None):
+    """K5: returns ``(out, lse)`` like :func:`flash_fwd_plain`. ``blocks``
+    may only name the design's tiles (one candidate each)."""
     bias_v, strides = _check(q, k, v, bias)
+    if blocks is not None:                # the design fixes the tiles
+        FWD.blocks_for((q, k, v, bias), blocks)
     b, h, sq, _ = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
@@ -319,10 +328,12 @@ def _check_bwd(q, k, v, bias, do, lse, delta):
 
 
 def flash_bwd_dkv_cuda(q, k, v, bias, do, lse, delta, *, causal=False,
-                       scale: Optional[float] = None):
+                       scale: Optional[float] = None, blocks=None):
     """K6a: returns ``(dk, dv)`` against the forward's lse and
     delta = rowsum(do * out)."""
     bias_v, strides = _check_bwd(q, k, v, bias, do, lse, delta)
+    if blocks is not None:                # the design fixes the tiles
+        BWD_DKV.blocks_for((q, k, v, bias, do, lse, delta), blocks)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _launch("ptt_flash_bwd_dkv", q.data_ptr(), k.data_ptr(), v.data_ptr(),
             _ptr(bias_v), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
@@ -333,9 +344,11 @@ def flash_bwd_dkv_cuda(q, k, v, bias, do, lse, delta, *, causal=False,
 
 
 def flash_bwd_dq_cuda(q, k, v, bias, do, lse, delta, *, causal=False,
-                      scale: Optional[float] = None):
+                      scale: Optional[float] = None, blocks=None):
     """K6b: returns ``dq``."""
     bias_v, strides = _check_bwd(q, k, v, bias, do, lse, delta)
+    if blocks is not None:                # the design fixes the tiles
+        BWD_DQ.blocks_for((q, k, v, bias, do, lse, delta), blocks)
     dq = torch.empty_like(q)
     _launch("ptt_flash_bwd_dq", q.data_ptr(), k.data_ptr(), v.data_ptr(),
             _ptr(bias_v), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
@@ -392,6 +405,121 @@ def dq_work(q, k, v, bias, do, lse, delta, *, causal=False, **_kw):
                  flops_per_pair=6)
 
 
+# ---------------------------------------------------------------------------
+# contracts: samples, tuning keys, the design's tiles and shared memory
+# ---------------------------------------------------------------------------
+
+def _fwd_sample(seed):
+    """The reference's ``_flash_sample_inputs`` shapes (its values come
+    from ``jax.random``; these from numpy under the same seed), causal,
+    float32 on the CPU."""
+    b, h, s, d = ((1, 2, 64, 32), (2, 2, 128, 64), (1, 4, 320, 64))[seed % 3]
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.standard_normal((b, h, s, d)).astype(
+        np.float32)) for _ in range(3))
+    return (q, k, v, None), {"causal": True}
+
+
+def _bwd_sample(seed):
+    """:func:`_fwd_sample` plus a seeded output cotangent, with the plain
+    forward's lse and delta = rowsum(do * out)."""
+    (q, k, v, bias), kw = _fwd_sample(seed)
+    rng = np.random.default_rng(seed + 1000)
+    do = torch.from_numpy(rng.standard_normal(tuple(q.shape)).astype(
+        np.float32))
+    out, lse = flash_fwd_plain(q, k, v, bias, **kw)
+    return (q, k, v, bias, do, lse, flash_delta(do, out)), kw
+
+
+def _flash_tune_signature(args):
+    """The reference's ``_flash_tune_signature``: B*H, Sq, Sk, D."""
+    q, k = args[0], args[1]
+    b, h, sq, d = q.shape
+    return (("bh", b * h), ("q", sq), ("k", k.shape[2]), ("d", d))
+
+
+#: the csrc/flash_attention.cu tiles: kTile (fp32 path), kWgRows (wgmma M)
+_TILE, _WG_ROWS = 64, 64
+
+
+def _fwd_keys(d):
+    return 128 if d <= 64 else 64
+
+
+def _bwd_queries(d):
+    return 64 if d <= 64 else 32
+
+
+def _fwd_tiles(args):
+    q = args[0]
+    if q.dtype != torch.bfloat16:
+        return {"block_q": (_TILE,), "block_k": (_TILE,)}
+    return {"block_q": (_WG_ROWS,), "block_k": (_fwd_keys(q.shape[-1]),)}
+
+
+def _dkv_tiles(args):
+    q = args[0]
+    if q.dtype != torch.bfloat16:
+        return {"block_q": (_TILE,), "block_k": (_TILE,)}
+    return {"block_q": (_bwd_queries(q.shape[-1]),), "block_k": (_WG_ROWS,)}
+
+
+def _dq_tiles(args):
+    if args[0].dtype != torch.bfloat16:
+        return {"block_q": (_TILE,), "block_k": (_TILE,)}
+    return {"block_q": (_WG_ROWS,), "block_k": (64,)}
+
+
+def _fp32_smem(d, backward):
+    """``fwd_smem<D>`` / ``bwd_smem<D>`` of the fp32 kernels."""
+    q_rows, kv_rows, p_rows = (d + 4) * _TILE, (d + 1) * _TILE, (_TILE + 1) * _TILE
+    if backward:
+        return 4 * (2 * q_rows + 2 * kv_rows + 2 * p_rows + 2 * _TILE)
+    return 4 * (q_rows + 2 * kv_rows + p_rows)
+
+
+def _fwd_smem(args, blocks):
+    q = args[0]
+    d = q.shape[-1]
+    if q.dtype != torch.bfloat16:
+        return _fp32_smem(d, False)
+    keys = blocks["block_k"]
+    return 1024 + _WG_ROWS * d * 2 + 4 * keys * d * 2 + 2 * keys * 4 + 5 * 8
+
+
+def _dkv_smem(args, blocks):
+    q = args[0]
+    d = q.shape[-1]
+    if q.dtype != torch.bfloat16:
+        return _fp32_smem(d, True)
+    nq = blocks["block_q"]
+    return 1024 + 2 * _WG_ROWS * d * 2 + 4 * nq * d * 2 + 4 * nq * 4 + 3 * 8
+
+
+def _dq_smem(args, blocks):
+    q = args[0]
+    d = q.shape[-1]
+    if q.dtype != torch.bfloat16:
+        return _fp32_smem(d, True)
+    keys = blocks["block_k"]
+    return (1024 + 2 * _WG_ROWS * d * 2 + 5 * keys * d * 2 + 2 * keys * 4
+            + 6 * 8)
+
+
+def _flash_contract(symbol, layout, out_layout, tiles):
+    def prior(args):
+        return {k: v[0] for k, v in tiles(args).items()}
+    return registry.KernelContract(
+        version=1, arg_layouts=layout, out_layout=out_layout,
+        symbols={symbol: _SIGNATURES[symbol]}, candidates=tiles,
+        prior=prior)
+
+
+_FWD_LAYOUT = {"q": "(B,H,Sq,D)", "k": "(B,H,Sk,D)", "v": "(B,H,Sk,D)",
+               "bias": "additive, broadcast to (B,H,Sq,Sk), optional"}
+_BWD_LAYOUT = {**_FWD_LAYOUT, "do": "(B,H,Sq,D)", "lse": "(B,H,Sq) f32",
+               "delta": "(B,H,Sq) f32"}
+
 # fp32: the reference kernel contract's tolerance (ops/attention.py:761);
 # bf16: the output rounds to bf16, compared against the plain version run
 # in fp32 on the same bf16 inputs
@@ -409,7 +537,12 @@ FWD = registry.register(registry.KernelEntry(
     plain_fn=flash_fwd_plain,
     reference_fn=_fwd_reference,
     tolerance=_TOL,
-    work=fwd_work))
+    work=fwd_work,
+    contract=_flash_contract("ptt_flash_fwd", _FWD_LAYOUT,
+                             "(B,H,Sq,D), lse (B,H,Sq) f32", _fwd_tiles),
+    sample_inputs=_fwd_sample,
+    tune_signature=_flash_tune_signature,
+    smem=_fwd_smem))
 
 BWD_DKV = registry.register(registry.KernelEntry(
     name="flash_attention_bwd_dkv",
@@ -420,7 +553,12 @@ BWD_DKV = registry.register(registry.KernelEntry(
     plain_fn=_dkv_plain,
     reference_fn=_dkv_reference,
     tolerance=_GRAD_TOL,
-    work=dkv_work))
+    work=dkv_work,
+    contract=_flash_contract("ptt_flash_bwd_dkv", _BWD_LAYOUT,
+                             "dk, dv (B,H,Sk,D)", _dkv_tiles),
+    sample_inputs=_bwd_sample,
+    tune_signature=_flash_tune_signature,
+    smem=_dkv_smem))
 
 BWD_DQ = registry.register(registry.KernelEntry(
     name="flash_attention_bwd_dq",
@@ -431,7 +569,12 @@ BWD_DQ = registry.register(registry.KernelEntry(
     plain_fn=_dq_plain,
     reference_fn=_dq_reference,
     tolerance=_GRAD_TOL,
-    work=dq_work))
+    work=dq_work,
+    contract=_flash_contract("ptt_flash_bwd_dq", _BWD_LAYOUT,
+                             "dq (B,H,Sq,D)", _dq_tiles),
+    sample_inputs=_bwd_sample,
+    tune_signature=_flash_tune_signature,
+    smem=_dq_smem))
 
 
 # ---------------------------------------------------------------------------

@@ -34,6 +34,15 @@ tensor runs the plain version; there is no fallback between the two.
 Scale: scores are scaled in fp32 after the dot, in the plain version
 and in the kernel alike (the reference's lax fallback; its Pallas
 wrapper scaled ``q`` in ``q.dtype`` instead).
+
+Launch configuration (each entry's :class:`~paddle_tpu_torch.kernels.
+registry.KernelContract`; the reference tunes ``pages_per_block``, which
+has no counterpart in these designs): one candidate each, the warps a
+block that ``csrc/paged_attention.cu`` fixes at compile time (decode 8,
+``kDecWarps``; the tensor-core prefills 8 for K3, ``kFpPreWarps``, and 4
+for K4, ``kInt8PreWarps``). The contracts declare them so that the
+tuner and the registry lint have them to check; a wrapper's ``blocks=``
+may only name that one configuration, and no call looks the tuner up.
 """
 
 from __future__ import annotations
@@ -354,9 +363,11 @@ def _check_args(q, k_pages, v_pages, ints, q_ndim, scales=None):
 
 
 def paged_decode_cuda(q, k_pages, v_pages, block_tables, lengths, *,
-                      scale: Optional[float] = None):
+                      scale: Optional[float] = None, blocks=None):
     _check_args(q, k_pages, v_pages,
                 (("block_tables", block_tables, 2), ("lengths", lengths, 1)), 3)
+    if blocks is not None:        # the kernel fixes its warps
+        DECODE.blocks_for((q, k_pages, v_pages, block_tables, lengths), blocks)
     s_slots, h, dh = q.shape
     out = torch.empty_like(q)
     _launch("ptt_paged_decode", q.device, q.data_ptr(), k_pages.data_ptr(),
@@ -369,11 +380,15 @@ def paged_decode_cuda(q, k_pages, v_pages, block_tables, lengths, *,
 
 
 def paged_prefill_cuda(q, k_pages, v_pages, block_tables, chunk_starts,
-                       n_valid, *, scale: Optional[float] = None):
+                       n_valid, *, scale: Optional[float] = None,
+                       blocks=None):
     _check_args(q, k_pages, v_pages,
                 (("block_tables", block_tables, 2),
                  ("chunk_starts", chunk_starts, 1),
                  ("n_valid", n_valid, 1)), 4)
+    if blocks is not None:        # the kernel fixes its warps
+        PREFILL.blocks_for((q, k_pages, v_pages, block_tables, chunk_starts,
+                            n_valid), blocks)
     s_slots, c, h, dh = q.shape
     out = torch.empty_like(q)
     _launch("ptt_paged_prefill", q.device, q.data_ptr(), k_pages.data_ptr(),
@@ -387,10 +402,13 @@ def paged_prefill_cuda(q, k_pages, v_pages, block_tables, chunk_starts,
 
 def paged_decode_int8_cuda(q, k_pages, v_pages, k_scales, v_scales,
                            block_tables, lengths, *,
-                           scale: Optional[float] = None):
+                           scale: Optional[float] = None, blocks=None):
     _check_args(q, k_pages, v_pages,
                 (("block_tables", block_tables, 2), ("lengths", lengths, 1)), 3,
                 scales=(k_scales, v_scales))
+    if blocks is not None:        # the kernel fixes its warps
+        DECODE_INT8.blocks_for((q, k_pages, v_pages, k_scales, v_scales,
+                                block_tables, lengths), blocks)
     s_slots, h, dh = q.shape
     out = torch.empty_like(q)
     _launch("ptt_paged_decode_int8", q.device, q.data_ptr(),
@@ -405,11 +423,14 @@ def paged_decode_int8_cuda(q, k_pages, v_pages, k_scales, v_scales,
 
 def paged_prefill_int8_cuda(q, k_pages, v_pages, k_scales, v_scales,
                             block_tables, chunk_starts, n_valid, *,
-                            scale: Optional[float] = None):
+                            scale: Optional[float] = None, blocks=None):
     _check_args(q, k_pages, v_pages,
                 (("block_tables", block_tables, 2),
                  ("chunk_starts", chunk_starts, 1),
                  ("n_valid", n_valid, 1)), 4, scales=(k_scales, v_scales))
+    if blocks is not None:        # the kernel fixes its warps
+        PREFILL_INT8.blocks_for((q, k_pages, v_pages, k_scales, v_scales,
+                                 block_tables, chunk_starts, n_valid), blocks)
     s_slots, c, h, dh = q.shape
     out = torch.empty_like(q)
     _launch("ptt_paged_prefill_int8", q.device, q.data_ptr(),
@@ -500,6 +521,116 @@ def prefill_int8_work(q, k_pages, v_pages, k_scales, v_scales, block_tables,
                          True)
 
 
+# ---------------------------------------------------------------------------
+# contracts: samples, tuning keys, tunables and shared memory
+# ---------------------------------------------------------------------------
+
+def _make_sample(seed, *, chunked):
+    """The reference's ``_make_paged_sample`` (the same numpy draws, so
+    the same inputs for the same seed), as float32 CPU tensors."""
+    s_slots, h, dh, ps, mp = (
+        (4, 2, 16, 8, 3), (6, 4, 32, 16, 4), (8, 4, 64, 16, 6))[seed % 3]
+    c = ps  # prefill chunk = one page of queries
+    num_pages = s_slots * mp + 1
+    rng = np.random.default_rng(seed)
+    k_pages = rng.standard_normal((num_pages, ps, h, dh)).astype(np.float32)
+    v_pages = rng.standard_normal((num_pages, ps, h, dh)).astype(np.float32)
+    perm = rng.permutation(num_pages - 1)[:s_slots * mp] + 1
+    block_tables = perm.reshape(s_slots, mp).astype(np.int32)
+    if not chunked:
+        q = rng.standard_normal((s_slots, h, dh)).astype(np.float32)
+        lengths = rng.integers(0, mp * ps + 1, s_slots).astype(np.int32)
+        arrays = (q, k_pages, v_pages, block_tables, lengths)
+    else:
+        q = rng.standard_normal((s_slots, c, h, dh)).astype(np.float32)
+        starts = rng.integers(0, (mp - 1) * ps, s_slots).astype(np.int32)
+        n_valid = rng.integers(0, c + 1, s_slots).astype(np.int32)
+        arrays = (q, k_pages, v_pages, block_tables, starts, n_valid)
+    return tuple(torch.from_numpy(a) for a in arrays), {}
+
+
+def _make_int8_sample(seed, *, chunked):
+    """The fp sample's pages quantized per token row through
+    :func:`~paddle_tpu_torch.serving.paged_cache.quantize_kv`, as the
+    reference's ``_make_paged_int8_sample`` does."""
+    from paddle_tpu_torch.serving.paged_cache import quantize_kv
+    args, kwargs = _make_sample(seed, chunked=chunked)
+    q, k_pages, v_pages = args[:3]
+    kq, ks = quantize_kv(k_pages, (2, 3))            # scales (P, ps)
+    vq, vs = quantize_kv(v_pages, (2, 3))
+    return (q, kq, vq, ks, vs) + args[3:], kwargs
+
+
+def _tune_signature(args, bt_index):
+    """The reference's ``_paged_tune_signature``: slots, (chunk), heads,
+    head dim, page size, block-table width."""
+    q, k_pages, bt = args[0], args[1], args[bt_index]
+    sig = [("s", q.shape[0]), ("h", k_pages.shape[2]),
+           ("d", q.shape[-1]), ("ps", k_pages.shape[1]),
+           ("mp", bt.shape[1])]
+    if q.ndim == 4:                      # prefill: chunk width matters
+        sig.insert(1, ("c", q.shape[1]))
+    return tuple(sig)
+
+
+#: the csrc/paged_attention.cu constants the estimates below mirror
+_MAX_HEAD_DIM, _KEY_TILE, _STAGES = 256, 64, 2
+
+
+def _decode_smem(args, blocks):
+    """Static shared memory of one decode block: each warp's m, l and
+    accumulator row."""
+    return blocks["warps"] * (8 + 4 * _MAX_HEAD_DIM)
+
+
+def _prefill_smem(args, blocks):
+    """Dynamic shared memory of one tensor-core prefill block
+    (``PrefillSmem<KV, NK, NW>::BYTES`` plus the page ids); the scalar
+    template (fp32 q, Dh > 128, tables past 8192 columns) takes none."""
+    q, k_pages = args[0], args[1]
+    dh, w = q.shape[-1], args[-3].shape[1]
+    if q.dtype != torch.bfloat16 or dh > 128 or w > 8192:
+        return 0
+    quant = k_pages.dtype == torch.int8
+    dp = 16 * -(-dh // 16)
+    rs = dp * k_pages.element_size() + 16
+    scales = 2 * _KEY_TILE * 4 if quant else 0
+    stage = 2 * _KEY_TILE * rs + scales
+    nbytes = _STAGES * stage
+    if quant:
+        nbytes += _KEY_TILE * (dp + 8) * 2 + dp * (_KEY_TILE + 8) * 2 + scales
+    return nbytes + (4 * w + 15) // 16 * 16
+
+
+#: warps a block, fixed in csrc/paged_attention.cu: decode (kDecWarps),
+#: K3's and K4's tensor-core prefill (kFpPreWarps, kInt8PreWarps)
+DECODE_TUNABLES = {"warps": (8,)}
+PREFILL_TUNABLES = {"warps": (8,)}
+PREFILL_INT8_TUNABLES = {"warps": (4,)}
+
+_DECODE_LAYOUT = {"q": "(S,H,Dh)", "k_pages": "(P,ps,H,Dh)",
+                  "v_pages": "(P,ps,H,Dh)", "block_tables": "(S,mp) i32",
+                  "lengths": "(S,) i32"}
+_PREFILL_LAYOUT = {"q": "(S,C,H,Dh)", "k_pages": "(P,ps,H,Dh)",
+                   "v_pages": "(P,ps,H,Dh)", "block_tables": "(S,mp) i32",
+                   "chunk_starts": "(S,) i32", "n_valid": "(S,) i32"}
+_SCALES_LAYOUT = {"k_scales": "(P,ps) f32", "v_scales": "(P,ps) f32"}
+
+
+def _int8_layout(layout):
+    out = {"q": layout["q"], "k_pages": "(P,ps,H,Dh) i8",
+           "v_pages": "(P,ps,H,Dh) i8", **_SCALES_LAYOUT}
+    out.update((k, v) for k, v in layout.items() if k not in out)
+    return out
+
+
+def _contract(symbol, layout, out_layout, tunables, prior):
+    return registry.KernelContract(
+        version=1, arg_layouts=layout, out_layout=out_layout,
+        symbols={symbol: _SIGNATURES[symbol]},
+        candidates=lambda args: tunables, prior=lambda args: dict(prior))
+
+
 DECODE = registry.register(registry.KernelEntry(
     name="ragged_paged_decode",
     route="cuda",
@@ -512,7 +643,12 @@ DECODE = registry.register(registry.KernelEntry(
     # rounds to bf16, compared against the plain version run in fp32 on
     # the same bf16 inputs
     tolerance={torch.float32: (2e-5, 2e-5), torch.bfloat16: (1e-2, 1e-2)},
-    work=decode_work))
+    work=decode_work,
+    contract=_contract("ptt_paged_decode", _DECODE_LAYOUT, "(S,H,Dh)",
+                       DECODE_TUNABLES, {"warps": 8}),
+    sample_inputs=lambda seed: _make_sample(seed, chunked=False),
+    tune_signature=lambda args: _tune_signature(args, 3),
+    smem=_decode_smem))
 
 PREFILL = registry.register(registry.KernelEntry(
     name="ragged_paged_prefill",
@@ -523,7 +659,12 @@ PREFILL = registry.register(registry.KernelEntry(
     plain_fn=paged_prefill_plain,
     reference_fn=paged_prefill_reference,
     tolerance={torch.float32: (2e-5, 2e-5), torch.bfloat16: (1e-2, 1e-2)},
-    work=prefill_work))
+    work=prefill_work,
+    contract=_contract("ptt_paged_prefill", _PREFILL_LAYOUT, "(S,C,H,Dh)",
+                       PREFILL_TUNABLES, {"warps": 8}),
+    sample_inputs=lambda seed: _make_sample(seed, chunked=True),
+    tune_signature=lambda args: _tune_signature(args, 3),
+    smem=_prefill_smem))
 
 # fp32: the reference's int8 kernel contract (decode_attention.py:1121 and
 # :1156); bf16 q as for the fp kernels
@@ -538,7 +679,12 @@ DECODE_INT8 = registry.register(registry.KernelEntry(
     plain_fn=paged_decode_int8_plain,
     reference_fn=paged_decode_int8_reference,
     tolerance=_INT8_TOL,
-    work=decode_int8_work))
+    work=decode_int8_work,
+    contract=_contract("ptt_paged_decode_int8", _int8_layout(_DECODE_LAYOUT),
+                       "(S,H,Dh)", DECODE_TUNABLES, {"warps": 8}),
+    sample_inputs=lambda seed: _make_int8_sample(seed, chunked=False),
+    tune_signature=lambda args: _tune_signature(args, 5),
+    smem=_decode_smem))
 
 PREFILL_INT8 = registry.register(registry.KernelEntry(
     name="ragged_paged_prefill_int8",
@@ -549,7 +695,13 @@ PREFILL_INT8 = registry.register(registry.KernelEntry(
     plain_fn=paged_prefill_int8_plain,
     reference_fn=paged_prefill_int8_reference,
     tolerance=_INT8_TOL,
-    work=prefill_int8_work))
+    work=prefill_int8_work,
+    contract=_contract("ptt_paged_prefill_int8",
+                       _int8_layout(_PREFILL_LAYOUT), "(S,C,H,Dh)",
+                       PREFILL_INT8_TUNABLES, {"warps": 4}),
+    sample_inputs=lambda seed: _make_int8_sample(seed, chunked=True),
+    tune_signature=lambda args: _tune_signature(args, 5),
+    smem=_prefill_smem))
 
 
 # ---------------------------------------------------------------------------

@@ -28,7 +28,10 @@ bitwise reproducibility, the wrappers' refusals, and the train step
 through one captured graph: bitwise equal to eager on tiny GPT and BERT
 with the flash launches counted per replay, a failed capture that
 raises, fresh dropout masks per replay, an AMP overflow skipped inside
-the graph, and remat under graphs.
+the graph, and remat under graphs. K1-K4 under every configuration
+their contracts declare (one each: the warps a block the kernels fix),
+and fault F9's round of threaded replicas beside a capture, 20 times in one
+process.
 """
 
 import numpy as np
@@ -202,6 +205,56 @@ def _int8_inputs(seed, s, h, dh, ps, w, c, device):
     (t["kq"], t["ks"]), (t["vq"], t["vs"]) = pages
     t["n_live_pages"] = n_pages
     return t
+
+
+#: geometries for the launch configurations: the serving shape (Dh 64,
+#: page 16), a ragged head dim, a long few-slot table, a verify chunk
+TUNABLE_GEOMETRIES = [(4, 2, 64, 16, 8, 64), (3, 2, 48, 8, 5, 7),
+                      (2, 2, 64, 16, 64, 16), (3, 2, 128, 16, 6, 4)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("geom", TUNABLE_GEOMETRIES,
+                         ids=lambda g: "x".join(map(str, g)))
+def test_every_launch_configuration_matches_plain(dev, geom, dtype):
+    """K1-K4 under every configuration their contracts declare (one
+    each: decode 8 warps, K3 8, K4 4), fp32 and bf16, over fp
+    and int8 pools (the int8 ones with NaN scale rows on unreferenced
+    pages), lengths 0 included: each within the entry's tolerance of the
+    plain version, bitwise on a repeat launch, exact zeros for a slot of
+    length 0, and counted once per launch."""
+    s, h, dh, ps, w, c = geom
+    t = _int8_inputs(sum(geom) + 1, s, h, dh, ps, w, c, dev)
+    kp, vp = t["kp"].to(dtype), t["vp"].to(dtype)
+    q8 = (t["kq"], t["vq"], t["ks"], t["vs"])
+    qd, qp = t["qd"].to(dtype), t["qp"].to(dtype)
+    cases = (
+        (PA.DECODE, (qd, kp, vp, t["bt"], t["lengths"])),
+        (PA.PREFILL, (qp, kp, vp, t["bt"], t["starts"], t["n_valid"])),
+        (PA.DECODE_INT8, (qd, *q8, t["bt"], t["lengths"])),
+        (PA.PREFILL_INT8, (qp, *q8, t["bt"], t["starts"], t["n_valid"])),
+    )
+    for entry, args in cases:
+        atol, rtol = entry.tolerance[dtype]
+        ref = entry.plain_fn(args[0].float(), *(
+            a.float() if a.is_floating_point() and a.ndim == 4 else a
+            for a in args[1:]))
+        grid = entry.contract.grid(args)
+        assert grid == (entry.contract.prior(args),)
+        for blocks in grid:
+            before = entry.launches
+            got = entry.cuda_fn(*args, blocks=blocks)
+            again = entry.cuda_fn(*args, blocks=blocks)
+            torch.cuda.synchronize()
+            assert entry.launches == before + 2
+            what = f"{entry.name} {blocks}"
+            assert torch.isfinite(got.float()).all(), what
+            torch.testing.assert_close(got.float(), ref, atol=atol,
+                                       rtol=rtol, msg=what)
+            assert torch.equal(got, again), what
+            if args[0].ndim == 3:
+                assert torch.all(got[args[-1] == 0] == 0), what
 
 
 INT8_GEOMETRIES = [(s, h, dh, ps, w, c) for dh in (32, 64, 128)
@@ -893,10 +946,35 @@ def test_threaded_replicas_serve_while_another_replica_captures(dev):
     finishes with the tokens of a run without the concurrent capture,
     replicas stepped during the capture, and no replica built anything
     after its warmup; the fourth then serves the same tokens."""
+    _threaded_capture_round(dev)
+
+
+@pytest.mark.parametrize("repeat", range(20))
+def test_threaded_capture_repeated_in_one_process(dev, repeat):
+    """Fault F9: the round of the test above, 20 times in one process,
+    each round after the last round's engines were dropped (their pinned
+    buffers and graphs freed while new ones are captured). A capture
+    beside serving threads must never leave a failed host allocation
+    behind: every round passes, and so does a pinned allocation and a
+    capture after it."""
+    _threaded_capture_round(dev, seed=repeat)
+    pinned = torch.zeros(64, dtype=torch.int32, pin_memory=True)
+    assert pinned.is_pinned()
+    graph = torch.cuda.CUDAGraph()
+    x = torch.zeros(8, device=dev)
+    from paddle_tpu_torch.core.device import graph_capture
+    with graph_capture(graph):
+        x.add_(1)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert float(x.sum()) == 8.0
+
+
+def _threaded_capture_round(dev, seed=0):
     import time
     model = _fleet_model(dev)
     reps = [_fleet_replica(model, dev, f"t{i}").warmup() for i in range(3)]
-    prompts = _fleet_prompts(60)
+    prompts = _fleet_prompts(60, seed=seed)
     want = reps[0].engine.generate_many(prompts, 32)
     for rep in reps:
         rep.start()
