@@ -33,8 +33,12 @@ Phases, in order; any failure exits non-zero:
        (chunk = spec_k = 4: the ``verify`` case of their entries in the
        ``kernels`` line, with its own bound); decode also at a
        long, few-slot shape (2 slots of 4096 tokens, lengths at the edges
-       of the partition of a slot's pages over the 8 warps of its block).
-       Every kernel launched twice on the same inputs must give the same
+       of the partition of a slot's pages over the 8 warps of its block);
+       K1-K4 also on the head slice a rank of 4m's tp=2 (8 heads) and
+       tp=4 (4 heads) legs holds (cases ``tp2_heads8`` and
+       ``tp4_heads4``; int8 pages quantized over all 16 heads), where
+       the registered ``ragged_paged_*_tp`` entry point must equal the
+       kernel bit for bit. Every kernel launched twice on the same inputs must give the same
        bits, and a decode slot of length 0 exact zeros; each timed row
        runs the launch configuration the committed tuning cache
        (``paddle_tpu_torch/kernels/tune.json``) chooses, and every
@@ -141,7 +145,23 @@ Phases, in order; any failure exits non-zero:
        redriven) and SIGTERM to the first (exit 84 after its work);
        tokens agree up to a near-tie, each stream >= 2 partials, the
        netlog validates; codec, RPCs, transport ms per token, stream
-       TTFT.
+       TTFT;
+   (m) tensor parallelism: (i) a tp=2 group of two processes on the
+       card over gloo (rank 0 leads, rank 1 follows; K1-K4 built by
+       phase 2, loaded by both), eager, (a)'s GPT bf16 and int8 and the
+       fp32 2-layer model, 16 requests of 16..256 prompt tokens, 64 new
+       each: tokens held against a tp=1 engine on the same weights
+       (near-tie rules as (k); fp32 up to a near-tie, counted), K1/K3
+       (K2/K4 for int8) launched on both ranks at 8 heads, as many times
+       on each (rank 0's collective probe twin's launches apart), one
+       attention-output all-reduce per layer per forward (and one K/V
+       abs-max all-reduce on an int8 pool), tokens/s (gloo on one card:
+       not a tp speed) and rank 0's collective probe every 8 decode
+       rounds (exposed seconds and share); either rank failing fails
+       the run; (ii) ``tp_probe=True`` at tp=2 and tp=4 in this process,
+       graphs on, (a)'s traffic: decode and prefill tokens/s and the
+       paged kernels' device ms per 4 decode blocks at 8 and 4 heads
+       beside (a)'s: one chip's share of a tp deployment.
 5. train   — BERT-base pretraining (vocab 30522, hidden 768, 12 layers,
    12 heads, ffn 3072, max_position 512, post-LN, dropout 0), batch
    48 x 512 with valid lengths 128..512, the multi-tensor AdamW(1e-4),
@@ -525,6 +545,50 @@ def check_long_decode(device, flush):
             f"{r['max_abs_err']:.3e} kernel={_ms_text(r)} plain="
             f"{_ms_text(r, 'plain_')} bound={bound_ms:.4f} ms ({bound_by})")
     return rows
+
+
+#: tensor-parallel ranks whose head slice phase 3 checks: the heads a
+#: rank of 4m's tp=2 group and of its tp=4 probe holds
+TP_SLICES = (2, 4)
+#: the ``ragged_paged_*_tp`` entry points take a mesh only to refuse a
+#: call made outside one: this stands for the rank's mesh
+TP_ENTRY_MESH = object()
+
+
+def _head_slice(args, tp):
+    """The last of ``tp`` ranks' share of a paged kernel's inputs: its
+    ``H/tp`` heads of q and of the K/V pages (contiguous, as its local
+    pool is); int8 scale rows, block tables and lengths or chunk
+    geometry whole."""
+    lo = H - H // tp
+    q, kp, vp, *rest = args
+    return (q[..., lo:, :].contiguous(), kp[:, :, lo:].contiguous(),
+            vp[:, :, lo:].contiguous(), *rest)
+
+
+def check_head_slices(entry, make_inputs, device, flush):
+    """``entry`` on a tp rank's head slice of phase 3's inputs (``H/tp``
+    heads for each of ``TP_SLICES``; int8 pages quantized over all ``H``
+    heads, as the tp path's MAX all-reduce makes them): the rows of
+    :func:`check_kernel`, and the registered ``*_tp`` entry point on the
+    slice bitwise equal to the kernel, fp32 and bf16. Returns
+    {case: {dtype: row}}."""
+    from paddle_tpu_torch.kernels import registry
+    tp_entry, = [e for e in registry.tp_entries() if e.inner == entry.name]
+    cases = {}
+    for tp in TP_SLICES:
+        def sliced(seed, dev, tp=tp):
+            return _head_slice(make_inputs(seed, dev), tp)
+        log(f"  {entry.name} on a tp={tp} rank's {H // tp} heads:")
+        cases[f"tp{tp}_heads{H // tp}"] = check_kernel(entry, sliced,
+                                                      device, flush)
+        for dtype in (torch.float32, torch.bfloat16):
+            args = _cast(sliced(11, device), dtype)
+            got = tp_entry.fn(*args, mesh=TP_ENTRY_MESH)
+            if not torch.equal(got, entry.cuda_fn(*args)):
+                raise AssertionError(f"{tp_entry.name}[tp={tp}][{dtype}]: "
+                                     "differs from the kernel on the slice")
+    return cases
 
 
 # -- phase 3b: flash attention vs plain versions -------------------------------
@@ -956,7 +1020,8 @@ def serve(device, kernels, label, profile=False, self_draft=False,
                      / stats["decode_steps"])
     log(f"  {label}: " + json.dumps(stats))
     if profile:
-        stats["decode_profile"] = profile_decode(eng, cfg.vocab_size)
+        stats["decode_profile"] = profile_decode(eng, cfg.vocab_size,
+                                                 keep=("paged_",))
         log(f"  {label} decode profile: "
             + json.dumps(stats["decode_profile"]))
     outs = [done[r] for r in rids]
@@ -1069,11 +1134,11 @@ def profile_window(step, reps, keep=()):
     return out
 
 
-def profile_decode(eng, vocab, blocks=4):
+def profile_decode(eng, vocab, blocks=4, keep=()):
     """Where a decode block's time goes, after the measured run: 16 new
     requests are prefilled, then :func:`profile_window` over ``blocks``
     decode blocks of 16 live slots (the two windows differ only by 8
-    tokens per block of slot length)."""
+    tokens per block of slot length); ``keep`` as there."""
     for p in make_prompts(16, vocab, seed=7):
         eng.submit(p, 96)         # outlives both windows
     while eng.scheduler.queue or any(
@@ -1081,7 +1146,7 @@ def profile_decode(eng, vocab, blocks=4):
             for i in eng.scheduler.active_slots()):
         eng.step()
     return {"blocks": blocks, "tokens": blocks * eng.decode_block * 16,
-            **profile_window(eng.step, blocks)}
+            **profile_window(eng.step, blocks, keep=keep)}
 
 
 def dense_greedy(model, prompt, n):
@@ -1131,7 +1196,7 @@ def dense_logits(model, ids, quantized):
     for block in model.blocks:
         q, k, v = block.attn.qkv_heads(block.ln1(x))       # (1, H, T, Dh)
         if quantized:
-            k, v = _dequantized(k), _dequantized(v)
+            k, v = _dequantized(k).to(q.dtype), _dequantized(v).to(q.dtype)
         s = (q @ k.transpose(-1, -2)) / float(q.shape[-1]) ** 0.5
         p = torch.softmax(s.masked_fill(~causal, float("-inf")), dim=-1)
         x = x + block.attn.proj_out(p @ v)
@@ -1450,9 +1515,10 @@ def _check_restored(eng, restored, label):
     pages = 0
     for rid, snap in restored:
         slot = _slot_of(eng, rid)
-        n = len(snap["shards"])
-        got = [eng._shard_digest(eng._shard(p)) for p in
-               eng._read_pages(eng.cache.block_tables[slot, :n])]
+        n = len(snap["shards"]) // eng._tp_shards
+        got = [eng._shard_digest(sh) for p in
+               eng._read_pages(eng.cache.block_tables[slot, :n])
+               for sh in eng._shards(p)]
         if got != [r["sha256"] for r in snap["manifest"]]:
             raise AssertionError(f"{label}: a restored page of request "
                                  f"{rid} does not hash to its manifest")
@@ -1488,7 +1554,7 @@ def page_io_profile(eng, pids):
     payloads = eng._read_pages(pids)
     t0 = time.perf_counter()
     for p in payloads:
-        eng._shard_digest(eng._shard(p))
+        eng._shard_digest(eng._shards(p)[0])
     hash_ms = (time.perf_counter() - t0) * 1e3
     for hs, p in zip(hosts, payloads):
         for h, a in zip(hs, p):
@@ -2546,6 +2612,243 @@ def fleet_fp32_parity(device):
     release()
 
 
+# -- phase 4m: tensor parallelism ---------------------------------------------
+
+#: 4m (i): requests and new tokens of each leg of the tp=2 group
+TP_REQUESTS, TP_NEW = 16, 64
+#: the tp group's process-group timeout and the parent's wait for it (s)
+TP_GROUP_TIMEOUT_S, TP_WAIT_S = 300, 600
+
+
+def _tp_legs(rank, device, dims):
+    """4m (i) on one rank of the tp=2 group: the bf16 and int8 legs at 4a's
+    width and the fp32 2-layer leg, each an engine over the group's mesh
+    (eager: collectives are not captured) with the collective probe
+    every 8 decode rounds. Rank 0 serves ``TP_REQUESTS`` requests and
+    closes the engine; rank 1 follows it. Every rank returns its K1-K4
+    launches, its all-reduces by site and its forwards through the
+    layers (calls of each decode or prefill signature, its eager build
+    included, times the decode block for decode)."""
+    from paddle_tpu_torch.core import mesh as mesh_lib
+    from paddle_tpu_torch.inference import make_serving_engine
+    from paddle_tpu_torch.kernels import registry
+    from paddle_tpu_torch.models.gpt import GPT, GPTConfig
+    from paddle_tpu_torch.observability import MetricsRegistry
+    from paddle_tpu_torch.serving import paged_attention as PA
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    registry.load_all()
+    mesh = mesh_lib.make_mesh(mesh_lib.MeshConfig(tp=2),
+                              device_type=device.type)
+    cfg = GPTConfig(**dims)
+    legs = (("bf16", cfg, torch.bfloat16, None),
+            ("int8", cfg, torch.bfloat16, torch.int8),
+            ("fp32_2layer", dataclasses.replace(cfg, num_layers=2),
+             torch.float32, None))
+    out = {}
+    for name, c, dtype, cache_dtype in legs:
+        model = GPT(c, device=device, dtype=dtype, seed=0)
+        reg = MetricsRegistry()
+        eng = make_serving_engine(model, device=device, registry=reg,
+                                  mesh=mesh, cuda_graphs=False,
+                                  cache_dtype=cache_dtype,
+                                  anatomy_probe_every=8, **ENGINE_KW)
+        registry.reset_launches()
+        leg = {}
+        if rank == 0:
+            prompts = make_prompts(TP_REQUESTS, c.vocab_size, seed=21)
+            t0 = time.monotonic()
+            outs = eng.generate_many(prompts, TP_NEW)
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+            eng.close()
+            gen = TP_NEW * len(prompts)
+            summary = eng.anatomy.summary()
+            leg.update(
+                tokens=[o.tolist() for o in outs], wall_s=wall,
+                tokens_per_s_gloo_one_card_not_a_tp_speed=gen / wall,
+                decode_steps=int(reg.counter("serving_steps_total").value()),
+                health={k: eng.health()[k]
+                        for k in ("tp", "mesh_devices", "tp_probe")},
+                collective_probe_samples=summary["probe_samples"],
+                collective_exposed_s=summary.get("collective_exposed_s"),
+                collective_exposed_frac=summary.get(
+                    "collective_exposed_frac"))
+        else:
+            eng.follow()
+        built = eng.graphs.signatures()
+        leg["forwards"] = sum(
+            (n + (sig in built)) * (eng.decode_block if sig[0] == "decode"
+                                     else 1)
+            for sig, n in collections.Counter(
+                {**{b: 0 for b in built}, **eng.graphs.calls}).items()
+            if sig[0] in ("decode", "prefill"))
+        leg["layers"] = c.num_layers
+        leg["all_reduces"] = dict(eng.tp_all_reduces)
+        # K1-K4 launches by signature: the tp path's, and rank 0's
+        # collective probe twin's (("decode_probe", w)) apart; together
+        # every launch the counters saw
+        paged = (PA.DECODE, PA.PREFILL, PA.DECODE_INT8, PA.PREFILL_INT8)
+        by_sig = eng.graphs.launches
+        leg["launches"] = {e.name: sum(n[e.name] for sig, n in by_sig.items()
+                                       if sig[0] != "decode_probe")
+                           for e in paged}
+        leg["launches_probe"] = {
+            e.name: sum(n[e.name] for sig, n in by_sig.items()
+                        if sig[0] == "decode_probe") for e in paged}
+        leg["launches_counted"] = {e.name: e.launches for e in paged}
+        out[name] = leg
+        del eng, model
+        gc.collect()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def _tp_rank(rank, port, results, device, dims):
+    """Process entry of one rank of 4m (i): join the gloo group over
+    ``tcp://127.0.0.1:port`` with a timeout, run :func:`_tp_legs`, and
+    put ``(rank, "ok", result)`` or ``(rank, "err", traceback)`` on
+    ``results``; a failure also exits non-zero."""
+    import datetime
+    import traceback
+
+    import torch.distributed as dist
+    try:
+        device = torch.device(device)
+        if device.type == "cuda":
+            torch.cuda.set_device(device)
+        dist.init_process_group(
+            "gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+            world_size=2,
+            timeout=datetime.timedelta(seconds=TP_GROUP_TIMEOUT_S))
+        results.put((rank, "ok", _tp_legs(rank, device, dims)))
+    except BaseException:
+        results.put((rank, "err", traceback.format_exc()))
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def tp_group_run(device, dims=None):
+    """4m (i): the tp=2 group, two processes on ``device`` over gloo
+    (:func:`_tp_rank`), each building K1-K4 from the cache phase 2 left.
+    Either rank failing or exiting non-zero fails the run. Then the tp=1
+    references in this process on the same weights and prompts: bf16 and
+    int8 tokens held with ``_hold_tokens`` (bf16 noise and near-tie
+    rules, as 4k), the fp32 2-layer tokens exact up to a near-tie
+    (counted). Both ranks must launch K1 and K3 (bf16, fp32) and K2 and
+    K4 (int8), as many times on each rank outside rank 0's collective
+    probe twin (whose launches are counted apart, and with the tp path's
+    make up each rank's counters), and issue one attention-output
+    all-reduce per layer per forward (one per layer more for an int8
+    pool's K and V abs-max). Returns the legs' stats."""
+    import multiprocessing as mp
+
+    from paddle_tpu_torch.inference import make_serving_engine
+    from paddle_tpu_torch.models.gpt import GPT, GPTConfig
+    from paddle_tpu_torch.observability import MetricsRegistry
+    from paddle_tpu_torch.serving import paged_attention as PA
+    dims = dims or dataclasses.asdict(model_config())
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    port = _free_port()
+    procs = [ctx.Process(target=_tp_rank,
+                         args=(r, port, results, str(device), dims))
+             for r in (0, 1)]
+    for p in procs:
+        p.start()
+    got, errors = {}, []
+    try:
+        for _ in procs:
+            rank, status, val = results.get(timeout=TP_WAIT_S)
+            (got.__setitem__(rank, val) if status == "ok"
+             else errors.append(f"rank {rank}:\n{val}"))
+    finally:
+        for p in procs:
+            p.join(60)
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+    codes = [p.exitcode for p in procs]
+    if errors or codes != [0, 0]:
+        raise AssertionError(f"4m tp group failed (exit codes {codes}):\n"
+                             + "\n".join(errors))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = GPTConfig(**dims)
+    wanted = {"bf16": (PA.DECODE, PA.PREFILL),
+              "int8": (PA.DECODE_INT8, PA.PREFILL_INT8),
+              "fp32_2layer": (PA.DECODE, PA.PREFILL)}
+    stats = {}
+    for name, (c, dtype, cache_dtype) in {
+            "bf16": (cfg, torch.bfloat16, None),
+            "int8": (cfg, torch.bfloat16, torch.int8),
+            "fp32_2layer": (dataclasses.replace(cfg, num_layers=2),
+                            torch.float32, None)}.items():
+        leg0, leg1 = got[0][name], got[1][name]
+        if leg0["launches"] != leg1["launches"] or leg1["launches_probe"] \
+                != dict.fromkeys(leg1["launches_probe"], 0):
+            raise AssertionError(
+                f"4m {name}: the ranks' tp-path launches differ (rank 0 "
+                f"{leg0['launches']}, rank 1 {leg1['launches']}, rank 1's "
+                f"probe {leg1['launches_probe']})")
+        for rank, leg in ((0, leg0), (1, leg1)):
+            whole = {k: leg["launches"][k] + leg["launches_probe"][k]
+                     for k in leg["launches"]}
+            if whole != leg["launches_counted"]:
+                raise AssertionError(
+                    f"4m {name}: rank {rank}'s launches by signature "
+                    f"{whole} are not its counters' "
+                    f"{leg['launches_counted']}")
+            for e in wanted[name]:
+                if leg["launches"][e.name] <= 0:
+                    raise AssertionError(f"4m {name}: rank {rank} never "
+                                         f"launched {e.name}")
+            per = leg["all_reduces"].get("attn_out", 0) / (
+                leg["layers"] * leg["forwards"])
+            amax = leg["all_reduces"].get("kv_amax", 0) / (
+                leg["layers"] * leg["forwards"])
+            if per != 1 or amax != (1 if cache_dtype else 0):
+                raise AssertionError(
+                    f"4m {name}: rank {rank} all-reduces {leg['all_reduces']}"
+                    f" over {leg['forwards']} forwards of {leg['layers']} "
+                    "layers")
+        model = GPT(c, device=device, dtype=dtype, seed=0)
+        prompts = make_prompts(TP_REQUESTS, c.vocab_size, seed=21)
+        eng = make_serving_engine(model, device=device,
+                                  cache_dtype=cache_dtype,
+                                  registry=MetricsRegistry(), **ENGINE_KW)
+        want = eng.generate_many(prompts, TP_NEW)
+        got_toks = [np.asarray(t, np.int32) for t in leg0["tokens"]]
+        bf16 = dtype == torch.bfloat16
+        ties = _hold_tokens(model, prompts, got_toks, want,
+                            f"4m {name} tp=2 vs tp=1",
+                            quantized=cache_dtype is not None,
+                            allow_ties=True, bf16_noise=bf16)
+        stats[name] = {k: v for k, v in leg0.items()
+                       if k not in ("tokens", "launches", "launches_probe",
+                                    "launches_counted")}
+        stats[name].update(
+            launches_rank0=leg0["launches"], launches_rank1=leg1["launches"],
+            launches_probe_rank0=leg0["launches_probe"],
+            all_reduces_per_layer_forward=1, near_ties=len(ties),
+            ties=ties, agreement=agreement(got_toks, want))
+        log(f"  4m (i) {name} tp=2 group (gloo on one card, not a tp "
+            "speed): " + json.dumps(stats[name]))
+        del eng, model
+        release()
+    return stats
+
 # -- phases 5 and 6: BERT-base pretraining ------------------------------------
 
 TRAIN_BATCH, TRAIN_SEQ = 48, 512
@@ -3069,6 +3372,8 @@ def main() -> int:
         verify_rows[e.name] = check_kernel(
             e, functools.partial(makers[e.name], c=SPEC_K), device, flush)
     long_rows = check_long_decode(device, flush)
+    slice_rows = {e.name: check_head_slices(e, makers[e.name], device, flush)
+                  for e in paged}
     flash_rows = {e.name: {} for e in flash}
     for case in FLASH_CASES:
         for name, by_dtype in check_flash(case, device, flush).items():
@@ -3109,6 +3414,23 @@ def main() -> int:
     t0 = time.monotonic()
     net_run(device)
     log(f"  phase 4l took {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    tp_stats = tp_group_run(device)
+    probe = {}
+    for tp in (2, 4):
+        st, _ = serve(device, fp_paged, f"4m (ii) tp={tp} probe serve",
+                      profile=True, tp=tp, tp_probe=True)
+        probe[tp] = st
+    log("  4m (ii) one chip's share of a tp deployment (tp_probe, graphs, "
+        "bf16) beside 4a: " + json.dumps({
+            f"tp={tp}" if tp > 1 else "4a (tp=1)": {
+                "heads_per_chip": model_config().num_heads // tp,
+                "decode_tokens_per_s": st["decode_tokens_per_s"],
+                "prefill_tokens_per_s": st["prefill_tokens_per_s"],
+                "paged_kernels_per_4_decode_blocks":
+                    st["decode_profile"].get("kept_kernels")}
+            for tp, st in ((1, stats), (2, probe[2]), (4, probe[4]))}))
+    log(f"  phase 4m took {time.monotonic() - t0:.1f} s")
 
     log("[5/7] train: BERT-base pretraining, bf16")
     train = train_bf16(device)
@@ -3118,8 +3440,9 @@ def main() -> int:
     train_fp32_exact(device)
 
     lines = [kernel_line(e, rows[e.name], stats["launches"][e.name],
-                         {"long": long_rows} if e is PA.DECODE
-                         else {"verify": verify_rows[e.name]})
+                         {**({"long": long_rows} if e is PA.DECODE
+                             else {"verify": verify_rows[e.name]}),
+                          **slice_rows[e.name]})
              for e in fp_paged]
     # K2/K4: launches of the int8 serving run (4c), with the speculative
     # run's (4d) beside them; K4's verify calls (chunk spec_k) of 4d and
@@ -3127,8 +3450,9 @@ def main() -> int:
     verify_calls = spec_stats["int8_prefill_calls_by_chunk"].get(str(SPEC_K),
                                                                  0)
     lines += [dict(kernel_line(e, rows[e.name], q8_stats["launches"][e.name],
-                               {"verify": verify_rows[e.name]}
-                               if e is PA.PREFILL_INT8 else None),
+                               {**({"verify": verify_rows[e.name]}
+                                   if e is PA.PREFILL_INT8 else {}),
+                                **slice_rows[e.name]}),
                    launches_speculative=spec_stats["launches"][e.name],
                    **({"launches_verify": verify_calls}
                       if e is PA.PREFILL_INT8 else {}))
@@ -3138,10 +3462,19 @@ def main() -> int:
                           {c: r for c, r in flash_rows[e.name].items()
                            if c != FLASH_CASES[0][0]})
               for e in flash]
-    # K1-K4 also run in 4k's fleet (K2/K4 in its int8 leg)
+    # K1-K4 also run in 4k's fleet (K2/K4 in its int8 leg), and at 8
+    # heads on each rank of 4m's tp=2 group (K1/K3 in its bf16 leg, K2/K4
+    # in its int8 leg), where rank 0's collective probe twin launches
+    # K1 (K2) besides
     for ln in lines:
         if ln["name"] in fleet_stats["launches"]:
             ln["launches_fleet"] = fleet_stats["launches"][ln["name"]]
+        leg = tp_stats["int8" if "int8" in ln["name"] else "bf16"]
+        if ln["name"] in leg["launches_rank0"]:
+            ln["launches_tp2_ranks"] = [leg["launches_rank0"][ln["name"]],
+                                        leg["launches_rank1"][ln["name"]]]
+            ln["launches_tp2_probe_rank0"] = \
+                leg["launches_probe_rank0"][ln["name"]]
     # K5 also runs in 4f's prefills (GPT.generate, generate_bucketed)
     k5_line, = [ln for ln in lines if ln["name"] == flash[0].name]
     k5_line["launches_generate"] = gen_stats["k5_launches"]

@@ -24,6 +24,7 @@ from typing import Callable, Dict, Optional
 import torch
 
 from paddle_tpu_torch.core import dtypes
+from paddle_tpu_torch.core.device import resolve_device
 from paddle_tpu_torch.train import (TrainStepGraphs, _policy_call,
                                     make_train_state)
 
@@ -47,7 +48,10 @@ class DynamicLossScale:
     def __init__(self, config: Optional[LossScaleConfig] = None):
         self.config = config or LossScaleConfig()
 
-    def init(self, device="cpu") -> Dict[str, torch.Tensor]:
+    def init(self, device="cuda") -> Dict[str, torch.Tensor]:
+        """The initial state on ``device`` (the card unless the caller
+        asks for the CPU)."""
+        device = resolve_device(device)
         return {
             "scale": torch.full((), self.config.init_scale,
                                 dtype=torch.float32, device=device),

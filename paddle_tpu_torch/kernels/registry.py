@@ -155,6 +155,42 @@ HOME_MODULES = ("paddle_tpu_torch.serving.paged_attention",
                 "paddle_tpu_torch.ops.attention")
 
 
+@dataclasses.dataclass(frozen=True)
+class TpEntry:
+    """A tensor-parallel entry point (the reference's
+    ``ragged_paged_*_tp``): the registered kernel ``inner`` run on each
+    rank's ``H/tp`` head slice, with no kernel of its own (the
+    reference's ``pallas_sites=()``). Heads are independent, so a rank's
+    output equals the tp=1 kernel's on those heads; the collective that
+    completes the layer (``collectives``) belongs to the caller's
+    row-split output projection. ``fn`` is the entry point, ``plain_fn``
+    the inner plain version on the local slice; both take ``mesh=`` (or
+    the ambient ``mesh_context``) and refuse to run without one."""
+
+    name: str
+    inner: str
+    arg_layouts: Mapping[str, str]
+    out_layout: str
+    fn: Callable
+    plain_fn: Callable
+    collectives: Tuple[str, ...] = ("all_reduce",)
+    requires_mesh: bool = True
+
+
+_TP_REGISTRY: Dict[str, TpEntry] = {}
+
+
+def register_tp(entry: TpEntry) -> TpEntry:
+    _TP_REGISTRY[entry.name] = entry
+    return entry
+
+
+def tp_entries() -> Tuple[TpEntry, ...]:
+    """Every registered tensor-parallel entry point, by name."""
+    load_all()
+    return tuple(_TP_REGISTRY[n] for n in sorted(_TP_REGISTRY))
+
+
 def register(entry: KernelEntry) -> KernelEntry:
     _REGISTRY[entry.name] = entry
     return entry

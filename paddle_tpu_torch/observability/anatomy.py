@@ -11,15 +11,16 @@ host-side accumulator the engine drives around its device calls
   previous step ended;
 - ``add_phase(phase, start, end)`` records one timed device interval
   (the engine already holds these stamps around every call);
+- ``set_collective(real_s, probe_s)`` lands a sampled collectives-elided
+  probe (the ``tp_probe`` discipline: the same shapes with the
+  all-reduces elided; the delta is the exposed collective time);
 - ``end_step(tokens=...)`` closes the record, pushes it into a bounded
   ring, publishes registry histograms/gauges, and emits trace spans so
   one Perfetto export shows anatomy alongside ``serving.request``.
 
 Records are plain dicts validated by :func:`validate_anatomy_record` /
 :func:`validate_anatomy_records`: monotonic step ids, non-negative
-times, and phase sums bounded by step wall time. The reference's
-collective-exposed probe belongs to tensor parallelism, which the port
-does not have yet.
+times, and phase sums bounded by step wall time.
 """
 
 from __future__ import annotations
@@ -71,7 +72,9 @@ class StepAnatomy:
         # totals for summary() — cheap running sums, not ring-derived,
         # so the summary reflects the whole run even after ring wrap
         self._tot = {"steps": 0, "wall_s": 0.0, "gap_s": 0.0,
-                     "host_s": 0.0, "tokens": 0}
+                     "host_s": 0.0, "tokens": 0,
+                     "probe_samples": 0, "collective_exposed_s": 0.0,
+                     "probed_wall_s": 0.0}
         self._tot_phase: Dict[str, float] = {}
         r = self.registry
         self._h_wall = r.histogram(
@@ -83,14 +86,23 @@ class StepAnatomy:
         self._h_phase = r.histogram(
             "anatomy_phase_seconds",
             "device-busy time per step by phase")
+        self._h_coll = r.histogram(
+            "anatomy_collective_exposed_seconds",
+            "sampled exposed collective time per probed step")
         self._g_gap_frac = r.gauge(
             "anatomy_host_gap_frac",
             "fraction of timeline spent in host gaps between steps")
         self._g_host_frac = r.gauge(
             "anatomy_host_frac",
             "fraction of step wall spent in host assembly/data wait")
+        self._g_coll_frac = r.gauge(
+            "anatomy_collective_exposed_frac",
+            "exposed collective time / wall on probed steps")
         self._c_steps = r.counter(
             "anatomy_steps_total", "anatomy records closed").child()
+        self._c_probes = r.counter(
+            "anatomy_probe_samples_total",
+            "collective probe samples taken").child()
         self._phase_children: Dict[str, object] = {}
 
     def to_wall(self, t: float) -> float:
@@ -105,7 +117,7 @@ class StepAnatomy:
         self._step_seq = step_id + 1
         self._cur = {"step": int(step_id), "t0": t0,
                      "gap_s": max(gap, 0.0), "phases": {},
-                     "intervals": []}
+                     "intervals": [], "collective": None}
 
     def add_phase(self, phase: str, start: float, end: float) -> None:
         """Attribute one device interval (tracer-clock stamps the engine
@@ -124,6 +136,15 @@ class StepAnatomy:
         if self._cur is not None:
             self._cur = None
             self._last_end = self.now()
+
+    def set_collective(self, real_s: float, probe_s: float) -> None:
+        """Land a sampled collectives-elided probe: ``real_s`` is the
+        tp step's wall, ``probe_s`` the same shapes with the all-reduces
+        elided; the positive delta is the exposed collective time."""
+        cur = self._cur
+        if cur is None:
+            return
+        cur["collective"] = (float(real_s), float(probe_s))
 
     def end_step(self, tokens: int = 0) -> Optional[Dict[str, Any]]:
         cur = self._cur
@@ -146,6 +167,11 @@ class StepAnatomy:
             "phases": phases,
             "tokens": int(tokens),
         }
+        if cur["collective"] is not None:
+            real_s, probe_s = cur["collective"]
+            rec["probe_wall_s"] = round(probe_s, 9)
+            rec["collective_exposed_s"] = round(max(real_s - probe_s, 0.0),
+                                                9)
         self._publish(rec, cur, t1)
         self._last_end = t1
         with self._lock:
@@ -177,10 +203,21 @@ class StepAnatomy:
             self._g_gap_frac.set(t["gap_s"] / timeline)
         if t["wall_s"] > 0:
             self._g_host_frac.set(t["host_s"] / t["wall_s"])
+        if "collective_exposed_s" in rec:
+            self._c_probes.inc()
+            self._h_coll.observe(rec["collective_exposed_s"])
+            t["probe_samples"] += 1
+            t["collective_exposed_s"] += rec["collective_exposed_s"]
+            t["probed_wall_s"] += wall
+            if t["probed_wall_s"] > 0:
+                self._g_coll_frac.set(
+                    t["collective_exposed_s"] / t["probed_wall_s"])
         tracer = self.tracer
         if tracer.enabled:
             attrs = {"step": rec["step"], "host_gap_s": rec["host_gap_s"],
                      "host_s": rec["host_s"], "tokens": rec["tokens"]}
+            if "collective_exposed_s" in rec:
+                attrs["collective_exposed_s"] = rec["collective_exposed_s"]
             sp = tracer.record_span("anatomy.step", start=cur["t0"],
                                     end=t1, **attrs)
             for phase, s0, s1 in cur["intervals"]:
@@ -206,12 +243,12 @@ class StepAnatomy:
 
     def summary(self) -> Dict[str, Any]:
         """Whole-run aggregate (survives ring wrap): phase split,
-        host-gap fraction."""
+        host-gap fraction, and the sampled collective economics."""
         t = dict(self._tot)
         steps = t["steps"]
         wall = t["wall_s"]
         timeline = wall + t["gap_s"]
-        return {
+        out: Dict[str, Any] = {
             "steps": steps,
             "wall_s": wall,
             "tokens": t["tokens"],
@@ -220,7 +257,15 @@ class StepAnatomy:
             "phase_s": dict(self._tot_phase),
             "phase_frac": {p: (s / wall if wall else 0.0)
                            for p, s in self._tot_phase.items()},
+            "probe_samples": t["probe_samples"],
         }
+        if t["probe_samples"]:
+            out["collective_exposed_s"] = (
+                t["collective_exposed_s"] / t["probe_samples"])
+            out["collective_exposed_frac"] = (
+                t["collective_exposed_s"] / t["probed_wall_s"]
+                if t["probed_wall_s"] else 0.0)
+        return out
 
 
 # -- schema validation ----------------------------------------------------

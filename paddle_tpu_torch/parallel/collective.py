@@ -1,0 +1,215 @@
+"""Explicit collectives over named mesh axes
+(``paddle_tpu/parallel/collective.py``) on ``torch.distributed``.
+
+The reference wraps ``lax.p*`` in ``shard_map`` over a mesh axis; here
+each rank calls the op with its own local value and the op runs on the
+process group of the mesh's axis (``DeviceMesh.get_group``). Values are
+returned, the input is left as it was, as the reference's functional ops
+do. An op over a tuple of axes runs over each axis in turn.
+
+A gloo group takes CUDA tensors for ``all_reduce``, ``broadcast`` and
+``barrier`` only (:data:`GLOO_CUDA_OPS`); every other op on a CUDA
+tensor over a gloo group raises, naming the op and the backend. Nothing
+stages a CUDA tensor through the host behind the caller's back.
+"""
+
+from __future__ import annotations
+
+import datetime
+from typing import Optional, Sequence, Tuple, Union
+
+import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
+
+from paddle_tpu_torch.core import mesh as mesh_lib
+
+AxisArg = Union[str, Sequence[str]]
+
+#: the ops a gloo group runs on CUDA tensors
+GLOO_CUDA_OPS = frozenset({"all_reduce", "broadcast", "barrier"})
+
+_REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
+               "min": dist.ReduceOp.MIN, "prod": dist.ReduceOp.PRODUCT}
+
+
+def _axes(axis: AxisArg) -> Tuple[str, ...]:
+    return (axis,) if isinstance(axis, str) else tuple(axis)
+
+
+def _mesh(mesh: Optional[DeviceMesh]) -> DeviceMesh:
+    m = mesh or mesh_lib.current_mesh()
+    if m is None:
+        raise ValueError("no mesh: pass mesh= or enter mesh_context()")
+    return m
+
+
+def axis_group(axis: str, mesh: Optional[DeviceMesh] = None):
+    """The process group of ``mesh``'s ``axis``."""
+    return _mesh(mesh).get_group(axis)
+
+
+def check_backend(op: str, device_type: str, backend: str):
+    """Raise when ``backend`` cannot run ``op`` on tensors of
+    ``device_type`` (gloo takes CUDA tensors only for
+    :data:`GLOO_CUDA_OPS`)."""
+    if backend == "gloo" and device_type == "cuda" \
+            and op not in GLOO_CUDA_OPS:
+        raise NotImplementedError(
+            f"{op} on CUDA tensors is not supported by the gloo backend "
+            f"(gloo runs {', '.join(sorted(GLOO_CUDA_OPS))} on CUDA); use "
+            "an nccl group, one card per rank")
+
+
+def _check(op: str, x: Optional[torch.Tensor], group):
+    device_type = x.device.type if x is not None else "cpu"
+    check_backend(op, device_type, dist.get_backend(group))
+
+
+def group_timeout(group=None) -> Optional[datetime.timedelta]:
+    """The timeout ``group`` (default: the world) was made with, or None
+    when its backend does not say."""
+    pg = group if group is not None else dist.group.WORLD
+    for dev in ("cpu", "cuda"):
+        try:
+            return pg._get_backend(torch.device(dev)).options._timeout
+        except (AttributeError, RuntimeError):
+            continue
+    return None
+
+
+def all_reduce(x: torch.Tensor, axis: AxisArg = mesh_lib.DP, *,
+               op: str = "sum",
+               mesh: Optional[DeviceMesh] = None) -> torch.Tensor:
+    """c_allreduce_{sum,max,min,prod}: the reduction of every member's
+    ``x`` across ``axis``, on every member."""
+    out = x.clone()
+    for a in _axes(axis):
+        group_all_reduce(out, axis_group(a, mesh), op=op)
+    return out
+
+
+def group_all_reduce(x: torch.Tensor, group, *,
+                     op: str = "sum") -> torch.Tensor:
+    """:func:`all_reduce` in place on a process group the caller holds
+    (a serving engine's tp group): every member's ``x`` becomes the
+    reduction. Returns ``x``."""
+    if op not in _REDUCE_OPS:
+        raise ValueError(f"op must be one of {sorted(_REDUCE_OPS)}, "
+                         f"got {op!r}")
+    _check("all_reduce", x, group)
+    dist.all_reduce(x, op=_REDUCE_OPS[op], group=group)
+    return x
+
+
+def all_gather(x: torch.Tensor, axis: AxisArg = mesh_lib.DP, *,
+               concat_axis: int = 0,
+               mesh: Optional[DeviceMesh] = None) -> torch.Tensor:
+    """c_allgather: every member's ``x`` concatenated along
+    ``concat_axis`` in axis order."""
+    out = x
+    for a in _axes(axis):
+        g = axis_group(a, mesh)
+        _check("all_gather", out, g)
+        parts = [torch.empty_like(out) for _ in range(dist.get_world_size(g))]
+        dist.all_gather(parts, out.contiguous(), group=g)
+        out = torch.cat(parts, dim=concat_axis)
+    return out
+
+
+def reduce_scatter(x: torch.Tensor, axis: str = mesh_lib.DP, *,
+                   scatter_axis: int = 0,
+                   mesh: Optional[DeviceMesh] = None) -> torch.Tensor:
+    """c_reducescatter: the sum over ``axis``, of which member ``i`` keeps
+    the ``i``-th of equal chunks along ``scatter_axis`` (whose size the
+    axis size must divide)."""
+    g = axis_group(axis, mesh)
+    _check("reduce_scatter", x, g)
+    n = dist.get_world_size(g)
+    if x.shape[scatter_axis] % n:
+        raise ValueError(f"dim {scatter_axis} ({x.shape[scatter_axis]}) "
+                         f"does not divide over {axis} ({n})")
+    chunks = [c.contiguous() for c in x.chunk(n, dim=scatter_axis)]
+    out = torch.empty_like(chunks[0])
+    dist.reduce_scatter(out, chunks, group=g)
+    return out
+
+
+def broadcast(x: torch.Tensor, axis: AxisArg = mesh_lib.DP, *,
+              root: int = 0,
+              mesh: Optional[DeviceMesh] = None) -> torch.Tensor:
+    """c_broadcast: every member gets the value of the member at position
+    ``root`` along each axis."""
+    out = x.clone()
+    for a in _axes(axis):
+        g = axis_group(a, mesh)
+        _check("broadcast", out, g)
+        dist.broadcast(out, src=dist.get_global_rank(g, root), group=g)
+    return out
+
+
+def all_to_all(x: torch.Tensor, axis: str = mesh_lib.EP, *,
+               split_axis: int = 0, concat_axis: int = 0,
+               mesh: Optional[DeviceMesh] = None) -> torch.Tensor:
+    """Dense all-to-all: ``x`` cut into axis-size chunks along
+    ``split_axis``, chunk ``i`` to member ``i``, the received chunks
+    concatenated along ``concat_axis`` in member order."""
+    g = axis_group(axis, mesh)
+    _check("all_to_all", x, g)
+    n = dist.get_world_size(g)
+    if x.shape[split_axis] % n:
+        raise ValueError(f"dim {split_axis} ({x.shape[split_axis]}) "
+                         f"does not divide over {axis} ({n})")
+    send = [c.contiguous() for c in x.chunk(n, dim=split_axis)]
+    recv = [torch.empty_like(c) for c in send]
+    dist.all_to_all(recv, send, group=g)
+    return torch.cat(recv, dim=concat_axis)
+
+
+def ppermute(x: torch.Tensor, axis: str, perm, *,
+             mesh: Optional[DeviceMesh] = None) -> torch.Tensor:
+    """Point-to-point shift: for each ``(src, dst)`` of ``perm`` (axis
+    positions), member ``dst`` receives member ``src``'s ``x``; a member
+    that receives nothing gets zeros (``lax.ppermute``). One
+    ``batch_isend_irecv`` per member."""
+    m = _mesh(mesh)
+    g = m.get_group(axis)
+    _check("ppermute", x, g)
+    me = m.get_local_rank(axis)
+    out = torch.zeros_like(x)
+    ops = []
+    for src, dst in perm:
+        if src == me:
+            ops.append(dist.P2POp(dist.isend, x.contiguous(),
+                                  dist.get_global_rank(g, dst), g))
+        if dst == me:
+            ops.append(dist.P2POp(dist.irecv, out,
+                                  dist.get_global_rank(g, src), g))
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    return out
+
+
+def hierarchical_all_reduce(x: torch.Tensor, *,
+                            ici_axis: str = mesh_lib.DP,
+                            dcn_axis: str = "dcn", scatter_axis: int = 0,
+                            mesh: Optional[DeviceMesh] = None
+                            ) -> torch.Tensor:
+    """Two-level all-reduce (the reference's hierarchical allreduce):
+    reduce-scatter over the fast ``ici_axis``, all-reduce the shard over
+    the slow ``dcn_axis``, all-gather over ``ici_axis``, so the slow leg
+    moves 1/|ici| of the bytes. Equal to one sum over both axes up to
+    the order of the additions."""
+    shard = reduce_scatter(x, ici_axis, scatter_axis=scatter_axis,
+                           mesh=mesh)
+    shard = all_reduce(shard, dcn_axis, mesh=mesh)
+    return all_gather(shard, ici_axis, concat_axis=scatter_axis, mesh=mesh)
+
+
+def barrier(axis: AxisArg = mesh_lib.DP, *,
+            mesh: Optional[DeviceMesh] = None):
+    """send_barrier/fetch_barrier: every member of each axis waits for
+    the others."""
+    for a in _axes(axis):
+        dist.barrier(group=axis_group(a, mesh))

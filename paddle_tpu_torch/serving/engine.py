@@ -74,25 +74,51 @@ scale rows ``(2, L, page_size)`` of an int8 pool):
   :meth:`~ServingEngine.import_prefix_pages` (:data:`PREFIX_BUNDLE_FORMAT`,
   the whole chain proven from the root).
 
-Tensor parallelism is a later slice of the port.
+Tensor parallelism (the reference's ``mesh=`` / ``tp=`` path): the
+engine runs on every rank of a mesh's "tp" axis (a ``torch.distributed``
+group the caller started, :func:`~paddle_tpu_torch.core.mesh.make_mesh`).
+Each rank holds ``H/tp`` heads of every page pool and of the attention
+projections (:func:`~paddle_tpu_torch.parallel.plan.serving_tp_plan`),
+runs K1-K4 on its local heads (the tp=1 kernels: heads are
+independent), and one all-reduce per layer closes the row-split output
+projection (a prefill tier adds a second for the Megatron MLP; int8
+pools complete each token's K and V abs-max with one MAX all-reduce, so
+the rows quantize as at tp=1). Rank 0 leads: its engine is the one callers
+``submit``, ``step``, snapshot and read ``health()`` on, and before each
+device call it broadcasts the call over a CPU group (:mod:`.tp`); ranks 1
+to tp-1 build the same engine and call :meth:`ServingEngine.follow`,
+which returns when rank 0's :meth:`~ServingEngine.close` stops it. The
+hidden state after every layer and the LM head are replicated, so every
+rank computes the same tokens. Slot snapshots and prefix bundles carry
+one sha256 shard per (page, tp shard), as the reference's do.
+``tp_probe=True`` runs one shard's local work on one device with the
+collectives elided (the per-chip compute of a tp deployment), and a tp
+engine's rank 0 re-runs the decode shapes through such a twin every
+``anatomy_probe_every`` rounds to measure the exposed collective time.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
 import hashlib
 import threading
 import time
+import traceback
 from collections import OrderedDict
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from paddle_tpu_torch import observability as obs
+from paddle_tpu_torch.core import mesh as mesh_lib
 from paddle_tpu_torch.core.device import resolve_device
+from paddle_tpu_torch.parallel import collective
 from paddle_tpu_torch.serving import paged_attention as PA
+from paddle_tpu_torch.serving import tp as tp_lib
 from paddle_tpu_torch.serving.graphs import StepGraphs
 from paddle_tpu_torch.serving.paged_cache import (_ROOT_KEY, _chain,
                                                   PagedCacheConfig,
@@ -179,7 +205,7 @@ def bucket_cost(sig: tuple, cfg, draft_cfg, *, num_slots: int,
     pools' bytes plus the weights' bytes, for every signature."""
     phase = sig[0]
     model = draft_cfg if phase in ("draft", "draft_prefill") else cfg
-    if phase in ("decode", "draft"):
+    if phase in ("decode", "draft", "decode_probe"):
         tokens, rows = num_slots, num_slots
     elif phase in ("prefill", "draft_prefill"):
         tokens, rows = sig[2] * chunk, sig[2]
@@ -193,6 +219,19 @@ def bucket_cost(sig: tuple, cfg, draft_cfg, *, num_slots: int,
              + n * 4 * h * tokens * ctx
              + rows * 2 * h * model.vocab_size)
     return BucketCost(float(flops), int(hbm_bytes))
+
+
+def check_tp_graphs(tp: int, tp_probe: bool, graphed: bool):
+    """A tp engine's collectives run over gloo on one card or over NCCL
+    across cards, and neither is captured in the step graphs yet
+    (ROADMAP Queue 1 item 4, NCCL tp across cards with captured
+    collectives): a graphed tp engine is refused. A probe engine has no
+    collectives and graphs as a tp=1 engine does."""
+    if tp > 1 and not tp_probe and graphed:
+        raise ValueError(
+            "cuda_graphs=True with tp > 1: collectives are not captured "
+            "in the step graphs (ROADMAP Queue 1 item 4, NCCL tp across "
+            "cards with captured collectives); pass cuda_graphs=False")
 
 
 class SlotMigrationError(RuntimeError):
@@ -225,7 +264,13 @@ class ServingEngine:
     observability arguments. ``tier`` ("colocated", "prefill" or
     "decode"), ``snapshot_every_blocks`` and ``host_spill_pages`` are the
     reference's disaggregation, micro-snapshot and host spill
-    arguments."""
+    arguments. ``mesh`` (a ``DeviceMesh`` with a "tp" axis) or ``tp``
+    (with an initialized process group of ``tp`` ranks, or the ambient
+    ``mesh_context``) shards the engine over tensor-parallel ranks (the
+    module docstring), ``tp_probe`` makes the one-shard probe engine and
+    ``anatomy_probe_every`` sets the collective probe's rounds (default
+    64 on a tp engine, else off). A tp engine on the card dispatches
+    eagerly: ``cuda_graphs=True`` with ``tp > 1`` raises."""
 
     def __init__(self, model, *, num_slots: int = 8, page_size: int = 16,
                  num_pages: Optional[int] = None,
@@ -247,7 +292,10 @@ class ServingEngine:
                  draft_cache_dtype: Optional[torch.dtype] = None,
                  cuda_graphs: bool = True,
                  snapshot_every_blocks: Optional[int] = None,
-                 tier: str = "colocated", host_spill_pages: int = 0):
+                 tier: str = "colocated", host_spill_pages: int = 0,
+                 mesh=None, tp: Optional[int] = None,
+                 tp_probe: bool = False,
+                 anatomy_probe_every: Optional[int] = None):
         self.device = resolve_device(device)
         # disaggregation: a "prefill" engine runs only the batched
         # prefill and parks prefill-done slots for poll_handoffs; a
@@ -267,22 +315,75 @@ class ServingEngine:
             if m is not None and m.device != self.device:
                 raise ValueError(f"{what} lives on {m.device}, engine "
                                  f"device is {self.device}")
-        # (decode, prefill) attention by pool kind: False = fp, True = int8
+        cfg = model.cfg
+        # -- tensor parallelism: heads split H/tp over the mesh's "tp"
+        # axis, one all-reduce per layer at the attention output
+        mesh_tp = (mesh_lib.axis_size(mesh, mesh_lib.TP)
+                   if mesh is not None else None)
+        if mesh is not None and tp is not None and int(tp) != mesh_tp:
+            raise ValueError(f"tp={tp} disagrees with the mesh's tp "
+                             f"axis ({mesh_tp})")
+        tp = int(mesh_tp if mesh is not None else (tp or 1))
+        if tp > 1:
+            if cfg.num_heads % tp:
+                raise ValueError(
+                    f"tp={tp} must divide num_heads={cfg.num_heads}")
+            if draft_model is not None:
+                raise ValueError(
+                    "speculative decoding does not compose with tensor "
+                    "parallelism (the draft cache is single-device)")
+        check_tp_graphs(tp, tp_probe,
+                        cuda_graphs and self.device.type == "cuda")
+        if tp_probe:
+            if tp < 2:
+                raise ValueError("tp_probe needs tp >= 2")
+            mesh = None            # one shard's work, one device
+        elif tp > 1 and mesh is None:
+            mesh = mesh_lib.current_mesh()
+            if mesh is None or mesh_lib.axis_size(mesh, mesh_lib.TP) != tp:
+                if not dist.is_initialized() or \
+                        dist.get_world_size() != tp:
+                    raise ValueError(
+                        f"tp={tp} needs a mesh (mesh=, or mesh_context) "
+                        f"or an initialized process group of {tp} ranks")
+                mesh = mesh_lib.make_mesh(mesh_lib.MeshConfig(tp=tp),
+                                          device_type=self.device.type)
+        self.mesh = mesh if tp > 1 else None
+        self.tp = tp
+        self.tp_probe = bool(tp_probe)
+        self.tp_spmd = self.mesh is not None
+        self._tp_heads = cfg.num_heads // tp
+        # prefill tier under tp: the Megatron MLP split too (prefill is
+        # flops-bound: worth a second all-reduce per layer)
+        self._mlp_sharded = tier == "prefill" and self.tp_spmd
+        self._link = tp_lib.TpLink(self.mesh) if self.tp_spmd else None
+        #: all-reduces this rank's steps issued, by site ("attn_out" per
+        #: layer, "mlp" per layer of a prefill tier, "kv_amax" one per
+        #: layer of an int8 pool): host-side counts of eager calls
+        self.tp_all_reduces: "collections.Counter[str]" = \
+            collections.Counter()
+        self._lead = self._link is None or self._link.lead
+        # step-side weights of this rank: head-major local slices of the
+        # attention projections (shard 0's on a probe engine)
+        self._tp_layers = (tp_lib.rank_layers(
+            model, tp, self._link.rank if self.tp_spmd else 0,
+            self._mlp_sharded) if tp > 1 else None)
+        # (decode, prefill) attention by pool kind: False = fp, True = int8;
+        # a tp rank runs them on its pool's H/tp heads
+        if attn_impl not in ("kernel", "plain"):
+            raise ValueError(f"attn_impl must be 'kernel' or 'plain', "
+                             f"got {attn_impl!r}")
         if attn_impl == "kernel":
             self._attn = {
                 False: (PA.ragged_paged_decode_attention,
                         PA.ragged_paged_prefill_attention),
                 True: (PA.ragged_paged_decode_int8_attention,
                        PA.ragged_paged_prefill_int8_attention)}
-        elif attn_impl == "plain":
+        else:
             self._attn = {
                 False: (PA.paged_decode_plain, PA.paged_prefill_plain),
                 True: (PA.paged_decode_int8_plain,
                        PA.paged_prefill_int8_plain)}
-        else:
-            raise ValueError(f"attn_impl must be 'kernel' or 'plain', "
-                             f"got {attn_impl!r}")
-        cfg = model.cfg
         self.model = model
         self.draft_model = draft_model
         self.speculative = draft_model is not None
@@ -312,14 +413,19 @@ class ServingEngine:
             # every slot full, +1 null page — callers can size DOWN to
             # bet on early EOS (that is the paging win)
             num_pages = num_slots * max_pages_per_slot + 1
-        self.cache = PagedKVCache(PagedCacheConfig(
-            num_layers=cfg.num_layers, num_heads=cfg.num_heads,
+        # a probe engine's pool holds one shard's heads; a tp engine's
+        # pool is shaped for all heads and holds this rank's H/tp
+        cache_cfg = PagedCacheConfig(
+            num_layers=cfg.num_layers,
+            num_heads=self._tp_heads if self.tp_probe else cfg.num_heads,
             head_dim=cfg.hidden_size // cfg.num_heads,
             num_slots=num_slots, page_size=page_size, num_pages=num_pages,
             max_pages_per_slot=max_pages_per_slot,
             dtype=cache_dtype or model.wte.weight.dtype,
-            share_prefix=prefix_sharing), device=self.device,
-            host_spill_pages=host_spill_pages)
+            share_prefix=prefix_sharing)
+        self.cache = PagedKVCache(cache_cfg, device=self.device,
+                                  host_spill_pages=host_spill_pages,
+                                  mesh=self.mesh)
         self.quantized = self.cache.config.quantized
         self.draft_cache = None
         if self.speculative:
@@ -369,6 +475,20 @@ class ServingEngine:
             "engine", anatomy=self.anatomy, registry=self._reg,
             tracer=self.tracer)
         self._anat_steps = 0
+        if anatomy_probe_every is not None and anatomy_probe_every < 0:
+            raise ValueError("anatomy_probe_every must be >= 0")
+        # collective-exposed sampling: every N decode rounds rank 0 of a
+        # tp engine re-runs the same decode shapes through a twin with
+        # the collectives elided (one shard's work on a zero pool); the
+        # wall delta is the exposed collective time
+        self.anatomy_probe_every = (
+            (64 if anatomy_probe_every is None else anatomy_probe_every)
+            if self.tp_spmd else 0)
+        self._decode_rounds = 0
+        self._probe_cache = None
+        if self.anatomy_probe_every and self._lead:
+            self._probe_cache = PagedKVCache(cache_cfg, device=self.device,
+                                             mesh=self.mesh)
         # finished-request store for result(); pop-on-read + bounded
         self._results: "OrderedDict[int, np.ndarray]" = OrderedDict()
         self._rejects: "OrderedDict[int, Reject]" = OrderedDict()
@@ -515,6 +635,119 @@ class ServingEngine:
         bounded."""
         return self._stats.pop(rid, None)
 
+    # -- tensor parallelism: rank 0 leads --------------------------------
+
+    def _feeds_flat(self, sig, feeds) -> np.ndarray:
+        """A call's int32 host inputs in its bucket's layout order (the
+        payload a follower splits back)."""
+        layout, _ = self._bucket_spec(sig)
+        parts = []
+        for ent in layout:
+            if len(ent) != 2:
+                continue
+            name, shape = ent
+            a = feeds.get(name)
+            parts.append(np.zeros(int(np.prod(shape)), np.int32) if a is None
+                         else np.asarray(a, np.int32).reshape(-1))
+        return np.concatenate(parts) if parts else np.zeros(0, np.int32)
+
+    def _feeds_of(self, sig, flat: np.ndarray) -> Dict[str, np.ndarray]:
+        layout, _ = self._bucket_spec(sig)
+        out, at = {}, 0
+        for ent in layout:
+            if len(ent) != 2:
+                continue
+            name, shape = ent
+            k = int(np.prod(shape))
+            out[name] = flat[at:at + k].reshape(shape)
+            at += k
+        return out
+
+    def _tp_guard(self, fn, *args):
+        """Run a device call of a tp engine's rank 0: when it fails and a
+        follower left its traceback in the store, re-raise that as a
+        :class:`~paddle_tpu_torch.serving.tp.TpFollowerError`. A follower
+        makes no call of its own: rank 0's come to it in :meth:`follow`."""
+        if not self._lead:
+            raise RuntimeError("a follower rank of a tp engine makes the "
+                               "calls rank 0 broadcasts (follow()); serve "
+                               "through rank 0's engine")
+        try:
+            return fn(*args)
+        except Exception as e:
+            text = self._link.follower_error()
+            if text is not None:
+                raise tp_lib.TpFollowerError(
+                    f"a follower rank failed:\n{text}") from e
+            raise
+
+    def _call(self, sig, feeds, device_feeds=None):
+        """One device call of ``sig`` (:meth:`StepGraphs.run`); rank 0 of
+        a tp engine first broadcasts it to the followers."""
+        if self._link is None:
+            return self.graphs.run(sig, feeds, device_feeds)
+
+        def run():
+            self._link.send_run(sig, self._feeds_flat(sig, feeds))
+            return self.graphs.run(sig, feeds, device_feeds)
+        return self._tp_guard(run)
+
+    def _build(self, sig):
+        if self._link is None or sig[0] == "decode_probe":
+            return self.graphs.build(sig)
+
+        def build():
+            self._link.send_build(sig)
+            return self.graphs.build(sig)
+        return self._tp_guard(build)
+
+    def follow(self):
+        """Serve as a follower rank (1 to tp-1) of a tp engine: make every
+        device call rank 0 broadcasts, on this rank's heads, until rank
+        0's :meth:`close`. A failure here leaves the traceback for rank 0
+        (whose pending collective fails when this process exits, or at the
+        group's timeout, and re-raises it) and re-raises."""
+        if self._link is None or self._lead:
+            raise RuntimeError("follow() runs on ranks 1..tp-1 of a "
+                               "tensor-parallel engine")
+        link = self._link
+        try:
+            while True:
+                op, sig, payload = link.recv()
+                if op == tp_lib.OP_STOP:
+                    return
+                if op == tp_lib.OP_BUILD:
+                    self.graphs.build(sig)
+                elif op == tp_lib.OP_RUN:
+                    self.graphs.run(sig, self._feeds_of(sig, payload))
+                elif op == tp_lib.OP_READ:
+                    link.give_pages(self._read_pages_local(payload))
+                elif op == tp_lib.OP_WRITE:
+                    like = [self._page_like()] * len(payload)
+                    self._write_pages_local(zip(
+                        payload.tolist(), link.take_pages(like)))
+                else:
+                    raise RuntimeError(f"unknown tp operation {op}")
+        except BaseException:
+            link.report(traceback.format_exc())
+            raise
+
+    def close(self):
+        """Rank 0 of a tp engine: stop the followers' :meth:`follow`
+        loops (once). A no-op on other engines."""
+        if self._link is not None and self._lead:
+            self._link.send_stop()
+
+    def _page_like(self) -> tuple:
+        """Empty host arrays shaped as this rank's slice of one page (K/V
+        bits, and the scale rows of an int8 pool)."""
+        c = self.cache.config
+        shape = (2, c.num_layers, c.page_size, self.cache.local_heads,
+                 c.head_dim)
+        kv = np.empty(shape, _HOST_DTYPES[c.dtype])
+        return (kv, np.empty(shape[:3], np.float32)) if self.quantized \
+            else (kv,)
+
     def _refresh_health(self):
         """Recompute the health snapshot from the live scheduler and
         cache books; called from the engine's own thread at consistent
@@ -528,10 +761,10 @@ class ServingEngine:
             "requests_in_flight": len(self.scheduler.active_slots()),
             "steps": int(self._reg.counter(
                 "serving_steps_total").value()),
-            # one card, no tensor parallelism
-            "tp": 1,
-            "mesh_devices": 1,
-            "tp_probe": False,
+            # the mesh shape: a tp replica counts tp chips
+            "tp": self.tp,
+            "mesh_devices": self.tp if self.tp_spmd else 1,
+            "tp_probe": self.tp_probe,
             "tier": self.tier,
             "prefix_gen": int(self.cache.prefix_gen),
         }
@@ -735,10 +968,11 @@ class ServingEngine:
         w = self._pow2_width(max(
             self.cache.config.pages_for(
                 int(self.cache.lengths[i]) + n) for i in dslots))
+        feeds = dict(block_tables=self.cache.block_tables[:, :w],
+                     lengths=self.cache.lengths, tokens=tokens,
+                     active=active)
         t0 = time.monotonic()
-        out = self.graphs.run(("decode", w), dict(
-            block_tables=self.cache.block_tables[:, :w],
-            lengths=self.cache.lengths, tokens=tokens, active=active))
+        out = self._call(("decode", w), feeds)
         out = out.cpu().numpy()                   # (S, decode_block)
         t1 = time.monotonic()
         self._reg.histogram(
@@ -746,6 +980,16 @@ class ServingEngine:
             "wall time per decode block (sync included)").observe(t1 - t0)
         self.anatomy.add_phase("decode", t0, t1)
         self._note_busy((("decode", w),), t1 - t0)
+        self._decode_rounds += 1
+        if self._probe_cache is not None and \
+                self._decode_rounds % self.anatomy_probe_every == 0:
+            # collective-exposed sample: the same decode shapes through
+            # the collectives-elided twin (a warmed ("decode_probe", w)
+            # bucket: sampling builds nothing after warmup)
+            p0 = time.monotonic()
+            self.graphs.run(("decode_probe", w), feeds).cpu()
+            p1 = time.monotonic()
+            self.anatomy.set_collective(t1 - t0, p1 - p0)
         tr_on = self.tracer.enabled
         kept = 0
         for i in dslots:
@@ -1018,8 +1262,8 @@ class ServingEngine:
                 if pc is not None:
                     # copy-on-write of a borrowed tail page, owed before
                     # this slot's first write lands in it
-                    self.graphs.run(("copy_page",),
-                                    {"src": pc[0], "dst": pc[1]})
+                    self._call(("copy_page",),
+                               {"src": pc[0], "dst": pc[1]})
                     self.cache.copy_done(i)
                     self._reg.counter(
                         "serving_prefix_cow_total",
@@ -1045,7 +1289,7 @@ class ServingEngine:
                 cfgc.pages_for(int(starts[j]) + int(nv[j]))
                 for j in range(len(pslots))))
             t0 = time.monotonic()
-            nxt = self.graphs.run(("prefill", w, sb), dict(
+            nxt = self._call(("prefill", w, sb), dict(
                 block_tables=bt_rows[:, :w], starts=starts, tokens=tokens,
                 n_valid=nv))
             if self.speculative:
@@ -1137,7 +1381,9 @@ class ServingEngine:
         ``("page_write",)`` (a page id is a device scalar: one signature
         each covers every page); a speculative engine swaps the decode
         buckets for ``("draft", width)`` and ``("verify", width)`` and
-        adds the draft's ``("draft_prefill", width, lanes)`` twins.
+        adds the draft's ``("draft_prefill", width, lanes)`` twins; a tp
+        engine that samples its collectives adds ``("decode_probe",
+        width)`` after each decode bucket (built on rank 0 only).
         Derived from the warmup-side doubling loops and filtered by tier
         (:meth:`_tier_sig`); it covers :meth:`reachable_signatures`,
         which makes zero captures after warmup a property of the plan."""
@@ -1162,6 +1408,10 @@ class ServingEngine:
                 plan.append(("verify", w))
             else:
                 plan.append(("decode", w))
+                if self.anatomy_probe_every:
+                    # the collective probe's twin samples the same width
+                    # buckets: warmed, sampling builds nothing later
+                    plan.append(("decode_probe", w))
             for sb in counts:
                 plan.append(("prefill", w, sb))
                 if self.speculative:
@@ -1176,7 +1426,7 @@ class ServingEngine:
         bucket, a decode engine no prefill bucket. Page IO and the CoW
         copy stay on both: a handoff reads pages on the prefill side and
         writes them on the decode side."""
-        if self.tier == "prefill" and sig[0] == "decode":
+        if self.tier == "prefill" and sig[0] in ("decode", "decode_probe"):
             return False
         if self.tier == "decode" and sig[0] == "prefill":
             return False
@@ -1202,6 +1452,8 @@ class ServingEngine:
                      for w in widths for sb in counts}
         else:
             sigs = {("decode", w) for w in widths}
+            if self.anatomy_probe_every:
+                sigs |= {("decode_probe", w) for w in widths}
         sigs |= {("prefill", w, sb) for w in widths for sb in counts}
         sigs |= {("copy_page",), ("page_read",), ("page_write",)}
         return {sig for sig in sigs if self._tier_sig(sig)}
@@ -1218,13 +1470,17 @@ class ServingEngine:
         into :attr:`bucket_costs`, which the flops headroom reads, and
         publishes ``serving_bucket_cost_flops`` /
         ``serving_bucket_cost_peak_hbm_bytes`` gauges (labels: phase,
-        width, lanes)."""
+        width, lanes). On a tp engine rank 0 warms up (each build is
+        broadcast to the followers); a follower refuses."""
+        if not self._lead:
+            raise RuntimeError("a follower rank builds what rank 0's "
+                               "warmup() broadcasts (follow())")
         self.warmed_signatures = set()
         self.bucket_costs = {}
         for sig in self.warmup_plan():
             if cost_gauges:
                 self._bucket_cost_gauges(sig)
-            self.graphs.build(sig)
+            self._build(sig)
             self.warmed_signatures.add(sig)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -1275,13 +1531,37 @@ class ServingEngine:
         return ent
 
     def _read_pages(self, pids) -> List[tuple]:
-        """Host copies of pages ``pids``: one ``("page_read",)`` call per
-        page, its static output copied at once into a pinned staging
-        buffer (stream order keeps the copy ahead of the next call's
-        overwrite); while the card copies one page the host copies the
-        previous one out of its buffer, after that copy's event. Returns
-        per page ``(kv,)`` or ``(kv, scales)`` numpy arrays of their
-        own."""
+        """Host copies of pages ``pids`` (:meth:`_read_pages_local`); on a
+        tp engine's rank 0, every rank's head slice gathered and joined
+        into whole pages."""
+        if self._link is None:
+            return self._read_pages_local(pids)
+        return self._tp_guard(self._link.read_pages, [int(p) for p in pids],
+                              self._read_pages_local)
+
+    def _write_pages(self, items):
+        """Write ``(pid, payload)`` host pages (:meth:`_write_pages_local`);
+        on a tp engine's rank 0, each rank gets its head slice of every
+        page."""
+        if self._link is None:
+            return self._write_pages_local(items)
+        items = list(items)
+        pids = [int(pid) for pid, _ in items]
+
+        def write():
+            mine = self._link.write_pages(pids, [a for _, a in items],
+                                          self.cache.local_heads)
+            self._write_pages_local(zip(pids, mine))
+        return self._tp_guard(write)
+
+    def _read_pages_local(self, pids) -> List[tuple]:
+        """Host copies of this rank's pages ``pids``: one
+        ``("page_read",)`` call per page, its static output copied at
+        once into a pinned staging buffer (stream order keeps the copy
+        ahead of the next call's overwrite); while the card copies one
+        page the host copies the previous one out of its buffer, after
+        that copy's event. Returns per page ``(kv,)`` or ``(kv,
+        scales)`` numpy arrays of their own."""
         out, prev = [], None
         for k, pid in enumerate(pids):
             res = self.graphs.run(("page_read",), {"src": int(pid)})
@@ -1304,16 +1584,17 @@ class ServingEngine:
             out.append(tuple(_host_array(b).copy() for b in prev[0]))
         return out
 
-    def _write_pages(self, items):
-        """Write ``(pid, payload)`` host pages (``(kv,)`` or ``(kv,
-        scales)``, as :meth:`_read_pages` returns them) through one
-        ``("page_write",)`` call each. On the card the host copies a page
+    def _write_pages_local(self, items):
+        """Write ``(pid, payload)`` host pages of this rank (``(kv,)`` or
+        ``(kv, scales)``, as :meth:`_read_pages_local` returns them)
+        through one ``("page_write",)`` call each. On the card the host copies a page
         into a pinned staging buffer (after that buffer's last copy),
         from which it goes to the call's static input asynchronously, so
         the host prepares one page while the card writes the previous
         one. Bits move as they are: nothing converts values."""
         c = self.cache.config
-        shape = (2, c.num_layers, c.page_size, c.num_heads, c.head_dim)
+        shape = (2, c.num_layers, c.page_size, self.cache.local_heads,
+                 c.head_dim)
         bits = torch.int16 if c.dtype == torch.bfloat16 else c.dtype
         for k, (pid, arrays) in enumerate(items):
             if self.device.type == "cuda":
@@ -1333,19 +1614,36 @@ class ServingEngine:
         c = self.cache.config
         return {"num_layers": c.num_layers, "num_heads": c.num_heads,
                 "head_dim": c.head_dim, "page_size": c.page_size,
-                "dtype": _dtype_name(c.dtype), "tp": 1}
+                "dtype": _dtype_name(c.dtype), "tp": self._tp_shards}
 
-    def _shard(self, payload):
-        """A page's host arrays as a transfer shard: the K/V array, or
-        ``(kv, scales)`` on an int8 pool."""
-        return (payload[0], payload[1]) if self.quantized else payload[0]
+    @property
+    def _tp_shards(self) -> int:
+        """Transfer shards per page: one per tp rank of a tp engine."""
+        return self.tp if self.tp_spmd else 1
 
-    def _payload(self, shard) -> tuple:
-        """The inverse of :meth:`_shard`."""
-        return tuple(shard) if self.quantized else (shard,)
+    def _shards(self, payload) -> list:
+        """A whole page's host arrays as its transfer shards, one per tp
+        shard in mesh order: the K/V head slice, or ``(kv, scales)`` on
+        an int8 pool (the scale rows whole in each)."""
+        hl = self.cache.config.num_heads // self._tp_shards
+        kv = payload[0]
+        out = []
+        for t in range(self._tp_shards):
+            kv_t = kv[..., t * hl:(t + 1) * hl, :] if self._tp_shards > 1 \
+                else kv
+            out.append((kv_t, payload[1]) if self.quantized else kv_t)
+        return out
 
-    def _shard_record(self, index: int, shard) -> Dict[str, object]:
-        return {"index": index, "tp_shard": 0,
+    def _payload(self, shards) -> tuple:
+        """The inverse of :meth:`_shards`: the page's K/V joined on the
+        head axis in shard order (and the first shard's scale rows)."""
+        parts = [tuple(sh) if self.quantized else (sh,) for sh in shards]
+        kv = (np.concatenate([np.asarray(p[0]) for p in parts], axis=3)
+              if len(parts) > 1 else parts[0][0])
+        return (kv,) + parts[0][1:]
+
+    def _shard_record(self, index: int, t: int, shard) -> Dict[str, object]:
+        return {"index": index, "tp_shard": t,
                 "sha256": self._shard_digest(shard),
                 "bytes": self._shard_bytes(shard)}
 
@@ -1366,8 +1664,10 @@ class ServingEngine:
         """A shard's arrays must have this pool's page layout and host
         dtype (bf16 pages as uint16 bits): nothing converts values."""
         c = self.cache.config
-        kv, sc = (self._payload(shard) + (None,))[:2]
-        want = (2, c.num_layers, c.page_size, c.num_heads, c.head_dim)
+        kv, sc = ((tuple(shard) if self.quantized else (shard,))
+                  + (None,))[:2]
+        want = (2, c.num_layers, c.page_size,
+                c.num_heads // self._tp_shards, c.head_dim)
         kv = np.asarray(kv)
         if kv.shape != want or kv.dtype != _HOST_DTYPES[c.dtype]:
             raise SlotMigrationError(
@@ -1429,8 +1729,8 @@ class ServingEngine:
     def snapshot_slot(self, slot: int) -> Dict[str, object]:
         """Portable snapshot of one in-flight request: its request and
         slot bookkeeping plus its live KV pages, one sha256-digested shard
-        per page (an int8 shard carries the page's scale rows under the
-        same hash). Mutates nothing: pair with :meth:`release_slot` to
+        per (page, tp shard) (an int8 shard carries the page's scale rows
+        under the same hash). Mutates nothing: pair with :meth:`release_slot` to
         drain the slot. A pending copy-on-write tail reads through to its
         source page, so the snapshot carries the logical content."""
         if self.speculative:
@@ -1449,9 +1749,12 @@ class ServingEngine:
         if pc is not None:
             src, dst = pc
             pids = [src if p == dst else p for p in pids]
-        shards = [self._shard(payload) for payload in self._read_pages(pids)]
-        manifest = [self._shard_record(k, shard)
-                    for k, shard in enumerate(shards)]
+        shards, manifest = [], []
+        for k, payload in enumerate(self._read_pages(pids)):
+            # one sha256 shard per (page, tp shard), in mesh-shard order
+            for t, shard in enumerate(self._shards(payload)):
+                shards.append(shard)
+                manifest.append(self._shard_record(k, t, shard))
         root = self._req_spans.get(req.rid)
         trace_id = (root.trace_id if root is not None
                     else self._ext_trace.get(req.rid, 0))
@@ -1609,11 +1912,12 @@ class ServingEngine:
         # entries (0) and overwrite the null page every slot gathers from
         length = int(stt["length"])
         n_live = cfgc.pages_for(length) if length > 0 else 0
-        if length < 0 or length > total or len(shards) != n_live:
+        per = self._tp_shards
+        if length < 0 or length > total or len(shards) != n_live * per:
             raise SlotMigrationError(
-                f"{len(shards)} shards for {length} live tokens of a "
-                f"{total}-token reservation: snapshot state inconsistent, "
-                "refusing to restore")
+                f"{len(shards)} shards for {length} live tokens ({per} "
+                f"per page) of a {total}-token reservation: snapshot "
+                "state inconsistent, refusing to restore")
         if self.tier == "decode" and \
                 int(stt["prefilled"]) < int(prompt.shape[0]):
             raise SlotMigrationError(
@@ -1626,8 +1930,10 @@ class ServingEngine:
         slot = free[0]
         # no prompt: never map shared pages, the restore writes them all
         self.cache.reserve(slot, total)
-        self._write_pages(zip(self.cache.block_tables[slot, :n_live],
-                              map(self._payload, shards)))
+        self._write_pages(zip(
+            self.cache.block_tables[slot, :n_live],
+            (self._payload(shards[k * per:(k + 1) * per])
+             for k in range(n_live))))
         self.cache.lengths[slot] = length
         rid = next(self.scheduler._ids)     # a fresh local rid
         req = Request(rid, prompt, int(rq["max_new_tokens"]),
@@ -1703,12 +2009,13 @@ class ServingEngine:
                 tokens, payload = hit[2], next(read)
             else:
                 tokens, payload = hit[1].tokens, hit[1].payload
-            shard = self._shard(payload)
-            rec = self._shard_record(len(pages), shard)
-            total_bytes += rec["bytes"]
+            shards = self._shards(payload)
+            recs = [self._shard_record(len(pages), t, shard)
+                    for t, shard in enumerate(shards)]
+            total_bytes += sum(r["bytes"] for r in recs)
             pages.append({"key": key,
                           "tokens": np.asarray(tokens, np.int32),
-                          "shards": [shard], "manifest": [rec]})
+                          "shards": shards, "manifest": recs})
         self._reg.counter(
             "serving_prefix_exported_pages_total",
             "published prefix pages exported to peers").inc(len(pages))
@@ -1750,16 +2057,19 @@ class ServingEngine:
                     "refusing to install unprovable pages")
             prev = key
             shards, manifest = page["shards"], page["manifest"]
-            if len(shards) != 1 or len(manifest) != 1:
+            per = self._tp_shards
+            if len(shards) != per or len(manifest) != per:
                 raise SlotMigrationError(
-                    f"{len(shards)} shards for a 1-shard page: refusing")
-            digest = self._shard_digest(shards[0])
-            if digest != manifest[0]["sha256"]:
-                raise SlotMigrationError(
-                    f"prefix shard sha256 mismatch ({digest[:12]}... != "
-                    f"{manifest[0]['sha256'][:12]}...): refusing to "
-                    "install a corrupt page")
-            self._check_shard(shards[0], f"prefix page {key}")
+                    f"{len(shards)} shards for a {per}-shard page: "
+                    "refusing")
+            for shard, rec in zip(shards, manifest):
+                digest = self._shard_digest(shard)
+                if digest != rec["sha256"]:
+                    raise SlotMigrationError(
+                        f"prefix shard sha256 mismatch ({digest[:12]}... "
+                        f"!= {rec['sha256'][:12]}...): refusing to "
+                        "install a corrupt page")
+                self._check_shard(shard, f"prefix page {key}")
         held = self.cache.advertised_digests()
         install = [p for p in pages if int(p["key"]) not in held]
         if not install:
@@ -1769,9 +2079,10 @@ class ServingEngine:
                 f"no idle page capacity for {len(install)} fetched "
                 "prefix pages")
         self._write_pages([(self.cache.adopt_published_page(
-            int(p["key"]), p["tokens"]), self._payload(p["shards"][0]))
+            int(p["key"]), p["tokens"]), self._payload(p["shards"]))
             for p in install])
-        nbytes = sum(int(p["manifest"][0]["bytes"]) for p in install)
+        nbytes = sum(int(r["bytes"]) for p in install
+                     for r in p["manifest"])
         self._reg.counter(
             "serving_prefix_fetched_pages_total",
             "prefix pages installed from peers").inc(len(install))
@@ -1804,8 +2115,8 @@ class ServingEngine:
         if kind == "page_write":
             c = self.cache.config
             layout = (("dst", (1,)),
-                      ("kv", (2, c.num_layers, c.page_size, c.num_heads,
-                              c.head_dim), c.dtype))
+                      ("kv", (2, c.num_layers, c.page_size,
+                              self.cache.local_heads, c.head_dim), c.dtype))
             if self.quantized:
                 layout += (("sc", (2, c.num_layers, c.page_size),
                             torch.float32),)
@@ -1817,6 +2128,12 @@ class ServingEngine:
             return layout + (("active", (s_tot,)),), functools.partial(
                 self._decode_loop, self.model, self.cache,
                 n_steps=self.decode_block)
+        if kind == "decode_probe":
+            # the decode step's twin: one shard's local work on a zero
+            # pool with the collectives elided
+            return layout + (("active", (s_tot,)),), functools.partial(
+                self._decode_loop, self.model, self._probe_cache,
+                n_steps=self.decode_block, collectives=False)
         if kind == "draft":
             return layout + (("active", (s_tot,)), ("n_valid", (s_tot,))), \
                 functools.partial(self._decode_loop, self.draft_model,
@@ -1826,28 +2143,94 @@ class ServingEngine:
                              ("n_valid", (s_tot,))), self._verify
         raise ValueError(f"unknown bucket signature {sig!r}")
 
-    @staticmethod
-    def _write_kv(layer, quantized, page_idx, off, k, v, axes):
+    def _write_kv(self, layer, quantized, page_idx, off, k, v, axes,
+                  group=None):
         """Land token K/V ``(..., H, Dh)`` in one layer's pages at
         ``[page_idx, off]`` in place; an int8 pool stores
-        :func:`quantize_kv` rows (per token over ``axes``) and their
-        scales. Duplicate targets only ever hit the null page."""
+        :func:`quantize_kv` rows (per token over ``axes``, the abs-max
+        completed over the tp ``group``) and their scales. Duplicate
+        targets only ever hit the null page."""
         if quantized:
             kp, vp, ksc, vsc = layer
-            kq, k_s = quantize_kv(k, axes)
-            vq, v_s = quantize_kv(v, axes)
-            kp[page_idx, off] = kq
-            vp[page_idx, off] = vq
-            ksc[page_idx, off] = k_s
-            vsc[page_idx, off] = v_s
+            # K and V stacked: one MAX all-reduce of their abs-max rows
+            kvq, kv_s = quantize_kv(torch.stack((k, v)),
+                                    tuple(a + 1 for a in axes), group)
+            if group is not None:
+                self.tp_all_reduces["kv_amax"] += 1
+            kp[page_idx, off] = kvq[0]
+            vp[page_idx, off] = kvq[1]
+            ksc[page_idx, off] = kv_s[0]
+            vsc[page_idx, off] = kv_s[1]
         else:
             kp, vp = layer
             kp[page_idx, off] = k.to(kp.dtype)
             vp[page_idx, off] = v.to(vp.dtype)
 
+    # -- the per-layer pieces, tp=1 or this rank's shard ------------------
+
+    def _group(self, model, collectives: bool):
+        """The device group a step's all-reduces run on: the tp group of
+        the target model, None for tp=1, the probe twin and the draft."""
+        if model is self.model and self.tp_spmd and collectives:
+            return self._link.dev_group
+        return None
+
+    def _qkv(self, model, i: int, h):
+        """q, k, v heads ``(S, H', C, Dh)`` of layer ``i`` from ``h``
+        ``(S, C, D)``: all heads at tp=1, this rank's ``H/tp`` under tp
+        (the column-split half of the Megatron split)."""
+        if model is not self.model or self._tp_layers is None:
+            return model.blocks[i].attn.qkv_heads(h)
+        lay = self._tp_layers[i]
+        y = h @ lay["qkv_w"]
+        if "qkv_b" in lay:
+            y = y + lay["qkv_b"]
+        s, c = y.shape[:2]
+        y = y.reshape(s, c, 3, self._tp_heads, -1).permute(2, 0, 3, 1, 4)
+        return y[0], y[1], y[2]
+
+    def _proj(self, model, i: int, att, group):
+        """The output projection of layer ``i`` from heads ``(S, H', C,
+        Dh)`` to ``(S, C, D)``; under tp this rank's row-split partial
+        product, summed over the tp ``group`` (the one attention-output
+        all-reduce) before the bias is added once."""
+        if model is not self.model or self._tp_layers is None:
+            return model.blocks[i].attn.proj_out(att)
+        lay = self._tp_layers[i]
+        s, h, c, dh = att.shape
+        part = att.transpose(1, 2).reshape(s, c, h * dh) @ lay["out_w"]
+        if group is not None:
+            part = self._all_reduce(part, group, "attn_out")
+        return part + lay["out_b"] if "out_b" in lay else part
+
+    def _all_reduce(self, part, group, site: str):
+        """The sum of every rank's ``part`` over the tp ``group``, in
+        fp32 (bf16 partial products are summed in fp32 and rounded
+        once)."""
+        buf = part if part.dtype == torch.float32 else part.float()
+        collective.group_all_reduce(buf, group)
+        self.tp_all_reduces[site] += 1
+        return buf if buf is part else buf.to(part.dtype)
+
+    def _mlp(self, model, i: int, x, group):
+        """The MLP of layer ``i`` on ``x`` (its ln2 included): replicated,
+        or on a prefill tier under tp the Megatron split (fc1 by columns,
+        fc2 by rows, closed by the layer's second all-reduce, the fc2 bias
+        added once after it)."""
+        block = model.blocks[i]
+        if model is not self.model or not self._mlp_sharded:
+            return block.mlp(block.ln2(x))
+        lay = self._tp_layers[i]
+        h = block.mlp.act(block.ln2(x) @ lay["fc1_w"] + lay["fc1_b"])
+        part = h @ lay["fc2_w"]
+        if group is not None:
+            part = self._all_reduce(part, group, "mlp")
+        return part + lay["fc2_b"]
+
     @torch.no_grad()
     def _decode_loop(self, model, cache, block_tables, lengths, tokens,
-                     active, n_steps: int, n_valid=None):
+                     active, n_steps: int, n_valid=None,
+                     collectives: bool = True):
         """The greedy token loop behind the decode block and the draft's
         proposals: ``n_steps`` iterations, each entering every slot's
         current token at position ``lengths[s]``, writing its K/V into
@@ -1859,9 +2242,14 @@ class ServingEngine:
         n_valid[s]`` when ``n_valid`` is given (a draft chunk capped below
         ``n_steps`` must not write past the slot's reservation);
         post-EOS/post-cap lanes produce discarded tokens (the host keeps
-        only in-budget, pre-EOS ones). Inputs are int32. Returns
-        (S, n_steps) int32 tokens on the device."""
+        only in-budget, pre-EOS ones). Under tp the body is this rank's:
+        its heads' qkv, K/V into its pool slice, attention over its
+        heads, and the row-split output projection closed by one
+        all-reduce per layer (``collectives=False``, the probe twin,
+        elides it). Inputs are int32. Returns (S, n_steps) int32 tokens
+        on the device."""
         cfg = model.cfg
+        group = self._group(model, collectives)
         tokens = tokens.long()
         active = active != 0
         ps = cache.config.page_size
@@ -1884,16 +2272,16 @@ class ServingEngine:
             off = (lengths % ps).long()
             attend_len = lengths + 1
             for i, block in enumerate(model.blocks):
-                q, k, v = block.attn.qkv_heads(block.ln1(x))  # (S,H,1,Dh)
+                q, k, v = self._qkv(model, i, block.ln1(x))   # (S,H,1,Dh)
                 # in-place page writes stand in for the reference's
                 # donated page buffers
                 layer = cache.pages[i]
                 self._write_kv(layer, quantized, page_idx, off,
-                               k[:, :, 0, :], v[:, :, 0, :], (1, 2))
+                               k[:, :, 0, :], v[:, :, 0, :], (1, 2), group)
                 att = decode_attn(q[:, :, 0, :].contiguous(), *layer,
                                   block_tables, attend_len)   # (S,H,Dh)
-                x = x + block.attn.proj_out(att[:, :, None, :])
-                x = x + block.mlp(block.ln2(x))
+                x = x + self._proj(model, i, att[:, :, None, :], group)
+                x = x + self._mlp(model, i, x, group)
             x = model.ln_f(x)
             nxt = (x[:, 0] @ model.wte.weight.T).argmax(-1)
             out[:, j] = nxt.to(torch.int32)
@@ -1916,6 +2304,7 @@ class ServingEngine:
         position, (S, C) (the verifier's per-candidate target tokens).
         Inputs are int32."""
         cfg = model.cfg
+        group = self._group(model, True)
         tokens = tokens.long()
         ps = cache.config.page_size
         quantized = cache.config.quantized
@@ -1933,14 +2322,15 @@ class ServingEngine:
             valid, bt[slot_ids, (positions // ps).clamp(max=w - 1)], 0)
         off = positions % ps
         for i, block in enumerate(model.blocks):
-            q, k, v = block.attn.qkv_heads(block.ln1(x))      # (S,H,C,Dh)
+            q, k, v = self._qkv(model, i, block.ln1(x))      # (S,H,C,Dh)
             layer = cache.pages[i]
             self._write_kv(layer, quantized, page_idx, off,
-                           k.transpose(1, 2), v.transpose(1, 2), (2, 3))
+                           k.transpose(1, 2), v.transpose(1, 2), (2, 3),
+                           group)
             att = prefill_attn(q.transpose(1, 2).contiguous(), *layer,
                                block_tables, starts, n_valid)  # (S,C,H,Dh)
-            x = x + block.attn.proj_out(att.transpose(1, 2))
-            x = x + block.mlp(block.ln2(x))
+            x = x + self._proj(model, i, att.transpose(1, 2), group)
+            x = x + self._mlp(model, i, x, group)
         x = model.ln_f(x)
         if all_positions:
             return (x @ model.wte.weight.T).argmax(-1).to(torch.int32)

@@ -31,6 +31,12 @@ dense per-row numpy reference. The public functions dispatch on the
 tensors' device: a CUDA tensor launches the kernel or raises, a CPU
 tensor runs the plain version; there is no fallback between the two.
 
+``ragged_paged_*_tp_attention`` — the tensor-parallel entry points
+(registered as :class:`~paddle_tpu_torch.kernels.registry.TpEntry`, no
+kernel of their own): the same four on one rank's ``H/tp`` heads of q and
+of the pool, under a mesh. Heads are independent, so a rank's output is
+the tp=1 kernel's on those heads.
+
 Scale: scores are scaled in fp32 after the dot, in the plain version
 and in the kernel alike (the reference's lax fallback; its Pallas
 wrapper scaled ``q`` in ``q.dtype`` instead).
@@ -756,3 +762,63 @@ def ragged_paged_prefill_int8_attention(q, k_pages, v_pages, k_scales,
     tensors run the plain version."""
     return _dispatch(PREFILL_INT8, q, k_pages, v_pages, k_scales, v_scales,
                      block_tables, chunk_starts, n_valid, scale=scale)
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel entry points: K1-K4 on this rank's head slice
+# ---------------------------------------------------------------------------
+
+def _tp_entry(name, inner_fn):
+    """The ``name`` entry point: ``inner_fn`` on this rank's ``H/tp``
+    heads of ``q`` and of the page pool (block tables, lengths and chunk
+    geometry whole, int8 scale rows whole), under a mesh."""
+    def fn(q, k_pages, v_pages, *rest, scale: Optional[float] = None,
+           mesh=None):
+        from paddle_tpu_torch.core import mesh as mesh_lib
+        if (mesh or mesh_lib.current_mesh()) is None:
+            raise ValueError(f"{name} requires a mesh (pass mesh= or "
+                             "enter mesh_context)")
+        if q.shape[-2] != k_pages.shape[2]:
+            raise ValueError(
+                f"{name}: q holds {q.shape[-2]} heads, the local pool "
+                f"{k_pages.shape[2]}: pass this rank's head slice of both")
+        return inner_fn(q, k_pages, v_pages, *rest, scale=scale)
+    fn.__name__ = name
+    fn.__qualname__ = name
+    return fn
+
+
+def _tp_layout(layout):
+    """An inner layout annotated per argument as the reference's tp
+    contracts write it: the head axis split (``H/tp``), scale rows
+    replicated."""
+    out = {}
+    for k, v in layout.items():
+        if ",H," in v:
+            out[k] = v + " H/tp"
+        elif k.endswith("_scales"):
+            out[k] = v + " replicated"
+        else:
+            out[k] = v
+    return out
+
+
+def _register_tp(name, inner: registry.KernelEntry, public):
+    return registry.register_tp(registry.TpEntry(
+        name=name, inner=inner.name,
+        arg_layouts=_tp_layout(inner.contract.arg_layouts),
+        out_layout=inner.contract.out_layout + " H/tp",
+        fn=_tp_entry(name, public),
+        plain_fn=_tp_entry(name + "_plain", inner.plain_fn)))
+
+
+ragged_paged_decode_tp_attention = _register_tp(
+    "ragged_paged_decode_tp", DECODE, ragged_paged_decode_attention).fn
+ragged_paged_prefill_tp_attention = _register_tp(
+    "ragged_paged_prefill_tp", PREFILL, ragged_paged_prefill_attention).fn
+ragged_paged_decode_int8_tp_attention = _register_tp(
+    "ragged_paged_decode_int8_tp", DECODE_INT8,
+    ragged_paged_decode_int8_attention).fn
+ragged_paged_prefill_int8_tp_attention = _register_tp(
+    "ragged_paged_prefill_int8_tp", PREFILL_INT8,
+    ragged_paged_prefill_int8_attention).fn

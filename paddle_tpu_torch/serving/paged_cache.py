@@ -65,6 +65,8 @@ import numpy as np
 import torch
 
 from paddle_tpu_torch.core.device import resolve_device
+from paddle_tpu_torch.core.mesh import axis_size
+from paddle_tpu_torch.parallel import collective
 
 
 @dataclasses.dataclass
@@ -108,7 +110,7 @@ class PageOverflowError(RuntimeError):
 KV_SCALE_FLOOR = 1e-8
 
 
-def quantize_kv(x: torch.Tensor, reduce_axes: Tuple[int, ...]):
+def quantize_kv(x: torch.Tensor, reduce_axes: Tuple[int, ...], group=None):
     """Symmetric per-token int8 quantization of a K/V slab.
 
     ``x`` carries one K (or V) vector per token over its TRAILING
@@ -119,9 +121,17 @@ def quantize_kv(x: torch.Tensor, reduce_axes: Tuple[int, ...]):
     Per-token scales keep page writes append-stable: a new token never
     requantizes rows already stored, so shared int8 pages stay
     bit-stable under prefix sharing and CoW. ``torch.round`` rounds half
-    to even, as ``jnp.round`` does."""
+    to even, as ``jnp.round`` does.
+
+    ``group`` (tensor parallelism, the reference's ``psum_axis``): each
+    rank holds only its ``H/tp`` heads of ``x``, so the per-token abs-max
+    is completed by a MAX all-reduce over the group before the scale
+    divides; every rank then quantizes its heads with the all-head scale
+    of the tp=1 engine (max is exact: bit-identical for equal inputs)."""
     xf = x.float()
     amax = xf.abs().amax(dim=reduce_axes)
+    if group is not None:
+        collective.group_all_reduce(amax, group, op="max")
     scale = amax.clamp(min=KV_SCALE_FLOOR) / 127.0
     exp = scale.reshape(scale.shape + (1,) * len(reduce_axes))
     q = torch.round(xf / exp).clamp(-127, 127).to(torch.int8)
@@ -278,10 +288,17 @@ class PagedKVCache:
     host spill tier (:class:`HostPagePool`)."""
 
     def __init__(self, config: PagedCacheConfig, device="cuda",
-                 host_spill_pages: int = 0):
+                 host_spill_pages: int = 0, mesh=None):
         self.config = c = config
         self.device = resolve_device(device)
-        shape = (c.num_pages, c.page_size, c.num_heads, c.head_dim)
+        # tp > 1: this rank's pool holds its H/tp heads (the reference
+        # places the pool sharded over "tp" on the head axis); scale rows
+        # are whole, a token's scale covering all heads
+        tp = axis_size(mesh, "tp") if mesh is not None else 1
+        if c.num_heads % tp:
+            raise ValueError(f"tp={tp} must divide num_heads={c.num_heads}")
+        self.local_heads = c.num_heads // tp
+        shape = (c.num_pages, c.page_size, self.local_heads, c.head_dim)
         sshape = (c.num_pages, c.page_size)
 
         def zeros(shp, dtype):

@@ -47,7 +47,7 @@ def test_loss_scale_sequence_matches_reference():
                min_scale=2.0)
     jls = jamp.DynamicLossScale(jamp.LossScaleConfig(**cfg))
     tls = amp.DynamicLossScale(amp.LossScaleConfig(**cfg))
-    js, ts = jls.init(), tls.init()
+    js, ts = jls.init(), tls.init(device="cpu")
     rng = np.random.default_rng(0)
     finite = rng.random(40) < 0.8
     for f in finite:

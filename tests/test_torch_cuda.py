@@ -925,12 +925,12 @@ FLEET_GEOM = dict(num_slots=3, page_size=4, prefill_chunk=8,
                   max_tokens_per_slot=64, decode_block=4)
 
 
-def _fleet_replica(model, dev, name):
+def _fleet_replica(model, dev, name, **kw):
     from paddle_tpu_torch.inference import make_serving_engine
     from paddle_tpu_torch.observability import MetricsRegistry
     from paddle_tpu_torch.serving import fleet
     return fleet.LocalReplica(make_serving_engine(
-        model, device=dev, registry=MetricsRegistry(), **FLEET_GEOM),
+        model, device=dev, registry=MetricsRegistry(), **FLEET_GEOM, **kw),
         name=name)
 
 
@@ -968,6 +968,61 @@ def test_threaded_capture_repeated_in_one_process(dev, repeat):
     graph.replay()
     torch.cuda.synchronize()
     assert float(x.sum()) == 8.0
+
+
+def test_f9_stress_warmups_beside_serving_threads(dev):
+    """Fault F9's stress shape: in rounds, three replicas serve on their
+    own threads, taking a micro-snapshot after every decode block (page
+    reads through pinned staging buffers), while this thread warms four
+    fresh replicas in turn (a pinned input buffer and a capture per
+    signature) and drops each, so pinned blocks and graphs are freed
+    while others are captured. Every pinned allocation and capture must
+    succeed, and every request keeps the tokens of an undisturbed run."""
+    import gc
+    import time
+    model = _fleet_model(dev)
+    prompts = _fleet_prompts(36, seed=11)
+    want = _fleet_replica(model, dev, "ref").warmup().engine.generate_many(
+        prompts, 32)
+    for rnd in range(F9_STRESS_ROUNDS):
+        reps = [_fleet_replica(model, dev, f"s{rnd}.{i}",
+                               snapshot_every_blocks=1).warmup()
+                for i in range(3)]
+        for rep in reps:
+            rep.start()
+        try:
+            rids = [(rep, rep.submit(p, 32))
+                    for rep, p in zip(reps * len(prompts), prompts)]
+            for k in range(4):
+                extra = _fleet_replica(model, dev, f"w{rnd}.{k}").warmup()
+                assert extra.engine.graphs.builds == len(
+                    extra.engine.warmup_plan())
+                del extra
+                gc.collect()
+            got, deadline = {}, time.monotonic() + 120
+            while len(got) < len(rids) and time.monotonic() < deadline:
+                for i, (rep, rid) in enumerate(rids):
+                    if i not in got:
+                        toks = rep.result(rid)
+                        if toks is not None:
+                            got[i] = toks
+                assert not any(r.failed for r in reps), \
+                    (rnd, [r.last_error for r in reps])
+                time.sleep(0.001)
+        finally:
+            for rep in reps:
+                rep.stop()
+        assert len(got) == len(rids), rnd
+        for i, w in enumerate(want):
+            np.testing.assert_array_equal(got[i], w, err_msg=f"round {rnd}")
+        del reps
+        gc.collect()
+        pinned = torch.zeros(64, dtype=torch.int32, pin_memory=True)
+        assert pinned.is_pinned()
+
+
+#: rounds of the F9 stress test in one process
+F9_STRESS_ROUNDS = 6
 
 
 def _threaded_capture_round(dev, seed=0):
@@ -1350,3 +1405,93 @@ def test_remat_under_graphs_equals_the_graphed_step(dev):
     assert runs[0][0] == runs[1][0]
     for a, b in zip(runs[0][1], runs[1][1]):
         assert torch.equal(a, b)
+
+
+# -- tensor parallelism on the card -------------------------------------------
+
+TP_DIMS = dict(vocab_size=128, hidden_size=64, num_layers=2, num_heads=4,
+               ffn_size=128, max_position=128)
+TP_GEOM = dict(num_slots=4, page_size=8, max_tokens_per_slot=64,
+               cuda_graphs=False)
+
+
+@pytest.mark.parametrize("cache_dtype", [None, "int8"], ids=["fp32", "int8"])
+def test_tp2_group_on_one_card_gives_the_tp1_tokens(dev, cache_dtype):
+    """Two ranks on ``cuda:0`` over gloo (rank 0 leads, rank 1 follows):
+    greedy tokens equal a tp=1 engine's on the card, and both ranks ran
+    the paged kernels on their two heads."""
+    import sys
+    sys.path.insert(0, str(__import__("pathlib").Path(__file__).parent))
+    from torch_tp_pool import TpPool
+    from paddle_tpu_torch.inference import make_serving_engine
+    from paddle_tpu_torch.kernels import build
+    from paddle_tpu_torch.models.gpt import GPT, GPTConfig
+    from paddle_tpu_torch.observability import MetricsRegistry
+    build.build_all()           # the ranks load the built libraries
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, 128, n).astype(np.int32)
+               for n in (9, 17, 30, 5, 21)]
+    kw = dict(TP_GEOM, cache_dtype=cache_dtype)
+    pool = TpPool(2)
+    try:
+        res = pool.run("serve", timeout_s=300, params=None, dims=TP_DIMS,
+                       engine_kw=kw, waves=[prompts], device="cuda:0",
+                       report=("launches", "all_reduces"))
+    finally:
+        pool.close()
+    model = GPT(GPTConfig(**TP_DIMS), device=dev, seed=0)
+    eng = make_serving_engine(
+        model, device=dev, registry=MetricsRegistry(),
+        cache_dtype=torch.int8 if cache_dtype else None, **TP_GEOM)
+    want = eng.generate_many(prompts, 16, eos_id=7)
+    for a, b in zip(res[0]["tokens"][0], want):
+        np.testing.assert_array_equal(a, b)
+    names = (("ragged_paged_decode_int8", "ragged_paged_prefill_int8")
+             if cache_dtype else
+             ("ragged_paged_decode", "ragged_paged_prefill"))
+    for r in res:
+        assert all(r["launches"][n] > 0 for n in names), r["launches"]
+        assert r["all_reduces"]["attn_out"] > 0
+
+
+@pytest.mark.parametrize("name", ["ragged_paged_decode_tp",
+                                  "ragged_paged_prefill_tp",
+                                  "ragged_paged_decode_int8_tp",
+                                  "ragged_paged_prefill_int8_tp"])
+def test_tp_entries_on_a_head_slice_match_plain_and_the_full_kernel(dev,
+                                                                    name):
+    """Each tp entry on heads [H/2, H) of q and the pool, on the card: its
+    kernel within the inner kernel's tolerance of the plain version on
+    the slice, and equal to the full-head kernel's output on those
+    heads."""
+    from paddle_tpu_torch.kernels import registry
+    entry = next(e for e in registry.tp_entries() if e.name == name)
+    inner = registry.get(entry.inner)
+    args, kw = inner.sample_inputs(5)
+    args = tuple(a.to(dev) if torch.is_tensor(a) else a for a in args)
+    h = args[0].shape[-2]
+    lo = h // 2
+    sl = (args[0][..., lo:, :].contiguous(),
+          args[1][:, :, lo:].contiguous(), args[2][:, :, lo:].contiguous())
+    mesh = object()
+    got = entry.fn(*sl, *args[3:], mesh=mesh, **kw)
+    plain = entry.plain_fn(*sl, *args[3:], mesh=mesh, **kw)
+    atol, rtol = inner.tolerance[torch.float32]
+    torch.testing.assert_close(got, plain, atol=atol, rtol=rtol)
+    full = inner.cuda_fn(*args, **kw)
+    torch.testing.assert_close(got, full[..., lo:, :], atol=atol, rtol=rtol)
+
+
+def test_a_graphed_tp_engine_is_refused_on_the_card(dev):
+    from paddle_tpu_torch.models.gpt import GPT, GPTConfig
+    from paddle_tpu_torch.serving.engine import ServingEngine
+    model = GPT(GPTConfig(**TP_DIMS), device=dev, seed=0)
+    with pytest.raises(ValueError, match="ROADMAP Queue 1 item 4"):
+        ServingEngine(model, device=dev, tp=2, num_slots=2)
+    # the one-shard probe engine has no collectives: it graphs
+    eng = ServingEngine(model, device=dev, tp=2, tp_probe=True,
+                        num_slots=2, max_tokens_per_slot=32)
+    eng.warmup()
+    assert eng.graphs.graphed
+    assert all(len(t) == 8 for t in eng.generate_many(
+        [np.arange(1, 12, dtype=np.int32)], 8))

@@ -147,8 +147,7 @@ def test_engine_observability_matches_the_reference(target, spec):
         == [(r["step"], r["tokens"], sorted(r["phases"])) for r in jrecs]
     assert obs.validate_anatomy_records(precs) == len(precs) > 0
     assert jax_obs.validate_anatomy_records(precs) == len(precs)
-    assert sorted(eng.anatomy.summary()) == sorted(
-        k for k in ref.anatomy.summary() if k != "probe_samples")
+    assert sorted(eng.anatomy.summary()) == sorted(ref.anatomy.summary())
     # a postmortem bundle passes both validators
     bundle = eng.flight.dump("eject", trace_ids=[1, 2])
     obs.validate_postmortem_bundle(bundle)

@@ -1,0 +1,442 @@
+"""A pool of spawned ranks for the port's multi-rank CPU tests, and the
+cases they run.
+
+``TpPool(n)`` spawns ``n`` processes once (a test module's fixture), each
+joining one gloo process group over ``tcp://127.0.0.1``; ``pool.run(case,
+timeout_s, **kw)`` runs ``case(rank, n, **kw)`` (a function of this
+module) on every rank at once and returns the ranks' results. Each run
+has its own timeout; a rank's traceback or a timeout fails the run and
+the pool restarts for the next one. The ranks import the port and numpy
+only: no jax.
+
+The serving cases build the same engine on every rank; rank 0 drives it
+(``submit``, ``step``, snapshots) and closes it, the others ``follow()``.
+"""
+
+import datetime
+import multiprocessing as mp
+import socket
+import time
+import traceback
+
+import numpy as np
+
+#: each rank's process-group timeout: a rank stuck in a collective fails
+#: within it
+GROUP_TIMEOUT_S = 60
+
+
+def _free_port() -> int:
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def _worker(rank, n, port, conn):
+    import torch
+    import torch.distributed as dist
+    torch.set_num_threads(1)
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+        world_size=n, timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))
+    while True:
+        msg = conn.recv()
+        if msg is None:
+            break
+        name, kw = msg
+        try:
+            conn.send(("ok", globals()[name](rank, n, **kw)))
+        except BaseException:
+            conn.send(("err", traceback.format_exc()))
+            break
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+class TpPool:
+    """``n`` spawned ranks in one gloo group (module docstring)."""
+
+    def __init__(self, n: int):
+        self.n = n
+        self._procs = []
+        self._conns = []
+        self._broken = False
+
+    def _start(self):
+        ctx = mp.get_context("spawn")
+        port = _free_port()
+        for r in range(self.n):
+            parent, child = ctx.Pipe()
+            p = ctx.Process(target=_worker, args=(r, self.n, port, child),
+                            daemon=True)
+            p.start()
+            child.close()
+            self._procs.append(p)
+            self._conns.append(parent)
+
+    def run(self, case: str, timeout_s: float = 60, expect_errors=False,
+            **kw):
+        """``case`` on every rank; returns the ranks' results in rank
+        order. Raises AssertionError with every failing rank's traceback,
+        or on a timeout (the pool is then restarted). With
+        ``expect_errors`` a failing rank's result is its traceback, and
+        only a timeout raises."""
+        if not self._procs:
+            self._start()
+        for c in self._conns:
+            c.send((case, kw))
+        deadline = time.monotonic() + timeout_s
+        results, errors = [None] * self.n, []
+        for r, c in enumerate(self._conns):
+            left = deadline - time.monotonic()
+            if left <= 0 or not c.poll(left):
+                errors.append(f"rank {r}: no answer within {timeout_s} s")
+                continue
+            try:
+                status, val = c.recv()
+            except (EOFError, OSError):
+                errors.append(f"rank {r}: exited")
+                continue
+            if status == "ok":
+                results[r] = val
+            elif expect_errors:
+                results[r] = val
+                self._broken = True
+            else:
+                errors.append(f"rank {r}:\n{val}")
+        if errors or self._broken:
+            self.close()
+        if errors:
+            raise AssertionError(f"{case} failed:\n" + "\n".join(errors))
+        return results
+
+    def close(self):
+        for c in self._conns:
+            try:
+                c.send(None)
+            except (BrokenPipeError, OSError):
+                pass
+        for p in self._procs:
+            p.join(5)
+            if p.is_alive():
+                p.kill()
+                p.join(5)
+        self._procs, self._conns, self._broken = [], [], False
+
+
+# ---------------------------------------------------------------------------
+# cases: run on every rank
+# ---------------------------------------------------------------------------
+
+def _mesh(n, device_type="cpu", **sizes):
+    from paddle_tpu_torch.core import mesh as mesh_lib
+    return mesh_lib.make_mesh(mesh_lib.MeshConfig(**(sizes or {"tp": n})),
+                              device_type=device_type)
+
+
+def mesh_info(rank, n):
+    from paddle_tpu_torch.core import mesh as mesh_lib
+    m = _mesh(n)
+    out = {"names": tuple(m.mesh_dim_names), "shape": tuple(m.shape),
+           "tp_index": mesh_lib.axis_index(m, "tp"),
+           "sizes": {a: mesh_lib.axis_size(m, a) for a in mesh_lib.ALL_AXES}}
+    try:
+        mesh_lib.make_mesh(mesh_lib.MeshConfig(tp=n + 1), device_type="cpu")
+    except ValueError as e:
+        out["refused"] = str(e)
+    with mesh_lib.mesh_context(m):
+        out["current"] = mesh_lib.current_mesh() is m
+    out["after"] = mesh_lib.current_mesh() is None
+    return out
+
+
+def _local_input(seed, rank, shape=(4, 6)):
+    return np.random.default_rng(seed + rank).standard_normal(
+        shape).astype(np.float32)
+
+
+def collective(rank, n, op, seed):
+    """One collective over this rank's seeded input; returns the output."""
+    import torch
+    from paddle_tpu_torch.core import mesh as mesh_lib
+    from paddle_tpu_torch.parallel import collective as C
+    x = torch.from_numpy(_local_input(seed, rank))
+    if op == "hierarchical":
+        m = mesh_lib.make_mesh(axis_names=("dcn", "dp"), shape=(2, n // 2),
+                               device_type="cpu")
+        return C.hierarchical_all_reduce(x, ici_axis="dp", dcn_axis="dcn",
+                                         mesh=m).numpy()
+    m = _mesh(n)
+    with mesh_lib.mesh_context(m):
+        if op in ("sum", "max", "min", "prod"):
+            out = C.all_reduce(x, "tp", op=op)
+        elif op == "sum_over_two_axes":
+            out = C.all_reduce(x, ("dp", "tp"))
+        elif op == "all_gather":
+            out = C.all_gather(x, "tp", concat_axis=1)
+        elif op == "reduce_scatter":
+            out = C.reduce_scatter(x, "tp", scatter_axis=0)
+        elif op == "broadcast":
+            out = C.broadcast(x, "tp", root=n - 1)
+        elif op == "all_to_all":
+            out = C.all_to_all(x, "tp", split_axis=0, concat_axis=1)
+        elif op == "ppermute":
+            out = C.ppermute(x, "tp", [(i, (i + 1) % n) for i in range(n)])
+        elif op == "ppermute_partial":
+            out = C.ppermute(x, "tp", [(0, n - 1)])
+        elif op == "barrier":
+            C.barrier("tp")
+            out = x
+        else:
+            raise ValueError(op)
+        assert np.array_equal(x.numpy(), _local_input(seed, rank)), \
+            "the input changed"
+        return out.numpy()
+
+
+def local_shards(rank, n, tensors, specs, sizes):
+    """Each (tensor, spec) pair's slice on this rank of a mesh ``sizes``."""
+    import torch
+    from paddle_tpu_torch.parallel.plan import local_shard
+    m = _mesh(n, **sizes)
+    return [local_shard(torch.from_numpy(t), s, m).numpy()
+            for t, s in zip(tensors, specs)]
+
+
+def quantize(rank, n, x):
+    """``quantize_kv`` of this rank's heads with the tp group's MAX
+    all-reduce, and without it."""
+    import torch
+    from paddle_tpu_torch.serving.paged_cache import quantize_kv
+    m = _mesh(n)
+    hl = x.shape[1] // n
+    xl = torch.from_numpy(x[:, rank * hl:(rank + 1) * hl])
+    q, s = quantize_kv(xl, (1, 2), group=m.get_group("tp"))
+    q_local, s_local = quantize_kv(xl, (1, 2))
+    return q.numpy(), s.numpy(), s_local.numpy()
+
+
+def _model(params, dims, device="cpu"):
+    """The GPT of the JAX weights ``params`` (a numpy tree), or with
+    ``params`` None one made from seed 0."""
+    from paddle_tpu_torch.models.gpt import GPT, GPTConfig
+    if params is None:
+        return GPT(GPTConfig(**dims), device=device, seed=0)
+    return GPT.from_jax(GPTConfig(**dims), params, device=device)
+
+
+def _engine(model, n, mesh=None, **kw):
+    import torch
+    from paddle_tpu_torch.inference import make_serving_engine
+    from paddle_tpu_torch.observability import MetricsRegistry
+    if kw.get("cache_dtype") == "int8":
+        kw["cache_dtype"] = torch.int8
+    if kw.get("tp", n) > 1 and not kw.get("tp_probe"):
+        kw.setdefault("mesh", mesh if mesh is not None
+                      else _mesh(n, model.device.type))
+    return make_serving_engine(model, device=model.device,
+                               registry=MetricsRegistry(), **kw)
+
+
+def _drain(eng, out=None):
+    out = {} if out is None else out
+    while not eng.scheduler.idle():
+        out.update(eng.step())
+    return out
+
+
+def _pages(eng):
+    return [[t.cpu().numpy().copy() for t in layer]
+            for layer in eng.cache.pages]
+
+
+def serve(rank, n, params, dims, engine_kw, waves, cap=16, eos=7,
+          warm=False, report=(), device="cpu"):
+    """Build the engine on every rank; rank 0 serves ``waves`` (lists of
+    prompts, each wave drained before the next) and returns the tokens
+    with what ``report`` names; every rank returns its builds, pages or
+    collective counts where asked. A tp=1 engine runs on rank 0 alone."""
+    if engine_kw.get("tp") == 1 and rank:
+        return {}
+    if device != "cpu":
+        import torch
+        torch.cuda.set_device(torch.device(device))
+    model = _model(params, dims, device)
+    eng = _engine(model, n, **engine_kw)
+    out = {}
+    if eng._lead:
+        if warm:
+            eng.warmup(cost_gauges=False)
+        out["tokens"] = []
+        for wave in waves:
+            got = eng.generate_many(wave, cap, eos_id=eos)
+            out["tokens"].append([np.asarray(t) for t in got])
+        eng.close()
+        for key in report:
+            if key == "health":
+                out[key] = eng.health()
+            elif key == "plan":
+                out[key] = (eng.warmup_plan(),
+                            sorted(eng.reachable_signatures()),
+                            sorted(eng.warmed_signatures))
+            elif key == "recompiles":
+                out[key] = eng.recompile_detector.recompiles
+            elif key == "shared":
+                out[key] = int(eng.cache.shared_tokens_total)
+            elif key == "anatomy":
+                out[key] = (eng.anatomy.records(), eng.anatomy.summary())
+    else:
+        eng.follow()
+    if "builds" in report:
+        out["builds"] = eng.graphs.builds
+    if "pages" in report:
+        out["pages"] = _pages(eng)
+    if "launches" in report:
+        from paddle_tpu_torch.kernels import registry
+        out["launches"] = registry.launch_counts()
+    if "all_reduces" in report:
+        out["all_reduces"] = dict(eng.tp_all_reduces)
+    return out
+
+
+def handoff(rank, n, params, dims, engine_kw, prompts, cap=16, eos=7):
+    """A prefill tier under tp (the Megatron MLP split) hands every
+    prompt to a decode tier of the same group: rank 0 returns the tokens
+    and both tiers' all-reduce counts."""
+    model = _model(params, dims)
+    pre = _engine(model, n, tier="prefill", **engine_kw)
+    out = {}
+    if pre._lead:
+        rids = [pre.submit(p, cap, eos) for p in prompts]
+        snaps, early = {}, {}
+        while not pre.scheduler.idle():
+            early.update(pre.step())
+            snaps.update(pre.poll_handoffs())
+        pre.close()
+        out["mlp_sharded"] = pre._mlp_sharded
+    else:
+        pre.follow()
+    out["prefill_all_reduces"] = dict(pre.tp_all_reduces)
+    dec = _engine(model, n, tier="decode", **engine_kw)
+    if dec._lead:
+        new, done = {}, {}
+        todo = [r for r in rids if r in snaps]
+        while todo or not dec.scheduler.idle():
+            while todo and dec.scheduler.free_slots():
+                rid = todo.pop(0)
+                new[rid] = dec.restore_slot(snaps[rid])
+            done.update(dec.step())
+        dec.close()
+        out["tokens"] = [early[r] if r in early else done[new[r]]
+                         for r in rids]
+        out["decode_mlp_sharded"] = dec._mlp_sharded
+    else:
+        dec.follow()
+    out["decode_all_reduces"] = dict(dec.tp_all_reduces)
+    return out
+
+
+def refuse_mesh_tp(rank, n, params, dims):
+    """A mesh whose tp axis disagrees with ``tp=`` is refused."""
+    model = _model(params, dims)
+    try:
+        _engine(model, n, mesh=_mesh(n), tp=2 * n)
+    except ValueError as e:
+        return str(e)
+    return None
+
+
+def migrate(rank, n, params, dims, engine_kw, prompt, new_tokens,
+            jax_snap=None, corrupt=False):
+    """Mid-decode snapshot of ``prompt`` on a tp engine, released and
+    restored into a second tp engine of the group, drained; plus a clean
+    run and, with ``jax_snap``, the restore of a JAX tp snapshot. Rank 0
+    returns the snapshots, the re-snapshots' digests and the tokens."""
+    model = _model(params, dims)
+    out = {}
+    src = _engine(model, n, **engine_kw)
+    if src._lead:
+        src.submit(prompt, new_tokens)
+        for _ in range(2):
+            src.step()          # prefill + one decode block: mid-decode
+        snap = src.snapshot_slot(0)
+        src.release_slot(0)
+        src.close()
+        out["snap"] = snap
+    else:
+        src.follow()
+    dst = _engine(model, n, **engine_kw)
+    if dst._lead:
+        nrid = dst.restore_slot(snap)
+        again = dst.snapshot_slot(0)
+        out["again"] = [r["sha256"] for r in again["manifest"]]
+        out["tokens"] = _drain(dst)[nrid]
+        if jax_snap is not None:
+            jrid = dst.restore_slot(jax_snap)
+            out["jax_again"] = dst.snapshot_slot(0)
+            out["jax_tokens"] = _drain(dst)[jrid]
+        if corrupt:
+            bad = dict(snap, shards=list(snap["shards"]))
+            bad["shards"][1] = np.zeros_like(np.asarray(snap["shards"][1]))
+            in_use = dst.cache.pages_in_use
+            try:
+                dst.restore_slot(bad)
+            except Exception as e:      # noqa: BLE001 - returned to the test
+                out["corrupt"] = (type(e).__name__, str(e))
+            out["pages_unchanged"] = dst.cache.pages_in_use == in_use
+        dst.close()
+    else:
+        dst.follow()
+    clean = _engine(model, n, **engine_kw)
+    if clean._lead:
+        out["clean"] = clean.generate_many([prompt], new_tokens)[0]
+        clean.close()
+    else:
+        clean.follow()
+    return out
+
+
+def fleet_chips(rank, n, params, dims):
+    """A router over a tp replica and a plain one counts its chips."""
+    model = _model(params, dims)
+    eng = _engine(model, n)
+    if not eng._lead:
+        eng.follow()
+        return None
+    from paddle_tpu_torch.observability import MetricsRegistry
+    from paddle_tpu_torch.serving import fleet
+    reps = [fleet.LocalReplica(eng, name="tp"),
+            fleet.LocalReplica(_engine(model, 1, tp=1), name="plain")]
+    h = fleet.FleetRouter(reps, registry=MetricsRegistry()).health()
+    eng.close()
+    return {"chips_total": h["chips_total"],
+            "per": {k: v["mesh_devices"] for k, v in h["per_replica"].items()}}
+
+
+def follower_fails(rank, n, params, dims):
+    """A follower that raises at its second device call (the first
+    decode block): rank 0's call re-raises its traceback instead of
+    waiting out the group timeout."""
+    model = _model(params, dims)
+    eng = _engine(model, n)
+    if eng._lead:
+        t0 = time.monotonic()
+        try:
+            eng.generate_many([np.arange(1, 9, dtype=np.int32)], 24)
+        except Exception as e:      # noqa: BLE001 - returned to the test
+            return {"error": type(e).__name__, "text": str(e),
+                    "s": time.monotonic() - t0}
+        eng.close()
+        return {"error": None}
+    calls = [0]
+    run = eng.graphs.run
+
+    def failing(*a, **k):
+        calls[0] += 1
+        if calls[0] == 2:
+            raise RuntimeError("injected follower fault")
+        return run(*a, **k)
+    eng.graphs.run = failing
+    eng.follow()            # raises: this rank's process then exits
