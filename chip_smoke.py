@@ -194,9 +194,47 @@ Phases, in order; any failure exits non-zero:
    against the plain rule within 1e-6; a run checkpointed at step 2,
    restored into a fresh model and continued to step 4 against an
    unbroken run, bit for bit.
+8. parallel train (runs before 7) — training across ranks, every group
+   a gloo group of processes on the card whose mesh turns on the explicit
+   ``stage_cuda_through_host`` switch (``ppermute``, ``all_gather`` and
+   ``reduce_scatter`` of CUDA tensors through pinned host buffers, their
+   bytes counted; every kernel on the card), each rank loading the K5/K6
+   phase 2 built, TF32 off:
+   (a) the ring alone in an sp=4 and an sp=2 group at (8, 12, 2048, 64)
+       with a key-padding bias (one batch row fully masked): bf16, bf16
+       causal and fp32; forward and dq/dk/dv against the dense K5/K6 path
+       on the whole sequence within the flash entries' tolerances; per
+       rank K5/K6a/K6b launches equal to the blocks run, a causal rank r
+       running the diagonal and r earlier blocks and launching nothing
+       for the later ones; staged bytes per hop; at sp=2 the bf16 ring's
+       forward and backward timed beside the plain blocks', SDPA's on
+       the whole sequence and the bound;
+   (b) BERT-base with ``attn_impl="ring"`` at sp=2 (each rank 8 x 256 of
+       an 8 x 512 batch, valid lengths 128..512), 3 eager AdamW steps in
+       bf16 over fp32 masters (the phase's main path: counts set to 0
+       just before, read just after; K5, K6a and K6b must launch on each
+       rank), losses equal on the ranks and within one bf16 ulp (2^-7
+       relative) of sp=1 with ``attn_impl="auto"`` in this process; the
+       fp32 2-layer model within 1e-4;
+   (c) ``shard_train_step`` at 2 x (24 x 512), fp32: the ``replicated``
+       plan (dp=2) and the ``fsdp`` plan (fsdp=2) against one process at
+       48 x 512, losses within 2e-5 and the parameters gathered within
+       1e-4 (the key third of each qkv bias held to its drift bound, as
+       phase 6), each rank's peak memory;
+   (d) Megatron from the layers' hints, tp=2, BERT-base fp32 at 4 x 512:
+       losses within 2e-4 of tp=1;
+   (e) LocalSGD(k=2) in the dp=2 group, fp32 2-layer model: after each
+       sync step every rank holds the same parameters, bit for bit the
+       mean of the ranks' before it;
+   (f) the fsdp ranks of (c) save their blocks into one snapshot; a
+       fresh fsdp=2 group restores with ``shardings=``, and this process
+       without, both bit for bit.
+   Each leg's seconds; tokens/s labelled "gloo on one card: not a
+   parallel speed"; either rank failing fails the run.
 7. output  — one ``{"kernels": [...]}`` line (each kernel with its
    tunables' candidates and the configuration the committed cache chose
-   at each shape, ``blocks``), the nvidia-smi line, and the final
+   at each shape, ``blocks``; the ring's entry over K5/K6 with its calls
+   on (b)'s main path), the nvidia-smi line, and the final
    ``{"ok": true, "device": {...}}`` line.
 """
 
@@ -574,7 +612,8 @@ def check_head_slices(entry, make_inputs, device, flush):
     slice bitwise equal to the kernel, fp32 and bf16. Returns
     {case: {dtype: row}}."""
     from paddle_tpu_torch.kernels import registry
-    tp_entry, = [e for e in registry.tp_entries() if e.inner == entry.name]
+    tp_entry, = [e for e in registry.composite_entries()
+                 if e.inner == (entry.name,)]
     cases = {}
     for tp in TP_SLICES:
         def sliced(seed, dev, tp=tp):
@@ -2616,11 +2655,11 @@ def fleet_fp32_parity(device):
 
 #: 4m (i): requests and new tokens of each leg of the tp=2 group
 TP_REQUESTS, TP_NEW = 16, 64
-#: the tp group's process-group timeout and the parent's wait for it (s)
-TP_GROUP_TIMEOUT_S, TP_WAIT_S = 300, 600
+#: a rank group's process-group timeout and the parent's wait for it (s)
+GROUP_TIMEOUT_S, GROUP_WAIT_S = 300, 900
 
 
-def _tp_legs(rank, device, dims):
+def _tp_legs(rank, n, device, dims):
     """4m (i) on one rank of the tp=2 group: the bf16 and int8 legs at 4a's
     width and the fp32 2-layer leg, each an engine over the group's mesh
     (eager: collectives are not captured) with the collective probe
@@ -2635,10 +2674,7 @@ def _tp_legs(rank, device, dims):
     from paddle_tpu_torch.models.gpt import GPT, GPTConfig
     from paddle_tpu_torch.observability import MetricsRegistry
     from paddle_tpu_torch.serving import paged_attention as PA
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    registry.load_all()
-    mesh = mesh_lib.make_mesh(mesh_lib.MeshConfig(tp=2),
+    mesh = mesh_lib.make_mesh(mesh_lib.MeshConfig(tp=n),
                               device_type=device.type)
     cfg = GPTConfig(**dims)
     legs = (("bf16", cfg, torch.bfloat16, None),
@@ -2706,11 +2742,13 @@ def _tp_legs(rank, device, dims):
     return out
 
 
-def _tp_rank(rank, port, results, device, dims):
-    """Process entry of one rank of 4m (i): join the gloo group over
-    ``tcp://127.0.0.1:port`` with a timeout, run :func:`_tp_legs`, and
-    put ``(rank, "ok", result)`` or ``(rank, "err", traceback)`` on
-    ``results``; a failure also exits non-zero."""
+def _group_rank(rank, n, port, results, device, legs, leg_kw):
+    """Process entry of one rank of a group (4m, phase 8): join the gloo
+    group over ``tcp://127.0.0.1:port`` with a timeout, TF32 off, run
+    ``legs`` (names in :data:`GROUP_LEGS`, each with its keywords from
+    ``leg_kw``) in order and put ``(rank, "ok", {leg: result})`` (each
+    with its seconds) or ``(rank, "err", traceback)`` on ``results``; a
+    failure also exits non-zero."""
     import datetime
     import traceback
 
@@ -2719,17 +2757,60 @@ def _tp_rank(rank, port, results, device, dims):
         device = torch.device(device)
         if device.type == "cuda":
             torch.cuda.set_device(device)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
         dist.init_process_group(
             "gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
-            world_size=2,
-            timeout=datetime.timedelta(seconds=TP_GROUP_TIMEOUT_S))
-        results.put((rank, "ok", _tp_legs(rank, device, dims)))
+            world_size=n, timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))
+        from paddle_tpu_torch.kernels import registry
+        registry.load_all()
+        out = {}
+        for leg in legs:
+            t0 = time.monotonic()
+            out[leg] = GROUP_LEGS[leg](rank, n, device,
+                                       **leg_kw.get(leg, {}))
+            out[leg]["seconds"] = time.monotonic() - t0
+        results.put((rank, "ok", out))
     except BaseException:
         results.put((rank, "err", traceback.format_exc()))
         raise
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
+
+
+def group_run(n, legs, device, label, **leg_kw):
+    """``legs`` on a gloo group of ``n`` processes on ``device``
+    (:func:`_group_rank`), each loading the kernels phase 2 built. Either
+    rank failing or exiting non-zero fails the run. Returns the ranks'
+    ``{leg: result}`` in rank order."""
+    import multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    port = _free_port()
+    procs = [ctx.Process(target=_group_rank,
+                         args=(r, n, port, results, str(device), legs,
+                               leg_kw))
+             for r in range(n)]
+    for p in procs:
+        p.start()
+    got, errors = {}, []
+    try:
+        for _ in procs:
+            rank, status, val = results.get(timeout=GROUP_WAIT_S)
+            (got.__setitem__(rank, val) if status == "ok"
+             else errors.append(f"rank {rank}:\n{val}"))
+    finally:
+        for p in procs:
+            p.join(60)
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+    codes = [p.exitcode for p in procs]
+    if errors or codes != [0] * n:
+        raise AssertionError(f"{label} failed (exit codes {codes}):\n"
+                             + "\n".join(errors))
+    return [got[r] for r in range(n)]
 
 
 def _free_port() -> int:
@@ -2741,7 +2822,7 @@ def _free_port() -> int:
 
 def tp_group_run(device, dims=None):
     """4m (i): the tp=2 group, two processes on ``device`` over gloo
-    (:func:`_tp_rank`), each building K1-K4 from the cache phase 2 left.
+    (:func:`group_run`), each building K1-K4 from the cache phase 2 left.
     Either rank failing or exiting non-zero fails the run. Then the tp=1
     references in this process on the same weights and prompts: bf16 and
     int8 tokens held with ``_hold_tokens`` (bf16 noise and near-tie
@@ -2752,37 +2833,13 @@ def tp_group_run(device, dims=None):
     make up each rank's counters), and issue one attention-output
     all-reduce per layer per forward (one per layer more for an int8
     pool's K and V abs-max). Returns the legs' stats."""
-    import multiprocessing as mp
-
     from paddle_tpu_torch.inference import make_serving_engine
     from paddle_tpu_torch.models.gpt import GPT, GPTConfig
     from paddle_tpu_torch.observability import MetricsRegistry
     from paddle_tpu_torch.serving import paged_attention as PA
     dims = dims or dataclasses.asdict(model_config())
-    ctx = mp.get_context("spawn")
-    results = ctx.Queue()
-    port = _free_port()
-    procs = [ctx.Process(target=_tp_rank,
-                         args=(r, port, results, str(device), dims))
-             for r in (0, 1)]
-    for p in procs:
-        p.start()
-    got, errors = {}, []
-    try:
-        for _ in procs:
-            rank, status, val = results.get(timeout=TP_WAIT_S)
-            (got.__setitem__(rank, val) if status == "ok"
-             else errors.append(f"rank {rank}:\n{val}"))
-    finally:
-        for p in procs:
-            p.join(60)
-            if p.is_alive():
-                p.kill()
-                p.join(10)
-    codes = [p.exitcode for p in procs]
-    if errors or codes != [0, 0]:
-        raise AssertionError(f"4m tp group failed (exit codes {codes}):\n"
-                             + "\n".join(errors))
+    got = [r["tp_serve"] for r in group_run(
+        2, ("tp_serve",), device, "4m tp group", tp_serve={"dims": dims})]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = GPTConfig(**dims)
@@ -3299,6 +3356,650 @@ def train_fp32_exact(device, steps=3):
     return out
 
 
+# -- phase 8: training across ranks -------------------------------------------
+
+#: leg (a): the ring alone at (B, H, S, Dh) and its cases (name, dtype,
+#: causal), every case with a key-padding bias (one batch row fully
+#: masked)
+RING_SHAPE = (8, 12, 2048, 64)
+RING_CASES = (("bf16", torch.bfloat16, False),
+              ("bf16_causal", torch.bfloat16, True),
+              ("fp32", torch.float32, False))
+#: legs (b)-(e): global batch rows (sequence 512) and steps
+SP_BATCH, SP_STEPS = 8, 3            # (b): each sp rank 8 x 256
+DP_BATCH, DP_STEPS = 24, 2           # (c): each dp rank 24 x 512
+TP_BATCH, TP_STEPS = 4, 2            # (d)
+LOCAL_SGD_BATCH, LOCAL_SGD_STEPS, LOCAL_SGD_K = 8, 4, 2   # (e), per rank
+#: (b): the bf16 ring run's losses against the sp=1 run's, relative: one
+#: bf16 unit in the last place (PERF.md says why)
+RING_BF16_RTOL = 2.0 ** -7
+PAR_DIR = TRAIN_DIR.parent / "chip_smoke_parallel"
+
+
+def _par_mesh(device, **sizes):
+    """A mesh of the group's ranks; on the card with the explicit switch
+    that stages the ops gloo cannot run on CUDA tensors through the host
+    (transport only: every kernel runs on the card)."""
+    from paddle_tpu_torch.core import mesh as mesh_lib
+    return mesh_lib.make_mesh(mesh_lib.MeshConfig(**sizes),
+                              device_type=device.type,
+                              stage_cuda_through_host=device.type == "cuda")
+
+
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _ring_work(q, bias, causal):
+    """(bytes, flops) of the ring's forward and backward on the whole
+    sequence: q, k, v and do read once, out, dq, dk and dv written once,
+    the key bias read once; 18 flops per live (query, key, d): K5's 4,
+    K6a's 8, K6b's 6."""
+    from paddle_tpu_torch.ops import attention as FA
+    b, h, s, d = q.shape
+    nbytes = 8 * q.numel() * q.element_size() + (
+        4 * bias.numel() if bias is not None else 0)
+    return nbytes, 18 * b * h * d * FA._live_pairs(s, s, causal)
+
+
+def ring_leg(rank, n, device, timed=False):
+    """(a) on one rank of an sp=n group: each case's blocks through
+    ``ring_attention`` (impl "auto": K5 per visiting block, K6a/K6b per
+    block in the backward), forward and dq/dk/dv held to the dense K5/K6
+    path on the whole sequence within the flash entries' tolerances; the
+    rank's K5/K6a/K6b launches, blocks by case and staged bytes. With
+    ``timed``, the bf16 case's ring (kernels and plain block functions)
+    and, on rank 0 alone, SDPA's forward and backward on the whole
+    sequence."""
+    from paddle_tpu_torch.kernels import registry
+    from paddle_tpu_torch.ops import attention as FA
+    from paddle_tpu_torch.parallel import collective as C
+    from paddle_tpu_torch.parallel import ring_attention as R
+    mesh = _par_mesh(device, sp=n)
+    out = {}
+    for name, dtype, causal in RING_CASES:
+        q0, k0, v0, bias, do0 = flash_inputs(RING_SHAPE, "ragged", device,
+                                             seed=8)
+        q, k, v, do = (t.to(dtype) for t in (q0, k0, v0, do0))
+        del q0, k0, v0, do0
+
+        def blk(t, dim=2):
+            return R.block_of(t, mesh, "sp", dim)
+
+        def ring(impl):
+            leaves = [blk(t).requires_grad_() for t in (q, k, v)]
+            o = R.ring_attention(*leaves, bias=blk(bias, 3), causal=causal,
+                                 mesh=mesh, impl=impl)
+            o.backward(blk(do))
+            return o.detach(), [t.grad for t in leaves]
+
+        registry.reset_launches()
+        R.reset_ring_stats()
+        C.reset_staged_stats()
+        o, grads = ring("auto")
+        _sync(device)
+        launches = {e.name: e.launches for e in flash_entries()}
+        cases, staged = R.ring_stats(), C.staged_stats()
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        dense = FA.flash_attention(*leaves, bias, causal)
+        dense.backward(do)
+        tol = FA.FWD.tolerance[dtype]
+        gtol = FA.BWD_DQ.tolerance[dtype]
+        errs = {"out": _err(o, blk(dense.detach()), tol,
+                            f"8a ring[{name}] sp={n} out")}
+        for what, g, leaf in zip(("dq", "dk", "dv"), grads, leaves):
+            errs[what] = _err(g, blk(leaf.grad), gtol,
+                              f"8a ring[{name}] sp={n} {what}")
+        if not torch.all(o[0] == 0):
+            raise AssertionError(f"8a ring[{name}]: the fully masked batch "
+                                 "row is not 0")
+        row = {"max_abs_err": errs, "launches": launches, "cases": cases,
+               "staged": staged,
+               "hops": staged["calls"].get("ppermute", 0),
+               "staged_bytes_per_hop": (
+                   staged["bytes"].get("ppermute", 0)
+                   / max(1, staged["calls"].get("ppermute", 0)))}
+        del dense, leaves, grads, o
+        if timed and name == "bf16":
+            flush = L2Flush(device)
+            row.update(_timed(lambda: ring("auto"), flush, 3))
+            row.update(_timed(lambda: ring("plain"), flush, 1, "plain_"))
+            C.barrier("sp", mesh=mesh)
+            if rank == 0:
+                lib_f = _library_fwd(q, k, v, bias, causal)
+                lib_b = _library_bwd(q, k, v, bias, do, causal)
+                row.update(_timed(lambda: (lib_f(), lib_b()), flush, 5,
+                                  "library_"))
+            C.barrier("sp", mesh=mesh)
+            nbytes, flops = _ring_work(q, bias, causal)
+            row["bound_ms"], row["bound_by"] = _bound(nbytes, flops, dtype)
+            del flush
+        out[name] = row
+        del q, k, v, do, bias
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def _bert_sharded(device, mesh, cfg, batch, *, plan=None, layer_hints=False,
+                  seq_dim=None, policy=None, seed=0):
+    """A BERT of ``cfg`` from ``seed`` with AdamW(1e-4), its eager step
+    put on ``mesh`` by ``shard_train_step`` (with ``layer_hints``, the
+    layers' own sharding hints). Returns (run, state, model)."""
+    from paddle_tpu_torch.core.dtypes import get_policy
+    from paddle_tpu_torch.models.bert import BertForPretraining
+    from paddle_tpu_torch.nn.module import sharding_specs
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import api
+    from paddle_tpu_torch.train import build_train_step, make_train_state
+    model = BertForPretraining(cfg, device=device, seed=seed)
+    hints = sharding_specs(model) if layer_hints else None
+    opt = AdamW(model.parameters(), learning_rate=1e-4)
+    step = build_train_step(_bert_loss, opt,
+                            policy=get_policy(policy) if policy else None)
+    spec = api.batch_specs(batch, seq_dim=seq_dim) if seq_dim \
+        else api.BATCH_SPEC
+    run, state = api.shard_train_step(step, mesh,
+                                      make_train_state(model, opt),
+                                      plan=plan, hints=hints,
+                                      batch_spec=spec)
+    return run, state, model
+
+
+def _free(device):
+    """Free what the caller has deleted (a model and its optimizer refer
+    to each other through the train state)."""
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def bert_ring_leg(rank, n, device):
+    """(b): BERT-base with ``attn_impl="ring"`` on an sp=n mesh, each rank
+    its 8 x 512/n block of the 8 x 512 batch: 3 eager AdamW steps in bf16
+    over fp32 masters (the phase's main path: the counts are set to 0
+    just before and read just after), then the fp32 2-layer model at
+    full width. Returns each run's losses, K5/K6a/K6b launches, ring
+    calls, blocks by case, staged bytes and tokens/s."""
+    from paddle_tpu_torch.kernels import registry
+    from paddle_tpu_torch.models.bert import BertConfig
+    from paddle_tpu_torch.parallel import collective as C
+    from paddle_tpu_torch.parallel import ring_attention as R
+    mesh = _par_mesh(device, sp=n)
+    out = {}
+    for label, policy, layers in (("bf16", "bf16", 12),
+                                  ("fp32_2layer", None, 2)):
+        cfg = BertConfig.base(num_layers=layers, dropout=0.0,
+                              attn_dropout=0.0, attn_impl="ring")
+        batch = bert_batch(cfg, SP_BATCH, TRAIN_SEQ, device, seed=3)
+        run, state, model = _bert_sharded(device, mesh, cfg, batch,
+                                          seq_dim=1, policy=policy)
+        _sync(device)
+        registry.reset_launches()
+        R.reset_ring_stats()
+        C.reset_staged_stats()
+        t0 = time.monotonic()
+        losses = [float(run(state, **batch)[1]["loss"])
+                  for _ in range(SP_STEPS)]
+        _sync(device)
+        wall = time.monotonic() - t0
+        out[label] = {
+            "losses": losses,
+            "launches": {e.name: e.launches for e in flash_entries()},
+            "ring_calls": R.RING.calls, "cases": R.ring_stats(),
+            "staged": C.staged_stats(), "wall_s": wall,
+            "tokens_per_s_gloo_on_one_card_not_a_parallel_speed":
+                SP_BATCH * TRAIN_SEQ * SP_STEPS / wall}
+        del run, state, model
+        _free(device)
+    return out
+
+
+def _snapshot_tree(state, specs, mesh):
+    """The train state's reference tree with every parameter and
+    optimizer slot as this rank's :class:`Shard` under its parameter's
+    spec, and ``{flat key: spec or None}`` of its leaves."""
+    from paddle_tpu_torch.resilience.snapshot import flatten_tree, shard_leaf
+    from paddle_tpu_torch.trainer import state_tree
+    flat = flatten_tree(state_tree(state))
+    keyed = {}
+    for key in flat:
+        parts = key.split("/")
+        name = None
+        if parts[0] == "params":
+            name = ".".join(parts[1:])
+        elif parts[:2] == ["opt", "slots"]:
+            name = ".".join(parts[3:])
+        keyed[key] = specs.get(name) if name in specs else None
+    out = {}
+    for key, v in flat.items():
+        spec = keyed[key]
+        out[key] = v if spec is None or not isinstance(v, torch.Tensor) \
+            else shard_leaf(v.detach(), spec, mesh)
+    return _nested(out), keyed
+
+
+def _nested(flat):
+    out = {}
+    for key, v in flat.items():
+        *path, leaf = key.split("/")
+        node = out
+        for p in path:
+            node = node.setdefault(p, {})
+        if leaf != "\x00empty":
+            node[leaf] = v
+    return out
+
+
+def dp_leg(rank, n, device):
+    """(c) and the save of (f): BERT-base fp32 (TF32 off) at n x (24 x
+    512), 2 eager AdamW steps under the ``replicated`` plan (mesh dp=n)
+    and the ``fsdp`` plan (mesh fsdp=n), each from the same seed on the
+    same global batch: losses, peak memory, and the parameters gathered
+    whole (saved by rank 0 for the parent). The fsdp state is then saved
+    by every rank as its blocks (``Shard`` leaves) into one snapshot,
+    beside each rank's blocks and rank 0's whole state for the checks."""
+    from paddle_tpu_torch.models.bert import BertConfig
+    from paddle_tpu_torch.parallel import api, plan as plan_lib
+    from paddle_tpu_torch.resilience.snapshot import (SnapshotEngine,
+                                                      flatten_tree)
+    from paddle_tpu_torch.trainer import state_tree
+    out = {}
+    cfg = BertConfig.base(dropout=0.0, attn_dropout=0.0)
+    for name, axis, plan in (("replicated", "dp", plan_lib.replicated_plan()),
+                             ("fsdp", "fsdp", plan_lib.fsdp_plan())):
+        mesh = _par_mesh(device, **{axis: n})
+        batch = bert_batch(cfg, n * DP_BATCH, TRAIN_SEQ, device, seed=5)
+        _free(device)
+        cuda = device.type == "cuda"
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+        run, state, model = _bert_sharded(device, mesh, cfg, batch,
+                                          plan=plan)
+        state_bytes = torch.cuda.memory_allocated() - before if cuda \
+            else None
+        t0 = time.monotonic()
+        losses = [float(run(state, **batch)[1]["loss"])
+                  for _ in range(DP_STEPS)]
+        _sync(device)
+        wall = time.monotonic() - t0
+        peak = torch.cuda.max_memory_allocated() - before if cuda else None
+        whole = api.gathered_params(model, run.specs, mesh)
+        if rank == 0:
+            torch.save({k: v.cpu() for k, v in whole.items()},
+                       PAR_DIR / f"{name}_params.pt")
+        out[name] = {
+            "losses": losses, "peak_bytes": peak, "wall_s": wall,
+            "state_bytes_after_placement": state_bytes,
+            "sharded_params": sum(1 for s in run.specs.values()
+                                  if "fsdp" in str(s)),
+            "local_param_bytes": sum(p.numel() * p.element_size()
+                                     for p in model.parameters()),
+            "tokens_per_s_gloo_on_one_card_not_a_parallel_speed":
+                n * DP_BATCH * TRAIN_SEQ * DP_STEPS / wall}
+        if name == "fsdp":
+            t0 = time.monotonic()
+            tree, keyed = _snapshot_tree(state, run.specs, mesh)
+            eng = SnapshotEngine(str(PAR_DIR / "snap"), process_index=rank,
+                                 process_count=n)
+            eng.save(1, tree, wait=True)
+            eng.close()
+            blocks = {k: v.detach().cpu() for k, v in
+                      flatten_tree(state_tree(state)).items()
+                      if isinstance(v, torch.Tensor)}
+            torch.save(blocks, PAR_DIR / f"blocks_{rank}.pt")
+            full = {k: (api.gather_block(v.detach(), keyed[k], mesh)
+                        if keyed[k] is not None else v).cpu()
+                    for k, v in flatten_tree(state_tree(state)).items()
+                    if isinstance(v, torch.Tensor)}
+            if rank == 0:
+                torch.save(full, PAR_DIR / "whole.pt")
+                torch.save(keyed, PAR_DIR / "specs.pt")
+            out["save_s"] = time.monotonic() - t0
+            del tree, blocks, full
+        del run, state, model, whole
+        _free(device)
+    return out
+
+
+def tp_leg(rank, n, device):
+    """(d): Megatron from the layers' hints on a tp=n mesh, BERT-base fp32
+    (TF32 off), 4 x 512, 2 eager AdamW steps: the losses."""
+    from paddle_tpu_torch.models.bert import BertConfig
+    from paddle_tpu_torch.parallel import collective as C
+    from paddle_tpu_torch.parallel import plan as plan_lib
+    mesh = _par_mesh(device, tp=n)
+    cfg = BertConfig.base(dropout=0.0, attn_dropout=0.0)
+    batch = bert_batch(cfg, TP_BATCH, TRAIN_SEQ, device, seed=7)
+    run, state, model = _bert_sharded(device, mesh, cfg, batch,
+                                      plan=plan_lib.megatron_plan(),
+                                      layer_hints=True)
+    C.reset_staged_stats()
+    t0 = time.monotonic()
+    losses = [float(run(state, **batch)[1]["loss"])
+              for _ in range(TP_STEPS)]
+    _sync(device)
+    out = {"losses": losses, "wall_s": time.monotonic() - t0,
+           "split_params": sum(1 for s in run.specs.values()
+                               if "tp" in str(s)),
+           "local_param_bytes": sum(p.numel() * p.element_size()
+                                    for p in model.parameters()),
+           "staged": C.staged_stats()}
+    del run, state, model
+    _free(device)
+    return out
+
+
+def local_sgd_leg(rank, n, device):
+    """(e): LocalSGD(k=2) in a dp=n group: the fp32 2-layer BERT at full
+    width from one seed, each rank stepping on its own 8 x 512 block of
+    the batch; at each sync step the parameters are averaged over "dp",
+    and after it every rank holds the same parameters, equal bit for bit
+    to the mean of the ranks' parameters before it (gathered here)."""
+    from paddle_tpu_torch.models.bert import BertConfig, BertForPretraining
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.optimizer.compression import LocalSGD
+    from paddle_tpu_torch.parallel import api
+    from paddle_tpu_torch.parallel import collective as C
+    from paddle_tpu_torch.train import build_train_step, make_train_state
+    mesh = _par_mesh(device, dp=n)
+    cfg = BertConfig.base(num_layers=2, dropout=0.0, attn_dropout=0.0)
+    model = BertForPretraining(cfg, device=device, seed=0)
+    opt = AdamW(model.parameters(), learning_rate=1e-4)
+    step = build_train_step(_bert_loss, opt, cuda_graphs=False)
+    state = make_train_state(model, opt)
+    local = api.local_batch(bert_batch(cfg, n * LOCAL_SGD_BATCH, TRAIN_SEQ,
+                                       device, seed=9), mesh)
+    avg = LocalSGD(k_steps=LOCAL_SGD_K, axis="dp")
+    params = list(model.parameters())
+    syncs, losses = [], []
+    for i in range(LOCAL_SGD_STEPS):
+        before = [C.all_gather(p.detach()[None], "dp", mesh=mesh)
+                  for p in params] if i % LOCAL_SGD_K == 0 else None
+        if avg.maybe_average(params, i, mesh=mesh):
+            mean = [g.sum(0) / n for g in before]
+            after = [C.all_gather(p.detach()[None], "dp", mesh=mesh)
+                     for p in params]
+            syncs.append({
+                "step": i,
+                "equal_to_mean": all(torch.equal(p, m)
+                                     for p, m in zip(params, mean)),
+                "equal_across_ranks": all(torch.equal(a[0], a[r])
+                                          for a in after
+                                          for r in range(1, n)),
+                "ranks_differed_before": any(
+                    not torch.equal(b[0], b[1]) for b in before)})
+            del before, after, mean
+        state, m = step(state, **local)
+        losses.append(float(m["loss"]))
+    out = {"syncs": syncs, "losses": losses}
+    del state, model, opt, params, step
+    _free(device)
+    return out
+
+
+def restore_leg(rank, n, device):
+    """(f) in a fresh fsdp=n group: restore the snapshot the fsdp ranks of
+    (c) saved with ``shardings=`` (each rank reads every shard file whole,
+    ``files_read_bytes``, and keeps its blocks, ``block_bytes``), each
+    block equal bit for bit to what that rank held."""
+    from paddle_tpu_torch.resilience.snapshot import (Shard, SnapshotEngine,
+                                                      flatten_tree)
+    mesh = _par_mesh(device, fsdp=n)
+    keyed = torch.load(PAR_DIR / "specs.pt")
+    shardings = _nested({k: None if s is None else (s, mesh)
+                         for k, s in keyed.items()})
+    t0 = time.monotonic()
+    eng = SnapshotEngine(str(PAR_DIR / "snap"))
+    back = flatten_tree(eng.restore(1, shardings=shardings))
+    eng.close()
+    seconds = time.monotonic() - t0
+    want = torch.load(PAR_DIR / f"blocks_{rank}.pt")
+    blocks = {k: v for k, v in back.items() if isinstance(v, Shard)}
+    bad = [k for k, v in blocks.items() if not torch.equal(v.data, want[k])]
+    bad += [k for k, v in back.items() if k not in blocks
+            and isinstance(v, torch.Tensor) and not torch.equal(v, want[k])]
+    if bad or not blocks:
+        raise AssertionError(f"8f restore rank {rank}: {len(bad)} leaves "
+                             f"differ ({bad[:3]}), {len(blocks)} blocks")
+    return {"blocks": len(blocks),
+            "split": sum(1 for v in blocks.values()
+                         if tuple(v.data.shape) != tuple(v.shape)),
+            "block_bytes": sum(v.data.numel() * v.data.element_size()
+                               for v in blocks.values()),
+            "files_read_bytes": sum(
+                p.stat().st_size
+                for p in (PAR_DIR / "snap").glob("step_*/shards_p*.pkl")),
+            "restore_s": seconds}
+
+
+#: the legs a group's ranks run (:func:`_group_rank`), by name
+GROUP_LEGS = {"tp_serve": _tp_legs, "ring": ring_leg,
+              "ring_timed": functools.partial(ring_leg, timed=True),
+              "bert_ring": bert_ring_leg, "dp": dp_leg, "tp": tp_leg,
+              "local_sgd": local_sgd_leg, "restore": restore_leg}
+
+
+def _check_ring_counts(label, n, rows):
+    """Every rank launched K5, K6a and K6b; a causal rank r ran the
+    diagonal block and r earlier ones and skipped the n - 1 - r later
+    ones without a launch; K5 launches = forward blocks run, K6a = K6b =
+    backward blocks run."""
+    fwd, dkv, dq = (e.name for e in flash_entries())
+    for rank, ranks_rows in enumerate(rows):
+        for name, _, causal in RING_CASES:
+            r = ranks_rows[name]
+            want = ({"diagonal": 1, "visible": rank, "skipped": n - 1 - rank}
+                    if causal else {"diagonal": 0, "visible": n,
+                                    "skipped": 0})
+            run = want["diagonal"] + want["visible"]
+            if r["cases"]["fwd"] != want or r["cases"]["bwd"] != want:
+                raise AssertionError(f"8a {label} {name} rank {rank}: "
+                                     f"blocks {r['cases']}, want {want}")
+            if (r["launches"][fwd], r["launches"][dkv],
+                    r["launches"][dq]) != (run, run, run):
+                raise AssertionError(f"8a {label} {name} rank {rank}: "
+                                     f"launches {r['launches']} for {run} "
+                                     "blocks run")
+
+
+def _one_process_bert(device, cfg, batch, steps, *, policy=None, seed=0):
+    """The unsharded reference: the same BERT and AdamW(1e-4) in this
+    process, eager. Returns (losses, {name: parameter})."""
+    from paddle_tpu_torch.core.dtypes import get_policy
+    from paddle_tpu_torch.models.bert import BertForPretraining
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.train import build_train_step, make_train_state
+    model = BertForPretraining(cfg, device=device, seed=seed)
+    opt = AdamW(model.parameters(), learning_rate=1e-4)
+    step = build_train_step(_bert_loss, opt, cuda_graphs=False,
+                            policy=get_policy(policy) if policy else None)
+    state = make_train_state(model, opt)
+    losses = [float(step(state, **batch)[1]["loss"]) for _ in range(steps)]
+    params = {k: v.detach().clone() for k, v in model.named_parameters()}
+    del state, model, opt, step
+    _free(device)
+    return losses, params
+
+
+def _close(got, want, rtol, atol, what):
+    if not np.allclose(got, want, rtol=rtol, atol=atol):
+        raise AssertionError(f"{what}: {got} against {want} (rtol {rtol}, "
+                             f"atol {atol})")
+    return max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(got, want))
+
+
+def parallel_train(device):
+    """Phase 8: training across ranks; every group a gloo group of
+    processes on ``device`` whose mesh has the staging switch on (module
+    docstring)."""
+    from paddle_tpu_torch.models.bert import BertConfig
+    from paddle_tpu_torch.resilience.snapshot import (SnapshotEngine,
+                                                      flatten_tree)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    shutil.rmtree(PAR_DIR, ignore_errors=True)
+    PAR_DIR.mkdir(parents=True)
+    stats = {}
+    t_phase = time.monotonic()
+
+    # (a) at sp=4; then the sp=2 group: (a) timed, (b), (c), (d), (e)
+    t0 = time.monotonic()
+    four = group_run(4, ("ring",), device, "8a sp=4 group")
+    _check_ring_counts("sp=4", 4, [r["ring"] for r in four])
+    two = group_run(2, ("ring_timed", "bert_ring", "dp", "tp", "local_sgd"),
+                    device, "8a-8e sp/dp/tp=2 group")
+    _check_ring_counts("sp=2", 2, [r["ring_timed"] for r in two])
+    group_s = time.monotonic() - t0
+    for label, rows in (("sp=2", [r["ring_timed"] for r in two]),
+                        ("sp=4", [r["ring"] for r in four])):
+        log(f"  8a ring {label}: " + json.dumps({
+            name: {"max_abs_err": rows[0][name]["max_abs_err"],
+                   "per_rank": [{k: r[name][k] for k in (
+                       "launches", "cases", "hops", "staged_bytes_per_hop")}
+                       for r in rows]}
+            for name, _, _ in RING_CASES}))
+    timing = two[0]["ring_timed"]["bf16"]
+    log("  8a ring sp=2 bf16 fwd+bwd (gloo on one card: not a parallel "
+        f"speed; the ring's windows wait on the host's staging, so they "
+        f"are wall time): kernels {timing['ms']:.4f} ms (host "
+        f"{timing['host_ms']:.4f}), plain blocks {timing['plain_ms']:.4f} "
+        f"ms, SDPA fwd+bwd on the whole sequence "
+        f"{_ms_text(timing, 'library_')}, bound {timing['bound_ms']:.4f} ms"
+        f" ({timing['bound_by']})")
+    stats["ring"] = timing
+
+    # (b) against sp=1 with attn_impl="auto"
+    fwd, dkv, dq = (e.name for e in flash_entries())
+    for label, policy, layers, rtol in (
+            ("bf16", "bf16", 12, RING_BF16_RTOL),
+            ("fp32_2layer", None, 2, 1e-4)):
+        legs = [r["bert_ring"][label] for r in two]
+        for rank, leg in enumerate(legs):
+            if min(leg["launches"][k] for k in (fwd, dkv, dq)) <= 0:
+                raise AssertionError(f"8b {label} rank {rank}: launches "
+                                     f"{leg['launches']}")
+            if leg["losses"] != legs[0]["losses"]:
+                raise AssertionError(f"8b {label}: the ranks' losses differ")
+        cfg = BertConfig.base(num_layers=layers, dropout=0.0,
+                              attn_dropout=0.0)
+        want, _ = _one_process_bert(
+            device, cfg, bert_batch(cfg, SP_BATCH, TRAIN_SEQ, device,
+                                    seed=3), SP_STEPS, policy=policy)
+        rel = _close(legs[0]["losses"], want, rtol, 0.0,
+                     f"8b {label} sp=2 ring vs sp=1")
+        stats[f"bert_ring_{label}"] = {**legs[0], "losses_sp1": want,
+                                       "max_rel_err": rel}
+        log(f"  8b BERT {label} sp=2 ring vs sp=1 auto: "
+            + json.dumps(stats[f"bert_ring_{label}"]))
+    log(f"  8b took {two[0]['bert_ring']['seconds']:.1f} s on the ranks")
+
+    # (c) against one process at 2 x 24 x 512
+    cfg = BertConfig.base(dropout=0.0, attn_dropout=0.0)
+    want, ref = _one_process_bert(
+        device, cfg, bert_batch(cfg, 2 * DP_BATCH, TRAIN_SEQ, device,
+                                seed=5), DP_STEPS)
+    for name in ("replicated", "fsdp"):
+        legs = [r["dp"][name] for r in two]
+        rel = _close(legs[0]["losses"], want, 2e-5, 2e-6,
+                     f"8c {name} dp=2 vs one process")
+        whole = torch.load(PAR_DIR / f"{name}_params.pt")
+        err = max(_held_params(k, whole[k].to(device), ref[k], DP_STEPS,
+                               1e-4) for k in ref)
+        stats[f"dp_{name}"] = {**legs[0], "losses_one_process": want,
+                               "max_rel_err": rel, "param_max_abs_err": err,
+                               "peak_bytes_ranks": [leg["peak_bytes"]
+                                                    for leg in legs]}
+        log(f"  8c {name} dp=2 vs one process at 48 x 512: "
+            + json.dumps(stats[f"dp_{name}"]))
+        del whole
+    log("  8c peak memory per rank, fsdp vs replicated: " + json.dumps({
+        n: stats[f"dp_{n}"]["peak_bytes_ranks"]
+        for n in ("fsdp", "replicated")}) + "; the leg took "
+        f"{two[0]['dp']['seconds']:.1f} s on the ranks")
+    del ref
+
+    # (d) against tp=1
+    want, _ = _one_process_bert(
+        device, cfg, bert_batch(cfg, TP_BATCH, TRAIN_SEQ, device, seed=7),
+        TP_STEPS)
+    rel = _close(two[0]["tp"]["losses"], want, 2e-4, 1e-5,
+                 "8d tp=2 vs tp=1")
+    stats["tp"] = {**two[0]["tp"], "losses_tp1": want, "max_rel_err": rel}
+    log("  8d Megatron tp=2 vs tp=1: " + json.dumps(stats["tp"]))
+
+    # (e)
+    syncs = [r["local_sgd"]["syncs"] for r in two]
+    if [s["step"] for s in syncs[0]] != list(range(0, LOCAL_SGD_STEPS,
+                                                   LOCAL_SGD_K)) or not all(
+            s["equal_to_mean"] and s["equal_across_ranks"]
+            for ss in syncs for s in ss) or not any(
+            s["ranks_differed_before"] for s in syncs[0]):
+        raise AssertionError(f"8e LocalSGD: {syncs}")
+    stats["local_sgd"] = two[0]["local_sgd"]
+    log("  8e LocalSGD k=2 dp=2: " + json.dumps(stats["local_sgd"]))
+
+    # (f) a fresh fsdp=2 group restores with shardings=, this process
+    # without
+    t0 = time.monotonic()
+    fresh = group_run(2, ("restore",), device, "8f fresh fsdp=2 group")
+    eng = SnapshotEngine(str(PAR_DIR / "snap"))
+    back = flatten_tree(eng.restore(1))
+    eng.close()
+    whole = torch.load(PAR_DIR / "whole.pt")
+    bad = [k for k, v in whole.items() if not torch.equal(back[k], v)]
+    if bad:
+        raise AssertionError(f"8f one-process restore: {len(bad)} leaves "
+                             f"differ ({bad[:3]})")
+    stats["snapshot"] = {"save_s": two[0]["dp"]["save_s"],
+                         "restore_ranks": [r["restore"] for r in fresh],
+                         "fresh_group_and_whole_restore_s":
+                             time.monotonic() - t0,
+                         "leaves": len(whole)}
+    log("  8f sharded snapshot: " + json.dumps(stats["snapshot"]))
+    del back, whole
+    stats["ring_calls_main_path"] = two[0]["bert_ring"]["bf16"]["ring_calls"]
+    stats["main_path_launches"] = two[0]["bert_ring"]["bf16"]["launches"]
+    stats["seconds"] = {
+        "groups_a_to_e": group_s, "phase": time.monotonic() - t_phase,
+        "sp4_ring": four[0]["ring"]["seconds"],
+        **{leg: two[0][leg]["seconds"] for leg in (
+            "ring_timed", "bert_ring", "dp", "tp", "local_sgd")}}
+    log(f"  phase 8 took {stats['seconds']['phase']:.1f} s: "
+        + json.dumps(stats["seconds"]))
+    shutil.rmtree(PAR_DIR, ignore_errors=True)
+    return stats
+
+
+def ring_line(stats):
+    """The ``kernels`` line's entry of the ring, which has no kernel of its
+    own: ``launches`` is the K5/K6a/K6b launches its calls made on rank 0
+    of (b)'s main path (``inner_launches`` by kernel; K5/K6's lines count
+    them too), ``calls`` its calls there. The times are (a)'s bf16
+    forward and backward at sp=2: ``ms`` is CUDA events around the call,
+    which stages k/v through the host over gloo, so it is wall time of
+    the staged ring and no device time is given (the card waits on the
+    host inside the call)."""
+    from paddle_tpu_torch.parallel import ring_attention as R
+    t = stats["ring"]
+    keys = ("ms", "host_ms", "plain_ms", "library_ms", "library_device_ms",
+            "bound_ms", "bound_by")
+    inner = stats["main_path_launches"]
+    return {"name": R.RING.name, "route": "cuda", "source": R.RING.source,
+            "replaces": R.RING.replaces, "entry_over": list(R.RING.inner),
+            "launches": sum(inner.values()), "inner_launches": inner,
+            "calls": stats["ring_calls_main_path"],
+            "max_abs_err": t["max_abs_err"]["out"],
+            **{k: t.get(k) for k in keys}, "dtype": "bfloat16",
+            "shape": list(RING_SHAPE), "sp": 2,
+            "note": "no kernel of its own; ms is the wall time of forward "
+                    "and backward over a gloo group of 2 processes on one "
+                    "card, k/v staged through the host: not device time, "
+                    "not a parallel speed"}
+
+
 def tunable_args(entry):
     """Meta tensors of ``entry``'s first cell shape in bf16 (what its
     candidates read: dtypes and head dim)."""
@@ -3439,6 +4140,10 @@ def main() -> int:
     train_fp32_parity(device)
     train_fp32_exact(device)
 
+    log("[8/8] parallel train: ring attention, sharded steps, LocalSGD, the "
+        "sharded snapshot (gloo groups on one card)")
+    par_stats = parallel_train(device)
+
     lines = [kernel_line(e, rows[e.name], stats["launches"][e.name],
                          {**({"long": long_rows} if e is PA.DECODE
                              else {"verify": verify_rows[e.name]}),
@@ -3478,6 +4183,7 @@ def main() -> int:
     # K5 also runs in 4f's prefills (GPT.generate, generate_bucketed)
     k5_line, = [ln for ln in lines if ln["name"] == flash[0].name]
     k5_line["launches_generate"] = gen_stats["k5_launches"]
+    lines.append(ring_line(par_stats))
     log(f"[7/7] done in {time.monotonic() - t_start:.1f} s; library_ms of "
         "the two backward rows is one call for the pair: SDPA's whole "
         "backward (dq, dk, dv)")

@@ -8,6 +8,16 @@ axis (``mesh.get_group(axis)``), and each rank holds its own shard. The
 caller starts the group (``init_process_group`` with its address, world
 size, rank and a timeout); :func:`make_mesh` never does.
 
+``make_mesh(..., stage_cuda_through_host=True)`` is the one switch that
+lets a gloo mesh hold multi-rank code on one card: under it the
+collectives gloo cannot run on CUDA tensors (``ppermute``,
+``all_gather``, ``reduce_scatter``, ``all_to_all``) copy the tensor to a
+pinned host buffer, run over gloo and copy the result back, and count
+their calls and bytes (:func:`paddle_tpu_torch.parallel.collective.
+staged_stats`). It is transport only (every kernel still runs on the
+card), off by default, and without it those ops raise on CUDA tensors as
+they always did. An NCCL mesh never stages.
+
 Canonical axis names (every sharding rule in
 :mod:`paddle_tpu_torch.parallel` uses them):
   "dp"   data parallel             (batch dim)
@@ -64,7 +74,8 @@ class MeshConfig:
 def make_mesh(config: Optional[MeshConfig] = None, *,
               device_type: str = "cuda",
               axis_names: Optional[Sequence[str]] = None,
-              shape: Optional[Sequence[int]] = None) -> DeviceMesh:
+              shape: Optional[Sequence[int]] = None,
+              stage_cuda_through_host: bool = False) -> DeviceMesh:
     """A named mesh over every rank of the initialized process group.
 
     With no config and no shape, a pure data-parallel mesh. A
@@ -72,7 +83,9 @@ def make_mesh(config: Optional[MeshConfig] = None, *,
     reference keeps them), so rules can always name any axis; its size
     must equal the world size. ``shape`` with ``axis_names`` builds any
     other mesh. ``device_type`` is where the ranks' tensors live
-    (``"cuda"`` unless the caller asks for the CPU)."""
+    (``"cuda"`` unless the caller asks for the CPU).
+    ``stage_cuda_through_host`` turns on the staged transport of the
+    module docstring (:func:`stages_cuda`)."""
     if not dist.is_initialized():
         raise RuntimeError(
             "make_mesh needs an initialized torch.distributed process "
@@ -100,7 +113,14 @@ def make_mesh(config: Optional[MeshConfig] = None, *,
         raise ValueError(f"mesh shape {tuple(shape)} needs "
                          f"{math.prod(shape)} ranks, have {n}")
     ranks = torch.arange(n).reshape(tuple(shape))
-    return DeviceMesh(device_type, ranks, mesh_dim_names=tuple(axis_names))
+    mesh = DeviceMesh(device_type, ranks, mesh_dim_names=tuple(axis_names))
+    mesh.stage_cuda_through_host = bool(stage_cuda_through_host)
+    return mesh
+
+
+def stages_cuda(mesh: Optional[DeviceMesh]) -> bool:
+    """Whether ``mesh`` was made with ``stage_cuda_through_host=True``."""
+    return bool(getattr(mesh, "stage_cuda_through_host", False))
 
 
 def axis_size(mesh: DeviceMesh, axis: str) -> int:

@@ -107,10 +107,14 @@ class CheckpointManager:
         return True
 
     def restore(self, step: Optional[int] = None,
-                target: Optional[Any] = None):
+                target: Optional[Any] = None,
+                shardings: Optional[Any] = None):
         """Load the newest VALID snapshot (or ``step``) as a tree of CPU
-        tensors; integrity is verified before any bytes are trusted."""
-        return self.manager.restore(step, target=target)
+        tensors; integrity is verified before any bytes are trusted.
+        ``shardings`` (a tree of ``(spec, mesh)``) reads each rank's
+        blocks only (``SnapshotEngine.restore``)."""
+        return self.manager.restore(step, target=target,
+                                    shardings=shardings)
 
     def latest_step(self) -> Optional[int]:
         return self.manager.latest_step()

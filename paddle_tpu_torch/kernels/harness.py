@@ -133,7 +133,14 @@ def parity_check(name: str, seed: int = 0, *,
     [<dtype>]"`` for every configuration of the tunables in float32 and
     bfloat16 (bf16 against the plain version in float32 on the same bf16
     inputs), each also held to the dense reference in float32. Raises
-    ``AssertionError`` outside the entry's tolerance."""
+    ``AssertionError`` outside the entry's tolerance.
+
+    A composite entry with a battery of its own (``ring_attention``) runs
+    it, and every rank of the ambient mesh must call it at once
+    (:class:`~paddle_tpu_torch.kernels.registry.CompositeEntry`)."""
+    composite = _registry.get_composite(name)
+    if composite is not None and composite.parity_fn is not None:
+        return composite.parity_fn(seed, device=device)
     entry = _registry.get(name)
     args, kwargs = entry.sample_inputs(seed)
     tol = entry.tolerance[torch.float32]

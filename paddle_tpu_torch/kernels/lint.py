@@ -12,6 +12,11 @@ ctypes entry points instead of ``pallas_call`` sites. Two rules:
   committed tuning cache holds no dead entry; and each C entry point's
   ctypes signature has as many arguments as its ``extern "C"`` prototype
   in ``csrc/`` has parameters (the guard on the tunable arguments).
+- ``composite-entry-contract``, per composite entry (the ``*_tp``
+  entries, ``ring_attention``): its inner kernels are registered, its
+  layouts have the ranks of its sample inputs, its version is set (and
+  its tolerance, where it has a battery), and both its entry point and
+  its plain version refuse to run without a mesh.
 - ``kernel-registry-bypass``, over the package and ``csrc/``: every
   ``extern "C" int ptt_*`` entry point is named by exactly one registry
   entry, and every Python call that binds one (``build.bind``) lies in a
@@ -148,6 +153,59 @@ def contract_findings(entry, tuner=None,
     return out
 
 
+def composite_entry_findings(entry) -> List[Finding]:
+    """Check one composite entry's declared contract (module
+    docstring)."""
+    out: List[Finding] = []
+
+    def bad(msg, fix=""):
+        out.append(Finding("composite-entry-contract", "error", msg,
+                           location=f"kernels/{entry.name}", fix=fix,
+                           engine="plan"))
+
+    known = set(_registry.names())
+    for inner in entry.inner:
+        if inner not in known:
+            bad(f"inner kernel {inner!r} is not registered",
+                fix="name registered kernels only")
+    if not entry.inner:
+        bad("no inner kernel: a composite entry runs registered "
+            "kernels")
+    args, kwargs = entry.sample_inputs(0)
+    layouts = list(entry.arg_layouts.items())
+    for (arg, layout), a in zip(layouts, args):
+        rank = _layout_rank(layout)
+        if rank is not None and isinstance(a, torch.Tensor) \
+                and a.ndim != rank:
+            bad(f"arg {arg!r} declared {layout} (rank {rank}) but the "
+                f"sample input has rank {a.ndim}")
+    if len(args) > len(layouts):
+        bad(f"{len(layouts)} declared layouts for {len(args)} sample "
+            "arguments")
+    if entry.version < 1:
+        bad(f"version {entry.version}: a contract states one")
+    if entry.parity_fn is not None and not (
+            callable(entry.parity_fn) and entry.atol and entry.atol > 0
+            and entry.rtol and entry.rtol > 0):
+        bad(f"a battery with atol {entry.atol}, rtol {entry.rtol}: it "
+            "states both")
+    if not entry.requires_mesh:
+        bad("a composite entry requires a mesh")
+    from paddle_tpu_torch.core import mesh as mesh_lib
+    if mesh_lib.current_mesh() is None:
+        for what, fn in (("fn", entry.fn), ("plain_fn", entry.plain_fn)):
+            try:
+                fn(*args, **kwargs)
+            except ValueError as e:
+                if "requires a mesh" not in str(e):
+                    bad(f"{what} without a mesh raised {e!r}, not the "
+                        "refusal")
+            else:
+                bad(f"{what} ran without a mesh",
+                    fix="refuse to run without mesh= or a mesh_context")
+    return out
+
+
 def _bind_sites(path: str, module: str) -> List[Tuple[str, int]]:
     """``(module, line)`` of every ``build.bind(...)`` call in a file."""
     with open(path) as f:
@@ -239,6 +297,8 @@ def lint_registry(suppressions=None, *, tuner=None,
     for name in _registry.names():
         report.extend(contract_findings(_registry.get(name), tuner=tuner,
                                         prototypes=prototypes))
+    for entry in _registry.composite_entries():
+        report.extend(composite_entry_findings(entry))
     if committed is not None:
         for key in _autotune.KernelTuner(committed).stale_entries():
             report.add(Finding(

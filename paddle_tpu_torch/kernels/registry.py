@@ -155,40 +155,73 @@ HOME_MODULES = ("paddle_tpu_torch.serving.paged_attention",
                 "paddle_tpu_torch.ops.attention")
 
 
-@dataclasses.dataclass(frozen=True)
-class TpEntry:
-    """A tensor-parallel entry point (the reference's
-    ``ragged_paged_*_tp``): the registered kernel ``inner`` run on each
-    rank's ``H/tp`` head slice, with no kernel of its own (the
-    reference's ``pallas_sites=()``). Heads are independent, so a rank's
-    output equals the tp=1 kernel's on those heads; the collective that
-    completes the layer (``collectives``) belongs to the caller's
-    row-split output projection. ``fn`` is the entry point, ``plain_fn``
-    the inner plain version on the local slice; both take ``mesh=`` (or
-    the ambient ``mesh_context``) and refuse to run without one."""
+@dataclasses.dataclass
+class CompositeEntry:
+    """An entry point with no kernel of its own (the reference's
+    ``pallas_sites=()``): it runs the registered kernels ``inner`` on
+    each rank of a mesh, and ``collectives`` complete or feed it.
+
+    - The tensor-parallel entries (the reference's
+      ``ragged_paged_*_tp``) run one inner kernel on the rank's ``H/tp``
+      head slice. Heads are independent, so a rank's output equals the
+      tp=1 kernel's on those heads; the all-reduce that completes the
+      layer belongs to the caller's row-split output projection.
+    - ``ring_attention`` runs the flash kernels on every visiting block
+      and moves k/v between the ranks (``ppermute``).
+
+    ``fn`` is the entry point, ``plain_fn`` the same over the inner
+    kernels' plain versions; both take ``mesh=`` (or the ambient
+    ``mesh_context``) and refuse to run without one.
+    ``sample_inputs(seed)`` gives inputs the lint runs them on. An entry
+    with a battery of its own has ``parity_fn(seed, device=...)``, run
+    on every rank of a group at once (the reference's ``parity_fn``
+    orchestrates a mesh the same way) and held to ``atol``/``rtol``; the
+    tp entries have none (their battery is the inner kernel's).
+    ``calls`` counts the entry's calls (:meth:`note_call`)."""
 
     name: str
-    inner: str
+    inner: Tuple[str, ...]
     arg_layouts: Mapping[str, str]
     out_layout: str
     fn: Callable
     plain_fn: Callable
+    sample_inputs: Callable[[int], Tuple[tuple, dict]]
     collectives: Tuple[str, ...] = ("all_reduce",)
     requires_mesh: bool = True
+    version: int = 1
+    replaces: str = ""
+    source: str = ""
+    parity_fn: Optional[Callable[..., Dict[str, float]]] = None
+    atol: Optional[float] = None
+    rtol: Optional[float] = None
+    calls: int = 0
+
+    def note_call(self, n: int = 1):
+        with _count_lock:
+            self.calls += n
 
 
-_TP_REGISTRY: Dict[str, TpEntry] = {}
+_COMPOSITE_REGISTRY: Dict[str, CompositeEntry] = {}
+
+#: modules that register composite entries only (they bind nothing)
+COMPOSITE_MODULES = ("paddle_tpu_torch.parallel.ring_attention",)
 
 
-def register_tp(entry: TpEntry) -> TpEntry:
-    _TP_REGISTRY[entry.name] = entry
+def register_composite(entry: CompositeEntry) -> CompositeEntry:
+    _COMPOSITE_REGISTRY[entry.name] = entry
     return entry
 
 
-def tp_entries() -> Tuple[TpEntry, ...]:
-    """Every registered tensor-parallel entry point, by name."""
+def composite_entries() -> Tuple[CompositeEntry, ...]:
+    """Every registered composite entry point, by name."""
     load_all()
-    return tuple(_TP_REGISTRY[n] for n in sorted(_TP_REGISTRY))
+    return tuple(_COMPOSITE_REGISTRY[n] for n in sorted(_COMPOSITE_REGISTRY))
+
+
+def get_composite(name: str) -> Optional[CompositeEntry]:
+    """The composite entry ``name``, or None when none has it."""
+    load_all()
+    return _COMPOSITE_REGISTRY.get(name)
 
 
 def register(entry: KernelEntry) -> KernelEntry:
@@ -211,8 +244,9 @@ def names() -> Tuple[str, ...]:
 
 
 def load_all() -> Tuple[str, ...]:
-    """Import every kernel home module and return the registered names."""
-    for mod in HOME_MODULES:
+    """Import every kernel home module (and the composite entries'
+    modules) and return the registered kernel names."""
+    for mod in HOME_MODULES + COMPOSITE_MODULES:
         importlib.import_module(mod)
     return names()
 
@@ -238,7 +272,10 @@ def count_delta(after: Dict[str, int],
 
 
 def reset_launches():
-    """Set every entry's launch count to 0 (before a measured run)."""
+    """Set every entry's launch count, and every composite entry's call
+    count, to 0 (before a measured run)."""
     with _count_lock:
         for entry in _REGISTRY.values():
             entry.launches = 0
+        for entry in _COMPOSITE_REGISTRY.values():
+            entry.calls = 0

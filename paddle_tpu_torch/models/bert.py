@@ -7,7 +7,17 @@ Module attribute names mirror the reference's parameter tree
 ``heads.decoder_bias``, ...), so its weights carry across with a key
 flatten and no transposes (:mod:`paddle_tpu_torch.models.convert`). Only
 the layer-list layout is ported (see ROADMAP for the pipeline and stacked
-layouts).
+layouts). The layers carry the reference's sharding hints
+(``nn.module.sharding_specs``).
+
+Sequence parallel (``attn_impl="ring"`` under a mesh whose "sp" axis has
+more than one rank): each rank feeds its own block of ``S/sp`` tokens.
+Positions start at the block's offset in the sequence, the pooled output
+is sp rank 0's first token broadcast to every rank, and the MLM loss is
+the global masked sum over the global mask count; so the losses and the
+pooled output are the unsharded model's on every rank. Over the batch
+axes ("dp", "fsdp") both losses are means over the whole batch
+(``parallel.functional.global_mean``).
 """
 
 from __future__ import annotations
@@ -18,6 +28,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from paddle_tpu_torch.core import mesh as mesh_lib
 from paddle_tpu_torch.core.device import resolve_device
 from paddle_tpu_torch.nn import initializer as I
 from paddle_tpu_torch.nn.layers import Dropout, Embedding, LayerNorm, Linear
@@ -61,19 +72,37 @@ class BertConfig:
         return cls(**kw)
 
 
+def _sp_block(cfg: BertConfig):
+    """``(mesh, this rank's index)`` on the ambient mesh's "sp" axis when
+    the sequence is split over it, else ``(None, 0)``."""
+    mesh = mesh_lib.current_mesh()
+    n = mesh_lib.axis_size(mesh, mesh_lib.SP) if mesh is not None else 1
+    if n == 1:
+        return None, 0
+    if cfg.attn_impl != "ring":
+        raise ValueError(f"the sequence is split over sp={n} ranks: BERT "
+                         "needs attn_impl='ring' there")
+    return mesh, mesh_lib.axis_index(mesh, mesh_lib.SP)
+
+
 class BertEmbeddings(nn.Module):
     def __init__(self, cfg: BertConfig, **kw):
         super().__init__()
+        self.cfg = cfg
         self.word = Embedding(cfg.vocab_size, cfg.hidden_size, **kw)
-        self.position = Embedding(cfg.max_position, cfg.hidden_size, **kw)
+        self.position = Embedding(cfg.max_position, cfg.hidden_size,
+                                  sharding=None, **kw)
         self.token_type = Embedding(cfg.type_vocab_size, cfg.hidden_size,
-                                    **kw)
+                                    sharding=None, **kw)
         self.ln = LayerNorm(cfg.hidden_size, **kw)
         self.drop = Dropout(cfg.dropout)
 
     def forward(self, input_ids, token_type_ids=None,
                 generator: Optional[torch.Generator] = None):
-        pos = torch.arange(input_ids.shape[1], device=input_ids.device)
+        s = input_ids.shape[1]
+        _, block = _sp_block(self.cfg)
+        pos = torch.arange(block * s, (block + 1) * s,
+                           device=input_ids.device)
         x = self.word(input_ids) + self.position(pos[None, :])
         if token_type_ids is None:
             token_type_ids = torch.zeros_like(input_ids)
@@ -92,7 +121,8 @@ class BertModel(nn.Module):
                 dropout=cfg.dropout, attn_dropout=cfg.attn_dropout,
                 pre_ln=cfg.pre_ln, attn_impl=cfg.attn_impl, **kw)
             for _ in range(cfg.num_layers)])
-        self.pooler = Linear(cfg.hidden_size, cfg.hidden_size, **kw)
+        self.pooler = Linear(cfg.hidden_size, cfg.hidden_size, sharding=None,
+                             **kw)
 
     def forward(self, input_ids, token_type_ids=None, attention_mask=None,
                 generator: Optional[torch.Generator] = None):
@@ -104,7 +134,12 @@ class BertModel(nn.Module):
         x = self.embeddings(input_ids, token_type_ids, generator)
         for layer in self.encoder:
             x = layer(x, bias=bias, generator=generator)
-        return x, torch.tanh(self.pooler(x[:, 0]))
+        first = x[:, 0]
+        mesh, _ = _sp_block(self.cfg)
+        if mesh is not None:         # the first token lies on sp rank 0
+            from paddle_tpu_torch.parallel.functional import broadcast_from
+            first = broadcast_from(first, mesh_lib.SP, 0, mesh)
+        return x, torch.tanh(self.pooler(first))
 
 
 class BertPretrainingHeads(nn.Module):
@@ -113,19 +148,21 @@ class BertPretrainingHeads(nn.Module):
     def __init__(self, cfg: BertConfig, *, device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
-        self.transform = Linear(cfg.hidden_size, cfg.hidden_size, **kw)
+        self.transform = Linear(cfg.hidden_size, cfg.hidden_size,
+                                sharding=None, **kw)
         self.ln = LayerNorm(cfg.hidden_size, **kw)
         self.decoder_bias = nn.Parameter(torch.zeros(cfg.vocab_size, **kw))
-        self.nsp = Linear(cfg.hidden_size, 2, **kw)
+        self.nsp = Linear(cfg.hidden_size, 2, sharding=None, **kw)
+        self.param_sharding = {"decoder_bias": ("tp",)}
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         I.zeros(self.decoder_bias)
 
-    def forward(self, sequence_output, pooled_output, word_table):
+    def forward(self, sequence_output, pooled_output, word: Embedding):
+        """``word`` is the tied word embedding (the decoder's table)."""
         h = ops_act.gelu(self.transform(sequence_output))
         h = self.ln(h)
-        mlm_logits = torch.einsum("bsd,vd->bsv", h, word_table) \
-            + self.decoder_bias
+        mlm_logits = word.attend(h, self.decoder_bias)
         return mlm_logits, self.nsp(pooled_output)
 
 
@@ -163,7 +200,7 @@ class BertForPretraining(nn.Module):
         """Returns (mlm_logits (B, S, V), nsp_logits (B, 2))."""
         seq, pooled = self.bert(input_ids, token_type_ids, attention_mask,
                                 generator)
-        return self.heads(seq, pooled, self.bert.embeddings.word.weight)
+        return self.heads(seq, pooled, self.bert.embeddings.word)
 
     def loss(self, input_ids, token_type_ids, attention_mask, mlm_labels,
              mlm_mask, nsp_labels, *,
@@ -171,16 +208,29 @@ class BertForPretraining(nn.Module):
         """mlm_labels: (B, S) target ids; mlm_mask: (B, S) 1.0 where
         masked; nsp_labels: (B,). Returns (loss, metrics). The MLM
         log-softmax runs in fp32 over every position, as the reference's
-        does."""
+        does. Under a mesh both losses are means over the global batch
+        (module docstring)."""
         mlm_logits, nsp_logits = self.forward(
             input_ids, token_type_ids, attention_mask, generator=generator)
         mlm_lp = torch.log_softmax(mlm_logits.float(), dim=-1)
         mlm_nll = -torch.gather(mlm_lp, -1, mlm_labels[..., None].long())[..., 0]
-        denom = torch.clamp(mlm_mask.sum(), min=1.0)
-        mlm_loss = (mlm_nll * mlm_mask).sum() / denom
         nsp_lp = torch.log_softmax(nsp_logits.float(), dim=-1)
-        nsp_loss = -torch.gather(nsp_lp, -1,
-                                 nsp_labels[:, None].long()).mean()
+        nsp_nll = -torch.gather(nsp_lp, -1, nsp_labels[:, None].long())
+        mesh = mesh_lib.current_mesh()
+        if mesh is None:
+            denom = torch.clamp(mlm_mask.sum(), min=1.0)
+            mlm_loss = (mlm_nll * mlm_mask).sum() / denom
+            nsp_loss = nsp_nll.mean()
+        else:
+            from paddle_tpu_torch.parallel.functional import global_mean
+            batch = mesh_lib.BATCH_AXES
+            mlm_loss = global_mean((mlm_nll * mlm_mask).sum(),
+                                   mlm_mask.sum(), batch + (mesh_lib.SP,),
+                                   mesh)
+            # every sp rank holds the same sequences' NSP terms
+            nsp_loss = global_mean(nsp_nll.sum(), torch.full(
+                (), float(nsp_nll.numel()), device=nsp_nll.device), batch,
+                mesh)
         loss = mlm_loss + nsp_loss
         return loss, {"mlm_loss": mlm_loss, "nsp_loss": nsp_loss}
 

@@ -94,7 +94,7 @@ class GPT(nn.Module):
         self.wte = Embedding(cfg.vocab_size, cfg.hidden_size, init_std=0.02,
                              **kw)
         self.wpe = Embedding(cfg.max_position, cfg.hidden_size, init_std=0.01,
-                             **kw)
+                             sharding=None, **kw)
         self.drop = Dropout(cfg.dropout)
         self.blocks = nn.ModuleList([GPTBlock(cfg, **kw)
                                      for _ in range(cfg.num_layers)])
@@ -115,8 +115,7 @@ class GPT(nn.Module):
         x = self.drop(self.wte(ids) + self.wpe(pos), generator)
         for block in self.blocks:
             x = block(x, generator)
-        x = self.ln_f(x)
-        return torch.einsum("bsd,vd->bsv", x, self.wte.weight)
+        return self.wte.attend(self.ln_f(x))
 
     def loss(self, ids, *, generator: Optional[torch.Generator] = None):
         """Next-token LM loss over ids (B, S): predict ``ids[:, 1:]``.

@@ -12,15 +12,30 @@ from torch import nn
 
 from paddle_tpu_torch.nn import initializer as I
 
+#: the reference's default hints: Megatron column split, vocab split
+COLUMN, ROW, VOCAB = (None, "tp"), ("tp", None), ("tp", None)
+
 
 class Linear(nn.Module):
     """``y = x @ W + b`` with ``W`` stored ``(in, out)``, as the
-    reference stores it (not ``nn.Linear``'s ``(out, in)``)."""
+    reference stores it (not ``nn.Linear``'s ``(out, in)``).
+    ``sharding`` is the weight's hint (the reference's default: split
+    over "tp" on the output dim); under a sharded train step's Megatron
+    placement ``tp`` holds this layer's role
+    (:mod:`paddle_tpu_torch.parallel.api`)."""
+
+    #: the layer's tensor-parallel role, set by a sharded placement
+    tp = None
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
-                 *, device=None, dtype=None):
+                 *, sharding=COLUMN, device=None, dtype=None):
         super().__init__()
         self.in_features, self.out_features = in_features, out_features
+        # the bias takes the weight's output entry, as the reference's
+        out = sharding[-1] if sharding is not None else None
+        self.param_sharding = {
+            "weight": None if sharding is None else tuple(sharding),
+            "bias": (out,) if out else None}
         self.weight = nn.Parameter(torch.empty(in_features, out_features,
                                                device=device, dtype=dtype))
         self.bias = (nn.Parameter(torch.empty(out_features, device=device,
@@ -34,6 +49,8 @@ class Linear(nn.Module):
             I.zeros(self.bias)
 
     def forward(self, x):
+        if self.tp is not None:
+            return self.tp.linear(self, x)
         out = torch.matmul(x, self.weight)
         if self.bias is not None:
             out = out + self.bias
@@ -112,12 +129,19 @@ def embedding(ids, weight):
 
 class Embedding(nn.Module):
     """Token/position lookup table ``(num_embeddings, embedding_dim)``;
-    its gradient is bit-reproducible (:func:`embedding`)."""
+    its gradient is bit-reproducible (:func:`embedding`). ``sharding`` is
+    the table's hint (the reference's default: rows split over "tp");
+    ``tp`` holds its role under a sharded placement."""
+
+    tp = None
 
     def __init__(self, num_embeddings: int, embedding_dim: int, *,
-                 init_std: float = 0.02, device=None, dtype=None):
+                 init_std: float = 0.02, sharding=VOCAB, device=None,
+                 dtype=None):
         super().__init__()
         self.init_std = init_std
+        self.param_sharding = {"weight": None if sharding is None
+                               else tuple(sharding)}
         self.weight = nn.Parameter(torch.empty(num_embeddings, embedding_dim,
                                                device=device, dtype=dtype))
 
@@ -125,7 +149,17 @@ class Embedding(nn.Module):
         I.normal(0.0, self.init_std)(self.weight, generator)
 
     def forward(self, ids):
+        if self.tp is not None:
+            return self.tp.lookup(self, ids)
         return embedding(ids, self.weight)
+
+    def attend(self, x, bias=None):
+        """``x @ table^T (+ bias)``: the tied output projection
+        ``(..., D) -> (..., V)``."""
+        if self.tp is not None:
+            return self.tp.attend(self, x, bias)
+        out = torch.einsum("bsd,vd->bsv", x, self.weight)
+        return out if bias is None else out + bias
 
 
 def dropout(x, rate: float = 0.5, *, training: bool = True,

@@ -11,9 +11,15 @@ from typing import Optional
 import torch
 from torch import nn
 
-from paddle_tpu_torch.nn.layers import Dropout, LayerNorm, Linear
+from paddle_tpu_torch.nn.layers import COLUMN, ROW, Dropout, LayerNorm, Linear
 from paddle_tpu_torch.ops import activation as ops_act
 from paddle_tpu_torch.ops.attention import dot_product_attention
+
+#: ``attn_impl="ring"``'s layout of q, k, v (the reference's
+#: ``RING_HEADS_SPEC``, the sequence split over "sp"): each rank already
+#: holds its own sequence block, so the heads are the local
+#: ``(B, H, S/sp, Dh)`` block and nothing is constrained
+RING_HEADS_SPEC = "the local (B, H, S/sp, Dh) block"
 
 
 class MultiHeadAttention(nn.Module):
@@ -23,7 +29,15 @@ class MultiHeadAttention(nn.Module):
     and with ``cache=`` it is one KV-cached decode step (the dense
     ``GPT.generate`` path); the serving engine owns the attention itself
     (ragged paged kernels) and uses only :meth:`qkv_heads` and
-    :meth:`proj_out`."""
+    :meth:`proj_out`. ``attn_impl="ring"`` runs
+    :func:`~paddle_tpu_torch.parallel.ring_attention.ring_attention` over
+    the ambient mesh's "sp" axis on this rank's sequence block (no
+    attention-probability dropout). Under a Megatron placement
+    ``local_heads`` is ``(first, count)``: the heads this rank's
+    row-split output projection holds."""
+
+    #: set by a sharded placement: this rank's heads (first, count)
+    local_heads = None
 
     def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0,
                  bias: bool = True, causal: bool = False,
@@ -36,10 +50,14 @@ class MultiHeadAttention(nn.Module):
         self.dropout_rate = dropout
         self.causal = causal
         self.attn_impl = attn_impl
+        if attn_impl == "ring" and dropout > 0.0:
+            raise ValueError(
+                "ring attention does not support attention-prob dropout; "
+                "set attn_dropout=0 (residual dropout still applies)")
         self.qkv_proj = Linear(embed_dim, 3 * embed_dim, bias=bias,
-                               device=device, dtype=dtype)
+                               sharding=COLUMN, device=device, dtype=dtype)
         self.out_proj = Linear(embed_dim, embed_dim, bias=bias,
-                               device=device, dtype=dtype)
+                               sharding=ROW, device=device, dtype=dtype)
 
     def _split_heads(self, x):
         b, s, _ = x.shape
@@ -50,9 +68,14 @@ class MultiHeadAttention(nn.Module):
         return x.transpose(1, 2).reshape(b, s, h * d)
 
     def qkv_heads(self, x):
-        """(B, S, D) -> (q, k, v), each (B, H, S, Dh)."""
+        """(B, S, D) -> (q, k, v), each (B, H, S, Dh) (this rank's heads
+        under a Megatron placement)."""
         q, k, v = torch.chunk(self.qkv_proj(x), 3, dim=-1)
-        return tuple(self._split_heads(t) for t in (q, k, v))
+        heads = tuple(self._split_heads(t) for t in (q, k, v))
+        if self.local_heads is not None:
+            first, count = self.local_heads
+            heads = tuple(t[:, first:first + count] for t in heads)
+        return heads
 
     def proj_out(self, heads):
         """(B, H, S, Dh) attention output -> (B, S, D)."""
@@ -88,6 +111,14 @@ class MultiHeadAttention(nn.Module):
                                         causal=False, impl="xla")
             return self.proj_out(out.to(q.dtype)), (ck, cv)
         rate = self.dropout_rate if self.training else 0.0
+        if self.attn_impl == "ring":
+            # sequence parallel: k/v ride the ring of the mesh's "sp" axis
+            from paddle_tpu_torch.parallel.ring_attention import \
+                ring_attention
+            out = ring_attention(q, k, v, bias=bias, causal=self.causal)
+            if return_kv:
+                return self.proj_out(out), (k, v)
+            return self.proj_out(out)
         out = dot_product_attention(q, k, v, bias=bias, causal=self.causal,
                                     dropout_rate=rate, generator=generator,
                                     impl=self.attn_impl)
@@ -102,8 +133,10 @@ class FeedForward(nn.Module):
     def __init__(self, embed_dim: int, ffn_dim: int, activation: str = "gelu",
                  dropout: float = 0.0, *, device=None, dtype=None):
         super().__init__()
-        self.fc1 = Linear(embed_dim, ffn_dim, device=device, dtype=dtype)
-        self.fc2 = Linear(ffn_dim, embed_dim, device=device, dtype=dtype)
+        self.fc1 = Linear(embed_dim, ffn_dim, sharding=COLUMN, device=device,
+                          dtype=dtype)
+        self.fc2 = Linear(ffn_dim, embed_dim, sharding=ROW, device=device,
+                          dtype=dtype)
         self.act = getattr(ops_act, activation)
         self.drop = Dropout(dropout)
 

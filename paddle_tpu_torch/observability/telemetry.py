@@ -14,6 +14,7 @@ from typing import Any, Callable, Dict, Optional
 
 import torch
 
+from paddle_tpu_torch.observability import aggregate as _agg
 from paddle_tpu_torch.observability import recompile as _recompile
 from paddle_tpu_torch.observability import registry as _registry
 from paddle_tpu_torch.observability import runlog as _runlog
@@ -78,9 +79,11 @@ class StepTelemetry:
     (or graph replay) returns before the device finishes, so in steady
     state the device's backpressure makes per-step times honest, while the
     first steps can look fast; a rate over a run is taken from wall time
-    ending in a synchronise. The reference's cross-host line
-    (``aggregate_every``) waits for more than one process
-    (:mod:`~paddle_tpu_torch.observability.aggregate`).
+    ending in a synchronise. Every ``aggregate_every`` steps of a run of
+    more than one process, every process all-gathers the step's headline
+    numbers and process 0 logs the min/mean/max line
+    (:mod:`~paddle_tpu_torch.observability.aggregate`); every process
+    must step in lockstep then, as the ranks of a sharded step do.
     """
 
     def __init__(self, name: str = "train", *,
@@ -89,11 +92,13 @@ class StepTelemetry:
                  registry: Optional[_registry.MetricsRegistry] = None,
                  log_fn: Callable[[str], None] = print,
                  memory_every: int = 50,
+                 aggregate_every: int = 0,
                  detect_recompiles: bool = True):
         self.name = name
         self.reg = registry or _registry.default()
         self.log_fn = log_fn
         self.memory_every = memory_every
+        self.aggregate_every = aggregate_every
         self.writer = None
         if run_log:
             self.writer = _runlog.RunLogWriter(
@@ -163,7 +168,25 @@ class StepTelemetry:
         self._wait_s = 0.0
         if self.writer is not None:
             self.writer.write(rec)
+        if self.aggregate_every and self._steps % self.aggregate_every == 0:
+            self.aggregate_line(rec)
         return rec
+
+    # -- cross-process -----------------------------------------------------
+    def aggregate_line(self, rec: Dict[str, Any]):
+        """More than one process: all-gather the step's headline numbers
+        and log the min/mean/max skew line from process 0. One process:
+        nothing."""
+        if _agg.process_count() == 1:
+            return
+        stats = _agg.aggregate({
+            "step_time_s": rec["step_time_s"],
+            "examples_per_sec": rec["examples_per_sec"],
+            "data_wait_s": rec.get("data_wait_s", 0.0),
+        })
+        if _agg.process_index() == 0:
+            self.log_fn(f"[observability] step {rec['step']} "
+                        + _agg.format_aggregate(stats))
 
     def close(self, summary: Optional[Dict[str, Any]] = None):
         if self.writer is not None:

@@ -33,6 +33,13 @@ AdamW also multi-tensor (``foreach=True``, the default): one chain of
 reference's operation order, so a few launches per operation cover every
 parameter. Parameters of other dtypes, or with a slot of another dtype,
 take the plain rule.
+
+Norms: the gradient clips by norm and the trust ratios of LarsMomentum
+and Lamb take norms of whole tensors. A sharded step
+(``parallel.api.shard_train_step``) holds blocks of them and sets
+:attr:`Optimizer.norm_reduce`, which sums each block's squared sum over
+the ranks that hold the tensor's other blocks, so the norms are the
+whole tensors' as in the reference's GSPMD step.
 """
 
 from __future__ import annotations
@@ -91,6 +98,12 @@ class Optimizer(torch.optim.Optimizer):
     SLOTS = ()
     #: slots kept in float32 whatever the parameter's dtype
     FP32_SLOTS = False
+    #: ``(params, sq) -> sq``: ``sq`` a 1-D float32 tensor of squared
+    #: sums, one for each of ``params``, each summed over the ranks that
+    #: hold the other blocks of its parameter (set by a sharded step);
+    #: None: every parameter is whole
+    norm_reduce: Optional[Callable[[List[torch.Tensor], torch.Tensor],
+                                   torch.Tensor]] = None
 
     def __init__(self, params, learning_rate=0.001, regularization=None,
                  grad_clip: Optional[GradClipBase] = None, name=None,
@@ -141,8 +154,22 @@ class Optimizer(torch.optim.Optimizer):
         if self.regularization is not None:
             grads = self.regularization(grads, params)
         if self.grad_clip is not None:
-            grads = self.grad_clip(grads)
+            if self.norm_reduce is None:
+                grads = self.grad_clip(grads)
+            else:
+                grads = self.grad_clip(grads, reduce_sq=lambda sq:
+                                       self.norm_reduce(params, sq))
         return grads
+
+    def _sq_sums(self, p, *ts):
+        """The squared sums of ``ts`` (tensors shaped like ``p``), each
+        of the whole tensor when ``p`` is a block of one."""
+        sq = [torch.sum(torch.square(t)) for t in ts]
+        if self.norm_reduce is None:
+            return sq
+        whole = self.norm_reduce([p] * len(ts),
+                                 torch.stack([s.float() for s in sq]))
+        return [whole[i].to(s.dtype) for i, s in enumerate(sq)]
 
     @torch.no_grad()
     def step(self, closure: Optional[Callable] = None):
@@ -233,8 +260,7 @@ class LarsMomentum(Optimizer):
         self.wd, self.eps = lars_weight_decay, epsilon
 
     def _apply(self, g, p, slots, lr, step):
-        pn = torch.sqrt(torch.sum(torch.square(p)))
-        gn = torch.sqrt(torch.sum(torch.square(g)))
+        pn, gn = (torch.sqrt(s) for s in self._sq_sums(p, p, g))
         local = self.coeff * pn / (gn + self.wd * pn + self.eps)
         local = torch.where((pn == 0) | (gn == 0), 1.0, local)
         v = self.mu * slots["velocity"] + lr * local.float() * (
@@ -457,8 +483,7 @@ class Lamb(Optimizer):
         mhat = m / (1 - self.b1 ** t)
         vhat = v / (1 - self.b2 ** t)
         r = mhat / (torch.sqrt(vhat) + self.eps) + self.wd * p.float()
-        pn = torch.sqrt(torch.sum(torch.square(p.float())))
-        rn = torch.sqrt(torch.sum(torch.square(r)))
+        pn, rn = (torch.sqrt(s) for s in self._sq_sums(p, p.float(), r))
         trust = torch.where((pn > 0) & (rn > 0), pn / rn, 1.0)
         return p - (lr * trust * r).to(p.dtype), {"m": m, "v": v}
 

@@ -1,13 +1,15 @@
-"""Deep gradient compression (``paddle_tpu/optimizer/compression.py``,
-``DGC`` only): a gradient transform with momentum correction, error
-feedback and top-k sparsification. ``LocalSGD`` and ``localsgd_average``
-average parameters across workers and wait for the port's
-``torch.distributed`` layer (see ROADMAP).
+"""Gradient compression and local SGD
+(``paddle_tpu/optimizer/compression.py``): ``DGC``, a gradient transform
+with momentum correction, error feedback and top-k sparsification; and
+``LocalSGD`` / ``localsgd_average``, workers that step on their own and
+average their parameters over the mesh's "dp" axis every ``k_steps``
+(one all-reduce per parameter, in place).
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence
+import math
+from typing import Dict, Iterable, List, Sequence
 
 import torch
 
@@ -77,3 +79,38 @@ class DGC:
             new_u.append(u2 * (1 - mask))
             new_v.append(v2 * (1 - mask))
         return outs, {"u": new_u, "v": new_v, "step": state["step"] + 1}
+
+
+def localsgd_average(params: Iterable[torch.Tensor], axis="dp", mesh=None):
+    """Average every parameter over the mesh's ``axis`` (a LocalSGD sync
+    point), in place on each rank: the mean of the members' values (the
+    reference's ``pmean``). ``mesh`` defaults to the ambient
+    ``mesh_context``."""
+    from paddle_tpu_torch.core import mesh as mesh_lib
+    from paddle_tpu_torch.parallel import collective
+    mesh = mesh if mesh is not None else mesh_lib.current_mesh()
+    if mesh is None:
+        raise ValueError("localsgd_average needs a mesh: pass mesh= or "
+                         "enter mesh_context()")
+    axes = (axis,) if isinstance(axis, str) else tuple(axis)
+    n = math.prod(mesh_lib.axis_size(mesh, a) for a in axes)
+    with torch.no_grad():
+        for p in params:
+            p.copy_(collective.all_reduce(p, axes, mesh=mesh) / n)
+
+
+class LocalSGD:
+    """Periodic averaging: :meth:`maybe_average` averages the parameters
+    over ``axis`` at every step with ``step % k_steps == 0`` (step 0
+    included, as the reference's schedule does) and leaves them
+    otherwise; returns whether it averaged."""
+
+    def __init__(self, k_steps: int = 4, axis: str = "dp"):
+        self.k_steps = k_steps
+        self.axis = axis
+
+    def maybe_average(self, params, step, mesh=None) -> bool:
+        if int(step) % self.k_steps:
+            return False
+        localsgd_average(params, self.axis, mesh)
+        return True

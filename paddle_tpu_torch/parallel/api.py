@@ -1,0 +1,521 @@
+"""Sharded train and eval steps (``paddle_tpu/parallel/api.py``) on
+``torch.distributed``.
+
+The reference hands one jitted step to GSPMD with input and output
+shardings, and XLA inserts the collectives. Here every rank runs the
+step on its own shard of the state and the batch, and the collectives
+are explicit:
+
+- placement: :func:`shard_train_step` cuts each parameter and its
+  optimizer slots to this rank's block under the plan's spec
+  (``plan.state_specs``; ``placed`` is that state, changed in place);
+- data axes ("dp", "fsdp", "sp"): each rank's batch is its block under
+  the batch spec (:func:`batch_specs`); losses that are means over the
+  batch divide global sums by global counts
+  (``parallel.functional.global_mean``), and after the backward the
+  gradients are averaged over the data axes, one bucketed all-reduce per
+  dtype (``replicated``);
+- FSDP: a parameter whose spec names "fsdp" is stored as its block; the
+  forward reads it through an all-gather whose transpose is a
+  reduce-scatter of its gradient (:class:`_FsdpGather`), so the update
+  runs on the local block and its sharded slots;
+- Megatron, from the layers' hints ("tp"): a column-split ``Linear``
+  keeps its output split into the row-split ``Linear`` that follows it
+  (the MLP's ``fc1``/``fc2``; the attention's ``qkv_proj`` gathers its
+  output and keeps this rank's heads for the row-split ``out_proj``),
+  which all-reduces; a column-split layer with no row-split partner
+  all-gathers its output (a row-split layer with no column-split one
+  before it is refused); a vocab-split ``Embedding`` masks the ids
+  outside its rows and all-reduces, and its tied projection all-gathers
+  the logits. Each communication is a ``torch.autograd.Function`` with
+  its transpose in the backward (``parallel.functional``);
+- norms: the optimizer's clip by norm and its trust ratios take each
+  split parameter's squared sums over the axes it is split over
+  (``Optimizer.norm_reduce``), so they are the whole tensors' norms and
+  equal on every rank.
+
+A step with collectives runs eagerly (a gloo collective cannot be
+captured in a CUDA graph; ``TrainStepGraphs.check_capturable``). On a
+gloo mesh of one card the gathers and scatters need the mesh's
+``stage_cuda_through_host`` switch (``core/mesh.py``).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Callable, Dict, Mapping, Optional
+
+import torch
+import torch.distributed as dist
+
+from paddle_tpu_torch.core import mesh as mesh_lib
+from paddle_tpu_torch.parallel import collective
+from paddle_tpu_torch.parallel import functional as pf
+from paddle_tpu_torch.parallel import plan as plan_lib
+from paddle_tpu_torch.parallel.plan import P
+
+#: the batch's spec unless told otherwise: dim 0 over the batch axes
+BATCH_SPEC = P(mesh_lib.BATCH_AXES)
+#: axes a parameter's spec may name here (pipelines are Queue 1 item 4.4)
+PARAM_AXES = (mesh_lib.FSDP, mesh_lib.TP)
+
+
+def batch_specs(batch: Mapping[str, Any], *, seq_dim: Optional[int] = None
+                ) -> Dict[str, tuple]:
+    """Per-feed specs: dim 0 over ("dp", "fsdp"); with ``seq_dim``, that
+    dim of a feed of rank > ``seq_dim`` over "sp" (sequence
+    parallelism). 0-d feeds are replicated."""
+    def spec(x):
+        ndim = getattr(x, "ndim", 0)
+        if ndim == 0:
+            return P()
+        entries = [mesh_lib.BATCH_AXES] + [None] * (ndim - 1)
+        if seq_dim is not None and ndim > seq_dim:
+            entries[seq_dim] = mesh_lib.SP
+        return P(*entries)
+
+    return {k: spec(v) for k, v in batch.items()}
+
+
+def local_batch(batch: Mapping[str, Any], mesh, spec=BATCH_SPEC):
+    """This rank's block of every feed of the global ``batch`` under
+    ``spec`` (one spec for every feed, or a dict of them)."""
+    out = {}
+    for k, v in batch.items():
+        s = spec[k] if isinstance(spec, Mapping) else spec
+        if isinstance(v, torch.Tensor) and v.ndim:
+            v = plan_lib.local_shard(v, s, mesh).contiguous()
+        out[k] = v
+    return out
+
+
+def _names(spec) -> set:
+    out = set()
+    for entry in spec:
+        if entry is not None:
+            out.update((entry,) if isinstance(entry, str) else entry)
+    return out
+
+
+def _dim_naming(spec, axis: str) -> Optional[int]:
+    for dim, entry in enumerate(spec):
+        if entry is not None and axis in ((entry,) if isinstance(entry, str)
+                                          else entry):
+            return dim
+    return None
+
+
+class _FsdpGather(torch.autograd.Function):
+    """A parameter's block gathered over "fsdp" along ``dim``; the
+    transpose reduce-scatters the gradient back to the block."""
+
+    @staticmethod
+    def forward(ctx, p, mesh, dim):
+        ctx.mesh, ctx.dim = mesh, dim
+        return collective.all_gather(p.contiguous(), mesh_lib.FSDP,
+                                     concat_axis=dim, mesh=mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (collective.reduce_scatter(g.contiguous(), mesh_lib.FSDP,
+                                          scatter_axis=ctx.dim,
+                                          mesh=ctx.mesh), None, None)
+
+
+# ---------------------------------------------------------------------------
+# Megatron roles (the layers call them when one is set)
+# ---------------------------------------------------------------------------
+
+class TpLinear:
+    """A split ``Linear``'s role. ``column``: the input is replicated
+    (:func:`~paddle_tpu_torch.parallel.functional.copy_to`), the output
+    is this rank's columns, gathered unless ``keep_split`` (``disjoint``
+    when the gathered value's parts feed only their own rank). ``row``:
+    the input is the split its column-split partner kept, the partial
+    products all-reduced, the bias added once."""
+
+    def __init__(self, mesh, kind: str, *, keep_split=False, disjoint=False):
+        self.mesh, self.kind = mesh, kind
+        self.keep_split, self.disjoint = keep_split, disjoint
+
+    def linear(self, layer, x):
+        tp, mesh = mesh_lib.TP, self.mesh
+        if self.kind == "column":
+            out = torch.matmul(pf.copy_to(x, tp, mesh), layer.weight)
+            if layer.bias is not None:
+                out = out + layer.bias
+            if self.keep_split:
+                return out
+            return pf.gather_from(out, tp, mesh, -1, disjoint=self.disjoint)
+        out = pf.reduce_from(torch.matmul(x, layer.weight), tp, mesh)
+        return out if layer.bias is None else out + layer.bias
+
+
+class TpEmbedding:
+    """A vocab-split ``Embedding``'s role: a lookup of the ids in this
+    rank's rows (the others masked to zero), all-reduced; the tied
+    projection's logits over this rank's rows (its bias split alike),
+    all-gathered."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+
+    def lookup(self, layer, ids):
+        from paddle_tpu_torch.nn.layers import embedding
+        rows = layer.weight.shape[0]
+        lo = mesh_lib.axis_index(self.mesh, mesh_lib.TP) * rows
+        mine = (ids >= lo) & (ids < lo + rows)
+        local = torch.where(mine, ids - lo, torch.zeros_like(ids))
+        out = embedding(local, layer.weight) * mine[..., None].to(
+            layer.weight.dtype)
+        return pf.reduce_from(out, mesh_lib.TP, self.mesh)
+
+    def attend(self, layer, x, bias=None):
+        x = pf.copy_to(x, mesh_lib.TP, self.mesh)
+        out = torch.einsum("bsd,vd->bsv", x, layer.weight)
+        if bias is not None:
+            out = out + bias
+        return pf.gather_from(out, mesh_lib.TP, self.mesh, -1)
+
+
+def _install_tp(model, specs: Dict[str, tuple], mesh):
+    """Set the Megatron roles of ``model``'s layers from their specs."""
+    from paddle_tpu_torch.nn.layers import Embedding, Linear
+    from paddle_tpu_torch.nn.transformer import (FeedForward,
+                                                 MultiHeadAttention)
+    tp = mesh_lib.axis_size(mesh, mesh_lib.TP)
+    names = {id(m): n for n, m in model.named_modules()}
+
+    def kind(layer):
+        spec = specs.get(f"{names[id(layer)]}.weight".lstrip("."), ())
+        dim = _dim_naming(spec, mesh_lib.TP)
+        if dim is None:
+            return None
+        if isinstance(layer, Embedding):
+            if dim != 0:
+                raise NotImplementedError(
+                    "an Embedding splits over tp on its rows only")
+            return "vocab"
+        return "column" if dim == 1 else "row"
+
+    roles = {}
+    for mod in model.modules():
+        if isinstance(mod, FeedForward) and kind(mod.fc1) == "column" \
+                and kind(mod.fc2) == "row":
+            roles[id(mod.fc1)] = TpLinear(mesh, "column", keep_split=True)
+            roles[id(mod.fc2)] = TpLinear(mesh, "row")
+        elif isinstance(mod, MultiHeadAttention):
+            qkv, out = kind(mod.qkv_proj), kind(mod.out_proj)
+            if out == "row":
+                if qkv != "column" or mod.num_heads % tp:
+                    raise NotImplementedError(
+                        "a row-split attention output projection needs a "
+                        "column-split qkv_proj and heads divisible by tp")
+                n = mod.num_heads // tp
+                mod.local_heads = (mesh_lib.axis_index(mesh, mesh_lib.TP)
+                                   * n, n)
+                roles[id(mod.qkv_proj)] = TpLinear(mesh, "column",
+                                                   disjoint=True)
+                roles[id(mod.out_proj)] = TpLinear(mesh, "row")
+    for mod in model.modules():
+        if not isinstance(mod, (Linear, Embedding)):
+            continue
+        k = kind(mod)
+        if k is None:
+            continue
+        if k == "vocab":
+            mod.tp = TpEmbedding(mesh)
+        elif id(mod) in roles:
+            mod.tp = roles[id(mod)]
+        elif k == "column":
+            mod.tp = TpLinear(mesh, k)
+        else:
+            raise NotImplementedError(
+                "a row-split Linear needs the column-split layer before it "
+                "(the MLP's fc1/fc2, the attention's qkv/out projections)")
+
+
+# ---------------------------------------------------------------------------
+# the step's sharding: what build_train_step(sharding=...) calls
+# ---------------------------------------------------------------------------
+
+def _flat_specs(tree, prefix="") -> Dict[str, tuple]:
+    out = {}
+    for k, v in tree.items():
+        name = f"{prefix}.{k}" if prefix else k
+        if isinstance(v, dict):
+            out.update(_flat_specs(v, name))
+        else:
+            out[name] = tuple(v) if v is not None else ()
+    return out
+
+
+class StepSharding:
+    """A train step's placement on ``mesh``: the forward's parameter
+    views (FSDP's gathers), the gradient hook (the data axes' average)
+    and the metrics' average. ``specs`` maps parameter names to specs."""
+
+    def __init__(self, mesh, specs: Dict[str, tuple]):
+        self.mesh = mesh
+        self.specs = specs
+        self.data_axes = pf.live_axes(mesh, pf.DATA_AXES)
+        self.n_data = math.prod(mesh_lib.axis_size(mesh, a)
+                                for a in self.data_axes)
+        fsdp = pf.live_axes(mesh, (mesh_lib.FSDP,))
+        self.fsdp_dims = {n: _dim_naming(s, mesh_lib.FSDP)
+                          for n, s in specs.items()
+                          if fsdp and _dim_naming(s, mesh_lib.FSDP)
+                          is not None}
+        live = pf.live_axes(mesh, mesh_lib.ALL_AXES)
+        #: the backend of the step's collectives (None: it holds none)
+        self.backend = (dist.get_backend(mesh.get_group(live[0]))
+                        if live else None)
+        #: id of a parameter -> the live axes its block is split over
+        self.split_axes: Dict[int, tuple] = {}
+
+    def attach(self, model, opt):
+        """Bind ``opt``'s norms to this placement: each split parameter's
+        squared sums are summed over the axes it is split over
+        (:meth:`reduce_sq`), so a clip by norm and the trust ratios of
+        LarsMomentum and Lamb see whole tensors."""
+        live = set(pf.live_axes(self.mesh, PARAM_AXES))
+        for name, p in model.named_parameters():
+            axes = tuple(a for a in PARAM_AXES
+                         if a in live and a in _names(self.specs.get(name,
+                                                                     ())))
+            if axes:
+                self.split_axes[id(p)] = axes
+        if opt is not None and self.split_axes:
+            opt.norm_reduce = self.reduce_sq
+
+    def reduce_sq(self, params, sq):
+        """``sq[i]``, the squared sum of a tensor shaped like
+        ``params[i]``, summed over the ranks that hold the other blocks
+        of that parameter: one all-reduce per set of axes (the same sets,
+        in the same order, on every rank)."""
+        groups: Dict[tuple, list] = {}
+        for i, p in enumerate(params):
+            axes = self.split_axes.get(id(p))
+            if axes:
+                groups.setdefault(axes, []).append(i)
+        if not groups:
+            return sq
+        sq = sq.clone()
+        for axes in sorted(groups):
+            idx = torch.tensor(groups[axes], device=sq.device)
+            sq[idx] = collective.all_reduce(sq[idx], axes, mesh=self.mesh)
+        return sq
+
+    def views(self, name: str, p):
+        dim = self.fsdp_dims.get(name)
+        return p if dim is None else _FsdpGather.apply(p, self.mesh, dim)
+
+    def sync_grads(self, model):
+        """Average every gradient over the data axes: a sum over the
+        axes it was not yet summed over (an FSDP block's reduce-scatter
+        summed it over "fsdp"), one all-reduce per bucket, then a
+        division by the data axes' ranks."""
+        if not self.data_axes:
+            return
+        buckets: Dict[tuple, list] = {}
+        for name, p in model.named_parameters():
+            if p.grad is None:
+                continue
+            axes = tuple(a for a in self.data_axes
+                         if not (a == mesh_lib.FSDP
+                                 and name in self.fsdp_dims))
+            buckets.setdefault((axes, p.grad.dtype, p.grad.device),
+                               []).append(p.grad)
+        for (axes, _, _), grads in buckets.items():
+            if axes:
+                flat = torch.cat([g.reshape(-1) for g in grads])
+                flat = collective.all_reduce(flat, axes, mesh=self.mesh)
+                off = 0
+                for g in grads:
+                    g.copy_(flat[off:off + g.numel()].view_as(g))
+                    off += g.numel()
+            for g in grads:
+                g.div_(self.n_data)
+
+    def metrics(self, metrics: Dict[str, torch.Tensor]):
+        """Each metric's mean over the data axes (one all-reduce)."""
+        if not self.data_axes or not metrics:
+            return metrics
+        keys = sorted(metrics)
+        vec = torch.stack([metrics[k].float().reshape(()) for k in keys])
+        vec = collective.all_reduce(vec, self.data_axes,
+                                    mesh=self.mesh) / self.n_data
+        return {k: vec[i] for i, k in enumerate(keys)}
+
+
+def _place(model, opt, specs: Dict[str, tuple], mesh):
+    """Cut every parameter, and its optimizer slots, to this rank's block
+    under its spec (in place: ``p.data`` and the slot entries)."""
+    named = dict(model.named_parameters())
+    for name, spec in specs.items():
+        bad = _names(spec) - set(PARAM_AXES)
+        if bad:
+            raise NotImplementedError(
+                f"{name}: a parameter split over {sorted(bad)} is not "
+                "ported (pipelines are ROADMAP Queue 1 item 4.4)")
+        entry = spec[_dim_naming(spec, mesh_lib.FSDP)] \
+            if _dim_naming(spec, mesh_lib.FSDP) is not None else None
+        if isinstance(entry, tuple) and entry[-1] != mesh_lib.FSDP:
+            raise NotImplementedError(
+                f"{name}: 'fsdp' must be the minor axis of a dim it "
+                f"shares ({spec})")
+        p = named[name]
+        full = tuple(p.shape)
+        with torch.no_grad():
+            p.data = plan_lib.local_shard(p.data, spec, mesh).contiguous() \
+                .clone()
+        if opt is None:
+            continue
+        slots = opt.state.get(p, {})
+        for s, t in list(slots.items()):
+            if isinstance(t, torch.Tensor) and tuple(t.shape) == full:
+                slots[s] = plan_lib.local_shard(t, spec, mesh).contiguous() \
+                    .clone()
+
+
+def _param_specs(model, plan, hints, state=None):
+    tree = (plan.state_specs(state, hints)["params"] if state is not None
+            else plan.params_specs(_params_tree(model), hints))
+    return _flat_specs(tree)
+
+
+def _params_tree(model):
+    from paddle_tpu_torch.models.convert import params_tree
+    return params_tree(model)
+
+
+def shard_train_step(step, mesh, state: Dict[str, Any], *,
+                     plan: Optional[plan_lib.ShardingPlan] = None,
+                     hints: Any = None, batch_spec=BATCH_SPEC):
+    """Put ``step`` (from ``train.build_train_step``) on ``mesh``.
+
+    Returns ``(run, placed)``: ``placed`` is ``state`` with every
+    parameter and optimizer slot cut to this rank's block under
+    ``plan.state_specs(state, hints)`` (in place); ``run(state, **batch)``
+    takes the *global* batch, runs the step on this rank's block of it
+    (``batch_spec``: one spec for every feed, or a dict such as
+    :func:`batch_specs` gives) and returns ``(state, metrics)``, the
+    metrics averaged over the data axes. ``run.local(state, **batch)``
+    takes this rank's block as it is. The step runs eagerly. The
+    optimizer's norms (a clip by norm, the trust ratios of LarsMomentum
+    and Lamb) are those of the whole tensors
+    (:meth:`StepSharding.attach`)."""
+    if getattr(step, "rebuild", None) is None:
+        raise TypeError("shard_train_step needs a step made by "
+                        "train.build_train_step")
+    plan = plan or plan_lib.replicated_plan()
+    model, opt = state["model"], state["opt"]
+    if getattr(opt, "inner", None) is not None:
+        raise NotImplementedError("a wrapped optimizer (Lookahead) is not "
+                                  "sharded yet")
+    specs = _param_specs(model, plan, hints, state)
+    _place(model, opt, specs, mesh)
+    if mesh_lib.axis_size(mesh, mesh_lib.TP) > 1:
+        _install_tp(model, specs, mesh)
+    sharding = StepSharding(mesh, specs)
+    sharding.attach(model, opt)
+    sharded = step.rebuild(sharding=sharding, cuda_graphs=False)
+
+    def run_local(state, **batch):
+        return sharded(state, **batch)
+
+    def run(state, **batch):
+        return sharded(state, **local_batch(batch, mesh, batch_spec))
+
+    run.local = run_local
+    run.specs = specs
+    run.sharding = sharding
+    return run, state
+
+
+def shard_eval_step(fn: Callable, mesh, model, *,
+                    plan: Optional[plan_lib.ShardingPlan] = None,
+                    hints: Any = None, batch_spec=BATCH_SPEC):
+    """``fn(model, **batch) -> out`` on ``mesh``: returns ``(run,
+    placed)`` with ``placed`` the model cut to this rank's blocks (in
+    place); ``run(model, **batch)`` takes the global batch, runs ``fn``
+    on this rank's block without gradients and returns ``out``
+    replicated: tensors gathered over the batch axes along dim 0, 0-d
+    values averaged over the data axes."""
+    from paddle_tpu_torch.train import _policy_call
+    plan = plan or plan_lib.replicated_plan()
+    specs = _param_specs(model, plan, hints)
+    _place(model, None, specs, mesh)
+    if mesh_lib.axis_size(mesh, mesh_lib.TP) > 1:
+        _install_tp(model, specs, mesh)
+    sharding = StepSharding(mesh, specs)
+    batch_axes = pf.live_axes(mesh, mesh_lib.BATCH_AXES)
+
+    def replicate(out):
+        if isinstance(out, dict):
+            return {k: replicate(v) for k, v in out.items()}
+        if isinstance(out, (tuple, list)):
+            return type(out)(replicate(v) for v in out)
+        if not isinstance(out, torch.Tensor):
+            return out
+        if out.ndim == 0:
+            return sharding.metrics({"v": out})["v"]
+        if batch_axes:
+            return collective.all_gather(out, tuple(reversed(batch_axes)),
+                                         concat_axis=0, mesh=mesh)
+        return out
+
+    def run(model, **batch):
+        with torch.no_grad(), mesh_lib.mesh_context(mesh):
+            out = _policy_call(fn, model, None,
+                               local_batch(batch, mesh, batch_spec),
+                               sharding.views)
+            return replicate(out)
+
+    return run, model
+
+
+def gather_block(x, spec, mesh):
+    """The whole value of which ``x`` is this rank's block under
+    ``spec``."""
+    for dim, entry in enumerate(spec):
+        if entry is None:
+            continue
+        axes = (entry,) if isinstance(entry, str) else tuple(entry)
+        # the block is cut major axis first: gather the minor first
+        for a in reversed(axes):
+            if mesh_lib.axis_size(mesh, a) > 1:
+                x = collective.all_gather(x.contiguous(), a, concat_axis=dim,
+                                          mesh=mesh)
+    return x
+
+
+def gathered_params(model, specs: Dict[str, tuple], mesh
+                    ) -> Dict[str, torch.Tensor]:
+    """Every parameter of a placed ``model`` whole again (``specs`` as
+    ``run.specs`` gives them), on every rank: what the unsharded model
+    would hold."""
+    with torch.no_grad():
+        return {n: gather_block(p.detach(), specs.get(n, ()), mesh)
+                for n, p in model.named_parameters()}
+
+
+class _Constrain(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, spec, mesh):
+        ctx.spec, ctx.mesh = spec, mesh
+        return plan_lib.local_shard(x, spec, mesh).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return gather_block(g, ctx.spec, ctx.mesh), None, None
+
+
+def with_sharding_constraint(x, spec, mesh=None):
+    """A replicated activation ``x`` cut to this rank's block under
+    ``spec`` (the reference's GSPMD constraint, made explicit); the
+    transpose gathers the gradient back."""
+    mesh = mesh if mesh is not None else mesh_lib.current_mesh()
+    if mesh is None:
+        return x
+    return _Constrain.apply(x, tuple(spec), mesh)

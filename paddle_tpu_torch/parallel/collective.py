@@ -9,14 +9,21 @@ do. An op over a tuple of axes runs over each axis in turn.
 
 A gloo group takes CUDA tensors for ``all_reduce``, ``broadcast`` and
 ``barrier`` only (:data:`GLOO_CUDA_OPS`); every other op on a CUDA
-tensor over a gloo group raises, naming the op and the backend. Nothing
-stages a CUDA tensor through the host behind the caller's back.
+tensor over a gloo group raises, naming the op and the backend, unless
+the mesh was made with ``make_mesh(..., stage_cuda_through_host=True)``:
+then the op copies the tensor to a pinned host buffer, runs over gloo and
+copies the result back to the card, and counts the call and its bytes
+(:func:`staged_stats`). That switch is the only way a CUDA tensor goes
+through the host here; it exists so that multi-rank code runs on a
+machine with one card, and an NCCL group never stages.
 """
 
 from __future__ import annotations
 
+import collections
 import datetime
-from typing import Optional, Sequence, Tuple, Union
+import threading
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
@@ -31,6 +38,37 @@ GLOO_CUDA_OPS = frozenset({"all_reduce", "broadcast", "barrier"})
 
 _REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
                "min": dist.ReduceOp.MIN, "prod": dist.ReduceOp.PRODUCT}
+
+
+_stats_lock = threading.Lock()
+_staged_calls: "collections.Counter[str]" = collections.Counter()
+_staged_bytes: "collections.Counter[str]" = collections.Counter()
+
+
+def staged_stats() -> Dict[str, Dict[str, int]]:
+    """Ops staged through the host since the last reset, by op name:
+    ``{"calls": {op: n}, "bytes": {op: n}}``, bytes counted once each
+    way (the input copied to the host, the output copied back)."""
+    with _stats_lock:
+        return {"calls": dict(_staged_calls), "bytes": dict(_staged_bytes)}
+
+
+def reset_staged_stats():
+    with _stats_lock:
+        _staged_calls.clear()
+        _staged_bytes.clear()
+
+
+def _note_staged(op: str, nbytes: int):
+    with _stats_lock:
+        _staged_calls[op] += 1
+        _staged_bytes[op] += int(nbytes)
+
+
+def _to_host(x: torch.Tensor) -> torch.Tensor:
+    host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+    host.copy_(x)
+    return host
 
 
 def _axes(axis: AxisArg) -> Tuple[str, ...]:
@@ -64,6 +102,21 @@ def check_backend(op: str, device_type: str, backend: str):
 def _check(op: str, x: Optional[torch.Tensor], group):
     device_type = x.device.type if x is not None else "cpu"
     check_backend(op, device_type, dist.get_backend(group))
+
+
+def _stage(op: str, x: torch.Tensor, group,
+           mesh: Optional[DeviceMesh]) -> Optional[torch.device]:
+    """Before ``op`` on ``x`` over ``group``: None when the op runs on
+    ``x`` where it lies, else the CUDA device ``x`` lies on, whose tensor
+    the op must take through the host (the mesh's staging switch is on
+    and the group is gloo). Raises where the backend cannot run the op
+    and the switch is off."""
+    if x.device.type == "cuda" and op not in GLOO_CUDA_OPS \
+            and dist.get_backend(group) == "gloo" \
+            and mesh_lib.stages_cuda(_mesh(mesh)):
+        return x.device
+    _check(op, x, group)
+    return None
 
 
 def group_timeout(group=None) -> Optional[datetime.timedelta]:
@@ -110,10 +163,14 @@ def all_gather(x: torch.Tensor, axis: AxisArg = mesh_lib.DP, *,
     out = x
     for a in _axes(axis):
         g = axis_group(a, mesh)
-        _check("all_gather", out, g)
-        parts = [torch.empty_like(out) for _ in range(dist.get_world_size(g))]
-        dist.all_gather(parts, out.contiguous(), group=g)
+        dev = _stage("all_gather", out, g, mesh)
+        src = out.contiguous() if dev is None else _to_host(out)
+        parts = [torch.empty_like(src) for _ in range(dist.get_world_size(g))]
+        dist.all_gather(parts, src, group=g)
         out = torch.cat(parts, dim=concat_axis)
+        if dev is not None:
+            _note_staged("all_gather", src.nbytes + out.nbytes)
+            out = out.to(dev)
     return out
 
 
@@ -124,14 +181,18 @@ def reduce_scatter(x: torch.Tensor, axis: str = mesh_lib.DP, *,
     the ``i``-th of equal chunks along ``scatter_axis`` (whose size the
     axis size must divide)."""
     g = axis_group(axis, mesh)
-    _check("reduce_scatter", x, g)
+    dev = _stage("reduce_scatter", x, g, mesh)
     n = dist.get_world_size(g)
     if x.shape[scatter_axis] % n:
         raise ValueError(f"dim {scatter_axis} ({x.shape[scatter_axis]}) "
                          f"does not divide over {axis} ({n})")
-    chunks = [c.contiguous() for c in x.chunk(n, dim=scatter_axis)]
+    src = x if dev is None else _to_host(x)
+    chunks = [c.contiguous() for c in src.chunk(n, dim=scatter_axis)]
     out = torch.empty_like(chunks[0])
     dist.reduce_scatter(out, chunks, group=g)
+    if dev is not None:
+        _note_staged("reduce_scatter", src.nbytes + out.nbytes)
+        out = out.to(dev)
     return out
 
 
@@ -155,15 +216,20 @@ def all_to_all(x: torch.Tensor, axis: str = mesh_lib.EP, *,
     ``split_axis``, chunk ``i`` to member ``i``, the received chunks
     concatenated along ``concat_axis`` in member order."""
     g = axis_group(axis, mesh)
-    _check("all_to_all", x, g)
+    dev = _stage("all_to_all", x, g, mesh)
     n = dist.get_world_size(g)
     if x.shape[split_axis] % n:
         raise ValueError(f"dim {split_axis} ({x.shape[split_axis]}) "
                          f"does not divide over {axis} ({n})")
-    send = [c.contiguous() for c in x.chunk(n, dim=split_axis)]
+    src = x if dev is None else _to_host(x)
+    send = [c.contiguous() for c in src.chunk(n, dim=split_axis)]
     recv = [torch.empty_like(c) for c in send]
     dist.all_to_all(recv, send, group=g)
-    return torch.cat(recv, dim=concat_axis)
+    out = torch.cat(recv, dim=concat_axis)
+    if dev is not None:
+        _note_staged("all_to_all", src.nbytes + out.nbytes)
+        out = out.to(dev)
+    return out
 
 
 def ppermute(x: torch.Tensor, axis: str, perm, *,
@@ -174,13 +240,14 @@ def ppermute(x: torch.Tensor, axis: str, perm, *,
     ``batch_isend_irecv`` per member."""
     m = _mesh(mesh)
     g = m.get_group(axis)
-    _check("ppermute", x, g)
+    dev = _stage("ppermute", x, g, m)
     me = m.get_local_rank(axis)
-    out = torch.zeros_like(x)
+    send = x.contiguous() if dev is None else _to_host(x)
+    out = torch.zeros_like(send)
     ops = []
     for src, dst in perm:
         if src == me:
-            ops.append(dist.P2POp(dist.isend, x.contiguous(),
+            ops.append(dist.P2POp(dist.isend, send,
                                   dist.get_global_rank(g, dst), g))
         if dst == me:
             ops.append(dist.P2POp(dist.irecv, out,
@@ -188,6 +255,9 @@ def ppermute(x: torch.Tensor, axis: str, perm, *,
     if ops:
         for req in dist.batch_isend_irecv(ops):
             req.wait()
+    if dev is not None:
+        _note_staged("ppermute", send.nbytes + out.nbytes)
+        out = out.to(dev)
     return out
 
 

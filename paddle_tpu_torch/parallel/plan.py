@@ -95,6 +95,43 @@ class ShardingPlan:
 
         return walk(params, hints or {}, ())
 
+    def state_specs(self, state, hints=None) -> Any:
+        """Specs of a whole train state, as the reference's tree
+        ``{"params", "opt", "step"[, "loss_scale"]}``: a port train state
+        (``{"model", "opt", "step"}``, read through
+        ``trainer.state_tree``) or such a tree. Optimizer slots take their
+        parameter's spec (under FSDP a slot is split like its parameter);
+        the step counts and everything else are replicated. ``hints`` as
+        for :meth:`params_specs`."""
+        if "model" in state:
+            from paddle_tpu_torch.trainer import state_tree
+            state = state_tree(state)
+        pspecs = self.params_specs(state["params"], hints)
+        out = {}
+        for key, val in state.items():
+            if key == "params":
+                out[key] = pspecs
+            elif key == "opt":
+                out[key] = _opt_specs(val, pspecs)
+            else:
+                out[key] = _replicated(val)
+        return out
+
+
+def _replicated(tree):
+    if isinstance(tree, dict):
+        return {k: _replicated(v) for k, v in tree.items()}
+    return ()
+
+
+def _opt_specs(opt_state, pspecs):
+    if isinstance(opt_state, dict):
+        return {k: ({name: pspecs for name in v}
+                    if k == "slots" and isinstance(v, dict)
+                    else _replicated(v))
+                for k, v in opt_state.items()}
+    return _replicated(opt_state)
+
 
 def _names_axis(spec: Spec, axis: str) -> bool:
     for entry in spec:
@@ -119,13 +156,14 @@ def _add_fsdp(spec: Spec, shape: Tuple[int, ...]) -> Spec:
     return tuple(entries)
 
 
-def shard_slice(tensor: torch.Tensor, spec: Spec, coords) -> torch.Tensor:
-    """The slice of ``tensor`` under ``spec`` at mesh coordinates
-    ``coords`` (axis name -> ``(index, size)``; an axis left out counts
-    as size 1). A dim split over several axes is cut major axis first,
-    in the order the entry names them, as ``NamedSharding`` cuts it;
-    every split dim must divide by the product of its axes' sizes."""
-    out = tensor
+def block_index(shape, spec: Spec, coords) -> Tuple[Tuple[int, int], ...]:
+    """``((start, stop), ...)`` per dim of the block of a tensor of
+    ``shape`` under ``spec`` at mesh coordinates ``coords`` (axis name ->
+    ``(index, size)``; an axis left out counts as size 1). A dim split
+    over several axes is cut major axis first, in the order the entry
+    names them, as ``NamedSharding`` cuts it; every split dim must divide
+    by the product of its axes' sizes."""
+    out = [(0, d) for d in shape]
     for dim, entry in enumerate(spec):
         if entry is None:
             continue
@@ -134,21 +172,36 @@ def shard_slice(tensor: torch.Tensor, spec: Spec, coords) -> torch.Tensor:
         for a in axes:
             i, size = coords.get(a, (0, 1))
             idx, n = idx * size + i, n * size
-        if tensor.shape[dim] % n:
-            raise ValueError(f"dim {dim} ({tensor.shape[dim]}) does not "
+        if shape[dim] % n:
+            raise ValueError(f"dim {dim} ({shape[dim]}) does not "
                              f"divide over {axes} ({n})")
-        step = tensor.shape[dim] // n
-        out = out.narrow(dim, idx * step, step)
+        step = shape[dim] // n
+        out[dim] = (idx * step, (idx + 1) * step)
+    return tuple(out)
+
+
+def shard_slice(tensor: torch.Tensor, spec: Spec, coords) -> torch.Tensor:
+    """The slice of ``tensor`` under ``spec`` at mesh coordinates
+    ``coords`` (:func:`block_index`), a view."""
+    out = tensor
+    for dim, (lo, hi) in enumerate(block_index(tuple(tensor.shape), spec,
+                                               coords)):
+        if (lo, hi) != (0, tensor.shape[dim]):
+            out = out.narrow(dim, lo, hi - lo)
     return out
+
+
+def mesh_coords(mesh) -> dict:
+    """This rank's ``{axis: (index, size)}`` on ``mesh``."""
+    return {a: (mesh_lib.axis_index(mesh, a), mesh_lib.axis_size(mesh, a))
+            for a in mesh.mesh_dim_names or ()}
 
 
 def local_shard(tensor: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
     """This rank's slice of ``tensor`` under ``spec`` on ``mesh``: what
     ``jax.device_put(tensor, NamedSharding(mesh, spec))`` leaves on this
     rank's device (a view)."""
-    coords = {a: (mesh_lib.axis_index(mesh, a), mesh_lib.axis_size(mesh, a))
-              for a in mesh.mesh_dim_names or ()}
-    return shard_slice(tensor, spec, coords)
+    return shard_slice(tensor, spec, mesh_coords(mesh))
 
 
 # Canned plans --------------------------------------------------------------

@@ -1,5 +1,5 @@
 """Async snapshots with an atomic manifest commit
-(``paddle_tpu/resilience/snapshot.py``, one process).
+(``paddle_tpu/resilience/snapshot.py``).
 
 Write path (``SnapshotEngine.save``):
 
@@ -29,8 +29,23 @@ unpickling and refuses a corrupted shard (``SnapshotCorruptionError``).
 The files are the reference's, byte layout and names, so a float32 tree
 written by either package restores in the other; a bf16 leaf restores as
 bf16 only here. ``process_index``/``process_count`` default to one
-process (0 of 1); the reference's sharded write and its ``shardings=``
-restore wait for the port's parallel layer (see ROADMAP).
+process (0 of 1).
+
+Sharded state (the ranks of a mesh, one process each): a leaf given as a
+:class:`Shard` (:func:`shard_leaf`: this rank's block, its index region
+in the whole leaf) is written as that region, and only by the first rank
+that holds that block, so each unique block has one copy among the
+processes' files. ``restore(shardings=)`` takes a tree of ``(spec,
+mesh)`` pairs and gives :class:`Shard` leaves back: each rank reads every
+file whole (it hashes it, then unpickles it, one file at a time) and
+keeps only the slices that meet its blocks; a leaf without a pair
+(``None`` or absent) is assembled whole on the host, from whatever
+regions the files hold. Across N ranks the files are thus read N times:
+the format is one pickle per process, and its manifest records no
+regions, so a rank cannot tell which files it needs before it opens
+them. The reference's sharded files (one process, one
+region per device) restore here either way, and the port's restore in
+the reference.
 
 Emits ``resilience_snapshot_seconds`` / ``resilience_restore_seconds``
 histograms and ``resilience_snapshots_total`` counters.
@@ -38,6 +53,7 @@ histograms and ``resilience_snapshots_total`` counters.
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import json
 import os
@@ -45,7 +61,7 @@ import pickle
 import queue
 import threading
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -75,6 +91,73 @@ class SnapshotCorruptionError(SnapshotError):
 
 def _registry():
     return observability.default()
+
+
+@dataclasses.dataclass
+class Shard:
+    """One rank's block of a leaf split over a mesh: ``data`` (the block),
+    the whole leaf's ``shape``, the block's ``index`` (``(start, stop)``
+    per dim) and ``write``: whether this rank writes it (the first of the
+    ranks that hold this same block)."""
+
+    data: Any
+    shape: Tuple[int, ...]
+    index: Tuple[Tuple[int, int], ...]
+    write: bool = True
+
+
+def shard_leaf(local, spec, mesh) -> Shard:
+    """``local``, this rank's block of a leaf under ``spec`` (a spec tuple,
+    as ``parallel.plan`` writes it) on ``mesh``, as a :class:`Shard`."""
+    from paddle_tpu_torch.parallel.plan import block_index, mesh_coords
+    coords = mesh_coords(mesh)
+    shape = list(local.shape)
+    named = set()
+    for dim, entry in enumerate(spec):
+        if entry is None:
+            continue
+        axes = (entry,) if isinstance(entry, str) else tuple(entry)
+        named.update(axes)
+        for a in axes:
+            shape[dim] *= coords.get(a, (0, 1))[1]
+    write = all(i == 0 for a, (i, _) in coords.items() if a not in named)
+    return Shard(local, tuple(shape), block_index(tuple(shape), spec, coords),
+                 write)
+
+
+def _region(shape, placement) -> tuple:
+    """This rank's region of a leaf of ``shape`` under a ``(spec, mesh)``
+    placement."""
+    from paddle_tpu_torch.parallel.plan import block_index, mesh_coords
+    spec, mesh = placement
+    return block_index(tuple(shape), tuple(spec), mesh_coords(mesh))
+
+
+def _flatten_placements(tree, prefix=()) -> Dict[str, Any]:
+    """``{"a/b": (spec, mesh) or None}`` of a ``shardings`` tree."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flatten_placements(v, prefix + (k,)))
+        return out
+    return {"/".join(prefix): tree}
+
+
+def _copy_overlap(dst: np.ndarray, dst_idx, src_idx, data: np.ndarray,
+                  seen: np.ndarray):
+    """Copy the intersection of a stored slice (``data`` covering
+    ``src_idx`` of the whole leaf) into a region buffer (``dst`` covering
+    ``dst_idx``) and mark it in ``seen``; a no-op when they are
+    disjoint."""
+    sel_dst, sel_src = [], []
+    for (da, db), (sa, sb) in zip(dst_idx, src_idx):
+        lo, hi = max(da, sa), min(db, sb)
+        if lo >= hi:
+            return
+        sel_dst.append(slice(lo - da, hi - da))
+        sel_src.append(slice(lo - sa, hi - sa))
+    dst[tuple(sel_dst)] = data[tuple(sel_src)]
+    seen[tuple(sel_dst)] = True
 
 
 # -- tree <-> flat dict -------------------------------------------------------
@@ -243,10 +326,21 @@ class SnapshotEngine:
         a previous background save is re-raised here (or in ``wait``)."""
         self._raise_pending()
         t0 = time.perf_counter()
+        flat = flatten_tree(state)
+        blocks = {k: v for k, v in flat.items() if isinstance(v, Shard)}
         leaves = {}
-        for key, (a, dtype) in host_arrays(flatten_tree(state)).items():
-            leaves[key] = {"shape": tuple(a.shape),
-                           "shards": [(tuple((0, d) for d in a.shape), a)]}
+        for key, (a, dtype) in host_arrays(
+                {k: v.data if k in blocks else v
+                 for k, v in flat.items()}).items():
+            if key in blocks:
+                b = blocks[key]
+                leaves[key] = {"shape": tuple(b.shape),
+                               "shards": [(tuple(b.index), a)] if b.write
+                               else []}
+            else:
+                leaves[key] = {"shape": tuple(a.shape),
+                               "shards": [(tuple((0, d) for d in a.shape),
+                                           a)]}
             if dtype is not None:
                 leaves[key]["dtype"] = dtype
         blocking_s = time.perf_counter() - t0
@@ -465,12 +559,15 @@ class SnapshotEngine:
         ``step=None`` takes the newest valid one (falling back past
         corrupt saves); an explicit ``step`` is verified and REFUSED if
         corrupted. With ``target``, key/shape agreement is enforced before
-        any shard bytes are read. ``shardings`` (the reference's sharded
-        restore) is not ported yet and raises."""
-        if shardings is not None:
-            raise NotImplementedError(
-                "sharded restore waits for the port's parallel layer "
-                "(ROADMAP)")
+        any shard bytes are read.
+
+        ``shardings`` is a tree of ``(spec, mesh)`` pairs (or None)
+        mirroring the state: a leaf with a pair comes back as this rank's
+        :class:`Shard`, copied out of the slices that meet its region;
+        every other leaf is assembled whole. Every file is read whole on
+        every rank either way (module docstring).
+        ``resilience_restore_max_region_bytes`` gauges the largest region
+        buffer the restore made, not the bytes it read."""
         t0 = time.perf_counter()
         if step is None:
             manifest = self.latest_valid_manifest()
@@ -481,19 +578,57 @@ class SnapshotEngine:
             manifest = self._load_manifest(step)  # raises on corruption
         sdir = self._step_dir(step)
         tree_meta = manifest["tree"]
+        shapes = {k: tuple(v["shape"]) for k, v in tree_meta.items()}
         if target is not None:
-            self._check_target(target, {k: tuple(v["shape"])
-                                        for k, v in tree_meta.items()})
-        flat: Dict[str, torch.Tensor] = {}
+            self._check_target(target, shapes)
+        places = ({k: v for k, v in _flatten_placements(shardings).items()
+                   if v is not None} if shardings is not None else {})
+        needed = {k: (_region(shape, places[k]) if k in places
+                      else tuple((0, d) for d in shape))
+                  for k, shape in shapes.items()}
+        # stream the files once, copying only the slices that meet each
+        # leaf's region into a buffer made on first need (or aliasing a
+        # stored slice that IS the region)
+        bufs: Dict[str, np.ndarray] = {}
+        seen: Dict[str, Any] = {}
         for fname in manifest["files"]:
             with self.fs.open_read(os.path.join(sdir, fname)) as f:
                 part = pickle.loads(f.read())
             for key, rec in part["leaves"].items():
-                shape = tuple(rec["shape"])
-                (idx, data), = [(i, d) for i, d in rec["shards"]
-                                if tuple(i) == tuple((0, n) for n in shape)]
-                flat[key] = to_tensor(data, tree_meta[key].get("dtype"))
+                region = needed.get(key)
+                if region is None:
+                    continue
+                for idx, data in rec["shards"]:
+                    idx = tuple(tuple(int(x) for x in i) for i in idx)
+                    if seen.get(key) is True:
+                        break
+                    if idx == region and key not in bufs:
+                        bufs[key], seen[key] = data, True
+                        continue
+                    if key not in bufs:
+                        bufs[key] = np.empty(tuple(b - a for a, b in region),
+                                             dtype=data.dtype)
+                        seen[key] = np.zeros(bufs[key].shape, dtype=bool)
+                    _copy_overlap(bufs[key], region, idx, data, seen[key])
+        flat: Dict[str, Any] = {}
+        max_region = 0
+        for key, region in needed.items():
+            got = seen.get(key)
+            if key not in bufs or (got is not True and not got.all()):
+                raise SnapshotCorruptionError(
+                    f"step {step}: the files do not cover {key} region "
+                    f"{region}")
+            max_region = max(max_region, bufs[key].nbytes)
+            t = to_tensor(bufs[key], tree_meta[key].get("dtype"))
+            if key in places:
+                spec, mesh = places[key]
+                t = shard_leaf(t, tuple(spec), mesh)
+            flat[key] = t
         tree = unflatten_tree(flat)
+        _registry().gauge(
+            "resilience_restore_max_region_bytes",
+            "largest single host buffer the last restore made").set(
+                float(max_region))
         restore_s = time.perf_counter() - t0
         _registry().histogram(
             "resilience_restore_seconds",
@@ -501,7 +636,7 @@ class SnapshotEngine:
         tracer = observability.tracing.default()
         if tracer.enabled:
             tracer.record_span("snapshot.restore", duration_s=restore_s,
-                               step=step, sharded=False)
+                               step=step, sharded=bool(places))
         return tree
 
     def _check_target(self, target: Any, shapes: Dict[str, tuple]):

@@ -32,7 +32,7 @@ tensors' device: a CUDA tensor launches the kernel or raises, a CPU
 tensor runs the plain version; there is no fallback between the two.
 
 ``ragged_paged_*_tp_attention`` — the tensor-parallel entry points
-(registered as :class:`~paddle_tpu_torch.kernels.registry.TpEntry`, no
+(registered as :class:`~paddle_tpu_torch.kernels.registry.CompositeEntry`, no
 kernel of their own): the same four on one rank's ``H/tp`` heads of q and
 of the pool, under a mesh. Heads are independent, so a rank's output is
 the tp=1 kernel's on those heads.
@@ -804,12 +804,13 @@ def _tp_layout(layout):
 
 
 def _register_tp(name, inner: registry.KernelEntry, public):
-    return registry.register_tp(registry.TpEntry(
-        name=name, inner=inner.name,
+    return registry.register_composite(registry.CompositeEntry(
+        name=name, inner=(inner.name,),
         arg_layouts=_tp_layout(inner.contract.arg_layouts),
         out_layout=inner.contract.out_layout + " H/tp",
         fn=_tp_entry(name, public),
-        plain_fn=_tp_entry(name + "_plain", inner.plain_fn)))
+        plain_fn=_tp_entry(name + "_plain", inner.plain_fn),
+        sample_inputs=inner.sample_inputs))
 
 
 ragged_paged_decode_tp_attention = _register_tp(

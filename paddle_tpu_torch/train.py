@@ -18,6 +18,14 @@ clipping, the optimizer) is captured once per batch signature (every
 feed's name, shape, dtype and device) and replayed from then on
 (:class:`TrainStepGraphs`). On the CPU, and with ``cuda_graphs=False``,
 every call runs eagerly.
+
+``sharding=`` puts the step on a mesh (what
+:func:`paddle_tpu_torch.parallel.api.shard_train_step` passes): the
+forward reads the parameters through it (FSDP gathers its shards there),
+the loss runs under its mesh, and its gradient hook runs between the
+backward and the update (the all-reduce or reduce-scatter over the data
+axes). A step with collectives in it runs eagerly: a graphed one raises
+(:meth:`TrainStepGraphs.check_capturable`).
 """
 
 from __future__ import annotations
@@ -55,21 +63,29 @@ class _LossModule(nn.Module):
 
 
 def _policy_call(fn: Callable, model: nn.Module,
-                 policy: Optional[dtypes.Policy], batch: Mapping):
+                 policy: Optional[dtypes.Policy], batch: Mapping,
+                 views: Optional[Callable] = None):
     """``fn(model, **batch)``; under a policy, the parameters enter as
     differentiable casts to its compute dtype (the fp32 masters get the
-    gradients) and floating feeds are cast too."""
-    if policy is None:
+    gradients) and floating feeds are cast too. ``views(name, p)``, where
+    given, is the tensor the forward reads for parameter ``p`` (a sharded
+    step's gathered parameter), cast after it is taken."""
+    if policy is None and views is None:
         return fn(model, **batch)
-    batch = policy.cast_to_compute(dict(batch))
-    params = {f"model.{n}": policy.cast_to_compute(p)
-              for n, p in model.named_parameters()}
+    if policy is not None:
+        batch = policy.cast_to_compute(dict(batch))
+    params = {}
+    for n, p in model.named_parameters():
+        t = p if views is None else views(n, p)
+        params[f"model.{n}"] = t if policy is None \
+            else policy.cast_to_compute(t)
     return torch.func.functional_call(_LossModule(model, fn), params,
                                       args=(), kwargs=batch)
 
 
 def _remat_call(fn: Callable, model: nn.Module,
-                policy: Optional[dtypes.Policy], batch: Mapping):
+                policy: Optional[dtypes.Policy], batch: Mapping,
+                views: Optional[Callable] = None):
     """:func:`_policy_call` under ``torch.utils.checkpoint`` (non-
     reentrant): its activations are recomputed in the backward. The feeds
     go in as the checkpoint's arguments, so it saves and restores the RNG
@@ -79,7 +95,8 @@ def _remat_call(fn: Callable, model: nn.Module,
     keys = list(batch)
 
     def run(*values):
-        return _policy_call(fn, model, policy, dict(zip(keys, values)))
+        return _policy_call(fn, model, policy, dict(zip(keys, values)),
+                            views)
 
     return checkpoint.checkpoint(run, *batch.values(), use_reentrant=False)
 
@@ -182,9 +199,13 @@ class TrainStepGraphs:
     #: eager calls of one signature that may change the state's tensors
     MAX_WARM = 4
 
-    def __init__(self, step: Callable, enabled: bool = True):
+    def __init__(self, step: Callable, enabled: bool = True,
+                 collectives: Optional[str] = None, rebuild=None):
         self.step = step
         self.enabled = enabled
+        #: the backend of the collectives the step holds, or None
+        self.collectives = collectives
+        self._rebuild = rebuild
         self.pool = None
         self.builds = 0
         self._graphs: Dict[tuple, _Captured] = {}
@@ -194,10 +215,30 @@ class TrainStepGraphs:
         self._failed: Optional[BaseException] = None
         self._layout = None
 
+    def rebuild(self, **changes) -> "TrainStepGraphs":
+        """The same step built again by :func:`build_train_step` with
+        ``changes`` to its arguments (a sharded step's ``sharding=``)."""
+        if self._rebuild is None:
+            raise TypeError("this step was not made by build_train_step")
+        return self._rebuild(**changes)
+
+    def check_capturable(self):
+        """Raise if the step holds collectives: a gloo collective cannot
+        be captured in a CUDA graph, and captured NCCL collectives across
+        cards are ROADMAP Queue 1 item 4.5. Such a step runs eagerly
+        (``cuda_graphs=False``)."""
+        if self.collectives is not None:
+            raise ValueError(
+                f"the train step holds {self.collectives} collectives, "
+                "which a CUDA graph cannot capture (captured NCCL "
+                "collectives across cards are ROADMAP Queue 1 item 4.5); "
+                "build it with cuda_graphs=False")
+
     def __call__(self, state, **batch):
         device = state["step"].device
         if not (self.enabled and device.type == "cuda"):
             return self.step(state, batch)
+        self.check_capturable()
         sig = _signature(batch)
         cap = self._graphs.get(sig)
         if cap is None:
@@ -233,6 +274,7 @@ class TrainStepGraphs:
         return out
 
     def _capture(self, state, batch) -> _Captured:
+        self.check_capturable()
         if self._failed is not None:
             raise RuntimeError("cannot capture the train step: an earlier "
                                "capture failed") from self._failed
@@ -271,6 +313,7 @@ def build_train_step(
     grad_accum_steps: int = 1,
     remat: bool = False,
     cuda_graphs: bool = True,
+    sharding=None,
 ) -> Callable:
     """Build ``step(state, **batch) -> (state, metrics)``.
 
@@ -285,18 +328,29 @@ def build_train_step(
     recomputes the loss function's activations in the backward
     (``torch.utils.checkpoint``, non-reentrant): the same losses and
     gradients for less memory. ``cuda_graphs`` captures the step on the
-    card (:class:`TrainStepGraphs`)."""
+    card (:class:`TrainStepGraphs`). ``sharding`` is a sharded step's
+    placement (module docstring): it gives the forward's parameter
+    ``views``, the loss's ``mesh``, the gradient hook ``sync_grads(model)``
+    and ``metrics(dict)``, the metrics over the data axes."""
     if grad_accum_steps < 1:
         raise ValueError("grad_accum_steps must be >= 1")
     call = _remat_call if remat else _policy_call
+    views = sharding.views if sharding is not None else None
 
     def forward_backward(model, batch):
-        out = call(loss_fn, model, policy, batch)
+        out = call(loss_fn, model, policy, batch, views)
         loss, aux = out if isinstance(out, tuple) else (out, {})
         loss.backward()
         return loss.detach(), {k: v.detach() for k, v in aux.items()}
 
     def step(state, batch):
+        if sharding is None:
+            return local_step(state, batch)
+        from paddle_tpu_torch.core.mesh import mesh_context
+        with mesh_context(sharding.mesh):
+            return local_step(state, batch)
+
+    def local_step(state, batch):
         model, opt = state["model"], state["opt"]
         opt.zero_grad(set_to_none=True)
         if grad_accum_steps > 1:
@@ -314,11 +368,24 @@ def build_train_step(
             for name, p in model.named_parameters():
                 if not trainable_mask.get(name, True):
                     p.grad = None
+        metrics = {"loss": loss, **aux}
+        if sharding is not None:
+            sharding.sync_grads(model)
+            metrics = sharding.metrics(metrics)
         opt.step()
         state["step"].add_(1)
-        return state, {"loss": loss, **aux}
+        return state, metrics
 
-    return TrainStepGraphs(step, enabled=cuda_graphs)
+    def rebuild(**changes):
+        kw = dict(policy=policy, trainable_mask=trainable_mask,
+                  grad_accum_steps=grad_accum_steps, remat=remat,
+                  cuda_graphs=cuda_graphs, sharding=sharding)
+        kw.update(changes)
+        return build_train_step(loss_fn, optimizer, **kw)
+
+    return TrainStepGraphs(
+        step, enabled=cuda_graphs, rebuild=rebuild,
+        collectives=sharding.backend if sharding is not None else None)
 
 
 def build_eval_step(model_fn: Callable,

@@ -172,7 +172,8 @@ class Trainer:
             tel = observability.StepTelemetry(
                 "train", run_log=self.run_log, run_meta={"epochs": epochs},
                 registry=self.registry, log_fn=self.log_fn,
-                memory_every=self.log_every or 50)
+                memory_every=self.log_every or 50,
+                aggregate_every=self.log_every)
         # host-mirrored global step: one device read here, none per step
         gstep = self.step_count
         try:

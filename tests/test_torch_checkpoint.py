@@ -100,8 +100,8 @@ def test_non_dict_containers_refused_loudly(tmp_path):
         eng.save(1, {"opt": (torch.ones(2), torch.ones(2))}, wait=True)
     with pytest.raises(TypeError, match="str"):
         eng.save(1, {"layers": {0: torch.ones(2)}}, wait=True)
-    with pytest.raises(NotImplementedError):
-        eng.restore(shardings={})
+    # the sharded restore is ported: with nothing saved it finds nothing
+    assert eng.restore(shardings={}) is None
     with pytest.raises(NotImplementedError):
         fs_lib.get_fs("hdfs://cluster/ckpt")
     eng.close()

@@ -1465,8 +1465,9 @@ def test_tp_entries_on_a_head_slice_match_plain_and_the_full_kernel(dev,
     the slice, and equal to the full-head kernel's output on those
     heads."""
     from paddle_tpu_torch.kernels import registry
-    entry = next(e for e in registry.tp_entries() if e.name == name)
-    inner = registry.get(entry.inner)
+    entry = registry.get_composite(name)
+    inner_name, = entry.inner
+    inner = registry.get(inner_name)
     args, kw = inner.sample_inputs(5)
     args = tuple(a.to(dev) if torch.is_tensor(a) else a for a in args)
     h = args[0].shape[-2]

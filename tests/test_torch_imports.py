@@ -74,3 +74,23 @@ def test_port_is_packaged_with_its_cuda_sources():
         assert f'"{pkg}"' in text, f"{pkg} missing from pyproject packages"
     assert '"paddle_tpu_torch" = ["csrc/*.cu"]' in text
     assert list((ROOT / "paddle_tpu_torch" / "csrc").glob("*.cu"))
+
+
+def test_the_parallel_layer_imports_with_jax_blocked():
+    """The training half of the parallel layer imports (and its kernel
+    registry loads) with ``jax`` and ``paddle_tpu`` made unimportable."""
+    code = ("import sys\n"
+            "for m in ('jax', 'jaxlib', 'paddle_tpu', 'ml_dtypes'):\n"
+            "    sys.modules[m] = None\n"
+            "import paddle_tpu_torch.parallel.api\n"
+            "import paddle_tpu_torch.parallel.ring_attention\n"
+            "import paddle_tpu_torch.parallel.functional\n"
+            "import paddle_tpu_torch.optimizer.compression\n"
+            "import paddle_tpu_torch.resilience.snapshot\n"
+            "import paddle_tpu_torch.observability.aggregate\n"
+            "from paddle_tpu_torch.kernels import registry\n"
+            "assert registry.load_all()\n"
+            "assert registry.get_composite('ring_attention')\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr

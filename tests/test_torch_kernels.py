@@ -357,3 +357,45 @@ def test_the_home_modules_are_the_only_binders():
     sites = [mod for path, mod in lint._py_files(str(pkg))
              for mod, _ in lint._bind_sites(path, mod)]
     assert sorted(set(sites)) == sorted(registry.HOME_MODULES)
+
+
+def test_the_lint_checks_the_mesh_entry():
+    """The ring's composite entry is clean, and the lint fires on an
+    unknown inner kernel and an entry point that runs without a mesh."""
+    entry = registry.get_composite("ring_attention")
+    assert lint.composite_entry_findings(entry) == []
+    bad = dataclasses.replace(entry, inner=("flash_attention_fwd", "nope"),
+                              fn=lambda *a, **k: None)
+    found = lint.composite_entry_findings(bad)
+    assert {f.rule for f in found} == {"composite-entry-contract"}
+    text = " ".join(f.message for f in found)
+    assert "'nope' is not registered" in text
+    assert "fn ran without a mesh" in text
+
+
+@pytest.mark.parametrize("name", sorted(
+    e.name for e in registry.composite_entries()))
+def test_every_composite_entry_is_lint_clean(name):
+    """One registry and one rule for the entries with no kernel of their
+    own: the four tp entries and the ring, each clean, each refusing to
+    run without a mesh."""
+    entry = registry.get_composite(name)
+    assert entry.requires_mesh and set(entry.inner) <= set(registry.names())
+    assert lint.composite_entry_findings(entry) == []
+    found = lint.composite_entry_findings(dataclasses.replace(
+        entry, plain_fn=lambda *a, **k: None))
+    assert [f.rule for f in found] == ["composite-entry-contract"]
+
+
+def test_the_harness_runs_the_mesh_entry_in_a_group():
+    """``parity_check("ring_attention", seed)`` on both ranks of a gloo
+    group: the composed, plain and auto legs within the contract."""
+    from torch_tp_pool import TpPool
+    pool = TpPool(2)
+    try:
+        for errs in pool.run("ring_parity", timeout_s=60, seed=2):
+            assert set(errs) == {"xla", "plain", "auto"}
+            assert max(errs.values()) <= registry.get_composite(
+                "ring_attention").atol
+    finally:
+        pool.close()

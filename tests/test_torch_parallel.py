@@ -155,14 +155,25 @@ def _to_tuples(tree):
 
 @pytest.fixture(scope="module")
 def trees():
-    """GPT and BERT parameter trees (numpy) with the JAX layers' hints."""
-    gcfg = JaxGPTConfig.tiny(num_heads=4, hidden_size=32, max_position=128)
-    gpt = JaxGPT(gcfg)
+    """GPT and BERT parameter trees: the JAX tree (numpy) with the JAX
+    layers' hints, and the port model's tree with the port layers' own
+    hints (``nn.module.sharding_specs``), which equal them."""
+    from paddle_tpu_torch.models.bert import BertConfig, BertForPretraining
+    from paddle_tpu_torch.models.convert import params_tree
+    from paddle_tpu_torch.nn.module import sharding_specs
+    gkw = dict(num_heads=4, hidden_size=32, max_position=128)
+    gpt = JaxGPT(JaxGPTConfig.tiny(**gkw))
     gp = jax.device_get(gpt.init(jax.random.PRNGKey(0)))
     bert = JaxBert(JaxBertConfig.tiny())
     bp = jax.device_get(bert.init(jax.random.PRNGKey(1)))
-    return {"gpt": (gp, gpt.sharding_specs(gp)),
-            "bert": (bp, bert.sharding_specs(bp))}
+    pg = GPT.from_jax(GPTConfig.tiny(**gkw), gp, device="cpu")
+    pb = BertForPretraining.from_jax(BertConfig.tiny(), bp, device="cpu")
+    out = {}
+    for name, jm, jp, pm in (("gpt", gpt, gp, pg), ("bert", bert, bp, pb)):
+        ours = sharding_specs(pm)
+        assert _to_tuples(ours) == _to_tuples(jm.sharding_specs(jp))
+        out[name] = (jp, jm.sharding_specs(jp), params_tree(pm), ours)
+    return out
 
 
 CANNED = ["replicated_plan", "fsdp_plan", "megatron_plan",
@@ -172,16 +183,15 @@ CANNED = ["replicated_plan", "fsdp_plan", "megatron_plan",
 @pytest.mark.parametrize("model", ["gpt", "bert"])
 @pytest.mark.parametrize("name", CANNED)
 def test_plan_spec_trees_equal_the_reference(trees, model, name):
-    params, hints = trees[model]
-    ours = getattr(plan, name)().params_specs(params, _to_tuples(hints))
+    params, hints, port_params, port_hints = trees[model]
+    ours = getattr(plan, name)().params_specs(port_params, port_hints)
     ref = getattr(jax_plan, name)().params_specs(params, hints)
     assert ours == _to_tuples(ref)
 
 
 def test_small_fsdp_plan_splits_the_largest_dims_like_the_reference(trees):
-    params, hints = trees["bert"]
-    ours = plan.fsdp_plan(min_size=64).params_specs(params,
-                                                    _to_tuples(hints))
+    params, hints, port_params, port_hints = trees["bert"]
+    ours = plan.fsdp_plan(min_size=64).params_specs(port_params, port_hints)
     ref = jax_plan.fsdp_plan(min_size=64).params_specs(params, hints)
     assert ours == _to_tuples(ref)
     assert "fsdp" in str(ours)
@@ -254,8 +264,12 @@ def test_local_shard_equals_the_shards_device_put_places(pools, shape, spec,
 
 # -- the tp entry points' contracts -------------------------------------------
 
+def _tp_entries():
+    return [e for e in registry.composite_entries() if e.name.endswith("_tp")]
+
+
 def test_tp_entries_declare_the_reference_contracts():
-    ours = {e.name: e for e in registry.tp_entries()}
+    ours = {e.name: e for e in _tp_entries()}
     assert sorted(ours) == sorted(
         n for n in jax_kernels.names() if n.endswith("_tp"))
     for name, e in ours.items():
@@ -264,7 +278,8 @@ def test_tp_entries_declare_the_reference_contracts():
         assert dict(e.arg_layouts) == dict(ref.contract.arg_layouts)
         assert e.out_layout == ref.contract.out_layout
         assert e.collectives == tuple(ref.contract.collectives)
-        assert e.inner in registry.names()
+        assert len(e.inner) == 1 and e.inner[0] in registry.names()
+        assert e.version == ref.contract.version
     # the seven kernels stay the only kernel entries
     assert len(registry.names()) == 7
 
@@ -282,7 +297,7 @@ def test_tp_entry_on_a_head_slice_equals_the_inner_kernel_bitwise(chunked,
     args, kw = inner.sample_inputs(5)
     full = inner.plain_fn(*args, **kw)
     name = inner.name + "_tp"
-    entry = next(e for e in registry.tp_entries() if e.name == name)
+    entry = registry.get_composite(name)
     h = args[0].shape[-2]
     lo, hi = h // 2, h
     sl = (args[0][..., lo:hi, :], args[1][:, :, lo:hi], args[2][:, :, lo:hi])

@@ -440,3 +440,396 @@ def follower_fails(rank, n, params, dims):
         return run(*a, **k)
     eng.graphs.run = failing
     eng.follow()            # raises: this rank's process then exits
+
+
+# -- training across ranks: ring attention, sharded steps, LocalSGD ---------
+
+def _sp_block(x, rank, n, dim=2):
+    import torch
+    if x is None:
+        return None
+    return torch.from_numpy(np.ascontiguousarray(
+        np.split(x, n, axis=dim)[rank]))
+
+
+def ring(rank, n, q, k, v, do, bias=None, causal=False, impl="auto",
+         count_blocks=False):
+    """This rank's blocks of the global q, k, v (and key bias) through
+    ``ring_attention`` on an sp=n mesh, the backward seeded with its
+    block of ``do``. Returns the rank's output and dq/dk/dv blocks, the
+    ring's case counts and, with ``count_blocks``, every plain block
+    call (its causal flag, and whether its lse and delta are the merged
+    forward's)."""
+    import torch
+    from paddle_tpu_torch.ops import attention as A
+    from paddle_tpu_torch.parallel import ring_attention as R
+    mesh = _mesh(n, sp=n)
+    ql, kl, vl = (_sp_block(t, rank, n).requires_grad_() for t in (q, k, v))
+    bl = _sp_block(bias, rank, n, dim=3)
+    calls = {"fwd": [], "bwd": []}
+    saved = {}
+    if count_blocks:
+        fwd_plain, bwd_parts = A.flash_fwd_plain, A._flash_bwd_parts
+
+        def fwd(*a, causal=False, **kw):
+            calls["fwd"].append(bool(causal))
+            return fwd_plain(*a, causal=causal, **kw)
+
+        def bwd(q_, k_, v_, b_, g_, lse, delta, causal=False, **kw):
+            calls["bwd"].append((bool(causal), lse.data_ptr(),
+                                 delta.clone().numpy()))
+            return bwd_parts(q_, k_, v_, b_, g_, lse, delta, causal=causal,
+                             **kw)
+        A.flash_fwd_plain, A._flash_bwd_parts = fwd, bwd
+    R.reset_ring_stats()
+    try:
+        out = R.ring_attention(ql, kl, vl, bias=bl, causal=causal,
+                               mesh=mesh, impl=impl)
+        g = _sp_block(do, rank, n)
+        out.backward(g)
+    finally:
+        if count_blocks:
+            A.flash_fwd_plain, A._flash_bwd_parts = fwd_plain, bwd_parts
+    res = {"out": out.detach().numpy(), "dq": ql.grad.numpy(),
+           "dk": kl.grad.numpy(), "dv": vl.grad.numpy(),
+           "stats": R.ring_stats()}
+    if count_blocks:
+        delta = A.flash_delta(g, out.detach()).numpy()
+        res["fwd_calls"] = calls["fwd"]
+        res["bwd_causal"] = [c for c, _, _ in calls["bwd"]]
+        res["bwd_one_lse"] = len({p for _, p, _ in calls["bwd"]}) <= 1
+        res["bwd_global_delta"] = all(np.array_equal(d, delta)
+                                      for _, _, d in calls["bwd"])
+    return res
+
+
+def ring_parity(rank, n, seed):
+    """The registered ``ring_attention`` entry's battery on an sp=n mesh
+    (CPU legs)."""
+    from paddle_tpu_torch.kernels import harness
+    from paddle_tpu_torch.core import mesh as mesh_lib
+    mesh = _mesh(n, sp=n)
+    with mesh_lib.mesh_context(mesh):
+        return harness.parity_check("ring_attention", seed)
+
+
+def _toy_model(params):
+    """The reference's parity model (``tests/test_parallel.py``):
+    Linear(16, 32) (column hint), an empty Sequential, Linear(32, 4)
+    (no hint), from the JAX weights."""
+    import torch
+    from paddle_tpu_torch.models.convert import state_from_jax
+    from paddle_tpu_torch.nn import Linear
+
+    class Toy(torch.nn.Module):          # the reference's {"layers": ...}
+        def __init__(self):
+            super().__init__()
+            self.layers = torch.nn.Sequential(
+                Linear(16, 32), torch.nn.Sequential(),
+                Linear(32, 4, sharding=None))
+
+        def forward(self, x):
+            return self.layers(x)
+
+    model = Toy()
+    model.load_state_dict(state_from_jax(params))
+    return model
+
+
+def _toy_loss(m, x, y):
+    import torch.nn.functional as Fn
+    return Fn.cross_entropy(m(x), y.long())
+
+
+def _bert_loss(m, **b):
+    return m.loss(**b)
+
+
+#: clip norms below the toy's gradient norms, so that the clips act
+CLIP_NORM = {"global": 0.1, "tensor": 0.05}
+
+
+def _optimizer(name, params, lr):
+    """An optimizer of the port by name: "adam", "momentum",
+    "adam_global_clip" (``GradientClipByGlobalNorm``),
+    "momentum_norm_clip" (``GradientClipByNorm``), "lamb" or "lars"."""
+    from paddle_tpu_torch import optimizer as o
+    return {
+        "adam": lambda: o.Adam(params, learning_rate=lr),
+        "momentum": lambda: o.Momentum(params, learning_rate=lr,
+                                       momentum=0.9),
+        "adam_global_clip": lambda: o.Adam(
+            params, learning_rate=lr,
+            grad_clip=o.GradientClipByGlobalNorm(CLIP_NORM["global"])),
+        "momentum_norm_clip": lambda: o.Momentum(
+            params, learning_rate=lr, momentum=0.9,
+            grad_clip=o.GradientClipByNorm(CLIP_NORM["tensor"])),
+        "lamb": lambda: o.Lamb(params, learning_rate=lr),
+        "lars": lambda: o.LarsMomentum(params, learning_rate=lr),
+    }[name]()
+
+
+def sharded_train(rank, n, params, model, sizes, plan_name, batch, steps,
+                  opt="adam", lr=1e-2, hints=False, seq_dim=None,
+                  cfg=None, local_sgd=0, gather=False):
+    """``steps`` steps of the port's ``shard_train_step`` on a mesh of
+    ``sizes``: ``model`` "toy" or "bert" (``cfg``: BertConfig fields)
+    from the JAX weights ``params``, ``plan_name`` "replicated", "fsdp"
+    or "megatron" (with ``hints``, the layers' own), every rank fed the
+    global ``batch``; ``opt`` a name of :func:`_optimizer`.
+    ``local_sgd=k``: no sharded step; each rank steps
+    on its own block of the batch and averages over "dp" when ``step %
+    k == 0``. Returns the losses (and, with ``gather``, the parameters
+    whole again)."""
+    import torch
+    from paddle_tpu_torch import train
+    from paddle_tpu_torch.core import mesh as mesh_lib
+    from paddle_tpu_torch.nn.module import sharding_specs
+    from paddle_tpu_torch.optimizer.compression import LocalSGD
+    from paddle_tpu_torch.parallel import api, plan as plan_lib
+    if model == "toy":
+        m, loss_fn = _toy_model(params), _toy_loss
+    else:
+        from paddle_tpu_torch.models.bert import BertConfig, BertForPretraining
+        m = BertForPretraining.from_jax(BertConfig.tiny(**cfg), params,
+                                        device="cpu")
+        loss_fn = _bert_loss
+    o = _optimizer(opt, m.parameters(), lr)
+    step = train.build_train_step(loss_fn, o)
+    state = train.make_train_state(m, o)
+    feeds = {k: torch.from_numpy(v) for k, v in batch.items()}
+    mesh = _mesh(n, **sizes)
+    losses = []
+    if local_sgd:
+        avg = LocalSGD(k_steps=local_sgd, axis="dp")
+        local = api.local_batch(feeds, mesh)
+        synced = []
+        for i in range(steps):
+            if avg.maybe_average(m.parameters(), i, mesh=mesh):
+                synced.append([p.detach().numpy().copy()
+                               for p in m.parameters()])
+            state, met = step(state, **local)
+            losses.append(float(met["loss"]))
+        return {"losses": losses, "synced": synced,
+                "final": [p.detach().numpy() for p in m.parameters()]}
+    plan = {"replicated": plan_lib.replicated_plan,
+            "fsdp": lambda: plan_lib.fsdp_plan(min_size=128),
+            "megatron": plan_lib.megatron_plan}[plan_name]()
+    spec = api.batch_specs(feeds, seq_dim=seq_dim) if seq_dim else \
+        api.BATCH_SPEC
+    run, placed = api.shard_train_step(
+        step, mesh, state, plan=plan,
+        hints=sharding_specs(m) if hints else {"params": None},
+        batch_spec=spec)
+    for _ in range(steps):
+        placed, met = run(placed, **feeds)
+        losses.append({k: float(v) for k, v in met.items()})
+    out = {"losses": losses,
+           "local_shapes": {k: tuple(p.shape)
+                            for k, p in m.named_parameters()},
+           "specs": run.specs}
+    if gather:
+        out["params"] = {k: v.numpy() for k, v in
+                         api.gathered_params(m, run.specs, mesh).items()}
+    return out
+
+
+def bert_ring(rank, n, params, cfg, ids, mask=None):
+    """``BertModel(attn_impl="ring")`` of the JAX weights on an sp=n mesh:
+    this rank's block of ``ids`` (and of the valid-key ``mask``) in,
+    this rank's sequence output and the pooled output out."""
+    import torch
+    from paddle_tpu_torch.core import mesh as mesh_lib
+    from paddle_tpu_torch.models.bert import BertConfig, BertModel
+    from paddle_tpu_torch.models.convert import state_from_jax
+    model = BertModel(BertConfig.tiny(**cfg), device="cpu")
+    model.load_state_dict(state_from_jax(params))
+    mesh = _mesh(n, sp=n)
+    blk = lambda a: None if a is None else _sp_block(a, rank, n, dim=1)
+    with torch.no_grad(), mesh_lib.mesh_context(mesh):
+        seq, pooled = model(blk(ids), attention_mask=blk(mask))
+    return seq.numpy(), pooled.numpy()
+
+
+def local_sgd_average(rank, n, k, steps, seed):
+    """Each rank's seeded parameters (different on every rank) through
+    ``LocalSGD(k).maybe_average`` at steps ``0..steps-1``, with a seeded
+    rank-own drift added after each step: the parameters after each
+    call, and whether it averaged."""
+    import torch
+    from paddle_tpu_torch.optimizer.compression import LocalSGD
+    mesh = _mesh(n, dp=n)
+    rng = np.random.default_rng(seed + rank)
+    params = [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+              for s in ((3, 4), (5,))]
+    avg = LocalSGD(k_steps=k, axis="dp")
+    out = []
+    for step in range(steps):
+        did = avg.maybe_average(params, step, mesh=mesh)
+        out.append((did, [p.numpy().copy() for p in params]))
+        for p in params:
+            p.add_(torch.from_numpy(rng.standard_normal(tuple(p.shape))
+                                    .astype(np.float32)))
+    return out
+
+
+def staging(rank, n):
+    """Whether a gloo mesh stages a CUDA tensor's ppermute without and
+    with ``stage_cuda_through_host`` (a stand-in with a CUDA device: the
+    decision reads only the device), and what a sharded step's graphs
+    say when asked to capture."""
+    import types
+    import torch
+    from paddle_tpu_torch import optimizer, train
+    from paddle_tpu_torch.core import mesh as mesh_lib
+    from paddle_tpu_torch.parallel import api, collective as C
+    fake = types.SimpleNamespace(device=torch.device("cuda"))
+    out = {}
+    for switch in (False, True):
+        m = mesh_lib.make_mesh(mesh_lib.MeshConfig(dp=n), device_type="cpu",
+                               stage_cuda_through_host=switch)
+        g = m.get_group("dp")
+        try:
+            out[switch] = str(C._stage("ppermute", fake, g, m))
+        except NotImplementedError as e:
+            out[switch] = f"refused: {e}"
+        out[f"all_reduce_{switch}"] = C._stage("all_reduce", fake, g, m)
+    model = _toy_model(_toy_params())
+    opt = optimizer.SGD(model.parameters(), learning_rate=0.1)
+    step = train.build_train_step(_toy_loss, opt)
+    run, _ = api.shard_train_step(step, _mesh(n, dp=n),
+                                  train.make_train_state(model, opt))
+    out["backend"] = run.sharding.backend
+    graphed = step.rebuild(sharding=run.sharding, cuda_graphs=True)
+    try:
+        graphed.check_capturable()
+        out["capture"] = None
+    except ValueError as e:
+        out["capture"] = str(e)
+    out["stats"] = C.staged_stats()
+    return out
+
+
+def _toy_params():
+    rng = np.random.default_rng(0)
+    return {"layers": {
+        "0": {"weight": rng.standard_normal((16, 32)).astype(np.float32),
+              "bias": np.zeros(32, np.float32)},
+        "1": {},
+        "2": {"weight": rng.standard_normal((32, 4)).astype(np.float32),
+              "bias": np.zeros(4, np.float32)}}}
+
+
+def aggregate_line(rank, n):
+    """``aggregate`` of rank-own values, and the log line a Trainer's
+    telemetry prints every ``log_every`` steps."""
+    from paddle_tpu_torch.observability import aggregate as agg
+    from paddle_tpu_torch.observability.telemetry import StepTelemetry
+    from paddle_tpu_torch.observability.registry import MetricsRegistry
+    stats = agg.aggregate({"a": float(rank), "b": 10.0 - rank})
+    lines = []
+    tel = StepTelemetry("train", registry=MetricsRegistry(),
+                        log_fn=lines.append, aggregate_every=2,
+                        detect_recompiles=False)
+    for s in range(1, 5):
+        tel.step(s, step_time_s=0.1 * (rank + 1), examples=8)
+    return stats, lines
+
+
+def snapshot_save(rank, n, directory, step, leaves, specs, sizes):
+    """Save ``leaves`` (global numpy arrays) as this rank's blocks under
+    ``specs`` (one per leaf, None: a plain leaf) from process ``rank`` of
+    ``n`` into ``directory``."""
+    import torch
+    from paddle_tpu_torch.parallel.plan import local_shard
+    from paddle_tpu_torch.resilience.snapshot import SnapshotEngine, shard_leaf
+    mesh = _mesh(n, **sizes)
+    state = {}
+    for key, a in leaves.items():
+        t = torch.from_numpy(a)
+        state[key] = t if specs[key] is None else shard_leaf(
+            local_shard(t, specs[key], mesh).clone(), specs[key], mesh)
+    eng = SnapshotEngine(directory, process_index=rank, process_count=n)
+    eng.save(step, _nest(state), wait=True)
+    eng.close()
+
+
+def _nest(flat):
+    out = {}
+    for key, v in flat.items():
+        *path, leaf = key.split("/")
+        node = out
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = v
+    return out
+
+
+def snapshot_restore(rank, n, directory, step, specs, sizes,
+                     manager=False):
+    """Restore ``step`` with ``shardings`` from ``specs`` (key -> spec or
+    None) on a mesh of ``sizes``: per key, ``("shard", index, block)`` or
+    ``("whole", array)``, plus the largest region gauge."""
+    from paddle_tpu_torch import io as io_lib
+    from paddle_tpu_torch import observability
+    from paddle_tpu_torch.resilience.snapshot import (Shard, SnapshotEngine,
+                                                      flatten_tree)
+    mesh = _mesh(n, **sizes)
+    shardings = _nest({k: (None if s is None else (s, mesh))
+                       for k, s in specs.items()})
+    if manager:
+        eng = io_lib.CheckpointManager(directory)
+    else:
+        eng = SnapshotEngine(directory)
+    back = eng.restore(step, shardings=shardings)
+    eng.close()
+    out = {}
+    for key, v in flatten_tree(back).items():
+        if isinstance(v, Shard):
+            out[key] = ("shard", v.index, _np(v.data), v.shape)
+        else:
+            out[key] = ("whole", _np(v))
+    gauge = observability.default().gauge(
+        "resilience_restore_max_region_bytes").value()
+    return out, gauge
+
+
+def _np(t):
+    import torch
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
+
+
+def sharded_eval(rank, n, params, sizes, plan_name, batch, cfg):
+    """``shard_eval_step`` of tiny BERT's forward (MLM and NSP logits) of
+    the JAX weights on a mesh of ``sizes``, every rank fed the global
+    ``batch``: the replicated outputs."""
+    import torch
+    from paddle_tpu_torch.models.bert import BertConfig, BertForPretraining
+    from paddle_tpu_torch.nn.module import sharding_specs
+    from paddle_tpu_torch.parallel import api, plan as plan_lib
+    m = BertForPretraining.from_jax(BertConfig.tiny(**cfg), params,
+                                    device="cpu")
+    plan = {"replicated": plan_lib.replicated_plan,
+            "fsdp": lambda: plan_lib.fsdp_plan(min_size=128),
+            "megatron": plan_lib.megatron_plan}[plan_name]()
+    run, placed = api.shard_eval_step(
+        lambda model, **b: model(**b), _mesh(n, **sizes), m, plan=plan,
+        hints=sharding_specs(m) if plan_name == "megatron" else None)
+    mlm, nsp = run(placed, **{k: torch.from_numpy(v)
+                              for k, v in batch.items()})
+    return mlm.numpy(), nsp.numpy()
+
+
+def constraint(rank, n, x, g):
+    """``with_sharding_constraint`` of a replicated ``x`` to ("dp", None)
+    on a dp=n mesh: this rank's block, and the gradient of the block's
+    product with ``g``'s block, gathered whole."""
+    import torch
+    from paddle_tpu_torch.parallel import api
+    mesh = _mesh(n, dp=n)
+    xt = torch.from_numpy(x).requires_grad_()
+    blk = api.with_sharding_constraint(xt, ("dp", None), mesh)
+    (blk * torch.from_numpy(g).chunk(n)[rank]).sum().backward()
+    return blk.detach().numpy(), xt.grad.numpy()
