@@ -216,13 +216,14 @@ Phases, in order; any failure exits non-zero:
        rank), losses equal on the ranks and within one bf16 ulp (2^-7
        relative) of sp=1 with ``attn_impl="auto"`` in this process; the
        fp32 2-layer model within 1e-4;
-   (c) ``shard_train_step`` at 2 x (24 x 512), fp32: the ``replicated``
-       plan (dp=2) and the ``fsdp`` plan (fsdp=2) against one process at
-       48 x 512, losses within 2e-5 and the parameters gathered within
-       1e-4 (the key third of each qkv bias held to its drift bound, as
-       phase 6), each rank's peak memory;
-   (d) Megatron from the layers' hints, tp=2, BERT-base fp32 at 4 x 512:
-       losses within 2e-4 of tp=1;
+   (c) ``shard_train_step`` at 2 x (24 x 512), fp32, BERT-base width at 4
+       layers (``PAR_LAYERS``, cut in depth for the script's time): the
+       ``replicated`` plan (dp=2) and the ``fsdp`` plan (fsdp=2) against
+       one process at 48 x 512, losses within 2e-5 and the parameters
+       gathered within 1e-4 (the key third of each qkv bias held to its
+       drift bound, as phase 6), each rank's peak memory;
+   (d) Megatron from the layers' hints, tp=2, (c)'s model fp32 at 4 x
+       512: losses within 2e-4 of tp=1;
    (e) LocalSGD(k=2) in the dp=2 group, fp32 2-layer model: after each
        sync step every rank holds the same parameters, bit for bit the
        mean of the ranks' before it;
@@ -231,11 +232,39 @@ Phases, in order; any failure exits non-zero:
        without, both bit for bit.
    Each leg's seconds; tokens/s labelled "gloo on one card: not a
    parallel speed"; either rank failing fails the run.
+9. pipelines (runs after 8) — a pp=2 gloo group of two processes on the
+   card (the staging switch on; every kernel on the card, TF32 off): its
+   legs ride phase 8's two-rank group after (e), one start-up for both:
+   (a) ``gpipe`` and ``circular_pipeline`` (v=2) over a 4-layer toy stack
+       (tanh(h @ w + b), width 1024, 4 microbatches of 16 rows), fp32 and
+       bf16, forward and gradients against the sequential stack (fp32
+       within 1e-5 of its largest value, bf16 2e-2);
+   (b) BERT-base ``pipeline=True`` (stacked encoder split over "pp" by
+       its hints), GPipe, M=4, 16 x 512 (valid lengths 128..512), 3 eager
+       AdamW steps in bf16 over fp32 masters through ``shard_train_step``
+       (the phase's main path: counts set to 0 just before, read just
+       after), then the fp32 2-layer model: K5/K6a/K6b launches per rank
+       equal to the reckoning (each stage layer once per microbatch, K5
+       again in the recompute), staged bytes equal to its hops, losses
+       equal on the ranks and within 2^-9 relative (fp32: 1e-5) of pp=1
+       in this process, and the fp32 pp=1 losses within 1e-5 of the same
+       weights' stacked layers without the pipeline (``StackedLayers``'
+       plain loop over the whole batch); step seconds and peak memory per
+       rank;
+   (c) (b)'s model under the circular schedule (v=2, pre-interleaved), 1
+       step, its loss against (b)'s first;
+   (d) GPT-2 small (vocab 50304, 12 x 768, 12 heads, 1024 positions)
+       ``pipeline=True``, M=4, 8 x 512, 2 bf16 steps (causal K5) against
+       pp=1;
+   (e) (b)'s state saved as each stage's rows (``Shard`` leaves), restored
+       in the group with ``shardings=`` naming "pp" and here without
+       them, bit for bit.
 7. output  — one ``{"kernels": [...]}`` line (each kernel with its
    tunables' candidates and the configuration the committed cache chose
    at each shape, ``blocks``; the ring's entry over K5/K6 with its calls
-   on (b)'s main path), the nvidia-smi line, and the final
-   ``{"ok": true, "device": {...}}`` line.
+   on (b)'s main path; K5/K6a/K6b with their launches on each stage
+   rank of 9 (b), ``launches_pipeline_ranks``), the nvidia-smi line, and
+   the final ``{"ok": true, "device": {...}}`` line.
 """
 
 from __future__ import annotations
@@ -3369,6 +3398,9 @@ RING_CASES = (("bf16", torch.bfloat16, False),
 SP_BATCH, SP_STEPS = 8, 3            # (b): each sp rank 8 x 256
 DP_BATCH, DP_STEPS = 24, 2           # (c): each dp rank 24 x 512
 TP_BATCH, TP_STEPS = 4, 2            # (d)
+#: (c), (d) and so (f): BERT-base width cut to 4 layers in depth, to keep
+#: the script's time with phase 9 in it
+PAR_LAYERS = 4
 LOCAL_SGD_BATCH, LOCAL_SGD_STEPS, LOCAL_SGD_K = 8, 4, 2   # (e), per rank
 #: (b): the bf16 ring run's losses against the sp=1 run's, relative: one
 #: bf16 unit in the last place (PERF.md says why)
@@ -3606,7 +3638,8 @@ def dp_leg(rank, n, device):
                                                       flatten_tree)
     from paddle_tpu_torch.trainer import state_tree
     out = {}
-    cfg = BertConfig.base(dropout=0.0, attn_dropout=0.0)
+    cfg = BertConfig.base(num_layers=PAR_LAYERS, dropout=0.0,
+                          attn_dropout=0.0)
     for name, axis, plan in (("replicated", "dp", plan_lib.replicated_plan()),
                              ("fsdp", "fsdp", plan_lib.fsdp_plan())):
         mesh = _par_mesh(device, **{axis: n})
@@ -3671,7 +3704,8 @@ def tp_leg(rank, n, device):
     from paddle_tpu_torch.parallel import collective as C
     from paddle_tpu_torch.parallel import plan as plan_lib
     mesh = _par_mesh(device, tp=n)
-    cfg = BertConfig.base(dropout=0.0, attn_dropout=0.0)
+    cfg = BertConfig.base(num_layers=PAR_LAYERS, dropout=0.0,
+                          attn_dropout=0.0)
     batch = bert_batch(cfg, TP_BATCH, TRAIN_SEQ, device, seed=7)
     run, state, model = _bert_sharded(device, mesh, cfg, batch,
                                       plan=plan_lib.megatron_plan(),
@@ -3775,11 +3809,466 @@ def restore_leg(rank, n, device):
             "restore_s": seconds}
 
 
+# -- phase 9: pipelines ------------------------------------------------------
+
+#: (a): the toy stack's layers and width, microbatches and their rows
+PIPE_TOY = (4, 1024, 4, 16)
+#: (b)-(d): microbatches; BERT-base rows and steps; GPT-2 small rows, steps
+PIPE_M = 4
+PIPE_BATCH, PIPE_STEPS = 16, 3
+PIPE_GPT_BATCH, PIPE_GPT_STEPS = 8, 2
+#: bf16 pipelined losses against pp=1, relative: a quarter of a bf16 unit
+#: in the last place (PERF.md says why: each stage runs pp=1's
+#: arithmetic); the fp32 2-layer runs within 1e-5; (a)'s bf16 stack within
+#: 2e-2 of its largest value, fp32 within 1e-5
+PIPE_BF16_RTOL, PIPE_FP32_RTOL = 2.0 ** -9, 1e-5
+PIPE_TOY_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+PIPE_DIR = TRAIN_DIR.parent / "chip_smoke_pipeline"
+
+
+def pipe_reckoning(layers, n, steps, m=PIPE_M):
+    """K5/K6a/K6b launches a stage rank makes in ``steps`` steps: each of
+    its ``layers / n`` layers once per microbatch in the forward and once
+    in the recompute (K5), once in the backward (K6a, K6b), whatever the
+    schedule (the circular one runs the same layers in chunks)."""
+    per = layers // n * m * steps
+    return {"K5": 2 * per, "K6a": per, "K6b": per}
+
+
+def pipe_hop_ends(n, m, steps, v=1):
+    """Hop ends (a send or a receive, each staged through the host once)
+    of each stage rank in ``steps`` steps: forward, each of the ``v*m``
+    items crosses ``n - 1`` stage boundaries plus ``v - 1`` returns to
+    stage 0, and its gradient crosses them back; each hop has two ends,
+    spread evenly over the ranks at n=2."""
+    hops = v * m * (n - 1) + (v - 1) * m
+    return 2 * hops * 2 // n * steps
+
+
+def _toy_stack(device, dtype, seed=21):
+    L, D, M, mb = PIPE_TOY
+    rng = np.random.default_rng(seed)
+    stack = {"w": rng.standard_normal((L, D, D)) * D ** -0.5,
+             "b": rng.standard_normal((L, D)) * 0.1}
+    x = rng.standard_normal((M, mb, D))
+    g = rng.standard_normal((M, mb, D))
+    put = lambda a: torch.from_numpy(a).to(device=device, dtype=dtype)
+    return {k: put(v) for k, v in stack.items()}, put(x), put(g)
+
+
+def _toy_block(lp, h, extra, mb_idx):
+    return torch.tanh(h @ lp["w"] + lp["b"])
+
+
+def _toy_value_grads(fn, stack, x, g):
+    stack = {k: v.clone().requires_grad_() for k, v in stack.items()}
+    x = x.clone().requires_grad_()
+    out = fn(stack, x)
+    (out.float() * g.float()).sum().backward()
+    return {"out": out.detach(), "x": x.grad,
+            **{k: v.grad for k, v in stack.items()}}
+
+
+def pipe_toy_leg(rank, n, device):
+    """(a): ``gpipe`` and ``circular_pipeline`` (v=2) of a 4-layer toy
+    stack (tanh(h @ w + b), width 1024, 4 microbatches of 16 rows) at
+    pp=n, every rank holding the stack whole, fp32 and bf16: output and
+    gradients against the sequential stack run in this process without a
+    mesh; each error relative to the reference's largest value."""
+    from paddle_tpu_torch.parallel import pipeline as PL
+    mesh = _par_mesh(device, pp=n)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        stack, x, g = _toy_stack(device, dtype)
+
+        def seq(st, xx):
+            h = xx.reshape(-1, xx.shape[-1])
+            for i in range(PIPE_TOY[0]):
+                h = torch.tanh(h @ st["w"][i] + st["b"][i])
+            return h.reshape(xx.shape)
+
+        want = _toy_value_grads(seq, stack, x, g)
+        for name, v in (("gpipe", 1), ("circular_v2", 2)):
+            fn = (functools.partial(PL.gpipe, _toy_block, mesh=mesh)
+                  if v == 1 else functools.partial(
+                      PL.circular_pipeline, _toy_block, num_circuits=v,
+                      mesh=mesh))
+            got = _toy_value_grads(lambda st, xx: fn(st, xx), stack, x, g)
+            tag = "bf16" if dtype == torch.bfloat16 else "fp32"
+            out[f"{name}_{tag}"] = {
+                k: float((got[k].float() - w.float()).abs().max()
+                         / w.float().abs().max().clamp(min=1e-30))
+                for k, w in want.items()}
+    return out
+
+
+def _pipe_bert(device, mesh, cfg, batch, policy, interleave=None):
+    """A pipelined BERT of ``cfg`` from seed 0, AdamW(1e-4), its eager
+    step put on ``mesh`` with the layers' hints (the stacked encoder
+    split over "pp"); with ``interleave=(n, v)`` the encoder is first
+    rearranged into the circular schedule's interleaved order."""
+    from paddle_tpu_torch.core.dtypes import get_policy
+    from paddle_tpu_torch.models.bert import BertForPretraining
+    from paddle_tpu_torch.nn.module import sharding_specs
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import api
+    from paddle_tpu_torch.parallel import pipeline as PL
+    from paddle_tpu_torch.train import build_train_step, make_train_state
+    model = BertForPretraining(cfg, device=device, seed=0)
+    if interleave is not None:
+        enc = model.bert.encoder.stacked_params()
+        with torch.no_grad():
+            for k, t in PL.interleave_stack(enc, *interleave).items():
+                enc[k].copy_(t)
+    opt = AdamW(model.parameters(), learning_rate=1e-4)
+    step = build_train_step(_bert_loss, opt,
+                            policy=get_policy(policy) if policy else None)
+    run, state = api.shard_train_step(step, mesh,
+                                      make_train_state(model, opt),
+                                      hints=sharding_specs(model))
+    return run, state, model
+
+
+def _pipe_steps(device, run, state, batch, steps):
+    """``steps`` steps from counts at 0: losses, each step's seconds,
+    the flash launches, staged transport and peak memory."""
+    from paddle_tpu_torch.kernels import registry
+    from paddle_tpu_torch.parallel import collective as C
+    _sync(device)
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    registry.reset_launches()
+    C.reset_staged_stats()
+    losses, secs = [], []
+    for _ in range(steps):
+        t0 = time.monotonic()
+        losses.append(float(run(state, **batch)[1]["loss"]))
+        secs.append(time.monotonic() - t0)
+    _sync(device)
+    staged = C.staged_stats()
+    return {"losses": losses, "step_s": secs,
+            "launches": {e.name: e.launches for e in flash_entries()},
+            "staged_calls": staged["calls"].get("ppermute", 0),
+            "staged_bytes": staged["bytes"].get("ppermute", 0),
+            "peak_bytes": torch.cuda.max_memory_allocated() if cuda
+            else None}
+
+
+def pipe_bert_leg(rank, n, device):
+    """(b), (c) and (e) on one stage rank of a pp=n group: BERT-base
+    (``pipeline=True``, stacked, GPipe, M=4) at 16 x 512, 3 eager AdamW
+    steps in bf16 over fp32 masters (the phase's main path: the counts
+    are set to 0 just before and read just after), then the fp32 2-layer
+    model; (c) the circular schedule (v=2, pre-interleaved) for 1 step;
+    (e) (b)'s state saved as each stage's rows, restored here with
+    ``shardings=`` naming "pp" and compared bit for bit, and gathered
+    whole for the parent's restore without them."""
+    from paddle_tpu_torch.models.bert import BertConfig
+    from paddle_tpu_torch.resilience.snapshot import (Shard, SnapshotEngine,
+                                                      flatten_tree)
+    from paddle_tpu_torch.parallel import api
+    from paddle_tpu_torch.trainer import state_tree
+    import torch.distributed as dist
+    mesh = _par_mesh(device, pp=n)
+    out = {}
+    for label, policy, layers, extra in (
+            ("bf16", "bf16", 12, {}),
+            ("fp32_2layer", None, 2, {}),
+            ("circular_bf16", "bf16", 12,
+             dict(pp_schedule="circular", pp_circuits=2,
+                  pp_pre_interleaved=True))):
+        cfg = BertConfig.base(num_layers=layers, dropout=0.0,
+                              attn_dropout=0.0, pipeline=True,
+                              pp_microbatches=PIPE_M, **extra)
+        batch = bert_batch(cfg, PIPE_BATCH, TRAIN_SEQ, device, seed=9)
+        run, state, model = _pipe_bert(
+            device, mesh, cfg, batch, policy,
+            interleave=(n, 2) if extra else None)
+        steps = 1 if extra else PIPE_STEPS
+        out[label] = _pipe_steps(device, run, state, batch, steps)
+        out[label]["encoder_rows"] = tuple(
+            model.bert.encoder.stacked_params()["ffn.fc1.weight"].shape)
+        if label == "bf16":
+            t0 = time.monotonic()
+            snap = PIPE_DIR / "snap"
+            tree, keyed = _snapshot_tree(state, run.specs, mesh)
+            eng = SnapshotEngine(str(snap), process_index=rank,
+                                 process_count=n)
+            eng.save(1, tree, wait=True)
+            eng.close()
+            dist.barrier()       # process 0 commits once every file is in
+            mine = {k: v.detach() for k, v in
+                    flatten_tree(state_tree(state)).items()
+                    if isinstance(v, torch.Tensor)}
+            eng = SnapshotEngine(str(snap))
+            back = flatten_tree(eng.restore(1, shardings=_nested({
+                k: None if sp is None else (sp, mesh)
+                for k, sp in keyed.items()})))
+            eng.close()
+            blocks = {k: v for k, v in back.items() if isinstance(v, Shard)}
+            bad = [k for k, v in mine.items()
+                   if not torch.equal((blocks[k].data if k in blocks
+                                       else back[k]).to(v.device), v)]
+            split = [k for k, sp in keyed.items()
+                     if sp and "pp" in str(sp)]
+            if bad or not split:
+                raise AssertionError(f"9e restore rank {rank}: {len(bad)} "
+                                     f"leaves differ ({bad[:3]}), "
+                                     f"{len(split)} split over pp")
+            whole = {k: (api.gather_block(v, keyed[k], mesh)
+                         if keyed[k] is not None else v).cpu()
+                     for k, v in mine.items()}
+            if rank == 0:
+                torch.save(whole, PIPE_DIR / "whole.pt")
+            out["snapshot"] = {
+                "leaves": len(mine), "split_over_pp": len(split),
+                "block_bytes": sum(b.data.numel() * b.data.element_size()
+                                   for b in blocks.values()),
+                "save_and_restore_s": time.monotonic() - t0}
+            del tree, mine, back, blocks, whole
+        del run, state, model
+        _free(device)
+    return out
+
+
+def _gpt_small(pipeline=True):
+    from paddle_tpu_torch.models.gpt import GPTConfig
+    return GPTConfig(vocab_size=50304, hidden_size=768, num_layers=12,
+                     num_heads=12, ffn_size=3072, max_position=1024,
+                     pipeline=pipeline, pp_microbatches=PIPE_M)
+
+
+def _gpt_ids(cfg, device, seed=13):
+    rng = np.random.default_rng(seed)
+    return {"ids": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (PIPE_GPT_BATCH, TRAIN_SEQ + 1)).astype(
+            np.int32)).to(device)}
+
+
+def _gpt_step(device, mesh=None):
+    """GPT-2 small (pipelined, stacked) from seed 0 with AdamW(1e-4) in
+    bf16 over fp32 masters: the eager step, on ``mesh`` with the layers'
+    hints where one is given."""
+    from paddle_tpu_torch.core.dtypes import get_policy
+    from paddle_tpu_torch.models.gpt import GPT
+    from paddle_tpu_torch.nn.module import sharding_specs
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import api
+    from paddle_tpu_torch.train import build_train_step, make_train_state
+    model = GPT(_gpt_small(), device=device, seed=0)
+    opt = AdamW(model.parameters(), learning_rate=1e-4)
+    step = build_train_step(lambda m, ids: m.loss(ids), opt,
+                            policy=get_policy("bf16"), cuda_graphs=False)
+    state = make_train_state(model, opt)
+    if mesh is None:
+        return step, state, model
+    run, state = api.shard_train_step(step, mesh, state,
+                                      hints=sharding_specs(model))
+    return run, state, model
+
+
+def pipe_gpt_leg(rank, n, device):
+    """(d): GPT-2 small (vocab 50304, 12 x 768, 1024 positions) with
+    ``pipeline=True`` at pp=n, 8 x 512, 2 bf16 AdamW steps (causal K5)."""
+    mesh = _par_mesh(device, pp=n)
+    run, state, model = _gpt_step(device, mesh)
+    ids = _gpt_ids(model.cfg, device)
+    out = _pipe_steps(device, run, state, ids, PIPE_GPT_STEPS)
+    del run, state, model
+    _free(device)
+    return out
+
+
+def _hop_bytes(rows, width, policy, seq=None):
+    """Bytes of one microbatch's activation: ``rows / M`` sequences of
+    ``seq`` (``TRAIN_SEQ``) tokens of ``width``, bf16 under the bf16
+    policy, else fp32."""
+    seq = TRAIN_SEQ if seq is None else seq
+    return rows // PIPE_M * seq * width * (2 if policy == "bf16" else 4)
+
+
+def _check_pipe_staging(label, rows, device, want_bytes):
+    """Each stage rank staged the reckoned bytes through the host (on the
+    card; the CPU stages nothing)."""
+    if device.type != "cuda":
+        return
+    for rank, r in enumerate(rows):
+        if r["staged_bytes"] != want_bytes:
+            raise AssertionError(f"9 {label} rank {rank}: staged "
+                                 f"{r['staged_bytes']} bytes, reckoned "
+                                 f"{want_bytes}")
+
+
+def _check_pipe_launches(label, rows, want):
+    fwd, dkv, dq = (e.name for e in flash_entries())
+    for rank, r in enumerate(rows):
+        got = {"K5": r["launches"][fwd], "K6a": r["launches"][dkv],
+               "K6b": r["launches"][dq]}
+        if got != want:
+            raise AssertionError(f"9 {label} rank {rank}: launches {got}, "
+                                 f"reckoned {want}")
+
+
+def _pipe_dir():
+    shutil.rmtree(PIPE_DIR, ignore_errors=True)
+    PIPE_DIR.mkdir(parents=True)
+
+
+def pipeline_train(device, two):
+    """Phase 9: pipelines over "pp" on a gloo group of 2 processes on
+    ``device`` (the staging switch on) against one process at pp=1
+    (module docstring). ``two``: the ranks' results of :data:`PIPE_LEGS`,
+    which phase 8's group ran; this makes the checks and the pp=1
+    references."""
+    from paddle_tpu_torch.models.bert import BertConfig
+    from paddle_tpu_torch.resilience.snapshot import (SnapshotEngine,
+                                                      flatten_tree)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.monotonic()
+    n = 2
+    legs_s = sum(two[0][leg]["seconds"] for leg in PIPE_LEGS)
+    stats = {"seconds": {leg: two[0][leg]["seconds"] for leg in PIPE_LEGS}}
+
+    # (a) each rank against the sequential stack
+    for rank, r in enumerate(two):
+        for case, errs in r["pipe_toy"].items():
+            if case == "seconds":
+                continue
+            tol = PIPE_TOY_TOL[torch.bfloat16 if "bf16" in case
+                               else torch.float32]
+            if max(errs.values()) > tol:
+                raise AssertionError(f"9a {case} rank {rank}: {errs} "
+                                     f"(tolerance {tol})")
+    stats["toy"] = {k: v for k, v in two[0]["pipe_toy"].items()
+                    if k != "seconds"}
+    log("  9a gpipe / circular (v=2) toy stack vs sequential, max error "
+        "over its largest value, rank 0: " + json.dumps(stats["toy"]))
+
+    # (b) against pp=1 in this process
+    for label, policy, layers, rtol in (
+            ("bf16", "bf16", 12, PIPE_BF16_RTOL),
+            ("fp32_2layer", None, 2, PIPE_FP32_RTOL)):
+        cfg = BertConfig.base(num_layers=layers, dropout=0.0,
+                              attn_dropout=0.0, pipeline=True,
+                              pp_microbatches=PIPE_M)
+        rows = [r["pipe_bert"][label] for r in two]
+        _check_pipe_launches(f"b {label}", rows,
+                             pipe_reckoning(layers, n, PIPE_STEPS))
+        for r in rows:
+            if r["losses"] != rows[0]["losses"]:
+                raise AssertionError(f"9b {label}: the ranks' losses differ")
+        _check_pipe_staging(f"b {label}", rows, device, pipe_hop_ends(
+            n, PIPE_M, PIPE_STEPS) * _hop_bytes(PIPE_BATCH,
+                                                cfg.hidden_size, policy))
+        batch = bert_batch(cfg, PIPE_BATCH, TRAIN_SEQ, device, seed=9)
+        from paddle_tpu_torch.kernels import registry
+        registry.reset_launches()
+        want, _ = _one_process_bert(device, cfg, batch, PIPE_STEPS,
+                                    policy=policy)
+        pp1 = {e.name: e.launches for e in flash_entries()}
+        rel = _close(rows[0]["losses"], want, rtol, 0.0,
+                     f"9b {label} pp=2 vs pp=1")
+        loop = {}
+        if policy is None:
+            # the timetable itself, against the stacked layers' plain
+            # loop over the whole batch on the same weights
+            loop["losses_loop"], _ = _one_process_bert(
+                device, dataclasses.replace(cfg, pipeline=False,
+                                            stacked_layers=True),
+                batch, PIPE_STEPS)
+            loop["max_rel_err_pp1_vs_loop"] = _close(
+                want, loop["losses_loop"], rtol, 0.0,
+                f"9b {label} pp=1 vs the stacked loop")
+        stats[f"bert_{label}"] = {
+            "losses_pp1": want, "max_rel_err": rel, **loop,
+            "launches_pp1": pp1,
+            "reckoned_per_rank": pipe_reckoning(layers, n, PIPE_STEPS),
+            "per_rank": [{k: r[k] for k in (
+                "losses", "launches", "staged_calls", "staged_bytes",
+                "step_s", "peak_bytes", "encoder_rows")} for r in rows]}
+        log(f"  9b BERT-base {label} pp=2 (GPipe, M={PIPE_M}, "
+            f"{PIPE_BATCH} x {TRAIN_SEQ}) vs pp=1: "
+            + json.dumps(stats[f"bert_{label}"]))
+
+    # (c) the circular schedule's first step against (b)'s
+    rows = [r["pipe_bert"]["circular_bf16"] for r in two]
+    _check_pipe_launches("c circular", rows, pipe_reckoning(12, n, 1))
+    _check_pipe_staging("c circular", rows, device, pipe_hop_ends(
+        n, PIPE_M, 1, v=2) * _hop_bytes(PIPE_BATCH,
+                                        BertConfig.base().hidden_size,
+                                        "bf16"))
+    first = two[0]["pipe_bert"]["bf16"]["losses"][0]
+    rel = _close([r["losses"][0] for r in rows], [first] * n,
+                 PIPE_BF16_RTOL, 0.0, "9c circular vs gpipe")
+    stats["bert_circular"] = {
+        "max_rel_err_vs_gpipe_first_step": rel,
+        "per_rank": [{k: r[k] for k in (
+            "losses", "launches", "staged_calls", "staged_bytes",
+            "step_s", "peak_bytes", "encoder_rows")} for r in rows]}
+    log("  9c circular (v=2, pre-interleaved) vs (b)'s first step: "
+        + json.dumps(stats["bert_circular"]))
+
+    # (d) GPT-2 small against pp=1
+    rows = [r["pipe_gpt"] for r in two]
+    _check_pipe_launches("d gpt", rows, pipe_reckoning(12, n,
+                                                        PIPE_GPT_STEPS))
+    _check_pipe_staging("d gpt", rows, device, pipe_hop_ends(
+        n, PIPE_M, PIPE_GPT_STEPS) * _hop_bytes(
+            PIPE_GPT_BATCH, _gpt_small().hidden_size, "bf16"))
+    step, state, model = _gpt_step(device)
+    ids = _gpt_ids(model.cfg, device)
+    want = [float(step(state, **ids)[1]["loss"])
+            for _ in range(PIPE_GPT_STEPS)]
+    del step, state, model
+    _free(device)
+    rel = _close(rows[0]["losses"], want, PIPE_BF16_RTOL, 0.0,
+                 "9d GPT pp=2 vs pp=1")
+    stats["gpt"] = {"losses_pp1": want, "max_rel_err": rel, "per_rank": [
+        {k: r[k] for k in ("losses", "launches", "staged_calls",
+                           "staged_bytes", "step_s", "peak_bytes")}
+        for r in rows]}
+    log("  9d GPT-2 small pp=2 vs pp=1: " + json.dumps(stats["gpt"]))
+
+    # (e) the pp=2 snapshot restored whole here
+    t0 = time.monotonic()
+    eng = SnapshotEngine(str(PIPE_DIR / "snap"))
+    back = flatten_tree(eng.restore(1))
+    eng.close()
+    whole = torch.load(PIPE_DIR / "whole.pt")
+    bad = [k for k, v in whole.items()
+           if not torch.equal(torch.as_tensor(back[k]).cpu(), v)]
+    if bad:
+        raise AssertionError(f"9e one-process restore: {len(bad)} leaves "
+                             f"differ ({bad[:3]})")
+    stats["snapshot"] = {"ranks": [r["pipe_bert"]["snapshot"] for r in two],
+                         "whole_restore_s": time.monotonic() - t0,
+                         "leaves": len(whole)}
+    log("  9e pp=2 snapshot restored at pp=2 and whole: "
+        + json.dumps(stats["snapshot"]))
+    del back, whole
+    stats["main_path_launches"] = [r["pipe_bert"]["bf16"]["launches"]
+                                   for r in two]
+    stats["seconds"]["checks_and_pp1"] = time.monotonic() - t_phase
+    stats["seconds"]["phase"] = legs_s + stats["seconds"]["checks_and_pp1"]
+    log(f"  phase 9 took {stats['seconds']['phase']:.1f} s (its legs on "
+        "the ranks, then the checks and pp=1 here): "
+        + json.dumps(stats["seconds"]))
+    shutil.rmtree(PIPE_DIR, ignore_errors=True)
+    return stats
+
+
+#: phase 9's legs, run by phase 8's two-rank group
+PIPE_LEGS = ("pipe_toy", "pipe_bert", "pipe_gpt")
+
 #: the legs a group's ranks run (:func:`_group_rank`), by name
 GROUP_LEGS = {"tp_serve": _tp_legs, "ring": ring_leg,
               "ring_timed": functools.partial(ring_leg, timed=True),
               "bert_ring": bert_ring_leg, "dp": dp_leg, "tp": tp_leg,
-              "local_sgd": local_sgd_leg, "restore": restore_leg}
+              "local_sgd": local_sgd_leg, "restore": restore_leg,
+              "pipe_toy": pipe_toy_leg, "pipe_bert": pipe_bert_leg,
+              "pipe_gpt": pipe_gpt_leg}
 
 
 def _check_ring_counts(label, n, rows):
@@ -3849,8 +4338,10 @@ def parallel_train(device):
     t0 = time.monotonic()
     four = group_run(4, ("ring",), device, "8a sp=4 group")
     _check_ring_counts("sp=4", 4, [r["ring"] for r in four])
-    two = group_run(2, ("ring_timed", "bert_ring", "dp", "tp", "local_sgd"),
-                    device, "8a-8e sp/dp/tp=2 group")
+    # phase 9's pp=2 legs ride this group: one start-up for both phases
+    _pipe_dir()
+    two = group_run(2, ("ring_timed", "bert_ring", "dp", "tp", "local_sgd")
+                    + PIPE_LEGS, device, "8a-8e sp/dp/tp=2 and 9 pp=2 group")
     _check_ring_counts("sp=2", 2, [r["ring_timed"] for r in two])
     group_s = time.monotonic() - t0
     for label, rows in (("sp=2", [r["ring_timed"] for r in two]),
@@ -3897,7 +4388,8 @@ def parallel_train(device):
     log(f"  8b took {two[0]['bert_ring']['seconds']:.1f} s on the ranks")
 
     # (c) against one process at 2 x 24 x 512
-    cfg = BertConfig.base(dropout=0.0, attn_dropout=0.0)
+    cfg = BertConfig.base(num_layers=PAR_LAYERS, dropout=0.0,
+                          attn_dropout=0.0)
     want, ref = _one_process_bert(
         device, cfg, bert_batch(cfg, 2 * DP_BATCH, TRAIN_SEQ, device,
                                 seed=5), DP_STEPS)
@@ -3960,10 +4452,13 @@ def parallel_train(device):
                          "leaves": len(whole)}
     log("  8f sharded snapshot: " + json.dumps(stats["snapshot"]))
     del back, whole
+    stats["pipe_ranks"] = [{leg: r[leg] for leg in PIPE_LEGS} for r in two]
+    pipe_s = sum(two[0][leg]["seconds"] for leg in PIPE_LEGS)
     stats["ring_calls_main_path"] = two[0]["bert_ring"]["bf16"]["ring_calls"]
     stats["main_path_launches"] = two[0]["bert_ring"]["bf16"]["launches"]
     stats["seconds"] = {
-        "groups_a_to_e": group_s, "phase": time.monotonic() - t_phase,
+        "groups_a_to_e": group_s - pipe_s,
+        "phase": time.monotonic() - t_phase - pipe_s,
         "sp4_ring": four[0]["ring"]["seconds"],
         **{leg: two[0][leg]["seconds"] for leg in (
             "ring_timed", "bert_ring", "dp", "tp", "local_sgd")}}
@@ -4144,6 +4639,11 @@ def main() -> int:
         "sharded snapshot (gloo groups on one card)")
     par_stats = parallel_train(device)
 
+    log("[9/9] pipelines: GPipe and the circular schedule over pp=2, "
+        "BERT-base and GPT-2 small, the pp-split snapshot (legs run by "
+        "phase 8's two-rank group on one card)")
+    pipe_stats = pipeline_train(device, par_stats.pop("pipe_ranks"))
+
     lines = [kernel_line(e, rows[e.name], stats["launches"][e.name],
                          {**({"long": long_rows} if e is PA.DECODE
                              else {"verify": verify_rows[e.name]}),
@@ -4183,6 +4683,11 @@ def main() -> int:
     # K5 also runs in 4f's prefills (GPT.generate, generate_bucketed)
     k5_line, = [ln for ln in lines if ln["name"] == flash[0].name]
     k5_line["launches_generate"] = gen_stats["k5_launches"]
+    # K5/K6a/K6b per stage rank of phase 9 (b)'s main path
+    for ln in lines:
+        if ln["name"] in pipe_stats["main_path_launches"][0]:
+            ln["launches_pipeline_ranks"] = [
+                r[ln["name"]] for r in pipe_stats["main_path_launches"]]
     lines.append(ring_line(par_stats))
     log(f"[7/7] done in {time.monotonic() - t_start:.1f} s; library_ms of "
         "the two backward rows is one call for the pair: SDPA's whole "

@@ -5,10 +5,23 @@ post-LN encoder layers over flash attention, the pooler, and the MLM
 Module attribute names mirror the reference's parameter tree
 (``bert.embeddings.word.weight``, ``bert.encoder.{i}.attn.qkv_proj.weight``,
 ``heads.decoder_bias``, ...), so its weights carry across with a key
-flatten and no transposes (:mod:`paddle_tpu_torch.models.convert`). Only
-the layer-list layout is ported (see ROADMAP for the pipeline and stacked
-layouts). The layers carry the reference's sharding hints
-(``nn.module.sharding_specs``).
+flatten and no transposes (:mod:`paddle_tpu_torch.models.convert`). The
+encoder is a layer list, or with ``stacked_layers`` one
+``nn.module.StackedLayers`` whose parameters are the reference's stacked
+``(L, ...)`` leaves (``bert.encoder.attn.qkv_proj.weight``);
+:func:`stack_encoder_params` / :func:`unstack_encoder_params` move a
+checkpoint between the two. The layers carry the reference's sharding
+hints (``nn.module.sharding_specs``; a stacked leaf's hint has "pp" in
+front).
+
+Pipeline parallelism (``pipeline=True``): the encoder stack runs through
+``parallel.pipeline.gpipe_layer_stack`` over the ambient mesh's "pp"
+axis (GPipe, or the circular schedule with ``pp_circuits`` chunks per
+rank), ``pp_microbatches`` microbatches, the key-padding bias riding as
+each microbatch's extra; embeddings and heads stay outside the pipelined
+middle, replicated over "pp". Without a mesh (or at pp=1) the same
+schedule runs in one process. It does not compose with a sequence split
+over "sp" (the reference never composes the ring with the pipeline).
 
 Sequence parallel (``attn_impl="ring"`` under a mesh whose "sp" axis has
 more than one rank): each rank feeds its own block of ``S/sp`` tokens.
@@ -23,6 +36,7 @@ axes ("dp", "fsdp") both losses are means over the whole batch
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
@@ -32,6 +46,7 @@ from paddle_tpu_torch.core import mesh as mesh_lib
 from paddle_tpu_torch.core.device import resolve_device
 from paddle_tpu_torch.nn import initializer as I
 from paddle_tpu_torch.nn.layers import Dropout, Embedding, LayerNorm, Linear
+from paddle_tpu_torch.nn.module import StackedLayers, pipeline_layers
 from paddle_tpu_torch.nn.transformer import TransformerEncoderLayer
 from paddle_tpu_torch.ops import activation as ops_act
 from paddle_tpu_torch.ops.attention import make_padding_bias
@@ -50,6 +65,27 @@ class BertConfig:
     attn_dropout: float = 0.1
     pre_ln: bool = False
     attn_impl: str = "auto"
+    # pipeline parallelism: the encoder stack through the schedule over
+    # the "pp" mesh axis (parallel/pipeline.py), pp_microbatches
+    # microbatches; embeddings and heads stay outside it
+    pipeline: bool = False
+    pp_microbatches: int = 2
+    # "gpipe", or "circular" (pp_circuits chunks per rank: a smaller
+    # bubble, parallel.pipeline.pipeline_bubble_fraction)
+    pp_schedule: str = "gpipe"
+    pp_circuits: int = 1
+    # the stacked encoder is stored in the circular schedule's
+    # interleaved order (parallel.pipeline.interleave_stack), so a split
+    # over "pp" holds each stage's chunks and no weight moves per step
+    pp_pre_interleaved: bool = False
+    # the encoder as stacked (L, ...) parameters (nn.module.StackedLayers),
+    # split over "pp" by placement; on by default with pipeline. It
+    # changes the checkpoint's tree: stack_encoder_params moves one over
+    stacked_layers: Optional[bool] = None
+
+    def __post_init__(self):
+        if self.stacked_layers is None:
+            self.stacked_layers = self.pipeline
 
     @classmethod
     def base(cls, **kw):
@@ -70,6 +106,20 @@ class BertConfig:
         kw.setdefault("ffn_size", 64)
         kw.setdefault("max_position", 64)
         return cls(**kw)
+
+
+def stack_encoder_params(params, num_layers: int):
+    """A layer-list BERT checkpoint tree (the reference's nested dicts of
+    arrays or tensors, ``models.convert.params_tree`` of the port) in the
+    stacked layout."""
+    from paddle_tpu_torch.parallel import pipeline as pp_lib
+    return pp_lib.stack_params_at(params, ("bert", "encoder"), num_layers)
+
+
+def unstack_encoder_params(params, num_layers: int):
+    """Inverse of :func:`stack_encoder_params`."""
+    from paddle_tpu_torch.parallel import pipeline as pp_lib
+    return pp_lib.unstack_params_at(params, ("bert", "encoder"), num_layers)
 
 
 def _sp_block(cfg: BertConfig):
@@ -115,12 +165,17 @@ class BertModel(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.embeddings = BertEmbeddings(cfg, **kw)
-        self.encoder = nn.ModuleList([
-            TransformerEncoderLayer(
-                cfg.hidden_size, cfg.num_heads, cfg.ffn_size,
-                dropout=cfg.dropout, attn_dropout=cfg.attn_dropout,
-                pre_ln=cfg.pre_ln, attn_impl=cfg.attn_impl, **kw)
-            for _ in range(cfg.num_layers)])
+
+        make_layer = functools.partial(
+            TransformerEncoderLayer, cfg.hidden_size, cfg.num_heads,
+            cfg.ffn_size, dropout=cfg.dropout, attn_dropout=cfg.attn_dropout,
+            pre_ln=cfg.pre_ln, attn_impl=cfg.attn_impl)
+
+        if cfg.stacked_layers:
+            self.encoder = StackedLayers(make_layer, cfg.num_layers, **kw)
+        else:
+            self.encoder = nn.ModuleList([make_layer(**kw)
+                                          for _ in range(cfg.num_layers)])
         self.pooler = Linear(cfg.hidden_size, cfg.hidden_size, sharding=None,
                              **kw)
 
@@ -131,15 +186,50 @@ class BertModel(nn.Module):
         key-padding bias (B, 1, 1, S)."""
         bias = (make_padding_bias(attention_mask)
                 if attention_mask is not None else None)
+        if self.cfg.pipeline:
+            mesh = mesh_lib.current_mesh()
+            if mesh is not None and mesh_lib.axis_size(mesh, mesh_lib.SP) > 1:
+                raise ValueError("a pipelined BERT does not compose with a "
+                                 "sequence split over sp")
         x = self.embeddings(input_ids, token_type_ids, generator)
-        for layer in self.encoder:
-            x = layer(x, bias=bias, generator=generator)
+        if self.cfg.pipeline:
+            x = self._encoder_pipelined(x, bias, generator)
+        elif self.cfg.stacked_layers:
+            x = self.encoder(x, bias=bias, generator=generator)
+        else:
+            for layer in self.encoder:
+                x = layer(x, bias=bias, generator=generator)
         first = x[:, 0]
         mesh, _ = _sp_block(self.cfg)
         if mesh is not None:         # the first token lies on sp rank 0
             from paddle_tpu_torch.parallel.functional import broadcast_from
             first = broadcast_from(first, mesh_lib.SP, 0, mesh)
         return x, torch.tanh(self.pooler(first))
+
+    def _encoder_pipelined(self, x, bias, generator):
+        """The encoder stack through the pipeline over "pp" (module
+        docstring): stacked rows as they are held (whole, or this stage's
+        under a split over "pp"), or the layer list stacked here; the
+        bias microbatched as an extra; with dropout live, one seed drawn
+        from ``generator`` for the step."""
+        from paddle_tpu_torch.parallel import pipeline as pp_lib
+        cfg = self.cfg
+        extras = extras_spec = None
+        if bias is not None:
+            extras, extras_spec = pp_lib.microbatch_extras(
+                bias, cfg.pp_microbatches)
+        seed = None
+        if self.training and (cfg.dropout > 0 or cfg.attn_dropout > 0):
+            seed = pp_lib.step_seed(generator, x.device)
+        apply, params = pipeline_layers(self.encoder)
+        return pp_lib.gpipe_layer_stack(
+            lambda lp, h, extra, gen: apply(lp, h, bias=extra,
+                                            generator=gen),
+            params, x, num_microbatches=cfg.pp_microbatches,
+            num_layers=cfg.num_layers, seed=seed, extras=extras,
+            extras_spec=extras_spec, schedule=cfg.pp_schedule,
+            num_circuits=cfg.pp_circuits,
+            pre_interleaved=cfg.pp_pre_interleaved)
 
 
 class BertPretrainingHeads(nn.Module):

@@ -1,7 +1,12 @@
 """Decoder-only causal LM (``paddle_tpu/models/gpt.py``): pre-LN blocks,
 learned positions, head tied to ``wte``. Module attribute names mirror
 the reference's parameter tree, so its weights carry across with a key
-flatten and no transposes (:mod:`paddle_tpu_torch.models.convert`).
+flatten and no transposes (:mod:`paddle_tpu_torch.models.convert`). The
+blocks are a layer list, or with ``stacked_layers`` one
+``nn.module.StackedLayers`` (the reference's stacked ``blocks`` tree);
+``pipeline=True`` runs them through ``parallel.pipeline`` over the "pp"
+mesh axis (as BERT's encoder, with no per-microbatch extra: causality is
+inside the block).
 
 Decoding: :meth:`GPT.generate` samples autoregressively, by full refeed
 or through per-layer KV caches (``use_cache=True``: :meth:`GPT.prefill`
@@ -16,6 +21,7 @@ bucket.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, Optional
 
 import numpy as np
@@ -26,6 +32,7 @@ from paddle_tpu_torch.core.device import (counted_capture, note_replay,
                                           resolve_device)
 from paddle_tpu_torch.observability import recompile
 from paddle_tpu_torch.nn.layers import Dropout, Embedding, LayerNorm
+from paddle_tpu_torch.nn.module import StackedLayers, pipeline_layers
 from paddle_tpu_torch.nn.transformer import FeedForward, MultiHeadAttention
 
 
@@ -39,6 +46,22 @@ class GPTConfig:
     max_position: int = 1024
     dropout: float = 0.0
     attn_impl: str = "auto"
+    # the block stack through the pipeline over "pp" (see BertConfig)
+    pipeline: bool = False
+    pp_microbatches: int = 2
+    pp_schedule: str = "gpipe"    # or "circular" (pp_circuits per rank)
+    pp_circuits: int = 1
+    pp_pre_interleaved: bool = False  # stored interleaved (interleave_stack)
+    # stacked (L, ...) blocks (nn.module.StackedLayers); on by default
+    # with pipeline. It changes the checkpoint's tree: move an older one
+    # with parallel.pipeline.stack_params_at(params, ("blocks",), L).
+    # generate(use_cache=True) falls back to the full refeed under these
+    # layouts; generate_bucketed and the serving engine refuse them
+    stacked_layers: Optional[bool] = None
+
+    def __post_init__(self):
+        if self.stacked_layers is None:
+            self.stacked_layers = self.pipeline
 
     @classmethod
     def tiny(cls, **kw):
@@ -96,8 +119,12 @@ class GPT(nn.Module):
         self.wpe = Embedding(cfg.max_position, cfg.hidden_size, init_std=0.01,
                              sharding=None, **kw)
         self.drop = Dropout(cfg.dropout)
-        self.blocks = nn.ModuleList([GPTBlock(cfg, **kw)
-                                     for _ in range(cfg.num_layers)])
+        if cfg.stacked_layers:
+            self.blocks = StackedLayers(functools.partial(GPTBlock, cfg),
+                                        cfg.num_layers, **kw)
+        else:
+            self.blocks = nn.ModuleList([GPTBlock(cfg, **kw)
+                                         for _ in range(cfg.num_layers)])
         self.ln_f = LayerNorm(cfg.hidden_size, **kw)
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
@@ -113,9 +140,29 @@ class GPT(nn.Module):
     def forward(self, ids, *, generator: Optional[torch.Generator] = None):
         pos = torch.arange(ids.shape[1], device=ids.device)[None, :]
         x = self.drop(self.wte(ids) + self.wpe(pos), generator)
-        for block in self.blocks:
-            x = block(x, generator)
+        if self.cfg.pipeline:
+            x = self._blocks_pipelined(x, generator)
+        elif self.cfg.stacked_layers:
+            x = self.blocks(x, generator=generator)
+        else:
+            for block in self.blocks:
+                x = block(x, generator)
         return self.wte.attend(self.ln_f(x))
+
+    def _blocks_pipelined(self, x, generator):
+        """The block stack through the pipeline over "pp" (BERT's
+        ``_encoder_pipelined`` without an extra)."""
+        from paddle_tpu_torch.parallel import pipeline as pp_lib
+        cfg = self.cfg
+        seed = (pp_lib.step_seed(generator, x.device)
+                if self.training and cfg.dropout > 0 else None)
+        apply, params = pipeline_layers(self.blocks)
+        return pp_lib.gpipe_layer_stack(
+            lambda lp, h, extra, gen: apply(lp, h, generator=gen),
+            params, x, num_microbatches=cfg.pp_microbatches,
+            num_layers=cfg.num_layers, seed=seed,
+            schedule=cfg.pp_schedule, num_circuits=cfg.pp_circuits,
+            pre_interleaved=cfg.pp_pre_interleaved)
 
     def loss(self, ids, *, generator: Optional[torch.Generator] = None):
         """Next-token LM loss over ids (B, S): predict ``ids[:, 1:]``.
@@ -183,7 +230,9 @@ class GPT(nn.Module):
 
         ``use_cache=True`` decodes through per-layer KV caches of
         ``cache_dtype`` (default: the weights' dtype): the same tokens,
-        O(S) work per token instead of the full refeed's O(S^2)."""
+        O(S) work per token instead of the full refeed's O(S^2). The
+        layer-list layout only: the stacked and pipeline layouts fall
+        back to the full refeed, as the reference's do."""
         dev = self.device
         prompt = torch.as_tensor(prompt_ids, device=dev).to(torch.int32)
         b, s0 = prompt.shape
@@ -199,7 +248,7 @@ class GPT(nn.Module):
             gumbel = -torch.log(-torch.log(u))
             return (logits / temperature + gumbel).argmax(-1).to(torch.int32)
 
-        if use_cache:
+        if use_cache and not (self.cfg.pipeline or self.cfg.stacked_layers):
             cache = self.init_cache(b, total, dtype=cache_dtype)
             logits, cache = self.prefill(prompt, cache)
             ids[:, s0] = sample(logits[:, s0 - 1])
@@ -228,8 +277,12 @@ class GPT(nn.Module):
         (:func:`~paddle_tpu_torch.observability.recompile.note_capture`);
         on the CPU the bucket runs eagerly and its first use counts the
         same way. Tokens equal ``generate(use_cache=True)``. Returns
-        (B, S0 + max_new_tokens) int32 ids on the model's device."""
+        (B, S0 + max_new_tokens) int32 ids on the model's device. The
+        layer-list layout only."""
         cfg = self.cfg
+        if cfg.pipeline or cfg.stacked_layers:
+            raise ValueError("generate_bucketed needs the LayerList "
+                             "layout (like generate(use_cache=True))")
         prompt_host = np.asarray(torch.as_tensor(prompt_ids).cpu(),
                                  np.int32)
         b, s0 = prompt_host.shape

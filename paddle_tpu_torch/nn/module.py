@@ -1,5 +1,7 @@
 """Per-parameter sharding hints (``paddle_tpu/nn/module.py``:
-``ParamSpec.sharding`` and ``Layer.sharding_specs``).
+``ParamSpec.sharding`` and ``Layer.sharding_specs``), and
+:class:`StackedLayers`, the stacked ``(L, ...)`` layout of a stack of
+identical layers.
 
 A layer declares the spec each of its parameters would take on a mesh in
 ``param_sharding``, ``{parameter name: spec or None}`` (a spec is a tuple
@@ -16,6 +18,7 @@ from __future__ import annotations
 
 from typing import Any, Optional, Tuple
 
+import torch
 from torch import nn
 
 Spec = Optional[Tuple[Any, ...]]
@@ -33,3 +36,144 @@ def sharding_specs(model: nn.Module) -> dict:
             key = f"{mod_name}.{pname}" if mod_name else pname
             values[key] = getattr(mod, "param_sharding", {}).get(pname)
     return params_tree(model, values)
+
+
+class StackedLayers(nn.Module):
+    """``L`` structurally identical layers stored as stacked ``(L, ...)``
+    parameters (``paddle_tpu/nn/module.py`` ``StackedLayers``): the layout
+    a pipeline splits over "pp" by placement, each stage holding its own
+    rows.
+
+    ``make_layer(device=, dtype=)`` builds one layer. A template of it
+    lives on the meta device, outside the module tree; the module holds
+    one ``nn.Parameter`` of shape ``(L, *shape)`` per parameter of the
+    template, under the template's own names at this module's path with
+    no layer index (``bert.encoder.attn.qkv_proj.weight``), so the
+    reference's stacked tree carries across with a plain key flatten
+    (``models.convert``). Parameterless submodules (dropouts) are kept as
+    empty containers, as the reference's tree keeps ``{}``. Each hint
+    gains the stage axis in front: ``("pp",)`` for a hint of None, else
+    ``("pp", *hint)``.
+
+    Layer ``i`` runs as the template through
+    ``torch.func.functional_call`` on the ``i``-th rows
+    (:meth:`layer_params`); :meth:`forward` applies the layers in order,
+    each with the same keyword arguments (the dropout ``generator``
+    shared, as a layer list's loop shares it)."""
+
+    def __init__(self, make_layer, num_layers: int, *,
+                 stage_axis: str = "pp", device=None, dtype=None):
+        super().__init__()
+        template = make_layer(device="meta", dtype=dtype)
+        # not a child: its (meta) parameters stay out of the module tree
+        object.__setattr__(self, "template", template)
+        object.__setattr__(self, "_make_layer", make_layer)
+        self.num_layers = num_layers
+        self.stage_axis = stage_axis
+        shells = {"": self}
+        for name, mod in template.named_modules():
+            if name:
+                parent, _, leaf = name.rpartition(".")
+                shells[name] = nn.Module()
+                shells[parent].add_module(leaf, shells[name])
+        for name, p in template.named_parameters():
+            parent, _, leaf = name.rpartition(".")
+            shell = shells[parent]
+            shell.register_parameter(leaf, nn.Parameter(torch.empty(
+                (num_layers,) + tuple(p.shape), device=device,
+                dtype=p.dtype)))
+            hint = getattr(template.get_submodule(parent),
+                           "param_sharding", {}).get(leaf)
+            if "param_sharding" not in shell.__dict__:
+                shell.param_sharding = {}
+            shell.param_sharding[leaf] = ((stage_axis,) if hint is None
+                                          else (stage_axis, *hint))
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        """Layer by layer, each initialised as a layer of a layer list
+        would be (its modules' ``reset_parameters`` in module order), so
+        a stacked model from a seed holds the layer list's weights of
+        that seed, stacked."""
+        stacked = self.stacked_params()
+        ref = next(iter(stacked.values()))
+        for i in range(self.num_layers):
+            layer = self._make_layer(device=ref.device, dtype=ref.dtype)
+            for mod in layer.modules():
+                if hasattr(mod, "reset_parameters"):
+                    mod.reset_parameters(generator)
+            with torch.no_grad():
+                for name, p in layer.named_parameters():
+                    stacked[name][i].copy_(p)
+
+    def train(self, mode: bool = True):
+        super().train(mode)
+        self.template.train(mode)
+        return self
+
+    def stacked_params(self) -> dict:
+        """``{template name: the (rows, ...) tensor}`` as the module holds
+        it now (a sharded step's view where one is swapped in)."""
+        return held_params(self)
+
+    def layer_params(self, i: int, stacked: Optional[dict] = None) -> dict:
+        """Layer ``i``'s parameters: the ``i``-th row of each."""
+        stacked = stacked if stacked is not None else self.stacked_params()
+        return {name: t[i] for name, t in stacked.items()}
+
+    def apply_layer(self, params: dict, x, *args, **kwargs):
+        """The template on ``params`` (one layer's tensors by name)."""
+        return torch.func.functional_call(self.template, params,
+                                          (x,) + args, kwargs)
+
+    def forward(self, x, **kwargs):
+        stacked = self.stacked_params()
+        rows = next(iter(stacked.values())).shape[0]
+        if rows != self.num_layers:
+            raise ValueError(
+                f"this module holds {rows} of {self.num_layers} layers (a "
+                "stack split over pp): run it through the pipeline")
+        for i in range(self.num_layers):
+            x = self.apply_layer(self.layer_params(i, stacked), x, **kwargs)
+        return x
+
+
+def layer_modules(model: nn.Module):
+    """``(name, module, stacked)`` for every module of ``model``, and for
+    every ``StackedLayers`` the modules of its template under the
+    stacked names (``stacked`` True: their parameters' specs carry the
+    stage axis in front)."""
+    for name, mod in model.named_modules():
+        yield name, mod, False
+        if isinstance(mod, StackedLayers):
+            for sub, tmod in mod.template.named_modules():
+                yield (f"{name}.{sub}" if sub else name), tmod, True
+
+
+def held_params(module: nn.Module) -> dict:
+    """``{name: tensor}`` of ``module``'s parameters as it holds them now
+    (read through the attributes, so a tensor swapped in by
+    ``torch.func.functional_call`` is what comes back)."""
+    out = {}
+    for name, _ in module.named_parameters():
+        obj = module
+        for part in name.split("."):
+            obj = getattr(obj, part)
+        out[name] = obj
+    return out
+
+
+def pipeline_layers(stack) -> tuple:
+    """``(apply, params)`` of a stack of identical layers for
+    ``parallel.pipeline.gpipe_layer_stack``: a :class:`StackedLayers`'
+    template and its stacked tensors as held, or a layer list's first
+    layer run on each layer's parameters (a list of dicts, which the
+    pipeline stacks)."""
+    if isinstance(stack, StackedLayers):
+        return stack.apply_layer, stack.stacked_params()
+    first = stack[0]
+
+    def apply(params, x, *args, **kwargs):
+        return torch.func.functional_call(first, params, (x,) + args,
+                                          kwargs)
+
+    return apply, [held_params(layer) for layer in stack]

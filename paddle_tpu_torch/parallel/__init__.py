@@ -4,10 +4,11 @@ collectives over a mesh axis's process group and their autograd
 transposes, ring attention over "sp" (the ``ring_attention`` module; its
 entry point is ``ring_attention.ring_attention``), and the sharded train
 and eval
-steps (data parallel, FSDP, Megatron from the layers' hints). The serving
-engine's tensor parallelism (``ServingEngine(mesh=..., tp=...)``) stands
-on these too. Pipelines and the sharded embedding are later slices of
-the port (ROADMAP Queue 1 item 4.4)."""
+steps (data parallel, FSDP, Megatron from the layers' hints, pipelines
+over "pp"), and the pipeline schedules themselves (GPipe and the circular
+schedule, the stacked-layer layouts). The serving engine's tensor
+parallelism (``ServingEngine(mesh=..., tp=...)``) stands on these too.
+The sharded embedding is a later slice of the port."""
 
 from paddle_tpu_torch.parallel import collective, functional
 from paddle_tpu_torch.parallel.api import (batch_specs, gathered_params,
@@ -19,11 +20,25 @@ from paddle_tpu_torch.parallel.plan import (P, Rule, ShardingPlan, fsdp_plan,
                                             serving_prefill_tp_plan,
                                             serving_tp_plan)
 from paddle_tpu_torch.parallel import ring_attention
+from paddle_tpu_torch.parallel.pipeline import (circular_pipeline, gpipe,
+                                                gpipe_layer_stack,
+                                                interleave_stack, microbatch,
+                                                microbatch_extras,
+                                                pipeline_bubble_fraction,
+                                                stack_layer_params,
+                                                stack_params_at,
+                                                uninterleave_stack,
+                                                unmicrobatch,
+                                                unstack_params_at)
 
 __all__ = [
     "collective", "functional", "P", "Rule", "ShardingPlan", "batch_specs",
-    "fsdp_plan", "gathered_params", "local_shard", "megatron_plan",
-    "paged_pool_specs", "replicated_plan", "ring_attention",
+    "circular_pipeline", "fsdp_plan", "gathered_params", "gpipe",
+    "gpipe_layer_stack", "interleave_stack", "local_shard", "megatron_plan",
+    "microbatch", "microbatch_extras", "paged_pool_specs",
+    "pipeline_bubble_fraction", "replicated_plan", "ring_attention",
     "serving_prefill_tp_plan", "serving_tp_plan", "shard_eval_step",
-    "shard_train_step", "with_sharding_constraint",
+    "shard_train_step", "stack_layer_params", "stack_params_at",
+    "uninterleave_stack", "unmicrobatch", "unstack_params_at",
+    "with_sharding_constraint",
 ]

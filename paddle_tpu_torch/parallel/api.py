@@ -29,6 +29,13 @@ are explicit:
   outside its rows and all-reduces, and its tied projection all-gathers
   the logits. Each communication is a ``torch.autograd.Function`` with
   its transpose in the backward (``parallel.functional``);
+- pipelines ("pp", from a ``StackedLayers``' hints): a stacked
+  parameter whose spec names "pp" is stored as this stage's rows, which
+  the model's pipeline (:mod:`~paddle_tpu_torch.parallel.pipeline`) runs;
+  every rank of a pp group holds the same batch, so the gradients are
+  still averaged over the data axes only, and draws the same dropout
+  masks: each step runs on a default generator seeded from stage 0's
+  (:func:`step_rng`);
 - norms: the optimizer's clip by norm and its trust ratios take each
   split parameter's squared sums over the axes it is split over
   (``Optimizer.norm_reduce``), so they are the whole tensors' norms and
@@ -42,6 +49,7 @@ gloo mesh of one card the gathers and scatters need the mesh's
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Any, Callable, Dict, Mapping, Optional
 
@@ -56,8 +64,8 @@ from paddle_tpu_torch.parallel.plan import P
 
 #: the batch's spec unless told otherwise: dim 0 over the batch axes
 BATCH_SPEC = P(mesh_lib.BATCH_AXES)
-#: axes a parameter's spec may name here (pipelines are Queue 1 item 4.4)
-PARAM_AXES = (mesh_lib.FSDP, mesh_lib.TP)
+#: axes a parameter's spec may name here
+PARAM_AXES = (mesh_lib.FSDP, mesh_lib.TP, mesh_lib.PP)
 
 
 def batch_specs(batch: Mapping[str, Any], *, seq_dim: Optional[int] = None
@@ -179,15 +187,23 @@ class TpEmbedding:
 
 
 def _install_tp(model, specs: Dict[str, tuple], mesh):
-    """Set the Megatron roles of ``model``'s layers from their specs."""
+    """Set the Megatron roles of ``model``'s layers from their specs (a
+    ``StackedLayers``' template from its stacked parameters' specs,
+    the stage axis in front dropped: the spec of one layer's rows)."""
     from paddle_tpu_torch.nn.layers import Embedding, Linear
+    from paddle_tpu_torch.nn.module import layer_modules
     from paddle_tpu_torch.nn.transformer import (FeedForward,
                                                  MultiHeadAttention)
     tp = mesh_lib.axis_size(mesh, mesh_lib.TP)
-    names = {id(m): n for n, m in model.named_modules()}
+    listed = list(layer_modules(model))
+    modules = [m for _, m, _ in listed]
+    names = {id(m): n for n, m, _ in listed}
+    stacked = {id(m) for _, m, st in listed if st}
 
     def kind(layer):
         spec = specs.get(f"{names[id(layer)]}.weight".lstrip("."), ())
+        if id(layer) in stacked:
+            spec = spec[1:]
         dim = _dim_naming(spec, mesh_lib.TP)
         if dim is None:
             return None
@@ -199,7 +215,7 @@ def _install_tp(model, specs: Dict[str, tuple], mesh):
         return "column" if dim == 1 else "row"
 
     roles = {}
-    for mod in model.modules():
+    for mod in modules:
         if isinstance(mod, FeedForward) and kind(mod.fc1) == "column" \
                 and kind(mod.fc2) == "row":
             roles[id(mod.fc1)] = TpLinear(mesh, "column", keep_split=True)
@@ -217,7 +233,7 @@ def _install_tp(model, specs: Dict[str, tuple], mesh):
                 roles[id(mod.qkv_proj)] = TpLinear(mesh, "column",
                                                    disjoint=True)
                 roles[id(mod.out_proj)] = TpLinear(mesh, "row")
-    for mod in model.modules():
+    for mod in modules:
         if not isinstance(mod, (Linear, Embedding)):
             continue
         k = kind(mod)
@@ -357,7 +373,7 @@ def _place(model, opt, specs: Dict[str, tuple], mesh):
         if bad:
             raise NotImplementedError(
                 f"{name}: a parameter split over {sorted(bad)} is not "
-                "ported (pipelines are ROADMAP Queue 1 item 4.4)")
+                f"supported (parameters split over {list(PARAM_AXES)})")
         entry = spec[_dim_naming(spec, mesh_lib.FSDP)] \
             if _dim_naming(spec, mesh_lib.FSDP) is not None else None
         if isinstance(entry, tuple) and entry[-1] != mesh_lib.FSDP:
@@ -389,6 +405,31 @@ def _params_tree(model):
     return params_tree(model)
 
 
+@contextlib.contextmanager
+def step_rng(mesh, device):
+    """One step's random draws on ``device`` (dropout): its default
+    generator, for the step, seeded from one draw of the CPU's default
+    generator on stage 0 of this rank's pp group (broadcast over "pp";
+    ``mesh`` None or pp=1: this rank's draw). So every stage of a
+    pipeline draws the same masks, the embeddings' too, whatever the
+    ranks' own generators hold (the reference keeps one dropout key in
+    the replicated train state), and pp=1 draws what pp=n does from the
+    same generator. The ranks' own generators move on by that one draw
+    alone; the data shards keep their own streams."""
+    seed = torch.randint(0, 2 ** 62, (1,), dtype=torch.int64)
+    if mesh is not None and mesh_lib.axis_size(mesh, mesh_lib.PP) > 1:
+        seed = collective.broadcast(seed, mesh_lib.PP, root=0, mesh=mesh)
+    device = torch.device(device)
+    cuda = device.type == "cuda"
+    index = (device.index if device.index is not None
+             else torch.cuda.current_device()) if cuda else None
+    with torch.random.fork_rng(devices=[index] if cuda else []):
+        gen = (torch.cuda.default_generators[index] if cuda
+               else torch.default_generator)
+        gen.manual_seed(int(seed[0]))
+        yield
+
+
 def shard_train_step(step, mesh, state: Dict[str, Any], *,
                      plan: Optional[plan_lib.ShardingPlan] = None,
                      hints: Any = None, batch_spec=BATCH_SPEC):
@@ -401,7 +442,8 @@ def shard_train_step(step, mesh, state: Dict[str, Any], *,
     (``batch_spec``: one spec for every feed, or a dict such as
     :func:`batch_specs` gives) and returns ``(state, metrics)``, the
     metrics averaged over the data axes. ``run.local(state, **batch)``
-    takes this rank's block as it is. The step runs eagerly. The
+    takes this rank's block as it is. The step runs eagerly, on the
+    generator :func:`step_rng` seeds (one per step). The
     optimizer's norms (a clip by norm, the trust ratios of LarsMomentum
     and Lamb) are those of the whole tensors
     (:meth:`StepSharding.attach`)."""
@@ -421,11 +463,14 @@ def shard_train_step(step, mesh, state: Dict[str, Any], *,
     sharding.attach(model, opt)
     sharded = step.rebuild(sharding=sharding, cuda_graphs=False)
 
+    device = next(model.parameters()).device
+
     def run_local(state, **batch):
-        return sharded(state, **batch)
+        with step_rng(mesh, device):
+            return sharded(state, **batch)
 
     def run(state, **batch):
-        return sharded(state, **local_batch(batch, mesh, batch_spec))
+        return run_local(state, **local_batch(batch, mesh, batch_spec))
 
     run.local = run_local
     run.specs = specs

@@ -237,13 +237,24 @@ def ppermute(x: torch.Tensor, axis: str, perm, *,
     """Point-to-point shift: for each ``(src, dst)`` of ``perm`` (axis
     positions), member ``dst`` receives member ``src``'s ``x``; a member
     that receives nothing gets zeros (``lax.ppermute``). One
-    ``batch_isend_irecv`` per member."""
+    ``batch_isend_irecv`` per member. Staged through the host, a member
+    copies ``x`` out only when it sends and a buffer in only when it
+    receives, and counts those bytes alone."""
     m = _mesh(mesh)
     g = m.get_group(axis)
     dev = _stage("ppermute", x, g, m)
     me = m.get_local_rank(axis)
-    send = x.contiguous() if dev is None else _to_host(x)
-    out = torch.zeros_like(send)
+    sending = any(src == me for src, _ in perm)
+    receiving = any(dst == me for _, dst in perm)
+    if not receiving and dev is not None:
+        out = torch.zeros_like(x)
+    elif dev is None:
+        out = torch.zeros_like(x, memory_format=torch.contiguous_format)
+    else:
+        out = torch.zeros(x.shape, dtype=x.dtype, pin_memory=True)
+    send = None
+    if sending:
+        send = x.contiguous() if dev is None else _to_host(x)
     ops = []
     for src, dst in perm:
         if src == me:
@@ -256,8 +267,10 @@ def ppermute(x: torch.Tensor, axis: str, perm, *,
         for req in dist.batch_isend_irecv(ops):
             req.wait()
     if dev is not None:
-        _note_staged("ppermute", send.nbytes + out.nbytes)
-        out = out.to(dev)
+        _note_staged("ppermute", (send.nbytes if sending else 0)
+                     + (out.nbytes if receiving else 0))
+        if receiving:
+            out = out.to(dev)
     return out
 
 

@@ -296,6 +296,11 @@ class ServingEngine:
                  mesh=None, tp: Optional[int] = None,
                  tp_probe: bool = False,
                  anatomy_probe_every: Optional[int] = None):
+        if getattr(model.cfg, "pipeline", False) or getattr(
+                model.cfg, "stacked_layers", False):
+            raise ValueError(
+                "ServingEngine needs the LayerList GPT layout; convert "
+                "stacked/pipeline checkpoints for serving first")
         self.device = resolve_device(device)
         # disaggregation: a "prefill" engine runs only the batched
         # prefill and parks prefill-done slots for poll_handoffs; a

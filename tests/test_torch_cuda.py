@@ -31,7 +31,9 @@ raises, fresh dropout masks per replay, an AMP overflow skipped inside
 the graph, and remat under graphs. K1-K4 under every configuration
 their contracts declare (one each: the warps a block the kernels fix),
 and fault F9's round of threaded replicas beside a capture, 20 times in one
-process.
+process. Pipelines on the card: a pp=2 group of two processes on
+``cuda:0`` training the full-width 2-layer BERT against pp=1, and its
+pp-split snapshot restored per stage and whole.
 """
 
 import numpy as np
@@ -1496,3 +1498,98 @@ def test_a_graphed_tp_engine_is_refused_on_the_card(dev):
     assert eng.graphs.graphed
     assert all(len(t) == 8 for t in eng.generate_many(
         [np.arange(1, 12, dtype=np.int32)], 8))
+
+
+# -- pipelines on the card ----------------------------------------------------
+
+PIPE_BERT = dict(vocab_size=30522, hidden_size=768, num_layers=2,
+                 num_heads=12, ffn_size=3072, max_position=512, dropout=0.0,
+                 attn_dropout=0.0, pipeline=True, pp_microbatches=4)
+
+
+def _pipe_batch(b=8, s=128, seed=0):
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(s // 4, s + 1, b)
+    return dict(
+        input_ids=rng.integers(0, 30522, (b, s)).astype(np.int32),
+        token_type_ids=np.zeros((b, s), np.int32),
+        attention_mask=np.arange(s)[None, :] < lengths[:, None],
+        mlm_labels=rng.integers(0, 30522, (b, s)).astype(np.int32),
+        mlm_mask=(rng.random((b, s)) < 0.15).astype(np.float32),
+        nsp_labels=rng.integers(0, 2, b).astype(np.int32))
+
+
+def _pipe_pool_run(case, **kw):
+    import sys
+    sys.path.insert(0, str(__import__("pathlib").Path(__file__).parent))
+    from torch_tp_pool import TpPool
+    from paddle_tpu_torch.kernels import build
+    build.build_all(["flash_attention"])   # the ranks load the library
+    pool = TpPool(2)
+    try:
+        return pool.run(case, timeout_s=300, device="cuda:0", **kw)
+    finally:
+        pool.close()
+
+
+def test_pipelined_bert_pp2_on_the_card_matches_pp1(dev):
+    """BERT at full width with 2 layers (one a stage), fp32, M=4: two
+    ranks on ``cuda:0`` over gloo (the staging switch on) give the loss
+    and every gradient of pp=1 in this process, and each rank launched
+    K5 8 times (forward and recompute), K6a and K6b 4 times; pp=1 in
+    turn gives the loss and gradients of the same weights' stacked
+    layers without the pipeline (the plain loop over the whole batch)."""
+    from paddle_tpu_torch.models.bert import BertConfig, BertForPretraining
+    batch = _pipe_batch()
+    res = _pipe_pool_run("pipe_train", params=None, model="bert",
+                         cfg=PIPE_BERT, sizes={"pp": 2}, batch=batch)
+    feeds = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    model = BertForPretraining(BertConfig.tiny(**PIPE_BERT), device=dev,
+                               seed=0)
+    loss = model.loss(**feeds)[0]
+    loss.backward()
+    loop = BertForPretraining(BertConfig.tiny(
+        **dict(PIPE_BERT, pipeline=False, stacked_layers=True)),
+        device=dev, seed=0)
+    loop_loss = loop.loss(**feeds)[0]
+    loop_loss.backward()
+    assert float(loss.detach()) == pytest.approx(float(loop_loss.detach()),
+                                                 rel=1e-5)
+    for (k, p), (k2, q) in zip(model.named_parameters(),
+                               loop.named_parameters()):
+        assert k == k2
+        np.testing.assert_allclose(p.grad.cpu().numpy(),
+                                   q.grad.cpu().numpy(), rtol=1e-4,
+                                   atol=1e-6, err_msg=k)
+    for r in res:
+        assert r["losses"][0]["loss"] == pytest.approx(
+            float(loss.detach()), rel=1e-5)
+        for k, p in model.named_parameters():
+            np.testing.assert_allclose(r["grads"][k], p.grad.cpu().numpy(),
+                                       rtol=1e-4, atol=1e-6, err_msg=k)
+        assert (r["launches"]["flash_attention_fwd"],
+                r["launches"]["flash_attention_bwd_dkv"],
+                r["launches"]["flash_attention_bwd_dq"]) == (8, 4, 4)
+
+
+def test_pp2_snapshot_on_the_card_restores_each_stage_and_whole(dev,
+                                                                 tmp_path):
+    """The pp=2 state of the 2-layer model on the card, saved as each
+    stage's rows, restores with ``shardings=`` naming "pp" to each rank's
+    blocks and without them to the whole state, bit for bit."""
+    from paddle_tpu_torch.resilience.snapshot import (SnapshotEngine,
+                                                      flatten_tree)
+    res = _pipe_pool_run("pipe_snapshot", params=None, cfg=PIPE_BERT,
+                         batch=_pipe_batch(seed=1), directory=str(tmp_path),
+                         sizes={"pp": 2})
+    from torch_tp_pool import _digest
+    key = "params/bert/encoder/attn/qkv_proj/weight"
+    for r in res:
+        assert r["specs"][key][0] == "pp" and key in r["shards"]
+        assert r["differ"] == []
+    assert res[0]["mine"][key] != res[1]["mine"][key]
+    eng = SnapshotEngine(str(tmp_path))
+    whole = flatten_tree(eng.restore(1))
+    eng.close()
+    for k, digest in res[0]["whole"].items():
+        assert _digest(torch.as_tensor(whole[k]).cpu()) == digest, k

@@ -552,6 +552,7 @@ CLIP_NORM = {"global": 0.1, "tensor": 0.05}
 def _optimizer(name, params, lr):
     """An optimizer of the port by name: "adam", "momentum",
     "adam_global_clip" (``GradientClipByGlobalNorm``),
+    "momentum_global_clip",
     "momentum_norm_clip" (``GradientClipByNorm``), "lamb" or "lars"."""
     from paddle_tpu_torch import optimizer as o
     return {
@@ -564,6 +565,9 @@ def _optimizer(name, params, lr):
         "momentum_norm_clip": lambda: o.Momentum(
             params, learning_rate=lr, momentum=0.9,
             grad_clip=o.GradientClipByNorm(CLIP_NORM["tensor"])),
+        "momentum_global_clip": lambda: o.Momentum(
+            params, learning_rate=lr, momentum=0.9,
+            grad_clip=o.GradientClipByGlobalNorm(CLIP_NORM["global"])),
         "lamb": lambda: o.Lamb(params, learning_rate=lr),
         "lars": lambda: o.LarsMomentum(params, learning_rate=lr),
     }[name]()
@@ -833,3 +837,313 @@ def constraint(rank, n, x, g):
     blk = api.with_sharding_constraint(xt, ("dp", None), mesh)
     (blk * torch.from_numpy(g).chunk(n)[rank]).sum().backward()
     return blk.detach().numpy(), xt.grad.numpy()
+
+
+# -- pipelines ("pp") ---------------------------------------------------------
+
+def _pp_block(lp, h, extra, mb_idx):
+    """The reference's toy stage block: ``tanh(h @ w + b) (+ extra)``."""
+    import torch
+    h = torch.tanh(h @ lp["w"] + lp["b"])
+    return h if extra is None else h + extra
+
+
+def _mb_block(lp, h, extra, mb_idx):
+    """Adds the extra and the delivered microbatch index."""
+    return h + mb_idx + (0.0 if extra is None else extra)
+
+
+def pipe_primitive(rank, n, sizes, w, b, x, g, extra=None, circuits=1,
+                   layout="whole", block="tanh"):
+    """``gpipe`` (``circuits`` 1) or ``circular_pipeline`` of the toy
+    block over the stack ``(w, b)`` on a mesh of ``sizes``; ``layout``:
+    "whole" (every rank holds the stack), "rows" (this stage's rows of a
+    contiguous split, ``stage_rows``) or "pre" (rows of the interleaved
+    order, ``pre_interleaved``). Returns the output and the gradients of
+    ``sum(out * g)`` with respect to the stack (whole again, canonical
+    order), the input and the extra."""
+    import torch
+    from paddle_tpu_torch.core import mesh as mesh_lib
+    from paddle_tpu_torch.parallel import collective as C
+    from paddle_tpu_torch.parallel import pipeline as PL
+    mesh = _mesh(n, **sizes)
+    pp = mesh_lib.axis_size(mesh, "pp")
+    s = mesh_lib.axis_index(mesh, "pp")
+    stack = {"w": torch.from_numpy(w), "b": torch.from_numpy(b)}
+    if layout == "pre":
+        stack = PL.interleave_stack(stack, pp, circuits)
+    if layout != "whole":
+        per = w.shape[0] // pp
+        stack = {k: v[s * per:(s + 1) * per] for k, v in stack.items()}
+    stack = {k: v.clone().requires_grad_() for k, v in stack.items()}
+    xt = torch.from_numpy(x).requires_grad_()
+    et = None if extra is None else torch.from_numpy(extra) \
+        .requires_grad_()
+    kw = dict(extras=et, mesh=mesh, stage_rows=layout != "whole")
+    fn = _pp_block if block == "tanh" else _mb_block
+    if circuits == 1:
+        out = PL.gpipe(fn, stack, xt, **kw)
+    else:
+        out = PL.circular_pipeline(fn, stack, xt, num_circuits=circuits,
+                                   pre_interleaved=layout == "pre", **kw)
+    res = {"out": out.detach().numpy()}
+    if block != "tanh":
+        return res
+    (out * torch.from_numpy(g)).sum().backward()
+    for k, v in stack.items():
+        gk = v.grad
+        if layout != "whole":
+            gk = C.all_gather(gk, "pp", mesh=mesh)
+        if layout == "pre":
+            gk = PL.uninterleave_stack(gk, pp, circuits)
+        res[k] = gk.numpy()
+    res["x"] = xt.grad.numpy()
+    if et is not None:
+        res["extra"] = et.grad.numpy()
+    return res
+
+
+def pipe_rejections(rank, n):
+    """The schedules' refusals on a pp=n mesh: extras split over "pp", a
+    stream shorter than the stages under the circular schedule, and
+    pre-interleaved rows under GPipe; and a pipelined BERT on an sp=n
+    mesh. Returns each message."""
+    import torch
+    from paddle_tpu_torch.parallel import pipeline as PL
+    mesh = _mesh(n, pp=n)
+    stack = {"w": torch.zeros(8, 4, 4), "b": torch.zeros(8, 4)}
+    out = {}
+    for key, call in (
+            ("extras_spec", lambda: PL.gpipe(
+                _pp_block, stack, torch.zeros(4, 2, 4),
+                extras=torch.zeros(4, 2, 4), extras_spec=("pp",),
+                mesh=mesh)),
+            ("short", lambda: PL.circular_pipeline(
+                _pp_block, stack, torch.zeros(2, 1, 4), num_circuits=2,
+                mesh=mesh)),
+            ("gpipe_pre", lambda: PL.gpipe_layer_stack(
+                lambda lp, h, e, gen: h, [dict(w=stack["w"][i])
+                                          for i in range(4)],
+                torch.zeros(8, 4), num_microbatches=4, mesh=mesh,
+                schedule="gpipe", pre_interleaved=True))):
+        try:
+            call()
+            out[key] = None
+        except ValueError as e:
+            out[key] = str(e)
+    from paddle_tpu_torch.core import mesh as mesh_lib
+    from paddle_tpu_torch.models.bert import BertConfig, BertForPretraining
+    m = BertForPretraining(BertConfig.tiny(pipeline=True,
+                                           attn_impl="ring",
+                                           attn_dropout=0.0), device="cpu")
+    try:
+        with mesh_lib.mesh_context(_mesh(n, sp=n)):
+            m.bert(torch.zeros(4, 8, dtype=torch.long))
+        out["bert_sp"] = None
+    except ValueError as e:
+        out["bert_sp"] = str(e)
+    return out
+
+
+def _pp_model(model, cfg, params, device="cpu"):
+    """BERT or GPT of ``cfg`` (fields over the tiny config's) from the JAX
+    weights ``params``, or from seed 0 when ``params`` is None."""
+    from paddle_tpu_torch.models.bert import BertConfig, BertForPretraining
+    from paddle_tpu_torch.models.gpt import GPT, GPTConfig
+    cls, conf, loss = ((BertForPretraining, BertConfig, _bert_loss)
+                       if model == "bert" else
+                       (GPT, GPTConfig, lambda m, ids: m.loss(ids)))
+    if params is None:
+        return cls(conf.tiny(**cfg), device=device, seed=0), loss
+    return cls.from_jax(conf.tiny(**cfg), params, device=device), loss
+
+
+def _pp_mesh(n, device, sizes):
+    """A mesh of ``sizes``; on the card (``device`` "cuda:0") with the
+    staging switch, every rank on that one card."""
+    import torch
+    from paddle_tpu_torch.core import mesh as mesh_lib
+    if device.startswith("cuda"):
+        torch.cuda.set_device(torch.device(device))
+    return mesh_lib.make_mesh(
+        mesh_lib.MeshConfig(**sizes), device_type=device.split(":")[0],
+        stage_cuda_through_host=device.startswith("cuda"))
+
+
+def pipe_train(rank, n, params, model, cfg, sizes, batch, plan_name="hints",
+               steps=1, opt="sgd", lr=0.0, gather=False, device="cpu",
+               rng_seed=None):
+    """A pipelined tiny BERT or GPT (``cfg``: its config's fields) from the
+    JAX weights ``params``, ``steps`` steps of ``shard_train_step`` on a
+    mesh of ``sizes`` with the layers' hints (``plan_name`` "fsdp" adds
+    FSDP's largest-dim split), every rank fed the global ``batch``.
+    Returns the losses, the first step's gradients whole again (the
+    gradients the update used), the local shapes and specs, the flash
+    kernels' launches, and with ``gather`` the final parameters whole.
+    ``device`` "cuda:0" runs every rank on the card (``params`` None:
+    weights from seed 0). ``rng_seed``: each rank's default generators
+    seeded with ``rng_seed + rank`` before the steps (ranks that draw
+    dropout from generators of their own)."""
+    import torch
+    from paddle_tpu_torch import optimizer as o
+    from paddle_tpu_torch import train
+    from paddle_tpu_torch.kernels import registry
+    from paddle_tpu_torch.nn.module import sharding_specs
+    from paddle_tpu_torch.parallel import api, plan as plan_lib
+    mesh = _pp_mesh(n, device, sizes)
+    m, loss_fn = _pp_model(model, cfg, params, device)
+    optim = (o.SGD(m.parameters(), learning_rate=lr) if opt == "sgd"
+             else _optimizer(opt, m.parameters(), lr))
+    step = train.build_train_step(loss_fn, optim)
+    state = train.make_train_state(m, optim)
+    plan = (plan_lib.fsdp_plan(min_size=128) if plan_name == "fsdp"
+            else plan_lib.megatron_plan())
+    run, placed = api.shard_train_step(step, mesh, state, plan=plan,
+                                       hints=sharding_specs(m))
+    feeds = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+    losses, grads = [], None
+    if rng_seed is not None:
+        torch.manual_seed(rng_seed + rank)
+    registry.load_all()
+    registry.reset_launches()
+    for _ in range(steps):
+        placed, met = run(placed, **feeds)
+        losses.append({k: float(v) for k, v in met.items()})
+        if grads is None:
+            grads = {k: api.gather_block(p.grad, run.specs.get(k, ()),
+                                         mesh).cpu().numpy()
+                     for k, p in m.named_parameters()}
+    out = {"losses": losses, "grads": grads, "specs": run.specs,
+           "launches": registry.launch_counts(),
+           "local_shapes": {k: tuple(p.shape)
+                            for k, p in m.named_parameters()}}
+    if gather:
+        out["params"] = {k: v.cpu().numpy() for k, v in
+                         api.gathered_params(m, run.specs, mesh).items()}
+    return out
+
+
+def pipe_dropout(rank, n, params, cfg, sizes, ids, seed):
+    """The sequence output of a pipelined tiny BERT with dropout live
+    (training mode), every rank of a mesh of ``sizes`` fed the same
+    ``ids``, the dropout generator seeded with ``seed``."""
+    import torch
+    from paddle_tpu_torch.core import mesh as mesh_lib
+    m, _ = _pp_model("bert", cfg, params)
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad(), mesh_lib.mesh_context(_mesh(n, **sizes)):
+        seq, _ = m.bert(torch.from_numpy(ids), generator=gen)
+    return seq.numpy()
+
+
+def pipe_trainer(rank, n, params, cfg, batch, steps=4):
+    """``Trainer.fit`` of a pipelined tiny BERT's sharded step on pp=n:
+    the losses and the log lines (rank 0 prints the aggregate line)."""
+    import torch
+    from paddle_tpu_torch import optimizer as o
+    from paddle_tpu_torch import train
+    from paddle_tpu_torch.nn.module import sharding_specs
+    from paddle_tpu_torch.observability.registry import MetricsRegistry
+    from paddle_tpu_torch.parallel import api
+    from paddle_tpu_torch.trainer import Trainer
+    m, loss_fn = _pp_model("bert", cfg, params)
+    optim = o.Adam(m.parameters(), learning_rate=1e-3)
+    run, placed = api.shard_train_step(
+        train.build_train_step(loss_fn, optim), _mesh(n, pp=n),
+        train.make_train_state(m, optim), hints=sharding_specs(m))
+    lines = []
+    tr = Trainer(run, placed, log_every=2, log_fn=lines.append,
+                 registry=MetricsRegistry())
+    feeds = {k: torch.from_numpy(v) for k, v in batch.items()}
+    last = tr.fit([feeds] * steps)
+    return {"last": last, "lines": lines, "step": tr.step_count}
+
+
+def pipe_snapshot(rank, n, params, cfg, batch, directory, sizes,
+                  device="cpu"):
+    """One AdamW step of a pipelined stacked tiny BERT on a mesh of
+    ``sizes`` with the layers' hints, its state saved as this rank's
+    blocks (``Shard`` leaves) into ``directory``, then restored with
+    ``shardings=`` naming "pp": the flat specs, the leaves whose restored
+    block differs from this rank's, digests of this rank's blocks and of
+    the state gathered whole (digests, so that no state crosses the
+    pipe), the blocks' shapes and the keys restored as ``Shard``."""
+    import torch
+    import torch.distributed as dist
+    from paddle_tpu_torch import optimizer as o
+    from paddle_tpu_torch import train
+    from paddle_tpu_torch.nn.module import sharding_specs
+    from paddle_tpu_torch.parallel import api
+    from paddle_tpu_torch.resilience.snapshot import (Shard, SnapshotEngine,
+                                                      flatten_tree,
+                                                      shard_leaf)
+    from paddle_tpu_torch.trainer import state_tree
+    mesh = _pp_mesh(n, device, sizes)
+    m, loss_fn = _pp_model("bert", cfg, params, device)
+    optim = o.AdamW(m.parameters(), learning_rate=1e-3)
+    run, placed = api.shard_train_step(
+        train.build_train_step(loss_fn, optim), mesh,
+        train.make_train_state(m, optim), hints=sharding_specs(m))
+    run(placed, **{k: torch.from_numpy(v).to(device)
+                   for k, v in batch.items()})
+    flat = flatten_tree(state_tree(placed))
+    keyed = {}
+    for key in flat:
+        parts = key.split("/")
+        name = (".".join(parts[1:]) if parts[0] == "params" else
+                ".".join(parts[3:]) if parts[:2] == ["opt", "slots"]
+                else None)
+        keyed[key] = run.specs.get(name) if name else None
+    tree = {k: (shard_leaf(v.detach(), keyed[k], mesh)
+                if keyed[k] is not None and isinstance(v, torch.Tensor)
+                else v) for k, v in flat.items()}
+    eng = SnapshotEngine(directory, process_index=rank, process_count=n)
+    eng.save(1, _nest({k: v for k, v in tree.items()
+                       if not k.endswith("\x00empty")}), wait=True)
+    eng.close()
+    dist.barrier()          # process 0 commits once every file is in
+    eng = SnapshotEngine(directory)
+    back = flatten_tree(eng.restore(1, shardings=_nest({
+        k: (None if s is None else (s, mesh)) for k, s in keyed.items()
+        if not k.endswith("\x00empty")})))
+    eng.close()
+    mine = {k: v.detach() for k, v in flat.items()
+            if isinstance(v, torch.Tensor)}
+    bad = sorted(k for k, v in mine.items()
+                 if not isinstance(back.get(k), (Shard, torch.Tensor))
+                 or not torch.equal((back[k].data if isinstance(
+                     back[k], Shard) else back[k]).to(v.device), v))
+    whole = {k: _digest((api.gather_block(v, keyed[k], mesh)
+                         if keyed[k] is not None else v).cpu())
+             for k, v in mine.items()}
+    return {"specs": {k: s for k, s in keyed.items() if s is not None},
+            "differ": bad, "whole": whole,
+            "mine": {k: _digest(v.cpu()) for k, v in mine.items()},
+            "shapes": {k: tuple(v.shape) for k, v in mine.items()},
+            "shards": sorted(k for k, v in back.items()
+                             if isinstance(v, Shard))}
+
+
+def _digest(t) -> str:
+    """sha256 of a host tensor's bytes, with its dtype and shape."""
+    import hashlib
+    a = _np(t)
+    return hashlib.sha256(f"{a.dtype}{a.shape}".encode()
+                          + np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+def pipe_eval(rank, n, params, model, cfg, sizes, batch):
+    """``shard_eval_step`` of a pipelined tiny BERT's forward (MLM and
+    NSP logits) or GPT's logits from the JAX weights on a mesh of
+    ``sizes`` with the layers' hints, every rank fed the global
+    ``batch``: the replicated outputs."""
+    import torch
+    from paddle_tpu_torch.nn.module import sharding_specs
+    from paddle_tpu_torch.parallel import api
+    m, _ = _pp_model(model, cfg, params)
+    m.eval()
+    run, placed = api.shard_eval_step(
+        lambda mod, **b: mod(**b), _mesh(n, **sizes), m,
+        hints=sharding_specs(m))
+    out = run(placed, **{k: torch.from_numpy(v) for k, v in batch.items()})
+    return [t.numpy() for t in (out if isinstance(out, tuple) else (out,))]
