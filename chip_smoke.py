@@ -259,6 +259,37 @@ Phases, in order; any failure exits non-zero:
    (e) (b)'s state saved as each stage's rows (``Shard`` leaves), restored
        in the group with ``shardings=`` naming "pp" and here without
        them, bit for bit.
+10. embedding serving (runs after 9; every leg on the card, TF32 off)
+   at the reference's configuration for a chip: a host KV store of 2M
+   ids x 26 fields x (1 + 16) floats (adagrad, seed 0), DeepFM's towers
+   (400, 400), a device cache of 65,536 rows (LRU, gather widths from
+   8,192) whose gather, install and forward widths are captured CUDA
+   graphs, batches of 2048 x 26 ids (80% on a hot head of 8,192, 20% on
+   the tail) with 64 rows pushed every 4th batch:
+   (a) an engine without a model over 48 batches, every push applied
+       before the next: every served row equals ``store.pull`` bit for
+       bit, the cache's index holds after every step, 0 captures after
+       warmup, the table keeps its storage;
+   (b) DeepFM's probabilities against the plain forward on the CPU from
+       the same pulled rows within 1e-5, the forward graph's replay equal
+       to the eager forward on the card bit for bit;
+   (c) the main path, timed: ``warmup((2048, 26))`` (captures equal to
+       ``warmup_plan``), 48 batches pipelined two deep with a streaming
+       channel (staleness bound 5 s): examples/s, lookup p50/p99,
+       miss-pull p99, hit rate (0.79-0.82), evictions, rows applied,
+       staleness, 0 captures after warmup, no registered kernel
+       launched, the device's busy share and the wall time by stage;
+       then the reference's cold yardstick (the whole table pulled and
+       copied to the card per batch, 4 batches) and ``speedup_vs_cold``;
+   (d) the engine over a ``RemoteKVStore`` to an in-process ``KVServer``
+       against a local store of the same seed, 8 batches: probabilities
+       bit for bit;
+   (e) (c)'s engine snapshot restored into a fresh store: rows, version
+       counters and the next batch's probabilities bit for bit;
+   (f) host-KV training, DeepFM at 4096 x 26 (Adam 1e-3 on the towers,
+       adagrad 0.05 on the rows), 4 steps of ``run_kv_epoch`` with
+       prefetch; the first step's loss and row gradients within 1e-5
+       (relative) of the same step on the CPU; steps/s.
 7. output  — one ``{"kernels": [...]}`` line (each kernel with its
    tunables' candidates and the configuration the committed cache chose
    at each shape, ``blocks``; the ring's entry over K5/K6 with its calls
@@ -4468,6 +4499,447 @@ def parallel_train(device):
     return stats
 
 
+# -- phase 10: embedding serving ------------------------------------------------
+
+#: the reference's embedding-serving configuration for a chip
+#: (``bench.py`` ``run_bench_embedding_serving``)
+EMBED_VOCAB, EMBED_FIELDS, EMBED_DIM, EMBED_BATCH = 2_000_000, 26, 16, 2048
+EMBED_HEAD, EMBED_CAPACITY, EMBED_MIN_BUCKET = 8192, 1 << 16, 8192
+EMBED_HIDDEN, EMBED_BATCHES, EMBED_PUSH_ROWS = (400, 400), 48, 64
+#: (f): the reference's host-KV training configuration for a chip
+#: (``bench.py`` ``run_bench_deepfm``)
+KV_TRAIN_BATCH, KV_TRAIN_STEPS = 4096, 4
+EMBED_DIR = TRAIN_DIR.parent / "chip_smoke_embedding"
+#: the seed every leg's traffic derives from
+SEED_EMBED = 0
+#: (c)'s occurrence-weighted hit rate must fall here: 80% of lookups on
+#: a head that stays resident, plus the tail's few resident rows
+EMBED_HIT_RANGE = (0.79, 0.82)
+
+
+def _embed_batches(rng, n):
+    """80% of lookups uniform on the hot head, 20% on the tail."""
+    out = []
+    shape = (EMBED_BATCH, EMBED_FIELDS)
+    for _ in range(n):
+        hot = rng.integers(0, EMBED_HEAD, size=shape)
+        tail = rng.integers(EMBED_HEAD, EMBED_VOCAB, size=shape)
+        pick = rng.random(shape) < 0.8
+        out.append(np.where(pick, hot, tail).astype(np.int64))
+    return out
+
+
+def _embed_push(rng, channel):
+    ids = rng.integers(0, EMBED_HEAD, size=(EMBED_PUSH_ROWS,)).astype(
+        np.int64)
+    rows = rng.normal(0, 0.01, size=(EMBED_PUSH_ROWS, 1 + EMBED_DIM))
+    channel.push_rows(ids, rows.astype(np.float32))
+
+
+def _embed_store(store_cls=None, seed=0, **kw):
+    from paddle_tpu_torch.parallel.host_kv import HostKVStore
+    return (store_cls or HostKVStore)(1 + EMBED_DIM, optimizer="adagrad",
+                                      init_scale=0.01, seed=seed, **kw)
+
+
+def _embed_engine(store, model, device, **kw):
+    from paddle_tpu_torch import embedding_serving as es
+    from paddle_tpu_torch import observability as obs
+    reg = obs.MetricsRegistry()
+    ch = es.StreamingUpdateChannel(store, registry=reg)
+    kw.setdefault("max_staleness_s", 5.0)
+    eng = es.EmbeddingServingEngine(
+        store, model, capacity=EMBED_CAPACITY, policy="lru",
+        min_bucket=EMBED_MIN_BUCKET, max_pending=4, channel=ch,
+        registry=reg, device=device, **kw)
+    return eng, ch, reg
+
+
+def _deepfm(device, seed=0):
+    from paddle_tpu_torch.models.deepfm import DeepFMHostKV
+    return DeepFMHostKV(EMBED_FIELDS, EMBED_DIM, EMBED_HIDDEN,
+                        device=device, seed=seed)
+
+
+def _pipelined(eng, batches, rng, channel, submit_s=None):
+    """Submit/step two deep, ``EMBED_PUSH_ROWS`` pushed every 4th batch
+    (the reference's bench loop); the outputs by batch index."""
+    out, rid_of = {}, {}
+
+    def drain(done):
+        for rid, o in done.items():
+            out[rid_of[rid]] = o
+
+    for i, b in enumerate(batches):
+        if i % 4 == 3:
+            _embed_push(rng, channel)
+        t0 = time.perf_counter()
+        rid_of[eng.submit(b)] = i
+        if submit_s is not None:
+            submit_s.append(time.perf_counter() - t0)
+        while eng.pending() >= 2:
+            drain(eng.step())
+    while eng.pending():
+        drain(eng.step())
+    return [out[i] for i in range(len(batches))]
+
+
+def embed_rows_leg(device):
+    """(a) an engine without a model, every push applied before the next
+    batch: every served row equals ``store.pull`` bit for bit, and the
+    cache's index holds after every step."""
+    from paddle_tpu_torch.observability import recompile
+    store = _embed_store()
+    eng, ch, reg = _embed_engine(store, None, device, max_lag_updates=0)
+    eng.warmup((EMBED_BATCH, EMBED_FIELDS))
+    captures = recompile.capture_count()
+    ptr = eng.cache.table.data_ptr()
+    rng = np.random.default_rng(SEED_EMBED)
+    t0 = time.monotonic()
+    for i, b in enumerate(_embed_batches(rng, EMBED_BATCHES)):
+        if i % 4 == 3:
+            _embed_push(rng, ch)
+        rows = eng.serve(b)
+        uniq = np.unique(b)
+        want = store.pull(uniq)
+        if not np.array_equal(rows[:uniq.size], want):
+            bad = int((rows[:uniq.size] != want).any(1).sum())
+            raise AssertionError(f"10a batch {i}: {bad} of {uniq.size} "
+                                 "served rows differ from the store's")
+        eng.cache.check_invariants()
+    seconds = time.monotonic() - t0
+    if recompile.capture_count() != captures:
+        raise AssertionError("10a captured after warmup")
+    if eng.cache.table.data_ptr() != ptr:
+        raise AssertionError("10a: the cache's table moved")
+    applied = int(reg.counter("embedding_stream_rows_applied_total").value())
+    ch.stop()
+    out = {"batches": EMBED_BATCHES, "rows_equal_store": True,
+           "invariants_held": True, "rows_applied": applied,
+           "evictions": int(reg.counter(
+               "embedding_cache_evictions_total").value()),
+           "seconds": seconds}
+    log("  10a rows (no model, max_lag_updates=0): " + json.dumps(out))
+
+
+def embed_deepfm_leg(device):
+    """(b) the engine's probabilities on the card against the plain
+    forward on the CPU from the same pulled rows (fp32, TF32 off), and
+    the forward graph's replay against the eager forward on the card."""
+    model = _deepfm(device)
+    cpu = _deepfm("cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    store = _embed_store()
+    eng, ch, _ = _embed_engine(store, model, device, max_lag_updates=0)
+    eng.warmup((EMBED_BATCH, EMBED_FIELDS))
+    rng = np.random.default_rng(SEED_EMBED + 1)
+    worst, replay_equal = 0.0, True
+    for i, b in enumerate(_embed_batches(rng, 4)):
+        probs = eng.serve(b)
+        uniq, inv = np.unique(b, return_inverse=True)
+        inv = inv.reshape(b.shape)
+        w = _gather_width(eng, uniq.size)
+        rows = np.zeros((w, 1 + EMBED_DIM), np.float32)
+        rows[:uniq.size] = store.pull(uniq)
+        with torch.no_grad():
+            want = cpu.predict_proba(torch.from_numpy(rows),
+                                     torch.from_numpy(inv)).numpy()
+            slots = torch.from_numpy(eng.cache.lookup_slots(
+                uniq, pad_to=w)).to(device)
+            eager = model.predict_proba(
+                eng.cache.table.index_select(0, slots).float(),
+                torch.from_numpy(inv).to(device)).cpu().numpy()
+        worst = max(worst, float(np.abs(probs - want).max()))
+        replay_equal &= bool(np.array_equal(probs, eager))
+    ch.stop()
+    out = {"max_abs_err_vs_cpu": worst, "tol": 1e-5,
+           "replay_equals_eager": replay_equal}
+    log("  10b DeepFM (fp32, TF32 off): " + json.dumps(out))
+    if worst > 1e-5 or not replay_equal:
+        raise AssertionError(f"10b failed: {out}")
+
+
+def _gather_width(eng, n):
+    from paddle_tpu_torch.embedding_serving.device_cache import _pow2_bucket
+    return _pow2_bucket(n, eng.cache.min_gather_bucket,
+                        max(eng.cache.capacity, n))
+
+
+def _span_s(tracer, name):
+    return float(sum(s.duration_s for s in tracer.spans(name)))
+
+
+def embed_main_leg(device, model):
+    """(c) the main path, timed: the reference's configuration after
+    ``warmup((2048, 26))``, pipelined two deep with pushes streaming in."""
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.kernels import registry
+    from paddle_tpu_torch.observability import recompile
+    store = _embed_store()
+    tracer = obs.tracing.Tracer(capacity=1 << 16)
+    eng, ch, reg = _embed_engine(store, model, device, tracer=tracer)
+    plan = eng.warmup_plan((EMBED_BATCH, EMBED_FIELDS))
+    c0 = recompile.capture_count()
+    t0 = time.monotonic()
+    eng.warmup((EMBED_BATCH, EMBED_FIELDS))
+    warmup_s = time.monotonic() - t0
+    warm_captures = recompile.capture_count() - c0
+    rng = np.random.default_rng(SEED_EMBED + 2)
+    for b in _embed_batches(rng, 2):        # the hot head goes resident
+        eng.serve(b)
+    batches = _embed_batches(rng, EMBED_BATCHES)
+    hits0 = (eng._served_hits, eng._served_rows)
+    tracer.clear()
+    launches0 = registry.launch_counts()
+    c1 = recompile.capture_count()
+    submit_s = []
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    outs = _pipelined(eng, batches, rng, ch, submit_s)
+    torch.cuda.synchronize(device)
+    wall = time.perf_counter() - t0
+    after = recompile.capture_count() - c1
+    hit_rate = (eng._served_hits - hits0[0]) / (eng._served_rows - hits0[1])
+    # exact percentiles from the window's spans (submit -> served, and a
+    # miss pull's issue -> rows ready)
+    lookups = [s.duration_s for s in tracer.spans("embed.request")]
+    pulls = [s.attrs["pull_age_s"] for s in tracer.spans("embed.pull_wait")]
+    stats = {
+        "examples_per_s": EMBED_BATCH * EMBED_BATCHES / wall,
+        "wall_s": wall, "batches": EMBED_BATCHES,
+        "lookup_p50_s": float(np.percentile(lookups, 50)),
+        "lookup_p99_s": float(np.percentile(lookups, 99)),
+        "miss_pull_p99_s": float(np.percentile(pulls, 99)),
+        "hit_rate": hit_rate,
+        "hit_rate_cumulative": reg.gauge("embedding_serving_hit_rate")
+        .value(),
+        "evictions": int(reg.counter(
+            "embedding_cache_evictions_total").value()),
+        "streaming_rows_applied": int(reg.counter(
+            "embedding_stream_rows_applied_total").value()),
+        "staleness_s": reg.gauge("embedding_serving_staleness_seconds")
+        .value(),
+        "warmup_captures": warm_captures, "warmup_plan": len(plan),
+        "warmup_s": warmup_s, "captures_after_warmup": after,
+        "wall_split_s": {
+            "submit (dedup, gate, split, pull issue)": float(sum(submit_s)),
+            "pull_wait": _span_s(tracer, "embed.pull_wait"),
+            "install": _span_s(tracer, "embed.install"),
+            "gather_forward": _span_s(tracer, "embed.gather_forward")},
+        "registered_kernel_launches": registry.count_delta(
+            registry.launch_counts(), launches0),
+    }
+    more = iter(enumerate(_embed_batches(rng, 16)))
+
+    def one():                       # the same loop, one batch a call
+        i, b = next(more)
+        if i % 4 == 3:
+            _embed_push(rng, ch)
+        eng.submit(b)
+        while eng.pending() >= 2:
+            eng.step()
+
+    prof = profile_window(one, 8)
+    while eng.pending():
+        eng.step()
+    stats["device_busy_share"] = prof["device_busy_share"]
+    stats["profiled_top_kernels"] = prof["top_kernels"][:5]
+    log(f"  10c main path (DeepFM, {EMBED_BATCHES} x {EMBED_BATCH} x "
+        f"{EMBED_FIELDS}, pipelined two deep): " + json.dumps(stats))
+    if warm_captures != len(plan) or after != 0:
+        raise AssertionError(f"10c captures: warmup {warm_captures} of "
+                             f"{len(plan)}, after warmup {after}")
+    if not EMBED_HIT_RANGE[0] <= hit_rate <= EMBED_HIT_RANGE[1]:
+        raise AssertionError(f"10c hit rate {hit_rate} outside "
+                             f"{EMBED_HIT_RANGE}")
+    if stats["registered_kernel_launches"]:
+        raise AssertionError("10c launched a registered kernel: "
+                             f"{stats['registered_kernel_launches']}")
+    if not all(np.isfinite(o).all() and o.shape == (EMBED_BATCH,)
+               for o in outs):
+        raise AssertionError("10c: probabilities not finite or misshapen")
+    return eng, ch, store, stats
+
+
+def embed_remote_leg(device, model):
+    """(d) the engine over a ``RemoteKVStore`` to an in-process
+    ``KVServer`` of the same seed against the local store, the same
+    traffic on 8 batches (every push applied before the next batch, so
+    both serve the same rows): probabilities bit for bit."""
+    from paddle_tpu_torch.parallel.kv_server import KVServer, RemoteKVStore
+    srv = KVServer(1 + EMBED_DIM, optimizer="adagrad", init_scale=0.01,
+                   seed=0)
+    remote = RemoteKVStore("localhost", srv.port)
+    outs = []
+    try:
+        for store in (remote, _embed_store()):
+            eng, ch, _ = _embed_engine(store, model, device,
+                                       max_lag_updates=0)
+            eng.warmup((EMBED_BATCH, EMBED_FIELDS))
+            rng = np.random.default_rng(SEED_EMBED + 3)
+            t0 = time.monotonic()
+            outs.append(_pipelined(eng, _embed_batches(rng, 8), rng, ch))
+            outs.append(time.monotonic() - t0)
+            ch.stop()
+    finally:
+        remote.close()
+        srv.stop()
+    equal = all(np.array_equal(a, b) for a, b in zip(outs[0], outs[2]))
+    out = {"batches": 8, "probabilities_equal_local": equal,
+           "remote_s": outs[1], "local_s": outs[3]}
+    log("  10d remote store (in-process KVServer): " + json.dumps(out))
+    if not equal:
+        raise AssertionError("10d: remote and local probabilities differ")
+
+
+def embed_snapshot_leg(device, model, eng, ch, store):
+    """(e) ``engine.snapshot`` -> a fresh store of the same configuration
+    (a restarted server) -> ``restore``: the rows (the hot head, which the
+    pushes rewrote) and version counters bit for bit, and the next
+    batch's probabilities."""
+    shutil.rmtree(EMBED_DIR, ignore_errors=True)
+    t0 = time.monotonic()
+    eng.snapshot(str(EMBED_DIR), step=1)
+    save_s = time.monotonic() - t0
+    store2 = _embed_store()
+    eng2, ch2, _ = _embed_engine(store2, model, device)
+    head = np.arange(EMBED_HEAD, dtype=np.int64)
+    differed = not np.array_equal(store2.pull(head), store.pull(head))
+    t0 = time.monotonic()
+    versions = eng2.restore(str(EMBED_DIR))
+    restore_s = time.monotonic() - t0
+    rng = np.random.default_rng(SEED_EMBED + 4)
+    b = _embed_batches(rng, 1)[0]
+    rows_equal = bool(np.array_equal(store2.pull(head), store.pull(head)))
+    with ch._vlock:
+        want_versions = dict(ch._versions)
+    probs_equal = bool(np.array_equal(eng.serve(b), eng2.serve(b)))
+    out = {"rows": len(store), "restored_rows": len(store2),
+           "head_differed_before_restore": differed,
+           "rows_equal": rows_equal, "versions": len(versions),
+           "versions_equal": versions == want_versions,
+           "next_batch_equal": probs_equal, "save_s": save_s,
+           "restore_s": restore_s}
+    ch2.stop()
+    shutil.rmtree(EMBED_DIR, ignore_errors=True)
+    log("  10e snapshot -> fresh store -> restore: " + json.dumps(out))
+    if not (differed and rows_equal and out["versions_equal"]
+            and probs_equal and versions):
+        raise AssertionError(f"10e failed: {out}")
+
+
+def embed_cold_leg(device, model, store, qps_cached):
+    """The reference's cold yardstick: per batch, pull the whole table
+    from the host store, copy it to the card, and run the forward with
+    the batch's ids indexing it (4 batches)."""
+    every = np.arange(EMBED_VOCAB, dtype=np.int64)
+    rng = np.random.default_rng(SEED_EMBED + 5)
+    batches = _embed_batches(rng, 5)
+    times = []
+    with torch.no_grad():
+        for i, b in enumerate(batches):
+            torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            table = torch.from_numpy(store.pull(every)).to(device)
+            out = model.predict_proba(table, torch.from_numpy(b).to(device))
+            out.cpu()
+            if i:                  # the first call warms up
+                times.append(time.perf_counter() - t0)
+    qps_cold = EMBED_BATCH * len(times) / sum(times)
+    out = {"batches": len(times), "examples_per_s": qps_cold,
+           "batch_p99_s": float(np.percentile(times, 99)),
+           "speedup_vs_cold": qps_cached / qps_cold}
+    log("  10c cold yardstick (whole table pulled and copied per batch): "
+        + json.dumps(out))
+    return out
+
+
+def embed_train_leg(device):
+    """(f) ``DeepFMHostKV`` at the reference's training configuration for
+    a chip, 4 steps through ``run_kv_epoch`` with prefetch; the first
+    step's loss and row gradients against the same step on the CPU."""
+    from paddle_tpu_torch import optimizer as opt
+    from paddle_tpu_torch.parallel import host_kv as kv
+    from paddle_tpu_torch.train import make_train_state
+    rng = np.random.default_rng(0)
+    batches = []
+    for _ in range(KV_TRAIN_STEPS):
+        hot = rng.integers(0, 1000, size=(KV_TRAIN_BATCH, EMBED_FIELDS // 2))
+        tail = rng.integers(1000, EMBED_VOCAB, size=(
+            KV_TRAIN_BATCH, EMBED_FIELDS - EMBED_FIELDS // 2))
+        ids = np.concatenate([hot, tail], 1).astype(np.int64)
+        label = (rng.random(KV_TRAIN_BATCH) < 0.2).astype(np.float32)
+        batches.append(dict(feat_ids=ids, label=label))
+
+    card_model = _deepfm(device)
+
+    def run(dev, steps):
+        # the CPU step starts from the card's weights (the generators of
+        # the two devices draw apart)
+        model = _deepfm(dev)
+        model.load_state_dict({k: v.to(dev) for k, v in
+                               card_model.state_dict().items()})
+        popt = opt.Adam(model.parameters(), learning_rate=1e-3)
+        step = kv.build_kv_train_step(
+            lambda m, rows, inv, label: m.loss(rows, inv, label), popt)
+        first = {}
+
+        def recorded(state, rows, **batch):
+            state, grad_rows, metrics = step(state, rows, **batch)
+            if not first:
+                first.update(loss=float(metrics["loss"]),
+                             grad_rows=grad_rows.cpu().numpy())
+            return state, grad_rows, metrics
+
+        emb = kv.HostKVEmbedding(_embed_store(), lr=0.05,
+                                 min_bucket=1 << 12)
+        state = make_train_state(model, popt)
+        t0 = time.perf_counter()
+        state, hist = kv.run_kv_epoch(recorded, state, emb, batches[:steps],
+                                      prefetch=True)
+        losses = [float(m["loss"]) for m in hist]    # waits for the card
+        return first, losses, time.perf_counter() - t0
+
+    card, losses, seconds = run(device, KV_TRAIN_STEPS)
+    cpu, _, _ = run("cpu", 1)
+    g, w = card["grad_rows"], cpu["grad_rows"]
+    rel_loss = abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"])
+    rel_grad = float(np.abs(g - w).max() / np.abs(w).max())
+    out = {"steps": KV_TRAIN_STEPS, "steps_per_s": KV_TRAIN_STEPS / seconds,
+           "examples_per_s": KV_TRAIN_STEPS * KV_TRAIN_BATCH / seconds,
+           "losses": losses, "first_loss_rel_err": rel_loss,
+           "first_row_grad_rel_err": rel_grad, "tol": 1e-5,
+           "row_bucket": int(g.shape[0])}
+    log(f"  10f host-KV training (DeepFM {EMBED_FIELDS} x {EMBED_DIM}, "
+        f"batch {KV_TRAIN_BATCH}, Adam + adagrad rows): " + json.dumps(out))
+    if rel_loss > 1e-5 or rel_grad > 1e-5 or not np.isfinite(losses).all():
+        raise AssertionError(f"10f failed: {out}")
+
+
+def embedding_serving(device):
+    """Phase 10 (module docstring): (a)-(f), TF32 off throughout."""
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        t = time.monotonic()
+        embed_rows_leg(device)
+        embed_deepfm_leg(device)
+        model = _deepfm(device)
+        eng, ch, store, stats = embed_main_leg(device, model)
+        embed_remote_leg(device, model)
+        embed_snapshot_leg(device, model, eng, ch, store)
+        ch.stop()
+        cold = embed_cold_leg(device, model, store, stats["examples_per_s"])
+        embed_train_leg(device)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = prev
+    log(f"  phase 10 took {time.monotonic() - t:.1f} s")
+    return {**stats, "cold": cold}
+
+
 def ring_line(stats):
     """The ``kernels`` line's entry of the ring, which has no kernel of its
     own: ``launches`` is the K5/K6a/K6b launches its calls made on rank 0
@@ -4643,6 +5115,12 @@ def main() -> int:
         "BERT-base and GPT-2 small, the pp-split snapshot (legs run by "
         "phase 8's two-rank group on one card)")
     pipe_stats = pipeline_train(device, par_stats.pop("pipe_ranks"))
+
+    log("[10/10] embedding serving: the host KV store, the device hot-row "
+        "cache's graphs, DeepFM, streaming updates, the remote store, KV "
+        "snapshots and host-KV training (the slice launches no registered "
+        "kernel)")
+    embedding_serving(device)
 
     lines = [kernel_line(e, rows[e.name], stats["launches"][e.name],
                          {**({"long": long_rows} if e is PA.DECODE

@@ -1,6 +1,7 @@
 """Inference facade (``paddle_tpu/inference.py``, serving subset): one
-engine, a fleet of them behind a router, or a router over replica server
-processes."""
+GPT serving engine, a fleet of them behind a router, or a router over
+replica server processes; and the recommender front end, an embedding
+serving engine over a host or remote KV store."""
 
 from __future__ import annotations
 
@@ -92,3 +93,22 @@ def make_net_serving_fleet(addresses, *, policy: str = "affinity",
                              tracer=tracer, seed=seed, faults=faults,
                              postmortem_dir=postmortem_dir,
                              shed_spike_threshold=shed_spike_threshold)
+
+
+def make_embedding_serving_engine(store, model=None, **kwargs):
+    """Online embedding-lookup serving front end, the sparse/recsys
+    sibling of :func:`make_serving_engine`. Builds a
+    :class:`~paddle_tpu_torch.embedding_serving.EmbeddingServingEngine`
+    over a host (:class:`~paddle_tpu_torch.parallel.host_kv.HostKVStore`)
+    or remote (:class:`~paddle_tpu_torch.parallel.kv_server.
+    RemoteKVStore`) KV backing store: ``submit()`` batches of sparse ids
+    and drive ``step()`` (or call ``serve()``); hot rows come from a
+    fixed-shape device cache (misses pulled async and installed with
+    LRU/LFU eviction) while trainer pushes stream in through a
+    :class:`~paddle_tpu_torch.embedding_serving.StreamingUpdateChannel`
+    under an enforced staleness bound. ``model`` (a
+    :class:`~paddle_tpu_torch.models.deepfm.DeepFMHostKV`) turns rows into
+    click probabilities; ``device`` defaults to CUDA; ``warmup((B, F))``
+    captures every graph a batch of that shape can use."""
+    from paddle_tpu_torch.embedding_serving import EmbeddingServingEngine
+    return EmbeddingServingEngine(store, model, **kwargs)

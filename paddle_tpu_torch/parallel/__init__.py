@@ -8,9 +8,14 @@ steps (data parallel, FSDP, Megatron from the layers' hints, pipelines
 over "pp"), and the pipeline schedules themselves (GPipe and the circular
 schedule, the stacked-layer layouts). The serving engine's tensor
 parallelism (``ServingEngine(mesh=..., tp=...)``) stands on these too.
-The sharded embedding is a later slice of the port."""
+The sparse world: the vocab-parallel embedding over "tp"
+(``embedding``), the host KV store and its training loop (``host_kv``),
+its pserver and remote client (``kv_server``), and the async, GeoSGD and
+federated communicators (``communicator``)."""
 
 from paddle_tpu_torch.parallel import collective, functional
+from paddle_tpu_torch.parallel.embedding import (ShardedEmbedding,
+                                                 vocab_parallel_lookup)
 from paddle_tpu_torch.parallel.api import (batch_specs, gathered_params,
                                            shard_eval_step, shard_train_step,
                                            with_sharding_constraint)
@@ -32,7 +37,8 @@ from paddle_tpu_torch.parallel.pipeline import (circular_pipeline, gpipe,
                                                 unstack_params_at)
 
 __all__ = [
-    "collective", "functional", "P", "Rule", "ShardingPlan", "batch_specs",
+    "collective", "functional", "P", "Rule", "ShardedEmbedding",
+    "ShardingPlan", "batch_specs",
     "circular_pipeline", "fsdp_plan", "gathered_params", "gpipe",
     "gpipe_layer_stack", "interleave_stack", "local_shard", "megatron_plan",
     "microbatch", "microbatch_extras", "paged_pool_specs",
@@ -40,5 +46,5 @@ __all__ = [
     "serving_prefill_tp_plan", "serving_tp_plan", "shard_eval_step",
     "shard_train_step", "stack_layer_params", "stack_params_at",
     "uninterleave_stack", "unmicrobatch", "unstack_params_at",
-    "with_sharding_constraint",
+    "vocab_parallel_lookup", "with_sharding_constraint",
 ]

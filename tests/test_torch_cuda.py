@@ -1593,3 +1593,123 @@ def test_pp2_snapshot_on_the_card_restores_each_stage_and_whole(dev,
     eng.close()
     for k, digest in res[0]["whole"].items():
         assert _digest(torch.as_tensor(whole[k]).cpu()) == digest, k
+
+
+# -- embedding serving on the card (chip_smoke phase 10 (a), (b)) -------------
+
+def _embed_setup(dev, model=None, capacity=4096, **kw):
+    from paddle_tpu_torch import embedding_serving as es
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.parallel.host_kv import HostKVStore
+    store = HostKVStore(17, optimizer="adagrad", init_scale=0.01, seed=0)
+    reg = obs.MetricsRegistry()
+    ch = es.StreamingUpdateChannel(store, registry=reg)
+    eng = es.EmbeddingServingEngine(
+        store, model, capacity=capacity, min_bucket=512, max_pending=4,
+        channel=ch, max_lag_updates=0, registry=reg, device=dev, **kw)
+    return store, ch, eng
+
+
+def _embed_traffic(seed, n, b=128, f=26, head=512, vocab=50_000):
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        pick = rng.random((b, f)) < 0.8
+        out.append(np.where(pick, rng.integers(0, head, (b, f)),
+                            rng.integers(head, vocab, (b, f))))
+    return rng, out
+
+
+def test_embedding_cache_serves_the_stores_rows_with_graphs(dev):
+    """Phase 10 (a) at a small vocabulary: every served row equals the
+    store's bit for bit with pushes interleaved, the index holds, no
+    capture after warmup, and the table keeps its storage."""
+    from paddle_tpu_torch.observability import recompile
+    store, ch, eng = _embed_setup(dev)
+    eng.warmup((128, 26))
+    assert eng.cache.graphs.graphed
+    assert eng.cache.graphs.builds == len(eng.warmup_plan((128, 26)))
+    ptr = eng.cache.table.data_ptr()
+    before = recompile.capture_count()
+    rng, batches = _embed_traffic(0, 16)
+    for i, b in enumerate(batches):
+        if i % 4 == 3:
+            ch.push_rows(rng.integers(0, 512, 64),
+                         rng.normal(0, 0.01, (64, 17)).astype(np.float32))
+        rows = eng.serve(b)
+        uniq = np.unique(b)
+        np.testing.assert_array_equal(rows[:uniq.size], store.pull(uniq))
+        eng.cache.check_invariants()
+    assert recompile.capture_count() == before
+    assert eng.cache.table.data_ptr() == ptr
+    assert eng._reg.counter("embedding_cache_evictions_total").value() > 0
+    ch.stop()
+
+
+def test_embedding_deepfm_graph_matches_cpu_and_eager(dev):
+    """Phase 10 (b) at a small vocabulary: the forward graph's
+    probabilities within 1e-5 of the CPU forward on the same pulled rows,
+    and equal to the eager forward on the card bit for bit."""
+    import torch
+    from paddle_tpu_torch.embedding_serving.device_cache import _pow2_bucket
+    from paddle_tpu_torch.models.deepfm import DeepFMHostKV
+    from paddle_tpu_torch.observability import recompile
+    model = DeepFMHostKV(26, 16, (64, 64), device=dev, seed=1)
+    cpu = DeepFMHostKV(26, 16, (64, 64), device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    store, ch, eng = _embed_setup(dev, model)
+    eng.warmup((128, 26), with_feat_vals=True)
+    before = recompile.capture_count()
+    _, batches = _embed_traffic(1, 6)
+    for i, b in enumerate(batches):
+        fv = np.random.default_rng(i).random(b.shape).astype(np.float32)
+        fv = fv if i % 2 else None
+        probs = eng.serve(b, fv)
+        uniq, inv = np.unique(b, return_inverse=True)
+        inv = inv.reshape(b.shape)
+        w = _pow2_bucket(uniq.size, 512, 4096)
+        rows = np.zeros((w, 17), np.float32)
+        rows[:uniq.size] = store.pull(uniq)
+        fv_t = None if fv is None else torch.from_numpy(fv)
+        with torch.no_grad():
+            want = cpu.predict_proba(torch.from_numpy(rows),
+                                     torch.from_numpy(inv), fv_t).numpy()
+            slots = torch.from_numpy(eng.cache.lookup_slots(
+                uniq, pad_to=w)).to(dev)
+            eager = model.predict_proba(
+                eng.cache.table.index_select(0, slots),
+                torch.from_numpy(inv).to(dev),
+                None if fv_t is None else fv_t.to(dev)).cpu().numpy()
+        np.testing.assert_allclose(probs, want, rtol=0, atol=1e-5)
+        np.testing.assert_array_equal(probs, eager)
+    # without feat_vals was not warmed: its widths are captured at first use
+    assert recompile.capture_count() > before
+    ch.stop()
+
+
+def test_embedding_install_keeps_the_table_and_bf16_cache(dev):
+    """Installs of every width write into the one table in place (its
+    ``data_ptr()`` never changes), padding lanes only touch the null
+    slot, and a bf16 cache serves the store's rows rounded to bf16."""
+    import torch
+    from paddle_tpu_torch import embedding_serving as es
+    from paddle_tpu_torch import observability as obs
+    for dtype in (torch.float32, torch.bfloat16):
+        c = es.DeviceEmbeddingCache(300, 5, dtype=dtype, min_gather_bucket=8,
+                                    min_install_bucket=4,
+                                    registry=obs.MetricsRegistry(),
+                                    device=dev)
+        c.warmup(256)
+        ptr = c.table.data_ptr()
+        rng = np.random.default_rng(2)
+        for n in (1, 3, 17, 64, 200, 256):
+            ids = rng.choice(10_000, n, replace=False)
+            rows = rng.normal(size=(n, 5)).astype(np.float32)
+            c.install(ids, rows)
+            got = c.gather(ids).float().cpu().numpy()[:n]
+            want = torch.from_numpy(rows).to(dtype).float().numpy()
+            np.testing.assert_array_equal(got, want)
+            assert c.table.data_ptr() == ptr
+            assert not c.table[0].any()
+            c.check_invariants()
+        assert c.graphs.builds == len(c.warmup_plan(256))

@@ -94,3 +94,59 @@ def test_the_parallel_layer_imports_with_jax_blocked():
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
+
+
+#: the port's native libraries and the sources each builds from
+NATIVE_LIBS = {"kvstore": ["kv_store.cc"],
+               "kvserver": ["kv_server.cc", "kv_store.cc"]}
+
+
+def test_the_native_build_reads_only_the_ports_own_sources():
+    """Every file the port's g++ builds read lies in
+    ``paddle_tpu_torch/native/`` (no local ``#include`` leaves it), the
+    libraries go under the ignored ``build/``, and the Python callers name
+    only those libraries."""
+    from paddle_tpu_torch import native
+    own = (ROOT / "paddle_tpu_torch" / "native").resolve()
+    for name, sources in NATIVE_LIBS.items():
+        for src in native.source_paths(sources):
+            assert src.resolve().parent == own, src
+            assert src.is_file(), src
+            for line in src.read_text().splitlines():
+                assert not line.startswith('#include "'), (src, line)
+        lib = native.library_path(name, sources)
+        assert lib.resolve().is_relative_to((ROOT / "build").resolve())
+    assert "build/" in (ROOT / ".gitignore").read_text().split()
+    callers = ("parallel/host_kv.py", "parallel/kv_server.py")
+    for rel in callers:
+        text = (ROOT / "paddle_tpu_torch" / rel).read_text()
+        assert "native.load_library(" in text
+        assert "paddle_tpu/" not in text.replace("``paddle_tpu/", "")
+    for name, sources in NATIVE_LIBS.items():
+        text = "".join((ROOT / "paddle_tpu_torch" / c).read_text()
+                       for c in callers)
+        assert f'load_library("{name}", {sources!r})'.replace(
+            "'", '"') in text
+
+
+def test_the_sparse_world_imports_with_jax_blocked():
+    """Embedding serving, the host KV store, its pserver, DeepFM and the
+    communicators import and build their native libraries with ``jax``
+    and ``paddle_tpu`` made unimportable."""
+    code = ("import sys\n"
+            "for m in ('jax', 'jaxlib', 'paddle_tpu', 'ml_dtypes'):\n"
+            "    sys.modules[m] = None\n"
+            "import paddle_tpu_torch.embedding_serving\n"
+            "import paddle_tpu_torch.models.deepfm\n"
+            "import paddle_tpu_torch.parallel.communicator\n"
+            "from paddle_tpu_torch.inference import "
+            "make_embedding_serving_engine\n"
+            "from paddle_tpu_torch.parallel import host_kv, kv_server\n"
+            "s = kv_server.KVServer(3)\n"
+            "r = kv_server.RemoteKVStore('localhost', s.port)\n"
+            "assert r.pull([1, 2]).shape == (2, 3)\n"
+            "r.close(); s.stop()\n"
+            "host_kv.HostKVStore(3).close()\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr

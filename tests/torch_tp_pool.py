@@ -1147,3 +1147,64 @@ def pipe_eval(rank, n, params, model, cfg, sizes, batch):
         hints=sharding_specs(m))
     out = run(placed, **{k: torch.from_numpy(v) for k, v in batch.items()})
     return [t.numpy() for t in (out if isinstance(out, tuple) else (out,))]
+
+
+def embed_lookup(rank, n, table, ids, g, combiner=None, padding_idx=None):
+    """``ShardedEmbedding`` over "tp" holding this rank's block of
+    ``table``'s rows, looked up at the global ``ids`` (and
+    ``vocab_parallel_lookup`` on the same block): the output, the block's
+    gradient of ``sum(out * g)``, and the plain lookup's output."""
+    import torch
+    from paddle_tpu_torch.core import mesh as mesh_lib
+    from paddle_tpu_torch.parallel import plan
+    from paddle_tpu_torch.parallel.embedding import (ShardedEmbedding,
+                                                     vocab_parallel_lookup)
+    mesh = _mesh(n)
+    layer = ShardedEmbedding(*table.shape, combiner=combiner,
+                             padding_idx=padding_idx, device="cpu")
+    with torch.no_grad():
+        layer.weight.data = plan.local_shard(
+            torch.from_numpy(table), ("tp", None), mesh).contiguous()
+    ids_t = torch.from_numpy(ids)
+    with mesh_lib.mesh_context(mesh):
+        out = layer(ids_t)
+        (out * torch.from_numpy(g)).sum().backward()
+    plain = vocab_parallel_lookup(ids_t, layer.weight.detach(), mesh=mesh)
+    return (out.detach().numpy(), layer.weight.grad.numpy(),
+            plain.numpy())
+
+
+def deepfm_tp(rank, n, params, num_fields, feat_ids, label):
+    """The port's ``DeepFM`` from the JAX weights with its two tables'
+    rows split over "tp": the loss, the logits and every gradient (the
+    tables' of this rank's block)."""
+    import torch
+    from paddle_tpu_torch.core import mesh as mesh_lib
+    from paddle_tpu_torch.models.deepfm import DeepFM
+    from paddle_tpu_torch.parallel import plan
+    mesh = _mesh(n)
+    m = DeepFM.from_jax(params, num_fields, device="cpu")
+    for emb in (m.embedding, m.linear_w):
+        emb.weight.data = plan.local_shard(emb.weight.data, ("tp", None),
+                                           mesh).contiguous()
+    with mesh_lib.mesh_context(mesh):
+        ids = torch.from_numpy(feat_ids)
+        logits = m(ids)
+        loss, _ = m.loss(ids, torch.from_numpy(label))
+        loss.backward()
+    return (float(loss), logits.detach().numpy(),
+            {k: p.grad.numpy() for k, p in m.named_parameters()})
+
+
+def geo_sgd(rank, n, stacked, anchor, mask=None):
+    """``geo_sgd_sync`` over "dp" with this rank's row of ``stacked`` (a
+    tree of ``(n, ...)`` arrays): the new local row and anchor."""
+    import torch
+    from paddle_tpu_torch.parallel import communicator as comm
+    local = comm._tree_map(
+        lambda x: torch.from_numpy(x[rank:rank + 1].copy()), stacked)
+    new_local, new_anchor = comm.geo_sgd_sync(
+        local, comm._tree_map(torch.from_numpy, anchor), participants=mask,
+        mesh=_mesh(n, dp=n))
+    return (comm._tree_map(lambda t: t.numpy(), new_local),
+            comm._tree_map(lambda t: t.numpy(), new_anchor))
