@@ -49,7 +49,9 @@ Phases, in order; any failure exits non-zero:
    (b) flash attention forward, dk/dv and dq at the training shape
        (48, 12, 512, 64) with a key-padding bias from ragged valid
        lengths (one of them 0: a fully masked batch row), causal at
-       (4, 16, 512, 64), and a ragged S=320 with a key bias; each row
+       (4, 16, 512, 64), a ragged S=320 with a key bias, and phase 11's
+       packed shape (16, 16, 256, 64) with a full (16, 1, 256, 256)
+       segment bias (SDPA timed with the same float mask); each row
        with its achieved TFLOP/s and share of its bound, repeat launches
        bit-identical, and the K6a + K6b pair beside SDPA's whole
        backward.
@@ -290,11 +292,47 @@ Phases, in order; any failure exits non-zero:
        adagrad 0.05 on the rows), 4 steps of ``run_kv_epoch`` with
        prefetch; the first step's loss and row gradients within 1e-5
        (relative) of the same step on the CPU; steps/s.
+11. data, packed Transformer-big training and export (runs after 10;
+   TF32 off for (c)) at the reference's chip configuration
+   (``bench.py:368-393``): Transformer-big (vocab 32768, d_model 1024, 16
+   heads, ffn 4096, 6 + 6 pre-LN layers, label smoothing 0.1, seeded
+   weights), 16 x 256 packed rows, Adam(1e-4), bf16 over fp32 masters:
+   (a) 1,500 WMT-like pairs (lognormal(3.0, 0.6) lengths clipped to
+       [4, 255], a copy task) written into 4 MultiSlot files, loaded by
+       the native feed on 4 threads, ``global_shuffle(0)``, framed with
+       BOS/EOS and packed (``packing.packed_batches``); a second run of
+       the same files must give the same batches bit for bit, and the
+       batches ``DeviceLoader`` stages must equal them; pairs loaded,
+       packed batches, packing efficiency, the loader's host and wait ms
+       per batch and its pinned allocations (none after the first
+       capture);
+   (b) the main path: ``build_train_step`` through one captured graph
+       fed by the loader, 3 warm-up and 10 timed steps: ms per step,
+       real target tokens/s, MFU of the hand reckoning
+       (``tf_flops_per_step``) over 989 TFLOP/s, peak memory, busy share,
+       captures after the first graphed step (0), K5/K6a/K6b launches
+       per step (18 each: 6 encoder, 6 causal decoder and 6 cross
+       attentions, each with a full segment bias); then the padded
+       layout (one pair a row) on the same graph: ``packed_vs_padded``;
+   (c) fp32, full width, 2 + 2 layers: the packed token sum against the
+       padded per-pair losses (rel 2e-5), the first batch's gradients
+       (atol/rtol 1e-4) and 3 Adam steps' losses (rel 1e-5) through the
+       kernels against the plain versions, and cross-attention over
+       source rows without padding at (16, 16, 256, 64): the target's
+       padding queries see no key, so their rows and dq are 0 and their
+       cotangent moves dk/dv by nothing;
+   (d) the trained model in bf16 exported by ``save_inference_model``
+       and run by a ``Predictor`` in a fresh ``python3 -c`` process that
+       imports no model module: logits bit for bit the eager model's, 18
+       K5 launches a call (passed back on stdout); the artifact's bytes;
+       with ``weight_quantize="int8"`` its bytes and the logits' max error
+       against bf16 (within ``TF_INT8_TOL`` of their std).
 7. output  — one ``{"kernels": [...]}`` line (each kernel with its
    tunables' candidates and the configuration the committed cache chose
    at each shape, ``blocks``; the ring's entry over K5/K6 with its calls
    on (b)'s main path; K5/K6a/K6b with their launches on each stage
-   rank of 9 (b), ``launches_pipeline_ranks``), the nvidia-smi line, and
+   rank of 9 (b), ``launches_pipeline_ranks``, and over 11 (b)'s timed
+   steps, ``launches_transformer``), the nvidia-smi line, and
    the final ``{"ok": true, "device": {...}}`` line.
 """
 
@@ -692,24 +730,49 @@ def check_head_slices(entry, make_inputs, device, flush):
 
 # -- phase 3b: flash attention vs plain versions -------------------------------
 
-#: (name, (B, H, S, Dh), causal, key-padding lengths (None: no bias))
+#: (name, (B, H, S, Dh), causal, bias: "ragged" key padding, "segments"
+#: a packed batch's full segment bias, None no bias)
 FLASH_CASES = (
     ("train", (48, 12, 512, 64), False, "ragged"),
     ("causal", (4, 16, 512, 64), True, None),
     ("s320", (8, 12, 320, 64), False, "ragged"),
+    ("packed", (16, 16, 256, 64), False, "segments"),
 )
 
 
+def packed_segments(rng, b, s):
+    """(B, S) segment ids of packed rows: runs of lognormal(3.0, 0.6)
+    lengths (phase 11's pairs) numbered from 1, the rest of a row 0
+    (padding)."""
+    seg = np.zeros((b, s), np.int32)
+    for r in range(b):
+        pos, n = 0, 0
+        while True:
+            ln = int(np.clip(rng.lognormal(3.0, 0.6), 4, s - 1))
+            if pos + ln > s - int(rng.integers(0, 24)):
+                break
+            n += 1
+            seg[r, pos:pos + ln] = n
+            pos += ln
+    return seg
+
+
 def flash_inputs(shape, lengths, device, seed=5):
-    """q, k, v, do (fp32) and a key-padding bias: valid lengths drawn
-    from [S/4, S] with the first set to 0 (a fully masked batch row)."""
+    """q, k, v, do (fp32) and a bias: for "ragged" a key-padding bias
+    with valid lengths drawn from [S/4, S] and the first set to 0 (a
+    fully masked batch row); for "segments" the (B, 1, S, S) segment
+    bias of packed rows (:func:`packed_segments`)."""
     b, h, s, d = shape
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     q, k, v, do = (torch.randn(shape, generator=gen, device=device)
                    for _ in range(4))
     bias = None
-    if lengths == "ragged":
+    if lengths == "segments":
+        from paddle_tpu_torch.ops.sequence import make_segment_attention_bias
+        seg = packed_segments(np.random.default_rng(seed), b, s)
+        bias = make_segment_attention_bias(torch.from_numpy(seg).to(device))
+    elif lengths == "ragged":
         from paddle_tpu_torch.ops.attention import make_padding_bias
         rng = np.random.default_rng(seed)
         n = rng.integers(s // 4, s + 1, b)
@@ -731,10 +794,20 @@ def _err(got, want, tol, what):
     return err
 
 
+def _sdpa_mask(bias, q):
+    """SDPA's mask for ``bias``: a key-padding bias as a bool mask; a full
+    (.., Sq, Sk) bias as the same float mask in q's dtype."""
+    if bias is None:
+        return None
+    if bias.shape[-2] != 1:
+        return bias.to(q.dtype)
+    return bias > -1e29
+
+
 def _library_fwd(q, k, v, bias, causal):
     """One PyTorch call for the same function (timing yardstick only)."""
     import torch.nn.functional as F
-    mask = None if bias is None else (bias > -1e29)
+    mask = _sdpa_mask(bias, q)
     return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
                                                   is_causal=causal)
 
@@ -744,7 +817,7 @@ def _library_bwd(q, k, v, bias, do, causal):
     library time for the K6a + K6b pair."""
     import torch.nn.functional as F
     leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
-    mask = None if bias is None else (bias > -1e29)
+    mask = _sdpa_mask(bias, q)
     out = F.scaled_dot_product_attention(*leaves, attn_mask=mask,
                                          is_causal=causal)
     return lambda: torch.autograd.grad(out, leaves, do, retain_graph=True)
@@ -4940,6 +5013,539 @@ def embedding_serving(device):
     return {**stats, "cold": cold}
 
 
+# -- phase 11: data, packed Transformer-big training and export ---------------
+
+#: Transformer-big's packed WMT cell (``bench.py:368-393``): rows a batch,
+#: the src and tgt buckets, pairs, their MultiSlot files and loader
+#: threads; 3 warm-up and 10 timed steps
+TF_ROWS, TF_LEN, TF_PAIRS, TF_FILES = 16, 256, 1500, 4
+TF_WARM, TF_TIMED = 3, 10
+TF_DIR = TRAIN_DIR.parent / "chip_smoke_transformer"
+#: feeds of ``Transformer.loss_packed``, in its order
+TF_KEYS = ("src", "src_seg", "src_pos", "tgt", "tgt_out", "tgt_seg",
+           "tgt_pos")
+#: int8 weights against bf16: max |logit difference| over the logits' std
+TF_INT8_TOL = 0.25
+
+
+def _tf_config(**kw):
+    from paddle_tpu_torch.models.transformer import TransformerConfig
+    return TransformerConfig.big(dropout=0.0, attn_dropout=0.0,
+                                 vocab_size=32768, max_len=TF_LEN, **kw)
+
+
+def _tf_loss(m, **b):
+    return m.loss_packed(*(b[k] for k in TF_KEYS))
+
+
+def tf_pairs(vocab, seed=0):
+    """The reference bench's WMT-like pairs: lognormal(3.0, 0.6) lengths
+    clipped to [4, 255], ids from [3, vocab); the target is the source
+    (a copy task)."""
+    rng = np.random.default_rng(seed)
+    lens = np.clip(rng.lognormal(3.0, 0.6, TF_PAIRS).astype(np.int64), 4,
+                   TF_LEN - 1)
+    return [rng.integers(3, vocab, n).astype(np.int32) for n in lens]
+
+
+def write_multislot(dirpath, seqs):
+    """``seqs`` as MultiSlot lines (slots ``src`` and ``tgt``) over
+    ``TF_FILES`` files; returns their paths."""
+    dirpath.mkdir(parents=True, exist_ok=True)
+    paths = [dirpath / f"part-{i:02d}.txt" for i in range(TF_FILES)]
+    for i, path in enumerate(paths):
+        with open(path, "w") as f:
+            for s in seqs[i::TF_FILES]:
+                text = " ".join(map(str, s))
+                f.write(f"{len(s)} {text} {len(s)} {text}\n")
+    return paths
+
+
+def tf_epoch(paths, cfg):
+    """file -> the MultiSlot feed (4 threads, ``global_shuffle(0)``) ->
+    BOS/EOS framing -> the packer: (pairs loaded, the epoch's packed
+    (rows, 256) batches as numpy, the pairs in feed order)."""
+    from paddle_tpu_torch.data import packing
+    from paddle_tpu_torch.data.native_feed import MultiSlotDataset
+    ds = MultiSlotDataset([("src", "int64"), ("tgt", "int64")])
+    ds.set_filelist([str(p) for p in paths])
+    n = ds.load_into_memory(num_threads=4)
+    ds.global_shuffle(0)
+    srcs, tins, touts = [], [], []
+    for b in ds.batches(64, drop_last=False, with_lengths=True):
+        for i in range(b["src"].shape[0]):
+            s = b["src"][i, :b["src_len"][i]].astype(np.int32)
+            t = b["tgt"][i, :b["tgt_len"][i]].astype(np.int32)
+            srcs.append(s)
+            tins.append(np.concatenate([[cfg.bos_id], t]).astype(np.int32))
+            touts.append(np.concatenate([t, [cfg.eos_id]]).astype(np.int32))
+    batches = list(packing.packed_batches(
+        srcs, tins, rows_per_batch=TF_ROWS, src_len=TF_LEN, tgt_len=TF_LEN,
+        tgt_extras={"tgt_out": touts}))
+    return n, batches, (srcs, tins, touts)
+
+
+def padded_batches(pairs, n_batches):
+    """The padded layout on the same shapes: one pair a row (the
+    reference bench's ``padded()``)."""
+    srcs, tins, touts = pairs
+    out = []
+    for lo in range(0, len(srcs), TF_ROWS):
+        chunk = list(range(lo, min(lo + TF_ROWS, len(srcs))))
+        b = {k: np.zeros((TF_ROWS, TF_LEN), np.int32) for k in TF_KEYS}
+        for r, i in enumerate(chunk):
+            for key, seq in (("src", srcs[i]), ("tgt", tins[i]),
+                             ("tgt_out", touts[i])):
+                b[key][r, :len(seq)] = seq
+            for side, seq in (("src", srcs[i]), ("tgt", tins[i])):
+                b[f"{side}_seg"][r, :len(seq)] = 1
+                b[f"{side}_pos"][r, :len(seq)] = np.arange(len(seq))
+        out.append(b)
+        if len(out) == n_batches:
+            break
+    return out
+
+
+def tf_flops_per_step(cfg, rows=TF_ROWS, s=TF_LEN):
+    """Model FLOPs of one packed step over the whole (rows, 256) slabs,
+    padding included (the reckoning of PERF.md §5): 6 per parameter per
+    token slot for every matrix (encoder layer 4D^2 + 2DF, decoder layer
+    8D^2 + 2DF, the tied output projection DV), and 12 per (query, key,
+    head dim) for each attention (3x its 4 forward), the decoder's
+    self-attention over its causal half."""
+    d, f, v = cfg.d_model, cfg.ffn_size, cfg.vocab_size
+    tokens = rows * s
+    matmul = (cfg.num_encoder_layers * (4 * d * d + 2 * d * f)
+              + cfg.num_decoder_layers * (8 * d * d + 2 * d * f) + d * v)
+    pairs = ((cfg.num_encoder_layers + cfg.num_decoder_layers) * s * s
+             + cfg.num_decoder_layers * s * (s + 1) // 2)
+    return 6 * matmul * tokens + 12 * rows * d * pairs
+
+
+def _tf_host(batch):
+    return {k: v.detach().cpu().numpy() for k, v in batch.items()}
+
+
+def tf_feed_and_train(device, paths):
+    """(a) and (b): the main path. The epoch from the files, staged by
+    ``DeviceLoader``, trains Transformer-big in bf16 through one captured
+    graph; the padded layout on the same graph after it."""
+    from paddle_tpu_torch.core.dtypes import get_policy
+    from paddle_tpu_torch.data import packing
+    from paddle_tpu_torch.data.native_feed import DeviceLoader
+    from paddle_tpu_torch.kernels import registry
+    from paddle_tpu_torch.models.transformer import Transformer
+    from paddle_tpu_torch.observability import recompile
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.train import build_train_step, make_train_state
+    cfg = _tf_config()
+    t0 = time.monotonic()
+    n_pairs, epoch, pairs = tf_epoch(paths, cfg)
+    feed_s = time.monotonic() - t0
+    if n_pairs != TF_PAIRS:
+        raise AssertionError(f"loaded {n_pairs} pairs, wrote {TF_PAIRS}")
+    # the same files through the same feed, shuffle and packer again: the
+    # CPU run the staged batches must equal bit for bit
+    _, again, _ = tf_epoch(paths, cfg)
+    steps = TF_WARM + TF_TIMED
+    stream = [epoch[i % len(epoch)] for i in range(steps)]
+    model = Transformer(cfg, device=device, seed=0)
+    opt = Adam(model.parameters(), learning_rate=1e-4)
+    state = make_train_state(model, opt)
+    step = build_train_step(_tf_loss, opt, policy=get_policy("bf16"))
+    captures0 = recompile.capture_count()
+    loader = DeviceLoader(iter(stream), buffer_size=2, device=device)
+    staged, losses = [], []
+    torch.cuda.reset_peak_memory_stats()
+    it = iter(loader)
+    t0 = time.monotonic()
+    for _ in range(TF_WARM):
+        batch = next(it)
+        staged.append(_tf_host(batch))
+        state, m = step(state, **batch)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    warm_s = time.monotonic() - t0
+    captures = recompile.capture_count()
+    builds = step.builds
+    registry.reset_launches()
+    t0 = time.monotonic()
+    for _ in range(TF_TIMED):
+        batch = next(it)
+        state, m = step(state, **batch)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = {e.name: e.launches for e in flash_entries()}
+    peak = torch.cuda.max_memory_allocated()
+    feed_stats = loader.stats()
+    loader.close()
+    late = [a for a in feed_stats["pinned_allocations"]
+            if a["captures_before"] > captures0]
+    if len(again) != len(epoch) or not all(
+            np.array_equal(a[k], b[k]) for a, b in zip(epoch, again)
+            for k in TF_KEYS):
+        raise AssertionError("two runs of the feed, shuffle and packer "
+                             "over the same files differ")
+    for i, b in enumerate(staged):       # read back in the warm-up
+        if not all(np.array_equal(b[k], stream[i][k]) for k in TF_KEYS):
+            raise AssertionError(f"staged batch {i} != the CPU run's")
+    if device.type == "cuda" and builds != 1:
+        raise AssertionError(f"{builds} captures in the warm-up")
+    losses = [float(x) for x in losses]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite loss: {losses}")
+    per_step = {n: c / TF_TIMED for n, c in launches.items()}
+    want_per_step = cfg.num_encoder_layers + 2 * cfg.num_decoder_layers
+    if any(v != want_per_step for v in per_step.values()):
+        raise AssertionError(f"flash launches per step {per_step}, "
+                             f"expected {want_per_step} each")
+    if recompile.capture_count() != captures:
+        raise AssertionError("the train step captured after its first "
+                             "graphed step")
+    if late:
+        raise AssertionError(f"pinned allocations after a capture: {late}")
+    real = sum(int((b["tgt_seg"] > 0).sum())
+               for b in stream[TF_WARM:steps])
+    flops = tf_flops_per_step(cfg)
+    ms = wall / TF_TIMED * 1e3
+    all_seg = np.concatenate([b["tgt_seg"] for b in epoch])
+    stats = {
+        "pairs_loaded": n_pairs, "packed_batches": len(epoch),
+        "packing_efficiency_tgt": packing.packing_efficiency(all_seg),
+        "packing_efficiency_src": packing.packing_efficiency(
+            np.concatenate([b["src_seg"] for b in epoch])),
+        "feed_and_pack_s": feed_s,
+        "loader_host_ms_per_batch": feed_stats["host_ms_per_batch"],
+        "loader_wait_ms_per_batch": feed_stats["wait_ms_per_batch"],
+        "pinned_allocations": len(feed_stats["pinned_allocations"]),
+        "pinned_bytes": sum(a["bytes"]
+                            for a in feed_stats["pinned_allocations"]),
+        "pinned_allocations_after_first_capture": len(late),
+        "steps": TF_TIMED, "ms_per_step": ms,
+        "real_tgt_tokens_per_s": real / wall,
+        "model_flops_per_step": flops,
+        "mfu_vs_989tflops": flops / (wall / TF_TIMED)
+        / PEAK_FLOPS[torch.bfloat16],
+        "peak_memory_gib": peak / 2**30, "warmup_s": warm_s,
+        "captures_after_first_graphed_step":
+            recompile.capture_count() - captures,
+        "graph_builds": step.builds,
+        "launches_per_step": per_step, "launches": launches,
+        "loss_first": losses[0], "loss_last": losses[-1],
+    }
+    prof_batch = {k: torch.from_numpy(v).to(device)
+                  for k, v in epoch[0].items()}
+    prof = profile_window(lambda: step(state, **prof_batch), PROFILED_STEPS,
+                          keep=("flash_",))
+    stats["busy_share"] = prof["device_busy_share"]
+    stats["kernels_per_step"] = prof["kernel_launches"] / PROFILED_STEPS
+    log("  11 train profile: " + json.dumps({"steps": PROFILED_STEPS,
+                                             **prof}))
+    # the padded layout (one pair a row) on the same captured graph
+    padded = [{k: torch.from_numpy(v).to(device) for k, v in b.items()}
+              for b in padded_batches(pairs, TF_TIMED)]
+    step(state, **padded[0])
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    for b in padded:
+        step(state, **b)
+    torch.cuda.synchronize()
+    p_wall = time.monotonic() - t0
+    p_real = sum(int((b["tgt_seg"] > 0).sum()) for b in padded)
+    stats.update(
+        padded_ms_per_step=p_wall / len(padded) * 1e3,
+        padded_real_tgt_tokens_per_s=p_real / p_wall,
+        packed_vs_padded=(real / wall) / (p_real / p_wall),
+        captures_after_padded=recompile.capture_count() - captures)
+    if stats["captures_after_padded"]:
+        raise AssertionError("the padded layout captured another graph")
+    log("  11 (a)+(b) feed and packed training: " + json.dumps(stats))
+    return stats, model, epoch
+
+
+def _tf_fp32(device, impl, seed=1):
+    from paddle_tpu_torch.models.transformer import Transformer
+    return Transformer(_tf_config(num_encoder_layers=2, num_decoder_layers=2,
+                                  attn_impl=impl), device=device, seed=seed)
+
+
+def _padded_token_sum(model, pairs, rows):
+    """Sum over pairs of each pair's padded loss times its token count:
+    ``Transformer.loss``'s per-token terms over one pair a row (pad_id
+    2, which no id in [3, vocab) takes)."""
+    srcs, tins, touts = pairs
+    cfg = model.cfg
+    total, count = 0.0, 0
+    for lo in range(0, len(rows), TF_ROWS):
+        idx = rows[lo:lo + TF_ROWS]
+        arrs = []
+        for seqs in (srcs, tins, touts):
+            a = np.full((len(idx), TF_LEN), cfg.pad_id, np.int32)
+            for r, i in enumerate(idx):
+                a[r, :len(seqs[i])] = seqs[i]
+            arrs.append(torch.from_numpy(a).to(model.device))
+        logits = model(arrs[0], arrs[1]).float()
+        nll = model._nll(logits, arrs[2])
+        mask = (arrs[2] != cfg.pad_id).float()
+        total += float((nll * mask).sum(dtype=torch.float64))
+        count += int(mask.sum())
+    return total, count
+
+
+def tf_fp32_parity(device, epoch, pairs_of_first):
+    """(c): fp32, full width, 2 + 2 layers, TF32 off: the packed token sum
+    against the padded per-pair losses; the first batch's gradients and
+    3 Adam steps' losses through the kernels and through the plain
+    versions; fully masked cross-attention rows."""
+    from paddle_tpu_torch.kernels import registry
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.train import build_train_step, make_train_state
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    batches = [{k: torch.from_numpy(v).to(device) for k, v in b.items()}
+               for b in epoch[:3]]
+    model = _tf_fp32(device, "auto")
+    with torch.no_grad():
+        _, aux = model.loss_packed(*(batches[0][k] for k in TF_KEYS))
+        want, count = _padded_token_sum(model, *pairs_of_first)
+    got = float(aux["token_sum"])
+    rel_sum = abs(got - want) / abs(want)
+    if int(aux["token_count"]) != count or rel_sum > 2e-5:
+        raise AssertionError(f"packed token sum {got} (count "
+                             f"{int(aux['token_count'])}) vs padded {want} "
+                             f"({count})")
+    steps, lr = 3, 1e-4
+    runs = {}
+    for impl in ("auto", "plain"):
+        m = model if impl == "auto" else _tf_fp32(device, impl)
+        # the gradients of the first batch at the seeded weights
+        m.zero_grad(set_to_none=True)
+        _tf_loss(m, **batches[0])[0].backward()
+        grads = {n: p.grad.detach().clone() for n, p in m.named_parameters()}
+        m.zero_grad(set_to_none=True)
+        st = make_train_state(m, Adam(m.parameters(), learning_rate=lr))
+        step = build_train_step(_tf_loss, st["opt"])
+        registry.reset_launches()
+        losses = [float(step(st, **b)[1]["loss"]) for b in batches]
+        launched = [e.launches for e in flash_entries()]
+        want_l = [6 * steps] * 3 if impl == "auto" else [0] * 3
+        if launched != want_l:
+            raise AssertionError(f"fp32 {impl} run launched {launched}")
+        runs[impl] = (losses, grads)
+    (k_losses, k_grads), (p_losses, p_grads) = runs["auto"], runs["plain"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(k_losses, p_losses))
+    if rel > 1e-5:
+        raise AssertionError(f"fp32 parity: losses {k_losses} vs {p_losses}")
+    # gradients held as phase 6 holds BERT's parameters: atol and rtol
+    # 1e-4 (after Adam steps the tied embedding's near-zero gradients
+    # turn rounding noise into lr-sized steps of either sign, so the
+    # parameters are not compared)
+    err = 0.0
+    for n, g in k_grads.items():
+        err = max(err, float((g - p_grads[n]).abs().max()))
+        if not torch.allclose(g, p_grads[n], atol=1e-4, rtol=1e-4):
+            raise AssertionError(f"fp32 parity: d{n} differs by "
+                                 f"{float((g - p_grads[n]).abs().max()):.3e}")
+    del runs, model
+    torch.cuda.empty_cache()
+    dead = tf_dead_rows(device)
+    out = {"packed_token_sum": got, "padded_token_sum": want,
+           "token_sum_rel_err": rel_sum, "losses_kernel": k_losses,
+           "losses_plain": p_losses, "loss_rel_err": rel,
+           "grad_max_abs_err": err, **dead}
+    log("  11 (c) fp32 parity: " + json.dumps(out))
+    return out
+
+
+def tf_dead_rows(device, seed=9):
+    """Cross-attention of packed rows whose source rows hold no padding:
+    the target's padding queries (segment 0) see no key. Through the
+    kernels at the slice's shape, fp32: those rows are 0 and their dq 0,
+    their cotangent adds nothing to dk/dv, and the rest equals the plain
+    versions."""
+    from paddle_tpu_torch.ops import attention as FA
+    from paddle_tpu_torch.ops.sequence import make_segment_attention_bias
+    rng = np.random.default_rng(seed)
+    b, h, s, d = TF_ROWS, 16, TF_LEN, 64
+    src_seg = np.zeros((b, s), np.int32)
+    for r in range(b):                 # every source slot in a segment
+        cuts = np.sort(rng.choice(np.arange(8, s - 8), 5, replace=False))
+        src_seg[r] = np.searchsorted(cuts, np.arange(s), side="right") + 1
+    tgt_seg = np.where(np.arange(s)[None, :] < rng.integers(
+        s // 4, s - 16, b)[:, None], np.minimum(
+        np.arange(s)[None, :] // 40 + 1, 6), 0).astype(np.int32)
+    bias = make_segment_attention_bias(
+        torch.from_numpy(tgt_seg).to(device),
+        torch.from_numpy(src_seg).to(device))
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((b, h, s, d)).astype(
+        np.float32)).to(device) for _ in range(4))
+    dead = torch.from_numpy(tgt_seg == 0).to(device)[:, None, :, None]
+    dead = dead.expand(b, h, s, d)
+
+    def run(impl, g):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = FA.dot_product_attention(*leaves, bias=bias, impl=impl)
+        return (out.detach(), *torch.autograd.grad(out, leaves, g))
+
+    out, dq, dk, dv = run("flash", do)
+    if not (torch.all(out[dead] == 0) and torch.all(dq[dead] == 0)):
+        raise AssertionError("a fully masked cross-attention row is not 0")
+    _, _, dk0, dv0 = run("flash", torch.where(dead, 0.0, do))
+    inflation = max(float((dk - dk0).abs().max()),
+                    float((dv - dv0).abs().max()))
+    if inflation > 1e-6:
+        raise AssertionError(f"dead rows moved dk/dv by {inflation:.3e}")
+    p_out, p_dq, p_dk, p_dv = run("plain", do)
+    tol = FA.BWD_DQ.tolerance[torch.float32]
+    errs = {"out": _err(out, p_out, FA.FWD.tolerance[torch.float32],
+                        "dead rows out"),
+            "dq": _err(dq, p_dq, tol, "dead rows dq"),
+            "dk": _err(dk, p_dk, tol, "dead rows dk"),
+            "dv": _err(dv, p_dv, tol, "dead rows dv")}
+    return {"dead_rows": int((tgt_seg == 0).sum()),
+            "dead_rows_dkdv_shift": inflation,
+            "dead_rows_vs_plain_max_abs_err": errs}
+
+
+#: run in a fresh interpreter: loads the artifact with no model module,
+#: runs it on the saved inputs, saves the logits and prints the K5
+#: launches of the call as one JSON line
+PREDICTOR_CODE = """
+import json, sys, torch
+from paddle_tpu_torch.inference import load_inference_model
+from paddle_tpu_torch.ops import attention as FA
+path, inputs, out = sys.argv[1:4]
+pred = load_inference_model(path)
+args = torch.load(inputs)
+sync = torch.cuda.synchronize if pred.device.type == "cuda" else lambda: None
+pred.run(*args)
+sync()
+before = FA.FWD.launches
+logits = pred.run(*args)
+sync()
+torch.save(logits.cpu(), out)
+bad = sorted(m for m in sys.modules if m.startswith(
+    ("paddle_tpu_torch.models", "paddle_tpu_torch.nn", "jax", "paddle_tpu.")))
+print(json.dumps({"k5_launches_per_call": FA.FWD.launches - before,
+                  "model_modules": bad, "device": str(pred.device)}))
+"""
+
+
+def tf_export(device, model, epoch):
+    """(d): the trained model's teacher-forced forward in bf16 exported
+    with ``save_inference_model``, run by a ``Predictor`` in a fresh
+    process that imports no model module: logits bit for bit the eager
+    model's, 18 K5 launches a call; then int8 weights."""
+    import copy
+
+    from paddle_tpu_torch.inference import save_inference_model
+    from paddle_tpu_torch.ops import attention as FA
+    d = TF_DIR / "export"
+    shutil.rmtree(d, ignore_errors=True)
+    b16 = copy.deepcopy(model).to(torch.bfloat16).eval()
+    cfg = b16.cfg
+    first = epoch[0]
+    # a teacher-forced batch with key padding: the first pair of each row
+    src = np.full((TF_ROWS, TF_LEN), cfg.pad_id, np.int32)
+    tgt = np.full((TF_ROWS, TF_LEN), cfg.pad_id, np.int32)
+    for r in range(TF_ROWS):
+        for arr, key in ((src, "src"), (tgt, "tgt")):
+            row = first[key][r][first[f"{key}_seg"][r] == 1]
+            arr[r, :len(row)] = row
+    inputs = (torch.from_numpy(src).to(device),
+              torch.from_numpy(tgt).to(device))
+    t0 = time.monotonic()
+    save_inference_model(str(d / "bf16"), b16, inputs,
+                         input_names=["src_ids", "tgt_ids"])
+    export_s = time.monotonic() - t0
+    torch.save(tuple(t.cpu() for t in inputs), d / "inputs.pt")
+    before = FA.FWD.launches
+    with torch.no_grad():
+        eager = b16(*inputs)
+    torch.cuda.synchronize()
+    eager_k5 = FA.FWD.launches - before
+    t0 = time.monotonic()
+    res = subprocess.run([sys.executable, "-c", PREDICTOR_CODE,
+                          str(d / "bf16"), str(d / "inputs.pt"),
+                          str(d / "logits.pt")],
+                         capture_output=True, text=True, timeout=300,
+                         cwd=pathlib.Path(__file__).resolve().parent)
+    sub_s = time.monotonic() - t0
+    if res.returncode != 0:
+        raise AssertionError(f"the Predictor process failed:\n{res.stderr}")
+    sub = json.loads(res.stdout.strip().splitlines()[-1])
+    got = torch.load(d / "logits.pt")
+    want_k5 = cfg.num_encoder_layers + 2 * cfg.num_decoder_layers
+    if sub["model_modules"]:
+        raise AssertionError(f"the Predictor imported {sub['model_modules']}")
+    if not torch.equal(got, eager.cpu()):
+        raise AssertionError("exported logits != eager logits, max |diff| "
+                             f"{float((got.float() - eager.cpu().float()).abs().max()):.3e}")
+    if sub["k5_launches_per_call"] != want_k5 or eager_k5 != want_k5:
+        raise AssertionError(f"K5 launches per call: predictor "
+                             f"{sub['k5_launches_per_call']}, eager "
+                             f"{eager_k5}, expected {want_k5}")
+    save_inference_model(str(d / "int8"), b16, inputs,
+                         input_names=["src_ids", "tgt_ids"],
+                         weight_quantize="int8")
+    from paddle_tpu_torch.inference import load_inference_model
+    q8 = load_inference_model(str(d / "int8")).run(*inputs)
+    q8_err = float((q8.float() - eager.float()).abs().max())
+    std = float(eager.float().std())
+    sizes = {k: (d / k / "__model__.pt2").stat().st_size
+             for k in ("bf16", "int8")}
+    fp32_weights = 4 * sum(p.numel() for p in b16.parameters())
+    out = {"artifact_bytes_bf16": sizes["bf16"],
+           "artifact_bytes_int8": sizes["int8"],
+           "int8_vs_bf16_bytes": sizes["int8"] / sizes["bf16"],
+           # the same weights in float32 (reckoned, not exported)
+           "fp32_weight_bytes": fp32_weights,
+           "int8_vs_fp32_weight_bytes": sizes["int8"] / fp32_weights,
+           "export_s": export_s, "predictor_process_s": sub_s,
+           "predictor_device": sub["device"],
+           "logits_bitwise_equal": True,
+           "k5_launches_per_call": sub["k5_launches_per_call"],
+           "int8_max_abs_err_vs_bf16": q8_err, "logits_std": std,
+           "int8_err_over_std": q8_err / std,
+           "int8_tolerance_over_std": TF_INT8_TOL}
+    if not torch.isfinite(q8).all() or q8_err > TF_INT8_TOL * std:
+        raise AssertionError(f"int8 logits off by {q8_err:.3e} (std "
+                             f"{std:.3e})")
+    log("  11 (d) export: " + json.dumps(out))
+    del b16
+    torch.cuda.empty_cache()
+    return out
+
+
+def transformer_slice(device):
+    """Phase 11: (a) feed, (b) packed training, (c) fp32 parity, (d)
+    export."""
+    t_phase = time.monotonic()
+    shutil.rmtree(TF_DIR, ignore_errors=True)
+    cfg = _tf_config()
+    paths = write_multislot(TF_DIR / "wmt", tf_pairs(cfg.vocab_size))
+    stats, model, epoch = tf_feed_and_train(device, paths)
+    export = tf_export(device, model, epoch)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the first packed batch's pairs, for the padded baseline of (c)
+    _, _, pairs = tf_epoch(paths, cfg)
+    srcs = pairs[0]
+    first = epoch[0]
+    in_first = []
+    lookup = {s.tobytes(): i for i, s in enumerate(srcs)}
+    for r in range(TF_ROWS):
+        for seg in range(1, int(first["src_seg"][r].max()) + 1):
+            row = first["src"][r][first["src_seg"][r] == seg]
+            in_first.append(lookup[row.tobytes()])
+    parity = tf_fp32_parity(device, epoch, (pairs, in_first))
+    stats.update(export=export, parity=parity,
+                 phase_s=time.monotonic() - t_phase)
+    return stats
+
+
 def ring_line(stats):
     """The ``kernels`` line's entry of the ring, which has no kernel of its
     own: ``launches`` is the K5/K6a/K6b launches its calls made on rank 0
@@ -5122,6 +5728,13 @@ def main() -> int:
         "kernel)")
     embedding_serving(device)
 
+    log("[11/11] data, packed Transformer-big training and export: the "
+        "MultiSlot feed, the packer and DeviceLoader, K5/K6a/K6b under "
+        "segment biases in one captured graph, fp32 parity, "
+        "save_inference_model and a Predictor in a fresh process")
+    tf_stats = transformer_slice(device)
+    log(f"  phase 11 took {tf_stats['phase_s']:.1f} s")
+
     lines = [kernel_line(e, rows[e.name], stats["launches"][e.name],
                          {**({"long": long_rows} if e is PA.DECODE
                              else {"verify": verify_rows[e.name]}),
@@ -5166,6 +5779,11 @@ def main() -> int:
         if ln["name"] in pipe_stats["main_path_launches"][0]:
             ln["launches_pipeline_ranks"] = [
                 r[ln["name"]] for r in pipe_stats["main_path_launches"]]
+    # K5/K6a/K6b over phase 11 (b)'s 10 timed packed Transformer-big
+    # steps (18 attentions a step, segment biases)
+    for ln in lines:
+        if ln["name"] in tf_stats["launches"]:
+            ln["launches_transformer"] = tf_stats["launches"][ln["name"]]
     lines.append(ring_line(par_stats))
     log(f"[7/7] done in {time.monotonic() - t_start:.1f} s; library_ms of "
         "the two backward rows is one call for the pair: SDPA's whole "

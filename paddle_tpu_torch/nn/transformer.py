@@ -1,8 +1,10 @@
 """Transformer building blocks (``paddle_tpu/nn/transformer.py``):
-self-attention with one fused ``qkv_proj`` ``(D, 3D)``, the position-wise
-MLP and the encoder layer. Heads are laid out ``(B, H, S, Dh)`` as in the
-reference. Dropout follows each module's training mode and draws from the
-``generator`` passed down the forward."""
+attention (self-attention with one fused ``qkv_proj`` ``(D, 3D)``,
+cross-attention with separate ``q_proj`` ``(D, D)`` and ``kv_proj``
+``(D, 2D)``), the position-wise MLP, and the encoder and decoder layers.
+Heads are laid out ``(B, H, S, Dh)`` as in the reference. Dropout follows
+each module's training mode and draws from the ``generator`` passed down
+the forward."""
 
 from __future__ import annotations
 
@@ -23,7 +25,9 @@ RING_HEADS_SPEC = "the local (B, H, S/sp, Dh) block"
 
 
 class MultiHeadAttention(nn.Module):
-    """Fused-qkv self-attention. :meth:`forward` goes through
+    """Multi-head attention: fused-qkv self-attention, or with
+    ``self_attention=False`` cross-attention with separate q and kv
+    projections (the decoder's). :meth:`forward` goes through
     :func:`~paddle_tpu_torch.ops.attention.dot_product_attention` with
     ``attn_impl`` (flash attention unless attention dropout is active),
     and with ``cache=`` it is one KV-cached decode step (the dense
@@ -41,7 +45,8 @@ class MultiHeadAttention(nn.Module):
 
     def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0,
                  bias: bool = True, causal: bool = False,
-                 attn_impl: str = "auto", *, device=None, dtype=None):
+                 attn_impl: str = "auto", *, self_attention: bool = True,
+                 device=None, dtype=None):
         super().__init__()
         if embed_dim % num_heads:
             raise ValueError("num_heads must divide embed_dim")
@@ -54,8 +59,17 @@ class MultiHeadAttention(nn.Module):
             raise ValueError(
                 "ring attention does not support attention-prob dropout; "
                 "set attn_dropout=0 (residual dropout still applies)")
-        self.qkv_proj = Linear(embed_dim, 3 * embed_dim, bias=bias,
-                               sharding=COLUMN, device=device, dtype=dtype)
+        self.self_attention = self_attention
+        if self_attention:
+            self.qkv_proj = Linear(embed_dim, 3 * embed_dim, bias=bias,
+                                   sharding=COLUMN, device=device,
+                                   dtype=dtype)
+        else:
+            self.q_proj = Linear(embed_dim, embed_dim, bias=bias,
+                                 sharding=COLUMN, device=device, dtype=dtype)
+            self.kv_proj = Linear(embed_dim, 2 * embed_dim, bias=bias,
+                                  sharding=COLUMN, device=device,
+                                  dtype=dtype)
         self.out_proj = Linear(embed_dim, embed_dim, bias=bias,
                                sharding=ROW, device=device, dtype=dtype)
 
@@ -67,25 +81,45 @@ class MultiHeadAttention(nn.Module):
         b, h, s, d = x.shape
         return x.transpose(1, 2).reshape(b, s, h * d)
 
-    def qkv_heads(self, x):
-        """(B, S, D) -> (q, k, v), each (B, H, S, Dh) (this rank's heads
-        under a Megatron placement)."""
-        q, k, v = torch.chunk(self.qkv_proj(x), 3, dim=-1)
-        heads = tuple(self._split_heads(t) for t in (q, k, v))
+    def _local(self, heads):
         if self.local_heads is not None:
             first, count = self.local_heads
             heads = tuple(t[:, first:first + count] for t in heads)
         return heads
 
+    def qkv_heads(self, x, key_value=None):
+        """(B, S, D) -> (q, k, v), each (B, H, S, Dh) (this rank's heads
+        under a Megatron placement). Cross-attention projects k and v
+        from ``key_value`` (``x`` when None)."""
+        if self.self_attention:
+            q, k, v = torch.chunk(self.qkv_proj(x), 3, dim=-1)
+        else:
+            q = self.q_proj(x)
+            k, v = torch.chunk(self.kv_proj(
+                x if key_value is None else key_value), 2, dim=-1)
+        return self._local(tuple(self._split_heads(t) for t in (q, k, v)))
+
+    def cross_kv(self, memory):
+        """Cross-attention (k, v) heads of the encoder ``memory``: made
+        once per sequence, then passed to each decode step as
+        ``static_kv``."""
+        k, v = torch.chunk(self.kv_proj(memory), 2, dim=-1)
+        return self._local((self._split_heads(k), self._split_heads(v)))
+
     def proj_out(self, heads):
         """(B, H, S, Dh) attention output -> (B, S, D)."""
         return self.out_proj(self._merge_heads(heads))
 
-    def forward(self, x, *, bias=None,
+    def forward(self, x, key_value=None, *, bias=None,
                 generator: Optional[torch.Generator] = None,
-                cache=None, cache_pos=None, return_kv: bool = False):
-        """x: (B, S, D); ``bias`` additive, broadcastable to
-        (B, H, S, S) (a key-padding bias is (B, 1, 1, S)).
+                cache=None, cache_pos=None, return_kv: bool = False,
+                static_kv=None):
+        """x: (B, Sq, D); ``key_value``: (B, Sk, D) for cross-attention;
+        ``bias`` additive, broadcastable to (B, H, Sq, Sk) (a key-padding
+        bias is (B, 1, 1, Sk), a packed batch's segment bias (B, 1, Sq,
+        Sk)). ``static_kv``: precomputed (k, v) heads (:meth:`cross_kv`),
+        which skip the kv projection (cross-attention decode; the
+        composed path).
 
         Incremental decoding: ``cache=(k_cache, v_cache)``, each
         (B, H, Smax, Dh), and ``cache_pos`` the write position (a 0-dim
@@ -96,7 +130,13 @@ class MultiHeadAttention(nn.Module):
         positions past ``cache_pos`` masked by a ``-1e30`` bias; returns
         ``(out, (k_cache, v_cache))``. ``return_kv=True`` also returns
         this call's (k, v) heads: the prefill that seeds the cache."""
-        q, k, v = self.qkv_heads(x)
+        if static_kv is not None:
+            q, = self._local((self._split_heads(self.q_proj(x)),))
+            k, v = static_kv
+            out = dot_product_attention(q, k, v, bias=bias, causal=False,
+                                        impl="xla")
+            return self.proj_out(out.to(q.dtype))
+        q, k, v = self.qkv_heads(x, key_value)
         if cache is not None:
             ck, cv = cache
             at = cache_pos.reshape(1)
@@ -174,3 +214,67 @@ class TransformerEncoderLayer(nn.Module):
         h = self.attn(x, bias=bias, generator=g)
         x = self.ln1(x + self.drop(h, g))
         return self.ln2(x + self.drop(self.ffn(x, g), g))
+
+
+class TransformerDecoderLayer(nn.Module):
+    """Decoder block: causal self-attention (``self_bias``, a packed
+    batch's segment bias), cross-attention over the encoder memory
+    (``cross_bias``), the MLP; pre- or post-LN. Parameters
+    ``self_attn``, ``cross_attn``, ``ffn``, ``ln1``..``ln3`` as in the
+    reference tree."""
+
+    def __init__(self, embed_dim: int, num_heads: int, ffn_dim: int,
+                 dropout: float = 0.1, attn_dropout: Optional[float] = None,
+                 activation: str = "relu", pre_ln: bool = False,
+                 attn_impl: str = "auto", *, device=None, dtype=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        if attn_dropout is None:
+            attn_dropout = dropout
+        self.self_attn = MultiHeadAttention(
+            embed_dim, num_heads, dropout=attn_dropout, causal=True,
+            attn_impl=attn_impl, **kw)
+        self.cross_attn = MultiHeadAttention(
+            embed_dim, num_heads, dropout=attn_dropout, attn_impl=attn_impl,
+            self_attention=False, **kw)
+        self.ffn = FeedForward(embed_dim, ffn_dim, activation, dropout, **kw)
+        self.ln1 = LayerNorm(embed_dim, **kw)
+        self.ln2 = LayerNorm(embed_dim, **kw)
+        self.ln3 = LayerNorm(embed_dim, **kw)
+        self.drop = Dropout(dropout)
+        self.pre_ln = pre_ln
+
+    def _sub(self, x, ln, fn, generator=None):
+        if self.pre_ln:
+            return x + self.drop(fn(ln(x)), generator)
+        return ln(x + self.drop(fn(x), generator))
+
+    def forward(self, x, memory, *, self_bias=None, cross_bias=None,
+                generator: Optional[torch.Generator] = None):
+        g = generator
+        x = self._sub(x, self.ln1, lambda h: self.self_attn(
+            h, bias=self_bias, generator=g), g)
+        x = self._sub(x, self.ln2, lambda h: self.cross_attn(
+            h, memory, bias=cross_bias, generator=g), g)
+        return self._sub(x, self.ln3, lambda h: self.ffn(h, g), g)
+
+    def decode_step(self, x, pos, self_cache, cross_kv, *, cross_bias=None):
+        """One cached decode step of x (B, 1, D) at position ``pos`` (a
+        0-d integer tensor): self-attention through the KV cache (written
+        in place), cross-attention over the precomputed memory heads.
+        Inference only (no dropout). Returns (x, self_cache)."""
+        box = {}
+
+        def self_fn(h):
+            out, box["cache"] = self.self_attn(h, cache=self_cache,
+                                               cache_pos=pos)
+            return out
+
+        def sub(x, ln, fn):
+            return x + fn(ln(x)) if self.pre_ln else ln(x + fn(x))
+
+        x = sub(x, self.ln1, self_fn)
+        x = sub(x, self.ln2, lambda h: self.cross_attn(
+            h, bias=cross_bias, static_kv=cross_kv))
+        x = sub(x, self.ln3, self.ffn)
+        return x, box["cache"]

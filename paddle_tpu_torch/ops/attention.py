@@ -14,9 +14,18 @@ Layout (batch, heads, seq, head_dim) — "BHSD" — as in the reference.
   on CPU tensors it runs their plain PyTorch versions
   (:func:`flash_fwd_plain`, :func:`flash_bwd_plain`, the ports of
   ``_lax_flash_fwd`` and ``_lax_flash_block_bwd``). A key-only bias
-  ``(B, 1, 1, Sk)`` is a constant (zero cotangent); a full ``(.., Sq,
-  Sk)`` bias takes the composed recompute path in the backward so that a
-  trainable bias gets its gradient.
+  ``(B, 1, 1, Sk)`` is a constant (zero cotangent). A full ``(.., Sq,
+  Sk)`` bias that needs no gradient (a packed batch's segment bias) is a
+  constant too and takes the kernels both ways; one that needs its
+  gradient (a trainable relative-position bias) takes the composed
+  recompute path in the backward, as the reference's full biases do.
+- The three kernels are registered ops (``torch.library.custom_op``):
+  ``ptt::flash_fwd``, ``ptt::flash_bwd_dkv`` and ``ptt::flash_bwd_dq``,
+  each with a fake implementation that gives its outputs' shapes and
+  dtypes. :func:`flash_attention` reaches the kernels through them, so
+  ``torch.export`` of a module on the card records a ``ptt.flash_fwd``
+  node and the exported program launches K5 itself (a process that loads
+  it imports this module to register the ops).
 - :func:`dot_product_attention` is the entry point the layers call. Its
   "auto" never raises on a shape or dtype: a head dim up to 128 outside
   :data:`HEAD_DIMS` is zero-padded to the kernels' next head dim
@@ -38,7 +47,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -578,7 +587,7 @@ BWD_DQ = registry.register(registry.KernelEntry(
 
 
 # ---------------------------------------------------------------------------
-# flash_attention: forward and backward as one autograd Function
+# the kernels as registered ops
 # ---------------------------------------------------------------------------
 
 def _use_kernels(q, plain: bool) -> bool:
@@ -589,13 +598,77 @@ def _use_kernels(q, plain: bool) -> bool:
     raise ValueError(f"flash_attention: unsupported device {q.device}")
 
 
+@torch.library.custom_op("ptt::flash_fwd", mutates_args=())
+def flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 bias: Optional[torch.Tensor], causal: bool,
+                 scale: Optional[float]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K5 as ``torch.ops.ptt.flash_fwd``: :func:`flash_fwd_cuda` on CUDA
+    tensors, :func:`flash_fwd_plain` on CPU ones. Returns ``(out, lse)``."""
+    if _use_kernels(q, False):
+        return flash_fwd_cuda(q, k, v, bias, causal=causal, scale=scale)
+    return flash_fwd_plain(q, k, v, bias, causal=causal, scale=scale)
+
+
+@flash_fwd_op.register_fake
+def _flash_fwd_fake(q, k, v, bias, causal, scale):
+    b, h, sq, _ = q.shape
+    return (torch.empty_like(q),
+            q.new_empty((b, h, sq), dtype=torch.float32))
+
+
+@torch.library.custom_op("ptt::flash_bwd_dkv", mutates_args=())
+def flash_bwd_dkv_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     bias: Optional[torch.Tensor], do: torch.Tensor,
+                     lse: torch.Tensor, delta: torch.Tensor, causal: bool,
+                     scale: Optional[float]
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K6a as ``torch.ops.ptt.flash_bwd_dkv``: ``(dk, dv)``."""
+    args = (q, k, v, bias, do, lse, delta)
+    if _use_kernels(q, False):
+        return flash_bwd_dkv_cuda(*args, causal=causal, scale=scale)
+    return _dkv_plain(*args, causal=causal, scale=scale)
+
+
+@flash_bwd_dkv_op.register_fake
+def _flash_bwd_dkv_fake(q, k, v, bias, do, lse, delta, causal, scale):
+    return torch.empty_like(k), torch.empty_like(v)
+
+
+@torch.library.custom_op("ptt::flash_bwd_dq", mutates_args=())
+def flash_bwd_dq_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    bias: Optional[torch.Tensor], do: torch.Tensor,
+                    lse: torch.Tensor, delta: torch.Tensor, causal: bool,
+                    scale: Optional[float]) -> torch.Tensor:
+    """K6b as ``torch.ops.ptt.flash_bwd_dq``: ``dq``."""
+    args = (q, k, v, bias, do, lse, delta)
+    if _use_kernels(q, False):
+        return flash_bwd_dq_cuda(*args, causal=causal, scale=scale)
+    return _dq_plain(*args, causal=causal, scale=scale)
+
+
+@flash_bwd_dq_op.register_fake
+def _flash_bwd_dq_fake(q, k, v, bias, do, lse, delta, causal, scale):
+    return torch.empty_like(q)
+
+
+# ---------------------------------------------------------------------------
+# flash_attention: forward and backward as one autograd Function
+# ---------------------------------------------------------------------------
+
+def _full_bias(bias) -> bool:
+    return bias is not None and bias.ndim >= 2 and bias.shape[-2] != 1
+
+
 class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, bias, causal, scale, plain):
         q, k, v = (t.contiguous() for t in (q, k, v))
-        fwd = flash_fwd_cuda if _use_kernels(q, plain) else flash_fwd_plain
-        out, lse = fwd(q, k, v, bias, causal=causal, scale=scale)
+        if plain:
+            out, lse = flash_fwd_plain(q, k, v, bias, causal=causal,
+                                       scale=scale)
+        else:
+            out, lse = torch.ops.ptt.flash_fwd(q, k, v, bias, causal, scale)
         ctx.save_for_backward(q, k, v, bias, out, lse)
         ctx.causal, ctx.scale, ctx.plain = causal, scale, plain
         return out
@@ -604,9 +677,9 @@ class _FlashAttention(torch.autograd.Function):
     def backward(ctx, g):
         q, k, v, bias, out, lse = ctx.saved_tensors
         causal, scale = ctx.causal, ctx.scale
-        if bias is not None and bias.ndim >= 2 and bias.shape[-2] != 1:
-            # a full (.., Sq, Sk) bias may be trainable: recompute through
-            # the composed path, which yields its grad in its own shape
+        if _full_bias(bias) and ctx.needs_input_grad[3]:
+            # a trainable full (.., Sq, Sk) bias: recompute through the
+            # composed path, which yields its grad in its own shape
             with torch.enable_grad():
                 ins = [t.detach().requires_grad_() for t in (q, k, v)]
                 bd = bias.detach().requires_grad_(ctx.needs_input_grad[3])
@@ -620,11 +693,12 @@ class _FlashAttention(torch.autograd.Function):
         delta = flash_delta(g, out)
         args = (q, k, v, bias, g, lse, delta)
         if _use_kernels(q, ctx.plain):
-            dk, dv = flash_bwd_dkv_cuda(*args, causal=causal, scale=scale)
-            dq = flash_bwd_dq_cuda(*args, causal=causal, scale=scale)
+            dk, dv = torch.ops.ptt.flash_bwd_dkv(*args, causal, scale)
+            dq = torch.ops.ptt.flash_bwd_dq(*args, causal, scale)
         else:
             dq, dk, dv = _flash_bwd_parts(*args, causal=causal, scale=scale)
-        # a key-padding bias is a constant: zero cotangent
+        # a key-padding bias (or a full one that needs no gradient) is a
+        # constant: zero cotangent
         dbias = (torch.zeros_like(bias)
                  if bias is not None and ctx.needs_input_grad[3] else None)
         return dq, dk, dv, dbias, None, None, None

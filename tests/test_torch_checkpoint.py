@@ -102,8 +102,9 @@ def test_non_dict_containers_refused_loudly(tmp_path):
         eng.save(1, {"layers": {0: torch.ones(2)}}, wait=True)
     # the sharded restore is ported: with nothing saved it finds nothing
     assert eng.restore(shardings={}) is None
-    with pytest.raises(NotImplementedError):
-        fs_lib.get_fs("hdfs://cluster/ckpt")
+    # hdfs:// routes to the ported HDFSClient (the hadoop command line)
+    fs, path = fs_lib.get_fs("hdfs://cluster/ckpt")
+    assert isinstance(fs, fs_lib.HDFSClient) and path == "hdfs://cluster/ckpt"
     eng.close()
 
 

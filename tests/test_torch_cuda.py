@@ -1713,3 +1713,150 @@ def test_embedding_install_keeps_the_table_and_bf16_cache(dev):
             assert not c.table[0].any()
             c.check_invariants()
         assert c.graphs.builds == len(c.warmup_plan(256))
+
+
+# -- data and export (the Transformer slice) -----------------------------------
+
+def _tiny_transformer(dev, dtype=torch.float32, **kw):
+    from paddle_tpu_torch.models.transformer import (Transformer,
+                                                     TransformerConfig)
+    cfg = TransformerConfig.tiny(dropout=0.0, attn_dropout=0.0, d_model=128,
+                                 num_heads=2, ffn_size=256, vocab_size=96,
+                                 max_len=64, **kw)
+    return Transformer(cfg, device=dev, dtype=dtype, seed=4)
+
+
+def _packed_epoch(n_pairs=90, rows=4, length=64, seed=3):
+    from paddle_tpu_torch.data import packing
+    rng = np.random.default_rng(seed)
+    srcs = [rng.integers(3, 96, int(rng.integers(4, 40))).astype(np.int32)
+            for _ in range(n_pairs)]
+    tins = [np.concatenate([[0], s]).astype(np.int32) for s in srcs]
+    touts = [np.concatenate([s, [1]]).astype(np.int32) for s in srcs]
+    return list(packing.packed_batches(srcs, tins, rows_per_batch=rows,
+                                       src_len=length, tgt_len=length,
+                                       tgt_extras={"tgt_out": touts}))
+
+
+_PACKED = ("src", "src_seg", "src_pos", "tgt", "tgt_out", "tgt_seg",
+           "tgt_pos")
+
+
+def test_device_loader_stages_batches_beside_a_captured_train_step(dev):
+    """The packed Transformer trains from ``DeviceLoader`` through one
+    captured graph: every staged batch equals its host batch, the pinned
+    ring was allocated once, before the capture, and the step graph
+    launches K5/K6a/K6b once per attention (6 each a step) with the
+    segment biases."""
+    from paddle_tpu_torch.data.native_feed import DeviceLoader
+    from paddle_tpu_torch.observability import recompile
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.train import build_train_step, make_train_state
+    epoch = _packed_epoch()
+    model = _tiny_transformer(dev)
+    state = make_train_state(model, Adam(model.parameters(), 1e-3))
+    step = build_train_step(
+        lambda m, **b: m.loss_packed(*(b[k] for k in _PACKED)),
+        state["opt"])
+    captures0 = recompile.capture_count()
+    loader = DeviceLoader(iter(epoch * 2), buffer_size=2, device=dev)
+    counts = []
+    for i, batch in enumerate(loader):
+        for k in _PACKED:
+            assert np.array_equal(batch[k].cpu().numpy(),
+                                  epoch[i % len(epoch)][k])
+        before = _flash_counts()
+        step(state, **batch)
+        counts.append([a - b for a, b in zip(_flash_counts(), before)])
+    torch.cuda.synchronize()
+    assert step.builds == 1
+    allocs = loader.stats()["pinned_allocations"]
+    assert len(allocs) == 1 and allocs[0]["captures_before"] == captures0
+    assert allocs[0]["thread"] == "MainThread"
+    assert all(c == [6, 6, 6] for c in counts), counts
+
+
+def test_flash_forward_is_the_registered_op(dev):
+    """``torch.ops.ptt.flash_fwd`` launches K5 (one count) and equals the
+    wrapper bit for bit, with a full segment bias broadcast over heads;
+    its fake gives the same shapes and dtypes."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from paddle_tpu_torch.ops.sequence import make_segment_attention_bias
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, 4, 96, 64)).astype(
+        np.float32)).to(dev, torch.bfloat16) for _ in range(3))
+    seg = torch.from_numpy(np.repeat(np.arange(4), 24)[None].repeat(2, 0)
+                           ).to(dev)
+    bias = make_segment_attention_bias(seg)
+    before = FA.FWD.launches
+    out, lse = torch.ops.ptt.flash_fwd(q, k, v, bias, False, None)
+    assert FA.FWD.launches == before + 1
+    want, want_lse = FA.flash_fwd_cuda(q, k, v, bias)
+    assert torch.equal(out, want) and torch.equal(lse, want_lse)
+    with FakeTensorMode() as mode:
+        fq = mode.from_tensor(q)
+        fb = mode.from_tensor(bias)
+        fo, fl = torch.ops.ptt.flash_fwd(fq, fq, fq, fb, True, 0.5)
+    assert fo.shape == q.shape and fo.dtype == q.dtype
+    assert fl.shape == q.shape[:3] and fl.dtype == torch.float32
+
+
+def test_full_bias_backward_takes_the_kernels(dev):
+    """A segment bias that needs no gradient runs K6a/K6b (not the
+    composed recompute) and matches the plain versions; fully masked
+    cross rows are 0 with a 0 dq."""
+    from paddle_tpu_torch.ops.sequence import make_segment_attention_bias
+    rng = np.random.default_rng(1)
+    tseg = torch.from_numpy(np.array([[1] * 40 + [2] * 40 + [0] * 16,
+                                      [1] * 96])).to(dev)
+    sseg = torch.from_numpy(np.array([[1] * 50 + [2] * 46,
+                                      [1] * 60 + [0] * 36])).to(dev)
+    bias = make_segment_attention_bias(tseg, sseg)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((2, 2, 96, 64))
+                                    .astype(np.float32)).to(dev)
+                   for _ in range(4))
+    res = []
+    for impl in ("flash", "plain"):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        before = _flash_counts()
+        out = FA.dot_product_attention(*leaves, bias=bias, impl=impl)
+        grads = torch.autograd.grad(out, leaves, do)
+        torch.cuda.synchronize()
+        assert [a - b for a, b in zip(_flash_counts(), before)] == (
+            [1, 1, 1] if impl == "flash" else [0, 0, 0])
+        res.append((out, *grads))
+    dead = (tseg == 0)[:, None, :, None].expand_as(q)
+    assert torch.all(res[0][0][dead] == 0) and torch.all(res[0][1][dead] == 0)
+    for got, want in zip(*res):
+        torch.testing.assert_close(got, want, atol=5e-5, rtol=5e-5)
+
+
+def test_predictor_on_the_card_launches_k5(dev, tmp_path):
+    """A bf16 tiny Transformer exported on the card: the loaded program
+    records and launches K5 (6 a call: 2 encoder, 2 decoder, 2 cross),
+    and its logits equal the eager model's bit for bit; int8 weights stay
+    near them."""
+    from paddle_tpu_torch.inference import (load_inference_model,
+                                            save_inference_model)
+    model = _tiny_transformer(dev, torch.bfloat16).eval()
+    rng = np.random.default_rng(2)
+    src = rng.integers(3, 96, (3, 40)).astype(np.int32)
+    src[0, 30:] = 2
+    tgt = rng.integers(3, 96, (3, 40)).astype(np.int32)
+    ex = (torch.from_numpy(src).to(dev), torch.from_numpy(tgt).to(dev))
+    prog = save_inference_model(str(tmp_path / "m"), model, ex)
+    assert [n.target for n in prog.graph.nodes].count(
+        torch.ops.ptt.flash_fwd.default) == 6
+    pred = load_inference_model(str(tmp_path / "m"))
+    assert pred.meta["device"] == "cuda:0"
+    before = FA.FWD.launches
+    got = pred.run(src, tgt)
+    torch.cuda.synchronize()
+    assert FA.FWD.launches - before == 6
+    with torch.no_grad():
+        assert torch.equal(got, model(*ex))
+    save_inference_model(str(tmp_path / "q"), model, ex,
+                         weight_quantize="int8")
+    q8 = load_inference_model(str(tmp_path / "q")).run(*ex)
+    assert float((q8.float() - got.float()).abs().max()) < \
+        0.25 * float(got.float().std())

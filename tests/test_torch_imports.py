@@ -56,6 +56,9 @@ def test_importing_the_port_loads_no_jax():
             "import paddle_tpu_torch.models, paddle_tpu_torch.kernels\n"
             "import paddle_tpu_torch.train, paddle_tpu_torch.trainer\n"
             "import paddle_tpu_torch.optimizer, paddle_tpu_torch.models.bert\n"
+            "import paddle_tpu_torch.data, paddle_tpu_torch.data.native_feed\n"
+            "import paddle_tpu_torch.models.transformer, paddle_tpu_torch.slim\n"
+            "import paddle_tpu_torch.ops.sequence, paddle_tpu_torch.fs\n"
             "from paddle_tpu_torch.kernels import registry\n"
             "assert registry.load_all()\n"
             "bad = sorted(m for m in sys.modules\n"
@@ -98,7 +101,22 @@ def test_the_parallel_layer_imports_with_jax_blocked():
 
 #: the port's native libraries and the sources each builds from
 NATIVE_LIBS = {"kvstore": ["kv_store.cc"],
-               "kvserver": ["kv_server.cc", "kv_store.cc"]}
+               "kvserver": ["kv_server.cc", "kv_store.cc"],
+               "datafeed": ["data_feed.cc"]}
+#: the Python modules that load them
+NATIVE_CALLERS = ("parallel/host_kv.py", "parallel/kv_server.py",
+                  "data/native_feed.py")
+
+
+@pytest.mark.parametrize("source", sorted({s for srcs in NATIVE_LIBS.values()
+                                            for s in srcs}))
+def test_native_sources_are_the_references_byte_for_byte(source):
+    """The port keeps its own copy of each native source, the same bytes
+    as the reference's (so both packages compute the same rows, batches
+    and shuffles from the same inputs)."""
+    own = ROOT / "paddle_tpu_torch" / "native" / source
+    ref = ROOT / "paddle_tpu" / "native" / source
+    assert own.read_bytes() == ref.read_bytes()
 
 
 def test_the_native_build_reads_only_the_ports_own_sources():
@@ -117,7 +135,7 @@ def test_the_native_build_reads_only_the_ports_own_sources():
         lib = native.library_path(name, sources)
         assert lib.resolve().is_relative_to((ROOT / "build").resolve())
     assert "build/" in (ROOT / ".gitignore").read_text().split()
-    callers = ("parallel/host_kv.py", "parallel/kv_server.py")
+    callers = NATIVE_CALLERS
     for rel in callers:
         text = (ROOT / "paddle_tpu_torch" / rel).read_text()
         assert "native.load_library(" in text
@@ -147,6 +165,36 @@ def test_the_sparse_world_imports_with_jax_blocked():
             "assert r.pull([1, 2]).shape == (2, 3)\n"
             "r.close(); s.stop()\n"
             "host_kv.HostKVStore(3).close()\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+def test_the_data_and_export_slice_imports_with_jax_blocked():
+    """The data path (the MultiSlot feed builds its library), the
+    Transformer, the sequence ops, slim and the export half import and
+    run a step with ``jax`` and ``paddle_tpu`` made unimportable."""
+    code = ("import sys, tempfile, os\n"
+            "for m in ('jax', 'jaxlib', 'paddle_tpu', 'ml_dtypes'):\n"
+            "    sys.modules[m] = None\n"
+            "import torch\n"
+            "from paddle_tpu_torch.data import datasets, packing, reader\n"
+            "from paddle_tpu_torch.data.native_feed import "
+            "MultiSlotDataset, DeviceLoader\n"
+            "from paddle_tpu_torch.models.transformer import "
+            "Transformer, TransformerConfig\n"
+            "from paddle_tpu_torch.ops import sequence\n"
+            "from paddle_tpu_torch import slim, fs\n"
+            "from paddle_tpu_torch.inference import Predictor, "
+            "save_inference_model, fold_batch_norms\n"
+            "d = tempfile.mkdtemp()\n"
+            "p = os.path.join(d, 'a.txt')\n"
+            "open(p, 'w').write('2 5 6 1 7\\n')\n"
+            "ds = MultiSlotDataset([('a', 'int64'), ('b', 'int64')])\n"
+            "ds.set_filelist([p]); assert ds.load_into_memory(1) == 1\n"
+            "m = Transformer(TransformerConfig.tiny(), device='cpu')\n"
+            "ids = torch.full((1, 4), 5, dtype=torch.int32)\n"
+            "assert m(ids, ids).shape == (1, 4, 64)\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr

@@ -2,7 +2,9 @@
 cases they run.
 
 ``TpPool(n)`` spawns ``n`` processes once (a test module's fixture), each
-joining one gloo process group over ``tcp://127.0.0.1``; ``pool.run(case,
+joining one gloo process group through a TCP store the parent holds on
+``127.0.0.1`` (bound to a port the kernel picks, so pools started at once
+by parallel test workers never race for a port); ``pool.run(case,
 timeout_s, **kw)`` runs ``case(rank, n, **kw)`` (a function of this
 module) on every rank at once and returns the ranks' results. Each run
 has its own timeout; a rank's traceback or a timeout fails the run and
@@ -15,7 +17,6 @@ The serving cases build the same engine on every rank; rank 0 drives it
 
 import datetime
 import multiprocessing as mp
-import socket
 import time
 import traceback
 
@@ -26,21 +27,15 @@ import numpy as np
 GROUP_TIMEOUT_S = 60
 
 
-def _free_port() -> int:
-    s = socket.socket()
-    s.bind(("127.0.0.1", 0))
-    port = s.getsockname()[1]
-    s.close()
-    return port
-
-
 def _worker(rank, n, port, conn):
     import torch
     import torch.distributed as dist
     torch.set_num_threads(1)
-    dist.init_process_group(
-        "gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
-        world_size=n, timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))
+    timeout = datetime.timedelta(seconds=GROUP_TIMEOUT_S)
+    store = dist.TCPStore("127.0.0.1", port, is_master=False,
+                          timeout=timeout)
+    dist.init_process_group("gloo", store=store, rank=rank, world_size=n,
+                            timeout=timeout)
     while True:
         msg = conn.recv()
         if msg is None:
@@ -63,10 +58,19 @@ class TpPool:
         self._procs = []
         self._conns = []
         self._broken = False
+        self._store = None
 
     def _start(self):
+        import torch.distributed as dist
         ctx = mp.get_context("spawn")
-        port = _free_port()
+        # the group's store lives here, on a port bound at once (port 0):
+        # a port picked free and closed again could be taken by another
+        # process before rank 0 listened on it
+        self._store = dist.TCPStore(
+            "127.0.0.1", 0, world_size=self.n + 1, is_master=True,
+            timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S),
+            wait_for_workers=False)
+        port = self._store.port
         for r in range(self.n):
             parent, child = ctx.Pipe()
             p = ctx.Process(target=_worker, args=(r, self.n, port, child),
@@ -124,6 +128,7 @@ class TpPool:
                 p.kill()
                 p.join(5)
         self._procs, self._conns, self._broken = [], [], False
+        self._store = None
 
 
 # ---------------------------------------------------------------------------
@@ -1208,3 +1213,15 @@ def geo_sgd(rank, n, stacked, anchor, mask=None):
         mesh=_mesh(n, dp=n))
     return (comm._tree_map(lambda t: t.numpy(), new_local),
             comm._tree_map(lambda t: t.numpy(), new_anchor))
+
+
+def feed_rows(rank, n, samples, names, replicated, sizes, batch_size):
+    """``data.feeder.device_iterator`` over a mesh of ``sizes``: this
+    rank's batches as numpy."""
+    from paddle_tpu_torch.data import reader
+    from paddle_tpu_torch.data.feeder import device_iterator
+    mesh = _mesh(n, **sizes)
+    batches = reader.batch(lambda: iter(samples), batch_size)
+    return [{k: v.numpy() for k, v in b.items()}
+            for b in device_iterator(batches, names, mesh=mesh,
+                                     replicated=replicated)]
