@@ -30,6 +30,10 @@ checkout, so that each builds and imports its own ``paddle_tpu_torch``:
   one tree does not report (the graphs' counts in a tree without graphs,
   the migration, tier and fleet numbers in a tree without them) reads
   None and gets no ratio;
+- ``parallel``: phase 8, training across ranks (``parallel_train``,
+  phase 9's pipeline legs riding its pp=2 group): the seconds of the
+  phase and of each of its legs (its ``seconds``), so that two depths
+  of its models are timed on one machine;
 - ``kernels``: the bf16 rows of K1 at the serving shape and at the long,
   few-slot shape, of K2, K3 and K4 at the serving shape, of K3 and K4 at
   the speculative verify chunk, and of K6b at the training shape, from
@@ -184,6 +188,8 @@ if "serve" in phases:
     out["4k"] = {{k: stats.get(k) for k in {FLEET_KEYS!r}}}
     stats = {{}} if nt is None else nt(dev)
     out["4l"] = {{k: stats.get(k) for k in {NET_KEYS!r}}}
+if "parallel" in phases:
+    out["8"] = cs.parallel_train(dev)["seconds"]
 if "train" in phases:
     stats = cs.train_bf16(dev)
     out["5"] = {{k: stats.get(k) for k in {TRAIN_KEYS!r}}}

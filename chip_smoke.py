@@ -7,7 +7,8 @@ Phases, in order; any failure exits non-zero:
 
 1. device  — require CUDA; print the card's name and power limit.
 2. build   — compile every ``paddle_tpu_torch/csrc/*.cu`` with nvcc
-   (sm_90a), one process per source, all started together; print the
+   (sm_90a), one process per source, all started together, and beside
+   them the native runner of phase 12 with g++; print the
    ptxas line (registers, spills) of each of the 34 tensor-core
    instances, the 18 bf16 instances of K5, K6a and K6b and the 16 paged
    prefill instances (bf16 q over bf16 pages, K3, and over int8 pages,
@@ -327,18 +328,51 @@ Phases, in order; any failure exits non-zero:
        K5 launches a call (passed back on stdout); the artifact's bytes;
        with ``weight_quantize="int8"`` its bytes and the logits' max error
        against bf16 (within ``TF_INT8_TOL`` of their std).
+12. native serving and beam search (runs after 11, on its trained
+   model; TF32 off; the C++ runner is built by g++ against libtorch
+   beside phase 2's nvcc builds):
+   (a) the bf16 model's teacher-forced forward on (d)'s 16 x 256 batch
+       frozen with ``save_inference_model(freeze_native=True)``
+       (AOTInductor), then with ``weight_quantize="int8"``: compile
+       seconds, package bytes beside ``__model__.pt2``'s, the int8
+       package at most ``NATIVE_INT8_BYTES`` of the bf16 one;
+   (b) each package served by ``NativePredictor`` from a runner process
+       with no Python in it: logits against the eager bf16 model within
+       ``NATIVE_TOL`` of their std (int8 ``TF_INT8_TOL``), 18 K5
+       launches a call from the C++ counter, 10 repeated calls bit for
+       bit, the median of 20 calls (and the runner's own device and
+       copy-out ms) beside the Python ``Predictor``'s on the same
+       program and inputs; the fp32 2 + 2 model of 11 (c) frozen and
+       served within ``NATIVE_FP32_TOL`` of its eager logits;
+   (c) K5 through the runner's C++ registration of ``ptt::flash_fwd``
+       against K5 through the Python op, bit for bit, at 3b's packed
+       case (16, 16, 256, 64) with its segment bias and the training
+       case (48, 12, 512, 64) with a key bias, and within the entry's
+       tolerance of the plain version; its time back to back in the
+       runner beside the plain version's, SDPA's and the bound;
+   (d) ``beam_search_decode(beam_size=4)`` on 16 source rows to 64
+       tokens: bf16 tokens/s and K5 launches (6 a call, the encoder);
+       the fp32 2 + 2 model through the kernels and the plain versions
+       (identical ids, scores within 1e-5); beam 1 equal to greedy;
+   (e) every op of the dense op library (``ops/samples.py``) on the
+       card in fp32 against its numpy reference (or the op on the CPU
+       where the reference has none), the random ops by their
+       distributions: 0 failures.
 7. output  — one ``{"kernels": [...]}`` line (each kernel with its
    tunables' candidates and the configuration the committed cache chose
    at each shape, ``blocks``; the ring's entry over K5/K6 with its calls
    on (b)'s main path; K5/K6a/K6b with their launches on each stage
-   rank of 9 (b), ``launches_pipeline_ranks``, and over 11 (b)'s timed
-   steps, ``launches_transformer``), the nvidia-smi line, and
-   the final ``{"ok": true, "device": {...}}`` line.
+   rank of 9 (b), ``launches_pipeline_ranks``, over 11 (b)'s timed
+   steps, ``launches_transformer``, and K5's in 12 (d),
+   ``launches_beam_search``; K5's C++ binding with its launches over 12
+   (b)'s timed bf16 calls), the nvidia-smi line, and the final
+   ``{"ok": true, "device": {...}}`` line.
 """
 
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import copy
 import dataclasses
 import functools
@@ -5432,6 +5466,19 @@ print(json.dumps({"k5_launches_per_call": FA.FWD.launches - before,
 """
 
 
+def tf_export_batch(cfg, epoch):
+    """(src, tgt) int32 (TF_ROWS, TF_LEN): a teacher-forced batch with key
+    padding, the first pair of each packed row of the first batch."""
+    first = epoch[0]
+    src = np.full((TF_ROWS, TF_LEN), cfg.pad_id, np.int32)
+    tgt = np.full((TF_ROWS, TF_LEN), cfg.pad_id, np.int32)
+    for r in range(TF_ROWS):
+        for arr, key in ((src, "src"), (tgt, "tgt")):
+            row = first[key][r][first[f"{key}_seg"][r] == 1]
+            arr[r, :len(row)] = row
+    return src, tgt
+
+
 def tf_export(device, model, epoch):
     """(d): the trained model's teacher-forced forward in bf16 exported
     with ``save_inference_model``, run by a ``Predictor`` in a fresh
@@ -5445,16 +5492,8 @@ def tf_export(device, model, epoch):
     shutil.rmtree(d, ignore_errors=True)
     b16 = copy.deepcopy(model).to(torch.bfloat16).eval()
     cfg = b16.cfg
-    first = epoch[0]
-    # a teacher-forced batch with key padding: the first pair of each row
-    src = np.full((TF_ROWS, TF_LEN), cfg.pad_id, np.int32)
-    tgt = np.full((TF_ROWS, TF_LEN), cfg.pad_id, np.int32)
-    for r in range(TF_ROWS):
-        for arr, key in ((src, "src"), (tgt, "tgt")):
-            row = first[key][r][first[f"{key}_seg"][r] == 1]
-            arr[r, :len(row)] = row
-    inputs = (torch.from_numpy(src).to(device),
-              torch.from_numpy(tgt).to(device))
+    inputs = tuple(torch.from_numpy(a).to(device)
+                   for a in tf_export_batch(cfg, epoch))
     t0 = time.monotonic()
     save_inference_model(str(d / "bf16"), b16, inputs,
                          input_names=["src_ids", "tgt_ids"])
@@ -5520,14 +5559,14 @@ def tf_export(device, model, epoch):
 
 def transformer_slice(device):
     """Phase 11: (a) feed, (b) packed training, (c) fp32 parity, (d)
-    export."""
+    export. Returns (stats, the trained model, the epoch's batches) for
+    phase 12."""
     t_phase = time.monotonic()
     shutil.rmtree(TF_DIR, ignore_errors=True)
     cfg = _tf_config()
     paths = write_multislot(TF_DIR / "wmt", tf_pairs(cfg.vocab_size))
     stats, model, epoch = tf_feed_and_train(device, paths)
     export = tf_export(device, model, epoch)
-    del model
     gc.collect()
     torch.cuda.empty_cache()
     # the first packed batch's pairs, for the padded baseline of (c)
@@ -5543,7 +5582,307 @@ def transformer_slice(device):
     parity = tf_fp32_parity(device, epoch, (pairs, in_first))
     stats.update(export=export, parity=parity,
                  phase_s=time.monotonic() - t_phase)
+    return stats, model, epoch
+
+
+# -- phase 12: native serving, beam search, the op library --------------------
+
+#: frozen bf16 logits against the eager model: max |diff| over their std
+NATIVE_TOL = 0.05
+#: the fp32 2 + 2 model's frozen logits: max |diff| over max |logit|
+NATIVE_FP32_TOL = 1e-4
+#: the int8 package's bytes over the bf16 package's, at most
+NATIVE_INT8_BYTES = 0.55
+#: timed calls (medians), then repeated calls that must match bit for bit
+NATIVE_CALLS, NATIVE_REPEATS = 20, 10
+#: beam search: beams, source rows, max_len
+BEAM_K, BEAM_ROWS, BEAM_LEN = 4, 16, 64
+#: (c): K5 through the C++ registration at phase 11's packed shape with
+#: its segment bias and at the training shape with a key bias
+NATIVE_K5_CASES = ("packed", "train")
+#: launches timed back to back in the runner for (c)'s ms
+NATIVE_K5_REPS = 50
+
+
+def _native_serve(path, src, tgt, calls, repeats):
+    """``calls`` timed calls of a NativePredictor on ``path`` (after two
+    warm-up calls), then one more and ``repeats`` after it that must equal
+    it bit for bit. Returns (its logits, stats): K5 launches a call from the
+    runner's counter (each call's), per-call ms (median), the runner's
+    own device and copy-out ms (medians), start-up s."""
+    from paddle_tpu_torch.native.runner import NativePredictor
+    t0 = time.monotonic()
+    pred = NativePredictor(str(path))
+    start_s = time.monotonic() - t0
+    try:
+        pred.run(src, tgt)
+        pred.run(src, tgt)
+        before = pred.last_call["k5_launches_total"]
+        lat, dev_ms, copy_ms, per_call = [], [], [], []
+        for _ in range(calls):
+            t1 = time.perf_counter()
+            pred.run(src, tgt)
+            lat.append((time.perf_counter() - t1) * 1e3)
+            now = pred.last_call["k5_launches_total"]
+            per_call.append(now - before)
+            before = now
+            dev_ms.append(pred.last_call["device_us"] / 1e3)
+            copy_ms.append(pred.last_call["copy_us"] / 1e3)
+        first = pred.run(src, tgt)[0]
+        bitwise = all(np.array_equal(pred.run(src, tgt)[0], first)
+                      for _ in range(repeats))
+    finally:
+        pred.close()
+    return first, {"start_s": start_s, "ms": float(np.median(lat)),
+                   "device_ms": float(np.median(dev_ms)),
+                   "copy_ms": float(np.median(copy_ms)),
+                   "k5_per_call": sorted(set(per_call)),
+                   "k5_launches": sum(per_call),
+                   "repeats_bitwise": bitwise}
+
+
+def _freeze(path, model, inputs, **kw):
+    """save_inference_model(freeze_native=True): (seconds, package bytes,
+    __model__.pt2 bytes)."""
+    from paddle_tpu_torch.inference import save_inference_model
+    from paddle_tpu_torch.native.runner import FROZEN_FILE
+    t0 = time.monotonic()
+    save_inference_model(str(path), model, inputs,
+                         input_names=["src_ids", "tgt_ids"],
+                         freeze_native=True, **kw)
+    return (time.monotonic() - t0, (path / FROZEN_FILE).stat().st_size,
+            (path / "__model__.pt2").stat().st_size)
+
+
+def native_freeze_and_serve(device, model, epoch):
+    """(a) the trained Transformer-big frozen in bf16 and with int8
+    weights; (b) both served by the C++ runner against the eager model,
+    K5 counted in C++, repeats bitwise, latency beside the Python
+    Predictor's; the fp32 2 + 2 model frozen and served within
+    ``NATIVE_FP32_TOL``."""
+    from paddle_tpu_torch.inference import Predictor
+    d = TF_DIR / "native"
+    shutil.rmtree(d, ignore_errors=True)
+    b16 = copy.deepcopy(model).to(torch.bfloat16).eval()
+    cfg = b16.cfg
+    src, tgt = tf_export_batch(cfg, epoch)
+    inputs = (torch.from_numpy(src).to(device), torch.from_numpy(tgt).to(device))
+    with torch.no_grad():
+        eager = b16(*inputs).float().cpu().numpy()
+    std = float(eager.std())
+    want_k5 = cfg.num_encoder_layers + 2 * cfg.num_decoder_layers
+    out = {}
+    for name, kw in (("bf16", {}), ("int8", {"weight_quantize": "int8"})):
+        secs, nbytes, pt2 = _freeze(d / name, b16, inputs, **kw)
+        logits, st = _native_serve(d / name, src, tgt, NATIVE_CALLS,
+                                   NATIVE_REPEATS)
+        err = float(np.abs(logits - eager).max())
+        out[name] = {"freeze_s": secs, "package_bytes": nbytes,
+                     "pt2_bytes": pt2, **st, "max_abs_err": err,
+                     "err_over_std": err / std}
+        log(f"  12 (a)/(b) {name}: " + json.dumps(out[name]))
+        if st["k5_per_call"] != [want_k5] or not st["repeats_bitwise"]:
+            raise AssertionError(f"native {name}: K5 a call "
+                                 f"{st['k5_per_call']} (expected {want_k5}),"
+                                 f" repeats bitwise {st['repeats_bitwise']}")
+        tol = NATIVE_TOL if name == "bf16" else TF_INT8_TOL
+        if not np.isfinite(logits).all() or err > tol * std:
+            raise AssertionError(f"native {name} logits off by {err:.3e} "
+                                 f"({err / std:.4f} of the std {std:.3e}; "
+                                 f"tolerance {tol})")
+    ratio = out["int8"]["package_bytes"] / out["bf16"]["package_bytes"]
+    if ratio > NATIVE_INT8_BYTES:
+        raise AssertionError(f"int8 package {ratio:.3f} of the bf16 one")
+    # the Python Predictor on the same program and inputs
+    pred = Predictor(str(d / "bf16"))
+    lat, lat_host = [], []
+    for i in range(NATIVE_CALLS + 2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = pred.run(*inputs)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        res.float().cpu().numpy()
+        t2 = time.perf_counter()
+        if i >= 2:
+            lat.append((t1 - t0) * 1e3)
+            lat_host.append((t2 - t0) * 1e3)
+    del pred, res
+    py = {"ms": float(np.median(lat)), "host_ms": float(np.median(lat_host))}
+    # the fp32 2 + 2 model of phase 11 (c), TF32 off
+    m32 = _tf_fp32(device, "auto").eval()
+    with torch.no_grad():
+        e32 = m32(*inputs).cpu().numpy()
+    secs, nbytes, _ = _freeze(d / "fp32", m32, inputs)
+    l32, st32 = _native_serve(d / "fp32", src, tgt, 2, 2)
+    rel = float(np.abs(l32 - e32).max() / np.abs(e32).max())
+    fp32 = {"freeze_s": secs, "package_bytes": nbytes, "rel_err": rel,
+            "k5_per_call": st32["k5_per_call"],
+            "repeats_bitwise": st32["repeats_bitwise"]}
+    log("  12 (b) fp32 2 + 2: " + json.dumps(fp32))
+    if rel > NATIVE_FP32_TOL or st32["k5_per_call"] != [6]:
+        raise AssertionError(f"native fp32: rel {rel:.3e}, K5 a call "
+                             f"{st32['k5_per_call']}")
+    del b16, m32
+    shutil.rmtree(d, ignore_errors=True)
+    torch.cuda.empty_cache()
+    summary = {"int8_vs_bf16_bytes": ratio, "python_predictor": py,
+               "native_vs_python_ms": out["bf16"]["ms"] / py["host_ms"],
+               "native_device_vs_python_ms": out["bf16"]["device_ms"]
+               / py["ms"]}
+    log("  12 (b) latency: " + json.dumps(summary))
+    return {"bf16": out["bf16"], "int8": out["int8"], "fp32": fp32,
+            **summary}
+
+
+def native_k5(device, flush):
+    """(c) K5 through the runner's C++ registration against K5 through the
+    Python op, bit for bit, on the same inputs at phase 11's packed shape
+    (segment bias) and the training shape (key bias), and against the
+    plain version within the entry's tolerance. The packed case's row for
+    the ``kernels`` line: the C++ binding's ms (back to back in the
+    runner), the plain version's, SDPA's, the bound."""
+    from paddle_tpu_torch.native.runner import flash_fwd_files
+    from paddle_tpu_torch.ops import attention as FA
+    rows = {}
+    for case in FLASH_CASES:
+        name, shape, causal, lengths = case
+        if name not in NATIVE_K5_CASES:
+            continue
+        q, k, v, bias, _ = flash_inputs(shape, lengths, device)
+        q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+        out, lse = FA.flash_fwd_cuda(q, k, v, bias, causal=causal)
+        got = flash_fwd_files(q, k, v, bias, causal=causal,
+                              device=str(device), workdir=str(TF_DIR),
+                              reps=NATIVE_K5_REPS)
+        if not (torch.equal(got["out"], out.cpu())
+                and torch.equal(got["lse"], lse.cpu())):
+            raise AssertionError(f"K5 in C++ [{name}] differs from K5 in "
+                                 "Python")
+        q32, k32, v32 = (t.float() for t in (q, k, v))
+        p_out, p_lse = FA.flash_fwd_plain(q32, k32, v32, bias, causal=causal)
+        alive = p_lse > FA.NEG_INF / 2
+        err = max(_err(got["out"].to(device), p_out,
+                       FA.FWD.tolerance[torch.bfloat16], f"C++ K5[{name}]"),
+                  _err(got["lse"].to(device)[alive], p_lse[alive],
+                       FA.FWD.tolerance[torch.float32],
+                       f"C++ K5[{name}] lse"))
+        nbytes, flops = FA.FWD.work(q, k, v, bias, causal=causal)
+        bound, by = _bound(nbytes, flops, torch.bfloat16)
+        rows[name] = {"bitwise_vs_python": True, "max_abs_err": err,
+                      "ms": got["ms"],
+                      **_timed(lambda: FA.flash_fwd_plain(
+                          q32, k32, v32, bias, causal=causal), flush, 5,
+                          "plain_"),
+                      **_timed(_library_fwd(q, k, v, bias, causal), flush, 20,
+                               "library_"),
+                      "bound_ms": bound, "bound_by": by,
+                      "runner_launches": got["launches"]}
+        log(f"  12 (c) K5 C++ vs Python [{name}] {tuple(shape)}: "
+            + json.dumps(rows[name]))
+    return rows
+
+
+def native_beam_search(device, model, epoch):
+    """(d) ``beam_search_decode(beam_size=4)`` on 16 source rows, max_len
+    64: the trained model in bf16 (tokens/s, K5 launches: 6 a call, the
+    encoder); the fp32 2 + 2 model through the kernels and through the
+    plain versions (identical ids, scores within 1e-5); beam 1 against
+    greedy decoding."""
+    from paddle_tpu_torch.ops import attention as FA
+    b16 = copy.deepcopy(model).to(torch.bfloat16).eval()
+    src, _ = tf_export_batch(b16.cfg, epoch)
+    src = torch.from_numpy(src[:BEAM_ROWS]).to(device)
+    b16.beam_search_decode(src, beam_size=BEAM_K, max_len=BEAM_LEN)
+    torch.cuda.synchronize()
+    before = FA.FWD.launches
+    t0 = time.perf_counter()
+    ids, scores = b16.beam_search_decode(src, beam_size=BEAM_K,
+                                         max_len=BEAM_LEN)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    k5 = FA.FWD.launches - before
+    steps = BEAM_LEN - 1
+    out = {"s": secs, "k5_launches": k5,
+           "tokens_per_s": BEAM_ROWS * steps / secs,
+           "beam_tokens_per_s": BEAM_ROWS * BEAM_K * steps / secs,
+           "ms_per_step": secs / steps * 1e3}
+    if k5 != b16.cfg.num_encoder_layers or not torch.isfinite(scores).all() \
+            or tuple(ids.shape) != (BEAM_ROWS, BEAM_LEN):
+        raise AssertionError(f"bf16 beam search: K5 {k5}, ids "
+                             f"{tuple(ids.shape)}, scores finite "
+                             f"{bool(torch.isfinite(scores).all())}")
+    del b16
+    m_k = _tf_fp32(device, "auto").eval()
+    m_p = _tf_fp32(device, "plain").eval()
+    ik, sk = m_k.beam_search_decode(src, beam_size=BEAM_K, max_len=BEAM_LEN)
+    ip, sp = m_p.beam_search_decode(src, beam_size=BEAM_K, max_len=BEAM_LEN)
+    one, _ = m_k.beam_search_decode(src, beam_size=1, max_len=BEAM_LEN)
+    greedy = m_k.greedy_decode(src, max_len=BEAM_LEN)
+    out.update(fp32_ids_equal=bool(torch.equal(ik, ip)),
+               fp32_scores_max_abs_err=float((sk - sp).abs().max()),
+               beam1_equals_greedy=bool(torch.equal(one, greedy)))
+    log("  12 (d) beam search: " + json.dumps(out))
+    if not (out["fp32_ids_equal"] and out["beam1_equals_greedy"]) or \
+            out["fp32_scores_max_abs_err"] > 1e-5:
+        raise AssertionError(f"fp32 beam search: {out}")
+    del m_k, m_p
+    torch.cuda.empty_cache()
+    return out
+
+
+def op_battery(device):
+    """(e) every op of the dense op library on the card in fp32 against
+    its numpy reference (or the op on the CPU where the reference has
+    none), the random ops by their distributions; 0 failures."""
+    from paddle_tpu_torch.ops import samples
+    res = samples.run_battery(device)
+    log("  12 (e) op battery: " + json.dumps(res))
+    if res["failures"]:
+        raise AssertionError(f"op battery failures: {res['failures']}")
+    return res
+
+
+def native_slice(device, model, epoch):
+    """Phase 12: (a)/(b) freeze and serve from C++, (c) K5's C++
+    registration, (d) beam search, (e) the op battery. TF32 off."""
+    t_phase = time.monotonic()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = model.eval()
+    stats = {"serve": native_freeze_and_serve(device, model, epoch)}
+    flush = L2Flush(device)
+    stats["k5"] = native_k5(device, flush)
+    del flush
+    stats["beam"] = native_beam_search(device, model, epoch)
+    stats["battery"] = op_battery(device)
+    stats["phase_s"] = time.monotonic() - t_phase
     return stats
+
+
+def native_k5_line(stats):
+    """The ``kernels`` line's entry of K5 through the runner's C++
+    registration: the same compiled kernel as K5's entry, launched from
+    ``ptt_ops.cc``. ``launches`` is the runner's C++ count over (b)'s
+    timed bf16 calls (18 a call); the times are (c)'s packed case in
+    bf16: ``ms`` back to back in the runner (host clock, L2 warm), the
+    plain version's and SDPA's with CUDA events."""
+    from paddle_tpu_torch.ops import attention as FA
+    r = stats["k5"]["packed"]
+    keys = ("max_abs_err", "ms", "plain_ms", "plain_device_ms", "bound_ms",
+            "bound_by", "library_ms", "library_device_ms")
+    return {"name": FA.FWD.name + "_native", "route": "cuda",
+            "source": FA.FWD.source,
+            "binding": "paddle_tpu_torch/native/ptt_ops.cc",
+            "replaces": FA.FWD.replaces,
+            "launches": stats["serve"]["bf16"]["k5_launches"],
+            **{k: r.get(k) for k in keys}, "dtype": "bfloat16",
+            "shape": [16, 16, 256, 64],
+            "bitwise_vs_python": {c: v["bitwise_vs_python"]
+                                  for c, v in stats["k5"].items()},
+            "note": "K5's compiled kernel launched by the C++ op "
+                    "ptt::flash_fwd in the native runner; ms is the mean "
+                    "of 50 launches back to back in the runner"}
 
 
 def ring_line(stats):
@@ -5605,6 +5944,13 @@ def kernel_line(entry, rows, launches, case_rows=None):
     return line
 
 
+def _timed_runner_build() -> float:
+    from paddle_tpu_torch.native.runner import build_runner
+    t0 = time.monotonic()
+    build_runner()
+    return time.monotonic() - t0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -5617,8 +5963,12 @@ def main() -> int:
         f"{torch.__version__} cuda {torch.version.cuda}")
 
     t0 = time.monotonic()
+    # the native runner (g++ against libtorch, phase 12) builds beside nvcc
+    runner_build = concurrent.futures.ThreadPoolExecutor(1).submit(
+        _timed_runner_build)
     secs = build.build_all()
-    log(f"[2/7] build: {json.dumps(secs)} in {time.monotonic() - t0:.1f} s")
+    log(f"[2/7] build: {json.dumps(secs)} in {time.monotonic() - t0:.1f} s;"
+        f" the native runner {runner_build.result():.1f} s")
     for stem, text in build.build_logs.items():
         print(f"--- nvcc {stem}.cu ---\n{text}", file=sys.stderr)
     tensor_core_report(build)
@@ -5732,8 +6082,15 @@ def main() -> int:
         "MultiSlot feed, the packer and DeviceLoader, K5/K6a/K6b under "
         "segment biases in one captured graph, fp32 parity, "
         "save_inference_model and a Predictor in a fresh process")
-    tf_stats = transformer_slice(device)
+    tf_stats, tf_model, tf_epoch = transformer_slice(device)
     log(f"  phase 11 took {tf_stats['phase_s']:.1f} s")
+
+    log("[12/12] native serving and beam search: Transformer-big frozen "
+        "by AOTInductor and served from the C++ runner (K5 registered in "
+        "C++), beam search, the dense op library on the card")
+    native = native_slice(device, tf_model, tf_epoch)
+    del tf_model, tf_epoch
+    log(f"  phase 12 took {native['phase_s']:.1f} s")
 
     lines = [kernel_line(e, rows[e.name], stats["launches"][e.name],
                          {**({"long": long_rows} if e is PA.DECODE
@@ -5785,6 +6142,9 @@ def main() -> int:
         if ln["name"] in tf_stats["launches"]:
             ln["launches_transformer"] = tf_stats["launches"][ln["name"]]
     lines.append(ring_line(par_stats))
+    lines.append(native_k5_line(native))
+    # K5 also runs in 12 (d)'s beam search (the encoder, 6 a call)
+    k5_line["launches_beam_search"] = native["beam"]["k5_launches"]
     log(f"[7/7] done in {time.monotonic() - t_start:.1f} s; library_ms of "
         "the two backward rows is one call for the pair: SDPA's whole "
         "backward (dq, dk, dv)")

@@ -1,4 +1,4 @@
-"""Mixed-precision policy (``paddle_tpu/core/dtypes.py``, policy subset).
+"""Mixed-precision policy and dtype names (``paddle_tpu/core/dtypes.py``).
 
 A :class:`Policy` names where each dtype is used: parameters stay fp32
 (the master weights), compute runs in the policy's ``compute_dtype``,
@@ -49,3 +49,30 @@ def get_policy(name: str) -> Policy:
     if name not in _POLICIES:
         raise ValueError(f"unknown policy {name!r}")
     return _POLICIES[name]
+
+
+#: the reference's dtype names (its ``VarType`` surface)
+_DTYPES = {
+    "bool": torch.bool, "uint8": torch.uint8, "int8": torch.int8,
+    "int16": torch.int16, "int32": torch.int32, "int64": torch.int64,
+    "float16": torch.float16, "bfloat16": torch.bfloat16,
+    "float32": torch.float32, "float64": torch.float64,
+    "complex64": torch.complex64,
+}
+
+
+def convert_dtype(dtype) -> torch.dtype:
+    """A dtype given by name, as a numpy dtype or as a ``torch.dtype`` ->
+    the ``torch.dtype``."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    name = dtype if isinstance(dtype, str) else getattr(
+        dtype, "__name__", None) or str(dtype)
+    name = {"float": "float32", "int": "int64", "bool_": "bool"}.get(
+        name, name)
+    if name not in _DTYPES:
+        import numpy as np
+        name = np.dtype(dtype).name
+    if name not in _DTYPES:
+        raise ValueError(f"unknown dtype {dtype!r}")
+    return _DTYPES[name]

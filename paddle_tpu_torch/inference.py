@@ -20,9 +20,13 @@ jitted forward as StableHLO with ``jax.export``): a directory holds
 A :class:`Predictor` runs the program with no model class: it imports
 this package's attention ops (to register ``ptt::``) and nothing of the
 model. It runs on the device the program was exported for and raises
-elsewhere (a card's program is not moved to the CPU). The C++ runner of
-the reference (``native/pjrt_runner.cc``, ``freeze_native``) is ROADMAP
-Queue 1 item 2's last part: a runner over AOTInductor.
+elsewhere (a card's program is not moved to the CPU).
+
+``freeze_native=True`` adds the frozen package of the reference's C++
+runner (``native/pjrt_runner.cc``): ``__model__frozen__.pt2``, the program
+compiled ahead of time by AOTInductor for its one device, weights
+inside. :class:`paddle_tpu_torch.native.runner.NativePredictor` serves it
+from a C++ process with no Python in it.
 """
 
 from __future__ import annotations
@@ -146,6 +150,8 @@ def make_embedding_serving_engine(store, model=None, **kwargs):
 # ---------------------------------------------------------------------------
 
 _MODEL_FILE = "__model__.pt2"
+#: the AOTInductor package of ``freeze_native=True`` (the native runner's)
+FROZEN_FILE = "__model__frozen__.pt2"
 _META_FILE = "meta.json"
 
 
@@ -232,17 +238,24 @@ def save_inference_model(path: str, model_or_fn, example_inputs:
     plus float32 scales (:mod:`paddle_tpu_torch.slim`, the reference's
     values) and dequantizes them in the graph at each use, so the
     artifact's weights are about 4x smaller than float32 (2x than bf16).
-    ``freeze_native`` (the reference's frozen artifact for its C++ PJRT
-    runner) raises: that runner is ROADMAP Queue 1 item 2's remainder."""
+
+    ``freeze_native=True`` also compiles the program with AOTInductor
+    (``torch._inductor.aoti_compile_and_package``) into
+    ``__model__frozen__.pt2`` for the native runner
+    (:class:`~paddle_tpu_torch.native.runner.NativePredictor`), on the
+    program's one device; the flash attention stays the op
+    ``ptt::flash_fwd``, which the runner registers in C++. int8 weights
+    stay int8 constants in the package (nothing folds ``q * scale``: the
+    weights are the program's constants, not frozen into the graph). The
+    default stays ``False``, unlike the reference's: an AOTInductor
+    compile costs tens of seconds even for a tiny model (g++ or Triton
+    compiles every generated kernel). An export without it deletes an
+    earlier frozen package in ``path``, so the runner never serves stale
+    weights."""
     import torch
     if weight_quantize not in (None, "int8"):
         raise ValueError(f"weight_quantize must be None or 'int8', "
                          f"got {weight_quantize!r}")
-    if freeze_native:
-        raise NotImplementedError(
-            "freeze_native: the native runner of exported programs (the "
-            "reference's pjrt_runner.cc; here a C++ runner over "
-            "AOTInductor) is not ported yet (ROADMAP Queue 1 item 2)")
     example_inputs = tuple(example_inputs)
     module = (model_or_fn if isinstance(model_or_fn, torch.nn.Module)
               else _function_module(model_or_fn))
@@ -268,6 +281,24 @@ def save_inference_model(path: str, model_or_fn, example_inputs:
     meta = {"input_names": names, "inputs": _specs(example_inputs),
             "outputs": _specs(outputs), "weight_quantize": weight_quantize,
             "device": _program_device(module, example_inputs)}
+    frozen = os.path.join(path, FROZEN_FILE)
+    if freeze_native:
+        # Inductor compiles and links the package with the g++ on PATH, as
+        # every native build of the port does (its default is $CXX, which
+        # a host may point at a compiler without OpenMP), and rounds fused
+        # low-precision intermediates where eager PyTorch rounds them, so
+        # the frozen program computes what the module computes. A card's
+        # program has no CPU kernel worth vectorizing, so it skips the CPU
+        # ISA probes (a fresh Python process each, which imports torch
+        # where Inductor's probe does so)
+        cfg = {"cpp.cxx": (None, "g++"), "emulate_precision_casts": True}
+        if meta["device"].startswith("cuda"):
+            cfg["cpp.vec_isa_ok"] = False
+        with torch._inductor.config.patch(cfg):
+            torch._inductor.aoti_compile_and_package(program,
+                                                     package_path=frozen)
+    elif os.path.exists(frozen):
+        os.remove(frozen)
     with open(os.path.join(path, _META_FILE), "w") as f:
         json.dump(meta, f, indent=2)
     return program

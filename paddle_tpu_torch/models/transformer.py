@@ -4,7 +4,8 @@
 Pre-LN encoder and decoder stacks over flash attention
 (:mod:`paddle_tpu_torch.nn.transformer`), a shared vocabulary with the
 tied output projection, sinusoid positions, label-smoothed cross
-entropy, and greedy decoding (cached or not). Packed variable-length
+entropy, greedy decoding and beam search (cached or not). Packed
+variable-length
 training (:meth:`Transformer.loss_packed`) reads the slabs of
 :mod:`paddle_tpu_torch.data.packing`: segment ids gate every attention
 through a full ``(B, 1, S, S)`` bias (:func:`~paddle_tpu_torch.ops.
@@ -27,8 +28,7 @@ whole residual stream to float32; the port keeps the compute dtype so the
 kernels run in it).
 
 Not ported here: the pipelined layout (``pipeline=True``, ROADMAP Queue 1
-item 4) and :meth:`Transformer.beam_search_decode`, which waits for
-``ops/beam_search.py`` (item 3).
+item 4).
 """
 
 from __future__ import annotations
@@ -313,10 +313,69 @@ class Transformer(nn.Module):
             done = done | (nxt == cfg.eos_id)
         return tgt
 
-    def beam_search_decode(self, *args, **kwargs):
-        raise NotImplementedError(
-            "Transformer.beam_search_decode waits for ops/beam_search.py "
-            "(ROADMAP Queue 1 item 3)")
+    @torch.no_grad()
+    def beam_search_decode(self, src_ids, *, beam_size: int = 4,
+                           max_len: Optional[int] = None,
+                           length_penalty: float = 0.6,
+                           use_cache: bool = True):
+        """Beam search (fluid ``beam_search_op`` and ``layers.beam_search``'s
+        translation path) over :mod:`paddle_tpu_torch.ops.beam_search`'s
+        dense (B, K) lattice, every one of the ``max_len - 1`` steps run as
+        the reference runs them. GNMT length normalization
+        ((5 + len) / 6)^alpha over each beam's non-pad tokens. Returns
+        ``(best_ids (B, max_len) int32, best_scores (B,))``.
+
+        ``use_cache=True`` decodes through beam-expanded self-attention KV
+        caches, reordered with their beams at every step, and the
+        cross-attention heads made once from the unexpanded memory; the
+        uncached path refeeds every prefix each step. The encoder runs
+        once (on the card: K5 once per encoder layer)."""
+        from paddle_tpu_torch.ops import beam_search as bs
+        cfg = self.cfg
+        max_len = max_len or cfg.max_len
+        b, k, v = src_ids.shape[0], beam_size, cfg.vocab_size
+        dev = src_ids.device
+        memory, memory_bias = self.encode(src_ids)
+        mem_bias = torch.repeat_interleave(memory_bias, k, dim=0)
+        tgt = torch.full((b, k, max_len), cfg.pad_id, dtype=torch.int32,
+                         device=dev)
+        tgt[:, :, 0] = cfg.bos_id
+        scores, done = bs.beam_init(b, k, device=dev)
+
+        def select(logits_t, t, tgt, scores, done):
+            """Beam bookkeeping for logits_t (B*K, V) at step t."""
+            logp = torch.log_softmax(logits_t.float(), dim=-1)
+            tok, scores, done, src_beam = bs.beam_search_step(
+                logp.reshape(b, k, v), scores, done, eos_id=cfg.eos_id,
+                pad_id=cfg.pad_id)
+            tgt = torch.gather(tgt, 1, src_beam[..., None].expand(
+                b, k, max_len))
+            tgt[:, :, t + 1] = tok
+            return tgt, scores, done, src_beam
+
+        if use_cache:
+            caches, cross = self._decode_state(memory, max_len,
+                                               beam_expand=k)
+            for t in range(max_len - 1):
+                logits, caches = self._cached_step(
+                    tgt.reshape(b * k, max_len)[:, t], t, caches, cross,
+                    mem_bias, max_len)
+                tgt, scores, done, src_beam = select(logits, t, tgt, scores,
+                                                     done)
+                # the KV caches ride with their beams (flat B*K rows)
+                caches = bs.gather_beams(caches, src_beam)
+        else:
+            mem = torch.repeat_interleave(memory, k, dim=0)
+            for t in range(max_len - 1):
+                logits = self.decode(tgt.reshape(b * k, max_len), mem,
+                                     mem_bias)[:, t]
+                tgt, scores, done, _ = select(logits, t, tgt, scores, done)
+        # length-normalized final ranking
+        lengths = (tgt != cfg.pad_id).sum(-1).float()
+        norm = scores / ((5.0 + lengths) / 6.0) ** length_penalty
+        best = torch.argmax(norm, dim=1)
+        rows = torch.arange(b, device=dev)
+        return tgt[rows, best], norm[rows, best]
 
     @classmethod
     def from_jax(cls, cfg: TransformerConfig, params, *,

@@ -11,6 +11,11 @@ hash of its sources and flags as the CUDA kernels' libraries are
 (:func:`paddle_tpu_torch.kernels.build.library_path`): a changed source
 or flag builds a new library, an unchanged one is loaded as it is.
 
+The native runner (``aoti_runner.cc`` with ``ptt_ops.cc``, :mod:`.runner`)
+is an executable linked against the installed PyTorch's libtorch: the
+same build with ``executable=True`` and the include and library flags of
+:func:`.runner.torch_flags`.
+
 A build writes a temporary file and renames it into place, so processes
 that build the same library at once (test workers) never load a
 half-written one. Libraries load with ctypes' default ``RTLD_LOCAL``: a
@@ -31,6 +36,8 @@ from typing import Dict, Sequence
 _DIR = Path(__file__).resolve().parent
 BUILD_DIR = _DIR.parents[1] / "build" / "paddle_tpu_torch" / "native"
 FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC", "-pthread")
+#: an executable's flags (the runner: libtorch's headers want C++20)
+EXE_FLAGS = ("-O2", "-std=c++20", "-pthread")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -42,27 +49,40 @@ def source_paths(sources: Sequence[str]) -> list:
 
 
 def library_path(name: str, sources: Sequence[str],
-                 extra_flags: Sequence[str] = ()) -> Path:
-    """Where ``lib<name>`` built from ``sources`` with these flags lives."""
+                 extra_flags: Sequence[str] = (),
+                 executable: bool = False,
+                 headers: Sequence[str] = ()) -> Path:
+    """Where ``lib<name>`` (or the executable ``<name>``) built from
+    ``sources`` with these flags lives. The hash covers the sources, the
+    ``headers`` of this package they include, and the flags."""
     h = hashlib.sha256()
-    for src in source_paths(sources):
+    for src in source_paths(sources) + source_paths(headers):
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    h.update(" ".join((*FLAGS, *extra_flags)).encode())
+    flags = EXE_FLAGS if executable else FLAGS
+    h.update(" ".join((*flags, *extra_flags)).encode())
+    if executable:
+        return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}"
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_library(name: str, sources: Sequence[str],
-                  extra_flags: Sequence[str] = ()) -> str:
+                  extra_flags: Sequence[str] = (),
+                  executable: bool = False,
+                  headers: Sequence[str] = ()) -> str:
     """Compile ``sources`` (names of files in this package) into a shared
-    library unless it is built already; returns its path."""
-    out = library_path(name, sources, extra_flags)
+    library, or with ``executable=True`` an executable, unless it is
+    built already; returns its path. ``headers`` names the package's
+    headers the sources include, so that a changed one rebuilds."""
+    out = library_path(name, sources, extra_flags, executable, headers)
     if out.exists():
         return str(out)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
-    cmd = ["g++", *FLAGS, *extra_flags,
-           *(str(p) for p in source_paths(sources)), "-o", str(tmp)]
+    tmp = out.with_name(
+        f"{out.name}.{os.getpid()}.{threading.get_ident()}.tmp")
+    flags = EXE_FLAGS if executable else FLAGS
+    cmd = ["g++", *flags, *(str(p) for p in source_paths(sources)),
+           *extra_flags, "-o", str(tmp)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)

@@ -33,7 +33,9 @@ their contracts declare (one each: the warps a block the kernels fix),
 and fault F9's round of threaded replicas beside a capture, 20 times in one
 process. Pipelines on the card: a pp=2 group of two processes on
 ``cuda:0`` training the full-width 2-layer BERT against pp=1, and its
-pp-split snapshot restored per stage and whole.
+pp-split snapshot restored per stage and whole. The native runner: K5
+through its C++ registration bit for bit K5 through the Python op, and a
+frozen bf16 tiny Transformer served from C++ with K5 counted there.
 """
 
 import numpy as np
@@ -1860,3 +1862,57 @@ def test_predictor_on_the_card_launches_k5(dev, tmp_path):
     q8 = load_inference_model(str(tmp_path / "q")).run(*ex)
     assert float((q8.float() - got.float()).abs().max()) < \
         0.25 * float(got.float().std())
+
+
+def test_native_runner_k5_equals_the_python_op(dev, tmp_path):
+    """K5 through the runner's C++ registration (ptt_ops.cc) is K5
+    through the Python op bit for bit, and the C++ side counts its
+    launch."""
+    from paddle_tpu_torch.native.runner import flash_fwd_files
+    g = torch.Generator(device=dev).manual_seed(7)
+    q, k, v = (torch.randn((2, 3, 40, 64), generator=g, device=dev)
+               .to(torch.bfloat16) for _ in range(3))
+    bias = FA.make_padding_bias(torch.arange(40, device=dev)[None]
+                                < torch.tensor([[0], [31]], device=dev))
+    out, lse = FA.flash_fwd_cuda(q, k, v, bias)
+    got = flash_fwd_files(q, k, v, bias, device=str(dev),
+                          workdir=str(tmp_path))
+    assert got["launches"] == 1
+    assert torch.equal(got["out"], out.cpu())
+    assert torch.equal(got["lse"], lse.cpu())
+
+
+def test_native_runner_serves_a_frozen_model_on_the_card(dev, tmp_path):
+    """A bf16 tiny Transformer frozen on the card and served by the C++
+    runner: 6 K5 launches a call from the C++ counter, repeats bit for
+    bit, logits within 4 bf16 ulps of the largest eager logit.
+
+    On an H100 (``chip_native_rounding.py``) this program reads 1 ulp
+    against eager, as close to the float32 model as eager bf16 is, while
+    each of its modules compiled alone equals eager bit for bit: the
+    whole program's fusions move a fifth of the logits by one ulp. The
+    model with its key-padding bias dropped, a wrong attention, reads 16
+    ulps; 4 lies between the two."""
+    from paddle_tpu_torch.inference import save_inference_model
+    from paddle_tpu_torch.native.runner import NativePredictor
+    model = _tiny_transformer(dev, torch.bfloat16).eval()
+    rng = np.random.default_rng(2)
+    src = rng.integers(3, 96, (3, 40)).astype(np.int32)
+    src[0, 30:] = 2
+    tgt = rng.integers(3, 96, (3, 40)).astype(np.int32)
+    ex = (torch.from_numpy(src).to(dev), torch.from_numpy(tgt).to(dev))
+    save_inference_model(str(tmp_path / "m"), model, ex, freeze_native=True)
+    pred = NativePredictor(str(tmp_path / "m"))
+    try:
+        first = pred.run(src, tgt)[0]
+        before = pred.last_call["k5_launches_total"]
+        again = pred.run(src, tgt)[0]
+        assert pred.last_call["k5_launches_total"] - before == 6
+    finally:
+        pred.close()
+    np.testing.assert_array_equal(first, again)
+    with torch.no_grad():
+        eager = model(*ex).float().cpu().numpy()
+    top = float(np.abs(eager).max())
+    ulp = 2.0 ** (np.floor(np.log2(top)) - 7)
+    assert float(np.abs(first - eager).max()) <= 4 * ulp

@@ -1,5 +1,6 @@
 """Import guard for the port: no file under ``paddle_tpu_torch/``, and
-neither ``chip_smoke.py`` nor ``chip_ab.py``, imports ``jax``,
+none of ``chip_smoke.py``, ``chip_ab.py`` and ``chip_native_rounding.py``,
+imports ``jax``,
 ``ml_dtypes`` or anything of ``paddle_tpu`` (only the tests import
 both). Also pins the packaging of the port."""
 
@@ -13,7 +14,8 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "paddle_tpu", "ml_dtypes"}
 FILES = sorted((ROOT / "paddle_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "chip_ab.py"]
+    ROOT / "chip_smoke.py", ROOT / "chip_ab.py",
+    ROOT / "chip_native_rounding.py"]
 
 
 def _imported_roots(tree):
@@ -59,6 +61,10 @@ def test_importing_the_port_loads_no_jax():
             "import paddle_tpu_torch.data, paddle_tpu_torch.data.native_feed\n"
             "import paddle_tpu_torch.models.transformer, paddle_tpu_torch.slim\n"
             "import paddle_tpu_torch.ops.sequence, paddle_tpu_torch.fs\n"
+            "import paddle_tpu_torch.core.registry\n"
+            "from paddle_tpu_torch.ops import (elementwise, math, reduction,\n"
+            "    activation, tensor, beam_search, samples)\n"
+            "import paddle_tpu_torch.native.runner\n"
             "from paddle_tpu_torch.kernels import registry\n"
             "assert registry.load_all()\n"
             "bad = sorted(m for m in sys.modules\n"
@@ -91,6 +97,9 @@ def test_the_parallel_layer_imports_with_jax_blocked():
             "import paddle_tpu_torch.optimizer.compression\n"
             "import paddle_tpu_torch.resilience.snapshot\n"
             "import paddle_tpu_torch.observability.aggregate\n"
+            "import paddle_tpu_torch.native.runner\n"
+            "import paddle_tpu_torch.ops.samples\n"
+            "import paddle_tpu_torch.ops.beam_search\n"
             "from paddle_tpu_torch.kernels import registry\n"
             "assert registry.load_all()\n"
             "assert registry.get_composite('ring_attention')\n")

@@ -6,8 +6,9 @@ Transformer from a JAX ``PRNGKey`` exported by both packages, the port's
 1e-5 of the model on the reference's dequantized weights, a
 save/load round trip bit for bit, the int8 values and scales exactly the
 reference's, ``fold_batch_norms`` on a tree carried across (HWIO <->
-OIHW), the refusals, a fresh process that runs the artifact without
-importing any model, and ``torch.export`` of a module forced to the
+OIHW), the refusals and ``freeze_native``'s package (written, then
+deleted by an export without it), a fresh process that runs the artifact
+without importing any model, and ``torch.export`` of a module forced to the
 flash path recording ``ptt.flash_fwd`` nodes (fake tensors: nothing
 launches)."""
 
@@ -220,9 +221,17 @@ def test_refusals(pair, exported, tmp_path):
             else:
                 mod.save_inference_model(str(tmp_path / "y"), None, {}, (),
                                          weight_quantize="int4")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        pinf.save_inference_model(str(tmp_path / "z"), pm, ex,
-                                  freeze_native=True)
+    # freeze_native writes the AOTInductor package of the native runner
+    # (served in test_torch_native_runner.py); an export without it
+    # deletes an earlier package, so the runner never serves stale weights
+    z, x = tmp_path / "z", torch.arange(6, dtype=torch.float32).reshape(2, 3)
+    pinf.save_inference_model(str(z), lambda t: t * 2.0 + 1.0, (x,),
+                              freeze_native=True)
+    assert (z / "__model__frozen__.pt2").stat().st_size > 0
+    assert set(json.loads((z / "meta.json").read_text())) == {
+        "input_names", "inputs", "outputs", "weight_quantize", "device"}
+    pinf.save_inference_model(str(z), lambda t: t * 2.0 + 1.0, (x,))
+    assert not (z / "__model__frozen__.pt2").exists()
     import shutil
     shutil.copytree(path, tmp_path / "cpu")
     meta_path = tmp_path / "cpu" / "meta.json"

@@ -245,6 +245,10 @@ def test_fully_masked_cross_rows_are_zero_both_ways():
 def test_refusals_name_their_roadmap_items():
     with pytest.raises(NotImplementedError, match="item 4"):
         Transformer(TransformerConfig.tiny(pipeline=True), device="cpu")
+    # beam search is ported (item 3's first half): it runs, and the JAX
+    # parity lives in test_torch_beam_search.py
     m = Transformer(TransformerConfig.tiny(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 3"):
-        m.beam_search_decode(torch.zeros((1, 4), dtype=torch.int32))
+    ids, scores = m.beam_search_decode(
+        torch.full((1, 4), 3, dtype=torch.int32), beam_size=2, max_len=5)
+    assert ids.shape == (1, 5) and ids.dtype == torch.int32
+    assert int(ids[0, 0]) == m.cfg.bos_id and scores.shape == (1,)
