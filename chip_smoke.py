@@ -354,10 +354,27 @@ Phases, in order; any failure exits non-zero:
        tokens: bf16 tokens/s and K5 launches (6 a call, the encoder);
        the fp32 2 + 2 model through the kernels and the plain versions
        (identical ids, scores within 1e-5); beam 1 equal to greedy;
-   (e) every op of the dense op library (``ops/samples.py``) on the
-       card in fp32 against its numpy reference (or the op on the CPU
-       where the reference has none), the random ops by their
-       distributions: 0 failures.
+   (e) every registered op (``ops/samples.py``: the dense library, the
+       nn, CRF, sequence, control-flow, quant, metrics and niche ops,
+       ``glu``) on the card in fp32 against its numpy reference (or the
+       op on the CPU where the reference has none), the random ops by
+       their distributions: 0 failures.
+13. recurrent and structured models (runs after 12; TF32 off; no
+   registered kernel):
+   (a) ``RNNLanguageModel`` at PTB large (vocab 10,000, 2 x 1,500, 35
+       x 20): one fp32 step on the card against the CPU (loss within
+       ``REC_LOSS_RTOL``, every gradient within ``REC_GRAD_REL`` of its
+       scale), then 3 + 10 bf16 steps over fp32 masters through one
+       captured graph: ms a step, tokens/s, launches a step, busy share,
+       peak memory, captures after the first graphed step (0);
+   (b) ``LabelSemanticRoles`` at the book test's widths: fp32 CRF loss
+       and gradients card vs CPU, Viterbi paths on the same emissions
+       equal to the CPU's, 3 + 10 fp32 steps in one graph (ms a step,
+       real tokens/s);
+   (c) ``MoEFeedForward`` at Switch-Base-8's width on 8 x 512 tokens:
+       forward and backward card vs CPU, ``expert_counts`` exactly, the
+       card's ms;
+   (d) 12 (e)'s battery by registering module, 0 failures.
 7. output  — one ``{"kernels": [...]}`` line (each kernel with its
    tunables' candidates and the configuration the committed cache chose
    at each shape, ``blocks``; the ring's entry over K5/K6 with its calls
@@ -5944,6 +5961,312 @@ def kernel_line(entry, rows, launches, case_rows=None):
     return line
 
 
+# -- phase 13: recurrent and structured models --------------------------------
+
+#: (a) RNNLanguageModel at the PTB "large" configuration of Zaremba,
+#: Sutskever and Vinyals (2014), dropout left out (the model has none)
+PTB_LARGE = dict(vocab=10_000, embed=1_500, hidden=1_500, layers=2,
+                 steps=35, batch=20)
+#: (b) LabelSemanticRoles at the book test's widths (word_dict_len
+#: 44,068, word_dim 32, BATCH_SIZE 10), 4 x 128 = dynamic_lstm(size=512),
+#: depth 4 (8 directional layers), 59 tags (CoNLL-2005's label set, a
+#: choice), sentences of 5-64 tokens padded to 64
+SRL_BOOK = dict(vocab=44_068, tags=59, dim=32, hidden=128, depth=4,
+                batch=10, max_len=64, min_len=5)
+#: (c) MoEFeedForward at Switch-Base-8's expert width, 8 x 512 tokens
+SWITCH_BASE = dict(d=768, ff=3_072, experts=8, top_k=1,
+                   capacity_factor=1.25, batch=8, seq=512)
+REC_WARM, REC_TIMED = 3, 10
+#: fp32 card against CPU (TF32 off): loss relative error, and each
+#: gradient's (and MoE output's) max |diff| over its max |value|
+REC_LOSS_RTOL, REC_GRAD_REL = 1e-5, 1e-4
+
+
+def _norm_err(got, want):
+    """max |got - want| over max |want| (0 for an all-zero ``want``)."""
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    scale = float(want.abs().max())
+    return float((got - want).abs().max()) / scale if scale else float(
+        (got - want).abs().max())
+
+
+def _fp32_card_vs_cpu(label, card_model, cpu_model, batch_card, batch_cpu,
+                      loss_fn):
+    """One fp32 forward and backward of ``loss_fn(model, **batch)`` on the
+    card and on the CPU from the same weights: the loss within
+    ``REC_LOSS_RTOL`` and every gradient within ``REC_GRAD_REL``."""
+    out = {}
+    for where, model, batch in (("card", card_model, batch_card),
+                                ("cpu", cpu_model, batch_cpu)):
+        model.zero_grad(set_to_none=True)
+        t0 = time.monotonic()
+        loss = loss_fn(model, **batch)
+        loss = loss[0] if isinstance(loss, tuple) else loss
+        loss.backward()
+        if where == "card":
+            torch.cuda.synchronize()
+        out[where] = (float(loss.detach()), time.monotonic() - t0)
+    (l_card, s_card), (l_cpu, s_cpu) = out["card"], out["cpu"]
+    rel = abs(l_card - l_cpu) / abs(l_cpu)
+    grads = dict(cpu_model.named_parameters())
+    errs = {n: _norm_err(p.grad, grads[n].grad)
+            for n, p in card_model.named_parameters()}
+    worst = max(errs, key=errs.get)
+    stats = {"loss_card": l_card, "loss_cpu": l_cpu, "loss_rel_err": rel,
+             "grad_max_norm_err": errs[worst], "grad_worst": worst,
+             "tensors": len(errs), "card_s": s_card, "cpu_s": s_cpu}
+    log(f"  13 {label} fp32 card vs CPU: " + json.dumps(stats))
+    if rel > REC_LOSS_RTOL:
+        raise AssertionError(f"13 {label}: fp32 loss {l_card} on the card, "
+                             f"{l_cpu} on the CPU")
+    if errs[worst] > REC_GRAD_REL:
+        raise AssertionError(f"13 {label}: gradient of {worst} differs by "
+                             f"{errs[worst]:.3e} of its scale")
+    return stats
+
+
+def _timed_train(label, device, model, loss_fn, batches, policy=None,
+                 lr=1e-3):
+    """``REC_WARM`` + ``REC_TIMED`` steps of ``build_train_step`` (one
+    captured graph, Adam) over ``batches`` (cycled): ms a step, the
+    launches and busy share of the profiled window, peak memory, graph
+    builds and captures after the first graphed step (must be 0)."""
+    from paddle_tpu_torch.observability import recompile
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.train import build_train_step, make_train_state
+    opt = Adam(model.parameters(), learning_rate=lr)
+    state = make_train_state(model, opt)
+    step = build_train_step(loss_fn, opt, policy=policy)
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    for i in range(REC_WARM):
+        state, m = step(state, **batches[i % len(batches)])
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    captures = recompile.capture_count()
+    t0 = time.monotonic()
+    for i in range(REC_TIMED):
+        state, m = step(state, **batches[(REC_WARM + i) % len(batches)])
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    losses = [float(x) for x in losses]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"13 {label}: non-finite loss {losses}")
+    prof = profile_window(lambda: step(state, **batches[0]), PROFILED_STEPS)
+    stats = {"ms_per_step": wall / REC_TIMED * 1e3,
+             "launches_per_step": prof["kernel_launches"] / PROFILED_STEPS,
+             "busy_share": prof["device_busy_share"],
+             "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+             "graph_builds": step.builds,
+             "captures_after_first_graphed_step":
+                 recompile.capture_count() - captures,
+             "loss_first": losses[0], "loss_last": losses[-1],
+             "top_kernels": prof["top_kernels"][:5]}
+    if step.builds != 1:
+        raise AssertionError(f"13 {label}: {step.builds} graph builds "
+                             "(the step did not capture once)")
+    if stats["captures_after_first_graphed_step"]:
+        raise AssertionError(f"13 {label}: the step captured again")
+    return stats
+
+
+def _model_loss(m, **b):
+    return m.loss(**b)
+
+
+def lstm_language_model(device):
+    """(a) RNNLanguageModel, PTB large: fp32 card vs CPU, then bf16 over
+    fp32 masters in one captured graph."""
+    from paddle_tpu_torch.core.dtypes import get_policy
+    from paddle_tpu_torch.models.book import RNNLanguageModel
+    c = PTB_LARGE
+    kw = dict(embed_dim=c["embed"], hidden=c["hidden"],
+              num_layers=c["layers"], tie_embeddings=False, seed=0)
+    cpu_model = RNNLanguageModel(c["vocab"], device="cpu", **kw)
+    model = RNNLanguageModel(c["vocab"], device=device, **kw)
+    model.load_state_dict(cpu_model.state_dict())
+    n_params = sum(p.numel() for p in model.parameters())
+    rng = np.random.default_rng(13)
+
+    def batch(where):
+        ids = rng.integers(0, c["vocab"], (c["batch"], c["steps"] + 1))
+        t = torch.from_numpy(ids)
+        return {"ids": t[:, :-1].to(where), "targets": t[:, 1:].to(where)}
+
+    cpu_batch = batch("cpu")
+    card_batch = {k: v.to(device) for k, v in cpu_batch.items()}
+    parity = _fp32_card_vs_cpu("(a)", model, cpu_model, card_batch,
+                               cpu_batch, _model_loss)
+    del cpu_model
+    batches = [batch(device) for _ in range(4)]
+    train = _timed_train("(a)", device, model, _model_loss, batches,
+                         policy=get_policy("bf16"))
+    tokens = c["batch"] * c["steps"]
+    train["tokens_per_s"] = tokens / (train["ms_per_step"] / 1e3)
+    stats = {"parameters": n_params, "tokens_per_step": tokens,
+             "fp32_parity": parity, "bf16_train": train}
+    log("  13 (a) LSTM LM, PTB large, bf16: " + json.dumps(stats))
+    return stats
+
+
+def srl_tagger(device):
+    """(b) LabelSemanticRoles at the book test's widths: fp32 CRF loss and
+    gradients card vs CPU, Viterbi paths on the same emissions equal to
+    the CPU's exactly, then timed fp32 steps in one captured graph."""
+    from paddle_tpu_torch.models.book import LabelSemanticRoles
+    from paddle_tpu_torch.ops.crf import crf_decoding
+    c = SRL_BOOK
+    kw = dict(dim=c["dim"], hidden=c["hidden"], depth=c["depth"], seed=0)
+    cpu_model = LabelSemanticRoles(c["vocab"], c["tags"], device="cpu", **kw)
+    model = LabelSemanticRoles(c["vocab"], c["tags"], device=device, **kw)
+    model.load_state_dict(cpu_model.state_dict())
+    with torch.no_grad():       # the CRF's scores start at zero: move them
+        g = torch.Generator().manual_seed(5)
+        for name in ("transition", "start", "stop"):
+            p = getattr(cpu_model, name)
+            p.copy_(torch.randn(p.shape, generator=g))
+            getattr(model, name).copy_(p)
+    rng = np.random.default_rng(14)
+
+    def batch():
+        b, t = c["batch"], c["max_len"]
+        lengths = rng.integers(c["min_len"], t + 1, b)
+        lengths[0] = t
+        words = rng.integers(0, c["vocab"], (b, t))
+        return {"words": torch.from_numpy(words),
+                "predicate": torch.from_numpy(rng.integers(0, c["vocab"], b)),
+                "mark": torch.from_numpy(rng.integers(0, 2, (b, t))),
+                "labels": torch.from_numpy(rng.integers(0, c["tags"],
+                                                        (b, t))),
+                "lengths": torch.from_numpy(lengths)}
+
+    cpu_batch = batch()
+    card_batch = {k: v.to(device) for k, v in cpu_batch.items()}
+    parity = _fp32_card_vs_cpu("(b)", model, cpu_model, card_batch,
+                               cpu_batch, _model_loss)
+    with torch.no_grad():
+        args = [cpu_batch[k] for k in ("words", "predicate", "mark",
+                                       "lengths")]
+        lengths = cpu_batch["lengths"]
+        em = cpu_model.emissions(*args)
+        want = crf_decoding(em, cpu_model.transition, lengths,
+                            start=cpu_model.start, stop=cpu_model.stop)
+        got = crf_decoding(em.to(device), model.transition,
+                           lengths.to(device), start=model.start,
+                           stop=model.stop)
+        full = model.decode(*[a.to(device) for a in args])
+    if not torch.equal(got.cpu(), want):
+        raise AssertionError("13 (b): Viterbi paths on the card differ from "
+                             "the CPU's on the same emissions")
+    valid = torch.arange(c["max_len"])[None, :] < cpu_batch["lengths"][:, None]
+    agree = float((full.cpu() == want)[valid].float().mean())
+    del cpu_model
+    batches = [{k: v.to(device) for k, v in batch().items()}
+               for _ in range(4)]
+    train = _timed_train("(b)", device, model, _model_loss, batches)
+    real = float(np.mean([int(b["lengths"].sum()) for b in batches]))
+    train["real_tokens_per_s"] = real / (train["ms_per_step"] / 1e3)
+    stats = {"fp32_parity": parity, "viterbi_equal_on_same_emissions": True,
+             "viterbi_agreement_full_card_vs_cpu": agree,
+             "real_tokens_per_step": real, "fp32_train": train}
+    log("  13 (b) SRL tagger: " + json.dumps(stats))
+    return stats
+
+
+def switch_moe(device):
+    """(c) MoEFeedForward at Switch-Base-8's width on 8 x 512 tokens, fp32:
+    forward and backward card vs CPU (outputs and gradients within
+    ``REC_GRAD_REL`` of their scale, ``expert_counts`` exactly,
+    ``aux_loss`` within ``REC_LOSS_RTOL``), then the card's ms."""
+    from paddle_tpu_torch.nn.moe import MoEFeedForward
+    c = SWITCH_BASE
+    layers = {}
+    for where in ("cpu", device):
+        m = MoEFeedForward(c["d"], c["ff"], c["experts"], top_k=c["top_k"],
+                           capacity_factor=c["capacity_factor"],
+                           device=where)
+        m.reset_parameters(torch.Generator(device=where).manual_seed(0))
+        layers[str(torch.device(where).type)] = m.eval()
+    layers["cuda"].load_state_dict(layers["cpu"].state_dict())
+    x = torch.from_numpy(np.random.default_rng(15).standard_normal(
+        (c["batch"], c["seq"], c["d"])).astype(np.float32))
+    outs = {}
+    for where, m in layers.items():
+        xin = x.to(m.w1.device).detach().requires_grad_(True)
+        t0 = time.monotonic()
+        y, aux = m(xin)
+        ((y * y).mean() + aux["aux_loss"]).backward()
+        if where == "cuda":
+            torch.cuda.synchronize()
+        outs[where] = (y.detach(), aux, xin.grad, time.monotonic() - t0)
+    (y, aux, gx, s_card), (y_c, aux_c, gx_c, s_cpu) = outs["cuda"], \
+        outs["cpu"]
+    counts, counts_c = aux["expert_counts"].cpu(), aux_c["expert_counts"]
+    aux_loss, aux_loss_c = (float(a["aux_loss"].detach())
+                            for a in (aux, aux_c))
+    aux_rel = abs(aux_loss - aux_loss_c) / abs(aux_loss_c)
+    errs = {"y": _norm_err(y, y_c), "x.grad": _norm_err(gx, gx_c)}
+    cpu_params = dict(layers["cpu"].named_parameters())
+    errs.update({n: _norm_err(p.grad, cpu_params[n].grad)
+                 for n, p in layers["cuda"].named_parameters()})
+    worst = max(errs, key=errs.get)
+    if not torch.equal(counts, counts_c):
+        raise AssertionError(f"13 (c): expert counts {counts.tolist()} on "
+                             f"the card, {counts_c.tolist()} on the CPU")
+    if aux_rel > REC_LOSS_RTOL or errs[worst] > REC_GRAD_REL:
+        raise AssertionError(f"13 (c): aux_loss rel {aux_rel:.3e}, {worst} "
+                             f"differs by {errs[worst]:.3e} of its scale")
+    m = layers["cuda"]
+    xin = x.to(device).detach().requires_grad_(True)
+
+    def fwd_bwd():
+        m.zero_grad(set_to_none=True)
+        y, aux = m(xin)
+        ((y * y).mean() + aux["aux_loss"]).backward()
+
+    fwd_bwd()
+    ms = sorted(_events_ms(fwd_bwd) for _ in range(5))[2]
+    stats = {"tokens": c["batch"] * c["seq"],
+             "capacity": m.capacity(c["batch"] * c["seq"]),
+             "expert_counts": counts.tolist(),
+             "dropped_tokens": int((counts - m.capacity(
+                 c["batch"] * c["seq"])).clamp(min=0).sum()),
+             "aux_loss": aux_loss, "aux_loss_rel_err": aux_rel,
+             "max_norm_err": errs[worst], "worst": worst,
+             "fwd_bwd_ms_fp32": ms, "card_first_call_s": s_card,
+             "cpu_s": s_cpu}
+    log("  13 (c) Switch-Base MoE: " + json.dumps(stats))
+    return stats
+
+
+def battery_by_module(res):
+    """(d) 12 (e)'s battery over every registered op, by module: the
+    count each module holds and 0 failures."""
+    stats = {"ops_by_module": res["by_module"], "ops": res["ops"],
+             "failures": len(res["failures"])}
+    log("  13 (d) op battery by module: " + json.dumps(stats))
+    if res["failures"]:
+        raise AssertionError(f"op battery failures: {res['failures']}")
+    return stats
+
+
+def recurrent_slice(device, battery):
+    """Phase 13: (a) the LSTM LM, (b) the SRL tagger, (c) Switch MoE, (d)
+    the battery by module. TF32 off."""
+    t_phase = time.monotonic()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    stats = {"lm": lstm_language_model(device)}
+    torch.cuda.empty_cache()
+    stats["srl"] = srl_tagger(device)
+    torch.cuda.empty_cache()
+    stats["moe"] = switch_moe(device)
+    stats["battery"] = battery_by_module(battery)
+    stats["phase_s"] = time.monotonic() - t_phase
+    return stats
+
+
 def _timed_runner_build() -> float:
     from paddle_tpu_torch.native.runner import build_runner
     t0 = time.monotonic()
@@ -6091,6 +6414,13 @@ def main() -> int:
     native = native_slice(device, tf_model, tf_epoch)
     del tf_model, tf_epoch
     log(f"  phase 12 took {native['phase_s']:.1f} s")
+
+    log("[13/13] recurrent and structured models: the LSTM language model "
+        "at PTB large (bf16, one captured graph), the SRL tagger (BiLSTM + "
+        "CRF, Viterbi), Switch-Base MoE, the op battery by module (the "
+        "slice launches no registered kernel)")
+    rec = recurrent_slice(device, native["battery"])
+    log(f"  phase 13 took {rec['phase_s']:.1f} s")
 
     lines = [kernel_line(e, rows[e.name], stats["launches"][e.name],
                          {**({"long": long_rows} if e is PA.DECODE

@@ -4,7 +4,8 @@ An op is a function over tensors plus what the framework keeps beside it:
 
 - ``reference``: the numpy reference implementation (the reference's
   own, for the OpTest-style checks), or None where it has none;
-- ``has_grad``: whether gradients flow through the op.
+- ``has_grad``: whether gradients flow through the op;
+- ``module``: the module that registered it.
 
 The op modules of :mod:`paddle_tpu_torch.ops` register under the
 reference's names when they are imported.
@@ -13,6 +14,7 @@ reference's names when they are imported.
 from __future__ import annotations
 
 import dataclasses
+import sys
 from typing import Callable, Dict, Optional
 
 
@@ -23,6 +25,7 @@ class OpInfo:
     reference: Optional[Callable] = None  # numpy reference impl
     has_grad: bool = True
     doc: str = ""
+    module: str = ""
 
 
 _OP_REGISTRY: Dict[str, OpInfo] = {}
@@ -31,6 +34,7 @@ _OP_REGISTRY: Dict[str, OpInfo] = {}
 def register_op(name: str, *, reference: Optional[Callable] = None,
                 has_grad: bool = True):
     """Decorator registering an op into the global OpInfoMap."""
+    module = sys._getframe(1).f_globals.get("__name__", "")
 
     def wrap(fn: Callable) -> Callable:
         if name in _OP_REGISTRY:
@@ -38,6 +42,7 @@ def register_op(name: str, *, reference: Optional[Callable] = None,
         _OP_REGISTRY[name] = OpInfo(
             name=name, fn=fn, reference=reference, has_grad=has_grad,
             doc=(fn.__doc__ or "").strip().splitlines()[0] if fn.__doc__ else "",
+            module=module,
         )
         return fn
 

@@ -1,11 +1,14 @@
 """Standard layers, with the reference's parameter names and layouts so
 that weights carry across from ``paddle_tpu`` as a plain key flatten
-(``paddle_tpu/nn/layers.py``)."""
+(``paddle_tpu/nn/layers.py``); ``Conv2D`` holds torch's OIHW weight,
+which ``models.convert`` transposes from the reference's HWIO."""
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -186,3 +189,122 @@ class Dropout(nn.Module):
     def forward(self, x, generator: Optional[torch.Generator] = None):
         return dropout(x, self.rate, training=self.training,
                        generator=generator)
+
+
+class Conv2D(nn.Module):
+    """2-D conv layer over NHWC input (NCHW with ``data_format``), the
+    reference's ``Conv2D``. The weight is held as torch's OIHW
+    ``(out, in / groups, kh, kw)`` (the reference holds HWIO;
+    ``models.convert`` transposes, :meth:`from_jax` too); ``padding`` an
+    int, a pair or "SAME"/"VALID"."""
+
+    #: the reference's layout of each parameter that differs from this
+    #: module's, for ``models.convert``
+    jax_layouts = {"weight": "HWIO"}
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size,
+                 stride=1, padding=0, dilation=1, groups: int = 1,
+                 bias: bool = True, data_format: str = "NHWC", *,
+                 device=None, dtype=None):
+        super().__init__()
+        kh, kw = ((kernel_size, kernel_size) if isinstance(kernel_size, int)
+                  else tuple(kernel_size))
+        self.in_channels, self.out_channels = in_channels, out_channels
+        self.kernel_size = (kh, kw)
+        self.stride, self.padding = stride, padding
+        self.dilation, self.groups = dilation, groups
+        self.data_format = data_format
+        self.weight = nn.Parameter(torch.empty(
+            out_channels, in_channels // groups, kh, kw, device=device,
+            dtype=dtype))
+        self.bias = (nn.Parameter(torch.empty(out_channels, device=device,
+                                              dtype=dtype))
+                     if bias else None)
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        """MSRA-normal weight over fan-in ``in / groups * kh * kw``, zero
+        bias (the reference's defaults)."""
+        fan_in = self.in_channels // self.groups * math.prod(self.kernel_size)
+        I.msra_normal(fan_in=fan_in)(self.weight, generator)
+        if self.bias is not None:
+            I.zeros(self.bias)
+
+    def forward(self, x):
+        from paddle_tpu_torch.ops import nn as ops_nn
+        pad = (self.padding if isinstance(self.padding, str)
+               else ops_nn._pair(self.padding))
+        nchw = self.data_format == "NCHW"
+        out = ops_nn._conv_nd(x if nchw else x.permute(0, 3, 1, 2),
+                              self.weight, ops_nn._pair(self.stride), pad,
+                              ops_nn._pair(self.dilation), self.groups)
+        if self.bias is not None:
+            out = out + self.bias[:, None, None]
+        return out if nchw else out.permute(0, 2, 3, 1)
+
+    @classmethod
+    def from_jax(cls, params, stride=1, padding=0, dilation=1,
+                 groups: int = 1, data_format: str = "NHWC", *,
+                 device="cuda") -> "Conv2D":
+        """The layer of a reference ``Conv2D``'s parameters ``{"weight":
+        HWIO, "bias"?}`` (numpy arrays), on ``device``."""
+        from paddle_tpu_torch.core.device import resolve_device
+        from paddle_tpu_torch.models.convert import load_jax
+        kh, kw, cin, cout = np.shape(params["weight"])
+        layer = cls(cin * groups, cout, (kh, kw), stride, padding, dilation,
+                    groups, "bias" in params, data_format,
+                    device=resolve_device(device))
+        return load_jax(layer, params)
+
+
+class Pool2D(nn.Module):
+    """Max/avg pooling layer (``ops.nn.pool2d``), no parameters."""
+
+    def __init__(self, kernel_size=2, stride=None, padding=0,
+                 pool_type="max", global_pooling=False, data_format="NHWC"):
+        super().__init__()
+        self.kw = dict(kernel=kernel_size, stride=stride, padding=padding,
+                       pool_type=pool_type, global_pooling=global_pooling,
+                       data_format=data_format)
+
+    def forward(self, x):
+        from paddle_tpu_torch.ops.nn import pool2d
+        return pool2d(x, **self.kw)
+
+
+class BatchNorm(nn.Module):
+    """Batch norm over the channel axis (last for NHWC): ``scale`` and
+    ``bias`` parameters, the running ``mean`` and ``variance`` buffers
+    (the reference's non-trainable parameters). In training mode a
+    forward normalises by the batch and moves the buffers in place to
+    ``momentum * old + (1 - momentum) * batch`` (biased variance), as the
+    reference's state tape does; in eval mode it uses them."""
+
+    def __init__(self, num_channels: int, epsilon: float = 1e-5,
+                 momentum: float = 0.9, data_format: str = "NHWC", *,
+                 device=None, dtype=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        self.epsilon, self.momentum = epsilon, momentum
+        self.data_format = data_format
+        self.scale = nn.Parameter(torch.ones(num_channels, **kw))
+        self.bias = nn.Parameter(torch.zeros(num_channels, **kw))
+        self.register_buffer("mean", torch.zeros(num_channels, **kw))
+        self.register_buffer("variance", torch.ones(num_channels, **kw))
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        I.ones(self.scale)
+        I.zeros(self.bias)
+        I.zeros(self.mean)
+        I.ones(self.variance)
+
+    def forward(self, x):
+        from paddle_tpu_torch.ops.nn import batch_norm
+        out, new_mean, new_var = batch_norm(
+            x, self.scale, self.bias, self.mean, self.variance,
+            epsilon=self.epsilon, momentum=self.momentum,
+            training=self.training, data_format=self.data_format)
+        if self.training:
+            with torch.no_grad():
+                self.mean.copy_(new_mean)
+                self.variance.copy_(new_var)
+        return out

@@ -1,12 +1,15 @@
-"""Sample inputs for every op of the dense op library, and the battery
+"""Sample inputs for every registered op of the port, and the battery
 that holds each op to its numpy reference on a device.
 
-:data:`SAMPLES` maps each registered name of :mod:`.elementwise`,
-:mod:`.math`, :mod:`.reduction`, :mod:`.activation` and :mod:`.tensor`
-to a function of a ``numpy.random.Generator`` giving ``(args, kwargs)``
-in numpy (float32 arrays, integer and bool arrays, Python values), so
-the same inputs reach the port's op, the JAX package's op (in the CPU
-tests) and the numpy reference. The random ops (:data:`RANDOM`) take a
+:data:`SAMPLES` maps each registered name of the dense op library
+(:mod:`.elementwise`, :mod:`.math`, :mod:`.reduction`, :mod:`.activation`,
+:mod:`.tensor`) and of :mod:`.nn`, :mod:`.crf`, :mod:`.sequence`,
+:mod:`.control_flow`, :mod:`.quant`, :mod:`.metrics_ops`, :mod:`.niche`
+and ``nn.nets`` (``glu``), but the beam-search ops, to a function of a
+``numpy.random.Generator`` giving ``(args, kwargs)`` in numpy (float32
+arrays, integer and bool arrays, Python values and callables), so the
+same inputs reach the port's op, the JAX package's op (in the CPU tests)
+and the numpy reference. The random ops (:data:`RANDOM`) draw from a
 generator where the reference takes a key: :func:`check_random` holds
 their shape, dtype, range or moments and their determinism under one
 seed.
@@ -24,13 +27,16 @@ import numpy as np
 import torch
 
 # registers the ops the samples name
-from paddle_tpu_torch.ops import (activation, elementwise,  # noqa: F401
-                                  math, reduction, tensor)
+from paddle_tpu_torch.nn import nets  # noqa: F401
+from paddle_tpu_torch.ops import (activation, control_flow,  # noqa: F401
+                                  crf, elementwise, math, metrics_ops, niche,
+                                  nn, quant, reduction, sequence, tensor)
 
-#: ops whose first argument is a torch.Generator (the reference's key)
+#: ops that draw from a torch.Generator (the reference's key)
 RANDOM = ("gaussian_random", "uniform_random", "randint", "randperm",
           "sampling_id", "random_crop", "gaussian_random_batch_size_like",
-          "uniform_random_batch_size_like")
+          "uniform_random_batch_size_like", "dropout", "nce",
+          "sampled_softmax_with_cross_entropy", "sample_logits")
 #: creation ops with no tensor input: the port's take ``device=``
 CREATION = ("fill_constant", "range", "linspace", "eye", "ones", "zeros")
 #: float outputs: the tolerance of the port against the JAX package and
@@ -59,6 +65,11 @@ def _bad(r):
     x = _f(r, 3, 4)
     x[0, 1], x[2, 2] = np.nan, np.inf
     return x
+
+
+def _np_probs(r, *shape):
+    e = np.exp(_f(r, *shape))
+    return (e / e.sum(-1, keepdims=True)).astype(np.float32)
 
 
 def _spd(r):
@@ -232,6 +243,235 @@ SAMPLES.update({
 })
 
 
+
+def _img(r, *shape):
+    return _f(r, *shape)
+
+
+def _lengths(r, b, t):
+    """Ragged lengths with 0 and the full width in them."""
+    ls = r.integers(1, t, b).astype(np.int32)
+    ls[0], ls[-1] = 0, t
+    return ls
+
+
+def _unpool_indices(r, n, c, h, w, oh, ow):
+    return np.stack([np.stack([r.choice(oh * ow, h * w, replace=False)
+                               for _ in range(c)]) for _ in range(n)]
+                    ).reshape(n, c, h, w).astype(np.int32)
+
+
+def _tree_edges(r):
+    # two trees of 5 nodes (1-based; a (0, 0) row pads the second)
+    a = np.array([[1, 2], [1, 3], [2, 4], [2, 5]], np.int32)
+    b = np.array([[1, 2], [2, 3], [3, 4], [0, 0]], np.int32)
+    return np.stack([a, b])
+
+
+SAMPLES.update({
+    # nn: conv and pooling
+    "conv2d": lambda r: ((_img(r, 2, 6, 5, 3), _f(r, 3, 3, 3, 4),
+                          _f(r, 4)), {"stride": 2, "padding": "SAME"}),
+    "conv2d_transpose": lambda r: ((_img(r, 2, 3, 4, 3), _f(r, 3, 3, 3, 2),
+                                    _f(r, 2)),
+                                   {"stride": 2, "padding": 1}),
+    "depthwise_conv2d": lambda r: ((_img(r, 2, 5, 5, 3), _f(r, 3, 3, 3, 1)),
+                                   {"padding": 1}),
+    "pool2d": lambda r: ((_img(r, 2, 5, 6, 3),),
+                         {"kernel": 3, "stride": 2, "padding": 1,
+                          "pool_type": "avg"}),
+    "adaptive_pool2d": lambda r: ((_img(r, 2, 4, 6, 3), (2, 3)),
+                                  {"pool_type": "max"}),
+    "conv3d": lambda r: ((_img(r, 1, 4, 5, 4, 2), _f(r, 2, 3, 3, 2, 3)),
+                         {"padding": "SAME", "stride": (1, 2, 1)}),
+    "conv3d_transpose": lambda r: ((_img(r, 1, 3, 3, 2, 2),
+                                    _f(r, 2, 2, 2, 2, 3)), {"stride": 2}),
+    "pool3d": lambda r: ((_img(r, 1, 4, 4, 5, 2),),
+                         {"kernel": 2, "stride": 2, "padding": 1}),
+    "adaptive_pool3d": lambda r: ((_img(r, 1, 4, 4, 6, 2), 2), {}),
+    # nn: normalization
+    "softmax": lambda r: ((_f(r, 3, 5),), {"axis": 0}),
+    "log_softmax": lambda r: ((_f(r, 3, 5),), {}),
+    "layer_norm": lambda r: ((_f(r, 4, 6), _pos(r, 6), _f(r, 6)),
+                             {"begin_norm_axis": 1}),
+    "batch_norm": lambda r: ((_img(r, 3, 2, 2, 4), _pos(r, 4), _f(r, 4),
+                              _f(r, 4), _pos(r, 4)), {"training": True}),
+    "group_norm": lambda r: ((_img(r, 2, 3, 3, 4), _pos(r, 4), _f(r, 4)),
+                             {"groups": 2}),
+    "instance_norm": lambda r: ((_img(r, 2, 3, 3, 4), _pos(r, 4), _f(r, 4)),
+                                {"data_format": "NHWC"}),
+    "lrn": lambda r: ((_img(r, 2, 2, 2, 6),), {"n": 3, "alpha": 0.1}),
+    "data_norm": lambda r: ((_f(r, 4, 3), 10.0, _f(r, 3),
+                             _pos(r, 3) * 20.0), {}),
+    "spectral_norm": lambda r: ((_f(r, 4, 2, 3), _f(r, 4)),
+                                {"power_iters": 2}),
+    "affine_channel": lambda r: ((_img(r, 2, 2, 3, 4), _f(r, 4), _f(r, 4)),
+                                 {}),
+    # nn: embedding, resize, sampling grids
+    "lookup_table": lambda r: ((_i(r, 0, 6, 2, 3), _f(r, 6, 4)),
+                               {"padding_idx": 2}),
+    "one_hot": lambda r: ((_i(r, 0, 5, 2, 3), 5), {}),
+    "interpolate": lambda r: ((_img(r, 2, 5, 4, 3), (3, 7)),
+                              {"method": "bilinear"}),
+    "resize_trilinear": lambda r: ((_img(r, 1, 3, 4, 5, 2), (5, 2, 5)), {}),
+    "grid_sampler": lambda r: ((_f(r, 2, 3, 4, 5),
+                                r.uniform(-1.2, 1.2, (2, 3, 2, 2)).astype(
+                                    np.float32)), {}),
+    "affine_grid": lambda r: ((_f(r, 2, 2, 3), (2, 3, 4, 5)), {}),
+    "im2sequence": lambda r: ((_img(r, 2, 5, 4, 3), 2),
+                              {"stride": 2, "padding": 1}),
+    "pad": lambda r: ((_f(r, 2, 3), [[1, 0], [2, 1]]), {"pad_value": 0.5}),
+    "pad2d": lambda r: ((_img(r, 1, 3, 4, 2), (1, 2, 2, 1)),
+                        {"mode": "reflect"}),
+    "row_conv": lambda r: ((_f(r, 2, 5, 3), _f(r, 3, 3)), {}),
+    "maxout": lambda r: ((_f(r, 2, 6, 3), 3), {"axis": 1}),
+    "add_position_encoding": lambda r: ((_f(r, 2, 5, 6),),
+                                        {"alpha": 0.5, "beta": 2.0}),
+    "similarity_focus": lambda r: ((_f(r, 2, 3, 4, 4), 1, [0, 2]), {}),
+    "cvm": lambda r: ((_pos(r, 3, 5),), {"use_cvm": True}),
+    "filter_by_instag": lambda r: ((_f(r, 4, 3),
+                                    np.array([[1, -1], [2, 3], [4, -1],
+                                              [3, 1]], np.int32),
+                                    np.array([3, -1], np.int32)), {}),
+    "mean_iou": lambda r: ((_i(r, 0, 4, 20), _i(r, 0, 4, 20), 5), {}),
+    # nn: losses
+    "cross_entropy": lambda r: ((_np_probs(r, 4, 5), _i(r, 0, 5, 4, 1)),
+                                {}),
+    "softmax_with_cross_entropy": lambda r: (
+        (_f(r, 4, 5), _i(r, 0, 5, 4, 1)),
+        {"ignore_index": 2, "return_softmax": True}),
+    "sigmoid_cross_entropy_with_logits": lambda r: (
+        (_f(r, 3, 4), r.random((3, 4)).astype(np.float32)), {}),
+    "square_error_cost": lambda r: ((_f(r, 3, 4), _f(r, 3, 4)), {}),
+    "smooth_l1": lambda r: ((_f(r, 3, 4), _f(r, 3, 4)), {"sigma": 2.0}),
+    "kldiv_loss": lambda r: ((_f(r, 3, 4), _np_probs(r, 3, 4)),
+                             {"reduction": "sum"}),
+    "margin_rank_loss": lambda r: ((np.sign(_f(r, 4)), _f(r, 4), _f(r, 4)),
+                                   {}),
+    "huber_loss": lambda r: ((_f(r, 4) * 2, _f(r, 4)), {"delta": 0.7}),
+    "label_smooth": lambda r: ((_np_probs(r, 3, 5),), {"epsilon": 0.2}),
+    "log_loss": lambda r: ((r.uniform(0.05, 0.95, (4,)).astype(np.float32),
+                            (r.random(4) < 0.5).astype(np.float32)), {}),
+    "rank_loss": lambda r: (((r.random(4) < 0.5).astype(np.float32),
+                             _f(r, 4), _f(r, 4)), {}),
+    "hinge_loss": lambda r: ((_f(r, 4), (r.random(4) < 0.5).astype(
+        np.float32)), {}),
+    "cos_sim": lambda r: ((_f(r, 3, 4), _f(r, 3, 4)), {}),
+    "bilinear_tensor_product": lambda r: ((_f(r, 3, 4), _f(r, 3, 2),
+                                           _f(r, 5, 4, 2), _f(r, 5)), {}),
+    "mse_loss": lambda r: ((_f(r, 3, 4), _f(r, 3, 4)), {}),
+    "dice_loss": lambda r: ((_np_probs(r, 4, 3), _i(r, 0, 3, 4)), {}),
+    "bpr_loss": lambda r: ((_f(r, 4, 5), _i(r, 0, 5, 4)), {}),
+    "npair_loss": lambda r: ((_f(r, 4, 3), _f(r, 4, 3),
+                              np.array([0, 1, 0, 2], np.int32)), {}),
+    "center_loss": lambda r: ((_f(r, 5, 3), _i(r, 0, 4, 5), _f(r, 4, 3)),
+                              {"alpha": 0.3}),
+    "teacher_student_sigmoid_loss": lambda r: (
+        (20 * _f(r, 4), r.random(4).astype(np.float32)), {}),
+    "hsigmoid": lambda r: ((_f(r, 4, 3), _f(r, 5, 3), _f(r, 5),
+                            _i(r, 0, 6, 4)), {"num_classes": 6}),
+    # crf
+    "linear_chain_crf": lambda r: ((_f(r, 4, 5, 3), _i(r, 0, 3, 4, 5),
+                                    _lengths(r, 4, 5), _f(r, 3, 3)),
+                                   {"start": _f(r, 3), "stop": _f(r, 3)}),
+    "crf_decoding": lambda r: ((_f(r, 4, 5, 3), _f(r, 3, 3),
+                                _lengths(r, 4, 5)),
+                               {"start": _f(r, 3), "stop": _f(r, 3)}),
+    "warpctc": lambda r: ((_f(r, 3, 6, 5), np.array([6, 4, 2], np.int32),
+                           _i(r, 1, 5, 3, 3), np.array([2, 3, 3], np.int32)),
+                          {}),
+    "ctc_greedy_decoder": lambda r: ((_f(r, 3, 7, 4),
+                                      np.array([7, 3, 0], np.int32)), {}),
+    "edit_distance": lambda r: ((_i(r, 0, 3, 3, 5),
+                                 np.array([5, 2, 0], np.int32),
+                                 _i(r, 0, 3, 3, 4),
+                                 np.array([4, 0, 3], np.int32)), {}),
+    # sequence
+    "sequence_mask": lambda r: ((np.array([0, 3, 5], np.int32),),
+                                {"maxlen": 5}),
+    "sequence_pool": lambda r: ((_f(r, 3, 5, 2), _lengths(r, 3, 5)),
+                                {"pool_type": "max"}),
+    "sequence_softmax": lambda r: ((_f(r, 3, 5), _lengths(r, 3, 5)), {}),
+    "sequence_reverse": lambda r: ((_f(r, 3, 5, 2), _lengths(r, 3, 5)), {}),
+    "sequence_expand": lambda r: ((_f(r, 2, 3), 2), {}),
+    "sequence_pad": lambda r: (([_f(r, 2, 3), _f(r, 4, 3)], 3), {}),
+    "sequence_unpad": lambda r: ((_f(r, 3, 4, 2),
+                                  np.array([0, 2, 4], np.int32)), {}),
+    "sequence_conv": lambda r: ((_f(r, 3, 5, 2), _lengths(r, 3, 5),
+                                 _f(r, 6, 4)), {"context_start": -1}),
+    "sequence_slice": lambda r: ((_f(r, 3, 5, 2), _lengths(r, 3, 5),
+                                  np.array([0, 1, 2], np.int32),
+                                  np.array([2, 3, 2], np.int32)), {}),
+    "sequence_erase": lambda r: ((_i(r, 0, 4, 3, 5), _lengths(r, 3, 5),
+                                  [1, 2]), {}),
+    "sequence_enumerate": lambda r: ((_i(r, 0, 9, 3, 5), _lengths(r, 3, 5),
+                                      2), {"pad_value": -1}),
+    "sequence_concat": lambda r: ((_f(r, 3, 4, 2), _lengths(r, 3, 4),
+                                   _f(r, 3, 3, 2), _lengths(r, 3, 3)), {}),
+    "segment_sum": lambda r: ((_f(r, 6, 2), np.array([0, 0, 1, 3, 3, 3],
+                                                     np.int32), 4), {}),
+    "segment_max": lambda r: ((_f(r, 6, 2), np.array([0, 0, 1, 3, 3, 3],
+                                                     np.int32), 4), {}),
+    "sequence_first_step": lambda r: ((_f(r, 3, 4, 2),
+                                       _lengths(r, 3, 4)), {}),
+    "sequence_last_step": lambda r: ((_f(r, 3, 4, 2), _lengths(r, 3, 4)),
+                                     {}),
+    "sequence_expand_as": lambda r: ((_f(r, 3, 2), _lengths(r, 3, 4), 4),
+                                     {}),
+    "sequence_reshape": lambda r: ((_f(r, 3, 4, 2),
+                                    np.array([0, 2, 3], np.int32), 4), {}),
+    "sequence_scatter": lambda r: ((_f(r, 3, 5), _i(r, 0, 5, 3, 2),
+                                    _f(r, 3, 2), np.array([0, 1, 2],
+                                                          np.int32)), {}),
+    # control flow (plain callables: the same lambdas run on both
+    # packages' arrays)
+    "while_loop": lambda r: ((lambda x: x.sum() < 40.0,
+                              lambda x: x * 1.5 + 1.0, _pos(r, 3)), {}),
+    "cond": lambda r: ((np.array(False), lambda a, b: a * b,
+                        lambda a, b: a - b, _f(r, 3), _f(r, 3)), {}),
+    "case": lambda r: ((np.array(5, np.int32),
+                        [lambda x: x + 1.0, lambda x: x * 2.0], _f(r, 3)),
+                       {}),
+    "scan": lambda r: ((lambda c, x: (c * 0.5 + x, c - x), _f(r, 3),
+                        _f(r, 4, 3)), {"reverse": True}),
+    "fori_loop": lambda r: ((1, 4, lambda i, v: v * 0.5 + i, _f(r, 3)), {}),
+    # quant
+    "fake_quantize_abs_max": lambda r: ((_f(r, 3, 4),), {"bit_length": 4}),
+    "fake_channel_wise_quantize_abs_max": lambda r: ((_f(r, 3, 4),),
+                                                     {"axis": 0}),
+    "fake_quantize_moving_average_abs_max": lambda r: (
+        (_f(r, 3, 4), 1.5), {"momentum": 0.8}),
+    # metrics
+    "auc": lambda r: ((r.random(20).astype(np.float32),
+                       (r.random(20) < 0.4).astype(np.float32),
+                       np.zeros(11, np.float32), np.zeros(11, np.float32)),
+                      {}),
+    "precision_recall": lambda r: ((r.random(20).astype(np.float32),
+                                    (r.random(20) < 0.4).astype(np.float32),
+                                    np.array([1, 2, 3], np.float32)), {}),
+    # niche
+    "modified_huber_loss": lambda r: ((2 * _f(r, 6),
+                                       (r.random(6) < 0.5).astype(
+                                           np.float32)), {}),
+    "unpool": lambda r: ((_f(r, 1, 2, 2, 2), _unpool_indices(
+        r, 1, 2, 2, 2, 4, 4), (4, 4)), {}),
+    "spp": lambda r: ((_f(r, 2, 2, 5, 6), 3), {"pooling_type": "avg"}),
+    "conv_shift": lambda r: ((_f(r, 2, 6), _f(r, 2, 3)), {}),
+    "tree_conv": lambda r: ((_f(r, 2, 5, 3), _tree_edges(r),
+                             _f(r, 3, 3, 2, 2)), {"max_depth": 3}),
+    "var_conv_2d": lambda r: ((_f(r, 2, 2, 5, 6),
+                               np.array([5, 3], np.int32),
+                               np.array([4, 6], np.int32), _f(r, 3, 18)),
+                              {"input_channel": 2, "output_channel": 3,
+                               "stride_h": 2}),
+    "sequence_topk_avg_pooling": lambda r: ((_f(r, 2, 2, 3, 5),
+                                             np.array([3, 1], np.int32),
+                                             np.array([5, 2], np.int32)),
+                                            {"topks": (1, 3)}),
+    # nets
+    "glu": lambda r: ((_f(r, 3, 4),), {"axis": 1}),
+})
+
 def sample(name: str, seed: int = 0):
     """``(args, kwargs)`` of ``name``'s sample, from ``seed``."""
     return SAMPLES[name](np.random.default_rng(seed))
@@ -259,7 +499,7 @@ def run_op(name: str, args, kwargs, device):
     """The port's op ``name`` on ``args``/``kwargs`` (numpy) on
     ``device``."""
     from paddle_tpu_torch.core.registry import get_op
-    kwargs = dict(kwargs)
+    kwargs = {k: to_device(v, device) for k, v in kwargs.items()}
     if name in CREATION:
         kwargs["device"] = device
     return get_op(name).fn(*to_device(args, device), **kwargs)
@@ -299,6 +539,10 @@ def check_random(name: str, device, seed: int = 0) -> List[str]:
         return torch.Generator(device=device).manual_seed(seed)
 
     x = torch.arange(24, dtype=torch.float32, device=device).reshape(2, 3, 4)
+    emb = torch.linspace(-1, 1, 12, device=device).reshape(4, 3)
+    table = torch.linspace(-2, 2, 150, device=device).reshape(50, 3)
+    bias = torch.linspace(-1, 1, 50, device=device)
+    label = torch.tensor([3, 0, 49, 3], device=device)
     ref = torch.zeros((5, 2), device=device)
     probs = torch.tensor([[0.0, 1.0, 0.0], [0.5, 0.0, 0.5]], device=device)
     calls = {
@@ -312,6 +556,18 @@ def check_random(name: str, device, seed: int = 0) -> List[str]:
                                                         mean=1.0, std=2.0),
         "uniform_random_batch_size_like": lambda g: fn(ref, (1, 800), g,
                                                        min=-2.0, max=3.0),
+        "dropout": lambda g: fn(torch.ones(4000, device=device), g,
+                                rate=0.25),
+        "nce": lambda g: fn(emb, table, bias, label, g, num_neg=5,
+                            num_classes=50),
+        "sampled_softmax_with_cross_entropy": lambda g: fn(
+            lambda ids: emb @ table[ids].T, label, g, num_samples=6,
+            num_classes=50),
+        "sample_logits": lambda g: torch.cat([
+            o.reshape(4, -1).double() for o in fn(
+                torch.arange(120, dtype=torch.float32,
+                             device=device).reshape(4, 30) / 30.0,
+                label[:, None] % 30, 8, g)], 1),
     }
     a, b = calls[name](gen()), calls[name](gen())
     errs = [] if torch.equal(a, b) else ["two generators of one seed differ"]
@@ -338,6 +594,21 @@ def check_random(name: str, device, seed: int = 0) -> List[str]:
         if tuple(a.shape) != (2, 2, 2) or not all(
                 bool((x[i] == a[i][0, 0]).any()) for i in range(2)):
             errs.append("crop not of x")
+    elif name == "dropout":
+        kept = v[v != 0]
+        if abs(float((v == 0).double().mean()) - 0.25) > 0.05 or not bool(
+                (kept == float(np.float32(1 / 0.75))).all()):
+            errs.append("drop rate or survivor scale")
+    elif name in ("nce", "sampled_softmax_with_cross_entropy"):
+        if a.shape != () or not 0.0 < float(v) < 100.0:
+            errs.append(f"loss {v.tolist()}")
+    elif name == "sample_logits":
+        samples = v[:, :9].long()
+        if not (bool((samples[:, 0] == label.cpu() % 30).all())
+                and bool((samples[:, 1:] == samples[:1, 1:]).all())
+                and int(samples.min()) >= 0 and int(samples.max()) < 30):
+            errs.append("samples: labels first, then shared negatives in "
+                        "range")
     want_shape = {"gaussian_random_batch_size_like": (5, 2000),
                   "uniform_random_batch_size_like": (5, 800)}.get(name)
     if want_shape and tuple(a.shape) != want_shape:
@@ -349,8 +620,9 @@ def run_battery(device, seed: int = 0) -> Dict:
     """Every op of :data:`SAMPLES` on ``device`` in float32 against its
     numpy reference (or the op on the CPU where the reference has none),
     and every random op through :func:`check_random`. Returns
-    ``{"ops", "against_numpy", "against_cpu", "random", "failures"}``
-    (``failures``: name -> mismatches)."""
+    ``{"ops", "against_numpy", "against_cpu", "random", "by_module",
+    "failures"}`` (``by_module``: ops per registering module;
+    ``failures``: name -> mismatches)."""
     from paddle_tpu_torch.core.registry import get_op
     failures: Dict[str, List[str]] = {}
     counts = {"against_numpy": 0, "against_cpu": 0}
@@ -374,5 +646,10 @@ def run_battery(device, seed: int = 0) -> Dict:
         errs = check_random(name, device, seed)
         if errs:
             failures[name] = errs
+    by_module: Dict[str, int] = {}
+    for name in list(SAMPLES) + list(RANDOM):
+        mod = get_op(name).module.rsplit(".", 1)[-1]
+        by_module[mod] = by_module.get(mod, 0) + 1
     return {"ops": len(SAMPLES) + len(RANDOM), **counts,
-            "random": len(RANDOM), "failures": failures}
+            "random": len(RANDOM), "by_module": by_module,
+            "failures": failures}

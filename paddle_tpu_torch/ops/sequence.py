@@ -10,15 +10,18 @@ packing`), and :func:`make_segment_attention_bias` gates attention within
 packed segments. Out-of-range indices follow the reference's
 (``jax.ops``/``.at[]``) semantics: dropped, not raised.
 
-The RNN surfaces of the reference (``dynamic_lstm``, ``dynamic_gru``,
-``lstm_unit``, ``gru_unit``) wait for ``nn/rnn.py`` (ROADMAP Queue 1 item
-3).
+The ops register under the reference's names. The RNN surfaces
+(``dynamic_lstm``, ``dynamic_gru``, ``lstm_unit``, ``gru_unit``) run the
+cells of :mod:`paddle_tpu_torch.nn.rnn`, which hold their own parameters
+(the reference passes a parameter tree beside the layer).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from paddle_tpu_torch.core.registry import register_op
 
 NEG_INF = -1e30
 
@@ -32,6 +35,7 @@ def _take(x, idx):
                                                     x.shape[-1]))
 
 
+@register_op("sequence_mask")
 def sequence_mask(lengths, maxlen=None, dtype=torch.bool):
     """(B,) lengths -> (B, T) validity mask (sequence_mask_op)."""
     if maxlen is None:
@@ -40,6 +44,7 @@ def sequence_mask(lengths, maxlen=None, dtype=torch.bool):
     return (pos[None, :] < lengths[:, None]).to(dtype)
 
 
+@register_op("sequence_pool")
 def sequence_pool(x, lengths, pool_type="sum"):
     """Pool (B, T, D) over valid positions (sequence_pool_op:
     sum/average/sqrt/max/last/first)."""
@@ -63,6 +68,7 @@ def sequence_pool(x, lengths, pool_type="sum"):
     raise ValueError(f"unknown pool_type {pool_type}")
 
 
+@register_op("sequence_softmax")
 def sequence_softmax(x, lengths):
     """Masked softmax over the time dim (sequence_softmax_op)."""
     mask = sequence_mask(lengths, x.shape[1], torch.bool)
@@ -71,6 +77,7 @@ def sequence_softmax(x, lengths):
     return torch.where(mask, p, torch.zeros_like(p))
 
 
+@register_op("sequence_reverse")
 def sequence_reverse(x, lengths):
     """Reverse each row's valid prefix, keeping padding in place
     (sequence_reverse_op)."""
@@ -81,16 +88,20 @@ def sequence_reverse(x, lengths):
     return _take(x, src)
 
 
+@register_op("sequence_expand")
 def sequence_expand(x, times):
     """Repeat each row ``times`` times (a Python int; the LoD expand is
     data-dependent, see the reference)."""
     return torch.repeat_interleave(x, times, dim=0)
 
 
+@register_op("sequence_pad")
 def sequence_pad(rows, maxlen, pad_value=0.0):
     """Host-side helper: list of (len_i, D) arrays -> ((B, maxlen, D),
     lengths) as CPU tensors (sequence_pad_op: padding happens at ingest,
     matching the native feed's ragged slots)."""
+    rows = [r.detach().cpu().numpy() if isinstance(r, torch.Tensor)
+            else np.asarray(r) for r in rows]
     b = len(rows)
     d = np.shape(rows[0])[-1] if np.ndim(rows[0]) > 1 else None
     shape = (b, maxlen, d) if d else (b, maxlen)
@@ -104,6 +115,7 @@ def sequence_pad(rows, maxlen, pad_value=0.0):
     return torch.from_numpy(out), torch.from_numpy(lengths)
 
 
+@register_op("sequence_unpad")
 def sequence_unpad(x, lengths):
     """(B, T, ...) -> list of valid prefixes (host-side numpy)."""
     xs = np.asarray(x.cpu() if isinstance(x, torch.Tensor) else x)
@@ -112,6 +124,7 @@ def sequence_unpad(x, lengths):
     return [xs[i, :ls[i]] for i in range(xs.shape[0])]
 
 
+@register_op("sequence_conv")
 def sequence_conv(x, lengths, filter_weight, context_start=-1,
                   padding_value=0.0):
     """Context-window convolution over time (sequence_conv_op): at each
@@ -136,6 +149,7 @@ def sequence_conv(x, lengths, filter_weight, context_start=-1,
     return out * mask
 
 
+@register_op("sequence_slice")
 def sequence_slice(x, lengths, offsets, slice_lengths):
     """Per-row slice of the valid prefix (sequence_slice_op): row i keeps
     x[i, offsets[i] : offsets[i]+slice_lengths[i]], left-aligned into the
@@ -154,6 +168,7 @@ def sequence_slice(x, lengths, offsets, slice_lengths):
     return out, new_len
 
 
+@register_op("sequence_erase")
 def sequence_erase(x, lengths, tokens):
     """Remove every occurrence of ``tokens`` from each row's valid prefix
     (sequence_erase_op), left-compacting survivors. x: (B, T) int;
@@ -172,6 +187,7 @@ def sequence_erase(x, lengths, tokens):
         new_len
 
 
+@register_op("sequence_enumerate")
 def sequence_enumerate(x, lengths, win_size, pad_value=0):
     """Sliding windows over each row (sequence_enumerate_op): output
     (B, T, win_size) where out[b, t] = x[b, t:t+win], positions past the
@@ -187,6 +203,7 @@ def sequence_enumerate(x, lengths, win_size, pad_value=0):
     return torch.stack(wins, dim=-1)
 
 
+@register_op("sequence_concat")
 def sequence_concat(x, x_lengths, y, y_lengths, pad_value=0):
     """Row-wise ragged concat (sequence_concat_op): row i becomes
     x[i,:lx] ++ y[i,:ly], padded to Tx+Ty; returns (out, lengths).
@@ -213,6 +230,7 @@ def _in_range(segment_ids, num_segments):
     return ids, (ids >= 0) & (ids < num_segments)
 
 
+@register_op("segment_sum")
 def segment_sum(data, segment_ids, num_segments):
     """``jax.ops.segment_sum``: per-segment sums over the leading axis;
     ids outside ``[0, num_segments)`` are dropped."""
@@ -221,6 +239,7 @@ def segment_sum(data, segment_ids, num_segments):
     return out.index_add(0, ids[ok], data[ok])
 
 
+@register_op("segment_max")
 def segment_max(data, segment_ids, num_segments):
     """``jax.ops.segment_max``: per-segment maxima over the leading axis;
     an empty segment holds the dtype's lowest value (-inf for floats)."""
@@ -245,12 +264,14 @@ def make_segment_attention_bias(segment_ids, kv_segment_ids=None,
     return torch.where(same, 0.0, NEG_INF).to(dtype)[:, None, :, :]
 
 
+@register_op("sequence_first_step")
 def sequence_first_step(x, lengths):
     """sequence_first_step (sequence_pool FIRST): (B, T, ...) -> (B, ...)."""
     del lengths  # the first step is index 0 regardless
     return x[:, 0]
 
 
+@register_op("sequence_last_step")
 def sequence_last_step(x, lengths):
     """sequence_last_step (sequence_pool LAST)."""
     idx = torch.clamp(lengths - 1, min=0).long()
@@ -259,6 +280,7 @@ def sequence_last_step(x, lengths):
     return torch.gather(x, 1, idx)[:, 0]
 
 
+@register_op("sequence_expand_as")
 def sequence_expand_as(x, ref_lengths, maxlen):
     """sequence_expand_as_op: repeat row i of x ``ref_lengths[i]`` times
     into a padded (B, maxlen, ...) layout (LoD -> padded analog)."""
@@ -268,6 +290,7 @@ def sequence_expand_as(x, ref_lengths, maxlen):
     return out * mask.reshape(mask.shape + (1,) * (x.ndim - 1)).to(x.dtype)
 
 
+@register_op("sequence_reshape")
 def sequence_reshape(x, lengths, new_dim):
     """sequence_reshape_op: re-chunk each row's valid timesteps into
     ``new_dim``-wide steps. Padded form: (B, T, D) -> (B, T*D//new_dim,
@@ -283,6 +306,7 @@ def sequence_reshape(x, lengths, new_dim):
     return x.reshape(b, t * d // new_dim, new_dim), new_lengths
 
 
+@register_op("sequence_scatter")
 def sequence_scatter(x, index, updates, lengths):
     """sequence_scatter_op: per-row scatter-add of updates at index
     positions (positions past lengths, and indices outside the row, are
@@ -293,3 +317,27 @@ def sequence_scatter(x, index, updates, lengths):
     upd = torch.where(valid, updates, torch.zeros_like(updates)).to(x.dtype)
     idx = torch.where(valid, index, torch.zeros_like(index)).long()
     return x.scatter_add(1, idx, upd)
+
+
+def dynamic_lstm(x, lengths, rnn):
+    """layers.dynamic_lstm (``dynamic_lstm_op``): a ragged-batch LSTM, an
+    :class:`~paddle_tpu_torch.nn.rnn.RNN` over an ``LSTMCell`` on padded
+    rows and lengths. Returns ``(outputs (B, T, H), final state)``."""
+    return rnn(x, lengths)
+
+
+def dynamic_gru(x, lengths, rnn):
+    """layers.dynamic_gru (``dynamic_gru_op``): as :func:`dynamic_lstm`
+    over a ``GRUCell``."""
+    return rnn(x, lengths)
+
+
+def lstm_unit(state, x, cell):
+    """layers.lstm_unit (``lstm_unit_op``): one ``LSTMCell`` step,
+    ``(new (h, c), h)``."""
+    return cell(state, x)
+
+
+def gru_unit(state, x, cell):
+    """layers.gru_unit (``gru_unit_op``): one ``GRUCell`` step."""
+    return cell(state, x)

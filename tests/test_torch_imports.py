@@ -207,3 +207,31 @@ def test_the_data_and_export_slice_imports_with_jax_blocked():
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
+
+
+def test_the_recurrent_and_structured_slice_imports_with_jax_blocked():
+    """The recurrent and structured layer (RNNs, CRF and CTC, the rest of
+    the op library, conv layers, nets, MoE, distributions, the book
+    models) imports and runs with ``jax`` and ``paddle_tpu`` made
+    unimportable."""
+    code = ("import sys\n"
+            "for m in ('jax', 'jaxlib', 'paddle_tpu', 'ml_dtypes', "
+            "'optax'):\n"
+            "    sys.modules[m] = None\n"
+            "import torch\n"
+            "from paddle_tpu_torch.nn import rnn, nets, moe, distributions\n"
+            "from paddle_tpu_torch.nn.layers import Conv2D, BatchNorm\n"
+            "from paddle_tpu_torch.ops import (crf, nn, control_flow, "
+            "quant, metrics_ops, niche, samples)\n"
+            "from paddle_tpu_torch.models import book\n"
+            "m = book.LabelSemanticRoles(20, 5, dim=4, hidden=4, "
+            "device='cpu')\n"
+            "w = torch.ones(2, 6, dtype=torch.long)\n"
+            "n = torch.tensor([6, 3])\n"
+            "loss, _ = m.loss(w, w[:, 0], w % 2, w % 5, n)\n"
+            "assert torch.isfinite(loss)\n"
+            "assert m.decode(w, w[:, 0], w % 2, n).shape == (2, 6)\n"
+            "assert samples.run_battery('cpu')['failures'] == {}\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr

@@ -1,9 +1,13 @@
-"""The port's op registry (``paddle_tpu_torch.core.registry``) and its dense
-op library (``ops/{elementwise,math,reduction,activation,tensor}.py``)
-against the JAX package on the CPU: the registry's API, the registered
-names of each module equal to the reference's, every op on the same numpy
-inputs (``ops.samples``) as the JAX op (floats within 1e-6 abs / 1e-5
-rel, integers, bools and indices exactly), the random ops by shape,
+"""The port's op registry (``paddle_tpu_torch.core.registry``) and its
+registered ops against the JAX package on the CPU: the registry's API,
+the registered names of each module (the dense op library ``ops/{
+elementwise,math,reduction,activation,tensor}.py``, ``ops/{nn,crf,
+sequence,control_flow,quant,metrics_ops,niche}.py`` and ``nn/nets.py``)
+equal to the reference's with the same ``has_grad`` and presence of a
+reference, every op of the dense library on the same numpy inputs
+(``ops.samples``) as the JAX op (floats within 1e-6 abs / 1e-5 rel,
+integers, bools and indices exactly; the other modules' ops:
+``test_torch_ops_registry_structured.py``), the random ops by shape,
 range or moments and same-generator determinism, and the battery that
 runs every op against its numpy reference."""
 
@@ -15,17 +19,22 @@ import numpy as np
 import pytest
 import torch
 
+import paddle_tpu.nn.nets  # noqa: F401  (registers the reference's glu)
 import paddle_tpu.ops  # noqa: F401  (registers the reference's ops)
+from paddle_tpu.ops import (control_flow, crf, metrics_ops,  # noqa: F401
+                            niche, quant, sequence)
 from paddle_tpu.core import registry as jreg
 from paddle_tpu_torch.core import registry as preg
 from paddle_tpu_torch.ops import (activation, beam_search,  # noqa: F401
                                   elementwise, math, reduction, samples,
                                   tensor)
+from torch_parity import DENSE_OPS, op_equals_the_reference, op_module
 
 torch.set_num_threads(2)
 
 MODULES = ("elementwise", "math", "reduction", "activation", "tensor",
-           "beam_search")
+           "beam_search", "nn", "crf", "sequence", "control_flow", "quant",
+           "metrics_ops", "niche", "nets")
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 
@@ -45,8 +54,10 @@ def _names_of(registry_module, path):
 
 @pytest.mark.parametrize("module", MODULES)
 def test_registered_names_equal_the_references(module):
-    want = _names_of(jreg, ROOT / "paddle_tpu" / "ops" / f"{module}.py")
-    got = _names_of(preg, ROOT / "paddle_tpu_torch" / "ops" / f"{module}.py")
+    sub = "nn" if module == "nets" else "ops"
+    want = _names_of(jreg, ROOT / "paddle_tpu" / sub / f"{module}.py")
+    got = _names_of(preg, ROOT / "paddle_tpu_torch" / sub / f"{module}.py")
+    assert got
     assert got == want
     for name in got:
         assert preg.get_op(name).has_grad == jreg.get_op(name).has_grad
@@ -64,29 +75,17 @@ def test_registry_api():
         preg.get_op("no_such_op")
     with pytest.raises(ValueError, match="already registered"):
         preg.register_op("relu")(lambda x: x)
-    # every op of the five modules has a sample, and nothing else does
-    five = set(preg.list_ops()) - {"beam_search", "beam_search_decode"}
-    assert five == set(samples.SAMPLES) | set(samples.RANDOM)
+    # every registered op but beam search's has a sample, and nothing else
+    # does
+    ops = set(preg.list_ops()) - {"beam_search", "beam_search_decode"}
+    assert ops == set(samples.SAMPLES) | set(samples.RANDOM)
     assert not set(samples.SAMPLES) & set(samples.RANDOM)
 
 
-def _to_jax(obj):
-    if isinstance(obj, np.ndarray):
-        return jnp.asarray(obj)
-    if isinstance(obj, (list, tuple)):
-        return type(obj)(_to_jax(o) for o in obj)
-    return obj
-
-
-@pytest.mark.parametrize("name", sorted(samples.SAMPLES))
+@pytest.mark.parametrize("name", sorted(
+    n for n in samples.SAMPLES if op_module(n) in DENSE_OPS))
 def test_op_equals_the_references(name):
-    args, kwargs = samples.sample(name, seed=0)
-    want = jreg.get_op(name).fn(*_to_jax(args), **kwargs)
-    got = samples.run_op(name, args, kwargs, "cpu")
-    errs = samples.close(got, samples.to_numpy(
-        [np.asarray(w) for w in want] if isinstance(want, (list, tuple))
-        else np.asarray(want)), samples.ATOL, samples.RTOL)
-    assert not errs, errs
+    op_equals_the_reference(name)
 
 
 @pytest.mark.parametrize("name", samples.RANDOM)

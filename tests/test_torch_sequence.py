@@ -128,6 +128,18 @@ def test_segment_attention_bias_matches_the_reference(kv):
 
 
 def test_rnn_surfaces_are_left_to_their_roadmap_item():
+    """The surfaces came with ``nn/rnn.py`` (their roadmap item, ROADMAP
+    Queue 1 item 3): both packages have them, and the port's run its
+    cells (values against the reference: ``test_torch_rnn.py``)."""
+    from paddle_tpu_torch.nn.rnn import GRUCell, RNN
     for name in ("dynamic_lstm", "dynamic_gru", "lstm_unit", "gru_unit"):
-        assert hasattr(J, name) and not hasattr(P, name)
-    assert "ROADMAP Queue 1 item" in P.__doc__
+        assert hasattr(J, name) and hasattr(P, name)
+    rnn = RNN(GRUCell(D, 4))
+    rnn.cell.reset_parameters(torch.Generator().manual_seed(0))
+    d = _inputs()
+    x, lengths = torch.from_numpy(d["x"]), torch.from_numpy(d["lengths"])
+    out, final = P.dynamic_gru(x, lengths, rnn)
+    want, want_final = rnn(x, lengths)
+    assert torch.equal(out, want) and torch.equal(final, want_final)
+    step, h = P.gru_unit(final, x[:, 0], rnn.cell)
+    assert torch.equal(step, h) and step.shape == (B, 4)
