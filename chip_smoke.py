@@ -375,6 +375,53 @@ Phases, in order; any failure exits non-zero:
        forward and backward card vs CPU, ``expert_counts`` exactly, the
        card's ms;
    (d) 12 (e)'s battery by registering module, 0 failures.
+14. the model zoo (runs after 13; TF32 off for the fp32 legs; no
+   registered kernel):
+   (a) the main path, ResNet-50 at the JAX package's chip configuration
+       (``bench.py``, BASELINE config[1]): 1000 classes, conv7 stem,
+       Momentum(0.1, 0.9). At 4 x 224 on the card against the CPU from
+       the same seeded weights, fp32: the eval-mode loss within
+       ``REC_LOSS_RTOL`` and every gradient within twice the CPU's fp32
+       distance from an fp64 recompute (``_fp32_card_vs_cpu(fp64=True)``:
+       these fp32 gradients are ill-conditioned), then one training
+       step: its loss within ``REC_LOSS_RTOL`` and every BatchNorm
+       running statistic after it within 1e-5 of its scale (its
+       training-mode gradients are reported, not held: ill-conditioned
+       at initialisation); the kernels of one eager bf16 step with the
+       convs' pads through ``F.conv2d``'s ``padding=`` and through
+       ``F.pad`` first
+       (launches, NCHW <-> NHWC conversions, device ms); then 128 x 224 x
+       224 x 3 NHWC, bf16 over fp32 masters, 3 + 10 steps through one
+       captured graph: ms a step, images/s, MFU over the layer-shape
+       reckoning (2 x MACs, forward and backward 3x the forward) against
+       989 TFLOP/s, launches a step and the layout conversions among
+       them, busy share, peak memory, captures after the first graphed
+       step (0); a bf16 eval step of the trained model returns bf16
+       logits within ``ZOO_BF16_EVAL_REL`` of fp32 eval, and
+       ``inference.fold_batch_norms`` gives the fp32 eval logits within
+       ``ZOO_FOLD_REL``;
+   (b) detectors: YOLOv3-DarkNet53 (80 classes, COCO anchors; against
+       fp64 as (a)) and SSD300-MobileNetV1 (21 classes) fp32 loss and
+       gradients card vs CPU in eval mode at a small batch (YOLOv3 at
+       320), ``detect`` on the same head outputs (kept boxes, classes
+       and validity equal, boxes within ``DET_TOL`` of their scale,
+       scores within it), then 3 + 5 bf16 steps in one graph at 8 x 608
+       and 32 x 300 (ms a step, images/s, 0 captures after the first
+       graphed step); Faster and Mask R-CNN at ``FasterRCNNConfig()``
+       (224, 21 classes): fp32 loss and gradients card vs CPU at batch 2
+       (Mask R-CNN's within ``DET_MASK_GRAD_REL``: relu sign flips in its
+       mask head) through the same proposals and mask targets
+       (``_same_proposals``), Faster R-CNN's
+       proposals and final detections each on the same inputs, Mask
+       R-CNN's ``segment``;
+   (c) the other classifiers (MobileNet V1/V2, VGG16, SE-ResNeXt-50,
+       LeNet, AlexNet, GoogLeNet, ShuffleNetV2, DarkNet53, SqueezeNet,
+       DenseNet-121), TSN, C3D and CRNN at full width: fp32 forward and
+       backward card vs CPU at batch 2 at the smallest input the head
+       admits (eval mode), and the card's ms of one bf16 graphed step
+       (``ZOO_TIMED_BATCH`` x ``ZOO_TIMED_HW``); one DCGAN ``gan_step``
+       card vs CPU on the same latents and its eager ms;
+   (d) 12 (e)'s battery over the 34 detection ops: 0 failures.
 7. output  — one ``{"kernels": [...]}`` line (each kernel with its
    tunables' candidates and the configuration the committed cache chose
    at each shape, ``blocks``; the ring's entry over K5/K6 with its calls
@@ -390,6 +437,7 @@ from __future__ import annotations
 
 import collections
 import concurrent.futures
+import contextlib
 import copy
 import dataclasses
 import functools
@@ -5991,10 +6039,23 @@ def _norm_err(got, want):
 
 
 def _fp32_card_vs_cpu(label, card_model, cpu_model, batch_card, batch_cpu,
-                      loss_fn):
+                      loss_fn, phase="13", fp64=False, grad_rel=REC_GRAD_REL):
     """One fp32 forward and backward of ``loss_fn(model, **batch)`` on the
     card and on the CPU from the same weights: the loss within
-    ``REC_LOSS_RTOL`` and every gradient within ``REC_GRAD_REL``."""
+    ``REC_LOSS_RTOL`` and every gradient within ``REC_GRAD_REL`` (a
+    parameter the loss does not reach has no gradient on either side).
+    With ``fp64``, for a model whose fp32 gradients are ill-conditioned
+    (rounding amplified past ``REC_GRAD_REL``), both fp32 gradients are
+    held against an fp64 recompute on the CPU instead: the card's worst
+    error within ``REC_GRAD_REL`` or twice the CPU's worst. ``grad_rel``
+    replaces ``REC_GRAD_REL`` for a model that needs its own bound."""
+    ref64 = None
+    if fp64:
+        ref64 = copy.deepcopy(cpu_model).double()
+        ref64.zero_grad(set_to_none=True)
+        out64 = loss_fn(ref64, **{k: v.double() if v.is_floating_point()
+                                  else v for k, v in batch_cpu.items()})
+        (out64[0] if isinstance(out64, tuple) else out64).backward()
     out = {}
     for where, model, batch in (("card", card_model, batch_card),
                                 ("cpu", cpu_model, batch_cpu)):
@@ -6009,52 +6070,79 @@ def _fp32_card_vs_cpu(label, card_model, cpu_model, batch_card, batch_cpu,
     (l_card, s_card), (l_cpu, s_cpu) = out["card"], out["cpu"]
     rel = abs(l_card - l_cpu) / abs(l_cpu)
     grads = dict(cpu_model.named_parameters())
-    errs = {n: _norm_err(p.grad, grads[n].grad)
-            for n, p in card_model.named_parameters()}
-    worst = max(errs, key=errs.get)
-    stats = {"loss_card": l_card, "loss_cpu": l_cpu, "loss_rel_err": rel,
-             "grad_max_norm_err": errs[worst], "grad_worst": worst,
-             "tensors": len(errs), "card_s": s_card, "cpu_s": s_cpu}
-    log(f"  13 {label} fp32 card vs CPU: " + json.dumps(stats))
+    unreached = sorted(n for n, p in card_model.named_parameters()
+                       if p.grad is None)
+    if unreached != sorted(n for n, p in cpu_model.named_parameters()
+                           if p.grad is None):
+        raise AssertionError(f"{phase} {label}: the card and the CPU reach "
+                             "different parameters")
+    stats = {"loss_card": l_card, "loss_cpu": l_cpu, "loss_rel_err": rel}
+    if ref64 is None:
+        errs = {n: _norm_err(p.grad, grads[n].grad)
+                for n, p in card_model.named_parameters()
+                if p.grad is not None}
+        limits = dict.fromkeys(errs, grad_rel)
+    else:
+        g64 = dict(ref64.named_parameters())
+        errs = {n: _norm_err(p.grad, g64[n].grad)
+                for n, p in card_model.named_parameters()
+                if p.grad is not None}
+        cpu_worst = max(_norm_err(grads[n].grad, g64[n].grad)
+                        for n in errs)
+        limits = dict.fromkeys(errs, max(grad_rel, 2 * cpu_worst))
+        stats["cpu_fp32_vs_fp64_max_norm_err"] = cpu_worst
+        stats["card_vs_cpu_fp32_max_norm_err"] = max(
+            _norm_err(p.grad, grads[n].grad)
+            for n, p in card_model.named_parameters() if p.grad is not None)
+    worst = max(errs, key=lambda n: errs[n] / limits[n])
+    stats.update({"grad_max_norm_err": errs[worst], "grad_worst": worst,
+                  "grad_reference": "cpu fp64" if fp64 else "cpu fp32",
+                  "tensors": len(errs), "card_s": s_card, "cpu_s": s_cpu})
+    log(f"  {phase} {label} fp32 card vs CPU: " + json.dumps(stats))
     if rel > REC_LOSS_RTOL:
-        raise AssertionError(f"13 {label}: fp32 loss {l_card} on the card, "
-                             f"{l_cpu} on the CPU")
-    if errs[worst] > REC_GRAD_REL:
-        raise AssertionError(f"13 {label}: gradient of {worst} differs by "
-                             f"{errs[worst]:.3e} of its scale")
+        raise AssertionError(f"{phase} {label}: fp32 loss {l_card} on the "
+                             f"card, {l_cpu} on the CPU")
+    if errs[worst] > limits[worst]:
+        raise AssertionError(f"{phase} {label}: gradient of {worst} differs "
+                             f"by {errs[worst]:.3e} of its scale (limit "
+                             f"{limits[worst]:.3e})")
     return stats
 
 
 def _timed_train(label, device, model, loss_fn, batches, policy=None,
-                 lr=1e-3):
-    """``REC_WARM`` + ``REC_TIMED`` steps of ``build_train_step`` (one
-    captured graph, Adam) over ``batches`` (cycled): ms a step, the
-    launches and busy share of the profiled window, peak memory, graph
-    builds and captures after the first graphed step (must be 0)."""
+                 lr=1e-3, opt=None, warm=REC_WARM, timed=REC_TIMED,
+                 phase="13", keep=()):
+    """``warm`` + ``timed`` steps of ``build_train_step`` (one captured
+    graph; ``opt``, else Adam at ``lr``) over ``batches`` (cycled): ms a
+    step, the launches and busy share of the profiled window (``keep`` as
+    :func:`profile_window`'s), peak memory, graph builds and captures
+    after the first graphed step (must be 0)."""
     from paddle_tpu_torch.observability import recompile
     from paddle_tpu_torch.optimizer import Adam
     from paddle_tpu_torch.train import build_train_step, make_train_state
-    opt = Adam(model.parameters(), learning_rate=lr)
+    if opt is None:
+        opt = Adam(model.parameters(), learning_rate=lr)
     state = make_train_state(model, opt)
     step = build_train_step(loss_fn, opt, policy=policy)
     torch.cuda.reset_peak_memory_stats()
     losses = []
-    for i in range(REC_WARM):
+    for i in range(warm):
         state, m = step(state, **batches[i % len(batches)])
         losses.append(m["loss"])
     torch.cuda.synchronize()
     captures = recompile.capture_count()
     t0 = time.monotonic()
-    for i in range(REC_TIMED):
-        state, m = step(state, **batches[(REC_WARM + i) % len(batches)])
+    for i in range(timed):
+        state, m = step(state, **batches[(warm + i) % len(batches)])
         losses.append(m["loss"])
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     losses = [float(x) for x in losses]
     if not all(np.isfinite(losses)):
-        raise AssertionError(f"13 {label}: non-finite loss {losses}")
-    prof = profile_window(lambda: step(state, **batches[0]), PROFILED_STEPS)
-    stats = {"ms_per_step": wall / REC_TIMED * 1e3,
+        raise AssertionError(f"{phase} {label}: non-finite loss {losses}")
+    prof = profile_window(lambda: step(state, **batches[0]), PROFILED_STEPS,
+                          keep=keep)
+    stats = {"ms_per_step": wall / timed * 1e3,
              "launches_per_step": prof["kernel_launches"] / PROFILED_STEPS,
              "busy_share": prof["device_busy_share"],
              "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
@@ -6063,11 +6151,13 @@ def _timed_train(label, device, model, loss_fn, batches, policy=None,
                  recompile.capture_count() - captures,
              "loss_first": losses[0], "loss_last": losses[-1],
              "top_kernels": prof["top_kernels"][:5]}
+    if keep:
+        stats["kept_kernels"] = prof["kept_kernels"]
     if step.builds != 1:
-        raise AssertionError(f"13 {label}: {step.builds} graph builds "
+        raise AssertionError(f"{phase} {label}: {step.builds} graph builds "
                              "(the step did not capture once)")
     if stats["captures_after_first_graphed_step"]:
-        raise AssertionError(f"13 {label}: the step captured again")
+        raise AssertionError(f"{phase} {label}: the step captured again")
     return stats
 
 
@@ -6267,6 +6357,723 @@ def recurrent_slice(device, battery):
     return stats
 
 
+# -- phase 14: the model zoo ------------------------------------------------
+
+#: (a) ResNet-50 at the JAX package's chip configuration (``bench.py``,
+#: BASELINE config[1]): 1000 classes, 128 x 224 x 224 x 3 NHWC,
+#: Momentum(0.1, 0.9), bf16 over fp32 masters, the conv7 stem
+ZOO_RESNET = dict(depth=50, classes=1000, batch=128, hw=224, parity_batch=4)
+ZOO_WARM, ZOO_TIMED = 3, 10
+#: bf16 eval logits against fp32 eval on the same weights: max |diff| over
+#: max |fp32| (bf16 carries 8 bits of mantissa through 50 layers)
+ZOO_BF16_EVAL_REL = 0.05
+#: folded conv+BN against the unfolded eval logits, fp32 (TF32 off)
+ZOO_FOLD_REL = 1e-4
+#: (b) detector cells: YOLOv3-DarkNet53 at 608, 80 COCO classes (the
+#: config's COCO anchors; PaddleDetection ``yolov3_darknet.yml``), batch
+#: 8; SSD300-MobileNetV1, 21 VOC classes, batch 32; Faster and Mask R-CNN
+#: at ``FasterRCNNConfig()``. The CPU legs run the same widths at a small
+#: batch (YOLOv3 at 320)
+DET_YOLO = dict(batch=8, hw=608, cpu_batch=1, cpu_hw=320)
+DET_SSD = dict(batch=32, hw=300, cpu_batch=2)
+DET_RCNN = dict(cpu_batch=2)
+DET_GT = 8                      # ground-truth rows an image (2 padding)
+#: Mask R-CNN's fp32 gradients card vs CPU, of their scale: its mask head
+#: puts 1.6 M values through relu at batch 2, and the few within
+#: rounding of 0 take another sign on each device (a 2x2 transposed
+#: conv's output gradient differs from an fp64 recompute by 6e-3 on the
+#: CPU, 0.21 on the card, element for element, while its forward agrees
+#: to 1e-6; the card's parameter gradients land 4.1e-4 from the CPU's)
+DET_MASK_GRAD_REL = 1e-3
+DET_WARM, DET_TIMED = 3, 5
+#: boxes (over their coordinates' scale) and scores of ``detect`` on the
+#: same head outputs, card vs CPU
+DET_TOL = 1e-5
+#: (c) the rest of the zoo, one bf16 graphed step each at this batch and
+#: image side (C3D's clips at half of it, 16 frames)
+ZOO_TIMED_BATCH = 32
+ZOO_TIMED_HW = 224
+ZOO_TIMED_STEPS = 5
+#: layout conversions: cuDNN's NCHW <-> NHWC transposes by kernel name
+LAYOUT_KERNELS = ("nchwToNhwc", "nhwcToNchw", "NchwToNhwc", "NhwcToNchw")
+
+
+def _zoo_loss(m, **b):
+    return m.loss(**b)
+
+
+def conv_macs(model, *inputs):
+    """Multiply-accumulates of one forward of ``model(*inputs)`` (batch of
+    one), reckoned from the shapes each conv and linear layer sees."""
+    from paddle_tpu_torch.nn.layers import Conv2D, Linear
+    macs = [0]
+
+    def conv_hook(mod, args, out):
+        kh, kw = mod.kernel_size
+        macs[0] += out.numel() * (mod.in_channels // mod.groups) * kh * kw
+
+    def linear_hook(mod, args, out):
+        macs[0] += out.numel() * mod.in_features
+
+    hooks = [m.register_forward_hook(conv_hook if isinstance(m, Conv2D)
+                                     else linear_hook)
+             for m in model.modules() if isinstance(m, (Conv2D, Linear))]
+    try:
+        with torch.no_grad():
+            was = model.training
+            model.eval()
+            model(*inputs)
+            model.train(was)
+    finally:
+        for h in hooks:
+            h.remove()
+    return macs[0]
+
+
+def _images(device, b, hw, classes, seed, channels=3):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return {"image": torch.randn((b, hw, hw, channels), generator=g,
+                                 device=device),
+            "label": torch.randint(0, classes, (b,), generator=g,
+                                   device=device)}
+
+
+def _layout_census(device, model, batch, policy):
+    """Kernels an eager bf16 training forward and backward launches, with
+    the convs' symmetric pads through ``F.conv2d``'s ``padding=`` (the
+    port now) and through ``F.pad`` first (the port before): all
+    launches, the NCHW <-> NHWC conversions, and the device ms of each."""
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.nn.module import capture_state
+    from paddle_tpu_torch.ops import nn as ops_nn
+    from paddle_tpu_torch.train import _policy_call
+
+    def padded(x_cf, w, stride, padding, dilation, groups):
+        if not isinstance(padding, str):
+            flat = [p for p in reversed(padding) for _ in range(2)]
+            if any(flat):
+                x_cf = F.pad(x_cf, flat)
+            padding = "VALID"
+        return now(x_cf, w, stride, padding, dilation, groups)
+
+    def run():
+        model.zero_grad(set_to_none=True)
+        with capture_state():
+            loss, _ = _policy_call(_zoo_loss, model, policy, batch)
+        loss.backward()
+
+    now = ops_nn._conv_nd
+    out = {}
+    for label, conv in (("padding_arg", now), ("f_pad", padded)):
+        ops_nn._conv_nd = conv
+        try:
+            run()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                run()
+                torch.cuda.synchronize()
+        finally:
+            ops_nn._conv_nd = now
+        launches = layout = 0
+        ms = 0.0
+        for ev in prof.key_averages():
+            if not str(ev.device_type).endswith("CUDA"):
+                continue
+            us = getattr(ev, "self_device_time_total", 0.0)
+            if us <= 0:
+                continue
+            launches += ev.count
+            ms += us / 1e3
+            if any(k in ev.key for k in LAYOUT_KERNELS):
+                layout += ev.count
+        out[label] = {"launches": launches, "layout_conversions": layout,
+                      "device_ms": ms}
+    return out
+
+
+def resnet50_main_path(device):
+    """(a) ResNet-50: one fp32 step card vs CPU at 4 x 224, then 3 + 10
+    bf16 steps through one captured graph at 128 x 224, the layout
+    census, and bf16 / folded eval of the trained model."""
+    from paddle_tpu_torch.core.dtypes import get_policy
+    from paddle_tpu_torch.inference import fold_batch_norms
+    from paddle_tpu_torch.models import convert
+    from paddle_tpu_torch.models.resnet import ResNet
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.train import (build_eval_step, build_train_step,
+                                        make_train_state)
+    c = ZOO_RESNET
+    models = {where: ResNet(c["depth"], num_classes=c["classes"],
+                            device=where, seed=0)
+              for where in ("cpu", device)}
+    batch = _images("cpu", c["parity_batch"], c["hw"], c["classes"], 21)
+    card_batch = {k: v.to(device) for k, v in batch.items()}
+    # gradients in eval mode (the running statistics), against an fp64
+    # recompute: this net's fp32 gradients at initialisation are
+    # ill-conditioned (on the CPU they differ from fp64 by ~3.5e-3 of
+    # their scale in eval mode, by up to 0.26 in the last stage in
+    # training mode), so in training mode only the loss and the
+    # statistics are held
+    for m in models.values():
+        m.eval()
+    eval_parity = _fp32_card_vs_cpu("(a) ResNet-50 eval mode",
+                                    models[device], models["cpu"],
+                                    card_batch, batch, _zoo_loss,
+                                    phase="14", fp64=True)
+    # one fp32 Momentum step in training mode on both
+    steps = {}
+    for (tag, where), model in zip((("cpu", "cpu"), ("card", device)),
+                                   models.values()):
+        model.train()
+        opt = Momentum(model.parameters(), learning_rate=0.1, momentum=0.9)
+        state = make_train_state(model, opt)
+        step = build_train_step(_zoo_loss, opt, cuda_graphs=False)
+        t0 = time.monotonic()
+        _, m = step(state, **(card_batch if tag == "card" else batch))
+        _sync(torch.device(where))
+        steps[tag] = (float(m["loss"]), {
+            n: p.grad.detach().clone() for n, p in model.named_parameters()},
+            time.monotonic() - t0)
+    (l_card, g_card, s_card), (l_cpu, g_cpu, s_cpu) = steps["card"], \
+        steps["cpu"]
+    rel = abs(l_card - l_cpu) / abs(l_cpu)
+    errs = {n: _norm_err(g_card[n], g_cpu[n]) for n in g_cpu}
+    worst = max(errs, key=errs.get)
+    bufs_cpu = dict(models["cpu"].named_buffers())
+    stat_errs = {n: _norm_err(b, bufs_cpu[n])
+                 for n, b in models[device].named_buffers()}
+    stat_worst = max(stat_errs, key=stat_errs.get)
+    parity = {"batch": c["parity_batch"], "eval_mode": eval_parity,
+              "train_loss_card": l_card, "train_loss_cpu": l_cpu,
+              "train_loss_rel_err": rel,
+              "running_stats_max_norm_err": stat_errs[stat_worst],
+              "running_stats_worst": stat_worst,
+              "train_grad_max_norm_err_not_gated": errs[worst],
+              "train_grad_worst": worst, "card_s": s_card, "cpu_s": s_cpu}
+    log("  14 (a) ResNet-50 fp32 step card vs CPU: " + json.dumps(parity))
+    if rel > REC_LOSS_RTOL or stat_errs[stat_worst] > 1e-5:
+        raise AssertionError(f"14 (a): fp32 step card vs CPU {parity}")
+    del models["cpu"]
+    model = models[device]
+
+    # the main path: bf16 over fp32 masters, one captured graph
+    policy = get_policy("bf16")
+    batches = [_images(device, c["batch"], c["hw"], c["classes"], 30 + i)
+               for i in range(2)]
+    census = _layout_census(device, model, batches[0], policy)
+    log("  14 (a) layout census, one eager bf16 step: " + json.dumps(census))
+    macs = conv_macs(model, batches[0]["image"][:1])
+    opt = Momentum(model.parameters(), learning_rate=0.1, momentum=0.9)
+    train = _timed_train("(a)", device, model, _zoo_loss, batches,
+                         policy=policy, opt=opt, warm=ZOO_WARM,
+                         timed=ZOO_TIMED, phase="14", keep=LAYOUT_KERNELS)
+    flops = 3 * 2 * macs * c["batch"]
+    train.update(
+        images_per_s=c["batch"] / (train["ms_per_step"] / 1e3),
+        gmacs_per_image_forward=macs / 1e9,
+        flops_per_step=flops,
+        mfu=flops / (train["ms_per_step"] / 1e3) / PEAK_FLOPS[torch.bfloat16],
+        layout_conversions_per_graphed_step=sum(
+            k["count"] for k in train["kept_kernels"]) / PROFILED_STEPS)
+    log("  14 (a) ResNet-50 128 x 224 bf16 train: " + json.dumps(train))
+
+    # eval of the trained model: bf16 against fp32, and folded BN
+    model.eval()
+    x = batches[1]["image"][:32]
+    with torch.no_grad():
+        fp32 = model(x)
+        bf16 = build_eval_step(lambda m, image: m(image),
+                               policy=policy)(model, image=x)
+        folded = fold_batch_norms(convert.state_tree(model))
+        flat = {}
+
+        def walk(prefix, node):
+            for k, v in node.items():
+                key = f"{prefix}.{k}" if prefix else k
+                if isinstance(v, dict):
+                    walk(key, v)
+                else:
+                    flat[key] = v
+
+        walk("", folded)
+        folded_logits = torch.func.functional_call(model, flat, (x,))
+    model.train()
+    ev = {"bf16_dtype": str(bf16.dtype),
+          "bf16_vs_fp32_rel": _norm_err(bf16.float(), fp32),
+          "folded_vs_eval_rel": _norm_err(folded_logits, fp32),
+          "finite": bool(torch.isfinite(fp32).all())}
+    log("  14 (a) eval: " + json.dumps(ev))
+    if bf16.dtype != torch.bfloat16 or not ev["finite"] or \
+            ev["bf16_vs_fp32_rel"] > ZOO_BF16_EVAL_REL or \
+            ev["folded_vs_eval_rel"] > ZOO_FOLD_REL:
+        raise AssertionError(f"14 (a) eval: {ev}")
+    return {"parity": parity, "layout_census": census, "train": train,
+            "eval": ev}
+
+
+def _det_gt(device, b, kind, image_size, seed):
+    """Padded ground truths, ``DET_GT`` rows an image (the last two
+    padding): normalised cxcywh (YOLOv3), normalised xyxy (SSD) or pixel
+    xyxy (R-CNN); labels in [1, 20]."""
+    rng = np.random.default_rng(seed)
+    xy = 0.05 + 0.5 * rng.random((b, DET_GT, 2))
+    wh = 0.1 + 0.35 * rng.random((b, DET_GT, 2))
+    if kind == "cxcywh":
+        boxes = np.concatenate([xy + wh / 2, wh], -1)
+    else:
+        boxes = np.concatenate([xy, xy + wh], -1)
+        if kind == "pixel":
+            boxes = boxes * image_size
+    labels = rng.integers(1, 21, (b, DET_GT))
+    mask = np.ones((b, DET_GT), bool)
+    mask[:, -2:] = False
+    t = {"gt_boxes": torch.from_numpy(boxes.astype(np.float32)),
+         "gt_labels": torch.from_numpy(labels.astype(np.int32)),
+         "gt_mask": torch.from_numpy(mask)}
+    return {k: v.to(device) for k, v in t.items()}
+
+
+def _det_batch(device, b, hw, kind, seed, image_size=None):
+    g = torch.Generator().manual_seed(seed)
+    out = {"image": torch.randn((b, hw, hw, 3), generator=g).to(device)}
+    out.update(_det_gt(device, b, kind, image_size or hw, seed))
+    return out
+
+
+def _same_detections(label, got, want):
+    """Kept boxes (by index), classes and validity equal, boxes within
+    ``DET_TOL`` of their coordinates' scale (pixels or normalised),
+    scores within ``DET_TOL``."""
+    got = [t.cpu() for t in got]
+    boxes, cls, scores, valid = got[:4]
+    w_boxes, w_cls, w_scores, w_valid = want[:4]
+    same = (torch.equal(valid, w_valid) and torch.equal(
+        cls.long(), w_cls.long()))
+    box_err = _norm_err(boxes, w_boxes)
+    score_err = float((scores - w_scores).abs().max())
+    out = {"kept": int(valid.sum()), "classes_and_valid_equal": same,
+           "box_max_norm_err": box_err, "score_max_abs_err": score_err}
+    if not same or box_err > DET_TOL or score_err > DET_TOL:
+        raise AssertionError(f"14 {label}: detect on the same head outputs "
+                             f"differs: {out}")
+    if not out["kept"]:
+        raise AssertionError(f"14 {label}: detect kept nothing")
+    return out
+
+
+def _det_graphed(label, device, model, batch_fn, n_images):
+    """``DET_WARM`` + ``DET_TIMED`` bf16 Momentum steps in one graph."""
+    from paddle_tpu_torch.optimizer import Momentum
+    batches = [batch_fn(40 + i) for i in range(2)]
+    opt = Momentum(model.parameters(), learning_rate=1e-3, momentum=0.9)
+    st = _timed_train(label, device, model, _zoo_loss, batches,
+                      policy=_bf16(), opt=opt, warm=DET_WARM,
+                      timed=DET_TIMED, phase="14")
+    st["images_per_s"] = n_images / (st["ms_per_step"] / 1e3)
+    return st
+
+
+def _bf16():
+    from paddle_tpu_torch.core.dtypes import get_policy
+    return get_policy("bf16")
+
+
+def _ellipse_masks(boxes, image_size, side):
+    """Binary instance rasters (B, G, side, side): the ellipse inscribed
+    in each pixel xyxy box, at ``side / image_size`` of the image."""
+    c = (torch.arange(side, dtype=torch.float32) + 0.5) * image_size / side
+    x1, y1, x2, y2 = (boxes[..., i, None, None] for i in range(4))
+    dx = (c[None, :] - (x1 + x2) / 2) / ((x2 - x1) / 2)
+    dy = (c[:, None] - (y1 + y2) / 2) / ((y2 - y1) / 2)
+    return (dx * dx + dy * dy <= 1.0).float()
+
+
+@contextlib.contextmanager
+def _same_proposals(cpu_model, batch):
+    """Inside, ``ops.detection.generate_proposals`` and
+    ``generate_mask_labels`` give, call after call, what they gave a
+    forward of ``cpu_model`` on ``batch``: the R-CNN losses on the card
+    and the CPU then train on the same proposals and mask targets. Both
+    are discrete (NMS keeps another box, a mask cell thresholded at 0.5
+    flips, when a value rounds otherwise); the proposals are held on
+    their own, on the same RPN outputs, and the losses' parity is of the
+    rest."""
+    from paddle_tpu_torch.ops import detection as D
+    names = ("generate_proposals", "generate_mask_labels")
+    real = {n: getattr(D, n) for n in names}
+    recorded = {n: [] for n in names}
+    calls = dict.fromkeys(names, 0)
+
+    def record(name):
+        def fn(*args, **kw):
+            out = real[name](*args, **kw)
+            recorded[name].append(tuple(t.detach().clone() for t in out))
+            return out
+        return fn
+
+    def replay(name):
+        def fn(first, *args, **kw):
+            outs = recorded[name]
+            out = outs[calls[name] % len(outs)]
+            calls[name] += 1
+            return tuple(t.to(first.device) for t in out)
+        return fn
+
+    try:
+        for n in names:
+            setattr(D, n, record(n))
+        with torch.no_grad():
+            cpu_model.loss(**batch)
+        for n in names:
+            if recorded[n]:
+                setattr(D, n, replay(n))
+        yield
+    finally:
+        for n in names:
+            setattr(D, n, real[n])
+
+
+def detectors(device):
+    """(b) YOLOv3-DarkNet53, SSD300 and Faster / Mask R-CNN: fp32 loss and
+    gradients card vs CPU, detect on the same head outputs, and YOLOv3's
+    and SSD's bf16 steps in one graph."""
+    from paddle_tpu_torch.models.faster_rcnn import (FasterRCNN,
+                                                     FasterRCNNConfig,
+                                                     MaskRCNN)
+    from paddle_tpu_torch.models.ssd import SSD, SSDConfig
+    from paddle_tpu_torch.models.yolov3 import YOLOv3, YOLOv3Config
+    out = {}
+
+    # YOLOv3-DarkNet53
+    y = DET_YOLO
+    cfg = YOLOv3Config(backbone="darknet53", image_size=y["hw"])
+    models = {w: YOLOv3(cfg, device=w, seed=0) for w in ("cpu", device)}
+    for m in models.values():
+        m.eval()
+    batch = _det_batch("cpu", y["cpu_batch"], y["cpu_hw"], "cxcywh", 50)
+    parity = _fp32_card_vs_cpu(
+        "(b) YOLOv3-DarkNet53", models[device], models["cpu"],
+        {k: v.to(device) for k, v in batch.items()}, batch, _zoo_loss,
+        phase="14", fp64=True)
+    with torch.no_grad():
+        heads = models["cpu"](batch["image"])
+    hw = (y["cpu_hw"], y["cpu_hw"])
+    want = models["cpu"].detect_from(heads, hw)
+    got = models[device].detect_from([h.to(device) for h in heads], hw)
+    det = _same_detections("(b) YOLOv3", got, want)
+    del models["cpu"]
+    model = models[device].train()
+    train = _det_graphed("(b) YOLOv3", device, model, lambda s: _det_batch(
+        device, y["batch"], y["hw"], "cxcywh", s), y["batch"])
+    out["yolov3_darknet53"] = {"fp32_parity": parity, "detect": det,
+                               "bf16_train": train}
+    log("  14 (b) YOLOv3-DarkNet53 608: " + json.dumps(out[
+        "yolov3_darknet53"]))
+    del model, models
+    torch.cuda.empty_cache()
+
+    # SSD300-MobileNetV1
+    s = DET_SSD
+    cfg = SSDConfig()
+    models = {w: SSD(cfg, device=w, seed=0).eval() for w in ("cpu", device)}
+    batch = _det_batch("cpu", s["cpu_batch"], s["hw"], "xyxy", 51)
+    parity = _fp32_card_vs_cpu(
+        "(b) SSD300", models[device], models["cpu"],
+        {k: v.to(device) for k, v in batch.items()}, batch, _zoo_loss,
+        phase="14")
+    with torch.no_grad():
+        loc, conf = models["cpu"](batch["image"])
+    models[device]._anchors = models["cpu"]._anchors.to(device)
+    want = models["cpu"].detect_from(loc, conf)
+    got = models[device].detect_from(loc.to(device), conf.to(device))
+    det = _same_detections("(b) SSD", got, want)
+    del models["cpu"]
+    model = models[device].train()
+    train = _det_graphed("(b) SSD", device, model, lambda sd: _det_batch(
+        device, s["batch"], s["hw"], "xyxy", sd), s["batch"])
+    out["ssd300_mobilenet_v1"] = {"fp32_parity": parity, "detect": det,
+                                  "bf16_train": train}
+    log("  14 (b) SSD300: " + json.dumps(out["ssd300_mobilenet_v1"]))
+    del model, models
+    torch.cuda.empty_cache()
+
+    # Faster and Mask R-CNN
+    cfg = FasterRCNNConfig()
+    b = DET_RCNN["cpu_batch"]
+    for name, cls in (("faster_rcnn", FasterRCNN), ("mask_rcnn", MaskRCNN)):
+        models = {w: cls(cfg, device=w, seed=0).eval()
+                  for w in ("cpu", device)}
+        batch = _det_batch("cpu", b, cfg.image_size, "pixel", 52,
+                           cfg.image_size)
+        if cls is MaskRCNN:
+            batch["gt_inst_masks"] = _ellipse_masks(batch["gt_boxes"],
+                                                    cfg.image_size, 112)
+        with _same_proposals(models["cpu"], batch):
+            parity = _fp32_card_vs_cpu(
+                f"(b) {name}", models[device], models["cpu"],
+                {k: v.to(device) for k, v in batch.items()}, batch,
+                _zoo_loss, phase="14",
+                grad_rel=DET_MASK_GRAD_REL if cls is MaskRCNN
+                else REC_GRAD_REL)
+        stats = {"fp32_parity": parity}
+        if cls is FasterRCNN:
+            cpu = models["cpu"]
+            card = models[device]
+            with torch.no_grad():
+                feat = cpu.features(batch["image"])
+                scores, deltas, anchors = cpu.rpn(feat)
+                props = [cpu.proposals(scores[i], deltas[i], anchors)
+                         for i in range(b)]
+                card_props = [card.proposals(scores[i].to(device),
+                                             deltas[i].to(device),
+                                             anchors.to(device))
+                              for i in range(b)]
+                same_props = all(
+                    torch.equal(cv.cpu(), v) and _norm_err(cr, r) <= DET_TOL
+                    for (r, v), (cr, cv) in zip(props, card_props))
+                if not same_props:
+                    raise AssertionError("14 (b) faster_rcnn: proposals on "
+                                         "the same RPN outputs differ")
+                finals = []
+                for i, (rois, valid) in enumerate(props):
+                    cls_logits, reg = cpu.head(feat[i], rois)
+                    want = cpu.final_detections(rois, valid, cls_logits, reg)
+                    got = card.final_detections(
+                        rois.to(device), valid.to(device),
+                        cls_logits.to(device), reg.to(device))
+                    finals.append(_same_detections(
+                        "(b) faster_rcnn", got, want))
+            stats["detect"] = {"proposals_equal": same_props,
+                               "images": finals}
+        else:
+            with torch.no_grad():
+                seg = models[device].segment(
+                    batch["image"].to(device))
+            stats["segment"] = {"kept": int(seg[3].sum()),
+                                "mask_shape": list(seg[4].shape)}
+        out[name] = stats
+        log(f"  14 (b) {name}: " + json.dumps(stats))
+        del models
+        torch.cuda.empty_cache()
+    return out
+
+
+def _zoo_cases():
+    """(c): (label, model factory, loss batch maker(device, b, seed) for
+    the fp32 parity at batch 2 and the smallest input the head admits,
+    the timed bf16 step's batch maker)."""
+    from paddle_tpu_torch import models as M
+    T = ZOO_TIMED_BATCH
+
+    def imgs(hw, classes=1000, ch=3):
+        return lambda dev, b, seed: _images(dev, b, hw, classes, seed, ch)
+
+    def video(s, hw, classes):
+        def make(dev, b, seed):
+            g = torch.Generator(device=dev).manual_seed(seed)
+            return {"video": torch.randn((b, s, hw, hw, 3), generator=g,
+                                         device=dev),
+                    "label": torch.randint(0, classes, (b,), generator=g,
+                                           device=dev)}
+        return make
+
+    def text(hw_w, vocab=37):
+        def make(dev, b, seed):
+            g = torch.Generator(device=dev).manual_seed(seed)
+            return {"image": torch.randn((b, 32, hw_w, 1), generator=g,
+                                         device=dev),
+                    "label": torch.randint(1, vocab, (b, 8), generator=g,
+                                           device=dev),
+                    "label_lengths": torch.randint(2, 9, (b,), generator=g,
+                                                   device=dev)}
+        return make
+
+    hw = ZOO_TIMED_HW
+    return [
+        ("MobileNetV1", lambda d: M.MobileNetV1(device=d), imgs(32),
+         imgs(hw), T),
+        ("MobileNetV2", lambda d: M.MobileNetV2(device=d), imgs(32),
+         imgs(hw), T),
+        ("VGG16", lambda d: M.VGG16(device=d), imgs(32), imgs(hw), T),
+        ("SEResNeXt50", lambda d: M.SEResNeXt50(device=d), imgs(32),
+         imgs(hw), T),
+        ("LeNet", lambda d: _LeNetLoss(M.LeNet(device=d)),
+         imgs(28, 10, 1), imgs(28, 10, 1), 8 * T),
+        ("AlexNet", lambda d: M.AlexNet(device=d), imgs(64), imgs(hw), T),
+        ("GoogLeNet", lambda d: M.GoogLeNet(device=d), imgs(32), imgs(hw),
+         T),
+        ("ShuffleNetV2", lambda d: M.ShuffleNetV2(device=d), imgs(32),
+         imgs(hw), T),
+        ("DarkNet53", lambda d: M.DarkNet53(device=d), imgs(32), imgs(hw),
+         T),
+        ("SqueezeNet", lambda d: M.SqueezeNet(device=d), imgs(32),
+         imgs(hw), T),
+        ("DenseNet121", lambda d: M.DenseNet121(device=d), imgs(32),
+         imgs(hw), T),
+        ("TSN", lambda d: M.TSN(device=d), video(3, 32, 400),
+         video(3, hw, 400), T // 4),
+        ("C3D", lambda d: M.C3D(device=d), video(8, 16, 101),
+         video(16, hw // 2, 101), T // 4),
+        ("CRNN", lambda d: M.CRNN(37, device=d), text(32), text(128), T),
+    ]
+
+
+class _LeNetLoss(torch.nn.Module):
+    """LeNet (the reference gives it no loss) with the zoo's
+    classification loss."""
+
+    def __init__(self, net):
+        super().__init__()
+        self.net = net
+
+    def forward(self, x):
+        return self.net(x)
+
+    def loss(self, image, label):
+        from paddle_tpu_torch.models.common import classification_loss
+        return classification_loss(self.net(image), label)
+
+
+def _graphed_step_ms(label, device, model, batches):
+    """A bf16 step of ``model`` through one captured graph (Momentum):
+    ms, captures after the first graphed step (0), peak memory."""
+    from paddle_tpu_torch.observability import recompile
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.train import build_train_step, make_train_state
+    opt = Momentum(model.parameters(), learning_rate=1e-3, momentum=0.9)
+    state = make_train_state(model, opt)
+    step = build_train_step(_zoo_loss, opt, policy=_bf16())
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(ZOO_WARM):
+        state, m = step(state, **batches[i % len(batches)])
+    torch.cuda.synchronize()
+    captures = recompile.capture_count()
+    ms = sorted(_events_ms(lambda: step(state, **batches[0]))
+                for _ in range(ZOO_TIMED_STEPS))[ZOO_TIMED_STEPS // 2]
+    out = {"ms_per_step": ms, "loss": float(m["loss"]),
+           "graph_builds": step.builds,
+           "captures_after_first_graphed_step":
+               recompile.capture_count() - captures,
+           "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30}
+    if step.builds != 1 or out["captures_after_first_graphed_step"] or \
+            not np.isfinite(out["loss"]):
+        raise AssertionError(f"14 (c) {label}: {out}")
+    return out
+
+
+def gan_leg(device):
+    """(c) one ``gan_step`` at the reference's widths (zdim 64, base 32,
+    32 x 32), fp32 card vs CPU on the same latents (losses within
+    ``REC_LOSS_RTOL``, every updated tensor within ``REC_GRAD_REL`` of its
+    scale), then the card's ms of an eager fp32 step at batch 64 (the
+    step is two updates with tapes between them, not one train step)."""
+    from paddle_tpu_torch.models.gan import (DCGANDiscriminator,
+                                             DCGANGenerator, gan_step)
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.train import make_train_state
+    g = torch.Generator().manual_seed(60)
+    real = torch.rand((2, 32, 32, 1), generator=g) * 2 - 1
+    z = (torch.randn((2, 64), generator=g), torch.randn((2, 64), generator=g))
+    res = {}
+    for tag, where in (("cpu", "cpu"), ("card", device)):
+        gen, disc = DCGANGenerator(device=where), DCGANDiscriminator(
+            device=where)
+        go = Momentum(gen.parameters(), learning_rate=0.1, momentum=0.9)
+        do = Momentum(disc.parameters(), learning_rate=0.1, momentum=0.9)
+        step = gan_step(gen, disc, go, do)
+        gs, ds = make_train_state(gen, go), make_train_state(disc, do)
+        _, _, m = step(gs, ds, real.to(where),
+                       z=tuple(t.to(where) for t in z))
+        res[tag] = (m, gen, disc, step, gs, ds)
+    (m, gen, disc, step, gs, ds), (mc, genc, discc, *_) = res["card"], \
+        res["cpu"]
+    loss_rel = max(abs(float(m[k]) - float(mc[k])) / abs(float(mc[k]))
+                   for k in ("d_loss", "g_loss"))
+    errs = {}
+    for mod, ref in ((gen, genc), (disc, discc)):
+        want = dict(ref.state_dict())
+        for n, t in mod.state_dict().items():
+            errs[f"{type(mod).__name__}.{n}"] = _norm_err(t, want[n])
+    worst = max(errs, key=errs.get)
+    real_b = torch.rand((64, 32, 32, 1), device=device) * 2 - 1
+    gen_ = torch.Generator(device=device).manual_seed(61)
+    step(gs, ds, real_b, gen_)
+    ms = sorted(_events_ms(lambda: step(gs, ds, real_b, gen_))
+                for _ in range(ZOO_TIMED_STEPS))[ZOO_TIMED_STEPS // 2]
+    out = {"loss_rel_err": loss_rel, "max_norm_err": errs[worst],
+           "worst": worst, "eager_fp32_ms_per_step_batch_64": ms}
+    if loss_rel > REC_LOSS_RTOL or errs[worst] > REC_GRAD_REL:
+        raise AssertionError(f"14 (c) gan_step card vs CPU: {out}")
+    return out
+
+
+def zoo_rest(device):
+    """(c) every other classifier, TSN, C3D, CRNN at full width: fp32
+    forward and backward card vs CPU at batch 2 in eval mode (at these
+    inputs a deep net's last BatchNorm sees a few samples a channel in
+    training mode, where fp32 rounding dominates), and one bf16 graphed
+    step's ms on the card; then one gan_step."""
+    out = {}
+    for label, make, small, full, tb in _zoo_cases():
+        models = {w: make(w).eval() for w in ("cpu", device)}
+        models[device].load_state_dict(models["cpu"].state_dict())
+        cpu_b = small("cpu", 2, 70)
+        parity = _fp32_card_vs_cpu(
+            f"(c) {label}", models[device], models["cpu"],
+            {k: v.to(device) for k, v in cpu_b.items()}, cpu_b, _zoo_loss,
+            phase="14")
+        model = models[device].train()
+        del models
+        step = _graphed_step_ms(label, device, model,
+                                [full(device, tb, 71 + i) for i in range(2)])
+        out[label] = {"fp32_parity": {k: parity[k] for k in (
+            "loss_rel_err", "grad_max_norm_err", "grad_worst")},
+            "bf16_graphed_step": {**step, "batch": tb}}
+        log(f"  14 (c) {label}: " + json.dumps(out[label]))
+        del model
+        torch.cuda.empty_cache()
+    out["gan_step"] = gan_leg(device)
+    log("  14 (c) gan_step: " + json.dumps(out["gan_step"]))
+    return out
+
+
+def detection_battery(res):
+    """(d) 12 (e)'s battery over the 34 detection ops: their count and 0
+    failures."""
+    n = res["by_module"].get("detection", 0)
+    failed = {k: v for k, v in res["failures"].items() if k in
+              _detection_ops()}
+    stats = {"detection_ops": n, "failures": len(failed)}
+    log("  14 (d) detection ops on the card: " + json.dumps(stats))
+    if n != 34 or failed:
+        raise AssertionError(f"14 (d): {stats} {failed}")
+    return stats
+
+
+def _detection_ops():
+    from paddle_tpu_torch.core.registry import get_op, list_ops
+    return {n for n in list_ops()
+            if get_op(n).module.endswith(".detection")}
+
+
+def zoo_slice(device, battery):
+    """Phase 14: (a) ResNet-50, (b) the detectors, (c) the rest of the
+    zoo, (d) the detection ops' battery. TF32 off for the fp32 legs."""
+    t_phase = time.monotonic()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    stats = {"resnet50": resnet50_main_path(device)}
+    torch.cuda.empty_cache()
+    stats["detectors"] = detectors(device)
+    torch.cuda.empty_cache()
+    stats["zoo"] = zoo_rest(device)
+    stats["battery"] = detection_battery(battery)
+    stats["phase_s"] = time.monotonic() - t_phase
+    return stats
+
+
 def _timed_runner_build() -> float:
     from paddle_tpu_torch.native.runner import build_runner
     t0 = time.monotonic()
@@ -6421,6 +7228,14 @@ def main() -> int:
         "slice launches no registered kernel)")
     rec = recurrent_slice(device, native["battery"])
     log(f"  phase 13 took {rec['phase_s']:.1f} s")
+
+    log("[14/14] the model zoo: ResNet-50 training at 128 x 224 (bf16, one "
+        "captured graph; BatchNorm's statistics through the state tape), "
+        "YOLOv3-DarkNet53, SSD300, Faster/Mask R-CNN, the other classifiers, "
+        "video, OCR and DCGAN, the detection ops on the card (the slice "
+        "launches no registered kernel)")
+    zoo = zoo_slice(device, native["battery"])
+    log(f"  phase 14 took {zoo['phase_s']:.1f} s")
 
     lines = [kernel_line(e, rows[e.name], stats["launches"][e.name],
                          {**({"long": long_rows} if e is PA.DECODE

@@ -25,6 +25,7 @@ import torch
 
 from paddle_tpu_torch.core import dtypes
 from paddle_tpu_torch.core.device import resolve_device
+from paddle_tpu_torch.nn.module import capture_state
 from paddle_tpu_torch.train import (TrainStepGraphs, _policy_call,
                                     make_train_state)
 
@@ -117,9 +118,10 @@ def scaled_train_step(
         model, opt = state["model"], state["opt"]
         ls = state["loss_scale"]
         opt.zero_grad(set_to_none=True)
-        out = _policy_call(loss_fn, model, policy, batch)
-        loss, aux = out if isinstance(out, tuple) else (out, {})
-        loss_scale.scale(loss.float(), ls).backward()
+        with capture_state() as tape:     # BN running statistics, as in
+            out = _policy_call(loss_fn, model, policy, batch)  # the step
+            loss, aux = out if isinstance(out, tuple) else (out, {})
+            loss_scale.scale(loss.float(), ls).backward()
         params = [p for p in opt.params() if p.grad is not None]
         grads = loss_scale.unscale([p.grad for p in params], ls)
         finite = loss_scale.grads_finite(grads)
@@ -134,6 +136,7 @@ def scaled_train_step(
             # dtype on a skipped step too (``where`` promotes)
             for t, old in zip(_opt_tensors(opt), saved):
                 t.copy_(torch.where(finite, t, old))
+            tape.apply(where=finite)
             state["step"].add_(finite.to(torch.int32))
             for k, v in new_ls.items():
                 ls[k].copy_(v)

@@ -19,15 +19,20 @@ import torch
 
 
 def _fans(shape, fan_in=None, fan_out=None):
-    # Conv kernels here are HWIO; dense kernels are (in, out).
-    if fan_in is not None and fan_out is not None:
-        return fan_in, fan_out
+    """``(fan_in, fan_out)``: each as given, else from ``shape`` read as
+    HWIO (a conv kernel) or ``(in, out)``. A given fan wins even alone:
+    the port's conv weights are OIHW, whose fans the HWIO reading gets
+    wrong, so ``Conv2D`` passes its fan-in (the reference computes the
+    same number from its HWIO shape)."""
     if len(shape) < 1:
-        return 1, 1
-    if len(shape) == 1:
-        return shape[0], shape[0]
-    receptive = math.prod(shape[:-2]) if len(shape) > 2 else 1
-    return shape[-2] * receptive, shape[-1] * receptive
+        fi = fo = 1
+    elif len(shape) == 1:
+        fi = fo = shape[0]
+    else:
+        receptive = math.prod(shape[:-2]) if len(shape) > 2 else 1
+        fi, fo = shape[-2] * receptive, shape[-1] * receptive
+    return (fan_in if fan_in is not None else fi,
+            fan_out if fan_out is not None else fo)
 
 
 def constant(value=0.0):

@@ -14,6 +14,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from paddle_tpu_torch.nn import initializer as I
+from paddle_tpu_torch.nn.module import report_state
 
 #: the reference's default hints: Megatron column split, vocab split
 COLUMN, ROW, VOCAB = (None, "tp"), ("tp", None), ("tp", None)
@@ -31,9 +32,11 @@ class Linear(nn.Module):
     tp = None
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
-                 *, sharding=COLUMN, device=None, dtype=None):
+                 *, sharding=COLUMN, weight_init=None, device=None,
+                 dtype=None):
         super().__init__()
         self.in_features, self.out_features = in_features, out_features
+        self.weight_init = weight_init
         # the bias takes the weight's output entry, as the reference's
         out = sharding[-1] if sharding is not None else None
         self.param_sharding = {
@@ -46,8 +49,9 @@ class Linear(nn.Module):
                      if bias else None)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
-        """Xavier-uniform weight, zero bias (the reference's defaults)."""
-        I.xavier_uniform()(self.weight, generator)
+        """``weight_init`` or the reference's default Xavier-uniform
+        weight, zero bias."""
+        (self.weight_init or I.xavier_uniform())(self.weight, generator)
         if self.bias is not None:
             I.zeros(self.bias)
 
@@ -205,10 +209,11 @@ class Conv2D(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, kernel_size,
                  stride=1, padding=0, dilation=1, groups: int = 1,
                  bias: bool = True, data_format: str = "NHWC", *,
-                 device=None, dtype=None):
+                 weight_init=None, device=None, dtype=None):
         super().__init__()
         kh, kw = ((kernel_size, kernel_size) if isinstance(kernel_size, int)
                   else tuple(kernel_size))
+        self.weight_init = weight_init
         self.in_channels, self.out_channels = in_channels, out_channels
         self.kernel_size = (kh, kw)
         self.stride, self.padding = stride, padding
@@ -222,10 +227,11 @@ class Conv2D(nn.Module):
                      if bias else None)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
-        """MSRA-normal weight over fan-in ``in / groups * kh * kw``, zero
-        bias (the reference's defaults)."""
+        """``weight_init`` or the reference's default MSRA-normal weight
+        over fan-in ``in / groups * kh * kw``, zero bias."""
         fan_in = self.in_channels // self.groups * math.prod(self.kernel_size)
-        I.msra_normal(fan_in=fan_in)(self.weight, generator)
+        (self.weight_init or I.msra_normal(fan_in=fan_in))(self.weight,
+                                                           generator)
         if self.bias is not None:
             I.zeros(self.bias)
 
@@ -275,9 +281,12 @@ class BatchNorm(nn.Module):
     """Batch norm over the channel axis (last for NHWC): ``scale`` and
     ``bias`` parameters, the running ``mean`` and ``variance`` buffers
     (the reference's non-trainable parameters). In training mode a
-    forward normalises by the batch and moves the buffers in place to
-    ``momentum * old + (1 - momentum) * batch`` (biased variance), as the
-    reference's state tape does; in eval mode it uses them."""
+    forward normalises by the batch and moves the buffers to ``momentum *
+    old + (1 - momentum) * batch`` (biased variance): inside
+    ``nn.module.capture_state`` it reports the new values to the tape
+    (the train step applies them after its update, as the reference's
+    state tape does), outside any capture it writes them in place. In
+    eval mode it uses them."""
 
     def __init__(self, num_channels: int, epsilon: float = 1e-5,
                  momentum: float = 0.9, data_format: str = "NHWC", *,
@@ -303,7 +312,8 @@ class BatchNorm(nn.Module):
             x, self.scale, self.bias, self.mean, self.variance,
             epsilon=self.epsilon, momentum=self.momentum,
             training=self.training, data_format=self.data_format)
-        if self.training:
+        if self.training and not report_state(
+                self, {"mean": new_mean, "variance": new_var}):
             with torch.no_grad():
                 self.mean.copy_(new_mean)
                 self.variance.copy_(new_var)

@@ -1,7 +1,8 @@
 """Per-parameter sharding hints (``paddle_tpu/nn/module.py``:
-``ParamSpec.sharding`` and ``Layer.sharding_specs``), and
+``ParamSpec.sharding`` and ``Layer.sharding_specs``),
 :class:`StackedLayers`, the stacked ``(L, ...)`` layout of a stack of
-identical layers.
+identical layers, and the state tape (:func:`capture_state`) that holds
+back BatchNorm's running-statistics updates for the train step.
 
 A layer declares the spec each of its parameters would take on a mesh in
 ``param_sharding``, ``{parameter name: spec or None}`` (a spec is a tuple
@@ -16,7 +17,8 @@ tree, the input of ``ShardingPlan.params_specs(..., hints=)``.
 
 from __future__ import annotations
 
-from typing import Any, Optional, Tuple
+import contextlib
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -177,3 +179,67 @@ def pipeline_layers(stack) -> tuple:
                                           kwargs)
 
     return apply, [held_params(layer) for layer in stack]
+
+
+# -- state tape (BatchNorm's running statistics) ---------------------------
+
+class StateCapture:
+    """The running-state updates a forward reported: ``{(id(module),
+    name): (module, name, value)}``, the last report of each buffer
+    winning (``paddle_tpu/nn/module.py`` ``StateCapture``)."""
+
+    def __init__(self):
+        self.updates: Dict[Tuple[int, str], Tuple[Any, str, Any]] = {}
+
+    def apply(self, where=None):
+        """Write each recorded value into its buffer in place (cast to the
+        buffer's dtype: a bf16 forward's statistics land in the fp32
+        masters), so a captured graph keeps the buffers' storage; with
+        ``where`` (a bool 0-d tensor) only where it holds, with no host
+        sync. The buffer is looked up on its module now, so a forward
+        that ran on swapped-in casts (``torch.func.functional_call``)
+        still writes the master."""
+        with torch.no_grad():
+            for module, name, value in self.updates.values():
+                buf = module._buffers[name]
+                if where is not None:
+                    value = torch.where(where, value.to(buf.dtype), buf)
+                buf.copy_(value)
+
+
+class _Tape:
+    #: the active StateCapture, or None. Process-wide, not per thread:
+    #: autograd runs a CUDA backward, and with it a remat recompute, on
+    #: its own device threads, and that recompute must report to the
+    #: step's tape too.
+    active: Optional[StateCapture] = None
+
+
+_TAPE = _Tape()
+
+
+@contextlib.contextmanager
+def capture_state():
+    """Collect the running-state updates of the forwards run inside
+    (BatchNorm in training mode) instead of writing them; the caller
+    applies them (:meth:`StateCapture.apply`) when it chooses, as
+    ``build_train_step`` does after the optimizer's update. Nested
+    captures hide the outer one: what runs inside the inner one reports
+    only to it."""
+    prev = _TAPE.active
+    cap = _TAPE.active = StateCapture()
+    try:
+        yield cap
+    finally:
+        _TAPE.active = prev
+
+
+def report_state(module: nn.Module, updates: Dict[str, Any]) -> bool:
+    """Record ``{buffer name: new value}`` of ``module`` on the active
+    tape; False (nothing recorded) outside any capture."""
+    cap = _TAPE.active
+    if cap is None:
+        return False
+    for name, value in updates.items():
+        cap.updates[(id(module), name)] = (module, name, value.detach())
+    return True

@@ -72,7 +72,11 @@ def _same_pads(sizes, kernel, stride, dilation):
 
 def _conv_nd(x_cf, w, stride, padding, dilation, groups):
     """``F.conv{2,3}d`` on channels-first ``x_cf`` and OI... ``w`` with
-    XLA's padding rules (explicit pairs, SAME or VALID)."""
+    XLA's padding rules (explicit pairs, SAME or VALID). Symmetric pads go
+    to the conv's own ``padding=`` (the same numbers; an ``F.pad`` first
+    would copy a channels-last activation into a contiguous NCHW one and
+    take cuDNN off the channels-last layout); only SAME's uneven pads go
+    through ``F.pad``."""
     nd = x_cf.ndim - 2
     k = tuple(w.shape[2:])
     if isinstance(padding, str):
@@ -82,10 +86,11 @@ def _conv_nd(x_cf, w, stride, padding, dilation, groups):
             pads = _same_pads(x_cf.shape[2:], k, stride, dilation)
     else:
         pads = [(p, p) for p in padding]
-    flat = [v for lo_hi in reversed(pads) for v in lo_hi]
-    if any(flat):
-        x_cf = F.pad(x_cf, flat)
     conv = F.conv2d if nd == 2 else F.conv3d
+    if all(lo == hi for lo, hi in pads):
+        return conv(x_cf, w, stride=stride, padding=[lo for lo, _ in pads],
+                    dilation=dilation, groups=groups)
+    x_cf = F.pad(x_cf, [v for lo_hi in reversed(pads) for v in lo_hi])
     return conv(x_cf, w, stride=stride, dilation=dilation, groups=groups)
 
 

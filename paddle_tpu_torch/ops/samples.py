@@ -4,11 +4,11 @@ that holds each op to its numpy reference on a device.
 :data:`SAMPLES` maps each registered name of the dense op library
 (:mod:`.elementwise`, :mod:`.math`, :mod:`.reduction`, :mod:`.activation`,
 :mod:`.tensor`) and of :mod:`.nn`, :mod:`.crf`, :mod:`.sequence`,
-:mod:`.control_flow`, :mod:`.quant`, :mod:`.metrics_ops`, :mod:`.niche`
-and ``nn.nets`` (``glu``), but the beam-search ops, to a function of a
-``numpy.random.Generator`` giving ``(args, kwargs)`` in numpy (float32
-arrays, integer and bool arrays, Python values and callables), so the
-same inputs reach the port's op, the JAX package's op (in the CPU tests)
+:mod:`.control_flow`, :mod:`.quant`, :mod:`.metrics_ops`, :mod:`.niche`,
+:mod:`.detection` and ``nn.nets`` (``glu``), but the beam-search ops, to
+a function of a ``numpy.random.Generator`` giving ``(args, kwargs)`` in
+numpy (float32 arrays, integer and bool arrays, Python values and
+callables), so the same inputs reach the port's op, the JAX package's op (in the CPU tests)
 and the numpy reference. The random ops (:data:`RANDOM`) draw from a
 generator where the reference takes a key: :func:`check_random` holds
 their shape, dtype, range or moments and their determinism under one
@@ -29,8 +29,9 @@ import torch
 # registers the ops the samples name
 from paddle_tpu_torch.nn import nets  # noqa: F401
 from paddle_tpu_torch.ops import (activation, control_flow,  # noqa: F401
-                                  crf, elementwise, math, metrics_ops, niche,
-                                  nn, quant, reduction, sequence, tensor)
+                                  crf, detection, elementwise, math,
+                                  metrics_ops, niche, nn, quant, reduction,
+                                  sequence, tensor)
 
 #: ops that draw from a torch.Generator (the reference's key)
 RANDOM = ("gaussian_random", "uniform_random", "randint", "randperm",
@@ -38,7 +39,8 @@ RANDOM = ("gaussian_random", "uniform_random", "randint", "randperm",
           "uniform_random_batch_size_like", "dropout", "nce",
           "sampled_softmax_with_cross_entropy", "sample_logits")
 #: creation ops with no tensor input: the port's take ``device=``
-CREATION = ("fill_constant", "range", "linspace", "eye", "ones", "zeros")
+CREATION = ("fill_constant", "range", "linspace", "eye", "ones", "zeros",
+            "prior_box", "density_prior_box", "anchor_generator")
 #: float outputs: the tolerance of the port against the JAX package and
 #: of a device against the numpy reference (float32)
 ATOL, RTOL = 1e-6, 1e-5
@@ -471,6 +473,182 @@ SAMPLES.update({
     # nets
     "glu": lambda r: ((_f(r, 3, 4),), {"axis": 1}),
 })
+
+def _boxes(r, n, size=16.0, lo=1.0):
+    """``n`` xyxy boxes inside ``size`` pixels, each at least ``lo``
+    wide and high."""
+    xy = r.random((n, 2)) * size * 0.6
+    wh = lo + r.random((n, 2)) * size * 0.4
+    return np.concatenate([xy, xy + wh], 1).astype(np.float32)
+
+
+def _tied_boxes(r):
+    """8 boxes with exact duplicates and equal overlaps, and scores tied
+    in threes (ties must keep the lower index, as the reference's)."""
+    base = np.array([[0, 0, 4, 4], [0, 0, 4, 4], [1, 1, 5, 5],
+                     [8, 8, 12, 12], [8, 8, 12, 12], [9, 8, 13, 12],
+                     [2, 9, 6, 13], [0, 0, 4, 4]], np.float32)
+    scores = np.array([0.9, 0.9, 0.5, 0.5, 0.5, 0.9, 0.3, 0.1], np.float32)
+    return base, scores
+
+
+def _grid_anchors(n=4, size=16.0):
+    """n x n square anchors tiling a ``size`` image, normalised xyxy: many
+    equal IoUs with an aligned ground truth."""
+    step = 1.0 / n
+    out = [[j * step, i * step, (j + 1) * step, (i + 1) * step]
+           for i in range(n) for j in range(n)]
+    return np.array(out, np.float32)
+
+
+def _gt(r, b, g, norm=True):
+    """Padded ground truths (b, g, 4) xyxy (normalised or in 16 pixels),
+    labels in [1, 3) and a mask with the last row of the second image
+    padding."""
+    boxes = np.stack([_boxes(r, g, 1.0 if norm else 16.0,
+                             0.2 if norm else 3.0) for _ in range(b)])
+    labels = r.integers(1, 3, (b, g)).astype(np.int32)
+    mask = np.ones((b, g), bool)
+    mask[-1, -1] = False
+    return boxes, labels, mask
+
+
+def _quads(r):
+    return np.array([[1, 1, 6, 1.5, 6.5, 5, 0.5, 4.5],
+                     [2, 2, 7, 2, 7, 7, 2, 7]], np.float32)
+
+
+def _deltas(r, *shape):
+    return (0.3 * r.standard_normal(shape)).astype(np.float32)
+
+
+SAMPLES.update({
+    # detection: boxes and anchors
+    "iou_similarity": lambda r: ((_tied_boxes(r)[0], _boxes(r, 5)), {}),
+    "box_coder": lambda r: ((_boxes(r, 6), _boxes(r, 6)),
+                            {"variances": (0.1, 0.1, 0.2, 0.2)}),
+    "prior_box": lambda r: ((3, 4, 32, 32, (8.0, 16.0)),
+                            {"max_sizes": (12.0, 24.0),
+                             "aspect_ratios": (1.0, 2.0, 0.5)}),
+    "density_prior_box": lambda r: ((2, 3, 32, 48),
+                                    {"fixed_sizes": (8.0, 16.0),
+                                     "fixed_ratios": (1.0, 2.0),
+                                     "densities": (2, 1)}),
+    "anchor_generator": lambda r: ((2, 3), {"anchor_sizes": (8, 16),
+                                            "aspect_ratios": (0.5, 1.0),
+                                            "stride": (8.0, 8.0)}),
+    "box_clip": lambda r: ((_boxes(r, 6, 24.0) - 4.0,
+                            np.array([10.0, 12.0], np.float32)), {}),
+    "yolo_box": lambda r: ((_f(r, 2, 2 * 8, 3, 4),
+                            np.array([[96, 128], [90, 120]], np.int32),
+                            [(10, 13), (16, 30)], 3),
+                           {"conf_thresh": 0.5, "downsample_ratio": 32}),
+    "polygon_box_transform": lambda r: ((_f(r, 1, 8, 3, 4),), {}),
+    "box_decoder_and_assign": lambda r: ((_boxes(r, 5), _deltas(r, 5, 12),
+                                          np.array([[.2, .5, .5], [.9, .1, 0],
+                                                    [.3, .3, .3], [0, 0, 1],
+                                                    [.4, .4, .2]],
+                                                   np.float32)),
+                                         {"box_clip_value": 0.5}),
+    # detection: NMS
+    "nms": lambda r: (_tied_boxes(r), {"iou_threshold": 0.5,
+                                       "score_threshold": 0.2,
+                                       "max_outputs": 10}),
+    "multiclass_nms": lambda r: ((_tied_boxes(r)[0], np.stack(
+        [_tied_boxes(r)[1], _tied_boxes(r)[1][::-1].copy(),
+         np.full(8, 0.4, np.float32)], 1)),
+        {"iou_threshold": 0.5, "score_threshold": 0.2, "max_per_class": 4}),
+    "matrix_nms": lambda r: (_tied_boxes(r), {"score_threshold": 0.2,
+                                              "nms_top_k": 6,
+                                              "keep_top_k": 8}),
+    "generate_proposals": lambda r: ((np.repeat(r.random(6), 2).astype(
+        np.float32), _deltas(r, 12, 4), _boxes(r, 12, 32.0, 4.0),
+        np.array([32.0, 32.0], np.float32)),
+        {"pre_nms_top_n": 10, "post_nms_top_n": 8, "nms_thresh": 0.5,
+         "min_size": 2.0}),
+    "collect_fpn_proposals": lambda r: (
+        ([_boxes(r, 3), _boxes(r, 4)],
+         [np.array([0.5, 0.7, 0.5], np.float32),
+          np.array([0.7, -np.inf, 0.2, 0.5], np.float32)],
+         [np.array([True, True, False]), np.array([True, False, True,
+                                                   True])]),
+        {"post_nms_top_n": 9}),
+    "distribute_fpn_proposals": lambda r: ((_boxes(r, 6, 600.0, 4.0),), {}),
+    "retinanet_detection_output": lambda r: (
+        ([_deltas(r, 6, 4), _deltas(r, 4, 4)],
+         [np.repeat(r.random((3, 3)), 2, 0).astype(np.float32),
+          r.random((4, 3)).astype(np.float32)],
+         [_boxes(r, 6, 32.0, 4.0), _boxes(r, 4, 32.0, 4.0)],
+         np.array([32.0, 32.0], np.float32)),
+        {"score_threshold": 0.2, "nms_top_k": 8, "keep_top_k": 6}),
+    "detection_output": lambda r: ((_deltas(r, 2, 16, 4), np.repeat(
+        _f(r, 2, 8, 3), 2, 1), _grid_anchors()),
+        {"nms_top_k": 5, "keep_top_k": 6, "score_threshold": 0.2}),
+    # detection: RoI sampling
+    "roi_pool": lambda r: ((_f(r, 8, 9, 3), np.concatenate(
+        [_boxes(r, 3, 8.0), np.array([[3, 3, 3, 3]], np.float32)])),
+        {"output_size": (2, 3), "spatial_scale": 1.0}),
+    "roi_align": lambda r: ((_f(r, 8, 9, 3), _boxes(r, 3, 16.0)),
+                            {"output_size": (2, 3), "spatial_scale": 0.5}),
+    "psroi_pool": lambda r: ((_f(r, 6, 7, 12), _boxes(r, 3, 7.0)),
+                             {"output_size": 2}),
+    "prroi_pool": lambda r: ((_f(r, 6, 7, 3), _boxes(r, 3, 7.0)),
+                             {"output_size": (2, 2), "samples_per_bin": 2}),
+    "deformable_roi_pooling": lambda r: ((_f(r, 6, 7, 3), _boxes(r, 3, 7.0),
+                                          _f(r, 3, 2, 3, 2)),
+                                         {"output_size": (2, 3)}),
+    "deformable_conv": lambda r: ((_f(r, 1, 5, 5, 2), _f(r, 1, 3, 3, 18),
+                                   _f(r, 3, 3, 2, 4)),
+                                  {"mask": r.random((1, 3, 3, 9)).astype(
+                                      np.float32)}),
+    "roi_perspective_transform": lambda r: ((_f(r, 8, 9, 2), _quads(r)),
+                                            {"output_size": (3, 4)}),
+    # detection: matching and targets
+    "bipartite_match": lambda r: ((np.array(
+        [[0.5, 0.5, 0.1, 0.0, 0.5, 0.2], [0.5, 0.3, 0.5, 0.0, 0.1, 0.2],
+         [0.9, 0.2, 0.2, 0.0, 0.9, 0.0], [0.7, 0.7, 0.7, 0.7, 0.7, 0.7]],
+        np.float32), np.array([True, True, True, False])), {}),
+    "target_assign": lambda r: ((_f(r, 4, 3), np.array(
+        [2, -1, 0, 2, -1, 3], np.int32)), {"mismatch_value": -1.0}),
+    "mine_hard_examples": lambda r: ((np.array(
+        [0.5, 0.9, 0.5, 0.5, 0.1, 0.9, 0.5, 0.2, 0.3, 0.5], np.float32),
+        np.array([-1, 0, -1, -1, -1, -1, 1, -1, -1, -1], np.int32)),
+        {"neg_pos_ratio": 2.0}),
+    "rpn_target_assign": lambda r: ((_boxes(r, 12, 16.0, 3.0),
+                                     _boxes(r, 3, 16.0, 3.0),
+                                     np.array([True, True, False])),
+                                    {"im_shape": (16, 16),
+                                     "batch_size_per_im": 6,
+                                     "pos_threshold": 0.5}),
+    "retinanet_target_assign": lambda r: (
+        (_boxes(r, 12, 16.0, 3.0), _boxes(r, 3, 16.0, 3.0),
+         np.array([1, 2, 1], np.int32), np.array([True, True, False])),
+        {"negative_overlap": 0.3}),
+    "generate_proposal_labels": lambda r: (
+        (_boxes(r, 10, 16.0, 3.0), np.array([True] * 8 + [False] * 2),
+         _boxes(r, 3, 16.0, 3.0), np.array([1, 2, 1], np.int32),
+         np.array([True, True, False])),
+        {"batch_size_per_im": 6, "fg_fraction": 0.5, "fg_thresh": 0.3,
+         "bg_thresh_hi": 0.3, "return_matches": True}),
+    "generate_mask_labels": lambda r: (
+        (_boxes(r, 3, 16.0, 3.0), np.array([1, 0, -1], np.int32),
+         np.array([True, True, False]),
+         (r.random((2, 8, 8)) < 0.5).astype(np.float32)),
+        {"resolution": 4, "im_size": 16}),
+    # detection: losses
+    "ssd_loss": lambda r: ((_deltas(r, 2, 16, 4), _f(r, 2, 16, 3),
+                            _grid_anchors()) + _gt(r, 2, 3), {}),
+    "sigmoid_focal_loss": lambda r: ((_f(r, 5, 3), np.array(
+        [0, 1, 3, 2, 0], np.int32)), {"normalizer": 2.0}),
+    "yolov3_loss": lambda r: ((_f(r, 2, 2 * 8, 4, 4), np.concatenate(
+        [0.1 + 0.8 * r.random((2, 3, 2)), 0.05 + 0.5 * r.random((2, 3, 2))],
+        -1).astype(np.float32), r.integers(0, 3, (2, 3)).astype(np.int32),
+        np.array([[True, True, True], [True, True, False]])),
+        {"anchors": [(10, 13), (16, 30), (33, 23), (30, 61)],
+         "anchor_mask": (2, 3), "class_num": 3, "ignore_thresh": 0.5,
+         "downsample_ratio": 8}),
+})
+
 
 def sample(name: str, seed: int = 0):
     """``(args, kwargs)`` of ``name``'s sample, from ``seed``."""

@@ -11,7 +11,8 @@ Write path (``SnapshotEngine.save``):
 2. **Background write**: one worker thread pickles and writes
    ``shards_pNNNNN.pkl`` through the injected fs (local or a fault
    wrapper), fsyncs, then writes a ``commit_pNNNNN.json`` with the file's
-   sha256. At most ONE save is in flight and ONE pending (the second
+   sha256 (under a ``.tmp`` name, renamed once whole: process 0 reads
+   it as soon as its name exists). At most ONE save is in flight and ONE pending (the second
    buffer); a third ``save`` blocks: backpressure, not unbounded host
    memory.
 3. **Two-phase manifest commit** (process 0): wait for every process's
@@ -409,10 +410,11 @@ class SnapshotEngine:
                    payload, policy=self.retry, op="shard_write")
         commit = {"file": fname, "sha256": digest, "bytes": len(payload),
                   "process": self.process_index}
-        retry_call(_write_bytes, self.fs,
-                   os.path.join(sdir, _commit_file(self.process_index)),
+        cpath = os.path.join(sdir, _commit_file(self.process_index))
+        retry_call(_write_bytes, self.fs, cpath + ".tmp",
                    json.dumps(commit).encode(),
                    policy=self.retry, op="commit_write")
+        self.fs.rename(cpath + ".tmp", cpath)
         if self.process_index == 0:
             self._commit_manifest(step, sdir, leaves)
             self._gc()

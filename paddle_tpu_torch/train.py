@@ -37,6 +37,7 @@ from torch import nn
 
 from paddle_tpu_torch.core import dtypes
 from paddle_tpu_torch.core.device import counted_capture, note_replay
+from paddle_tpu_torch.nn.module import capture_state
 from paddle_tpu_torch.observability import recompile
 
 
@@ -67,9 +68,12 @@ def _policy_call(fn: Callable, model: nn.Module,
                  views: Optional[Callable] = None):
     """``fn(model, **batch)``; under a policy, the parameters enter as
     differentiable casts to its compute dtype (the fp32 masters get the
-    gradients) and floating feeds are cast too. ``views(name, p)``, where
-    given, is the tensor the forward reads for parameter ``p`` (a sharded
-    step's gathered parameter), cast after it is taken."""
+    gradients), and so do the floating buffers (BatchNorm's running
+    statistics, as the reference's policy casts its whole tree: an eval
+    forward stays in the compute dtype; the tape still writes the fp32
+    masters) and the floating feeds. ``views(name, p)``, where given, is
+    the tensor the forward reads for parameter ``p`` (a sharded step's
+    gathered parameter), cast after it is taken."""
     if policy is None and views is None:
         return fn(model, **batch)
     if policy is not None:
@@ -79,6 +83,10 @@ def _policy_call(fn: Callable, model: nn.Module,
         t = p if views is None else views(n, p)
         params[f"model.{n}"] = t if policy is None \
             else policy.cast_to_compute(t)
+    if policy is not None:
+        for n, b in model.named_buffers():
+            if b.is_floating_point():
+                params[f"model.{n}"] = policy.cast_to_compute(b)
     return torch.func.functional_call(_LossModule(model, fn), params,
                                       args=(), kwargs=batch)
 
@@ -324,7 +332,12 @@ def build_train_step(
     to bools: False leaves that parameter untouched by the optimizer.
     ``grad_accum_steps > 1`` splits the batch into micro-batches and
     averages their gradients (sum, then divide, as the reference does);
-    the loss and aux metrics are the micro-batches' means. ``remat``
+    the loss and aux metrics are the micro-batches' means. Every forward
+    (each micro-batch's, and the remat recompute in the backward) runs
+    under ``nn.module.capture_state``: it reads the running statistics
+    as the step found them, and after the optimizer's update the step
+    writes the last value recorded for each buffer (the last
+    micro-batch's), in place, as the reference's state tape does. ``remat``
     recomputes the loss function's activations in the backward
     (``torch.utils.checkpoint``, non-reentrant): the same losses and
     gradients for less memory. ``cuda_graphs`` captures the step on the
@@ -353,17 +366,18 @@ def build_train_step(
     def local_step(state, batch):
         model, opt = state["model"], state["opt"]
         opt.zero_grad(set_to_none=True)
-        if grad_accum_steps > 1:
-            outs = [forward_backward(model, mb)
-                    for mb in _split(batch, grad_accum_steps)]
-            for p in model.parameters():
-                if p.grad is not None:
-                    p.grad.div_(grad_accum_steps)
-            loss = torch.stack([o[0] for o in outs]).mean()
-            aux = {k: torch.stack([o[1][k] for o in outs]).mean()
-                   for k in outs[0][1]}
-        else:
-            loss, aux = forward_backward(model, batch)
+        with capture_state() as tape:
+            if grad_accum_steps > 1:
+                outs = [forward_backward(model, mb)
+                        for mb in _split(batch, grad_accum_steps)]
+                for p in model.parameters():
+                    if p.grad is not None:
+                        p.grad.div_(grad_accum_steps)
+                loss = torch.stack([o[0] for o in outs]).mean()
+                aux = {k: torch.stack([o[1][k] for o in outs]).mean()
+                       for k in outs[0][1]}
+            else:
+                loss, aux = forward_backward(model, batch)
         if trainable_mask is not None:
             for name, p in model.named_parameters():
                 if not trainable_mask.get(name, True):
@@ -373,6 +387,7 @@ def build_train_step(
             sharding.sync_grads(model)
             metrics = sharding.metrics(metrics)
         opt.step()
+        tape.apply()
         state["step"].add_(1)
         return state, metrics
 

@@ -2,7 +2,8 @@
 registered ops against the JAX package on the CPU: the registry's API,
 the registered names of each module (the dense op library ``ops/{
 elementwise,math,reduction,activation,tensor}.py``, ``ops/{nn,crf,
-sequence,control_flow,quant,metrics_ops,niche}.py`` and ``nn/nets.py``)
+sequence,control_flow,quant,metrics_ops,niche,detection}.py`` and
+``nn/nets.py``)
 equal to the reference's with the same ``has_grad`` and presence of a
 reference, every op of the dense library on the same numpy inputs
 (``ops.samples``) as the JAX op (floats within 1e-6 abs / 1e-5 rel,
@@ -21,8 +22,8 @@ import torch
 
 import paddle_tpu.nn.nets  # noqa: F401  (registers the reference's glu)
 import paddle_tpu.ops  # noqa: F401  (registers the reference's ops)
-from paddle_tpu.ops import (control_flow, crf, metrics_ops,  # noqa: F401
-                            niche, quant, sequence)
+from paddle_tpu.ops import (control_flow, crf, detection,  # noqa: F401
+                            metrics_ops, niche, quant, sequence)
 from paddle_tpu.core import registry as jreg
 from paddle_tpu_torch.core import registry as preg
 from paddle_tpu_torch.ops import (activation, beam_search,  # noqa: F401
@@ -34,7 +35,7 @@ torch.set_num_threads(2)
 
 MODULES = ("elementwise", "math", "reduction", "activation", "tensor",
            "beam_search", "nn", "crf", "sequence", "control_flow", "quant",
-           "metrics_ops", "niche", "nets")
+           "metrics_ops", "niche", "nets", "detection")
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 

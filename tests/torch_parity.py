@@ -3,6 +3,9 @@ the port's names, and the tolerances of the recurrent and structured
 slice's checks (losses 1e-5 relative, gradients atol 1e-5 / rtol 1e-4,
 ops 1e-6 / 1e-5)."""
 
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
@@ -92,8 +95,10 @@ def grads_close(model, jax_grads, transpose=None):
 
 
 #: the dense op library's modules; the rest of the registered ops
-#: are held in ``test_torch_ops_registry_structured.py``
+#: are held in ``test_torch_ops_registry_structured.py``, the detection
+#: ops in ``test_torch_detection_ops.py``
 DENSE_OPS = ("elementwise", "math", "reduction", "activation", "tensor")
+DETECTION_OPS = ("detection",)
 
 
 def op_module(name):
@@ -110,14 +115,26 @@ def _to_jax(obj):
     return obj
 
 
-def op_equals_the_reference(name):
+def _arrays_only(obj):
+    if isinstance(obj, (list, tuple)):
+        return all(_arrays_only(o) for o in obj)
+    return isinstance(obj, np.ndarray)
+
+
+def op_equals_the_reference(name, jit=False):
     """The port's op ``name`` on its sample (``ops.samples``) against the
     JAX op on the same numpy inputs: floats within 1e-6 abs / 1e-5 rel,
-    everything else exactly."""
+    everything else exactly. ``jit`` runs the JAX op under ``jax.jit``
+    (its keyword arguments fixed) where every positional input is an
+    array: the detection ops' loops take seconds op by op."""
     from paddle_tpu.core import registry as jreg
     from paddle_tpu_torch.ops import samples
     args, kwargs = samples.sample(name, seed=0)
-    want = jreg.get_op(name).fn(*_to_jax(args), **kwargs)
+    fn = jreg.get_op(name).fn
+    if jit and _arrays_only(args):
+        want = jax.jit(functools.partial(fn, **kwargs))(*_to_jax(args))
+    else:
+        want = fn(*_to_jax(args), **kwargs)
     got = samples.run_op(name, args, kwargs, "cpu")
     errs = samples.close(got, samples.to_numpy(want), samples.ATOL,
                          samples.RTOL)
