@@ -422,12 +422,41 @@ Phases, in order; any failure exits non-zero:
        (``ZOO_TIMED_BATCH`` x ``ZOO_TIMED_HW``); one DCGAN ``gan_step``
        card vs CPU on the same latents and its eager ms;
    (d) 12 (e)'s battery over the 34 detection ops: 0 failures.
+15. the front end (runs after 14; TF32 off; its pp=2 legs run in phase
+   8's two-rank group, after phase 9's):
+   (a) the main path of the slice: Transformer-big (phase 11's widths,
+       6 + 6 layers, label smoothing 0.1) with ``pipeline=True`` over
+       pp=2 (GPipe, M=4) on 16 x 256 padded pairs: 3 eager bf16 AdamW
+       steps on each stage rank (K5 forward and again in the recompute,
+       K6a/K6b backward; the counts set to 0 just before and read just
+       after, held to ``tf_pipe_reckoning``), the losses equal on both
+       ranks and within ``PIPE_BF16_RTOL`` of pp=1 in this process, ms a
+       step and peak memory per rank; the circular schedule (v=2) for
+       one step at 4 + 4 layers (6 do not divide over pp * v) against
+       pp=1; the fp32 2 + 2 model through the pipeline: its loss within
+       ``TF_PIPE_FP32_REL`` of the sequential stacks', its gradients equal
+       to the pp=1 timetable's bit for bit and, against an fp64
+       recompute, within twice the sequential fp32 stacks' distance (the
+       relu FFNs' weight gradients are rounding-bound at initialisation);
+   (b) ``Executor.train_from_dataset`` drives a ``Program`` (the
+       sequential Transformer-big's captured bf16 step) over phase 11's
+       MultiSlot files for 6 steps with ``checkpoint_every=3``; a run
+       stopped at 3 and a fresh model resumed from its checkpoint end on
+       the unbroken run's state bit for bit;
+   (c) ``metrics`` on card and CPU outputs of the same weights: DeepFM's
+       ``Auc`` (phase 10's widths), the SRL tagger's ``ChunkEvaluator``
+       (phase 13's) and ``DetectionMAP`` over SSD300's ``detect_from``
+       on the same head outputs (phase 14 (b));
+   (d) ``slim.pruned_train_step`` keeps half of every weight matrix at 0
+       through a captured bf16 step's replays; the ``profiler.profiler``
+       Chrome trace of one (a) step on rank 0 names the K5 kernel.
 7. output  — one ``{"kernels": [...]}`` line (each kernel with its
    tunables' candidates and the configuration the committed cache chose
    at each shape, ``blocks``; the ring's entry over K5/K6 with its calls
    on (b)'s main path; K5/K6a/K6b with their launches on each stage
    rank of 9 (b), ``launches_pipeline_ranks``, over 11 (b)'s timed
-   steps, ``launches_transformer``, and K5's in 12 (d),
+   steps, ``launches_transformer``, on each stage rank of 15 (a),
+   ``launches_transformer_pipeline``, and K5's in 12 (d),
    ``launches_beam_search``; K5's C++ binding with its launches over 12
    (b)'s timed bf16 calls), the nvidia-smi line, and the final
    ``{"ok": true, "device": {...}}`` line.
@@ -827,7 +856,7 @@ def check_head_slices(entry, make_inputs, device, flush):
     return cases
 
 
-# -- phase 3b: flash attention vs plain versions -------------------------------
+# -- phase 3b: flash attention vs plain versions ------------------------------
 
 #: (name, (B, H, S, Dh), causal, bias: "ragged" key padding, "segments"
 #: a packed batch's full segment bias, None no bias)
@@ -1112,7 +1141,7 @@ def tensor_core_report(build):
     return reports
 
 
-# -- phase 3c: the kernel layer -------------------------------------------------
+# -- phase 3c: the kernel layer -----------------------------------------------
 
 def kernel_layer(device):
     """3c: the parity battery (``kernels.harness.parity_check``) of every
@@ -1168,7 +1197,7 @@ def kernel_layer(device):
                       for r in tuned}}
 
 
-# -- phase 4: the main path ----------------------------------------------------
+# -- phase 4: the main path ---------------------------------------------------
 
 def model_config():
     from paddle_tpu_torch.models.gpt import GPTConfig
@@ -4303,14 +4332,14 @@ def _check_pipe_staging(label, rows, device, want_bytes):
                                  f"{want_bytes}")
 
 
-def _check_pipe_launches(label, rows, want):
+def _check_pipe_launches(label, rows, want, phase="9"):
     fwd, dkv, dq = (e.name for e in flash_entries())
     for rank, r in enumerate(rows):
         got = {"K5": r["launches"][fwd], "K6a": r["launches"][dkv],
                "K6b": r["launches"][dq]}
         if got != want:
-            raise AssertionError(f"9 {label} rank {rank}: launches {got}, "
-                                 f"reckoned {want}")
+            raise AssertionError(f"{phase} {label} rank {rank}: launches "
+                                 f"{got}, reckoned {want}")
 
 
 def _pipe_dir():
@@ -4544,7 +4573,8 @@ def parallel_train(device):
     # phase 9's pp=2 legs ride this group: one start-up for both phases
     _pipe_dir()
     two = group_run(2, ("ring_timed", "bert_ring", "dp", "tp", "local_sgd")
-                    + PIPE_LEGS, device, "8a-8e sp/dp/tp=2 and 9 pp=2 group")
+                    + PIPE_LEGS + TF_PIPE_LEGS, device,
+                    "8a-8e sp/dp/tp=2, 9 and 15 (a) pp=2 group")
     _check_ring_counts("sp=2", 2, [r["ring_timed"] for r in two])
     group_s = time.monotonic() - t0
     for label, rows in (("sp=2", [r["ring_timed"] for r in two]),
@@ -4656,7 +4686,8 @@ def parallel_train(device):
     log("  8f sharded snapshot: " + json.dumps(stats["snapshot"]))
     del back, whole
     stats["pipe_ranks"] = [{leg: r[leg] for leg in PIPE_LEGS} for r in two]
-    pipe_s = sum(two[0][leg]["seconds"] for leg in PIPE_LEGS)
+    stats["tf_pipe_ranks"] = [r["pipe_transformer"] for r in two]
+    pipe_s = sum(two[0][leg]["seconds"] for leg in PIPE_LEGS + TF_PIPE_LEGS)
     stats["ring_calls_main_path"] = two[0]["bert_ring"]["bf16"]["ring_calls"]
     stats["main_path_launches"] = two[0]["bert_ring"]["bf16"]["launches"]
     stats["seconds"] = {
@@ -4671,7 +4702,7 @@ def parallel_train(device):
     return stats
 
 
-# -- phase 10: embedding serving ------------------------------------------------
+# -- phase 10: embedding serving ----------------------------------------------
 
 #: the reference's embedding-serving configuration for a chip
 #: (``bench.py`` ``run_bench_embedding_serving``)
@@ -7074,6 +7105,536 @@ def zoo_slice(device, battery):
     return stats
 
 
+# -- phase 15: the front end --------------------------------------------------
+
+#: (a): microbatches, padded pairs a batch, timed bf16 GPipe steps; the
+#: circular leg's depth (6 layers do not divide over pp * v = 4 stage
+#: chunks) and the fp32 leg's
+TF_PIPE_M, TF_PIPE_BATCH, TF_PIPE_STEPS = 4, 16, 3
+TF_PIPE_CIRCULAR_LAYERS, TF_PIPE_FP32_LAYERS = 4, 2
+#: (a): the fp32 2 + 2 model's loss against the sequential stacks,
+#: relative (its gradients: twice the sequential stacks' distance from
+#: fp64, at least this, max |diff| over each gradient's max |value|)
+TF_PIPE_FP32_REL = 1e-5
+#: (b): Executor steps, the checkpoint interval, the resumed run's start
+EXEC_STEPS, EXEC_EVERY = 6, 3
+#: (c): |AUC card - AUC CPU| at most (the card's probabilities move a few
+#: of 2048 items across a bin edge of 1/4095)
+METRIC_AUC_TOL = 1e-4
+#: (c): |mAP card - mAP CPU| at most (boxes within DET_TOL)
+METRIC_MAP_TOL = 1e-6
+#: (d): the pruned model's depth, sparsity and steps
+PRUNE_LAYERS, PRUNE_SPARSITY, PRUNE_STEPS = 2, 0.5, 4
+FRONT_DIR = TRAIN_DIR.parent / "chip_smoke_frontend"
+#: phase 15's leg, run by phase 8's two-rank group
+TF_PIPE_LEGS = ("pipe_transformer",)
+
+
+def _tf_pad_loss(m, src_ids, tgt_in, tgt_out):
+    return m.loss(src_ids, tgt_in, tgt_out)
+
+
+def _tf_pipe_config(layers=6, **kw):
+    return _tf_config(num_encoder_layers=layers, num_decoder_layers=layers,
+                      pipeline=True, pp_microbatches=TF_PIPE_M, **kw)
+
+
+def _frame_pairs(cfg, srcs, tgts, rows):
+    """Pairs in the padded layout, ``rows`` x ``TF_LEN``: ``src_ids``,
+    ``tgt_in`` = [BOS, y], ``tgt_out`` = [y, EOS], ``pad_id`` after."""
+    b = {k: np.full((rows, TF_LEN), cfg.pad_id, np.int64)
+         for k in ("src_ids", "tgt_in", "tgt_out")}
+    for r, (s, t) in enumerate(zip(srcs, tgts)):
+        b["src_ids"][r, :len(s)] = s
+        b["tgt_in"][r, 0] = cfg.bos_id
+        b["tgt_in"][r, 1:len(t) + 1] = t
+        b["tgt_out"][r, :len(t)] = t
+        b["tgt_out"][r, len(t)] = cfg.eos_id
+    return b
+
+
+def tf_padded_batch(cfg, device, rows=TF_PIPE_BATCH, seed=3):
+    """``rows`` of :func:`tf_pairs`' copy-task pairs (lengths 4-255), one
+    pair a row, padded: the unpacked batch of phase 15 (a)."""
+    pairs = tf_pairs(cfg.vocab_size, seed=seed)[:rows]
+    return {k: torch.from_numpy(v).to(device)
+            for k, v in _frame_pairs(cfg, pairs, pairs, rows).items()}
+
+
+def tf_pipe_reckoning(layers, n, steps, m=TF_PIPE_M):
+    """K5/K6a/K6b launches of one stage rank in ``steps`` steps of the
+    Transformer with ``layers`` encoder and ``layers`` decoder layers
+    pipelined over pp=n: each of its layers' attentions (one an encoder
+    layer, self and cross a decoder layer) once per microbatch in the
+    forward and again in the recompute (K5), once in the backward (K6a,
+    K6b), whatever the schedule."""
+    per = 3 * layers // n * m * steps
+    return {"K5": 2 * per, "K6a": per, "K6b": per}
+
+
+def _tf_pipe_run(device, mesh, cfg, policy="bf16"):
+    """The Transformer of ``cfg`` from seed 0 with AdamW(1e-4) in
+    ``policy`` over fp32 masters: on ``mesh`` (its eager sharded step,
+    the layers' hints) or, without one, the eager step in this process
+    (the pp=1 timetable)."""
+    from paddle_tpu_torch.core.dtypes import get_policy
+    from paddle_tpu_torch.models.transformer import Transformer
+    from paddle_tpu_torch.nn.module import sharding_specs
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import api
+    from paddle_tpu_torch.train import build_train_step, make_train_state
+    model = Transformer(cfg, device=device, seed=0)
+    opt = AdamW(model.parameters(), learning_rate=1e-4)
+    step = build_train_step(_tf_pad_loss, opt, cuda_graphs=False,
+                            policy=get_policy(policy) if policy else None)
+    state = make_train_state(model, opt)
+    if mesh is None:
+        return step, state, model
+    run, state = api.shard_train_step(step, mesh, state,
+                                      hints=sharding_specs(model))
+    return run, state, model
+
+
+def _tf_grads(device, cfg, mesh, batch, dtype=torch.float32):
+    """(loss, {name: gradient}) of the Transformer of ``cfg`` from seed 0
+    in ``dtype`` on ``batch``, under ``mesh`` when one is given."""
+    from paddle_tpu_torch.core import mesh as mesh_lib
+    from paddle_tpu_torch.models.transformer import Transformer
+    model = Transformer(cfg, device=device, seed=0).to(dtype)
+    with (mesh_lib.mesh_context(mesh) if mesh is not None
+          else contextlib.nullcontext()):
+        loss, _ = _tf_pad_loss(model, **batch)
+        loss.backward()
+    out = float(loss.detach()), {k: p.grad.detach().clone()
+                                 for k, p in model.named_parameters()}
+    del model, loss
+    return out
+
+
+def _worst(a, b):
+    errs = {k: _norm_err(a[k], b[k]) for k in b}
+    k = max(errs, key=errs.get)
+    return errs[k], k
+
+
+def _tf_pipe_fp32(device, mesh, batch):
+    """The fp32 2 + 2 model through the pipeline on ``mesh`` against the
+    same timetable at pp=1 (no collectives: equal bit for bit), the
+    sequential stacks (the loss within ``TF_PIPE_FP32_REL``) and an fp64
+    recompute of the sequential stacks (composed attention), the
+    gradients' distance from which is reported beside the sequential fp32
+    stacks' own: at initialisation the relu FFNs' weight gradients are
+    rounding-bound (a relu input near 0 flips with the GEMM's tiling), so
+    the pipeline is held to twice the sequential stacks' distance, as
+    phase 14 holds the ill-conditioned CV gradients."""
+    cfg = _tf_pipe_config(TF_PIPE_FP32_LAYERS)
+    seq = dataclasses.replace(cfg, pipeline=False)
+    pp2 = _tf_grads(device, cfg, mesh, batch)
+    pp1 = _tf_grads(device, cfg, None, batch)
+    same = pp2[0] == pp1[0] and all(torch.equal(pp2[1][k], pp1[1][k])
+                                    for k in pp1[1])
+    del pp1
+    fp32 = _tf_grads(device, seq, None, batch)
+    fp64 = _tf_grads(device, dataclasses.replace(seq, attn_impl="xla"),
+                     None, batch, torch.float64)
+    pipe_err, pipe_worst = _worst(pp2[1], fp64[1])
+    seq_err, seq_worst = _worst(fp32[1], fp64[1])
+    out = {"loss": pp2[0], "loss_sequential": fp32[0],
+           "loss_fp64": fp64[0],
+           "loss_rel_err": abs(pp2[0] - fp32[0]) / abs(fp32[0]),
+           "pp2_equals_pp1_bit_for_bit": same,
+           "grad_vs_fp64": pipe_err, "grad_vs_fp64_worst": pipe_worst,
+           "sequential_grad_vs_fp64": seq_err,
+           "sequential_worst": seq_worst,
+           "grad_vs_sequential": _worst(pp2[1], fp32[1])[0]}
+    del pp2, fp32, fp64
+    _free(device)
+    return out
+
+
+def pipe_transformer_leg(rank, n, device):
+    """Phase 15 (a) on one stage rank of a pp=n group: Transformer-big
+    (6 + 6, ``pipeline=True``, GPipe, M=4) on 16 x 256 padded pairs, 3
+    eager AdamW steps in bf16 over fp32 masters (the phase's main path:
+    the counts set to 0 just before and read just after), then one more
+    step under ``profiler.profiler`` (rank 0: the trace's kernel names);
+    the circular schedule (v=2) for 1 step at 4 + 4 layers; the fp32
+    2 + 2 model against pp=1, the sequential stacks and fp64
+    (:func:`_tf_pipe_fp32`)."""
+    from paddle_tpu_torch import profiler
+    mesh = _par_mesh(device, pp=n)
+    cfg = _tf_pipe_config()
+    batch = tf_padded_batch(cfg, device)
+    out = {}
+    run, state, model = _tf_pipe_run(device, mesh, cfg)
+    out["bf16"] = _pipe_steps(device, run, state, batch, TF_PIPE_STEPS)
+    trace_dir = FRONT_DIR / f"profile_rank{rank}"
+    with (profiler.profiler(str(trace_dir), summary=False) if rank == 0
+          else contextlib.nullcontext()):
+        run(state, **batch)
+        _sync(device)
+    if rank == 0:
+        names = profiler.trace_kernel_names(
+            str(trace_dir / profiler.TRACE_FILE))
+        out["profiled_step"] = {
+            "kernels": len(names),
+            "flash_fwd": sum("flash_fwd" in k for k in names),
+            "flash_bwd": sum("flash_bwd" in k for k in names),
+            "k5_names": sorted({k for k in names if "flash_fwd" in k})[:3]}
+    del run, state, model
+    _free(device)
+    cfg_c = _tf_pipe_config(TF_PIPE_CIRCULAR_LAYERS,
+                            pp_schedule="circular", pp_circuits=2)
+    run, state, model = _tf_pipe_run(device, mesh, cfg_c)
+    out["circular_bf16"] = _pipe_steps(device, run, state, batch, 1)
+    del run, state, model
+    _free(device)
+    out["fp32_2layer"] = _tf_pipe_fp32(device, mesh, batch)
+    return out
+
+
+GROUP_LEGS["pipe_transformer"] = pipe_transformer_leg
+
+
+def _tf_pp1_losses(device, cfg, batch, steps):
+    run, state, model = _tf_pipe_run(device, None, cfg)
+    losses = [float(run(state, **batch)[1]["loss"]) for _ in range(steps)]
+    del run, state, model
+    _free(device)
+    return losses
+
+
+def tf_pipeline_checks(device, ranks):
+    """(a): the ranks' results against the reckoning, each other, pp=1 in
+    this process and the sequential stacks."""
+    n = len(ranks)
+    cfg = _tf_pipe_config()
+    batch = tf_padded_batch(cfg, device)
+    out = {}
+    for label, layers, steps, c in (
+            ("bf16", 6, TF_PIPE_STEPS, cfg),
+            ("circular_bf16", TF_PIPE_CIRCULAR_LAYERS, 1, _tf_pipe_config(
+                TF_PIPE_CIRCULAR_LAYERS, pp_schedule="circular",
+                pp_circuits=2))):
+        rows = [r[label] for r in ranks]
+        want_counts = tf_pipe_reckoning(layers, n, steps)
+        _check_pipe_launches(f"(a) {label}", rows, want_counts, phase="15")
+        if any(r["losses"] != rows[0]["losses"] for r in rows):
+            raise AssertionError(f"15 (a) {label}: the ranks' losses "
+                                 "differ")
+        pp1 = _tf_pp1_losses(device, c, batch, steps)
+        rel = _close(rows[0]["losses"], pp1, PIPE_BF16_RTOL, 0.0,
+                     f"15 (a) {label} pp={n} vs pp=1")
+        out[label] = {
+            "losses_pp1": pp1, "max_rel_err": rel,
+            "reckoned_per_rank": want_counts,
+            "per_rank": [{
+                "losses": r["losses"], "launches": r["launches"],
+                "ms_per_step": [1e3 * s for s in r["step_s"]],
+                "peak_gib": (r["peak_bytes"] or 0) / 2 ** 30,
+                "staged_bytes": r["staged_bytes"]} for r in rows]}
+    for rank, r in enumerate(ranks):
+        f = r["fp32_2layer"]
+        if f["loss_rel_err"] > TF_PIPE_FP32_REL or \
+                not f["pp2_equals_pp1_bit_for_bit"] or \
+                f["grad_vs_fp64"] > max(2 * f["sequential_grad_vs_fp64"],
+                                        TF_PIPE_FP32_REL):
+            raise AssertionError(f"15 (a) fp32 2 + 2 rank {rank} vs the "
+                                 f"sequential stacks: {f}")
+    out["fp32_2layer"] = [r["fp32_2layer"] for r in ranks]
+    prof = ranks[0]["profiled_step"]
+    if not prof["flash_fwd"]:
+        raise AssertionError(f"15 (d): the profiled step's trace names no "
+                             f"K5 kernel: {prof}")
+    out["profiled_step_rank0"] = prof
+    out["leg_s"] = ranks[0]["seconds"]
+    log("  15 (a) pipelined Transformer-big pp=2 (GPipe, M=4, 16 x 256 "
+        "padded pairs): " + json.dumps(out))
+    return out
+
+
+class _FramedPairs:
+    """A MultiSlot dataset of (src, tgt) pairs as the padded Transformer
+    feed: its first ``limit`` batches, each framed by
+    :func:`_frame_pairs` (one signature, so one captured graph)."""
+
+    def __init__(self, ds, cfg, limit):
+        self.ds, self.cfg, self.limit = ds, cfg, limit
+
+    def batches(self, batch_size, drop_last=True):
+        for i, b in enumerate(self.ds.batches(
+                batch_size, drop_last=drop_last, with_lengths=True)):
+            if i == self.limit:
+                return
+            srcs = [b["src"][r, :b["src_len"][r]]
+                    for r in range(b["src"].shape[0])]
+            tgts = [b["tgt"][r, :b["tgt_len"][r]]
+                    for r in range(b["tgt"].shape[0])]
+            yield _frame_pairs(self.cfg, srcs, tgts, batch_size)
+
+
+def executor_resume(device):
+    """(b): ``Executor.train_from_dataset`` drives a ``Program`` (the
+    sequential Transformer-big's bf16 step, captured) over phase 11's
+    MultiSlot files (rewritten from the same seed): 6 steps with a
+    checkpoint every 3; a run stopped at 3; a fresh model resumed from
+    its checkpoint to step 6. Its state equals the unbroken run's bit for
+    bit."""
+    from paddle_tpu_torch.core.dtypes import get_policy
+    from paddle_tpu_torch.data.native_feed import MultiSlotDataset
+    from paddle_tpu_torch.executor import Executor, Program
+    from paddle_tpu_torch.models.transformer import Transformer
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.train import build_train_step, make_train_state
+    t0 = time.monotonic()
+    cfg = _tf_config()
+    paths = write_multislot(FRONT_DIR / "wmt", tf_pairs(cfg.vocab_size))
+
+    def dataset(limit):
+        ds = MultiSlotDataset([("src", "int64"), ("tgt", "int64")])
+        ds.set_filelist([str(p) for p in paths])
+        ds.load_into_memory(num_threads=4)
+        ds.global_shuffle(0)
+        return _FramedPairs(ds, cfg, limit)
+
+    def train(directory, limit, resume=False):
+        model = Transformer(cfg, device=device, seed=0)
+        opt = AdamW(model.parameters(), learning_rate=1e-4)
+        step = build_train_step(_tf_pad_loss, opt,
+                                policy=get_policy("bf16"))
+        state = make_train_state(model, opt)
+        losses = []
+        t = time.monotonic()
+        state, _ = Executor().train_from_dataset(
+            Program(step, name="transformer_big", donate_state=True),
+            dataset(limit), state, batch_size=TF_ROWS,
+            fetch_handler=lambda i, f: losses.append((i, float(f["loss"]))),
+            checkpoint_dir=str(directory), checkpoint_every=EXEC_EVERY,
+            resume=resume)
+        _sync(device)
+        return state, losses, step.builds, time.monotonic() - t
+
+    whole, losses, builds, whole_s = train(FRONT_DIR / "ckpt_a", EXEC_STEPS)
+    keep = {"params": {k: v.detach().clone()
+                       for k, v in whole["model"].state_dict().items()},
+            "slots": [t.clone() for t in whole["opt"].state_tensors()],
+            "step": int(whole["step"])}
+    del whole
+    _free(device)
+    first, first_losses, _, _ = train(FRONT_DIR / "ckpt_b", EXEC_EVERY)
+    del first
+    _free(device)
+    resumed, resumed_losses, _, resumed_s = train(FRONT_DIR / "ckpt_b",
+                                                  EXEC_STEPS, resume=True)
+    params = resumed["model"].state_dict()
+    same = (int(resumed["step"]) == keep["step"] == EXEC_STEPS
+            and all(torch.equal(params[k], v)
+                    for k, v in keep["params"].items())
+            and all(torch.equal(a, b) for a, b in zip(
+                resumed["opt"].state_tensors(), keep["slots"])))
+    stats = {"steps": [i for i, _ in losses],
+             "losses": [v for _, v in losses],
+             "first_run_steps": [i for i, _ in first_losses],
+             "resumed_steps": [i for i, _ in resumed_losses],
+             "resumed_losses_equal": [v for _, v in resumed_losses] ==
+             [v for _, v in losses[EXEC_EVERY:]],
+             "state_equal_bit_for_bit": same, "captures": builds,
+             "unbroken_run_s": whole_s, "resumed_run_s": resumed_s,
+             "seconds": time.monotonic() - t0}
+    log("  15 (b) Executor.train_from_dataset, checkpoint every 3, resume "
+        "from 3: " + json.dumps(stats))
+    if not same or not stats["resumed_losses_equal"] or \
+            stats["resumed_steps"] != list(range(EXEC_EVERY, EXEC_STEPS)):
+        raise AssertionError(f"15 (b): the resumed run is not the "
+                             f"unbroken run: {stats}")
+    del resumed, params, keep
+    _free(device)
+    return stats
+
+
+def _auc_card_vs_cpu(device):
+    """DeepFM's towers at phase 10's widths, the same weights on the card
+    and the CPU, on the same pulled rows: ``metrics.Auc`` of each."""
+    from paddle_tpu_torch import metrics
+    card, cpu = _deepfm(device), _deepfm("cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    rng = np.random.default_rng(21)
+    u = 4 * EMBED_BATCH
+    rows = torch.from_numpy(
+        0.1 * rng.standard_normal((u, 1 + EMBED_DIM)).astype(np.float32))
+    inv = torch.from_numpy(rng.integers(0, u, (EMBED_BATCH, EMBED_FIELDS)))
+    with torch.no_grad():
+        p_cpu = cpu.predict_proba(rows, inv)
+        p_card = card.predict_proba(rows.to(device), inv.to(device))
+    labels = (rng.random(EMBED_BATCH) < p_cpu.numpy()).astype(np.float32)
+    got = metrics.Auc().update(p_card, torch.from_numpy(labels).to(device))
+    want = metrics.Auc().update(p_cpu, labels)
+    out = {"auc_card": got.eval(), "auc_cpu": want.eval(),
+           "prob_max_abs_err": float((p_card.cpu() - p_cpu).abs().max()),
+           "bins_moved": int(np.abs(got._pos - want._pos).sum()
+                             + np.abs(got._neg - want._neg).sum()) // 2}
+    if abs(out["auc_card"] - out["auc_cpu"]) > METRIC_AUC_TOL:
+        raise AssertionError(f"15 (c) DeepFM AUC card vs CPU: {out}")
+    return out
+
+
+def _chunks_card_vs_cpu(device):
+    """The SRL tagger at the book's widths (phase 13's weights and CRF
+    scores), Viterbi tags on the card and the CPU: ``ChunkEvaluator`` of
+    each against the labels."""
+    from paddle_tpu_torch import metrics
+    from paddle_tpu_torch.models.book import LabelSemanticRoles
+    c = SRL_BOOK
+    kw = dict(dim=c["dim"], hidden=c["hidden"], depth=c["depth"], seed=0)
+    cpu = LabelSemanticRoles(c["vocab"], c["tags"], device="cpu", **kw)
+    card = LabelSemanticRoles(c["vocab"], c["tags"], device=device, **kw)
+    card.load_state_dict(cpu.state_dict())
+    with torch.no_grad():
+        g = torch.Generator().manual_seed(5)
+        for name in ("transition", "start", "stop"):
+            p = getattr(cpu, name)
+            p.copy_(torch.randn(p.shape, generator=g))
+            getattr(card, name).copy_(p)
+    rng = np.random.default_rng(15)
+    b, t = c["batch"], c["max_len"]
+    lengths = torch.from_numpy(rng.integers(c["min_len"], t + 1, b))
+    args = [torch.from_numpy(rng.integers(0, c["vocab"], (b, t))),
+            torch.from_numpy(rng.integers(0, c["vocab"], b)),
+            torch.from_numpy(rng.integers(0, 2, (b, t))), lengths]
+    labels = torch.from_numpy(rng.integers(0, c["tags"], (b, t)))
+    with torch.no_grad():
+        want_tags = cpu.decode(*args)
+        got_tags = card.decode(*[a.to(device) for a in args])
+    types = (c["tags"] - 1) // 2
+    got = metrics.ChunkEvaluator(types).update(got_tags, labels.to(device),
+                                               lengths.to(device)).eval()
+    want = metrics.ChunkEvaluator(types).update(want_tags, labels,
+                                                lengths).eval()
+    valid = torch.arange(t)[None, :] < lengths[:, None]
+    diff = int(((got_tags.cpu() != want_tags) & valid).sum())
+    n_label = metrics.ChunkEvaluator(types).update(
+        labels, labels, lengths).num_label
+    out = {"card": got, "cpu": want, "tags_differing": diff,
+           "label_chunks": n_label}
+    # a differing tag moves at most three chunks (it ends one, starts
+    # one, splits one): the F1s may part by that much
+    bound = 3 * diff / max(n_label, 1)
+    if (diff == 0 and got != want) or abs(got["f1"] - want["f1"]) > bound:
+        raise AssertionError(f"15 (c) SRL chunks card vs CPU: {out}")
+    return out
+
+
+def _map_card_vs_cpu(device):
+    """SSD300's ``detect_from`` on the same head outputs on the card and
+    the CPU (as phase 14 (b)): ``DetectionMAP`` of each against the same
+    ground truths, both AP versions."""
+    from paddle_tpu_torch import metrics
+    from paddle_tpu_torch.models.ssd import SSD, SSDConfig
+    models = {w: SSD(SSDConfig(), device=w, seed=0).eval()
+              for w in ("cpu", device)}
+    batch = _det_batch("cpu", DET_SSD["cpu_batch"], DET_SSD["hw"], "xyxy",
+                       51)
+    with torch.no_grad():
+        loc, conf = models["cpu"](batch["image"])
+    models[device]._anchors = models["cpu"]._anchors.to(device)
+    dets = {"cpu": models["cpu"].detect_from(loc, conf),
+            "card": models[device].detect_from(loc.to(device),
+                                               conf.to(device))}
+    # ground truths the detector partly finds (random images and weights
+    # find nothing of random boxes): each image's DET_GT - 2 top-scoring
+    # CPU detections, shifted by 0.02, and its random boxes after them
+    boxes, cls, scores, valid = dets["cpu"]
+    gt_boxes = batch["gt_boxes"].clone()
+    gt_labels = batch["gt_labels"].clone()
+    gt_mask = torch.ones_like(batch["gt_mask"])
+    for i in range(boxes.shape[0]):
+        top = torch.argsort(torch.where(valid[i], scores[i], -1.0),
+                            descending=True, stable=True)[:DET_GT - 2]
+        gt_boxes[i, :DET_GT - 2] = boxes[i, top] + 0.02
+        gt_labels[i, :DET_GT - 2] = cls[i, top].to(gt_labels.dtype)
+    gt = {w: [t.to(d) for t in (gt_boxes, gt_labels, gt_mask)]
+          for w, d in (("cpu", "cpu"), ("card", device))}
+    out = {}
+    for version in ("11point", "integral"):
+        for w, (boxes, cls, scores, valid) in dets.items():
+            m = metrics.DetectionMAP(0.5, version)
+            for i in range(boxes.shape[0]):
+                m.update(boxes[i], scores[i], cls[i], valid[i],
+                         *(g[i] for g in gt[w]))
+            out[f"{version}_{w}"] = m.eval()
+        if abs(out[f"{version}_card"] - out[f"{version}_cpu"]) > \
+                METRIC_MAP_TOL:
+            raise AssertionError(f"15 (c) SSD mAP card vs CPU: {out}")
+    out["kept"] = int(dets["cpu"][3].sum())
+    del models
+    _free(device)
+    return out
+
+
+def metrics_card_vs_cpu(device):
+    """(c): the port's metrics on card outputs and CPU outputs of the same
+    weights."""
+    out = {"deepfm_auc": _auc_card_vs_cpu(device),
+           "srl_chunks": _chunks_card_vs_cpu(device),
+           "ssd_map": _map_card_vs_cpu(device)}
+    log("  15 (c) metrics, card vs CPU: " + json.dumps(out))
+    return out
+
+
+def pruned_steps(device):
+    """(d): ``slim.pruned_train_step`` over Transformer-big's bf16 step at
+    2 + 2 layers, half of every weight matrix masked: after 4 steps (1
+    eager, 1 capture, 3 replays) every masked weight is 0."""
+    from paddle_tpu_torch import slim
+    from paddle_tpu_torch.core.dtypes import get_policy
+    from paddle_tpu_torch.models.convert import params_tree
+    from paddle_tpu_torch.models.transformer import Transformer
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.train import build_train_step, make_train_state
+    cfg = _tf_config(num_encoder_layers=PRUNE_LAYERS,
+                     num_decoder_layers=PRUNE_LAYERS)
+    model = Transformer(cfg, device=device, seed=0)
+    masks = slim.magnitude_prune_masks(params_tree(model), PRUNE_SPARSITY)
+    opt = AdamW(model.parameters(), learning_rate=1e-4)
+    step = slim.pruned_train_step(build_train_step(
+        _tf_pad_loss, opt, policy=get_policy("bf16")), masks)
+    state = make_train_state(model, opt)
+    batch = tf_padded_batch(cfg, device)
+    losses = [float(step(state, **batch)[1]["loss"])
+              for _ in range(PRUNE_STEPS)]
+    flat = {".".join(p): m for p, m in slim._leaves(masks)
+            if isinstance(m, torch.Tensor)}
+    named = dict(model.named_parameters())
+    nonzero = sum(int((named[k][m == 0] != 0).sum()) for k, m in
+                  flat.items())
+    out = {"losses": losses, "captures": step.builds,
+           "sparsity": slim.sparsity_of(masks),
+           "masked_weights": sum(int((m == 0).sum()) for m in flat.values()),
+           "masked_nonzero_after": nonzero}
+    log("  15 (d) pruned_train_step: " + json.dumps(out))
+    if nonzero or step.builds != 1 or not np.isfinite(losses).all():
+        raise AssertionError(f"15 (d): {out}")
+    del step, state, model, opt
+    _free(device)
+    return out
+
+
+def frontend_slice(device, ranks):
+    """Phase 15: (a) the pipelined Transformer-big (its legs ran in phase
+    8's pp=2 group), (b) the Executor's resume, (c) the metrics card vs
+    CPU, (d) the pruned step and the profiled step."""
+    t_phase = time.monotonic()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    stats = {"pipeline": tf_pipeline_checks(device, ranks)}
+    stats["executor"] = executor_resume(device)
+    stats["metrics"] = metrics_card_vs_cpu(device)
+    stats["pruned"] = pruned_steps(device)
+    shutil.rmtree(FRONT_DIR, ignore_errors=True)
+    stats["phase_s"] = time.monotonic() - t_phase
+    return stats
+
+
 def _timed_runner_build() -> float:
     from paddle_tpu_torch.native.runner import build_runner
     t0 = time.monotonic()
@@ -7237,6 +7798,15 @@ def main() -> int:
     zoo = zoo_slice(device, native["battery"])
     log(f"  phase 14 took {zoo['phase_s']:.1f} s")
 
+    log("[15/15] the front end: the pipelined Transformer-big over pp=2 "
+        "(GPipe and circular, K5/K6a/K6b on each stage rank; its legs ran "
+        "in phase 8's group), Executor.train_from_dataset with a "
+        "bit-exact resume, the metrics card vs CPU, a pruned captured "
+        "step and a profiled pipelined step")
+    front = frontend_slice(device, par_stats.pop("tf_pipe_ranks"))
+    log(f"  phase 15 took {front['phase_s']:.1f} s (its pp=2 legs: "
+        f"{front['pipeline']['leg_s']:.1f} s in phase 8's group)")
+
     lines = [kernel_line(e, rows[e.name], stats["launches"][e.name],
                          {**({"long": long_rows} if e is PA.DECODE
                              else {"verify": verify_rows[e.name]}),
@@ -7286,6 +7856,13 @@ def main() -> int:
     for ln in lines:
         if ln["name"] in tf_stats["launches"]:
             ln["launches_transformer"] = tf_stats["launches"][ln["name"]]
+    # K5/K6a/K6b per stage rank of 15 (a)'s main path: the pipelined
+    # Transformer-big's 3 bf16 GPipe steps
+    for ln in lines:
+        ranks = front["pipeline"]["bf16"]["per_rank"]
+        if ln["name"] in ranks[0]["launches"]:
+            ln["launches_transformer_pipeline"] = [
+                r["launches"][ln["name"]] for r in ranks]
     lines.append(ring_line(par_stats))
     lines.append(native_k5_line(native))
     # K5 also runs in 12 (d)'s beam search (the encoder, 6 a call)

@@ -13,9 +13,12 @@ graphs (``embedding_serving``). ``data`` feeds files through the native
 MultiSlot feed, the packer and a device loader to the Transformer's
 packed training, and ``inference.save_inference_model`` exports a model
 with ``torch.export`` for a ``Predictor`` that needs no model class.
+The front end around them: ``executor`` (``Program``, ``Executor``),
+``config``, ``fleet`` and ``launch`` over ``torch.distributed``,
+``metrics``, ``slim``, ``profiler``, ``debug`` and ``testing``.
 Entry points run on CUDA unless the
 caller asks for ``device="cpu"``; on the CPU every kernel wrapper takes
 its plain PyTorch version.
 """
 
-__version__ = "0.2.0"
+from paddle_tpu_torch.version import __version__

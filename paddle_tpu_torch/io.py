@@ -12,8 +12,9 @@ the checkpoint half).
   (background writes, hash-verified atomic manifests) with its
   ``save_interval_steps`` gating.
 
-The inference-export half (``save_inference_model`` and the predictor)
-is not ported yet (see ROADMAP).
+The inference-export half (``save_inference_model`` and the
+``Predictor`` over ``torch.export``) lives in
+:mod:`paddle_tpu_torch.inference`.
 """
 
 from __future__ import annotations

@@ -27,8 +27,20 @@ embedding's dtype (the reference adds it in float32, which promotes its
 whole residual stream to float32; the port keeps the compute dtype so the
 kernels run in it).
 
-Not ported here: the pipelined layout (``pipeline=True``, ROADMAP Queue 1
-item 4).
+``pipeline=True`` runs the encoder and the decoder stack each through
+:func:`paddle_tpu_torch.parallel.pipeline.gpipe_layer_stack` over the
+ambient mesh's "pp" axis (``pp_schedule`` "gpipe" or "circular" with
+``pp_circuits`` chunks a rank, ``pp_microbatches`` microbatches): the
+encoder's key-padding bias rides with each microbatch as an extra, and
+the decoder's extras are the encoder memory and its bias (every decoder
+stage cross-attends them; the memory's gradient is summed over "pp").
+The layer list stays the parameter layout, so a checkpoint carries
+across unchanged (the stages take their rows of it at run time, as the
+reference's do). As in the reference, the padded loss and forward are
+pipelined, while greedy decoding, beam search and the packed path
+(:meth:`Transformer.loss_packed`) run the stacks sequentially. On the
+card each stage layer's attentions run K5 forward and K6a/K6b backward
+(K5 again in the schedule's recompute).
 """
 
 from __future__ import annotations
@@ -65,8 +77,13 @@ class TransformerConfig:
     pad_id: int = 2
     pre_ln: bool = True
     attn_impl: str = "auto"
-    # the reference's pipelined layout (ROADMAP Queue 1 item 4): refused
+    # the encoder and decoder stacks each through a pipelined stage
+    # sequence over "pp" (module docstring); the padded loss and forward
+    # only: decoding and the packed path run the stacks sequentially
     pipeline: bool = False
+    pp_microbatches: int = 2
+    pp_schedule: str = "gpipe"    # or "circular" (interleaved)
+    pp_circuits: int = 1
 
     @classmethod
     def big(cls, **kw):
@@ -108,10 +125,6 @@ class Transformer(nn.Module):
     def __init__(self, cfg: TransformerConfig, *, device="cuda",
                  dtype: torch.dtype = torch.float32, seed: int = 0):
         super().__init__()
-        if cfg.pipeline:
-            raise NotImplementedError(
-                "Transformer(pipeline=True): the pipelined encoder/decoder "
-                "layout is not ported yet (ROADMAP Queue 1 item 4)")
         dev = resolve_device(device)
         kw = dict(device=dev, dtype=dtype)
         self.cfg = cfg
@@ -151,13 +164,49 @@ class Transformer(nn.Module):
         x = x + self._table(ids.shape[1], x)
         return self.drop(x, generator)
 
-    def encode(self, src_ids, *, generator: Optional[torch.Generator] = None):
-        """Returns (memory (B, S, D), its key-padding bias (B, 1, 1, S))."""
+    def _pipelined(self, stack, x, extras, generator, apply_layer):
+        """``stack`` (a layer list) through the pipeline over "pp":
+        ``extras`` ((B, ...) side inputs) microbatched with the batch,
+        ``apply_layer(apply, layer_params, h, extra, generator)``; with
+        dropout live, one seed drawn from ``generator`` for the step."""
+        from paddle_tpu_torch.nn.module import pipeline_layers
+        from paddle_tpu_torch.parallel import pipeline as pp_lib
         cfg = self.cfg
+        if x.shape[0] % cfg.pp_microbatches:
+            raise ValueError(f"batch {x.shape[0]} not divisible by "
+                             f"pp_microbatches={cfg.pp_microbatches}")
+        extras, extras_spec = pp_lib.microbatch_extras(extras,
+                                                       cfg.pp_microbatches)
+        seed = None
+        if self.training and (cfg.dropout > 0 or (
+                cfg.attn_dropout or 0) > 0):
+            seed = pp_lib.step_seed(generator, x.device)
+        apply, params = pipeline_layers(stack)
+        return pp_lib.gpipe_layer_stack(
+            lambda lp, h, extra, gen: apply_layer(apply, lp, h, extra, gen),
+            params, x, num_microbatches=cfg.pp_microbatches,
+            num_layers=len(stack), seed=seed, extras=extras,
+            extras_spec=extras_spec, schedule=cfg.pp_schedule,
+            num_circuits=cfg.pp_circuits)
+
+    def encode(self, src_ids, *, generator: Optional[torch.Generator] = None,
+               pipelined: Optional[bool] = None):
+        """Returns (memory (B, S, D), its key-padding bias (B, 1, 1, S)).
+        ``pipelined`` (default: the config's ``pipeline``) runs the stack
+        through the pipeline over "pp"."""
+        cfg = self.cfg
+        if pipelined is None:
+            pipelined = cfg.pipeline
         bias = make_padding_bias(src_ids != cfg.pad_id)
         x = self._embed(src_ids, generator)
-        for layer in self.encoder:
-            x = layer(x, bias=bias, generator=generator)
+        if pipelined:
+            x = self._pipelined(
+                self.encoder, x, bias, generator,
+                lambda apply, lp, h, extra, gen: apply(
+                    lp, h, bias=extra, generator=gen))
+        else:
+            for layer in self.encoder:
+                x = layer(x, bias=bias, generator=generator)
         if cfg.pre_ln:
             x = self.enc_ln(x)
         return x, bias
@@ -168,11 +217,25 @@ class Transformer(nn.Module):
         return self.embed.attend(x)          # tied output projection
 
     def decode(self, tgt_ids, memory, memory_bias, *,
-               generator: Optional[torch.Generator] = None):
-        """Teacher-forced decoder logits (B, S_tgt, V)."""
+               generator: Optional[torch.Generator] = None,
+               pipelined: Optional[bool] = None):
+        """Teacher-forced decoder logits (B, S_tgt, V). ``pipelined`` as
+        in :meth:`encode`: the memory and its bias ride with each
+        microbatch."""
+        if pipelined is None:
+            pipelined = self.cfg.pipeline
         x = self._embed(tgt_ids, generator)
-        for layer in self.decoder:
-            x = layer(x, memory, cross_bias=memory_bias, generator=generator)
+        if pipelined:
+            x = self._pipelined(
+                self.decoder, x, {"memory": memory, "bias": memory_bias},
+                generator,
+                lambda apply, lp, h, extra, gen: apply(
+                    lp, h, extra["memory"], cross_bias=extra["bias"],
+                    generator=gen))
+        else:
+            for layer in self.decoder:
+                x = layer(x, memory, cross_bias=memory_bias,
+                          generator=generator)
         return self._logits(x)
 
     def forward(self, src_ids, tgt_ids, *,
@@ -292,7 +355,9 @@ class Transformer(nn.Module):
         cfg = self.cfg
         max_len = max_len or cfg.max_len
         b = src_ids.shape[0]
-        memory, memory_bias = self.encode(src_ids)
+        # inference: always the sequential stacks (the pipelined path
+        # needs a pp mesh and a batch the microbatches divide)
+        memory, memory_bias = self.encode(src_ids, pipelined=False)
         tgt = torch.full((b, max_len), cfg.pad_id, dtype=torch.int32,
                          device=src_ids.device)
         tgt[:, 0] = cfg.bos_id
@@ -306,7 +371,8 @@ class Transformer(nn.Module):
                 logits, caches = self._cached_step(
                     tgt[:, t], t, caches, cross, memory_bias, max_len)
             else:
-                logits = self.decode(tgt, memory, memory_bias)[:, t]
+                logits = self.decode(tgt, memory, memory_bias,
+                                     pipelined=False)[:, t]
             nxt = logits.argmax(-1).to(torch.int32)
             nxt = torch.where(done, torch.full_like(nxt, cfg.pad_id), nxt)
             tgt[:, t + 1] = nxt
@@ -335,7 +401,7 @@ class Transformer(nn.Module):
         max_len = max_len or cfg.max_len
         b, k, v = src_ids.shape[0], beam_size, cfg.vocab_size
         dev = src_ids.device
-        memory, memory_bias = self.encode(src_ids)
+        memory, memory_bias = self.encode(src_ids, pipelined=False)
         mem_bias = torch.repeat_interleave(memory_bias, k, dim=0)
         tgt = torch.full((b, k, max_len), cfg.pad_id, dtype=torch.int32,
                          device=dev)
@@ -368,7 +434,7 @@ class Transformer(nn.Module):
             mem = torch.repeat_interleave(memory, k, dim=0)
             for t in range(max_len - 1):
                 logits = self.decode(tgt.reshape(b * k, max_len), mem,
-                                     mem_bias)[:, t]
+                                     mem_bias, pipelined=False)[:, t]
                 tgt, scores, done, _ = select(logits, t, tgt, scores, done)
         # length-normalized final ranking
         lengths = (tgt != cfg.pad_id).sum(-1).float()

@@ -60,8 +60,7 @@ _NUMPY = {"float32": np.float32, "float64": np.float64,
 
 def _missing(what: str) -> RuntimeError:
     return RuntimeError(
-        f"native runner (the C++ runner over AOTInductor, ROADMAP Queue 1 "
-        f"item 2): {what}")
+        f"native runner (the C++ runner over AOTInductor): {what}")
 
 
 def torch_flags() -> List[str]:

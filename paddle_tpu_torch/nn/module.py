@@ -18,6 +18,7 @@ tree, the input of ``ShardingPlan.params_specs(..., hints=)``.
 from __future__ import annotations
 
 import contextlib
+import threading
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -207,31 +208,48 @@ class StateCapture:
                 buf.copy_(value)
 
 
-class _Tape:
-    #: the active StateCapture, or None. Process-wide, not per thread:
-    #: autograd runs a CUDA backward, and with it a remat recompute, on
-    #: its own device threads, and that recompute must report to the
-    #: step's tape too.
+class _Tape(threading.local):
+    #: this thread's active StateCapture, or None. Per thread, as the
+    #: reference's ``_StateTape``: two train steps in two threads each
+    #: report to their own tape. Work that autograd runs on its own
+    #: threads for a step (a remat recompute in a CUDA backward) runs
+    #: under the step's tape through :func:`use_tape`.
     active: Optional[StateCapture] = None
 
 
 _TAPE = _Tape()
 
 
+def active_tape() -> Optional[StateCapture]:
+    """This thread's active :class:`StateCapture` (None outside any
+    capture): what a recompute later run on another thread must report
+    to (:func:`use_tape`)."""
+    return _TAPE.active
+
+
 @contextlib.contextmanager
-def capture_state():
-    """Collect the running-state updates of the forwards run inside
-    (BatchNorm in training mode) instead of writing them; the caller
-    applies them (:meth:`StateCapture.apply`) when it chooses, as
-    ``build_train_step`` does after the optimizer's update. Nested
-    captures hide the outer one: what runs inside the inner one reports
-    only to it."""
+def use_tape(cap: Optional[StateCapture]):
+    """Make ``cap`` (a capture taken with :func:`active_tape`, or None)
+    this thread's active tape inside the block: a remat recompute run by
+    autograd's threads reports to the step that ran the forward."""
     prev = _TAPE.active
-    cap = _TAPE.active = StateCapture()
+    _TAPE.active = cap
     try:
         yield cap
     finally:
         _TAPE.active = prev
+
+
+@contextlib.contextmanager
+def capture_state():
+    """Collect the running-state updates of the forwards run inside, on
+    this thread (BatchNorm in training mode), instead of writing them;
+    the caller applies them (:meth:`StateCapture.apply`) when it chooses,
+    as ``build_train_step`` does after the optimizer's update. Nested
+    captures hide the outer one: what runs inside the inner one reports
+    only to it."""
+    with use_tape(StateCapture()) as cap:
+        yield cap
 
 
 def report_state(module: nn.Module, updates: Dict[str, Any]) -> bool:

@@ -308,6 +308,16 @@ class Tracer:
             out = out[-limit:] if limit > 0 else []
         return out
 
+    def summary(self) -> Dict[str, Dict[str, float]]:
+        """Per-name span counts and total seconds (the ``report()``
+        table)."""
+        agg: Dict[str, Dict[str, float]] = {}
+        for s in self.spans():
+            a = agg.setdefault(s.name, {"count": 0, "total_s": 0.0})
+            a["count"] += 1
+            a["total_s"] += s.duration_s
+        return agg
+
     # -- exporter ---------------------------------------------------------
     def to_chrome(self) -> Dict[str, Any]:
         """Chrome trace-event JSON (Perfetto / chrome://tracing): spans

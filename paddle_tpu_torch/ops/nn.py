@@ -76,7 +76,11 @@ def _conv_nd(x_cf, w, stride, padding, dilation, groups):
     to the conv's own ``padding=`` (the same numbers; an ``F.pad`` first
     would copy a channels-last activation into a contiguous NCHW one and
     take cuDNN off the channels-last layout); only SAME's uneven pads go
-    through ``F.pad``."""
+    through ``F.pad``, and so does a bfloat16 conv on the CPU: there
+    oneDNN's bf16 weight gradient of a padded strided conv whose output
+    is one pixel wide (a 3x3 stride-2 conv over a 1x1 map, ResNet's last
+    stage at small inputs) reads memory it never wrote, so stale NaN in
+    the allocator's freed blocks came out in the gradient."""
     nd = x_cf.ndim - 2
     k = tuple(w.shape[2:])
     if isinstance(padding, str):
@@ -87,7 +91,8 @@ def _conv_nd(x_cf, w, stride, padding, dilation, groups):
     else:
         pads = [(p, p) for p in padding]
     conv = F.conv2d if nd == 2 else F.conv3d
-    if all(lo == hi for lo, hi in pads):
+    cpu_bf16 = x_cf.device.type == "cpu" and x_cf.dtype == torch.bfloat16
+    if all(lo == hi for lo, hi in pads) and not cpu_bf16:
         return conv(x_cf, w, stride=stride, padding=[lo for lo, _ in pads],
                     dilation=dilation, groups=groups)
     x_cf = F.pad(x_cf, [v for lo_hi in reversed(pads) for v in lo_hi])

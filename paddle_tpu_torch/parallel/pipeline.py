@@ -60,6 +60,7 @@ import torch
 from torch.utils import _pytree as pytree
 
 from paddle_tpu_torch.core import mesh as mesh_lib
+from paddle_tpu_torch.nn.module import active_tape, use_tape
 from paddle_tpu_torch.parallel import collective
 from paddle_tpu_torch.parallel import functional as pf
 
@@ -375,11 +376,19 @@ class _Pipeline(torch.autograd.Function):
                                        mesh=stage.mesh)
         ctx.stage, ctx.n_extras = stage, n_extras
         ctx.saved, ctx.graphs = saved, graphs
+        ctx.tape = active_tape()      # the recompute reports to it
         ctx.save_for_backward(x, *tensors)
         return out
 
     @staticmethod
     def backward(ctx, g_out):
+        # autograd may run this on a thread of its own: the recompute
+        # reports running state to the forward's tape
+        with use_tape(ctx.tape):
+            return _Pipeline._backward(ctx, g_out)
+
+    @staticmethod
+    def _backward(ctx, g_out):
         stage, n_extras = ctx.stage, ctx.n_extras
         x, *tensors = ctx.saved_tensors
         extras, params = tensors[:n_extras], tensors[n_extras:]

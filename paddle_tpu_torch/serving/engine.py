@@ -224,14 +224,15 @@ def bucket_cost(sig: tuple, cfg, draft_cfg, *, num_slots: int,
 def check_tp_graphs(tp: int, tp_probe: bool, graphed: bool):
     """A tp engine's collectives run over gloo on one card or over NCCL
     across cards, and neither is captured in the step graphs yet
-    (ROADMAP Queue 1 item 4, NCCL tp across cards with captured
+    (ROADMAP, "NCCL across cards": tp across cards with captured
     collectives): a graphed tp engine is refused. A probe engine has no
     collectives and graphs as a tp=1 engine does."""
     if tp > 1 and not tp_probe and graphed:
         raise ValueError(
             "cuda_graphs=True with tp > 1: collectives are not captured "
-            "in the step graphs (ROADMAP Queue 1 item 4, NCCL tp across "
-            "cards with captured collectives); pass cuda_graphs=False")
+            "in the step graphs (ROADMAP, \"NCCL across cards\": tp "
+            "across cards with captured collectives); pass "
+            "cuda_graphs=False")
 
 
 class SlotMigrationError(RuntimeError):

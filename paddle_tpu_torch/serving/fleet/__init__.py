@@ -1,7 +1,7 @@
 """Multi-replica serving fleet: router, autoscaler, live migration.
 
 The first subsystem that treats :class:`~paddle_tpu_torch.serving.
-ServingEngine` replicas as cattle (ROADMAP open item 2). Three parts:
+ServingEngine` replicas as cattle. Three parts:
 
 1. **Replica handles** (`replica.py`): :class:`ReplicaHandle` is the
    transport interface (submit / step / health / prefix digests /

@@ -37,7 +37,7 @@ from torch import nn
 
 from paddle_tpu_torch.core import dtypes
 from paddle_tpu_torch.core.device import counted_capture, note_replay
-from paddle_tpu_torch.nn.module import capture_state
+from paddle_tpu_torch.nn.module import active_tape, capture_state, use_tape
 from paddle_tpu_torch.observability import recompile
 
 
@@ -59,8 +59,8 @@ class _LossModule(nn.Module):
         self.model = model
         self.loss_fn = loss_fn
 
-    def forward(self, **batch):
-        return self.loss_fn(self.model, **batch)
+    def forward(self, *args, **batch):
+        return self.loss_fn(self.model, *args, **batch)
 
 
 def _policy_call(fn: Callable, model: nn.Module,
@@ -97,14 +97,18 @@ def _remat_call(fn: Callable, model: nn.Module,
     """:func:`_policy_call` under ``torch.utils.checkpoint`` (non-
     reentrant): its activations are recomputed in the backward. The feeds
     go in as the checkpoint's arguments, so it saves and restores the RNG
-    state of their device and dropout draws the same masks twice."""
+    state of their device and dropout draws the same masks twice. The
+    recompute reports running state to the tape that was active when the
+    forward ran (on the card autograd runs it on a thread of its own)."""
     from torch.utils import checkpoint
 
     keys = list(batch)
+    tape = active_tape()
 
     def run(*values):
-        return _policy_call(fn, model, policy, dict(zip(keys, values)),
-                            views)
+        with use_tape(tape):
+            return _policy_call(fn, model, policy, dict(zip(keys, values)),
+                                views)
 
     return checkpoint.checkpoint(run, *batch.values(), use_reentrant=False)
 
@@ -233,13 +237,14 @@ class TrainStepGraphs:
     def check_capturable(self):
         """Raise if the step holds collectives: a gloo collective cannot
         be captured in a CUDA graph, and captured NCCL collectives across
-        cards are ROADMAP Queue 1 item 4.5. Such a step runs eagerly
+        cards are ROADMAP's "NCCL across cards". Such a step runs eagerly
         (``cuda_graphs=False``)."""
         if self.collectives is not None:
             raise ValueError(
                 f"the train step holds {self.collectives} collectives, "
                 "which a CUDA graph cannot capture (captured NCCL "
-                "collectives across cards are ROADMAP Queue 1 item 4.5); "
+                "collectives across cards are ROADMAP's \"NCCL across "
+                "cards\"); "
                 "build it with cuda_graphs=False")
 
     def __call__(self, state, **batch):

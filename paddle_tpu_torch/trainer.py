@@ -155,12 +155,12 @@ class Trainer:
         """Train over batches (feed dicts). ``make_iter`` re-creates the
         iterator for each epoch; ``steps_per_epoch`` caps an epoch.
         Returns the last step's metrics as floats. The reference's static
-        lint gate (``lint``, ``lint_cost``) is not ported yet (ROADMAP
-        Queue 1 item 5): anything but ``"off"`` raises."""
+        lint gate (``lint``, ``lint_cost``) belongs to the analysis tiers
+        (ROADMAP, "The analysis tiers"), not ported yet: anything but
+        ``"off"`` raises."""
         if lint != "off" or lint_cost is not None:
-            raise NotImplementedError(
-                "the train-step lint is not ported yet (ROADMAP Queue 1 "
-                "item 5): pass lint='off'")
+            from paddle_tpu_torch.executor import LINT_NOT_PORTED
+            raise NotImplementedError(LINT_NOT_PORTED)
         if epochs > 1 and make_iter is None and not hasattr(
                 data_iter, "__len__"):
             raise ValueError(

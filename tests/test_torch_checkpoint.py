@@ -347,7 +347,7 @@ def test_run_log_passes_the_reference_validator(tmp_path):
     steps = [r for r in recs if r["kind"] == "step"]
     assert [r["step"] for r in steps] == [1, 2, 3, 4, 5]
     assert all(r["recompiles"] == 0 for r in steps)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    with pytest.raises(NotImplementedError, match="analysis tiers"):
         tr.fit(_toy_batches(1), lint="warn")
 
 

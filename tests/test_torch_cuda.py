@@ -1491,7 +1491,7 @@ def test_a_graphed_tp_engine_is_refused_on_the_card(dev):
     from paddle_tpu_torch.models.gpt import GPT, GPTConfig
     from paddle_tpu_torch.serving.engine import ServingEngine
     model = GPT(GPTConfig(**TP_DIMS), device=dev, seed=0)
-    with pytest.raises(ValueError, match="ROADMAP Queue 1 item 4"):
+    with pytest.raises(ValueError, match="NCCL across cards"):
         ServingEngine(model, device=dev, tp=2, num_slots=2)
     # the one-shard probe engine has no collectives: it graphs
     eng = ServingEngine(model, device=dev, tp=2, tp_probe=True,

@@ -65,6 +65,9 @@ def test_importing_the_port_loads_no_jax():
             "from paddle_tpu_torch.ops import (elementwise, math, reduction,\n"
             "    activation, tensor, beam_search, samples)\n"
             "import paddle_tpu_torch.native.runner\n"
+            "from paddle_tpu_torch import (metrics, config, executor,\n"
+            "    fleet, launch, profiler, debug, testing, version)\n"
+            "import paddle_tpu_torch.observability.report\n"
             "from paddle_tpu_torch.kernels import registry\n"
             "assert registry.load_all()\n"
             "bad = sorted(m for m in sys.modules\n"
@@ -98,6 +101,9 @@ def test_the_parallel_layer_imports_with_jax_blocked():
             "import paddle_tpu_torch.resilience.snapshot\n"
             "import paddle_tpu_torch.observability.aggregate\n"
             "import paddle_tpu_torch.native.runner\n"
+            "from paddle_tpu_torch import (metrics, config, executor,\n"
+            "    fleet, launch, profiler, debug, testing, version)\n"
+            "import paddle_tpu_torch.observability.report\n"
             "import paddle_tpu_torch.ops.samples\n"
             "import paddle_tpu_torch.ops.beam_search\n"
             "from paddle_tpu_torch.kernels import registry\n"

@@ -159,7 +159,7 @@ def test_graphed_tp_engines_are_refused_but_probes_graph():
     """Collectives are not captured in the step graphs: a tp engine on
     the card with ``cuda_graphs=True`` raises, naming the ROADMAP item;
     the probe engine (no collectives) and tp=1 graph."""
-    with pytest.raises(ValueError, match="ROADMAP Queue 1 item 4"):
+    with pytest.raises(ValueError, match="NCCL across cards"):
         check_tp_graphs(2, False, True)
     check_tp_graphs(2, True, True)
     check_tp_graphs(1, False, True)

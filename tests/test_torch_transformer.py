@@ -243,8 +243,13 @@ def test_fully_masked_cross_rows_are_zero_both_ways():
 
 
 def test_refusals_name_their_roadmap_items():
-    with pytest.raises(NotImplementedError, match="item 4"):
-        Transformer(TransformerConfig.tiny(pipeline=True), device="cpu")
+    # the pipelined layout is ported (test_torch_transformer_pipeline.py):
+    # it builds, and refuses only a batch its microbatches do not divide
+    pm = Transformer(TransformerConfig.tiny(pipeline=True,
+                                            pp_microbatches=2), device="cpu")
+    odd = torch.full((3, 4), 3, dtype=torch.int32)
+    with pytest.raises(ValueError, match="pp_microbatches=2"):
+        pm.loss(odd, odd, odd)
     # beam search is ported (item 3's first half): it runs, and the JAX
     # parity lives in test_torch_beam_search.py
     m = Transformer(TransformerConfig.tiny(), device="cpu")

@@ -951,13 +951,18 @@ def pipe_rejections(rank, n):
 
 
 def _pp_model(model, cfg, params, device="cpu"):
-    """BERT or GPT of ``cfg`` (fields over the tiny config's) from the JAX
-    weights ``params``, or from seed 0 when ``params`` is None."""
+    """BERT, GPT or the Transformer of ``cfg`` (fields over the tiny
+    config's) from the JAX weights ``params``, or from seed 0 when
+    ``params`` is None."""
     from paddle_tpu_torch.models.bert import BertConfig, BertForPretraining
     from paddle_tpu_torch.models.gpt import GPT, GPTConfig
-    cls, conf, loss = ((BertForPretraining, BertConfig, _bert_loss)
-                       if model == "bert" else
-                       (GPT, GPTConfig, lambda m, ids: m.loss(ids)))
+    from paddle_tpu_torch.models.transformer import (Transformer,
+                                                     TransformerConfig)
+    cls, conf, loss = {
+        "bert": (BertForPretraining, BertConfig, _bert_loss),
+        "gpt": (GPT, GPTConfig, lambda m, ids: m.loss(ids)),
+        "transformer": (Transformer, TransformerConfig, _bert_loss),
+    }[model]
     if params is None:
         return cls(conf.tiny(**cfg), device=device, seed=0), loss
     return cls.from_jax(conf.tiny(**cfg), params, device=device), loss
@@ -1039,6 +1044,59 @@ def pipe_dropout(rank, n, params, cfg, sizes, ids, seed):
     with torch.no_grad(), mesh_lib.mesh_context(_mesh(n, **sizes)):
         seq, _ = m.bert(torch.from_numpy(ids), generator=gen)
     return seq.numpy()
+
+
+def transformer_pipe_dropout(rank, n, params, cfg, batch, seeds):
+    """The training-mode loss of a pipelined tiny Transformer (``cfg``:
+    its config's fields, dropout live) from the JAX weights on a pp=n
+    mesh, every rank fed the same ``batch``, once per generator seed of
+    ``seeds``; with each first loss's parameter gradients' sum of
+    squares."""
+    import torch
+    from paddle_tpu_torch.core import mesh as mesh_lib
+    m, _ = _pp_model("transformer", cfg, params)
+    m.train()
+    feeds = {k: torch.from_numpy(v) for k, v in batch.items()}
+    out = []
+    with mesh_lib.mesh_context(_mesh(n, pp=n)):
+        for seed in seeds:
+            m.zero_grad()
+            loss, _ = m.loss(**feeds,
+                             generator=torch.Generator().manual_seed(seed))
+            loss.backward()
+            out.append((float(loss), float(sum(
+                (p.grad.double() ** 2).sum() for p in m.parameters()))))
+    return out
+
+
+def transformer_pipe_refusals(rank, n, cfg):
+    """A pipelined tiny Transformer's refusals on a pp=n mesh: a batch
+    the microbatches do not divide, the circular schedule over fewer
+    microbatches than stages, layers the stages and circuits do not
+    divide, an unknown schedule. Returns each message (None: no
+    refusal)."""
+    import torch
+    from paddle_tpu_torch.core import mesh as mesh_lib
+    from paddle_tpu_torch.models.transformer import (Transformer,
+                                                     TransformerConfig)
+    out = {}
+    cases = {"batch": (dict(pp_microbatches=4), 6),
+             "short": (dict(pp_microbatches=1, pp_schedule="circular",
+                            pp_circuits=2), 4),
+             "layers": (dict(pp_microbatches=2, pp_schedule="circular",
+                             pp_circuits=3), 4),
+             "schedule": (dict(pp_microbatches=2, pp_schedule="1f1b"), 4)}
+    for key, (fields, b) in cases.items():
+        m = Transformer(TransformerConfig.tiny(**cfg, pipeline=True,
+                                               **fields), device="cpu")
+        ids = torch.full((b, 6), 5, dtype=torch.long)
+        try:
+            with torch.no_grad(), mesh_lib.mesh_context(_mesh(n, pp=n)):
+                m.loss(ids, ids, ids)
+            out[key] = None
+        except ValueError as e:
+            out[key] = str(e)
+    return out
 
 
 def pipe_trainer(rank, n, params, cfg, batch, steps=4):
@@ -1225,3 +1283,54 @@ def feed_rows(rank, n, samples, names, replicated, sizes, batch_size):
     return [{k: v.numpy() for k, v in b.items()}
             for b in device_iterator(batches, names, mesh=mesh,
                                      replicated=replicated)]
+
+
+def fleet_ops(rank, n, steps, batch):
+    """``paddle_tpu_torch.fleet`` on this rank of the pool's gloo group:
+    its rank and count, a barrier, ``agree_on_resume_step`` of
+    ``steps[rank]`` and with rank 1 reporting None, and its
+    ``local_shard`` of ``batch``."""
+    from paddle_tpu_torch import fleet
+    fleet.barrier()
+    return {"rank": fleet.worker_index(), "num": fleet.worker_num(),
+            "first": fleet.is_first_worker(),
+            "agreed": fleet.agree_on_resume_step(steps[rank]),
+            "with_none": fleet.agree_on_resume_step(
+                None if rank == 1 else steps[rank]),
+            "shard": fleet.local_shard(batch)}
+
+
+def executor_mesh(rank, n, weights, batches):
+    """A train ``Program`` of a two-layer MLP (``weights``: numpy
+    ``{"fc1": {...}, "fc2": {...}}``) run by an ``Executor`` on a dp=n
+    mesh, every rank fed the global batches: the losses and the final
+    parameters."""
+    import torch
+    from torch import nn
+    from paddle_tpu_torch import executor, optimizer as o
+    from paddle_tpu_torch.nn.layers import Linear
+    from paddle_tpu_torch.train import build_train_step, make_train_state
+    model = nn.Module()
+    model.fc1 = Linear(8, 16, device="cpu")
+    model.fc2 = Linear(16, 4, device="cpu")
+    with torch.no_grad():
+        for name, leaves in weights.items():
+            for k, v in leaves.items():
+                getattr(model, name)._parameters[k].copy_(
+                    torch.from_numpy(v))
+
+    def loss(m, x, y):
+        out = m.fc2(torch.relu(m.fc1(x)))
+        return torch.mean((out - y) ** 2)
+
+    opt = o.Momentum(model.parameters(), learning_rate=0.05, momentum=0.9)
+    prog = executor.Program(build_train_step(loss, opt), donate_state=True)
+    exe = executor.Executor(mesh=_mesh(n, dp=n))
+    state = make_train_state(model, opt)
+    losses = []
+    for b in batches:
+        state, f = exe.run(prog, state, feed=b)
+        losses.append(float(f["loss"]))
+    return {"losses": losses,
+            "params": {k: v.detach().numpy()
+                       for k, v in model.named_parameters()}}
