@@ -450,6 +450,28 @@ Phases, in order; any failure exits non-zero:
    (d) ``slim.pruned_train_step`` keeps half of every weight matrix at 0
        through a captured bf16 step's replays; the ``profiler.profiler``
        Chrome trace of one (a) step on rank 0 names the K5 kernel.
+16. analysis (runs after 15): the static tiers on the card's own
+   tensors (traces on CUDA fake tensors: nothing runs):
+   (a) phase 5's BERT-base (48 x 512, bf16 over fp32 masters, AdamW,
+       ``build_train_step``) through ``Trainer.fit(lint="error",
+       lint_cost={hbm budget: the card's memory, flops budget:
+       ``ANALYSIS_FLOPS_ALLOWANCE`` x the 6N + 12 L S H reckoning, no
+       collectives})`` for 3 steps (eager, captured, replayed): the
+       trace holds 12 ``ptt.flash_fwd``, 12 ``ptt.flash_bwd_dkv`` and 12
+       ``ptt.flash_bwd_dq`` nodes, the lint launches 0 kernels and leaves
+       ``torch.cuda.memory_allocated()`` where it was, and the fit then
+       launches 12 of each a step; the static flops split into matmul,
+       flash and other beside the reckoning, and the static peak beside
+       the measured peak of the uncaptured first step, each with the
+       ratio;
+   (b) a copy of that step whose loss reads ``.item()`` and multiplies
+       by a float64 constant: ``fit(lint="error")`` raises ``LintError``
+       naming ast-host-sync, host-callback and f64-promotion before any
+       step (parameters bit for bit, 0 launches);
+   (c) the serving decode and prefill steps of a 4a-configured engine,
+       bf16 and int8 pools, traced: each holds its ``ptt.paged_*`` nodes
+       and no collective, lints clean, launches nothing;
+       ``serving_bucket_coverage`` of the warmed bf16 engine: 0 findings.
 7. output  — one ``{"kernels": [...]}`` line (each kernel with its
    tunables' candidates and the configuration the committed cache chose
    at each shape, ``blocks``; the ring's entry over K5/K6 with its calls
@@ -458,7 +480,9 @@ Phases, in order; any failure exits non-zero:
    steps, ``launches_transformer``, on each stage rank of 15 (a),
    ``launches_transformer_pipeline``, and K5's in 12 (d),
    ``launches_beam_search``; K5's C++ binding with its launches over 12
-   (b)'s timed bf16 calls), the nvidia-smi line, and the final
+   (b)'s timed bf16 calls; every kernel with its nodes in phase 16's
+   traces, ``analysis_nodes``, and K5/K6a/K6b with 16 (a)'s launches,
+   ``launches_analysis_fit``), the nvidia-smi line, and the final
    ``{"ok": true, "device": {...}}`` line.
 """
 
@@ -7635,6 +7659,210 @@ def frontend_slice(device, ranks):
     return stats
 
 
+#: 16 (a)'s flops budget over the 6N + 12 L S H reckoning: the static
+#: count adds what the reckoning leaves out (the flash backward's
+#: recompute of q.k and p, layer norms, softmax, GELU, the MLM log-softmax
+#: over every position, AdamW), each a small share
+ANALYSIS_FLOPS_ALLOWANCE = 1.5
+ANALYSIS_STEPS = 3
+
+
+def _hazard_loss(m, **b):
+    """16 (b)'s loss: phase 5's with a host read and a float64 constant
+    in it, which the lint must refuse before any step."""
+    loss, aux = m.loss(**b)
+    seen = loss.detach().item()
+    scale = torch.tensor(1.0, dtype=torch.float64, device=loss.device)
+    return loss * (scale + 0.0 * seen).float(), aux
+
+
+def _watched(fn, device):
+    """``fn()`` with what it did to the card: (result, seconds, bytes
+    allocated after minus before, registry launches)."""
+    from paddle_tpu_torch.kernels import registry
+    gc.collect()                      # earlier work's cycles go first
+    torch.cuda.synchronize(device)
+    mem0 = torch.cuda.memory_allocated(device)
+    before = registry.launch_counts()
+    t0 = time.monotonic()
+    out = fn()
+    torch.cuda.synchronize(device)
+    secs = time.monotonic() - t0
+    gc.collect()                      # a trace's graph holds cycles
+    return (out, secs, torch.cuda.memory_allocated(device) - mem0,
+            registry.count_delta(registry.launch_counts(), before))
+
+
+def analysis_slice(device):
+    """Phase 16: the analysis tiers and the lint gate on the card (module
+    docstring)."""
+    from paddle_tpu_torch import analysis
+    from paddle_tpu_torch.analysis import graph_lint
+    from paddle_tpu_torch.core.dtypes import get_policy
+    from paddle_tpu_torch.kernels import registry
+    from paddle_tpu_torch.models.gpt import GPT
+    from paddle_tpu_torch.serving import paged_attention as PA
+    from paddle_tpu_torch.train import build_train_step, make_train_state
+    from paddle_tpu_torch.trainer import Trainer
+    t_phase = time.monotonic()
+    out = {"nodes": {}}
+    # (a) BERT-base gated and trained
+    cfg, model, opt = _bert_base(device)
+    state = make_train_state(model, opt)
+    step = build_train_step(_bert_loss, opt, policy=get_policy("bf16"))
+    batch = bert_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, device)
+    n_params = sum(p.numel() for p in model.parameters())
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    matmul_reck = 6 * n_params * tokens
+    attn_reck = 12 * cfg.num_layers * TRAIN_SEQ * cfg.hidden_size * tokens
+    card = torch.cuda.get_device_properties(device).total_memory
+    lint_cost = {"hbm_budget_bytes": card,
+                 "flops_budget": int(ANALYSIS_FLOPS_ALLOWANCE
+                                     * (matmul_reck + attn_reck)),
+                 "collective_allowlist": []}
+    seen = {}
+    trainer = Trainer(step, state, log_fn=lambda m: None, telemetry=False)
+    real_lint = trainer._lint
+
+    def watched_lint(b, mode, lc):
+        seen["lint"] = _watched(lambda: real_lint(b, mode, lc), device)
+        torch.cuda.reset_peak_memory_stats(device)
+        seen["base"] = torch.cuda.memory_allocated(device)
+        return seen["lint"][0]
+
+    def first_step_peak(t, n, metrics):
+        if n == 1:
+            torch.cuda.synchronize(device)
+            seen["peak"] = torch.cuda.max_memory_allocated(device)
+
+    trainer._lint = watched_lint
+    trainer.hooks.append(first_step_peak)
+    registry.reset_launches()
+    t0 = time.monotonic()
+    metrics = trainer.fit(itertools.repeat(batch),
+                          steps_per_epoch=ANALYSIS_STEPS, lint="error",
+                          lint_cost=lint_cost)
+    torch.cuda.synchronize(device)
+    fit_s = time.monotonic() - t0
+    report, lint_s, lint_mem, lint_launches = seen["lint"]
+    fit_launches = {e.name: e.launches for e in flash_entries()}
+    cost = report.cost
+    nodes = {op: cost.per_op[op].count if op in cost.per_op else 0
+             for op in ("ptt.flash_fwd", "ptt.flash_bwd_dkv",
+                        "ptt.flash_bwd_dq")}
+    for e, op in zip(flash_entries(), nodes):
+        out["nodes"][e.name] = nodes[op]
+    if any(n != cfg.num_layers for n in nodes.values()):
+        raise AssertionError(f"16 (a): the trace holds {nodes}, expected "
+                             f"{cfg.num_layers} of each")
+    if lint_mem != 0 or any(lint_launches.values()):
+        raise AssertionError(f"16 (a): the lint allocated {lint_mem} bytes "
+                             f"and launched {lint_launches}")
+    want = cfg.num_layers * ANALYSIS_STEPS
+    if any(n != want for n in fit_launches.values()):
+        raise AssertionError(f"16 (a): the fit launched {fit_launches}, "
+                             f"expected {want} each")
+    if not np.isfinite(metrics["loss"]):
+        raise AssertionError(f"16 (a): loss {metrics['loss']}")
+    by_class = cost.flops_by_class
+    measured_peak = seen["peak"] - seen["base"] + cost.arg_bytes
+    out["a"] = {
+        "lint_s": lint_s, "fit_s": fit_s, "lint_allocated_bytes": lint_mem,
+        "lint_launches": sum(lint_launches.values()),
+        "trace_nodes": nodes, "fit_launches": fit_launches,
+        "findings": len(report), "loss": metrics["loss"],
+        "static_flops": cost.total_flops,
+        "static_flops_by_class": {k: by_class.get(k, 0)
+                                  for k in ("matmul", "flash", "other")},
+        "reckoning_flops": {"6N": matmul_reck, "12LSH": attn_reck},
+        "static_over_reckoning": cost.total_flops
+        / (matmul_reck + attn_reck),
+        "matmul_over_6N": by_class.get("matmul", 0) / matmul_reck,
+        "flash_over_12LSH": by_class.get("flash", 0) / attn_reck,
+        "static_peak_bytes": cost.peak_hbm_bytes,
+        "measured_first_step_peak_bytes": measured_peak,
+        "static_over_measured_peak": cost.peak_hbm_bytes / measured_peak,
+        "arg_bytes": cost.arg_bytes,
+    }
+    log("  16 (a) BERT-base gated and trained: " + json.dumps(out["a"]))
+    # (b) the hazard step, refused before any step
+    hazard = build_train_step(_hazard_loss, opt, policy=get_policy("bf16"))
+    before = [p.detach().clone() for p in model.parameters()]
+    step_before = int(state["step"])
+
+    def refused():
+        try:
+            Trainer(hazard, state, log_fn=lambda m: None,
+                    telemetry=False).fit(itertools.repeat(batch),
+                                         steps_per_epoch=1, lint="error")
+        except analysis.LintError as e:
+            return e.report
+        raise AssertionError("16 (b): the hazard step was not refused")
+
+    rep_b, b_s, b_mem, b_launches = _watched(refused, device)
+    rules = sorted({f.rule for f in rep_b})
+    need = {"ast-host-sync", "host-callback", "f64-promotion"}
+    if not need <= set(rules):
+        raise AssertionError(f"16 (b): the refusal names {rules}")
+    if any(b_launches.values()) or int(state["step"]) != step_before \
+            or not all(torch.equal(a, p) for a, p in
+                       zip(before, model.parameters())):
+        raise AssertionError("16 (b): state moved or kernels launched "
+                             f"({b_launches}) before the refusal")
+    out["b"] = {"lint_s": b_s, "rules": rules, "launches": 0,
+                "allocated_bytes": b_mem, "params_bit_for_bit": True}
+    log("  16 (b) hazard step refused: " + json.dumps(out["b"]))
+    del before, trainer, state, step, hazard, opt, model, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (c) the serving surfaces on CUDA fake tensors
+    gpt = GPT(model_config(), device=device, seed=0)
+    out["c"] = {}
+    for label, entries, kw in (("bf16", (PA.DECODE, PA.PREFILL), {}),
+                               ("int8", (PA.DECODE_INT8, PA.PREFILL_INT8),
+                                {"cache_dtype": torch.int8})):
+        if label == "bf16":
+            t0 = time.monotonic()
+            eng = _engine(gpt, device, **kw)
+            warm_s = time.monotonic() - t0
+            coverage = analysis.serving_bucket_coverage(eng)
+            if coverage or eng.warmed_signatures != set(eng.warmup_plan()):
+                raise AssertionError(f"16 (c): coverage findings "
+                                     f"{[f.message for f in coverage]}")
+            out["c"]["coverage"] = {"findings": 0, "warmup_s": warm_s,
+                                    "signatures": len(eng.warmup_plan())}
+        else:
+            from paddle_tpu_torch.inference import make_serving_engine
+            from paddle_tpu_torch.observability import MetricsRegistry
+            eng = make_serving_engine(gpt, registry=MetricsRegistry(),
+                                      device=device, **{**ENGINE_KW, **kw})
+        for kind, entry in zip(("decode", "prefill"), entries):
+            name = f"serving_{kind}_{label}"
+            rep, s_, mem, launches = _watched(
+                lambda: graph_lint.lint_engine_step(
+                    eng, kind, name=name, collective_allowlist=[],
+                    registry=False), device)
+            op = PA.OPS[entry.name]
+            n_op = rep.cost.per_op[op].count if op in rep.cost.per_op else 0
+            if n_op < gpt.cfg.num_layers or rep.cost.collectives \
+                    or not rep.ok() or mem != 0 or any(launches.values()):
+                raise AssertionError(
+                    f"16 (c) {name}: {n_op} {op} nodes, "
+                    f"{len(rep.cost.collectives)} collectives, findings "
+                    f"{[f.rule for f in rep]}, {mem} bytes, {launches}")
+            out["nodes"][entry.name] = n_op
+            out["c"][name] = {"nodes": n_op, "collectives": 0,
+                              "findings": len(rep), "lint_s": s_,
+                              "static_flops": rep.cost.total_flops}
+        del eng
+    log("  16 (c) serving surfaces: " + json.dumps(out["c"]))
+    del gpt
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.monotonic() - t_phase
+    return out
+
+
 def _timed_runner_build() -> float:
     from paddle_tpu_torch.native.runner import build_runner
     t0 = time.monotonic()
@@ -7807,6 +8035,13 @@ def main() -> int:
     log(f"  phase 15 took {front['phase_s']:.1f} s (its pp=2 legs: "
         f"{front['pipeline']['leg_s']:.1f} s in phase 8's group)")
 
+    log("[16/16] analysis: BERT-base traced by the lint gate (cost tier "
+        "on) and then trained on K5/K6a/K6b, a hazard step refused before "
+        "any step, the serving steps traced with K1-K4 as registered-op "
+        "nodes, bucket coverage of a warmed engine")
+    ana = analysis_slice(device)
+    log(f"  phase 16 took {ana['phase_s']:.1f} s")
+
     lines = [kernel_line(e, rows[e.name], stats["launches"][e.name],
                          {**({"long": long_rows} if e is PA.DECODE
                              else {"verify": verify_rows[e.name]}),
@@ -7863,6 +8098,12 @@ def main() -> int:
         if ln["name"] in ranks[0]["launches"]:
             ln["launches_transformer_pipeline"] = [
                 r["launches"][ln["name"]] for r in ranks]
+    # phase 16: each kernel's nodes in its traces, K5/K6a/K6b's launches
+    # over 16 (a)'s gated fit
+    for ln in lines:
+        ln["analysis_nodes"] = ana["nodes"][ln["name"]]
+        if ln["name"] in ana["a"]["fit_launches"]:
+            ln["launches_analysis_fit"] = ana["a"]["fit_launches"][ln["name"]]
     lines.append(ring_line(par_stats))
     lines.append(native_k5_line(native))
     # K5 also runs in 12 (d)'s beam search (the encoder, 6 a call)

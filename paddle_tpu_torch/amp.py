@@ -145,7 +145,7 @@ def scaled_train_step(
                    **{k: v.detach() for k, v in aux.items()}}
         return state, metrics
 
-    return TrainStepGraphs(step)
+    return TrainStepGraphs(step, loss_fn=loss_fn)
 
 
 def make_amp_state(model, optimizer,

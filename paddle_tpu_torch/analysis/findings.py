@@ -1,10 +1,12 @@
 """Finding records, reports and suppressions: the lint reporting spine
 (``paddle_tpu/analysis/findings.py``).
 
-Every analysis pass of the port (the kernel-registry lint, the
-concurrency lint and sanitizer, the conformance lints) emits
-:class:`Finding` records into one :class:`Report`; the report renders
-as text or JSON, counts findings into the observability registry
+Every analysis pass of the port (the AST, graph and cost tiers, the
+kernel-registry lint, the concurrency lint and sanitizer, the
+conformance lints) emits :class:`Finding` records into one
+:class:`Report`; the report renders as text or JSON (with the static
+:class:`~paddle_tpu_torch.analysis.cost_model.CostReport` a cost lint
+attaches), counts findings into the observability registry
 (``analysis_findings_total{rule,severity}``), and applies a
 :class:`Suppressions` file so known-accepted warnings do not fail a run.
 :data:`RULES` holds the rules the port's passes emit, each with the
@@ -27,6 +29,70 @@ SUPPRESSIONS_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 #: rule id -> (severity, one-line description): every rule the port's
 #: passes can emit
 RULES = {
+    "host-callback": (
+        "error",
+        "the traced step returns to the host mid-step (.item()/a scalar "
+        "read, a device-to-CPU copy, a data-dependent shape such as "
+        "nonzero or boolean-mask indexing): a sync on the hot path that "
+        "also breaks CUDA graph capture"),
+    "debug-callback": (
+        "warning",
+        "a device-side assert or print-style host hook in the traced "
+        "step: fine for debugging, a host sync in production"),
+    "f64-promotion": (
+        "warning",
+        "float64/complex128 values in the traced step: the card runs "
+        "fp64 at a fraction of its fp32 rate and bf16/fp32 kernels do "
+        "not take it; usually an accidental numpy/Python-float promotion"),
+    "undonated-buffer": (
+        "warning",
+        "a large state input's same-shape, same-dtype successor is a new "
+        "tensor returned in its place instead of being written into it "
+        "in place: peak memory holds the old and new copy"),
+    "prng-key-reuse": (
+        "error",
+        "a random op draws from a generator the step creates or re-seeds "
+        "with a constant inside its body (or, in a captured step, one the "
+        "CUDA graph does not register): every step draws the same bits"),
+    "replicated-large": (
+        "warning",
+        "large tensor replicated on every rank under the given sharding "
+        "plan: its memory is multiplied by the mesh size"),
+    "ast-host-sync": (
+        "warning",
+        "host-sync Python call (.item()/.tolist()/.cpu()/.numpy()/"
+        "float()/np.asarray/torch.cuda.synchronize()/time.time()/stdlib "
+        "random) inside the step"),
+    "ast-tracer-branch": (
+        "error",
+        "Python if/while on a tensor value inside the step: a host sync "
+        "per call, and in a CUDA-graphed step the branch taken at "
+        "capture is frozen into every replay"),
+    "unexpected-collective": (
+        "error",
+        "a collective (all-reduce/all-gather/...) in the traced step "
+        "outside the declared allowlist: an implicit cross-rank sync on "
+        "every step (single-card serving steps must have zero)"),
+    "resharding-churn": (
+        "warning",
+        "a large value is gathered to full size and scattered again "
+        "with no arithmetic in between: a round trip over the wire on "
+        "every step"),
+    "peak-hbm-budget": (
+        "error",
+        "the traced step's static peak-memory estimate exceeds the "
+        "declared budget: the step may run out of device memory on the "
+        "card the budget was sized for"),
+    "bucket-coverage": (
+        "error",
+        "a statically reachable pow2 bucket signature is missing from "
+        "warmup's capture plan: the first request hitting it captures "
+        "a graph mid-serving (breaks the zero-capture invariant)"),
+    "cost-regression": (
+        "error",
+        "a static cost metric (flops / peak memory / collective bytes) "
+        "regressed beyond tolerance vs the committed baseline "
+        "(paddle_tpu_torch/analysis/cost_budgets.json)"),
     "kernel-contract": (
         "error",
         "a registered kernel's declared contract (layouts, tunables and "
@@ -85,9 +151,9 @@ class Finding:
     rule: str                 # key into RULES
     severity: str             # info|warning|error
     message: str              # specific to this site
-    location: str = ""        # "kernels/<name>" or "file.py:42"
+    location: str = ""        # "node[3] aten.nonzero" or "file.py:42"
     fix: str = ""             # actionable hint
-    engine: str = "plan"      # ast | plan | concurrency
+    engine: str = "plan"      # fx | ast | plan | cost | concurrency
 
     def __post_init__(self):
         if self.severity not in SEVERITIES:
@@ -158,6 +224,9 @@ class Report:
         self.findings: List[Finding] = []
         self.suppressed: List[Finding] = []
         self._suppressions = suppressions
+        #: attached by ``lint_fn(cost=True)``: the static
+        #: :class:`~paddle_tpu_torch.analysis.cost_model.CostReport`
+        self.cost = None
         for f in findings:
             self.add(f)
 
@@ -204,6 +273,8 @@ class Report:
         order = {s: i for i, s in enumerate(reversed(SEVERITIES))}
         for f in sorted(self.findings, key=lambda f: order[f.severity]):
             lines.append(f.render())
+        if self.cost is not None:
+            lines.append("  " + self.cost.render_text().splitlines()[0])
         return "\n".join(lines)
 
     def render_json(self) -> str:
@@ -211,6 +282,8 @@ class Report:
             "name": self.name,
             "findings": [f.as_dict() for f in self.findings],
             "suppressed": [f.as_dict() for f in self.suppressed],
+            **({"cost": self.cost.as_dict()}
+               if self.cost is not None else {}),
         }, indent=1)
 
     # -- observability ------------------------------------------------------

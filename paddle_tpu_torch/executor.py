@@ -22,9 +22,11 @@ fluid ``executor.py``).
   stream, a preemption guard) and infers over one
   (``infer_from_dataset``).
 
-The reference's static lint gate (``lint=``, ``lint_cost=``) belongs to
-the analysis tiers (ROADMAP, "The analysis tiers"), which are not ported
-yet: anything but ``lint="off"`` raises.
+``Executor(lint='warn'|'error', lint_cost=...)`` lints each
+:class:`Program` once, against its first run's state and feeds, before
+its first dispatch (:mod:`paddle_tpu_torch.analysis`: a trace on fake
+tensors, nothing runs); a program is marked linted only after the
+report was enforced, so a caught ``LintError`` leaves the gate armed.
 """
 
 from __future__ import annotations
@@ -37,13 +39,6 @@ import numpy as np
 import torch
 
 from paddle_tpu_torch.observability import registry as _registry
-
-#: what a lint gate that is not ported yet names
-LINT_NOT_PORTED = (
-    "the static lint gate (lint=, lint_cost=) belongs to the analysis "
-    "tiers (ROADMAP, \"The analysis tiers\"), which are not ported yet: "
-    "pass lint='off' and no lint_cost")
-
 
 @dataclasses.dataclass
 class Program:
@@ -167,15 +162,22 @@ class Executor:
     """Feed/fetch runner (fluid ``Executor``: ``run(program, feed,
     fetch_list)``). ``place`` is kept for familiarity; placement is the
     state's device and the mesh's. numpy feeds go to the state's device
-    (a port train state's, or a model's)."""
+    (a port train state's, or a model's). ``lint``/``lint_cost``: the
+    static gate (module docstring; ``lint_cost``, a dict of
+    :func:`~paddle_tpu_torch.analysis.lint_fn` cost options, adds the
+    cost tier to a gate that ``lint`` turns on)."""
 
     def __init__(self, place=None, mesh=None, lint: str = "off",
                  lint_cost: Optional[Dict[str, Any]] = None):
-        if lint != "off" or lint_cost is not None:
-            raise NotImplementedError(LINT_NOT_PORTED)
+        if lint not in ("off", "warn", "error"):
+            raise ValueError(f"lint must be 'off', 'warn' or 'error', got "
+                             f"{lint!r}")
         self.place = place
         self.mesh = mesh
+        self.lint = lint
+        self.lint_cost = lint_cost
         self._cache: Dict[int, tuple] = {}
+        self._linted: set = set()
 
     def run(self, program, state=None, feed: Optional[Dict[str, Any]] = None,
             fetch_list: Optional[Sequence[str]] = None, return_numpy=True):
@@ -196,6 +198,12 @@ class Executor:
         else:
             compiled = program
         feed = _device_feeds(feed or {}, _state_device(state))
+        if isinstance(program, Program) and self.lint != "off" \
+                and key not in self._linted and state is not None:
+            # before the first dispatch, once per program; marked only
+            # after enforcement, so a caught LintError keeps it armed
+            self._lint(program, state, feed)
+            self._linted.add(key)
         t0 = time.perf_counter()
         out = compiled(state, **feed)
         reg.counter("executor_run_calls_total").inc()
@@ -211,6 +219,23 @@ class Executor:
         if return_numpy:
             fetches = _to_numpy(fetches)
         return state, fetches
+
+    def _lint(self, program: Program, state, feed):
+        """Static analysis of ``program.fn`` against this run's state and
+        feeds (:mod:`paddle_tpu_torch.analysis`); 'warn' warns, 'error'
+        raises :class:`~paddle_tpu_torch.analysis.LintError` on
+        error-severity findings. A ``donate_state`` program's state is
+        the state it updates in place (the undonated-buffer rule reads
+        it); an inference program's is only read."""
+        from paddle_tpu_torch import analysis
+        cost_kw = dict(self.lint_cost, cost=True) \
+            if self.lint_cost is not None else {}
+        if not program.donate_state:
+            cost_kw["state_argnum"] = None
+        report = analysis.lint_train_step(program.fn, state, feed,
+                                          name=program.name, **cost_kw)
+        analysis.enforce(report, self.lint)
+        return report
 
     def train_from_dataset(self, program, dataset, state, *,
                            batch_size=64, epochs=1, feed_builder=None,
@@ -307,4 +332,4 @@ class Executor:
         self._cache.clear()
 
 
-__all__ = ["CompiledProgram", "Executor", "LINT_NOT_PORTED", "Program"]
+__all__ = ["CompiledProgram", "Executor", "Program"]

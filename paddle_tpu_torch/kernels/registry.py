@@ -87,7 +87,10 @@ class KernelEntry:
     ``reference_fn`` is a dense per-row reference independent of both.
     ``work(*args, **kw)`` returns ``(bytes, flops)`` the call needs on
     these inputs (live tokens only), the numerator of its roofline
-    bound. ``sample_inputs(seed)`` gives ``(args, kwargs)`` small enough
+    bound; ``static_work``, where the live work reads values on the host
+    (K1-K4's lengths), gives ``(bytes, flops)`` from shapes alone, for
+    the analysis tiers' traces on fake tensors (``work`` itself is
+    shape-only where it is None). ``sample_inputs(seed)`` gives ``(args, kwargs)`` small enough
     for the CPU (float32, on the CPU); ``tune_signature(args)`` the
     ``((label, dim), ...)`` of the tuning key; ``smem(args, blocks)`` the
     shared memory one block of a configuration takes. ``launches`` is
@@ -109,6 +112,7 @@ class KernelEntry:
     tune_signature: Callable[[tuple], Tuple[Tuple[str, int], ...]]
     smem: Callable[[tuple, Mapping[str, int]], int]
     launches: int = 0
+    static_work: Optional[Callable[..., Tuple[int, int]]] = None
 
     def note_launch(self, n: int = 1):
         """Count ``n`` launches (negative: take back counts of a graph

@@ -16,6 +16,11 @@ copies the result back to the card, and counts the call and its bytes
 (:func:`staged_stats`). That switch is the only way a CUDA tensor goes
 through the host here; it exists so that multi-rank code runs on a
 machine with one card, and an NCCL group never stages.
+
+On fake tensors (the analysis tiers' traces, where nothing runs) each op
+records itself instead of communicating: one ``torch.ops.ptt.collective``
+node per call, naming its kind, its group's size and name, with the
+output's shape (:func:`traced`); gloo's in-place calls do not trace.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
+from torch._subclasses.fake_tensor import is_fake
 from torch.distributed.device_mesh import DeviceMesh
 
 from paddle_tpu_torch.core import mesh as mesh_lib
@@ -38,6 +44,32 @@ GLOO_CUDA_OPS = frozenset({"all_reduce", "broadcast", "barrier"})
 
 _REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
                "min": dist.ReduceOp.MIN, "prod": dist.ReduceOp.PRODUCT}
+
+
+@torch.library.custom_op("ptt::collective", mutates_args=())
+def traced(x: torch.Tensor, kind: str, out_shape: Sequence[int],
+           group_size: int, group: str) -> torch.Tensor:
+    """A collective as a trace records it: ``kind`` (all_reduce,
+    all_gather, reduce_scatter, broadcast, all_to_all,
+    collective_permute) over ``group_size`` ranks of ``group``, giving a
+    tensor of ``out_shape``. Only its fake runs (in a trace on fake
+    tensors); called on real tensors it raises."""
+    raise RuntimeError("ptt::collective stands for a collective in a "
+                       "trace on fake tensors; it does not communicate")
+
+
+@traced.register_fake
+def _traced_fake(x, kind, out_shape, group_size, group):
+    return x.new_empty(tuple(out_shape))
+
+
+def _record(kind: str, x: torch.Tensor, group, out_shape=None,
+            n: Optional[int] = None) -> torch.Tensor:
+    """The traced stand-in of ``kind`` on fake ``x`` over ``group``."""
+    n = dist.get_world_size(group) if n is None else n
+    return torch.ops.ptt.collective(
+        x, kind, list(x.shape if out_shape is None else out_shape), n,
+        str(getattr(group, "group_name", "")))
 
 
 _stats_lock = threading.Lock()
@@ -150,6 +182,8 @@ def group_all_reduce(x: torch.Tensor, group, *,
     if op not in _REDUCE_OPS:
         raise ValueError(f"op must be one of {sorted(_REDUCE_OPS)}, "
                          f"got {op!r}")
+    if is_fake(x):
+        return x.copy_(_record("all_reduce", x, group))
     _check("all_reduce", x, group)
     dist.all_reduce(x, op=_REDUCE_OPS[op], group=group)
     return x
@@ -163,6 +197,12 @@ def all_gather(x: torch.Tensor, axis: AxisArg = mesh_lib.DP, *,
     out = x
     for a in _axes(axis):
         g = axis_group(a, mesh)
+        if is_fake(out):
+            n = dist.get_world_size(g)
+            parts = _record("all_gather", out.contiguous(), g,
+                            (n,) + tuple(out.shape), n)
+            out = torch.cat(list(parts.unbind(0)), dim=concat_axis)
+            continue
         dev = _stage("all_gather", out, g, mesh)
         src = out.contiguous() if dev is None else _to_host(out)
         parts = [torch.empty_like(src) for _ in range(dist.get_world_size(g))]
@@ -181,11 +221,15 @@ def reduce_scatter(x: torch.Tensor, axis: str = mesh_lib.DP, *,
     the ``i``-th of equal chunks along ``scatter_axis`` (whose size the
     axis size must divide)."""
     g = axis_group(axis, mesh)
-    dev = _stage("reduce_scatter", x, g, mesh)
     n = dist.get_world_size(g)
     if x.shape[scatter_axis] % n:
         raise ValueError(f"dim {scatter_axis} ({x.shape[scatter_axis]}) "
                          f"does not divide over {axis} ({n})")
+    if is_fake(x):
+        shape = list(x.shape)
+        shape[scatter_axis] //= n
+        return _record("reduce_scatter", x.contiguous(), g, shape, n)
+    dev = _stage("reduce_scatter", x, g, mesh)
     src = x if dev is None else _to_host(x)
     chunks = [c.contiguous() for c in src.chunk(n, dim=scatter_axis)]
     out = torch.empty_like(chunks[0])
@@ -204,6 +248,9 @@ def broadcast(x: torch.Tensor, axis: AxisArg = mesh_lib.DP, *,
     out = x.clone()
     for a in _axes(axis):
         g = axis_group(a, mesh)
+        if is_fake(out):
+            out = _record("broadcast", out, g)
+            continue
         _check("broadcast", out, g)
         dist.broadcast(out, src=dist.get_global_rank(g, root), group=g)
     return out
@@ -216,11 +263,15 @@ def all_to_all(x: torch.Tensor, axis: str = mesh_lib.EP, *,
     ``split_axis``, chunk ``i`` to member ``i``, the received chunks
     concatenated along ``concat_axis`` in member order."""
     g = axis_group(axis, mesh)
-    dev = _stage("all_to_all", x, g, mesh)
     n = dist.get_world_size(g)
     if x.shape[split_axis] % n:
         raise ValueError(f"dim {split_axis} ({x.shape[split_axis]}) "
                          f"does not divide over {axis} ({n})")
+    if is_fake(x):
+        parts = _record("all_to_all", torch.stack(x.chunk(n, split_axis)),
+                        g, None, n)
+        return torch.cat(list(parts.unbind(0)), dim=concat_axis)
+    dev = _stage("all_to_all", x, g, mesh)
     src = x if dev is None else _to_host(x)
     send = [c.contiguous() for c in src.chunk(n, dim=split_axis)]
     recv = [torch.empty_like(c) for c in send]
@@ -242,6 +293,8 @@ def ppermute(x: torch.Tensor, axis: str, perm, *,
     receives, and counts those bytes alone."""
     m = _mesh(mesh)
     g = m.get_group(axis)
+    if is_fake(x):
+        return _record("collective_permute", x, g)
     dev = _stage("ppermute", x, g, m)
     me = m.get_local_rank(axis)
     sending = any(src == me for src, _ in perm)

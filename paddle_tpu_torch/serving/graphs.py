@@ -10,8 +10,13 @@ One ``torch.cuda.CUDAGraph`` per bucket signature (``("decode", w)``,
 
 - its static inputs: one int32 device buffer holding every int32 input
   its step reads (block-table slice, lengths, tokens, active / n_valid,
-  starts, page ids), as views. Before each call the host fills a pinned
-  twin and copies it in with one asynchronous copy; an input that lives
+  starts, page ids), as views. Before each call the host fills a
+  pageable twin and copies it in with one copy, which stages the bytes
+  before it returns, so the host may refill the twin at once. No bucket
+  holds a pinned buffer: pinned host allocations beside captures on
+  other threads failed with "invalid argument" (fault F9, ROADMAP
+  Queue 3), and in the threaded rounds that failed those buffers were
+  the only pinned blocks in use. An input that lives
   on the device (the draft's proposals feeding the verify call, a page
   written by ``("page_write",)``) is copied in on the device. An input
   of another dtype (a page's K/V) is a static device tensor of its own,
@@ -68,12 +73,10 @@ class _Bucket:
         typed = [e for e in layout if len(e) == 3]
         layout = [e for e in layout if len(e) == 2]
         n = sum(int(np.prod(shape)) for _, shape in layout)
-        if device.type == "cuda":
-            self.host_t = torch.zeros(n, dtype=torch.int32, pin_memory=True)
-            self.buf = torch.zeros(n, dtype=torch.int32, device=device)
-        else:
-            # the step reads the host buffer itself: nothing to copy
-            self.host_t = self.buf = torch.zeros(n, dtype=torch.int32)
+        self.host_t = torch.zeros(n, dtype=torch.int32)
+        # on the CPU the step reads the host buffer itself: nothing to copy
+        self.buf = torch.zeros(n, dtype=torch.int32, device=device) \
+            if device.type == "cuda" else self.host_t
         self.host = self.host_t.numpy()
         self.views: Dict[str, torch.Tensor] = {}
         self.host_views: Dict[str, np.ndarray] = {}
@@ -88,7 +91,6 @@ class _Bucket:
         self.out = None
         self.graph = None
         self.launches: Dict[str, int] = {}   # kernel launches per replay
-        self.copied = None                   # event after the input copy
 
 
 class StepGraphs:
@@ -192,17 +194,11 @@ class StepGraphs:
         b = self._buckets.get(sig)
         if b is None:
             b = self.build(sig)
-        if b.copied is not None:
-            # the last call's copy must have read the pinned buffer
-            b.copied.synchronize()
         b.host[:] = 0
         for name, a in feeds.items():
             b.host_views[name][...] = a
         if self.device.type == "cuda":
             b.buf.copy_(b.host_t, non_blocking=True)
-            if b.copied is None:
-                b.copied = torch.cuda.Event()
-            b.copied.record()
         for name, t in (device_feeds or {}).items():
             # a pinned host feed copies asynchronously, in stream order
             b.views[name].copy_(t, non_blocking=True)

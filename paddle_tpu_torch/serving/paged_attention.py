@@ -27,9 +27,12 @@ Each has three implementations in this module: the hand-written Hopper
 kernel (``csrc/paged_attention.cu``, launched for CUDA tensors), the
 plain PyTorch version (the port of the reference's lax fallback, taken
 for CPU tensors and used as the kernel's yardstick on the card), and a
-dense per-row numpy reference. The public functions dispatch on the
+dense per-row numpy reference. The public functions reach them through
+registered ops (``torch.ops.ptt.paged_decode``, ``paged_prefill``,
+``paged_decode_int8``, ``paged_prefill_int8``), which dispatch on the
 tensors' device: a CUDA tensor launches the kernel or raises, a CPU
 tensor runs the plain version; there is no fallback between the two.
+On fake tensors (the analysis tiers' traces) each call is one node.
 
 ``ragged_paged_*_tp_attention`` — the tensor-parallel entry points
 (registered as :class:`~paddle_tpu_torch.kernels.registry.CompositeEntry`, no
@@ -465,9 +468,14 @@ def _token_bytes(k_pages, scales) -> int:
 
 
 def _decode_work(q, k_pages, block_tables, lengths, scales):
+    w = block_tables.shape[1]
+    return _decode_work_of(q, k_pages, w, lengths.cpu().numpy(), scales)
+
+
+def _decode_work_of(q, k_pages, w, lengths, scales):
     s_slots, h, dh = q.shape
-    ps, w = k_pages.shape[1], block_tables.shape[1]
-    n = np.clip(lengths.cpu().numpy().astype(np.int64), 0, w * ps)
+    ps = k_pages.shape[1]
+    n = np.clip(np.asarray(lengths, np.int64), 0, w * ps)
     tok = int(n.sum())
     live_rows = int((n > 0).sum())
     nbytes = (live_rows * h * dh * q.element_size()
@@ -478,10 +486,16 @@ def _decode_work(q, k_pages, block_tables, lengths, scales):
 
 
 def _prefill_work(q, k_pages, block_tables, chunk_starts, n_valid, scales):
+    w = block_tables.shape[1]
+    return _prefill_work_of(q, k_pages, w, chunk_starts.cpu().numpy(),
+                            n_valid.cpu().numpy(), scales)
+
+
+def _prefill_work_of(q, k_pages, w, chunk_starts, n_valid, scales):
     s_slots, c, h, dh = q.shape
-    ps, w = k_pages.shape[1], block_tables.shape[1]
-    st = chunk_starts.cpu().numpy().astype(np.int64)
-    nv = np.clip(n_valid.cpu().numpy().astype(np.int64), 0, c)
+    ps = k_pages.shape[1]
+    st = np.asarray(chunk_starts, np.int64)
+    nv = np.clip(np.asarray(n_valid, np.int64), 0, c)
     rows = int(nv.sum())
     horizon = np.where(nv > 0, np.minimum(st + nv, w * ps), 0)
     attended = 0
@@ -525,6 +539,46 @@ def prefill_int8_work(q, k_pages, v_pages, k_scales, v_scales, block_tables,
     token's K and V scale."""
     return _prefill_work(q, k_pages, block_tables, chunk_starts, n_valid,
                          True)
+
+
+def _full_decode(q, k_pages, block_tables, scales):
+    s_slots, w = block_tables.shape
+    return _decode_work_of(q, k_pages, w,
+                           np.full(s_slots, w * k_pages.shape[1]), scales)
+
+
+def _full_prefill(q, k_pages, block_tables, scales):
+    s_slots, c = q.shape[:2]
+    w = block_tables.shape[1]
+    start = max(w * k_pages.shape[1] - c, 0)
+    return _prefill_work_of(q, k_pages, w, np.full(s_slots, start),
+                            np.full(s_slots, c), scales)
+
+
+def decode_static_work(q, k_pages, v_pages, block_tables, lengths, **_kw):
+    """(bytes, flops) from shapes alone (fake tensors too): every slot
+    live over every block-table column, ``w * page_size`` tokens. The
+    cost tier's count; :func:`decode_work` reads the live lengths."""
+    return _full_decode(q, k_pages, block_tables, False)
+
+
+def prefill_static_work(q, k_pages, v_pages, block_tables, chunk_starts,
+                        n_valid, **_kw):
+    """(bytes, flops) from shapes alone: every lane of every slot valid,
+    the chunk ending at the last block-table column."""
+    return _full_prefill(q, k_pages, block_tables, False)
+
+
+def decode_int8_static_work(q, k_pages, v_pages, k_scales, v_scales,
+                            block_tables, lengths, **_kw):
+    """As :func:`decode_static_work` over an int8 pool."""
+    return _full_decode(q, k_pages, block_tables, True)
+
+
+def prefill_int8_static_work(q, k_pages, v_pages, k_scales, v_scales,
+                             block_tables, chunk_starts, n_valid, **_kw):
+    """As :func:`prefill_static_work` over an int8 pool."""
+    return _full_prefill(q, k_pages, block_tables, True)
 
 
 # ---------------------------------------------------------------------------
@@ -650,6 +704,7 @@ DECODE = registry.register(registry.KernelEntry(
     # the same bf16 inputs
     tolerance={torch.float32: (2e-5, 2e-5), torch.bfloat16: (1e-2, 1e-2)},
     work=decode_work,
+    static_work=decode_static_work,
     contract=_contract("ptt_paged_decode", _DECODE_LAYOUT, "(S,H,Dh)",
                        DECODE_TUNABLES, {"warps": 8}),
     sample_inputs=lambda seed: _make_sample(seed, chunked=False),
@@ -666,6 +721,7 @@ PREFILL = registry.register(registry.KernelEntry(
     reference_fn=paged_prefill_reference,
     tolerance={torch.float32: (2e-5, 2e-5), torch.bfloat16: (1e-2, 1e-2)},
     work=prefill_work,
+    static_work=prefill_static_work,
     contract=_contract("ptt_paged_prefill", _PREFILL_LAYOUT, "(S,C,H,Dh)",
                        PREFILL_TUNABLES, {"warps": 8}),
     sample_inputs=lambda seed: _make_sample(seed, chunked=True),
@@ -686,6 +742,7 @@ DECODE_INT8 = registry.register(registry.KernelEntry(
     reference_fn=paged_decode_int8_reference,
     tolerance=_INT8_TOL,
     work=decode_int8_work,
+    static_work=decode_int8_static_work,
     contract=_contract("ptt_paged_decode_int8", _int8_layout(_DECODE_LAYOUT),
                        "(S,H,Dh)", DECODE_TUNABLES, {"warps": 8}),
     sample_inputs=lambda seed: _make_int8_sample(seed, chunked=False),
@@ -702,6 +759,7 @@ PREFILL_INT8 = registry.register(registry.KernelEntry(
     reference_fn=paged_prefill_int8_reference,
     tolerance=_INT8_TOL,
     work=prefill_int8_work,
+    static_work=prefill_int8_static_work,
     contract=_contract("ptt_paged_prefill_int8",
                        _int8_layout(_PREFILL_LAYOUT), "(S,C,H,Dh)",
                        PREFILL_INT8_TUNABLES, {"warps": 4}),
@@ -711,7 +769,7 @@ PREFILL_INT8 = registry.register(registry.KernelEntry(
 
 
 # ---------------------------------------------------------------------------
-# public entry points: dispatch on the tensors' device
+# the kernels as registered ops: dispatch on the tensors' device
 # ---------------------------------------------------------------------------
 
 def _dispatch(entry: registry.KernelEntry, q, *args, scale):
@@ -722,13 +780,76 @@ def _dispatch(entry: registry.KernelEntry, q, *args, scale):
     raise ValueError(f"{entry.name}: unsupported device {q.device}")
 
 
+# K1-K4 as ``torch.ops.ptt.paged_*``: a trace on fake tensors (the
+# analysis tiers) records each call as one node, its fake giving the
+# output's shape; a real call dispatches as above. Defined through
+# ``torch.library.Library`` rather than ``custom_op``, whose kernels
+# import ``torch._dynamo`` on their first call (seconds of a serving
+# engine's warmup, measured by ``chip_ab.py``).
+
+_LIB = torch.library.Library("ptt", "FRAGMENT")
+_OP_SCHEMAS = (
+    (DECODE, "paged_decode(Tensor q, Tensor k_pages, Tensor v_pages, "
+            "Tensor block_tables, Tensor lengths, float? scale) -> Tensor"),
+    (PREFILL, "paged_prefill(Tensor q, Tensor k_pages, Tensor v_pages, "
+             "Tensor block_tables, Tensor chunk_starts, Tensor n_valid, "
+             "float? scale) -> Tensor"),
+    (DECODE_INT8, "paged_decode_int8(Tensor q, Tensor k_pages, "
+                 "Tensor v_pages, Tensor k_scales, Tensor v_scales, "
+                 "Tensor block_tables, Tensor lengths, float? scale) "
+                 "-> Tensor"),
+    (PREFILL_INT8, "paged_prefill_int8(Tensor q, Tensor k_pages, "
+                  "Tensor v_pages, Tensor k_scales, Tensor v_scales, "
+                  "Tensor block_tables, Tensor chunk_starts, "
+                  "Tensor n_valid, float? scale) -> Tensor"),
+)
+
+
+def _kernel(entry: registry.KernelEntry):
+    def run(q, *args):
+        *args, scale = args
+        return _dispatch(entry, q, *args, scale=scale)
+    return run
+
+
+def _fake_out(q, *_args):
+    return torch.empty_like(q)
+
+
+for _entry, _schema in _OP_SCHEMAS:
+    _name = _schema.split("(", 1)[0]
+    _LIB.define(_schema)
+    for _key in ("CPU", "CUDA"):
+        _LIB.impl(_name, _kernel(_entry), _key)
+    torch.library.register_fake(f"ptt::{_name}", _fake_out, lib=_LIB)
+
+
+def _op_call(entry: registry.KernelEntry, op, q, *args):
+    """``op(q, *args)``, refusing a device the kernels do not serve before
+    the dispatcher would take a meta tensor to the fake."""
+    if q.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"{entry.name}: unsupported device {q.device}")
+    return op(q, *args)
+
+
+#: registry entry name -> the node name its op gets in a trace
+OPS = {DECODE.name: "ptt.paged_decode", PREFILL.name: "ptt.paged_prefill",
+       DECODE_INT8.name: "ptt.paged_decode_int8",
+       PREFILL_INT8.name: "ptt.paged_prefill_int8"}
+
+
+# ---------------------------------------------------------------------------
+# public entry points
+# ---------------------------------------------------------------------------
+
+
 def ragged_paged_decode_attention(q, k_pages, v_pages, block_tables,
                                   lengths, *, scale: Optional[float] = None):
     """One decode step of attention for every slot at once; returns
     (S, H, Dh) in ``q.dtype``. CUDA tensors launch the Hopper kernel;
     CPU tensors run the plain PyTorch version."""
-    return _dispatch(DECODE, q, k_pages, v_pages, block_tables, lengths,
-                     scale=scale)
+    return _op_call(DECODE, torch.ops.ptt.paged_decode, q, k_pages, v_pages,
+                    block_tables, lengths, scale)
 
 
 def ragged_paged_prefill_attention(q, k_pages, v_pages, block_tables,
@@ -737,8 +858,8 @@ def ragged_paged_prefill_attention(q, k_pages, v_pages, block_tables,
     """One batched chunked-prefill step of attention for every slot;
     returns (S, C, H, Dh) in ``q.dtype``. CUDA tensors launch the Hopper
     kernel; CPU tensors run the plain PyTorch version."""
-    return _dispatch(PREFILL, q, k_pages, v_pages, block_tables,
-                     chunk_starts, n_valid, scale=scale)
+    return _op_call(PREFILL, torch.ops.ptt.paged_prefill, q, k_pages, v_pages,
+                    block_tables, chunk_starts, n_valid, scale)
 
 
 def ragged_paged_decode_int8_attention(q, k_pages, v_pages, k_scales,
@@ -748,8 +869,8 @@ def ragged_paged_decode_int8_attention(q, k_pages, v_pages, k_scales,
     per-token-row scales (P, ps); returns (S, H, Dh) in ``q.dtype``. CUDA
     tensors launch the Hopper kernel; CPU tensors run the plain
     version."""
-    return _dispatch(DECODE_INT8, q, k_pages, v_pages, k_scales, v_scales,
-                     block_tables, lengths, scale=scale)
+    return _op_call(DECODE_INT8, torch.ops.ptt.paged_decode_int8, q, k_pages,
+                    v_pages, k_scales, v_scales, block_tables, lengths, scale)
 
 
 def ragged_paged_prefill_int8_attention(q, k_pages, v_pages, k_scales,
@@ -760,8 +881,9 @@ def ragged_paged_prefill_int8_attention(q, k_pages, v_pages, k_scales,
     (also the speculative verify step's attention); returns (S, C, H,
     Dh) in ``q.dtype``. CUDA tensors launch the Hopper kernel; CPU
     tensors run the plain version."""
-    return _dispatch(PREFILL_INT8, q, k_pages, v_pages, k_scales, v_scales,
-                     block_tables, chunk_starts, n_valid, scale=scale)
+    return _op_call(PREFILL_INT8, torch.ops.ptt.paged_prefill_int8, q, k_pages,
+                    v_pages, k_scales, v_scales, block_tables, chunk_starts,
+                    n_valid, scale)
 
 
 # ---------------------------------------------------------------------------

@@ -170,7 +170,8 @@ def pruned_train_step(step: Callable, masks) -> Callable:
             return state, metrics
 
         return TrainStepGraphs(masked, enabled=step.enabled,
-                               collectives=step.collectives)
+                               collectives=step.collectives,
+                               loss_fn=step.loss_fn)
 
     def wrapped(state, **batch):
         state, metrics = step(state, **batch)

@@ -206,14 +206,19 @@ class TrainStepGraphs:
     state, or a restore that replaced a tensor (a restore writes into the
     state's tensors, :meth:`Trainer.restore
     <paddle_tpu_torch.trainer.Trainer.restore>`). With ``enabled=False``,
-    or for a state on the CPU, every call runs eagerly."""
+    or for a state on the CPU, every call runs eagerly. ``loss_fn``, the
+    loss function :func:`build_train_step` (or ``scaled_train_step``)
+    made the step from, is what the analysis tiers' source lint reads
+    beside the step."""
 
     #: eager calls of one signature that may change the state's tensors
     MAX_WARM = 4
 
     def __init__(self, step: Callable, enabled: bool = True,
-                 collectives: Optional[str] = None, rebuild=None):
+                 collectives: Optional[str] = None, rebuild=None,
+                 loss_fn: Optional[Callable] = None):
         self.step = step
+        self.loss_fn = loss_fn
         self.enabled = enabled
         #: the backend of the collectives the step holds, or None
         self.collectives = collectives
@@ -404,7 +409,7 @@ def build_train_step(
         return build_train_step(loss_fn, optimizer, **kw)
 
     return TrainStepGraphs(
-        step, enabled=cuda_graphs, rebuild=rebuild,
+        step, enabled=cuda_graphs, rebuild=rebuild, loss_fn=loss_fn,
         collectives=sharding.backend if sharding is not None else None)
 
 

@@ -154,13 +154,24 @@ class Trainer:
             lint_cost: Optional[Dict[str, Any]] = None) -> Dict[str, float]:
         """Train over batches (feed dicts). ``make_iter`` re-creates the
         iterator for each epoch; ``steps_per_epoch`` caps an epoch.
-        Returns the last step's metrics as floats. The reference's static
-        lint gate (``lint``, ``lint_cost``) belongs to the analysis tiers
-        (ROADMAP, "The analysis tiers"), not ported yet: anything but
-        ``"off"`` raises."""
-        if lint != "off" or lint_cost is not None:
-            from paddle_tpu_torch.executor import LINT_NOT_PORTED
-            raise NotImplementedError(LINT_NOT_PORTED)
+        Returns the last step's metrics as floats.
+
+        ``lint='warn'|'error'`` statically analyzes the train step against
+        epoch 0's first batch before any step runs
+        (:mod:`paddle_tpu_torch.analysis`: a trace on fake tensors, so no
+        kernel launches and no state moves; host syncs, float64, state
+        not updated in place, re-seeded generators, tensor branches);
+        ``'warn'`` logs findings, ``'error'`` raises
+        :class:`~paddle_tpu_torch.analysis.LintError` on error-severity
+        ones. ``lint_cost`` adds the cost tier to the same gate: a dict of
+        :func:`~paddle_tpu_torch.analysis.lint_fn` cost options, e.g.
+        ``{"hbm_budget_bytes": 2 << 30, "collective_allowlist": []}``
+        (unexpected collectives, resharding round trips, the peak-memory
+        and flops budgets; ``{}`` for the cost report alone), read when
+        ``lint`` is on."""
+        if lint not in ("off", "warn", "error"):
+            raise ValueError(f"lint must be 'off', 'warn' or 'error', got "
+                             f"{lint!r}")
         if epochs > 1 and make_iter is None and not hasattr(
                 data_iter, "__len__"):
             raise ValueError(
@@ -181,7 +192,7 @@ class Trainer:
                     "trainer.fit", epochs=epochs, start_step=gstep):
                 last_metrics = self._fit_epochs(
                     epochs, data_iter, make_iter, steps_per_epoch, tel,
-                    gstep)
+                    gstep, lint, lint_cost)
         finally:
             if tel is not None:
                 tel.close(summary={"metrics": last_metrics})
@@ -195,7 +206,7 @@ class Trainer:
         return last_metrics
 
     def _fit_epochs(self, epochs, data_iter, make_iter, steps_per_epoch,
-                    tel, gstep):
+                    tel, gstep, lint="off", lint_cost=None):
         last_metrics: Dict[str, float] = {}
         metrics: Dict[str, Any] = {}
         for epoch in range(epochs):
@@ -209,6 +220,11 @@ class Trainer:
                 except StopIteration:
                     break
                 data_wait_s = time.perf_counter() - t_fetch
+                if lint != "off" and epoch == 0 and n == 0:
+                    # ahead-of-time gate on the real first batch (a trace
+                    # on fake tensors: nothing runs); data_wait was taken
+                    # above, so the trace is not booked as an input stall
+                    self._lint(batch, lint, lint_cost)
                 if tel is not None:
                     tel.data_wait(data_wait_s)
                 t_step = time.perf_counter()
@@ -254,6 +270,18 @@ class Trainer:
             last_metrics = _floats(metrics)
             self.log_fn(f"[trainer] epoch {epoch} done: {_fmt(last_metrics)}")
         return last_metrics
+
+    def _lint(self, batch: Dict[str, Any], mode: str, lint_cost=None):
+        """Static analysis of the train step against one batch
+        (:mod:`paddle_tpu_torch.analysis`); 'warn' logs, 'error' raises.
+        ``lint_cost`` (a dict of cost options) adds the cost tier."""
+        from paddle_tpu_torch import analysis
+        cost_kw = dict(lint_cost, cost=True) if lint_cost is not None \
+            else {}
+        report = analysis.lint_train_step(self.train_step, self.state,
+                                          batch, **cost_kw)
+        analysis.enforce(report, mode, log_fn=self.log_fn)
+        return report
 
     def _emergency_snapshot(self):
         """Forced synchronous snapshot of the current state (the

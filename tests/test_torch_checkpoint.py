@@ -347,8 +347,12 @@ def test_run_log_passes_the_reference_validator(tmp_path):
     steps = [r for r in recs if r["kind"] == "step"]
     assert [r["step"] for r in steps] == [1, 2, 3, 4, 5]
     assert all(r["recompiles"] == 0 for r in steps)
-    with pytest.raises(NotImplementedError, match="analysis tiers"):
-        tr.fit(_toy_batches(1), lint="warn")
+    # the lint gate on a clean step: it traces the first batch (nothing
+    # runs), logs no finding and trains
+    logged = []
+    tr.log_fn = logged.append
+    assert "loss" in tr.fit(_toy_batches(1), lint="warn", lint_cost={})
+    assert not any("graph lint" in s for s in logged)
 
 
 def test_single_process_aggregate_matches_the_reference():

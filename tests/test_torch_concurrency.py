@@ -209,7 +209,13 @@ def test_rules_keep_the_references_ids_and_severities():
     assert set(findings.RULES) == {
         "kernel-contract", "kernel-registry-bypass", "unguarded-access",
         "lock-order-cycle", "double-acquire", "lock-order-drift",
-        "sanitizer-violation", "interface-drift", "reject-vocab-drift"}
+        "sanitizer-violation", "interface-drift", "reject-vocab-drift",
+        # the analysis tiers' rules
+        "host-callback", "debug-callback", "f64-promotion",
+        "undonated-buffer", "prng-key-reuse", "replicated-large",
+        "ast-host-sync", "ast-tracer-branch", "unexpected-collective",
+        "resharding-churn", "peak-hbm-budget", "bucket-coverage",
+        "cost-regression"}
     for rule, (severity, _) in findings.RULES.items():
         assert severity == ref_findings.RULES[rule][0]
 

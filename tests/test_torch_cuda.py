@@ -36,6 +36,9 @@ process. Pipelines on the card: a pp=2 group of two processes on
 pp-split snapshot restored per stage and whole. The native runner: K5
 through its C++ registration bit for bit K5 through the Python op, and a
 frozen bf16 tiny Transformer served from C++ with K5 counted there.
+The analysis tiers on CUDA tensors: the registered kernels as single
+nodes of a trace that launches and allocates nothing, and a copy to the
+host found in a step.
 """
 
 import numpy as np
@@ -1916,3 +1919,67 @@ def test_native_runner_serves_a_frozen_model_on_the_card(dev, tmp_path):
     top = float(np.abs(eager).max())
     ulp = 2.0 ** (np.floor(np.log2(top)) - 7)
     assert float(np.abs(first - eager).max()) <= 4 * ulp
+
+
+def test_lint_traces_the_kernels_as_nodes_and_runs_nothing(dev):
+    """The analysis tiers on CUDA tensors: a tiny bf16 BERT train step's
+    trace holds one ``ptt.flash_fwd``, ``ptt.flash_bwd_dkv`` and
+    ``ptt.flash_bwd_dq`` node a layer, the lint launches nothing and
+    allocates nothing, and the step then launches the kernels it traced;
+    a paged decode traces as one ``ptt.paged_decode`` node; a copy to
+    the host inside a step is a host-callback."""
+    import gc
+    from paddle_tpu_torch import analysis
+    from paddle_tpu_torch.analysis import fx_lint
+    from paddle_tpu_torch.core.dtypes import get_policy
+    from paddle_tpu_torch.kernels import registry
+    from paddle_tpu_torch.models.bert import BertConfig, BertForPretraining
+    from paddle_tpu_torch.ops import attention as FA
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.train import build_train_step, make_train_state
+    net = BertForPretraining(BertConfig.tiny(dropout=0.0, attn_dropout=0.0),
+                             device=dev, seed=4)
+    _, _, feeds = _tiny_train(dev, "bert", False)
+    opt = AdamW(net.parameters(), 1e-3)
+    state = make_train_state(net, opt)
+    step = build_train_step(lambda m, **f: m.loss(**f), opt,
+                            policy=get_policy("bf16"))
+    gc.collect()
+    torch.cuda.synchronize(dev)
+    mem0 = torch.cuda.memory_allocated(dev)
+    before = registry.launch_counts()
+    rep = analysis.lint_train_step(step, state, feeds, cost=True,
+                                   registry=False)
+    gc.collect()
+    torch.cuda.synchronize(dev)
+    assert torch.cuda.memory_allocated(dev) == mem0
+    assert registry.count_delta(registry.launch_counts(), before) == {}
+    layers = net.cfg.num_layers
+    for op in ("ptt.flash_fwd", "ptt.flash_bwd_dkv", "ptt.flash_bwd_dq"):
+        assert rep.cost.per_op[op].count == layers, op
+    assert rep.ok() and rep.cost.flops_by_class["flash"] > 0
+    assert int(state["step"]) == 0
+    before = registry.launch_counts()
+    step(state, **feeds)
+    torch.cuda.synchronize(dev)
+    assert registry.count_delta(registry.launch_counts(), before) == {
+        FA.FWD.name: layers, FA.BWD_DKV.name: layers,
+        FA.BWD_DQ.name: layers}
+
+    rng = np.random.default_rng(0)
+    q, kp, vp = (torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32)).to(dev) for s in ((4, 2, 16), (9, 8, 2, 16),
+                                      (9, 8, 2, 16)))
+    bt = torch.from_numpy(rng.integers(1, 9, (4, 3)).astype(np.int32)).to(dev)
+    lens = torch.tensor([0, 5, 17, 24], dtype=torch.int32, device=dev)
+    before = PA.DECODE.launches
+    tr = analysis.api.trace(PA.ragged_paged_decode_attention,
+                            (q, kp, vp, bt, lens))
+    assert fx_lint.graph_summary(tr.gm) == {"ptt.paged_decode": 1}
+    assert PA.DECODE.launches == before
+
+    rep = analysis.lint_fn(lambda x: x.sum().cpu() + 1,
+                           torch.ones(8, device=dev), registry=False,
+                           ast=False)
+    assert [f.rule for f in rep] == ["host-callback"]
+    assert "copies a device tensor to the CPU" in rep.findings[0].message

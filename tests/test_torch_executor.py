@@ -154,9 +154,14 @@ def test_inference_program_and_the_lint_refusal():
     assert f["out"].shape == (8, 4)
     assert float(f["out"].mean()) == pytest.approx(float(want["out"]),
                                                    rel=1e-5)
-    for kw in ({"lint": "warn"}, {"lint_cost": {}}):
-        with pytest.raises(NotImplementedError, match="analysis tiers"):
-            executor.Executor(**kw)
+    # the lint gate: an inference program lints clean once, before its
+    # first dispatch, and runs as the ungated executor does
+    for kw in ({"lint": "error"}, {"lint": "warn", "lint_cost": {}}):
+        exe = executor.Executor(**kw)
+        with torch.no_grad():
+            _, g = exe.run(prog, model, feed={"x": x})
+        assert exe._linted == {id(prog)}
+        np.testing.assert_array_equal(g["out"], f["out"])
 
 
 def _reader(batches):

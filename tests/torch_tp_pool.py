@@ -1334,3 +1334,43 @@ def executor_mesh(rank, n, weights, batches):
     return {"losses": losses,
             "params": {k: v.detach().numpy()
                        for k, v in model.named_parameters()}}
+
+
+def analysis_collectives(rank, n):
+    """The cost tier's collective rules on this rank's traces (a trace
+    communicates nothing, so each rank traces alone): rules fired per
+    program, and the collectives' (kind, bytes, group size, axis) of the
+    all-reduce program."""
+    import torch
+    from paddle_tpu_torch.analysis import lint_fn
+    from paddle_tpu_torch.parallel import collective as C
+    m = _mesh(n)
+    x = torch.ones(64, 256)
+
+    def reduce(x):
+        return C.all_reduce(x * 2, "tp", mesh=m)
+
+    def churn(x):
+        return C.reduce_scatter(C.all_gather(x, "tp", mesh=m), "tp",
+                                mesh=m)
+
+    def worked(x):
+        return C.reduce_scatter(C.all_gather(x, "tp", mesh=m).tanh(), "tp",
+                                mesh=m)
+
+    def rules(fn, **kw):
+        rep = lint_fn(fn, x, registry=False, ast=False, state_argnum=None,
+                      **kw)
+        return sorted({f.rule for f in rep})
+
+    rep = lint_fn(reduce, x, registry=False, ast=False, cost=True,
+                  state_argnum=None, mesh_axes={"tp": n})
+    return {
+        "reduce_empty_allowlist": rules(reduce, collective_allowlist=[]),
+        "reduce_allowlisted": rules(reduce,
+                                    collective_allowlist=["all_reduce"]),
+        "churn": rules(churn, cost=True),
+        "worked": rules(worked, cost=True),
+        "collectives": [(c.kind, c.bytes, c.group_size, c.axis)
+                        for c in rep.cost.collectives],
+    }
