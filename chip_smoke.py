@@ -232,7 +232,17 @@ Phases, in order; any failure exits non-zero:
        mean of the ranks' before it;
    (f) the fsdp ranks of (c) save their blocks into one snapshot; a
        fresh fsdp=2 group restores with ``shardings=``, and this process
-       without, both bit for bit.
+       without, both bit for bit;
+   (g) expert parallelism in (a)'s sp=4 group after the ring: Switch-
+       Base-8's MoE layer (13 (c)'s d 768, ff 3072, 8 experts, top-1,
+       capacity factor 1.25, 8 x 512 tokens whose halves route
+       unevenly) with a residual and a linear readout, loss = MSE + 0.01
+       aux_loss, fp32, 3 AdamW steps under ``shard_train_step`` with the
+       layer's hints on dp=2 x ep=2 and on ep=4, every rank fed the
+       global batch, against one process at that batch: losses and
+       aux_loss within 2e-5 (relative), every expert's count exactly,
+       the parameters gathered within 1e-4, each rank's expert bytes 1/ep
+       of the layer's; the steps' seconds, each rank's peak memory.
    Each leg's seconds; tokens/s labelled "gloo on one card: not a
    parallel speed"; either rank failing fails the run.
 9. pipelines (runs after 8) — a pp=2 gloo group of two processes on the
@@ -4065,6 +4075,185 @@ def restore_leg(rank, n, device):
             "restore_s": seconds}
 
 
+# -- phase 8 (g): expert parallelism -----------------------------------------
+
+#: (g): 13 (c)'s Switch-Base-8 layer (``SWITCH_BASE``) with a residual and a
+#: ``Linear(d, d)`` readout, loss = MSE + ``MOE_AUX`` x ``aux_loss``, fp32,
+#: AdamW(``MOE_LR``), ``MOE_STEPS`` steps on each mesh of the 4-rank group
+MOE_MESHES = (("dp2_ep2", {"dp": 2, "ep": 2}), ("ep4", {"ep": 4}))
+MOE_STEPS, MOE_LR, MOE_AUX = 3, 1e-4, 0.01
+#: against one process at the same global batch: losses (relative) and
+#: the parameters gathered (absolute and relative, as ``_held_params``)
+MOE_LOSS_RTOL = 2e-5
+
+
+class _SwitchNet(torch.nn.Module):
+    """(g)'s model: ``MoEFeedForward`` at ``SWITCH_BASE`` with a residual
+    and a replicated readout."""
+
+    def __init__(self):
+        super().__init__()
+        from paddle_tpu_torch.nn import Linear
+        from paddle_tpu_torch.nn.moe import MoEFeedForward
+        c = SWITCH_BASE
+        self.moe = MoEFeedForward(c["d"], c["ff"], c["experts"],
+                                  top_k=c["top_k"],
+                                  capacity_factor=c["capacity_factor"])
+        self.readout = Linear(c["d"], c["d"], sharding=None)
+
+    def forward(self, x):
+        y, aux = self.moe(x)
+        return self.readout(x + y), aux
+
+
+def _switch_net(device):
+    """(g)'s model from seed 0, made on the CPU (every rank and the
+    one-process run start from the same bits), then moved to
+    ``device``."""
+    m = _SwitchNet()
+    gen = torch.Generator().manual_seed(0)
+    m.moe.reset_parameters(gen)
+    m.readout.reset_parameters(gen)
+    return m.to(device)
+
+
+def _switch_loss(m, x, y):
+    out, aux = m(x)
+    loss = ((out - y) ** 2).mean() + MOE_AUX * aux["aux_loss"]
+    return loss, {"aux_loss": aux["aux_loss"],
+                  **{f"count_{i}": c.float()
+                     for i, c in enumerate(aux["expert_counts"])}}
+
+
+def _switch_batch(model, device):
+    """``SWITCH_BASE``'s 8 x 512 tokens and a target; the second half of
+    the rows leans toward expert 0, so the data shards route unevenly
+    (routing each shard alone would keep other tokens)."""
+    c = SWITCH_BASE
+    rng = np.random.default_rng(17)
+    x = rng.standard_normal((c["batch"], c["seq"], c["d"])).astype(
+        np.float32)
+    r0 = model.moe.router[:, 0].detach().cpu().numpy()
+    x[c["batch"] // 2:] += 1.5 * r0 / np.linalg.norm(r0)
+    y = rng.standard_normal(x.shape).astype(np.float32)
+    return {"x": torch.from_numpy(x).to(device),
+            "y": torch.from_numpy(y).to(device)}
+
+
+def _expert_bytes(model):
+    return sum(p.numel() * p.element_size()
+               for k, p in model.moe.named_parameters() if k != "router")
+
+
+def moe_leg(rank, n, device):
+    """(g) on one rank of the 4-rank group: on each mesh of
+    ``MOE_MESHES``, (g)'s model under ``shard_train_step`` with the
+    layer's hints (experts split over "ep"), every rank fed the global
+    batch: the metrics of each step, the steps' seconds and tokens/s,
+    this rank's peak memory and expert-weight bytes beside the whole
+    layer's; rank 0 saves the parameters gathered whole."""
+    from paddle_tpu_torch.nn.module import sharding_specs
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import api
+    from paddle_tpu_torch.train import build_train_step, make_train_state
+    c = SWITCH_BASE
+    out = {}
+    for label, sizes in MOE_MESHES:
+        mesh = _par_mesh(device, **sizes)
+        _free(device)
+        cuda = device.type == "cuda"
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+        model = _switch_net(device)
+        whole_bytes = _expert_bytes(model)
+        batch = _switch_batch(model, device)
+        opt = AdamW(model.parameters(), learning_rate=MOE_LR)
+        run, state = api.shard_train_step(
+            build_train_step(_switch_loss, opt), mesh,
+            make_train_state(model, opt), hints=sharding_specs(model))
+        t0 = time.monotonic()
+        metrics = [{k: float(v) for k, v in run(state, **batch)[1].items()}
+                   for _ in range(MOE_STEPS)]
+        _sync(device)
+        wall = time.monotonic() - t0
+        peak = torch.cuda.max_memory_allocated() - before if cuda else None
+        whole = api.gathered_params(model, run.specs, mesh)
+        if rank == 0:
+            torch.save({k: v.cpu() for k, v in whole.items()},
+                       PAR_DIR / f"moe_{label}_params.pt")
+        out[label] = {
+            "metrics": metrics, "steps_s": wall, "peak_bytes": peak,
+            "expert_bytes": _expert_bytes(model),
+            "expert_bytes_whole": whole_bytes,
+            "tokens_per_s_gloo_on_one_card_not_a_parallel_speed":
+                c["batch"] * c["seq"] * MOE_STEPS / wall}
+        del run, state, model, opt, whole, batch
+        _free(device)
+    return out
+
+
+def moe_checks(device, ranks):
+    """(g): every rank's metrics and the parameters against (g)'s model
+    and AdamW in this process at the same global batch: losses and
+    ``aux_loss`` within ``MOE_LOSS_RTOL``, every expert's count exactly,
+    the parameters within 1e-4, each rank's expert bytes 1/ep of the
+    layer's."""
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.train import build_train_step, make_train_state
+    model = _switch_net(device)
+    batch = _switch_batch(model, device)
+    opt = AdamW(model.parameters(), learning_rate=MOE_LR)
+    step = build_train_step(_switch_loss, opt, cuda_graphs=False)
+    state = make_train_state(model, opt)
+    want = [{k: float(v) for k, v in step(state, **batch)[1].items()}
+            for _ in range(MOE_STEPS)]
+    ref = {k: v.detach().clone() for k, v in model.named_parameters()}
+    del state, model, opt, step, batch
+    _free(device)
+    out = {"one_process": want}
+    for label, sizes in MOE_MESHES:
+        rows = [r[label] for r in ranks]
+        rel = {}
+        for rank, row in enumerate(rows):
+            got = row["metrics"]
+            for key in ("loss", "aux_loss"):
+                rel[key] = _close([m[key] for m in got],
+                                  [m[key] for m in want], MOE_LOSS_RTOL,
+                                  0.0, f"8g {label} rank {rank} {key}")
+            counts = [[m[k] for k in sorted(m) if k.startswith("count_")]
+                      for m in got]
+            if counts != [[m[k] for k in sorted(m) if k.startswith("count_")]
+                          for m in want]:
+                raise AssertionError(f"8g {label} rank {rank}: expert "
+                                     f"counts {counts} against one "
+                                     f"process's")
+            if row["expert_bytes"] * sizes["ep"] != row["expert_bytes_whole"]:
+                raise AssertionError(
+                    f"8g {label} rank {rank}: expert bytes "
+                    f"{row['expert_bytes']} of {row['expert_bytes_whole']}")
+        whole = torch.load(PAR_DIR / f"moe_{label}_params.pt")
+        err = max(_held_params(k, whole[k].to(device), ref[k], MOE_STEPS,
+                               MOE_LR) for k in ref)
+        out[label] = {
+            "losses": [m["loss"] for m in rows[0]["metrics"]],
+            "aux_loss": [m["aux_loss"] for m in rows[0]["metrics"]],
+            "expert_counts": [[m[k] for k in sorted(m)
+                               if k.startswith("count_")]
+                              for m in rows[0]["metrics"]],
+            "max_rel_err": rel, "param_max_abs_err": err,
+            "expert_bytes_ranks": [r["expert_bytes"] for r in rows],
+            "expert_bytes_whole": rows[0]["expert_bytes_whole"],
+            "peak_bytes_ranks": [r["peak_bytes"] for r in rows],
+            "steps_s_ranks": [r["steps_s"] for r in rows],
+            "tokens_per_s_gloo_on_one_card_not_a_parallel_speed":
+                rows[0]["tokens_per_s_gloo_on_one_card_not_a_parallel_"
+                        "speed"]}
+        del whole
+    _free(device)
+    return out
+
+
 # -- phase 9: pipelines ------------------------------------------------------
 
 #: (a): the toy stack's layers and width, microbatches and their rows
@@ -4523,6 +4712,7 @@ GROUP_LEGS = {"tp_serve": _tp_legs, "ring": ring_leg,
               "ring_timed": functools.partial(ring_leg, timed=True),
               "bert_ring": bert_ring_leg, "dp": dp_leg, "tp": tp_leg,
               "local_sgd": local_sgd_leg, "restore": restore_leg,
+              "moe": moe_leg,
               "pipe_toy": pipe_toy_leg, "pipe_bert": pipe_bert_leg,
               "pipe_gpt": pipe_gpt_leg}
 
@@ -4592,7 +4782,7 @@ def parallel_train(device):
 
     # (a) at sp=4; then the sp=2 group: (a) timed, (b), (c), (d), (e)
     t0 = time.monotonic()
-    four = group_run(4, ("ring",), device, "8a sp=4 group")
+    four = group_run(4, ("ring", "moe"), device, "8a sp=4 and 8g ep group")
     _check_ring_counts("sp=4", 4, [r["ring"] for r in four])
     # phase 9's pp=2 legs ride this group: one start-up for both phases
     _pipe_dir()
@@ -4709,6 +4899,13 @@ def parallel_train(device):
                          "leaves": len(whole)}
     log("  8f sharded snapshot: " + json.dumps(stats["snapshot"]))
     del back, whole
+
+    # (g) against one process at the same global batch
+    stats["moe"] = moe_checks(device, [r["moe"] for r in four])
+    for label, _ in MOE_MESHES:
+        log(f"  8g Switch-Base-8 MoE {label} vs one process (gloo on one "
+            "card: not a parallel speed): " + json.dumps(stats["moe"][label]))
+    log(f"  8g took {four[0]['moe']['seconds']:.1f} s on the ranks")
     stats["pipe_ranks"] = [{leg: r[leg] for leg in PIPE_LEGS} for r in two]
     stats["tf_pipe_ranks"] = [r["pipe_transformer"] for r in two]
     pipe_s = sum(two[0][leg]["seconds"] for leg in PIPE_LEGS + TF_PIPE_LEGS)
@@ -4718,6 +4915,7 @@ def parallel_train(device):
         "groups_a_to_e": group_s - pipe_s,
         "phase": time.monotonic() - t_phase - pipe_s,
         "sp4_ring": four[0]["ring"]["seconds"],
+        "moe": four[0]["moe"]["seconds"],
         **{leg: two[0][leg]["seconds"] for leg in (
             "ring_timed", "bert_ring", "dp", "tp", "local_sgd")}}
     log(f"  phase 8 took {stats['seconds']['phase']:.1f} s: "

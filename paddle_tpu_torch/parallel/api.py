@@ -18,7 +18,9 @@ are explicit:
 - FSDP: a parameter whose spec names "fsdp" is stored as its block; the
   forward reads it through an all-gather whose transpose is a
   reduce-scatter of its gradient (:class:`_FsdpGather`), so the update
-  runs on the local block and its sharded slots;
+  runs on the local block and its sharded slots; what the graph saves of
+  a gathered parameter for the backward is its block, gathered again
+  when the backward needs it (``StepSharding.saving``);
 - Megatron, from the layers' hints ("tp"): a column-split ``Linear``
   keeps its output split into the row-split ``Linear`` that follows it
   (the MLP's ``fc1``/``fc2``; the attention's ``qkv_proj`` gathers its
@@ -36,6 +38,16 @@ are explicit:
   still averaged over the data axes only, and draws the same dropout
   masks: each step runs on a default generator seeded from stage 0's
   (:func:`step_rng`);
+- experts ("ep", from a ``MoEFeedForward``'s hints): its expert
+  tensors are stored as this rank's ``E/ep`` experts, and the layer
+  (:class:`ExpertPlacement`, ``nn/moe.py``) routes globally over the
+  data axes, runs its experts and sums the output over "ep". Like "tp",
+  "ep" is a model axis: the ranks of a data shard hold the same tokens
+  and compute the same loss, and the Megatron pair around the experts
+  makes the gradients of everything replicated over "ep" (the router
+  among them) whole on every rank inside the backward, so the gradient
+  hook still reduces over the data axes alone (and not over "fsdp" for
+  a parameter split over it);
 - norms: the optimizer's clip by norm and its trust ratios take each
   split parameter's squared sums over the axes it is split over
   (``Optimizer.norm_reduce``), so they are the whole tensors' norms and
@@ -51,10 +63,12 @@ from __future__ import annotations
 
 import contextlib
 import math
+import weakref
 from typing import Any, Callable, Dict, Mapping, Optional
 
 import torch
 import torch.distributed as dist
+from torch._subclasses.fake_tensor import is_fake
 
 from paddle_tpu_torch.core import mesh as mesh_lib
 from paddle_tpu_torch.parallel import collective
@@ -65,7 +79,7 @@ from paddle_tpu_torch.parallel.plan import P
 #: the batch's spec unless told otherwise: dim 0 over the batch axes
 BATCH_SPEC = P(mesh_lib.BATCH_AXES)
 #: axes a parameter's spec may name here
-PARAM_AXES = (mesh_lib.FSDP, mesh_lib.TP, mesh_lib.PP)
+PARAM_AXES = (mesh_lib.FSDP, mesh_lib.TP, mesh_lib.PP, mesh_lib.EP)
 
 
 def batch_specs(batch: Mapping[str, Any], *, seq_dim: Optional[int] = None
@@ -186,6 +200,149 @@ class TpEmbedding:
         return pf.gather_from(out, mesh_lib.TP, self.mesh, -1)
 
 
+class ExpertPlacement:
+    """A ``MoEFeedForward``'s role on a mesh (``nn/moe.py`` says what the
+    layer computes with it): the data axes its routing is global over,
+    the block of experts this rank runs ("ep"), and the Megatron pairs
+    over "ep" and, with ``tp_split``, over "tp" inside each expert."""
+
+    def __init__(self, mesh, *, ep_split: bool, tp_split: bool):
+        self.mesh = mesh
+        self.data_axes = pf.live_axes(mesh, mesh_lib.BATCH_AXES)
+        self.n_data = math.prod(mesh_lib.axis_size(mesh, a)
+                                for a in self.data_axes)
+        #: this rank's data shard, in the batch's order (dp major)
+        self.shard = 0
+        for a in self.data_axes:
+            self.shard = (self.shard * mesh_lib.axis_size(mesh, a)
+                          + mesh_lib.axis_index(mesh, a))
+        self.ep = mesh_lib.axis_size(mesh, mesh_lib.EP) if ep_split else 1
+        self.tp = mesh_lib.axis_size(mesh, mesh_lib.TP) if tp_split else 1
+        self.model_axes = pf.live_axes(mesh, (mesh_lib.EP, mesh_lib.TP))
+
+    def experts(self, e: int):
+        """``(lo, hi)``: the experts this rank runs."""
+        n = e // self.ep
+        lo = mesh_lib.axis_index(self.mesh, mesh_lib.EP) * n \
+            if self.ep > 1 else 0
+        return lo, lo + n
+
+    def same_on_model_axes(self, t):
+        """``t`` of the first rank of this rank's "ep" x "tp" group."""
+        for a in self.model_axes:
+            t = collective.broadcast(t, a, root=0, mesh=self.mesh)
+        return t
+
+    def queue_offsets(self, routed):
+        """``routed`` (k, E), this shard's routed count of each choice:
+        ``(before, total)``, the counts of the data shards before this
+        one and of all of them."""
+        if not self.data_axes:
+            return torch.zeros_like(routed), routed
+        every = collective.all_gather(routed[None].contiguous(),
+                                      tuple(reversed(self.data_axes)),
+                                      concat_axis=0, mesh=self.mesh)
+        return every[:self.shard].sum(0), every.sum(0)
+
+    def data_sum(self, t):
+        if not self.data_axes:
+            return t
+        return collective.all_reduce(t, self.data_axes, mesh=self.mesh)
+
+    def global_mean(self, total, count: int):
+        """``total`` summed over the data axes over the global count (the
+        gradient's transpose included)."""
+        return pf.global_mean(total, torch.tensor(float(count),
+                                                  device=total.device),
+                              self.data_axes, self.mesh)
+
+    def into_experts(self, t):
+        return pf.copy_to(t, mesh_lib.EP, self.mesh) if self.ep > 1 else t
+
+    def out_of_experts(self, t):
+        return pf.reduce_from(t, mesh_lib.EP, self.mesh) if self.ep > 1 \
+            else t
+
+    def into_expert_columns(self, t):
+        return pf.copy_to(t, mesh_lib.TP, self.mesh) if self.tp > 1 else t
+
+    def out_of_expert_rows(self, t):
+        return pf.reduce_from(t, mesh_lib.TP, self.mesh) if self.tp > 1 \
+            else t
+
+
+#: the specs of a MoE layer's expert tensors that ``ExpertPlacement``
+#: runs: (dim split over "ep", dim split over "tp") per tensor, each
+#: split or not as a whole
+_EXPERT_DIMS = {"w1": (0, 2), "b1": (0, 1), "w2": (0, 1), "b2": (0, None)}
+
+
+def _install_experts(model, specs: Dict[str, tuple], mesh) -> int:
+    """Give every ``MoEFeedForward`` of ``model`` its
+    :class:`ExpertPlacement` on ``mesh`` (where the mesh has a live axis);
+    returns how many it placed. A layout the placement does not run
+    raises ``NotImplementedError`` naming it."""
+    from paddle_tpu_torch.nn.module import layer_modules
+    from paddle_tpu_torch.nn.moe import MoEFeedForward
+    live = pf.live_axes(mesh, mesh_lib.ALL_AXES)
+    placed = 0
+    for name, mod, stacked in layer_modules(model):
+        if not isinstance(mod, MoEFeedForward) or not live:
+            continue
+        for axis, what in ((mesh_lib.SP, "the sequence split over 'sp'"),
+                           (mesh_lib.PP, "a pipeline over 'pp'")):
+            if axis in live:
+                raise NotImplementedError(
+                    f"{name}: a MoEFeedForward under {what} is not "
+                    "supported (its routing is global over the batch "
+                    "axes dp and fsdp)")
+
+        def spec(p):
+            got = specs.get(f"{name}.{p}".lstrip("."), ())
+            return got[1:] if stacked else got
+
+        ep_dims = {p: _dim_naming(spec(p), mesh_lib.EP) for p in _EXPERT_DIMS}
+        tp_dims = {p: _dim_naming(spec(p), mesh_lib.TP) for p in _EXPERT_DIMS}
+        ep_split = ep_dims["w1"] is not None and mesh_lib.EP in live
+        tp_split = tp_dims["w1"] is not None and mesh_lib.TP in live
+        want_ep = {p: d[0] if ep_split else None
+                   for p, d in _EXPERT_DIMS.items()}
+        want_tp = {p: d[1] if tp_split else None
+                   for p, d in _EXPERT_DIMS.items()}
+        router = _names(spec("router")) & {mesh_lib.EP, mesh_lib.TP}
+        if (ep_split and ep_dims != want_ep) or (tp_split
+                                                 and tp_dims != want_tp) \
+                or router:
+            split = {f"{name}.{p}": spec(p)
+                     for p in ("router", *_EXPERT_DIMS)}
+            raise NotImplementedError(
+                f"MoE experts split as {split} are "
+                "not supported: w1, b1, w2, b2 split over 'ep' on dim 0 "
+                "together, over 'tp' as the hints split them (w1/b1 "
+                "columns, w2 rows, b2 whole) together, the router "
+                "replicated over both")
+        mod.placement = ExpertPlacement(mesh, ep_split=ep_split,
+                                        tp_split=tp_split)
+        placed += 1
+    return placed
+
+
+def _check_token_layout(batch_spec, mesh):
+    """A placed MoE takes the batch split over the data axes only: every
+    "ep" (and "tp") rank of a data shard holds its tokens whole."""
+    specs = batch_spec.values() if isinstance(batch_spec, Mapping) \
+        else [batch_spec]
+    for spec in specs:
+        bad = _names(spec) & set(pf.live_axes(mesh, (mesh_lib.EP,
+                                                     mesh_lib.TP)))
+        if bad:
+            raise NotImplementedError(
+                f"a batch split over {sorted(bad)} beside a placed "
+                "MoEFeedForward (tokens split over 'ep', GShard's "
+                "all-to-all layout) is not supported: split it over dp "
+                "and fsdp")
+
+
 def _install_tp(model, specs: Dict[str, tuple], mesh):
     """Set the Megatron roles of ``model``'s layers from their specs (a
     ``StackedLayers``' template from its stacked parameters' specs,
@@ -269,11 +426,28 @@ def _flat_specs(tree, prefix="") -> Dict[str, tuple]:
 class StepSharding:
     """A train step's placement on ``mesh``: the forward's parameter
     views (FSDP's gathers), the gradient hook (the data axes' average)
-    and the metrics' average. ``specs`` maps parameter names to specs."""
+    and the metrics' average. ``specs`` maps parameter names to specs.
 
-    def __init__(self, mesh, specs: Dict[str, tuple]):
+    ``regather`` (FSDP): while the forward runs (:meth:`saving`), a
+    tensor autograd saves for the backward that is a gathered parameter,
+    or a view of one, is saved as its block and gathered again when the
+    backward unpacks it (``torch.autograd.graph.saved_tensors_hooks``),
+    so the graph holds the blocks alone. The values are the same bits.
+    (Under a compute-dtype policy the forward reads a cast of the
+    gathered parameter, a tensor of its own, which the graph keeps.)
+    ``saved`` counts, for the last forward, the bytes of gathered
+    parameters the graph holds (``"gathered"``) and of the blocks it
+    holds in their place (``"blocks"``)."""
+
+    def __init__(self, mesh, specs: Dict[str, tuple], *,
+                 regather: bool = True):
         self.mesh = mesh
         self.specs = specs
+        self.regather = regather
+        #: data_ptr of a gathered parameter's storage -> (a weak reference
+        #: to it, its block, the gathered dim), for the forward in flight
+        self._gathered: Dict[int, tuple] = {}
+        self.saved = {"gathered": 0, "blocks": 0}
         self.data_axes = pf.live_axes(mesh, pf.DATA_AXES)
         self.n_data = math.prod(mesh_lib.axis_size(mesh, a)
                                 for a in self.data_axes)
@@ -301,6 +475,8 @@ class StepSharding:
                                                                      ())))
             if axes:
                 self.split_axes[id(p)] = axes
+        while getattr(opt, "inner", None) is not None:
+            opt = opt.inner
         if opt is not None and self.split_axes:
             opt.norm_reduce = self.reduce_sq
 
@@ -324,7 +500,53 @@ class StepSharding:
 
     def views(self, name: str, p):
         dim = self.fsdp_dims.get(name)
-        return p if dim is None else _FsdpGather.apply(p, self.mesh, dim)
+        if dim is None:
+            return p
+        out = _FsdpGather.apply(p, self.mesh, dim)
+        if not is_fake(out):
+            self._gathered[out.untyped_storage().data_ptr()] = (
+                weakref.ref(out), p, dim)
+        return out
+
+    def _pack(self, t):
+        ent = None
+        if self._gathered and not is_fake(t):
+            ent = self._gathered.get(t.untyped_storage().data_ptr())
+        whole = ent[0]() if ent is not None else None
+        if whole is None or whole.dtype != t.dtype:
+            return t
+        if not self.regather:
+            self.saved["gathered"] += t.untyped_storage().nbytes()
+            return t
+        block, dim = ent[1], ent[2]
+        self.saved["blocks"] += block.untyped_storage().nbytes()
+        return (_Regathered, block, dim, tuple(t.shape), t.stride(),
+                t.storage_offset())
+
+    def _unpack(self, obj):
+        if not (isinstance(obj, tuple) and obj and obj[0] is _Regathered):
+            return obj
+        _, block, dim, shape, stride, offset = obj
+        whole = collective.all_gather(block.detach().contiguous(),
+                                      mesh_lib.FSDP, concat_axis=dim,
+                                      mesh=self.mesh)
+        return whole.as_strided(shape, stride, offset)
+
+    @contextlib.contextmanager
+    def saving(self):
+        """Around a forward: what its graph saves of the gathered
+        parameters (the class docstring)."""
+        if not self.fsdp_dims:
+            yield
+            return
+        self._gathered.clear()
+        self.saved = {"gathered": 0, "blocks": 0}
+        try:
+            with torch.autograd.graph.saved_tensors_hooks(self._pack,
+                                                          self._unpack):
+                yield
+        finally:
+            self._gathered.clear()
 
     def sync_grads(self, model):
         """Average every gradient over the data axes: a sum over the
@@ -364,10 +586,20 @@ class StepSharding:
         return {k: vec[i] for i, k in enumerate(keys)}
 
 
+class _Regathered:
+    """Marks a saved tensor that the backward gathers again."""
+
+
 def _place(model, opt, specs: Dict[str, tuple], mesh):
     """Cut every parameter, and its optimizer slots, to this rank's block
-    under its spec (in place: ``p.data`` and the slot entries)."""
+    under its spec (in place: ``p.data`` and the slot entries; a
+    ``LookaheadOptimizer``'s inner slots and slow weights alike)."""
     named = dict(model.named_parameters())
+    slow = {}
+    while getattr(opt, "inner", None) is not None:
+        for i, p in enumerate(opt.params()):
+            slow.setdefault(p, []).append((opt.slow, i))
+        opt = opt.inner
     for name, spec in specs.items():
         bad = _names(spec) - set(PARAM_AXES)
         if bad:
@@ -385,6 +617,9 @@ def _place(model, opt, specs: Dict[str, tuple], mesh):
         with torch.no_grad():
             p.data = plan_lib.local_shard(p.data, spec, mesh).contiguous() \
                 .clone()
+        for held, i in slow.get(p, ()):
+            held[i] = plan_lib.local_shard(held[i], spec, mesh) \
+                .contiguous().clone()
         if opt is None:
             continue
         slots = opt.state.get(p, {})
@@ -409,16 +644,17 @@ def _params_tree(model):
 def step_rng(mesh, device):
     """One step's random draws on ``device`` (dropout): its default
     generator, for the step, seeded from one draw of the CPU's default
-    generator on stage 0 of this rank's pp group (broadcast over "pp";
-    ``mesh`` None or pp=1: this rank's draw). So every stage of a
-    pipeline draws the same masks, the embeddings' too, whatever the
-    ranks' own generators hold (the reference keeps one dropout key in
-    the replicated train state), and pp=1 draws what pp=n does from the
-    same generator. The ranks' own generators move on by that one draw
-    alone; the data shards keep their own streams."""
+    generator on the first rank of this rank's pp x tp x ep group
+    (broadcast over those axes; ``mesh`` None or none of them live: this
+    rank's draw). So every stage of a pipeline, and every Megatron or
+    expert rank of a data shard, draws the same masks, the embeddings'
+    too, whatever the ranks' own generators hold (the reference keeps one
+    dropout key in the replicated train state), and pp=1 draws what pp=n
+    does from the same generator. The ranks' own generators move on by
+    that one draw alone; the data shards keep their own streams."""
     seed = torch.randint(0, 2 ** 62, (1,), dtype=torch.int64)
-    if mesh is not None and mesh_lib.axis_size(mesh, mesh_lib.PP) > 1:
-        seed = collective.broadcast(seed, mesh_lib.PP, root=0, mesh=mesh)
+    for axis in pf.live_axes(mesh, (mesh_lib.PP, mesh_lib.TP, mesh_lib.EP)):
+        seed = collective.broadcast(seed, axis, root=0, mesh=mesh)
     device = torch.device(device)
     cuda = device.type == "cuda"
     index = (device.index if device.index is not None
@@ -430,9 +666,18 @@ def step_rng(mesh, device):
         yield
 
 
+def _install(model, specs, mesh, batch_spec):
+    """The Megatron roles and the MoE placements of ``model``."""
+    if mesh_lib.axis_size(mesh, mesh_lib.TP) > 1:
+        _install_tp(model, specs, mesh)
+    if _install_experts(model, specs, mesh):
+        _check_token_layout(batch_spec, mesh)
+
+
 def shard_train_step(step, mesh, state: Dict[str, Any], *,
                      plan: Optional[plan_lib.ShardingPlan] = None,
-                     hints: Any = None, batch_spec=BATCH_SPEC):
+                     hints: Any = None, batch_spec=BATCH_SPEC,
+                     regather: bool = True):
     """Put ``step`` (from ``train.build_train_step``) on ``mesh``.
 
     Returns ``(run, placed)``: ``placed`` is ``state`` with every
@@ -446,20 +691,29 @@ def shard_train_step(step, mesh, state: Dict[str, Any], *,
     generator :func:`step_rng` seeds (one per step). The
     optimizer's norms (a clip by norm, the trust ratios of LarsMomentum
     and Lamb) are those of the whole tensors
-    (:meth:`StepSharding.attach`)."""
+    (:meth:`StepSharding.attach`). A ``MoEFeedForward`` runs its experts
+    split over "ep" with the reference's global routing (``nn/moe.py``).
+
+    A ``LookaheadOptimizer`` runs too: its inner optimizer's slots and
+    its slow weights are cut like their parameters, so the pull toward
+    the slow weights stays local. The reference's plan replicates both
+    (``state_specs`` says so, as it does there); the values are the same.
+    An ``ExponentialMovingAverage`` or ``ModelAverage`` made after this
+    call over the placed parameters holds their blocks alike
+    (:func:`gathered_params` with ``values=`` gives them whole).
+
+    ``regather`` (FSDP): the backward gathers a split parameter again
+    instead of keeping the forward's gathered copy (:class:`StepSharding`);
+    False keeps it, the same bits for more memory."""
     if getattr(step, "rebuild", None) is None:
         raise TypeError("shard_train_step needs a step made by "
                         "train.build_train_step")
     plan = plan or plan_lib.replicated_plan()
     model, opt = state["model"], state["opt"]
-    if getattr(opt, "inner", None) is not None:
-        raise NotImplementedError("a wrapped optimizer (Lookahead) is not "
-                                  "sharded yet")
     specs = _param_specs(model, plan, hints, state)
     _place(model, opt, specs, mesh)
-    if mesh_lib.axis_size(mesh, mesh_lib.TP) > 1:
-        _install_tp(model, specs, mesh)
-    sharding = StepSharding(mesh, specs)
+    _install(model, specs, mesh, batch_spec)
+    sharding = StepSharding(mesh, specs, regather=regather)
     sharding.attach(model, opt)
     sharded = step.rebuild(sharding=sharding, cuda_graphs=False)
 
@@ -491,8 +745,7 @@ def shard_eval_step(fn: Callable, mesh, model, *,
     plan = plan or plan_lib.replicated_plan()
     specs = _param_specs(model, plan, hints)
     _place(model, None, specs, mesh)
-    if mesh_lib.axis_size(mesh, mesh_lib.TP) > 1:
-        _install_tp(model, specs, mesh)
+    _install(model, specs, mesh, batch_spec)
     sharding = StepSharding(mesh, specs)
     batch_axes = pf.live_axes(mesh, mesh_lib.BATCH_AXES)
 
@@ -535,14 +788,19 @@ def gather_block(x, spec, mesh):
     return x
 
 
-def gathered_params(model, specs: Dict[str, tuple], mesh
+def gathered_params(model, specs: Dict[str, tuple], mesh,
+                    values: Optional[Mapping[str, torch.Tensor]] = None
                     ) -> Dict[str, torch.Tensor]:
     """Every parameter of a placed ``model`` whole again (``specs`` as
     ``run.specs`` gives them), on every rank: what the unsharded model
-    would hold."""
+    would hold. ``values``, by parameter name, are tensors held like
+    their parameter's block (an average's or the slow weights'), to
+    gather instead."""
     with torch.no_grad():
-        return {n: gather_block(p.detach(), specs.get(n, ()), mesh)
-                for n, p in model.named_parameters()}
+        return {n: gather_block((p if values is None else values[n])
+                                .detach(), specs.get(n, ()), mesh)
+                for n, p in model.named_parameters()
+                if values is None or n in values}
 
 
 class _Constrain(torch.autograd.Function):

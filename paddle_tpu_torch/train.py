@@ -30,6 +30,7 @@ axes). A step with collectives in it runs eagerly: a graphed one raises
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Callable, Dict, Mapping, Optional
 
 import torch
@@ -353,15 +354,19 @@ def build_train_step(
     gradients for less memory. ``cuda_graphs`` captures the step on the
     card (:class:`TrainStepGraphs`). ``sharding`` is a sharded step's
     placement (module docstring): it gives the forward's parameter
-    ``views``, the loss's ``mesh``, the gradient hook ``sync_grads(model)``
-    and ``metrics(dict)``, the metrics over the data axes."""
+    ``views``, what the forward's graph saves of them (``saving()``, a
+    context around each forward), the loss's ``mesh``, the gradient hook
+    ``sync_grads(model)`` and ``metrics(dict)``, the metrics over the
+    data axes."""
     if grad_accum_steps < 1:
         raise ValueError("grad_accum_steps must be >= 1")
     call = _remat_call if remat else _policy_call
     views = sharding.views if sharding is not None else None
 
     def forward_backward(model, batch):
-        out = call(loss_fn, model, policy, batch, views)
+        with (sharding.saving() if sharding is not None
+              else contextlib.nullcontext()):
+            out = call(loss_fn, model, policy, batch, views)
         loss, aux = out if isinstance(out, tuple) else (out, {})
         loss.backward()
         return loss.detach(), {k: v.detach() for k, v in aux.items()}

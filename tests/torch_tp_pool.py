@@ -555,13 +555,14 @@ CLIP_NORM = {"global": 0.1, "tensor": 0.05}
 
 
 def _optimizer(name, params, lr):
-    """An optimizer of the port by name: "adam", "momentum",
+    """An optimizer of the port by name: "adam", "adamw", "momentum",
     "adam_global_clip" (``GradientClipByGlobalNorm``),
     "momentum_global_clip",
     "momentum_norm_clip" (``GradientClipByNorm``), "lamb" or "lars"."""
     from paddle_tpu_torch import optimizer as o
     return {
         "adam": lambda: o.Adam(params, learning_rate=lr),
+        "adamw": lambda: o.AdamW(params, learning_rate=lr),
         "momentum": lambda: o.Momentum(params, learning_rate=lr,
                                        momentum=0.9),
         "adam_global_clip": lambda: o.Adam(
@@ -1374,3 +1375,164 @@ def analysis_collectives(rank, n):
         "collectives": [(c.kind, c.bytes, c.group_size, c.axis)
                         for c in rep.cost.collectives],
     }
+
+
+# -- expert parallelism ("ep") ------------------------------------------------
+
+def moe_net(params, cfg, device="cpu"):
+    """The expert-parallel tests' model: ``MoEFeedForward`` of ``cfg``
+    (d, ff, e, top_k, cf) with a residual and a replicated ``Linear(d,
+    out)`` readout, from the JAX weights ``params`` ({"moe", "readout"})."""
+    import torch
+    from paddle_tpu_torch.models.convert import load_jax
+    from paddle_tpu_torch.nn import Linear
+    from paddle_tpu_torch.nn.moe import MoEFeedForward
+
+    class MoeNet(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.moe = MoEFeedForward(cfg["d"], cfg["ff"], cfg["e"],
+                                      top_k=cfg["top_k"],
+                                      capacity_factor=cfg["cf"],
+                                      router_noise=cfg.get("noise", 0.0),
+                                      device=device)
+            self.readout = Linear(cfg["d"], cfg["out"], sharding=None,
+                                  device=device)
+
+        def forward(self, x, generator=None):
+            y, aux = self.moe(x, generator=generator)
+            return self.readout(x + y), aux
+
+    return load_jax(MoeNet(), params)
+
+
+def moe_loss(m, x, y, generator=None):
+    """MSE + 0.01 ``aux_loss``; the metrics ``aux_loss`` and each
+    expert's count (``count_<e>``)."""
+    out, aux = m(x, generator=generator)
+    loss = ((out - y) ** 2).mean() + 0.01 * aux["aux_loss"]
+    return loss, {"aux_loss": aux["aux_loss"],
+                  **{f"count_{i}": c.float()
+                     for i, c in enumerate(aux["expert_counts"])}}
+
+
+def _wrapped_optimizer(name, params, lr, lookahead=None):
+    """:func:`_optimizer`, wrapped by ``LookaheadOptimizer(**lookahead)``
+    where given."""
+    from paddle_tpu_torch import optimizer as o
+    inner = _optimizer(name, params, lr)
+    return inner if lookahead is None else o.LookaheadOptimizer(
+        inner, **lookahead)
+
+
+def moe_train(rank, n, params, cfg, sizes, batch, steps, opt="adamw",
+              lr=1e-2, plan_name="hints", lookahead=None, average=None,
+              regather=True, noise_seed=None):
+    """``steps`` steps of ``shard_train_step`` on :func:`moe_net` on a
+    mesh of ``sizes``: ``plan_name`` "hints" (the layers' own, experts
+    over "ep") or "fsdp" (``fsdp_plan``, no hints); ``opt`` "adamw" or
+    "momentum", wrapped by ``LookaheadOptimizer(**lookahead)``;
+    ``average`` "ema" or "model_average" made over the placed
+    parameters. Returns the metrics, the parameters (and the slow
+    weights, the average) gathered whole, this rank's last gradients
+    (its blocks), what the last forward's graph saved of the gathered
+    parameters (``StepSharding.saved``) and this rank's expert bytes.
+    With ``noise_seed``, router noise from a generator seeded
+    ``noise_seed + rank`` (every rank its own)."""
+    import torch
+    from paddle_tpu_torch import optimizer as o
+    from paddle_tpu_torch import train
+    from paddle_tpu_torch.nn.module import sharding_specs
+    from paddle_tpu_torch.parallel import api, plan as plan_lib
+    m = moe_net(params, cfg)
+    opt_ = _wrapped_optimizer(opt, m.parameters(), lr, lookahead)
+    step = train.build_train_step(moe_loss, opt_)
+    state = train.make_train_state(m, opt_)
+    plan, hints = ((plan_lib.fsdp_plan(min_size=64), {"params": None})
+                   if plan_name == "fsdp"
+                   else (plan_lib.ShardingPlan(), sharding_specs(m)))
+    run, placed = api.shard_train_step(step, _mesh(n, **sizes), state,
+                                       plan=plan, hints=hints,
+                                       regather=regather)
+    avg = None
+    if average == "ema":
+        avg = o.ExponentialMovingAverage(m.parameters(), decay=0.9)
+    elif average == "model_average":
+        avg = o.ModelAverage(m.parameters())
+    feeds = {k: torch.from_numpy(v) for k, v in batch.items()}
+    if noise_seed is not None:
+        feeds["generator"] = torch.Generator().manual_seed(noise_seed + rank)
+    metrics = []
+    for _ in range(steps):
+        placed, met = run(placed, **feeds)
+        metrics.append({k: float(v) for k, v in met.items()})
+        if avg is not None:
+            avg.update()
+    mesh = run.sharding.mesh
+    names = [k for k, _ in m.named_parameters()]
+    out = {"metrics": metrics,
+           "params": {k: v.numpy() for k, v in
+                      api.gathered_params(m, run.specs, mesh).items()},
+           "specs": run.specs,
+           "expert_bytes": sum(p.numel() * p.element_size()
+                               for k, p in m.named_parameters()
+                               if k.split(".")[-1] in ("w1", "b1", "w2",
+                                                       "b2")),
+           "grads": {k: p.grad.numpy() for k, p in m.named_parameters()
+                     if p.grad is not None},
+           "saved": dict(run.sharding.saved)}
+    if lookahead is not None:
+        out["slow"] = {k: v.numpy() for k, v in api.gathered_params(
+            m, run.specs, mesh, values=dict(zip(names, opt_.slow))).items()}
+    if avg is not None:
+        out["average"] = {k: v.numpy() for k, v in api.gathered_params(
+            m, run.specs, mesh, values=dict(zip(names, avg.apply())))
+            .items()}
+    return out
+
+
+def moe_eval(rank, n, params, cfg, sizes, x):
+    """``shard_eval_step`` of the bare ``MoEFeedForward`` of ``cfg`` (the
+    reference's ``test_ep_sharded``) under its hints on a mesh of
+    ``sizes``: the output, replicated."""
+    import torch
+    from paddle_tpu_torch.models.convert import load_jax
+    from paddle_tpu_torch.nn.module import sharding_specs
+    from paddle_tpu_torch.nn.moe import MoEFeedForward
+    from paddle_tpu_torch.parallel import api
+    m = load_jax(MoEFeedForward(cfg["d"], cfg["ff"], cfg["e"],
+                                top_k=cfg["top_k"],
+                                capacity_factor=cfg["cf"]), params)
+    run, placed = api.shard_eval_step(lambda mod, x: mod(x)[0],
+                                      _mesh(n, **sizes), m,
+                                      hints=sharding_specs(m))
+    return {"y": run(placed, x=torch.from_numpy(x)).numpy(),
+            "w1_local": tuple(placed.w1.shape)}
+
+
+def moe_refusals(rank, n, params, cfg):
+    """The layouts a placed MoE refuses, each error's text: tokens split
+    over "ep", a pipeline over "pp", experts split over "ep" but not
+    their biases."""
+    import torch
+    from paddle_tpu_torch import train
+    from paddle_tpu_torch.nn.module import sharding_specs
+    from paddle_tpu_torch.parallel import api, plan as plan_lib
+    out = {}
+
+    def attempt(label, sizes, **kw):
+        m = moe_net(params, cfg)
+        opt_ = _wrapped_optimizer("momentum", m.parameters(), 1e-2)
+        state = train.make_train_state(m, opt_)
+        kw.setdefault("hints", sharding_specs(m))
+        try:
+            api.shard_train_step(train.build_train_step(moe_loss, opt_),
+                                 _mesh(n, **sizes), state, **kw)
+        except NotImplementedError as e:
+            out[label] = str(e)
+
+    attempt("tokens_over_ep", {"ep": n}, batch_spec=(("dp", "ep"),))
+    attempt("pp", {"pp": 2, "ep": n // 2})
+    attempt("biases_whole", {"ep": n}, plan=plan_lib.ShardingPlan(
+        [(r"moe/b[12]$", None)]))
+    return out
