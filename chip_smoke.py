@@ -242,7 +242,24 @@ Phases, in order; any failure exits non-zero:
        global batch, against one process at that batch: losses and
        aux_loss within 2e-5 (relative), every expert's count exactly,
        the parameters gathered within 1e-4, each rank's expert bytes 1/ep
-       of the layer's; the steps' seconds, each rank's peak memory.
+       of the layer's; the steps' seconds, each rank's peak memory;
+   (h) (g)'s layer and settings on the token layouts after it in the
+       same group: the tokens split over "ep" (GShard's all-to-all) on
+       ep=4 with ``P("ep")`` and on dp=2 x ep=2 with ``P(("dp",
+       "ep"))``, the sequence over "sp" on sp=2 x ep=2
+       (``batch_specs(seq_dim=1)``), and a live "pp" on pp=2 x ep=2 with
+       the MoE outside any stack; (g)'s checks against (g)'s one-process
+       run, and each rank's staged ``all_to_all`` calls and bytes
+       against ``nn/moe.py``'s reckoning (3 exchanges a step of ``E x
+       min(C, n_local) x D x 4`` bytes where "ep" splits the tokens, the
+       layer's input being a feed; none elsewhere), peak memory, seconds;
+   (i) a Switch-Base-8 block in the same group: ``MultiHeadAttention``
+       (12 heads of 64, ``attn_impl="ring"``) and (g)'s MoE, each with
+       its residual, and the readout; fp32, 3 AdamW steps on sp=2 x
+       ep=2 at 4 x 1024 tokens (each rank 4 x 512) against one process
+       with ``attn_impl="auto"``: losses within 1e-4 (relative), and on
+       every rank K5, K6a and K6b launched as (a) reckons (sp blocks a
+       step each: forward, dk/dv, dq).
    Each leg's seconds; tokens/s labelled "gloo on one card: not a
    parallel speed"; either rank failing fails the run.
 9. pipelines (runs after 8) — a pp=2 gloo group of two processes on the
@@ -4079,8 +4096,21 @@ def restore_leg(rank, n, device):
 
 #: (g): 13 (c)'s Switch-Base-8 layer (``SWITCH_BASE``) with a residual and a
 #: ``Linear(d, d)`` readout, loss = MSE + ``MOE_AUX`` x ``aux_loss``, fp32,
-#: AdamW(``MOE_LR``), ``MOE_STEPS`` steps on each mesh of the 4-rank group
-MOE_MESHES = (("dp2_ep2", {"dp": 2, "ep": 2}), ("ep4", {"ep": 4}))
+#: AdamW(``MOE_LR``), ``MOE_STEPS`` steps on each mesh of the 4-rank group:
+#: (label, axis sizes, batch spec: None for the default, "seq" for
+#: ``batch_specs(seq_dim=1)``, else the spec's entries)
+MOE_MESHES = (("dp2_ep2", {"dp": 2, "ep": 2}, None),
+              ("ep4", {"ep": 4}, None))
+#: (h): the same on the token layouts beyond "ep" as a model axis
+MOE_LAYOUTS = (("ep4_tokens", {"ep": 4}, ("ep",)),
+               ("dp2_ep2_tokens", {"dp": 2, "ep": 2}, (("dp", "ep"),)),
+               ("sp2_ep2_seq", {"sp": 2, "ep": 2}, "seq"),
+               ("pp2_ep2", {"pp": 2, "ep": 2}, None))
+#: (i): a block of ring attention (``MOE_BLOCK_HEADS`` heads) and the MoE
+#: on sp=2 x ep=2 at ``MOE_BLOCK_BATCH`` x ``MOE_BLOCK_SEQ`` tokens,
+#: losses within ``MOE_BLOCK_RTOL`` of one process
+MOE_BLOCK_HEADS, MOE_BLOCK_BATCH, MOE_BLOCK_SEQ = 12, 4, 1024
+MOE_BLOCK_SIZES, MOE_BLOCK_RTOL = {"sp": 2, "ep": 2}, 1e-4
 MOE_STEPS, MOE_LR, MOE_AUX = 3, 1e-4, 0.01
 #: against one process at the same global batch: losses (relative) and
 #: the parameters gathered (absolute and relative, as ``_held_params``)
@@ -4145,20 +4175,54 @@ def _expert_bytes(model):
                for k, p in model.moe.named_parameters() if k != "router")
 
 
-def moe_leg(rank, n, device):
-    """(g) on one rank of the 4-rank group: on each mesh of
-    ``MOE_MESHES``, (g)'s model under ``shard_train_step`` with the
-    layer's hints (experts split over "ep"), every rank fed the global
-    batch: the metrics of each step, the steps' seconds and tokens/s,
-    this rank's peak memory and expert-weight bytes beside the whole
-    layer's; rank 0 saves the parameters gathered whole."""
+def _moe_spec(spec, batch):
+    from paddle_tpu_torch.parallel import api
+    if spec is None:
+        return api.BATCH_SPEC
+    if spec == "seq":
+        return api.batch_specs(batch, seq_dim=1)
+    return spec
+
+
+def _a2a_reckoning(sizes, spec, steps):
+    """``nn/moe.py``'s reckoning of (g)'s all-to-alls on a rank over
+    ``steps`` steps: where ``spec`` splits the tokens over "ep", 3 a step
+    (the layer's input is a feed: no gradient goes back through the
+    dispatch) of ``E x min(C, n_local) x D x 4`` bytes, C the global
+    capacity; else none. Staged through the host each counts its bytes
+    twice (out and back)."""
+    c = SWITCH_BASE
+    names = {a for e in (spec if isinstance(spec, tuple) else ())
+             if e is not None for a in ((e,) if isinstance(e, str) else e)}
+    if "ep" not in names:
+        return {"calls": 0, "bytes": 0}
+    shards = int(np.prod([sizes.get(a, 1) for a in names]))
+    n_tok = c["batch"] * c["seq"]
+    cap = max(1, int(c["capacity_factor"] * n_tok * c["top_k"]
+                     / c["experts"]))
+    calls = 3 * steps
+    return {"calls": calls, "bytes": calls * c["experts"]
+            * min(cap, n_tok // shards) * c["d"] * 4}
+
+
+def moe_leg(rank, n, device, meshes=MOE_MESHES):
+    """(g) on one rank of the 4-rank group (``meshes``: (h) with
+    ``MOE_LAYOUTS``): on each mesh, (g)'s model under
+    ``shard_train_step`` with the layer's hints (experts split over "ep")
+    and the mesh's batch spec, every rank fed the global batch: the
+    metrics of each step, the steps' seconds and tokens/s, this rank's
+    peak memory, expert-weight bytes beside the whole layer's, and its
+    all-to-alls (``all_to_all_stats``, and staged through the host);
+    rank 0 saves the parameters gathered whole."""
     from paddle_tpu_torch.nn.module import sharding_specs
     from paddle_tpu_torch.optimizer import AdamW
     from paddle_tpu_torch.parallel import api
+    from paddle_tpu_torch.parallel import collective as C
+    from paddle_tpu_torch.parallel import functional as pf
     from paddle_tpu_torch.train import build_train_step, make_train_state
     c = SWITCH_BASE
     out = {}
-    for label, sizes in MOE_MESHES:
+    for label, sizes, spec in meshes:
         mesh = _par_mesh(device, **sizes)
         _free(device)
         cuda = device.type == "cuda"
@@ -4171,12 +4235,16 @@ def moe_leg(rank, n, device):
         opt = AdamW(model.parameters(), learning_rate=MOE_LR)
         run, state = api.shard_train_step(
             build_train_step(_switch_loss, opt), mesh,
-            make_train_state(model, opt), hints=sharding_specs(model))
+            make_train_state(model, opt), hints=sharding_specs(model),
+            batch_spec=_moe_spec(spec, batch))
+        C.reset_staged_stats()
+        pf.reset_all_to_all_stats()
         t0 = time.monotonic()
         metrics = [{k: float(v) for k, v in run(state, **batch)[1].items()}
                    for _ in range(MOE_STEPS)]
         _sync(device)
         wall = time.monotonic() - t0
+        staged = C.staged_stats()
         peak = torch.cuda.max_memory_allocated() - before if cuda else None
         whole = api.gathered_params(model, run.specs, mesh)
         if rank == 0:
@@ -4186,6 +4254,10 @@ def moe_leg(rank, n, device):
             "metrics": metrics, "steps_s": wall, "peak_bytes": peak,
             "expert_bytes": _expert_bytes(model),
             "expert_bytes_whole": whole_bytes,
+            "all_to_all": pf.all_to_all_stats(),
+            "staged_all_to_all": {
+                k: staged[k].get("all_to_all", 0) for k in staged},
+            "data_axes": run.sharding.data_axes,
             "tokens_per_s_gloo_on_one_card_not_a_parallel_speed":
                 c["batch"] * c["seq"] * MOE_STEPS / wall}
         del run, state, model, opt, whole, batch
@@ -4193,12 +4265,136 @@ def moe_leg(rank, n, device):
     return out
 
 
-def moe_checks(device, ranks):
-    """(g): every rank's metrics and the parameters against (g)'s model
-    and AdamW in this process at the same global batch: losses and
-    ``aux_loss`` within ``MOE_LOSS_RTOL``, every expert's count exactly,
-    the parameters within 1e-4, each rank's expert bytes 1/ep of the
-    layer's."""
+class _SwitchBlock(torch.nn.Module):
+    """(i)'s model: ``MultiHeadAttention`` (d 768, ``MOE_BLOCK_HEADS``
+    heads, ``attn_impl``) and (g)'s MoE, each with its residual, then
+    (g)'s readout."""
+
+    def __init__(self, attn_impl):
+        super().__init__()
+        from paddle_tpu_torch.nn.transformer import MultiHeadAttention
+        self.attn = MultiHeadAttention(SWITCH_BASE["d"], MOE_BLOCK_HEADS,
+                                       attn_impl=attn_impl)
+        self.net = _SwitchNet()
+
+    def forward(self, x):
+        return self.net(x + self.attn(x))
+
+
+def _switch_block(device, attn_impl):
+    """(i)'s model from seed 0 on the CPU, moved to ``device``."""
+    m = _SwitchBlock(attn_impl)
+    gen = torch.Generator().manual_seed(0)
+    m.attn.qkv_proj.reset_parameters(gen)
+    m.attn.out_proj.reset_parameters(gen)
+    m.net.moe.reset_parameters(gen)
+    m.net.readout.reset_parameters(gen)
+    return m.to(device)
+
+
+def _block_loss(m, x, y):
+    out, aux = m(x)
+    loss = ((out - y) ** 2).mean() + MOE_AUX * aux["aux_loss"]
+    return loss, {"aux_loss": aux["aux_loss"]}
+
+
+def _block_batch(model, device):
+    """``MOE_BLOCK_BATCH`` x ``MOE_BLOCK_SEQ`` tokens and a target, the
+    second half of the rows leaning toward expert 0 as (g)'s."""
+    rng = np.random.default_rng(19)
+    x = rng.standard_normal((MOE_BLOCK_BATCH, MOE_BLOCK_SEQ,
+                             SWITCH_BASE["d"])).astype(np.float32)
+    r0 = model.net.moe.router[:, 0].detach().cpu().numpy()
+    x[MOE_BLOCK_BATCH // 2:] += 1.5 * r0 / np.linalg.norm(r0)
+    y = rng.standard_normal(x.shape).astype(np.float32)
+    return {"x": torch.from_numpy(x).to(device),
+            "y": torch.from_numpy(y).to(device)}
+
+
+def moe_block_leg(rank, n, device):
+    """(i) on one rank of the 4-rank group: (i)'s block with
+    ``attn_impl="ring"`` under ``shard_train_step`` on sp=2 x ep=2, the
+    batch over ``batch_specs(seq_dim=1)``: the losses, this rank's
+    K5/K6a/K6b launches and ring blocks by case over the steps (set to 0
+    just before them), its peak memory and the steps' seconds."""
+    from paddle_tpu_torch.kernels import registry
+    from paddle_tpu_torch.nn.module import sharding_specs
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import api
+    from paddle_tpu_torch.parallel import ring_attention as R
+    from paddle_tpu_torch.train import build_train_step, make_train_state
+    mesh = _par_mesh(device, **MOE_BLOCK_SIZES)
+    _free(device)
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+    model = _switch_block(device, "ring")
+    batch = _block_batch(model, device)
+    opt = AdamW(model.parameters(), learning_rate=MOE_LR)
+    run, state = api.shard_train_step(
+        build_train_step(_block_loss, opt), mesh,
+        make_train_state(model, opt), hints=sharding_specs(model),
+        batch_spec=api.batch_specs(batch, seq_dim=1))
+    registry.reset_launches()
+    R.reset_ring_stats()
+    t0 = time.monotonic()
+    metrics = [{k: float(v) for k, v in run(state, **batch)[1].items()}
+               for _ in range(MOE_STEPS)]
+    _sync(device)
+    wall = time.monotonic() - t0
+    out = {"metrics": metrics, "steps_s": wall,
+           "launches": {e.name: e.launches for e in flash_entries()},
+           "cases": R.ring_stats(),
+           "peak_bytes": (torch.cuda.max_memory_allocated() - before
+                          if cuda else None)}
+    del run, state, model, opt, batch
+    _free(device)
+    return out
+
+
+def moe_block_checks(device, ranks):
+    """(i): every rank's losses against (i)'s block with
+    ``attn_impl="auto"`` and AdamW in this process within
+    ``MOE_BLOCK_RTOL``, and each rank's K5, K6a and K6b launches as (a)
+    reckons them: sp ring blocks a step each (non-causal: every block
+    visible), ``MOE_STEPS`` steps."""
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.train import build_train_step, make_train_state
+    model = _switch_block(device, "auto")
+    batch = _block_batch(model, device)
+    opt = AdamW(model.parameters(), learning_rate=MOE_LR)
+    step = build_train_step(_block_loss, opt, cuda_graphs=False)
+    state = make_train_state(model, opt)
+    want = [float(step(state, **batch)[1]["loss"])
+            for _ in range(MOE_STEPS)]
+    del state, model, opt, step, batch
+    _free(device)
+    sp = MOE_BLOCK_SIZES["sp"]
+    reckoned = sp * MOE_STEPS
+    rel = 0.0
+    for rank, row in enumerate(ranks):
+        rel = max(rel, _close([m["loss"] for m in row["metrics"]], want,
+                              MOE_BLOCK_RTOL, 0.0, f"8i rank {rank} loss"))
+        if sorted(row["launches"].values()) != [reckoned] * 3:
+            raise AssertionError(f"8i rank {rank}: launches "
+                                 f"{row['launches']}, want {reckoned} each")
+    return {"losses": [m["loss"] for m in ranks[0]["metrics"]],
+            "losses_one_process": want, "max_rel_err": rel,
+            "launches_ranks": [r["launches"] for r in ranks],
+            "reckoned_each": reckoned,
+            "cases_ranks": [r["cases"] for r in ranks],
+            "peak_bytes_ranks": [r["peak_bytes"] for r in ranks],
+            "steps_s_ranks": [r["steps_s"] for r in ranks]}
+
+
+def moe_checks(device, ranks, meshes=MOE_MESHES):
+    """(g) and (h): every rank's metrics and the parameters on each of
+    ``meshes`` against (g)'s model and AdamW in this process at the same
+    global batch: losses and ``aux_loss`` within ``MOE_LOSS_RTOL``, every
+    expert's count exactly, the parameters within 1e-4, each rank's
+    expert bytes 1/ep of the layer's, its all-to-alls as reckoned
+    (:func:`_a2a_reckoning`; staged through the host on the card)."""
     from paddle_tpu_torch.optimizer import AdamW
     from paddle_tpu_torch.train import build_train_step, make_train_state
     model = _switch_net(device)
@@ -4212,10 +4408,20 @@ def moe_checks(device, ranks):
     del state, model, opt, step, batch
     _free(device)
     out = {"one_process": want}
-    for label, sizes in MOE_MESHES:
+    for label, sizes, spec in meshes:
         rows = [r[label] for r in ranks]
         rel = {}
+        reckoned = _a2a_reckoning(sizes, spec, MOE_STEPS)
         for rank, row in enumerate(rows):
+            staged = row["staged_all_to_all"]
+            if row["all_to_all"] != reckoned or (
+                    device.type == "cuda" and staged != {
+                        "calls": reckoned["calls"],
+                        "bytes": 2 * reckoned["bytes"]}):
+                raise AssertionError(
+                    f"8 {label} rank {rank}: all-to-alls "
+                    f"{row['all_to_all']} (staged {staged}), reckoned "
+                    f"{reckoned}")
             got = row["metrics"]
             for key in ("loss", "aux_loss"):
                 rel[key] = _close([m[key] for m in got],
@@ -4246,6 +4452,11 @@ def moe_checks(device, ranks):
             "expert_bytes_whole": rows[0]["expert_bytes_whole"],
             "peak_bytes_ranks": [r["peak_bytes"] for r in rows],
             "steps_s_ranks": [r["steps_s"] for r in rows],
+            "data_axes": rows[0]["data_axes"],
+            "all_to_all_ranks": [r["all_to_all"] for r in rows],
+            "staged_all_to_all_ranks": [r["staged_all_to_all"]
+                                        for r in rows],
+            "all_to_all_reckoned": reckoned,
             "tokens_per_s_gloo_on_one_card_not_a_parallel_speed":
                 rows[0]["tokens_per_s_gloo_on_one_card_not_a_parallel_"
                         "speed"]}
@@ -4713,6 +4924,8 @@ GROUP_LEGS = {"tp_serve": _tp_legs, "ring": ring_leg,
               "bert_ring": bert_ring_leg, "dp": dp_leg, "tp": tp_leg,
               "local_sgd": local_sgd_leg, "restore": restore_leg,
               "moe": moe_leg,
+              "moe_layouts": functools.partial(moe_leg, meshes=MOE_LAYOUTS),
+              "moe_block": moe_block_leg,
               "pipe_toy": pipe_toy_leg, "pipe_bert": pipe_bert_leg,
               "pipe_gpt": pipe_gpt_leg}
 
@@ -4782,7 +4995,8 @@ def parallel_train(device):
 
     # (a) at sp=4; then the sp=2 group: (a) timed, (b), (c), (d), (e)
     t0 = time.monotonic()
-    four = group_run(4, ("ring", "moe"), device, "8a sp=4 and 8g ep group")
+    four = group_run(4, ("ring", "moe", "moe_layouts", "moe_block"), device,
+                     "8a sp=4 and 8g-8i ep group")
     _check_ring_counts("sp=4", 4, [r["ring"] for r in four])
     # phase 9's pp=2 legs ride this group: one start-up for both phases
     _pipe_dir()
@@ -4900,12 +5114,25 @@ def parallel_train(device):
     log("  8f sharded snapshot: " + json.dumps(stats["snapshot"]))
     del back, whole
 
-    # (g) against one process at the same global batch
-    stats["moe"] = moe_checks(device, [r["moe"] for r in four])
-    for label, _ in MOE_MESHES:
-        log(f"  8g Switch-Base-8 MoE {label} vs one process (gloo on one "
-            "card: not a parallel speed): " + json.dumps(stats["moe"][label]))
-    log(f"  8g took {four[0]['moe']['seconds']:.1f} s on the ranks")
+    # (g) and (h) against one process at the same global batch
+    stats["moe"] = moe_checks(device, [{**r["moe"], **r["moe_layouts"]}
+                                       for r in four],
+                              MOE_MESHES + MOE_LAYOUTS)
+    for (label, _, _), part in zip(MOE_MESHES + MOE_LAYOUTS,
+                                   "g" * len(MOE_MESHES)
+                                   + "h" * len(MOE_LAYOUTS)):
+        log(f"  8{part} Switch-Base-8 MoE {label} vs one process (gloo on "
+            "one card: not a parallel speed): "
+            + json.dumps(stats["moe"][label]))
+    log(f"  8g took {four[0]['moe']['seconds']:.1f} s on the ranks, 8h "
+        f"{four[0]['moe_layouts']['seconds']:.1f} s")
+    # (i) against one process with attn_impl="auto"
+    stats["moe_block"] = moe_block_checks(device,
+                                          [r["moe_block"] for r in four])
+    log("  8i Switch-Base-8 block, ring attention and the MoE on sp=2 x "
+        "ep=2 vs one process: " + json.dumps(stats["moe_block"])
+        + f"; the leg took {four[0]['moe_block']['seconds']:.1f} s on the "
+        "ranks")
     stats["pipe_ranks"] = [{leg: r[leg] for leg in PIPE_LEGS} for r in two]
     stats["tf_pipe_ranks"] = [r["pipe_transformer"] for r in two]
     pipe_s = sum(two[0][leg]["seconds"] for leg in PIPE_LEGS + TF_PIPE_LEGS)
@@ -4916,6 +5143,8 @@ def parallel_train(device):
         "phase": time.monotonic() - t_phase - pipe_s,
         "sp4_ring": four[0]["ring"]["seconds"],
         "moe": four[0]["moe"]["seconds"],
+        "moe_layouts": four[0]["moe_layouts"]["seconds"],
+        "moe_block": four[0]["moe_block"]["seconds"],
         **{leg: two[0][leg]["seconds"] for leg in (
             "ring_timed", "bert_ring", "dp", "tp", "local_sgd")}}
     log(f"  phase 8 took {stats['seconds']['phase']:.1f} s: "

@@ -28,9 +28,11 @@ more than one rank): each rank feeds its own block of ``S/sp`` tokens.
 Positions start at the block's offset in the sequence, the pooled output
 is sp rank 0's first token broadcast to every rank, and the MLM loss is
 the global masked sum over the global mask count; so the losses and the
-pooled output are the unsharded model's on every rank. Over the batch
-axes ("dp", "fsdp") both losses are means over the whole batch
-(``parallel.functional.global_mean``).
+pooled output are the unsharded model's on every rank. Over the axes the
+sharded step's batch spec splits the batch over ("dp", "fsdp", and "ep"
+where it names it: ``parallel.functional.current_token_layout``) both
+losses are means over the whole batch (``parallel.functional.
+global_mean``).
 """
 
 from __future__ import annotations
@@ -312,11 +314,11 @@ class BertForPretraining(nn.Module):
             mlm_loss = (mlm_nll * mlm_mask).sum() / denom
             nsp_loss = nsp_nll.mean()
         else:
-            from paddle_tpu_torch.parallel.functional import global_mean
-            batch = mesh_lib.BATCH_AXES
+            from paddle_tpu_torch.parallel.functional import (
+                current_token_layout, global_mean)
+            batch, seq = current_token_layout()
             mlm_loss = global_mean((mlm_nll * mlm_mask).sum(),
-                                   mlm_mask.sum(), batch + (mesh_lib.SP,),
-                                   mesh)
+                                   mlm_mask.sum(), batch + seq, mesh)
             # every sp rank holds the same sequences' NSP terms
             nsp_loss = global_mean(nsp_nll.sum(), torch.full(
                 (), float(nsp_nll.numel()), device=nsp_nll.device), batch,

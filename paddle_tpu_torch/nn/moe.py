@@ -22,27 +22,47 @@ The expert weights carry a leading E axis with the reference's hints:
 Expert parallelism. ``parallel.api.shard_train_step`` and
 ``shard_eval_step`` give a layer on a mesh its ``placement``
 (:class:`~paddle_tpu_torch.parallel.api.ExpertPlacement`), and the layer
-then computes what the reference's one global ``jax.jit`` computes:
+then computes what the reference's one global ``jax.jit`` computes, under
+every token layout the batch spec gives (``api.token_layout``: dim 0 over
+"dp", "fsdp" and "ep" in the spec's order, dim 1 over "sp"):
 
-- routing is global over the data axes ("dp", "fsdp", which split the
-  batch in mesh order): the capacity comes from the global token count,
-  a token's queue place counts the tokens of the data shards before its
-  own (each choice's routed counts gathered over those axes), and
-  ``aux_loss`` and ``expert_counts`` are sums over the global batch;
-- the layout of tokens over "ep" is the reference's default batch spec:
-  every "ep" rank of a data shard holds that shard's tokens whole, builds
-  their dispatch over all E experts, runs only its own ``E/ep`` experts
-  (its block of ``w1``, ``b1``, ``w2``, ``b2``) and sums the combined
-  output over "ep"; the Megatron pair carries the gradients (the tokens
-  and the gate values enter the experts through ``copy_to``, the output
-  leaves through ``reduce_from``), so the router and everything outside
-  the layer get whole gradients on every "ep" rank. Tokens split over
-  "ep" (GShard's all-to-all layout) are refused;
+- routing is global over the token axes: the capacity C comes from the
+  global token count, and a token's queue place follows the reference's
+  flattened (b, s) order. Each rank's routed counts by row and choice,
+  (B_local, k, E), are gathered over "sp" and their totals over the
+  batch axes, so a token counts every earlier row on all "sp" shards,
+  then its row's earlier "sp" shards, then its own shard's tokens
+  before it. ``aux_loss`` and ``expert_counts`` are global;
+- "ep" as a model axis (the batch spec does not name it): every "ep"
+  rank of a token shard holds its tokens whole, builds their dispatch
+  over its own ``E/ep`` experts, runs them and sums the combined output
+  over "ep"; ``copy_to`` on the tokens and the gate values and
+  ``reduce_from`` on the output make the router's and every replicated
+  gradient whole on every "ep" rank;
+- tokens over "ep" (GShard's all-to-all): the rank builds its tokens'
+  dispatch over all E experts into ``C_send = min(C, n_local)`` packed
+  slots (a token takes at most one slot of an expert, its k choices
+  differ; an expert keeps at most C in all), sends each "ep" rank its
+  block of experts by ``parallel.functional.all_to_all``, runs its
+  ``E/ep`` experts over the ``ep x C_send`` slots that arrive from its
+  group, returns their outputs by the inverse all-to-all and combines
+  locally. Each exchange moves ``E x C_send x D x itemsize`` bytes a
+  rank (its own block included): 4 a layer a step (dispatch and
+  combine, forward and backward), 3 where the layer's input needs no
+  gradient (a feed), 2 in an eval step. The expert blocks' gradients
+  come back whole over the group through the exchange's transpose;
 - experts split over "tp" as well (the hints' ``("ep", None, "tp")``)
-  run Megatron inside each expert: ``w1``/``b1`` by columns, ``w2`` by
-  rows, the partial outputs summed over "tp" before ``b2``;
-- router noise is drawn on each rank and then broadcast over "ep" and
-  "tp", so every rank of a data shard routes alike.
+  run Megatron inside each expert under either layout: ``w1``/``b1`` by
+  columns, ``w2`` by rows, the partial outputs summed over "tp" before
+  ``b2``;
+- an expert tensor the plan keeps whole beside split ones is read as
+  this rank's block (its gradient summed back to the whole tensor);
+- router noise is drawn on each rank and broadcast over the axes whose
+  ranks hold the same tokens ("tp", "pp", and "ep" as a model axis), so
+  ranks with the same tokens route alike and the others draw their own.
+
+Shapes are static (no size depends on the routing), so the step traces
+on fake tensors (the analysis tiers).
 
 On one process (``placement`` None) none of this runs.
 """
@@ -110,55 +130,79 @@ class MoEFeedForward(nn.Module):
         b, s, d = x.shape
         n_tok = b * s
         place = self.placement
-        cap = self.capacity(n_tok * (place.n_data if place else 1))
+        cap = self.capacity(n_tok * (place.n_tokens if place else 1))
         flat = x.reshape(n_tok, d)
         logits = flat @ self.router
         if self.training and self.router_noise > 0 and generator is not None:
             noise = torch.randn(logits.shape, generator=generator,
                                 device=logits.device, dtype=logits.dtype)
             if place:
-                noise = place.same_on_model_axes(noise)
+                noise = place.same_where_tokens_are(noise)
             logits = logits + self.router_noise * noise
         probs = torch.softmax(logits.float(), -1)
         gate_vals, expert_idx = top_k(probs, self.top_k)      # (N, k)
         onehots = F.one_hot(expert_idx, self.e)               # (N, k, E)
-        # each choice's routed count of every expert; placed, also the
-        # counts of the data shards before this one (they queue first)
-        routed = onehots.sum(0)
-        before = torch.zeros_like(routed)
-        lo, hi = 0, self.e
+        # by row and choice, the routed count of every expert, and the
+        # tokens queued ahead of each row (placed: those of the other
+        # shards too, in the reference's (b, s) order)
+        rows = onehots.reshape(b, s, self.top_k, self.e)
         if place:
-            before, routed = place.queue_offsets(routed)
-            lo, hi = place.experts(self.e)
+            before, routed = place.queue_offsets(rows.sum(1))
+        else:
+            routed = rows.sum((0, 1))
+            before = torch.cumsum(rows.sum(1), 0) - rows.sum(1)
+        w1, b1, w2, b2 = place.params(self) if place else (
+            self.w1, self.b1, self.w2, self.b2)
+        lo, hi = place.experts(self.e) if place else (0, self.e)
+        exchange = bool(place and place.exchange)
+        if exchange:
+            # every expert's slots for this rank's tokens, packed: a
+            # token takes at most one slot of an expert (its k choices
+            # differ), and the expert keeps at most ``cap`` in all
+            lo, hi, slots = 0, self.e, min(cap, n_tok)
+            packed = torch.zeros_like(routed[0])
+        else:
+            slots = cap
+        if place:
             gate_vals = place.into_experts(gate_vals)
-        dispatch = x.new_zeros((n_tok, hi - lo, cap))
-        combine = torch.zeros((n_tok, hi - lo, cap), dtype=torch.float32,
+        dispatch = x.new_zeros((n_tok, hi - lo, slots))
+        combine = torch.zeros((n_tok, hi - lo, slots), dtype=torch.float32,
                               device=x.device)
         counts = torch.zeros(self.e, dtype=torch.int64, device=x.device)
         kept = torch.zeros_like(counts)
         for j in range(self.top_k):
             e_j = expert_idx[:, j]
             onehot = onehots[:, j]
-            pos_in_e = torch.cumsum(onehot, dim=0) - 1
-            pos = torch.gather(pos_in_e, 1, e_j[:, None])[:, 0] \
-                + (counts + before[j])[e_j]
-            slot = torch.where(pos < cap, pos, torch.full_like(pos, cap))
+            ahead = (torch.cumsum(rows[:, :, j], 1) - rows[:, :, j]
+                     + before[:, None, j]).reshape(n_tok, self.e)
+            pos = torch.gather(ahead, 1, e_j[:, None])[:, 0] + counts[e_j]
+            keep = pos < cap
+            if exchange:
+                mine = onehot * keep[:, None]
+                pos = torch.gather(torch.cumsum(mine, 0) - mine + packed, 1,
+                                   e_j[:, None])[:, 0]
+                packed = packed + mine.sum(0)
+            slot = torch.where(keep, pos, torch.full_like(pos, slots))
             disp_j = (onehot[:, lo:hi].to(x.dtype)[:, :, None]
-                      * F.one_hot(slot, cap + 1).to(x.dtype)[:, None, :cap])
+                      * F.one_hot(slot, slots + 1).to(x.dtype)[:, None,
+                                                                 :slots])
             dispatch = dispatch + disp_j
             combine = combine + disp_j.float() * gate_vals[:, j, None, None]
-            kept = kept + (onehot * (pos < cap)[:, None]).sum(0)
+            kept = kept + (onehot * keep[:, None]).sum(0)
             counts = counts + routed[j]
         xin = place.into_experts(flat) if place else flat
         xe = torch.einsum("nec,nd->ecd", dispatch, xin)
+        if exchange:
+            xe = place.to_experts(xe)
         if place:
             xe = place.into_expert_columns(xe)
-        h = self.act(torch.einsum("ecd,edf->ecf", xe, self.w1)
-                     + self.b1[:, None, :])
-        ye = torch.einsum("ecf,efd->ecd", h, self.w2)
+        h = self.act(torch.einsum("ecd,edf->ecf", xe, w1) + b1[:, None, :])
+        ye = torch.einsum("ecf,efd->ecd", h, w2)
         if place:
             ye = place.out_of_expert_rows(ye)
-        ye = ye + self.b2[:, None, :]
+        ye = ye + b2[:, None, :]
+        if exchange:
+            ye = place.from_experts(ye)
         y = torch.einsum("nec,ecd->nd", combine.to(x.dtype), ye)
         if place:
             y = place.out_of_experts(y)

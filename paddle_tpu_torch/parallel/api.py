@@ -41,13 +41,21 @@ are explicit:
 - experts ("ep", from a ``MoEFeedForward``'s hints): its expert
   tensors are stored as this rank's ``E/ep`` experts, and the layer
   (:class:`ExpertPlacement`, ``nn/moe.py``) routes globally over the
-  data axes, runs its experts and sums the output over "ep". Like "tp",
-  "ep" is a model axis: the ranks of a data shard hold the same tokens
-  and compute the same loss, and the Megatron pair around the experts
-  makes the gradients of everything replicated over "ep" (the router
-  among them) whole on every rank inside the backward, so the gradient
-  hook still reduces over the data axes alone (and not over "fsdp" for
-  a parameter split over it);
+  axes that split the tokens (:func:`token_layout`: the batch spec's dim
+  0 axes in its order, "sp" on dim 1). Where the batch spec does not
+  name "ep", "ep" is a model axis like "tp": the ranks of a token shard
+  hold the same tokens, each runs its experts, the output is summed over
+  "ep", and the Megatron pair makes every replicated gradient (the
+  router's among them) whole inside the backward. Where it does (GShard's
+  layout, ``P(("dp", "ep"))``), "ep" is a data axis of the step: the
+  tokens reach their experts by an all-to-all, the metrics and the
+  losses' global means run over it (``parallel.functional.token_layout``
+  names it to the loss), and the gradient hook sums over it every
+  gradient but the expert blocks', which the all-to-all's transpose
+  already made whole over the "ep" group (as an FSDP block's
+  reduce-scatter does over "fsdp"). A live "pp" with the MoE outside any
+  stack holds the same tokens on its ranks; a MoE inside a pipelined
+  stack, and a router split over "ep" or "tp", are refused by name;
 - norms: the optimizer's clip by norm and its trust ratios take each
   split parameter's squared sums over the axes it is split over
   (``Optimizer.norm_reduce``), so they are the whole tensors' norms and
@@ -64,10 +72,11 @@ from __future__ import annotations
 import contextlib
 import math
 import weakref
-from typing import Any, Callable, Dict, Mapping, Optional
+from typing import Any, Callable, Dict, Mapping, NamedTuple, Optional
 
 import torch
 import torch.distributed as dist
+from torch._guards import detect_fake_mode
 from torch._subclasses.fake_tensor import is_fake
 
 from paddle_tpu_torch.core import mesh as mesh_lib
@@ -200,25 +209,104 @@ class TpEmbedding:
         return pf.gather_from(out, mesh_lib.TP, self.mesh, -1)
 
 
+class TokenLayout(NamedTuple):
+    """The axes that split a step's tokens, read from its batch spec
+    (:func:`token_layout`): ``batch``, the live axes of dim 0 in the
+    spec's order (major first: ``("dp", "ep")`` is dp-major), and
+    ``seq``, ``("sp",)`` where dim 1 names it (the reference's
+    ``batch_specs(seq_dim=1)``). GSPMD keeps the logical (B, S) array, so
+    the rank holding rows [b0, b1) is fixed by that order."""
+
+    batch: tuple
+    seq: tuple
+
+    @property
+    def axes(self) -> tuple:
+        return self.batch + self.seq
+
+
+def token_layout(batch_spec, mesh) -> TokenLayout:
+    """The :class:`TokenLayout` of ``batch_spec`` (one spec, or a dict of
+    them by feed) on ``mesh``. Feeds whose dim 0 is split over other axes,
+    or in another order, raise ``ValueError`` naming them."""
+    specs = (dict(batch_spec) if isinstance(batch_spec, Mapping)
+             else {"batch": batch_spec})
+    layouts, seq = {}, ()
+    for feed, spec in specs.items():
+        spec = tuple(spec or ())
+        if spec and spec[0] is not None:
+            entry = (spec[0],) if isinstance(spec[0], str) else spec[0]
+            layouts[feed] = pf.live_axes(mesh, entry)
+        if len(spec) > 1 and spec[1] is not None and mesh_lib.SP in (
+                (spec[1],) if isinstance(spec[1], str) else spec[1]):
+            seq = pf.live_axes(mesh, (mesh_lib.SP,))
+    if len(set(layouts.values())) > 1:
+        raise ValueError(f"the feeds split their tokens over different "
+                         f"axes (dim 0 by feed: {layouts}); a step takes "
+                         "one token layout")
+    return TokenLayout(next(iter(layouts.values()), ()), seq)
+
+
+def _major_first(mesh, axes):
+    """This rank's index over ``axes`` (major first) and their size."""
+    idx, n = 0, 1
+    for a in axes:
+        size = mesh_lib.axis_size(mesh, a)
+        idx, n = idx * size + mesh_lib.axis_index(mesh, a), n * size
+    return idx, n
+
+
+class _WholeBlock(torch.autograd.Function):
+    """This rank's block of a tensor every rank holds whole (``cuts``:
+    ``(dim, lo, hi)``); the backward puts the gradient in a zero tensor
+    of the whole shape and sums it over ``axes``."""
+
+    @staticmethod
+    def forward(ctx, t, cuts, axes, mesh):
+        ctx.cuts, ctx.axes, ctx.mesh, ctx.shape = cuts, axes, mesh, t.shape
+        for dim, lo, hi in cuts:
+            t = t.narrow(dim, lo, hi - lo)
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        whole = g.new_zeros(ctx.shape)
+        view = whole
+        for dim, lo, hi in ctx.cuts:
+            view = view.narrow(dim, lo, hi - lo)
+        view.copy_(g)
+        if ctx.axes:
+            whole = collective.all_reduce(whole, ctx.axes, mesh=ctx.mesh)
+        return whole, None, None, None
+
+
 class ExpertPlacement:
     """A ``MoEFeedForward``'s role on a mesh (``nn/moe.py`` says what the
-    layer computes with it): the data axes its routing is global over,
-    the block of experts this rank runs ("ep"), and the Megatron pairs
-    over "ep" and, with ``tp_split``, over "tp" inside each expert."""
+    layer computes with it): the token axes its routing is global over
+    (``layout``), the block of experts this rank runs ("ep"), how the
+    tokens reach them (an all-to-all over "ep" where "ep" splits the
+    tokens, else the Megatron pair over "ep"), and the Megatron pair over
+    "tp" inside each expert (``tp_split``). ``whole``: the expert tensors
+    every rank holds whole, by name, with the ``(axis, dim)`` pairs their
+    block is read over."""
 
-    def __init__(self, mesh, *, ep_split: bool, tp_split: bool):
-        self.mesh = mesh
-        self.data_axes = pf.live_axes(mesh, mesh_lib.BATCH_AXES)
-        self.n_data = math.prod(mesh_lib.axis_size(mesh, a)
-                                for a in self.data_axes)
-        #: this rank's data shard, in the batch's order (dp major)
-        self.shard = 0
-        for a in self.data_axes:
-            self.shard = (self.shard * mesh_lib.axis_size(mesh, a)
-                          + mesh_lib.axis_index(mesh, a))
+    def __init__(self, mesh, layout: TokenLayout, *, ep_split: bool,
+                 tp_split: bool, whole: Optional[Dict[str, tuple]] = None):
+        self.mesh, self.layout = mesh, layout
+        #: this rank's row block (batch axes, major first) and their count
+        self.shard, n_rows = _major_first(mesh, layout.batch)
+        self.seq_index, n_seq = _major_first(mesh, layout.seq)
+        #: ranks holding other tokens: the global count is n_tokens x local
+        self.n_tokens = n_rows * n_seq
         self.ep = mesh_lib.axis_size(mesh, mesh_lib.EP) if ep_split else 1
         self.tp = mesh_lib.axis_size(mesh, mesh_lib.TP) if tp_split else 1
-        self.model_axes = pf.live_axes(mesh, (mesh_lib.EP, mesh_lib.TP))
+        #: the experts' tokens arrive by all-to-all: "ep" splits them
+        self.exchange = self.ep > 1 and mesh_lib.EP in layout.batch
+        #: live axes whose ranks hold the same tokens
+        self.shared_axes = tuple(a for a in pf.live_axes(mesh,
+                                                         mesh_lib.ALL_AXES)
+                                 if a not in layout.axes)
+        self.whole = dict(whole or {})
 
     def experts(self, e: int):
         """``(lo, hi)``: the experts this rank runs."""
@@ -227,41 +315,92 @@ class ExpertPlacement:
             if self.ep > 1 else 0
         return lo, lo + n
 
-    def same_on_model_axes(self, t):
-        """``t`` of the first rank of this rank's "ep" x "tp" group."""
-        for a in self.model_axes:
+    def params(self, layer):
+        """``(w1, b1, w2, b2)`` as this rank runs them: a tensor held whole
+        read as its block (its gradient summed over the axes its block
+        was cut on that hold the same tokens; over a token axis the step's
+        gradient sum does it)."""
+        out = []
+        for name in ("w1", "b1", "w2", "b2"):
+            t = getattr(layer, name)
+            cuts = []
+            for axis, dim in self.whole.get(name, ()):
+                n = t.shape[dim] // mesh_lib.axis_size(self.mesh, axis)
+                lo = mesh_lib.axis_index(self.mesh, axis) * n
+                cuts.append((dim, lo, lo + n))
+            if cuts:
+                t = _WholeBlock.apply(
+                    t, tuple(cuts),
+                    tuple(a for a, _ in self.whole[name]
+                          if a not in self.layout.axes), self.mesh)
+            out.append(t)
+        return out
+
+    def same_where_tokens_are(self, t):
+        """``t`` of the first rank among those holding this rank's tokens
+        (router noise: ranks with other tokens keep their own draws)."""
+        for a in self.shared_axes:
             t = collective.broadcast(t, a, root=0, mesh=self.mesh)
         return t
 
-    def queue_offsets(self, routed):
-        """``routed`` (k, E), this shard's routed count of each choice:
-        ``(before, total)``, the counts of the data shards before this
-        one and of all of them."""
-        if not self.data_axes:
-            return torch.zeros_like(routed), routed
-        every = collective.all_gather(routed[None].contiguous(),
-                                      tuple(reversed(self.data_axes)),
+    def queue_offsets(self, rows):
+        """``rows`` (B_local, k, E): this rank's routed count of each
+        expert by row and choice. Returns ``(before, total)``: by row and
+        choice, the tokens in each expert's queue ahead of the row's
+        first local token in the reference's flattened (b, s) order
+        (every earlier row whole, then this row's earlier "sp" shards),
+        and each choice's global count."""
+        if self.layout.seq:
+            every = collective.all_gather(rows[None].contiguous(),
+                                          self.layout.seq, concat_axis=0,
+                                          mesh=self.mesh)
+            whole = every.sum(0)
+            earlier = every[:self.seq_index].sum(0)
+        else:
+            whole, earlier = rows, torch.zeros_like(rows)
+        before = torch.cumsum(whole, 0) - whole + earlier
+        shard = whole.sum(0)
+        if not self.layout.batch:
+            return before, shard
+        every = collective.all_gather(shard[None].contiguous(),
+                                      tuple(reversed(self.layout.batch)),
                                       concat_axis=0, mesh=self.mesh)
-        return every[:self.shard].sum(0), every.sum(0)
+        return before + every[:self.shard].sum(0), every.sum(0)
 
     def data_sum(self, t):
-        if not self.data_axes:
+        if not self.layout.axes:
             return t
-        return collective.all_reduce(t, self.data_axes, mesh=self.mesh)
+        return collective.all_reduce(t, self.layout.axes, mesh=self.mesh)
 
     def global_mean(self, total, count: int):
-        """``total`` summed over the data axes over the global count (the
+        """``total`` summed over the token axes over the global count (the
         gradient's transpose included)."""
-        return pf.global_mean(total, torch.tensor(float(count),
-                                                  device=total.device),
-                              self.data_axes, self.mesh)
+        # new_full, not torch.tensor: a literal is a constant on fake
+        # tensors, and a trace would run the collective on it
+        return pf.global_mean(total, total.new_full((), float(count)),
+                              self.layout.axes, self.mesh)
 
     def into_experts(self, t):
-        return pf.copy_to(t, mesh_lib.EP, self.mesh) if self.ep > 1 else t
+        """A replicated value entering this rank's experts (ranks of "ep"
+        holding the same tokens)."""
+        if self.ep > 1 and not self.exchange:
+            return pf.copy_to(t, mesh_lib.EP, self.mesh)
+        return t
 
     def out_of_experts(self, t):
-        return pf.reduce_from(t, mesh_lib.EP, self.mesh) if self.ep > 1 \
-            else t
+        if self.ep > 1 and not self.exchange:
+            return pf.reduce_from(t, mesh_lib.EP, self.mesh)
+        return t
+
+    def to_experts(self, xe):
+        """(E, C_send, D), this rank's tokens by expert: each "ep" rank's
+        block of experts sent to it, what arrives from the group
+        concatenated by slot: (E/ep, ep x C_send, D)."""
+        return pf.all_to_all(xe, mesh_lib.EP, self.mesh, 0, 1)
+
+    def from_experts(self, ye):
+        """The inverse: (E/ep, ep x C_send, D) back to (E, C_send, D)."""
+        return pf.all_to_all(ye, mesh_lib.EP, self.mesh, 1, 0)
 
     def into_expert_columns(self, t):
         return pf.copy_to(t, mesh_lib.TP, self.mesh) if self.tp > 1 else t
@@ -271,17 +410,20 @@ class ExpertPlacement:
             else t
 
 
-#: the specs of a MoE layer's expert tensors that ``ExpertPlacement``
-#: runs: (dim split over "ep", dim split over "tp") per tensor, each
-#: split or not as a whole
+#: the dims of a MoE layer's expert tensors that the hints split: (over
+#: "ep", over "tp") per tensor; each tensor is split so on an axis, or
+#: held whole
 _EXPERT_DIMS = {"w1": (0, 2), "b1": (0, 1), "w2": (0, 1), "b2": (0, None)}
 
 
-def _install_experts(model, specs: Dict[str, tuple], mesh) -> int:
+def _install_experts(model, specs: Dict[str, tuple], mesh,
+                     layout: TokenLayout) -> int:
     """Give every ``MoEFeedForward`` of ``model`` its
     :class:`ExpertPlacement` on ``mesh`` (where the mesh has a live axis);
     returns how many it placed. A layout the placement does not run
-    raises ``NotImplementedError`` naming it."""
+    raises ``NotImplementedError`` naming it: a MoE inside a stack on a
+    pipeline, a router split over "ep" or "tp", an expert tensor split on
+    another dim than the hints'."""
     from paddle_tpu_torch.nn.module import layer_modules
     from paddle_tpu_torch.nn.moe import MoEFeedForward
     live = pf.live_axes(mesh, mesh_lib.ALL_AXES)
@@ -289,58 +431,44 @@ def _install_experts(model, specs: Dict[str, tuple], mesh) -> int:
     for name, mod, stacked in layer_modules(model):
         if not isinstance(mod, MoEFeedForward) or not live:
             continue
-        for axis, what in ((mesh_lib.SP, "the sequence split over 'sp'"),
-                           (mesh_lib.PP, "a pipeline over 'pp'")):
-            if axis in live:
-                raise NotImplementedError(
-                    f"{name}: a MoEFeedForward under {what} is not "
-                    "supported (its routing is global over the batch "
-                    "axes dp and fsdp)")
+        if stacked and mesh_lib.PP in live:
+            raise NotImplementedError(
+                f"{name}: a MoEFeedForward inside a pipelined stack is not "
+                "supported (the reference's pipeline body routes each "
+                "microbatch on its own and returns no aux_loss)")
 
         def spec(p):
             got = specs.get(f"{name}.{p}".lstrip("."), ())
             return got[1:] if stacked else got
 
-        ep_dims = {p: _dim_naming(spec(p), mesh_lib.EP) for p in _EXPERT_DIMS}
-        tp_dims = {p: _dim_naming(spec(p), mesh_lib.TP) for p in _EXPERT_DIMS}
-        ep_split = ep_dims["w1"] is not None and mesh_lib.EP in live
-        tp_split = tp_dims["w1"] is not None and mesh_lib.TP in live
-        want_ep = {p: d[0] if ep_split else None
-                   for p, d in _EXPERT_DIMS.items()}
-        want_tp = {p: d[1] if tp_split else None
-                   for p, d in _EXPERT_DIMS.items()}
-        router = _names(spec("router")) & {mesh_lib.EP, mesh_lib.TP}
-        if (ep_split and ep_dims != want_ep) or (tp_split
-                                                 and tp_dims != want_tp) \
-                or router:
-            split = {f"{name}.{p}": spec(p)
-                     for p in ("router", *_EXPERT_DIMS)}
+        split = {f"{name}.{p}".lstrip("."): spec(p)
+                 for p in ("router", *_EXPERT_DIMS)}
+        if _names(spec("router")) & {mesh_lib.EP, mesh_lib.TP}:
             raise NotImplementedError(
-                f"MoE experts split as {split} are "
-                "not supported: w1, b1, w2, b2 split over 'ep' on dim 0 "
-                "together, over 'tp' as the hints split them (w1/b1 "
-                "columns, w2 rows, b2 whole) together, the router "
-                "replicated over both")
-        mod.placement = ExpertPlacement(mesh, ep_split=ep_split,
-                                        tp_split=tp_split)
+                f"MoE router split as {spec('router')} is not supported: "
+                f"the router is replicated over 'ep' and 'tp' ({split})")
+        split_on, whole = {}, {}
+        for i, axis in enumerate((mesh_lib.EP, mesh_lib.TP)):
+            dims = {p: _dim_naming(spec(p), axis) for p in _EXPERT_DIMS}
+            if any(d is not None and d != _EXPERT_DIMS[p][i]
+                   for p, d in dims.items()):
+                raise NotImplementedError(
+                    f"MoE experts split as {split} are not supported: "
+                    f"over {axis!r} each of w1, b1, w2, b2 is split on the "
+                    "dim its hint names (ep: dim 0; tp: w1/b1 columns, w2 "
+                    "rows, b2 whole) or held whole")
+            split_on[axis] = axis in live and any(
+                d is not None for d in dims.values())
+            for p, d in dims.items():
+                if split_on[axis] and d is None \
+                        and _EXPERT_DIMS[p][i] is not None:
+                    whole[p] = whole.get(p, ()) + ((axis,
+                                                    _EXPERT_DIMS[p][i]),)
+        mod.placement = ExpertPlacement(
+            mesh, layout, ep_split=split_on[mesh_lib.EP],
+            tp_split=split_on[mesh_lib.TP], whole=whole)
         placed += 1
     return placed
-
-
-def _check_token_layout(batch_spec, mesh):
-    """A placed MoE takes the batch split over the data axes only: every
-    "ep" (and "tp") rank of a data shard holds its tokens whole."""
-    specs = batch_spec.values() if isinstance(batch_spec, Mapping) \
-        else [batch_spec]
-    for spec in specs:
-        bad = _names(spec) & set(pf.live_axes(mesh, (mesh_lib.EP,
-                                                     mesh_lib.TP)))
-        if bad:
-            raise NotImplementedError(
-                f"a batch split over {sorted(bad)} beside a placed "
-                "MoEFeedForward (tokens split over 'ep', GShard's "
-                "all-to-all layout) is not supported: split it over dp "
-                "and fsdp")
 
 
 def _install_tp(model, specs: Dict[str, tuple], mesh):
@@ -440,15 +568,20 @@ class StepSharding:
     holds in their place (``"blocks"``)."""
 
     def __init__(self, mesh, specs: Dict[str, tuple], *,
-                 regather: bool = True):
+                 regather: bool = True,
+                 layout: Optional[TokenLayout] = None):
         self.mesh = mesh
+        #: the axes that split the tokens (the batch spec's)
+        self.layout = layout or token_layout(BATCH_SPEC, mesh)
         self.specs = specs
         self.regather = regather
         #: data_ptr of a gathered parameter's storage -> (a weak reference
         #: to it, its block, the gathered dim), for the forward in flight
         self._gathered: Dict[int, tuple] = {}
         self.saved = {"gathered": 0, "blocks": 0}
-        self.data_axes = pf.live_axes(mesh, pf.DATA_AXES)
+        # "ep" splitting the tokens (GShard's layout) is a data axis too
+        self.data_axes = pf.live_axes(mesh, pf.DATA_AXES) + tuple(
+            a for a in (mesh_lib.EP,) if a in self.layout.axes)
         self.n_data = math.prod(mesh_lib.axis_size(mesh, a)
                                 for a in self.data_axes)
         fsdp = pf.live_axes(mesh, (mesh_lib.FSDP,))
@@ -456,6 +589,10 @@ class StepSharding:
                           for n, s in specs.items()
                           if fsdp and _dim_naming(s, mesh_lib.FSDP)
                           is not None}
+        #: parameters split over "ep": their gradients arrive whole over
+        #: it (through the all-to-all's transpose)
+        self.ep_split = {n for n, s in specs.items()
+                         if mesh_lib.EP in _names(s)}
         live = pf.live_axes(mesh, mesh_lib.ALL_AXES)
         #: the backend of the step's collectives (None: it holds none)
         self.backend = (dist.get_backend(mesh.get_group(live[0]))
@@ -551,8 +688,9 @@ class StepSharding:
     def sync_grads(self, model):
         """Average every gradient over the data axes: a sum over the
         axes it was not yet summed over (an FSDP block's reduce-scatter
-        summed it over "fsdp"), one all-reduce per bucket, then a
-        division by the data axes' ranks."""
+        summed it over "fsdp", an expert block's all-to-all over a
+        token-splitting "ep"), one all-reduce per bucket, then a division
+        by the data axes' ranks."""
         if not self.data_axes:
             return
         buckets: Dict[tuple, list] = {}
@@ -561,7 +699,9 @@ class StepSharding:
                 continue
             axes = tuple(a for a in self.data_axes
                          if not (a == mesh_lib.FSDP
-                                 and name in self.fsdp_dims))
+                                 and name in self.fsdp_dims)
+                         and not (a == mesh_lib.EP
+                                  and name in self.ep_split))
             buckets.setdefault((axes, p.grad.dtype, p.grad.device),
                                []).append(p.grad)
         for (axes, _, _), grads in buckets.items():
@@ -641,20 +781,27 @@ def _params_tree(model):
 
 
 @contextlib.contextmanager
-def step_rng(mesh, device):
+def step_rng(mesh, device, layout: Optional[TokenLayout] = None):
     """One step's random draws on ``device`` (dropout): its default
     generator, for the step, seeded from one draw of the CPU's default
     generator on the first rank of this rank's pp x tp x ep group
-    (broadcast over those axes; ``mesh`` None or none of them live: this
-    rank's draw). So every stage of a pipeline, and every Megatron or
-    expert rank of a data shard, draws the same masks, the embeddings'
-    too, whatever the ranks' own generators hold (the reference keeps one
-    dropout key in the replicated train state), and pp=1 draws what pp=n
-    does from the same generator. The ranks' own generators move on by
-    that one draw alone; the data shards keep their own streams."""
+    (broadcast over those axes, less any that splits the tokens under
+    ``layout``; ``mesh`` None or none of them live: this rank's draw). So
+    every stage of a pipeline, and every Megatron or expert rank holding
+    the same tokens, draws the same masks, the embeddings' too, whatever
+    the ranks' own generators hold (the reference keeps one dropout key
+    in the replicated train state), and pp=1 draws what pp=n does from
+    the same generator. The ranks' own generators move on by that one
+    draw alone; the data shards keep their own streams. In a trace on
+    fake tensors (the analysis tiers) nothing is drawn."""
+    if detect_fake_mode() is not None:
+        yield
+        return
     seed = torch.randint(0, 2 ** 62, (1,), dtype=torch.int64)
+    split = layout.axes if layout is not None else ()
     for axis in pf.live_axes(mesh, (mesh_lib.PP, mesh_lib.TP, mesh_lib.EP)):
-        seed = collective.broadcast(seed, axis, root=0, mesh=mesh)
+        if axis not in split:
+            seed = collective.broadcast(seed, axis, root=0, mesh=mesh)
     device = torch.device(device)
     cuda = device.type == "cuda"
     index = (device.index if device.index is not None
@@ -666,12 +813,25 @@ def step_rng(mesh, device):
         yield
 
 
-def _install(model, specs, mesh, batch_spec):
-    """The Megatron roles and the MoE placements of ``model``."""
+def _install(model, specs, mesh, batch_spec) -> TokenLayout:
+    """The Megatron roles and the MoE placements of ``model``; returns the
+    batch spec's token layout."""
+    layout = token_layout(batch_spec, mesh)
     if mesh_lib.axis_size(mesh, mesh_lib.TP) > 1:
         _install_tp(model, specs, mesh)
-    if _install_experts(model, specs, mesh):
-        _check_token_layout(batch_spec, mesh)
+    if _install_experts(model, specs, mesh, layout):
+        for spec in (batch_spec.values() if isinstance(batch_spec, Mapping)
+                     else [batch_spec]):
+            bad = {a for dim, entry in enumerate(spec or ())
+                   for a in _names((entry,))
+                   if a in pf.live_axes(mesh, (mesh_lib.TP, mesh_lib.PP))
+                   or (a == mesh_lib.SP and dim != 1)}
+            if bad:
+                raise NotImplementedError(
+                    f"a batch split as {tuple(spec)} beside a placed "
+                    "MoEFeedForward is not supported: its tokens split "
+                    "over dp, fsdp and ep on dim 0 and over sp on dim 1")
+    return layout
 
 
 def shard_train_step(step, mesh, state: Dict[str, Any], *,
@@ -692,7 +852,9 @@ def shard_train_step(step, mesh, state: Dict[str, Any], *,
     optimizer's norms (a clip by norm, the trust ratios of LarsMomentum
     and Lamb) are those of the whole tensors
     (:meth:`StepSharding.attach`). A ``MoEFeedForward`` runs its experts
-    split over "ep" with the reference's global routing (``nn/moe.py``).
+    split over "ep" with the reference's global routing over the axes
+    the batch spec splits the tokens over (``nn/moe.py``; tokens over
+    "ep" reach their experts by an all-to-all).
 
     A ``LookaheadOptimizer`` runs too: its inner optimizer's slots and
     its slow weights are cut like their parameters, so the pull toward
@@ -712,15 +874,16 @@ def shard_train_step(step, mesh, state: Dict[str, Any], *,
     model, opt = state["model"], state["opt"]
     specs = _param_specs(model, plan, hints, state)
     _place(model, opt, specs, mesh)
-    _install(model, specs, mesh, batch_spec)
-    sharding = StepSharding(mesh, specs, regather=regather)
+    layout = _install(model, specs, mesh, batch_spec)
+    sharding = StepSharding(mesh, specs, regather=regather, layout=layout)
     sharding.attach(model, opt)
     sharded = step.rebuild(sharding=sharding, cuda_graphs=False)
 
     device = next(model.parameters()).device
 
     def run_local(state, **batch):
-        with step_rng(mesh, device):
+        with step_rng(mesh, device, layout), \
+                pf.token_layout(layout.batch, layout.seq):
             return sharded(state, **batch)
 
     def run(state, **batch):
@@ -739,15 +902,16 @@ def shard_eval_step(fn: Callable, mesh, model, *,
     placed)`` with ``placed`` the model cut to this rank's blocks (in
     place); ``run(model, **batch)`` takes the global batch, runs ``fn``
     on this rank's block without gradients and returns ``out``
-    replicated: tensors gathered over the batch axes along dim 0, 0-d
-    values averaged over the data axes."""
+    replicated: tensors gathered along dim 0 over the axes the batch
+    spec splits it over (in its order), 0-d values averaged over the data
+    axes."""
     from paddle_tpu_torch.train import _policy_call
     plan = plan or plan_lib.replicated_plan()
     specs = _param_specs(model, plan, hints)
     _place(model, None, specs, mesh)
-    _install(model, specs, mesh, batch_spec)
-    sharding = StepSharding(mesh, specs)
-    batch_axes = pf.live_axes(mesh, mesh_lib.BATCH_AXES)
+    layout = _install(model, specs, mesh, batch_spec)
+    sharding = StepSharding(mesh, specs, layout=layout)
+    batch_axes = layout.batch
 
     def replicate(out):
         if isinstance(out, dict):
@@ -764,7 +928,8 @@ def shard_eval_step(fn: Callable, mesh, model, *,
         return out
 
     def run(model, **batch):
-        with torch.no_grad(), mesh_lib.mesh_context(mesh):
+        with torch.no_grad(), mesh_lib.mesh_context(mesh), \
+                pf.token_layout(layout.batch, layout.seq):
             out = _policy_call(fn, model, None,
                                local_batch(batch, mesh, batch_spec),
                                sharding.views)

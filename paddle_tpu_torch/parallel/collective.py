@@ -273,10 +273,13 @@ def all_to_all(x: torch.Tensor, axis: str = mesh_lib.EP, *,
         return torch.cat(list(parts.unbind(0)), dim=concat_axis)
     dev = _stage("all_to_all", x, g, mesh)
     src = x if dev is None else _to_host(x)
-    send = [c.contiguous() for c in src.chunk(n, dim=split_axis)]
-    recv = [torch.empty_like(c) for c in send]
-    dist.all_to_all(recv, send, group=g)
-    out = torch.cat(recv, dim=concat_axis)
+    # the single-buffer form (chunks along dim 0): gloo runs it, where
+    # some releases refuse the list form
+    send = src.movedim(split_axis, 0).contiguous()
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=g)
+    out = torch.cat([c.movedim(0, split_axis) for c in recv.chunk(n, 0)],
+                    dim=concat_axis)
     if dev is not None:
         _note_staged("all_to_all", src.nbytes + out.nbytes)
         out = out.to(dev)

@@ -19,6 +19,12 @@ Two conventions, one per kind of axis:
   :func:`gather_from` (all-gather forward, this rank's slice backward)
   where a column-split output feeds a replicated layer.
 
+:func:`all_to_all` (GShard's expert exchange) is its own transpose with
+the split and concat dims swapped; it counts its calls and bytes
+(:func:`all_to_all_stats`). :func:`token_layout` names, while a sharded
+step runs, the axes that split its tokens, for the losses' global means
+(:func:`current_token_layout`).
+
 Each op runs over the mesh's process group of its axis (``collective``),
 so the mesh's ``stage_cuda_through_host`` switch applies to the ops
 gloo cannot run on CUDA tensors.
@@ -26,7 +32,9 @@ gloo cannot run on CUDA tensors.
 
 from __future__ import annotations
 
-from typing import Sequence
+import contextlib
+import threading
+from typing import Sequence, Tuple
 
 import torch
 
@@ -35,6 +43,27 @@ from paddle_tpu_torch.parallel import collective
 
 #: axes over which ranks hold different data
 DATA_AXES = (mesh_lib.DP, mesh_lib.FSDP, mesh_lib.SP)
+
+_layout = threading.local()
+
+
+@contextlib.contextmanager
+def token_layout(batch_axes: Sequence[str], seq_axes: Sequence[str]):
+    """While a sharded step runs: the axes that split its batch dim (in
+    the spec's order, major first) and its sequence dim."""
+    prev = getattr(_layout, "axes", None)
+    _layout.axes = (tuple(batch_axes), tuple(seq_axes))
+    try:
+        yield
+    finally:
+        _layout.axes = prev
+
+
+def current_token_layout() -> Tuple[tuple, tuple]:
+    """``(batch_axes, seq_axes)`` of the running sharded step; outside one,
+    the default batch spec's: ``(("dp", "fsdp"), ("sp",))``."""
+    return getattr(_layout, "axes", None) or (mesh_lib.BATCH_AXES,
+                                              (mesh_lib.SP,))
 
 
 def live_axes(mesh, axes: Sequence[str]) -> tuple:
@@ -153,3 +182,50 @@ def gather_from(x, axis: str, mesh, dim: int = -1, disjoint: bool = False):
     uses its own part of it (the attention's local heads), the sum of
     the ranks' gradients and then this rank's slice (a reduce-scatter)."""
     return _GatherFrom.apply(x, mesh, axis, dim % x.ndim, disjoint)
+
+
+_a2a_lock = threading.Lock()
+_a2a = {"calls": 0, "bytes": 0}
+
+
+def all_to_all_stats() -> dict:
+    """:func:`all_to_all` since the last reset, forward and backward:
+    ``{"calls": n, "bytes": n}``, the bytes of the buffers each call
+    sent (its input, this rank's own chunk included)."""
+    with _a2a_lock:
+        return dict(_a2a)
+
+
+def reset_all_to_all_stats():
+    with _a2a_lock:
+        _a2a.update(calls=0, bytes=0)
+
+
+def _exchange(x, mesh, axis, split_dim, concat_dim):
+    with _a2a_lock:
+        _a2a["calls"] += 1
+        _a2a["bytes"] += x.numel() * x.element_size()
+    return collective.all_to_all(x.contiguous(), axis, split_axis=split_dim,
+                                 concat_axis=concat_dim, mesh=mesh)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, split_dim, concat_dim):
+        ctx.mesh, ctx.axis, ctx.dims = mesh, axis, (split_dim, concat_dim)
+        return _exchange(x, mesh, axis, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        split_dim, concat_dim = ctx.dims
+        return (_exchange(g, ctx.mesh, ctx.axis, concat_dim, split_dim),
+                None, None, None, None)
+
+
+def all_to_all(x, axis: str, mesh, split_dim: int, concat_dim: int):
+    """``x`` cut into axis-size chunks along ``split_dim``, chunk ``i`` to
+    member ``i``, the chunks received concatenated along ``concat_dim``
+    in member order; the backward is the inverse exchange of the
+    gradient (the dims swapped)."""
+    return _AllToAll.apply(x, mesh, axis, split_dim % x.ndim,
+                           concat_dim % x.ndim)

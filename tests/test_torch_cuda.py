@@ -1490,6 +1490,30 @@ def test_tp_entries_on_a_head_slice_match_plain_and_the_full_kernel(dev,
     torch.testing.assert_close(got, full[..., lo:, :], atol=atol, rtol=rtol)
 
 
+def test_staged_all_to_all_on_the_card(dev):
+    """F13: two ranks on ``cuda:0`` over gloo with the staging switch:
+    ``collective.all_to_all`` sends chunk ``i`` of dim 0 to rank ``i``
+    and concatenates what arrives on dim 2 in rank order, the inverse
+    gives each rank its own tensor back, and each call is staged once
+    (gloo's list-form ``alltoall`` is refused by some torch releases)."""
+    import sys
+    sys.path.insert(0, str(__import__("pathlib").Path(__file__).parent))
+    from torch_tp_pool import TpPool
+    pool = TpPool(2)
+    try:
+        res = pool.run("all_to_all_exchange", timeout_s=120,
+                       device="cuda:0")
+    finally:
+        pool.close()
+    for r, got in enumerate(res):
+        want = np.concatenate([res[j]["x"][r:r + 1] for j in range(2)],
+                              axis=2)
+        np.testing.assert_array_equal(got["there"], want)
+        np.testing.assert_array_equal(got["back"], got["x"])
+        assert got["staged"]["calls"] == {"all_to_all": 2}
+        assert got["staged"]["bytes"] == {"all_to_all": 4 * got["x"].nbytes}
+
+
 def test_a_graphed_tp_engine_is_refused_on_the_card(dev):
     from paddle_tpu_torch.models.gpt import GPT, GPTConfig
     from paddle_tpu_torch.serving.engine import ServingEngine

@@ -720,6 +720,26 @@ def staging(rank, n):
     return out
 
 
+def all_to_all_exchange(rank, n, device="cpu"):
+    """``collective.all_to_all`` of this rank's (n, 3, n * 2) tensor of
+    ``rank * 1000 + arange`` on a gloo mesh of ``device`` (on CUDA with
+    the staging switch): split dim 0 / concat dim 2 and the inverse,
+    the staged calls and bytes."""
+    import torch
+    from paddle_tpu_torch.core import mesh as mesh_lib
+    from paddle_tpu_torch.parallel import collective as C
+    m = mesh_lib.make_mesh(mesh_lib.MeshConfig(ep=n),
+                           device_type=torch.device(device).type,
+                           stage_cuda_through_host=True)
+    x = (rank * 1000 + torch.arange(n * 3 * n * 2, dtype=torch.float32)
+         ).reshape(n, 3, n * 2).to(device)
+    C.reset_staged_stats()
+    there = C.all_to_all(x, "ep", split_axis=0, concat_axis=2, mesh=m)
+    back = C.all_to_all(there, "ep", split_axis=2, concat_axis=0, mesh=m)
+    return {"x": x.cpu().numpy(), "there": there.cpu().numpy(),
+            "back": back.cpu().numpy(), "staged": C.staged_stats()}
+
+
 def _toy_params():
     rng = np.random.default_rng(0)
     return {"layers": {
@@ -1382,15 +1402,22 @@ def analysis_collectives(rank, n):
 def moe_net(params, cfg, device="cpu"):
     """The expert-parallel tests' model: ``MoEFeedForward`` of ``cfg``
     (d, ff, e, top_k, cf) with a residual and a replicated ``Linear(d,
-    out)`` readout, from the JAX weights ``params`` ({"moe", "readout"})."""
+    out)`` readout, from the JAX weights ``params`` ({"moe", "readout"});
+    with ``cfg["heads"]``, a ring-attention block before it (``attn``,
+    ``MultiHeadAttention(attn_impl="ring")``, with its residual)."""
     import torch
     from paddle_tpu_torch.models.convert import load_jax
     from paddle_tpu_torch.nn import Linear
     from paddle_tpu_torch.nn.moe import MoEFeedForward
+    from paddle_tpu_torch.nn.transformer import MultiHeadAttention
 
     class MoeNet(torch.nn.Module):
         def __init__(self):
             super().__init__()
+            if cfg.get("heads"):
+                self.attn = MultiHeadAttention(cfg["d"], cfg["heads"],
+                                               attn_impl="ring",
+                                               device=device)
             self.moe = MoEFeedForward(cfg["d"], cfg["ff"], cfg["e"],
                                       top_k=cfg["top_k"],
                                       capacity_factor=cfg["cf"],
@@ -1400,6 +1427,8 @@ def moe_net(params, cfg, device="cpu"):
                                   device=device)
 
         def forward(self, x, generator=None):
+            if cfg.get("heads"):
+                x = x + self.attn(x)
             y, aux = self.moe(x, generator=generator)
             return self.readout(x + y), aux
 
@@ -1425,49 +1454,79 @@ def _wrapped_optimizer(name, params, lr, lookahead=None):
         inner, **lookahead)
 
 
+def _spec(entries):
+    """A spec sent over the pool's pipe (lists) as the port takes it."""
+    if entries is None:
+        return None
+    return tuple(tuple(e) if isinstance(e, list) else e for e in entries)
+
+
+def _moe_batch_spec(batch_spec, feeds):
+    """``batch_spec``: None (the default, dim 0 over dp and fsdp), "seq"
+    (``batch_specs(seq_dim=1)``) or one spec for every feed."""
+    from paddle_tpu_torch.parallel import api
+    if batch_spec is None:
+        return api.BATCH_SPEC
+    if batch_spec == "seq":
+        return api.batch_specs(feeds, seq_dim=1)
+    return _spec(batch_spec)
+
+
+def _moe_plan(plan_name, plan_rules, m):
+    from paddle_tpu_torch.nn.module import sharding_specs
+    from paddle_tpu_torch.parallel import plan as plan_lib
+    if plan_name == "fsdp":
+        return plan_lib.fsdp_plan(min_size=64), {"params": None}
+    rules = [(pat, _spec(sp)) for pat, sp in plan_rules or ()]
+    return plan_lib.ShardingPlan(rules), sharding_specs(m)
+
+
 def moe_train(rank, n, params, cfg, sizes, batch, steps, opt="adamw",
               lr=1e-2, plan_name="hints", lookahead=None, average=None,
-              regather=True, noise_seed=None):
+              regather=True, noise_seed=None, batch_spec=None,
+              plan_rules=None):
     """``steps`` steps of ``shard_train_step`` on :func:`moe_net` on a
     mesh of ``sizes``: ``plan_name`` "hints" (the layers' own, experts
-    over "ep") or "fsdp" (``fsdp_plan``, no hints); ``opt`` "adamw" or
-    "momentum", wrapped by ``LookaheadOptimizer(**lookahead)``;
-    ``average`` "ema" or "model_average" made over the placed
-    parameters. Returns the metrics, the parameters (and the slow
-    weights, the average) gathered whole, this rank's last gradients
+    over "ep", under ``plan_rules`` first) or "fsdp" (``fsdp_plan``, no
+    hints); ``opt`` "adamw" or "momentum", wrapped by
+    ``LookaheadOptimizer(**lookahead)``; ``average`` "ema" or
+    "model_average" made over the placed parameters; ``batch_spec`` as
+    :func:`_moe_batch_spec`. Returns the metrics, the parameters (and the
+    slow weights, the average) gathered whole, this rank's last gradients
     (its blocks), what the last forward's graph saved of the gathered
-    parameters (``StepSharding.saved``) and this rank's expert bytes.
-    With ``noise_seed``, router noise from a generator seeded
-    ``noise_seed + rank`` (every rank its own)."""
+    parameters (``StepSharding.saved``), this rank's expert bytes, and
+    the all-to-alls of the last step (``all_to_all_stats``). With
+    ``noise_seed``, router noise from a generator seeded ``noise_seed +
+    rank`` (every rank its own)."""
     import torch
     from paddle_tpu_torch import optimizer as o
     from paddle_tpu_torch import train
-    from paddle_tpu_torch.nn.module import sharding_specs
-    from paddle_tpu_torch.parallel import api, plan as plan_lib
+    from paddle_tpu_torch.parallel import api
+    from paddle_tpu_torch.parallel import functional as pf
     m = moe_net(params, cfg)
     opt_ = _wrapped_optimizer(opt, m.parameters(), lr, lookahead)
     step = train.build_train_step(moe_loss, opt_)
     state = train.make_train_state(m, opt_)
-    plan, hints = ((plan_lib.fsdp_plan(min_size=64), {"params": None})
-                   if plan_name == "fsdp"
-                   else (plan_lib.ShardingPlan(), sharding_specs(m)))
-    run, placed = api.shard_train_step(step, _mesh(n, **sizes), state,
-                                       plan=plan, hints=hints,
-                                       regather=regather)
+    plan, hints = _moe_plan(plan_name, plan_rules, m)
+    feeds = {k: torch.from_numpy(v) for k, v in batch.items()}
+    run, placed = api.shard_train_step(
+        step, _mesh(n, **sizes), state, plan=plan, hints=hints,
+        regather=regather, batch_spec=_moe_batch_spec(batch_spec, feeds))
     avg = None
     if average == "ema":
         avg = o.ExponentialMovingAverage(m.parameters(), decay=0.9)
     elif average == "model_average":
         avg = o.ModelAverage(m.parameters())
-    feeds = {k: torch.from_numpy(v) for k, v in batch.items()}
     if noise_seed is not None:
         feeds["generator"] = torch.Generator().manual_seed(noise_seed + rank)
     metrics = []
     for _ in range(steps):
+        pf.reset_all_to_all_stats()
         placed, met = run(placed, **feeds)
         metrics.append({k: float(v) for k, v in met.items()})
         if avg is not None:
             avg.update()
+    a2a = pf.all_to_all_stats()
     mesh = run.sharding.mesh
     names = [k for k, _ in m.named_parameters()]
     out = {"metrics": metrics,
@@ -1480,7 +1539,8 @@ def moe_train(rank, n, params, cfg, sizes, batch, steps, opt="adamw",
                                                        "b2")),
            "grads": {k: p.grad.numpy() for k, p in m.named_parameters()
                      if p.grad is not None},
-           "saved": dict(run.sharding.saved)}
+           "saved": dict(run.sharding.saved), "a2a": a2a,
+           "data_axes": run.sharding.data_axes}
     if lookahead is not None:
         out["slow"] = {k: v.numpy() for k, v in api.gathered_params(
             m, run.specs, mesh, values=dict(zip(names, opt_.slow))).items()}
@@ -1491,37 +1551,94 @@ def moe_train(rank, n, params, cfg, sizes, batch, steps, opt="adamw",
     return out
 
 
-def moe_eval(rank, n, params, cfg, sizes, x):
+def moe_eval(rank, n, params, cfg, sizes, x, batch_spec=None):
     """``shard_eval_step`` of the bare ``MoEFeedForward`` of ``cfg`` (the
     reference's ``test_ep_sharded``) under its hints on a mesh of
-    ``sizes``: the output, replicated."""
+    ``sizes``: the output, replicated, and the all-to-alls of the call."""
     import torch
     from paddle_tpu_torch.models.convert import load_jax
     from paddle_tpu_torch.nn.module import sharding_specs
     from paddle_tpu_torch.nn.moe import MoEFeedForward
     from paddle_tpu_torch.parallel import api
+    from paddle_tpu_torch.parallel import functional as pf
     m = load_jax(MoEFeedForward(cfg["d"], cfg["ff"], cfg["e"],
                                 top_k=cfg["top_k"],
                                 capacity_factor=cfg["cf"]), params)
-    run, placed = api.shard_eval_step(lambda mod, x: mod(x)[0],
-                                      _mesh(n, **sizes), m,
-                                      hints=sharding_specs(m))
-    return {"y": run(placed, x=torch.from_numpy(x)).numpy(),
-            "w1_local": tuple(placed.w1.shape)}
+    x = torch.from_numpy(x)
+    run, placed = api.shard_eval_step(
+        lambda mod, x: mod(x)[0], _mesh(n, **sizes), m,
+        hints=sharding_specs(m),
+        batch_spec=_moe_batch_spec(batch_spec, {"x": x}))
+    pf.reset_all_to_all_stats()
+    y = run(placed, x=x).numpy()
+    return {"y": y, "w1_local": tuple(placed.w1.shape),
+            "a2a": pf.all_to_all_stats()}
+
+
+def moe_noise(rank, n, params, cfg, sizes, batch_spec=None, seed=5):
+    """The router noise each rank routes with under ``batch_spec`` on a
+    mesh of ``sizes``: a draw of a generator seeded ``seed + rank`` (every
+    rank its own) through the placement's broadcast, and which axes the
+    placement found holding the same tokens."""
+    import torch
+    from paddle_tpu_torch import train
+    from paddle_tpu_torch.parallel import api
+    m = moe_net(params, cfg)
+    opt_ = _wrapped_optimizer("momentum", m.parameters(), 1e-2)
+    plan, hints = _moe_plan("hints", None, m)
+    api.shard_train_step(train.build_train_step(moe_loss, opt_),
+                         _mesh(n, **sizes), train.make_train_state(m, opt_),
+                         plan=plan, hints=hints,
+                         batch_spec=_moe_batch_spec(batch_spec, {}))
+    gen = torch.Generator().manual_seed(seed + rank)
+    noise = torch.randn((6, cfg["e"]), generator=gen)
+    place = m.moe.placement
+    return {"noise": place.same_where_tokens_are(noise).numpy(),
+            "shared_axes": place.shared_axes}
+
+
+def moe_trace(rank, n, params, cfg, sizes, batch, batch_spec=None):
+    """One step of the placed :func:`moe_net` traced on fake tensors by
+    the analysis tier (``analysis.api.trace``; nothing communicates):
+    the kinds of its ``ptt.collective`` nodes and the all-to-alls' output
+    shapes."""
+    import torch
+    from paddle_tpu_torch import train
+    from paddle_tpu_torch.analysis import api as an
+    from paddle_tpu_torch.parallel import api
+    m = moe_net(params, cfg)
+    opt_ = _wrapped_optimizer("adamw", m.parameters(), 1e-3)
+    plan, hints = _moe_plan("hints", None, m)
+    feeds = {k: torch.from_numpy(v) for k, v in batch.items()}
+    spec = _moe_batch_spec(batch_spec, feeds)
+    run, placed = api.shard_train_step(
+        train.build_train_step(moe_loss, opt_), _mesh(n, **sizes),
+        train.make_train_state(m, opt_), plan=plan, hints=hints,
+        batch_spec=spec)
+    local = api.local_batch(feeds, run.sharding.mesh, spec)
+    tr = an.trace(run.local, (placed,), local, name="moe_step")
+    if tr.failure is not None:
+        raise tr.failure
+    kinds, shapes = [], []
+    for node in tr.gm.graph.nodes:
+        if node.op == "call_function" and "collective" in str(node.target):
+            kinds.append(node.args[1])
+            if node.args[1] == "all_to_all":
+                shapes.append(tuple(node.args[2]))
+    return {"kinds": kinds, "a2a_shapes": shapes}
 
 
 def moe_refusals(rank, n, params, cfg):
-    """The layouts a placed MoE refuses, each error's text: tokens split
-    over "ep", a pipeline over "pp", experts split over "ep" but not
-    their biases."""
+    """The layouts a placed MoE refuses, each error's text: a MoE inside a
+    stack on a pipeline over "pp", a router split over "ep"."""
     import torch
     from paddle_tpu_torch import train
-    from paddle_tpu_torch.nn.module import sharding_specs
+    from paddle_tpu_torch.nn.module import StackedLayers, sharding_specs
+    from paddle_tpu_torch.nn.moe import MoEFeedForward
     from paddle_tpu_torch.parallel import api, plan as plan_lib
     out = {}
 
-    def attempt(label, sizes, **kw):
-        m = moe_net(params, cfg)
+    def attempt(label, m, sizes, **kw):
         opt_ = _wrapped_optimizer("momentum", m.parameters(), 1e-2)
         state = train.make_train_state(m, opt_)
         kw.setdefault("hints", sharding_specs(m))
@@ -1531,8 +1648,14 @@ def moe_refusals(rank, n, params, cfg):
         except NotImplementedError as e:
             out[label] = str(e)
 
-    attempt("tokens_over_ep", {"ep": n}, batch_spec=(("dp", "ep"),))
-    attempt("pp", {"pp": 2, "ep": n // 2})
-    attempt("biases_whole", {"ep": n}, plan=plan_lib.ShardingPlan(
-        [(r"moe/b[12]$", None)]))
+    class Stacked(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.stack = StackedLayers(
+                lambda **kw: MoEFeedForward(cfg["d"], cfg["ff"], cfg["e"],
+                                            **kw), 2)
+
+    attempt("pipelined_stack", Stacked(), {"pp": 2, "ep": n // 2})
+    attempt("router_over_ep", moe_net(params, cfg), {"ep": n},
+            plan=plan_lib.ShardingPlan([(r"moe/router$", (None, "ep"))]))
     return out
