@@ -499,6 +499,37 @@ Phases, in order; any failure exits non-zero:
        bf16 and int8 pools, traced: each holds its ``ptt.paged_*`` nodes
        and no collective, lints clean, launches nothing;
        ``serving_bucket_coverage`` of the warmed bf16 engine: 0 findings.
+17. the surface (runs after 16; (d) runs in phase 8's four-rank group):
+   (a) phase 16's BERT-base (48 x 512, bf16 over fp32 masters, AdamW)
+       with every encoder layer under ``optimizer.recompute(layer.forward,
+       policy=)`` for each of ``SURFACE_POLICIES`` (None: no remat), 2
+       steps each (eager, then captured and replayed): losses within
+       ``SURFACE_LOSS_RTOL`` of the step without remat, the peak of
+       ``torch.cuda.max_memory_allocated`` over the steps falling in the
+       policies' order (no remat >= everything >= dots >= dots without
+       batch dims >= nothing, each within ``SURFACE_PEAK_SLACK`` of the
+       one before, nothing below no remat), and K5/K6a/K6b 12 launches
+       each a step, K5 24 where the policy recomputes the attention
+       (the registered ``ptt::flash_fwd`` is no dot);
+   (b) ``Trainer.evaluate(metrics=)`` with ``metrics.Accuracy`` and
+       ``metrics.Auc`` over the NSP head on ``SURFACE_EVAL_BATCHES``
+       batches of (a)'s shape, against the same metrics fed from the
+       eval step's outputs (within 1e-12), the eval telemetry counted,
+       K5 12 launches a batch;
+   (c) a 4a-configured GPT engine (phase 4's width, bf16) with its
+       tracer and anatomy on serves ``SURFACE_REQUESTS`` requests of
+       ``SURFACE_NEW`` tokens (K1/K3); its span and anatomy JSONL
+       exports pass ``validate_trace_log``/``validate_anatomy_log`` and
+       ``python -m paddle_tpu_torch.tools.check_metrics_log`` (two
+       subprocesses), the spans become a valid Chrome trace by
+       ``chrome_trace_from_jsonl``, the flight recorder's bundle passes
+       ``validate_postmortem_file`` and ``tools.postmortem``; TTFT
+       percentiles from ``Histogram.percentiles``;
+   (d) (g)'s Switch-Base-8 layer on ep=2 x tp=2 under plans splitting
+       the router over "ep" (columns) and over "tp" (rows)
+       (``MOE_ROUTER``): each rank holds its block of the router, the
+       losses within ``MOE_ROUTER_RTOL`` of (g)'s one-process run, the
+       expert counts equal, the parameters within 1e-4.
 7. output  — one ``{"kernels": [...]}`` line (each kernel with its
    tunables' candidates and the configuration the committed cache chose
    at each shape, ``blocks``; the ring's entry over K5/K6 with its calls
@@ -509,7 +540,10 @@ Phases, in order; any failure exits non-zero:
    ``launches_beam_search``; K5's C++ binding with its launches over 12
    (b)'s timed bf16 calls; every kernel with its nodes in phase 16's
    traces, ``analysis_nodes``, and K5/K6a/K6b with 16 (a)'s launches,
-   ``launches_analysis_fit``), the nvidia-smi line, and the final
+   ``launches_analysis_fit``, 17 (a)'s by policy,
+   ``launches_surface_remat``, and 17 (b)'s,
+   ``launches_surface_evaluate``; K1/K3 with 17 (c)'s,
+   ``launches_surface_serving``), the nvidia-smi line, and the final
    ``{"ok": true, "device": {...}}`` line.
 """
 
@@ -4106,6 +4140,14 @@ MOE_LAYOUTS = (("ep4_tokens", {"ep": 4}, ("ep",)),
                ("dp2_ep2_tokens", {"dp": 2, "ep": 2}, (("dp", "ep"),)),
                ("sp2_ep2_seq", {"sp": 2, "ep": 2}, "seq"),
                ("pp2_ep2", {"pp": 2, "ep": 2}, None))
+#: 17 (d): (g)'s model on ep=2 x tp=2 under a plan that splits the router
+#: over "ep" (its expert columns) or "tp" (its rows): the fourth entry is
+#: the plan's rules; losses within ``MOE_ROUTER_RTOL`` of one process
+MOE_ROUTER = (("router_ep", {"ep": 2, "tp": 2}, None,
+               ((r"moe/router$", (None, "ep")),)),
+              ("router_tp", {"ep": 2, "tp": 2}, None,
+               ((r"moe/router$", ("tp", None)),)))
+MOE_ROUTER_RTOL = 1e-4
 #: (i): a block of ring attention (``MOE_BLOCK_HEADS`` heads) and the MoE
 #: on sp=2 x ep=2 at ``MOE_BLOCK_BATCH`` x ``MOE_BLOCK_SEQ`` tokens,
 #: losses within ``MOE_BLOCK_RTOL`` of one process
@@ -4213,16 +4255,19 @@ def moe_leg(rank, n, device, meshes=MOE_MESHES):
     metrics of each step, the steps' seconds and tokens/s, this rank's
     peak memory, expert-weight bytes beside the whole layer's, and its
     all-to-alls (``all_to_all_stats``, and staged through the host);
-    rank 0 saves the parameters gathered whole."""
+    rank 0 saves the parameters gathered whole. A mesh's fourth entry,
+    where given, is its plan's rules (17 (d): the router split), and
+    the rank's block of the router is recorded."""
     from paddle_tpu_torch.nn.module import sharding_specs
     from paddle_tpu_torch.optimizer import AdamW
     from paddle_tpu_torch.parallel import api
     from paddle_tpu_torch.parallel import collective as C
     from paddle_tpu_torch.parallel import functional as pf
+    from paddle_tpu_torch.parallel.plan import ShardingPlan
     from paddle_tpu_torch.train import build_train_step, make_train_state
     c = SWITCH_BASE
     out = {}
-    for label, sizes, spec in meshes:
+    for label, sizes, spec, *rules in meshes:
         mesh = _par_mesh(device, **sizes)
         _free(device)
         cuda = device.type == "cuda"
@@ -4236,7 +4281,8 @@ def moe_leg(rank, n, device, meshes=MOE_MESHES):
         run, state = api.shard_train_step(
             build_train_step(_switch_loss, opt), mesh,
             make_train_state(model, opt), hints=sharding_specs(model),
-            batch_spec=_moe_spec(spec, batch))
+            batch_spec=_moe_spec(spec, batch),
+            plan=ShardingPlan(list(rules[0]) if rules else ()))
         C.reset_staged_stats()
         pf.reset_all_to_all_stats()
         t0 = time.monotonic()
@@ -4258,6 +4304,8 @@ def moe_leg(rank, n, device, meshes=MOE_MESHES):
             "staged_all_to_all": {
                 k: staged[k].get("all_to_all", 0) for k in staged},
             "data_axes": run.sharding.data_axes,
+            "router_block": tuple(model.moe.router.shape),
+            "router_spec": run.specs.get("moe.router"),
             "tokens_per_s_gloo_on_one_card_not_a_parallel_speed":
                 c["batch"] * c["seq"] * MOE_STEPS / wall}
         del run, state, model, opt, whole, batch
@@ -4388,6 +4436,16 @@ def moe_block_checks(device, ranks):
             "steps_s_ranks": [r["steps_s"] for r in ranks]}
 
 
+def _expert_block_bytes(sizes):
+    """fp32 bytes of the expert tensors a rank holds on a mesh of
+    ``sizes`` under the hints: 1/ep of each, and 1/tp more of ``w1``,
+    ``b1`` and ``w2`` (``b2`` is whole over "tp")."""
+    c = SWITCH_BASE
+    e, d, f = c["experts"], c["d"], c["ff"]
+    ep, tp = sizes.get("ep", 1), sizes.get("tp", 1)
+    return 4 * ((2 * e * d * f + e * f) // (ep * tp) + e * d // ep)
+
+
 def moe_checks(device, ranks, meshes=MOE_MESHES):
     """(g) and (h): every rank's metrics and the parameters on each of
     ``meshes`` against (g)'s model and AdamW in this process at the same
@@ -4408,9 +4466,25 @@ def moe_checks(device, ranks, meshes=MOE_MESHES):
     del state, model, opt, step, batch
     _free(device)
     out = {"one_process": want}
-    for label, sizes, spec in meshes:
+    for label, sizes, spec, *rules in meshes:
         rows = [r[label] for r in ranks]
+        rtol = MOE_ROUTER_RTOL if rules else MOE_LOSS_RTOL
         rel = {}
+        if rules:
+            # 17 (d): each rank holds its block of the router
+            (_, want_spec), = rules[0]
+            axis = next(a for a in want_spec if a)
+            dim = want_spec.index(axis)
+            d, e = SWITCH_BASE["d"], SWITCH_BASE["experts"]
+            block = [(d, e)[i] // (sizes[axis] if i == dim else 1)
+                     for i in range(2)]
+            for rank, row in enumerate(rows):
+                if tuple(row["router_spec"] or ()) != want_spec or \
+                        list(row["router_block"]) != block:
+                    raise AssertionError(
+                        f"17 (d) {label} rank {rank}: router spec "
+                        f"{row['router_spec']} block {row['router_block']}"
+                        f", expected {want_spec} {block}")
         reckoned = _a2a_reckoning(sizes, spec, MOE_STEPS)
         for rank, row in enumerate(rows):
             staged = row["staged_all_to_all"]
@@ -4425,7 +4499,7 @@ def moe_checks(device, ranks, meshes=MOE_MESHES):
             got = row["metrics"]
             for key in ("loss", "aux_loss"):
                 rel[key] = _close([m[key] for m in got],
-                                  [m[key] for m in want], MOE_LOSS_RTOL,
+                                  [m[key] for m in want], rtol,
                                   0.0, f"8g {label} rank {rank} {key}")
             counts = [[m[k] for k in sorted(m) if k.startswith("count_")]
                       for m in got]
@@ -4434,7 +4508,8 @@ def moe_checks(device, ranks, meshes=MOE_MESHES):
                 raise AssertionError(f"8g {label} rank {rank}: expert "
                                      f"counts {counts} against one "
                                      f"process's")
-            if row["expert_bytes"] * sizes["ep"] != row["expert_bytes_whole"]:
+            if row["expert_bytes"] != _expert_block_bytes(sizes) or \
+                    row["expert_bytes_whole"] != _expert_block_bytes({}):
                 raise AssertionError(
                     f"8g {label} rank {rank}: expert bytes "
                     f"{row['expert_bytes']} of {row['expert_bytes_whole']}")
@@ -4925,6 +5000,7 @@ GROUP_LEGS = {"tp_serve": _tp_legs, "ring": ring_leg,
               "local_sgd": local_sgd_leg, "restore": restore_leg,
               "moe": moe_leg,
               "moe_layouts": functools.partial(moe_leg, meshes=MOE_LAYOUTS),
+              "moe_router": functools.partial(moe_leg, meshes=MOE_ROUTER),
               "moe_block": moe_block_leg,
               "pipe_toy": pipe_toy_leg, "pipe_bert": pipe_bert_leg,
               "pipe_gpt": pipe_gpt_leg}
@@ -4995,8 +5071,9 @@ def parallel_train(device):
 
     # (a) at sp=4; then the sp=2 group: (a) timed, (b), (c), (d), (e)
     t0 = time.monotonic()
-    four = group_run(4, ("ring", "moe", "moe_layouts", "moe_block"), device,
-                     "8a sp=4 and 8g-8i ep group")
+    four = group_run(4, ("ring", "moe", "moe_layouts", "moe_block",
+                         "moe_router"), device,
+                     "8a sp=4, 8g-8i and 17 (d) ep group")
     _check_ring_counts("sp=4", 4, [r["ring"] for r in four])
     # phase 9's pp=2 legs ride this group: one start-up for both phases
     _pipe_dir()
@@ -5115,9 +5192,9 @@ def parallel_train(device):
     del back, whole
 
     # (g) and (h) against one process at the same global batch
-    stats["moe"] = moe_checks(device, [{**r["moe"], **r["moe_layouts"]}
-                                       for r in four],
-                              MOE_MESHES + MOE_LAYOUTS)
+    stats["moe"] = moe_checks(device, [{**r["moe"], **r["moe_layouts"],
+                                        **r["moe_router"]} for r in four],
+                              MOE_MESHES + MOE_LAYOUTS + MOE_ROUTER)
     for (label, _, _), part in zip(MOE_MESHES + MOE_LAYOUTS,
                                    "g" * len(MOE_MESHES)
                                    + "h" * len(MOE_LAYOUTS)):
@@ -5126,6 +5203,14 @@ def parallel_train(device):
             + json.dumps(stats["moe"][label]))
     log(f"  8g took {four[0]['moe']['seconds']:.1f} s on the ranks, 8h "
         f"{four[0]['moe_layouts']['seconds']:.1f} s")
+    # 17 (d): the router split over "ep" and over "tp", held above to the
+    # same one-process run
+    for label, *_ in MOE_ROUTER:
+        log(f"  17 (d) Switch-Base-8 MoE, router split ({label}) on ep=2 x "
+            "tp=2 vs one process (gloo on one card): "
+            + json.dumps(stats["moe"][label]))
+    log(f"  17 (d) took {four[0]['moe_router']['seconds']:.1f} s on the "
+        "ranks")
     # (i) against one process with attn_impl="auto"
     stats["moe_block"] = moe_block_checks(device,
                                           [r["moe_block"] for r in four])
@@ -5145,6 +5230,7 @@ def parallel_train(device):
         "moe": four[0]["moe"]["seconds"],
         "moe_layouts": four[0]["moe_layouts"]["seconds"],
         "moe_block": four[0]["moe_block"]["seconds"],
+        "moe_router": four[0]["moe_router"]["seconds"],
         **{leg: two[0][leg]["seconds"] for leg in (
             "ring_timed", "bert_ring", "dp", "tp", "local_sgd")}}
     log(f"  phase 8 took {stats['seconds']['phase']:.1f} s: "
@@ -8297,6 +8383,242 @@ def _timed_runner_build() -> float:
     return time.monotonic() - t0
 
 
+# -- phase 17: the surface ---------------------------------------------------
+
+#: (a): each encoder layer of phase 16's BERT-base under
+#: ``recompute(layer.forward, policy=)`` (None: no remat), in the order the
+#: peaks must fall; ``SURFACE_STEPS`` bf16 steps each (eager, then captured
+#: and replayed); losses within ``SURFACE_LOSS_RTOL`` (bf16 rounding) of
+#: the step without remat; a peak may pass the one before it by at most
+#: ``SURFACE_PEAK_SLACK`` bytes (ties: the same saved tensors)
+SURFACE_POLICIES = (None, "everything_saveable", "dots_saveable",
+                    "dots_with_no_batch_dims_saveable", "nothing_saveable")
+SURFACE_STEPS = 2
+SURFACE_LOSS_RTOL = 2.0 ** -8
+SURFACE_PEAK_SLACK = 2 ** 21
+#: (b): eval batches of (a)'s shape; (c): requests, new tokens a request
+SURFACE_EVAL_BATCHES = 4
+SURFACE_REQUESTS, SURFACE_NEW = 16, 32
+SURFACE_DIR = TRAIN_DIR.parent / "chip_smoke_surface"
+
+
+def surface_remat(device):
+    """17 (a) and (b): the remat policies on BERT-base, then
+    ``Trainer.evaluate(metrics=)`` on the step without remat (module
+    docstring)."""
+    from paddle_tpu_torch import optimizer as O
+    from paddle_tpu_torch.core.dtypes import get_policy
+    from paddle_tpu_torch.kernels import registry
+    from paddle_tpu_torch.train import build_train_step, make_train_state
+    out = {"a": {}}
+    k5 = flash_entries()[0]
+    for name in SURFACE_POLICIES:
+        release()
+        cfg, model, opt = _bert_base(device)
+        if name is not None:
+            pol = getattr(O.checkpoint_policies, name)
+            for layer in model.bert.encoder:
+                layer.forward = O.recompute(layer.forward, policy=pol)
+        state = make_train_state(model, opt)
+        step = build_train_step(_bert_loss, opt, policy=get_policy("bf16"))
+        batch = bert_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, device)
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        base = torch.cuda.memory_allocated(device)
+        registry.reset_launches()
+        t0 = time.monotonic()
+        losses = [float(step(state, **batch)[1]["loss"])
+                  for _ in range(SURFACE_STEPS)]
+        torch.cuda.synchronize(device)
+        launches = {e.name: e.launches for e in flash_entries()}
+        out["a"][name or "no_remat"] = {
+            "losses": losses, "seconds": time.monotonic() - t0,
+            "peak_bytes": torch.cuda.max_memory_allocated(device) - base,
+            "launches": launches}
+        if name is None:
+            out["b"] = surface_evaluate(device, cfg, step, state)
+        del state, step, opt, model, batch
+    release()
+    rows = out["a"]
+    plain = rows["no_remat"]
+    recomputes = ("dots_saveable", "dots_with_no_batch_dims_saveable",
+                  "nothing_saveable")
+    for label, row in rows.items():
+        for a, b in zip(row["losses"], plain["losses"]):
+            if not abs(a - b) <= SURFACE_LOSS_RTOL * abs(b):
+                raise AssertionError(f"17 (a) {label}: losses "
+                                     f"{row['losses']} against "
+                                     f"{plain['losses']} without remat")
+        per_step = {e: n / SURFACE_STEPS for e, n in row["launches"].items()}
+        want = {e.name: cfg.num_layers * (2 if e is k5 and label in
+                                          recomputes else 1)
+                for e in flash_entries()}
+        if per_step != want:
+            raise AssertionError(f"17 (a) {label}: {per_step} launches a "
+                                 f"step, reckoned {want}")
+        row["launches_per_step"] = per_step
+    peaks = [rows[n or "no_remat"]["peak_bytes"] for n in SURFACE_POLICIES]
+    if any(later > earlier + SURFACE_PEAK_SLACK
+           for earlier, later in zip(peaks, peaks[1:])) \
+            or not peaks[-1] < peaks[0]:
+        raise AssertionError(f"17 (a): peaks {peaks} not ordered as "
+                             f"{SURFACE_POLICIES}")
+    log("  17 (a) remat policies on BERT-base 48 x 512 bf16, every encoder "
+        "layer under recompute(policy=): " + json.dumps(rows))
+    log("  17 (b) Trainer.evaluate(metrics=): " + json.dumps(out["b"]))
+    return out
+
+
+def surface_evaluate(device, cfg, step, state):
+    """17 (b): ``Trainer.evaluate(metrics=)`` over ``SURFACE_EVAL_BATCHES``
+    batches (NSP accuracy and AUC) against the same metrics fed from the
+    eval step's outputs, and the eval telemetry."""
+    from paddle_tpu_torch import metrics
+    from paddle_tpu_torch.core.dtypes import get_policy
+    from paddle_tpu_torch.kernels import registry
+    from paddle_tpu_torch.observability import MetricsRegistry
+    from paddle_tpu_torch.train import build_eval_step
+    from paddle_tpu_torch.trainer import Trainer
+    batches = [bert_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, device, seed=40 + i)
+               for i in range(SURFACE_EVAL_BATCHES)]
+    eval_step = build_eval_step(
+        lambda m, **b: m(b["input_ids"], b["token_type_ids"],
+                         b["attention_mask"]), get_policy("bf16"))
+
+    def extract(kind):
+        def fn(out, batch):
+            nsp = out[1].float()
+            if kind == "acc":
+                return nsp, batch["nsp_labels"]
+            return torch.softmax(nsp, -1)[:, 1], batch["nsp_labels"]
+        return fn
+
+    reg = MetricsRegistry()
+    trainer = Trainer(step, state, registry=reg, log_fn=lambda m: None)
+    registry.reset_launches()
+    got = trainer.evaluate(eval_step, batches, metrics={
+        "acc": (metrics.Accuracy(), extract("acc")),
+        "auc": (metrics.Auc(), extract("auc"))})
+    launches = {e.name: e.launches for e in flash_entries()}
+    outs = trainer.evaluate(eval_step, batches)
+    acc, auc = metrics.Accuracy(), metrics.Auc()
+    for out, b in zip(outs, batches):
+        acc.update(*extract("acc")(out, b))
+        auc.update(*extract("auc")(out, b))
+    want = {"acc": acc.eval(), "auc": auc.eval()}
+    err = {k: abs(got[k] - want[k]) for k in want}
+    steps = reg.counter("eval_steps_total").value()
+    if any(e > 1e-12 for e in err.values()) or not 0 <= got["acc"] <= 1 \
+            or steps != 2 * SURFACE_EVAL_BATCHES \
+            or reg.counter("eval_examples_total").value() \
+            != 2 * SURFACE_EVAL_BATCHES * TRAIN_BATCH:
+        raise AssertionError(f"17 (b): evaluate(metrics=) {got} against "
+                             f"{want}, eval steps {steps}")
+    k5 = flash_entries()[0].name
+    if launches[k5] != cfg.num_layers * SURFACE_EVAL_BATCHES or any(
+            n for e, n in launches.items() if e != k5):
+        raise AssertionError(f"17 (b): launches {launches}")
+    return {"metrics": got, "from_outputs": want, "abs_err": err,
+            "launches": launches,
+            "eval_step_s": reg.histogram("eval_step_seconds").percentiles(
+                0.5, 0.99)}
+
+
+def surface_serving(device):
+    """17 (c): the GPT engine with its tracer and anatomy on; the
+    telemetry file tier and its two tools on what it recorded (module
+    docstring)."""
+    import io
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.inference import make_serving_engine
+    from paddle_tpu_torch.kernels import registry
+    from paddle_tpu_torch.models.gpt import GPT
+    from paddle_tpu_torch.observability import anatomy, flight, tracing
+    from paddle_tpu_torch.serving import paged_attention as PA
+    from paddle_tpu_torch.tools import postmortem
+    shutil.rmtree(SURFACE_DIR, ignore_errors=True)
+    SURFACE_DIR.mkdir(parents=True)
+    cfg = model_config()
+    model = GPT(cfg, device=device, dtype=torch.bfloat16, seed=0)
+    reg, tracer = obs.MetricsRegistry(), obs.Tracer(capacity=1 << 15)
+    eng = make_serving_engine(model, registry=reg, tracer=tracer,
+                              device=device, **ENGINE_KW)
+    eng.warmup()
+    tracer.clear()
+    prompts = make_prompts(SURFACE_REQUESTS, cfg.vocab_size, seed=77)
+    registry.reset_launches()
+    t0 = time.monotonic()
+    rids = [eng.submit(p, SURFACE_NEW) for p in prompts]
+    done = {}
+    while not eng.scheduler.idle():
+        done.update(eng.step())
+    torch.cuda.synchronize(device)
+    wall = time.monotonic() - t0
+    launches = {e.name: e.launches for e in (PA.DECODE, PA.PREFILL)}
+    if any(done.get(r) is None or done[r].shape != (SURFACE_NEW,)
+           for r in rids) or not all(launches.values()):
+        raise AssertionError(f"17 (c): requests unfinished or kernels "
+                             f"unlaunched ({launches})")
+    trace = SURFACE_DIR / "serve.trace.jsonl"
+    anat = SURFACE_DIR / "serve.anatomy.jsonl"
+    spans = tracer.export_jsonl(str(trace))
+    steps = eng.anatomy.export_jsonl(str(anat))
+    checks = [("--trace", trace, "--require-spans", spans),
+              ("--anatomy", anat, "--require-steps", steps)]
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "paddle_tpu_torch.tools.check_metrics_log",
+         mode, str(path), flag, str(n)], cwd=str(pathlib.Path(__file__).resolve().parent),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for mode, path, flag, n in checks]
+    if tracing.validate_trace_log(str(trace), require_spans=spans) != spans \
+            or anatomy.validate_anatomy_log(str(anat),
+                                            require_steps=steps) != steps:
+        raise AssertionError("17 (c): the exports do not validate")
+    chrome_path = SURFACE_DIR / "serve.chrome.json"
+    tracing.chrome_trace_from_jsonl(str(trace), str(chrome_path))
+    events = tracing.chrome_trace_valid(json.loads(chrome_path.read_text()),
+                                        require_events=spans)
+    bundle = eng.flight.dump("surface", trace_ids=sorted(
+        {s.trace_id for s in tracer.spans() if s.trace_id}))
+    pm_path = SURFACE_DIR / "postmortem_surface.json"
+    flight.write_bundle(bundle, str(pm_path))
+    flight.validate_postmortem_file(str(pm_path))
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        pm_rc = postmortem.main([str(pm_path), "--trace-out",
+                                 str(SURFACE_DIR / "pm.trace.out")])
+    tool = []
+    for p, (mode, *_rest) in zip(procs, checks):
+        msg, _ = p.communicate(timeout=300)
+        tool.append({"mode": mode, "rc": p.returncode,
+                     "said": msg.strip().splitlines()[-1:]})
+    if pm_rc != 0 or any(t["rc"] != 0 for t in tool) or \
+            "reason=surface" not in text.getvalue():
+        raise AssertionError(f"17 (c): tools {tool}, postmortem {pm_rc}: "
+                             f"{text.getvalue()[-500:]}")
+    ttft = reg.histogram("serving_ttft_seconds")
+    out = {"requests": len(rids), "new_tokens": SURFACE_NEW,
+           "wall_s": wall, "launches": launches, "spans": spans,
+           "anatomy_steps": steps, "chrome_events": events,
+           "bundle_trace_ids": len(bundle["trace_ids"]),
+           "check_metrics_log": tool, "postmortem_rc": pm_rc,
+           "ttft_s": ttft.percentiles(0.5, 0.9, 0.99),
+           "ttft_over_50ms": ttft.count_over(0.05)}
+    log("  17 (c) serving telemetry files: " + json.dumps(out))
+    del eng, model
+    release()
+    return out
+
+
+def surface_slice(device):
+    """Phase 17 (a)-(c); (d) runs in phase 8's four-rank group."""
+    t_phase = time.monotonic()
+    out = surface_remat(device)
+    out["c"] = surface_serving(device)
+    out["phase_s"] = time.monotonic() - t_phase
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -8469,6 +8791,14 @@ def main() -> int:
     ana = analysis_slice(device)
     log(f"  phase 16 took {ana['phase_s']:.1f} s")
 
+    log("[17/17] the surface: BERT-base under each remat policy "
+        "(K5 again in the recompute), Trainer.evaluate(metrics=), the GPT "
+        "engine's trace, anatomy and postmortem files through their "
+        "validators and tools (K1/K3); (d), the MoE router split over "
+        "ep/tp, ran in phase 8's four-rank group")
+    surf = surface_slice(device)
+    log(f"  phase 17 took {surf['phase_s']:.1f} s")
+
     lines = [kernel_line(e, rows[e.name], stats["launches"][e.name],
                          {**({"long": long_rows} if e is PA.DECODE
                              else {"verify": verify_rows[e.name]}),
@@ -8531,6 +8861,18 @@ def main() -> int:
         ln["analysis_nodes"] = ana["nodes"][ln["name"]]
         if ln["name"] in ana["a"]["fit_launches"]:
             ln["launches_analysis_fit"] = ana["a"]["fit_launches"][ln["name"]]
+    # phase 17: K5/K6a/K6b over (a)'s two steps under each remat policy
+    # and (b)'s evaluate; K1/K3 over (c)'s served requests
+    for ln in lines:
+        if ln["name"] in surf["c"]["launches"]:
+            ln["launches_surface_serving"] = \
+                surf["c"]["launches"][ln["name"]]
+        if ln["name"] in surf["b"]["launches"]:
+            ln["launches_surface_remat"] = {
+                label: row["launches"][ln["name"]]
+                for label, row in surf["a"].items()}
+            ln["launches_surface_evaluate"] = \
+                surf["b"]["launches"][ln["name"]]
     lines.append(ring_line(par_stats))
     lines.append(native_k5_line(native))
     # K5 also runs in 12 (d)'s beam search (the encoder, 6 a call)

@@ -2,10 +2,10 @@
 
 A :class:`Policy` names where each dtype is used: parameters stay fp32
 (the master weights), compute runs in the policy's ``compute_dtype``,
-outputs and losses come back in ``output_dtype``. ``cast_to_compute``
-casts the floating tensors of a tensor, a dict, a list or a tuple
-(nested) and leaves everything else (integer ids, bool masks, Python
-scalars) as it is.
+outputs and losses come back in ``output_dtype``. ``cast_to_compute``,
+``cast_to_param`` and ``cast_to_output`` cast the floating tensors of a
+tensor, a dict, a list or a tuple (nested) and leave everything else
+(integer ids, bool masks, Python scalars) as it is.
 """
 
 from __future__ import annotations
@@ -23,6 +23,12 @@ class Policy:
 
     def cast_to_compute(self, x):
         return _cast_floating(x, self.compute_dtype)
+
+    def cast_to_param(self, x):
+        return _cast_floating(x, self.param_dtype)
+
+    def cast_to_output(self, x):
+        return _cast_floating(x, self.output_dtype)
 
 
 def _cast_floating(tree, dtype):
@@ -76,3 +82,11 @@ def convert_dtype(dtype) -> torch.dtype:
     if name not in _DTYPES:
         raise ValueError(f"unknown dtype {dtype!r}")
     return _DTYPES[name]
+
+
+def is_floating(dtype) -> bool:
+    """Whether ``dtype`` (any form :func:`convert_dtype` takes) is a real
+    floating type (``jnp.issubdtype(dtype, np.floating)``: complex is
+    not)."""
+    dt = convert_dtype(dtype)
+    return dt.is_floating_point

@@ -118,6 +118,32 @@ def make_mesh(config: Optional[MeshConfig] = None, *,
     return mesh
 
 
+def single_device_mesh(device_type: str = "cuda") -> DeviceMesh:
+    """A trivial one-device mesh (every canonical axis of size 1) over an
+    initialized one-rank process group, which the caller starts as for
+    :func:`make_mesh` (for one process alone: ``init_process_group(
+    "gloo", store=torch.distributed.HashStore(), rank=0,
+    world_size=1)``)."""
+    if dist.is_initialized() and dist.get_world_size() != 1:
+        raise ValueError(
+            f"single_device_mesh needs a one-rank process group, have "
+            f"{dist.get_world_size()} ranks: use make_mesh")
+    return make_mesh(MeshConfig(), device_type=device_type)
+
+
+def local_device_count() -> int:
+    """Cards this process sees (one CPU device without CUDA)."""
+    return torch.cuda.device_count() if torch.cuda.is_available() else 1
+
+
+def device_count() -> int:
+    """Devices of the job: one a rank of the initialized process group
+    (a rank holds one card), else :func:`local_device_count`."""
+    if dist.is_initialized():
+        return dist.get_world_size()
+    return local_device_count()
+
+
 def stages_cuda(mesh: Optional[DeviceMesh]) -> bool:
     """Whether ``mesh`` was made with ``stage_cuda_through_host=True``."""
     return bool(getattr(mesh, "stage_cuda_through_host", False))

@@ -379,6 +379,45 @@ CELLS = (
 )
 
 
+def seed_entry(tuner: KernelTuner, entry, args, kwargs=None) -> str:
+    """Seed one bucket's entry with the prior, stamped with the call's
+    work (``static_work``, else ``work``: bytes and flops, the roofline
+    numerator) so a committed cache records what the prior was chosen
+    for; a current measured entry is kept. Nothing runs. Returns the
+    key."""
+    kwargs = dict(kwargs or {})
+    key = tune_key(entry, args, kwargs)
+    existing = tuner.entries.get(key)
+    if existing is not None and existing.get("source") == "measured" \
+            and int(existing.get("contract_version", -1)) == \
+            entry.contract.version:
+        return key
+    ent = {"blocks": static_prior(entry, args), "source": "prior",
+           "contract_version": entry.contract.version}
+    try:
+        nbytes, flops = (entry.static_work or entry.work)(*args, **kwargs)
+        ent["cost_prior"] = {
+            "flops": int(flops), "traffic_bytes": int(nbytes),
+            "arithmetic_intensity": round(flops / max(nbytes, 1), 3)}
+    except Exception as e:     # the prior stands without its cost
+        ent["cost_prior"] = {"error": f"{type(e).__name__}: {e}"}
+    tuner.entries[key] = ent
+    return key
+
+
+def seed_default_buckets(tuner: KernelTuner) -> Dict[str, str]:
+    """Seed three sample buckets of every registered kernel
+    (``sample_inputs(0..2)``); returns ``{key: kernel name}``."""
+    _registry.load_all()
+    seeded = {}
+    for name in _registry.names():
+        entry = _registry.get(name)
+        for seed in (0, 1, 2):
+            args, kwargs = entry.sample_inputs(seed)
+            seeded[seed_entry(tuner, entry, args, kwargs)] = name
+    return seeded
+
+
 def cell_inputs(kind: str, geom, device, dtype=torch.bfloat16, seed=0):
     """``(args, kwargs)`` of one cell shape: seeded random pages, ragged
     live lengths, ragged chunks (a ``device="meta"`` call gives empty

@@ -232,6 +232,20 @@ def _py_files(root: str) -> Iterable[Tuple[str, str]]:
                 yield path, rel[:-3].replace(os.sep, ".")
 
 
+def load_allowlist(path: str) -> List[str]:
+    """:data:`ALLOWLIST` entries kept in a file, one a line, ``#``
+    comments dropped (the reference's allowlist file format); a missing
+    file is an empty list."""
+    entries = []
+    if path and os.path.exists(path):
+        with open(path) as f:
+            for line in f:
+                line = line.split("#", 1)[0].strip()
+                if line:
+                    entries.append(line)
+    return entries
+
+
 def bypass_findings(*, root: str = _PKG_ROOT,
                     prototypes: Optional[Mapping] = None,
                     allowlist: Sequence[str] = ALLOWLIST) -> List[Finding]:

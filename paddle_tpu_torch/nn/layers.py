@@ -32,11 +32,11 @@ class Linear(nn.Module):
     tp = None
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
-                 *, sharding=COLUMN, weight_init=None, device=None,
-                 dtype=None):
+                 weight_init=None, bias_init=None, *, sharding=COLUMN,
+                 device=None, dtype=None):
         super().__init__()
         self.in_features, self.out_features = in_features, out_features
-        self.weight_init = weight_init
+        self.weight_init, self.bias_init = weight_init, bias_init
         # the bias takes the weight's output entry, as the reference's
         out = sharding[-1] if sharding is not None else None
         self.param_sharding = {
@@ -50,10 +50,10 @@ class Linear(nn.Module):
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         """``weight_init`` or the reference's default Xavier-uniform
-        weight, zero bias."""
+        weight; ``bias_init`` or a zero bias."""
         (self.weight_init or I.xavier_uniform())(self.weight, generator)
         if self.bias is not None:
-            I.zeros(self.bias)
+            (self.bias_init or I.zeros)(self.bias, generator)
 
     def forward(self, x):
         if self.tp is not None:
@@ -64,26 +64,43 @@ class Linear(nn.Module):
         return out
 
 
-class LayerNorm(nn.Module):
-    """Layer norm over the last axis: biased variance, ``eps`` inside the
-    rsqrt, parameters named ``scale``/``bias`` (``ops/nn.py:186``)."""
+#: the Fluid name of :class:`Linear`
+FC = Linear
 
-    def __init__(self, normalized_shape: int, epsilon: float = 1e-5, *,
-                 device=None, dtype=None):
+
+class LayerNorm(nn.Module):
+    """Layer norm over the trailing ``normalized_shape`` axes: biased
+    variance, ``eps`` inside the rsqrt, flat parameters named
+    ``scale``/``bias`` (``ops/nn.py:186``). ``scale=False`` or
+    ``shift=False`` creates no such parameter, so the parameter tree is
+    the reference's."""
+
+    def __init__(self, normalized_shape, epsilon: float = 1e-5,
+                 scale: bool = True, shift: bool = True, *, device=None,
+                 dtype=None):
         super().__init__()
+        if isinstance(normalized_shape, int):
+            normalized_shape = (normalized_shape,)
+        self.shape = tuple(normalized_shape)
         self.epsilon = epsilon
-        self.scale = nn.Parameter(torch.empty(normalized_shape, device=device,
-                                              dtype=dtype))
-        self.bias = nn.Parameter(torch.empty(normalized_shape, device=device,
-                                             dtype=dtype))
+        n = math.prod(self.shape)
+        self.scale = (nn.Parameter(torch.empty(n, device=device, dtype=dtype))
+                      if scale else None)
+        self.bias = (nn.Parameter(torch.empty(n, device=device, dtype=dtype))
+                     if shift else None)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
-        I.ones(self.scale)
-        I.zeros(self.bias)
+        if self.scale is not None:
+            I.ones(self.scale)
+        if self.bias is not None:
+            I.zeros(self.bias)
 
     def forward(self, x):
-        return F.layer_norm(x, self.scale.shape, self.scale, self.bias,
-                            self.epsilon)
+        return F.layer_norm(
+            x, self.shape,
+            None if self.scale is None else self.scale.view(self.shape),
+            None if self.bias is None else self.bias.view(self.shape),
+            self.epsilon)
 
 
 #: tables up to this many rows sum their gradients by masked reductions
@@ -136,16 +153,20 @@ def embedding(ids, weight):
 
 class Embedding(nn.Module):
     """Token/position lookup table ``(num_embeddings, embedding_dim)``;
-    its gradient is bit-reproducible (:func:`embedding`). ``sharding`` is
+    its gradient is bit-reproducible (:func:`embedding`). Rows at
+    ``padding_idx`` come out zero; ``weight_init`` replaces the default
+    normal draw of standard deviation ``init_std``. ``sharding`` is
     the table's hint (the reference's default: rows split over "tp");
     ``tp`` holds its role under a sharded placement."""
 
     tp = None
 
-    def __init__(self, num_embeddings: int, embedding_dim: int, *,
+    def __init__(self, num_embeddings: int, embedding_dim: int,
+                 padding_idx: Optional[int] = None, weight_init=None, *,
                  init_std: float = 0.02, sharding=VOCAB, device=None,
                  dtype=None):
         super().__init__()
+        self.padding_idx, self.weight_init = padding_idx, weight_init
         self.init_std = init_std
         self.param_sharding = {"weight": None if sharding is None
                                else tuple(sharding)}
@@ -153,12 +174,19 @@ class Embedding(nn.Module):
                                                device=device, dtype=dtype))
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
-        I.normal(0.0, self.init_std)(self.weight, generator)
+        (self.weight_init or I.normal(0.0, self.init_std))(self.weight,
+                                                           generator)
 
     def forward(self, ids):
         if self.tp is not None:
-            return self.tp.lookup(self, ids)
-        return embedding(ids, self.weight)
+            out = self.tp.lookup(self, ids)
+        else:
+            out = embedding(ids, self.weight)
+        if self.padding_idx is not None:
+            # rows at padding ids come out zero, so the padding row takes
+            # no gradient (``ops/nn.py:239``)
+            out = out * (ids != self.padding_idx)[..., None].to(out.dtype)
+        return out
 
     def attend(self, x, bias=None):
         """``x @ table^T (+ bias)``: the tied output projection

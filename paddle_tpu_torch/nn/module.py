@@ -1,6 +1,6 @@
 """Per-parameter sharding hints (``paddle_tpu/nn/module.py``:
-``ParamSpec.sharding`` and ``Layer.sharding_specs``),
-:class:`StackedLayers`, the stacked ``(L, ...)`` layout of a stack of
+``ParamSpec.sharding`` and ``Layer.sharding_specs``), the containers
+:class:`LayerList` and :class:`Sequential`, :class:`StackedLayers`, the stacked ``(L, ...)`` layout of a stack of
 identical layers, and the state tape (:func:`capture_state`) that holds
 back BatchNorm's running-statistics updates for the train step.
 
@@ -39,6 +39,34 @@ def sharding_specs(model: nn.Module) -> dict:
             key = f"{mod_name}.{pname}" if mod_name else pname
             values[key] = getattr(mod, "param_sharding", {}).get(pname)
     return params_tree(model, values)
+
+
+class LayerList(nn.ModuleList):
+    """Indexable list of sublayers (the reference's ``LayerList``): its
+    members' parameters sit under ``"0"``, ``"1"``, ..., as the
+    reference's tree holds them."""
+
+
+class Sequential(nn.Module):
+    """Layers applied in order (the reference's ``Sequential``), held in
+    ``layers`` (a :class:`LayerList`, so the tree is the reference's
+    ``{"layers": {"0": ...}}``). Keyword arguments (``generator=``) go
+    only to the layers whose ``forward`` accepts them."""
+
+    def __init__(self, *layers):
+        super().__init__()
+        self.layers = LayerList(layers)
+
+    def forward(self, x, **kwargs):
+        import inspect
+        for layer in self.layers:
+            accepted = {}
+            if kwargs:
+                sig = inspect.signature(layer.forward)
+                accepted = {k: v for k, v in kwargs.items()
+                            if k in sig.parameters}
+            x = layer(x, **accepted)
+        return x
 
 
 class StackedLayers(nn.Module):

@@ -57,6 +57,9 @@ every token layout the batch spec gives (``api.token_layout``: dim 0 over
   ``b2``;
 - an expert tensor the plan keeps whole beside split ones is read as
   this rank's block (its gradient summed back to the whole tensor);
+- a router the plan splits over "ep" or "tp" is gathered whole before
+  routing, as GSPMD gathers it; its gradient goes back to the rank's
+  block (summed over "ep" where "ep" splits the tokens);
 - router noise is drawn on each rank and broadcast over the axes whose
   ranks hold the same tokens ("tp", "pp", and "ep" as a model axis), so
   ranks with the same tokens route alike and the others draw their own.
@@ -132,7 +135,7 @@ class MoEFeedForward(nn.Module):
         place = self.placement
         cap = self.capacity(n_tok * (place.n_tokens if place else 1))
         flat = x.reshape(n_tok, d)
-        logits = flat @ self.router
+        logits = flat @ (place.router(self) if place else self.router)
         if self.training and self.router_noise > 0 and generator is not None:
             noise = torch.randn(logits.shape, generator=generator,
                                 device=logits.device, dtype=logits.dtype)

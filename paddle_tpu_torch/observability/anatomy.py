@@ -25,6 +25,8 @@ times, and phase sums bounded by step wall time.
 
 from __future__ import annotations
 
+import json
+import os
 import threading
 import time
 from collections import deque
@@ -267,8 +269,20 @@ class StepAnatomy:
                 if t["probed_wall_s"] else 0.0)
         return out
 
+    def export_jsonl(self, path: str) -> int:
+        """Append the ring to a JSONL file (one flushed line per record,
+        the run log's crash-safety contract). Returns records written."""
+        d = os.path.dirname(os.path.abspath(path))
+        os.makedirs(d, exist_ok=True)
+        recs = self.records()
+        with open(path, "a", encoding="utf-8") as f:
+            for rec in recs:
+                f.write(json.dumps(rec, sort_keys=True) + "\n")
+                f.flush()
+        return len(recs)
 
-# -- schema validation ----------------------------------------------------
+
+# -- schema validation (check_metrics_log --anatomy) ------------------------
 
 def validate_anatomy_record(rec: Dict[str, Any], *, index: int = 0,
                             prev_step: Optional[int] = None) -> int:
@@ -323,4 +337,15 @@ def validate_anatomy_records(recs: Iterable[Dict[str, Any]]) -> int:
     for i, rec in enumerate(recs):
         prev = validate_anatomy_record(rec, index=i, prev_step=prev)
         n += 1
+    return n
+
+
+def validate_anatomy_log(path: str, *, require_steps: int = 0) -> int:
+    """Validate an anatomy JSONL export; returns the record count. A
+    trailing partial line (crash artifact) is tolerated."""
+    from paddle_tpu_torch.observability import runlog
+    n = validate_anatomy_records(runlog.read_run_log(path))
+    if n < require_steps:
+        raise ValueError(
+            f"{path}: {n} anatomy records < required {require_steps}")
     return n

@@ -18,6 +18,9 @@ read-only views:
                 recent flight-recorder postmortem bundles from every
                 registered provider (``?limit=N`` most recent,
                 ``?replica=NAME`` one provider).
+  extra routes  any read-only JSON view a subsystem hangs off the one
+                operator endpoint with ``add_json`` (the network front
+                door's ``/debug/netlog``).
 
 Opt-in and port-0 by default: nothing binds unless a caller starts a
 server, and tests take an ephemeral port. The handler thread only
@@ -60,6 +63,7 @@ class ExpositionServer:
         self._want_port = int(port)
         self._health: Dict[str, Callable[[], dict]] = {}
         self._postmortem: Dict[str, Callable[[], list]] = {}
+        self._json: Dict[str, Callable[[], object]] = {}
         self._httpd: Optional[ThreadingHTTPServer] = None
         self._thread: Optional[threading.Thread] = None
         self._t0 = time.monotonic()
@@ -79,6 +83,18 @@ class ExpositionServer:
         ``FlightRecorder.bundles``);
         served under ``/debug/postmortem``."""
         self._postmortem[name] = provider
+        return self
+
+    def add_json(self, path: str,
+                 provider: Callable[[], object]) -> "ExpositionServer":
+        """Register an extra read-only JSON route (a zero-arg callable
+        returning a JSON-able value), e.g. the network front door's
+        ``/debug/netlog`` ledger. Reserved routes cannot be shadowed."""
+        route = "/" + path.strip("/")
+        if route in ("/metrics", "/healthz", "/traces",
+                     "/debug/postmortem", "/"):
+            raise ValueError(f"route {route!r} is reserved")
+        self._json[route] = provider
         return self
 
     # -- lifecycle --------------------------------------------------------
@@ -169,8 +185,20 @@ class ExpositionServer:
                 payload = self.postmortems(limit=limit, replica=replica)
                 self._reply(h, 200, "application/json",
                             json.dumps(payload, default=str).encode())
+            elif route in self._json:
+                # the healthz discipline: a sick provider is a 503 with
+                # the error in the body, never a dead endpoint
+                try:
+                    payload, code = self._json[route](), 200
+                except Exception as e:
+                    payload = {"error": f"{type(e).__name__}: {e}"}
+                    code = 503
+                self._reply(h, code, "application/json",
+                            json.dumps(payload, default=str).encode())
             else:
-                routes = "/metrics /healthz /traces /debug/postmortem"
+                routes = " ".join(
+                    ["/metrics", "/healthz", "/traces",
+                     "/debug/postmortem"] + sorted(self._json))
                 self._reply(h, 404, "text/plain",
                             f"paddle_tpu exposition: {routes}\n"
                             .encode())

@@ -147,6 +147,11 @@ def write_bundle(bundle: Dict[str, Any], path: str) -> str:
     return path
 
 
+def read_bundle(path: str) -> Dict[str, Any]:
+    with open(path, "r", encoding="utf-8") as f:
+        return json.load(f)
+
+
 def validate_postmortem_bundle(bundle: Dict[str, Any]) -> None:
     """Assert the postmortem bundle schema; raises ValueError with a
     precise message."""
@@ -189,3 +194,10 @@ def validate_postmortem_bundle(bundle: Dict[str, Any]) -> None:
         _tracing.chrome_trace_valid(bundle["chrome_trace"])
     except ValueError as e:
         fail(f"chrome_trace invalid: {e}")
+
+
+def validate_postmortem_file(path: str) -> Dict[str, Any]:
+    """Load and validate a bundle artifact; returns the bundle."""
+    bundle = read_bundle(path)
+    validate_postmortem_bundle(bundle)
+    return bundle

@@ -1,8 +1,6 @@
 """Metrics registry: Counter / Gauge / Histogram with labels.
 
-The subset of ``paddle_tpu/observability/registry.py`` the serving
-engine and its observability (tracing, the SLO monitor, step anatomy,
-the flight recorder, the exposition server) call: plain host-side
+The port of ``paddle_tpu/observability/registry.py``: plain host-side
 Python, one lock per metric and per registry, label sets keyed by sorted
 ``(key, value)`` tuples so ``counter.inc(reason="a")`` and
 ``counter.inc(reason="b")`` are independent series of one metric;
@@ -129,6 +127,10 @@ class _GaugeChild(_BoundChild):
         with self._metric._lock:
             self._cell[0] = float(v)
 
+    def inc(self, n: float = 1.0):
+        with self._metric._lock:
+            self._cell[0] += n
+
     def value(self) -> float:
         with self._metric._lock:
             return self._cell[0]
@@ -147,6 +149,12 @@ class Gauge(_Metric):
         cell = self._cell(labels)
         with self._lock:
             cell[0] = float(v)
+        return self
+
+    def inc(self, n: float = 1.0, **labels) -> "Gauge":
+        cell = self._cell(labels)
+        with self._lock:
+            cell[0] += n
         return self
 
     def value(self, **labels) -> float:
@@ -244,6 +252,10 @@ class Histogram(_Metric):
                 lo = hi
             return cell.max
 
+    def percentiles(self, *qs: float, **labels) -> Dict[str, float]:
+        """``{'p50': ..., 'p99': ...}`` for the given quantiles (0-1)."""
+        return {f"p{q * 100:g}": self.quantile(q, **labels) for q in qs}
+
     def count_and_over(self, v: float, **labels):
         """(total, definitely-over-``v``) in one lock acquisition (the
         SLO monitor's atomic read). "Over" is conservative: only buckets
@@ -265,6 +277,37 @@ class Histogram(_Metric):
                 lo = (self.buckets[i] if i < len(self.buckets)
                       else math.inf)
             return total, over
+
+    def count_over(self, v: float, **labels) -> float:
+        """Observations definitely > ``v`` (:meth:`count_and_over`'s
+        conservative count)."""
+        return self.count_and_over(v, **labels)[1]
+
+    def count_le(self, v: float, **labels) -> float:
+        """Estimated observations <= ``v``: the inverse of
+        :meth:`quantile`, with its bucket interpolation."""
+        v = float(v)
+        cell = self._cell(labels)
+        with self._lock:
+            if not cell.count:
+                return 0.0
+            if v >= cell.max:
+                return float(cell.count)
+            if v < cell.min:
+                return 0.0
+            cum = 0.0
+            lo = cell.min
+            for i, c in enumerate(cell.counts):
+                hi = (self.buckets[i] if i < len(self.buckets)
+                      else cell.max)
+                if v <= hi:
+                    if c and hi > lo:
+                        frac = max(min((v - lo) / (hi - lo), 1.0), 0.0)
+                        return cum + frac * c
+                    return cum + (c if v >= hi else 0.0)
+                cum += c
+                lo = hi
+            return float(cell.count)
 
     def _render_cell(self, labels: Dict[str, object]):
         """(counts, count, sum) under the metric lock: a render whose
@@ -309,6 +352,10 @@ class MetricsRegistry:
     def metrics(self) -> List[_Metric]:
         with self._lock:
             return list(self._metrics.values())
+
+    def unregister(self, name: str):
+        with self._lock:
+            self._metrics.pop(name, None)
 
     def snapshot(self) -> Dict[str, float]:
         """Flat ``{'name{label="v"}': scalar}`` view; histograms flatten
@@ -367,3 +414,16 @@ _DEFAULT = MetricsRegistry()
 
 def default() -> MetricsRegistry:
     return _DEFAULT
+
+
+def counter(name: str, help: str = "") -> Counter:
+    return _DEFAULT.counter(name, help)
+
+
+def gauge(name: str, help: str = "") -> Gauge:
+    return _DEFAULT.gauge(name, help)
+
+
+def histogram(name: str, help: str = "",
+              buckets: Sequence[float] = DEFAULT_BUCKETS) -> Histogram:
+    return _DEFAULT.histogram(name, help, buckets=buckets)

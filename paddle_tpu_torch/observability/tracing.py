@@ -15,9 +15,11 @@ cow_copy, shed):
 - **Thread-correct parentage.** The current-span stack is thread-local;
   an explicit ``parent=`` crosses threads.
 
-The exporter renders the buffer as Chrome trace-event JSON
-(:func:`records_to_chrome`, :meth:`Tracer.export_chrome`) loadable in
-Perfetto, with span events as instant markers.
+The exporters write the buffer as span JSONL (:meth:`Tracer.export_jsonl`,
+the reference's record schema, checked by :func:`validate_trace_log`) and
+as Chrome trace-event JSON (:func:`records_to_chrome`,
+:meth:`Tracer.export_chrome`, offline :func:`chrome_trace_from_jsonl`)
+loadable in Perfetto, with span events as instant markers.
 """
 
 from __future__ import annotations
@@ -32,6 +34,9 @@ from typing import Any, Dict, Iterable, List, Optional
 
 # span/trace id 0 is reserved for "none" (the no-op span advertises it)
 _NO_ID = 0
+
+# bumped when the span JSONL record shape changes incompatibly
+TRACE_SCHEMA_VERSION = 1
 
 
 class Span:
@@ -329,6 +334,27 @@ class Tracer:
                             "dropped": self.dropped}
         return out
 
+    def export_jsonl(self, path: str) -> int:
+        """Append every buffered span to a JSONL file after one
+        ``trace_meta`` line, one flushed line per span (a crash loses at
+        most the partial final line, as the run log). Returns spans
+        written."""
+        d = os.path.dirname(os.path.abspath(path))
+        os.makedirs(d, exist_ok=True)
+        spans = self.spans()
+        with open(path, "a", encoding="utf-8") as f:
+            f.write(json.dumps(
+                {"kind": "trace_meta",
+                 "schema_version": TRACE_SCHEMA_VERSION,
+                 "ts": time.time(), "capacity": self.capacity,
+                 "dropped": self.dropped}) + "\n")
+            f.flush()
+            for s in spans:
+                f.write(json.dumps(s.to_record(), sort_keys=True,
+                                   default=str) + "\n")
+                f.flush()
+        return len(spans)
+
     def export_chrome(self, path: str) -> str:
         d = os.path.dirname(os.path.abspath(path))
         os.makedirs(d, exist_ok=True)
@@ -348,6 +374,74 @@ def _jsonable_dict(d: Dict[str, Any]) -> Dict[str, Any]:
             except Exception:
                 out[k] = str(v)
     return out
+
+
+# -- trace JSONL schema validation (check_metrics_log --trace) -------------
+
+_SPAN_REQUIRED = {
+    "trace_id": (int,),
+    "span_id": (int,),
+    "parent_id": (int,),
+    "name": (str,),
+    "ts": (int, float),
+    "dur_s": (int, float),
+}
+
+
+def validate_trace_record(rec: Dict[str, Any], *, index: int = 0):
+    """Schema-check one trace JSONL record; raises ValueError with a
+    precise message."""
+
+    def fail(msg):
+        raise ValueError(f"trace record {index}: {msg} (record={rec!r})")
+
+    if not isinstance(rec, dict):
+        fail("not a JSON object")
+    kind = rec.get("kind")
+    if kind == "trace_meta":
+        if not isinstance(rec.get("schema_version"), int):
+            fail("trace_meta missing integer 'schema_version'")
+        return
+    if kind != "span":
+        fail(f"unknown kind {kind!r} (expected 'span' or 'trace_meta')")
+    for field, types in _SPAN_REQUIRED.items():
+        v = rec.get(field)
+        if not isinstance(v, types) or isinstance(v, bool):
+            fail(f"missing/mistyped span field {field!r}")
+    if rec["dur_s"] < 0:
+        fail(f"negative dur_s: {rec['dur_s']}")
+    if rec["span_id"] == rec["parent_id"]:
+        fail("span is its own parent")
+    for ev in rec.get("events", ()):
+        if not isinstance(ev, dict) or not isinstance(ev.get("name"), str) \
+                or not isinstance(ev.get("ts"), (int, float)):
+            fail(f"malformed event {ev!r}")
+    if rec["name"] == "router.handoff":
+        # a handoff span rides the request's trace id and names its
+        # source; a placed handoff also names its decode destination
+        attrs = rec.get("attrs") or {}
+        if not attrs.get("src"):
+            fail("router.handoff span missing 'src' attr")
+        if rec["trace_id"] == 0:
+            fail("router.handoff span is off the request's trace "
+                 "(trace_id=0)")
+        if rec.get("status", "ok") == "ok" and not attrs.get("dst"):
+            fail("placed router.handoff span missing 'dst' attr")
+
+
+def validate_trace_log(path: str, *, require_spans: int = 0) -> int:
+    """Validate every record of a span JSONL export; returns the span
+    count. A trailing partial line (crash artifact) is tolerated."""
+    from paddle_tpu_torch.observability import runlog
+    spans = 0
+    for i, rec in enumerate(runlog.read_run_log(path)):
+        validate_trace_record(rec, index=i)
+        if rec.get("kind") == "span":
+            spans += 1
+    if spans < require_spans:
+        raise ValueError(
+            f"{path}: {spans} span records < required {require_spans}")
+    return spans
 
 
 def chrome_trace_valid(trace: Dict[str, Any], *, require_events: int = 0):
@@ -373,8 +467,8 @@ def chrome_trace_valid(trace: Dict[str, Any], *, require_events: int = 0):
 def records_to_chrome(records: Iterable[Dict[str, Any]]
                       ) -> Dict[str, Any]:
     """Span JSONL records (``Span.to_record`` shape) → Chrome trace-
-    event JSON: the one function behind :meth:`Tracer.to_chrome` and
-    the flight recorder's bundles."""
+    event JSON: the one function behind :meth:`Tracer.to_chrome`,
+    :func:`chrome_trace_from_jsonl` and the flight recorder's bundles."""
     pid = os.getpid()
     tids: Dict[str, int] = {}
     events: List[Dict[str, Any]] = []
@@ -397,6 +491,15 @@ def records_to_chrome(records: Iterable[Dict[str, Any]]
                                         trace_id=r["trace_id"],
                                         span_id=r["span_id"])})
     return {"traceEvents": events, "displayTimeUnit": "ms"}
+
+
+def chrome_trace_from_jsonl(path: str, out_path: str) -> str:
+    """Offline conversion: span JSONL export → Chrome trace file."""
+    from paddle_tpu_torch.observability import runlog
+    recs = [r for r in runlog.read_run_log(path) if r.get("kind") == "span"]
+    with open(out_path, "w", encoding="utf-8") as f:
+        json.dump(records_to_chrome(recs), f)
+    return out_path
 
 
 # -- process-wide default tracer (disabled until someone enables it) -------

@@ -1,6 +1,7 @@
 """Optimizers (``paddle_tpu/optimizer/__init__.py``): the reference's update
 rules as ``torch.optim.Optimizer`` subclasses over each parameter's
-``.grad``, its wrappers and averagers, and ``recompute``.
+``.grad``, its wrappers and averagers, and ``recompute`` with the saving
+policies of ``jax.checkpoint_policies`` (:data:`checkpoint_policies`).
 
 As in the reference, one ``step()``: applies the regularizer (a gradient
 transform), then the gradient clip, then increments the step count and
@@ -45,6 +46,9 @@ whole tensors' as in the reference's GSPMD step.
 from __future__ import annotations
 
 import collections
+import contextlib
+import functools
+import types
 from typing import Callable, Dict, List, Optional
 
 import torch
@@ -66,8 +70,8 @@ __all__ = ["DGC", "Adadelta", "AdadeltaOptimizer", "Adagrad",
            "LambOptimizer", "LarsMomentum", "LarsMomentumOptimizer",
            "LookaheadOptimizer", "ModelAverage", "Momentum",
            "MomentumOptimizer", "Optimizer", "RMSProp", "RMSPropOptimizer",
-           "SGD", "SGDOptimizer", "compression", "global_norm",
-           "lr_scheduler", "recompute"]
+           "SGD", "SGDOptimizer", "checkpoint_policies", "compression",
+           "global_norm", "lr_scheduler", "recompute"]
 
 
 def _store(holder: dict, key, new: torch.Tensor):
@@ -606,24 +610,129 @@ class ModelAverage:
         return [s.float() / c for s in self.sum]
 
 
+class _SavingPolicy:
+    """A selective-checkpoint policy (``torch.utils.checkpoint``'s
+    ``policy_fn(ctx, op, *args, **kwargs)``) named as its counterpart in
+    ``jax.checkpoint_policies``: it keeps the output of every op it
+    ``saves`` for the backward and lets the recompute rebuild the rest."""
+
+    def __init__(self, name: str, saves: Callable):
+        self.name = name
+        self.saves = saves
+
+    def __call__(self, ctx, op, *args, **kwargs):
+        from torch.utils.checkpoint import CheckpointPolicy
+        return (CheckpointPolicy.MUST_SAVE if self.saves(op)
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+
+    def __repr__(self):
+        return f"checkpoint_policies.{self.name}"
+
+
+def _packet(op):
+    return getattr(op, "overloadpacket", op)
+
+
+def _dots(batch_dims: bool) -> Callable:
+    """Whether an op is a matrix product (JAX's ``dot_general``); with
+    ``batch_dims=False`` only those without batch dimensions (``mm``,
+    ``addmm``: a matmul of (B, S, D) by (D, F) reaches the dispatcher as
+    one ``mm`` over B x S rows, as JAX contracts it with no batch dim).
+    The registered kernels (``ptt::flash_*``, ``ptt::paged_*``) are no
+    dots, as a ``pallas_call`` is none in JAX."""
+    aten = torch.ops.aten
+    ops = {aten.mm, aten.addmm, aten.matmul}
+    if batch_dims:
+        ops |= {aten.bmm, aten.baddbmm}
+    return lambda op: _packet(op) in ops
+
+
+#: the saving policies ``recompute(fn, policy=)`` takes, named as
+#: ``jax.checkpoint_policies``
+checkpoint_policies = types.SimpleNamespace(
+    nothing_saveable=_SavingPolicy("nothing_saveable", lambda op: False),
+    everything_saveable=_SavingPolicy("everything_saveable",
+                                      lambda op: True),
+    dots_saveable=_SavingPolicy("dots_saveable", _dots(True)),
+    dots_with_no_batch_dims_saveable=_SavingPolicy(
+        "dots_with_no_batch_dims_saveable", _dots(False)),
+)
+
+
+def _context_fn(policy) -> Callable:
+    """``torch.utils.checkpoint.checkpoint``'s ``context_fn`` for a saving
+    policy (None or ``nothing_saveable``: plain recompute)."""
+    from torch.utils import checkpoint
+    if policy is None or policy is checkpoint_policies.nothing_saveable:
+        return checkpoint.noop_context_fn
+    if not callable(policy):
+        raise TypeError(f"policy must be one of optimizer."
+                        f"checkpoint_policies, got {policy!r}")
+    return functools.partial(checkpoint.create_selective_checkpoint_contexts,
+                             policy)
+
+
+def _held_tensors(owner) -> Dict[tuple, torch.Tensor]:
+    """The parameters and buffers a module holds right now, by (module,
+    slot kind, name): under ``torch.func.functional_call`` (a train
+    step's compute-dtype casts, a sharded step's gathered views) these
+    are the swapped-in tensors."""
+    if not isinstance(owner, torch.nn.Module):
+        return {}
+    return {(mod, kind, n): t for mod in owner.modules()
+            for kind in ("_parameters", "_buffers")
+            for n, t in getattr(mod, kind).items() if t is not None}
+
+
+@contextlib.contextmanager
+def _holding(slots, tensors):
+    """``tensors`` in the module ``slots`` for the block's length."""
+    old = []
+    try:
+        for (mod, kind, n), t in zip(slots, tensors):
+            held = getattr(mod, kind)
+            old.append((held, n, held[n]))
+            held[n] = t
+        yield
+    finally:
+        for held, n, t in reversed(old):
+            held[n] = t
+
+
 def recompute(fn, policy=None):
     """Activation recomputation: ``fn`` under
     ``torch.utils.checkpoint.checkpoint(use_reentrant=False)``, its
-    activations recomputed in the backward. The reference's ``policy`` (a
-    ``jax.checkpoint`` saving policy over primitives) has no PyTorch
-    counterpart: anything but None raises."""
-    import functools
-
+    activations recomputed in the backward. ``policy``, one of
+    :data:`checkpoint_policies`, keeps the outputs of the ops it saves
+    (selective checkpointing), as ``jax.checkpoint(fn, policy=)`` keeps
+    its residuals; None recomputes everything, as ``jax.checkpoint(fn)``,
+    and ``everything_saveable`` runs ``fn`` as it is (nothing to
+    recompute; the residuals are what autograd keeps anyway). Keyword
+    tensors enter the checkpoint as arguments too, so the RNG state of
+    their device is saved and restored around the recompute (dropout
+    draws the same masks twice). Where ``fn`` is a module's bound method
+    (``recompute(layer.forward)``, per block), the tensors the module
+    holds when it runs are its arguments as well, as the parameters are
+    a JAX function's: the recompute reads them again even where a train
+    step had swapped in compute-dtype casts only for the forward."""
     from torch.utils import checkpoint
 
-    if policy is not None:
-        raise NotImplementedError("jax.checkpoint policies have no PyTorch "
-                                  "counterpart; pass policy=None")
+    if policy is checkpoint_policies.everything_saveable:
+        return fn
+    context_fn = _context_fn(policy)
 
     @functools.wraps(fn)
     def wrapped(*args, **kwargs):
-        return checkpoint.checkpoint(fn, *args, use_reentrant=False,
-                                     **kwargs)
+        held = _held_tensors(getattr(fn, "__self__", None))
+        slots, keys = list(held), list(kwargs)
+        m, n = len(slots), len(slots) + len(args)
+
+        def run(*values):
+            with _holding(slots, values[:m]):
+                return fn(*values[m:n], **dict(zip(keys, values[n:])))
+        return checkpoint.checkpoint(run, *held.values(), *args,
+                                     *kwargs.values(), use_reentrant=False,
+                                     context_fn=context_fn)
     return wrapped
 
 

@@ -291,7 +291,8 @@ class ExpertPlacement:
     block is read over."""
 
     def __init__(self, mesh, layout: TokenLayout, *, ep_split: bool,
-                 tp_split: bool, whole: Optional[Dict[str, tuple]] = None):
+                 tp_split: bool, whole: Optional[Dict[str, tuple]] = None,
+                 router_split: tuple = ()):
         self.mesh, self.layout = mesh, layout
         #: this rank's row block (batch axes, major first) and their count
         self.shard, n_rows = _major_first(mesh, layout.batch)
@@ -307,6 +308,8 @@ class ExpertPlacement:
                                                          mesh_lib.ALL_AXES)
                                  if a not in layout.axes)
         self.whole = dict(whole or {})
+        #: ``(axis, dim)`` pairs the router is split on ("ep"/"tp")
+        self.router_split = tuple(router_split)
 
     def experts(self, e: int):
         """``(lo, hi)``: the experts this rank runs."""
@@ -335,6 +338,19 @@ class ExpertPlacement:
                           if a not in self.layout.axes), self.mesh)
             out.append(t)
         return out
+
+    def router(self, layer):
+        """The router whole: its blocks gathered over the axes it is
+        split on, as GSPMD gathers it. The gradient goes back to this
+        rank's block: a slice where the axis's ranks hold the same tokens
+        (each has the whole gradient), a reduce-scatter where the axis
+        splits the tokens (the step's hook then skips that axis, as for
+        an expert block)."""
+        r = layer.router
+        for axis, dim in self.router_split:
+            r = pf.gather_from(r, axis, self.mesh, dim,
+                               disjoint=axis in self.layout.axes)
+        return r
 
     def same_where_tokens_are(self, t):
         """``t`` of the first rank among those holding this rank's tokens
@@ -422,8 +438,10 @@ def _install_experts(model, specs: Dict[str, tuple], mesh,
     :class:`ExpertPlacement` on ``mesh`` (where the mesh has a live axis);
     returns how many it placed. A layout the placement does not run
     raises ``NotImplementedError`` naming it: a MoE inside a stack on a
-    pipeline, a router split over "ep" or "tp", an expert tensor split on
-    another dim than the hints'."""
+    pipeline, a router split over "ep" or "tp" on a dim shared with
+    another axis, an expert tensor split on another dim than the
+    hints'. A router split over "ep" or "tp" is gathered before routing
+    (:meth:`ExpertPlacement.router`)."""
     from paddle_tpu_torch.nn.module import layer_modules
     from paddle_tpu_torch.nn.moe import MoEFeedForward
     live = pf.live_axes(mesh, mesh_lib.ALL_AXES)
@@ -443,10 +461,19 @@ def _install_experts(model, specs: Dict[str, tuple], mesh,
 
         split = {f"{name}.{p}".lstrip("."): spec(p)
                  for p in ("router", *_EXPERT_DIMS)}
-        if _names(spec("router")) & {mesh_lib.EP, mesh_lib.TP}:
-            raise NotImplementedError(
-                f"MoE router split as {spec('router')} is not supported: "
-                f"the router is replicated over 'ep' and 'tp' ({split})")
+        router_split = []
+        for dim, entry in enumerate(spec("router") or ()):
+            axes = _names((entry,)) & {mesh_lib.EP, mesh_lib.TP}
+            if not axes:
+                continue
+            if isinstance(entry, tuple) and len(entry) > 1:
+                raise NotImplementedError(
+                    f"MoE router split as {spec('router')} is not "
+                    f"supported: over 'ep' or 'tp' a router dim is split "
+                    f"by that one axis ({split})")
+            axis = entry if isinstance(entry, str) else entry[0]
+            if axis in live:
+                router_split.append((axis, dim))
         split_on, whole = {}, {}
         for i, axis in enumerate((mesh_lib.EP, mesh_lib.TP)):
             dims = {p: _dim_naming(spec(p), axis) for p in _EXPERT_DIMS}
@@ -466,7 +493,8 @@ def _install_experts(model, specs: Dict[str, tuple], mesh,
                                                     _EXPERT_DIMS[p][i]),)
         mod.placement = ExpertPlacement(
             mesh, layout, ep_split=split_on[mesh_lib.EP],
-            tp_split=split_on[mesh_lib.TP], whole=whole)
+            tp_split=split_on[mesh_lib.TP], whole=whole,
+            router_split=tuple(router_split))
         placed += 1
     return placed
 

@@ -190,10 +190,11 @@ def group_all_reduce(x: torch.Tensor, group, *,
 
 
 def all_gather(x: torch.Tensor, axis: AxisArg = mesh_lib.DP, *,
-               concat_axis: int = 0,
+               concat_axis: int = 0, tiled: bool = True,
                mesh: Optional[DeviceMesh] = None) -> torch.Tensor:
     """c_allgather: every member's ``x`` concatenated along
-    ``concat_axis`` in axis order."""
+    ``concat_axis`` in axis order. ``tiled`` is accepted and concatenates
+    either way, as the reference's ``all_gather`` does."""
     out = x
     for a in _axes(axis):
         g = axis_group(a, mesh)

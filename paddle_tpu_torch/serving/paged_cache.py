@@ -720,6 +720,14 @@ class PagedKVCache:
                 return ("host", ent)
         return None
 
+    # -- device views -----------------------------------------------------
+
+    def device_tables(self):
+        """``(block_tables, lengths)`` as int32 tensors on the cache's
+        device (a step that takes its tables as tensors)."""
+        return (torch.as_tensor(self.block_tables, device=self.device),
+                torch.as_tensor(self.lengths, device=self.device))
+
     def check_invariants(self):
         """Allocator self-check (tests): per-page refcount equals the
         number of mappings holding it, free/cached/live partition the

@@ -447,3 +447,24 @@ def dequantize_weights(qparams, dtype=torch.float32, *,
         return node
 
     return walk(qparams)
+
+
+def quantization_error(params, qparams) -> Dict[Tuple[str, ...], float]:
+    """Per-quantized-leaf relative L2 error ``|w - deq(q)| / |w|`` by the
+    leaf's key path: the accuracy-budget check before shipping a
+    quantized artifact."""
+    deq = dequantize_weights(qparams)
+    out: Dict[Tuple[str, ...], float] = {}
+
+    def walk(a, b, q, path):
+        if isinstance(a, dict):
+            for k in a:
+                walk(a[k], b[k], q[k], path + (k,))
+        elif _is_qleaf(q):
+            a = torch.as_tensor(a, dtype=torch.float32)
+            num = float(torch.linalg.vector_norm(a - b.to(a.device)))
+            den = float(torch.linalg.vector_norm(a)) or 1.0
+            out[path] = num / den
+
+    walk(params, deq, qparams, ())
+    return out

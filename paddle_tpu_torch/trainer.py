@@ -294,20 +294,35 @@ class Trainer:
         self.log_fn(f"[trainer] emergency snapshot at step {step}")
 
     def evaluate(self, eval_step: Callable,
-                 data_iter: Iterable[Dict[str, Any]]):
+                 data_iter: Iterable[Dict[str, Any]],
+                 metrics: Optional[Dict[str, Any]] = None):
         """Run ``eval_step(model, **batch)`` over batches and return the
-        outputs."""
+        outputs; with ``metrics`` (``{name: (metric, extractor)}``, a
+        :mod:`paddle_tpu_torch.metrics` object and ``extractor(out,
+        batch) -> update args``) stream each batch into its metric and
+        return ``{name: metric.eval()}`` instead. With telemetry on, each
+        batch lands in ``eval_step_seconds``, ``eval_steps_total`` and
+        ``eval_examples_total``."""
         outs = []
-        hist = self.registry.histogram("eval_step_seconds",
-                                       "per-batch eval wall time")
-        count = self.registry.counter("eval_steps_total", "eval steps")
+        reg = self.registry if self.telemetry else None
         model = self.state["model"]
         for batch in data_iter:
             t0 = time.perf_counter()
             out = eval_step(model, **batch)
-            hist.observe(time.perf_counter() - t0)
-            count.inc()
-            outs.append(out)
+            if reg is not None:
+                reg.histogram("eval_step_seconds",
+                              "per-batch eval wall time").observe(
+                                  time.perf_counter() - t0)
+                reg.counter("eval_steps_total").inc()
+                ex, _ = _batch_counts(batch, None)
+                reg.counter("eval_examples_total").inc(ex)
+            if metrics:
+                for name, (metric, extract) in metrics.items():
+                    metric.update(*extract(out, batch))
+            else:
+                outs.append(out)
+        if metrics:
+            return {name: m.eval() for name, (m, _) in metrics.items()}
         return outs
 
     def predict(self, predict_step: Callable,

@@ -358,3 +358,23 @@ def test_routing_each_shard_alone_is_another_layer(axis, top_k, cf):
     assert abs(aux_local - float(aux["aux_loss"])) > 1e-3
     assert (float(jnp.abs(y - y_local).max()) > 0.1) == (
         (top_k, cf) in _OUTPUT_DIFFERS[axis])
+
+
+@pytest.mark.parametrize("router,sizes,spec", [
+    ((None, "ep"), {"ep": 2, "tp": 2}, None),
+    (("tp", None), {"ep": 2, "tp": 2}, None),
+    ((None, "ep"), {"ep": 4}, ("ep",))],
+    ids=["experts_over_ep", "rows_over_tp", "tokens_over_ep"])
+def test_router_split_equals_the_reference(pools, router, sizes, spec):
+    """A plan that splits the router over "ep" (its expert columns) or
+    "tp" (its rows): GSPMD gathers it before routing, and so does the
+    port; the rank keeps its block, whose gradient is its slice of the
+    whole (summed over "ep" where "ep" splits the tokens)."""
+    rules = [(r"moe/router$", router)]
+    got = _run(pools, sizes, spec=spec, rules=rules)
+    axis = next(a for a in router if a)
+    for r in got:
+        assert r["specs"]["moe.router"] == router
+        dim = router.index(axis)
+        assert r["grads"]["moe.router"].shape[dim] == \
+            r["params"]["moe.router"].shape[dim] // sizes[axis]

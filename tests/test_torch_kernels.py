@@ -399,3 +399,39 @@ def test_the_harness_runs_the_mesh_entry_in_a_group():
                 "ring_attention").atol
     finally:
         pool.close()
+
+
+def test_seeded_buckets_hold_the_prior_and_the_work():
+    """``seed_default_buckets``: three sample buckets a kernel, each the
+    prior stamped with its bytes and flops; a measured entry of the
+    current contract is kept."""
+    from paddle_tpu_torch.kernels import autotune, registry
+    tuner = autotune.KernelTuner()
+    seeded = autotune.seed_default_buckets(tuner)
+    assert set(seeded.values()) == set(registry.names())
+    for key, name in seeded.items():
+        ent = tuner.entries[key]
+        entry = registry.get(name)
+        assert ent["source"] == "prior"
+        assert ent["contract_version"] == entry.contract.version
+        assert ent["cost_prior"]["flops"] > 0
+        assert ent["cost_prior"]["traffic_bytes"] > 0
+    key = next(iter(seeded))
+    tuner.entries[key] = dict(tuner.entries[key], source="measured")
+    entry = registry.get(seeded[key])
+    args, kwargs = entry.sample_inputs(0)
+    autotune.seed_entry(tuner, entry, args, kwargs)
+    assert tuner.entries[key]["source"] == "measured"
+    assert tuner.stale_entries() == []
+
+
+def test_allowlist_file_reads_entries_without_comments(tmp_path):
+    from paddle_tpu.kernels import lint as jax_lint
+    from paddle_tpu_torch.kernels import lint
+    path = tmp_path / "allow.txt"
+    path.write_text("# header\nmod.a  # why\n\n  mod.b:ptt_x\n")
+    assert lint.load_allowlist(str(path)) == ["mod.a", "mod.b:ptt_x"] == \
+        jax_lint.load_allowlist(str(path))
+    assert lint.load_allowlist(str(tmp_path / "missing")) == []
+    assert lint.bypass_findings(allowlist=lint.load_allowlist(
+        str(tmp_path / "missing"))) == []

@@ -285,6 +285,39 @@ def test_front_door_streams_partials_and_its_netlog_validates(pair,
         assert summary["stream"] >= 4 and summary["shed"] == 0
 
 
+def test_front_door_exposition_serves_netlog_and_healthz(pair, tmp_path):
+    """F14: the front door's operator plane hangs ``/debug/netlog`` off
+    the exposition server with ``add_json``, which the port lacked."""
+    import json
+    import urllib.error
+    import urllib.request
+    log = str(tmp_path / "expo.netlog.jsonl")
+    door = _door(pair, netlog_path=log)
+    srv = door.start_exposition()
+    try:
+        with urllib.request.urlopen(srv.url + "/debug/netlog",
+                                    timeout=10) as r:
+            assert r.status == 200
+            netlog = json.loads(r.read())
+        with urllib.request.urlopen(srv.url + "/healthz", timeout=10) as r:
+            health = json.loads(r.read())
+        with pytest.raises(urllib.error.HTTPError) as e:
+            urllib.request.urlopen(srv.url + "/nowhere", timeout=10)
+        assert e.value.code == 404
+        assert "/debug/netlog" in e.value.read().decode()
+        with pytest.raises(ValueError, match="reserved"):
+            srv.add_json("/healthz", dict)
+    finally:
+        srv.stop()
+        door.close()
+    # the reference's keys: its front door's health (read off this door's
+    # counters) plus the log's path
+    want = dict(jax_net.FrontDoor.health(door), netlog_path=log)
+    assert netlog == json.loads(json.dumps(want))
+    assert set(health["providers"]) == {"frontdoor", "fleet"}
+    assert health["providers"]["frontdoor"]["accepted_total"] == 0
+
+
 def test_front_door_sheds_a_slow_reader_with_a_typed_reject(pair,
                                                             tmp_path):
     log = str(tmp_path / "slow.netlog.jsonl")

@@ -418,3 +418,106 @@ def test_tensor_arrays_and_py_func():
     assert out[1].shape == () and float(out[1]) == 30.0
     with pytest.raises(ValueError, match="shape"):
         PCF.py_func(lambda a: a, (x,), (np.zeros((3,), np.float32),))
+
+
+# -- the layers' reference options (weight_init/bias_init, FC, LayerNorm's
+# scale/shift, Embedding's padding_idx/weight_init) -----------------------
+
+def _layer_parity(jl, pl, params, x, what):
+    """forward and every parameter's gradient (of a fixed weighting of the
+    output) of the reference layer and the port's, loaded from one tree,
+    fp32 at rtol 1e-5 / atol 1e-6"""
+    load_jax(pl, params)
+    assert {n for n, _ in pl.named_parameters()} == set(flat(params)), what
+    r = _rng(7)
+    jx = jnp.asarray(x)
+    jo = jl(params, jx)
+    w = r.standard_normal(jo.shape).astype(np.float32)
+    jg = jax.grad(lambda p: jnp.sum(jl(p, jx) * w))(params)
+    po = pl(torch.from_numpy(x))
+    close(po, jo, 1e-6, 1e-5, what=f"{what} forward")
+    (po * torch.from_numpy(w)).sum().backward()
+    got = {n: p.grad for n, p in pl.named_parameters()}
+    want = flat(jg)
+    assert set(got) == set(want), what
+    for name, g in got.items():
+        close(g, want[name], 1e-6, 1e-5, what=f"{what} d{name}")
+    return po
+
+
+def test_linear_inits_and_fc_are_the_reference():
+    from paddle_tpu.nn import initializer as JI
+    from paddle_tpu_torch.nn import initializer as PI
+    assert PL.FC is PL.Linear
+    jl = JL.FC(5, 3, weight_init=JI.constant(0.25),
+               bias_init=JI.constant(-0.5))
+    pl = PL.FC(5, 3, weight_init=PI.constant(0.25),
+               bias_init=PI.constant(-0.5))
+    pl.reset_parameters()
+    want = jl.init(jax.random.PRNGKey(0))
+    close(pl.weight, want["weight"], 0, 0, what="weight_init")
+    close(pl.bias, want["bias"], 0, 0, what="bias_init")
+    _layer_parity(jl, pl, init(jl, seed=3), _f(_rng(4), 2, 4, 5), "fc")
+
+
+@pytest.mark.parametrize("shape,scale,shift", [
+    (6, True, True), (6, False, True), (6, True, False), (6, False, False),
+    ((3, 4), True, True), ((3, 4), False, True)])
+def test_layer_norm_scale_shift_options(shape, scale, shift):
+    jl = JL.LayerNorm(shape, epsilon=1e-5, scale=scale, shift=shift)
+    pl = PL.LayerNorm(shape, epsilon=1e-5, scale=scale, shift=shift)
+    names = {n for n, _ in pl.named_parameters()}
+    assert names == set(init(jl)) == \
+        {n for n, on in (("scale", scale), ("bias", shift)) if on}
+    pl.reset_parameters()
+    dims = (shape,) if isinstance(shape, int) else shape
+    x = _f(_rng(5), 2, 3, *dims)
+    params = init(jl, seed=6)
+    if not params:           # no parameter: forward only
+        close(pl(torch.from_numpy(x)), jl(params, jnp.asarray(x)),
+              1e-6, 1e-5, what="bare layer norm")
+        return
+    _layer_parity(jl, pl, params, x, f"layer_norm {shape} {scale} {shift}")
+
+
+@pytest.mark.parametrize("padding_idx", [None, 0, 3])
+def test_embedding_padding_idx_and_weight_init(padding_idx):
+    from paddle_tpu.nn import initializer as JI
+    from paddle_tpu_torch.nn import initializer as PI
+    jl = JL.Embedding(7, 4, padding_idx=padding_idx,
+                      weight_init=JI.constant(0.125))
+    pl = PL.Embedding(7, 4, padding_idx, PI.constant(0.125))
+    pl.reset_parameters()
+    close(pl.weight, jl.init(jax.random.PRNGKey(0))["weight"], 0, 0,
+          what="weight_init")
+    ids = np.array([[0, 3, 5, 3, 1], [6, 0, 2, 3, 3]], np.int64)
+    params = init(jl, seed=8)
+    load_jax(pl, params)
+    jo = jl(params, jnp.asarray(ids))
+    w = _f(_rng(9), *jo.shape)
+    jg = jax.grad(lambda p: jnp.sum(jl(p, jnp.asarray(ids)) * w))(params)
+    po = pl(torch.from_numpy(ids))
+    close(po, jo, 1e-6, 1e-5, what="embedding forward")
+    (po * torch.from_numpy(w)).sum().backward()
+    close(pl.weight.grad, jg["weight"], 1e-6, 1e-5, what="embedding grad")
+    if padding_idx is not None:
+        pad = torch.from_numpy(ids == padding_idx)
+        assert bool(pad.any())
+        assert torch.count_nonzero(po[pad]) == 0
+        assert torch.count_nonzero(pl.weight.grad[padding_idx]) == 0
+        assert float(pl.weight.detach()[padding_idx].abs().sum()) > 0
+
+
+def test_sequential_and_layer_list_carry_the_reference_tree():
+    from paddle_tpu.nn import module as JM
+    from paddle_tpu_torch.nn import module as PM
+    jseq = JM.Sequential(JL.Linear(6, 5), JL.LayerNorm(5, shift=False),
+                         JL.Linear(5, 3))
+    pseq = PM.Sequential(PL.Linear(6, 5), PL.LayerNorm(5, shift=False),
+                         PL.Linear(5, 3))
+    assert isinstance(pseq.layers, PM.LayerList) and len(pseq.layers) == 3
+    params = init(jseq, seed=12)
+    _layer_parity(jseq, pseq, params, _f(_rng(13), 2, 4, 6), "sequential")
+    lst = PM.LayerList([PL.Linear(2, 2)]).append(PL.Linear(2, 2))
+    assert [n for n, _ in lst.named_parameters()] == [
+        "0.weight", "0.bias", "1.weight", "1.bias"]

@@ -8,6 +8,9 @@ AdamW decays with that new step's rate times the parameter from before
 the step; a schedule that varies per step (warmup over polynomial decay)
 catches an off-by-one in either."""
 
+import types
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -471,3 +474,182 @@ def test_recompute_matches_the_plain_function():
     lin.weight.grad = None
     opt.recompute(f)(x).backward()
     assert torch.equal(lin.weight.grad, want)
+
+
+# -- remat saving policies (``recompute(fn, policy=)``) ----------------------
+
+POLICIES = ["nothing_saveable", "dots_with_no_batch_dims_saveable",
+            "dots_saveable", "everything_saveable"]
+
+
+def _remat_inputs(block, seed=0):
+    r = np.random.default_rng(seed)
+    if block == "mlp":
+        shapes = {"w1": (8, 16), "b1": (16,), "w2": (16, 4), "b2": (4,)}
+    else:
+        shapes = {"wq": (8, 8), "wk": (8, 8), "wv": (8, 8), "wo": (8, 8)}
+    p = {k: (r.standard_normal(s) * 0.3).astype(np.float32)
+         for k, s in shapes.items()}
+    x = r.standard_normal((2, 5, 8)).astype(np.float32)
+    return p, x
+
+
+def _block(block, lib):
+    """The block written once over ``lib`` (jnp or torch)."""
+    softmax = (lambda s: torch.softmax(s, -1)) if lib is torch else \
+        (lambda s: jax.nn.softmax(s, -1))
+
+    def mlp(p, x):
+        h = lib.tanh(x @ p["w1"] + p["b1"])
+        return lib.sum(lib.tanh(h @ p["w2"] + p["b2"]) ** 2)
+
+    def attn(p, x):
+        b, s, d = x.shape
+        q, k, v = ((x @ p[n]).reshape(b, s, 2, d // 2)
+                   for n in ("wq", "wk", "wv"))
+        a = softmax(lib.einsum("bqhd,bkhd->bhqk", q, k) / 2.0)
+        o = lib.einsum("bhqk,bkhd->bqhd", a, v).reshape(b, s, d)
+        return lib.sum(lib.tanh(o @ p["wo"]) ** 2)
+
+    return mlp if block == "mlp" else attn
+
+
+class _Recorder:
+    """A policy that defers to the port's and records, in the forward,
+    the outputs of the ops it keeps."""
+
+    def __init__(self, policy):
+        self.policy, self.saved = policy, []
+
+    def __call__(self, ctx, op, *args, **kwargs):
+        from torch.utils.checkpoint import CheckpointPolicy
+        out = self.policy(ctx, op, *args, **kwargs)
+        if out == CheckpointPolicy.MUST_SAVE:
+            outs = ctx.op_output
+            for t in (outs if isinstance(outs, (tuple, list)) else [outs]):
+                if isinstance(t, torch.Tensor):
+                    self.saved.append((str(op), tuple(t.shape), t.nbytes))
+        return out
+
+
+def _autograd_kept(fn, pn, xn):
+    """``fn``'s gradients without a checkpoint, and the tensors autograd
+    keeps for its backward beyond the inputs, one entry per storage"""
+    tp = {k: torch.from_numpy(v).requires_grad_() for k, v in pn.items()}
+    x = torch.from_numpy(xn)
+    inputs = {t.untyped_storage().data_ptr() for t in (x, *tp.values())}
+    kept = {}
+
+    def pack(t):
+        ptr = t.untyped_storage().data_ptr()
+        if ptr not in inputs:
+            kept[ptr] = ("autograd", tuple(t.shape),
+                         t.untyped_storage().nbytes())
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        out = fn(tp, x)
+    out.backward()
+    return {k: v.grad for k, v in tp.items()}, list(kept.values())
+
+
+def _fold(shape):
+    """a matrix product's output as (rows, cols): torch reaches ``mm``
+    with the leading dims of ``(B, S, D) @ (D, F)`` folded into rows, and
+    ``bmm`` with the batch dims folded into one"""
+    return (int(np.prod(shape[:-1])), shape[-1])
+
+
+@pytest.mark.parametrize("block", ["mlp", "attention"])
+def test_remat_policies_keep_the_gradients_and_order_the_saved_bytes(block):
+    from jax._src.ad_checkpoint import saved_residuals
+    pn, xn = _remat_inputs(block)
+    jf, tf = _block(block, jnp), _block(block, torch)
+    jp = {k: jnp.asarray(v) for k, v in pn.items()}
+
+    def port_grads(fn):
+        tp = {k: torch.from_numpy(v).requires_grad_() for k, v in pn.items()}
+        fn(tp, torch.from_numpy(xn)).backward()
+        return {k: v.grad for k, v in tp.items()}
+
+    plain = port_grads(tf)
+    saved = {}
+    for name in POLICIES:
+        policy = getattr(opt.checkpoint_policies, name)
+        assert repr(policy) == f"checkpoint_policies.{name}"
+        if name == "everything_saveable":
+            # runs ``fn`` as it is: what it keeps is what autograd keeps
+            assert opt.recompute(tf, policy=policy) is tf
+            got, kept = _autograd_kept(tf, pn, xn)
+            rec = types.SimpleNamespace(saved=kept)
+        else:
+            rec = _Recorder(policy)
+            got = port_grads(opt.recompute(tf, policy=rec))
+        jpol = getattr(jax.checkpoint_policies, name)
+        want = jax.grad(jopt.recompute(jf, policy=jpol))(jp, jnp.asarray(xn))
+        for k in pn:
+            np.testing.assert_allclose(got[k].numpy(), plain[k].numpy(),
+                                       rtol=1e-6, atol=1e-6,
+                                       err_msg=f"{name} {k} vs no remat")
+            np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]),
+                                       rtol=1e-5, atol=1e-6,
+                                       err_msg=f"{name} {k} vs reference")
+        saved[name] = rec.saved
+        if name.startswith("dots"):
+            # the matrix products kept, against the reference's residuals
+            # (its inputs aside): the same products, one for one by size;
+            # as shapes, folded as torch reaches mm (the MLP), while an
+            # einsum's bmm may order its free dims otherwise than JAX's
+            # dot_general (the attention's second einsum)
+            res = [tuple(a.shape) for a, src in saved_residuals(
+                jopt.recompute(jf, policy=jpol), jp, jnp.asarray(xn))
+                if "from the argument" not in src]
+            assert sorted(int(np.prod(s)) for _, s, _ in rec.saved) == \
+                sorted(int(np.prod(s)) for s in res), name
+            if block == "mlp":
+                assert sorted(_fold(s) for _, s, _ in rec.saved) == \
+                    sorted(_fold(s) for s in res), name
+            assert all(op.split(".")[1] in ("mm", "addmm", "bmm")
+                       for op, _, _ in rec.saved)
+    nbytes = {n: sum(b for _, _, b in s) for n, s in saved.items()}
+    assert nbytes["nothing_saveable"] == 0
+    assert 0 < nbytes["dots_with_no_batch_dims_saveable"] <= \
+        nbytes["dots_saveable"] <= nbytes["everything_saveable"]
+    if block == "attention":    # the two score einsums carry batch dims
+        assert nbytes["dots_with_no_batch_dims_saveable"] < \
+            nbytes["dots_saveable"]
+    # no policy: plain recompute, the same gradients
+    for k, g in port_grads(opt.recompute(tf)).items():
+        assert torch.equal(g, plain[k])
+
+
+def test_dots_policy_recomputes_the_flash_op_and_everything_keeps_it(
+        monkeypatch):
+    """``ptt::flash_fwd`` is no dot (a ``pallas_call`` is none in JAX):
+    ``dots_saveable`` runs it again in the backward, ``everything``
+    keeps its output."""
+    from paddle_tpu_torch.ops import attention as A
+    calls = []
+    real = A.flash_fwd_plain
+    monkeypatch.setattr(A, "flash_fwd_plain",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    r = np.random.default_rng(3)
+    q, k, v = (torch.from_numpy(r.standard_normal((1, 2, 8, 16)).astype(
+        np.float32)).requires_grad_() for _ in range(3))
+
+    def f(q, k, v):
+        return (A.flash_attention(q, k, v) ** 2).sum()
+
+    runs = {}
+    for name in ("nothing_saveable", "dots_saveable", "everything_saveable"):
+        calls.clear()
+        opt.recompute(f, policy=getattr(opt.checkpoint_policies, name))(
+            q, k, v).backward()
+        runs[name] = len(calls)
+    assert runs == {"nothing_saveable": 2, "dots_saveable": 2,
+                    "everything_saveable": 1}
+
+
+def test_recompute_refuses_what_is_no_policy():
+    with pytest.raises(TypeError, match="checkpoint_policies"):
+        opt.recompute(lambda t: t, policy="dots_saveable")

@@ -175,3 +175,19 @@ def test_published_digests_equal_the_reference_after_the_same_traffic():
     assert (ours.block_tables == ref.block_tables).all()
     assert set(ours.published_digests()) >= set(
         prompt_prefix_digests(prompts[1], 4))
+
+
+def test_device_tables_are_the_tables_as_tensors_on_the_device():
+    cfg = dict(num_layers=1, num_heads=2, head_dim=4, num_slots=3,
+               page_size=4, num_pages=16, max_pages_per_slot=5)
+    ours = PagedKVCache(PagedCacheConfig(**cfg), device="cpu")
+    ref = jax_cache.PagedKVCache(jax_cache.PagedCacheConfig(**cfg))
+    for c in (ours, ref):
+        c.reserve(0, 9)
+        c.reserve(2, 5)
+    tables, lengths = ours.device_tables()
+    jt, jl = ref.device_tables()
+    assert isinstance(tables, torch.Tensor) and tables.device.type == "cpu"
+    assert tables.dtype == torch.int32 and lengths.dtype == torch.int32
+    np.testing.assert_array_equal(tables.numpy(), np.asarray(jt))
+    np.testing.assert_array_equal(lengths.numpy(), np.asarray(jl))

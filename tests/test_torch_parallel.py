@@ -62,6 +62,41 @@ def test_make_mesh_needs_a_process_group():
         mesh_lib.make_mesh(mesh_lib.MeshConfig(), device_type="cpu")
 
 
+def test_single_device_mesh_and_device_counts():
+    """``single_device_mesh`` names every canonical axis at size 1, as the
+    reference's, over a one-rank group the caller starts (it starts
+    none, so a process group can still be started after it);
+    ``device_count``/``local_device_count`` count a rank as one device
+    (the card it holds) and the cards this process sees."""
+    import torch.distributed as dist
+    from paddle_tpu.core import mesh as jax_mesh
+    jm = jax_mesh.single_device_mesh()
+    assert dist.is_initialized() is False
+    assert mesh_lib.local_device_count() == (
+        torch.cuda.device_count() if torch.cuda.is_available() else 1)
+    assert mesh_lib.device_count() == mesh_lib.local_device_count()
+    with pytest.raises(RuntimeError, match="initialized"):
+        mesh_lib.single_device_mesh(device_type="cpu")
+    assert dist.is_initialized() is False
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        m = mesh_lib.single_device_mesh(device_type="cpu")
+        assert m.mesh_dim_names == tuple(jm.axis_names) == mesh_lib.ALL_AXES
+        assert tuple(m.shape) == tuple(jm.devices.shape) == (1,) * 6
+        assert mesh_lib.device_count() == dist.get_world_size() == 1
+        with mesh_lib.mesh_context(m):
+            x = torch.arange(4.0)
+            assert torch.equal(C.all_reduce(x.clone(), "tp"), x)
+            assert torch.equal(C.all_gather(x, "dp", tiled=False), x)
+        dp = mesh_lib.make_mesh(device_type="cpu", axis_names=("dp",),
+                                shape=(1,))
+        assert dp.mesh_dim_names == ("dp",) and tuple(dp.shape) == (1,)
+    finally:
+        dist.destroy_process_group()
+    assert jax_mesh.device_count() >= jax_mesh.local_device_count() >= 1
+
+
 def test_mesh_config_matches_the_reference():
     for kw in ({}, {"tp": 2}, {"dp": 2, "tp": 4}, {"fsdp": 8}):
         ours, ref = mesh_lib.MeshConfig(**kw), JaxMeshConfig(**kw)
@@ -90,6 +125,8 @@ def _want(op, n):
         return [np.prod(xs, 0)] * n
     if op == "all_gather":
         return [np.concatenate(xs, 1)] * n
+    if op == "all_gather_untiled":
+        return [np.concatenate(xs, 1)] * n
     if op == "reduce_scatter":
         return list(np.split(np.sum(xs, 0), n, axis=0))
     if op == "broadcast":
@@ -110,8 +147,8 @@ def _want(op, n):
 
 
 OPS = ["sum", "max", "min", "prod", "sum_over_two_axes", "all_gather",
-       "reduce_scatter", "broadcast", "all_to_all", "ppermute",
-       "ppermute_partial", "barrier"]
+       "all_gather_untiled", "reduce_scatter", "broadcast", "all_to_all",
+       "ppermute", "ppermute_partial", "barrier"]
 
 
 @pytest.mark.parametrize("n", [2, 4])
@@ -121,6 +158,28 @@ def test_collective_matches_numpy(pools, op, n):
     for r, (g, w) in enumerate(zip(got, _want(op, n))):
         np.testing.assert_allclose(g, w, rtol=1e-6, atol=1e-6,
                                    err_msg=f"{op} rank {r}")
+
+
+@pytest.mark.parametrize("tiled", [False, True])
+def test_all_gather_equals_the_references_on_a_jax_mesh(pools, tiled):
+    """``all_gather(tiled=)`` on a 2-rank gloo group against the
+    reference's ``parallel.collective.all_gather(tiled=)`` on a 2-device
+    CPU mesh over the same input on every member (the reference's takes
+    a replicated input): both concatenate, whatever the flag."""
+    import jax.numpy as jnp
+
+    from paddle_tpu.parallel import collective as jax_c
+    jmesh = jax_make_mesh(axis_names=("tp",), shape=(2,),
+                          devices=jax.devices()[:2])
+    x = _inputs(1)[0]
+    want = np.asarray(jax_c.all_gather(jnp.asarray(x), "tp", concat_axis=1,
+                                       tiled=tiled, mesh=jmesh))
+    op = "all_gather" if tiled else "all_gather_untiled"
+    got = pools[2].run("collective", timeout_s=30, op=op, seed=SEED,
+                       same_input=True)
+    assert want.shape == (4, 12)
+    for r in range(2):
+        np.testing.assert_array_equal(got[r], want, err_msg=f"rank {r}")
 
 
 def test_hierarchical_all_reduce_equals_one_sum(pools):

@@ -258,3 +258,26 @@ def test_qat_loss_gradients_and_convert(channel_wise):
         channel_wise=channel_wise)["conv"]["weight"]
     np.testing.assert_allclose(got.numpy().transpose(2, 3, 1, 0),
                                np.asarray(want), rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("per_channel", [True, False])
+def test_quantization_error_equals_the_reference(per_channel):
+    rng = np.random.default_rng(11)
+    params = {"enc": {"weight": rng.standard_normal((16, 8)).astype(
+                  np.float32),
+                      "bias": rng.standard_normal(8).astype(np.float32)},
+              "head": {"w": (3.0 * rng.standard_normal((8, 4))).astype(
+                  np.float32)},
+              "zero": {"weight": np.zeros((4, 4), np.float32)}}
+    want = jslim.quantization_error(
+        params, jslim.quantize_weights_int8(params, per_channel=per_channel))
+    tparams = {k: {n: torch.from_numpy(v) for n, v in d.items()}
+               for k, d in params.items()}
+    got = slim.quantization_error(
+        tparams, slim.quantize_weights_int8(tparams,
+                                            per_channel=per_channel))
+    assert set(got) == set(want) == {("enc", "weight"), ("head", "w"),
+                                     ("zero", "weight")}
+    for k in want:
+        assert abs(got[k] - want[k]) <= 1e-6 * max(want[k], 1.0), k
+    assert got[("zero", "weight")] == 0.0 and got[("enc", "weight")] > 0

@@ -268,3 +268,156 @@ def test_embedding_gradient_is_the_plain_sum_in_a_fixed_order(rows):
     assert wb.grad.dtype == torch.bfloat16
     torch.testing.assert_close(wb.grad.float(), grads[0], atol=0.1,
                                rtol=2e-2)
+
+
+def test_evaluate_streams_metrics_as_the_reference():
+    """``Trainer.evaluate(metrics=)``: the NSP head's accuracy and AUC over
+    four batches of tiny BERT stream into ``metrics.Accuracy``/``Auc``
+    in both packages from one weight tree, within 1e-6, with the eval
+    telemetry the reference records."""
+    from paddle_tpu import metrics as jmetrics
+    from paddle_tpu import observability as jobs
+    from paddle_tpu.trainer import Trainer as JaxTrainer
+    from paddle_tpu_torch import metrics
+
+    jcfg, jmodel, params = jax_bert(seed=9)
+    batches = [make_batch(jcfg, 6, 12, seed=20 + i) for i in range(4)]
+
+    def jax_eval(p, **b):
+        return jmodel(p, b["input_ids"], b["token_type_ids"],
+                      b["attention_mask"])
+
+    def jax_extract(name):
+        def extract(out, batch):
+            nsp = np.asarray(out[1])
+            if name == "acc":
+                return nsp, np.asarray(batch["nsp_labels"])
+            prob = np.exp(nsp[:, 1]) / np.exp(nsp).sum(-1)
+            return prob, np.asarray(batch["nsp_labels"])
+        return extract
+
+    jreg = jobs.default()
+    jsteps0 = jreg.counter("eval_steps_total").value()
+    jex0 = jreg.counter("eval_examples_total").value()
+    jtrainer = JaxTrainer(None, {"params": params}, log_fn=lambda s: None)
+    want = jtrainer.evaluate(
+        jax.jit(jax_eval), [{k: jnp.asarray(v) for k, v in b.items()}
+                            for b in batches],
+        metrics={"acc": (jmetrics.Accuracy(), jax_extract("acc")),
+                 "auc": (jmetrics.Auc(num_thresholds=255),
+                         jax_extract("auc"))})
+    assert jreg.counter("eval_steps_total").value() - jsteps0 == 4
+    assert jreg.counter("eval_examples_total").value() - jex0 == 24
+
+    def port_extract(name):
+        def extract(out, batch):
+            nsp = out[1]
+            if name == "acc":
+                return nsp, batch["nsp_labels"]
+            return torch.softmax(nsp, -1)[:, 1], batch["nsp_labels"]
+        return extract
+
+    model = _port_bert(params)
+    state = make_train_state(model, opt.SGD(model.parameters(), 0.1))
+    reg = MetricsRegistry()
+    trainer = Trainer(None, state, registry=reg, log_fn=lambda s: None)
+    got = trainer.evaluate(
+        build_eval_step(lambda m, **b: m(b["input_ids"],
+                                         b["token_type_ids"],
+                                         b["attention_mask"])),
+        [torch_batch(b) for b in batches],
+        metrics={"acc": (metrics.Accuracy(), port_extract("acc")),
+                 "auc": (metrics.Auc(num_thresholds=255),
+                         port_extract("auc"))})
+    assert set(got) == set(want) == {"acc", "auc"}
+    for k in want:
+        assert abs(got[k] - float(want[k])) <= 1e-6, (k, got[k], want[k])
+    assert 0.0 < got["auc"] < 1.0
+    assert reg.counter("eval_steps_total").value() == 4
+    assert reg.counter("eval_examples_total").value() == 24
+    assert reg.histogram("eval_step_seconds").summary()["count"] == 4
+    quiet = MetricsRegistry()
+    outs = Trainer(None, state, registry=quiet, telemetry=False).evaluate(
+        build_eval_step(lambda m, **b: m(b["input_ids"])),
+        [torch_batch(batches[0])])
+    assert len(outs) == 1 and quiet.metrics() == []
+
+
+@pytest.mark.parametrize("name", ["full", "bf16", "bf16_full"])
+def test_policy_casts_and_is_floating_equal_the_reference(name):
+    pol, jpol = dtypes.get_policy(name), jdtypes.get_policy(name)
+    tree = {"x": np.ones(2, np.float32), "h": np.ones(1, np.float16),
+            "ids": np.ones(2, np.int32), "m": np.ones(2, bool)}
+    ttree = {k: torch.from_numpy(v) for k, v in tree.items()}
+    for cast in ("cast_to_compute", "cast_to_param", "cast_to_output"):
+        want = getattr(jpol, cast)({k: jnp.asarray(v)
+                                    for k, v in tree.items()})
+        got = getattr(pol, cast)(ttree)
+        for k in tree:
+            assert str(got[k].dtype).replace("torch.", "") == \
+                str(want[k].dtype), (cast, k)
+    for dt in ("float32", "bfloat16", "float16", "float64", "int8", "int32",
+               "int64", "bool", "uint8", "complex64", np.float32, np.int64):
+        assert dtypes.is_floating(dt) == jdtypes.is_floating(dt), dt
+    assert dtypes.is_floating(torch.bfloat16)
+
+
+@pytest.mark.parametrize("policy", ["nothing_saveable", "dots_saveable",
+                                    "dots_with_no_batch_dims_saveable",
+                                    "everything_saveable"])
+def test_remat_policy_steps_equal_the_plain_step(policy):
+    """``recompute(layer.forward, policy=<saving policy>)`` on every
+    encoder layer of tiny BERT: two AdamW steps (dropout on, so the
+    recompute must draw the same masks) give the plain step's losses and
+    parameters within 1e-6."""
+    _, _, params = jax_bert(seed=11)
+    batches = [torch_batch(make_batch(BertConfig.tiny(), 2, 16, seed=s))
+               for s in (4, 5)]
+    runs = {}
+    for remat in (False, True):
+        model = BertForPretraining.from_jax(
+            BertConfig.tiny(dropout=0.1, attn_dropout=0.0),
+            jax.device_get(params), device="cpu")
+        if remat:
+            for layer in model.bert.encoder:
+                layer.forward = opt.recompute(
+                    layer.forward,
+                    policy=getattr(opt.checkpoint_policies, policy))
+        state = make_train_state(model, opt.AdamW(model.parameters(), 1e-3))
+        step = build_train_step(_bert_loss, state["opt"])
+        torch.manual_seed(0)
+        losses = [float(step(state, **b)[1]["loss"]) for b in batches]
+        runs[remat] = (losses, [p.detach().clone()
+                                for p in model.parameters()])
+    np.testing.assert_allclose(runs[True][0], runs[False][0], rtol=1e-6)
+    for a, b in zip(runs[True][1], runs[False][1]):
+        torch.testing.assert_close(a, b, atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.parametrize("policy", ["nothing_saveable", "dots_saveable"])
+def test_per_layer_recompute_under_the_bf16_policy(policy):
+    """``recompute(layer.forward, policy=)`` on every encoder layer of
+    tiny BERT inside a bf16-policy train step: the recompute reads the
+    forward's compute-dtype casts (the step swaps them in only for the
+    forward), so two steps give the plain step's losses and parameters
+    bit for bit."""
+    _, _, params = jax_bert(seed=12)
+    batches = [torch_batch(make_batch(BertConfig.tiny(), 2, 16, seed=s))
+               for s in (6, 7)]
+    runs = {}
+    for remat in (False, True):
+        model = _port_bert(params)
+        if remat:
+            for layer in model.bert.encoder:
+                layer.forward = opt.recompute(
+                    layer.forward,
+                    policy=getattr(opt.checkpoint_policies, policy))
+        state = make_train_state(model, opt.AdamW(model.parameters(), 1e-3))
+        step = build_train_step(_bert_loss, state["opt"],
+                                policy=dtypes.get_policy("bf16"))
+        losses = [float(step(state, **b)[1]["loss"]) for b in batches]
+        runs[remat] = (losses, [p.detach().clone()
+                                for p in model.parameters()])
+    assert runs[True][0] == runs[False][0]
+    for a, b in zip(runs[True][1], runs[False][1]):
+        assert torch.equal(a, b)

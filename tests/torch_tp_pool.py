@@ -162,12 +162,14 @@ def _local_input(seed, rank, shape=(4, 6)):
         shape).astype(np.float32)
 
 
-def collective(rank, n, op, seed):
-    """One collective over this rank's seeded input; returns the output."""
+def collective(rank, n, op, seed, same_input=False):
+    """One collective over this rank's seeded input (rank 0's on every
+    rank with ``same_input``); returns the output."""
     import torch
     from paddle_tpu_torch.core import mesh as mesh_lib
     from paddle_tpu_torch.parallel import collective as C
-    x = torch.from_numpy(_local_input(seed, rank))
+    src = 0 if same_input else rank
+    x = torch.from_numpy(_local_input(seed, src))
     if op == "hierarchical":
         m = mesh_lib.make_mesh(axis_names=("dcn", "dp"), shape=(2, n // 2),
                                device_type="cpu")
@@ -181,6 +183,8 @@ def collective(rank, n, op, seed):
             out = C.all_reduce(x, ("dp", "tp"))
         elif op == "all_gather":
             out = C.all_gather(x, "tp", concat_axis=1)
+        elif op == "all_gather_untiled":
+            out = C.all_gather(x, "tp", concat_axis=1, tiled=False)
         elif op == "reduce_scatter":
             out = C.reduce_scatter(x, "tp", scatter_axis=0)
         elif op == "broadcast":
@@ -196,7 +200,7 @@ def collective(rank, n, op, seed):
             out = x
         else:
             raise ValueError(op)
-        assert np.array_equal(x.numpy(), _local_input(seed, rank)), \
+        assert np.array_equal(x.numpy(), _local_input(seed, src)), \
             "the input changed"
         return out.numpy()
 
@@ -1630,7 +1634,8 @@ def moe_trace(rank, n, params, cfg, sizes, batch, batch_spec=None):
 
 def moe_refusals(rank, n, params, cfg):
     """The layouts a placed MoE refuses, each error's text: a MoE inside a
-    stack on a pipeline over "pp", a router split over "ep"."""
+    stack on a pipeline over "pp" (a router split over "ep" is also
+    tried, and runs: it is gathered before routing)."""
     import torch
     from paddle_tpu_torch import train
     from paddle_tpu_torch.nn.module import StackedLayers, sharding_specs
